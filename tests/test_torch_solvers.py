@@ -1,0 +1,215 @@
+"""The port's solver entry points: the MST slice as a whole, distributions,
+an exact Boltzmann check, determinism and refusals.
+
+The port's solvers draw from the Pallas counter hash, so they equal JAX
+compositions of the pure-JAX oracles bitwise, but only in distribution the
+JAX solvers, which draw from threefry.
+"""
+
+import ast
+import itertools
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from test_pallas_split import oracle_anneal, oracle_qmc
+from montecarlosolvers_tpu.models.lattice import LatticeProblem as JLattice
+from montecarlosolvers_tpu.solvers import api as japi
+from montecarlosolvers_tpu.solvers import qmc as jqmc
+from montecarlosolvers_tpu_torch import convert
+from montecarlosolvers_tpu_torch import schedules as tsched
+from montecarlosolvers_tpu_torch.models import instances as tinst
+from montecarlosolvers_tpu_torch.solvers import api, qmc, sa
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def jax_torus(L, seed):
+    r = np.random.default_rng(seed)
+    return JLattice.from_planes(r.normal(size=(L, L)), r.normal(size=(L, L)))
+
+
+def port_of(lat):
+    return convert.lattice_from_arrays(
+        np.asarray(lat.j_right), np.asarray(lat.j_down),
+        np.asarray(lat.h_plane), col_wrap=lat.col_wrap)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_mst_piqmc_slice_equals_jax_composition(seed):
+    """solve("piqmc") at L = 16, P = 4 (pre-anneal with mcsteps = 100,
+    replication, PIQMC with global moves, best-slice readout) against the
+    same chain in JAX: oracle_anneal -> qmc.replicate -> oracle_qmc ->
+    best slice. pt = 2.9 keeps the pre-anneal to 3 temperatures (300
+    sweeps) for the oracle's sake; the seeds and initial states are the ones
+    the port's generator draws."""
+    L, P, reads, sweeps, pt = 16, 4, 4, 30, 2.9
+    jlat = jax_torus(L, seed + 10)
+    ss = api.solve(port_of(jlat), "piqmc", num_reads=reads, sweeps=sweeps,
+                   slices=P, pt=pt, seed=seed)
+
+    gen = torch.Generator().manual_seed(seed)
+    s0 = sa.random_state(gen, L * L, batch=(reads,)).numpy()
+    seed_pre, seed_qmc = sa.draw_seed(gen), sa.draw_seed(gen)
+    pre = np.repeat(tsched.pre_anneal_schedule(3.0, pt).numpy(), 100)
+    gamma = tsched.transverse_field(3.0, 1e-8, sweeps).numpy()
+    s1 = oracle_anneal(jlat, pre, jnp.asarray(s0), seed_pre)
+    confs = oracle_qmc(jlat, gamma, np.ones_like(gamma), pt / P,
+                       jqmc.replicate(s1, P), seed_qmc, global_moves=True)
+    es = np.asarray(jlat.energy(confs))  # (reads, P)
+    best = es.argmin(axis=-1)
+    states = np.asarray(confs)[np.arange(reads), best]
+    energies = es[np.arange(reads), best]
+    order = np.argsort(energies)
+    assert np.array_equal(ss.samples, states[order])
+    np.testing.assert_allclose(ss.energies, energies[order], rtol=1e-6)
+    np.testing.assert_allclose(
+        ss.energies.min(),
+        float(jnp.min(jqmc.best_slice_energy(jlat, confs))), rtol=1e-6)
+
+
+def test_sa_distribution_matches_jax_solver():
+    """Mean final energy of solve("sa") at L = 16, 256 reads, tau = 200,
+    within 4 combined standard errors of the JAX solver's."""
+    jlat = jax_torus(16, 7)
+    port = api.solve(port_of(jlat), "sa", num_reads=256, sweeps=200, seed=1)
+    ref = japi.solve(jlat, "sa", num_reads=256, sweeps=200, seed=1)
+    se = np.hypot(port.energies.std(ddof=1), ref.energies.std(ddof=1)) / 16
+    assert abs(port.energies.mean() - ref.energies.mean()) < 4 * se
+
+
+def test_sa_samples_exact_boltzmann_mean():
+    """4 x 4 torus at constant T = 1.5: the time-averaged energy of
+    sa.anneal against the exact mean over all 2^16 states, within 4
+    standard errors of the per-chain (batch) means."""
+    L, temp, chains = 4, 1.5, 256
+    lat = tinst.gaussian_torus(L, seed=3)
+    jr, jd = lat.j_right.double().numpy(), lat.j_down.double().numpy()
+    states = np.array(list(itertools.product((-1.0, 1.0), repeat=L * L)))
+    sp = states.reshape(-1, L, L)
+    e_all = ((jr * sp * np.roll(sp, -1, axis=-1)).sum(axis=(1, 2))
+             + (jd * sp * np.roll(sp, -1, axis=-2)).sum(axis=(1, 2)))
+    w = np.exp(-(e_all - e_all.min()) / temp)
+    exact = float((w * e_all).sum() / w.sum())
+
+    gen = torch.Generator().manual_seed(0)
+    s = sa.random_state(gen, L * L, batch=(chains,))
+    s = sa.anneal(lat, torch.full((100,), temp), s, gen)  # burn-in
+    samples = []
+    for _ in range(150):
+        s = sa.anneal(lat, torch.full((2,), temp), s, gen)
+        samples.append(lat.energy(s).double().numpy())
+    chain_means = np.mean(samples, axis=0)
+    se = chain_means.std(ddof=1) / np.sqrt(chains)
+    assert abs(chain_means.mean() - exact) < 4 * se, (chain_means.mean(),
+                                                      exact, se)
+
+
+def test_ferromagnet_ground_states_through_solve():
+    L = 16
+    ferro = convert.lattice_from_arrays(-np.ones((L, L)), -np.ones((L, L)),
+                                        np.zeros((L, L)))
+    assert api.solve(ferro, "sa", num_reads=4, sweeps=200,
+                     seed=2).best_energy == -2.0 * L * L
+    ss = api.solve(ferro, "piqmc", num_reads=2, sweeps=100, slices=4,
+                   pt=2.9, seed=2)
+    assert ss.best_energy == -2.0 * L * L
+
+
+def test_determinism_and_valid_spins():
+    lat = tinst.gaussian_torus(10, seed=1)
+    x = api.solve(lat, "sa", num_reads=8, sweeps=50, seed=3)
+    y = api.solve(lat, "sa", num_reads=8, sweeps=50, seed=3)
+    z = api.solve(lat, "sa", num_reads=8, sweeps=50, seed=4)
+    assert set(np.unique(x.samples)) <= {-1.0, 1.0}
+    assert x.samples.shape == (8, 100) and len(x) == 8
+    assert np.array_equal(x.samples, y.samples)
+    assert not np.array_equal(x.samples, z.samples)
+    assert np.all(np.diff(x.energies) >= 0)
+    g1, g2 = torch.Generator().manual_seed(9), torch.Generator().manual_seed(9)
+    c = qmc.replicate(sa.random_state(g1, 100, batch=(2,)), 4)
+    sa.random_state(g2, 100, batch=(2,))
+    a = tsched.transverse_field(3.0, 1e-8, 20)
+    out1 = qmc.anneal(lat, a, torch.ones_like(a), 0.25, c, g1,
+                      global_moves=True)
+    out2 = qmc.anneal(lat, a, torch.ones_like(a), 0.25, c, g2,
+                      global_moves=True)
+    assert torch.equal(out1, out2)
+    assert set(torch.unique(out1).tolist()) <= {-1.0, 1.0}
+    assert torch.equal(qmc.best_slice_energy(lat, out1),
+                       lat.energy(out1).min(dim=-1).values)
+
+
+def test_refusals():
+    gen = torch.Generator().manual_seed(0)
+    lat = tinst.gaussian_torus(6, seed=0)
+    sched = tsched.linear(1.0, 0.0, 3)
+    c = qmc.replicate(sa.random_state(gen, 36, batch=(2,)), 3)
+    with pytest.raises(NotImplementedError, match="odd-P"):
+        qmc.anneal(lat, sched, torch.ones_like(sched), 0.3, c, gen)
+    with pytest.raises(NotImplementedError, match="dissipative"):
+        qmc.anneal(lat, sched, torch.ones_like(sched), 0.3, c, gen,
+                   lookuptable=np.ones(2))
+    odd = tinst.gaussian_torus(5, seed=0)
+    with pytest.raises(NotImplementedError, match="odd L"):
+        sa.anneal(odd, sched, sa.random_state(gen, 25), gen)
+    with pytest.raises(NotImplementedError, match="odd L"):
+        api.solve(odd, "piqmc", num_reads=2, sweeps=3, slices=4)
+    with pytest.raises(NotImplementedError, match="generic IsingProblem"):
+        tinst.random_2d_lattice(4, rng=0, lattice=False)
+    for fn in (sa.anneal_noisy, sa.anneal_wolff, sa.anneal_sw,
+               qmc.anneal_wolff, qmc.anneal_sw, qmc.anneal_sw_bath):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fn(lat, sched, c, gen)
+    with pytest.raises(ValueError, match="unknown method"):
+        api.solve(lat, "nope")
+    with pytest.raises(TypeError, match="unexpected options"):
+        api.solve(lat, "sa", slices=4)
+    # the state must live where the problem lives: nothing is moved
+    with pytest.raises(ValueError, match="problem on cpu"):
+        sa.anneal(lat, sched, torch.ones((2, 36), device="meta"), gen)
+    # no CUDA device here: a CUDA state cannot even be made
+    with pytest.raises((RuntimeError, AssertionError)):
+        sa.random_state(gen, 36, batch=(2,), device="cuda")
+
+
+@pytest.mark.parametrize("method", sorted(api._NOT_PORTED))
+def test_other_solve_methods_raise(method):
+    lat = tinst.gaussian_torus(4, seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        api.solve(lat, method)
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = sorted((REPO / "montecarlosolvers_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "montecarlosolvers_tpu"), \
+                f"{f.relative_to(REPO)} imports {mod}"
+    code = ("import sys, montecarlosolvers_tpu_torch as m; "
+            "from montecarlosolvers_tpu_torch.ops import split_kernels; "
+            "import montecarlosolvers_tpu_torch.convert; "
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'montecarlosolvers_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   timeout=120)
