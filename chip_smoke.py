@@ -7,25 +7,38 @@ Run from the repository root, with no arguments:
 
 Phases, each printed as one JSON line:
   device              nvidia-smi's name and power limit of the card
-  build               nvcc builds kernels A and B from csrc/ (seconds)
+  build               nvcc builds kernels A, B, 3 and 6 from csrc/ (seconds)
   sa_kernel_vs_plain  kernel A against its plain PyTorch version on the card,
                       80x80 periodic Gaussian lattice at the main path's
                       1280 chains, 200 steps of T: 3 -> 0.1
   qmc_kernel_vs_plain kernel B against its plain version at the main path's
                       P = 40 and 32 chains, 40 steps, B in {1, 0.7} x global
                       moves on / off
-  main_path           solve("sa", 1280 reads, 2000 sweeps) and
-                      solve("piqmc", 32 reads, P = 40, 1000 sweeps) on the
-                      santoro instance when MCS_TPU_INSTANCE_DIR holds it,
-                      else on the seeded 80x80 Gaussian torus; energies per
-                      spin checked against fixed ranges; kernel launch
-                      counts read around the two solves
-  timing              slope-timed flip attempts/s of each kernel and of its
+  plane_sa_kernel_vs_plain   kernel 6 against its plain version on an 81x81
+                      periodic Gaussian torus and an 81x81 open lattice,
+                      1280 chains, 200 steps
+  plane_qmc_kernel_vs_plain  kernel 3 against its plain version, 40 steps,
+                      B in {1, 0.7} x global moves on / off, 32 chains, on
+                      the 80x80 torus at P = 5 and the 81x81 torus at P = 5
+                      (the main path's two shapes) and P = 4
+  main_path           five solves at full width: solve("sa", 1280 reads,
+                      2000 sweeps) and solve("piqmc", 32 reads, 1000
+                      sweeps) at P = 40 and at P = 5 on the santoro instance
+                      when MCS_TPU_INSTANCE_DIR holds it, else on the seeded
+                      80x80 Gaussian torus; solve("sa") and solve("piqmc",
+                      P = 5) on the seeded 81x81 torus. Energies are checked
+                      against a float64 recomputation and their mean per
+                      spin against fixed ranges; the kernel launch counts
+                      (ops/_build.py::LAUNCHES: one per launch of a kernel,
+                      so kernel 3 counts m + 2 per sweep) are set to 0 just
+                      before each solve and read just after it
+  timing              slope-timed ms per sweep of each kernel and of its
                       plain version at the main path's shapes
 then a line {"kernels": [...]}, and last {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero without the last line;
 it also fails when torch sees no CUDA device or the package is missing.
-The script imports no JAX.
+The script imports no JAX. A torch.profiler breakdown of the main-path
+solves is `python -m montecarlosolvers_tpu_torch.profiling`.
 """
 
 import json
@@ -35,17 +48,42 @@ import time
 import numpy as np
 import torch
 
-L = 80
+L, ODD_L = 80, 81
 SA_READS, SA_SWEEPS = 1280, 2000
 QMC_READS, QMC_SLICES, QMC_SWEEPS = 32, 40, 1000
-# Energy-per-spin ranges on the seeded torus (JAX package on the CPU: SA
-# tau=2000 mean -1.2784; PIQMC P=20 tau=500 mean -1.2884; SA tau=20000 best
-# -1.2959), widened by about 0.01 per spin for the port's other RNG stream.
-SA_RANGE = (-1.29, -1.268)
-QMC_RANGE = (-1.31, -1.278)
+ODD_SLICES = 5
+# Mean energy per spin of each main-path solve on the seeded tori must lie
+# in these ranges. Anchors from the JAX package's solver on the CPU at the
+# same lattice, P and tau (PERF.md section 2), widened by about 0.01 per
+# spin for the port's other random stream:
+#   sa            SA tau=2000 on 80x80, mean -1.2784
+#   piqmc_p40     PIQMC P=20 tau=500 on 80x80, mean -1.2884
+#   piqmc_p5      PIQMC P=5 tau=1000 on 80x80, mean -1.2932
+#   sa_l81        SA tau=2000 on 81x81, mean -1.2787
+#   piqmc_p5_l81  PIQMC P=5 tau=1000 on 81x81, mean -1.2976
+RANGES = {
+    "sa": (-1.29, -1.268),
+    "piqmc_p40": (-1.31, -1.278),
+    "piqmc_p5": (-1.304, -1.282),
+    "sa_l81": (-1.29, -1.268),
+    "piqmc_p5_l81": (-1.309, -1.287),
+}
 # residual energy per spin ranges on the certified santoro instance
-SA_EPS_RANGE = (0.0, 0.1)
-QMC_EPS_RANGE = (0.0, 0.05)
+EPS_RANGES = {"sa": (0.0, 0.1), "piqmc_p40": (0.0, 0.05),
+              "piqmc_p5": (0.0, 0.05)}
+# kernel name -> (LAUNCHES key, source, TPU kernel it replaces)
+KERNELS = {
+    "split_sa": ("sa_split", "montecarlosolvers_tpu_torch/csrc/split_sa.cu",
+                 "montecarlosolvers_tpu/ops/pallas_split.py:109"),
+    "split_qmc": ("qmc_split",
+                  "montecarlosolvers_tpu_torch/csrc/split_qmc.cu",
+                  "montecarlosolvers_tpu/ops/pallas_split.py:431"),
+    "plane_sa": ("sa_plane", "montecarlosolvers_tpu_torch/csrc/plane_sa.cu",
+                 "montecarlosolvers_tpu/ops/pallas_sa.py:156"),
+    "plane_qmc": ("qmc_plane",
+                  "montecarlosolvers_tpu_torch/csrc/plane_qmc.cu",
+                  "montecarlosolvers_tpu/ops/pallas_qmc.py:70"),
+}
 
 
 def emit(obj):
@@ -94,11 +132,24 @@ def slope_ms(run, taus, trials):
     return 1e3 * float(np.median(slopes)), best
 
 
+def energy64(problem, states):
+    """Classical energies of (reads, N) numpy states in float64."""
+    Lp = problem.L
+    jr, jd, hp = (x.double().cpu().numpy() for x in
+                  (problem.j_right, problem.j_down, problem.h_plane))
+    s = states.astype(np.float64).reshape(-1, Lp, Lp)
+    return ((jr * s * np.roll(s, -1, axis=-1)).sum(axis=(1, 2))
+            + (jd * s * np.roll(s, -1, axis=-2)).sum(axis=(1, 2))
+            + (hp * s).sum(axis=(1, 2)))
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
     from montecarlosolvers_tpu_torch import schedules
     from montecarlosolvers_tpu_torch.models import instances
     from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import plane as plane_ops
+    from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
     from montecarlosolvers_tpu_torch.ops import split as split_ops
     from montecarlosolvers_tpu_torch.ops import split_kernels as sk
     from montecarlosolvers_tpu_torch.solvers.api import solve
@@ -119,15 +170,20 @@ def main():
           "total_seconds": time.perf_counter() - t0})
 
     torus = instances.gaussian_torus(L, seed=0, device=dev)
+    odd_torus = instances.gaussian_torus(ODD_L, seed=0, device=dev)
+    odd_open = instances.random_2d_lattice(ODD_L, rng=0, device=dev)[0]
     sl = split_ops.build_split(torus)
     rng = np.random.default_rng(1)
-    results = {}
+    results = {k: {} for k in KERNELS}
+
+    def random_spins(*shape):
+        return torch.as_tensor(
+            rng.choice([-1.0, 1.0], size=shape).astype(np.float32),
+            device=dev)
 
     # ---- kernel A against its plain version
-    spins = torch.as_tensor(
-        rng.choice([-1.0, 1.0], size=(SA_READS, L * L)).astype(np.float32),
-        device=dev)
-    a, b = (x.contiguous() for x in split_ops.pack_classical(sl, spins))
+    a, b = (x.contiguous() for x in split_ops.pack_classical(
+        sl, random_spins(SA_READS, L * L)))
     sched = schedules.linear(3.0, 0.1, 200, device=dev)
     ka = sk.sa_split_anneal(sl, sched, a, b, seed=12345)
     ra = sk.sa_split_anneal_ref(sl, sched, a, b, seed=12345)
@@ -137,13 +193,11 @@ def main():
           "nslots": sl.nslots, "mismatched_spins": n_bad, "max_abs_err": err,
           "flipped_fraction": float((ka[0] != a).float().mean())})
     check(n_bad == 0, "kernel A equals its plain version")
-    results["split_sa"] = {"max_abs_err": err}
+    results["split_sa"]["max_abs_err"] = err
 
     # ---- kernel B against its plain version
-    confs = torch.as_tensor(
-        rng.choice([-1.0, 1.0], size=(QMC_READS, QMC_SLICES, L * L))
-        .astype(np.float32), device=dev)
-    quarters = split_ops.pack_qmc(sl, confs)
+    quarters = split_ops.pack_qmc(
+        sl, random_spins(QMC_READS, QMC_SLICES, L * L))
     gamma = schedules.transverse_field(3.0, 1e-8, 40, device=dev)
     teff = (1.0 / QMC_SLICES) * QMC_SLICES
     jp = schedules.jperp(gamma, teff).contiguous()
@@ -162,81 +216,122 @@ def main():
                   "max_abs_err": err})
             check(n_bad == 0, f"kernel B equals its plain version "
                               f"(B={bscale}, global_moves={gm})")
-    results["split_qmc"] = {"max_abs_err": err_b}
+    results["split_qmc"]["max_abs_err"] = err_b
 
-    # ---- main path through solve()
+    # ---- kernel 6 against its plain version
+    err_6 = 0.0
+    for lname, lat in (("gaussian_torus(81, 0)", odd_torus),
+                       ("random_2d_lattice(81, 0), open", odd_open)):
+        pl = plane_ops.build_plane(lat)
+        s = random_spins(SA_READS, ODD_L, ODD_L)
+        k6 = pk.sa_plane_anneal(pl, sched, s, seed=4321)
+        r6 = pk.sa_plane_anneal_ref(pl, sched, s, seed=4321)
+        torch.cuda.synchronize()
+        n_bad, err = mismatches([k6], [r6])
+        err_6 = max(err_6, err)
+        emit({"phase": "plane_sa_kernel_vs_plain", "lattice": lname,
+              "chains": SA_READS, "steps": 200, "mismatched_spins": n_bad,
+              "max_abs_err": err,
+              "flipped_fraction": float((k6[0] != s[0]).float().mean())})
+        check(n_bad == 0, f"kernel 6 equals its plain version on {lname}")
+    results["plane_sa"]["max_abs_err"] = err_6
+
+    # ---- kernel 3 against its plain version
+    err_3 = 0.0
+    for lname, lat, slices in (("gaussian_torus(80, 0)", torus, ODD_SLICES),
+                               ("gaussian_torus(81, 0)", odd_torus,
+                                ODD_SLICES),
+                               ("gaussian_torus(81, 0)", odd_torus, 4)):
+        pl = plane_ops.build_plane(lat)
+        c = random_spins(QMC_READS, slices, lat.L, lat.L)
+        teff3 = (1.0 / slices) * slices
+        jp3 = schedules.jperp(gamma, teff3).contiguous()
+        for bscale in (1.0, 0.7):
+            bs = torch.full_like(gamma, bscale)
+            for gm in (True, False):
+                k3 = pk.qmc_plane_anneal(pl, bs, jp3, teff3, c, 555, gm)
+                r3 = pk.qmc_plane_anneal_ref(pl, bs, jp3, teff3, c, 555, gm)
+                torch.cuda.synchronize()
+                n_bad, err = mismatches([k3], [r3])
+                err_3 = max(err_3, err)
+                emit({"phase": "plane_qmc_kernel_vs_plain", "lattice": lname,
+                      "chains": QMC_READS, "slices": slices, "steps": 40,
+                      "B": bscale, "global_moves": gm,
+                      "mismatched_spins": n_bad, "max_abs_err": err})
+                check(n_bad == 0, f"kernel 3 equals its plain version on "
+                                  f"{lname}, P={slices} (B={bscale}, "
+                                  f"global_moves={gm})")
+    results["plane_qmc"]["max_abs_err"] = err_3
+
+    # ---- main path through solve(), launch counts read around each solve
     try:
         problem, e_gs = instances.santoro_80x80(lattice=True, device=dev)
         lattice = "santoro_80x80"
     except FileNotFoundError:
         problem, e_gs = torus, None
         lattice = "gaussian_torus(80, seed=0)"
-    n = problem.nspins
-    jr = problem.j_right.double().cpu().numpy()
-    jd = problem.j_down.double().cpu().numpy()
-    hp = problem.h_plane.double().cpu().numpy()
-
-    def energy64(states):
-        s = states.astype(np.float64).reshape(-1, L, L)
-        return ((jr * s * np.roll(s, -1, axis=-1)).sum(axis=(1, 2))
-                + (jd * s * np.roll(s, -1, axis=-2)).sum(axis=(1, 2))
-                + (hp * s).sum(axis=(1, 2)))
-
-    sk.reset_launches()
-    runs = {}
-    t0 = time.perf_counter()
-    runs["sa"] = solve(problem, "sa", num_reads=SA_READS, sweeps=SA_SWEEPS,
-                       seed=0)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    runs["piqmc"] = solve(problem, "piqmc", num_reads=QMC_READS,
-                          slices=QMC_SLICES, sweeps=QMC_SWEEPS, seed=0)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = dict(sk.LAUNCHES)
-    for key, ss, reads, secs in (("sa", runs["sa"], SA_READS, t1 - t0),
-                                 ("piqmc", runs["piqmc"], QMC_READS, t2 - t1)):
+    sa_kw = dict(method="sa", num_reads=SA_READS, sweeps=SA_SWEEPS)
+    qmc_kw = dict(method="piqmc", num_reads=QMC_READS, sweeps=QMC_SWEEPS)
+    # key, lattice name, problem, solve options, kernels it must launch
+    paths = (
+        ("sa", lattice, problem, sa_kw, ("sa_split",)),
+        ("piqmc_p40", lattice, problem, dict(qmc_kw, slices=QMC_SLICES),
+         ("sa_split", "qmc_split")),
+        ("piqmc_p5", lattice, problem, dict(qmc_kw, slices=ODD_SLICES),
+         ("sa_split", "qmc_plane")),
+        ("sa_l81", "gaussian_torus(81, seed=0)", odd_torus, sa_kw,
+         ("sa_plane",)),
+        ("piqmc_p5_l81", "gaussian_torus(81, seed=0)", odd_torus,
+         dict(qmc_kw, slices=ODD_SLICES), ("sa_plane", "qmc_plane")),
+    )
+    main_launches = {k: 0 for k in _build.LAUNCHES}
+    for key, lname, prob, kw, needs in paths:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        ss = solve(prob, seed=0, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        for k, v in launches.items():
+            main_launches[k] += v
+        n, reads = prob.nspins, kw["num_reads"]
         check(ss.samples.shape == (reads, n), f"{key} sample shape")
         check(set(np.unique(ss.samples)) <= {-1.0, 1.0}, f"{key} spins +/-1")
         check(bool(np.all(np.isfinite(ss.energies))), f"{key} finite")
-        e64 = energy64(ss.samples)
-        check(np.allclose(ss.energies, e64, rtol=1e-5, atol=1e-3),
+        check(np.allclose(ss.energies, energy64(prob, ss.samples),
+                          rtol=1e-5, atol=1e-3),
               f"{key} energies equal a float64 recomputation")
         per_spin = ss.energies / n
-        rec = {"phase": "main_path", "method": key, "lattice": lattice,
-               "reads": reads, "seconds": secs,
+        rec = {"phase": "main_path", "path": key, "method": kw["method"],
+               "slices": kw.get("slices"), "lattice": lname, "reads": reads,
+               "sweeps": kw["sweeps"], "seconds": secs,
                "mean_energy_per_spin": float(per_spin.mean()),
-               "best_energy_per_spin": float(per_spin.min())}
-        if e_gs is not None:
+               "best_energy_per_spin": float(per_spin.min()),
+               "launches": launches}
+        certified = e_gs is not None and prob is problem
+        if certified:
             eps = (ss.energies - e_gs) / n
             rec["eps_res_mean"] = float(eps.mean())
             rec["eps_res_best"] = float(eps.min())
         emit(rec)
-        lo, hi = (
-            (SA_EPS_RANGE if key == "sa" else QMC_EPS_RANGE)
-            if e_gs is not None else (SA_RANGE if key == "sa" else QMC_RANGE)
-        )
-        val = rec["eps_res_mean"] if e_gs is not None \
+        lo, hi = EPS_RANGES[key] if certified else RANGES[key]
+        val = rec["eps_res_mean"] if certified \
             else rec["mean_energy_per_spin"]
         check(lo <= val <= hi, f"{key} mean {val} inside [{lo}, {hi}]")
-    emit({"phase": "main_path", "launches": launches})
-    check(launches["sa_split"] > 0, "kernel A ran on the main path")
-    check(launches["qmc_split"] > 0, "kernel B ran on the main path")
+        for k in needs:
+            check(launches[k] > 0, f"{key} launched {k}")
+    emit({"phase": "main_path", "launches": main_launches})
 
     # ---- timing: slope ms per sweep, kernel and plain version
-    def sa_runner(fn, chains):
-        s = torch.as_tensor(
-            rng.choice([-1.0, 1.0], size=(chains, L * L)).astype(np.float32),
-            device=dev)
-        ha, hb = (x.contiguous() for x in split_ops.pack_classical(sl, s))
+    def split_sa_runner(fn):
+        ha, hb = (x.contiguous() for x in split_ops.pack_classical(
+            sl, random_spins(SA_READS, L * L)))
         return lambda tau: fn(sl, schedules.linear(3.0, 0.0, tau, device=dev),
                               ha, hb, 7)
 
-    def qmc_runner(fn, chains):
-        c = torch.as_tensor(
-            rng.choice([-1.0, 1.0], size=(chains, QMC_SLICES, L * L))
-            .astype(np.float32), device=dev)
-        qs = split_ops.pack_qmc(sl, c)
+    def split_qmc_runner(fn):
+        qs = split_ops.pack_qmc(sl, random_spins(QMC_READS, QMC_SLICES,
+                                                 L * L))
 
         def run(tau):
             g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
@@ -244,42 +339,63 @@ def main():
                       .contiguous(), teff, qs, 7, True)
         return run
 
+    pl81 = plane_ops.build_plane(odd_torus)
+    pl80 = plane_ops.build_plane(torus)
+
+    def plane_sa_runner(fn):
+        s = random_spins(SA_READS, ODD_L, ODD_L)
+        return lambda tau: fn(pl81, schedules.linear(3.0, 0.0, tau,
+                                                     device=dev), s, 7)
+
+    def plane_qmc_runner(fn):
+        c = random_spins(QMC_READS, ODD_SLICES, L, L)
+        teff5 = (1.0 / ODD_SLICES) * ODD_SLICES
+
+        def run(tau):
+            g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+            return fn(pl80, torch.ones_like(g), schedules.jperp(g, teff5)
+                      .contiguous(), teff5, c, 7, True)
+        return run
+
     power = smi.split(",")[-1].strip() if "," in smi else smi
+    # kernel, route, runner, taus, trials, chains, slices, sites
     timings = (
-        ("split_sa", "cuda", sa_runner(sk.sa_split_anneal, SA_READS),
-         (500, 2000), 3, SA_READS, 1),
-        ("split_sa", "plain", sa_runner(sk.sa_split_anneal_ref, SA_READS),
-         (10, 40), 2, SA_READS, 1),
-        ("split_qmc", "cuda", qmc_runner(sk.qmc_split_anneal, QMC_READS),
-         (100, 400), 3, QMC_READS, QMC_SLICES),
-        ("split_qmc", "plain", qmc_runner(sk.qmc_split_anneal_ref, QMC_READS),
-         (4, 12), 2, QMC_READS, QMC_SLICES),
+        ("split_sa", "cuda", split_sa_runner(sk.sa_split_anneal),
+         (500, 2000), 3, SA_READS, 1, L * L),
+        ("split_sa", "plain", split_sa_runner(sk.sa_split_anneal_ref),
+         (10, 40), 2, SA_READS, 1, L * L),
+        ("split_qmc", "cuda", split_qmc_runner(sk.qmc_split_anneal),
+         (100, 400), 3, QMC_READS, QMC_SLICES, L * L),
+        ("split_qmc", "plain", split_qmc_runner(sk.qmc_split_anneal_ref),
+         (4, 12), 2, QMC_READS, QMC_SLICES, L * L),
+        ("plane_sa", "cuda", plane_sa_runner(pk.sa_plane_anneal),
+         (500, 2000), 3, SA_READS, 1, ODD_L * ODD_L),
+        ("plane_sa", "plain", plane_sa_runner(pk.sa_plane_anneal_ref),
+         (10, 40), 2, SA_READS, 1, ODD_L * ODD_L),
+        ("plane_qmc", "cuda", plane_qmc_runner(pk.qmc_plane_anneal),
+         (200, 800), 3, QMC_READS, ODD_SLICES, L * L),
+        ("plane_qmc", "plain", plane_qmc_runner(pk.qmc_plane_anneal_ref),
+         (4, 12), 2, QMC_READS, ODD_SLICES, L * L),
     )
-    for kname, route, run, taus, trials, chains, slices in timings:
+    for kname, route, run, taus, trials, chains, slices, sites in timings:
         ms, best = slope_ms(run, taus, trials)
-        rate = n * slices * chains / (ms * 1e-3) if ms > 0 else float("nan")
+        rate = sites * slices * chains / (ms * 1e-3) if ms > 0 \
+            else float("nan")
         emit({"phase": "timing", "kernel": kname, "route": route,
-              "chains": chains, "slices": slices,
-              "global_moves": kname == "split_qmc", "taus": list(taus),
+              "chains": chains, "slices": slices, "sites": sites,
+              "global_moves": kname.endswith("qmc"), "taus": list(taus),
               "best_seconds": {str(k): v for k, v in best.items()},
               "ms_per_sweep": ms, "attempts_per_s": rate,
               "gpu": name, "power_limit": power})
         check(ms > 0, f"{kname} {route} slope is positive")
         results[kname]["ms" if route == "cuda" else "plain_ms"] = ms
 
-    sources = {
-        "split_sa": ("montecarlosolvers_tpu_torch/csrc/split_sa.cu",
-                     "montecarlosolvers_tpu/ops/pallas_split.py:109"),
-        "split_qmc": ("montecarlosolvers_tpu_torch/csrc/split_qmc.cu",
-                      "montecarlosolvers_tpu/ops/pallas_split.py:431"),
-    }
-    launch_key = {"split_sa": "sa_split", "split_qmc": "qmc_split"}
     emit({"kernels": [
-        {"name": k, "route": "cuda", "source": sources[k][0],
-         "replaces": sources[k][1], "launches": launches[launch_key[k]],
+        {"name": k, "route": "cuda", "source": src, "replaces": tpu,
+         "launches": main_launches[key],
          "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
          "plain_ms": results[k]["plain_ms"]}
-        for k in ("split_sa", "split_qmc")
+        for k, (key, src, tpu) in KERNELS.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

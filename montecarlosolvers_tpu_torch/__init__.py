@@ -5,15 +5,17 @@ against it module by module. Module names and layout follow the JAX
 package (`models/`, `ops/`, `solvers/`, `schedules.py`) so each module's
 counterpart is easy to find.
 
-Scope of this package today: the Martonak-Santoro-Tosatti main path on a
-`LatticeProblem` with even L — classical SA and PIQMC (even P, local plus
-whole-line global moves) on the split-checkerboard layout, and the one-call
-`solvers.api.solve` with method "sa" or "piqmc". On a CUDA device the two
+Scope of this package today: the Martonak-Santoro-Tosatti main path on any
+`LatticeProblem` (any L, open or periodic) — classical SA and PIQMC at any
+P (local plus whole-line global moves), and the one-call
+`solvers.api.solve` with method "sa" or "piqmc". Even L (and even P) take
+the split-checkerboard engines (`ops/split_kernels.py`), everything else
+the full-plane engines (`ops/plane_kernels.py`). On a CUDA device the four
 engines run hand-written CUDA kernels (`csrc/split_sa.cu`,
-`csrc/split_qmc.cu`); on the CPU they run the plain PyTorch versions beside
-the kernel wrappers (`ops/split_kernels.py`), which equal the JAX oracles
-bitwise. Everything else raises NotImplementedError naming the ROADMAP.md
-item that will port it.
+`csrc/split_qmc.cu`, `csrc/plane_sa.cu`, `csrc/plane_qmc.cu`); on the CPU
+they run the plain PyTorch versions beside the kernel wrappers, which equal
+the JAX oracles and the Pallas interpreter bitwise. Everything else raises
+NotImplementedError naming the ROADMAP.md item that will port it.
 
 Random numbers come from the counter hash of the JAX package's Pallas
 kernels (`ops/counter_rng.py`), not from torch's generators: solvers draw

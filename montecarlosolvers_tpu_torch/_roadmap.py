@@ -3,13 +3,23 @@ queued: every refusal in the port names its ROADMAP.md item through here."""
 
 from __future__ import annotations
 
-ODD_P = "queue 1, item 1 (odd-P PIQMC, the generic ops/piqmc.py path)"
-GENERIC_PROBLEM = "queue 1, item 3 (generic IsingProblem and instances)"
-SVMC = "queue 1, item 4 (SVMC)"
-BATH = "queue 1, item 5 (dissipative PIQMC, lookuptable=)"
-GENERIC_GRAPHS = "queue 1, item 6 (generic graphs, odd L, anneal_noisy)"
-CLUSTER = "queue 1, item 7 (cluster updates)"
-SAMPLERS = "queue 1, item 8 (samplers and API)"
+GENERIC_PROBLEM = ("queue 1, item 2 (generic IsingProblem and instances, "
+                   "the generic ops/piqmc.py sweeps)")
+SVMC = "queue 1, item 3 (SVMC)"
+BATH = "queue 1, item 4 (dissipative PIQMC, lookuptable=)"
+GENERIC_GRAPHS = "queue 1, item 5 (generic graphs, anneal_noisy)"
+CLUSTER = "queue 1, item 6 (cluster updates)"
+SAMPLERS = "queue 1, item 7 (samplers and API)"
+
+
+def require_lattice(problem):
+    """Raise NotImplementedError unless `problem` is a LatticeProblem, the
+    only problem the port takes yet (any L, open or periodic)."""
+    from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
+
+    if not isinstance(problem, LatticeProblem):
+        raise not_ported("a problem other than a LatticeProblem",
+                         GENERIC_PROBLEM)
 
 
 def not_ported(what, item):

@@ -1,8 +1,10 @@
-// Counter-hash uniforms shared by the split-checkerboard kernels.
+// Counter-hash uniforms shared by the kernels.
 //
 // Device form of montecarlosolvers_tpu/ops/pallas_sa.py::_mix32 (:110) and
-// _uniform01 (:129), and of the counter of ops/pallas_split.py:137-141. The
-// plain PyTorch form is montecarlosolvers_tpu_torch/ops/counter_rng.py.
+// _uniform01 (:129), of the counter of ops/pallas_split.py:137-141 and
+// pallas_sa.py:189-193, and of the line-move counter of
+// ops/pallas_qmc.py:124,131-133. The plain PyTorch form is
+// montecarlosolvers_tpu_torch/ops/counter_rng.py.
 //
 // Trouble spot: the JAX code hashes on int32 and relies on wrapping
 // multiplies; signed overflow is undefined in C++, so everything here is
@@ -18,6 +20,8 @@ constexpr uint32_t kSeedMult = 0x9E3779B1u;   // 2654435761
 constexpr uint32_t kStepMult = 40503u;
 constexpr uint32_t kIndexMult = 1013904223u;
 constexpr uint32_t kGolden = 0x9E3779B9u;     // -1640531527 as int32
+constexpr uint32_t kLineXor = 374761393u;
+constexpr uint32_t kLineMult = 69069u;
 
 // murmur3 finalizer, twice: 6 xor-shifts and 4 multiplies.
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -37,6 +41,15 @@ __device__ __forceinline__ uint32_t counter(uint32_t seed_term, int step,
                                             int index) {
   return seed_term + static_cast<uint32_t>(step) * kStepMult +
          static_cast<uint32_t>(index) * kIndexMult;
+}
+
+// counter of the full-plane PIQMC line moves of `color`: the (seed, step)
+// base XOR kLineXor, plus color * kLineMult (XOR, not add; 69069, not
+// kIndexMult)
+__device__ __forceinline__ uint32_t line_counter(uint32_t seed_term, int step,
+                                                 int color) {
+  return ((seed_term + static_cast<uint32_t>(step) * kStepMult) ^ kLineXor) +
+         static_cast<uint32_t>(color) * kLineMult;
 }
 
 // uniform in [0, 1) with 24 bits; (float) of a value < 2^24 is exact

@@ -156,7 +156,8 @@ qmc_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // Anneal `chains` Trotter states over `steps` schedule points. w:
 // (nslots, 2, nh), h: (2, nh), b_sched and jp: (steps,), quarters
 // (chains, Q, nh); all float32 device pointers. The inputs are copied to
-// the outputs, which are then updated in place. Launches on `stream`;
+// the outputs, which are then updated in place. Launches on `stream` and
+// stores the number of kernels it launched in *launched (a host pointer);
 // returns the first launch error, checked after the first step, or
 // cudaGetLastError() at the end.
 extern "C" int split_qmc_anneal(const float* w, const float* h,
@@ -166,8 +167,10 @@ extern "C" int split_qmc_anneal(const float* w, const float* h,
                                 const float* yo_in, float* xe, float* xo,
                                 float* ye, float* yo, int chains, int Q,
                                 int nh, int K, int nslots, int steps,
-                                int seed, int global_moves, void* stream) {
+                                int seed, int global_moves, void* stream,
+                                long long* launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
   const size_t bytes = static_cast<size_t>(chains) * Q * nh * sizeof(float);
   const float* ins[4] = {xe_in, xo_in, ye_in, yo_in};
   float* outs[4] = {xe, xo, ye, yo};
@@ -190,6 +193,7 @@ extern "C" int split_qmc_anneal(const float* w, const float* h,
     qmc_local_kernel<<<grid_local, kThreads, 0, st>>>(
         w, h, b_sched, jp, teff, ye, xe, xo, 1, yo, xo, xe, 0, 2, Q, nh, K,
         nslots, t, seed_term);
+    *launched += 2;
     if (global_moves) {
       // lines of color A: sites xe + yo, neighbours ye / xo
       qmc_line_kernel<<<grid_line, kThreads, 0, st>>>(
@@ -199,6 +203,7 @@ extern "C" int split_qmc_anneal(const float* w, const float* h,
       qmc_line_kernel<<<grid_line, kThreads, 0, st>>>(
           w, h, b_sched, teff, ye, xe, xo, yo, 1, Q, nh, K, nslots, t,
           seed_term);
+      *launched += 2;
     }
     if (t == 0) {
       cudaError_t e = cudaGetLastError();

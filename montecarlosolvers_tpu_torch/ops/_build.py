@@ -7,6 +7,10 @@ and an unchanged one is loaded from the build directory. nvcc takes seconds
 for such a file (a PyTorch C++ extension, whose sources include PyTorch's
 headers, takes minutes). Building happens only when a kernel is first needed or when `build` is
 called; importing this module runs nothing.
+
+The kernel wrappers (`ops/split_kernels.py`, `ops/plane_kernels.py`) share
+the helpers below: the device route, argument checks, error reporting and
+`LAUNCHES`, the one count of kernel launches.
 """
 
 from __future__ import annotations
@@ -20,10 +24,12 @@ import sys
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("split_sa", "split_qmc")
+KERNELS = ("split_sa", "split_qmc", "plane_sa", "plane_qmc")
 
 # No --use_fast_math: kernels and their plain versions must round alike.
 NVCC_FLAGS = (
@@ -33,6 +39,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_NP = ctypes.POINTER(ctypes.c_longlong)  # out: number of kernels launched
 # C signatures: function -> (restype, argtypes)
 SIGNATURES = {
     "split_sa": {
@@ -43,15 +50,80 @@ SIGNATURES = {
     },
     "split_qmc": {
         # w, h, b_sched, jp, teff, 4 quarters in, 4 quarters out,
-        # chains, Q, nh, K, nslots, steps, seed, global_moves, stream
+        # chains, Q, nh, K, nslots, steps, seed, global_moves, stream,
+        # launched
         "split_qmc_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 8 + [_P]
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 8 + [_P, _NP]
         ),
         "split_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "plane_sa": {
+        # planes, sched, s_in, s_out, chains, L, row_stride, plane_stride,
+        # steps, seed, stream
+        "plane_sa_anneal": (_I, [_P] * 4 + [_I] * 6 + [_P]),
+        "plane_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "plane_qmc": {
+        # planes, b_sched, jp, teff, s_in, s_out, scratch, chains, P, L,
+        # row_stride, plane_stride, m, steps, seed, global_moves, stream,
+        # launched
+        "plane_qmc_anneal": (
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 9 + [_P, _NP]
+        ),
+        "plane_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
 _LIBS = {}
+
+# Shared memory one Hopper block may use (232,448 bytes of the SM's 256 KB);
+# the kernels that keep a chain in shared memory are refused beyond it.
+SMEM_LIMIT_BYTES = 232448
+
+# Kernel launches per kernel. Kernels A and 6 run a whole schedule in one
+# launch; B and 3 launch once per phase, and their C entry points report
+# how many launches they issued.
+LAUNCHES = {"sa_split": 0, "qmc_split": 0, "sa_plane": 0, "qmc_plane": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def route(device, engine):
+    """'cpu' or 'cuda'; any other device has neither form of `engine`."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {engine} engine for device {device}")
+    return device.type
+
+
+def check_arg(t, name, shape, device):
+    """Raise ValueError unless `t` is a contiguous float32 tensor of
+    `shape` on `device`: what every kernel takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raise_on_error(lib, fn, rc):
+    if rc != 0:
+        msg = getattr(lib, fn + "_error_string")(rc).decode()
+        raise RuntimeError(f"{fn} failed with CUDA error {rc}: {msg}")
 
 
 def nvcc_path():

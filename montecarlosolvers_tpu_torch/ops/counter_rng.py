@@ -2,16 +2,19 @@
 
 Counterpart of `montecarlosolvers_tpu/ops/pallas_sa.py::_mix32` and
 `_uniform01`, and of the counter / uid formulas of
-`ops/pallas_split.py::_split_kernel` and `_qmc_split_kernel`. The CUDA
-kernels in `csrc/` compute the same hash on `uint32_t`; this module is the
-plain form on int32 tensors that the CPU path and the tests use.
+`ops/pallas_split.py::_split_kernel` and `_qmc_split_kernel` and of the
+full-plane kernels `ops/pallas_sa.py::_sa_kernel` and
+`ops/pallas_qmc.py::_qmc_kernel`. The CUDA kernels in `csrc/` compute the
+same hash on `uint32_t`; this module is the plain form on int32 tensors that
+the CPU path and the tests use.
 
 Every uniform is a pure function of (seed, step, index, uid):
 
     ctr = seed * SEED_MULT + step * STEP_MULT + index * INDEX_MULT
     u   = (mix32(uid * GOLDEN + ctr) >>> 8) / 2**24        in [0, 1)
 
-with all integer arithmetic wrapping mod 2**32.
+with all integer arithmetic wrapping mod 2**32. The full-plane PIQMC line
+moves use another counter, `line_counter`.
 
 Two torch pitfalls this module avoids:
   * `>>` on an int32 tensor is an arithmetic shift; the hash needs a logical
@@ -34,6 +37,13 @@ GOLDEN = -1640531527  # 0x9e3779b9 as int32
 # murmur3 finalizer constants (pallas_sa.py:122-124)
 _M1 = -2048144789  # 0x85ebca6b
 _M2 = -1028477387  # 0xc2b2ae35
+# line-move counter of the full-plane PIQMC kernel (pallas_qmc.py:124,132)
+LINE_XOR = 374761393
+LINE_MULT = 69069
+# TPU tile of the full-plane kernels' padded planes (pallas_sa.py:57-58):
+# their site ids stride by pad8(L) rows of pad128(L) columns
+SUBLANE = 8
+LANE = 128
 
 
 def wrap_int32(x):
@@ -46,6 +56,15 @@ def counter(seed, step, index):
     integers are exact, and wrapping once at the end gives the same bits as
     wrapping after every int32 operation."""
     return wrap_int32(seed * SEED_MULT + step * STEP_MULT + index * INDEX_MULT)
+
+
+def line_counter(seed, step, color):
+    """Counter of the full-plane PIQMC line moves of `color`
+    (pallas_qmc.py:124,131-133): an XOR of the (seed, step) base with
+    LINE_XOR, then `color * LINE_MULT` added. Python's `^` on the wrapped
+    base acts on its two's-complement bits, as int32 XOR does."""
+    base = wrap_int32(seed * SEED_MULT + step * STEP_MULT)
+    return wrap_int32((base ^ LINE_XOR) + color * LINE_MULT)
 
 
 def _srl(x, n):
@@ -104,3 +123,30 @@ def quarter_uids(chains, q_len, nh, index, device):
         + qid[None, :, None] * nh
         + flat[None, None, :]
     )
+
+
+def plane_strides(L):
+    """(R, C) = (pad8(L), pad128(L)): the padded plane of the full-plane
+    Pallas kernels (pallas_sa.py:90). The port stores only the L x L sites,
+    but its site ids keep these strides, so that every stream equals the
+    Pallas kernel's (at L = 80, C = 128, not 80)."""
+    return (-(-L // SUBLANE) * SUBLANE, -(-L // LANE) * LANE)
+
+
+def plane_uids(chains, L, device, slices=None):
+    """Site ids of the full-plane kernels on the physical sites.
+
+    slices=None: (chains, L, L), the SA kernel's chain*R*C + r*C + c
+    (pallas_sa.py:171-175). slices=P: (chains, P, L, L), the PIQMC
+    kernel's chain*P*R*C + k*R*C + r*C + c (pallas_qmc.py:91-97); its line
+    moves use the k = 0 plane of these (pallas_qmc.py:135-137)."""
+    R, C = plane_strides(L)
+    rows = torch.arange(L, dtype=torch.int32, device=device)[:, None]
+    cols = torch.arange(L, dtype=torch.int32, device=device)[None, :]
+    site = rows * C + cols  # (L, L)
+    chain = torch.arange(chains, dtype=torch.int32, device=device)
+    if slices is None:
+        return chain[:, None, None] * (R * C) + site
+    k = torch.arange(slices, dtype=torch.int32, device=device)
+    return (chain[:, None, None, None] * (slices * R * C)
+            + k[None, :, None, None] * (R * C) + site)

@@ -1,0 +1,224 @@
+"""Full-plane SA and PIQMC engines: plain versions, kernel wrappers.
+
+Counterpart of `montecarlosolvers_tpu/ops/pallas_sa.py::anneal_lattice`
+(:256) and `ops/pallas_qmc.py::anneal_lattice_qmc` (:146), whose Pallas
+kernels `_sa_kernel` (:156) and `_qmc_kernel` (:70) are ported as the CUDA
+kernels `csrc/plane_sa.cu` (kernel 6) and `csrc/plane_qmc.cu` (kernel 3).
+These engines take any LatticeProblem at any P; the solvers send here what
+the split engines (`ops/split_kernels.py`) do not take: odd L, and PIQMC at
+odd P.
+
+Beside each kernel wrapper sits its plain PyTorch version
+(`sa_plane_anneal_ref`, `qmc_plane_anneal_ref`), with the semantics of the
+Pallas kernel on the physical L x L sites: the same fields
+(`ops/plane.py`), the same counter-hash uniforms on the padded plane's site
+ids, the same log-form Metropolis rule. On the CPU they equal the Pallas
+interpreter bitwise; on the card the kernels equal them bitwise.
+
+A phase computes every site from the state as it was when the phase began
+and flips the sites of that phase's color, as the Pallas kernels do. On an
+odd periodic L this is not a proper coloring (see ROADMAP.md queue 3): the
+wrap neighbours (r, 0) and (r, L-1) share a color, and both may flip in one
+phase. The port keeps that behaviour to stay bitwise equal.
+
+The wrappers dispatch on the device of the state: a CPU tensor takes the
+plain version; a CUDA tensor launches the kernel or raises — nothing falls
+back. `_build.LAUNCHES` counts the kernel launches under "sa_plane" and
+"qmc_plane".
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from montecarlosolvers_tpu_torch import schedules
+from montecarlosolvers_tpu_torch.ops import _build
+from montecarlosolvers_tpu_torch.ops import counter_rng as cr
+from montecarlosolvers_tpu_torch.ops import plane as plane_ops
+from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
+from montecarlosolvers_tpu_torch.ops.piqmc import (spacetime_num_phases,
+                                                   sum_in_order)
+
+# Kernel 3 puts chains on gridDim.z and slices on gridDim.y.
+QMC_MAX_GRID_YZ = 65535
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def sa_plane_anneal_ref(pl, sched, spins, seed):
+    """Plain form of kernel 6: anneal `spins` (chains, L, L) over the
+    float32 temperatures `sched` (steps,) with counter-hash seed `seed`.
+    One step runs color 0, then color 1 (pallas_sa.py:178-197); color p
+    draws from counter(seed, t, p) at the SA site ids."""
+    chains, L = spins.shape[0], pl.L
+    hu = cr.hashed_uid(cr.plane_uids(chains, L, spins.device))
+    par = plane_ops.parity(L, spins.device)
+    s = spins
+    for t in range(sched.shape[0]):
+        temp = sched[t]
+        for color in (0, 1):
+            de = -2.0 * s * plane_ops.neighbor_sum(pl, s)
+            u = cr.uniform01_hashed(cr.counter(seed, t, color), hu)
+            flip = metropolis_accept(de, temp, u) & (par == color)
+            s = torch.where(flip, -s, s)
+    return s
+
+
+def qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed, global_moves):
+    """Plain form of kernel 3 on confs (chains, P, L, L). `b_sched` and `jp`
+    are float32 (steps,) tensors of the longitudinal scale B and of J_perp;
+    `teff` = P*T is a Python float.
+
+    Per step (pallas_qmc.py:100-140): m = spacetime_num_phases(2, P) local
+    phases, phase p flipping the sites with ((r + c) % 2 + k) % m == p, with
+    dE = -2B s f + 2 s J_perp (s[k-1] + s[k+1]) (Trotter ring mod P) and
+    uniforms from counter(seed, t, p). With `global_moves`, whole-line
+    flips of color 0 and then color 1 follow: a line's dE is
+    sum_k -2B s f in index order (J_perp cancels), its uniform is the
+    k = 0 plane's at line_counter(seed, t, color)."""
+    chains, P, L = confs.shape[0], confs.shape[1], pl.L
+    dev = confs.device
+    m = spacetime_num_phases(2, P)
+    par = plane_ops.parity(L, dev)
+    k = torch.arange(P, device=dev)[:, None, None]
+    stc = (par + k) % m  # (P, L, L)
+    hu = cr.hashed_uid(cr.plane_uids(chains, L, dev, slices=P))
+    hu0 = hu[:, 0]  # line moves: the k = 0 plane's ids
+    teff32 = torch.tensor(teff, dtype=torch.float32, device=dev)
+    s = confs
+    for t in range(b_sched.shape[0]):
+        bc = -2.0 * b_sched[t]
+        jpt = jp[t]
+        for p in range(m):
+            f = plane_ops.neighbor_sum(pl, s)
+            tr = torch.roll(s, 1, dims=1) + torch.roll(s, -1, dims=1)
+            de = bc * s * f + 2.0 * s * jpt * tr
+            u = cr.uniform01_hashed(cr.counter(seed, t, p), hu)
+            flip = metropolis_accept(de, teff32, u) & (stc == p)
+            s = torch.where(flip, -s, s)
+        if global_moves:
+            for color in (0, 1):
+                f = plane_ops.neighbor_sum(pl, s)
+                de = sum_in_order(bc * s * f, dim=1)  # (chains, L, L)
+                u = cr.uniform01_hashed(cr.line_counter(seed, t, color), hu0)
+                flip = metropolis_accept(de, teff32, u) & (par == color)
+                s = torch.where(flip[:, None], -s, s)
+    return s
+
+
+# ------------------------------------------------------------ kernel wrappers
+
+
+def sa_plane_anneal(pl, sched, spins, seed):
+    """Kernel 6 on CUDA tensors, `sa_plane_anneal_ref` on CPU tensors.
+    Arguments as for `sa_plane_anneal_ref`; returns the new spins."""
+    if _build.route(spins.device, "plane") == "cpu":
+        return sa_plane_anneal_ref(pl, sched, spins, seed)
+    chains, L = spins.shape[0], pl.L
+    dev = spins.device
+    smem = L * L * 4  # one chain's plane, for the whole schedule
+    if smem > _build.SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"kernel 6 keeps L*L*4 = {smem} bytes of one chain in shared "
+            f"memory; the limit is {_build.SMEM_LIMIT_BYTES} (L = {L})"
+        )
+    _build.check_arg(spins, "spins", (chains, L, L), dev)
+    _build.check_arg(pl.w, "planes", (5, L, L), dev)
+    steps = int(sched.shape[0])
+    _build.check_arg(sched, "sched", (steps,), dev)
+    out = torch.empty_like(spins)
+    R, C = pl.strides
+    lib = _build.library("plane_sa")
+    rc = lib.plane_sa_anneal(
+        *map(_build.ptr, (pl.w, sched, spins, out)), chains, L, C, R * C,
+        steps, cr.wrap_int32(seed), _build.stream_of(dev),
+    )
+    _build.raise_on_error(lib, "plane_sa_anneal", rc)
+    _build.LAUNCHES["sa_plane"] += 1
+    return out
+
+
+def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves):
+    """Kernel 3 on CUDA tensors, `qmc_plane_anneal_ref` on CPU tensors.
+    Arguments as for `qmc_plane_anneal_ref`; returns new configurations."""
+    if _build.route(confs.device, "plane") == "cpu":
+        return qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed,
+                                    global_moves)
+    chains, P, L = confs.shape[0], confs.shape[1], pl.L
+    dev = confs.device
+    if max(chains, P) > QMC_MAX_GRID_YZ:
+        raise ValueError(f"kernel 3 takes at most {QMC_MAX_GRID_YZ} chains "
+                         f"and slices")
+    _build.check_arg(confs, "confs", (chains, P, L, L), dev)
+    _build.check_arg(pl.w, "planes", (5, L, L), dev)
+    steps = int(b_sched.shape[0])
+    _build.check_arg(b_sched, "b_sched", (steps,), dev)
+    _build.check_arg(jp, "jp", (steps,), dev)
+    out = torch.empty_like(confs)
+    scratch = torch.empty_like(confs)
+    R, C = pl.strides
+    lib = _build.library("plane_qmc")
+    n = ctypes.c_longlong(0)  # kernels launched
+    rc = lib.plane_qmc_anneal(
+        *map(_build.ptr, (pl.w, b_sched, jp)), ctypes.c_float(teff),
+        *map(_build.ptr, (confs, out, scratch)), chains, P, L, C, R * C,
+        spacetime_num_phases(2, P), steps, cr.wrap_int32(seed),
+        int(bool(global_moves)), _build.stream_of(dev), ctypes.byref(n),
+    )
+    _build.raise_on_error(lib, "plane_qmc_anneal", rc)
+    _build.LAUNCHES["qmc_plane"] += n.value
+    return out
+
+
+# ------------------------------------------------------ lattice-level engines
+
+
+def _planes_of(problem, state, name):
+    """The PlaneLattice of `problem`, once `state` (the `name` argument) is
+    known to lie on the problem's device."""
+    from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
+
+    if not isinstance(problem, LatticeProblem):
+        raise ValueError("the full-plane engine takes a LatticeProblem")
+    if state.device != problem.device:
+        raise ValueError(f"{name} are on {state.device}, problem on "
+                         f"{problem.device}")
+    return plane_ops.build_plane(problem)
+
+
+def anneal_lattice(problem, sched, spins, seed, mcsteps=1):
+    """Full-plane SA anneal on a LatticeProblem of any L, open or periodic
+    (counterpart of `pallas_sa.anneal_lattice`, without its TPU padding).
+
+    sched: (steps,) temperatures; spins: (chains, N) or (N,) float32 +/-1 on
+    the problem's device; seed: int counter-hash seed. Returns the annealed
+    spins, same shape."""
+    pl = _planes_of(problem, spins, "spins")
+    temps = schedules.expand_mcsteps(
+        torch.as_tensor(sched, dtype=torch.float32, device=problem.device),
+        mcsteps,
+    ).contiguous()
+    L = pl.L
+    s = spins.to(torch.float32).reshape(-1, L, L).contiguous()
+    out = sa_plane_anneal(pl, temps, s, seed)
+    return out.reshape(spins.shape)
+
+
+def anneal_lattice_qmc(problem, a_sched, b_sched, temp, confs, seed,
+                       mcsteps=1, global_moves=True):
+    """Full-plane PIQMC anneal on a LatticeProblem of any L at any P
+    (counterpart of `pallas_qmc.anneal_lattice_qmc`).
+
+    a_sched / b_sched: (steps,) Gamma and B; temp: ambient T, T_eff = P*T;
+    confs: (chains, P, N) or (P, N) float32 +/-1 slices-major, on the
+    problem's device. Returns the annealed configurations, same shape."""
+    pl = _planes_of(problem, confs, "confs")
+    P, L = confs.shape[-2], pl.L
+    b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, P, mcsteps,
+                                      problem.device)
+    c = confs.to(torch.float32).reshape(-1, P, L, L).contiguous()
+    out = qmc_plane_anneal(pl, b, jp, teff, c, seed, global_moves)
+    return out.reshape(confs.shape)

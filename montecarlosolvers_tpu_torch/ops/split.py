@@ -24,19 +24,19 @@ import dataclasses
 import numpy as np
 import torch
 
-from montecarlosolvers_tpu_torch import _roadmap
 
 
-def require_split(problem):
-    """Raise NotImplementedError unless `problem` is an even-L lattice, the
-    only problem the split-checkerboard engine (and the port) takes yet."""
+def supports_split(problem, slices=None):
+    """True when `problem` (and, for PIQMC, the slice count) can take the
+    split-checkerboard engine: an even-L LatticeProblem, at even P
+    (ops/split.py:54). The solvers send every other lattice to the
+    full-plane engine (`ops/plane_kernels.py`)."""
     from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 
-    if not (isinstance(problem, LatticeProblem) and problem.L % 2 == 0):
-        raise _roadmap.not_ported(
-            "a problem other than a LatticeProblem with even L",
-            _roadmap.GENERIC_GRAPHS,
-        )
+    ok = isinstance(problem, LatticeProblem) and problem.L % 2 == 0
+    if slices is not None:
+        ok = ok and slices % 2 == 0
+    return ok
 
 
 @dataclasses.dataclass(frozen=True)

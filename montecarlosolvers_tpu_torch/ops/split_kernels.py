@@ -5,7 +5,9 @@ Counterpart of `montecarlosolvers_tpu/ops/pallas_split.py`:
 `anneal_lattice_split` (:932) and `anneal_lattice_qmc_split` (:607), whose
 Pallas kernels `_split_kernel` (:109) and `_qmc_split_kernel` (:431) are
 ported as the CUDA kernels `csrc/split_sa.cu` (kernel A) and
-`csrc/split_qmc.cu` (kernel B).
+`csrc/split_qmc.cu` (kernel B). The solvers route a lattice here when
+`ops/split.py::supports_split` holds (even L, and even P for PIQMC), else
+to the full-plane engines of `ops/plane_kernels.py`.
 
 Beside each kernel wrapper sits its plain PyTorch version
 (`sa_split_anneal_ref`, `qmc_split_anneal_ref`), with the semantics of the
@@ -16,7 +18,8 @@ card the kernels equal them bitwise.
 
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
-back. `LAUNCHES` counts, per kernel, the wrapper calls that launched it.
+back. `_build.LAUNCHES` counts the kernel launches under "sa_split" and
+"qmc_split".
 """
 
 from __future__ import annotations
@@ -25,26 +28,15 @@ import ctypes
 
 import torch
 
-from montecarlosolvers_tpu_torch import _roadmap
 from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
+from montecarlosolvers_tpu_torch.ops.piqmc import sum_in_order
 
-# Wrapper calls that launched each kernel (one call runs a whole schedule).
-LAUNCHES = {"sa_split": 0, "qmc_split": 0}
-
-# Kernel A keeps both halves of one chain in shared memory for the whole
-# schedule: 2 * Nh * 4 bytes, at most the 227 KB a Hopper block can use.
-SA_SMEM_LIMIT_BYTES = 232448
 # Kernel B puts chains on gridDim.z.
 QMC_MAX_CHAINS = 65535
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -70,16 +62,6 @@ def sa_split_anneal_ref(sl, sched, a, b, seed):
         u = cr.uniform01_hashed(cr.counter(seed, t, 1), hu_b)
         b = torch.where(metropolis_accept(de, temp, u), -b, b)
     return a, b
-
-
-def _sum_q(x):
-    """Sum over the Trotter axis -2 in index order. torch.sum would use its
-    cascade order from 16 terms on; kernel B and the JAX oracle add the
-    slices one after the other."""
-    acc = x[..., 0, :]
-    for q in range(1, x.shape[-2]):
-        acc = acc + x[..., q, :]
-    return acc
 
 
 def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
@@ -130,10 +112,9 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
                 """(chains, 1, Nh) factors -1 / +1 of the lines of `color`,
                 whose sites are s1 and s2 with neighbours in o1 and o2."""
                 w, h = sl.w_ab[:, color], sl.h_ab[color]
-                de = bc * (
-                    _sum_q(s1 * (split_ops.spatial_field(w, o1, K) + h))
-                    + _sum_q(s2 * (split_ops.spatial_field(w, o2, K) + h))
-                )
+                f1 = split_ops.spatial_field(w, o1, K) + h
+                f2 = split_ops.spatial_field(w, o2, K) + h
+                de = bc * (sum_in_order(s1 * f1) + sum_in_order(s2 * f2))
                 u = cr.uniform01_hashed(cr.counter(seed, t, 4 + color),
                                         hl[color])
                 acc = metropolis_accept(de, teff32, u)
@@ -151,66 +132,36 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
 # ------------------------------------------------------------ kernel wrappers
 
 
-def _check(t, name, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _raise_on_error(lib, fn, rc):
-    if rc != 0:
-        msg = getattr(lib, fn + "_error_string")(rc).decode()
-        raise RuntimeError(f"{fn} failed with CUDA error {rc}: {msg}")
-
-
-def _route(device):
-    """'cpu' or 'cuda'; any other device has neither form."""
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no split engine for device {device}")
-    return device.type
-
-
 def sa_split_anneal(sl, sched, a, b, seed):
     """Kernel A on CUDA tensors, `sa_split_anneal_ref` on CPU tensors.
     Arguments as for `sa_split_anneal_ref`; returns new (a, b)."""
-    if _route(a.device) == "cpu":
+    if _build.route(a.device, "split") == "cpu":
         return sa_split_anneal_ref(sl, sched, a, b, seed)
     chains, nh = a.shape
     dev = a.device
     if nh != sl.nh:
         raise ValueError(f"halves have {nh} sites, lattice has {sl.nh}")
-    smem = 2 * nh * 4
-    if smem > SA_SMEM_LIMIT_BYTES:
+    smem = 2 * nh * 4  # both halves of one chain, for the whole schedule
+    if smem > _build.SMEM_LIMIT_BYTES:
         raise ValueError(
             f"kernel A keeps 2*Nh*4 = {smem} bytes of one chain in shared "
-            f"memory; the limit is {SA_SMEM_LIMIT_BYTES} (L = {sl.L})"
+            f"memory; the limit is {_build.SMEM_LIMIT_BYTES} (L = {sl.L})"
         )
     for t, name in ((a, "a"), (b, "b")):
-        _check(t, name, (chains, nh), dev)
-    _check(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
-    _check(sl.h_ab, "h_ab", (2, nh), dev)
-    _check(sched, "sched", (sched.shape[0],), dev)
+        _build.check_arg(t, name, (chains, nh), dev)
+    _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
+    _build.check_arg(sl.h_ab, "h_ab", (2, nh), dev)
+    _build.check_arg(sched, "sched", (sched.shape[0],), dev)
     a_out = torch.empty_like(a)
     b_out = torch.empty_like(b)
     lib = _build.library("split_sa")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.split_sa_anneal(
-        _ptr(sl.w_ab), _ptr(sl.h_ab), _ptr(sched), _ptr(a), _ptr(b),
-        _ptr(a_out), _ptr(b_out), chains, nh, sl.K, sl.nslots,
-        int(sched.shape[0]), cr.wrap_int32(seed), ctypes.c_void_p(stream),
+        *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a, b, a_out, b_out)),
+        chains, nh, sl.K, sl.nslots, int(sched.shape[0]), cr.wrap_int32(seed),
+        _build.stream_of(dev),
     )
-    _raise_on_error(lib, "split_sa_anneal", rc)
-    LAUNCHES["sa_split"] += 1
+    _build.raise_on_error(lib, "split_sa_anneal", rc)
+    _build.LAUNCHES["sa_split"] += 1
     return a_out, b_out
 
 
@@ -218,7 +169,7 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
     """Kernel B on CUDA tensors, `qmc_split_anneal_ref` on CPU tensors.
     Arguments as for `qmc_split_anneal_ref`; returns new quarters."""
     xe = quarters[0]
-    if _route(xe.device) == "cpu":
+    if _build.route(xe.device, "split") == "cpu":
         return qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
                                     global_moves)
     chains, Q, nh = xe.shape
@@ -228,23 +179,23 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
     if chains > QMC_MAX_CHAINS:
         raise ValueError(f"kernel B takes at most {QMC_MAX_CHAINS} chains")
     for t, name in zip(quarters, ("xe", "xo", "ye", "yo")):
-        _check(t, name, (chains, Q, nh), dev)
-    _check(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
-    _check(sl.h_ab, "h_ab", (2, nh), dev)
+        _build.check_arg(t, name, (chains, Q, nh), dev)
+    _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
+    _build.check_arg(sl.h_ab, "h_ab", (2, nh), dev)
     steps = int(b_sched.shape[0])
-    _check(b_sched, "b_sched", (steps,), dev)
-    _check(jp, "jp", (steps,), dev)
+    _build.check_arg(b_sched, "b_sched", (steps,), dev)
+    _build.check_arg(jp, "jp", (steps,), dev)
     outs = [torch.empty_like(q) for q in quarters]
     lib = _build.library("split_qmc")
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    n = ctypes.c_longlong(0)  # kernels launched
     rc = lib.split_qmc_anneal(
-        _ptr(sl.w_ab), _ptr(sl.h_ab), _ptr(b_sched), _ptr(jp),
-        ctypes.c_float(teff), *(_ptr(q) for q in quarters),
-        *(_ptr(q) for q in outs), chains, Q, nh, sl.K, sl.nslots, steps,
-        cr.wrap_int32(seed), int(bool(global_moves)), ctypes.c_void_p(stream),
+        *map(_build.ptr, (sl.w_ab, sl.h_ab, b_sched, jp)),
+        ctypes.c_float(teff), *map(_build.ptr, (*quarters, *outs)),
+        chains, Q, nh, sl.K, sl.nslots, steps, cr.wrap_int32(seed),
+        int(bool(global_moves)), _build.stream_of(dev), ctypes.byref(n),
     )
-    _raise_on_error(lib, "split_qmc_anneal", rc)
-    LAUNCHES["qmc_split"] += 1
+    _build.raise_on_error(lib, "split_qmc_anneal", rc)
+    _build.LAUNCHES["qmc_split"] += n.value
     return tuple(outs)
 
 
@@ -258,7 +209,8 @@ def anneal_lattice_split(problem, sched, spins, seed, mcsteps=1):
     sched: (steps,) temperatures; spins: (chains, N) or (N,) float32 +/-1 on
     the problem's device; seed: int counter-hash seed. Returns the annealed
     spins, same shape."""
-    split_ops.require_split(problem)
+    if not split_ops.supports_split(problem):
+        raise ValueError("the split engine takes an even-L LatticeProblem")
     dev = problem.device
     if spins.device != dev:
         raise ValueError(f"spins are on {spins.device}, problem on {dev}")
@@ -282,24 +234,20 @@ def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
     a_sched / b_sched: (steps,) Gamma and B; temp: ambient T, T_eff = P*T;
     confs: (chains, P, N) or (P, N) float32 +/-1 slices-major, on the
     problem's device. Returns the annealed configurations, same shape."""
-    split_ops.require_split(problem)
+    slices = confs.shape[-2]
+    if not split_ops.supports_split(problem, slices):
+        raise ValueError("the split engine takes an even-L LatticeProblem "
+                         "at even P")
     dev = problem.device
     if confs.device != dev:
         raise ValueError(f"confs are on {confs.device}, problem on {dev}")
-    slices = confs.shape[-2]
-    if slices % 2:
-        raise _roadmap.not_ported("PIQMC with odd P", _roadmap.ODD_P)
     sl = split_ops.build_split(problem)
-    gamma = schedules.expand_mcsteps(
-        torch.as_tensor(a_sched, dtype=torch.float32, device=dev), mcsteps)
-    b = schedules.expand_mcsteps(
-        torch.as_tensor(b_sched, dtype=torch.float32, device=dev), mcsteps)
-    teff = float(temp) * slices
-    jp = schedules.jperp(gamma, teff).contiguous()
+    b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, slices,
+                                      mcsteps, dev)
     squeeze = confs.ndim == 2
     c = confs[None] if squeeze else confs
     quarters = split_ops.pack_qmc(sl, c.to(torch.float32))
-    quarters = qmc_split_anneal(sl, b.contiguous(), jp, teff, quarters, seed,
+    quarters = qmc_split_anneal(sl, b, jp, teff, quarters, seed,
                                 global_moves)
     out = split_ops.unpack_qmc(sl, *quarters)
     return out[0] if squeeze else out

@@ -47,6 +47,19 @@ def jperp(gamma, teff):
     return half32 * torch.log(torch.tanh(gamma / teff32))
 
 
+def qmc_terms(a_sched, b_sched, temp, slices, mcsteps=1, device=None):
+    """What a PIQMC engine reads per sweep: (B, J_perp, T_eff). The Gamma
+    and B schedules are expanded to one float32 point per sweep on
+    `device`, J_perp is computed from each Gamma once, and T_eff = P*T is a
+    Python float (qmc.pyx:85, 95)."""
+    gamma = expand_mcsteps(
+        torch.as_tensor(a_sched, dtype=torch.float32, device=device), mcsteps)
+    b = expand_mcsteps(
+        torch.as_tensor(b_sched, dtype=torch.float32, device=device), mcsteps)
+    teff = float(temp) * slices
+    return b.contiguous(), jperp(gamma, teff).contiguous(), teff
+
+
 def expand_mcsteps(sched, mcsteps):
     """Repeat each schedule point `mcsteps` times so there is one sweep per
     element (the reference nests sweeps inside each schedule step,

@@ -3,8 +3,9 @@ montecarlosolvers_tpu/solvers/api.py).
 
 `solve` runs on the problem's device and returns a `SampleSet` of numpy
 arrays, samples sorted by energy. The port covers the methods "sa" and
-"piqmc"; the JAX package's other methods raise NotImplementedError naming
-their ROADMAP.md item.
+"piqmc" on any LatticeProblem (any L, open or periodic) at any P; the JAX
+package's other methods raise NotImplementedError naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -79,8 +80,9 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
       "piqmc" — MST path-integral QMC with global moves; kw: slices=20,
                 pt=1.0, field_start=3.0, pre_anneal=True (the MST driver's
                 pre-anneal: T from 3.0 to pt in steps of 0.05, 100 sweeps
-                each, examples/santoro80.py:284-285). Each read returns its
-                best slice.
+                each, examples/santoro80.py:284-285, through whichever SA
+                engine the lattice takes). Each read returns its best
+                slice.
 
     `seed` seeds the torch.Generator that draws the initial states and the
     counter-hash seeds.
@@ -96,6 +98,7 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
             f"solve(method={method!r}) got unexpected options "
             f"{sorted(unknown)}; accepted: {sorted(_METHOD_KW[method])}"
         )
+    _roadmap.require_lattice(problem)
 
     dev = problem.device
     gen = torch.Generator().manual_seed(seed)

@@ -2,9 +2,16 @@
 montecarlosolvers_tpu/solvers/qmc.py).
 
 State layout is slices-major, confs (..., P, N), as in the JAX package.
-`anneal` runs on an even-L LatticeProblem at even P through the
-split-checkerboard engine (`ops/split_kernels.py`): kernel B on a CUDA
-device, its plain version on the CPU, both on the counter hash.
+`anneal` runs on any LatticeProblem at any P, routed as the JAX solver
+routes (solvers/qmc.py:132): even L and even P take the split-checkerboard
+engine (`ops/split_kernels.py`, kernel B), everything else the full-plane
+engine (`ops/plane_kernels.py`, kernel 3); each runs its CUDA kernel on a
+CUDA device and its plain version on the CPU, both on the counter hash.
+
+Where the JAX solver sends odd P to `ops/piqmc.py::local_sweep` and
+`global_line_moves` on `jax.random`, the port sends it to the fused form of
+that sweep, the Pallas kernel `pallas_qmc._qmc_kernel`, whose counter hash
+lets the port be held bitwise against the Pallas interpreter.
 """
 
 from __future__ import annotations
@@ -12,6 +19,8 @@ from __future__ import annotations
 import torch
 
 from montecarlosolvers_tpu_torch import _roadmap
+from montecarlosolvers_tpu_torch.ops import plane_kernels
+from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels
 from montecarlosolvers_tpu_torch.solvers.sa import draw_seed
 
@@ -33,20 +42,23 @@ def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
            global_moves=False, lookuptable=None):
     """PIQMC anneal over the transverse-field schedule.
 
-    problem: LatticeProblem with even L. a_sched: (steps,) Gamma (end > 0,
+    problem: LatticeProblem (any L). a_sched: (steps,) Gamma (end > 0,
     e.g. 1e-8, to keep J_perp finite). b_sched: (steps,) longitudinal scale
     B. temp: ambient T; T_eff = P*T (qmc.pyx:85). confs: (chains, P, N) or
-    (P, N) float32 +/-1 with even P, on the problem's device. generator:
+    (P, N) float32 +/-1, any P, on the problem's device. generator:
     torch.Generator the counter-hash seed is drawn from. global_moves:
     whole-line flips after each sweep (QuantumAnnealGlobal,
     qmc.pyx:405-438). Returns the annealed configurations."""
     if lookuptable is not None:
         raise _roadmap.not_ported("qmc.anneal(lookuptable=...)",
                                   _roadmap.BATH)
-    return split_kernels.anneal_lattice_qmc_split(
-        problem, a_sched, b_sched, temp, confs, draw_seed(generator),
-        mcsteps=mcsteps, global_moves=global_moves,
-    )
+    _roadmap.require_lattice(problem)
+    engine = (split_kernels.anneal_lattice_qmc_split
+              if split_ops.supports_split(problem, confs.shape[-2])
+              else plane_kernels.anneal_lattice_qmc)
+    return engine(problem, a_sched, b_sched, temp, confs,
+                  draw_seed(generator), mcsteps=mcsteps,
+                  global_moves=global_moves)
 
 
 def anneal_wolff(*args, **kwargs):

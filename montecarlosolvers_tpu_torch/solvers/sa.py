@@ -1,8 +1,11 @@
 """Classical simulated annealing (counterpart of montecarlosolvers_tpu/solvers/sa.py).
 
-`anneal` runs on an even-L LatticeProblem through the split-checkerboard
-engine (`ops/split_kernels.py`): kernel A on a CUDA device, its plain
-version on the CPU. Unlike the JAX solver, which draws from `jax.random`,
+`anneal` runs on any LatticeProblem, routed as the JAX solver routes
+lattices (solvers/sa.py:106-121): an even L takes the split-checkerboard
+engine (`ops/split_kernels.py`, kernel A), any other L the full-plane
+engine (`ops/plane_kernels.py`, kernel 6); each runs its CUDA kernel on a
+CUDA device and its plain version on the CPU. Unlike the JAX solver, which
+draws from `jax.random`,
 the port draws every uniform from the counter hash of the Pallas kernels;
 the solver takes the hash's integer seed from its `torch.Generator`.
 """
@@ -12,6 +15,8 @@ from __future__ import annotations
 import torch
 
 from montecarlosolvers_tpu_torch import _roadmap
+from montecarlosolvers_tpu_torch.ops import plane_kernels
+from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels
 
 
@@ -34,14 +39,17 @@ def random_state(generator, nspins, batch=(), device=None):
 def anneal(problem, sched, spins, generator, mcsteps=1):
     """Thermal anneal over the temperature schedule `sched`.
 
-    problem: LatticeProblem with even L. sched: (steps,) temperatures
+    problem: LatticeProblem (any L). sched: (steps,) temperatures
     (e.g. schedules.linear(3.0, 0.0, tau)). spins: (chains, N) or (N,)
     float32 +/-1 on the problem's device. generator: torch.Generator the
     counter-hash seed is drawn from. mcsteps: sweeps per schedule step
     (sa.pyx:68). Returns the annealed spins."""
-    return split_kernels.anneal_lattice_split(
-        problem, sched, spins, draw_seed(generator), mcsteps=mcsteps
-    )
+    _roadmap.require_lattice(problem)
+    engine = (split_kernels.anneal_lattice_split
+              if split_ops.supports_split(problem)
+              else plane_kernels.anneal_lattice)
+    return engine(problem, sched, spins, draw_seed(generator),
+                  mcsteps=mcsteps)
 
 
 def anneal_noisy(*args, **kwargs):

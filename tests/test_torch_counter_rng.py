@@ -13,6 +13,7 @@ import torch
 from montecarlosolvers_tpu.ops.metropolis import (
     metropolis_accept as jax_accept,
 )
+from montecarlosolvers_tpu.ops.pallas_qmc import _uniform01_4d
 from montecarlosolvers_tpu.ops.pallas_sa import _uniform01
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
@@ -72,6 +73,65 @@ def test_uid_formulas_match_kernels(chains, Q, nh):
                + jnp.asarray(flat)[None, None, :])
         out = cr.quarter_uids(chains, Q, nh, idx, "cpu").numpy()
         assert np.array_equal(out, np.asarray(ref))
+
+
+def _jax_plane_ids(chains, L, slices=None):
+    """The full-plane kernels' site ids on the padded plane, as
+    pallas_sa.py:166-175 and pallas_qmc.py:83-97 build them from iotas,
+    cut to the physical L x L sites."""
+    R, C = -(-L // 8) * 8, -(-L // 128) * 128
+    if slices is None:
+        ch, r, c = (jnp.arange(n, dtype=jnp.int32) for n in (chains, R, C))
+        ids = (ch[:, None, None] * jnp.int32(R * C)
+               + r[None, :, None] * jnp.int32(C) + c[None, None, :])
+        return np.array(ids)[:, :L, :L]
+    ch, k, r, c = (jnp.arange(n, dtype=jnp.int32)
+                   for n in (chains, slices, R, C))
+    ids = (ch[:, None, None, None] * jnp.int32(slices * R * C)
+           + k[None, :, None, None] * jnp.int32(R * C)
+           + r[None, None, :, None] * jnp.int32(C) + c[None, None, None, :])
+    return np.array(ids)[:, :, :L, :L]
+
+
+@pytest.mark.parametrize("chains,L,P", [(3, 5, None), (2, 80, None),
+                                        (2, 81, 5), (4, 6, 3), (1, 129, 2)])
+def test_plane_uids_match_kernels(chains, L, P):
+    """Padded strides: at L = 80 a row is C = 128 ids wide, at L = 81 the
+    plane is R = 88 rows deep, at L = 129 C = 256."""
+    out = cr.plane_uids(chains, L, "cpu", slices=P).numpy()
+    assert np.array_equal(out, _jax_plane_ids(chains, L, P))
+
+
+@pytest.mark.parametrize("seed", [0, 12345, 2**31 - 1, -(2**31), -7])
+def test_full_plane_counters_and_uniforms_bitwise(seed):
+    """Local phase p / SA color p: counter(seed, t, p) is the Pallas
+    kernels' base + p * 1013904223. Line moves: ((seed * M + t * 40503) XOR
+    374761393) + color * 69069 (pallas_qmc.py:124,131-133). Uniforms at
+    the kernels' ids equal `_uniform01_4d` and `_uniform01` bitwise."""
+    sd = jnp.int32(seed)
+    ids4 = _jax_plane_ids(2, 6, 3)
+    ids3 = _jax_plane_ids(2, 7)
+    for t in (0, 1, 999, 2**31 - 1):
+        base = sd * jnp.int32(SEED_MULT) + jnp.int32(t) * jnp.int32(40503)
+        for p in range(3):
+            ref = base + jnp.int32(p * 1013904223)
+            assert cr.counter(seed, t, p) == int(ref)
+            got = cr.uniform01(cr.counter(seed, t, p),
+                               torch.from_numpy(ids4)).numpy()
+            assert np.array_equal(
+                got, np.asarray(_uniform01_4d(ref, jnp.asarray(ids4))))
+        for color in (0, 1):
+            ref = (base ^ jnp.int32(374761393)) + jnp.int32(color * 69069)
+            assert cr.line_counter(seed, t, color) == int(ref)
+            got = cr.uniform01(cr.line_counter(seed, t, color),
+                               torch.from_numpy(ids4[:, 0])).numpy()
+            assert np.array_equal(got, np.asarray(
+                _uniform01_4d(ref, jnp.asarray(ids4))[:, 0]))
+            ref = base + jnp.int32(color * 1013904223)
+            got = cr.uniform01(cr.counter(seed, t, color),
+                               torch.from_numpy(ids3)).numpy()
+            assert np.array_equal(
+                got, np.asarray(_uniform01(ref, jnp.asarray(ids3))))
 
 
 def test_logical_shift_emulation():

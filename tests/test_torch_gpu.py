@@ -1,4 +1,5 @@
-"""Kernels A and B against their plain PyTorch versions on a CUDA device.
+"""Kernels A, B, 3 and 6 against their plain PyTorch versions on a CUDA
+device.
 
 Marked `gpu`: each test skips when torch sees no CUDA device. The repo's
 tests/conftest.py imports JAX, which the GPU machine need not have, so run
@@ -8,7 +9,9 @@ this file there with
 
 Small shapes that the main path does not reach: Nh = 50 (L = 10, tails of
 the 256-thread blocks), Q = 1 (P = 2, both Trotter terms one element), open
-and periodic lattices, B != 1.
+and periodic lattices, B != 1; for the full-plane kernels odd and even L,
+P = 2 to 7 (m = 2, 3 and 4 local phases), and the odd-torus wrap pairs
+that share a color.
 """
 
 import numpy as np
@@ -17,6 +20,9 @@ import torch
 
 from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.models import instances
+from montecarlosolvers_tpu_torch.ops import _build
+from montecarlosolvers_tpu_torch.ops import plane as plane_ops
+from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels as sk
 from montecarlosolvers_tpu_torch.solvers.api import solve
@@ -91,10 +97,66 @@ def test_wrapper_refusals(cuda):
         sk.sa_split_anneal(sl_big, sched, ab, ab, 0)
 
 
-def test_solve_runs_the_kernels(cuda):
-    lat = _lattice(16, True, cuda)
-    sk.reset_launches()
-    ss = solve(lat, "piqmc", num_reads=4, sweeps=50, slices=4, seed=1)
-    assert sk.LAUNCHES["sa_split"] == 1 and sk.LAUNCHES["qmc_split"] == 1
+@pytest.mark.parametrize("L,periodic", [(5, True), (9, False), (16, True),
+                                        (33, True)])
+def test_kernel_6_equals_plain(cuda, L, periodic):
+    pl = plane_ops.build_plane(_lattice(L, periodic, cuda))
+    rng = np.random.default_rng(2)
+    s = torch.as_tensor(rng.choice([-1.0, 1.0], size=(6, L, L))
+                        .astype(np.float32), device=cuda)
+    sched = schedules.linear(3.0, 0.0, 64, device=cuda)
+    out = pk.sa_plane_anneal(pl, sched, s, 3)
+    assert torch.equal(out, pk.sa_plane_anneal_ref(pl, sched, s, 3))
+    assert not torch.equal(out, s)
+
+
+@pytest.mark.parametrize(
+    "L,P,periodic,gm,bscale",
+    [(5, 3, True, True, 1.0), (6, 5, False, True, 0.7),
+     (7, 4, True, False, 0.7), (8, 2, True, True, 1.0),
+     (9, 7, True, True, 1.0), (16, 5, True, True, 0.7)],
+)
+def test_kernel_3_equals_plain(cuda, L, P, periodic, gm, bscale):
+    pl = plane_ops.build_plane(_lattice(L, periodic, cuda))
+    rng = np.random.default_rng(3)
+    c = torch.as_tensor(rng.choice([-1.0, 1.0], size=(3, P, L, L))
+                        .astype(np.float32), device=cuda)
+    gamma = schedules.transverse_field(2.5, 1e-8, 30, device=cuda)
+    teff = (1.0 / P) * P
+    jp = schedules.jperp(gamma, teff).contiguous()
+    bs = torch.full_like(gamma, bscale)
+    out = pk.qmc_plane_anneal(pl, bs, jp, teff, c, 5, gm)
+    ref = pk.qmc_plane_anneal_ref(pl, bs, jp, teff, c, 5, gm)
+    assert torch.equal(out, ref)
+    assert not torch.equal(out, c)
+
+
+def test_plane_wrapper_refusals(cuda):
+    pl = plane_ops.build_plane(_lattice(16, True, cuda))
+    sched = schedules.linear(1.0, 0.0, 4, device=cuda)
+    s = torch.ones((2, 16, 16), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        pk.sa_plane_anneal(pl, sched, s.double(), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.sa_plane_anneal(pl, sched, s.transpose(1, 2), 0)
+    big = plane_ops.build_plane(_lattice(242, False, cuda))
+    with pytest.raises(ValueError, match="shared"):
+        pk.sa_plane_anneal(big, sched, torch.ones((1, 242, 242),
+                                                  device=cuda), 0)
+
+
+# (L, P, launches): the pre-anneal is one SA launch; PIQMC with global
+# moves launches per sweep 4 kernels B (2 local, 2 line phases) or m + 2
+# kernels 3 (m = 3 at P = 5, 2 at P = 4).
+@pytest.mark.parametrize("L,P,launches", [
+    (16, 4, {"sa_split": 1, "qmc_split": 4 * 50}),
+    (16, 5, {"sa_split": 1, "qmc_plane": 5 * 50}),
+    (9, 4, {"sa_plane": 1, "qmc_plane": 4 * 50}),
+])
+def test_solve_runs_the_kernels(cuda, L, P, launches):
+    lat = _lattice(L, True, cuda)
+    _build.reset_launches()
+    ss = solve(lat, "piqmc", num_reads=4, sweeps=50, slices=P, seed=1)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == launches
     assert set(np.unique(ss.samples)) <= {-1.0, 1.0}
     assert np.all(np.isfinite(ss.energies))

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from test_pallas_split import oracle_anneal, oracle_qmc
+from montecarlosolvers_tpu.models import instances as jinst
 from montecarlosolvers_tpu.models.lattice import LatticeProblem as JLattice
 from montecarlosolvers_tpu.solvers import api as japi
 from montecarlosolvers_tpu.solvers import qmc as jqmc
@@ -152,16 +153,19 @@ def test_refusals():
     lat = tinst.gaussian_torus(6, seed=0)
     sched = tsched.linear(1.0, 0.0, 3)
     c = qmc.replicate(sa.random_state(gen, 36, batch=(2,)), 3)
-    with pytest.raises(NotImplementedError, match="odd-P"):
-        qmc.anneal(lat, sched, torch.ones_like(sched), 0.3, c, gen)
     with pytest.raises(NotImplementedError, match="dissipative"):
         qmc.anneal(lat, sched, torch.ones_like(sched), 0.3, c, gen,
                    lookuptable=np.ones(2))
-    odd = tinst.gaussian_torus(5, seed=0)
-    with pytest.raises(NotImplementedError, match="odd L"):
-        sa.anneal(odd, sched, sa.random_state(gen, 25), gen)
-    with pytest.raises(NotImplementedError, match="odd L"):
-        api.solve(odd, "piqmc", num_reads=2, sweeps=3, slices=4)
+    # odd P and odd L run now (tests/test_torch_plane.py); a problem that
+    # is not a LatticeProblem, such as the JAX package's generic
+    # IsingProblem, is still refused by every entry point
+    generic = jinst.random_2d_lattice(4, rng=0)[0]
+    with pytest.raises(NotImplementedError, match="other than a Lattice"):
+        qmc.anneal(generic, sched, torch.ones_like(sched), 0.3, c, gen)
+    with pytest.raises(NotImplementedError, match="other than a Lattice"):
+        sa.anneal(generic, sched, sa.random_state(gen, 16), gen)
+    with pytest.raises(NotImplementedError, match="other than a Lattice"):
+        api.solve(generic, "piqmc", num_reads=2, sweeps=3, slices=5)
     with pytest.raises(NotImplementedError, match="generic IsingProblem"):
         tinst.random_2d_lattice(4, rng=0, lattice=False)
     for fn in (sa.anneal_noisy, sa.anneal_wolff, sa.anneal_sw,
@@ -206,7 +210,8 @@ def test_port_imports_no_jax():
             assert top not in ("jax", "jaxlib", "montecarlosolvers_tpu"), \
                 f"{f.relative_to(REPO)} imports {mod}"
     code = ("import sys, montecarlosolvers_tpu_torch as m; "
-            "from montecarlosolvers_tpu_torch.ops import split_kernels; "
+            "from montecarlosolvers_tpu_torch.ops import split_kernels, "
+            "plane_kernels; "
             "import montecarlosolvers_tpu_torch.convert; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'montecarlosolvers_tpu')]; "
