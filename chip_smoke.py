@@ -7,7 +7,8 @@ Run from the repository root, with no arguments:
 
 Phases, each printed as one JSON line:
   device              nvidia-smi's name and power limit of the card
-  build               nvcc builds kernels A, B, 3 and 6 from csrc/ (seconds)
+  build               nvcc builds kernels A, B, 3, 4, 6 and 7 from csrc/,
+                      all at once (seconds)
   sa_kernel_vs_plain  kernel A against its plain PyTorch version on the card,
                       80x80 periodic Gaussian lattice at the main path's
                       1280 chains, 200 steps of T: 3 -> 0.1
@@ -21,17 +22,26 @@ Phases, each printed as one JSON line:
                       B in {1, 0.7} x global moves on / off, 32 chains, on
                       the 80x80 torus at P = 5 and the 81x81 torus at P = 5
                       (the main path's two shapes) and P = 4
-  main_path           five solves at full width: solve("sa", 1280 reads,
+  svmc_split_kernel_vs_plain  kernel 4 against its plain version on the
+                      80x80 torus, 256 chains, 200 steps of A: 3 -> 1e-8,
+                      B = 1, T = 0.05, TF proposals on and off: angles that
+                      differ at all, by more than 1e-3 (must be 0), max |d|
+  svmc_plane_kernel_vs_plain  kernel 7 likewise on the 81x81 torus and an
+                      81x81 open lattice
+  main_path           seven solves at full width: solve("sa", 1280 reads,
                       2000 sweeps) and solve("piqmc", 32 reads, 1000
                       sweeps) at P = 40 and at P = 5 on the santoro instance
                       when MCS_TPU_INSTANCE_DIR holds it, else on the seeded
                       80x80 Gaussian torus; solve("sa") and solve("piqmc",
-                      P = 5) on the seeded 81x81 torus. Energies are checked
-                      against a float64 recomputation and their mean per
-                      spin against fixed ranges; the kernel launch counts
-                      (ops/_build.py::LAUNCHES: one per launch of a kernel,
-                      so kernel 3 counts m + 2 per sweep) are set to 0 just
-                      before each solve and read just after it
+                      P = 5) on the seeded 81x81 torus; solve("svmc", 256
+                      reads, 2000 sweeps) on the 80x80 lattice and on the
+                      81x81 torus. Energies are checked against a float64
+                      recomputation and their mean per spin against fixed
+                      ranges; the kernel launch counts (ops/_build.py::
+                      LAUNCHES: one per launch of a kernel, so kernel 3
+                      counts m + 2 per sweep) are set to 0 just before each
+                      solve, read just after it and must equal the solve's
+                      route exactly
   timing              slope-timed ms per sweep of each kernel and of its
                       plain version at the main path's shapes
 then a line {"kernels": [...]}, and last {"ok": true, "device": {...}}.
@@ -52,6 +62,11 @@ L, ODD_L = 80, 81
 SA_READS, SA_SWEEPS = 1280, 2000
 QMC_READS, QMC_SLICES, QMC_SWEEPS = 32, 40, 1000
 ODD_SLICES = 5
+SVMC_READS, SVMC_SWEEPS, SVMC_TEMP = 256, 2000, 0.05
+# kernels 4 and 7 against their plain versions: no angle may differ by
+# more than ANGLE_MISMATCH (a diverged accept decision), and none by more
+# than ANGLE_ATOL (last-ulp differences of cos / sin / log1p, if any)
+ANGLE_MISMATCH, ANGLE_ATOL = 1e-3, 2e-5
 # Mean energy per spin of each main-path solve on the seeded tori must lie
 # in these ranges. Anchors from the JAX package's solver on the CPU at the
 # same lattice, P and tau (PERF.md section 2), widened by about 0.01 per
@@ -61,16 +76,20 @@ ODD_SLICES = 5
 #   piqmc_p5      PIQMC P=5 tau=1000 on 80x80, mean -1.2932
 #   sa_l81        SA tau=2000 on 81x81, mean -1.2787
 #   piqmc_p5_l81  PIQMC P=5 tau=1000 on 81x81, mean -1.2976
+#   svmc          SVMC-TF T=0.05 tau=2000 on 80x80, 256 reads, mean -1.2566
+#   svmc_l81      SVMC-TF T=0.05 tau=2000 on 81x81, 256 reads, mean -1.2615
 RANGES = {
     "sa": (-1.29, -1.268),
     "piqmc_p40": (-1.31, -1.278),
     "piqmc_p5": (-1.304, -1.282),
     "sa_l81": (-1.29, -1.268),
     "piqmc_p5_l81": (-1.309, -1.287),
+    "svmc": (-1.267, -1.246),
+    "svmc_l81": (-1.272, -1.251),
 }
 # residual energy per spin ranges on the certified santoro instance
 EPS_RANGES = {"sa": (0.0, 0.1), "piqmc_p40": (0.0, 0.05),
-              "piqmc_p5": (0.0, 0.05)}
+              "piqmc_p5": (0.0, 0.05), "svmc": (0.0, 0.2)}
 # kernel name -> (LAUNCHES key, source, TPU kernel it replaces)
 KERNELS = {
     "split_sa": ("sa_split", "montecarlosolvers_tpu_torch/csrc/split_sa.cu",
@@ -83,6 +102,12 @@ KERNELS = {
     "plane_qmc": ("qmc_plane",
                   "montecarlosolvers_tpu_torch/csrc/plane_qmc.cu",
                   "montecarlosolvers_tpu/ops/pallas_qmc.py:70"),
+    "split_svmc": ("svmc_split",
+                   "montecarlosolvers_tpu_torch/csrc/split_svmc.cu",
+                   "montecarlosolvers_tpu/ops/pallas_split.py:227"),
+    "plane_svmc": ("svmc_plane",
+                   "montecarlosolvers_tpu_torch/csrc/plane_svmc.cu",
+                   "montecarlosolvers_tpu/ops/pallas_svmc.py:56"),
 }
 
 
@@ -109,6 +134,17 @@ def mismatches(xs, ys):
     n = sum(int((x != y).sum()) for x, y in zip(xs, ys))
     err = max(float((x - y).abs().max()) for x, y in zip(xs, ys))
     return n, err
+
+
+def angle_diffs(xs, ys):
+    """Counts of angles that differ at all and by more than ANGLE_MISMATCH,
+    and max |x - y|, over paired tensors."""
+    d = [(x - y).abs() for x, y in zip(xs, ys)]
+    return {"bitwise_differing_angles": sum(int((x != y).sum())
+                                            for x, y in zip(xs, ys)),
+            "mismatched_angles": sum(int((e > ANGLE_MISMATCH).sum())
+                                     for e in d),
+            "max_abs_err": max(float(e.max()) for e in d)}
 
 
 def slope_ms(run, taus, trials):
@@ -180,6 +216,10 @@ def main():
         return torch.as_tensor(
             rng.choice([-1.0, 1.0], size=shape).astype(np.float32),
             device=dev)
+
+    def random_angles(*shape):
+        return torch.as_tensor(
+            (rng.random(shape) * np.pi).astype(np.float32), device=dev)
 
     # ---- kernel A against its plain version
     a, b = (x.contiguous() for x in split_ops.pack_classical(
@@ -263,6 +303,51 @@ def main():
                                   f"global_moves={gm})")
     results["plane_qmc"]["max_abs_err"] = err_3
 
+    # ---- kernels 4 and 7 against their plain versions
+    a_sv = schedules.linear(3.0, 1e-8, 200, device=dev)
+    b_sv = torch.ones_like(a_sv)
+
+    def check_angles(phase, what, kernel_out, plain_out, rec):
+        d = angle_diffs(kernel_out, plain_out)
+        emit({"phase": phase, **rec, **d})
+        check(d["mismatched_angles"] == 0 and d["max_abs_err"] <= ANGLE_ATOL,
+              f"{what} equals its plain version ({rec})")
+        return d["max_abs_err"]
+
+    err_4 = 0.0
+    ah, bh = (x.contiguous() for x in split_ops.pack_classical(
+        sl, random_angles(SVMC_READS, L * L)))
+    for tf in (True, False):
+        k4 = sk.svmc_split_anneal(sl, a_sv, b_sv, SVMC_TEMP, ah, bh, 2468,
+                                  tf)
+        r4 = sk.svmc_split_anneal_ref(sl, a_sv, b_sv, SVMC_TEMP, ah, bh,
+                                      2468, tf)
+        torch.cuda.synchronize()
+        err_4 = max(err_4, check_angles(
+            "svmc_split_kernel_vs_plain", "kernel 4", k4, r4,
+            {"lattice": "gaussian_torus(80, 0)", "chains": SVMC_READS,
+             "steps": 200, "tf": tf, "nslots": sl.nslots,
+             "moved_fraction": float((k4[0] - ah[0]).abs().gt(1e-3)
+                                     .float().mean())}))
+    results["split_svmc"]["max_abs_err"] = err_4
+
+    err_7 = 0.0
+    for lname, lat in (("gaussian_torus(81, 0)", odd_torus),
+                       ("random_2d_lattice(81, 0), open", odd_open)):
+        pl = plane_ops.build_plane(lat)
+        th = random_angles(SVMC_READS, ODD_L, ODD_L)
+        for tf in (True, False):
+            k7 = pk.svmc_plane_anneal(pl, a_sv, b_sv, SVMC_TEMP, th, 1357,
+                                      tf)
+            r7 = pk.svmc_plane_anneal_ref(pl, a_sv, b_sv, SVMC_TEMP, th,
+                                          1357, tf)
+            torch.cuda.synchronize()
+            err_7 = max(err_7, check_angles(
+                "svmc_plane_kernel_vs_plain", "kernel 7", [k7], [r7],
+                {"lattice": lname, "chains": SVMC_READS, "steps": 200,
+                 "tf": tf}))
+    results["plane_svmc"]["max_abs_err"] = err_7
+
     # ---- main path through solve(), launch counts read around each solve
     try:
         problem, e_gs = instances.santoro_80x80(lattice=True, device=dev)
@@ -272,17 +357,24 @@ def main():
         lattice = "gaussian_torus(80, seed=0)"
     sa_kw = dict(method="sa", num_reads=SA_READS, sweeps=SA_SWEEPS)
     qmc_kw = dict(method="piqmc", num_reads=QMC_READS, sweeps=QMC_SWEEPS)
-    # key, lattice name, problem, solve options, kernels it must launch
+    svmc_kw = dict(method="svmc", num_reads=SVMC_READS, sweeps=SVMC_SWEEPS)
+    # key, lattice name, problem, solve options, the launches it must make:
+    # kernels A, 4, 6 and 7 once per anneal (the PIQMC pre-anneal is one SA
+    # anneal), B 4 and 3 m + 2 = 5 times per sweep
     paths = (
-        ("sa", lattice, problem, sa_kw, ("sa_split",)),
+        ("sa", lattice, problem, sa_kw, {"sa_split": 1}),
         ("piqmc_p40", lattice, problem, dict(qmc_kw, slices=QMC_SLICES),
-         ("sa_split", "qmc_split")),
+         {"sa_split": 1, "qmc_split": 4 * QMC_SWEEPS}),
         ("piqmc_p5", lattice, problem, dict(qmc_kw, slices=ODD_SLICES),
-         ("sa_split", "qmc_plane")),
+         {"sa_split": 1, "qmc_plane": 5 * QMC_SWEEPS}),
         ("sa_l81", "gaussian_torus(81, seed=0)", odd_torus, sa_kw,
-         ("sa_plane",)),
+         {"sa_plane": 1}),
         ("piqmc_p5_l81", "gaussian_torus(81, seed=0)", odd_torus,
-         dict(qmc_kw, slices=ODD_SLICES), ("sa_plane", "qmc_plane")),
+         dict(qmc_kw, slices=ODD_SLICES),
+         {"sa_plane": 1, "qmc_plane": 5 * QMC_SWEEPS}),
+        ("svmc", lattice, problem, svmc_kw, {"svmc_split": 1}),
+        ("svmc_l81", "gaussian_torus(81, seed=0)", odd_torus, svmc_kw,
+         {"svmc_plane": 1}),
     )
     main_launches = {k: 0 for k in _build.LAUNCHES}
     for key, lname, prob, kw, needs in paths:
@@ -318,8 +410,9 @@ def main():
         val = rec["eps_res_mean"] if certified \
             else rec["mean_energy_per_spin"]
         check(lo <= val <= hi, f"{key} mean {val} inside [{lo}, {hi}]")
-        for k in needs:
-            check(launches[k] > 0, f"{key} launched {k}")
+        launched = {k: v for k, v in launches.items() if v}
+        check(launched == needs, f"{key} launched {launched}, its route "
+                                 f"{needs}")
     emit({"phase": "main_path", "launches": main_launches})
 
     # ---- timing: slope ms per sweep, kernel and plain version
@@ -341,6 +434,20 @@ def main():
 
     pl81 = plane_ops.build_plane(odd_torus)
     pl80 = plane_ops.build_plane(torus)
+
+    def svmc_sched(tau):
+        a = schedules.linear(3.0, 1e-8, tau, device=dev)
+        return a, torch.ones_like(a)
+
+    def split_svmc_runner(fn):
+        ha, hb = (x.contiguous() for x in split_ops.pack_classical(
+            sl, random_angles(SVMC_READS, L * L)))
+        return lambda tau: fn(sl, *svmc_sched(tau), SVMC_TEMP, ha, hb, 7,
+                              True)
+
+    def plane_svmc_runner(fn):
+        th = random_angles(SVMC_READS, ODD_L, ODD_L)
+        return lambda tau: fn(pl81, *svmc_sched(tau), SVMC_TEMP, th, 7, True)
 
     def plane_sa_runner(fn):
         s = random_spins(SA_READS, ODD_L, ODD_L)
@@ -376,6 +483,14 @@ def main():
          (200, 800), 3, QMC_READS, ODD_SLICES, L * L),
         ("plane_qmc", "plain", plane_qmc_runner(pk.qmc_plane_anneal_ref),
          (4, 12), 2, QMC_READS, ODD_SLICES, L * L),
+        ("split_svmc", "cuda", split_svmc_runner(sk.svmc_split_anneal),
+         (500, 2000), 3, SVMC_READS, 1, L * L),
+        ("split_svmc", "plain", split_svmc_runner(sk.svmc_split_anneal_ref),
+         (10, 40), 2, SVMC_READS, 1, L * L),
+        ("plane_svmc", "cuda", plane_svmc_runner(pk.svmc_plane_anneal),
+         (500, 2000), 3, SVMC_READS, 1, ODD_L * ODD_L),
+        ("plane_svmc", "plain", plane_svmc_runner(pk.svmc_plane_anneal_ref),
+         (10, 40), 2, SVMC_READS, 1, ODD_L * ODD_L),
     )
     for kname, route, run, taus, trials, chains, slices, sites in timings:
         ms, best = slope_ms(run, taus, trials)
@@ -383,7 +498,9 @@ def main():
             else float("nan")
         emit({"phase": "timing", "kernel": kname, "route": route,
               "chains": chains, "slices": slices, "sites": sites,
-              "global_moves": kname.endswith("qmc"), "taus": list(taus),
+              "global_moves": kname.endswith("qmc"),
+              "tf": True if kname.endswith("svmc") else None,
+              "taus": list(taus),
               "best_seconds": {str(k): v for k, v in best.items()},
               "ms_per_sweep": ms, "attempts_per_s": rate,
               "gpu": name, "power_limit": power})

@@ -5,17 +5,20 @@ against it module by module. Module names and layout follow the JAX
 package (`models/`, `ops/`, `solvers/`, `schedules.py`) so each module's
 counterpart is easy to find.
 
-Scope of this package today: the Martonak-Santoro-Tosatti main path on any
-`LatticeProblem` (any L, open or periodic) — classical SA and PIQMC at any
-P (local plus whole-line global moves), and the one-call
-`solvers.api.solve` with method "sa" or "piqmc". Even L (and even P) take
-the split-checkerboard engines (`ops/split_kernels.py`), everything else
-the full-plane engines (`ops/plane_kernels.py`). On a CUDA device the four
+Scope of this package today: the Martonak-Santoro-Tosatti main path and
+spin-vector Monte Carlo on any `LatticeProblem` (any L, open or periodic) —
+classical SA, PIQMC at any P (local plus whole-line global moves), SVMC
+with uniform or TF proposals, and the one-call `solvers.api.solve` with
+method "sa", "piqmc" or "svmc". Even L (and even P) take the
+split-checkerboard engines (`ops/split_kernels.py`), everything else the
+full-plane engines (`ops/plane_kernels.py`). On a CUDA device the six
 engines run hand-written CUDA kernels (`csrc/split_sa.cu`,
-`csrc/split_qmc.cu`, `csrc/plane_sa.cu`, `csrc/plane_qmc.cu`); on the CPU
-they run the plain PyTorch versions beside the kernel wrappers, which equal
-the JAX oracles and the Pallas interpreter bitwise. Everything else raises
-NotImplementedError naming the ROADMAP.md item that will port it.
+`csrc/split_qmc.cu`, `csrc/split_svmc.cu`, `csrc/plane_sa.cu`,
+`csrc/plane_qmc.cu`, `csrc/plane_svmc.cu`); on the CPU they run the plain
+PyTorch versions beside the kernel wrappers, which equal the JAX oracles
+and the Pallas interpreter (bitwise for spins, to the last ulps of cos and
+sin for rotor angles). Everything else raises NotImplementedError naming
+the ROADMAP.md item that will port it.
 
 Random numbers come from the counter hash of the JAX package's Pallas
 kernels (`ops/counter_rng.py`), not from torch's generators: solvers draw
@@ -26,9 +29,10 @@ This package imports torch and numpy and never jax.
 
 from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
-from montecarlosolvers_tpu_torch.solvers import sa, qmc
+from montecarlosolvers_tpu_torch.solvers import sa, qmc, svmc
 from montecarlosolvers_tpu_torch.solvers.api import SampleSet, solve
 
 __version__ = "0.1.0"
 
-__all__ = ["LatticeProblem", "SampleSet", "qmc", "sa", "schedules", "solve"]
+__all__ = ["LatticeProblem", "SampleSet", "qmc", "sa", "schedules", "solve",
+           "svmc"]

@@ -5,11 +5,10 @@ from __future__ import annotations
 
 GENERIC_PROBLEM = ("queue 1, item 2 (generic IsingProblem and instances, "
                    "the generic ops/piqmc.py sweeps)")
-SVMC = "queue 1, item 3 (SVMC)"
-BATH = "queue 1, item 4 (dissipative PIQMC, lookuptable=)"
-GENERIC_GRAPHS = "queue 1, item 5 (generic graphs, anneal_noisy)"
-CLUSTER = "queue 1, item 6 (cluster updates)"
-SAMPLERS = "queue 1, item 7 (samplers and API)"
+BATH = "queue 1, item 3 (dissipative PIQMC, lookuptable=)"
+GENERIC_GRAPHS = "queue 1, item 4 (generic graphs, anneal_noisy)"
+CLUSTER = "queue 1, item 5 (cluster updates)"
+SAMPLERS = "queue 1, item 6 (samplers and API)"
 
 
 def require_lattice(problem):

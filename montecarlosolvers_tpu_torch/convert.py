@@ -2,7 +2,9 @@
 
 Both functions take numpy arrays (for example `np.asarray(jax_lat.j_right)`)
 and return the port's objects on `device`, so the two packages compute on
-the same inputs.
+the same inputs. A LatticeProblem is the only parameter any solver takes;
+states, spins or SVMC rotor angles alike, are plain arrays and cross as
+numpy through `state_from_numpy`, so SVMC needs no converter of its own.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ def lattice_from_arrays(j_right, j_down, h_plane, col_wrap=None, device=None):
 
 
 def state_from_numpy(spins, device=None):
-    """Spins or Trotter configurations as a float32 tensor, keeping the JAX
-    package's layout: (chains, N), or slices-major (chains, P, N)."""
+    """Spins, rotor angles or Trotter configurations as a float32 tensor,
+    keeping the JAX package's layout: (chains, N), or slices-major
+    (chains, P, N)."""
     return torch.as_tensor(
         np.ascontiguousarray(np.asarray(spins, dtype=np.float32)),
         device=device,

@@ -2,8 +2,9 @@
 //
 // Device form of montecarlosolvers_tpu/ops/pallas_sa.py::_mix32 (:110) and
 // _uniform01 (:129), of the counter of ops/pallas_split.py:137-141 and
-// pallas_sa.py:189-193, and of the line-move counter of
-// ops/pallas_qmc.py:124,131-133. The plain PyTorch form is
+// pallas_sa.py:189-193, of the line-move counter of
+// ops/pallas_qmc.py:124,131-133 and of the SVMC acceptance counter of
+// ops/pallas_svmc.py:93-96. The plain PyTorch form is
 // montecarlosolvers_tpu_torch/ops/counter_rng.py.
 //
 // Trouble spot: the JAX code hashes on int32 and relies on wrapping
@@ -52,6 +53,14 @@ __device__ __forceinline__ uint32_t line_counter(uint32_t seed_term, int step,
          static_cast<uint32_t>(color) * kLineMult;
 }
 
+// counter of the full-plane SVMC acceptance uniforms of `color`
+// (pallas_svmc.py:93-96): counter(seed, step, color) XOR kLineXor; the
+// Pallas `base + color * M ^ X` adds first and XORs after
+__device__ __forceinline__ uint32_t svmc_accept_counter(uint32_t seed_term,
+                                                        int step, int color) {
+  return counter(seed_term, step, color) ^ kLineXor;
+}
+
 // uniform in [0, 1) with 24 bits; (float) of a value < 2^24 is exact
 __device__ __forceinline__ float uniform01(uint32_t ctr, uint32_t uid) {
   const uint32_t bits = mix32(uid * kGolden + ctr);
@@ -78,9 +87,10 @@ __device__ __forceinline__ int wrap_index(int j, int n) {
 //   slot 0: o[j]        slot 1: o[j+1]        slot 2: o[j-1]
 //   slot 3: o[j+K]      slot 4: o[j-K]
 //   slot 5: o[j-(K-1)]  slot 6: o[j+(K-1)]    (row wrap, 7-slot lattices)
-// They are summed in this order, as the JAX code sums them. Each product
-// w*(+/-1) is exact, so the order alone fixes the float32 result and an FMA
-// could not change it; __fadd_rn/__fmul_rn state that explicitly.
+// They are summed in this order, as the JAX code sums them. For spins each
+// product w*(+/-1) is exact, so the order alone fixes the float32 result;
+// for the SVMC kernel's cos values the products round, and
+// __fadd_rn/__fmul_rn keep nvcc from contracting them into FMAs.
 __device__ __forceinline__ float half_field(const float* o,
                                             const float* __restrict__ w,
                                             int color, int nh, int K,

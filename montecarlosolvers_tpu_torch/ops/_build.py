@@ -29,7 +29,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("split_sa", "split_qmc", "plane_sa", "plane_qmc")
+KERNELS = ("split_sa", "split_qmc", "split_svmc", "plane_sa", "plane_qmc",
+           "plane_svmc")
 
 # No --use_fast_math: kernels and their plain versions must round alike.
 NVCC_FLAGS = (
@@ -72,6 +73,22 @@ SIGNATURES = {
         ),
         "plane_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
+    "split_svmc": {
+        # w, h, a_sched, b_sched, temp, a_in, b_in, a_out, b_out,
+        # chains, nh, K, nslots, steps, seed, tf, stream
+        "split_svmc_anneal": (
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 4 + [_I] * 7 + [_P]
+        ),
+        "split_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "plane_svmc": {
+        # planes, a_sched, b_sched, temp, th_in, th_out, chains, L,
+        # row_stride, plane_stride, steps, seed, tf, stream
+        "plane_svmc_anneal": (
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 2 + [_I] * 7 + [_P]
+        ),
+        "plane_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _LIBS = {}
@@ -80,10 +97,11 @@ _LIBS = {}
 # the kernels that keep a chain in shared memory are refused beyond it.
 SMEM_LIMIT_BYTES = 232448
 
-# Kernel launches per kernel. Kernels A and 6 run a whole schedule in one
-# launch; B and 3 launch once per phase, and their C entry points report
+# Kernel launches per kernel. Kernels A, 4, 6 and 7 run a whole schedule in
+# one launch; B and 3 launch once per phase, and their C entry points report
 # how many launches they issued.
-LAUNCHES = {"sa_split": 0, "qmc_split": 0, "sa_plane": 0, "qmc_plane": 0}
+LAUNCHES = {"sa_split": 0, "qmc_split": 0, "svmc_split": 0, "sa_plane": 0,
+            "qmc_plane": 0, "svmc_plane": 0}
 
 
 def reset_launches():

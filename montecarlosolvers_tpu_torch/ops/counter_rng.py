@@ -2,9 +2,10 @@
 
 Counterpart of `montecarlosolvers_tpu/ops/pallas_sa.py::_mix32` and
 `_uniform01`, and of the counter / uid formulas of
-`ops/pallas_split.py::_split_kernel` and `_qmc_split_kernel` and of the
-full-plane kernels `ops/pallas_sa.py::_sa_kernel` and
-`ops/pallas_qmc.py::_qmc_kernel`. The CUDA kernels in `csrc/` compute the
+`ops/pallas_split.py::_split_kernel`, `_qmc_split_kernel` and
+`_svmc_split_kernel` and of the full-plane kernels
+`ops/pallas_sa.py::_sa_kernel`, `ops/pallas_qmc.py::_qmc_kernel` and
+`ops/pallas_svmc.py::_svmc_kernel`. The CUDA kernels in `csrc/` compute the
 same hash on `uint32_t`; this module is the plain form on int32 tensors that
 the CPU path and the tests use.
 
@@ -14,7 +15,10 @@ Every uniform is a pure function of (seed, step, index, uid):
     u   = (mix32(uid * GOLDEN + ctr) >>> 8) / 2**24        in [0, 1)
 
 with all integer arithmetic wrapping mod 2**32. The full-plane PIQMC line
-moves use another counter, `line_counter`.
+moves use another counter, `line_counter`, and the full-plane SVMC
+acceptances a third, `svmc_accept_counter`. The split SVMC kernel draws its
+proposals at index 0 / 1 and its acceptances at index 2 / 3, both at the SA
+uids of the half (`sa_uids(chains, nh, index % 2)`).
 
 Two torch pitfalls this module avoids:
   * `>>` on an int32 tensor is an arithmetic shift; the hash needs a logical
@@ -37,7 +41,9 @@ GOLDEN = -1640531527  # 0x9e3779b9 as int32
 # murmur3 finalizer constants (pallas_sa.py:122-124)
 _M1 = -2048144789  # 0x85ebca6b
 _M2 = -1028477387  # 0xc2b2ae35
-# line-move counter of the full-plane PIQMC kernel (pallas_qmc.py:124,132)
+# line-move counter of the full-plane PIQMC kernel (pallas_qmc.py:124,132);
+# the full-plane SVMC kernel XORs its acceptance counter with the same value
+# (pallas_svmc.py:94)
 LINE_XOR = 374761393
 LINE_MULT = 69069
 # TPU tile of the full-plane kernels' padded planes (pallas_sa.py:57-58):
@@ -65,6 +71,15 @@ def line_counter(seed, step, color):
     base acts on its two's-complement bits, as int32 XOR does."""
     base = wrap_int32(seed * SEED_MULT + step * STEP_MULT)
     return wrap_int32((base ^ LINE_XOR) + color * LINE_MULT)
+
+
+def svmc_accept_counter(seed, step, color):
+    """Counter of the full-plane SVMC acceptance uniforms of `color`
+    (pallas_svmc.py:93-96): `counter(seed, step, color)` XOR LINE_XOR. The
+    Pallas expression `base + color * INDEX_MULT ^ 374761393` adds first,
+    since `+` binds tighter than `^`; unlike `line_counter`, nothing is
+    added after the XOR."""
+    return wrap_int32(counter(seed, step, color) ^ LINE_XOR)
 
 
 def _srl(x, n):

@@ -62,10 +62,12 @@ def parity(L, device):
 
 
 def neighbor_sum(pl, s):
-    """sum_nb J s_nb + h on (..., L, L) states, added in the Pallas order
-    jr*right + jl*left + jd*down + ju*up + h (pallas_sa.py:153). Every
-    product J*(+/-1) is exact, so this order alone fixes the float32
-    result, and the CUDA kernels add in the same order."""
+    """sum_nb J s_nb + h on (..., L, L) states (spins, or cos of rotor
+    angles), added in the Pallas order jr*right + jl*left + jd*down +
+    ju*up + h (pallas_sa.py:153, pallas_svmc.py:53). The CUDA kernels add
+    in the same order with every product and sum rounded on its own. On
+    spins every product J*(+/-1) is exact, so the order alone fixes the
+    float32 result; on cos values the products round too."""
     jr, jl, jd, ju, h = pl.w
     return (jr * torch.roll(s, -1, dims=-1)
             + jl * torch.roll(s, 1, dims=-1)

@@ -1,30 +1,34 @@
-"""Full-plane SA and PIQMC engines: plain versions, kernel wrappers.
+"""Full-plane SA, PIQMC and SVMC engines: plain versions, kernel wrappers.
 
 Counterpart of `montecarlosolvers_tpu/ops/pallas_sa.py::anneal_lattice`
-(:256) and `ops/pallas_qmc.py::anneal_lattice_qmc` (:146), whose Pallas
-kernels `_sa_kernel` (:156) and `_qmc_kernel` (:70) are ported as the CUDA
-kernels `csrc/plane_sa.cu` (kernel 6) and `csrc/plane_qmc.cu` (kernel 3).
-These engines take any LatticeProblem at any P; the solvers send here what
-the split engines (`ops/split_kernels.py`) do not take: odd L, and PIQMC at
+(:256), `ops/pallas_qmc.py::anneal_lattice_qmc` (:146) and
+`ops/pallas_svmc.py::anneal_lattice_svmc` (:117), whose Pallas kernels
+`_sa_kernel` (:156), `_qmc_kernel` (:70) and `_svmc_kernel` (:56) are
+ported as the CUDA kernels `csrc/plane_sa.cu` (kernel 6),
+`csrc/plane_qmc.cu` (kernel 3) and `csrc/plane_svmc.cu` (kernel 7). These
+engines take any LatticeProblem at any P; the solvers send here what the
+split engines (`ops/split_kernels.py`) do not take: odd L, and PIQMC at
 odd P.
 
 Beside each kernel wrapper sits its plain PyTorch version
-(`sa_plane_anneal_ref`, `qmc_plane_anneal_ref`), with the semantics of the
-Pallas kernel on the physical L x L sites: the same fields
-(`ops/plane.py`), the same counter-hash uniforms on the padded plane's site
-ids, the same log-form Metropolis rule. On the CPU they equal the Pallas
-interpreter bitwise; on the card the kernels equal them bitwise.
+(`sa_plane_anneal_ref`, `qmc_plane_anneal_ref`, `svmc_plane_anneal_ref`),
+with the semantics of the Pallas kernel on the physical L x L sites: the
+same fields (`ops/plane.py`), the same counter-hash uniforms on the padded
+plane's site ids, the same log-form Metropolis rule. On the CPU the spin
+engines equal the Pallas interpreter bitwise, and the SVMC engine equals it
+to the last ulps of cos and sin (torch's and XLA's may differ there); on
+the card each kernel equals its plain version.
 
 A phase computes every site from the state as it was when the phase began
-and flips the sites of that phase's color, as the Pallas kernels do. On an
-odd periodic L this is not a proper coloring (see ROADMAP.md queue 3): the
-wrap neighbours (r, 0) and (r, L-1) share a color, and both may flip in one
-phase. The port keeps that behaviour to stay bitwise equal.
+and updates the sites of that phase's color, as the Pallas kernels do. On
+an odd periodic L this is not a proper coloring (see ROADMAP.md queue 3):
+the wrap neighbours (r, 0) and (r, L-1) share a color, and both may move in
+one phase. The port keeps that behaviour to stay bitwise equal.
 
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
-back. `_build.LAUNCHES` counts the kernel launches under "sa_plane" and
-"qmc_plane".
+back. `_build.LAUNCHES` counts the kernel launches under "sa_plane",
+"qmc_plane" and "svmc_plane".
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.ops import plane as plane_ops
+from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
 from montecarlosolvers_tpu_torch.ops.piqmc import (spacetime_num_phases,
                                                    sum_in_order)
@@ -109,6 +114,44 @@ def qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed, global_moves):
     return s
 
 
+def svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed, tf):
+    """Plain form of kernel 7: anneal rotor angles `theta` (chains, L, L),
+    in [0, pi], over the float32 (steps,) schedules A (`a_sched`) and B
+    (`b_sched`) at the Python-float temperature `temp`.
+
+    Per step, color 0 then color 1 (pallas_svmc.py:88-111): every site
+    proposes pi*u (or, with `tf`, the TF window around theta) from
+    counter(seed, t, color) and is tested with the uniform of
+    svmc_accept_counter(seed, t, color), both at the SA site ids, on
+
+        dE = B (cos th' - cos th) z + A (sin th - sin th'),
+        z  = neighbor_sum(cos th),
+
+    computed from the state as the phase found it; the sites of the phase's
+    color take their accepted proposals."""
+    chains, L = theta.shape[0], pl.L
+    dev = theta.device
+    temp32 = torch.tensor(temp, dtype=torch.float32, device=dev)
+    hu = cr.hashed_uid(cr.plane_uids(chains, L, dev))
+    par = plane_ops.parity(L, dev)
+    th = theta
+    for t in range(a_sched.shape[0]):
+        ac, bc = a_sched[t], b_sched[t]
+        for color in (0, 1):
+            u = cr.uniform01_hashed(cr.counter(seed, t, color), hu)
+            prop = (svmc_ops.propose_tf(th, u, ac, bc) if tf
+                    else svmc_ops.propose_uniform(u))
+            cos_t = torch.cos(th)
+            zf = plane_ops.neighbor_sum(pl, cos_t)
+            de = bc * (torch.cos(prop) - cos_t) * zf
+            de = de + ac * (torch.sin(th) - torch.sin(prop))
+            u = cr.uniform01_hashed(cr.svmc_accept_counter(seed, t, color),
+                                    hu)
+            acc = metropolis_accept(de, temp32, u) & (par == color)
+            th = torch.where(acc, prop, th)
+    return th
+
+
 # ------------------------------------------------------------ kernel wrappers
 
 
@@ -173,6 +216,38 @@ def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves):
     return out
 
 
+def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf):
+    """Kernel 7 on CUDA tensors, `svmc_plane_anneal_ref` on CPU tensors.
+    Arguments as for `svmc_plane_anneal_ref`; returns the new angles."""
+    if _build.route(theta.device, "plane") == "cpu":
+        return svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed,
+                                     tf)
+    chains, L = theta.shape[0], pl.L
+    dev = theta.device
+    smem = 4 * L * L * 4  # angles, cos, sin and staged cos of one chain
+    if smem > _build.SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"kernel 7 keeps 4*L*L*4 = {smem} bytes of one chain in shared "
+            f"memory; the limit is {_build.SMEM_LIMIT_BYTES} (L = {L})"
+        )
+    _build.check_arg(theta, "theta", (chains, L, L), dev)
+    _build.check_arg(pl.w, "planes", (5, L, L), dev)
+    steps = int(a_sched.shape[0])
+    _build.check_arg(a_sched, "a_sched", (steps,), dev)
+    _build.check_arg(b_sched, "b_sched", (steps,), dev)
+    out = torch.empty_like(theta)
+    R, C = pl.strides
+    lib = _build.library("plane_svmc")
+    rc = lib.plane_svmc_anneal(
+        *map(_build.ptr, (pl.w, a_sched, b_sched)), ctypes.c_float(temp),
+        *map(_build.ptr, (theta, out)), chains, L, C, R * C, steps,
+        cr.wrap_int32(seed), int(bool(tf)), _build.stream_of(dev),
+    )
+    _build.raise_on_error(lib, "plane_svmc_anneal", rc)
+    _build.LAUNCHES["svmc_plane"] += 1
+    return out
+
+
 # ------------------------------------------------------ lattice-level engines
 
 
@@ -184,7 +259,7 @@ def _planes_of(problem, state, name):
     if not isinstance(problem, LatticeProblem):
         raise ValueError("the full-plane engine takes a LatticeProblem")
     if state.device != problem.device:
-        raise ValueError(f"{name} are on {state.device}, problem on "
+        raise ValueError(f"{name} is on {state.device}, problem on "
                          f"{problem.device}")
     return plane_ops.build_plane(problem)
 
@@ -197,10 +272,7 @@ def anneal_lattice(problem, sched, spins, seed, mcsteps=1):
     the problem's device; seed: int counter-hash seed. Returns the annealed
     spins, same shape."""
     pl = _planes_of(problem, spins, "spins")
-    temps = schedules.expand_mcsteps(
-        torch.as_tensor(sched, dtype=torch.float32, device=problem.device),
-        mcsteps,
-    ).contiguous()
+    temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
     L = pl.L
     s = spins.to(torch.float32).reshape(-1, L, L).contiguous()
     out = sa_plane_anneal(pl, temps, s, seed)
@@ -222,3 +294,22 @@ def anneal_lattice_qmc(problem, a_sched, b_sched, temp, confs, seed,
     c = confs.to(torch.float32).reshape(-1, P, L, L).contiguous()
     out = qmc_plane_anneal(pl, b, jp, teff, c, seed, global_moves)
     return out.reshape(confs.shape)
+
+
+def anneal_lattice_svmc(problem, a_sched, b_sched, temp, theta, seed,
+                        mcsteps=1, tf=False):
+    """Full-plane SVMC anneal on a LatticeProblem of any L, open or periodic
+    (counterpart of `pallas_svmc.anneal_lattice_svmc`, without its TPU
+    padding).
+
+    a_sched / b_sched: (steps,) A and B; temp: the fixed temperature;
+    theta: (chains, N) or (N,) float32 angles in [0, pi] on the problem's
+    device; seed: int counter-hash seed; tf: TF proposals. Returns the
+    annealed angles, same shape."""
+    pl = _planes_of(problem, theta, "theta")
+    a_s, b_s = (schedules.expand_mcsteps(x, mcsteps, problem.device)
+                for x in (a_sched, b_sched))
+    L = pl.L
+    th = theta.to(torch.float32).reshape(-1, L, L).contiguous()
+    out = svmc_plane_anneal(pl, a_s, b_s, temp, th, seed, tf)
+    return out.reshape(theta.shape)

@@ -153,9 +153,11 @@ def spatial_field(w, o, K):
         slot 5: o[j-(K-1)] slot 6: o[j+(K-1)]   (row wrap, col_wrap only)
 
     (`torch.roll(o, s)[j] = o[j-s]`.) The slots are summed in this order,
-    as `_spatial_field` (ops/split.py:161) sums them: every product w*(+/-1)
-    is exact, so the order alone fixes the float32 result, and the CUDA
-    kernels sum in the same order."""
+    as `_spatial_field` (ops/split.py:161) sums them, and the CUDA kernels
+    sum in the same order with every product and sum rounded on its own.
+    On spins every product w*(+/-1) is exact, so the order alone fixes the
+    float32 result; on the SVMC engine's cos values the products round
+    too."""
     f = (
         w[0] * o
         + w[1] * torch.roll(o, -1, dims=-1)

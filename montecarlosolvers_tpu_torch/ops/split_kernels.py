@@ -1,25 +1,29 @@
-"""Split-checkerboard SA and PIQMC engines: plain versions, kernel wrappers,
-launch counters.
+"""Split-checkerboard SA, PIQMC and SVMC engines: plain versions, kernel
+wrappers, launch counters.
 
 Counterpart of `montecarlosolvers_tpu/ops/pallas_split.py`:
-`anneal_lattice_split` (:932) and `anneal_lattice_qmc_split` (:607), whose
-Pallas kernels `_split_kernel` (:109) and `_qmc_split_kernel` (:431) are
-ported as the CUDA kernels `csrc/split_sa.cu` (kernel A) and
-`csrc/split_qmc.cu` (kernel B). The solvers route a lattice here when
-`ops/split.py::supports_split` holds (even L, and even P for PIQMC), else
-to the full-plane engines of `ops/plane_kernels.py`.
+`anneal_lattice_split` (:932), `anneal_lattice_qmc_split` (:607) and
+`anneal_lattice_svmc_split` (:353), whose Pallas kernels `_split_kernel`
+(:109), `_qmc_split_kernel` (:431) and `_svmc_split_kernel` (:227) are
+ported as the CUDA kernels `csrc/split_sa.cu` (kernel A),
+`csrc/split_qmc.cu` (kernel B) and `csrc/split_svmc.cu` (kernel 4). The
+solvers route a lattice here when `ops/split.py::supports_split` holds
+(even L, and even P for PIQMC), else to the full-plane engines of
+`ops/plane_kernels.py`.
 
 Beside each kernel wrapper sits its plain PyTorch version
-(`sa_split_anneal_ref`, `qmc_split_anneal_ref`), with the semantics of the
-JAX oracles `oracle_anneal` and `oracle_qmc` in tests/test_pallas_split.py:
-the same fields, the same counter-hash uniforms and the same log-form
-Metropolis rule, so on the CPU they equal the oracles bitwise, and on the
-card the kernels equal them bitwise.
+(`sa_split_anneal_ref`, `qmc_split_anneal_ref`, `svmc_split_anneal_ref`),
+with the semantics of the JAX oracles `oracle_anneal`, `oracle_qmc` and
+`oracle_svmc` in tests/test_pallas_split.py: the same fields, the same
+counter-hash uniforms and the same log-form Metropolis rule. On the CPU
+the spin engines equal the oracles bitwise, and the SVMC engine equals its
+oracle to the last ulps of cos and sin (torch's and XLA's may differ
+there); on the card each kernel equals its plain version.
 
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
-back. `_build.LAUNCHES` counts the kernel launches under "sa_split" and
-"qmc_split".
+back. `_build.LAUNCHES` counts the kernel launches under "sa_split",
+"qmc_split" and "svmc_split".
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.ops import split as split_ops
+from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
 from montecarlosolvers_tpu_torch.ops.piqmc import sum_in_order
 
@@ -129,6 +134,49 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
     return xe, xo, ye, yo
 
 
+def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf):
+    """Plain form of kernel 4: anneal the rotor angles of halves a, b
+    (chains, Nh), in [0, pi], over the float32 (steps,) schedules A
+    (`a_sched`) and B (`b_sched`) at the Python-float temperature `temp`.
+    Returns the new (a, b).
+
+    Per step (pallas_split.py:273-303), phase A updates half a against cos
+    of half b, then phase B updates half b against cos of the new half a.
+    Half `c` proposes pi*u (or, with `tf`, the TF window around theta) from
+    counter(seed, t, c) and accepts on counter(seed, t, c + 2), both at the
+    SA uids of half c, with
+
+        dE = B (cos th' - cos th) z + A (sin th - sin th'),
+        z  = spatial_field(w_c, cos(other half), K) + h_c.
+
+    cos and sin of each half are carried as the kernel carries them; an
+    accepted move writes cos(th') and sin(th'), never an increment, so the
+    caches always equal cos and sin of the angles."""
+    chains, nh = a.shape
+    K = sl.K
+    dev = a.device
+    temp32 = torch.tensor(temp, dtype=torch.float32, device=dev)
+    hu = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev)) for c in (0, 1)]
+    halves = [[a, torch.cos(a), torch.sin(a)], [b, torch.cos(b), torch.sin(b)]]
+    for t in range(a_sched.shape[0]):
+        ac, bc = a_sched[t], b_sched[t]
+        for c in (0, 1):
+            th, cos_t, sin_t = halves[c]
+            u = cr.uniform01_hashed(cr.counter(seed, t, c), hu[c])
+            prop = (svmc_ops.propose_tf(th, u, ac, bc) if tf
+                    else svmc_ops.propose_uniform(u))
+            cos_p, sin_p = torch.cos(prop), torch.sin(prop)
+            zf = split_ops.spatial_field(sl.w_ab[:, c], halves[1 - c][1],
+                                         K) + sl.h_ab[c]
+            de = bc * (cos_p - cos_t) * zf + ac * (sin_t - sin_p)
+            u = cr.uniform01_hashed(cr.counter(seed, t, c + 2), hu[c])
+            acc = metropolis_accept(de, temp32, u)
+            halves[c] = [torch.where(acc, prop, th),
+                         torch.where(acc, cos_p, cos_t),
+                         torch.where(acc, sin_p, sin_t)]
+    return halves[0][0], halves[1][0]
+
+
 # ------------------------------------------------------------ kernel wrappers
 
 
@@ -199,7 +247,66 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
     return tuple(outs)
 
 
+def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf):
+    """Kernel 4 on CUDA tensors, `svmc_split_anneal_ref` on CPU tensors.
+    Arguments as for `svmc_split_anneal_ref`; returns new (a, b)."""
+    if _build.route(a.device, "split") == "cpu":
+        return svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed,
+                                     tf)
+    chains, nh = a.shape
+    dev = a.device
+    if nh != sl.nh:
+        raise ValueError(f"halves have {nh} sites, lattice has {sl.nh}")
+    smem = 6 * nh * 4  # angles, cos and sin of both halves of one chain
+    if smem > _build.SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"kernel 4 keeps 6*Nh*4 = {smem} bytes of one chain in shared "
+            f"memory; the limit is {_build.SMEM_LIMIT_BYTES} (L = {sl.L})"
+        )
+    for t, name in ((a, "a"), (b, "b")):
+        _build.check_arg(t, name, (chains, nh), dev)
+    _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
+    _build.check_arg(sl.h_ab, "h_ab", (2, nh), dev)
+    steps = int(a_sched.shape[0])
+    _build.check_arg(a_sched, "a_sched", (steps,), dev)
+    _build.check_arg(b_sched, "b_sched", (steps,), dev)
+    a_out = torch.empty_like(a)
+    b_out = torch.empty_like(b)
+    lib = _build.library("split_svmc")
+    rc = lib.split_svmc_anneal(
+        *map(_build.ptr, (sl.w_ab, sl.h_ab, a_sched, b_sched)),
+        ctypes.c_float(temp), *map(_build.ptr, (a, b, a_out, b_out)),
+        chains, nh, sl.K, sl.nslots, steps, cr.wrap_int32(seed),
+        int(bool(tf)), _build.stream_of(dev),
+    )
+    _build.raise_on_error(lib, "split_svmc_anneal", rc)
+    _build.LAUNCHES["svmc_split"] += 1
+    return a_out, b_out
+
+
 # ------------------------------------------------------ lattice-level engines
+
+
+def _split_of(problem, state, name, slices=None):
+    """The SplitLattice of `problem`, once it is known to take the split
+    engine (at P = `slices` for PIQMC) and `state` (the `name` argument) to
+    lie on the problem's device."""
+    if not split_ops.supports_split(problem, slices):
+        raise ValueError("the split engine takes an even-L LatticeProblem"
+                         + ("" if slices is None else " at even P"))
+    if state.device != problem.device:
+        raise ValueError(f"{name} is on {state.device}, problem on "
+                         f"{problem.device}")
+    return split_ops.build_split(problem)
+
+
+def _on_halves(sl, state, fn):
+    """Pack `state`, (chains, N) or (N,), into contiguous float32 halves,
+    run fn(a, b) -> (a, b) on them, and unpack to the state's shape."""
+    s = state.to(torch.float32)
+    a, b = split_ops.pack_classical(sl, s[None] if s.ndim == 1 else s)
+    out = split_ops.unpack_classical(sl, *fn(a.contiguous(), b.contiguous()))
+    return out.reshape(state.shape)
 
 
 def anneal_lattice_split(problem, sched, spins, seed, mcsteps=1):
@@ -209,21 +316,10 @@ def anneal_lattice_split(problem, sched, spins, seed, mcsteps=1):
     sched: (steps,) temperatures; spins: (chains, N) or (N,) float32 +/-1 on
     the problem's device; seed: int counter-hash seed. Returns the annealed
     spins, same shape."""
-    if not split_ops.supports_split(problem):
-        raise ValueError("the split engine takes an even-L LatticeProblem")
-    dev = problem.device
-    if spins.device != dev:
-        raise ValueError(f"spins are on {spins.device}, problem on {dev}")
-    sl = split_ops.build_split(problem)
-    temps = schedules.expand_mcsteps(
-        torch.as_tensor(sched, dtype=torch.float32, device=dev), mcsteps
-    ).contiguous()
-    squeeze = spins.ndim == 1
-    s = spins[None] if squeeze else spins
-    a, b = split_ops.pack_classical(sl, s.to(torch.float32))
-    a, b = sa_split_anneal(sl, temps, a.contiguous(), b.contiguous(), seed)
-    out = split_ops.unpack_classical(sl, a, b)
-    return out[0] if squeeze else out
+    sl = _split_of(problem, spins, "spins")
+    temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
+    return _on_halves(sl, spins,
+                      lambda a, b: sa_split_anneal(sl, temps, a, b, seed))
 
 
 def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
@@ -235,15 +331,9 @@ def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
     confs: (chains, P, N) or (P, N) float32 +/-1 slices-major, on the
     problem's device. Returns the annealed configurations, same shape."""
     slices = confs.shape[-2]
-    if not split_ops.supports_split(problem, slices):
-        raise ValueError("the split engine takes an even-L LatticeProblem "
-                         "at even P")
-    dev = problem.device
-    if confs.device != dev:
-        raise ValueError(f"confs are on {confs.device}, problem on {dev}")
-    sl = split_ops.build_split(problem)
+    sl = _split_of(problem, confs, "confs", slices)
     b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, slices,
-                                      mcsteps, dev)
+                                      mcsteps, problem.device)
     squeeze = confs.ndim == 2
     c = confs[None] if squeeze else confs
     quarters = split_ops.pack_qmc(sl, c.to(torch.float32))
@@ -251,3 +341,19 @@ def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
                                 global_moves)
     out = split_ops.unpack_qmc(sl, *quarters)
     return out[0] if squeeze else out
+
+
+def anneal_lattice_svmc_split(problem, a_sched, b_sched, temp, theta, seed,
+                              mcsteps=1, tf=False):
+    """Split-layout SVMC anneal on an even-L LatticeProblem (counterpart of
+    `pallas_split.anneal_lattice_svmc_split`, without its TPU lane rules).
+
+    a_sched / b_sched: (steps,) A and B; temp: the fixed temperature;
+    theta: (chains, N) or (N,) float32 angles in [0, pi] on the problem's
+    device; seed: int counter-hash seed; tf: TF proposals. Returns the
+    annealed angles, same shape."""
+    sl = _split_of(problem, theta, "theta")
+    a_s, b_s = (schedules.expand_mcsteps(x, mcsteps, problem.device)
+                for x in (a_sched, b_sched))
+    return _on_halves(sl, theta, lambda a, b: svmc_split_anneal(
+        sl, a_s, b_s, temp, a, b, seed, tf))

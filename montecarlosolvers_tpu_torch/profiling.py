@@ -79,6 +79,7 @@ def main():
     odd = instances.gaussian_torus(81, seed=0, device=dev)
     sa = dict(method="sa", num_reads=1280, sweeps=2000)
     qmc = dict(method="piqmc", num_reads=32, sweeps=1000)
+    svmc = dict(method="svmc", num_reads=256, sweeps=2000)
     for key, lname, prob, kw in (
         ("sa", lattice, problem, sa),
         ("piqmc_p40", lattice, problem, dict(qmc, slices=40)),
@@ -86,6 +87,8 @@ def main():
         ("sa_l81", "gaussian_torus(81, seed=0)", odd, sa),
         ("piqmc_p5_l81", "gaussian_torus(81, seed=0)", odd,
          dict(qmc, slices=5)),
+        ("svmc", lattice, problem, svmc),
+        ("svmc_l81", "gaussian_torus(81, seed=0)", odd, svmc),
     ):
         print(json.dumps({"phase": "profile", "path": key, "lattice": lname,
                           "gpu": torch.cuda.get_device_name(0),

@@ -52,19 +52,18 @@ def qmc_terms(a_sched, b_sched, temp, slices, mcsteps=1, device=None):
     and B schedules are expanded to one float32 point per sweep on
     `device`, J_perp is computed from each Gamma once, and T_eff = P*T is a
     Python float (qmc.pyx:85, 95)."""
-    gamma = expand_mcsteps(
-        torch.as_tensor(a_sched, dtype=torch.float32, device=device), mcsteps)
-    b = expand_mcsteps(
-        torch.as_tensor(b_sched, dtype=torch.float32, device=device), mcsteps)
+    gamma = expand_mcsteps(a_sched, mcsteps, device)
+    b = expand_mcsteps(b_sched, mcsteps, device)
     teff = float(temp) * slices
-    return b.contiguous(), jperp(gamma, teff).contiguous(), teff
+    return b, jperp(gamma, teff).contiguous(), teff
 
 
-def expand_mcsteps(sched, mcsteps):
+def expand_mcsteps(sched, mcsteps, device=None):
     """Repeat each schedule point `mcsteps` times so there is one sweep per
     element (the reference nests sweeps inside each schedule step,
-    sa.pyx:66-69)."""
-    sched = torch.as_tensor(sched, dtype=torch.float32)
-    if mcsteps == 1:
-        return sched
-    return torch.repeat_interleave(sched, int(mcsteps))
+    sa.pyx:66-69). Returns a contiguous float32 tensor on `device` (on the
+    schedule's own device if None), as the engines read it."""
+    sched = torch.as_tensor(sched, dtype=torch.float32, device=device)
+    if mcsteps != 1:
+        sched = torch.repeat_interleave(sched, int(mcsteps))
+    return sched.contiguous()

@@ -2,10 +2,10 @@
 montecarlosolvers_tpu/solvers/api.py).
 
 `solve` runs on the problem's device and returns a `SampleSet` of numpy
-arrays, samples sorted by energy. The port covers the methods "sa" and
-"piqmc" on any LatticeProblem (any L, open or periodic) at any P; the JAX
-package's other methods raise NotImplementedError naming their ROADMAP.md
-item.
+arrays, samples sorted by energy. The port covers the methods "sa",
+"piqmc" (at any P) and "svmc" on any LatticeProblem (any L, open or
+periodic); the JAX package's other methods raise NotImplementedError naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from montecarlosolvers_tpu_torch import _roadmap
 from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.solvers import qmc as qmc_mod
 from montecarlosolvers_tpu_torch.solvers import sa as sa_mod
+from montecarlosolvers_tpu_torch.solvers import svmc as svmc_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +55,7 @@ def _finalize(problem, states, info, energies=None):
 _METHOD_KW = {
     "sa": {"t_start", "t_end"},
     "piqmc": {"slices", "pt", "field_start", "pre_anneal"},
+    "svmc": {"field_start", "temp"},
 }
 
 # the JAX package's other methods, and where the port queues them
@@ -63,7 +65,6 @@ _NOT_PORTED = {
     "piqmc_wolff": _roadmap.CLUSTER,
     "piqmc_sw": _roadmap.CLUSTER,
     "piqmc_sw_full": _roadmap.CLUSTER,
-    "svmc": _roadmap.SVMC,
     "pt": _roadmap.SAMPLERS,
     "icm": _roadmap.SAMPLERS,
     "pa": _roadmap.SAMPLERS,
@@ -83,6 +84,9 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
                 each, examples/santoro80.py:284-285, through whichever SA
                 engine the lattice takes). Each read returns its best
                 slice.
+      "svmc"  — spin-vector MC with TF proposals; kw: field_start=3.0,
+                temp=0.05. A: field_start -> 1e-8 over `sweeps`, B = 1;
+                each read returns the z-projection of its angles.
 
     `seed` seeds the torch.Generator that draws the initial states and the
     counter-hash seeds.
@@ -111,6 +115,14 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
         s0 = sa_mod.random_state(gen, n, batch=(num_reads,), device=dev)
         out = sa_mod.anneal(problem, sched, s0, gen)
         return _finalize(problem, out, info)
+
+    if method == "svmc":
+        a = schedules.linear(kw.get("field_start", 3.0), 1e-8, sweeps,
+                             device=dev)
+        th = svmc_mod.random_state(gen, n, batch=(num_reads,), device=dev)
+        out = svmc_mod.anneal(problem, a, torch.ones_like(a),
+                              kw.get("temp", 0.05), th, gen, tf=True)
+        return _finalize(problem, svmc_mod.z_projection(out), info)
 
     # method == "piqmc"
     slices = kw.get("slices", 20)

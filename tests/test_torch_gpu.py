@@ -1,5 +1,5 @@
-"""Kernels A, B, 3 and 6 against their plain PyTorch versions on a CUDA
-device.
+"""Kernels A, B, 3, 4, 6 and 7 against their plain PyTorch versions on a
+CUDA device.
 
 Marked `gpu`: each test skips when torch sees no CUDA device. The repo's
 tests/conftest.py imports JAX, which the GPU machine need not have, so run
@@ -11,7 +11,9 @@ Small shapes that the main path does not reach: Nh = 50 (L = 10, tails of
 the 256-thread blocks), Q = 1 (P = 2, both Trotter terms one element), open
 and periodic lattices, B != 1; for the full-plane kernels odd and even L,
 P = 2 to 7 (m = 2, 3 and 4 local phases), and the odd-torus wrap pairs
-that share a color.
+that share a color; for the SVMC kernels 4 (even L) and 7 (any L) L = 5 to
+33, open and periodic, TF proposals on and off, held to max |d theta| <=
+2e-5 with no angle off by more than 1e-3 (no diverged decision).
 """
 
 import numpy as np
@@ -157,6 +159,77 @@ def test_solve_runs_the_kernels(cuda, L, P, launches):
     lat = _lattice(L, True, cuda)
     _build.reset_launches()
     ss = solve(lat, "piqmc", num_reads=4, sweeps=50, slices=P, seed=1)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == launches
+    assert set(np.unique(ss.samples)) <= {-1.0, 1.0}
+    assert np.all(np.isfinite(ss.energies))
+
+
+def _angles(shape, dev, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor((rng.random(shape) * np.pi).astype(np.float32),
+                           device=dev)
+
+
+def _assert_angles_equal(out, ref, start):
+    err = (out - ref).abs()
+    assert int((err > 1e-3).sum()) == 0
+    assert float(err.max()) <= 2e-5
+    assert float((out - start).abs().gt(1e-3).float().mean()) > 0.3
+
+
+@pytest.mark.parametrize("L,periodic,tf", [
+    (6, False, True), (10, True, False), (16, False, True), (32, True, True),
+    (32, True, False),
+])
+def test_kernel_4_equals_plain(cuda, L, periodic, tf):
+    sl = split_ops.build_split(_lattice(L, periodic, cuda))
+    th = _angles((5, L * L), cuda, 4)
+    a, b = (x.contiguous() for x in split_ops.pack_classical(sl, th))
+    A = schedules.linear(2.5, 1e-8, 64, device=cuda)
+    B = torch.full_like(A, 0.9)
+    out = sk.svmc_split_anneal(sl, A, B, 0.1, a, b, 3, tf)
+    ref = sk.svmc_split_anneal_ref(sl, A, B, 0.1, a, b, 3, tf)
+    for x, y, x0 in zip(out, ref, (a, b)):
+        _assert_angles_equal(x, y, x0)
+
+
+@pytest.mark.parametrize("L,periodic,tf", [
+    (5, True, True), (5, False, False), (9, False, True), (16, True, False),
+    (33, True, True),
+])
+def test_kernel_7_equals_plain(cuda, L, periodic, tf):
+    pl = plane_ops.build_plane(_lattice(L, periodic, cuda))
+    th = _angles((6, L, L), cuda, 5)
+    A = schedules.linear(2.5, 1e-8, 64, device=cuda)
+    B = torch.full_like(A, 0.9)
+    out = pk.svmc_plane_anneal(pl, A, B, 0.1, th, 3, tf)
+    _assert_angles_equal(out, pk.svmc_plane_anneal_ref(pl, A, B, 0.1, th, 3,
+                                                        tf), th)
+
+
+def test_svmc_wrapper_refusals(cuda):
+    A = schedules.linear(1.0, 1e-8, 4, device=cuda)
+    sl = split_ops.build_split(_lattice(140, False, cuda))
+    h = torch.ones((1, sl.nh), device=cuda)
+    with pytest.raises(ValueError, match="shared"):
+        sk.svmc_split_anneal(sl, A, torch.ones_like(A), 0.1, h, h, 0, True)
+    pl = plane_ops.build_plane(_lattice(121, False, cuda))
+    with pytest.raises(ValueError, match="shared"):
+        pk.svmc_plane_anneal(pl, A, torch.ones_like(A), 0.1,
+                             torch.ones((1, 121, 121), device=cuda), 0, True)
+    pl = plane_ops.build_plane(_lattice(16, True, cuda))
+    with pytest.raises(ValueError, match="float32"):
+        pk.svmc_plane_anneal(pl, A, torch.ones_like(A), 0.1,
+                             torch.ones((1, 16, 16), device=cuda).double(), 0,
+                             True)
+
+
+@pytest.mark.parametrize("L,launches", [(16, {"svmc_split": 1}),
+                                        (9, {"svmc_plane": 1})])
+def test_solve_svmc_runs_its_kernel(cuda, L, launches):
+    lat = _lattice(L, True, cuda)
+    _build.reset_launches()
+    ss = solve(lat, "svmc", num_reads=8, sweeps=100, seed=2)
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == launches
     assert set(np.unique(ss.samples)) <= {-1.0, 1.0}
     assert np.all(np.isfinite(ss.energies))
