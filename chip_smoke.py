@@ -7,7 +7,7 @@ Run from the repository root, with no arguments:
 
 Phases, each printed as one JSON line:
   device              nvidia-smi's name and power limit of the card
-  build               nvcc builds kernels A, B, 3, 4, 6 and 7 from csrc/,
+  build               nvcc builds kernels A, B, 3, 4, 5, 6 and 7 from csrc/,
                       all at once (seconds)
   sa_kernel_vs_plain  kernel A against its plain PyTorch version on the card,
                       80x80 periodic Gaussian lattice at the main path's
@@ -15,6 +15,11 @@ Phases, each printed as one JSON line:
   qmc_kernel_vs_plain kernel B against its plain version at the main path's
                       P = 40 and 32 chains, 40 steps, B in {1, 0.7} x global
                       moves on / off
+  qmc_bath_kernel_vs_plain  kernel 5 against its plain version: the 80x80
+                      torus at the main path's P = 40 and 32 chains, 20
+                      steps of Gamma: 3 -> 1e-8, alpha in {1e-2, 0.5} x B in
+                      {1, 0.7} x global moves on / off; P = 5 and P = 2 on
+                      the torus and P = 4 on an open 80x80 lattice
   plane_sa_kernel_vs_plain   kernel 6 against its plain version on an 81x81
                       periodic Gaussian torus and an 81x81 open lattice,
                       1280 chains, 200 steps
@@ -28,22 +33,31 @@ Phases, each printed as one JSON line:
                       differ at all, by more than 1e-3 (must be 0), max |d|
   svmc_plane_kernel_vs_plain  kernel 7 likewise on the 81x81 torus and an
                       81x81 open lattice
-  main_path           seven solves at full width: solve("sa", 1280 reads,
+  main_path           eight solves at full width: solve("sa", 1280 reads,
                       2000 sweeps) and solve("piqmc", 32 reads, 1000
                       sweeps) at P = 40 and at P = 5 on the santoro instance
                       when MCS_TPU_INSTANCE_DIR holds it, else on the seeded
                       80x80 Gaussian torus; solve("sa") and solve("piqmc",
                       P = 5) on the seeded 81x81 torus; solve("svmc", 256
                       reads, 2000 sweeps) on the 80x80 lattice and on the
-                      81x81 torus. Energies are checked against a float64
+                      81x81 torus; and the open-system protocol of
+                      examples/dissipative_qa.py on the 80x80 lattice
+                      (sa.random_state -> sa.anneal(pre-anneal, mcsteps=5)
+                      -> qmc.replicate -> qmc.anneal(lookuptable=
+                      bath_lookuptable(40, 1e-2), global moves), 32 chains,
+                      P = 40, tau = 1000, best slice per chain). Energies
+                      are checked against a float64
                       recomputation and their mean per spin against fixed
                       ranges; the kernel launch counts (ops/_build.py::
                       LAUNCHES: one per launch of a kernel, so kernel 3
-                      counts m + 2 per sweep) are set to 0 just before each
-                      solve, read just after it and must equal the solve's
-                      route exactly
+                      counts m + 2 per sweep, kernel 5 once per anneal) are
+                      set to 0 just before each solve, read just after it
+                      and must equal the solve's route exactly
   timing              slope-timed ms per sweep of each kernel and of its
-                      plain version at the main path's shapes
+                      plain version at the main path's shapes, beside the
+                      least time the card could take for a sweep (bound:
+                      the work's float32 or special-function operations,
+                      or its bytes, over the card's peak rates)
 then a line {"kernels": [...]}, and last {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero without the last line;
 it also fails when torch sees no CUDA device or the package is missing.
@@ -63,6 +77,8 @@ SA_READS, SA_SWEEPS = 1280, 2000
 QMC_READS, QMC_SLICES, QMC_SWEEPS = 32, 40, 1000
 ODD_SLICES = 5
 SVMC_READS, SVMC_SWEEPS, SVMC_TEMP = 256, 2000, 0.05
+# the dissipative arm: bench.py::_piqmc_bath_arm's P, chains and alpha
+BATH_READS, BATH_SLICES, BATH_ALPHA, BATH_SWEEPS = 32, 40, 1e-2, 1000
 # kernels 4 and 7 against their plain versions: no angle may differ by
 # more than ANGLE_MISMATCH (a diverged accept decision), and none by more
 # than ANGLE_ATOL (last-ulp differences of cos / sin / log1p, if any)
@@ -78,6 +94,8 @@ ANGLE_MISMATCH, ANGLE_ATOL = 1e-3, 2e-5
 #   piqmc_p5_l81  PIQMC P=5 tau=1000 on 81x81, mean -1.2976
 #   svmc          SVMC-TF T=0.05 tau=2000 on 80x80, 256 reads, mean -1.2566
 #   svmc_l81      SVMC-TF T=0.05 tau=2000 on 81x81, 256 reads, mean -1.2615
+#   piqmc_bath_p40  bath PIQMC P=40 alpha=1e-2 tau=1000 on 80x80, 32 reads,
+#                 mean -1.29615
 RANGES = {
     "sa": (-1.29, -1.268),
     "piqmc_p40": (-1.31, -1.278),
@@ -86,10 +104,12 @@ RANGES = {
     "piqmc_p5_l81": (-1.309, -1.287),
     "svmc": (-1.267, -1.246),
     "svmc_l81": (-1.272, -1.251),
+    "piqmc_bath_p40": (-1.307, -1.286),
 }
 # residual energy per spin ranges on the certified santoro instance
 EPS_RANGES = {"sa": (0.0, 0.1), "piqmc_p40": (0.0, 0.05),
-              "piqmc_p5": (0.0, 0.05), "svmc": (0.0, 0.2)}
+              "piqmc_p5": (0.0, 0.05), "svmc": (0.0, 0.2),
+              "piqmc_bath_p40": (0.0, 0.05)}
 # kernel name -> (LAUNCHES key, source, TPU kernel it replaces)
 KERNELS = {
     "split_sa": ("sa_split", "montecarlosolvers_tpu_torch/csrc/split_sa.cu",
@@ -108,7 +128,89 @@ KERNELS = {
     "plane_svmc": ("svmc_plane",
                    "montecarlosolvers_tpu_torch/csrc/plane_svmc.cu",
                    "montecarlosolvers_tpu/ops/pallas_svmc.py:56"),
+    "split_qmc_bath": ("qmc_bath_split",
+                       "montecarlosolvers_tpu_torch/csrc/split_qmc_bath.cu",
+                       "montecarlosolvers_tpu/ops/pallas_split.py:696"),
 }
+# Least time of a sweep on an H100 SXM: float32 operations over 67 TFLOP/s
+# and bytes over 3.35 TB/s (NVIDIA's data sheet), and special-function
+# operations (logarithm, sine, cosine) over 67e12 * 16 / 256 per second:
+# the CUDA C++ Programming Guide's throughput table gives compute
+# capability 9.0 16 of them per clock per SM, against the 128 float32 FMAs
+# (256 operations) per clock per SM that the 67 TFLOP/s counts. The two
+# units run side by side, so the largest of the three times bounds.
+PEAK_FLOPS, PEAK_SFU, PEAK_BYTES = 67e12, 67e12 * 16 / 256, 3.35e12
+# Operations of one site update as the work needs them, not as the kernels
+# are written. A product with a spin (+/-1) is a sign flip and one with the
+# bath matrix's zero diagonal is nothing: neither is a float operation.
+# The split layout's empty stencil slots are no work. So the field of a
+# spin site is its four signed couplings and h: four adds. Metropolis is
+# the uniform from 24 hash bits (convert, scale), 1 - u, the product with
+# T ln 2 and the compare: five float32 operations, and the logarithm on the
+# special-function unit.
+SPIN_FIELD, METROPOLIS = 4, 5
+# Beside the bound, not in it: the counter hash's integer operations, 19
+# per uniform (two murmur3 rounds 16, uid * golden + ctr 2, shift 1), over
+# the INT32 pipes' 64 per clock per SM (the same table): 67e12 * 64 / 256
+# per second.
+HASH_OPS, PEAK_INT32 = 19, 67e12 * 64 / 256
+
+
+def hash_ops_per_sweep(kname, chains, slices, sites):
+    """Integer operations of the uniforms one sweep hashes: one per spin
+    update and per PIQMC line, two per SVMC update."""
+    if kname.endswith("svmc"):
+        per_site = 2
+    else:
+        per_site = slices + 1 if "qmc" in kname else 1
+    return HASH_OPS * per_site * chains * sites
+
+
+def ops_per_sweep(kname, chains, slices, sites):
+    """(float32, special-function) operations of one sweep of `kname` at
+    this shape, global moves on for the PIQMC kernels and TF proposals for
+    SVMC, as the work needs them:
+      SA      field, 2 f, Metropolis;
+      PIQMC   per slice: field, dE = (bc s) f + (2 s J_perp)(s_up + s_dn)
+              (four), Metropolis; per line: f + h of each slice, the P - 1
+              adds across them, the product with B, Metropolis;
+      bath    PIQMC, and per slice the P - 2 adds of the bath field (P - 1
+              sign-flipped terms) and (2 T_eff s) bath with its add;
+      SVMC-TF two uniforms (4), theta + w (2 pi u - pi) and its clip (6),
+              the range scaling of sin and cos (2), the field sum J cos + h
+              (8), dE (6), acceptance 1 - u, times T, compare (3); and a
+              logarithm, a sine and a cosine."""
+    P = slices
+    local = SPIN_FIELD + 4 + METROPOLIS
+    line = (SPIN_FIELD + 1) * P + METROPOLIS
+    f32, sfu = {
+        "sa": (SPIN_FIELD + 1 + METROPOLIS, 1),
+        "qmc": (local * P + line, P + 1),
+        "qmc_bath": ((local + P) * P + line, P + 1),
+        "svmc": (4 + 6 + 2 + 8 + 6 + 3, 3),
+    }[kname.split("_", 1)[1]]
+    return f32 * chains * sites, sfu * chains * sites
+
+
+def bytes_per_anneal(kname, chains, slices, sites, tau):
+    """Bytes an anneal of `tau` sweeps must move: the state read once and
+    written once; the couplings (right, down), h, the bath matrix and the
+    two schedules read once."""
+    state = 2 * chains * slices * sites * 4
+    bath = slices * slices * 4 if kname == "split_qmc_bath" else 0
+    return state + 3 * sites * 4 + bath + 2 * tau * 4
+
+
+def bound_ms(kname, chains, slices, sites, tau):
+    """(least ms per sweep over an anneal of `tau` sweeps, "operations" or
+    "bytes", and which of "fp32", "sfu" or "bytes" bounds it)."""
+    f32, sfu = ops_per_sweep(kname, chains, slices, sites)
+    times = {"fp32": f32 / PEAK_FLOPS, "sfu": sfu / PEAK_SFU,
+             "bytes": bytes_per_anneal(kname, chains, slices, sites, tau)
+             / PEAK_BYTES / tau}
+    unit = max(times, key=times.get)
+    return (1e3 * times[unit], "bytes" if unit == "bytes" else "operations",
+            unit)
 
 
 def emit(obj):
@@ -184,11 +286,13 @@ def main():
     from montecarlosolvers_tpu_torch import schedules
     from montecarlosolvers_tpu_torch.models import instances
     from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
     from montecarlosolvers_tpu_torch.ops import plane as plane_ops
     from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
     from montecarlosolvers_tpu_torch.ops import split as split_ops
     from montecarlosolvers_tpu_torch.ops import split_kernels as sk
     from montecarlosolvers_tpu_torch.solvers.api import solve
+    from montecarlosolvers_tpu_torch.solvers.dissipative import dissipative_qa
 
     dev = torch.device("cuda", 0)
 
@@ -257,6 +361,45 @@ def main():
             check(n_bad == 0, f"kernel B equals its plain version "
                               f"(B={bscale}, global_moves={gm})")
     results["split_qmc"]["max_abs_err"] = err_b
+
+    # ---- kernel 5 against its plain version
+    open80 = instances.random_2d_lattice(L, rng=0, device=dev)[0]
+    gamma5 = schedules.transverse_field(3.0, 1e-8, 20, device=dev)
+    err_5 = 0.0
+    cases = [("gaussian_torus(80, 0)", torus, BATH_SLICES, bscale, gm)
+             for bscale in (1.0, 0.7) for gm in (True, False)]
+    cases += [(lname, lat, slices, bscale, gm)
+              for lname, lat, slices in (
+                  ("gaussian_torus(80, 0)", torus, 5),
+                  ("gaussian_torus(80, 0)", torus, 2),
+                  ("random_2d_lattice(80, 0), open", open80, 4))
+              for bscale, gm in ((0.7, True), (1.0, False))]
+    for lname, lat, slices, bscale, gm in cases:
+        sl5 = split_ops.build_split(lat)
+        a5, b5 = (x.contiguous() for x in split_ops.pack_classical(
+            sl5, random_spins(BATH_READS, slices, L * L)))
+        teff5 = (1.0 / slices) * slices
+        jp5 = schedules.jperp(gamma5, teff5).contiguous()
+        bs = torch.full_like(gamma5, bscale)
+        for alpha in (BATH_ALPHA, 0.5):
+            bath = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+                slices, alpha, device=dev), slices).contiguous()
+            k5 = sk.qmc_bath_split_anneal(sl5, bs, jp5, teff5, bath, a5, b5,
+                                          888, gm)
+            r5 = sk.qmc_bath_split_anneal_ref(sl5, bs, jp5, teff5, bath, a5,
+                                              b5, 888, gm)
+            torch.cuda.synchronize()
+            n_bad, err = mismatches(k5, r5)
+            err_5 = max(err_5, err)
+            emit({"phase": "qmc_bath_kernel_vs_plain", "lattice": lname,
+                  "chains": BATH_READS, "slices": slices, "steps": 20,
+                  "alpha": alpha, "B": bscale, "global_moves": gm,
+                  "mismatched_spins": n_bad, "max_abs_err": err,
+                  "flipped_fraction": float((k5[0] != a5).float().mean())})
+            check(n_bad == 0, f"kernel 5 equals its plain version on {lname}"
+                              f", P={slices} (alpha={alpha}, B={bscale}, "
+                              f"global_moves={gm})")
+    results["split_qmc_bath"]["max_abs_err"] = err_5
 
     # ---- kernel 6 against its plain version
     err_6 = 0.0
@@ -355,46 +498,66 @@ def main():
     except FileNotFoundError:
         problem, e_gs = torus, None
         lattice = "gaussian_torus(80, seed=0)"
-    sa_kw = dict(method="sa", num_reads=SA_READS, sweeps=SA_SWEEPS)
-    qmc_kw = dict(method="piqmc", num_reads=QMC_READS, sweeps=QMC_SWEEPS)
-    svmc_kw = dict(method="svmc", num_reads=SVMC_READS, sweeps=SVMC_SWEEPS)
-    # key, lattice name, problem, solve options, the launches it must make:
-    # kernels A, 4, 6 and 7 once per anneal (the PIQMC pre-anneal is one SA
-    # anneal), B 4 and 3 m + 2 = 5 times per sweep
+    def solved(method):
+        def run(prob, num_reads, sweeps, slices=None):
+            kw = {} if slices is None else {"slices": slices}
+            ss = solve(prob, method=method, num_reads=num_reads,
+                       sweeps=sweeps, seed=0, **kw)
+            return ss.samples, ss.energies
+        return run
+
+    def dissipative(prob, num_reads, sweeps, slices):
+        return dissipative_qa(prob, num_reads, sweeps, slices, BATH_ALPHA,
+                              seed=0)
+
+    sa_kw = dict(num_reads=SA_READS, sweeps=SA_SWEEPS)
+    qmc_kw = dict(num_reads=QMC_READS, sweeps=QMC_SWEEPS)
+    svmc_kw = dict(num_reads=SVMC_READS, sweeps=SVMC_SWEEPS)
+    bath_kw = dict(num_reads=BATH_READS, sweeps=BATH_SWEEPS,
+                   slices=BATH_SLICES)
+    sa_run, qmc_run, svmc_run = solved("sa"), solved("piqmc"), solved("svmc")
+    # key, lattice name, problem, run(problem, **options) -> (samples,
+    # energies), its options, the launches it must make: kernels A, 4, 5, 6
+    # and 7 once per anneal (the PIQMC pre-anneal is one SA anneal), B 4 and
+    # 3 m + 2 = 5 times per sweep
     paths = (
-        ("sa", lattice, problem, sa_kw, {"sa_split": 1}),
-        ("piqmc_p40", lattice, problem, dict(qmc_kw, slices=QMC_SLICES),
+        ("sa", lattice, problem, sa_run, sa_kw, {"sa_split": 1}),
+        ("piqmc_p40", lattice, problem, qmc_run,
+         dict(qmc_kw, slices=QMC_SLICES),
          {"sa_split": 1, "qmc_split": 4 * QMC_SWEEPS}),
-        ("piqmc_p5", lattice, problem, dict(qmc_kw, slices=ODD_SLICES),
+        ("piqmc_p5", lattice, problem, qmc_run,
+         dict(qmc_kw, slices=ODD_SLICES),
          {"sa_split": 1, "qmc_plane": 5 * QMC_SWEEPS}),
-        ("sa_l81", "gaussian_torus(81, seed=0)", odd_torus, sa_kw,
+        ("sa_l81", "gaussian_torus(81, seed=0)", odd_torus, sa_run, sa_kw,
          {"sa_plane": 1}),
-        ("piqmc_p5_l81", "gaussian_torus(81, seed=0)", odd_torus,
+        ("piqmc_p5_l81", "gaussian_torus(81, seed=0)", odd_torus, qmc_run,
          dict(qmc_kw, slices=ODD_SLICES),
          {"sa_plane": 1, "qmc_plane": 5 * QMC_SWEEPS}),
-        ("svmc", lattice, problem, svmc_kw, {"svmc_split": 1}),
-        ("svmc_l81", "gaussian_torus(81, seed=0)", odd_torus, svmc_kw,
-         {"svmc_plane": 1}),
+        ("svmc", lattice, problem, svmc_run, svmc_kw, {"svmc_split": 1}),
+        ("svmc_l81", "gaussian_torus(81, seed=0)", odd_torus, svmc_run,
+         svmc_kw, {"svmc_plane": 1}),
+        ("piqmc_bath_p40", lattice, problem, dissipative, bath_kw,
+         {"sa_split": 1, "qmc_bath_split": 1}),
     )
     main_launches = {k: 0 for k in _build.LAUNCHES}
-    for key, lname, prob, kw, needs in paths:
+    for key, lname, prob, run, kw, needs in paths:
         _build.reset_launches()
         t0 = time.perf_counter()
-        ss = solve(prob, seed=0, **kw)
+        samples, energies = run(prob, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
         for k, v in launches.items():
             main_launches[k] += v
         n, reads = prob.nspins, kw["num_reads"]
-        check(ss.samples.shape == (reads, n), f"{key} sample shape")
-        check(set(np.unique(ss.samples)) <= {-1.0, 1.0}, f"{key} spins +/-1")
-        check(bool(np.all(np.isfinite(ss.energies))), f"{key} finite")
-        check(np.allclose(ss.energies, energy64(prob, ss.samples),
+        check(samples.shape == (reads, n), f"{key} sample shape")
+        check(set(np.unique(samples)) <= {-1.0, 1.0}, f"{key} spins +/-1")
+        check(bool(np.all(np.isfinite(energies))), f"{key} finite")
+        check(np.allclose(energies, energy64(prob, samples),
                           rtol=1e-5, atol=1e-3),
               f"{key} energies equal a float64 recomputation")
-        per_spin = ss.energies / n
-        rec = {"phase": "main_path", "path": key, "method": kw["method"],
+        per_spin = energies / n
+        rec = {"phase": "main_path", "path": key,
                "slices": kw.get("slices"), "lattice": lname, "reads": reads,
                "sweeps": kw["sweeps"], "seconds": secs,
                "mean_energy_per_spin": float(per_spin.mean()),
@@ -402,7 +565,7 @@ def main():
                "launches": launches}
         certified = e_gs is not None and prob is problem
         if certified:
-            eps = (ss.energies - e_gs) / n
+            eps = (energies - e_gs) / n
             rec["eps_res_mean"] = float(eps.mean())
             rec["eps_res_best"] = float(eps.min())
         emit(rec)
@@ -430,6 +593,18 @@ def main():
             g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
             return fn(sl, torch.ones_like(g), schedules.jperp(g, teff)
                       .contiguous(), teff, qs, 7, True)
+        return run
+
+    def split_bath_runner(fn):
+        ha, hb = (x.contiguous() for x in split_ops.pack_classical(
+            sl, random_spins(BATH_READS, BATH_SLICES, L * L)))
+        bath = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+            BATH_SLICES, BATH_ALPHA, device=dev), BATH_SLICES).contiguous()
+
+        def run(tau):
+            g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+            return fn(sl, torch.ones_like(g), schedules.jperp(g, teff)
+                      .contiguous(), teff, bath, ha, hb, 7, True)
         return run
 
     pl81 = plane_ops.build_plane(odd_torus)
@@ -491,27 +666,47 @@ def main():
          (500, 2000), 3, SVMC_READS, 1, ODD_L * ODD_L),
         ("plane_svmc", "plain", plane_svmc_runner(pk.svmc_plane_anneal_ref),
          (10, 40), 2, SVMC_READS, 1, ODD_L * ODD_L),
+        ("split_qmc_bath", "cuda", split_bath_runner(sk.qmc_bath_split_anneal),
+         (100, 400), 3, BATH_READS, BATH_SLICES, L * L),
+        ("split_qmc_bath", "plain",
+         split_bath_runner(sk.qmc_bath_split_anneal_ref), (2, 6), 2,
+         BATH_READS, BATH_SLICES, L * L),
     )
     for kname, route, run, taus, trials, chains, slices, sites in timings:
         ms, best = slope_ms(run, taus, trials)
         rate = sites * slices * chains / (ms * 1e-3) if ms > 0 \
             else float("nan")
+        bound, bound_by, unit = bound_ms(kname, chains, slices, sites,
+                                         max(taus))
+        f32, sfu = ops_per_sweep(kname, chains, slices, sites)
+        hashed = hash_ops_per_sweep(kname, chains, slices, sites)
         emit({"phase": "timing", "kernel": kname, "route": route,
               "chains": chains, "slices": slices, "sites": sites,
-              "global_moves": kname.endswith("qmc"),
+              "global_moves": "qmc" in kname,
               "tf": True if kname.endswith("svmc") else None,
               "taus": list(taus),
               "best_seconds": {str(k): v for k, v in best.items()},
               "ms_per_sweep": ms, "attempts_per_s": rate,
+              "bound_ms": bound, "bound_by": bound_by, "bound_unit": unit,
+              "fp32_ops_per_sweep": f32, "sfu_ops_per_sweep": sfu,
+              "hash_int32_ops_per_sweep": hashed,
+              "hash_ms": 1e3 * hashed / PEAK_INT32,
+              "bytes_per_anneal": bytes_per_anneal(kname, chains, slices,
+                                                   sites, max(taus)),
               "gpu": name, "power_limit": power})
         check(ms > 0, f"{kname} {route} slope is positive")
         results[kname]["ms" if route == "cuda" else "plain_ms"] = ms
+        results[kname].update(bound_ms=bound, bound_by=bound_by)
 
+    # No single PyTorch call computes a Metropolis sweep, so no kernel has a
+    # library yardstick (library_ms null).
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
          "launches": main_launches[key],
          "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
-         "plain_ms": results[k]["plain_ms"]}
+         "plain_ms": results[k]["plain_ms"],
+         "bound_ms": results[k]["bound_ms"],
+         "bound_by": results[k]["bound_by"], "library_ms": None}
         for k, (key, src, tpu) in KERNELS.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,20 +5,27 @@ against it module by module. Module names and layout follow the JAX
 package (`models/`, `ops/`, `solvers/`, `schedules.py`) so each module's
 counterpart is easy to find.
 
-Scope of this package today: the Martonak-Santoro-Tosatti main path and
-spin-vector Monte Carlo on any `LatticeProblem` (any L, open or periodic) —
-classical SA, PIQMC at any P (local plus whole-line global moves), SVMC
-with uniform or TF proposals, and the one-call `solvers.api.solve` with
-method "sa", "piqmc" or "svmc". Even L (and even P) take the
-split-checkerboard engines (`ops/split_kernels.py`), everything else the
-full-plane engines (`ops/plane_kernels.py`). On a CUDA device the six
-engines run hand-written CUDA kernels (`csrc/split_sa.cu`,
-`csrc/split_qmc.cu`, `csrc/split_svmc.cu`, `csrc/plane_sa.cu`,
-`csrc/plane_qmc.cu`, `csrc/plane_svmc.cu`); on the CPU they run the plain
-PyTorch versions beside the kernel wrappers, which equal the JAX oracles
-and the Pallas interpreter (bitwise for spins, to the last ulps of cos and
-sin for rotor angles). Everything else raises NotImplementedError naming
-the ROADMAP.md item that will port it.
+Scope of this package today: the Martonak-Santoro-Tosatti main path,
+dissipative PIQMC and spin-vector Monte Carlo on any `LatticeProblem` (any
+L, open or periodic) — classical SA, PIQMC at any P (local plus whole-line
+global moves; with a bath `lookuptable`, the slice-sequential dissipative
+sweep on even L at any P >= 2), SVMC with uniform or TF proposals, and the
+one-call `solvers.api.solve` with method "sa", "piqmc" or "svmc". Even L
+(and even P) take the split-checkerboard engines (`ops/split_kernels.py`),
+everything else the full-plane engines (`ops/plane_kernels.py`). On a CUDA
+device the seven engines run hand-written CUDA kernels
+(`csrc/split_sa.cu`, `csrc/split_qmc.cu`, `csrc/split_qmc_bath.cu`,
+`csrc/split_svmc.cu`, `csrc/plane_sa.cu`, `csrc/plane_qmc.cu`,
+`csrc/plane_svmc.cu`); on the CPU they run the plain PyTorch versions
+beside the kernel wrappers, which equal the JAX oracles and the Pallas
+interpreter (bitwise for spins, to the last ulps of cos and sin for rotor
+angles). Everything else raises NotImplementedError naming the ROADMAP.md
+item that will port it.
+
+Every function that takes `device=None` builds on the CUDA card and raises
+on a host without one (`_device.resolve`); the solvers run on the
+problem's device, so the plain versions run on the host only when the
+caller asks for `device="cpu"`.
 
 Random numbers come from the counter hash of the JAX package's Pallas
 kernels (`ops/counter_rng.py`), not from torch's generators: solvers draw

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 GENERIC_PROBLEM = ("queue 1, item 2 (generic IsingProblem and instances, "
                    "the generic ops/piqmc.py sweeps)")
-BATH = "queue 1, item 3 (dissipative PIQMC, lookuptable=)"
+BATH = ("queue 1, item 3 (what is left of dissipative PIQMC: odd-L "
+        "lattices, bath_update='colored')")
 GENERIC_GRAPHS = "queue 1, item 4 (generic graphs, anneal_noisy)"
 CLUSTER = "queue 1, item 5 (cluster updates)"
 SAMPLERS = "queue 1, item 6 (samplers and API)"

@@ -1,10 +1,12 @@
 """Carry the JAX package's problems and states across into the port.
 
-Both functions take numpy arrays (for example `np.asarray(jax_lat.j_right)`)
-and return the port's objects on `device`, so the two packages compute on
-the same inputs. A LatticeProblem is the only parameter any solver takes;
-states, spins or SVMC rotor angles alike, are plain arrays and cross as
-numpy through `state_from_numpy`, so SVMC needs no converter of its own.
+Each function takes numpy arrays (for example `np.asarray(jax_lat.j_right)`)
+and returns the port's objects on `device` (None: the CUDA device), so the
+two packages compute on the same inputs. A LatticeProblem is the only
+parameter any solver takes; states, spins or SVMC rotor angles alike, are
+plain arrays and cross as numpy through `state_from_numpy`, so SVMC needs
+no converter of its own; a bath lookuptable crosses through
+`lookuptable_from_numpy`.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from montecarlosolvers_tpu_torch import _device
 from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 
 
@@ -27,11 +30,19 @@ def lattice_from_arrays(j_right, j_down, h_plane, col_wrap=None, device=None):
     )
 
 
+def lookuptable_from_numpy(lut, device=None):
+    """A bath lookuptable (P-1,), for example the JAX package's
+    `schedules.bath_lookuptable(P, alpha)`, as a float32 tensor; a float32
+    table crosses bitwise."""
+    return torch.as_tensor(np.array(lut, dtype=np.float32),
+                           device=_device.resolve(device))
+
+
 def state_from_numpy(spins, device=None):
     """Spins, rotor angles or Trotter configurations as a float32 tensor,
     keeping the JAX package's layout: (chains, N), or slices-major
     (chains, P, N)."""
     return torch.as_tensor(
         np.ascontiguousarray(np.asarray(spins, dtype=np.float32)),
-        device=device,
+        device=_device.resolve(device),
     )

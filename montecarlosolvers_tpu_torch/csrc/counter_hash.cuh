@@ -81,9 +81,9 @@ __device__ __forceinline__ int wrap_index(int j, int n) {
   return j >= n ? j - n : (j < 0 ? j + n : j);
 }
 
-// Weighted neighbour sum over the opposite half `o` at site j for `color`,
-// w laid out (nslots, 2, nh). The slots read these offsets, mod nh
-// (ops/split.py:161-175):
+// Weighted neighbour sum over the opposite half at site j for `color`,
+// w laid out (nslots, 2, nh); o(i) reads the opposite half's value at site
+// i. The slots read these offsets, mod nh (ops/split.py:161-175):
 //   slot 0: o[j]        slot 1: o[j+1]        slot 2: o[j-1]
 //   slot 3: o[j+K]      slot 4: o[j-K]
 //   slot 5: o[j-(K-1)]  slot 6: o[j+(K-1)]    (row wrap, 7-slot lattices)
@@ -91,24 +91,32 @@ __device__ __forceinline__ int wrap_index(int j, int n) {
 // product w*(+/-1) is exact, so the order alone fixes the float32 result;
 // for the SVMC kernel's cos values the products round, and
 // __fadd_rn/__fmul_rn keep nvcc from contracting them into FMAs.
+template <typename Read>
+__device__ __forceinline__ float stencil(Read o, const float* __restrict__ w,
+                                         int color, int nh, int K,
+                                         int nslots, int j) {
+  const float* wc = w + color * nh + j;
+  const int st = 2 * nh;
+  float f = __fmul_rn(__ldg(wc), o(j));
+  f = __fadd_rn(f, __fmul_rn(__ldg(wc + st), o(wrap_index(j + 1, nh))));
+  f = __fadd_rn(f, __fmul_rn(__ldg(wc + 2 * st), o(wrap_index(j - 1, nh))));
+  f = __fadd_rn(f, __fmul_rn(__ldg(wc + 3 * st), o(wrap_index(j + K, nh))));
+  f = __fadd_rn(f, __fmul_rn(__ldg(wc + 4 * st), o(wrap_index(j - K, nh))));
+  if (nslots > 5) {
+    f = __fadd_rn(f, __fmul_rn(__ldg(wc + 5 * st),
+                               o(wrap_index(j - (K - 1), nh))));
+    f = __fadd_rn(f, __fmul_rn(__ldg(wc + 6 * st),
+                               o(wrap_index(j + (K - 1), nh))));
+  }
+  return f;
+}
+
+// `stencil` over a half stored as floats
 __device__ __forceinline__ float half_field(const float* o,
                                             const float* __restrict__ w,
                                             int color, int nh, int K,
                                             int nslots, int j) {
-  const float* wc = w + color * nh + j;
-  const int st = 2 * nh;
-  float f = __fmul_rn(__ldg(wc), o[j]);
-  f = __fadd_rn(f, __fmul_rn(__ldg(wc + st), o[wrap_index(j + 1, nh)]));
-  f = __fadd_rn(f, __fmul_rn(__ldg(wc + 2 * st), o[wrap_index(j - 1, nh)]));
-  f = __fadd_rn(f, __fmul_rn(__ldg(wc + 3 * st), o[wrap_index(j + K, nh)]));
-  f = __fadd_rn(f, __fmul_rn(__ldg(wc + 4 * st), o[wrap_index(j - K, nh)]));
-  if (nslots > 5) {
-    f = __fadd_rn(f, __fmul_rn(__ldg(wc + 5 * st),
-                               o[wrap_index(j - (K - 1), nh)]));
-    f = __fadd_rn(f, __fmul_rn(__ldg(wc + 6 * st),
-                               o[wrap_index(j + (K - 1), nh)]));
-  }
-  return f;
+  return stencil([o](int i) { return o[i]; }, w, color, nh, K, nslots, j);
 }
 
 }  // namespace mcs

@@ -7,7 +7,8 @@ instance ships in `i j J_ij` triplet format
 ground state; the reference script negates couplings on load
 (examples/santoro80.py:242-244), and that convention lives here. The file is
 data, not code: it is looked up in the directory that `MCS_TPU_INSTANCE_DIR`
-names, as the JAX package does.
+names, as the JAX package does. Every function here puts its problem on
+`device`, and device=None means the CUDA device (`_device.resolve`).
 """
 
 from __future__ import annotations

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from montecarlosolvers_tpu_torch import _device
+
 
 def _plane(x, device):
     """A float32 tensor of a plane; numpy input is copied (it may be a
@@ -45,9 +47,10 @@ class LatticeProblem(nn.Module):
 
     @classmethod
     def from_planes(cls, j_right, j_down, h=None, col_wrap=None, device=None):
-        """Build from (L, L) coupling planes (numpy arrays or tensors).
-        col_wrap is detected from the wrap column when not given."""
-        j_right = _plane(j_right, device)
+        """Build from (L, L) coupling planes (numpy arrays or tensors) on
+        `device` (None: the CUDA device). col_wrap is detected from the wrap
+        column when not given."""
+        j_right = _plane(j_right, _device.resolve(device))
         j_down = _plane(j_down, j_right.device)
         L = j_right.shape[0]
         if h is None:
@@ -59,8 +62,9 @@ class LatticeProblem(nn.Module):
 
     @classmethod
     def from_edges(cls, L, rows, cols, vals, device=None):
-        """Build from COO triplets over row-major spin indices. Raises if an
-        edge is not a lattice right/down/wrap/field bond."""
+        """Build from COO triplets over row-major spin indices, on `device`
+        (None: the CUDA device). Raises if an edge is not a lattice
+        right/down/wrap/field bond."""
         jr = np.zeros((L, L))
         jd = np.zeros((L, L))
         h = np.zeros((L, L))

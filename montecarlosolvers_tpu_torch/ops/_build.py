@@ -29,8 +29,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("split_sa", "split_qmc", "split_svmc", "plane_sa", "plane_qmc",
-           "plane_svmc")
+KERNELS = ("split_sa", "split_qmc", "split_svmc", "split_qmc_bath",
+           "plane_sa", "plane_qmc", "plane_svmc")
 
 # No --use_fast_math: kernels and their plain versions must round alike.
 NVCC_FLAGS = (
@@ -57,6 +57,14 @@ SIGNATURES = {
             _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 8 + [_P, _NP]
         ),
         "split_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "split_qmc_bath": {
+        # w, h, b_sched, jp, bath, teff, 2*teff, a_in, b_in, a_out, b_out,
+        # chains, P, nh, K, nslots, steps, seed, global_moves, stream
+        "split_qmc_bath_anneal": (
+            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 8 + [_P]
+        ),
+        "split_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "plane_sa": {
         # planes, sched, s_in, s_out, chains, L, row_stride, plane_stride,
@@ -97,11 +105,12 @@ _LIBS = {}
 # the kernels that keep a chain in shared memory are refused beyond it.
 SMEM_LIMIT_BYTES = 232448
 
-# Kernel launches per kernel. Kernels A, 4, 6 and 7 run a whole schedule in
-# one launch; B and 3 launch once per phase, and their C entry points report
-# how many launches they issued.
-LAUNCHES = {"sa_split": 0, "qmc_split": 0, "svmc_split": 0, "sa_plane": 0,
-            "qmc_plane": 0, "svmc_plane": 0}
+# Kernel launches per kernel. Kernels A, 4, 5, 6 and 7 run a whole schedule
+# in one launch; B and 3 launch once per phase, and their C entry points
+# report how many launches they issued.
+LAUNCHES = {"sa_split": 0, "qmc_split": 0, "svmc_split": 0,
+            "qmc_bath_split": 0, "sa_plane": 0, "qmc_plane": 0,
+            "svmc_plane": 0}
 
 
 def reset_launches():

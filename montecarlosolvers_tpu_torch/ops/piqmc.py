@@ -2,13 +2,16 @@
 montecarlosolvers_tpu/ops/piqmc.py).
 
 Ported so far: `spacetime_num_phases`, with which the full-plane PIQMC
-engine (`ops/plane_kernels.py`) colors space-time, and `sum_in_order`, the
-line-move sum over the Trotter axis of both PIQMC engines. The generic
-`local_sweep` / `global_line_moves` on an `IsingProblem` wait for the
-generic problem model (ROADMAP.md queue 1).
+engine (`ops/plane_kernels.py`) colors space-time, `sum_in_order`, the
+line-move and bath sum over the Trotter axis of the PIQMC engines, and
+`bath_matrix`, the dissipative engine's slice couplings. The generic
+`local_sweep` / `global_line_moves` / `dissipative_local_sweep` on an
+`IsingProblem` wait for the generic problem model (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
+
+import torch
 
 
 def spacetime_num_phases(num_colors, slices):
@@ -34,3 +37,18 @@ def sum_in_order(x, dim=-2):
     for q in range(1, x.shape[dim]):
         acc = acc + x.select(dim, q)
     return acc
+
+
+def bath_matrix(lookuptable, slices):
+    """(P, P) float32 bath couplings on the table's device:
+    M[k, k'] = lut[(k' - k) mod P - 1], zero diagonal (ops/piqmc.py:64).
+    The offset is directed, as the reference indexes it (qmc.pyx:271); the
+    tables of `schedules.bath_lookuptable` are symmetric in ring distance,
+    but M is built exactly, not as a symmetric table. The bath field of
+    slice k is sum_p M[k, p] s_p."""
+    lut = torch.as_tensor(lookuptable, dtype=torch.float32)
+    k = torch.arange(slices, device=lut.device)
+    off = (k[None, :] - k[:, None]) % slices
+    return torch.where(off > 0, lut[(off - 1).clamp(min=0)],
+                       torch.zeros((), dtype=torch.float32,
+                                   device=lut.device))

@@ -1,35 +1,39 @@
-"""Split-checkerboard SA, PIQMC and SVMC engines: plain versions, kernel
-wrappers, launch counters.
+"""Split-checkerboard SA, PIQMC, dissipative PIQMC and SVMC engines: plain
+versions, kernel wrappers, launch counters.
 
 Counterpart of `montecarlosolvers_tpu/ops/pallas_split.py`:
-`anneal_lattice_split` (:932), `anneal_lattice_qmc_split` (:607) and
-`anneal_lattice_svmc_split` (:353), whose Pallas kernels `_split_kernel`
-(:109), `_qmc_split_kernel` (:431) and `_svmc_split_kernel` (:227) are
+`anneal_lattice_split` (:932), `anneal_lattice_qmc_split` (:607),
+`anneal_lattice_qmc_bath_split` (:857) and `anneal_lattice_svmc_split`
+(:353), whose Pallas kernels `_split_kernel` (:109), `_qmc_split_kernel`
+(:431), `_qmc_bath_split_kernel` (:696) and `_svmc_split_kernel` (:227) are
 ported as the CUDA kernels `csrc/split_sa.cu` (kernel A),
-`csrc/split_qmc.cu` (kernel B) and `csrc/split_svmc.cu` (kernel 4). The
-solvers route a lattice here when `ops/split.py::supports_split` holds
-(even L, and even P for PIQMC), else to the full-plane engines of
-`ops/plane_kernels.py`.
+`csrc/split_qmc.cu` (kernel B), `csrc/split_qmc_bath.cu` (kernel 5) and
+`csrc/split_svmc.cu` (kernel 4). The solvers route a lattice here when
+`ops/split.py::supports_split` holds (even L, and even P for PIQMC without
+a bath; the bath engine takes any P >= 2), else to the full-plane engines
+of `ops/plane_kernels.py`.
 
 Beside each kernel wrapper sits its plain PyTorch version
-(`sa_split_anneal_ref`, `qmc_split_anneal_ref`, `svmc_split_anneal_ref`),
-with the semantics of the JAX oracles `oracle_anneal`, `oracle_qmc` and
-`oracle_svmc` in tests/test_pallas_split.py: the same fields, the same
-counter-hash uniforms and the same log-form Metropolis rule. On the CPU
-the spin engines equal the oracles bitwise, and the SVMC engine equals its
-oracle to the last ulps of cos and sin (torch's and XLA's may differ
-there); on the card each kernel equals its plain version.
+(`sa_split_anneal_ref`, `qmc_split_anneal_ref`, `qmc_bath_split_anneal_ref`,
+`svmc_split_anneal_ref`), with the semantics of the JAX oracles
+`oracle_anneal`, `oracle_qmc`, `oracle_qmc_bath` and `oracle_svmc` in
+tests/test_pallas_split.py: the same fields, the same counter-hash uniforms
+and the same log-form Metropolis rule. On the CPU the spin engines equal
+the oracles bitwise, and the SVMC engine equals its oracle to the last ulps
+of cos and sin (torch's and XLA's may differ there); on the card each
+kernel equals its plain version.
 
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts the kernel launches under "sa_split",
-"qmc_split" and "svmc_split".
+"qmc_split", "qmc_bath_split" and "svmc_split".
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from montecarlosolvers_tpu_torch import schedules
@@ -38,7 +42,7 @@ from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
-from montecarlosolvers_tpu_torch.ops.piqmc import sum_in_order
+from montecarlosolvers_tpu_torch.ops.piqmc import bath_matrix, sum_in_order
 
 # Kernel B puts chains on gridDim.z.
 QMC_MAX_CHAINS = 65535
@@ -132,6 +136,73 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
             m = line_flips(ye, xe, xo, yo, 1)
             ye, xo = ye * m, xo * m
     return xe, xo, ye, yo
+
+
+def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
+                              global_moves):
+    """Plain form of kernel 5 on the per-slice halves a, b, each
+    (chains, P, Nh), P >= 2. `b_sched` and `jp` are float32 (steps,) tensors
+    of B and J_perp, `teff` = P*T a Python float, `bath` the (P, P) float32
+    `bath_matrix`. Returns the new (a, b).
+
+    Line by line `_qmc_bath_split_kernel` (pallas_split.py:736-803): per
+    step, slices k = 0..P-1 in order; at the start of slice k the bath
+    fields of both halves, sum_p M[k, p] s_p in index order from p = 0,
+    and the Trotter sums s_up + s_dn (up = (k+P-1) mod P, dn = (k+1) mod P;
+    the same slice at P = 2) are taken from the state as it stands; half A
+    of slice k updates against half B, then half B against the new A, with
+
+        dE = (-2B s) f + (2 s) J_perp tr + (2 T_eff s) bath,
+
+    added left to right, at counter(seed, t, 2k + half) and the SA uids of
+    the half. With `global_moves`, whole lines of half A flip with
+    dE = -2B sum_p s_p (f_p + h) (slices in index order; J_perp and the
+    bath cancel), then those of half B against the flipped A, at counter
+    index 2P + half."""
+    chains, P, nh = a.shape
+    K = sl.K
+    dev = a.device
+    wa, wb = sl.w_ab[:, 0], sl.w_ab[:, 1]
+    ha, hb = sl.h_ab[0], sl.h_ab[1]
+    teff32 = torch.tensor(teff, dtype=torch.float32, device=dev)
+    # 2.0 * teff in the Pallas kernel is a Python double, rounded to float32
+    # where it meets the spins
+    two_teff = torch.tensor(2.0 * teff, dtype=torch.float32, device=dev)
+    hu = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev)) for c in (0, 1)]
+    a, b = a.clone(), b.clone()  # slices are written in place below
+
+    for t in range(b_sched.shape[0]):
+        jpt = jp[t]
+        bc = -2.0 * b_sched[t]
+        for k in range(P):
+            up, dn = (k + P - 1) % P, (k + 1) % P
+            row = bath[k][:, None]  # (P, 1)
+            bath_a = sum_in_order(row * a)
+            bath_b = sum_in_order(row * b)
+            a_tr = a[:, up] + a[:, dn]
+            b_tr = b[:, up] + b[:, dn]
+            a_k, b_k = a[:, k].clone(), b[:, k].clone()
+            de = (bc * a_k * (split_ops.spatial_field(wa, b_k, K) + ha)
+                  + 2.0 * a_k * jpt * a_tr + two_teff * a_k * bath_a)
+            u = cr.uniform01_hashed(cr.counter(seed, t, 2 * k), hu[0])
+            a_k = torch.where(metropolis_accept(de, teff32, u), -a_k, a_k)
+            a[:, k] = a_k
+            de = (bc * b_k * (split_ops.spatial_field(wb, a_k, K) + hb)
+                  + 2.0 * b_k * jpt * b_tr + two_teff * b_k * bath_b)
+            u = cr.uniform01_hashed(cr.counter(seed, t, 2 * k + 1), hu[1])
+            b[:, k] = torch.where(metropolis_accept(de, teff32, u), -b_k, b_k)
+
+        if global_moves:
+            for half in (0, 1):
+                s, o = (a, b) if half == 0 else (b, a)
+                f = split_ops.spatial_field(sl.w_ab[:, half], o, K) \
+                    + sl.h_ab[half]
+                de = bc * sum_in_order(s * f)
+                u = cr.uniform01_hashed(cr.counter(seed, t, 2 * P + half),
+                                        hu[half])
+                acc = metropolis_accept(de, teff32, u)
+                s.mul_(torch.where(acc, -1.0, 1.0)[:, None, :])
+    return a, b
 
 
 def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf):
@@ -247,6 +318,56 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
     return tuple(outs)
 
 
+def qmc_bath_smem_bytes(P, nh):
+    """Shared memory kernel 5 takes per block: both halves' lines as bits
+    (ceil(P/32) words per site) and the (P, P) bath matrix."""
+    return (2 * (-(-P // 32)) * nh + P * P) * 4
+
+
+def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
+                          global_moves):
+    """Kernel 5 on CUDA tensors, `qmc_bath_split_anneal_ref` on CPU tensors.
+    Arguments as for `qmc_bath_split_anneal_ref`; returns new (a, b). The
+    kernel keeps each spin's sign, so the halves must hold +/-1."""
+    if _build.route(a.device, "split") == "cpu":
+        return qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b,
+                                         seed, global_moves)
+    chains, P, nh = a.shape
+    dev = a.device
+    if nh != sl.nh:
+        raise ValueError(f"halves have {nh} sites, lattice has {sl.nh}")
+    if P < 2:
+        raise ValueError(f"the bath engine takes P >= 2 slices, got {P}")
+    smem = qmc_bath_smem_bytes(P, nh)
+    if smem > _build.SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"kernel 5 keeps {smem} bytes of one chain (its lines as bits "
+            f"and the bath matrix) in shared memory; the limit is "
+            f"{_build.SMEM_LIMIT_BYTES} (L = {sl.L}, P = {P})"
+        )
+    for t, name in ((a, "a"), (b, "b")):
+        _build.check_arg(t, name, (chains, P, nh), dev)
+    _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
+    _build.check_arg(sl.h_ab, "h_ab", (2, nh), dev)
+    _build.check_arg(bath, "bath", (P, P), dev)
+    steps = int(b_sched.shape[0])
+    _build.check_arg(b_sched, "b_sched", (steps,), dev)
+    _build.check_arg(jp, "jp", (steps,), dev)
+    a_out = torch.empty_like(a)
+    b_out = torch.empty_like(b)
+    lib = _build.library("split_qmc_bath")
+    rc = lib.split_qmc_bath_anneal(
+        *map(_build.ptr, (sl.w_ab, sl.h_ab, b_sched, jp, bath)),
+        ctypes.c_float(teff), ctypes.c_float(2.0 * teff),
+        *map(_build.ptr, (a, b, a_out, b_out)),
+        chains, P, nh, sl.K, sl.nslots, steps, cr.wrap_int32(seed),
+        int(bool(global_moves)), _build.stream_of(dev),
+    )
+    _build.raise_on_error(lib, "split_qmc_bath_anneal", rc)
+    _build.LAUNCHES["qmc_bath_split"] += 1
+    return a_out, b_out
+
+
 def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf):
     """Kernel 4 on CUDA tensors, `svmc_split_anneal_ref` on CPU tensors.
     Arguments as for `svmc_split_anneal_ref`; returns new (a, b)."""
@@ -340,6 +461,44 @@ def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
     quarters = qmc_split_anneal(sl, b, jp, teff, quarters, seed,
                                 global_moves)
     out = split_ops.unpack_qmc(sl, *quarters)
+    return out[0] if squeeze else out
+
+
+def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
+                                  lookuptable, confs, seed, mcsteps=1,
+                                  global_moves=False):
+    """Split-layout dissipative PIQMC anneal on an even-L LatticeProblem at
+    any P >= 2 (counterpart of `pallas_split.anneal_lattice_qmc_bath_split`,
+    without its TPU lane rules).
+
+    a_sched / b_sched: (steps,) Gamma and B; temp: ambient T, T_eff = P*T;
+    lookuptable: (P-1,) bath couplings (`schedules.bath_lookuptable`), a
+    tensor or array, taken as float32 on the problem's device; confs:
+    (chains, P, N) or (P, N) float32 +/-1 slices-major, on the problem's
+    device; seed: int counter-hash seed; global_moves: whole-line flips
+    after each sweep (DissipativeQuantumAnnealGlobal, qmc.pyx:444-609).
+    Returns the annealed configurations, same shape."""
+    slices = confs.shape[-2]
+    if slices < 2:
+        raise ValueError(f"the bath engine takes P >= 2 slices, got {slices}")
+    if not torch.is_tensor(lookuptable):  # a copy: it may be read-only
+        lookuptable = np.array(lookuptable, dtype=np.float32)
+    lut = torch.as_tensor(lookuptable, dtype=torch.float32,
+                          device=problem.device)
+    if tuple(lut.shape) != (slices - 1,):
+        raise ValueError(f"lookuptable has shape {tuple(lut.shape)}, "
+                         f"expected ({slices - 1},) at P = {slices}")
+    sl = _split_of(problem, confs, "confs")
+    b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, slices,
+                                      mcsteps, problem.device)
+    bath = bath_matrix(lut, slices).contiguous()
+    squeeze = confs.ndim == 2
+    c = (confs[None] if squeeze else confs).to(torch.float32)
+    a, b_half = split_ops.pack_classical(sl, c)
+    a, b_half = qmc_bath_split_anneal(sl, b, jp, teff, bath, a.contiguous(),
+                                      b_half.contiguous(), seed,
+                                      global_moves)
+    out = split_ops.unpack_classical(sl, a, b_half)
     return out[0] if squeeze else out
 
 

@@ -11,34 +11,37 @@ share of the wall, the eight kernels with the most device time (summed
 over their launches, with the launch count the trace saw) and the kernel
 launches `ops/_build.py::LAUNCHES` counted in the same solve. Each solve
 is traced after an untraced warm-up solve, so the kernels are built and
-the caching allocator is warm.
+the caching allocator is warm. The dissipative path runs through
+`solvers/dissipative.py::dissipative_qa`.
 """
 
 from __future__ import annotations
 
 import json
 import time
+from functools import partial
 
 import torch
 
 from montecarlosolvers_tpu_torch.models import instances
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.solvers.api import solve
+from montecarlosolvers_tpu_torch.solvers.dissipative import dissipative_qa
 
 
-def profile_solve(problem, **kw):
-    """Device time per kernel and device busy share of one
-    `solve(problem, seed=1, **kw)` on a CUDA problem, after a warm-up."""
+def profile_run(run):
+    """Device time per kernel and device busy share of `run()`, a solve on
+    the card, traced after an untraced warm-up call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    solve(problem, seed=1, **kw)
+    run()
     torch.cuda.synchronize()
     _build.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve(problem, seed=1, **kw)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
@@ -77,22 +80,29 @@ def main():
         problem = instances.gaussian_torus(80, seed=0, device=dev)
         lattice = "gaussian_torus(80, seed=0)"
     odd = instances.gaussian_torus(81, seed=0, device=dev)
-    sa = dict(method="sa", num_reads=1280, sweeps=2000)
-    qmc = dict(method="piqmc", num_reads=32, sweeps=1000)
-    svmc = dict(method="svmc", num_reads=256, sweeps=2000)
-    for key, lname, prob, kw in (
-        ("sa", lattice, problem, sa),
-        ("piqmc_p40", lattice, problem, dict(qmc, slices=40)),
-        ("piqmc_p5", lattice, problem, dict(qmc, slices=5)),
-        ("sa_l81", "gaussian_torus(81, seed=0)", odd, sa),
-        ("piqmc_p5_l81", "gaussian_torus(81, seed=0)", odd,
-         dict(qmc, slices=5)),
-        ("svmc", lattice, problem, svmc),
-        ("svmc_l81", "gaussian_torus(81, seed=0)", odd, svmc),
-    ):
+    sa_kw = dict(method="sa", num_reads=1280, sweeps=2000)
+    qmc_kw = dict(method="piqmc", num_reads=32, sweeps=1000)
+    svmc_kw = dict(method="svmc", num_reads=256, sweeps=2000)
+    odd_name = "gaussian_torus(81, seed=0)"
+    runs = (
+        ("sa", lattice, partial(solve, problem, seed=1, **sa_kw)),
+        ("piqmc_p40", lattice,
+         partial(solve, problem, seed=1, slices=40, **qmc_kw)),
+        ("piqmc_p5", lattice,
+         partial(solve, problem, seed=1, slices=5, **qmc_kw)),
+        ("sa_l81", odd_name, partial(solve, odd, seed=1, **sa_kw)),
+        ("piqmc_p5_l81", odd_name,
+         partial(solve, odd, seed=1, slices=5, **qmc_kw)),
+        ("svmc", lattice, partial(solve, problem, seed=1, **svmc_kw)),
+        ("svmc_l81", odd_name, partial(solve, odd, seed=1, **svmc_kw)),
+        # 32 chains, P = 40, alpha = 1e-2: bench.py::_piqmc_bath_arm
+        ("piqmc_bath_p40", lattice,
+         partial(dissipative_qa, problem, 32, 1000, 40, 1e-2, seed=1)),
+    )
+    for key, lname, run in runs:
         print(json.dumps({"phase": "profile", "path": key, "lattice": lname,
                           "gpu": torch.cuda.get_device_name(0),
-                          **profile_solve(prob, **kw)}), flush=True)
+                          **profile_run(run)}), flush=True)
 
 
 if __name__ == "__main__":

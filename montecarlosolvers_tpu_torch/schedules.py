@@ -1,4 +1,5 @@
-"""Annealing schedules as float32 tensors on a device.
+"""Annealing schedules as float32 tensors on a device (device=None: the
+CUDA device, `_device.resolve`).
 
 Counterpart of `montecarlosolvers_tpu/schedules.py`. The JAX package's
 `segments` and `pad_schedule` are not ported: they exist only to keep each
@@ -10,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from montecarlosolvers_tpu_torch import _device
+
 
 def linear(start, stop, num, device=None):
     """Linear schedule, e.g. T: 3.0 -> 0 (examples/santoro80.py:260).
@@ -18,7 +21,8 @@ def linear(start, stop, num, device=None):
     point lies within one float32 rounding of the JAX package's
     `jnp.linspace`, whose compiled float32 formula rounds several times."""
     sched = np.linspace(start, stop, int(num), dtype=np.float64)
-    return torch.from_numpy(sched.astype(np.float32)).to(device)
+    return torch.from_numpy(sched.astype(np.float32)).to(
+        _device.resolve(device))
 
 
 def transverse_field(start=3.0, stop=1e-8, num=1000, device=None):
@@ -47,7 +51,21 @@ def jperp(gamma, teff):
     return half32 * torch.log(torch.tanh(gamma / teff32))
 
 
-def qmc_terms(a_sched, b_sched, temp, slices, mcsteps=1, device=None):
+def bath_lookuptable(slices, alpha, device=None):
+    """System-bath coupling strengths against imaginary-time distance:
+    alpha * (pi / (P sin(pi d / P)))^2 for d = 1..P-1 (qmc.pyx:162-163),
+    the (P-1,) table `qmc.anneal(lookuptable=...)` takes.
+
+    Computed in float64 and rounded once to float32, as the JAX package's
+    `jnp.asarray` rounds its float64 numpy table, so the two are bitwise
+    equal."""
+    d = np.arange(1, slices)
+    lut = alpha * (np.pi / (slices * np.sin(np.pi * d / slices))) ** 2
+    return torch.from_numpy(lut.astype(np.float32)).to(
+        _device.resolve(device))
+
+
+def qmc_terms(a_sched, b_sched, temp, slices, mcsteps, device):
     """What a PIQMC engine reads per sweep: (B, J_perp, T_eff). The Gamma
     and B schedules are expanded to one float32 point per sweep on
     `device`, J_perp is computed from each Gamma once, and T_eff = P*T is a
@@ -58,11 +76,11 @@ def qmc_terms(a_sched, b_sched, temp, slices, mcsteps=1, device=None):
     return b, jperp(gamma, teff).contiguous(), teff
 
 
-def expand_mcsteps(sched, mcsteps, device=None):
+def expand_mcsteps(sched, mcsteps, device):
     """Repeat each schedule point `mcsteps` times so there is one sweep per
     element (the reference nests sweeps inside each schedule step,
-    sa.pyx:66-69). Returns a contiguous float32 tensor on `device` (on the
-    schedule's own device if None), as the engines read it."""
+    sa.pyx:66-69). Returns a contiguous float32 tensor on `device`, as the
+    engines read it."""
     sched = torch.as_tensor(sched, dtype=torch.float32, device=device)
     if mcsteps != 1:
         sched = torch.repeat_interleave(sched, int(mcsteps))

@@ -12,6 +12,14 @@ Where the JAX solver sends odd P to `ops/piqmc.py::local_sweep` and
 `global_line_moves` on `jax.random`, the port sends it to the fused form of
 that sweep, the Pallas kernel `pallas_qmc._qmc_kernel`, whose counter hash
 lets the port be held bitwise against the Pallas interpreter.
+
+With a bath `lookuptable` (dissipative PIQMC, qmc.pyx:149-278 and
+444-609), an even-L lattice takes the split bath engine
+(`split_kernels.anneal_lattice_qmc_bath_split`, kernel 5) at every P >= 2.
+The JAX solver sends odd P there to the masked
+`piqmc.dissipative_local_sweep` on `jax.random`; the port takes the Pallas
+kernel's own form of the same slice-sequential sweep
+(`pallas_split._qmc_bath_split_kernel`), which accepts any P.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from montecarlosolvers_tpu_torch.ops import plane_kernels
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels
 from montecarlosolvers_tpu_torch.solvers.sa import draw_seed
+
+BATH_UPDATES = ("sequential", "colored")
 
 
 def replicate(spins, slices):
@@ -39,7 +49,7 @@ def best_slice_energy(problem, confs):
 
 
 def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
-           global_moves=False, lookuptable=None):
+           global_moves=False, lookuptable=None, bath_update="sequential"):
     """PIQMC anneal over the transverse-field schedule.
 
     problem: LatticeProblem (any L). a_sched: (steps,) Gamma (end > 0,
@@ -48,11 +58,29 @@ def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
     (P, N) float32 +/-1, any P, on the problem's device. generator:
     torch.Generator the counter-hash seed is drawn from. global_moves:
     whole-line flips after each sweep (QuantumAnnealGlobal,
-    qmc.pyx:405-438). Returns the annealed configurations."""
-    if lookuptable is not None:
-        raise _roadmap.not_ported("qmc.anneal(lookuptable=...)",
-                                  _roadmap.BATH)
+    qmc.pyx:405-438). lookuptable: optional (P-1,) system-bath couplings
+    (`schedules.bath_lookuptable`), numpy or a tensor, taken as float32 on
+    the problem's device: switches to the slice-sequential dissipative
+    sweep (DissipativeQuantumAnneal[Global]) on an even-L lattice at any
+    P >= 2. bath_update: "sequential", the reference's exact sweep;
+    "colored" is not ported yet. Returns the annealed configurations."""
+    if bath_update not in BATH_UPDATES:
+        raise ValueError(f"bath_update must be 'sequential' or 'colored', "
+                         f"got {bath_update!r}")
     _roadmap.require_lattice(problem)
+    if lookuptable is not None:
+        if bath_update == "colored":
+            raise _roadmap.not_ported(
+                "qmc.anneal(lookuptable=..., bath_update='colored')",
+                _roadmap.BATH)
+        if not split_ops.supports_split(problem):
+            raise _roadmap.not_ported(
+                "qmc.anneal(lookuptable=...) on an odd-L lattice",
+                _roadmap.BATH)
+        return split_kernels.anneal_lattice_qmc_bath_split(
+            problem, a_sched, b_sched, temp, lookuptable, confs,
+            draw_seed(generator), mcsteps=mcsteps,
+            global_moves=global_moves)
     engine = (split_kernels.anneal_lattice_qmc_split
               if split_ops.supports_split(problem, confs.shape[-2])
               else plane_kernels.anneal_lattice_qmc)

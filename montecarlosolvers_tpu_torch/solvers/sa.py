@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from montecarlosolvers_tpu_torch import _roadmap
+from montecarlosolvers_tpu_torch import _device, _roadmap
 from montecarlosolvers_tpu_torch.ops import plane_kernels
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels
@@ -29,11 +29,11 @@ def draw_seed(generator):
 def random_state(generator, nspins, batch=(), device=None):
     """Random +/-1 float32 configuration(s) of shape batch + (nspins,)
     (examples/santoro80.py:259), drawn on the generator's device and placed
-    on `device`."""
+    on `device` (None: the CUDA device)."""
     shape = tuple(batch) + (nspins,)
     bits = torch.randint(0, 2, shape, generator=generator,
                          device=generator.device)
-    return (bits.to(torch.float32) * 2.0 - 1.0).to(device)
+    return (bits.to(torch.float32) * 2.0 - 1.0).to(_device.resolve(device))
 
 
 def anneal(problem, sched, spins, generator, mcsteps=1):

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from montecarlosolvers_tpu_torch import _roadmap
+from montecarlosolvers_tpu_torch import _device, _roadmap
 from montecarlosolvers_tpu_torch.ops import plane_kernels
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels
@@ -52,10 +52,11 @@ def anneal_noisy(*args, **kwargs):
 
 def random_state(generator, nspins, batch=(), device=None):
     """Random float32 angles uniform in [0, pi] of shape batch + (nspins,),
-    drawn on the generator's device and placed on `device`."""
+    drawn on the generator's device and placed on `device` (None: the CUDA
+    device)."""
     shape = tuple(batch) + (nspins,)
     u = torch.rand(shape, generator=generator, device=generator.device)
-    return (u * svmc_ops.PI).to(device)
+    return (u * svmc_ops.PI).to(_device.resolve(device))
 
 
 z_projection = svmc_ops.z_projection

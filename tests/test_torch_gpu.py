@@ -1,5 +1,5 @@
-"""Kernels A, B, 3, 4, 6 and 7 against their plain PyTorch versions on a
-CUDA device.
+"""Kernels A, B, 3, 4, 5, 6 and 7 against their plain PyTorch versions on
+a CUDA device.
 
 Marked `gpu`: each test skips when torch sees no CUDA device. The repo's
 tests/conftest.py imports JAX, which the GPU machine need not have, so run
@@ -13,7 +13,10 @@ and periodic lattices, B != 1; for the full-plane kernels odd and even L,
 P = 2 to 7 (m = 2, 3 and 4 local phases), and the odd-torus wrap pairs
 that share a color; for the SVMC kernels 4 (even L) and 7 (any L) L = 5 to
 33, open and periodic, TF proposals on and off, held to max |d theta| <=
-2e-5 with no angle off by more than 1e-3 (no diverged decision).
+2e-5 with no angle off by more than 1e-3 (no diverged decision); for the
+bath kernel 5 L = 4 to 80, open and periodic, P = 2, 3, 5 and 40 (one and
+two bit words per line), B != 1, global moves on and off. With no device
+given, the port's problems, schedules and states land on the card.
 """
 
 import numpy as np
@@ -26,7 +29,9 @@ from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import plane as plane_ops
 from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
 from montecarlosolvers_tpu_torch.ops import split as split_ops
+from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+from montecarlosolvers_tpu_torch.solvers import qmc, sa
 from montecarlosolvers_tpu_torch.solvers.api import solve
 
 pytestmark = pytest.mark.gpu
@@ -233,3 +238,71 @@ def test_solve_svmc_runs_its_kernel(cuda, L, launches):
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == launches
     assert set(np.unique(ss.samples)) <= {-1.0, 1.0}
     assert np.all(np.isfinite(ss.energies))
+
+
+@pytest.mark.parametrize("L,periodic,P,bscale,gm", [
+    (4, False, 2, 1.0, True), (16, True, 3, 0.7, False),
+    (16, False, 5, 1.0, True), (32, True, 40, 0.7, True),
+    (32, False, 40, 1.0, False), (80, True, 5, 0.7, True),
+    (80, True, 40, 1.0, True),
+])
+def test_kernel_5_equals_plain(cuda, L, periodic, P, bscale, gm):
+    sl = split_ops.build_split(_lattice(L, periodic, cuda))
+    rng = np.random.default_rng(6)
+    c = torch.as_tensor(rng.choice([-1.0, 1.0], size=(3, P, L * L))
+                        .astype(np.float32), device=cuda)
+    a, b = (x.contiguous() for x in split_ops.pack_classical(sl, c))
+    gamma = schedules.transverse_field(2.5, 1e-8, 12, device=cuda)
+    teff = (1.0 / P) * P
+    jp = schedules.jperp(gamma, teff).contiguous()
+    bs = torch.full_like(gamma, bscale)
+    for alpha in (1e-2, 0.5):
+        bath = piqmc_ops.bath_matrix(
+            schedules.bath_lookuptable(P, alpha, device=cuda), P).contiguous()
+        out = sk.qmc_bath_split_anneal(sl, bs, jp, teff, bath, a, b, 5, gm)
+        ref = sk.qmc_bath_split_anneal_ref(sl, bs, jp, teff, bath, a, b, 5,
+                                           gm)
+        for x, y, x0 in zip(out, ref, (a, b)):
+            assert torch.equal(x, y)
+            assert not torch.equal(x, x0)
+
+
+def test_bath_wrapper_refusals(cuda):
+    sl = split_ops.build_split(_lattice(80, True, cuda))
+    A = schedules.linear(1.0, 1e-8, 4, device=cuda)
+    P = 300  # 2 * 10 words * 3200 sites + P * P floats: more than 227 KB
+    bath = torch.zeros((P, P), device=cuda)
+    h = torch.ones((1, P, sl.nh), device=cuda)
+    with pytest.raises(ValueError, match="shared"):
+        sk.qmc_bath_split_anneal(sl, A, A, 1.0, bath, h, h, 0, True)
+    h = torch.ones((1, 4, sl.nh), device=cuda)
+    with pytest.raises(ValueError, match="bath"):
+        sk.qmc_bath_split_anneal(sl, A, A, 1.0, bath, h, h, 0, True)
+
+
+@pytest.mark.parametrize("P", [3, 40])
+def test_bath_anneal_runs_its_kernel(cuda, P):
+    """One qmc.anneal(lookuptable=...) is one launch of kernel 5, after the
+    pre-anneal's one launch of kernel A."""
+    lat = _lattice(16, True, cuda)
+    gen = torch.Generator().manual_seed(P)
+    _build.reset_launches()
+    s = sa.random_state(gen, lat.nspins, batch=(4,), device=cuda)
+    s = sa.anneal(lat, schedules.pre_anneal_schedule(3.0, 1.0, device=cuda),
+                  s, gen, mcsteps=5)
+    a = schedules.transverse_field(3.0, 1e-8, 50, device=cuda)
+    out = qmc.anneal(lat, a, torch.ones_like(a), 1.0 / P,
+                     qmc.replicate(s, P), gen, global_moves=True,
+                     lookuptable=schedules.bath_lookuptable(P, 1e-2))
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+        {"sa_split": 1, "qmc_bath_split": 1}
+    assert out.shape == (4, P, lat.nspins) and out.device == s.device
+    assert set(torch.unique(out).tolist()) <= {-1.0, 1.0}
+
+
+def test_device_none_means_the_card(cuda):
+    lat = instances.gaussian_torus(4)
+    assert lat.device == torch.device("cuda", 0)
+    assert schedules.linear(1.0, 0.0, 3).device == lat.device
+    gen = torch.Generator().manual_seed(0)
+    assert sa.random_state(gen, 16, batch=(2,)).device == lat.device

@@ -57,7 +57,7 @@ def open_lattice(L, seed, fields=False):
 def port_of(lat):
     return convert.lattice_from_arrays(
         np.asarray(lat.j_right), np.asarray(lat.j_down),
-        np.asarray(lat.h_plane), col_wrap=lat.col_wrap)
+        np.asarray(lat.h_plane), col_wrap=lat.col_wrap, device="cpu")
 
 
 def spins(rng, *shape):
@@ -121,10 +121,11 @@ def test_mst_piqmc_p5_slice_equals_jax_composition():
                    slices=P, pt=pt, seed=seed)
 
     gen = torch.Generator().manual_seed(seed)
-    s0 = sa.random_state(gen, L * L, batch=(reads,)).numpy()
+    s0 = sa.random_state(gen, L * L, batch=(reads,), device="cpu").numpy()
     seed_pre, seed_qmc = sa.draw_seed(gen), sa.draw_seed(gen)
-    pre = np.repeat(tsched.pre_anneal_schedule(3.0, pt).numpy(), 100)
-    gamma = tsched.transverse_field(3.0, 1e-8, sweeps).numpy()
+    pre = np.repeat(
+        tsched.pre_anneal_schedule(3.0, pt, device="cpu").numpy(), 100)
+    gamma = tsched.transverse_field(3.0, 1e-8, sweeps, device="cpu").numpy()
     s1 = oracle_anneal(jlat, pre, jnp.asarray(s0), seed_pre)
     confs = pallas_qmc.anneal_lattice_qmc(
         jlat, gamma, np.ones_like(gamma), pt / P, jqmc.replicate(s1, P),
@@ -166,13 +167,13 @@ def test_extended_gibbs_p3(gm):
     jd = np.zeros((L, L))
     jd[0, 0], jd[0, 1] = 0.5, -0.7
     h = np.array([[0.2, 0.0], [-0.3, 0.1]])
-    lat = convert.lattice_from_arrays(jr, jd, h)
+    lat = convert.lattice_from_arrays(jr, jd, h, device="cpu")
     a = torch.full((steps,), gamma)
     jp = float(tsched.jperp(a[:1], temp * P)[0])
     p_exact = _extended_gibbs_exact(lat, P, temp, jp)
 
     gen = torch.Generator().manual_seed(4)
-    confs = sa.random_state(gen, P * L * L, batch=(chains,))
+    confs = sa.random_state(gen, P * L * L, batch=(chains,), device="cpu")
     out = qmc.anneal(lat, a, torch.ones_like(a), temp,
                      confs.reshape(chains, P, L * L), gen, global_moves=gm)
     idx = (out.reshape(chains, -1).numpy() > 0).astype(np.int64) \
@@ -208,7 +209,7 @@ def test_ferromagnets_reach_ground_state_any_l(L, periodic_):
     if not periodic_:
         jr[:, -1] = 0.0
         jd[-1, :] = 0.0
-    ferro = convert.lattice_from_arrays(jr, jd, np.zeros((L, L)))
+    ferro = convert.lattice_from_arrays(jr, jd, np.zeros((L, L)), device="cpu")
     e_gs = float(jr.sum() + jd.sum())
     assert api.solve(ferro, "sa", num_reads=4, sweeps=200,
                      seed=2).best_energy == e_gs
@@ -244,7 +245,7 @@ def test_odd_torus_wrap_pair_shares_a_phase():
     # read of solve("sa") ends far above the ground state, in the port as
     # in the JAX package's solve, masked engine and Pallas kernel.
     ferro = convert.lattice_from_arrays(-np.ones((7, 7)), -np.ones((7, 7)),
-                                        np.zeros((7, 7)))
+                                        np.zeros((7, 7)), device="cpu")
     ss = api.solve(ferro, "sa", num_reads=4, sweeps=200, seed=2)
     assert ss.energies.min() > -98.0
 
@@ -269,10 +270,11 @@ def test_convert_carries_odd_and_open_lattices(lat_fn):
 
 @pytest.mark.parametrize("L", [5, 7])
 def test_instances_odd_l_match_jax(L):
-    tor = tinst.gaussian_torus(L, seed=L)
+    tor = tinst.gaussian_torus(L, seed=L, device="cpu")
     ref = periodic(L, L)
     lat, (rows, cols, vals) = tinst.random_2d_lattice(L, rng=L,
-                                                      with_fields=True)
+                                                      with_fields=True,
+                                                      device="cpu")
     jlat, (jrows, jcols, jvals) = jinst.random_2d_lattice(
         L, rng=L, with_fields=True, lattice=True)
     for port, jax_lat in ((tor, ref), (lat, jlat)):
@@ -310,7 +312,7 @@ def test_spacetime_num_phases_matches_jax():
 def test_plane_wrappers_route_by_device():
     lat = port_of(periodic(5, 6))
     pl = plane_ops.build_plane(lat)
-    sched = tsched.linear(1.0, 0.0, 3)
+    sched = tsched.linear(1.0, 0.0, 3, device="cpu")
     s = torch.ones((2, 5, 5))
     c = torch.ones((2, 3, 5, 5))
     # a CPU tensor runs the plain version and launches nothing

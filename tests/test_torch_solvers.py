@@ -40,7 +40,7 @@ def jax_torus(L, seed):
 def port_of(lat):
     return convert.lattice_from_arrays(
         np.asarray(lat.j_right), np.asarray(lat.j_down),
-        np.asarray(lat.h_plane), col_wrap=lat.col_wrap)
+        np.asarray(lat.h_plane), col_wrap=lat.col_wrap, device="cpu")
 
 
 @pytest.mark.parametrize("seed", [0, 5])
@@ -57,10 +57,11 @@ def test_mst_piqmc_slice_equals_jax_composition(seed):
                    slices=P, pt=pt, seed=seed)
 
     gen = torch.Generator().manual_seed(seed)
-    s0 = sa.random_state(gen, L * L, batch=(reads,)).numpy()
+    s0 = sa.random_state(gen, L * L, batch=(reads,), device="cpu").numpy()
     seed_pre, seed_qmc = sa.draw_seed(gen), sa.draw_seed(gen)
-    pre = np.repeat(tsched.pre_anneal_schedule(3.0, pt).numpy(), 100)
-    gamma = tsched.transverse_field(3.0, 1e-8, sweeps).numpy()
+    pre = np.repeat(
+        tsched.pre_anneal_schedule(3.0, pt, device="cpu").numpy(), 100)
+    gamma = tsched.transverse_field(3.0, 1e-8, sweeps, device="cpu").numpy()
     s1 = oracle_anneal(jlat, pre, jnp.asarray(s0), seed_pre)
     confs = oracle_qmc(jlat, gamma, np.ones_like(gamma), pt / P,
                        jqmc.replicate(s1, P), seed_qmc, global_moves=True)
@@ -91,7 +92,7 @@ def test_sa_samples_exact_boltzmann_mean():
     sa.anneal against the exact mean over all 2^16 states, within 4
     standard errors of the per-chain (batch) means."""
     L, temp, chains = 4, 1.5, 256
-    lat = tinst.gaussian_torus(L, seed=3)
+    lat = tinst.gaussian_torus(L, seed=3, device="cpu")
     jr, jd = lat.j_right.double().numpy(), lat.j_down.double().numpy()
     states = np.array(list(itertools.product((-1.0, 1.0), repeat=L * L)))
     sp = states.reshape(-1, L, L)
@@ -101,7 +102,7 @@ def test_sa_samples_exact_boltzmann_mean():
     exact = float((w * e_all).sum() / w.sum())
 
     gen = torch.Generator().manual_seed(0)
-    s = sa.random_state(gen, L * L, batch=(chains,))
+    s = sa.random_state(gen, L * L, batch=(chains,), device="cpu")
     s = sa.anneal(lat, torch.full((100,), temp), s, gen)  # burn-in
     samples = []
     for _ in range(150):
@@ -116,7 +117,7 @@ def test_sa_samples_exact_boltzmann_mean():
 def test_ferromagnet_ground_states_through_solve():
     L = 16
     ferro = convert.lattice_from_arrays(-np.ones((L, L)), -np.ones((L, L)),
-                                        np.zeros((L, L)))
+                                        np.zeros((L, L)), device="cpu")
     assert api.solve(ferro, "sa", num_reads=4, sweeps=200,
                      seed=2).best_energy == -2.0 * L * L
     ss = api.solve(ferro, "piqmc", num_reads=2, sweeps=100, slices=4,
@@ -125,7 +126,7 @@ def test_ferromagnet_ground_states_through_solve():
 
 
 def test_determinism_and_valid_spins():
-    lat = tinst.gaussian_torus(10, seed=1)
+    lat = tinst.gaussian_torus(10, seed=1, device="cpu")
     x = api.solve(lat, "sa", num_reads=8, sweeps=50, seed=3)
     y = api.solve(lat, "sa", num_reads=8, sweeps=50, seed=3)
     z = api.solve(lat, "sa", num_reads=8, sweeps=50, seed=4)
@@ -135,9 +136,9 @@ def test_determinism_and_valid_spins():
     assert not np.array_equal(x.samples, z.samples)
     assert np.all(np.diff(x.energies) >= 0)
     g1, g2 = torch.Generator().manual_seed(9), torch.Generator().manual_seed(9)
-    c = qmc.replicate(sa.random_state(g1, 100, batch=(2,)), 4)
-    sa.random_state(g2, 100, batch=(2,))
-    a = tsched.transverse_field(3.0, 1e-8, 20)
+    c = qmc.replicate(sa.random_state(g1, 100, batch=(2,), device="cpu"), 4)
+    sa.random_state(g2, 100, batch=(2,), device="cpu")
+    a = tsched.transverse_field(3.0, 1e-8, 20, device="cpu")
     out1 = qmc.anneal(lat, a, torch.ones_like(a), 0.25, c, g1,
                       global_moves=True)
     out2 = qmc.anneal(lat, a, torch.ones_like(a), 0.25, c, g2,
@@ -150,12 +151,19 @@ def test_determinism_and_valid_spins():
 
 def test_refusals():
     gen = torch.Generator().manual_seed(0)
-    lat = tinst.gaussian_torus(6, seed=0)
-    sched = tsched.linear(1.0, 0.0, 3)
-    c = qmc.replicate(sa.random_state(gen, 36, batch=(2,)), 3)
+    lat = tinst.gaussian_torus(6, seed=0, device="cpu")
+    sched = tsched.linear(1.0, 0.0, 3, device="cpu")
+    c = qmc.replicate(sa.random_state(gen, 36, batch=(2,), device="cpu"), 3)
+    # the bath runs on even L (tests/test_torch_bath.py); what is left of
+    # dissipative PIQMC is refused with its ROADMAP.md item
+    odd = tinst.gaussian_torus(5, seed=0, device="cpu")
+    c5 = qmc.replicate(sa.random_state(gen, 25, batch=(2,), device="cpu"), 3)
     with pytest.raises(NotImplementedError, match="dissipative"):
-        qmc.anneal(lat, sched, torch.ones_like(sched), 0.3, c, gen,
+        qmc.anneal(odd, sched, torch.ones_like(sched), 0.3, c5, gen,
                    lookuptable=np.ones(2))
+    with pytest.raises(NotImplementedError, match="colored"):
+        qmc.anneal(lat, sched, torch.ones_like(sched), 0.3, c, gen,
+                   lookuptable=np.ones(2), bath_update="colored")
     # odd P and odd L run now (tests/test_torch_plane.py); a problem that
     # is not a LatticeProblem, such as the JAX package's generic
     # IsingProblem, is still refused by every entry point
@@ -163,11 +171,12 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="other than a Lattice"):
         qmc.anneal(generic, sched, torch.ones_like(sched), 0.3, c, gen)
     with pytest.raises(NotImplementedError, match="other than a Lattice"):
-        sa.anneal(generic, sched, sa.random_state(gen, 16), gen)
+        sa.anneal(generic, sched, sa.random_state(gen, 16, device="cpu"),
+                  gen)
     with pytest.raises(NotImplementedError, match="other than a Lattice"):
         api.solve(generic, "piqmc", num_reads=2, sweeps=3, slices=5)
     with pytest.raises(NotImplementedError, match="generic IsingProblem"):
-        tinst.random_2d_lattice(4, rng=0, lattice=False)
+        tinst.random_2d_lattice(4, rng=0, lattice=False, device="cpu")
     for fn in (sa.anneal_noisy, sa.anneal_wolff, sa.anneal_sw,
                qmc.anneal_wolff, qmc.anneal_sw, qmc.anneal_sw_bath):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -186,7 +195,7 @@ def test_refusals():
 
 @pytest.mark.parametrize("method", sorted(api._NOT_PORTED))
 def test_other_solve_methods_raise(method):
-    lat = tinst.gaussian_torus(4, seed=0)
+    lat = tinst.gaussian_torus(4, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         api.solve(lat, method)
 

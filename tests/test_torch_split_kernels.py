@@ -41,7 +41,7 @@ def open_lattice(L, seed):
 def port_of(lat):
     return convert.lattice_from_arrays(
         np.asarray(lat.j_right), np.asarray(lat.j_down),
-        np.asarray(lat.h_plane), col_wrap=lat.col_wrap)
+        np.asarray(lat.h_plane), col_wrap=lat.col_wrap, device="cpu")
 
 
 def sa_divergence(lat, sched, s0, seed):
@@ -142,7 +142,7 @@ def test_wrappers_route_by_device():
     lat = port_of(periodic(16, 5))
     sl = tsplit.build_split(lat)
     a = torch.ones((2, sl.nh))
-    sched = tsched.linear(1.0, 0.0, 3)
+    sched = tsched.linear(1.0, 0.0, 3, device="cpu")
     # a CPU tensor runs the plain version and launches nothing
     _build.reset_launches()
     out = sk.sa_split_anneal(sl, sched, a, a, 0)
@@ -175,15 +175,16 @@ def test_ferromagnets_reach_ground_state():
     # J = -1 everywhere (H = sum J s s): E_gs = -2 L^2 on the torus
     L, P = 16, 4
     ferro = convert.lattice_from_arrays(-np.ones((L, L)), -np.ones((L, L)),
-                                        np.zeros((L, L)))
+                                        np.zeros((L, L)), device="cpu")
     rng = np.random.default_rng(2)
     s0 = torch.from_numpy(rng.choice([-1.0, 1.0], size=(4, L * L))
                           .astype(np.float32))
-    out = sk.anneal_lattice_split(ferro, tsched.linear(3.0, 0.0, 200), s0, 7)
+    out = sk.anneal_lattice_split(
+        ferro, tsched.linear(3.0, 0.0, 200, device="cpu"), s0, 7)
     assert float(ferro.energy(out).min()) == -2.0 * L * L
     confs = torch.from_numpy(rng.choice([-1.0, 1.0], size=(2, P, L * L))
                              .astype(np.float32))
-    a = tsched.transverse_field(3.0, 1e-8, 150)
+    a = tsched.transverse_field(3.0, 1e-8, 150, device="cpu")
     out = sk.anneal_lattice_qmc_split(ferro, a, torch.ones_like(a), 1.0 / P,
                                       confs, 5, global_moves=True)
     assert float(ferro.energy(out).min()) == -2.0 * L * L

@@ -57,7 +57,7 @@ def open_lattice(L, seed, fields=False):
 def port_of(lat):
     return convert.lattice_from_arrays(
         np.asarray(lat.j_right), np.asarray(lat.j_down),
-        np.asarray(lat.h_plane), col_wrap=lat.col_wrap)
+        np.asarray(lat.h_plane), col_wrap=lat.col_wrap, device="cpu")
 
 
 def angles(seed, *shape):
@@ -139,12 +139,14 @@ def test_svmc_ops_match_jax():
 
 def test_random_state():
     gen = torch.Generator().manual_seed(0)
-    th = svmc.random_state(gen, 100, batch=(3,))
+    th = svmc.random_state(gen, 100, batch=(3,), device="cpu")
     assert th.shape == (3, 100) and th.dtype == torch.float32
     assert th.min() >= 0.0 and th.max() <= svmc_ops.PI
     g2 = torch.Generator().manual_seed(0)
-    assert torch.equal(th, svmc.random_state(g2, 100, batch=(3,)))
-    assert not torch.equal(th, svmc.random_state(g2, 100, batch=(3,)))
+    assert torch.equal(th, svmc.random_state(g2, 100, batch=(3,),
+                                             device="cpu"))
+    assert not torch.equal(th, svmc.random_state(g2, 100, batch=(3,),
+                                                 device="cpu"))
 
 
 # ------------------------------------------------- kernel 4's plain version
@@ -245,9 +247,9 @@ def test_svmc_slice_equals_jax_composition(L):
                    seed=seed)
 
     gen = torch.Generator().manual_seed(seed)
-    th0 = svmc.random_state(gen, L * L, batch=(reads,)).numpy()
+    th0 = svmc.random_state(gen, L * L, batch=(reads,), device="cpu").numpy()
     hseed = sa.draw_seed(gen)
-    a = tsched.linear(3.0, 1e-8, sweeps).numpy()
+    a = tsched.linear(3.0, 1e-8, sweeps, device="cpu").numpy()
     if L % 2 == 0:
         th = pallas_split.anneal_lattice_svmc_split(
             jlat, a, np.ones_like(a), 0.05, th0, hseed, tf=True,
@@ -295,7 +297,7 @@ def test_svmc_samples_rotor_gibbs(L):
     J, h0, h1, A, B, temp = 0.8, 0.3, -0.4, 0.6, 1.0, 0.7
     jr, jd, hp = (np.zeros((L, L)) for _ in range(3))
     jr[0, 0], hp[0, 0], hp[0, 1] = J, h0, h1
-    lat = convert.lattice_from_arrays(jr, jd, hp)
+    lat = convert.lattice_from_arrays(jr, jd, hp, device="cpu")
     assert split_ops.supports_split(lat) == (L % 2 == 0)
 
     def energy(t0, t1):
@@ -311,7 +313,7 @@ def test_svmc_samples_rotor_gibbs(L):
 
     chains, burn, samples, every = 1024, 40, 80, 2
     gen = torch.Generator().manual_seed(L)
-    th = svmc.random_state(gen, L * L, batch=(chains,))
+    th = svmc.random_state(gen, L * L, batch=(chains,), device="cpu")
     a_c, b_c = torch.full((burn,), A), torch.full((burn,), B)
     th = svmc.anneal(lat, a_c, b_c, temp, th, gen)
     es, cs = [], []
@@ -334,7 +336,7 @@ def test_svmc_wrappers_route_by_device():
     lat = port_of(periodic(4, 6))
     sl = split_ops.build_split(lat)
     pl = plane_ops.build_plane(port_of(periodic(5, 6)))
-    a = tsched.linear(1.0, 0.1, 3)
+    a = tsched.linear(1.0, 0.1, 3, device="cpu")
     b = torch.ones(3)
     h = torch.ones((2, 8))
     th = torch.ones((2, 5, 5))
@@ -356,9 +358,9 @@ def test_svmc_wrappers_route_by_device():
 
 def test_svmc_refusals():
     gen = torch.Generator().manual_seed(0)
-    lat = tinst.gaussian_torus(6, seed=0)
-    a = tsched.linear(1.0, 1e-8, 3)
-    th = svmc.random_state(gen, 36, batch=(2,))
+    lat = tinst.gaussian_torus(6, seed=0, device="cpu")
+    a = tsched.linear(1.0, 1e-8, 3, device="cpu")
+    th = svmc.random_state(gen, 36, batch=(2,), device="cpu")
     with pytest.raises(NotImplementedError, match="item 4 .generic graphs"):
         svmc.anneal_noisy(lat, a, torch.ones_like(a), 0.1, None, None, th,
                           gen)
@@ -373,12 +375,13 @@ def test_svmc_refusals():
         svmc.anneal(lat, a, torch.ones_like(a), 0.1,
                     torch.ones((2, 36), device="meta"), gen)
     with pytest.raises(ValueError, match="problem on cpu"):
-        svmc.anneal(tinst.gaussian_torus(5, seed=0), a, torch.ones_like(a),
-                    0.1, torch.ones((2, 25), device="meta"), gen)
+        svmc.anneal(tinst.gaussian_torus(5, seed=0, device="cpu"), a,
+                    torch.ones_like(a), 0.1,
+                    torch.ones((2, 25), device="meta"), gen)
 
 
 def test_solve_svmc_options_and_readout():
-    lat = tinst.gaussian_torus(6, seed=2)
+    lat = tinst.gaussian_torus(6, seed=2, device="cpu")
     x = api.solve(lat, "svmc", num_reads=8, sweeps=40, seed=5)
     y = api.solve(lat, "svmc", num_reads=8, sweeps=40, seed=5)
     z = api.solve(lat, "svmc", num_reads=8, sweeps=40, seed=5,
