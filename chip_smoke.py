@@ -9,9 +9,15 @@ Phases, each printed as one JSON line:
   device              nvidia-smi's name and power limit of the card
   build               nvcc builds kernels A, B, 3, 4, 5, 6 and 7 from csrc/,
                       all at once (seconds)
+  clusters            the (C, R, threads) kernel A and the (R, threads)
+                      kernel 5 take at the shapes below, and how many of
+                      those clusters the card holds at once
+                      (cudaOccupancyMaxActiveClusters)
   sa_kernel_vs_plain  kernel A against its plain PyTorch version on the card,
                       80x80 periodic Gaussian lattice at the main path's
-                      1280 chains, 200 steps of T: 3 -> 0.1
+                      1280 chains, 200 steps of T: 3 -> 0.1; then 32 chains
+                      (the PIQMC pre-anneal), 33 (a ragged chain word) and
+                      the 256x256 torus at 32 chains, 100 steps
   qmc_kernel_vs_plain kernel B against its plain version at the main path's
                       P = 40 and 32 chains, 40 steps, B in {1, 0.7} x global
                       moves on / off
@@ -19,7 +25,10 @@ Phases, each printed as one JSON line:
                       torus at the main path's P = 40 and 32 chains, 20
                       steps of Gamma: 3 -> 1e-8, alpha in {1e-2, 0.5} x B in
                       {1, 0.7} x global moves on / off; P = 5 and P = 2 on
-                      the torus and P = 4 on an open 80x80 lattice
+                      the torus and P = 4 on an open 80x80 lattice; P = 64
+                      on the torus, and P = 40 on the 176x176 and 256x256
+                      tori (4 chains, 8 steps), which one block per chain
+                      could not hold
   plane_sa_kernel_vs_plain   kernel 6 against its plain version on an 81x81
                       periodic Gaussian torus and an 81x81 open lattice,
                       1280 chains, 200 steps
@@ -57,7 +66,9 @@ Phases, each printed as one JSON line:
                       plain version at the main path's shapes, beside the
                       least time the card could take for a sweep (bound:
                       the work's float32 or special-function operations,
-                      or its bytes, over the card's peak rates)
+                      or its bytes, over the card's peak rates); also
+                      kernel A at 32 chains (the pre-anneal) and kernel 5
+                      at P = 40, 32 chains on the 256x256 torus
 then a line {"kernels": [...]}, and last {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero without the last line;
 it also fails when torch sees no CUDA device or the package is missing.
@@ -73,6 +84,9 @@ import numpy as np
 import torch
 
 L, ODD_L = 80, 81
+# the largest L of the Pallas split kernels, which kernels A and 5 take by
+# spreading a chain over a cluster of CTAs
+BIG_L = 256
 SA_READS, SA_SWEEPS = 1280, 2000
 QMC_READS, QMC_SLICES, QMC_SWEEPS = 32, 40, 1000
 ODD_SLICES = 5
@@ -309,7 +323,30 @@ def main():
     emit({"phase": "build", "nvcc_seconds": seconds,
           "total_seconds": time.perf_counter() - t0})
 
+    # ---- cluster shapes of kernels A and 5
+    for chains, lat_l in ((SA_READS, L), (QMC_READS, L), (QMC_READS + 1, L),
+                          (QMC_READS, BIG_L)):
+        c, r, threads = sk.sa_geometry(chains, lat_l,
+                                       sk.card_resident("split_sa", lat_l))
+        emit({"phase": "clusters", "kernel": "split_sa", "chains": chains,
+              "L": lat_l, "C": c, "R": r, "threads": threads,
+              "ctas": -(-chains // c) * r,
+              "resident_clusters": sk.resident_clusters("split_sa", r,
+                                                        threads, lat_l)})
+    for chains, lat_l, slices in ((BATH_READS, L, BATH_SLICES),
+                                  (BATH_READS, BIG_L, BATH_SLICES),
+                                  (4, BIG_L, BATH_SLICES)):
+        r, threads = sk.qmc_bath_geometry(
+            chains, lat_l, slices,
+            sk.card_resident("split_qmc_bath", lat_l, slices))
+        emit({"phase": "clusters", "kernel": "split_qmc_bath",
+              "chains": chains, "L": lat_l, "slices": slices, "R": r,
+              "threads": threads, "ctas": chains * r,
+              "resident_clusters": sk.resident_clusters(
+                  "split_qmc_bath", r, threads, lat_l, slices)})
+
     torus = instances.gaussian_torus(L, seed=0, device=dev)
+    big_torus = instances.gaussian_torus(BIG_L, seed=0, device=dev)
     odd_torus = instances.gaussian_torus(ODD_L, seed=0, device=dev)
     odd_open = instances.random_2d_lattice(ODD_L, rng=0, device=dev)[0]
     sl = split_ops.build_split(torus)
@@ -337,7 +374,30 @@ def main():
           "nslots": sl.nslots, "mismatched_spins": n_bad, "max_abs_err": err,
           "flipped_fraction": float((ka[0] != a).float().mean())})
     check(n_bad == 0, "kernel A equals its plain version")
-    results["split_sa"]["max_abs_err"] = err
+    err_a = err
+    sched100 = schedules.linear(3.0, 0.1, 100, device=dev)
+    for lname, lat, chains in (("gaussian_torus(80, 0)", torus, QMC_READS),
+                               ("gaussian_torus(80, 0)", torus,
+                                QMC_READS + 1),
+                               ("gaussian_torus(256, 0)", big_torus,
+                                QMC_READS)):
+        sla = split_ops.build_split(lat)
+        a, b = (x.contiguous() for x in split_ops.pack_classical(
+            sla, random_spins(chains, lat.L * lat.L)))
+        ka = sk.sa_split_anneal(sla, sched100, a, b, seed=2468)
+        ra = sk.sa_split_anneal_ref(sla, sched100, a, b, seed=2468)
+        torch.cuda.synchronize()
+        n_bad, err = mismatches(ka, ra)
+        err_a = max(err_a, err)
+        emit({"phase": "sa_kernel_vs_plain", "lattice": lname,
+              "chains": chains, "steps": 100,
+              "geometry": sk.sa_geometry(
+                  chains, lat.L, sk.card_resident("split_sa", lat.L)),
+              "mismatched_spins": n_bad, "max_abs_err": err,
+              "flipped_fraction": float((ka[0] != a).float().mean())})
+        check(n_bad == 0, f"kernel A equals its plain version on {lname}, "
+                          f"{chains} chains")
+    results["split_sa"]["max_abs_err"] = err_a
 
     # ---- kernel B against its plain version
     quarters = split_ops.pack_qmc(
@@ -374,13 +434,22 @@ def main():
                   ("gaussian_torus(80, 0)", torus, 2),
                   ("random_2d_lattice(80, 0), open", open80, 4))
               for bscale, gm in ((0.7, True), (1.0, False))]
-    for lname, lat, slices, bscale, gm in cases:
+    cases = [(*c, BATH_READS, 20) for c in cases]
+    # shapes one block per chain could not hold, and P = 64, the largest
+    # compile-time P
+    cases += [("gaussian_torus(80, 0)", torus, 64, 0.7, True, 4, 8),
+              ("gaussian_torus(176, 0)",
+               instances.gaussian_torus(176, seed=0, device=dev), 40, 1.0,
+               True, 4, 8),
+              ("gaussian_torus(256, 0)", big_torus, 40, 0.7, True, 4, 8)]
+    for lname, lat, slices, bscale, gm, chains, steps in cases:
         sl5 = split_ops.build_split(lat)
         a5, b5 = (x.contiguous() for x in split_ops.pack_classical(
-            sl5, random_spins(BATH_READS, slices, L * L)))
+            sl5, random_spins(chains, slices, lat.L * lat.L)))
         teff5 = (1.0 / slices) * slices
-        jp5 = schedules.jperp(gamma5, teff5).contiguous()
-        bs = torch.full_like(gamma5, bscale)
+        g5 = gamma5[:steps]
+        jp5 = schedules.jperp(g5, teff5).contiguous()
+        bs = torch.full_like(g5, bscale)
         for alpha in (BATH_ALPHA, 0.5):
             bath = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
                 slices, alpha, device=dev), slices).contiguous()
@@ -392,7 +461,10 @@ def main():
             n_bad, err = mismatches(k5, r5)
             err_5 = max(err_5, err)
             emit({"phase": "qmc_bath_kernel_vs_plain", "lattice": lname,
-                  "chains": BATH_READS, "slices": slices, "steps": 20,
+                  "chains": chains, "slices": slices, "steps": steps,
+                  "geometry": sk.qmc_bath_geometry(
+                      chains, lat.L, slices,
+                      sk.card_resident("split_qmc_bath", lat.L, slices)),
                   "alpha": alpha, "B": bscale, "global_moves": gm,
                   "mismatched_spins": n_bad, "max_abs_err": err,
                   "flipped_fraction": float((k5[0] != a5).float().mean())})
@@ -579,9 +651,9 @@ def main():
     emit({"phase": "main_path", "launches": main_launches})
 
     # ---- timing: slope ms per sweep, kernel and plain version
-    def split_sa_runner(fn):
+    def split_sa_runner(fn, chains=SA_READS):
         ha, hb = (x.contiguous() for x in split_ops.pack_classical(
-            sl, random_spins(SA_READS, L * L)))
+            sl, random_spins(chains, L * L)))
         return lambda tau: fn(sl, schedules.linear(3.0, 0.0, tau, device=dev),
                               ha, hb, 7)
 
@@ -595,9 +667,9 @@ def main():
                       .contiguous(), teff, qs, 7, True)
         return run
 
-    def split_bath_runner(fn):
+    def split_bath_runner(fn, sl=sl):
         ha, hb = (x.contiguous() for x in split_ops.pack_classical(
-            sl, random_spins(BATH_READS, BATH_SLICES, L * L)))
+            sl, random_spins(BATH_READS, BATH_SLICES, sl.L * sl.L)))
         bath = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
             BATH_SLICES, BATH_ALPHA, device=dev), BATH_SLICES).contiguous()
 
@@ -640,7 +712,9 @@ def main():
         return run
 
     power = smi.split(",")[-1].strip() if "," in smi else smi
-    # kernel, route, runner, taus, trials, chains, slices, sites
+    # kernel, route, runner, taus, trials, chains, slices, sites; the rows
+    # after the plain ones are beside the main path's shapes and stay out
+    # of the kernels line
     timings = (
         ("split_sa", "cuda", split_sa_runner(sk.sa_split_anneal),
          (500, 2000), 3, SA_READS, 1, L * L),
@@ -672,7 +746,16 @@ def main():
          split_bath_runner(sk.qmc_bath_split_anneal_ref), (2, 6), 2,
          BATH_READS, BATH_SLICES, L * L),
     )
-    for kname, route, run, taus, trials, chains, slices, sites in timings:
+    extra = (
+        ("split_sa", "cuda", split_sa_runner(sk.sa_split_anneal, QMC_READS),
+         (500, 2000), 3, QMC_READS, 1, L * L),
+        ("split_qmc_bath", "cuda",
+         split_bath_runner(sk.qmc_bath_split_anneal,
+                           split_ops.build_split(big_torus)),
+         (20, 80), 3, BATH_READS, BATH_SLICES, BIG_L * BIG_L),
+    )
+    for i, (kname, route, run, taus, trials, chains, slices, sites) in \
+            enumerate(timings + extra):
         ms, best = slope_ms(run, taus, trials)
         rate = sites * slices * chains / (ms * 1e-3) if ms > 0 \
             else float("nan")
@@ -695,8 +778,9 @@ def main():
                                                    sites, max(taus)),
               "gpu": name, "power_limit": power})
         check(ms > 0, f"{kname} {route} slope is positive")
-        results[kname]["ms" if route == "cuda" else "plain_ms"] = ms
-        results[kname].update(bound_ms=bound, bound_by=bound_by)
+        if i < len(timings):
+            results[kname]["ms" if route == "cuda" else "plain_ms"] = ms
+            results[kname].update(bound_ms=bound, bound_by=bound_by)
 
     # No single PyTorch call computes a Metropolis sweep, so no kernel has a
     # library yardstick (library_ms null).

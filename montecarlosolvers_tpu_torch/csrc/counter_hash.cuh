@@ -76,6 +76,17 @@ __device__ __forceinline__ bool metropolis_accept(float de, float temp,
   return (de <= 0.0f * temp) || (__fmul_rn(-temp, log1pf(-u)) > de);
 }
 
+// metropolis_accept with u = the uniform01 of the hash input
+// x = uid * kGolden + ctr, both sides evaluated with no branch: the hash
+// and log1pf run whatever dE is (the decision is the same), so the lanes of
+// a warp stay converged; kernel A's chain loop runs faster this way than
+// when it hashes only where dE > 0 (PERF.md).
+__device__ __forceinline__ bool metropolis_accept_hashed(float de, float temp,
+                                                         uint32_t x) {
+  const float u = static_cast<float>(mix32(x) >> 8) * (1.0f / 16777216.0f);
+  return (de <= 0.0f * temp) | (__fmul_rn(-temp, log1pf(-u)) > de);
+}
+
 // j + d mod n for |d| <= n
 __device__ __forceinline__ int wrap_index(int j, int n) {
   return j >= n ? j - n : (j < 0 ? j + n : j);

@@ -18,70 +18,118 @@
 // flipped A) flip with dE = -2B sum_p s_p (f_p + h), at counter index
 // 2P + half (:782-803); J_perp and the bath cancel for a whole-line flip.
 //
-// What bounds it on an H100. One site update reads a 5-7 slot stencil at
-// slice k, the site's own line at up, dn and all P slices for the bath
-// (P - 1 dependent adds in index order, which no reordering may shorten:
-// the plain version's rounding fixes the order), hashes a uniform and
-// evaluates log1pf. At the main path's 80x80, P = 40, 32 chains a sweep is
-// 8.19 M site updates of about 135 float operations (79 of them the bath
-// sum): 1.1 GFLOP, 16.5 us at the 67 TFLOP/s float32 peak. The state is
-// 32 x 40 x 6400 x 4 B = 32.8 MB, read and written once per anneal: the
-// bound is the operations, not the bytes.
+// What bounds it on an H100. The work of a sweep at the main path's 80x80,
+// P = 40, 32 chains is 8.19 M site updates; the bath sum is P - 1 dependent
+// adds in index order, which no reordering may shorten (the plain version's
+// rounding fixes the order), and a line's P updates are serial (each reads
+// the line the one before left). As compiled (sm_90a SASS at P = 40,
+// tools/sass_counts.py), the slice loop is 250 instructions an update: the
+// bath about 130 (one LDS.128 of M[k, p..p+3] per four terms; per term an
+// IMAD.SHL of the line word, a LOP3 sign flip of M and an FADD), the
+// stencil from the neighbour words 21, the counter hash 19 integer
+// operations, log1pf about 30, the spin, Trotter and dE terms, the line's
+// loads and store and the loop the rest. At one instruction per scheduler
+// and cycle on 132 SMs that is 69 us per sweep; measured 0.142 ms (H100
+// 80GB HBM3, 700 W, PERF.md), about twice that: about 7 warps a scheduler,
+// each on its site's serial chain of slices, do not keep the issue full
+// (inferred; no profiler of the card's stalls runs there). The float32
+// bound is 7.1 us.
 //
-// What the design does about that. One block per chain runs the whole
-// schedule in one launch, as kernel A does, so the 2P + 2 dependent phases
-// of a sweep are separated by __syncthreads() and not by launches (one
-// launch per phase, as kernel B has, would be 82 launches per sweep at
-// P = 40). One chain's float state is P*Nh*2*4 = 1 MB at P = 40, more than
-// a block's 227 KB of shared memory, so the state lives in shared memory as
-// bits: bit p of word p/32 of site j is the sign of s_p (1 for -1), in
-// planes [word][site] so neighbouring threads read neighbouring words, P*N
-// bits = 32 KB per chain at P = 40, beside the (P, P) bath matrix. Each
-// thread owns fixed sites of both halves for the whole anneal, so the
-// Trotter and bath terms of a site read only its own line, which only its
-// owner writes, and only the spatial stencil crosses threads; a phase
-// writes only its own half. At 32 chains this uses 32 of the 132 SMs:
-// spreading one chain over several SMs (a thread-block cluster sharing the
-// bit planes) is later work. The bath field is recomputed in index order at
-// every update, never carried as a running sum updated on flips, which
-// would round differently.
+// What the design does about that.
+// - The state as bits. Bit p of word p/32 of site j is the sign of s_p (1
+//   for -1), in planes [word][site], so a chain is 2*ceil(P/32)*Nh words.
+//   Each thread owns fixed sites of both halves for the whole anneal, so
+//   the Trotter and bath terms of a site read only its own line, which only
+//   its owner writes, and only the spatial stencil crosses threads.
+// - Two phases a step. Half A of slice k reads B at slice k, which the
+//   plain order updates only after A(k); B(k) reads A at slice k, which no
+//   later update of the step changes. So a thread runs all P slices of its
+//   A sites, then, after one barrier, all P slices of its B sites, and every
+//   update reads what the plain version's order gives it: 2 barriers a step
+//   (4 with global moves) instead of 2P + 2. The other half does not change
+//   within a phase, so a site's weights are read once a phase and its
+//   neighbour words once per 32 slices.
+// - One chain over a cluster. The R CTAs of a cluster each hold a band of
+//   rows of both halves' bit planes, beside the (P, P) bath matrix
+//   (csrc/cluster.cuh); a stencil read across a band edge, and the torus
+//   wrap, go to the owning CTA through distributed shared memory, and
+//   cluster.sync() separates the phases. The wrapper
+//   (ops/split_kernels.py::qmc_bath_geometry) takes the largest R whose
+//   band fits a CTA's 227 KB and whose clusters the card holds at once
+//   (cudaOccupancyMaxActiveClusters): at the main path's 32 chains R = 16,
+//   512 CTAs of 224 threads, up to 5 an SM, where one block per chain used
+//   32 SMs; every even L up to 256 runs at every P <= 128.
+// - P at compile time. The entry point switches to an instantiation with P
+//   a constant for every P from 2 to 64 (a runtime-P instantiation of the
+//   same kernel takes larger P): the bath loop unrolls, the line words sit
+//   in registers and M is read four terms a load, instead of a loop of
+//   about 9 instructions a term.
+// - The bath field is recomputed in index order at every update, never
+//   carried as a running sum updated on flips, which would round
+//   differently; M[k, p] * s_p is exact, so the sign flip is bitwise the
+//   product the plain version rounds.
 //
 // Trouble spots, each handled where it bites below: the FMA contraction of
 // dE (B*s*f rounds when B != 1, 2*T_eff*s*bath always rounds), the phase
 // order (B reads the new A; line B reads A after line A's flips), the ring
 // at P = 2 (up == dn), and the uid, which is the same for every slice of a
 // half: only the counter index 2k + half differs.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <array>
+#include <utility>
+
+#include "cluster.cuh"
 #include "counter_hash.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
+namespace cg = cooperative_groups;
+
+// At most 256 threads a CTA and registers for 5 such CTAs an SM (<= 51 a
+// thread): then 5 CTAs of a 16-CTA cluster share each SM of a GPC, and the
+// card holds 35 such clusters at once, more than the main path's 32
+// chains (ops/split_kernels.py::MAX_THREADS is the same number).
+constexpr int kMaxThreads = 256;
+constexpr int kMinBlocks = 5;
+constexpr int kMaxStaticP = 64;
 
 // s_p of a line word, bit p & 31: bit 1 is s = -1
 __device__ __forceinline__ float spin_of(uint32_t word, int p) {
   return ((word >> (p & 31)) & 1u) ? -1.0f : 1.0f;
 }
 
-// s at slice p of site j in the bit planes `bits` ([word][site], nh sites)
-__device__ __forceinline__ float spin_at(const uint32_t* bits, int nh, int p,
-                                         int j) {
-  return spin_of(bits[(p >> 5) * nh + j], p);
+// sum_p M[k, p] s_p in index order from p = 0, the line's word w at
+// line[w * S]; kP > 0 is P at compile time, kP = 0 reads P at run time
+template <int kP>
+__device__ __forceinline__ float bath_field(const float* mk,
+                                            const uint32_t* line, int S,
+                                            int P) {
+  if constexpr (kP > 0) {
+    constexpr int kWords = (kP + 31) / 32;
+    uint32_t lw[kWords];
+#pragma unroll
+    for (int wd = 0; wd < kWords; ++wd) lw[wd] = line[wd * S];
+    float bf = mcs::signed_by(mk[0], lw[0], 0);
+#pragma unroll
+    for (int p = 1; p < kP; ++p)
+      bf = __fadd_rn(bf, mcs::signed_by(mk[p], lw[p >> 5], p & 31));
+    return bf;
+  } else {
+    uint32_t word = line[0];
+    float bf = mcs::signed_by(mk[0], word, 0);
+    for (int p = 1; p < P; ++p) {
+      if ((p & 31) == 0) word = line[(p >> 5) * S];
+      bf = __fadd_rn(bf, mcs::signed_by(mk[p], word, p & 31));
+    }
+    return bf;
+  }
 }
 
-// The stencil of color `color` at site j over slice p of the other half
-__device__ __forceinline__ float field_at(const uint32_t* other,
-                                          const float* __restrict__ w,
-                                          int color, int nh, int K,
-                                          int nslots, int p, int j) {
-  const uint32_t* plane = other + (p >> 5) * nh;
-  return mcs::stencil([plane, p](int i) { return spin_of(plane[i], p); },
-                      w, color, nh, K, nslots, j);
-}
-
-__global__ void __launch_bounds__(kThreads)
+template <int kP>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 split_qmc_bath_kernel(const float* __restrict__ w,
                       const float* __restrict__ h,
                       const float* __restrict__ b_sched,
@@ -90,30 +138,36 @@ split_qmc_bath_kernel(const float* __restrict__ w,
                       float two_teff, const float* __restrict__ a_in,
                       const float* __restrict__ b_in,
                       float* __restrict__ a_out, float* __restrict__ b_out,
-                      int P, int nh, int K, int nslots, int steps,
+                      int P_run, int R, int L, int nslots, int steps,
                       uint32_t seed_term, int global_moves) {
   extern __shared__ uint32_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = kP > 0 ? kP : P_run;
   const int words = (P + 31) / 32;
-  uint32_t* const bits_a = smem;
-  uint32_t* const bits_b = smem + words * nh;
-  float* const m = reinterpret_cast<float*>(smem + 2 * words * nh);
-  const int chain = blockIdx.x;
-  const size_t base = static_cast<size_t>(chain) * P * nh;
+  const int K = L / 2;
+  const int nh = L * K;
+  const int S = mcs::band_stride(L, R);
+  // word wd of half A at wd*S, of half B at (words + wd)*S, then M
+  const int half_b = words * S;
+  float* const m = reinterpret_cast<float*>(smem + 2 * half_b);
+  const int chain = blockIdx.x / R;
+  const mcs::Band band = mcs::make_band(cluster, smem, blockIdx.x % R, R, L);
+  const size_t base = static_cast<size_t>(chain) * P * nh + band.lo;
 
   for (int i = threadIdx.x; i < P * P; i += blockDim.x) m[i] = bath[i];
-  for (int j = threadIdx.x; j < nh; j += blockDim.x) {
+  for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
     for (int wd = 0; wd < words; ++wd) {
       uint32_t wa = 0, wb = 0;
       for (int p = wd * 32; p < P && p < wd * 32 + 32; ++p) {
-        const size_t at = base + static_cast<size_t>(p) * nh + j;
+        const size_t at = base + static_cast<size_t>(p) * nh + il;
         wa |= static_cast<uint32_t>(a_in[at] < 0.0f) << (p & 31);
         wb |= static_cast<uint32_t>(b_in[at] < 0.0f) << (p & 31);
       }
-      bits_a[wd * nh + j] = wa;
-      bits_b[wd * nh + j] = wb;
+      smem[wd * S + il] = wa;
+      smem[half_b + wd * S + il] = wb;
     }
   }
-  __syncthreads();
+  cluster.sync();  // every band is loaded before any is read
 
   // uid = chain*2Nh + half*Nh + site, wrapping as the int32 JAX code does
   const uint32_t uid0 =
@@ -123,117 +177,177 @@ split_qmc_bath_kernel(const float* __restrict__ w,
   for (int t = 0; t < steps; ++t) {
     const float bc = -2.0f * b_sched[t];
     const float jpt = jp[t];
-    for (int k = 0; k < P; ++k) {
+    // One Metropolis update of `half` at slice k for band site il; the
+    // counter is 2k + half, the bath and Trotter terms read the state as
+    // it stands
+    auto update = [&](int half, int k, int il, const float (&wv)[7],
+                      float hj, const uint32_t (&o)[7]) {
       const int up = k == 0 ? P - 1 : k - 1;
       const int dn = k + 1 == P ? 0 : k + 1;
-      const float* mk = m + k * P;
-      // half A against B at slice k, then half B against the new A
-      for (int half = 0; half < 2; ++half) {
-        uint32_t* own = half ? bits_b : bits_a;
-        const uint32_t* other = half ? bits_a : bits_b;
-        const uint32_t ctr = mcs::counter(seed_term, t, 2 * k + half);
-        for (int j = threadIdx.x; j < nh; j += blockDim.x) {
-          const float sv = spin_at(own, nh, k, j);
-          const float f = __fadd_rn(
-              field_at(other, w, half, nh, K, nslots, k, j),
-              __ldg(h + half * nh + j));
-          const float tr =
-              __fadd_rn(spin_at(own, nh, up, j), spin_at(own, nh, dn, j));
-          // bath field of the line, p = 0..P-1 in index order; each
-          // M*s is exact, the adds round as the plain version's do
-          uint32_t word = own[j];
-          float bf = __fmul_rn(mk[0], spin_of(word, 0));
-          for (int p = 1; p < P; ++p) {
-            if ((p & 31) == 0) word = own[(p >> 5) * nh + j];
-            bf = __fadd_rn(bf, __fmul_rn(mk[p], spin_of(word, p)));
-          }
-          // dE = (bc*s)*f + ((2*s)*jp)*tr + (2teff*s)*bath, left to right:
-          // the products with +/-1 and tr are exact, (bc*s)*f and
-          // (2teff*s)*bath round, so no FMA may fuse them into the adds
-          const float de = __fadd_rn(
-              __fadd_rn(__fmul_rn(bc * sv, f),
-                        __fmul_rn(__fmul_rn(2.0f * sv, jpt), tr)),
-              __fmul_rn(two_teff * sv, bf));
-          const float u = mcs::uniform01(
-              ctr, uid0 + static_cast<uint32_t>(half * nh + j));
-          if (mcs::metropolis_accept(de, teff, u))
-            own[(k >> 5) * nh + j] ^= 1u << (k & 31);
+      const int kw = (k >> 5) * S, kb = k & 31;
+      const int own = half ? half_b : 0;
+      const int j = band.lo + il;
+      const uint32_t* line = smem + own + il;
+      const uint32_t wk = line[kw];
+      const float sv = spin_of(wk, kb);
+      const float f =
+          __fadd_rn(mcs::field_of_bit(wv, o, nslots, kb), hj);
+      const float tr = __fadd_rn(spin_of(line[(up >> 5) * S], up),
+                                 spin_of(line[(dn >> 5) * S], dn));
+      // the bath field of the line; each M*s is exact, the adds round as
+      // the plain version's do
+      const float bf = bath_field<kP>(m + k * P, line, S, P);
+      // dE = (bc*s)*f + ((2*s)*jp)*tr + (2teff*s)*bath, left to right: the
+      // products with +/-1 and tr are exact, (bc*s)*f and (2teff*s)*bath
+      // round, so no FMA may fuse them into the adds
+      const float de = __fadd_rn(
+          __fadd_rn(__fmul_rn(bc * sv, f),
+                    __fmul_rn(__fmul_rn(2.0f * sv, jpt), tr)),
+          __fmul_rn(two_teff * sv, bf));
+      const uint32_t x =
+          (uid0 + static_cast<uint32_t>(half * nh + j)) * mcs::kGolden +
+          mcs::counter(seed_term, t, 2 * k + half);
+      if (mcs::metropolis_accept_hashed(de, teff, x))
+        smem[own + kw + il] = wk ^ (1u << kb);
+    };
+    // All slices of half A, then all slices of half B, one barrier between:
+    // A of slice k reads B at slice k, which the plain order updates only
+    // after it, so every A update of a step reads B as the step found it;
+    // B of slice k reads A at slice k, which no later update of the step
+    // changes. What else an update reads is its own line, which only its
+    // thread writes, in slice order. So each update reads the state the
+    // plain version's order gives it, with 2 barriers per step, not 2P.
+    // The other half does not change within a phase, so a site's weights
+    // and neighbour words are read once for every 32 slices.
+    for (int half = 0; half < 2; ++half) {
+      const int other = half ? 0 : half_b;
+      for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
+        float wv[7];
+        mcs::load_weights(w, half, nh, nslots, band.lo + il, wv);
+        const float hj = __ldg(h + half * nh + band.lo + il);
+        for (int wd = 0; wd < words; ++wd) {
+          uint32_t o[7];
+          mcs::load_neighbours(band, other + wd * S, il, K, nslots, o);
+          const int end = min(P, 32 * wd + 32);
+          for (int k = 32 * wd; k < end; ++k)
+            update(half, k, il, wv, hj, o);
         }
-        __syncthreads();  // the next phase reads this half's slice k
       }
+      cluster.sync();
     }
     if (global_moves) {
       // lines of half A against B, then lines of half B against the
       // flipped A; dE = bc * sum_p s_p (f_p + h), p in index order
       for (int half = 0; half < 2; ++half) {
-        uint32_t* own = half ? bits_b : bits_a;
-        const uint32_t* other = half ? bits_a : bits_b;
+        const int own = half ? half_b : 0;
+        const int other = half ? 0 : half_b;
         const uint32_t ctr = mcs::counter(seed_term, t, 2 * P + half);
-        for (int j = threadIdx.x; j < nh; j += blockDim.x) {
+        for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
+          const int j = band.lo + il;
           const float hj = __ldg(h + half * nh + j);
+          float wv[7];
+          mcs::load_weights(w, half, nh, nslots, j, wv);
           float sum = 0.0f;
-          for (int p = 0; p < P; ++p) {
-            const float x = __fmul_rn(
-                spin_at(own, nh, p, j),
-                __fadd_rn(field_at(other, w, half, nh, K, nslots, p, j),
-                          hj));
-            sum = p == 0 ? x : __fadd_rn(sum, x);
+#pragma unroll 1
+          for (int wd = 0; wd < words; ++wd) {
+            uint32_t o[7];
+            mcs::load_neighbours(band, other + wd * S, il, K, nslots, o);
+            const uint32_t lw = smem[own + wd * S + il];
+            const int nbits = min(32, P - wd * 32);
+#pragma unroll 1
+            for (int bit = 0; bit < nbits; ++bit) {
+              const float x = mcs::signed_by(
+                  __fadd_rn(mcs::field_of_bit(wv, o, nslots, bit), hj), lw,
+                  bit);
+              sum = wd == 0 && bit == 0 ? x : __fadd_rn(sum, x);
+            }
           }
           const float de = __fmul_rn(bc, sum);
-          const float u = mcs::uniform01(
-              ctr, uid0 + static_cast<uint32_t>(half * nh + j));
-          if (mcs::metropolis_accept(de, teff, u)) {
+          const uint32_t x =
+              (uid0 + static_cast<uint32_t>(half * nh + j)) * mcs::kGolden +
+              ctr;
+          if (mcs::metropolis_accept_hashed(de, teff, x)) {
             for (int wd = 0; wd < words; ++wd)
-              own[wd * nh + j] ^= wd + 1 == words ? last_mask : ~0u;
+              smem[own + wd * S + il] ^= wd + 1 == words ? last_mask : ~0u;
           }
         }
-        __syncthreads();  // line B reads the flipped A; slice 0 reads B
+        cluster.sync();  // line B reads the flipped A; slice 0 reads B
       }
     }
   }
 
-  for (int j = threadIdx.x; j < nh; j += blockDim.x) {
+  for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
     for (int p = 0; p < P; ++p) {
-      const size_t at = base + static_cast<size_t>(p) * nh + j;
-      a_out[at] = spin_at(bits_a, nh, p, j);
-      b_out[at] = spin_at(bits_b, nh, p, j);
+      const size_t at = base + static_cast<size_t>(p) * nh + il;
+      const int wd = (p >> 5) * S + il;
+      a_out[at] = spin_of(smem[wd], p);
+      b_out[at] = spin_of(smem[half_b + wd], p);
     }
   }
 }
 
-// Shared memory one block takes: both halves' bit planes and the bath
-// matrix (ops/split_kernels.py::qmc_bath_smem_bytes counts the same).
-size_t smem_bytes(int P, int nh) {
+using KernelFn = void (*)(const float*, const float*, const float*,
+                          const float*, const float*, float, float,
+                          const float*, const float*, float*, float*, int,
+                          int, int, int, int, uint32_t, int);
+
+template <int... Ps>
+auto kernel_table(std::integer_sequence<int, Ps...>) {
+  // P < 2 is refused by the wrapper; those entries take the runtime kernel
+  return std::array<KernelFn, sizeof...(Ps)>{
+      &split_qmc_bath_kernel<(Ps < 2 ? 0 : Ps)>...};
+}
+
+KernelFn kernel_for(int P) {
+  static const auto table =
+      kernel_table(std::make_integer_sequence<int, kMaxStaticP + 1>{});
+  return P <= kMaxStaticP ? table[P] : &split_qmc_bath_kernel<0>;
+}
+
+// Shared memory one CTA takes: its band of both halves' bit planes and the
+// bath matrix (ops/split_kernels.py::qmc_bath_smem_bytes counts the same).
+size_t smem_bytes(int P, int L, int R) {
   const size_t words = (P + 31) / 32;
-  return (2 * words * nh + static_cast<size_t>(P) * P) * sizeof(uint32_t);
+  return (2 * words * mcs::band_stride(L, R) + static_cast<size_t>(P) * P) *
+         sizeof(uint32_t);
 }
 
 }  // namespace
 
-// Anneal `chains` Trotter states over `steps` schedule points in one launch.
-// w: (nslots, 2, nh), h: (2, nh), b_sched and jp: (steps,), bath: (P, P),
-// halves (chains, P, nh) of +/-1; all float32 device pointers. teff and
-// two_teff are T_eff and 2*T_eff rounded to float32. Launches on `stream`
-// and returns cudaGetLastError().
+// Anneal `chains` Trotter states over `steps` schedule points in one launch,
+// each chain over a cluster of R CTAs of `threads` threads. w: (nslots, 2,
+// nh), h: (2, nh), b_sched and jp: (steps,), bath: (P, P), halves
+// (chains, P, nh) of +/-1 with nh = L*L/2; all float32 device pointers.
+// teff and two_teff are T_eff and 2*T_eff rounded to float32. Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int split_qmc_bath_anneal(
     const float* w, const float* h, const float* b_sched, const float* jp,
     const float* bath, float teff, float two_teff, const float* a_in,
-    const float* b_in, float* a_out, float* b_out, int chains, int P, int nh,
-    int K, int nslots, int steps, int seed, int global_moves, void* stream) {
-  if (chains == 0 || nh == 0) return cudaSuccess;
-  const size_t smem = smem_bytes(P, nh);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        split_qmc_bath_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+    const float* b_in, float* a_out, float* b_out, int chains, int P, int R,
+    int threads, int L, int nslots, int steps, int seed, int global_moves,
+    void* stream) {
+  if (chains == 0 || L == 0) return cudaSuccess;
+  const KernelFn kernel = kernel_for(P);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = mcs::cluster_config(kernel, chains * R, R, threads,
+                                      smem_bytes(P, L, R),
+                                      static_cast<cudaStream_t>(stream),
+                                      &cfg, &attr);
+  if (e != cudaSuccess) return e;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
-  split_qmc_bath_kernel<<<chains, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      w, h, b_sched, jp, bath, teff, two_teff, a_in, b_in, a_out, b_out, P,
-      nh, K, nslots, steps, seed_term, global_moves);
+  e = cudaLaunchKernelEx(&cfg, kernel, w, h, b_sched, jp, bath, teff,
+                         two_teff, a_in, b_in, a_out, b_out, P, R, L, nslots,
+                         steps, seed_term, global_moves);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// Clusters of R CTAs the card holds at once at this P and L.
+extern "C" int split_qmc_bath_max_active_clusters(int P, int R, int threads,
+                                                  int L, int* count) {
+  return mcs::max_active_clusters(kernel_for(P), R, threads,
+                                  smem_bytes(P, L, R), count);
 }
 
 extern "C" const char* split_qmc_bath_anneal_error_string(int code) {

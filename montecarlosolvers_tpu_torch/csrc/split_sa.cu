@@ -7,119 +7,180 @@
 // What it computes. The state of each chain is the two checkerboard halves
 // a, b of an even-L lattice, Nh = L*L/2 sites each. One schedule step
 // updates all of half a from half b, then all of half b from the new half a
-// (pallas_split.py:151-164). A site's field is h plus the 5-slot stencil
-// (7 with row wrap) of the other half; dE = -2 s f; the flip is accepted if
-// dE <= 0 or -T*log1p(-u) > dE, with u from the counter hash at
+// (pallas_split.py:151-164). A site's field is the 5-slot stencil (7 with
+// row wrap) of the other half, then + h; dE = -2 s f; the flip is accepted
+// if dE <= 0 or -T*log1p(-u) > dE, with u from the counter hash at
 // ctr(seed, step, color) and uid = chain*2Nh + color*Nh + site
 // (pallas_split.py:137-143). The whole schedule runs in one launch.
 //
-// What bounds it on an H100. Per site update: 7 weights + h (32 B) read
-// through the read-only path, 8 spin reads from shared memory, about 14
-// integer operations of the hash (2 rounds of 3 xor-shifts and 2 multiplies,
-// one multiply-add, one shift) plus a log1pf. Per sweep of one chain that is
-// 2*Nh*4 = 25.6 KB of state (L = 80), which never leaves shared memory, and
-// (nslots*2 + 2)*Nh*4 = 205 KB of weights and fields, shared by every chain
-// and so served from L1/L2, not from device memory. At the main path's 1280
-// chains the device-memory traffic is the state in and out once per anneal;
-// the weight stream from L2 and the hash arithmetic bound a sweep.
+// What bounds it on an H100. The work is 8.19 M updates per sweep at the
+// main path's 1280 chains on 80x80; per update it needs 5 float32
+// operations of the field and dE, 5 of Metropolis and a logarithm. As
+// compiled (sm_90a SASS, tools/sass_counts.py), the chain loop is 74
+// instructions an update, two chains an iteration: the field from bits 21
+// (7 x SHF + LOP3 sign flip of the weight, 6 FADD, + h), the counter hash
+// 19 integer operations (2 murmur3 rounds, shift, convert, scale), log1pf
+// about 30, the spin, dE, compare, flip and loop the rest; the 7 weights, h
+// and 7 neighbour words of a site cost a few more per update at 32 chains
+// a word. At 1280 chains that is 20 us per sweep at one instruction per
+// scheduler and cycle on 132 SMs; measured 0.0375 ms (H100 80GB HBM3,
+// 700 W, PERF.md): 320 CTAs put 3 on some SMs where the mean is 2.4, a
+// band of 400 sites on 256 threads idles a fifth of the lanes in its
+// second pass, and about half the instructions run on the INT32 pipes at
+// half the float32 rate. At 32 chains (the PIQMC pre-anneal) a sweep is
+// 0.2 M updates, one chain a word, and the two cluster barriers a step and
+// the serial latency of an update set the time: 4.0 us.
 //
-// What the design does about that. One thread block per chain keeps both
-// halves in shared memory for the whole schedule: the TPU kernel's
-// sequential grid axis over schedule chunks (`j`, :111) becomes the step
-// loop inside the block, and a __syncthreads() between the phases stands
-// for the ordering "phase B reads the new half a". Weights are read with
-// __ldg. The TPU's lane rules (Nh % 128 == 0, L/2 <= 128, schedule chunks)
-// do not apply: any even L whose two halves fit the 227 KB a block may use
-// (2*Nh*4 bytes, so L <= 240) is taken; the wrapper raises ValueError
-// beyond that, as pallas_split.py:955-959 does for its limits.
-// Weight reuse across chains of one block, int8 spins and a persistent grid
-// are later work.
+// What the design does about that.
+// - Chains as bits. A CTA anneals a group of C <= 32 chains; bit c of the
+//   word of site j is the sign of chain group*C + c (1 for -1), one word per
+//   site and half in shared memory. A thread that owns site j loads the 7
+//   weights and h, computes the neighbour indices and reads the 7 neighbour
+//   words once per phase, then updates the C chains in turn: the weight
+//   stream from L2 and the index work drop C-fold, and each w*s is a sign
+//   flip of w (exact, so the slot order alone fixes the sum, as in
+//   counter_hash.cuh::stencil). A ragged last group (chains not a multiple
+//   of C) updates only its own chains; the other bits stay 0 and are never
+//   read back.
+// - A group over a cluster. Each group is spread over a cluster of R CTAs
+//   (csrc/cluster.cuh): each holds a band of rows of both halves, a stencil
+//   read across a band edge goes to the owning CTA through distributed
+//   shared memory, and cluster.sync() stands between the phases for "phase
+//   B reads the new half a". The wrapper (ops/split_kernels.py::
+//   sa_geometry) takes C = 32 while that leaves 32 groups (else fewer
+//   chains a word), and the largest R whose band fits a CTA's 227 KB and
+//   whose clusters the card holds at once: at 1280 chains C = 32, R = 8
+//   (320 CTAs), at 32 chains C = 1, R = 16 (512 CTAs of 224 threads), where
+//   one block per chain used 32 SMs. Both halves are 2*ceil(L/R)*K words a
+//   CTA, so R = 16 takes even L up to 960.
+// - Metropolis without a branch (counter_hash.cuh::metropolis_accept_hashed):
+//   the hash and log1pf run for every chain, so a warp's lanes never split
+//   on dE.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "counter_hash.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+namespace cg = cooperative_groups;
 
-__global__ void __launch_bounds__(kThreads)
+// At most 256 threads a CTA and registers for 5 such CTAs an SM (<= 51 a
+// thread): then 5 CTAs of a 16-CTA cluster share each SM of a GPC, and the
+// card holds 35 such clusters at once, more than the main path's 32
+// chains (ops/split_kernels.py::MAX_THREADS is the same number). Room for
+// 6 (38 registers) made the chain loop slower (PERF.md).
+constexpr int kMaxThreads = 256;
+constexpr int kMinBlocks = 5;
+
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
                 const float* __restrict__ sched,
-                const float* __restrict__ a_in,
-                const float* __restrict__ b_in, float* __restrict__ a_out,
-                float* __restrict__ b_out, int nh, int K, int nslots,
-                int steps, uint32_t seed_term) {
-  extern __shared__ float smem[];
-  float* a = smem;
-  float* b = smem + nh;
-  const int chain = blockIdx.x;
-  const size_t base = static_cast<size_t>(chain) * nh;
-  for (int j = threadIdx.x; j < nh; j += blockDim.x) {
-    a[j] = a_in[base + j];
-    b[j] = b_in[base + j];
+                const uint32_t* __restrict__ a_in,
+                const uint32_t* __restrict__ b_in,
+                uint32_t* __restrict__ a_out, uint32_t* __restrict__ b_out,
+                int chains, int C, int R, int L, int nslots, int steps,
+                uint32_t seed_term) {
+  extern __shared__ uint32_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = L / 2;
+  const int nh = L * K;
+  const int S = mcs::band_stride(L, R);  // half b's words start at S
+  const int group = blockIdx.x / R;
+  const mcs::Band band = mcs::make_band(cluster, smem, blockIdx.x % R, R, L);
+  const size_t base = static_cast<size_t>(group) * nh + band.lo;
+  for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
+    smem[il] = a_in[base + il];
+    smem[S + il] = b_in[base + il];
   }
-  __syncthreads();
+  cluster.sync();  // every band is loaded before any is read
 
-  // uid = chain * 2Nh + color * Nh + site, wrapping as the int32 JAX code
-  const uint32_t uid_a = static_cast<uint32_t>(chain) *
-                         (2u * static_cast<uint32_t>(nh));
-  const uint32_t uid_b = uid_a + static_cast<uint32_t>(nh);
+  const int cv = min(C, chains - group * C);  // chains of this group
+  // uid = chain*2Nh + color*Nh + site wraps as the int32 JAX code does; the
+  // hash input uid*kGolden + ctr steps by 2Nh*kGolden from chain to chain
+  const uint32_t chain_step = 2u * static_cast<uint32_t>(nh) * mcs::kGolden;
+  const uint32_t uid_group = static_cast<uint32_t>(group) *
+                             static_cast<uint32_t>(C) * 2u *
+                             static_cast<uint32_t>(nh);
   for (int t = 0; t < steps; ++t) {
     const float temp = sched[t];
-    // phase A: half a from half b (only a[j] itself is written)
-    const uint32_t ctr_a = mcs::counter(seed_term, t, 0);
-    for (int j = threadIdx.x; j < nh; j += blockDim.x) {
-      const float f = __fadd_rn(mcs::half_field(b, w, 0, nh, K, nslots, j),
-                                __ldg(h + j));
-      const float s = a[j];
-      const float de = __fmul_rn(-2.0f * s, f);  // exact
-      const float u = mcs::uniform01(ctr_a, uid_a + j);
-      if (mcs::metropolis_accept(de, temp, u)) a[j] = -s;
+    // half a (color 0) from half b, then half b from the new half a
+    for (int color = 0; color < 2; ++color) {
+      const int own = color ? S : 0;
+      const int other = color ? 0 : S;
+      const uint32_t ctr = mcs::counter(seed_term, t, color);
+      for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
+        const int j = band.lo + il;
+        float wv[7];
+        uint32_t o[7];
+        mcs::load_weights(w, color, nh, nslots, j, wv);
+        const float hj = __ldg(h + color * nh + j);
+        mcs::load_neighbours(band, other, il, K, nslots, o);
+        const uint32_t word = smem[own + il];
+        uint32_t flips = 0u;
+        uint32_t x = (uid_group + static_cast<uint32_t>(color * nh + j)) *
+                         mcs::kGolden + ctr;
+        for (int c = 0; c < cv; ++c, x += chain_step) {
+          const float f =
+              __fadd_rn(mcs::field_of_bit(wv, o, nslots, c), hj);
+          const float s = (word >> c) & 1u ? -1.0f : 1.0f;
+          const float de = __fmul_rn(-2.0f * s, f);  // exact
+          if (mcs::metropolis_accept_hashed(de, temp, x)) flips |= 1u << c;
+        }
+        smem[own + il] = word ^ flips;
+      }
+      cluster.sync();  // the next phase reads this half, also across bands
     }
-    __syncthreads();  // phase B reads the new half a
-    const uint32_t ctr_b = mcs::counter(seed_term, t, 1);
-    for (int j = threadIdx.x; j < nh; j += blockDim.x) {
-      const float f = __fadd_rn(mcs::half_field(a, w, 1, nh, K, nslots, j),
-                                __ldg(h + nh + j));
-      const float s = b[j];
-      const float de = __fmul_rn(-2.0f * s, f);
-      const float u = mcs::uniform01(ctr_b, uid_b + j);
-      if (mcs::metropolis_accept(de, temp, u)) b[j] = -s;
-    }
-    __syncthreads();  // the next phase A reads the new half b
   }
 
-  for (int j = threadIdx.x; j < nh; j += blockDim.x) {
-    a_out[base + j] = a[j];
-    b_out[base + j] = b[j];
+  for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
+    a_out[base + il] = smem[il];
+    b_out[base + il] = smem[S + il];
   }
+}
+
+size_t smem_bytes(int L, int R) {
+  return 2 * static_cast<size_t>(mcs::band_stride(L, R)) * sizeof(uint32_t);
 }
 
 }  // namespace
 
-// Anneal `chains` chains over `steps` temperatures. w: (nslots, 2, nh),
-// h: (2, nh), sched: (steps,), halves (chains, nh); all float32 device
-// pointers. Launches on `stream` and returns cudaGetLastError().
+// Anneal `chains` chains, packed C to a word, over `steps` temperatures.
+// w: (nslots, 2, nh) and h: (2, nh) float32, sched: (steps,) float32;
+// a_in, b_in, a_out, b_out: (ceil(chains/C), nh) uint32 words, bit c of
+// word g the sign of chain g*C + c. One cluster of R CTAs of `threads`
+// threads per group of C chains. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int split_sa_anneal(const float* w, const float* h,
-                               const float* sched, const float* a_in,
-                               const float* b_in, float* a_out, float* b_out,
-                               int chains, int nh, int K, int nslots,
-                               int steps, int seed, void* stream) {
-  if (chains == 0 || nh == 0) return cudaSuccess;
-  const size_t smem = 2 * static_cast<size_t>(nh) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        split_sa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+                               const float* sched, const uint32_t* a_in,
+                               const uint32_t* b_in, uint32_t* a_out,
+                               uint32_t* b_out, int chains, int C, int R,
+                               int threads, int L, int nslots, int steps,
+                               int seed, void* stream) {
+  if (chains == 0 || L == 0) return cudaSuccess;
+  const int groups = (chains + C - 1) / C;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = mcs::cluster_config(split_sa_kernel, groups * R, R,
+                                      threads, smem_bytes(L, R),
+                                      static_cast<cudaStream_t>(stream),
+                                      &cfg, &attr);
+  if (e != cudaSuccess) return e;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
-  split_sa_kernel<<<chains, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      w, h, sched, a_in, b_in, a_out, b_out, nh, K, nslots, steps,
-      seed_term);
+  e = cudaLaunchKernelEx(&cfg, split_sa_kernel, w, h, sched, a_in, b_in,
+                         a_out, b_out, chains, C, R, L, nslots, steps,
+                         seed_term);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// Clusters of R CTAs the card holds at once at lattice size L.
+extern "C" int split_sa_max_active_clusters(int R, int threads, int L,
+                                            int* count) {
+  return mcs::max_active_clusters(split_sa_kernel, R, threads,
+                                  smem_bytes(L, R), count);
 }
 
 extern "C" const char* split_sa_anneal_error_string(int code) {

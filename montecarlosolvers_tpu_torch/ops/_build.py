@@ -41,12 +41,15 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _NP = ctypes.POINTER(ctypes.c_longlong)  # out: number of kernels launched
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures: function -> (restype, argtypes)
 SIGNATURES = {
     "split_sa": {
-        # w, h, sched, a_in, b_in, a_out, b_out,
-        # chains, nh, K, nslots, steps, seed, stream
-        "split_sa_anneal": (_I, [_P] * 7 + [_I] * 6 + [_P]),
+        # w, h, sched, a_in, b_in, a_out, b_out (the halves as chain bits),
+        # chains, C, R, threads, L, nslots, steps, seed, stream
+        "split_sa_anneal": (_I, [_P] * 7 + [_I] * 8 + [_P]),
+        # R, threads, L, out: clusters resident at once
+        "split_sa_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         "split_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "split_qmc": {
@@ -60,10 +63,12 @@ SIGNATURES = {
     },
     "split_qmc_bath": {
         # w, h, b_sched, jp, bath, teff, 2*teff, a_in, b_in, a_out, b_out,
-        # chains, P, nh, K, nslots, steps, seed, global_moves, stream
+        # chains, P, R, threads, L, nslots, steps, seed, global_moves, stream
         "split_qmc_bath_anneal": (
-            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 8 + [_P]
+            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 9 + [_P]
         ),
+        # P, R, threads, L, out: clusters resident at once
+        "split_qmc_bath_max_active_clusters": (_I, [_I] * 4 + [_IP]),
         "split_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "plane_sa": {
@@ -106,8 +111,9 @@ _LIBS = {}
 SMEM_LIMIT_BYTES = 232448
 
 # Kernel launches per kernel. Kernels A, 4, 5, 6 and 7 run a whole schedule
-# in one launch; B and 3 launch once per phase, and their C entry points
-# report how many launches they issued.
+# in one launch (for A and 5 one cluster launch, whatever the cluster size);
+# B and 3 launch once per phase, and their C entry points report how many
+# launches they issued.
 LAUNCHES = {"sa_split": 0, "qmc_split": 0, "svmc_split": 0,
             "qmc_bath_split": 0, "sa_plane": 0, "qmc_plane": 0,
             "svmc_plane": 0}
@@ -147,9 +153,11 @@ def stream_of(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def raise_on_error(lib, fn, rc):
+def raise_on_error(lib, fn, rc, error_fn=None):
+    """Raise RuntimeError if the C entry point `fn` returned a CUDA error;
+    its text comes from `error_fn` (default: fn + "_error_string")."""
     if rc != 0:
-        msg = getattr(lib, fn + "_error_string")(rc).decode()
+        msg = getattr(lib, error_fn or fn + "_error_string")(rc).decode()
         raise RuntimeError(f"{fn} failed with CUDA error {rc}: {msg}")
 
 

@@ -155,6 +155,18 @@ def svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed, tf):
 # ------------------------------------------------------------ kernel wrappers
 
 
+def sa_plane_smem_bytes(L):
+    """Shared memory of kernel 6's one block per chain: its L x L plane of
+    floats, so the card takes L <= 241."""
+    return L * L * 4
+
+
+def svmc_plane_smem_bytes(L):
+    """Shared memory of kernel 7's one block per chain: angles, cos, sin
+    and staged cos, 4*L*L floats, so the card takes L <= 120."""
+    return 4 * L * L * 4
+
+
 def sa_plane_anneal(pl, sched, spins, seed):
     """Kernel 6 on CUDA tensors, `sa_plane_anneal_ref` on CPU tensors.
     Arguments as for `sa_plane_anneal_ref`; returns the new spins."""
@@ -162,7 +174,7 @@ def sa_plane_anneal(pl, sched, spins, seed):
         return sa_plane_anneal_ref(pl, sched, spins, seed)
     chains, L = spins.shape[0], pl.L
     dev = spins.device
-    smem = L * L * 4  # one chain's plane, for the whole schedule
+    smem = sa_plane_smem_bytes(L)
     if smem > _build.SMEM_LIMIT_BYTES:
         raise ValueError(
             f"kernel 6 keeps L*L*4 = {smem} bytes of one chain in shared "
@@ -224,7 +236,7 @@ def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf):
                                      tf)
     chains, L = theta.shape[0], pl.L
     dev = theta.device
-    smem = 4 * L * L * 4  # angles, cos, sin and staged cos of one chain
+    smem = svmc_plane_smem_bytes(L)
     if smem > _build.SMEM_LIMIT_BYTES:
         raise ValueError(
             f"kernel 7 keeps 4*L*L*4 = {smem} bytes of one chain in shared "

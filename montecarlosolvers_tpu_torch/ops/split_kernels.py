@@ -27,6 +27,15 @@ The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts the kernel launches under "sa_split",
 "qmc_split", "qmc_bath_split" and "svmc_split".
+
+Kernels A and 5 spread a chain (kernel A: a group of C chains packed as
+bits, `pack_chain_bits`) over a thread-block cluster of R CTAs, each
+holding a band of rows of the halves (csrc/cluster.cuh).
+`sa_geometry` and `qmc_bath_geometry` choose C, R and the threads per CTA
+from the shape and, on the card, from how many clusters it holds at once
+(`resident_clusters`); the CPU tests reach the choice with a stand-in
+count. Both raise ValueError for a shape that no cluster of
+CLUSTER_SIZES[-1] CTAs holds.
 """
 
 from __future__ import annotations
@@ -46,6 +55,15 @@ from montecarlosolvers_tpu_torch.ops.piqmc import bath_matrix, sum_in_order
 
 # Kernel B puts chains on gridDim.z.
 QMC_MAX_CHAINS = 65535
+# Cluster sizes kernels A and 5 may take: up to 8 CTAs is portable, 16
+# needs cudaFuncAttributeNonPortableClusterSizeAllowed (Hopper allows it).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# Kernel A packs C = 32 chains to a word while that leaves at least this
+# many groups; below it C halves, down to 1, so few chains still spread.
+FILL_GROUPS = 32
+# Threads per CTA of kernels A and 5 (csrc/split_sa.cu and
+# split_qmc_bath.cu compile for 5 such CTAs an SM).
+MAX_THREADS = 256
 
 
 # ------------------------------------------------------------ plain versions
@@ -248,40 +266,175 @@ def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf):
     return halves[0][0], halves[1][0]
 
 
+# ------------------------------------------ cluster geometry, chain packing
+
+
+def band_sites(L, R):
+    """Sites of the largest band when the L rows of a half (L/2 sites each)
+    are cut into R bands: the common stride of every CTA's planes
+    (csrc/cluster.cuh::band_stride)."""
+    return -(-L // R) * (L // 2)
+
+
+def _cluster(L, units, smem_of, resident):
+    """R of `units` clusters: the largest R of CLUSTER_SIZES (R <= L, so a
+    band holds a row) whose band fits one CTA's shared memory and whose
+    `units` clusters the card holds at once (`resident(R)`, None: any
+    number), so every CTA runs from the start on its own share of the SMs;
+    if no R is held whole, the smallest that fits (the fewest CTAs that
+    wait). None if no R fits."""
+    sizes = [r for r in CLUSTER_SIZES
+             if r <= L and smem_of(r) <= _build.SMEM_LIMIT_BYTES]
+    for r in reversed(sizes):
+        if resident is None or resident(r) >= units:
+            return r
+    return sizes[0] if sizes else None
+
+
+def _threads(L, R):
+    """Threads per CTA: one per site of the largest band, in whole warps,
+    at most MAX_THREADS (a thread then takes several sites)."""
+    return min(MAX_THREADS, -(-band_sites(L, R) // 32) * 32)
+
+
+def sa_smem_bytes(L, R):
+    """Shared memory of one kernel-A CTA: its band of both halves, one
+    32-bit word of chain bits per site."""
+    return 2 * band_sites(L, R) * 4
+
+
+def sa_geometry(chains, L, resident=None):
+    """(C, R, threads) of kernel A for `chains` chains on an L x L lattice:
+    C chains to a word (32 while that leaves FILL_GROUPS groups, else
+    halved), each group over a cluster of R CTAs (`_cluster`; `resident(R,
+    threads)` is how many clusters the card holds at once, None: any),
+    `threads` threads per CTA. Raises ValueError when no cluster holds the
+    lattice."""
+    C = 32
+    while C > 1 and -(-chains // C) < FILL_GROUPS:
+        C //= 2
+    R = _cluster(L, -(-chains // C), lambda r: sa_smem_bytes(L, r),
+                 resident and (lambda r: resident(r, _threads(L, r))))
+    if R is None:
+        raise ValueError(
+            f"kernel A keeps a band of both halves, 2*ceil(L/R)*(L/2)*4 = "
+            f"{sa_smem_bytes(L, min(L, CLUSTER_SIZES[-1]))} bytes at "
+            f"R = {min(L, CLUSTER_SIZES[-1])}, in each CTA's shared memory; "
+            f"no cluster of up to {CLUSTER_SIZES[-1]} CTAs holds L = {L} "
+            f"within the limit of {_build.SMEM_LIMIT_BYTES} bytes")
+    return C, R, _threads(L, R)
+
+
+def qmc_bath_smem_bytes(P, L, R):
+    """Shared memory of one kernel-5 CTA: its band of both halves' lines as
+    bits (ceil(P/32) words per site) and the (P, P) bath matrix."""
+    return (2 * (-(-P // 32)) * band_sites(L, R) + P * P) * 4
+
+
+def qmc_bath_geometry(chains, L, P, resident=None):
+    """(R, threads) of kernel 5: each chain over a cluster of R CTAs
+    (`_cluster`, `resident` as for `sa_geometry`) of `threads` threads.
+    Raises ValueError when no cluster holds a chain of P slices on an
+    L x L lattice."""
+    R = _cluster(L, chains, lambda r: qmc_bath_smem_bytes(P, L, r),
+                 resident and (lambda r: resident(r, _threads(L, r))))
+    if R is None:
+        r = min(L, CLUSTER_SIZES[-1])
+        raise ValueError(
+            f"kernel 5 keeps a band of a chain's lines as bits and the bath "
+            f"matrix, {qmc_bath_smem_bytes(P, L, r)} bytes at R = {r}, in "
+            f"each CTA's shared memory; no cluster of up to "
+            f"{CLUSTER_SIZES[-1]} CTAs holds L = {L}, P = {P} within the "
+            f"limit of {_build.SMEM_LIMIT_BYTES} bytes")
+    return R, _threads(L, R)
+
+
+def pack_chain_bits(x, C):
+    """(chains, Nh) +/-1 -> (ceil(chains/C), Nh) int32 words: bit c of word
+    g is the sign of chain g*C + c (1 for -1); a ragged last group's spare
+    bits are 0."""
+    chains, nh = x.shape
+    groups = -(-chains // C)
+    neg = torch.zeros((groups * C, nh), dtype=torch.int64, device=x.device)
+    neg[:chains] = x < 0
+    shift = torch.arange(C, dtype=torch.int64, device=x.device)
+    words = (neg.reshape(groups, C, nh) << shift[:, None]).sum(dim=1)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def unpack_chain_bits(words, chains, C):
+    """Inverse of `pack_chain_bits`: float32 (chains, Nh) of +/-1."""
+    groups, nh = words.shape
+    shift = torch.arange(C, dtype=torch.int32, device=words.device)
+    bits = (words[:, None, :] >> shift[:, None]) & 1  # (groups, C, Nh)
+    return (1.0 - 2.0 * bits.to(torch.float32)).reshape(groups * C,
+                                                        nh)[:chains]
+
+
+_RESIDENT = {}
+
+
+def resident_clusters(kernel, R, threads, L, P=None):
+    """How many clusters of R CTAs of `threads` threads of kernel
+    "split_sa" or "split_qmc_bath" (at P slices) on an L x L lattice the
+    card holds at once (cudaOccupancyMaxActiveClusters; 0 when a CTA does
+    not fit). Cached per shape."""
+    key = (kernel, R, threads, L, P)
+    if key not in _RESIDENT:
+        lib = _build.library(kernel)
+        n = ctypes.c_int(0)
+        if kernel == "split_sa":
+            rc = lib.split_sa_max_active_clusters(R, threads, L,
+                                                  ctypes.byref(n))
+        else:
+            rc = lib.split_qmc_bath_max_active_clusters(P, R, threads, L,
+                                                        ctypes.byref(n))
+        _build.raise_on_error(lib, f"{kernel}_max_active_clusters", rc,
+                              error_fn=f"{kernel}_anneal_error_string")
+        _RESIDENT[key] = n.value
+    return _RESIDENT[key]
+
+
+def card_resident(kernel, L, P=None):
+    """The `resident(R, threads)` of the card that the wrappers hand to
+    `sa_geometry` / `qmc_bath_geometry`."""
+    return lambda r, threads: resident_clusters(kernel, r, threads, L, P)
+
+
 # ------------------------------------------------------------ kernel wrappers
 
 
 def sa_split_anneal(sl, sched, a, b, seed):
     """Kernel A on CUDA tensors, `sa_split_anneal_ref` on CPU tensors.
-    Arguments as for `sa_split_anneal_ref`; returns new (a, b)."""
+    Arguments as for `sa_split_anneal_ref`; returns new (a, b). The kernel
+    keeps each spin's sign as a bit, so the halves must hold +/-1."""
     if _build.route(a.device, "split") == "cpu":
         return sa_split_anneal_ref(sl, sched, a, b, seed)
     chains, nh = a.shape
     dev = a.device
     if nh != sl.nh:
         raise ValueError(f"halves have {nh} sites, lattice has {sl.nh}")
-    smem = 2 * nh * 4  # both halves of one chain, for the whole schedule
-    if smem > _build.SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"kernel A keeps 2*Nh*4 = {smem} bytes of one chain in shared "
-            f"memory; the limit is {_build.SMEM_LIMIT_BYTES} (L = {sl.L})"
-        )
+    C, R, threads = sa_geometry(chains, sl.L,
+                                card_resident("split_sa", sl.L))
     for t, name in ((a, "a"), (b, "b")):
         _build.check_arg(t, name, (chains, nh), dev)
     _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
     _build.check_arg(sl.h_ab, "h_ab", (2, nh), dev)
     _build.check_arg(sched, "sched", (sched.shape[0],), dev)
-    a_out = torch.empty_like(a)
-    b_out = torch.empty_like(b)
+    a_in, b_in = pack_chain_bits(a, C), pack_chain_bits(b, C)
+    a_out, b_out = torch.empty_like(a_in), torch.empty_like(b_in)
     lib = _build.library("split_sa")
     rc = lib.split_sa_anneal(
-        *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a, b, a_out, b_out)),
-        chains, nh, sl.K, sl.nslots, int(sched.shape[0]), cr.wrap_int32(seed),
-        _build.stream_of(dev),
+        *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a_in, b_in, a_out,
+                          b_out)),
+        chains, C, R, threads, sl.L, sl.nslots, int(sched.shape[0]),
+        cr.wrap_int32(seed), _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "split_sa_anneal", rc)
     _build.LAUNCHES["sa_split"] += 1
-    return a_out, b_out
+    return (unpack_chain_bits(a_out, chains, C),
+            unpack_chain_bits(b_out, chains, C))
 
 
 def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
@@ -318,12 +471,6 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
     return tuple(outs)
 
 
-def qmc_bath_smem_bytes(P, nh):
-    """Shared memory kernel 5 takes per block: both halves' lines as bits
-    (ceil(P/32) words per site) and the (P, P) bath matrix."""
-    return (2 * (-(-P // 32)) * nh + P * P) * 4
-
-
 def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
                           global_moves):
     """Kernel 5 on CUDA tensors, `qmc_bath_split_anneal_ref` on CPU tensors.
@@ -338,13 +485,8 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
         raise ValueError(f"halves have {nh} sites, lattice has {sl.nh}")
     if P < 2:
         raise ValueError(f"the bath engine takes P >= 2 slices, got {P}")
-    smem = qmc_bath_smem_bytes(P, nh)
-    if smem > _build.SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"kernel 5 keeps {smem} bytes of one chain (its lines as bits "
-            f"and the bath matrix) in shared memory; the limit is "
-            f"{_build.SMEM_LIMIT_BYTES} (L = {sl.L}, P = {P})"
-        )
+    R, threads = qmc_bath_geometry(
+        chains, sl.L, P, card_resident("split_qmc_bath", sl.L, P))
     for t, name in ((a, "a"), (b, "b")):
         _build.check_arg(t, name, (chains, P, nh), dev)
     _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
@@ -360,12 +502,18 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
         *map(_build.ptr, (sl.w_ab, sl.h_ab, b_sched, jp, bath)),
         ctypes.c_float(teff), ctypes.c_float(2.0 * teff),
         *map(_build.ptr, (a, b, a_out, b_out)),
-        chains, P, nh, sl.K, sl.nslots, steps, cr.wrap_int32(seed),
+        chains, P, R, threads, sl.L, sl.nslots, steps, cr.wrap_int32(seed),
         int(bool(global_moves)), _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "split_qmc_bath_anneal", rc)
     _build.LAUNCHES["qmc_bath_split"] += 1
     return a_out, b_out
+
+
+def svmc_smem_bytes(L):
+    """Shared memory of kernel 4's one block per chain: angles, cos and sin
+    of both halves, 6*Nh floats, so the card takes even L <= 138."""
+    return 6 * (L * L // 2) * 4
 
 
 def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf):
@@ -378,7 +526,7 @@ def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf):
     dev = a.device
     if nh != sl.nh:
         raise ValueError(f"halves have {nh} sites, lattice has {sl.nh}")
-    smem = 6 * nh * 4  # angles, cos and sin of both halves of one chain
+    smem = svmc_smem_bytes(sl.L)
     if smem > _build.SMEM_LIMIT_BYTES:
         raise ValueError(
             f"kernel 4 keeps 6*Nh*4 = {smem} bytes of one chain in shared "

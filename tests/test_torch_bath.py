@@ -320,16 +320,42 @@ def test_bath_wrapper_routes_by_device():
                                  True)
 
 
-@pytest.mark.parametrize("P,largest_L", [(2, 240), (32, 238), (40, 168),
-                                         (64, 164), (128, 102)])
-def test_bath_kernel_lattice_limit(P, largest_L):
-    """The largest even L whose chain kernel 5 holds in one block's shared
-    memory at P slices, as README.md and ROADMAP.md state it; the wrapper
-    refuses a larger L on the card."""
-    def fits(L):
-        return (sk.qmc_bath_smem_bytes(P, L * L // 2)
-                <= _build.SMEM_LIMIT_BYTES)
-    assert fits(largest_L) and not fits(largest_L + 2)
+def h100_resident(R, threads):
+    """A stand-in for the card's cudaOccupancyMaxActiveClusters: clusters
+    of R CTAs, 5 CTAs an SM, on 7 GPCs of 16 SMs (an H100 SXM holds 35
+    clusters of 16 CTAs of 224 threads; PERF.md)."""
+    assert threads <= sk.MAX_THREADS and threads % 32 == 0
+    return 7 * (16 * 5 // R)
+
+
+# (L, P) -> (R at the main path's 32 chains, R at 1280 chains): the largest
+# cluster whose band fits 227 KB and whose clusters the card holds at once,
+# else the smallest that fits
+@pytest.mark.parametrize("L,P,r_32,r_1280", [
+    (80, 40, 16, 1), (168, 40, 16, 1), (176, 40, 16, 2), (256, 40, 16, 4),
+    (256, 64, 16, 4), (256, 128, 16, 8)])
+def test_bath_cluster_geometry(L, P, r_32, r_1280):
+    """Kernel 5 spreads a chain over a cluster of R CTAs, each holding a
+    band of rows of both halves' bit planes and the bath matrix; every even
+    L up to 256 fits at P <= 128 (README.md and ROADMAP.md state it)."""
+    for chains, want in ((32, r_32), (1280, r_1280)):
+        R, threads = sk.qmc_bath_geometry(chains, L, P, h100_resident)
+        assert R == want
+        assert sk.qmc_bath_smem_bytes(P, L, R) <= _build.SMEM_LIMIT_BYTES
+        assert R == 1 or sk.qmc_bath_smem_bytes(P, L, R // 2) \
+            > _build.SMEM_LIMIT_BYTES or h100_resident(R, threads) >= chains
+        band = sk.band_sites(L, R)
+        assert threads == min(sk.MAX_THREADS, -(-band // 32) * 32)
+        assert band * R >= L * L // 2
+    # without a count of resident clusters, the largest cluster that fits
+    assert sk.qmc_bath_geometry(32, L, P)[0] == 16
+
+
+def test_bath_cluster_geometry_refuses_what_no_cluster_holds():
+    # P = 128 at L = 1024: a band of 1024 / 16 rows is 1.1 MB
+    with pytest.raises(ValueError, match="no cluster of up to 16 CTAs"):
+        sk.qmc_bath_geometry(32, 1024, 128)
+    sk.qmc_bath_geometry(32, 256, 128)
 
 
 def test_bath_refusals():

@@ -1,0 +1,89 @@
+"""Shapes the port's kernels take on the card, decided on the host.
+
+Kernel A (`csrc/split_sa.cu`) packs C chains to a 32-bit word per site and
+spreads each group of C chains over a thread-block cluster of R CTAs;
+`ops/split_kernels.py::sa_geometry` picks (C, R) so that the grid fills the
+H100 at the main path's 1280 SA chains and at the PIQMC pre-anneal's 32,
+and R so that a band of rows fits one CTA's 227 KB. `pack_chain_bits` /
+`unpack_chain_bits` move the (chains, Nh) halves in and out of that
+layout. Kernels 4, 6 and 7 still hold one chain in one block, so the card
+refuses the lattices whose chain does not fit (README.md states the
+limits; the CPU's plain versions take any L).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from montecarlosolvers_tpu_torch.ops import _build
+from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
+from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+
+
+def h100_resident(R, threads):
+    """A stand-in for the card's cudaOccupancyMaxActiveClusters: 5 CTAs an
+    SM on 7 GPCs of 16 SMs (PERF.md)."""
+    assert threads <= sk.MAX_THREADS and threads % 32 == 0
+    return 7 * (16 * 5 // R)
+
+
+# (chains, L) -> (C, R): 32 chains to a word while that leaves 32 groups,
+# each group over the largest cluster the card holds for every group at
+# once (35 clusters of 16, 70 of 8); at L = 256 both halves of a word per
+# site are 256 KB, so R >= 2 whatever the chains
+@pytest.mark.parametrize("chains,L,C,R", [
+    (1, 80, 1, 16), (32, 80, 1, 16), (33, 80, 1, 16), (1280, 80, 32, 8),
+    (1, 240, 1, 16), (32, 240, 1, 16), (33, 240, 1, 16), (1280, 240, 32, 8),
+    (1, 256, 1, 16), (32, 256, 1, 16), (33, 256, 1, 16), (1280, 256, 32, 8),
+])
+def test_sa_geometry(chains, L, C, R):
+    c, r, threads = sk.sa_geometry(chains, L, h100_resident)
+    assert (c, r) == (C, R)
+    assert h100_resident(r, threads) >= -(-chains // c)
+    assert sk.sa_smem_bytes(L, r) <= _build.SMEM_LIMIT_BYTES
+    assert threads == min(sk.MAX_THREADS,
+                          -(-sk.band_sites(L, r) // 32) * 32)
+    # no count of resident clusters: the largest cluster that fits
+    assert sk.sa_geometry(chains, L)[:2] == (C, 16)
+    # none held at once: the smallest cluster that fits
+    assert sk.sa_geometry(chains, L, lambda r, th: 0)[1] == \
+        (2 if L == 256 else 1)
+
+
+def test_sa_geometry_limit():
+    # R = 16 holds even L up to 960 (60 rows of 480 sites a band)
+    assert sk.sa_geometry(32, 960, lambda r, th: 0)[1] == 16
+    assert sk.sa_smem_bytes(256, 1) > _build.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match="no cluster of up to 16 CTAs"):
+        sk.sa_geometry(32, 962)
+
+
+@pytest.mark.parametrize("C", [1, 8, 32])
+def test_pack_chain_bits_round_trip(C):
+    rng = np.random.default_rng(C)
+    chains, nh = 37, 50  # 37 chains: a ragged last group for C = 8 and 32
+    x = torch.from_numpy(rng.choice([-1.0, 1.0], size=(chains, nh))
+                         .astype(np.float32))
+    words = sk.pack_chain_bits(x, C)
+    assert words.dtype == torch.int32
+    assert words.shape == (-(-chains // C), nh)
+    for g, c in ((0, 0), (-(-chains // C) - 1, (chains - 1) % C)):
+        bit = (words[g].to(torch.int64) >> c) & 1
+        assert torch.equal(bit == 1, x[g * C + c] < 0)
+    if chains % C:  # the spare bits of the ragged group are 0
+        spare = (words[-1].to(torch.int64) & 0xFFFFFFFF) >> (chains % C)
+        assert not spare.any()
+    out = sk.unpack_chain_bits(words, chains, C)
+    assert out.dtype == torch.float32 and torch.equal(out, x)
+
+
+# kernel -> (shared memory of one chain at L, largest L the card takes,
+# step between the L it takes): one block per chain
+@pytest.mark.parametrize("smem,largest_L,step", [
+    (sk.svmc_smem_bytes, 138, 2),       # kernel 4: even L
+    (pk.sa_plane_smem_bytes, 241, 1),   # kernel 6
+    (pk.svmc_plane_smem_bytes, 120, 1), # kernel 7
+])
+def test_one_block_kernel_limits(smem, largest_L, step):
+    assert smem(largest_L) <= _build.SMEM_LIMIT_BYTES
+    assert smem(largest_L + step) > _build.SMEM_LIMIT_BYTES

@@ -14,9 +14,13 @@ P = 2 to 7 (m = 2, 3 and 4 local phases), and the odd-torus wrap pairs
 that share a color; for the SVMC kernels 4 (even L) and 7 (any L) L = 5 to
 33, open and periodic, TF proposals on and off, held to max |d theta| <=
 2e-5 with no angle off by more than 1e-3 (no diverged decision); for the
-bath kernel 5 L = 4 to 80, open and periodic, P = 2, 3, 5 and 40 (one and
-two bit words per line), B != 1, global moves on and off. With no device
-given, the port's problems, schedules and states land on the card.
+bath kernel 5 L = 4 to 80, open and periodic, P = 2, 3, 5, 40 and 64 (one
+and two bit words per line; P above 64 takes the runtime-P kernel), B !=
+1, global moves on and off, and L = 176 and 256, which need a cluster of
+CTAs per chain. Kernel A runs 1, 5, 32, 33 (a ragged group) and 1280
+chains, which take chain words of C = 1 to 32 bits over clusters of up to
+16 CTAs, and L = 256. With no device given, the port's problems,
+schedules and states land on the card.
 """
 
 import numpy as np
@@ -87,6 +91,23 @@ def test_kernel_b_equals_plain(cuda, L, P, periodic, gm, bscale):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("chains,L", [(1, 80), (32, 80), (33, 80),
+                                      (1280, 80), (5, 256)])
+def test_kernel_a_cluster_shapes_equal_plain(cuda, chains, L):
+    lat = _lattice(L, True, cuda)
+    sl = split_ops.build_split(lat)
+    rng = np.random.default_rng(chains)
+    s = torch.as_tensor(rng.choice([-1.0, 1.0], size=(chains, L * L))
+                        .astype(np.float32), device=cuda)
+    a, b = (x.contiguous() for x in split_ops.pack_classical(sl, s))
+    sched = schedules.linear(3.0, 0.0, 24, device=cuda)
+    out = sk.sa_split_anneal(sl, sched, a, b, 9)
+    ref = sk.sa_split_anneal_ref(sl, sched, a, b, 9)
+    for x, y, x0 in zip(out, ref, (a, b)):
+        assert torch.equal(x, y)
+        assert not torch.equal(x, x0)
+
+
 def test_wrapper_refusals(cuda):
     lat = _lattice(16, True, cuda)
     sl = split_ops.build_split(lat)
@@ -97,7 +118,7 @@ def test_wrapper_refusals(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         wide = torch.ones((2, 2 * sl.nh), device=cuda)[:, ::2]
         sk.sa_split_anneal(sl, sched, wide, a, 0)
-    big = _lattice(242, False, cuda)
+    big = _lattice(962, False, cuda)  # R = 16 holds L <= 960
     sl_big = split_ops.build_split(big)
     ab = torch.ones((1, sl_big.nh), device=cuda)
     with pytest.raises(ValueError, match="shared"):
@@ -244,7 +265,9 @@ def test_solve_svmc_runs_its_kernel(cuda, L, launches):
     (4, False, 2, 1.0, True), (16, True, 3, 0.7, False),
     (16, False, 5, 1.0, True), (32, True, 40, 0.7, True),
     (32, False, 40, 1.0, False), (80, True, 5, 0.7, True),
-    (80, True, 40, 1.0, True),
+    (80, True, 40, 1.0, True), (80, True, 64, 0.7, True),
+    (16, True, 70, 1.0, True), (176, True, 40, 1.0, True),
+    (256, False, 40, 0.7, True),
 ])
 def test_kernel_5_equals_plain(cuda, L, periodic, P, bscale, gm):
     sl = split_ops.build_split(_lattice(L, periodic, cuda))
@@ -268,13 +291,16 @@ def test_kernel_5_equals_plain(cuda, L, periodic, P, bscale, gm):
 
 
 def test_bath_wrapper_refusals(cuda):
-    sl = split_ops.build_split(_lattice(80, True, cuda))
+    # P = 128 at L = 1024: a band of 64 rows of 4 words a site is 1.1 MB
+    # even over a cluster of 16 CTAs
+    sl = split_ops.build_split(_lattice(1024, True, cuda))
     A = schedules.linear(1.0, 1e-8, 4, device=cuda)
-    P = 300  # 2 * 10 words * 3200 sites + P * P floats: more than 227 KB
+    P = 128
     bath = torch.zeros((P, P), device=cuda)
     h = torch.ones((1, P, sl.nh), device=cuda)
     with pytest.raises(ValueError, match="shared"):
         sk.qmc_bath_split_anneal(sl, A, A, 1.0, bath, h, h, 0, True)
+    sl = split_ops.build_split(_lattice(80, True, cuda))
     h = torch.ones((1, 4, sl.nh), device=cuda)
     with pytest.raises(ValueError, match="bath"):
         sk.qmc_bath_split_anneal(sl, A, A, 1.0, bath, h, h, 0, True)

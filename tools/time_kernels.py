@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Slope-time kernels A and 5 of the montecarlosolvers_tpu_torch found on
+the import path, on one CUDA card, at the main path's shapes.
+
+    PYTHONPATH=<checkout> python tools/time_kernels.py [--label NAME]
+        [--L 80] [--sa-geometry CHAINS:C:R ...] [--bath-geometry R ...]
+
+Rows: kernel A at 1280 and 32 chains on the seeded L x L torus (T: 3 -> 0),
+kernel 5 at P = 40, 32 chains, alpha = 1e-2, global moves on the same
+torus; one JSON line each, with the geometry and the clusters the card
+holds at once where the checkout reports them, with ms per sweep (the median pairwise slope of
+best-of-3 wall times over two schedule lengths, as chip_smoke.py's
+slope_ms), the card's name and power limit. It calls only the wrappers
+`sa_split_anneal` and `qmc_bath_split_anneal`, whose arguments every
+version of the port shares, so the same script times an older checkout
+(unpacked with `git archive`) beside the current one in one run.
+`--sa-geometry` times kernel A at CHAINS (1280 or 32) chains at each given
+(C, R), and `--bath-geometry` kernel 5 at each given R, instead of the
+wrapper's own choice (where the checkout has `sa_geometry` /
+`qmc_bath_geometry`).
+"""
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+
+def slope_ms(run, taus, trials=3):
+    best = {}
+    for tau in taus:
+        run(tau)  # warm
+        times = []
+        for _ in range(trials):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(tau)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        best[tau] = min(times)
+    (a, ta), (b, tb) = sorted(best.items())
+    return 1e3 * (tb - ta) / (b - a)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", default="")
+    ap.add_argument("--L", type=int, default=80)
+    ap.add_argument("--sa-geometry", nargs="*", default=[])
+    ap.add_argument("--bath-geometry", nargs="*", default=[])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
+    from montecarlosolvers_tpu_torch.ops import split as split_ops
+    from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    L, P = args.L, 40
+    sl = split_ops.build_split(instances.gaussian_torus(L, seed=0,
+                                                        device=dev))
+    rng = np.random.default_rng(1)
+
+    def spins(*shape):
+        return torch.as_tensor(rng.choice([-1.0, 1.0], size=shape)
+                               .astype(np.float32), device=dev)
+
+    def taus(n):  # two schedule lengths, n and 4n sweeps, at least 5
+        return max(n, 5), 4 * max(n, 5)
+
+    def emit(**rec):
+        print(json.dumps({"label": args.label, **rec, "gpu": smi}),
+              flush=True)
+
+    sa_geoms = [tuple(map(int, g.split(":"))) for g in args.sa_geometry]
+    own_sa = getattr(sk, "sa_geometry", None)
+    for chains in (1280, 32):
+        a, b = (x.contiguous() for x in split_ops.pack_classical(
+            sl, spins(chains, L * L)))
+
+        def run(tau):
+            return sk.sa_split_anneal(
+                sl, schedules.linear(3.0, 0.0, tau, device=dev), a, b, 7)
+        geoms = [g[1:] for g in sa_geoms if g[0] == chains]
+        for geom in geoms or [None]:
+            if geom is not None:
+                sk.sa_geometry = (lambda ch, lat, *_, g=geom:
+                                  (g[0], g[1], sk._threads(lat, g[1])))
+            used = sk.sa_geometry(chains, L, sk.card_resident(
+                "split_sa", L)) if own_sa else None
+            emit(kernel="split_sa", chains=chains, L=L, geometry=used,
+                 resident=used and sk.resident_clusters(
+                     "split_sa", used[1], used[2], L),
+                 ms_per_sweep=slope_ms(run, taus(500 * 6400 // L ** 2)))
+            if own_sa:
+                sk.sa_geometry = own_sa
+
+    a, b = (x.contiguous() for x in split_ops.pack_classical(
+        sl, spins(32, P, L * L)))
+    bath = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+        P, 1e-2, device=dev), P).contiguous()
+    teff = (1.0 / P) * P
+
+    def run(tau):
+        g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+        return sk.qmc_bath_split_anneal(
+            sl, torch.ones_like(g), schedules.jperp(g, teff).contiguous(),
+            teff, bath, a, b, 7, True)
+    own_bath = getattr(sk, "qmc_bath_geometry", None)
+    for geom in [int(g) for g in args.bath_geometry] or [None]:
+        if geom is not None:
+            sk.qmc_bath_geometry = (lambda ch, lat, p, *_, r=geom:
+                                    (r, sk._threads(lat, r)))
+        used = sk.qmc_bath_geometry(32, L, P, sk.card_resident(
+            "split_qmc_bath", L, P)) if own_bath else None
+        emit(kernel="split_qmc_bath", chains=32, L=L, P=P, geometry=used,
+             resident=used and sk.resident_clusters(
+                 "split_qmc_bath", used[0], used[1], L, P),
+             ms_per_sweep=slope_ms(run, taus(100 * 6400 // L ** 2)))
+        if own_bath:
+            sk.qmc_bath_geometry = own_bath
+
+
+if __name__ == "__main__":
+    main()
