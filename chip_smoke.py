@@ -9,9 +9,9 @@ Phases, each printed as one JSON line:
   device              nvidia-smi's name and power limit of the card
   build               nvcc builds kernels A, B, 3, 4, 5, 6 and 7 from csrc/,
                       all at once (seconds)
-  clusters            the (C, R, threads) kernel A and the (R, threads)
-                      kernel 5 take at the shapes below, and how many of
-                      those clusters the card holds at once
+  clusters            the (C, R, threads) kernels A and 6 and the (R,
+                      threads) kernels B and 5 take at the shapes below,
+                      and how many of those clusters the card holds at once
                       (cudaOccupancyMaxActiveClusters)
   sa_kernel_vs_plain  kernel A against its plain PyTorch version on the card,
                       80x80 periodic Gaussian lattice at the main path's
@@ -20,7 +20,10 @@ Phases, each printed as one JSON line:
                       the 256x256 torus at 32 chains, 100 steps
   qmc_kernel_vs_plain kernel B against its plain version at the main path's
                       P = 40 and 32 chains, 40 steps, B in {1, 0.7} x global
-                      moves on / off
+                      moves on / off; P = 2 (32 chains) and P = 64 on the
+                      80x80 torus, P = 40 on the 176x176 torus (4 chains,
+                      8 steps), and P = 2 on the 676x676 torus, which no
+                      cluster holds and the per-phase kernels run
   qmc_bath_kernel_vs_plain  kernel 5 against its plain version: the 80x80
                       torus at the main path's P = 40 and 32 chains, 20
                       steps of Gamma: 3 -> 1e-8, alpha in {1e-2, 0.5} x B in
@@ -31,7 +34,9 @@ Phases, each printed as one JSON line:
                       could not hold
   plane_sa_kernel_vs_plain   kernel 6 against its plain version on an 81x81
                       periodic Gaussian torus and an 81x81 open lattice,
-                      1280 chains, 200 steps
+                      1280 chains, 200 steps; then 32 chains (the PIQMC
+                      pre-anneal), 33 (a ragged chain word) and the 243x243
+                      torus at 32 chains, 100 steps
   plane_qmc_kernel_vs_plain  kernel 3 against its plain version, 40 steps,
                       B in {1, 0.7} x global moves on / off, 32 chains, on
                       the 80x80 torus at P = 5 and the 81x81 torus at P = 5
@@ -59,7 +64,8 @@ Phases, each printed as one JSON line:
                       recomputation and their mean per spin against fixed
                       ranges; the kernel launch counts (ops/_build.py::
                       LAUNCHES: one per launch of a kernel, so kernel 3
-                      counts m + 2 per sweep, kernel 5 once per anneal) are
+                      counts m + 2 per sweep, kernels B and 5 once per
+                      anneal) are
                       set to 0 just before each solve, read just after it
                       and must equal the solve's route exactly
   timing              slope-timed ms per sweep of each kernel and of its
@@ -67,8 +73,8 @@ Phases, each printed as one JSON line:
                       least time the card could take for a sweep (bound:
                       the work's float32 or special-function operations,
                       or its bytes, over the card's peak rates); also
-                      kernel A at 32 chains (the pre-anneal) and kernel 5
-                      at P = 40, 32 chains on the 256x256 torus
+                      kernels A and 6 at 32 chains (the pre-anneals) and
+                      kernel 5 at P = 40, 32 chains on the 256x256 torus
 then a line {"kernels": [...]}, and last {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero without the last line;
 it also fails when torch sees no CUDA device or the package is missing.
@@ -84,9 +90,14 @@ import numpy as np
 import torch
 
 L, ODD_L = 80, 81
-# the largest L of the Pallas split kernels, which kernels A and 5 take by
-# spreading a chain over a cluster of CTAs
+# the largest L of the Pallas split kernels, which kernels A, B and 5 take
+# by spreading a chain over a cluster of CTAs
 BIG_L = 256
+# an odd L above the 241 that kernel 6 took when it held a chain in a block
+BIG_ODD_L = 243
+# an even L whose PIQMC chain no cluster of 16 CTAs holds: kernel B runs
+# its per-phase kernels there
+PHASED_L = 676
 SA_READS, SA_SWEEPS = 1280, 2000
 QMC_READS, QMC_SLICES, QMC_SWEEPS = 32, 40, 1000
 ODD_SLICES = 5
@@ -323,27 +334,36 @@ def main():
     emit({"phase": "build", "nvcc_seconds": seconds,
           "total_seconds": time.perf_counter() - t0})
 
-    # ---- cluster shapes of kernels A and 5
-    for chains, lat_l in ((SA_READS, L), (QMC_READS, L), (QMC_READS + 1, L),
-                          (QMC_READS, BIG_L)):
-        c, r, threads = sk.sa_geometry(chains, lat_l,
-                                       sk.card_resident("split_sa", lat_l))
-        emit({"phase": "clusters", "kernel": "split_sa", "chains": chains,
-              "L": lat_l, "C": c, "R": r, "threads": threads,
-              "ctas": -(-chains // c) * r,
-              "resident_clusters": sk.resident_clusters("split_sa", r,
-                                                        threads, lat_l)})
-    for chains, lat_l, slices in ((BATH_READS, L, BATH_SLICES),
-                                  (BATH_READS, BIG_L, BATH_SLICES),
-                                  (4, BIG_L, BATH_SLICES)):
-        r, threads = sk.qmc_bath_geometry(
-            chains, lat_l, slices,
-            sk.card_resident("split_qmc_bath", lat_l, slices))
-        emit({"phase": "clusters", "kernel": "split_qmc_bath",
-              "chains": chains, "L": lat_l, "slices": slices, "R": r,
-              "threads": threads, "ctas": chains * r,
-              "resident_clusters": sk.resident_clusters(
-                  "split_qmc_bath", r, threads, lat_l, slices)})
+    # ---- cluster shapes of kernels A, 6, B and 5
+    for kname, geometry, shapes in (
+            ("split_sa", sk.sa_geometry,
+             ((SA_READS, L), (QMC_READS, L), (QMC_READS + 1, L),
+              (QMC_READS, BIG_L))),
+            ("plane_sa", pk.plane_sa_geometry,
+             ((SA_READS, ODD_L), (QMC_READS, ODD_L),
+              (QMC_READS, BIG_ODD_L)))):
+        for chains, lat_l in shapes:
+            c, r, threads = geometry(chains, lat_l,
+                                     sk.card_resident(kname, lat_l))
+            emit({"phase": "clusters", "kernel": kname, "chains": chains,
+                  "L": lat_l, "C": c, "R": r, "threads": threads,
+                  "ctas": -(-chains // c) * r,
+                  "resident_clusters": sk.resident_clusters(kname, r,
+                                                            threads, lat_l)})
+    for kname, geometry, shapes in (
+            ("split_qmc", sk.qmc_geometry,
+             ((QMC_READS, L, QMC_SLICES), (QMC_READS, BIG_L, QMC_SLICES))),
+            ("split_qmc_bath", sk.qmc_bath_geometry,
+             ((BATH_READS, L, BATH_SLICES), (BATH_READS, BIG_L, BATH_SLICES),
+              (4, BIG_L, BATH_SLICES)))):
+        for chains, lat_l, slices in shapes:
+            r, threads = geometry(chains, lat_l, slices,
+                                  sk.card_resident(kname, lat_l, slices))
+            emit({"phase": "clusters", "kernel": kname, "chains": chains,
+                  "L": lat_l, "slices": slices, "R": r, "threads": threads,
+                  "ctas": chains * r,
+                  "resident_clusters": sk.resident_clusters(
+                      kname, r, threads, lat_l, slices)})
 
     torus = instances.gaussian_torus(L, seed=0, device=dev)
     big_torus = instances.gaussian_torus(BIG_L, seed=0, device=dev)
@@ -400,26 +420,49 @@ def main():
     results["split_sa"]["max_abs_err"] = err_a
 
     # ---- kernel B against its plain version
-    quarters = split_ops.pack_qmc(
-        sl, random_spins(QMC_READS, QMC_SLICES, L * L))
     gamma = schedules.transverse_field(3.0, 1e-8, 40, device=dev)
     teff = (1.0 / QMC_SLICES) * QMC_SLICES
-    jp = schedules.jperp(gamma, teff).contiguous()
     err_b = 0.0
-    for bscale in (1.0, 0.7):
-        bs = torch.full_like(gamma, bscale)
-        for gm in (True, False):
-            kq = sk.qmc_split_anneal(sl, bs, jp, teff, quarters, 777, gm)
-            rq = sk.qmc_split_anneal_ref(sl, bs, jp, teff, quarters, 777, gm)
-            torch.cuda.synchronize()
-            n_bad, err = mismatches(kq, rq)
-            err_b = max(err_b, err)
-            emit({"phase": "qmc_kernel_vs_plain", "chains": QMC_READS,
-                  "slices": QMC_SLICES, "steps": 40, "B": bscale,
-                  "global_moves": gm, "mismatched_spins": n_bad,
-                  "max_abs_err": err})
-            check(n_bad == 0, f"kernel B equals its plain version "
-                              f"(B={bscale}, global_moves={gm})")
+    cases = [("gaussian_torus(80, 0)", torus, QMC_SLICES, bscale, gm,
+              QMC_READS, 40) for bscale in (1.0, 0.7) for gm in (True, False)]
+    # Q = 1 (both ring terms one element), Q = 32 (a full quarter word), a
+    # lattice one block could not hold, and one no cluster holds
+    cases += [("gaussian_torus(80, 0)", torus, 2, 0.7, True, QMC_READS, 40),
+              ("gaussian_torus(80, 0)", torus, 64, 1.0, True, 4, 20),
+              ("gaussian_torus(176, 0)",
+               instances.gaussian_torus(176, seed=0, device=dev), 40, 0.7,
+               True, 4, 8),
+              (f"gaussian_torus({PHASED_L}, 0)",
+               instances.gaussian_torus(PHASED_L, seed=0, device=dev), 2,
+               1.0, True, 1, 8)]
+    for lname, lat, slices, bscale, gm, chains, steps in cases:
+        slq = split_ops.build_split(lat)
+        quarters = split_ops.pack_qmc(
+            slq, random_spins(chains, slices, lat.L * lat.L))
+        teff_q = (1.0 / slices) * slices
+        jp = schedules.jperp(gamma[:steps], teff_q).contiguous()
+        bs = torch.full_like(jp, bscale)
+        geometry = sk.qmc_geometry(chains, lat.L, slices, sk.card_resident(
+            "split_qmc", lat.L, slices))
+        _build.reset_launches()
+        kq = sk.qmc_split_anneal(slq, bs, jp, teff_q, quarters, 777, gm)
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        rq = sk.qmc_split_anneal_ref(slq, bs, jp, teff_q, quarters, 777, gm)
+        torch.cuda.synchronize()
+        n_bad, err = mismatches(kq, rq)
+        err_b = max(err_b, err)
+        emit({"phase": "qmc_kernel_vs_plain", "lattice": lname,
+              "chains": chains, "slices": slices, "steps": steps,
+              "B": bscale, "global_moves": gm, "geometry": geometry,
+              "launches": launched, "mismatched_spins": n_bad,
+              "max_abs_err": err,
+              "flipped_fraction": float((kq[0] != quarters[0]).float()
+                                        .mean())})
+        check(n_bad == 0, f"kernel B equals its plain version on {lname}, "
+                          f"P={slices} (B={bscale}, global_moves={gm})")
+        check(launched == ({"qmc_split": 1} if geometry else
+                           {"qmc_split_phased": (4 if gm else 2) * steps}),
+              f"kernel B on {lname}, P={slices} launched {launched}")
     results["split_qmc"]["max_abs_err"] = err_b
 
     # ---- kernel 5 against its plain version
@@ -475,20 +518,29 @@ def main():
 
     # ---- kernel 6 against its plain version
     err_6 = 0.0
-    for lname, lat in (("gaussian_torus(81, 0)", odd_torus),
-                       ("random_2d_lattice(81, 0), open", odd_open)):
+    big_odd = instances.gaussian_torus(BIG_ODD_L, seed=0, device=dev)
+    for lname, lat, chains, sched6 in (
+            ("gaussian_torus(81, 0)", odd_torus, SA_READS, sched),
+            ("random_2d_lattice(81, 0), open", odd_open, SA_READS, sched),
+            ("gaussian_torus(81, 0)", odd_torus, QMC_READS, sched100),
+            ("gaussian_torus(81, 0)", odd_torus, QMC_READS + 1, sched100),
+            (f"gaussian_torus({BIG_ODD_L}, 0)", big_odd, QMC_READS,
+             sched100)):
         pl = plane_ops.build_plane(lat)
-        s = random_spins(SA_READS, ODD_L, ODD_L)
-        k6 = pk.sa_plane_anneal(pl, sched, s, seed=4321)
-        r6 = pk.sa_plane_anneal_ref(pl, sched, s, seed=4321)
+        s = random_spins(chains, lat.L, lat.L)
+        k6 = pk.sa_plane_anneal(pl, sched6, s, seed=4321)
+        r6 = pk.sa_plane_anneal_ref(pl, sched6, s, seed=4321)
         torch.cuda.synchronize()
         n_bad, err = mismatches([k6], [r6])
         err_6 = max(err_6, err)
         emit({"phase": "plane_sa_kernel_vs_plain", "lattice": lname,
-              "chains": SA_READS, "steps": 200, "mismatched_spins": n_bad,
-              "max_abs_err": err,
+              "chains": chains, "steps": int(sched6.shape[0]),
+              "geometry": pk.plane_sa_geometry(
+                  chains, lat.L, sk.card_resident("plane_sa", lat.L)),
+              "mismatched_spins": n_bad, "max_abs_err": err,
               "flipped_fraction": float((k6[0] != s[0]).float().mean())})
-        check(n_bad == 0, f"kernel 6 equals its plain version on {lname}")
+        check(n_bad == 0, f"kernel 6 equals its plain version on {lname}, "
+                          f"{chains} chains")
     results["plane_sa"]["max_abs_err"] = err_6
 
     # ---- kernel 3 against its plain version
@@ -589,14 +641,14 @@ def main():
                    slices=BATH_SLICES)
     sa_run, qmc_run, svmc_run = solved("sa"), solved("piqmc"), solved("svmc")
     # key, lattice name, problem, run(problem, **options) -> (samples,
-    # energies), its options, the launches it must make: kernels A, 4, 5, 6
-    # and 7 once per anneal (the PIQMC pre-anneal is one SA anneal), B 4 and
-    # 3 m + 2 = 5 times per sweep
+    # energies), its options, the launches it must make: kernels A, B, 4, 5,
+    # 6 and 7 once per anneal (the PIQMC pre-anneal is one SA anneal), 3
+    # m + 2 = 5 times per sweep
     paths = (
         ("sa", lattice, problem, sa_run, sa_kw, {"sa_split": 1}),
         ("piqmc_p40", lattice, problem, qmc_run,
          dict(qmc_kw, slices=QMC_SLICES),
-         {"sa_split": 1, "qmc_split": 4 * QMC_SWEEPS}),
+         {"sa_split": 1, "qmc_split": 1}),
         ("piqmc_p5", lattice, problem, qmc_run,
          dict(qmc_kw, slices=ODD_SLICES),
          {"sa_split": 1, "qmc_plane": 5 * QMC_SWEEPS}),
@@ -696,8 +748,8 @@ def main():
         th = random_angles(SVMC_READS, ODD_L, ODD_L)
         return lambda tau: fn(pl81, *svmc_sched(tau), SVMC_TEMP, th, 7, True)
 
-    def plane_sa_runner(fn):
-        s = random_spins(SA_READS, ODD_L, ODD_L)
+    def plane_sa_runner(fn, chains=SA_READS):
+        s = random_spins(chains, ODD_L, ODD_L)
         return lambda tau: fn(pl81, schedules.linear(3.0, 0.0, tau,
                                                      device=dev), s, 7)
 
@@ -749,6 +801,8 @@ def main():
     extra = (
         ("split_sa", "cuda", split_sa_runner(sk.sa_split_anneal, QMC_READS),
          (500, 2000), 3, QMC_READS, 1, L * L),
+        ("plane_sa", "cuda", plane_sa_runner(pk.sa_plane_anneal, QMC_READS),
+         (500, 2000), 3, QMC_READS, 1, ODD_L * ODD_L),
         ("split_qmc_bath", "cuda",
          split_bath_runner(sk.qmc_bath_split_anneal,
                            split_ops.build_split(big_torus)),

@@ -1,17 +1,21 @@
-// One chain's split-layout halves spread over a thread-block cluster.
+// One chain's planes (or a group of chains packed as bits) spread over a
+// thread-block cluster.
 //
-// Shared by kernel A (csrc/split_sa.cu) and kernel 5
-// (csrc/split_qmc_bath.cu). A half is L rows of K = L/2 sites (Nh = L*K,
-// site j in row j / K). The R CTAs of a cluster cut the rows into R bands,
-// band r holding rows [floor(r*L/R), floor((r+1)*L/R)), and each CTA keeps
-// its band of every plane in its own shared memory at a common stride S =
-// ceil(L/R)*K words, so a plane sits at the same offset in every CTA. A
-// stencil read reaches at most K sites away (slots 0, +-1, +-K, +-(K-1)),
-// so it lands in the own band or in the first or last row of a neighbouring
-// band, which the read takes through the cluster's distributed shared
-// memory (cluster.map_shared_rank). With R = 1 both neighbours are the CTA
-// itself, and the same reads give the torus wrap j +- d mod Nh.
-// ops/split_kernels.py::band_sites counts S the same way.
+// Shared by kernel A (csrc/split_sa.cu), kernel B (csrc/split_qmc.cu),
+// kernel 5 (csrc/split_qmc_bath.cu) and kernel 6 (csrc/plane_sa.cu). A plane
+// is L rows of `width` sites: a split half has rows of K = L/2 sites (Nh =
+// L*K, site j in row j / K), a full plane rows of L sites. The R CTAs of a
+// cluster cut the rows into R bands, band r holding rows [floor(r*L/R),
+// floor((r+1)*L/R)), and each CTA keeps its band of every plane in its own
+// shared memory at a common stride S = ceil(L/R)*width words, so a plane
+// sits at the same offset in every CTA. A stencil read reaches at most one
+// row away (split: slots 0, +-1, +-K, +-(K-1); plane: +-1, +-L), so it
+// lands in the own band or in the first or last row of a neighbouring band,
+// which the read takes through the cluster's distributed shared memory
+// (cluster.map_shared_rank). With R = 1 both neighbours are the CTA itself,
+// and the same reads give the torus wrap j +- d mod (L*width).
+// ops/split_kernels.py::band_sites counts S the same way for split halves,
+// ops/plane_kernels.py::sa_plane_smem_bytes for full planes.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -27,9 +31,10 @@ __host__ __device__ __forceinline__ int band_row(int r, int L, int R) {
   return static_cast<int>(static_cast<long long>(r) * L / R);
 }
 
-// The common stride of a band's planes: ceil(L/R) rows of K sites
-__host__ __device__ __forceinline__ int band_stride(int L, int R) {
-  return (L + R - 1) / R * (L / 2);
+// The common stride of a band's planes: ceil(L/R) rows of `width` sites
+__host__ __device__ __forceinline__ int band_stride(int L, int R,
+                                                    int width) {
+  return (L + R - 1) / R * width;
 }
 
 struct Band {
@@ -40,8 +45,9 @@ struct Band {
   int nb;                // sites in this band
   int nb_prev;           // sites in the previous band
 
-  // The word of band-local site il, -K <= il < nb + K, of the plane at
-  // word offset `off`; outside [0, nb) it is the neighbouring band's.
+  // The word of band-local site il, -width <= il < nb + width, of the
+  // plane at word offset `off`; outside [0, nb) it is the neighbouring
+  // band's.
   __device__ __forceinline__ uint32_t read(int off, int il) const {
     if (il < 0) return prev[off + nb_prev + il];
     if (il >= nb) return next[off + il - nb];
@@ -51,8 +57,7 @@ struct Band {
 
 __device__ __forceinline__ Band make_band(const cg::cluster_group& cluster,
                                           uint32_t* smem, int rank, int R,
-                                          int L) {
-  const int K = L / 2;
+                                          int L, int width) {
   const int pr = rank == 0 ? R - 1 : rank - 1;
   const int nx = rank + 1 == R ? 0 : rank + 1;
   Band b;
@@ -60,9 +65,9 @@ __device__ __forceinline__ Band make_band(const cg::cluster_group& cluster,
   b.prev = cluster.map_shared_rank(smem, pr);
   b.next = cluster.map_shared_rank(smem, nx);
   const int row = band_row(rank, L, R);
-  b.lo = row * K;
-  b.nb = (band_row(rank + 1, L, R) - row) * K;
-  b.nb_prev = (band_row(pr + 1, L, R) - band_row(pr, L, R)) * K;
+  b.lo = row * width;
+  b.nb = (band_row(rank + 1, L, R) - row) * width;
+  b.nb_prev = (band_row(pr + 1, L, R) - band_row(pr, L, R)) * width;
   return b;
 }
 

@@ -146,12 +146,13 @@ split_qmc_bath_kernel(const float* __restrict__ w,
   const int words = (P + 31) / 32;
   const int K = L / 2;
   const int nh = L * K;
-  const int S = mcs::band_stride(L, R);
+  const int S = mcs::band_stride(L, R, L / 2);
   // word wd of half A at wd*S, of half B at (words + wd)*S, then M
   const int half_b = words * S;
   float* const m = reinterpret_cast<float*>(smem + 2 * half_b);
   const int chain = blockIdx.x / R;
-  const mcs::Band band = mcs::make_band(cluster, smem, blockIdx.x % R, R, L);
+  const mcs::Band band =
+      mcs::make_band(cluster, smem, blockIdx.x % R, R, L, L / 2);
   const size_t base = static_cast<size_t>(chain) * P * nh + band.lo;
 
   for (int i = threadIdx.x; i < P * P; i += blockDim.x) m[i] = bath[i];
@@ -308,7 +309,8 @@ KernelFn kernel_for(int P) {
 // bath matrix (ops/split_kernels.py::qmc_bath_smem_bytes counts the same).
 size_t smem_bytes(int P, int L, int R) {
   const size_t words = (P + 31) / 32;
-  return (2 * words * mcs::band_stride(L, R) + static_cast<size_t>(P) * P) *
+  return (2 * words * mcs::band_stride(L, R, L / 2) +
+          static_cast<size_t>(P) * P) *
          sizeof(uint32_t);
 }
 

@@ -87,9 +87,10 @@ split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
   cg::cluster_group cluster = cg::this_cluster();
   const int K = L / 2;
   const int nh = L * K;
-  const int S = mcs::band_stride(L, R);  // half b's words start at S
+  const int S = mcs::band_stride(L, R, L / 2);  // half b's words start at S
   const int group = blockIdx.x / R;
-  const mcs::Band band = mcs::make_band(cluster, smem, blockIdx.x % R, R, L);
+  const mcs::Band band =
+      mcs::make_band(cluster, smem, blockIdx.x % R, R, L, L / 2);
   const size_t base = static_cast<size_t>(group) * nh + band.lo;
   for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
     smem[il] = a_in[base + il];
@@ -142,7 +143,8 @@ split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
 }
 
 size_t smem_bytes(int L, int R) {
-  return 2 * static_cast<size_t>(mcs::band_stride(L, R)) * sizeof(uint32_t);
+  return 2 * static_cast<size_t>(mcs::band_stride(L, R, L / 2)) *
+         sizeof(uint32_t);
 }
 
 }  // namespace

@@ -54,9 +54,16 @@ SIGNATURES = {
     },
     "split_qmc": {
         # w, h, b_sched, jp, teff, 4 quarters in, 4 quarters out,
-        # chains, Q, nh, K, nslots, steps, seed, global_moves, stream,
-        # launched
+        # chains, Q, R, threads, L, nslots, steps, seed, global_moves, stream
         "split_qmc_anneal": (
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 9 + [_P]
+        ),
+        # Q, R, threads, L, out: clusters resident at once
+        "split_qmc_max_active_clusters": (_I, [_I] * 4 + [_IP]),
+        # the per-phase kernels: w, h, b_sched, jp, teff, 4 quarters in,
+        # 4 quarters out, chains, Q, nh, K, nslots, steps, seed,
+        # global_moves, stream, launched
+        "split_qmc_phased_anneal": (
             _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 8 + [_P, _NP]
         ),
         "split_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
@@ -72,9 +79,11 @@ SIGNATURES = {
         "split_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "plane_sa": {
-        # planes, sched, s_in, s_out, chains, L, row_stride, plane_stride,
-        # steps, seed, stream
-        "plane_sa_anneal": (_I, [_P] * 4 + [_I] * 6 + [_P]),
+        # planes, sched, s_in, s_out (the planes as chain bits), chains, C,
+        # R, threads, L, row_stride, plane_stride, steps, seed, stream
+        "plane_sa_anneal": (_I, [_P] * 4 + [_I] * 9 + [_P]),
+        # R, threads, L, out: clusters resident at once
+        "plane_sa_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         "plane_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "plane_qmc": {
@@ -110,13 +119,14 @@ _LIBS = {}
 # the kernels that keep a chain in shared memory are refused beyond it.
 SMEM_LIMIT_BYTES = 232448
 
-# Kernel launches per kernel. Kernels A, 4, 5, 6 and 7 run a whole schedule
-# in one launch (for A and 5 one cluster launch, whatever the cluster size);
-# B and 3 launch once per phase, and their C entry points report how many
-# launches they issued.
-LAUNCHES = {"sa_split": 0, "qmc_split": 0, "svmc_split": 0,
-            "qmc_bath_split": 0, "sa_plane": 0, "qmc_plane": 0,
-            "svmc_plane": 0}
+# Kernel launches per kernel. Kernels A, B, 4, 5, 6 and 7 run a whole
+# schedule in one launch (for A, B, 5 and 6 one cluster launch, whatever the
+# cluster size); kernel 3, and kernel B's per-phase kernels for the shapes
+# no cluster holds ("qmc_split_phased"), launch once per phase, and their C
+# entry points report how many launches they issued.
+LAUNCHES = {"sa_split": 0, "qmc_split": 0, "qmc_split_phased": 0,
+            "svmc_split": 0, "qmc_bath_split": 0, "sa_plane": 0,
+            "qmc_plane": 0, "svmc_plane": 0}
 
 
 def reset_launches():

@@ -29,6 +29,12 @@ The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts the kernel launches under "sa_plane",
 "qmc_plane" and "svmc_plane".
+
+Kernel 6 packs C chains to a word per site (`split_kernels.pack_chain_bits`
+on the (chains, L*L) view) and spreads each group of C chains over a
+thread-block cluster of R CTAs, each holding a band of rows of the plane
+twice (csrc/plane_sa.cu); `plane_sa_geometry` chooses (C, R, threads) by
+kernel A's rules.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.ops import plane as plane_ops
+from montecarlosolvers_tpu_torch.ops import split_kernels as sk
 from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
 from montecarlosolvers_tpu_torch.ops.piqmc import (spacetime_num_phases,
@@ -155,10 +162,38 @@ def svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed, tf):
 # ------------------------------------------------------------ kernel wrappers
 
 
-def sa_plane_smem_bytes(L):
-    """Shared memory of kernel 6's one block per chain: its L x L plane of
-    floats, so the card takes L <= 241."""
-    return L * L * 4
+def sa_plane_smem_bytes(L, R):
+    """Shared memory of one kernel-6 CTA: its band of ceil(L/R) rows of
+    the plane, one 32-bit word of chain bits per site, twice (the ping-pong
+    buffers of csrc/plane_sa.cu), so R = 16 holds L <= 675."""
+    return 2 * -(-L // R) * L * 4
+
+
+def plane_sa_geometry(chains, L, resident=None):
+    """(C, R, threads) of kernel 6 for `chains` chains on an L x L plane,
+    by the rules of `split_kernels.sa_geometry`: C chains to a word
+    (`chain_word_bits`), each group over the largest cluster of R CTAs whose
+    band fits a CTA and whose clusters the card holds at once (`resident(R,
+    threads)`, None: any), one thread per site of a phase's color in the
+    largest band, in whole warps, at most MAX_THREADS. Raises ValueError
+    when no cluster holds the plane."""
+    C = sk.chain_word_bits(chains)
+
+    def threads(r):
+        sites = -(-L // r) * ((L + 1) // 2)
+        return min(sk.MAX_THREADS, -(-sites // 32) * 32)
+
+    R = sk._cluster(L, -(-chains // C), lambda r: sa_plane_smem_bytes(L, r),
+                    resident and (lambda r: resident(r, threads(r))))
+    if R is None:
+        r = min(L, sk.CLUSTER_SIZES[-1])
+        raise ValueError(
+            f"kernel 6 keeps a band of the plane twice, 2*ceil(L/R)*L*4 = "
+            f"{sa_plane_smem_bytes(L, r)} bytes at R = {r}, in each CTA's "
+            f"shared memory; no cluster of up to {sk.CLUSTER_SIZES[-1]} "
+            f"CTAs holds L = {L} within the limit of "
+            f"{_build.SMEM_LIMIT_BYTES} bytes")
+    return C, R, threads(R)
 
 
 def svmc_plane_smem_bytes(L):
@@ -169,31 +204,30 @@ def svmc_plane_smem_bytes(L):
 
 def sa_plane_anneal(pl, sched, spins, seed):
     """Kernel 6 on CUDA tensors, `sa_plane_anneal_ref` on CPU tensors.
-    Arguments as for `sa_plane_anneal_ref`; returns the new spins."""
+    Arguments as for `sa_plane_anneal_ref`; returns the new spins. The
+    kernel keeps each spin's sign as a bit, so the spins must hold +/-1."""
     if _build.route(spins.device, "plane") == "cpu":
         return sa_plane_anneal_ref(pl, sched, spins, seed)
     chains, L = spins.shape[0], pl.L
     dev = spins.device
-    smem = sa_plane_smem_bytes(L)
-    if smem > _build.SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"kernel 6 keeps L*L*4 = {smem} bytes of one chain in shared "
-            f"memory; the limit is {_build.SMEM_LIMIT_BYTES} (L = {L})"
-        )
+    C, R, threads = plane_sa_geometry(chains, L,
+                                      sk.card_resident("plane_sa", L))
     _build.check_arg(spins, "spins", (chains, L, L), dev)
     _build.check_arg(pl.w, "planes", (5, L, L), dev)
     steps = int(sched.shape[0])
     _build.check_arg(sched, "sched", (steps,), dev)
-    out = torch.empty_like(spins)
-    R, C = pl.strides
+    words = sk.pack_chain_bits(spins.reshape(chains, L * L), C)
+    out = torch.empty_like(words)
+    rows, cols = pl.strides
     lib = _build.library("plane_sa")
     rc = lib.plane_sa_anneal(
-        *map(_build.ptr, (pl.w, sched, spins, out)), chains, L, C, R * C,
-        steps, cr.wrap_int32(seed), _build.stream_of(dev),
+        *map(_build.ptr, (pl.w, sched, words, out)), chains, C, R, threads,
+        L, cols, rows * cols, steps, cr.wrap_int32(seed),
+        _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "plane_sa_anneal", rc)
     _build.LAUNCHES["sa_plane"] += 1
-    return out
+    return sk.unpack_chain_bits(out, chains, C).reshape(chains, L, L)
 
 
 def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves):

@@ -26,16 +26,19 @@ kernel equals its plain version.
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts the kernel launches under "sa_split",
-"qmc_split", "qmc_bath_split" and "svmc_split".
+"qmc_split" (kernel B's per-phase kernels under "qmc_split_phased"),
+"qmc_bath_split" and "svmc_split".
 
-Kernels A and 5 spread a chain (kernel A: a group of C chains packed as
+Kernels A, B and 5 spread a chain (kernel A: a group of C chains packed as
 bits, `pack_chain_bits`) over a thread-block cluster of R CTAs, each
-holding a band of rows of the halves (csrc/cluster.cuh).
-`sa_geometry` and `qmc_bath_geometry` choose C, R and the threads per CTA
+holding a band of rows of the halves (csrc/cluster.cuh), and so does kernel
+6 on the full plane (`ops/plane_kernels.py`). `sa_geometry`,
+`qmc_geometry` and `qmc_bath_geometry` choose C, R and the threads per CTA
 from the shape and, on the card, from how many clusters it holds at once
 (`resident_clusters`); the CPU tests reach the choice with a stand-in
-count. Both raise ValueError for a shape that no cluster of
-CLUSTER_SIZES[-1] CTAs holds.
+count. `sa_geometry` and `qmc_bath_geometry` raise ValueError for a shape
+that no cluster of CLUSTER_SIZES[-1] CTAs holds; for such a shape
+`qmc_geometry` returns None and kernel B runs on its per-phase kernels.
 """
 
 from __future__ import annotations
@@ -53,16 +56,15 @@ from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
 from montecarlosolvers_tpu_torch.ops.piqmc import bath_matrix, sum_in_order
 
-# Kernel B puts chains on gridDim.z.
-QMC_MAX_CHAINS = 65535
-# Cluster sizes kernels A and 5 may take: up to 8 CTAs is portable, 16
+# Cluster sizes kernels A, B, 5 and 6 may take: up to 8 CTAs is portable, 16
 # needs cudaFuncAttributeNonPortableClusterSizeAllowed (Hopper allows it).
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
-# Kernel A packs C = 32 chains to a word while that leaves at least this
-# many groups; below it C halves, down to 1, so few chains still spread.
+# Kernels A and 6 pack C = 32 chains to a word while that leaves at least
+# this many groups; below it C halves, down to 1, so few chains still
+# spread.
 FILL_GROUPS = 32
-# Threads per CTA of kernels A and 5 (csrc/split_sa.cu and
-# split_qmc_bath.cu compile for 5 such CTAs an SM).
+# Threads per CTA of the cluster kernels (csrc/split_sa.cu, split_qmc.cu,
+# split_qmc_bath.cu and plane_sa.cu compile for 5 such CTAs an SM).
 MAX_THREADS = 256
 
 
@@ -297,6 +299,15 @@ def _threads(L, R):
     return min(MAX_THREADS, -(-band_sites(L, R) // 32) * 32)
 
 
+def chain_word_bits(chains):
+    """C of kernels A and 6: 32 chains to a word while that leaves
+    FILL_GROUPS groups, else halved, down to 1."""
+    C = 32
+    while C > 1 and -(-chains // C) < FILL_GROUPS:
+        C //= 2
+    return C
+
+
 def sa_smem_bytes(L, R):
     """Shared memory of one kernel-A CTA: its band of both halves, one
     32-bit word of chain bits per site."""
@@ -310,9 +321,7 @@ def sa_geometry(chains, L, resident=None):
     threads)` is how many clusters the card holds at once, None: any),
     `threads` threads per CTA. Raises ValueError when no cluster holds the
     lattice."""
-    C = 32
-    while C > 1 and -(-chains // C) < FILL_GROUPS:
-        C //= 2
+    C = chain_word_bits(chains)
     R = _cluster(L, -(-chains // C), lambda r: sa_smem_bytes(L, r),
                  resident and (lambda r: resident(r, _threads(L, r))))
     if R is None:
@@ -323,6 +332,23 @@ def sa_geometry(chains, L, resident=None):
             f"no cluster of up to {CLUSTER_SIZES[-1]} CTAs holds L = {L} "
             f"within the limit of {_build.SMEM_LIMIT_BYTES} bytes")
     return C, R, _threads(L, R)
+
+
+def qmc_smem_bytes(P, L, R):
+    """Shared memory of one kernel-B CTA: its band of the four quarters as
+    bits, ceil(Q/32) words a site each (Q = P/2)."""
+    return 4 * (-(-(P // 2) // 32)) * band_sites(L, R) * 4
+
+
+def qmc_geometry(chains, L, P, resident=None):
+    """(R, threads) of kernel B: each chain over a cluster of R CTAs
+    (`_cluster`, `resident` as for `sa_geometry`) of `threads` threads; None
+    when no cluster of up to CLUSTER_SIZES[-1] CTAs holds a chain of P
+    slices on an L x L lattice (at P <= 64 an even L above 674, at
+    64 < P <= 128 above 480), and the wrapper runs the per-phase kernels."""
+    R = _cluster(L, chains, lambda r: qmc_smem_bytes(P, L, r),
+                 resident and (lambda r: resident(r, _threads(L, r))))
+    return None if R is None else (R, _threads(L, R))
 
 
 def qmc_bath_smem_bytes(P, L, R):
@@ -377,19 +403,19 @@ _RESIDENT = {}
 
 def resident_clusters(kernel, R, threads, L, P=None):
     """How many clusters of R CTAs of `threads` threads of kernel
-    "split_sa" or "split_qmc_bath" (at P slices) on an L x L lattice the
-    card holds at once (cudaOccupancyMaxActiveClusters; 0 when a CTA does
-    not fit). Cached per shape."""
+    "split_sa", "plane_sa", "split_qmc" or "split_qmc_bath" (the last two
+    at P slices) on an L x L lattice the card holds at once
+    (cudaOccupancyMaxActiveClusters; 0 when a CTA does not fit). Cached per
+    shape."""
     key = (kernel, R, threads, L, P)
     if key not in _RESIDENT:
         lib = _build.library(kernel)
         n = ctypes.c_int(0)
-        if kernel == "split_sa":
-            rc = lib.split_sa_max_active_clusters(R, threads, L,
-                                                  ctypes.byref(n))
-        else:
-            rc = lib.split_qmc_bath_max_active_clusters(P, R, threads, L,
-                                                        ctypes.byref(n))
+        # kernel B's shared memory depends on Q = P/2, kernel 5's on P
+        slices = () if P is None else (
+            P // 2 if kernel == "split_qmc" else P,)
+        rc = getattr(lib, f"{kernel}_max_active_clusters")(
+            *slices, R, threads, L, ctypes.byref(n))
         _build.raise_on_error(lib, f"{kernel}_max_active_clusters", rc,
                               error_fn=f"{kernel}_anneal_error_string")
         _RESIDENT[key] = n.value
@@ -398,7 +424,7 @@ def resident_clusters(kernel, R, threads, L, P=None):
 
 def card_resident(kernel, L, P=None):
     """The `resident(R, threads)` of the card that the wrappers hand to
-    `sa_geometry` / `qmc_bath_geometry`."""
+    the geometry functions."""
     return lambda r, threads: resident_clusters(kernel, r, threads, L, P)
 
 
@@ -439,7 +465,18 @@ def sa_split_anneal(sl, sched, a, b, seed):
 
 def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
     """Kernel B on CUDA tensors, `qmc_split_anneal_ref` on CPU tensors.
-    Arguments as for `qmc_split_anneal_ref`; returns new quarters."""
+    Arguments as for `qmc_split_anneal_ref`; returns new quarters. The
+    kernel keeps each spin's sign as a bit, so the quarters must hold +/-1.
+
+    Two hand-written CUDA kernels share the work, chosen by shape alone:
+    when `qmc_geometry` finds a cluster of up to CLUSTER_SIZES[-1] CTAs
+    whose shared memory holds a band of a chain's four quarters as bits
+    (every even L <= 674 at P <= 64, L <= 480 at P <= 128), the cluster
+    kernel runs the whole schedule in one launch (LAUNCHES["qmc_split"]);
+    for a larger chain the per-phase kernels keep the state in device
+    memory and launch four times a step, two without global moves
+    (LAUNCHES["qmc_split_phased"]). Both equal the plain version bitwise;
+    neither is a fallback from a failure of the other."""
     xe = quarters[0]
     if _build.route(xe.device, "split") == "cpu":
         return qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
@@ -448,8 +485,6 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
     dev = xe.device
     if nh != sl.nh:
         raise ValueError(f"quarters have {nh} sites, lattice has {sl.nh}")
-    if chains > QMC_MAX_CHAINS:
-        raise ValueError(f"kernel B takes at most {QMC_MAX_CHAINS} chains")
     for t, name in zip(quarters, ("xe", "xo", "ye", "yo")):
         _build.check_arg(t, name, (chains, Q, nh), dev)
     _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
@@ -459,15 +494,26 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
     _build.check_arg(jp, "jp", (steps,), dev)
     outs = [torch.empty_like(q) for q in quarters]
     lib = _build.library("split_qmc")
+    args = (*map(_build.ptr, (sl.w_ab, sl.h_ab, b_sched, jp)),
+            ctypes.c_float(teff), *map(_build.ptr, (*quarters, *outs)))
+    geometry = qmc_geometry(chains, sl.L, 2 * Q,
+                            card_resident("split_qmc", sl.L, 2 * Q))
+    if geometry is not None:
+        rc = lib.split_qmc_anneal(
+            *args, chains, Q, *geometry, sl.L, sl.nslots, steps,
+            cr.wrap_int32(seed), int(bool(global_moves)),
+            _build.stream_of(dev))
+        _build.raise_on_error(lib, "split_qmc_anneal", rc)
+        _build.LAUNCHES["qmc_split"] += 1
+        return tuple(outs)
     n = ctypes.c_longlong(0)  # kernels launched
-    rc = lib.split_qmc_anneal(
-        *map(_build.ptr, (sl.w_ab, sl.h_ab, b_sched, jp)),
-        ctypes.c_float(teff), *map(_build.ptr, (*quarters, *outs)),
-        chains, Q, nh, sl.K, sl.nslots, steps, cr.wrap_int32(seed),
+    rc = lib.split_qmc_phased_anneal(
+        *args, chains, Q, nh, sl.K, sl.nslots, steps, cr.wrap_int32(seed),
         int(bool(global_moves)), _build.stream_of(dev), ctypes.byref(n),
     )
-    _build.raise_on_error(lib, "split_qmc_anneal", rc)
-    _build.LAUNCHES["qmc_split"] += n.value
+    _build.raise_on_error(lib, "split_qmc_phased_anneal", rc,
+                          error_fn="split_qmc_anneal_error_string")
+    _build.LAUNCHES["qmc_split_phased"] += n.value
     return tuple(outs)
 
 

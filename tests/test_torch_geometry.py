@@ -6,9 +6,13 @@ spreads each group of C chains over a thread-block cluster of R CTAs;
 H100 at the main path's 1280 SA chains and at the PIQMC pre-anneal's 32,
 and R so that a band of rows fits one CTA's 227 KB. `pack_chain_bits` /
 `unpack_chain_bits` move the (chains, Nh) halves in and out of that
-layout. Kernels 4, 6 and 7 still hold one chain in one block, so the card
-refuses the lattices whose chain does not fit (README.md states the
-limits; the CPU's plain versions take any L).
+layout. Kernel 6 (`csrc/plane_sa.cu`) takes the same design on the full
+L x L plane (`ops/plane_kernels.py::plane_sa_geometry`), and kernel B
+(`csrc/split_qmc.cu`) spreads one chain's four quarters as bits over a
+cluster (`split_kernels.qmc_geometry`), or, for a chain no cluster holds,
+runs its per-phase kernels. Kernels 4 and 7 still hold one chain in one
+block, so the card refuses the lattices whose chain does not fit
+(README.md states the limits; the CPU's plain versions take any L).
 """
 
 import numpy as np
@@ -77,11 +81,60 @@ def test_pack_chain_bits_round_trip(C):
     assert out.dtype == torch.float32 and torch.equal(out, x)
 
 
+# (chains, L) -> (C, R) of kernel 6, by kernel A's rules; L = 675 is the
+# largest plane whose band, twice, fits a CTA of a 16-CTA cluster, where
+# 1280 chains' 40 groups take R = 16 though not all 40 clusters fit at once
+@pytest.mark.parametrize("chains,L,C,R", [
+    (1, 5, 1, 4), (1, 9, 1, 8), (32, 81, 1, 16), (33, 81, 1, 16),
+    (1280, 81, 32, 8), (1, 243, 1, 16), (32, 243, 1, 16),
+    (1280, 243, 32, 8), (1, 675, 1, 16), (1280, 675, 32, 16),
+])
+def test_plane_sa_geometry(chains, L, C, R):
+    c, r, threads = pk.plane_sa_geometry(chains, L, h100_resident)
+    assert (c, r) == (C, R)
+    assert c == sk.sa_geometry(chains, 80, h100_resident)[0]
+    assert pk.sa_plane_smem_bytes(L, r) <= _build.SMEM_LIMIT_BYTES
+    # one thread per site of a phase's color in the largest band
+    assert threads == min(sk.MAX_THREADS,
+                          -(-(-(-L // r) * ((L + 1) // 2)) // 32) * 32)
+
+
+def test_plane_sa_geometry_limit():
+    assert pk.sa_plane_smem_bytes(675, 16) <= _build.SMEM_LIMIT_BYTES
+    assert pk.sa_plane_smem_bytes(676, 16) > _build.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match="no cluster of up to 16 CTAs"):
+        pk.plane_sa_geometry(32, 676)
+
+
+# (chains, L, P) -> R of kernel B, or None where no cluster of 16 CTAs
+# holds a chain's four quarters as bits and the per-phase kernels run: at
+# P <= 64 (one word a quarter) even L <= 674, at P = 128 L <= 480; 1280
+# chains fit no R whole, so they take the smallest R that holds a chain
+@pytest.mark.parametrize("chains,L,P,R", [
+    (32, 80, 40, 16), (32, 80, 2, 16), (33, 80, 64, 16), (32, 176, 40, 16),
+    (32, 256, 40, 16), (1280, 80, 40, 1), (4, 16, 130, 16),
+    (32, 674, 40, 16), (32, 676, 40, None), (1, 480, 128, 16),
+    (1, 482, 128, None),
+])
+def test_qmc_geometry(chains, L, P, R):
+    geometry = sk.qmc_geometry(chains, L, P, h100_resident)
+    if R is None:
+        assert geometry is None
+        assert sk.qmc_smem_bytes(P, L, 16) > _build.SMEM_LIMIT_BYTES
+        return
+    r, threads = geometry
+    assert r == R
+    assert sk.qmc_smem_bytes(P, L, r) <= _build.SMEM_LIMIT_BYTES
+    assert threads == sk._threads(L, r)
+    # four quarters of ceil(Q/32) words a site
+    assert sk.qmc_smem_bytes(P, L, r) == \
+        4 * -(-(P // 2) // 32) * sk.band_sites(L, r) * 4
+
+
 # kernel -> (shared memory of one chain at L, largest L the card takes,
 # step between the L it takes): one block per chain
 @pytest.mark.parametrize("smem,largest_L,step", [
     (sk.svmc_smem_bytes, 138, 2),       # kernel 4: even L
-    (pk.sa_plane_smem_bytes, 241, 1),   # kernel 6
     (pk.svmc_plane_smem_bytes, 120, 1), # kernel 7
 ])
 def test_one_block_kernel_limits(smem, largest_L, step):

@@ -9,10 +9,14 @@ this file there with
 
 Small shapes that the main path does not reach: Nh = 50 (L = 10, tails of
 the 256-thread blocks), Q = 1 (P = 2, both Trotter terms one element), open
-and periodic lattices, B != 1; for the full-plane kernels odd and even L,
-P = 2 to 7 (m = 2, 3 and 4 local phases), and the odd-torus wrap pairs
-that share a color; for the SVMC kernels 4 (even L) and 7 (any L) L = 5 to
-33, open and periodic, TF proposals on and off, held to max |d theta| <=
+and periodic lattices, B != 1; for kernel B also 33 chains, P = 40 and 64
+(one bit word a quarter), 66 and 130 (two and three), L = 4, 80 and 176
+over clusters of up to 16 CTAs, more than 65535 chains, and L = 676, which
+no cluster holds and the per-phase kernels run; for the full-plane kernels
+odd and even L, P = 2 to 7 (m = 2, 3 and 4 local phases), and the
+odd-torus wrap pairs that share a color, kernel 6 at 1, 6, 32, 33 (a
+ragged chain word) and 1280 chains on L = 5 to 243; for the SVMC kernels
+4 (even L) and 7 (any L) L = 5 to 33, open and periodic, TF proposals on and off, held to max |d theta| <=
 2e-5 with no angle off by more than 1e-3 (no diverged decision); for the
 bath kernel 5 L = 4 to 80, open and periodic, P = 2, 3, 5, 40 and 64 (one
 and two bit words per line; P above 64 takes the runtime-P kernel), B !=
@@ -27,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from montecarlosolvers_tpu_torch import schedules
+from montecarlosolvers_tpu_torch import convert, schedules
 from montecarlosolvers_tpu_torch.models import instances
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import plane as plane_ops
@@ -69,24 +73,51 @@ def test_kernel_a_equals_plain(cuda, L, periodic):
         assert torch.equal(x, y)
 
 
+# (L, P, periodic, global moves, B, chains); L = 676 is held by no
+# cluster of 16 CTAs and runs on the per-phase kernels
 @pytest.mark.parametrize(
-    "L,P,periodic,gm,bscale",
-    [(10, 2, True, True, 1.0), (16, 4, False, True, 0.7),
-     (16, 6, True, False, 0.7), (32, 8, True, True, 1.0)],
+    "L,P,periodic,gm,bscale,chains",
+    [(10, 2, True, True, 1.0, 3), (16, 4, False, True, 0.7, 3),
+     (16, 6, True, False, 0.7, 3), (32, 8, True, True, 1.0, 3),
+     (4, 2, False, True, 1.0, 33), (80, 40, True, True, 0.7, 33),
+     (80, 64, True, False, 1.0, 4), (16, 66, True, True, 0.7, 3),
+     (16, 130, False, True, 1.0, 2), (176, 40, True, True, 1.0, 4),
+     (676, 2, True, True, 0.7, 1)],
 )
-def test_kernel_b_equals_plain(cuda, L, P, periodic, gm, bscale):
+def test_kernel_b_equals_plain(cuda, L, P, periodic, gm, bscale, chains):
     lat = _lattice(L, periodic, cuda)
     sl = split_ops.build_split(lat)
     rng = np.random.default_rng(1)
-    c = torch.as_tensor(rng.choice([-1.0, 1.0], size=(3, P, L * L))
+    c = torch.as_tensor(rng.choice([-1.0, 1.0], size=(chains, P, L * L))
                         .astype(np.float32), device=cuda)
     qs = split_ops.pack_qmc(sl, c)
     gamma = schedules.transverse_field(2.5, 1e-8, 30, device=cuda)
     teff = (1.0 / P) * P
     jp = schedules.jperp(gamma, teff).contiguous()
     bs = torch.full_like(gamma, bscale)
+    _build.reset_launches()
     out = sk.qmc_split_anneal(sl, bs, jp, teff, qs, 5, gm)
+    phased = sk.qmc_geometry(chains, L, P) is None
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == (
+        {"qmc_split_phased": (4 if gm else 2) * 30} if phased
+        else {"qmc_split": 1})
     ref = sk.qmc_split_anneal_ref(sl, bs, jp, teff, qs, 5, gm)
+    for x, y, x0 in zip(out, ref, qs):
+        assert torch.equal(x, y)
+        assert not torch.equal(x, x0)
+
+
+def test_kernel_b_takes_more_than_65535_chains(cuda):
+    sl = split_ops.build_split(_lattice(4, True, cuda))
+    rng = np.random.default_rng(7)
+    c = torch.as_tensor(rng.choice([-1.0, 1.0], size=(65537, 2, 16))
+                        .astype(np.float32), device=cuda)
+    qs = split_ops.pack_qmc(sl, c)
+    gamma = schedules.transverse_field(2.5, 1e-8, 4, device=cuda)
+    jp = schedules.jperp(gamma, 1.0).contiguous()
+    bs = torch.ones_like(gamma)
+    out = sk.qmc_split_anneal(sl, bs, jp, 1.0, qs, 5, True)
+    ref = sk.qmc_split_anneal_ref(sl, bs, jp, 1.0, qs, 5, True)
     for x, y in zip(out, ref):
         assert torch.equal(x, y)
 
@@ -123,19 +154,44 @@ def test_wrapper_refusals(cuda):
     ab = torch.ones((1, sl_big.nh), device=cuda)
     with pytest.raises(ValueError, match="shared"):
         sk.sa_split_anneal(sl_big, sched, ab, ab, 0)
+    # kernel B refuses no shape and no chain count: a chain no cluster
+    # holds runs on its per-phase kernels (test_kernel_b_equals_plain)
+    q = torch.ones((2, 1, sl.nh), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        sk.qmc_split_anneal(sl, sched, sched, 1.0, (q.double(),) * 4, 0, True)
+    assert sk.qmc_geometry(2, 676, 40) is None
 
 
-@pytest.mark.parametrize("L,periodic", [(5, True), (9, False), (16, True),
-                                        (33, True)])
-def test_kernel_6_equals_plain(cuda, L, periodic):
+@pytest.mark.parametrize("L,periodic,chains", [
+    (5, True, 6), (9, False, 6), (16, True, 6), (33, True, 6),
+    (5, True, 1), (9, False, 32), (9, False, 1280), (81, True, 33),
+    (81, True, 1280), (243, True, 1), (243, True, 32),
+])
+def test_kernel_6_equals_plain(cuda, L, periodic, chains):
     pl = plane_ops.build_plane(_lattice(L, periodic, cuda))
     rng = np.random.default_rng(2)
-    s = torch.as_tensor(rng.choice([-1.0, 1.0], size=(6, L, L))
+    s = torch.as_tensor(rng.choice([-1.0, 1.0], size=(chains, L, L))
                         .astype(np.float32), device=cuda)
     sched = schedules.linear(3.0, 0.0, 64, device=cuda)
     out = pk.sa_plane_anneal(pl, sched, s, 3)
     assert torch.equal(out, pk.sa_plane_anneal_ref(pl, sched, s, 3))
     assert not torch.equal(out, s)
+
+
+def test_kernel_6_odd_torus_wrap_pairs(cuda):
+    """The 7 x 7 ferromagnetic torus, whose wrap pairs share a phase
+    (ROADMAP.md queue 3), at T = 0 and from a ramp: each pair is decided
+    from the state the phase found, as the plain version decides it."""
+    ferro = convert.lattice_from_arrays(-np.ones((7, 7)), -np.ones((7, 7)),
+                                        np.zeros((7, 7)), device=cuda)
+    pl = plane_ops.build_plane(ferro)
+    rng = np.random.default_rng(5)
+    s = torch.as_tensor(rng.choice([-1.0, 1.0], size=(40, 7, 7))
+                        .astype(np.float32), device=cuda)
+    for sched in (torch.zeros(9, device=cuda),
+                  schedules.linear(3.0, 0.0, 200, device=cuda)):
+        out = pk.sa_plane_anneal(pl, sched, s, 2)
+        assert torch.equal(out, pk.sa_plane_anneal_ref(pl, sched, s, 2))
 
 
 @pytest.mark.parametrize(
@@ -167,17 +223,17 @@ def test_plane_wrapper_refusals(cuda):
         pk.sa_plane_anneal(pl, sched, s.double(), 0)
     with pytest.raises(ValueError, match="contiguous"):
         pk.sa_plane_anneal(pl, sched, s.transpose(1, 2), 0)
-    big = plane_ops.build_plane(_lattice(242, False, cuda))
+    big = plane_ops.build_plane(_lattice(676, False, cuda))  # R = 16: 675
     with pytest.raises(ValueError, match="shared"):
-        pk.sa_plane_anneal(big, sched, torch.ones((1, 242, 242),
+        pk.sa_plane_anneal(big, sched, torch.ones((1, 676, 676),
                                                   device=cuda), 0)
 
 
-# (L, P, launches): the pre-anneal is one SA launch; PIQMC with global
-# moves launches per sweep 4 kernels B (2 local, 2 line phases) or m + 2
-# kernels 3 (m = 3 at P = 5, 2 at P = 4).
+# (L, P, launches): the pre-anneal is one SA launch; PIQMC is one launch
+# of kernel B, or with global moves m + 2 launches of kernel 3 per sweep
+# (m = 3 at P = 5, 2 at P = 4).
 @pytest.mark.parametrize("L,P,launches", [
-    (16, 4, {"sa_split": 1, "qmc_split": 4 * 50}),
+    (16, 4, {"sa_split": 1, "qmc_split": 1}),
     (16, 5, {"sa_split": 1, "qmc_plane": 5 * 50}),
     (9, 4, {"sa_plane": 1, "qmc_plane": 4 * 50}),
 ])

@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
-"""Slope-time kernels A and 5 of the montecarlosolvers_tpu_torch found on
-the import path, on one CUDA card, at the main path's shapes.
+"""Slope-time kernels A, 5, 6 and B of the montecarlosolvers_tpu_torch
+found on the import path, on one CUDA card, at the main path's shapes.
 
     PYTHONPATH=<checkout> python tools/time_kernels.py [--label NAME]
         [--L 80] [--sa-geometry CHAINS:C:R ...] [--bath-geometry R ...]
+        [--qmc-geometry R ...]
 
 Rows: kernel A at 1280 and 32 chains on the seeded L x L torus (T: 3 -> 0),
 kernel 5 at P = 40, 32 chains, alpha = 1e-2, global moves on the same
-torus; one JSON line each, with the geometry and the clusters the card
+torus, kernel 6 at 1280 and 32 chains on the seeded (L+1) x (L+1) torus,
+and kernel B at P = 40, 32 chains, global moves on the L x L torus; one
+JSON line each, with the geometry and the clusters the card
 holds at once where the checkout reports them, with ms per sweep (the median pairwise slope of
 best-of-3 wall times over two schedule lengths, as chip_smoke.py's
 slope_ms), the card's name and power limit. It calls only the wrappers
-`sa_split_anneal` and `qmc_bath_split_anneal`, whose arguments every
-version of the port shares, so the same script times an older checkout
+`sa_split_anneal`, `qmc_bath_split_anneal`, `sa_plane_anneal` and
+`qmc_split_anneal`, whose arguments every version of the port shares, so the same script times an older checkout
 (unpacked with `git archive`) beside the current one in one run.
 `--sa-geometry` times kernel A at CHAINS (1280 or 32) chains at each given
-(C, R), and `--bath-geometry` kernel 5 at each given R, instead of the
-wrapper's own choice (where the checkout has `sa_geometry` /
-`qmc_bath_geometry`).
+(C, R), and `--bath-geometry` / `--qmc-geometry` kernel 5 / B at each
+given R, instead of the wrapper's own choice (where the checkout has
+`sa_geometry` / `qmc_bath_geometry` / `qmc_geometry`).
 """
 
 import argparse
@@ -51,6 +54,7 @@ def main():
     ap.add_argument("--L", type=int, default=80)
     ap.add_argument("--sa-geometry", nargs="*", default=[])
     ap.add_argument("--bath-geometry", nargs="*", default=[])
+    ap.add_argument("--qmc-geometry", nargs="*", default=[])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -58,6 +62,8 @@ def main():
     from montecarlosolvers_tpu_torch import schedules
     from montecarlosolvers_tpu_torch.models import instances
     from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
+    from montecarlosolvers_tpu_torch.ops import plane as plane_ops
+    from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
     from montecarlosolvers_tpu_torch.ops import split as split_ops
     from montecarlosolvers_tpu_torch.ops import split_kernels as sk
 
@@ -128,6 +134,40 @@ def main():
              ms_per_sweep=slope_ms(run, taus(100 * 6400 // L ** 2)))
         if own_bath:
             sk.qmc_bath_geometry = own_bath
+
+    odd = L + 1
+    pl = plane_ops.build_plane(instances.gaussian_torus(odd, seed=0,
+                                                        device=dev))
+    own_plane = getattr(pk, "plane_sa_geometry", None)
+    for chains in (1280, 32):
+        s = spins(chains, odd, odd)
+
+        def run(tau):
+            return pk.sa_plane_anneal(
+                pl, schedules.linear(3.0, 0.0, tau, device=dev), s, 7)
+        used = pk.plane_sa_geometry(chains, odd, sk.card_resident(
+            "plane_sa", odd)) if own_plane else None
+        emit(kernel="plane_sa", chains=chains, L=odd, geometry=used,
+             ms_per_sweep=slope_ms(run, taus(500 * 6400 // odd ** 2)))
+
+    qs = split_ops.pack_qmc(sl, spins(32, P, L * L))
+
+    def run(tau):
+        g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+        return sk.qmc_split_anneal(
+            sl, torch.ones_like(g), schedules.jperp(g, teff).contiguous(),
+            teff, qs, 7, True)
+    own_qmc = getattr(sk, "qmc_geometry", None)
+    for geom in [int(g) for g in args.qmc_geometry] or [None]:
+        if geom is not None:
+            sk.qmc_geometry = (lambda ch, lat, p, *_, r=geom:
+                               (r, sk._threads(lat, r)))
+        used = sk.qmc_geometry(32, L, P, sk.card_resident(
+            "split_qmc", L, P)) if own_qmc else None
+        emit(kernel="split_qmc", chains=32, L=L, P=P, geometry=used,
+             ms_per_sweep=slope_ms(run, taus(100 * 6400 // L ** 2)))
+        if own_qmc:
+            sk.qmc_geometry = own_qmc
 
 
 if __name__ == "__main__":
