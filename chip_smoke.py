@@ -10,9 +10,9 @@ Phases, each printed as one JSON line:
   build               nvcc builds kernels A, B, 3, 4, 5, 6 and 7 from csrc/,
                       all at once (seconds)
   clusters            the (C, R, threads) kernels A and 6 and the (R,
-                      threads) kernels B and 5 take at the shapes below,
-                      and how many of those clusters the card holds at once
-                      (cudaOccupancyMaxActiveClusters)
+                      threads) kernels B, 5, 3 and 7 take at the shapes
+                      below, and how many of those clusters the card holds
+                      at once (cudaOccupancyMaxActiveClusters)
   sa_kernel_vs_plain  kernel A against its plain PyTorch version on the card,
                       80x80 periodic Gaussian lattice at the main path's
                       1280 chains, 200 steps of T: 3 -> 0.1; then 32 chains
@@ -40,13 +40,18 @@ Phases, each printed as one JSON line:
   plane_qmc_kernel_vs_plain  kernel 3 against its plain version, 40 steps,
                       B in {1, 0.7} x global moves on / off, 32 chains, on
                       the 80x80 torus at P = 5 and the 81x81 torus at P = 5
-                      (the main path's two shapes) and P = 4
+                      (the main path's two shapes) and P = 4; then P = 40
+                      (two bit words a site) and, at 33 chains, P = 3 and 7
+                      on the 81x81 torus, P = 5 on the 243x243 torus, and
+                      P = 3 on the 677x677 torus, which no cluster holds
+                      and the per-phase kernels run
   svmc_split_kernel_vs_plain  kernel 4 against its plain version on the
                       80x80 torus, 256 chains, 200 steps of A: 3 -> 1e-8,
                       B = 1, T = 0.05, TF proposals on and off: angles that
                       differ at all, by more than 1e-3 (must be 0), max |d|
   svmc_plane_kernel_vs_plain  kernel 7 likewise on the 81x81 torus and an
-                      81x81 open lattice
+                      81x81 open lattice, and on the 243x243 torus, past
+                      the L <= 120 of one block per chain
   main_path           eight solves at full width: solve("sa", 1280 reads,
                       2000 sweeps) and solve("piqmc", 32 reads, 1000
                       sweeps) at P = 40 and at P = 5 on the santoro instance
@@ -63,9 +68,8 @@ Phases, each printed as one JSON line:
                       are checked against a float64
                       recomputation and their mean per spin against fixed
                       ranges; the kernel launch counts (ops/_build.py::
-                      LAUNCHES: one per launch of a kernel, so kernel 3
-                      counts m + 2 per sweep, kernels B and 5 once per
-                      anneal) are
+                      LAUNCHES: one per launch of a kernel, so every
+                      kernel counts once per anneal) are
                       set to 0 just before each solve, read just after it
                       and must equal the solve's route exactly
   timing              slope-timed ms per sweep of each kernel and of its
@@ -73,8 +77,9 @@ Phases, each printed as one JSON line:
                       least time the card could take for a sweep (bound:
                       the work's float32 or special-function operations,
                       or its bytes, over the card's peak rates); also
-                      kernels A and 6 at 32 chains (the pre-anneals) and
+                      kernels A and 6 at 32 chains (the pre-anneals),
                       kernel 5 at P = 40, 32 chains on the 256x256 torus
+                      and kernel 3 at P = 5, 32 chains on the 81x81 torus
 then a line {"kernels": [...]}, and last {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero without the last line;
 it also fails when torch sees no CUDA device or the package is missing.
@@ -96,8 +101,9 @@ BIG_L = 256
 # an odd L above the 241 that kernel 6 took when it held a chain in a block
 BIG_ODD_L = 243
 # an even L whose PIQMC chain no cluster of 16 CTAs holds: kernel B runs
-# its per-phase kernels there
-PHASED_L = 676
+# its per-phase kernels there; and an L that kernel 3's clusters do not
+# hold at P <= 32
+PHASED_L, PLANE_PHASED_L = 676, 677
 SA_READS, SA_SWEEPS = 1280, 2000
 QMC_READS, QMC_SLICES, QMC_SWEEPS = 32, 40, 1000
 ODD_SLICES = 5
@@ -355,7 +361,10 @@ def main():
              ((QMC_READS, L, QMC_SLICES), (QMC_READS, BIG_L, QMC_SLICES))),
             ("split_qmc_bath", sk.qmc_bath_geometry,
              ((BATH_READS, L, BATH_SLICES), (BATH_READS, BIG_L, BATH_SLICES),
-              (4, BIG_L, BATH_SLICES)))):
+              (4, BIG_L, BATH_SLICES))),
+            ("plane_qmc", pk.plane_qmc_geometry,
+             ((QMC_READS, L, ODD_SLICES), (QMC_READS, ODD_L, ODD_SLICES),
+              (QMC_READS, ODD_L, QMC_SLICES)))):
         for chains, lat_l, slices in shapes:
             r, threads = geometry(chains, lat_l, slices,
                                   sk.card_resident(kname, lat_l, slices))
@@ -364,6 +373,13 @@ def main():
                   "ctas": chains * r,
                   "resident_clusters": sk.resident_clusters(
                       kname, r, threads, lat_l, slices)})
+    for chains, lat_l in ((SVMC_READS, ODD_L), (SVMC_READS, BIG_ODD_L)):
+        r, threads = pk.plane_svmc_geometry(
+            chains, lat_l, sk.card_resident("plane_svmc", lat_l))
+        emit({"phase": "clusters", "kernel": "plane_svmc", "chains": chains,
+              "L": lat_l, "R": r, "threads": threads, "ctas": chains * r,
+              "resident_clusters": sk.resident_clusters(
+                  "plane_svmc", r, threads, lat_l)})
 
     torus = instances.gaussian_torus(L, seed=0, device=dev)
     big_torus = instances.gaussian_torus(BIG_L, seed=0, device=dev)
@@ -545,29 +561,53 @@ def main():
 
     # ---- kernel 3 against its plain version
     err_3 = 0.0
-    for lname, lat, slices in (("gaussian_torus(80, 0)", torus, ODD_SLICES),
-                               ("gaussian_torus(81, 0)", odd_torus,
-                                ODD_SLICES),
-                               ("gaussian_torus(81, 0)", odd_torus, 4)):
+    cases = [(lname, lat, slices, bscale, gm, QMC_READS, 40)
+             for lname, lat, slices in (
+                 ("gaussian_torus(80, 0)", torus, ODD_SLICES),
+                 ("gaussian_torus(81, 0)", odd_torus, ODD_SLICES),
+                 ("gaussian_torus(81, 0)", odd_torus, 4))
+             for bscale in (1.0, 0.7) for gm in (True, False)]
+    # two bit words a site, m = 3 and 4 at 33 chains, a lattice one cluster
+    # of 16 CTAs holds at one word a site, and one that no cluster holds
+    cases += [("gaussian_torus(81, 0)", odd_torus, QMC_SLICES, 0.7, True,
+               QMC_READS, 40),
+              ("gaussian_torus(81, 0)", odd_torus, 3, 1.0, True,
+               QMC_READS + 1, 40),
+              ("gaussian_torus(81, 0)", odd_torus, 7, 0.7, False,
+               QMC_READS + 1, 40),
+              (f"gaussian_torus({BIG_ODD_L}, 0)", big_odd, ODD_SLICES, 0.7,
+               True, QMC_READS, 20),
+              (f"gaussian_torus({PLANE_PHASED_L}, 0)",
+               instances.gaussian_torus(PLANE_PHASED_L, seed=0, device=dev),
+               3, 1.0, True, 1, 8)]
+    for lname, lat, slices, bscale, gm, chains, steps in cases:
         pl = plane_ops.build_plane(lat)
-        c = random_spins(QMC_READS, slices, lat.L, lat.L)
+        c = random_spins(chains, slices, lat.L, lat.L)
         teff3 = (1.0 / slices) * slices
-        jp3 = schedules.jperp(gamma, teff3).contiguous()
-        for bscale in (1.0, 0.7):
-            bs = torch.full_like(gamma, bscale)
-            for gm in (True, False):
-                k3 = pk.qmc_plane_anneal(pl, bs, jp3, teff3, c, 555, gm)
-                r3 = pk.qmc_plane_anneal_ref(pl, bs, jp3, teff3, c, 555, gm)
-                torch.cuda.synchronize()
-                n_bad, err = mismatches([k3], [r3])
-                err_3 = max(err_3, err)
-                emit({"phase": "plane_qmc_kernel_vs_plain", "lattice": lname,
-                      "chains": QMC_READS, "slices": slices, "steps": 40,
-                      "B": bscale, "global_moves": gm,
-                      "mismatched_spins": n_bad, "max_abs_err": err})
-                check(n_bad == 0, f"kernel 3 equals its plain version on "
-                                  f"{lname}, P={slices} (B={bscale}, "
-                                  f"global_moves={gm})")
+        jp3 = schedules.jperp(gamma[:steps], teff3).contiguous()
+        bs = torch.full_like(jp3, bscale)
+        geometry = pk.plane_qmc_geometry(chains, lat.L, slices,
+                                         sk.card_resident("plane_qmc", lat.L,
+                                                          slices))
+        _build.reset_launches()
+        k3 = pk.qmc_plane_anneal(pl, bs, jp3, teff3, c, 555, gm)
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        r3 = pk.qmc_plane_anneal_ref(pl, bs, jp3, teff3, c, 555, gm)
+        torch.cuda.synchronize()
+        n_bad, err = mismatches([k3], [r3])
+        err_3 = max(err_3, err)
+        emit({"phase": "plane_qmc_kernel_vs_plain", "lattice": lname,
+              "chains": chains, "slices": slices, "steps": steps,
+              "B": bscale, "global_moves": gm, "geometry": geometry,
+              "launches": launched, "mismatched_spins": n_bad,
+              "max_abs_err": err,
+              "flipped_fraction": float((k3[0] != c[0]).float().mean())})
+        check(n_bad == 0, f"kernel 3 equals its plain version on {lname}, "
+                          f"P={slices} (B={bscale}, global_moves={gm})")
+        phases = piqmc_ops.spacetime_num_phases(2, slices) + (2 if gm else 0)
+        check(launched == ({"qmc_plane": 1} if geometry else
+                           {"qmc_plane_phased": phases * steps}),
+              f"kernel 3 on {lname}, P={slices} launched {launched}")
     results["plane_qmc"]["max_abs_err"] = err_3
 
     # ---- kernels 4 and 7 against their plain versions
@@ -599,11 +639,15 @@ def main():
     results["split_svmc"]["max_abs_err"] = err_4
 
     err_7 = 0.0
-    for lname, lat in (("gaussian_torus(81, 0)", odd_torus),
-                       ("random_2d_lattice(81, 0), open", odd_open)):
+    for lname, lat, tfs in (("gaussian_torus(81, 0)", odd_torus,
+                             (True, False)),
+                            ("random_2d_lattice(81, 0), open", odd_open,
+                             (True, False)),
+                            (f"gaussian_torus({BIG_ODD_L}, 0)", big_odd,
+                             (True,))):
         pl = plane_ops.build_plane(lat)
-        th = random_angles(SVMC_READS, ODD_L, ODD_L)
-        for tf in (True, False):
+        th = random_angles(SVMC_READS, lat.L, lat.L)
+        for tf in tfs:
             k7 = pk.svmc_plane_anneal(pl, a_sv, b_sv, SVMC_TEMP, th, 1357,
                                       tf)
             r7 = pk.svmc_plane_anneal_ref(pl, a_sv, b_sv, SVMC_TEMP, th,
@@ -612,7 +656,9 @@ def main():
             err_7 = max(err_7, check_angles(
                 "svmc_plane_kernel_vs_plain", "kernel 7", [k7], [r7],
                 {"lattice": lname, "chains": SVMC_READS, "steps": 200,
-                 "tf": tf}))
+                 "tf": tf, "geometry": pk.plane_svmc_geometry(
+                     SVMC_READS, lat.L, sk.card_resident("plane_svmc",
+                                                         lat.L))}))
     results["plane_svmc"]["max_abs_err"] = err_7
 
     # ---- main path through solve(), launch counts read around each solve
@@ -641,9 +687,8 @@ def main():
                    slices=BATH_SLICES)
     sa_run, qmc_run, svmc_run = solved("sa"), solved("piqmc"), solved("svmc")
     # key, lattice name, problem, run(problem, **options) -> (samples,
-    # energies), its options, the launches it must make: kernels A, B, 4, 5,
-    # 6 and 7 once per anneal (the PIQMC pre-anneal is one SA anneal), 3
-    # m + 2 = 5 times per sweep
+    # energies), its options, the launches it must make: every kernel once
+    # per anneal (the PIQMC pre-anneal is one SA anneal)
     paths = (
         ("sa", lattice, problem, sa_run, sa_kw, {"sa_split": 1}),
         ("piqmc_p40", lattice, problem, qmc_run,
@@ -651,12 +696,12 @@ def main():
          {"sa_split": 1, "qmc_split": 1}),
         ("piqmc_p5", lattice, problem, qmc_run,
          dict(qmc_kw, slices=ODD_SLICES),
-         {"sa_split": 1, "qmc_plane": 5 * QMC_SWEEPS}),
+         {"sa_split": 1, "qmc_plane": 1}),
         ("sa_l81", "gaussian_torus(81, seed=0)", odd_torus, sa_run, sa_kw,
          {"sa_plane": 1}),
         ("piqmc_p5_l81", "gaussian_torus(81, seed=0)", odd_torus, qmc_run,
          dict(qmc_kw, slices=ODD_SLICES),
-         {"sa_plane": 1, "qmc_plane": 5 * QMC_SWEEPS}),
+         {"sa_plane": 1, "qmc_plane": 1}),
         ("svmc", lattice, problem, svmc_run, svmc_kw, {"svmc_split": 1}),
         ("svmc_l81", "gaussian_torus(81, seed=0)", odd_torus, svmc_run,
          svmc_kw, {"svmc_plane": 1}),
@@ -753,13 +798,13 @@ def main():
         return lambda tau: fn(pl81, schedules.linear(3.0, 0.0, tau,
                                                      device=dev), s, 7)
 
-    def plane_qmc_runner(fn):
-        c = random_spins(QMC_READS, ODD_SLICES, L, L)
+    def plane_qmc_runner(fn, pl=pl80):
+        c = random_spins(QMC_READS, ODD_SLICES, pl.L, pl.L)
         teff5 = (1.0 / ODD_SLICES) * ODD_SLICES
 
         def run(tau):
             g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
-            return fn(pl80, torch.ones_like(g), schedules.jperp(g, teff5)
+            return fn(pl, torch.ones_like(g), schedules.jperp(g, teff5)
                       .contiguous(), teff5, c, 7, True)
         return run
 
@@ -807,6 +852,8 @@ def main():
          split_bath_runner(sk.qmc_bath_split_anneal,
                            split_ops.build_split(big_torus)),
          (20, 80), 3, BATH_READS, BATH_SLICES, BIG_L * BIG_L),
+        ("plane_qmc", "cuda", plane_qmc_runner(pk.qmc_plane_anneal, pl81),
+         (200, 800), 3, QMC_READS, ODD_SLICES, ODD_L * ODD_L),
     )
     for i, (kname, route, run, taus, trials, chains, slices, sites) in \
             enumerate(timings + extra):

@@ -1,5 +1,5 @@
 // Neighbour sum of the full-plane kernels (plane_sa.cu, plane_qmc.cu,
-// plane_svmc.cu).
+// plane_svmc.cu) and the walk over a band's sites of kernels 3 and 7.
 //
 // Device form of montecarlosolvers_tpu/ops/pallas_sa.py::_neighbor_sums
 // (:136), pallas_qmc.py::_nbsum4 (:54) and pallas_svmc.py::_zfield (:40)
@@ -34,5 +34,42 @@ __device__ __forceinline__ float plane_field(const float* s,
   f = __fadd_rn(f, __fmul_rn(__ldg(w + 3 * n + i), s[up * L + c]));
   return __fadd_rn(f, __ldg(w + 4 * n + i));
 }
+
+// A thread's sites of a band of `rows` rows of L sites, in slots ordered by
+// parity: slot j < nslot is a site of parity 0, slot j >= nslot one of
+// parity 1 (its slot j - nslot), nslot = rows * half; slot s of a parity is
+// band row s / half, column 2 * (s % half) + ((row + parity) & 1), past the
+// last column on the short rows of an odd L. A thread takes j = threadIdx.x
+// + i * blockDim.x, stepped as (q, rl, jj) with blockDim.x = dq * half +
+// dr, so its loop has no division. Kernel 3 walks both parities, so a
+// warp's sites share theirs; kernel 7 walks j < nslot and reads the column
+// parity from its phase's color.
+struct SlotWalk {
+  int j, q, rl, jj;  // slot, parity, band row, column pair
+  int half, nslot, rows, dq, dr;
+  __device__ SlotWalk(int L, int rows_)
+      : half((L + 1) / 2), nslot(rows_ * ((L + 1) / 2)), rows(rows_) {
+    j = threadIdx.x;
+    q = j >= nslot;
+    const int s = j - q * nslot;
+    rl = s / half;
+    jj = s - rl * half;
+    dq = blockDim.x / half;
+    dr = blockDim.x - dq * half;
+  }
+  __device__ __forceinline__ void next() {
+    j += blockDim.x;
+    rl += dq;
+    jj += dr;
+    if (jj >= half) {
+      jj -= half;
+      ++rl;
+    }
+    if (rl >= rows) {  // on into parity 1; past it, j >= 2 * nslot
+      rl -= rows;
+      ++q;
+    }
+  }
+};
 
 }  // namespace mcs

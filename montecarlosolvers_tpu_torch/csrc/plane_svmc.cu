@@ -19,155 +19,201 @@
 // are the strides of the TPU kernel's padded plane, so the streams equal
 // the Pallas kernel's. The whole schedule runs in one launch.
 //
-// What bounds it on an H100. Per site update: two hashed uniforms (about 28
-// integer operations), cosf and sinf of the proposal, log1pf, the 4-point
-// stencil of cos over shared memory with 5 planes (20 B) through the
-// read-only path, and about 12 rounded float operations, plus the slot to
-// site division. The transcendentals and the hash dominate: the kernel is
-// compute-bound, not bandwidth-bound. One chain's state is 4*L*L*4 = 105 KB
-// at L = 81 and never leaves shared memory; the planes, 5*L*L*4 = 131 KB,
-// are shared by every chain and served from L1/L2.
+// What bounds it on an H100. Per site update: two hashed uniforms (about 38
+// integer operations), the sine and cosine of the proposal, log1pf, the
+// 4-point stencil of cos with 5 planes (20 B) through the read-only path,
+// and about 12 rounded float operations. The transcendentals and the hash
+// dominate: the kernel is compute-bound, not bandwidth-bound. The main
+// path's 256 chains of 81x81 hold 4 floats a site, 26.9 MB, most of the
+// card's 132 x 228 KB of shared memory, so every chain is resident at once
+// only with few CTAs a chain; the planes, 5*L*L*4 = 131 KB, are shared by
+// every chain and served from L1/L2.
 //
-// What the design does about that. One block per chain keeps the angles
-// and caches of cos and sin in shared memory for the whole schedule, so a
-// phase computes cos and sin of the proposal only (the TPU kernel computes
-// cos and sin of the whole plane in every phase, :103-107, and the Pallas
-// form with its masks computes every site; each uniform is a pure function
-// of its site, so only the phase's own sites are computed here). A phase
-// decides all of its sites from the cos plane as the phase found it: on an
-// odd periodic L the wrap neighbours (r, 0) and (r, L-1) share a color
-// (ROADMAP.md queue 3), and the Pallas kernel decides both from the state
-// before the phase. A site writes its own angle and sin at once (no other
-// site reads them) and stages its new cos in a fourth plane, marking the
-// decision in a 64-bit mask per thread; after a __syncthreads() the marked
-// cos values are copied in. The cache holds cosf / sinf of the carried
-// angle exactly, never an increment. 512 threads a block and two blocks an
-// SM (210 KB of the SM's 228 KB) hold the main path's 256 chains in one
-// wave on 132 SMs. Any L whose four planes fit the 227 KB a block may use
-// (L <= 120) is taken; the wrapper raises ValueError beyond that. Sharing
-// the plane reads between chains, fewer transcendentals and a layout
-// without the slot division are later work.
+// What the design does about that.
+// - One chain over a cluster of R CTAs, each holding a band of rows
+//   (csrc/cluster.cuh with rows of L sites) of theta and sin theta, which
+//   only the site itself reads, and of cos theta twice, a ping-pong plane
+//   as kernel 6 keeps its spins (csrc/plane_sa.cu). Phase 0 reads cos from
+//   `src` and writes the cos of every color-0 site, accepted or not, into
+//   `dst`; phase 1 reads its color-0 neighbours from `dst` and its own cos
+//   and its same-colored wrap partners from `src`, and writes color 1 into
+//   `dst`, which is then the next step's `src`. So every decision sees the
+//   cos plane its phase began with, the odd torus's wrap pairs included
+//   (ROADMAP.md queue 3), with one cluster.sync() a phase, no staging pass
+//   and no masks. A cos read across a band edge, and across the row wrap
+//   L-1 <-> 0, goes through distributed shared memory (Band::read on the
+//   float's bits). 4*ceil(L/R)*L floats a CTA: R = 16 takes L <= 480.
+// - R from the resident count. ops/plane_kernels.py::plane_svmc_geometry
+//   takes the largest R whose band fits a CTA and whose clusters the card
+//   holds at once for every chain (cudaOccupancyMaxActiveClusters, by
+//   kernel B's rules): at 256 chains on 81x81, R = 2, two CTAs of 256
+//   threads a chain, 512 CTAs in one wave.
+// - No division. A thread's slots are fixed; their band row and column are
+//   stepped from slot to slot (plane.cuh::SlotWalk), not divided out of the
+//   slot index.
+// - The proposal's cosine and sine from one sincosf, which shares the range
+//   reduction; the chip run holds the result bitwise against the plain
+//   version's torch.cos / torch.sin. Metropolis without a branch
+//   (counter_hash.cuh::metropolis_accept_hashed). The caches hold cosf /
+//   sinf of the carried angle exactly, never an increment.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "counter_hash.cuh"
 #include "plane.cuh"
 #include "svmc.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-// decisions a thread keeps per phase: the bits of its mask
-constexpr int kMaxSlots = 64;
+namespace cg = cooperative_groups;
+
+// At most 256 threads a CTA (ops/split_kernels.py::MAX_THREADS is the same
+// number) and registers for 4 CTAs an SM: at 256 chains on 81x81 shared
+// memory holds 4 half-plane bands an SM, no more.
+constexpr int kMaxThreads = 256;
+constexpr int kMinBlocks = 4;
 
 template <bool kTF>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 plane_svmc_kernel(const float* __restrict__ w,
                   const float* __restrict__ a_sched,
                   const float* __restrict__ b_sched, float temp,
                   const float* __restrict__ th_in, float* __restrict__ th_out,
-                  int L, uint32_t row_stride, uint32_t plane_stride,
+                  int R, int L, uint32_t row_stride, uint32_t plane_stride,
                   int steps, uint32_t seed_term) {
-  extern __shared__ float smem[];
+  extern __shared__ uint32_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int n = L * L;
-  float* th = smem;            // angles
-  float* cs = smem + n;        // cos of the angles, read by the stencil
-  float* sn = smem + 2 * n;    // sin of the angles
-  float* cs_new = smem + 3 * n;  // cos of accepted proposals, staged
-  const int chain = blockIdx.x;
-  const size_t base = static_cast<size_t>(chain) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float x = th_in[base + i];
-    th[i] = x;
-    cs[i] = cosf(x);
-    sn[i] = sinf(x);
+  const int S = mcs::band_stride(L, R, L);
+  // planes at a common stride S: theta, sin theta, cos theta twice
+  float* const th = reinterpret_cast<float*>(smem);
+  float* const sn = th + S;
+  const int chain = blockIdx.x / R;
+  const mcs::Band band =
+      mcs::make_band(cluster, smem, blockIdx.x % R, R, L, L);
+  const int row0 = band.lo / L;
+  const size_t base = static_cast<size_t>(chain) * n + band.lo;
+  int src = 2 * S;  // the cos buffers sit at 2S and 3S
+  for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
+    const float x = th_in[base + il];
+    th[il] = x;
+    sn[il] = sinf(x);
+    smem[src + il] = __float_as_uint(cosf(x));
   }
-  __syncthreads();
+  cluster.sync();  // every band is loaded before any is read
 
-  // Slot j of a color is row j / half, column 2 * (j % half) + ((row +
-  // color) & 1); slots past the last column are skipped.
-  const int half = (L + 1) / 2;
-  const int nslot = L * half;
+  const bool odd = L & 1;  // the wrap neighbours have the site's color
   // uid = chain*R*C + r*C + c, wrapping as the int32 JAX code does
   const uint32_t uid0 = static_cast<uint32_t>(chain) * plane_stride;
   for (int t = 0; t < steps; ++t) {
     const float a = a_sched[t];
     const float b = b_sched[t];
     const float width = kTF ? mcs::tf_width(a, b) : 0.0f;
+    const int dst = 5 * S - src;
     for (int color = 0; color < 2; ++color) {
+      // the other color's current cos: src before phase 0, dst after it
+      const int fresh = color ? dst : src;
       const uint32_t ctr_prop = mcs::counter(seed_term, t, color);
       const uint32_t ctr_acc = mcs::svmc_accept_counter(seed_term, t, color);
-      uint64_t accepted = 0;
-      int bit = 0;
-      for (int j = threadIdx.x; j < nslot; j += blockDim.x, ++bit) {
-        const int r = j / half;
-        const int c = 2 * (j - r * half) + ((r + color) & 1);
-        if (c >= L) continue;
-        const int i = r * L + c;
-        const uint32_t uid =
-            uid0 + static_cast<uint32_t>(r) * row_stride +
-            static_cast<uint32_t>(c);
-        const float prop =
-            mcs::propose<kTF>(th[i], mcs::uniform01(ctr_prop, uid), width);
-        const float cos_p = cosf(prop);
-        const float sin_p = sinf(prop);
-        const float z = mcs::plane_field(cs, w, L, r, c);
-        const float de = mcs::delta_e(b, a, cos_p, cs[i], z, sn[i], sin_p);
-        if (mcs::metropolis_accept(de, temp, mcs::uniform01(ctr_acc, uid))) {
-          th[i] = prop;
-          sn[i] = sin_p;
-          cs_new[i] = cos_p;
-          accepted |= 1ull << bit;
+      // the sites of this color: the slots of parity 0, read at `color`
+      for (mcs::SlotWalk s(L, band.nb / L); s.j < s.nslot; s.next()) {
+        const int r = row0 + s.rl;
+        const int c = 2 * s.jj + ((r + color) & 1);
+        if (c < L) {
+          const int il = s.rl * L + c;
+          const int i = r * L + c;
+          const uint32_t uid = uid0 + static_cast<uint32_t>(r) * row_stride +
+                               static_cast<uint32_t>(c);
+          const float theta = th[il];
+          const float prop = mcs::propose<kTF>(
+              theta, mcs::uniform01(ctr_prop, uid), width);
+          float sin_p, cos_p;
+          sincosf(prop, &sin_p, &cos_p);
+          const bool last_c = c + 1 == L, last_r = r + 1 == L;
+          // the column wrap stays in the row; an odd L's wrap partner has
+          // the site's color and is read as the phase found it
+          const int right_at = il + (last_c ? 1 - L : 1);
+          const int left_at = il + (c == 0 ? L - 1 : -1);
+          const float right = __uint_as_float(
+              smem[(odd && last_c ? src : fresh) + right_at]);
+          const float left =
+              __uint_as_float(smem[(odd && c == 0 ? src : fresh) + left_at]);
+          const float down = __uint_as_float(
+              band.read(odd && last_r ? src : fresh, il + L));
+          const float up =
+              __uint_as_float(band.read(odd && r == 0 ? src : fresh, il - L));
+          // z in plane_field's order, each product and sum rounded alone
+          float z = __fmul_rn(__ldg(w + i), right);
+          z = __fadd_rn(z, __fmul_rn(__ldg(w + n + i), left));
+          z = __fadd_rn(z, __fmul_rn(__ldg(w + 2 * n + i), down));
+          z = __fadd_rn(z, __fmul_rn(__ldg(w + 3 * n + i), up));
+          z = __fadd_rn(z, __ldg(w + 4 * n + i));
+          const float cos_t = __uint_as_float(smem[src + il]);
+          const float sin_t = sn[il];
+          const float de = mcs::delta_e(b, a, cos_p, cos_t, z, sin_t, sin_p);
+          const bool acc = mcs::metropolis_accept_hashed(
+              de, temp, uid * mcs::kGolden + ctr_acc);
+          th[il] = acc ? prop : theta;
+          sn[il] = acc ? sin_p : sin_t;
+          smem[dst + il] = __float_as_uint(acc ? cos_p : cos_t);
         }
       }
-      __syncthreads();  // every decision read the cos plane the phase began with
-      bit = 0;
-      for (int j = threadIdx.x; accepted != 0; j += blockDim.x, ++bit) {
-        if (accepted & (1ull << bit)) {
-          const int r = j / half;
-          const int i = r * L + 2 * (j - r * half) + ((r + color) & 1);
-          cs[i] = cs_new[i];
-          accepted &= ~(1ull << bit);
-        }
-      }
-      __syncthreads();  // the next phase reads the updated cos plane
+      cluster.sync();  // the next phase reads this one's cos
     }
+    src = dst;
   }
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) th_out[base + i] = th[i];
+  for (int il = threadIdx.x; il < band.nb; il += blockDim.x)
+    th_out[base + il] = th[il];
+}
+
+// Shared memory of one CTA: its band of theta, sin theta and cos theta
+// twice (ops/plane_kernels.py::svmc_plane_smem_bytes counts the same).
+size_t smem_bytes(int L, int R) {
+  return 4 * static_cast<size_t>(mcs::band_stride(L, R, L)) * sizeof(float);
 }
 
 }  // namespace
 
 // Anneal `chains` L x L planes of angles over the (steps,) schedules A and B
-// at temperature `temp`. w: (5, L, L) planes jr, jl, jd, ju, h; th_in,
+// at temperature `temp` in one launch, each chain over a cluster of R CTAs
+// of `threads` threads. w: (5, L, L) planes jr, jl, jd, ju, h; th_in,
 // th_out: (chains, L, L); all float32 device pointers. row_stride = C and
 // plane_stride = R*C are the uid strides; tf != 0 selects the TF proposals.
-// Launches on `stream` and returns cudaGetLastError(), or
-// cudaErrorInvalidValue when a phase has more sites than the block's masks
-// hold (never within the shared-memory limit the wrapper checks).
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int plane_svmc_anneal(const float* w, const float* a_sched,
                                  const float* b_sched, float temp,
                                  const float* th_in, float* th_out,
-                                 int chains, int L, int row_stride,
-                                 int plane_stride, int steps, int seed,
-                                 int tf, void* stream) {
+                                 int chains, int R, int threads, int L,
+                                 int row_stride, int plane_stride, int steps,
+                                 int seed, int tf, void* stream) {
   if (chains == 0 || L == 0) return cudaSuccess;
-  if (L * ((L + 1) / 2) > kMaxSlots * kThreads) return cudaErrorInvalidValue;
   auto kernel = tf ? plane_svmc_kernel<true> : plane_svmc_kernel<false>;
-  const size_t smem = 4 * static_cast<size_t>(L) * L * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = mcs::cluster_config(kernel, chains * R, R, threads,
+                                      smem_bytes(L, R),
+                                      static_cast<cudaStream_t>(stream),
+                                      &cfg, &attr);
+  if (e != cudaSuccess) return e;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
-  kernel<<<chains, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      w, a_sched, b_sched, temp, th_in, th_out, L,
-      static_cast<uint32_t>(row_stride), static_cast<uint32_t>(plane_stride),
-      steps, seed_term);
+  e = cudaLaunchKernelEx(&cfg, kernel, w, a_sched, b_sched, temp, th_in,
+                         th_out, R, L, static_cast<uint32_t>(row_stride),
+                         static_cast<uint32_t>(plane_stride), steps,
+                         seed_term);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// Clusters of R CTAs the card holds at once at lattice size L (the TF
+// instantiation's; the launch bounds give both the same 64 registers a
+// thread at most, and the shared memory is the same).
+extern "C" int plane_svmc_max_active_clusters(int R, int threads, int L,
+                                              int* count) {
+  return mcs::max_active_clusters(plane_svmc_kernel<true>, R, threads,
+                                  smem_bytes(L, R), count);
 }
 
 extern "C" const char* plane_svmc_anneal_error_string(int code) {

@@ -87,10 +87,18 @@ SIGNATURES = {
         "plane_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "plane_qmc": {
-        # planes, b_sched, jp, teff, s_in, s_out, scratch, chains, P, L,
-        # row_stride, plane_stride, m, steps, seed, global_moves, stream,
-        # launched
+        # planes, b_sched, jp, teff, s_in, s_out (the slices as bits),
+        # chains, P, m, R, threads, L, row_stride, plane_stride, steps, seed,
+        # global_moves, stream
         "plane_qmc_anneal": (
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 2 + [_I] * 11 + [_P]
+        ),
+        # P, R, threads, L, out: clusters resident at once
+        "plane_qmc_max_active_clusters": (_I, [_I] * 4 + [_IP]),
+        # the per-phase kernels: planes, b_sched, jp, teff, s_in, s_out,
+        # scratch, chains, P, L, row_stride, plane_stride, m, steps, seed,
+        # global_moves, stream, launched
+        "plane_qmc_phased_anneal": (
             _I, [_P] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 9 + [_P, _NP]
         ),
         "plane_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
@@ -104,11 +112,13 @@ SIGNATURES = {
         "split_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "plane_svmc": {
-        # planes, a_sched, b_sched, temp, th_in, th_out, chains, L,
-        # row_stride, plane_stride, steps, seed, tf, stream
+        # planes, a_sched, b_sched, temp, th_in, th_out, chains, R, threads,
+        # L, row_stride, plane_stride, steps, seed, tf, stream
         "plane_svmc_anneal": (
-            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 2 + [_I] * 7 + [_P]
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 2 + [_I] * 9 + [_P]
         ),
+        # R, threads, L, out: clusters resident at once
+        "plane_svmc_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         "plane_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -119,14 +129,14 @@ _LIBS = {}
 # the kernels that keep a chain in shared memory are refused beyond it.
 SMEM_LIMIT_BYTES = 232448
 
-# Kernel launches per kernel. Kernels A, B, 4, 5, 6 and 7 run a whole
-# schedule in one launch (for A, B, 5 and 6 one cluster launch, whatever the
-# cluster size); kernel 3, and kernel B's per-phase kernels for the shapes
-# no cluster holds ("qmc_split_phased"), launch once per phase, and their C
-# entry points report how many launches they issued.
+# Kernel launches per kernel. Every kernel runs a whole schedule in one
+# launch (for A, B, 3, 5, 6 and 7 one cluster launch, whatever the cluster
+# size); the per-phase kernels of B and 3 for the shapes no cluster holds
+# ("qmc_split_phased", "qmc_plane_phased") launch once per phase, and their
+# C entry points report how many launches they issued.
 LAUNCHES = {"sa_split": 0, "qmc_split": 0, "qmc_split_phased": 0,
             "svmc_split": 0, "qmc_bath_split": 0, "sa_plane": 0,
-            "qmc_plane": 0, "svmc_plane": 0}
+            "qmc_plane": 0, "qmc_plane_phased": 0, "svmc_plane": 0}
 
 
 def reset_launches():

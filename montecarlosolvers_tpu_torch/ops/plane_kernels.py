@@ -28,13 +28,21 @@ one phase. The port keeps that behaviour to stay bitwise equal.
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts the kernel launches under "sa_plane",
-"qmc_plane" and "svmc_plane".
+"qmc_plane" (kernel 3's per-phase kernels under "qmc_plane_phased") and
+"svmc_plane".
 
-Kernel 6 packs C chains to a word per site (`split_kernels.pack_chain_bits`
-on the (chains, L*L) view) and spreads each group of C chains over a
-thread-block cluster of R CTAs, each holding a band of rows of the plane
-twice (csrc/plane_sa.cu); `plane_sa_geometry` chooses (C, R, threads) by
-kernel A's rules.
+All three spread a chain over a thread-block cluster of R CTAs, each
+holding a band of rows of the plane (csrc/cluster.cuh), and run the whole
+schedule in one launch. Kernel 6 packs C chains to a word per site
+(`split_kernels.pack_chain_bits` on the (chains, L*L) view) and keeps its
+band twice (csrc/plane_sa.cu); `plane_sa_geometry` chooses (C, R, threads)
+by kernel A's rules. Kernel 3 packs a chain's P slices to ceil(P/32) words
+per site (`pack_slice_bits`) and keeps its band twice (csrc/plane_qmc.cu);
+`plane_qmc_geometry` chooses (R, threads) by kernel B's rules and returns
+None for a chain no cluster holds, which runs on kernel 3's per-phase
+kernels. Kernel 7 keeps theta, sin theta and cos theta twice
+(csrc/plane_svmc.cu); `plane_svmc_geometry` chooses (R, threads) and raises
+ValueError for a lattice no cluster holds.
 """
 
 from __future__ import annotations
@@ -52,9 +60,6 @@ from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
 from montecarlosolvers_tpu_torch.ops.piqmc import (spacetime_num_phases,
                                                    sum_in_order)
-
-# Kernel 3 puts chains on gridDim.z and slices on gridDim.y.
-QMC_MAX_GRID_YZ = 65535
 
 
 # ------------------------------------------------------------ plain versions
@@ -162,6 +167,23 @@ def svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed, tf):
 # ------------------------------------------------------------ kernel wrappers
 
 
+def _warps(sites):
+    """Threads per CTA for `sites` sites of work a phase: one a site, in
+    whole warps, at most MAX_THREADS (a thread then takes several)."""
+    return min(sk.MAX_THREADS, -(-sites // 32) * 32)
+
+
+def _slot_threads(L, R):
+    """Threads of kernels 6 and 7: one per site of a phase's color in the
+    largest of R bands."""
+    return _warps(-(-L // R) * ((L + 1) // 2))
+
+
+def _site_threads(L, R):
+    """Threads of kernel 3: one per site of the largest of R bands."""
+    return _warps(-(-L // R) * L)
+
+
 def sa_plane_smem_bytes(L, R):
     """Shared memory of one kernel-6 CTA: its band of ceil(L/R) rows of
     the plane, one 32-bit word of chain bits per site, twice (the ping-pong
@@ -178,13 +200,8 @@ def plane_sa_geometry(chains, L, resident=None):
     largest band, in whole warps, at most MAX_THREADS. Raises ValueError
     when no cluster holds the plane."""
     C = sk.chain_word_bits(chains)
-
-    def threads(r):
-        sites = -(-L // r) * ((L + 1) // 2)
-        return min(sk.MAX_THREADS, -(-sites // 32) * 32)
-
     R = sk._cluster(L, -(-chains // C), lambda r: sa_plane_smem_bytes(L, r),
-                    resident and (lambda r: resident(r, threads(r))))
+                    resident and (lambda r: resident(r, _slot_threads(L, r))))
     if R is None:
         r = min(L, sk.CLUSTER_SIZES[-1])
         raise ValueError(
@@ -193,13 +210,76 @@ def plane_sa_geometry(chains, L, resident=None):
             f"shared memory; no cluster of up to {sk.CLUSTER_SIZES[-1]} "
             f"CTAs holds L = {L} within the limit of "
             f"{_build.SMEM_LIMIT_BYTES} bytes")
-    return C, R, threads(R)
+    return C, R, _slot_threads(L, R)
 
 
-def svmc_plane_smem_bytes(L):
-    """Shared memory of kernel 7's one block per chain: angles, cos, sin
-    and staged cos, 4*L*L floats, so the card takes L <= 120."""
-    return 4 * L * L * 4
+def plane_qmc_smem_bytes(P, L, R):
+    """Shared memory of one kernel-3 CTA: its band of ceil(L/R) rows of a
+    chain's slices as bits, ceil(P/32) words a site, twice (the ping-pong
+    buffers of csrc/plane_qmc.cu), so R = 16 holds L <= 675 at P <= 32 and
+    L <= 480 at P <= 64."""
+    return 2 * -(-P // 32) * -(-L // R) * L * 4
+
+
+def plane_qmc_geometry(chains, L, P, resident=None):
+    """(R, threads) of kernel 3 by the rules of `split_kernels.qmc_geometry`:
+    each chain over the largest cluster of R CTAs whose band fits a CTA and
+    whose `chains` clusters the card holds at once (`resident(R, threads)`,
+    None: any; if none is held whole, the smallest that fits), one thread
+    per site of the largest band, in whole warps, at most MAX_THREADS. None
+    when no cluster of up to CLUSTER_SIZES[-1] CTAs holds a chain of P
+    slices on an L x L plane, and the wrapper runs the per-phase kernels."""
+    R = sk._cluster(L, chains, lambda r: plane_qmc_smem_bytes(P, L, r),
+                    resident and (lambda r: resident(r, _site_threads(L, r))))
+    return None if R is None else (R, _site_threads(L, R))
+
+
+def pack_slice_bits(confs):
+    """(chains, P, n) +/-1 -> (chains, ceil(P/32), n) int32 words: bit
+    k % 32 of word k // 32 is the sign of slice k (1 for -1); the bits past
+    P are 0."""
+    words = []
+    for lo in range(0, confs.shape[1], 32):
+        neg = (confs[:, lo:lo + 32] < 0).to(torch.int64)
+        shift = torch.arange(neg.shape[1], dtype=torch.int64,
+                             device=confs.device)
+        words.append((neg << shift[:, None]).sum(dim=1))
+    w = torch.stack(words, dim=1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def unpack_slice_bits(words, P):
+    """Inverse of `pack_slice_bits`: float32 (chains, P, n) of +/-1."""
+    k = torch.arange(P, device=words.device)
+    bits = (words[:, k // 32] >> (k % 32).to(torch.int32)[:, None]) & 1
+    return 1.0 - 2.0 * bits.to(torch.float32)
+
+
+def svmc_plane_smem_bytes(L, R):
+    """Shared memory of one kernel-7 CTA: its band of ceil(L/R) rows of
+    theta, sin theta and cos theta twice (the ping-pong buffers of
+    csrc/plane_svmc.cu), 4 floats a site, so R = 16 holds L <= 480."""
+    return 4 * -(-L // R) * L * 4
+
+
+def plane_svmc_geometry(chains, L, resident=None):
+    """(R, threads) of kernel 7: each chain over the largest cluster of R
+    CTAs whose band fits a CTA and whose `chains` clusters the card holds at
+    once (`split_kernels._cluster`; `resident(R, threads)`, None: any), so
+    every chain runs in one wave where the card holds them; one thread per
+    site of a phase's color in the largest band, in whole warps, at most
+    MAX_THREADS. Raises ValueError when no cluster holds the plane."""
+    R = sk._cluster(L, chains, lambda r: svmc_plane_smem_bytes(L, r),
+                    resident and (lambda r: resident(r, _slot_threads(L, r))))
+    if R is None:
+        r = min(L, sk.CLUSTER_SIZES[-1])
+        raise ValueError(
+            f"kernel 7 keeps a band of theta, sin theta and cos theta twice, "
+            f"4*ceil(L/R)*L*4 = {svmc_plane_smem_bytes(L, r)} bytes at "
+            f"R = {r}, in each CTA's shared memory; no cluster of up to "
+            f"{sk.CLUSTER_SIZES[-1]} CTAs holds L = {L} within the limit of "
+            f"{_build.SMEM_LIMIT_BYTES} bytes")
+    return R, _slot_threads(L, R)
 
 
 def sa_plane_anneal(pl, sched, spins, seed):
@@ -232,33 +312,56 @@ def sa_plane_anneal(pl, sched, spins, seed):
 
 def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves):
     """Kernel 3 on CUDA tensors, `qmc_plane_anneal_ref` on CPU tensors.
-    Arguments as for `qmc_plane_anneal_ref`; returns new configurations."""
+    Arguments as for `qmc_plane_anneal_ref`; returns new configurations. The
+    kernel keeps each spin's sign as a bit, so confs must hold +/-1.
+
+    Two hand-written CUDA kernels share the work, chosen by shape alone:
+    when `plane_qmc_geometry` finds a cluster of up to CLUSTER_SIZES[-1]
+    CTAs whose shared memory holds a band of a chain's slices as bits
+    (every L <= 675 at P <= 32, L <= 480 at P <= 64), the cluster kernel
+    runs the whole schedule in one launch (LAUNCHES["qmc_plane"]); for a
+    larger chain the per-phase kernels keep the state as floats in device
+    memory and launch m + 2 times a step, m without global moves
+    (LAUNCHES["qmc_plane_phased"]). Both equal the plain version bitwise;
+    neither is a fallback from a failure of the other."""
     if _build.route(confs.device, "plane") == "cpu":
         return qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed,
                                     global_moves)
     chains, P, L = confs.shape[0], confs.shape[1], pl.L
     dev = confs.device
-    if max(chains, P) > QMC_MAX_GRID_YZ:
-        raise ValueError(f"kernel 3 takes at most {QMC_MAX_GRID_YZ} chains "
-                         f"and slices")
     _build.check_arg(confs, "confs", (chains, P, L, L), dev)
     _build.check_arg(pl.w, "planes", (5, L, L), dev)
     steps = int(b_sched.shape[0])
     _build.check_arg(b_sched, "b_sched", (steps,), dev)
     _build.check_arg(jp, "jp", (steps,), dev)
+    rows, cols = pl.strides
+    m = spacetime_num_phases(2, P)
+    lib = _build.library("plane_qmc")
+    head = (*map(_build.ptr, (pl.w, b_sched, jp)), ctypes.c_float(teff))
+    geometry = plane_qmc_geometry(chains, L, P,
+                                  sk.card_resident("plane_qmc", L, P))
+    if geometry is not None:
+        words = pack_slice_bits(confs.reshape(chains, P, L * L))
+        out = torch.empty_like(words)
+        rc = lib.plane_qmc_anneal(
+            *head, *map(_build.ptr, (words, out)), chains, P, m, *geometry,
+            L, cols, rows * cols, steps, cr.wrap_int32(seed),
+            int(bool(global_moves)), _build.stream_of(dev),
+        )
+        _build.raise_on_error(lib, "plane_qmc_anneal", rc)
+        _build.LAUNCHES["qmc_plane"] += 1
+        return unpack_slice_bits(out, P).reshape(chains, P, L, L)
     out = torch.empty_like(confs)
     scratch = torch.empty_like(confs)
-    R, C = pl.strides
-    lib = _build.library("plane_qmc")
     n = ctypes.c_longlong(0)  # kernels launched
-    rc = lib.plane_qmc_anneal(
-        *map(_build.ptr, (pl.w, b_sched, jp)), ctypes.c_float(teff),
-        *map(_build.ptr, (confs, out, scratch)), chains, P, L, C, R * C,
-        spacetime_num_phases(2, P), steps, cr.wrap_int32(seed),
-        int(bool(global_moves)), _build.stream_of(dev), ctypes.byref(n),
+    rc = lib.plane_qmc_phased_anneal(
+        *head, *map(_build.ptr, (confs, out, scratch)), chains, P, L, cols,
+        rows * cols, m, steps, cr.wrap_int32(seed), int(bool(global_moves)),
+        _build.stream_of(dev), ctypes.byref(n),
     )
-    _build.raise_on_error(lib, "plane_qmc_anneal", rc)
-    _build.LAUNCHES["qmc_plane"] += n.value
+    _build.raise_on_error(lib, "plane_qmc_phased_anneal", rc,
+                          error_fn="plane_qmc_anneal_error_string")
+    _build.LAUNCHES["qmc_plane_phased"] += n.value
     return out
 
 
@@ -270,24 +373,21 @@ def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf):
                                      tf)
     chains, L = theta.shape[0], pl.L
     dev = theta.device
-    smem = svmc_plane_smem_bytes(L)
-    if smem > _build.SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"kernel 7 keeps 4*L*L*4 = {smem} bytes of one chain in shared "
-            f"memory; the limit is {_build.SMEM_LIMIT_BYTES} (L = {L})"
-        )
+    R, threads = plane_svmc_geometry(chains, L,
+                                     sk.card_resident("plane_svmc", L))
     _build.check_arg(theta, "theta", (chains, L, L), dev)
     _build.check_arg(pl.w, "planes", (5, L, L), dev)
     steps = int(a_sched.shape[0])
     _build.check_arg(a_sched, "a_sched", (steps,), dev)
     _build.check_arg(b_sched, "b_sched", (steps,), dev)
     out = torch.empty_like(theta)
-    R, C = pl.strides
+    rows, cols = pl.strides
     lib = _build.library("plane_svmc")
     rc = lib.plane_svmc_anneal(
         *map(_build.ptr, (pl.w, a_sched, b_sched)), ctypes.c_float(temp),
-        *map(_build.ptr, (theta, out)), chains, L, C, R * C, steps,
-        cr.wrap_int32(seed), int(bool(tf)), _build.stream_of(dev),
+        *map(_build.ptr, (theta, out)), chains, R, threads, L, cols,
+        rows * cols, steps, cr.wrap_int32(seed), int(bool(tf)),
+        _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "plane_svmc_anneal", rc)
     _build.LAUNCHES["svmc_plane"] += 1

@@ -31,8 +31,8 @@ back. `_build.LAUNCHES` counts the kernel launches under "sa_split",
 
 Kernels A, B and 5 spread a chain (kernel A: a group of C chains packed as
 bits, `pack_chain_bits`) over a thread-block cluster of R CTAs, each
-holding a band of rows of the halves (csrc/cluster.cuh), and so does kernel
-6 on the full plane (`ops/plane_kernels.py`). `sa_geometry`,
+holding a band of rows of the halves (csrc/cluster.cuh), and so do kernels
+3, 6 and 7 on the full plane (`ops/plane_kernels.py`). `sa_geometry`,
 `qmc_geometry` and `qmc_bath_geometry` choose C, R and the threads per CTA
 from the shape and, on the card, from how many clusters it holds at once
 (`resident_clusters`); the CPU tests reach the choice with a stand-in
@@ -56,15 +56,17 @@ from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
 from montecarlosolvers_tpu_torch.ops.piqmc import bath_matrix, sum_in_order
 
-# Cluster sizes kernels A, B, 5 and 6 may take: up to 8 CTAs is portable, 16
-# needs cudaFuncAttributeNonPortableClusterSizeAllowed (Hopper allows it).
+# Cluster sizes kernels A, B, 3, 5, 6 and 7 may take: up to 8 CTAs is
+# portable, 16 needs cudaFuncAttributeNonPortableClusterSizeAllowed (Hopper
+# allows it).
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 # Kernels A and 6 pack C = 32 chains to a word while that leaves at least
 # this many groups; below it C halves, down to 1, so few chains still
 # spread.
 FILL_GROUPS = 32
 # Threads per CTA of the cluster kernels (csrc/split_sa.cu, split_qmc.cu,
-# split_qmc_bath.cu and plane_sa.cu compile for 5 such CTAs an SM).
+# split_qmc_bath.cu, plane_sa.cu and plane_qmc.cu compile for 5 such CTAs
+# an SM, plane_svmc.cu for 4).
 MAX_THREADS = 256
 
 
@@ -403,10 +405,10 @@ _RESIDENT = {}
 
 def resident_clusters(kernel, R, threads, L, P=None):
     """How many clusters of R CTAs of `threads` threads of kernel
-    "split_sa", "plane_sa", "split_qmc" or "split_qmc_bath" (the last two
-    at P slices) on an L x L lattice the card holds at once
-    (cudaOccupancyMaxActiveClusters; 0 when a CTA does not fit). Cached per
-    shape."""
+    "split_sa", "plane_sa", "plane_svmc", "split_qmc", "split_qmc_bath" or
+    "plane_qmc" (the last three at P slices) on an L x L lattice the card
+    holds at once (cudaOccupancyMaxActiveClusters; 0 when a CTA does not
+    fit). Cached per shape."""
     key = (kernel, R, threads, L, P)
     if key not in _RESIDENT:
         lib = _build.library(kernel)

@@ -10,8 +10,12 @@ layout. Kernel 6 (`csrc/plane_sa.cu`) takes the same design on the full
 L x L plane (`ops/plane_kernels.py::plane_sa_geometry`), and kernel B
 (`csrc/split_qmc.cu`) spreads one chain's four quarters as bits over a
 cluster (`split_kernels.qmc_geometry`), or, for a chain no cluster holds,
-runs its per-phase kernels. Kernels 4 and 7 still hold one chain in one
-block, so the card refuses the lattices whose chain does not fit
+runs its per-phase kernels; kernel 3 (`csrc/plane_qmc.cu`) does the same
+with a chain's slices as bits on the full plane
+(`plane_kernels.plane_qmc_geometry`, `pack_slice_bits`), and kernel 7
+(`csrc/plane_svmc.cu`) spreads a chain's angles over a cluster
+(`plane_kernels.plane_svmc_geometry`). Kernel 4 still holds one chain in
+one block, so the card refuses the lattices whose chain does not fit
 (README.md states the limits; the CPU's plain versions take any L).
 """
 
@@ -131,11 +135,91 @@ def test_qmc_geometry(chains, L, P, R):
         4 * -(-(P // 2) // 32) * sk.band_sites(L, r) * 4
 
 
+# (chains, L, P) -> R of kernel 3, or None where no cluster of 16 CTAs
+# holds a chain's slices as bits, twice, and the per-phase kernels run: at
+# P <= 32 (one word a site) L <= 675, at P <= 64 L <= 480; 1280 chains fit
+# no R whole, so they take the smallest R that holds a chain
+@pytest.mark.parametrize("chains,L,P,R", [
+    (32, 80, 5, 16), (32, 81, 5, 16), (32, 81, 40, 16), (1280, 80, 5, 1),
+    (32, 5, 1, 4), (1, 5, 64, 4), (33, 243, 5, 16), (1280, 243, 40, 8),
+    (32, 675, 5, 16), (32, 676, 5, None), (1, 480, 64, 16),
+    (1, 481, 64, None), (4, 80, 70, 16), (32, 81, 70, 16),
+])
+def test_plane_qmc_geometry(chains, L, P, R):
+    geometry = pk.plane_qmc_geometry(chains, L, P, h100_resident)
+    if R is None:
+        assert geometry is None
+        assert pk.plane_qmc_smem_bytes(P, L, 16) > _build.SMEM_LIMIT_BYTES
+        return
+    r, threads = geometry
+    assert r == R
+    assert pk.plane_qmc_smem_bytes(P, L, r) <= _build.SMEM_LIMIT_BYTES
+    # one thread per site of the largest band
+    assert threads == min(sk.MAX_THREADS, -(-(-(-L // r) * L) // 32) * 32)
+
+
+def test_plane_qmc_geometry_limit():
+    # R = 16 holds L <= 675 at P <= 32 and L <= 480 at P <= 64, twice
+    assert pk.plane_qmc_smem_bytes(32, 675, 16) <= _build.SMEM_LIMIT_BYTES
+    assert pk.plane_qmc_smem_bytes(33, 480, 16) <= _build.SMEM_LIMIT_BYTES
+    assert pk.plane_qmc_smem_bytes(32, 676, 16) > _build.SMEM_LIMIT_BYTES
+    assert pk.plane_qmc_smem_bytes(33, 481, 16) > _build.SMEM_LIMIT_BYTES
+    assert pk.plane_qmc_geometry(1, 675, 32) == (16, sk.MAX_THREADS)
+    assert pk.plane_qmc_geometry(1, 676, 32) is None
+    assert pk.plane_qmc_geometry(1, 481, 33) is None
+    # a ping-pong band of 2 * ceil(P/32) words a site
+    assert pk.plane_qmc_smem_bytes(70, 81, 4) == 2 * 3 * 21 * 81 * 4
+
+
+@pytest.mark.parametrize("P", [1, 5, 33, 64])
+def test_pack_slice_bits_round_trip(P):
+    rng = np.random.default_rng(P)
+    chains, n = 3, 50
+    x = torch.from_numpy(rng.choice([-1.0, 1.0], size=(chains, P, n))
+                         .astype(np.float32))
+    words = pk.pack_slice_bits(x)
+    assert words.dtype == torch.int32
+    assert words.shape == (chains, -(-P // 32), n)
+    for k in (0, P // 2, P - 1):
+        bit = (words[:, k // 32].to(torch.int64) >> (k % 32)) & 1
+        assert torch.equal(bit == 1, x[:, k] < 0)
+    if P % 32:  # the bits past P are 0
+        spare = (words[:, -1].to(torch.int64) & 0xFFFFFFFF) >> (P % 32)
+        assert not spare.any()
+    out = pk.unpack_slice_bits(words, P)
+    assert out.dtype == torch.float32 and torch.equal(out, x)
+
+
+# (chains, L) -> R of kernel 7: the largest cluster the card holds for
+# every chain at once (280 clusters of 2 at 256 chains), else the smallest
+# that holds a band (256 chains on 243 x 243)
+@pytest.mark.parametrize("chains,L,R", [
+    (1, 5, 4), (6, 33, 16), (32, 81, 16), (256, 81, 2), (6, 121, 16),
+    (1, 243, 16), (256, 243, 8), (1, 480, 16),
+])
+def test_plane_svmc_geometry(chains, L, R):
+    r, threads = pk.plane_svmc_geometry(chains, L, h100_resident)
+    assert r == R
+    assert pk.svmc_plane_smem_bytes(L, r) <= _build.SMEM_LIMIT_BYTES
+    # one thread per site of a phase's color in the largest band
+    assert threads == min(sk.MAX_THREADS,
+                          -(-(-(-L // r) * ((L + 1) // 2)) // 32) * 32)
+
+
+def test_plane_svmc_geometry_limit():
+    # 4 floats a site, R = 16: L <= 480, where one block per chain held
+    # L <= 120
+    assert pk.svmc_plane_smem_bytes(480, 16) <= _build.SMEM_LIMIT_BYTES
+    assert pk.svmc_plane_smem_bytes(481, 16) > _build.SMEM_LIMIT_BYTES
+    assert pk.svmc_plane_smem_bytes(121, 1) > _build.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match="no cluster of up to 16 CTAs"):
+        pk.plane_svmc_geometry(1, 481)
+
+
 # kernel -> (shared memory of one chain at L, largest L the card takes,
 # step between the L it takes): one block per chain
 @pytest.mark.parametrize("smem,largest_L,step", [
     (sk.svmc_smem_bytes, 138, 2),       # kernel 4: even L
-    (pk.svmc_plane_smem_bytes, 120, 1), # kernel 7
 ])
 def test_one_block_kernel_limits(smem, largest_L, step):
     assert smem(largest_L) <= _build.SMEM_LIMIT_BYTES

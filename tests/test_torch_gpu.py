@@ -13,11 +13,15 @@ and periodic lattices, B != 1; for kernel B also 33 chains, P = 40 and 64
 (one bit word a quarter), 66 and 130 (two and three), L = 4, 80 and 176
 over clusters of up to 16 CTAs, more than 65535 chains, and L = 676, which
 no cluster holds and the per-phase kernels run; for the full-plane kernels
-odd and even L, P = 2 to 7 (m = 2, 3 and 4 local phases), and the
+odd and even L, P = 1 to 7 (m = 2, 3 and 4 local phases), and the
 odd-torus wrap pairs that share a color, kernel 6 at 1, 6, 32, 33 (a
-ragged chain word) and 1280 chains on L = 5 to 243; for the SVMC kernels
-4 (even L) and 7 (any L) L = 5 to 33, open and periodic, TF proposals on and off, held to max |d theta| <=
-2e-5 with no angle off by more than 1e-3 (no diverged decision); for the
+ragged chain word) and 1280 chains on L = 5 to 243, kernel 3 also at
+P = 40, 64 and 70 (one, two and three words a site), 33 chains, L = 81 and
+243 over clusters of up to 16 CTAs, and L = 677, which no cluster holds
+and the per-phase kernels run; for the SVMC kernels 4 (even L, L = 6 to
+32) and 7 (any L, L = 5 to 243 at 1, 6 and 256 chains), open and
+periodic, TF proposals on and off, held to max |d theta| <= 2e-5 with no
+angle off by more than 1e-3 (no diverged decision); for the
 bath kernel 5 L = 4 to 80, open and periodic, P = 2, 3, 5, 40 and 64 (one
 and two bit words per line; P above 64 takes the runtime-P kernel), B !=
 1, global moves on and off, and L = 176 and 256, which need a cluster of
@@ -194,22 +198,36 @@ def test_kernel_6_odd_torus_wrap_pairs(cuda):
         assert torch.equal(out, pk.sa_plane_anneal_ref(pl, sched, s, 2))
 
 
+# (L, P, periodic, global moves, B, chains); L = 677 is held by no cluster
+# of 16 CTAs and runs on the per-phase kernels
 @pytest.mark.parametrize(
-    "L,P,periodic,gm,bscale",
-    [(5, 3, True, True, 1.0), (6, 5, False, True, 0.7),
-     (7, 4, True, False, 0.7), (8, 2, True, True, 1.0),
-     (9, 7, True, True, 1.0), (16, 5, True, True, 0.7)],
+    "L,P,periodic,gm,bscale,chains",
+    [(5, 3, True, True, 1.0, 3), (6, 5, False, True, 0.7, 3),
+     (7, 4, True, False, 0.7, 3), (8, 2, True, True, 1.0, 3),
+     (9, 7, True, True, 1.0, 3), (16, 5, True, True, 0.7, 3),
+     (5, 1, True, True, 1.0, 3), (9, 1, False, False, 0.7, 3),
+     (16, 40, True, True, 0.7, 3), (10, 64, False, True, 1.0, 3),
+     (12, 70, True, True, 0.7, 2), (81, 5, True, True, 1.0, 33),
+     (81, 40, True, False, 0.7, 4), (243, 5, True, True, 0.7, 2),
+     (677, 3, True, True, 1.0, 1)],
 )
-def test_kernel_3_equals_plain(cuda, L, P, periodic, gm, bscale):
+def test_kernel_3_equals_plain(cuda, L, P, periodic, gm, bscale, chains):
     pl = plane_ops.build_plane(_lattice(L, periodic, cuda))
     rng = np.random.default_rng(3)
-    c = torch.as_tensor(rng.choice([-1.0, 1.0], size=(3, P, L, L))
+    c = torch.as_tensor(rng.choice([-1.0, 1.0], size=(chains, P, L, L))
                         .astype(np.float32), device=cuda)
-    gamma = schedules.transverse_field(2.5, 1e-8, 30, device=cuda)
+    steps = 30
+    gamma = schedules.transverse_field(2.5, 1e-8, steps, device=cuda)
     teff = (1.0 / P) * P
     jp = schedules.jperp(gamma, teff).contiguous()
     bs = torch.full_like(gamma, bscale)
+    _build.reset_launches()
     out = pk.qmc_plane_anneal(pl, bs, jp, teff, c, 5, gm)
+    phases = piqmc_ops.spacetime_num_phases(2, P) + (2 if gm else 0)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == (
+        {"qmc_plane_phased": phases * steps}
+        if pk.plane_qmc_geometry(chains, L, P) is None
+        else {"qmc_plane": 1})
     ref = pk.qmc_plane_anneal_ref(pl, bs, jp, teff, c, 5, gm)
     assert torch.equal(out, ref)
     assert not torch.equal(out, c)
@@ -230,12 +248,11 @@ def test_plane_wrapper_refusals(cuda):
 
 
 # (L, P, launches): the pre-anneal is one SA launch; PIQMC is one launch
-# of kernel B, or with global moves m + 2 launches of kernel 3 per sweep
-# (m = 3 at P = 5, 2 at P = 4).
+# of kernel B or of kernel 3
 @pytest.mark.parametrize("L,P,launches", [
     (16, 4, {"sa_split": 1, "qmc_split": 1}),
-    (16, 5, {"sa_split": 1, "qmc_plane": 5 * 50}),
-    (9, 4, {"sa_plane": 1, "qmc_plane": 4 * 50}),
+    (16, 5, {"sa_split": 1, "qmc_plane": 1}),
+    (9, 4, {"sa_plane": 1, "qmc_plane": 1}),
 ])
 def test_solve_runs_the_kernels(cuda, L, P, launches):
     lat = _lattice(L, True, cuda)
@@ -275,13 +292,16 @@ def test_kernel_4_equals_plain(cuda, L, periodic, tf):
         _assert_angles_equal(x, y, x0)
 
 
-@pytest.mark.parametrize("L,periodic,tf", [
-    (5, True, True), (5, False, False), (9, False, True), (16, True, False),
-    (33, True, True),
+# L = 121 and 243 lie past the 120 that one block per chain held
+@pytest.mark.parametrize("L,periodic,tf,chains", [
+    (5, True, True, 6), (5, False, False, 6), (9, False, True, 6),
+    (16, True, False, 6), (33, True, True, 6), (81, True, True, 256),
+    (81, False, False, 1), (121, False, True, 6), (243, True, True, 1),
+    (243, True, False, 256),
 ])
-def test_kernel_7_equals_plain(cuda, L, periodic, tf):
+def test_kernel_7_equals_plain(cuda, L, periodic, tf, chains):
     pl = plane_ops.build_plane(_lattice(L, periodic, cuda))
-    th = _angles((6, L, L), cuda, 5)
+    th = _angles((chains, L, L), cuda, 5)
     A = schedules.linear(2.5, 1e-8, 64, device=cuda)
     B = torch.full_like(A, 0.9)
     out = pk.svmc_plane_anneal(pl, A, B, 0.1, th, 3, tf)
@@ -295,10 +315,10 @@ def test_svmc_wrapper_refusals(cuda):
     h = torch.ones((1, sl.nh), device=cuda)
     with pytest.raises(ValueError, match="shared"):
         sk.svmc_split_anneal(sl, A, torch.ones_like(A), 0.1, h, h, 0, True)
-    pl = plane_ops.build_plane(_lattice(121, False, cuda))
+    pl = plane_ops.build_plane(_lattice(481, False, cuda))  # R = 16: 480
     with pytest.raises(ValueError, match="shared"):
         pk.svmc_plane_anneal(pl, A, torch.ones_like(A), 0.1,
-                             torch.ones((1, 121, 121), device=cuda), 0, True)
+                             torch.ones((1, 481, 481), device=cuda), 0, True)
     pl = plane_ops.build_plane(_lattice(16, True, cuda))
     with pytest.raises(ValueError, match="float32"):
         pk.svmc_plane_anneal(pl, A, torch.ones_like(A), 0.1,

@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
-"""Slope-time kernels A, 5, 6 and B of the montecarlosolvers_tpu_torch
+"""Slope-time kernels A, 5, 6, B, 3 and 7 of the montecarlosolvers_tpu_torch
 found on the import path, on one CUDA card, at the main path's shapes.
 
     PYTHONPATH=<checkout> python tools/time_kernels.py [--label NAME]
-        [--L 80] [--sa-geometry CHAINS:C:R ...] [--bath-geometry R ...]
-        [--qmc-geometry R ...]
+        [--L 80] [--sa-geometry CHAINS:C:R ...]
+        [--bath-geometry R ...] [--qmc-geometry R ...]
+        [--plane-qmc-geometry R ...] [--plane-svmc-geometry R ...]
 
 Rows: kernel A at 1280 and 32 chains on the seeded L x L torus (T: 3 -> 0),
 kernel 5 at P = 40, 32 chains, alpha = 1e-2, global moves on the same
 torus, kernel 6 at 1280 and 32 chains on the seeded (L+1) x (L+1) torus,
-and kernel B at P = 40, 32 chains, global moves on the L x L torus; one
-JSON line each, with the geometry and the clusters the card
-holds at once where the checkout reports them, with ms per sweep (the median pairwise slope of
-best-of-3 wall times over two schedule lengths, as chip_smoke.py's
-slope_ms), the card's name and power limit. It calls only the wrappers
-`sa_split_anneal`, `qmc_bath_split_anneal`, `sa_plane_anneal` and
-`qmc_split_anneal`, whose arguments every version of the port shares, so the same script times an older checkout
-(unpacked with `git archive`) beside the current one in one run.
-`--sa-geometry` times kernel A at CHAINS (1280 or 32) chains at each given
-(C, R), and `--bath-geometry` / `--qmc-geometry` kernel 5 / B at each
-given R, instead of the wrapper's own choice (where the checkout has
-`sa_geometry` / `qmc_bath_geometry` / `qmc_geometry`).
+kernel B at P = 40, 32 chains, global moves on the L x L torus, kernel 3 at
+P = 5, 32 chains, global moves on the L x L and (L+1) x (L+1) tori, and
+kernel 7 at 256 chains, TF proposals (A: 3 -> 1e-8, B = 1, T = 0.05) on
+the (L+1) x (L+1) torus; one JSON line each, with the geometry and the
+clusters the card holds at once where the checkout reports them, with ms
+per sweep (the median pairwise slope of best-of-3 wall times over two
+schedule lengths, as chip_smoke.py's slope_ms), the card's name and power
+limit. It calls only the wrappers `sa_split_anneal`,
+`qmc_bath_split_anneal`, `sa_plane_anneal`, `qmc_split_anneal`,
+`qmc_plane_anneal` and `svmc_plane_anneal`, whose arguments every version
+of the port shares, so the same script times an older checkout (unpacked
+with `git archive`) beside the current one in one run. `--sa-geometry`
+times kernel A at CHAINS (1280 or 32) chains at each given (C, R), and
+`--bath-geometry` / `--qmc-geometry` / `--plane-qmc-geometry` /
+`--plane-svmc-geometry` kernel 5 / B / 3 / 7 at each given R, instead of
+the wrapper's own choice (where the checkout has `sa_geometry` /
+`qmc_bath_geometry` / `qmc_geometry` / `plane_qmc_geometry` /
+`plane_svmc_geometry`).
 """
 
 import argparse
@@ -55,6 +62,8 @@ def main():
     ap.add_argument("--sa-geometry", nargs="*", default=[])
     ap.add_argument("--bath-geometry", nargs="*", default=[])
     ap.add_argument("--qmc-geometry", nargs="*", default=[])
+    ap.add_argument("--plane-qmc-geometry", nargs="*", default=[])
+    ap.add_argument("--plane-svmc-geometry", nargs="*", default=[])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -168,6 +177,53 @@ def main():
              ms_per_sweep=slope_ms(run, taus(100 * 6400 // L ** 2)))
         if own_qmc:
             sk.qmc_geometry = own_qmc
+
+    own_plane_qmc = getattr(pk, "plane_qmc_geometry", None)
+    P5 = 5
+    teff5 = (1.0 / P5) * P5
+    for lat in (L, odd):
+        pl_q = plane_ops.build_plane(instances.gaussian_torus(
+            lat, seed=0, device=dev))
+        c = spins(32, P5, lat, lat)
+
+        def run(tau):
+            g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+            return pk.qmc_plane_anneal(
+                pl_q, torch.ones_like(g),
+                schedules.jperp(g, teff5).contiguous(), teff5, c, 7, True)
+        for geom in [int(g) for g in args.plane_qmc_geometry] or [None]:
+            if geom is not None and own_plane_qmc:
+                pk.plane_qmc_geometry = (lambda ch, lt, p, *_, r=geom:
+                                         (r, pk._site_threads(lt, r)))
+            used = pk.plane_qmc_geometry(32, lat, P5, sk.card_resident(
+                "plane_qmc", lat, P5)) if own_plane_qmc else None
+            emit(kernel="plane_qmc", chains=32, L=lat, P=P5, geometry=used,
+                 resident=used and sk.resident_clusters(
+                     "plane_qmc", used[0], used[1], lat, P5),
+                 ms_per_sweep=slope_ms(run, taus(100 * 6400 // lat ** 2)))
+            if own_plane_qmc:
+                pk.plane_qmc_geometry = own_plane_qmc
+
+    own_plane_svmc = getattr(pk, "plane_svmc_geometry", None)
+    th = torch.as_tensor((rng.random((256, odd, odd)) * np.pi)
+                         .astype(np.float32), device=dev)
+
+    def run(tau):
+        a = schedules.linear(3.0, 1e-8, tau, device=dev)
+        return pk.svmc_plane_anneal(pl, a, torch.ones_like(a), 0.05, th, 7,
+                                    True)
+    for geom in [int(g) for g in args.plane_svmc_geometry] or [None]:
+        if geom is not None and own_plane_svmc:
+            pk.plane_svmc_geometry = (lambda ch, lt, *_, r=geom:
+                                      (r, pk._slot_threads(lt, r)))
+        used = pk.plane_svmc_geometry(256, odd, sk.card_resident(
+            "plane_svmc", odd)) if own_plane_svmc else None
+        emit(kernel="plane_svmc", chains=256, L=odd, tf=True, geometry=used,
+             resident=used and sk.resident_clusters(
+                 "plane_svmc", used[0], used[1], odd),
+             ms_per_sweep=slope_ms(run, taus(500 * 6400 // odd ** 2)))
+        if own_plane_svmc:
+            pk.plane_svmc_geometry = own_plane_svmc
 
 
 if __name__ == "__main__":
