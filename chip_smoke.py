@@ -10,9 +10,11 @@ Phases, each printed as one JSON line:
   build               nvcc builds kernels A, B, 3, 4, 5, 6 and 7 from csrc/,
                       all at once (seconds)
   clusters            the (C, R, threads) kernels A and 6 and the (R,
-                      threads) kernels B, 5, 3 and 7 take at the shapes
+                      threads) kernels B, 5, 3, 7 and 4 take at the shapes
                       below, and how many of those clusters the card holds
-                      at once (cudaOccupancyMaxActiveClusters)
+                      at once (cudaOccupancyMaxActiveClusters); null where
+                      no cluster holds the shape and the per-phase kernels
+                      run
   sa_kernel_vs_plain  kernel A against its plain PyTorch version on the card,
                       80x80 periodic Gaussian lattice at the main path's
                       1280 chains, 200 steps of T: 3 -> 0.1; then 32 chains
@@ -48,10 +50,22 @@ Phases, each printed as one JSON line:
   svmc_split_kernel_vs_plain  kernel 4 against its plain version on the
                       80x80 torus, 256 chains, 200 steps of A: 3 -> 1e-8,
                       B = 1, T = 0.05, TF proposals on and off: angles that
-                      differ at all, by more than 1e-3 (must be 0), max |d|
+                      differ at all, by more than 1e-3 (must be 0), max
+                      |d|; then the 256x256 torus (32 chains, 100 steps),
+                      past the L <= 138 of one block per chain, and the
+                      554x554 torus (2 chains, 32 steps), which no cluster
+                      holds and the per-phase kernels run; with the (R,
+                      threads) and the launches of each
   svmc_plane_kernel_vs_plain  kernel 7 likewise on the 81x81 torus and an
                       81x81 open lattice, and on the 243x243 torus, past
                       the L <= 120 of one block per chain
+  phased_kernel_vs_plain  the per-phase kernels of A, 6, 7 and 5 against
+                      their plain versions at the first lattice no cluster
+                      of 16 CTAs holds: A on the 962x962 torus, 6 on the
+                      676x676 torus (2 chains, 8 steps), 7 on the 481x481
+                      torus (2 chains, 16 steps, TF), 5 on the 674x674
+                      torus at P = 40 (1 chain, 4 steps, global moves), each
+                      with its "*_phased" launch count
   main_path           eight solves at full width: solve("sa", 1280 reads,
                       2000 sweeps) and solve("piqmc", 32 reads, 1000
                       sweeps) at P = 40 and at P = 5 on the santoro instance
@@ -79,8 +93,12 @@ Phases, each printed as one JSON line:
                       or its bytes, over the card's peak rates); also
                       kernels A and 6 at 32 chains (the pre-anneals),
                       kernel 5 at P = 40, 32 chains on the 256x256 torus
-                      and kernel 3 at P = 5, 32 chains on the 81x81 torus
-then a line {"kernels": [...]}, and last {"ok": true, "device": {...}}.
+                      and kernel 3 at P = 5, 32 chains on the 81x81 torus;
+                      and each kernel's per-phase kernels and their plain
+                      versions at the shape checked above
+then a line {"kernels": [...]} (the seven kernels, then their per-phase
+kernels, which no main-path solve launches), and last {"ok": true,
+"device": {...}}.
 Any failed check raises, so the script exits non-zero without the last line;
 it also fails when torch sees no CUDA device or the package is missing.
 The script imports no JAX. A torch.profiler breakdown of the main-path
@@ -104,6 +122,10 @@ BIG_ODD_L = 243
 # its per-phase kernels there; and an L that kernel 3's clusters do not
 # hold at P <= 32
 PHASED_L, PLANE_PHASED_L = 676, 677
+# the first lattices no cluster of 16 CTAs holds for kernels A, 6, 7, 5 at
+# P = 40 and 4: their per-phase kernels run there
+SA_PHASED_L, PLANE_SA_PHASED_L, PLANE_SVMC_PHASED_L = 962, 676, 481
+BATH_PHASED_L, SVMC_PHASED_L = 674, 554
 SA_READS, SA_SWEEPS = 1280, 2000
 QMC_READS, QMC_SLICES, QMC_SWEEPS = 32, 40, 1000
 ODD_SLICES = 5
@@ -163,6 +185,10 @@ KERNELS = {
                        "montecarlosolvers_tpu_torch/csrc/split_qmc_bath.cu",
                        "montecarlosolvers_tpu/ops/pallas_split.py:696"),
 }
+# each kernel's per-phase kernels, for the shapes no cluster holds, in the
+# same source, under LAUNCHES[key + "_phased"]
+KERNELS.update({f"{k}_phased": (f"{key}_phased", src, tpu)
+                for k, (key, src, tpu) in list(KERNELS.items())})
 # Least time of a sweep on an H100 SXM: float32 operations over 67 TFLOP/s
 # and bytes over 3.35 TB/s (NVIDIA's data sheet), and special-function
 # operations (logarithm, sine, cosine) over 67e12 * 16 / 256 per second:
@@ -373,13 +399,19 @@ def main():
                   "ctas": chains * r,
                   "resident_clusters": sk.resident_clusters(
                       kname, r, threads, lat_l, slices)})
-    for chains, lat_l in ((SVMC_READS, ODD_L), (SVMC_READS, BIG_ODD_L)):
-        r, threads = pk.plane_svmc_geometry(
-            chains, lat_l, sk.card_resident("plane_svmc", lat_l))
-        emit({"phase": "clusters", "kernel": "plane_svmc", "chains": chains,
-              "L": lat_l, "R": r, "threads": threads, "ctas": chains * r,
-              "resident_clusters": sk.resident_clusters(
-                  "plane_svmc", r, threads, lat_l)})
+    for kname, geometry, shapes in (
+            ("plane_svmc", pk.plane_svmc_geometry,
+             ((SVMC_READS, ODD_L), (SVMC_READS, BIG_ODD_L))),
+            ("split_svmc", sk.svmc_split_geometry,
+             ((SVMC_READS, L), (QMC_READS, BIG_L), (2, SVMC_PHASED_L)))):
+        for chains, lat_l in shapes:
+            r, threads = geometry(chains, lat_l, sk.card_resident(
+                kname, lat_l)) or (None, None)
+            emit({"phase": "clusters", "kernel": kname, "chains": chains,
+                  "L": lat_l, "R": r, "threads": threads,
+                  "ctas": r and chains * r,
+                  "resident_clusters": r and sk.resident_clusters(
+                      kname, r, threads, lat_l)})
 
     torus = instances.gaussian_torus(L, seed=0, device=dev)
     big_torus = instances.gaussian_torus(BIG_L, seed=0, device=dev)
@@ -438,7 +470,6 @@ def main():
     # ---- kernel B against its plain version
     gamma = schedules.transverse_field(3.0, 1e-8, 40, device=dev)
     teff = (1.0 / QMC_SLICES) * QMC_SLICES
-    err_b = 0.0
     cases = [("gaussian_torus(80, 0)", torus, QMC_SLICES, bscale, gm,
               QMC_READS, 40) for bscale in (1.0, 0.7) for gm in (True, False)]
     # Q = 1 (both ring terms one element), Q = 32 (a full quarter word), a
@@ -466,7 +497,9 @@ def main():
         rq = sk.qmc_split_anneal_ref(slq, bs, jp, teff_q, quarters, 777, gm)
         torch.cuda.synchronize()
         n_bad, err = mismatches(kq, rq)
-        err_b = max(err_b, err)
+        name_b = "split_qmc" if geometry else "split_qmc_phased"
+        results[name_b]["max_abs_err"] = max(
+            results[name_b].get("max_abs_err", 0.0), err)
         emit({"phase": "qmc_kernel_vs_plain", "lattice": lname,
               "chains": chains, "slices": slices, "steps": steps,
               "B": bscale, "global_moves": gm, "geometry": geometry,
@@ -479,7 +512,6 @@ def main():
         check(launched == ({"qmc_split": 1} if geometry else
                            {"qmc_split_phased": (4 if gm else 2) * steps}),
               f"kernel B on {lname}, P={slices} launched {launched}")
-    results["split_qmc"]["max_abs_err"] = err_b
 
     # ---- kernel 5 against its plain version
     open80 = instances.random_2d_lattice(L, rng=0, device=dev)[0]
@@ -560,7 +592,6 @@ def main():
     results["plane_sa"]["max_abs_err"] = err_6
 
     # ---- kernel 3 against its plain version
-    err_3 = 0.0
     cases = [(lname, lat, slices, bscale, gm, QMC_READS, 40)
              for lname, lat, slices in (
                  ("gaussian_torus(80, 0)", torus, ODD_SLICES),
@@ -595,7 +626,9 @@ def main():
         r3 = pk.qmc_plane_anneal_ref(pl, bs, jp3, teff3, c, 555, gm)
         torch.cuda.synchronize()
         n_bad, err = mismatches([k3], [r3])
-        err_3 = max(err_3, err)
+        name_3 = "plane_qmc" if geometry else "plane_qmc_phased"
+        results[name_3]["max_abs_err"] = max(
+            results[name_3].get("max_abs_err", 0.0), err)
         emit({"phase": "plane_qmc_kernel_vs_plain", "lattice": lname,
               "chains": chains, "slices": slices, "steps": steps,
               "B": bscale, "global_moves": gm, "geometry": geometry,
@@ -608,7 +641,6 @@ def main():
         check(launched == ({"qmc_plane": 1} if geometry else
                            {"qmc_plane_phased": phases * steps}),
               f"kernel 3 on {lname}, P={slices} launched {launched}")
-    results["plane_qmc"]["max_abs_err"] = err_3
 
     # ---- kernels 4 and 7 against their plain versions
     a_sv = schedules.linear(3.0, 1e-8, 200, device=dev)
@@ -621,22 +653,38 @@ def main():
               f"{what} equals its plain version ({rec})")
         return d["max_abs_err"]
 
-    err_4 = 0.0
-    ah, bh = (x.contiguous() for x in split_ops.pack_classical(
-        sl, random_angles(SVMC_READS, L * L)))
-    for tf in (True, False):
-        k4 = sk.svmc_split_anneal(sl, a_sv, b_sv, SVMC_TEMP, ah, bh, 2468,
-                                  tf)
-        r4 = sk.svmc_split_anneal_ref(sl, a_sv, b_sv, SVMC_TEMP, ah, bh,
-                                      2468, tf)
+    sl_svmc_phased = split_ops.build_split(
+        instances.gaussian_torus(SVMC_PHASED_L, seed=0, device=dev))
+    cases = [(f"gaussian_torus({L}, 0)", sl, SVMC_READS, 200, tf)
+             for tf in (True, False)]
+    cases += [(f"gaussian_torus({BIG_L}, 0)",
+               split_ops.build_split(big_torus), QMC_READS, 100, True)]
+    cases += [(f"gaussian_torus({SVMC_PHASED_L}, 0)", sl_svmc_phased, 2, 32,
+               tf) for tf in (True, False)]
+    for lname, sl4, chains, steps, tf in cases:
+        ah, bh = (x.contiguous() for x in split_ops.pack_classical(
+            sl4, random_angles(chains, sl4.L * sl4.L)))
+        geometry = sk.svmc_split_geometry(
+            chains, sl4.L, sk.card_resident("split_svmc", sl4.L))
+        _build.reset_launches()
+        k4 = sk.svmc_split_anneal(sl4, a_sv[:steps], b_sv[:steps],
+                                  SVMC_TEMP, ah, bh, 2468, tf)
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        r4 = sk.svmc_split_anneal_ref(sl4, a_sv[:steps], b_sv[:steps],
+                                      SVMC_TEMP, ah, bh, 2468, tf)
         torch.cuda.synchronize()
-        err_4 = max(err_4, check_angles(
-            "svmc_split_kernel_vs_plain", "kernel 4", k4, r4,
-            {"lattice": "gaussian_torus(80, 0)", "chains": SVMC_READS,
-             "steps": 200, "tf": tf, "nslots": sl.nslots,
-             "moved_fraction": float((k4[0] - ah[0]).abs().gt(1e-3)
-                                     .float().mean())}))
-    results["split_svmc"]["max_abs_err"] = err_4
+        name4 = "split_svmc" if geometry else "split_svmc_phased"
+        results[name4]["max_abs_err"] = max(
+            results[name4].get("max_abs_err", 0.0), check_angles(
+                "svmc_split_kernel_vs_plain", "kernel 4", k4, r4,
+                {"lattice": lname, "chains": chains, "steps": steps,
+                 "tf": tf, "nslots": sl4.nslots, "geometry": geometry,
+                 "launches": launched,
+                 "moved_fraction": float((k4[0] - ah[0]).abs().gt(1e-3)
+                                         .float().mean())}))
+        check(launched == ({"svmc_split": 1} if geometry else
+                           {"svmc_split_phased": 1 + 2 * steps}),
+              f"kernel 4 on {lname} launched {launched}")
 
     err_7 = 0.0
     for lname, lat, tfs in (("gaussian_torus(81, 0)", odd_torus,
@@ -660,6 +708,105 @@ def main():
                      SVMC_READS, lat.L, sk.card_resident("plane_svmc",
                                                          lat.L))}))
     results["plane_svmc"]["max_abs_err"] = err_7
+
+    # ---- the per-phase kernels of A, 6, 7 and 5 against their plain
+    # versions at the first lattice no cluster of 16 CTAs holds
+    sl_a = split_ops.build_split(
+        instances.gaussian_torus(SA_PHASED_L, seed=0, device=dev))
+    pl_6 = plane_ops.build_plane(
+        instances.gaussian_torus(PLANE_SA_PHASED_L, seed=0, device=dev))
+    pl_7 = plane_ops.build_plane(
+        instances.gaussian_torus(PLANE_SVMC_PHASED_L, seed=0, device=dev))
+    sl_5 = split_ops.build_split(
+        instances.gaussian_torus(BATH_PHASED_L, seed=0, device=dev))
+    sched8 = schedules.linear(3.0, 0.1, 8, device=dev)
+
+    def phased_case(kname, lname, run, geometry, steps, rec):
+        """run(fn) on the wrapper and on the plain version; holds the two
+        equal and the wrapper's launches to its per-phase kernels'."""
+        check(geometry is None, f"no cluster holds {kname} on {lname}")
+        _build.reset_launches()
+        out = run(True)
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        ref = run(False)
+        torch.cuda.synchronize()
+        if kname.endswith("svmc"):
+            err = check_angles("phased_kernel_vs_plain", f"{kname} phased",
+                               out, ref, {"kernel": kname, "lattice": lname,
+                                          "launches": launched, **rec})
+        else:
+            n_bad, err = mismatches(out, ref)
+            emit({"phase": "phased_kernel_vs_plain", "kernel": kname,
+                  "lattice": lname, "launches": launched, **rec,
+                  "mismatched_spins": n_bad, "max_abs_err": err,
+                  "flipped_fraction": float((out[0] != run.start).float()
+                                            .mean())})
+            check(n_bad == 0, f"{kname} phased equals its plain version")
+        want = {"sa": 2 * steps, "svmc": 1 + 2 * steps,
+                "qmc_bath": (4 if rec.get("global_moves") else 2) * steps}
+        key = KERNELS[kname][0] + "_phased"
+        check(launched == {key: want[kname.split("_", 1)[1]]},
+              f"{kname} on {lname} launched {launched}")
+        results[f"{kname}_phased"]["max_abs_err"] = err
+
+    a, b = (x.contiguous() for x in split_ops.pack_classical(
+        sl_a, random_spins(2, SA_PHASED_L ** 2)))
+
+    def run_a(kernel):
+        fn = sk.sa_split_anneal if kernel else sk.sa_split_anneal_ref
+        return fn(sl_a, sched8, a, b, 2468)
+    run_a.start = a
+    phased_case("split_sa", f"gaussian_torus({SA_PHASED_L}, 0)", run_a,
+                sk.sa_geometry(2, SA_PHASED_L,
+                               sk.card_resident("split_sa", SA_PHASED_L)),
+                8, {"chains": 2, "steps": 8})
+
+    s6 = random_spins(2, PLANE_SA_PHASED_L, PLANE_SA_PHASED_L)
+
+    def run_6(kernel):
+        fn = pk.sa_plane_anneal if kernel else pk.sa_plane_anneal_ref
+        return [fn(pl_6, sched8, s6, 4321)]
+    run_6.start = s6
+    phased_case("plane_sa", f"gaussian_torus({PLANE_SA_PHASED_L}, 0)",
+                run_6, pk.plane_sa_geometry(2, PLANE_SA_PHASED_L,
+                                            sk.card_resident(
+                                                "plane_sa",
+                                                PLANE_SA_PHASED_L)),
+                8, {"chains": 2, "steps": 8})
+
+    th7 = random_angles(2, PLANE_SVMC_PHASED_L, PLANE_SVMC_PHASED_L)
+
+    def run_7(kernel):
+        fn = pk.svmc_plane_anneal if kernel else pk.svmc_plane_anneal_ref
+        return [fn(pl_7, a_sv[:16], b_sv[:16], SVMC_TEMP, th7, 1357, True)]
+    phased_case("plane_svmc", f"gaussian_torus({PLANE_SVMC_PHASED_L}, 0)",
+                run_7, pk.plane_svmc_geometry(2, PLANE_SVMC_PHASED_L,
+                                              sk.card_resident(
+                                                  "plane_svmc",
+                                                  PLANE_SVMC_PHASED_L)),
+                16, {"chains": 2, "steps": 16, "tf": True})
+
+    a5, b5 = (x.contiguous() for x in split_ops.pack_classical(
+        sl_5, random_spins(1, BATH_SLICES, BATH_PHASED_L ** 2)))
+    g5 = gamma5[:4]
+    teff5 = (1.0 / BATH_SLICES) * BATH_SLICES
+    jp5 = schedules.jperp(g5, teff5).contiguous()
+    bath5 = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+        BATH_SLICES, BATH_ALPHA, device=dev), BATH_SLICES).contiguous()
+
+    def run_5(kernel):
+        fn = (sk.qmc_bath_split_anneal if kernel
+              else sk.qmc_bath_split_anneal_ref)
+        return fn(sl_5, torch.full_like(g5, 0.7), jp5, teff5, bath5, a5,
+                  b5, 888, True)
+    run_5.start = a5
+    phased_case("split_qmc_bath", f"gaussian_torus({BATH_PHASED_L}, 0)",
+                run_5, sk.qmc_bath_geometry(1, BATH_PHASED_L, BATH_SLICES,
+                                            sk.card_resident(
+                                                "split_qmc_bath",
+                                                BATH_PHASED_L, BATH_SLICES)),
+                4, {"chains": 1, "slices": BATH_SLICES, "steps": 4,
+                    "alpha": BATH_ALPHA, "B": 0.7, "global_moves": True})
 
     # ---- main path through solve(), launch counts read around each solve
     try:
@@ -748,25 +895,26 @@ def main():
     emit({"phase": "main_path", "launches": main_launches})
 
     # ---- timing: slope ms per sweep, kernel and plain version
-    def split_sa_runner(fn, chains=SA_READS):
+    def split_sa_runner(fn, chains=SA_READS, sl=sl):
         ha, hb = (x.contiguous() for x in split_ops.pack_classical(
-            sl, random_spins(chains, L * L)))
+            sl, random_spins(chains, sl.L * sl.L)))
         return lambda tau: fn(sl, schedules.linear(3.0, 0.0, tau, device=dev),
                               ha, hb, 7)
 
-    def split_qmc_runner(fn):
-        qs = split_ops.pack_qmc(sl, random_spins(QMC_READS, QMC_SLICES,
-                                                 L * L))
+    def split_qmc_runner(fn, chains=QMC_READS, slices=QMC_SLICES, sl=sl):
+        qs = split_ops.pack_qmc(sl, random_spins(chains, slices,
+                                                 sl.L * sl.L))
+        teff_q = (1.0 / slices) * slices
 
         def run(tau):
             g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
-            return fn(sl, torch.ones_like(g), schedules.jperp(g, teff)
-                      .contiguous(), teff, qs, 7, True)
+            return fn(sl, torch.ones_like(g), schedules.jperp(g, teff_q)
+                      .contiguous(), teff_q, qs, 7, True)
         return run
 
-    def split_bath_runner(fn, sl=sl):
+    def split_bath_runner(fn, sl=sl, chains=BATH_READS):
         ha, hb = (x.contiguous() for x in split_ops.pack_classical(
-            sl, random_spins(BATH_READS, BATH_SLICES, sl.L * sl.L)))
+            sl, random_spins(chains, BATH_SLICES, sl.L * sl.L)))
         bath = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
             BATH_SLICES, BATH_ALPHA, device=dev), BATH_SLICES).contiguous()
 
@@ -783,30 +931,72 @@ def main():
         a = schedules.linear(3.0, 1e-8, tau, device=dev)
         return a, torch.ones_like(a)
 
-    def split_svmc_runner(fn):
+    def split_svmc_runner(fn, chains=SVMC_READS, sl=sl):
         ha, hb = (x.contiguous() for x in split_ops.pack_classical(
-            sl, random_angles(SVMC_READS, L * L)))
+            sl, random_angles(chains, sl.L * sl.L)))
         return lambda tau: fn(sl, *svmc_sched(tau), SVMC_TEMP, ha, hb, 7,
                               True)
 
-    def plane_svmc_runner(fn):
-        th = random_angles(SVMC_READS, ODD_L, ODD_L)
-        return lambda tau: fn(pl81, *svmc_sched(tau), SVMC_TEMP, th, 7, True)
+    def plane_svmc_runner(fn, chains=SVMC_READS, pl=pl81):
+        th = random_angles(chains, pl.L, pl.L)
+        return lambda tau: fn(pl, *svmc_sched(tau), SVMC_TEMP, th, 7, True)
 
-    def plane_sa_runner(fn, chains=SA_READS):
-        s = random_spins(chains, ODD_L, ODD_L)
-        return lambda tau: fn(pl81, schedules.linear(3.0, 0.0, tau,
-                                                     device=dev), s, 7)
+    def plane_sa_runner(fn, chains=SA_READS, pl=pl81):
+        s = random_spins(chains, pl.L, pl.L)
+        return lambda tau: fn(pl, schedules.linear(3.0, 0.0, tau,
+                                                   device=dev), s, 7)
 
-    def plane_qmc_runner(fn, pl=pl80):
-        c = random_spins(QMC_READS, ODD_SLICES, pl.L, pl.L)
-        teff5 = (1.0 / ODD_SLICES) * ODD_SLICES
+    def plane_qmc_runner(fn, pl=pl80, chains=QMC_READS, slices=ODD_SLICES):
+        c = random_spins(chains, slices, pl.L, pl.L)
+        teff_q = (1.0 / slices) * slices
 
         def run(tau):
             g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
-            return fn(pl, torch.ones_like(g), schedules.jperp(g, teff5)
-                      .contiguous(), teff5, c, 7, True)
+            return fn(pl, torch.ones_like(g), schedules.jperp(g, teff_q)
+                      .contiguous(), teff_q, c, 7, True)
         return run
+
+    # the per-phase kernels at the shapes checked above
+    sl_b = split_ops.build_split(
+        instances.gaussian_torus(PHASED_L, seed=0, device=dev))
+    pl_3 = plane_ops.build_plane(
+        instances.gaussian_torus(PLANE_PHASED_L, seed=0, device=dev))
+    phased = {
+        "split_sa": (lambda fn: split_sa_runner(fn, 2, sl_a), 2, 1,
+                     SA_PHASED_L),
+        "split_qmc": (lambda fn: split_qmc_runner(fn, 1, 2, sl_b), 1, 2,
+                      PHASED_L),
+        "split_qmc_bath": (lambda fn: split_bath_runner(fn, sl_5, 1), 1,
+                           BATH_SLICES, BATH_PHASED_L),
+        "plane_sa": (lambda fn: plane_sa_runner(fn, 2, pl_6), 2, 1,
+                     PLANE_SA_PHASED_L),
+        "plane_qmc": (lambda fn: plane_qmc_runner(fn, pl_3, 1, 3), 1, 3,
+                      PLANE_PHASED_L),
+        "plane_svmc": (lambda fn: plane_svmc_runner(fn, 2, pl_7), 2, 1,
+                       PLANE_SVMC_PHASED_L),
+        "split_svmc": (lambda fn: split_svmc_runner(fn, 2, sl_svmc_phased),
+                       2, 1, SVMC_PHASED_L),
+    }
+    wrappers = {
+        "split_sa": (sk.sa_split_anneal, sk.sa_split_anneal_ref),
+        "split_qmc": (sk.qmc_split_anneal, sk.qmc_split_anneal_ref),
+        "split_qmc_bath": (sk.qmc_bath_split_anneal,
+                           sk.qmc_bath_split_anneal_ref),
+        "plane_sa": (pk.sa_plane_anneal, pk.sa_plane_anneal_ref),
+        "plane_qmc": (pk.qmc_plane_anneal, pk.qmc_plane_anneal_ref),
+        "plane_svmc": (pk.svmc_plane_anneal, pk.svmc_plane_anneal_ref),
+        "split_svmc": (sk.svmc_split_anneal, sk.svmc_split_anneal_ref),
+    }
+    phased_rows = []
+    for kname, (runner, chains, slices, lat_l) in phased.items():
+        kernel, plain = wrappers[kname]
+        phased_rows += [
+            (f"{kname}_phased", "cuda", runner(kernel),
+             (5, 20) if kname == "split_qmc_bath" else (20, 80), 3, chains,
+             slices, lat_l * lat_l),
+            (f"{kname}_phased", "plain", runner(plain),
+             (1, 3) if kname == "split_qmc_bath" else (2, 6), 2, chains,
+             slices, lat_l * lat_l)]
 
     power = smi.split(",")[-1].strip() if "," in smi else smi
     # kernel, route, runner, taus, trials, chains, slices, sites; the rows
@@ -842,6 +1032,7 @@ def main():
         ("split_qmc_bath", "plain",
          split_bath_runner(sk.qmc_bath_split_anneal_ref), (2, 6), 2,
          BATH_READS, BATH_SLICES, L * L),
+        *phased_rows,
     )
     extra = (
         ("split_sa", "cuda", split_sa_runner(sk.sa_split_anneal, QMC_READS),
@@ -860,14 +1051,15 @@ def main():
         ms, best = slope_ms(run, taus, trials)
         rate = sites * slices * chains / (ms * 1e-3) if ms > 0 \
             else float("nan")
-        bound, bound_by, unit = bound_ms(kname, chains, slices, sites,
+        base = kname.removesuffix("_phased")  # the work is the kernel's
+        bound, bound_by, unit = bound_ms(base, chains, slices, sites,
                                          max(taus))
-        f32, sfu = ops_per_sweep(kname, chains, slices, sites)
-        hashed = hash_ops_per_sweep(kname, chains, slices, sites)
+        f32, sfu = ops_per_sweep(base, chains, slices, sites)
+        hashed = hash_ops_per_sweep(base, chains, slices, sites)
         emit({"phase": "timing", "kernel": kname, "route": route,
               "chains": chains, "slices": slices, "sites": sites,
               "global_moves": "qmc" in kname,
-              "tf": True if kname.endswith("svmc") else None,
+              "tf": True if base.endswith("svmc") else None,
               "taus": list(taus),
               "best_seconds": {str(k): v for k, v in best.items()},
               "ms_per_sweep": ms, "attempts_per_s": rate,
@@ -875,13 +1067,14 @@ def main():
               "fp32_ops_per_sweep": f32, "sfu_ops_per_sweep": sfu,
               "hash_int32_ops_per_sweep": hashed,
               "hash_ms": 1e3 * hashed / PEAK_INT32,
-              "bytes_per_anneal": bytes_per_anneal(kname, chains, slices,
+              "bytes_per_anneal": bytes_per_anneal(base, chains, slices,
                                                    sites, max(taus)),
               "gpu": name, "power_limit": power})
         check(ms > 0, f"{kname} {route} slope is positive")
-        if i < len(timings):
-            results[kname]["ms" if route == "cuda" else "plain_ms"] = ms
-            results[kname].update(bound_ms=bound, bound_by=bound_by)
+        if i < len(timings) and route == "cuda":
+            results[kname].update(ms=ms, bound_ms=bound, bound_by=bound_by)
+        elif i < len(timings):
+            results[kname]["plain_ms"] = ms
 
     # No single PyTorch call computes a Metropolis sweep, so no kernel has a
     # library yardstick (library_ms null).

@@ -2,8 +2,9 @@
 // thread-block cluster.
 //
 // Shared by kernel A (csrc/split_sa.cu), kernel B (csrc/split_qmc.cu),
-// kernel 5 (csrc/split_qmc_bath.cu), kernel 6 (csrc/plane_sa.cu), kernel 3
-// (csrc/plane_qmc.cu) and kernel 7 (csrc/plane_svmc.cu). A plane
+// kernel 4 (csrc/split_svmc.cu), kernel 5 (csrc/split_qmc_bath.cu), kernel
+// 6 (csrc/plane_sa.cu), kernel 3 (csrc/plane_qmc.cu) and kernel 7
+// (csrc/plane_svmc.cu). A plane
 // is L rows of `width` sites: a split half has rows of K = L/2 sites (Nh =
 // L*K, site j in row j / K), a full plane rows of L sites. The R CTAs of a
 // cluster cut the rows into R bands, band r holding rows [floor(r*L/R),

@@ -54,12 +54,19 @@
 //   and a step keeps kernel A's two cluster barriers. 2*ceil(L/R)*L words a
 //   CTA, so R = 16 takes L up to 675.
 // - Metropolis without a branch (counter_hash.cuh::metropolis_accept_hashed).
+// - A plane no cluster holds (L above 675; plane_sa_geometry returns None)
+//   runs on the per-phase kernel below (plane_sa_phased_anneal): the spins
+//   as floats in device memory, one thread per (chain, site), chains along
+//   gridDim.x, one launch a phase reading `src` and writing every site into
+//   `dst`, so the wrap pairs are decided as the cluster kernel decides
+//   them.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "plane.cuh"
 
 namespace {
 
@@ -160,6 +167,44 @@ size_t smem_bytes(int L, int R) {
          sizeof(uint32_t);
 }
 
+// ---- the per-phase kernel, for planes no cluster holds
+
+constexpr int kThreads = 256;
+
+// Phase `color` of step t: one thread per site i of chain blockIdx.x /
+// xblocks; a site of the phase's color is decided from `src`, every site
+// is written into `dst`.
+__global__ void __launch_bounds__(kThreads)
+sa_plane_phase_kernel(const float* __restrict__ w,
+                      const float* __restrict__ sched,
+                      const float* __restrict__ src, float* __restrict__ dst,
+                      int L, uint32_t row_stride, uint32_t plane_stride,
+                      int color, int t, int xblocks, uint32_t seed_term) {
+  const int n = L * L;
+  const int chain = blockIdx.x / xblocks;
+  const int i = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int r = i / L;
+  const int c = i - r * L;
+  const size_t at = static_cast<size_t>(chain) * n + i;
+  const float sv = src[at];
+  if (((r + c) & 1) != color) {
+    dst[at] = sv;
+    return;
+  }
+  const float f = mcs::plane_field(src + (at - i), w, L, r, c);
+  const float de = __fmul_rn(-2.0f * sv, f);  // exact
+  // uid = chain*R*C + r*C + c, wrapping as the int32 JAX code does
+  const uint32_t uid = static_cast<uint32_t>(chain) * plane_stride +
+                       static_cast<uint32_t>(r) * row_stride +
+                       static_cast<uint32_t>(c);
+  const uint32_t ctr = mcs::counter(seed_term, t, color);
+  dst[at] = mcs::metropolis_accept_hashed(de, sched[t],
+                                          uid * mcs::kGolden + ctr)
+                ? -sv
+                : sv;
+}
+
 }  // namespace
 
 // Anneal `chains` L x L planes, packed C to a word, over `steps`
@@ -197,6 +242,49 @@ extern "C" int plane_sa_max_active_clusters(int R, int threads, int L,
                                             int* count) {
   return mcs::max_active_clusters(plane_sa_kernel, R, threads,
                                   smem_bytes(L, R), count);
+}
+
+// The same anneal on the per-phase kernel, the spins as floats (chains, L,
+// L) in device memory: the phases ping-pong between s_out and scratch,
+// ordered so that the last one writes s_out; s_in is only read. Stores the
+// number of kernels it launched in *launched (a host pointer); returns the
+// first launch error, checked after the first step, or cudaGetLastError()
+// at the end.
+extern "C" int plane_sa_phased_anneal(const float* w, const float* sched,
+                                      const float* s_in, float* s_out,
+                                      float* scratch, int chains, int L,
+                                      int row_stride, int plane_stride,
+                                      int steps, int seed, void* stream,
+                                      long long* launched) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t n = static_cast<size_t>(L) * L;
+  *launched = 0;
+  if (chains == 0 || n == 0) return cudaSuccess;
+  const long long launches = 2LL * steps;
+  if (launches == 0) {
+    return cudaMemcpyAsync(s_out, s_in, chains * n * sizeof(float),
+                           cudaMemcpyDeviceToDevice, st);
+  }
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const int xblocks = static_cast<int>((n + kThreads - 1) / kThreads);
+  const dim3 grid(static_cast<unsigned>(xblocks) * chains);
+  const float* src = s_in;
+  for (int t = 0; t < steps; ++t) {
+    for (int color = 0; color < 2; ++color) {
+      // launch j writes s_out when launches - 1 - j is even, so the last does
+      float* dst = (launches - 1 - *launched) % 2 == 0 ? s_out : scratch;
+      sa_plane_phase_kernel<<<grid, kThreads, 0, st>>>(
+          w, sched, src, dst, L, static_cast<uint32_t>(row_stride),
+          static_cast<uint32_t>(plane_stride), color, t, xblocks, seed_term);
+      *launched += 1;
+      src = dst;
+    }
+    if (t == 0) {
+      cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+  }
+  return cudaGetLastError();
 }
 
 extern "C" const char* plane_sa_anneal_error_string(int code) {

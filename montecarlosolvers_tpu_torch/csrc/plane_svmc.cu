@@ -56,6 +56,12 @@
 //   version's torch.cos / torch.sin. Metropolis without a branch
 //   (counter_hash.cuh::metropolis_accept_hashed). The caches hold cosf /
 //   sinf of the carried angle exactly, never an increment.
+// - A plane no cluster holds (L above 480; plane_svmc_geometry returns
+//   None) runs on the per-phase kernels below (plane_svmc_phased_anneal):
+//   theta and sin theta in device memory, updated in place (only the site
+//   reads them), cos theta twice, each phase reading `src` and writing
+//   every site into `dst`; one thread per (chain, site), chains along
+//   gridDim.x, one launch to fill the caches and one a phase.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -175,6 +181,72 @@ size_t smem_bytes(int L, int R) {
   return 4 * static_cast<size_t>(mcs::band_stride(L, R, L)) * sizeof(float);
 }
 
+// ---- the per-phase kernels, for planes no cluster holds
+
+constexpr int kThreads = 256;
+
+// Copy the angles in to out and fill their caches sin and cos; n = chains
+// * L * L elements.
+__global__ void __launch_bounds__(kThreads)
+svmc_plane_init_kernel(const float* __restrict__ th_in,
+                       float* __restrict__ th_out, float* __restrict__ sn,
+                       float* __restrict__ cs, size_t n) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float x = th_in[i];
+  th_out[i] = x;
+  sincosf(x, &sn[i], &cs[i]);
+}
+
+// Phase `color` of step t: one thread per site i of chain blockIdx.x /
+// xblocks. A site of the phase's color is decided from the cos plane
+// `src` as the phase found it; every site's cos is written into `dst`,
+// and a site of the color updates its theta and sin in place.
+template <bool kTF>
+__global__ void __launch_bounds__(kThreads)
+svmc_plane_phase_kernel(const float* __restrict__ w,
+                        const float* __restrict__ a_sched,
+                        const float* __restrict__ b_sched, float temp,
+                        float* __restrict__ th, float* __restrict__ sn,
+                        const float* __restrict__ src,
+                        float* __restrict__ dst, int L, uint32_t row_stride,
+                        uint32_t plane_stride, int color, int t, int xblocks,
+                        uint32_t seed_term) {
+  const int n = L * L;
+  const int chain = blockIdx.x / xblocks;
+  const int i = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int r = i / L;
+  const int c = i - r * L;
+  const size_t at = static_cast<size_t>(chain) * n + i;
+  const float cos_t = src[at];
+  if (((r + c) & 1) != color) {
+    dst[at] = cos_t;
+    return;
+  }
+  const float a = a_sched[t];
+  const float b = b_sched[t];
+  const float width = kTF ? mcs::tf_width(a, b) : 0.0f;
+  // uid = chain*R*C + r*C + c, wrapping as the int32 JAX code does
+  const uint32_t uid = static_cast<uint32_t>(chain) * plane_stride +
+                       static_cast<uint32_t>(r) * row_stride +
+                       static_cast<uint32_t>(c);
+  const float theta = th[at];
+  const float prop = mcs::propose<kTF>(
+      theta, mcs::uniform01(mcs::counter(seed_term, t, color), uid), width);
+  float sin_p, cos_p;
+  sincosf(prop, &sin_p, &cos_p);
+  const float z = mcs::plane_field(src + (at - i), w, L, r, c);
+  const float sin_t = sn[at];
+  const float de = mcs::delta_e(b, a, cos_p, cos_t, z, sin_t, sin_p);
+  const uint32_t ctr_acc = mcs::svmc_accept_counter(seed_term, t, color);
+  const bool acc =
+      mcs::metropolis_accept_hashed(de, temp, uid * mcs::kGolden + ctr_acc);
+  th[at] = acc ? prop : theta;
+  sn[at] = acc ? sin_p : sin_t;
+  dst[at] = acc ? cos_p : cos_t;
+}
+
 }  // namespace
 
 // Anneal `chains` L x L planes of angles over the (steps,) schedules A and B
@@ -214,6 +286,55 @@ extern "C" int plane_svmc_max_active_clusters(int R, int threads, int L,
                                               int* count) {
   return mcs::max_active_clusters(plane_svmc_kernel<true>, R, threads,
                                   smem_bytes(L, R), count);
+}
+
+// The same anneal on the per-phase kernels: th_in is copied to th_out,
+// which is then updated in place beside the caches in `scratch` (3 *
+// chains * L * L floats: sin theta and cos theta twice), one launch to fill
+// them and one a phase. Stores the number of kernels it launched in
+// *launched (a host pointer); returns the first launch error, checked after
+// the first step, or cudaGetLastError() at the end.
+extern "C" int plane_svmc_phased_anneal(const float* w, const float* a_sched,
+                                        const float* b_sched, float temp,
+                                        const float* th_in, float* th_out,
+                                        float* scratch, int chains, int L,
+                                        int row_stride, int plane_stride,
+                                        int steps, int seed, int tf,
+                                        void* stream, long long* launched) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  const size_t plane = static_cast<size_t>(L) * L;
+  const size_t n = static_cast<size_t>(chains) * plane;
+  if (n == 0) return cudaSuccess;
+  float* const sn = scratch;
+  float* cs[2] = {scratch + n, scratch + 2 * n};
+  svmc_plane_init_kernel<<<static_cast<unsigned>((n + kThreads - 1) /
+                                                 kThreads),
+                           kThreads, 0, st>>>(th_in, th_out, sn, cs[0], n);
+  *launched += 1;
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  auto kernel =
+      tf ? svmc_plane_phase_kernel<true> : svmc_plane_phase_kernel<false>;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const int xblocks = static_cast<int>((plane + kThreads - 1) / kThreads);
+  const dim3 grid(static_cast<unsigned>(xblocks) * chains);
+  int src = 0;
+  for (int t = 0; t < steps; ++t) {
+    for (int color = 0; color < 2; ++color) {
+      kernel<<<grid, kThreads, 0, st>>>(
+          w, a_sched, b_sched, temp, th_out, sn, cs[src], cs[1 - src], L,
+          static_cast<uint32_t>(row_stride),
+          static_cast<uint32_t>(plane_stride), color, t, xblocks, seed_term);
+      *launched += 1;
+      src = 1 - src;
+    }
+    if (t == 0) {
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+  }
+  return cudaGetLastError();
 }
 
 extern "C" const char* plane_svmc_anneal_error_string(int code) {

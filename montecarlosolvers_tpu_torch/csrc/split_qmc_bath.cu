@@ -68,6 +68,12 @@
 //   carried as a running sum updated on flips, which would round
 //   differently; M[k, p] * s_p is exact, so the sign flip is bitwise the
 //   product the plain version rounds.
+// - A chain no cluster holds (qmc_bath_geometry returns None: even L from
+//   402 at P = 128, from 674 at P = 40) runs on the per-phase kernels below
+//   (split_qmc_bath_phased_anneal): the halves as floats in device memory,
+//   updated in place; per half-phase one thread owns a (chain, site) line
+//   and walks its P slices in the plain version's order, and the line
+//   moves of each half are a phase of their own; chains along gridDim.x.
 //
 // Trouble spots, each handled where it bites below: the FMA contraction of
 // dE (B*s*f rounds when B != 1, 2*T_eff*s*bath always rounds), the phase
@@ -314,6 +320,94 @@ size_t smem_bytes(int P, int L, int R) {
          sizeof(uint32_t);
 }
 
+// ---- the per-phase kernels, for chains no cluster holds
+
+constexpr int kThreads = 256;
+
+// Local half-phase of step t: one thread per site j of half `half` (lines
+// s, (chains, P, nh) +/-1 floats) of chain blockIdx.x / xblocks, walking
+// slices k = 0..P-1 in order against the other half o at slice k, as the
+// cluster kernel's phase; only the thread's own line is written.
+__global__ void __launch_bounds__(kThreads)
+bath_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
+                  const float* __restrict__ b_sched,
+                  const float* __restrict__ jp,
+                  const float* __restrict__ bath, float teff, float two_teff,
+                  float* s, const float* __restrict__ o, int half, int P,
+                  int nh, int K, int nslots, int xblocks, int t,
+                  uint32_t seed_term) {
+  const int chain = blockIdx.x / xblocks;
+  const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
+  if (j >= nh) return;
+  const size_t base = static_cast<size_t>(chain) * P * nh;
+  float* const line = s + base + j;  // slice p at line[p * nh]
+  const float bc = -2.0f * b_sched[t];
+  const float jpt = jp[t];
+  const float hj = __ldg(h + half * nh + j);
+  const uint32_t x0 =
+      (static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
+       static_cast<uint32_t>(half * nh + j)) *
+      mcs::kGolden;
+  for (int k = 0; k < P; ++k) {
+    const int up = k == 0 ? P - 1 : k - 1;
+    const int dn = k + 1 == P ? 0 : k + 1;
+    const size_t row = static_cast<size_t>(k) * nh;
+    const float sv = line[row];
+    const float f = __fadd_rn(
+        mcs::half_field(o + base + row, w, half, nh, K, nslots, j), hj);
+    const float tr = __fadd_rn(line[static_cast<size_t>(up) * nh],
+                               line[static_cast<size_t>(dn) * nh]);
+    // the bath field sum_p M[k, p] s_p in index order from p = 0; each
+    // product with a spin is exact
+    const float* mk = bath + static_cast<size_t>(k) * P;
+    float bf = __fmul_rn(__ldg(mk), line[0]);
+    for (int p = 1; p < P; ++p)
+      bf = __fadd_rn(bf, __fmul_rn(__ldg(mk + p),
+                                   line[static_cast<size_t>(p) * nh]));
+    const float de = __fadd_rn(
+        __fadd_rn(__fmul_rn(bc * sv, f),
+                  __fmul_rn(__fmul_rn(2.0f * sv, jpt), tr)),
+        __fmul_rn(two_teff * sv, bf));
+    const uint32_t ctr = mcs::counter(seed_term, t, 2 * k + half);
+    if (mcs::metropolis_accept_hashed(de, teff, x0 + ctr)) line[row] = -sv;
+  }
+}
+
+// Line moves of half `half` at step t: one thread per (chain = blockIdx.x
+// / xblocks, site j) flips its whole line with dE = bc * sum_p s_p (f_p +
+// h), p in index order, against the other half o.
+__global__ void __launch_bounds__(kThreads)
+bath_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
+                 const float* __restrict__ b_sched, float teff, float* s,
+                 const float* __restrict__ o, int half, int P, int nh, int K,
+                 int nslots, int xblocks, int t, uint32_t seed_term) {
+  const int chain = blockIdx.x / xblocks;
+  const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
+  if (j >= nh) return;
+  const size_t base = static_cast<size_t>(chain) * P * nh;
+  float* const line = s + base + j;
+  const float hj = __ldg(h + half * nh + j);
+  float sum = 0.0f;
+  for (int p = 0; p < P; ++p) {
+    const size_t row = static_cast<size_t>(p) * nh;
+    const float f = __fadd_rn(
+        mcs::half_field(o + base + row, w, half, nh, K, nslots, j), hj);
+    const float x = __fmul_rn(line[row], f);  // exact
+    sum = p == 0 ? x : __fadd_rn(sum, x);
+  }
+  const float de = __fmul_rn(-2.0f * b_sched[t], sum);
+  const uint32_t uid =
+      static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
+      static_cast<uint32_t>(half * nh + j);
+  const uint32_t ctr = mcs::counter(seed_term, t, 2 * P + half);
+  if (mcs::metropolis_accept_hashed(de, teff, uid * mcs::kGolden + ctr)) {
+    for (int p = 0; p < P; ++p) {
+      const size_t row = static_cast<size_t>(p) * nh;
+      line[row] = -line[row];
+    }
+  }
+}
+
 }  // namespace
 
 // Anneal `chains` Trotter states over `steps` schedule points in one launch,
@@ -350,6 +444,58 @@ extern "C" int split_qmc_bath_max_active_clusters(int P, int R, int threads,
                                                   int L, int* count) {
   return mcs::max_active_clusters(kernel_for(P), R, threads,
                                   smem_bytes(P, L, R), count);
+}
+
+// The same anneal on the per-phase kernels, the state in device memory: the
+// halves (chains, P, nh) are copied to a_out, b_out and updated there in
+// place, two launches a step (half A, then half B against the new A), four
+// with global moves (then the lines of A, then those of B against the
+// flipped A). Stores the number of kernels it launched in *launched (a host
+// pointer); returns the first launch error, checked after the first step,
+// or cudaGetLastError() at the end.
+extern "C" int split_qmc_bath_phased_anneal(
+    const float* w, const float* h, const float* b_sched, const float* jp,
+    const float* bath, float teff, float two_teff, const float* a_in,
+    const float* b_in, float* a_out, float* b_out, int chains, int P, int L,
+    int nslots, int steps, int seed, int global_moves, void* stream,
+    long long* launched) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  const int K = L / 2;
+  const int nh = L * K;
+  const size_t bytes =
+      static_cast<size_t>(chains) * P * nh * sizeof(float);
+  cudaError_t e = cudaMemcpyAsync(a_out, a_in, bytes,
+                                  cudaMemcpyDeviceToDevice, st);
+  if (e != cudaSuccess) return e;
+  e = cudaMemcpyAsync(b_out, b_in, bytes, cudaMemcpyDeviceToDevice, st);
+  if (e != cudaSuccess) return e;
+  if (chains == 0 || P == 0 || nh == 0) return cudaSuccess;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const int xblocks = (nh + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned>(xblocks) * chains);
+  float* halves[2] = {a_out, b_out};
+  for (int t = 0; t < steps; ++t) {
+    for (int half = 0; half < 2; ++half) {
+      bath_local_kernel<<<grid, kThreads, 0, st>>>(
+          w, h, b_sched, jp, bath, teff, two_teff, halves[half],
+          halves[1 - half], half, P, nh, K, nslots, xblocks, t, seed_term);
+      *launched += 1;
+    }
+    if (global_moves) {
+      for (int half = 0; half < 2; ++half) {
+        bath_line_kernel<<<grid, kThreads, 0, st>>>(
+            w, h, b_sched, teff, halves[half], halves[1 - half], half, P, nh,
+            K, nslots, xblocks, t, seed_term);
+        *launched += 1;
+      }
+    }
+    if (t == 0) {
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+  }
+  return cudaGetLastError();
 }
 
 extern "C" const char* split_qmc_bath_anneal_error_string(int code) {

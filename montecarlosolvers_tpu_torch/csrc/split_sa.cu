@@ -56,6 +56,10 @@
 // - Metropolis without a branch (counter_hash.cuh::metropolis_accept_hashed):
 //   the hash and log1pf run for every chain, so a warp's lanes never split
 //   on dE.
+// - A lattice no cluster holds (even L above 960; sa_geometry returns None)
+//   runs on the per-phase kernel below (split_sa_phased_anneal): the halves
+//   as floats in device memory, updated in place, one thread per (chain,
+//   site) of a half, chains along gridDim.x, two launches a step.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,6 +151,35 @@ size_t smem_bytes(int L, int R) {
          sizeof(uint32_t);
 }
 
+// ---- the per-phase kernel, for lattices no cluster holds
+
+constexpr int kThreads = 256;
+
+// One half-phase of step t: one thread per site j of half `color` (spins
+// s, +/-1 floats) of chain blockIdx.x / xblocks, against the other half o;
+// only site j is written.
+__global__ void __launch_bounds__(kThreads)
+sa_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
+                const float* __restrict__ sched, float* s,
+                const float* __restrict__ o, int color, int nh, int K,
+                int nslots, int xblocks, int t, uint32_t seed_term) {
+  const int chain = blockIdx.x / xblocks;
+  const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
+  if (j >= nh) return;
+  const size_t at = static_cast<size_t>(chain) * nh + j;
+  const float sv = s[at];
+  const float f = __fadd_rn(
+      mcs::half_field(o + (at - j), w, color, nh, K, nslots, j),
+      __ldg(h + color * nh + j));
+  const float de = __fmul_rn(-2.0f * sv, f);  // exact
+  const uint32_t uid =
+      static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
+      static_cast<uint32_t>(color * nh + j);
+  const uint32_t ctr = mcs::counter(seed_term, t, color);
+  if (mcs::metropolis_accept_hashed(de, sched[t], uid * mcs::kGolden + ctr))
+    s[at] = -sv;
+}
+
 }  // namespace
 
 // Anneal `chains` chains, packed C to a word, over `steps` temperatures.
@@ -183,6 +216,48 @@ extern "C" int split_sa_max_active_clusters(int R, int threads, int L,
                                             int* count) {
   return mcs::max_active_clusters(split_sa_kernel, R, threads,
                                   smem_bytes(L, R), count);
+}
+
+// The same anneal on the per-phase kernel: halves a_in, b_in of (chains,
+// nh) float32 +/-1 (nh = L*L/2) are copied to a_out, b_out and updated
+// there in place, two launches a step. Stores the number of kernels it
+// launched in *launched (a host pointer); returns the first launch error,
+// checked after the first step, or cudaGetLastError() at the end.
+extern "C" int split_sa_phased_anneal(const float* w, const float* h,
+                                      const float* sched, const float* a_in,
+                                      const float* b_in, float* a_out,
+                                      float* b_out, int chains, int L,
+                                      int nslots, int steps, int seed,
+                                      void* stream, long long* launched) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  const int K = L / 2;
+  const int nh = L * K;
+  const size_t bytes = static_cast<size_t>(chains) * nh * sizeof(float);
+  cudaError_t e = cudaMemcpyAsync(a_out, a_in, bytes,
+                                  cudaMemcpyDeviceToDevice, st);
+  if (e != cudaSuccess) return e;
+  e = cudaMemcpyAsync(b_out, b_in, bytes, cudaMemcpyDeviceToDevice, st);
+  if (e != cudaSuccess) return e;
+  if (chains == 0 || nh == 0) return cudaSuccess;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const int xblocks = (nh + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned>(xblocks) * chains);
+  for (int t = 0; t < steps; ++t) {
+    // half a from half b, then half b from the new half a
+    sa_phase_kernel<<<grid, kThreads, 0, st>>>(w, h, sched, a_out, b_out, 0,
+                                               nh, K, nslots, xblocks, t,
+                                               seed_term);
+    sa_phase_kernel<<<grid, kThreads, 0, st>>>(w, h, sched, b_out, a_out, 1,
+                                               nh, K, nslots, xblocks, t,
+                                               seed_term);
+    *launched += 2;
+    if (t == 0) {
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+  }
+  return cudaGetLastError();
 }
 
 extern "C" const char* split_sa_anneal_error_string(int code) {

@@ -50,6 +50,9 @@ SIGNATURES = {
         "split_sa_anneal": (_I, [_P] * 7 + [_I] * 8 + [_P]),
         # R, threads, L, out: clusters resident at once
         "split_sa_max_active_clusters": (_I, [_I] * 3 + [_IP]),
+        # the per-phase kernel: w, h, sched, a_in, b_in, a_out, b_out (the
+        # halves as floats), chains, L, nslots, steps, seed, stream, launched
+        "split_sa_phased_anneal": (_I, [_P] * 7 + [_I] * 5 + [_P, _NP]),
         "split_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "split_qmc": {
@@ -76,6 +79,13 @@ SIGNATURES = {
         ),
         # P, R, threads, L, out: clusters resident at once
         "split_qmc_bath_max_active_clusters": (_I, [_I] * 4 + [_IP]),
+        # the per-phase kernels: w, h, b_sched, jp, bath, teff, 2*teff,
+        # a_in, b_in, a_out, b_out, chains, P, L, nslots, steps, seed,
+        # global_moves, stream, launched
+        "split_qmc_bath_phased_anneal": (
+            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 7
+            + [_P, _NP]
+        ),
         "split_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "plane_sa": {
@@ -84,6 +94,10 @@ SIGNATURES = {
         "plane_sa_anneal": (_I, [_P] * 4 + [_I] * 9 + [_P]),
         # R, threads, L, out: clusters resident at once
         "plane_sa_max_active_clusters": (_I, [_I] * 3 + [_IP]),
+        # the per-phase kernel: planes, sched, s_in, s_out, scratch (the
+        # planes as floats), chains, L, row_stride, plane_stride, steps,
+        # seed, stream, launched
+        "plane_sa_phased_anneal": (_I, [_P] * 5 + [_I] * 6 + [_P, _NP]),
         "plane_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "plane_qmc": {
@@ -105,9 +119,17 @@ SIGNATURES = {
     },
     "split_svmc": {
         # w, h, a_sched, b_sched, temp, a_in, b_in, a_out, b_out,
-        # chains, nh, K, nslots, steps, seed, tf, stream
+        # chains, R, threads, L, nslots, steps, seed, tf, stream
         "split_svmc_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 4 + [_I] * 7 + [_P]
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 4 + [_I] * 8 + [_P]
+        ),
+        # R, threads, L, out: clusters resident at once
+        "split_svmc_max_active_clusters": (_I, [_I] * 3 + [_IP]),
+        # the per-phase kernels: w, h, a_sched, b_sched, temp, a_in, b_in,
+        # a_out, b_out, scratch, chains, L, nslots, steps, seed, tf, stream,
+        # launched
+        "split_svmc_phased_anneal": (
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 5 + [_I] * 6 + [_P, _NP]
         ),
         "split_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -119,6 +141,12 @@ SIGNATURES = {
         ),
         # R, threads, L, out: clusters resident at once
         "plane_svmc_max_active_clusters": (_I, [_I] * 3 + [_IP]),
+        # the per-phase kernels: planes, a_sched, b_sched, temp, th_in,
+        # th_out, scratch, chains, L, row_stride, plane_stride, steps, seed,
+        # tf, stream, launched
+        "plane_svmc_phased_anneal": (
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 7 + [_P, _NP]
+        ),
         "plane_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -130,13 +158,15 @@ _LIBS = {}
 SMEM_LIMIT_BYTES = 232448
 
 # Kernel launches per kernel. Every kernel runs a whole schedule in one
-# launch (for A, B, 3, 5, 6 and 7 one cluster launch, whatever the cluster
-# size); the per-phase kernels of B and 3 for the shapes no cluster holds
-# ("qmc_split_phased", "qmc_plane_phased") launch once per phase, and their
-# C entry points report how many launches they issued.
-LAUNCHES = {"sa_split": 0, "qmc_split": 0, "qmc_split_phased": 0,
-            "svmc_split": 0, "qmc_bath_split": 0, "sa_plane": 0,
-            "qmc_plane": 0, "qmc_plane_phased": 0, "svmc_plane": 0}
+# cluster launch, whatever the cluster size; the per-phase kernels of each
+# for the shapes no cluster holds ("*_phased") launch once per phase (and
+# those of 4 and 7 once more to fill their caches), and their C entry
+# points report how many launches they issued.
+LAUNCHES = {"sa_split": 0, "sa_split_phased": 0, "qmc_split": 0,
+            "qmc_split_phased": 0, "svmc_split": 0, "svmc_split_phased": 0,
+            "qmc_bath_split": 0, "qmc_bath_split_phased": 0, "sa_plane": 0,
+            "sa_plane_phased": 0, "qmc_plane": 0, "qmc_plane_phased": 0,
+            "svmc_plane": 0, "svmc_plane_phased": 0}
 
 
 def reset_launches():

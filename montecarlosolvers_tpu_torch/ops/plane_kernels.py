@@ -28,8 +28,8 @@ one phase. The port keeps that behaviour to stay bitwise equal.
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts the kernel launches under "sa_plane",
-"qmc_plane" (kernel 3's per-phase kernels under "qmc_plane_phased") and
-"svmc_plane".
+"qmc_plane" and "svmc_plane", and those of each kernel's per-phase kernels
+under the same name + "_phased".
 
 All three spread a chain over a thread-block cluster of R CTAs, each
 holding a band of rows of the plane (csrc/cluster.cuh), and run the whole
@@ -38,11 +38,11 @@ schedule in one launch. Kernel 6 packs C chains to a word per site
 band twice (csrc/plane_sa.cu); `plane_sa_geometry` chooses (C, R, threads)
 by kernel A's rules. Kernel 3 packs a chain's P slices to ceil(P/32) words
 per site (`pack_slice_bits`) and keeps its band twice (csrc/plane_qmc.cu);
-`plane_qmc_geometry` chooses (R, threads) by kernel B's rules and returns
-None for a chain no cluster holds, which runs on kernel 3's per-phase
-kernels. Kernel 7 keeps theta, sin theta and cos theta twice
-(csrc/plane_svmc.cu); `plane_svmc_geometry` chooses (R, threads) and raises
-ValueError for a lattice no cluster holds.
+`plane_qmc_geometry` chooses (R, threads) by kernel B's rules. Kernel 7
+keeps theta, sin theta and cos theta twice (csrc/plane_svmc.cu);
+`plane_svmc_geometry` chooses (R, threads). Each geometry function returns
+None for a shape no cluster holds, which runs on that kernel's per-phase
+kernels: the card refuses no L and no P.
 """
 
 from __future__ import annotations
@@ -197,20 +197,13 @@ def plane_sa_geometry(chains, L, resident=None):
     (`chain_word_bits`), each group over the largest cluster of R CTAs whose
     band fits a CTA and whose clusters the card holds at once (`resident(R,
     threads)`, None: any), one thread per site of a phase's color in the
-    largest band, in whole warps, at most MAX_THREADS. Raises ValueError
-    when no cluster holds the plane."""
+    largest band, in whole warps, at most MAX_THREADS. None when no cluster
+    holds the plane (L above 675), and the wrapper runs the per-phase
+    kernel."""
     C = sk.chain_word_bits(chains)
     R = sk._cluster(L, -(-chains // C), lambda r: sa_plane_smem_bytes(L, r),
                     resident and (lambda r: resident(r, _slot_threads(L, r))))
-    if R is None:
-        r = min(L, sk.CLUSTER_SIZES[-1])
-        raise ValueError(
-            f"kernel 6 keeps a band of the plane twice, 2*ceil(L/R)*L*4 = "
-            f"{sa_plane_smem_bytes(L, r)} bytes at R = {r}, in each CTA's "
-            f"shared memory; no cluster of up to {sk.CLUSTER_SIZES[-1]} "
-            f"CTAs holds L = {L} within the limit of "
-            f"{_build.SMEM_LIMIT_BYTES} bytes")
-    return C, R, _slot_threads(L, R)
+    return None if R is None else (C, R, _slot_threads(L, R))
 
 
 def plane_qmc_smem_bytes(P, L, R):
@@ -268,38 +261,52 @@ def plane_svmc_geometry(chains, L, resident=None):
     once (`split_kernels._cluster`; `resident(R, threads)`, None: any), so
     every chain runs in one wave where the card holds them; one thread per
     site of a phase's color in the largest band, in whole warps, at most
-    MAX_THREADS. Raises ValueError when no cluster holds the plane."""
+    MAX_THREADS. None when no cluster holds the plane (L above 480), and
+    the wrapper runs the per-phase kernels."""
     R = sk._cluster(L, chains, lambda r: svmc_plane_smem_bytes(L, r),
                     resident and (lambda r: resident(r, _slot_threads(L, r))))
-    if R is None:
-        r = min(L, sk.CLUSTER_SIZES[-1])
-        raise ValueError(
-            f"kernel 7 keeps a band of theta, sin theta and cos theta twice, "
-            f"4*ceil(L/R)*L*4 = {svmc_plane_smem_bytes(L, r)} bytes at "
-            f"R = {r}, in each CTA's shared memory; no cluster of up to "
-            f"{sk.CLUSTER_SIZES[-1]} CTAs holds L = {L} within the limit of "
-            f"{_build.SMEM_LIMIT_BYTES} bytes")
-    return R, _slot_threads(L, R)
+    return None if R is None else (R, _slot_threads(L, R))
 
 
 def sa_plane_anneal(pl, sched, spins, seed):
     """Kernel 6 on CUDA tensors, `sa_plane_anneal_ref` on CPU tensors.
     Arguments as for `sa_plane_anneal_ref`; returns the new spins. The
-    kernel keeps each spin's sign as a bit, so the spins must hold +/-1."""
+    kernel keeps each spin's sign as a bit, so the spins must hold +/-1.
+
+    Two hand-written CUDA kernels share the work, chosen by shape alone:
+    when `plane_sa_geometry` finds a cluster of up to CLUSTER_SIZES[-1]
+    CTAs whose shared memory holds a band of the plane's chain words twice
+    (L <= 675), the cluster kernel runs the whole schedule in one launch
+    (LAUNCHES["sa_plane"]); for a larger plane the per-phase kernel keeps
+    the spins as floats in device memory and launches once a phase
+    (LAUNCHES["sa_plane_phased"]). Both equal the plain version bitwise;
+    neither is a fallback from a failure of the other."""
     if _build.route(spins.device, "plane") == "cpu":
         return sa_plane_anneal_ref(pl, sched, spins, seed)
     chains, L = spins.shape[0], pl.L
     dev = spins.device
-    C, R, threads = plane_sa_geometry(chains, L,
-                                      sk.card_resident("plane_sa", L))
     _build.check_arg(spins, "spins", (chains, L, L), dev)
     _build.check_arg(pl.w, "planes", (5, L, L), dev)
     steps = int(sched.shape[0])
     _build.check_arg(sched, "sched", (steps,), dev)
-    words = sk.pack_chain_bits(spins.reshape(chains, L * L), C)
-    out = torch.empty_like(words)
     rows, cols = pl.strides
     lib = _build.library("plane_sa")
+    geometry = plane_sa_geometry(chains, L, sk.card_resident("plane_sa", L))
+    if geometry is None:
+        out = torch.empty_like(spins)
+        scratch = torch.empty_like(spins)
+        n = ctypes.c_longlong(0)  # kernels launched
+        rc = lib.plane_sa_phased_anneal(
+            *map(_build.ptr, (pl.w, sched, spins, out, scratch)), chains, L,
+            cols, rows * cols, steps, cr.wrap_int32(seed),
+            _build.stream_of(dev), ctypes.byref(n))
+        _build.raise_on_error(lib, "plane_sa_phased_anneal", rc,
+                              error_fn="plane_sa_anneal_error_string")
+        _build.LAUNCHES["sa_plane_phased"] += n.value
+        return out
+    C, R, threads = geometry
+    words = sk.pack_chain_bits(spins.reshape(chains, L * L), C)
+    out = torch.empty_like(words)
     rc = lib.plane_sa_anneal(
         *map(_build.ptr, (pl.w, sched, words, out)), chains, C, R, threads,
         L, cols, rows * cols, steps, cr.wrap_int32(seed),
@@ -367,14 +374,22 @@ def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves):
 
 def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf):
     """Kernel 7 on CUDA tensors, `svmc_plane_anneal_ref` on CPU tensors.
-    Arguments as for `svmc_plane_anneal_ref`; returns the new angles."""
+    Arguments as for `svmc_plane_anneal_ref`; returns the new angles.
+
+    Two hand-written CUDA kernels share the work, chosen by shape alone:
+    when `plane_svmc_geometry` finds a cluster of up to CLUSTER_SIZES[-1]
+    CTAs whose shared memory holds a band of theta, sin theta and cos theta
+    twice (L <= 480), the cluster kernel runs the whole schedule in one
+    launch (LAUNCHES["svmc_plane"]); for a larger plane the per-phase
+    kernels keep them in device memory and launch once a phase, once more
+    to fill the caches (LAUNCHES["svmc_plane_phased"]). Both equal the
+    plain version bitwise; neither is a fallback from a failure of the
+    other."""
     if _build.route(theta.device, "plane") == "cpu":
         return svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed,
                                      tf)
     chains, L = theta.shape[0], pl.L
     dev = theta.device
-    R, threads = plane_svmc_geometry(chains, L,
-                                     sk.card_resident("plane_svmc", L))
     _build.check_arg(theta, "theta", (chains, L, L), dev)
     _build.check_arg(pl.w, "planes", (5, L, L), dev)
     steps = int(a_sched.shape[0])
@@ -383,11 +398,25 @@ def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf):
     out = torch.empty_like(theta)
     rows, cols = pl.strides
     lib = _build.library("plane_svmc")
+    head = (*map(_build.ptr, (pl.w, a_sched, b_sched)), ctypes.c_float(temp),
+            *map(_build.ptr, (theta, out)))
+    geometry = plane_svmc_geometry(chains, L,
+                                   sk.card_resident("plane_svmc", L))
+    if geometry is None:
+        scratch = torch.empty((3, chains, L, L), dtype=torch.float32,
+                              device=dev)
+        n = ctypes.c_longlong(0)  # kernels launched
+        rc = lib.plane_svmc_phased_anneal(
+            *head, _build.ptr(scratch), chains, L, cols, rows * cols, steps,
+            cr.wrap_int32(seed), int(bool(tf)), _build.stream_of(dev),
+            ctypes.byref(n))
+        _build.raise_on_error(lib, "plane_svmc_phased_anneal", rc,
+                              error_fn="plane_svmc_anneal_error_string")
+        _build.LAUNCHES["svmc_plane_phased"] += n.value
+        return out
     rc = lib.plane_svmc_anneal(
-        *map(_build.ptr, (pl.w, a_sched, b_sched)), ctypes.c_float(temp),
-        *map(_build.ptr, (theta, out)), chains, R, threads, L, cols,
-        rows * cols, steps, cr.wrap_int32(seed), int(bool(tf)),
-        _build.stream_of(dev),
+        *head, chains, *geometry, L, cols, rows * cols, steps,
+        cr.wrap_int32(seed), int(bool(tf)), _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "plane_svmc_anneal", rc)
     _build.LAUNCHES["svmc_plane"] += 1

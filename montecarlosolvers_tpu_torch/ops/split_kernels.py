@@ -26,19 +26,20 @@ kernel equals its plain version.
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts the kernel launches under "sa_split",
-"qmc_split" (kernel B's per-phase kernels under "qmc_split_phased"),
-"qmc_bath_split" and "svmc_split".
+"qmc_split", "qmc_bath_split" and "svmc_split", and those of each kernel's
+per-phase kernels under the same name + "_phased".
 
-Kernels A, B and 5 spread a chain (kernel A: a group of C chains packed as
+All four kernels spread a chain (kernel A: a group of C chains packed as
 bits, `pack_chain_bits`) over a thread-block cluster of R CTAs, each
 holding a band of rows of the halves (csrc/cluster.cuh), and so do kernels
 3, 6 and 7 on the full plane (`ops/plane_kernels.py`). `sa_geometry`,
-`qmc_geometry` and `qmc_bath_geometry` choose C, R and the threads per CTA
-from the shape and, on the card, from how many clusters it holds at once
-(`resident_clusters`); the CPU tests reach the choice with a stand-in
-count. `sa_geometry` and `qmc_bath_geometry` raise ValueError for a shape
-that no cluster of CLUSTER_SIZES[-1] CTAs holds; for such a shape
-`qmc_geometry` returns None and kernel B runs on its per-phase kernels.
+`qmc_geometry`, `qmc_bath_geometry` and `svmc_split_geometry` choose C, R
+and the threads per CTA from the shape and, on the card, from how many
+clusters it holds at once (`resident_clusters`); the CPU tests reach the
+choice with a stand-in count. For a shape that no cluster of
+CLUSTER_SIZES[-1] CTAs holds they return None, and the wrapper runs the
+kernel's per-phase kernels, which keep the state in device memory: the
+card refuses no lattice and no P.
 """
 
 from __future__ import annotations
@@ -321,19 +322,13 @@ def sa_geometry(chains, L, resident=None):
     C chains to a word (32 while that leaves FILL_GROUPS groups, else
     halved), each group over a cluster of R CTAs (`_cluster`; `resident(R,
     threads)` is how many clusters the card holds at once, None: any),
-    `threads` threads per CTA. Raises ValueError when no cluster holds the
-    lattice."""
+    `threads` threads per CTA. None when no cluster holds the lattice's
+    band of both halves (even L above 960), and the wrapper runs the
+    per-phase kernel."""
     C = chain_word_bits(chains)
     R = _cluster(L, -(-chains // C), lambda r: sa_smem_bytes(L, r),
                  resident and (lambda r: resident(r, _threads(L, r))))
-    if R is None:
-        raise ValueError(
-            f"kernel A keeps a band of both halves, 2*ceil(L/R)*(L/2)*4 = "
-            f"{sa_smem_bytes(L, min(L, CLUSTER_SIZES[-1]))} bytes at "
-            f"R = {min(L, CLUSTER_SIZES[-1])}, in each CTA's shared memory; "
-            f"no cluster of up to {CLUSTER_SIZES[-1]} CTAs holds L = {L} "
-            f"within the limit of {_build.SMEM_LIMIT_BYTES} bytes")
-    return C, R, _threads(L, R)
+    return None if R is None else (C, R, _threads(L, R))
 
 
 def qmc_smem_bytes(P, L, R):
@@ -362,19 +357,30 @@ def qmc_bath_smem_bytes(P, L, R):
 def qmc_bath_geometry(chains, L, P, resident=None):
     """(R, threads) of kernel 5: each chain over a cluster of R CTAs
     (`_cluster`, `resident` as for `sa_geometry`) of `threads` threads.
-    Raises ValueError when no cluster holds a chain of P slices on an
-    L x L lattice."""
+    None when no cluster holds a chain of P slices on an L x L lattice
+    (even L from 674 at P = 40, from 402 at P = 128), and the wrapper runs
+    the per-phase kernels."""
     R = _cluster(L, chains, lambda r: qmc_bath_smem_bytes(P, L, r),
                  resident and (lambda r: resident(r, _threads(L, r))))
-    if R is None:
-        r = min(L, CLUSTER_SIZES[-1])
-        raise ValueError(
-            f"kernel 5 keeps a band of a chain's lines as bits and the bath "
-            f"matrix, {qmc_bath_smem_bytes(P, L, r)} bytes at R = {r}, in "
-            f"each CTA's shared memory; no cluster of up to "
-            f"{CLUSTER_SIZES[-1]} CTAs holds L = {L}, P = {P} within the "
-            f"limit of {_build.SMEM_LIMIT_BYTES} bytes")
-    return R, _threads(L, R)
+    return None if R is None else (R, _threads(L, R))
+
+
+def svmc_split_smem_bytes(L, R):
+    """Shared memory of one kernel-4 CTA: its band of theta, sin theta and
+    cos theta of both halves, 6 floats a half-site, so R = 16 holds even
+    L <= 552."""
+    return 6 * band_sites(L, R) * 4
+
+
+def svmc_split_geometry(chains, L, resident=None):
+    """(R, threads) of kernel 4: each chain over the largest cluster of R
+    CTAs whose band fits a CTA and whose `chains` clusters the card holds
+    at once (`_cluster`, `resident` as for `sa_geometry`), `threads` threads
+    per CTA. None when no cluster holds the lattice (even L above 552), and
+    the wrapper runs the per-phase kernels."""
+    R = _cluster(L, chains, lambda r: svmc_split_smem_bytes(L, r),
+                 resident and (lambda r: resident(r, _threads(L, r))))
+    return None if R is None else (R, _threads(L, R))
 
 
 def pack_chain_bits(x, C):
@@ -405,10 +411,10 @@ _RESIDENT = {}
 
 def resident_clusters(kernel, R, threads, L, P=None):
     """How many clusters of R CTAs of `threads` threads of kernel
-    "split_sa", "plane_sa", "plane_svmc", "split_qmc", "split_qmc_bath" or
-    "plane_qmc" (the last three at P slices) on an L x L lattice the card
-    holds at once (cudaOccupancyMaxActiveClusters; 0 when a CTA does not
-    fit). Cached per shape."""
+    "split_sa", "split_svmc", "plane_sa", "plane_svmc", "split_qmc",
+    "split_qmc_bath" or "plane_qmc" (the last three at P slices) on an
+    L x L lattice the card holds at once (cudaOccupancyMaxActiveClusters;
+    0 when a CTA does not fit). Cached per shape."""
     key = (kernel, R, threads, L, P)
     if key not in _RESIDENT:
         lib = _build.library(kernel)
@@ -436,23 +442,43 @@ def card_resident(kernel, L, P=None):
 def sa_split_anneal(sl, sched, a, b, seed):
     """Kernel A on CUDA tensors, `sa_split_anneal_ref` on CPU tensors.
     Arguments as for `sa_split_anneal_ref`; returns new (a, b). The kernel
-    keeps each spin's sign as a bit, so the halves must hold +/-1."""
+    keeps each spin's sign as a bit, so the halves must hold +/-1.
+
+    Two hand-written CUDA kernels share the work, chosen by shape alone:
+    when `sa_geometry` finds a cluster of up to CLUSTER_SIZES[-1] CTAs
+    whose shared memory holds a band of both halves as chain bits (even
+    L <= 960), the cluster kernel runs the whole schedule in one launch
+    (LAUNCHES["sa_split"]); for a larger lattice the per-phase kernel keeps
+    the halves as floats in device memory and launches twice a step
+    (LAUNCHES["sa_split_phased"]). Both equal the plain version bitwise;
+    neither is a fallback from a failure of the other."""
     if _build.route(a.device, "split") == "cpu":
         return sa_split_anneal_ref(sl, sched, a, b, seed)
     chains, nh = a.shape
     dev = a.device
     if nh != sl.nh:
         raise ValueError(f"halves have {nh} sites, lattice has {sl.nh}")
-    C, R, threads = sa_geometry(chains, sl.L,
-                                card_resident("split_sa", sl.L))
     for t, name in ((a, "a"), (b, "b")):
         _build.check_arg(t, name, (chains, nh), dev)
     _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
     _build.check_arg(sl.h_ab, "h_ab", (2, nh), dev)
     _build.check_arg(sched, "sched", (sched.shape[0],), dev)
+    lib = _build.library("split_sa")
+    geometry = sa_geometry(chains, sl.L, card_resident("split_sa", sl.L))
+    if geometry is None:
+        a_out, b_out = torch.empty_like(a), torch.empty_like(b)
+        n = ctypes.c_longlong(0)  # kernels launched
+        rc = lib.split_sa_phased_anneal(
+            *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a, b, a_out, b_out)),
+            chains, sl.L, sl.nslots, int(sched.shape[0]),
+            cr.wrap_int32(seed), _build.stream_of(dev), ctypes.byref(n))
+        _build.raise_on_error(lib, "split_sa_phased_anneal", rc,
+                              error_fn="split_sa_anneal_error_string")
+        _build.LAUNCHES["sa_split_phased"] += n.value
+        return a_out, b_out
+    C, R, threads = geometry
     a_in, b_in = pack_chain_bits(a, C), pack_chain_bits(b, C)
     a_out, b_out = torch.empty_like(a_in), torch.empty_like(b_in)
-    lib = _build.library("split_sa")
     rc = lib.split_sa_anneal(
         *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a_in, b_in, a_out,
                           b_out)),
@@ -523,7 +549,17 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
                           global_moves):
     """Kernel 5 on CUDA tensors, `qmc_bath_split_anneal_ref` on CPU tensors.
     Arguments as for `qmc_bath_split_anneal_ref`; returns new (a, b). The
-    kernel keeps each spin's sign, so the halves must hold +/-1."""
+    kernel keeps each spin's sign, so the halves must hold +/-1.
+
+    Two hand-written CUDA kernels share the work, chosen by shape alone:
+    when `qmc_bath_geometry` finds a cluster of up to CLUSTER_SIZES[-1]
+    CTAs whose shared memory holds a band of a chain's lines as bits and
+    the bath matrix, the cluster kernel runs the whole schedule in one
+    launch (LAUNCHES["qmc_bath_split"]); for a larger chain the per-phase
+    kernels keep the halves as floats in device memory and launch twice a
+    step, four times with global moves (LAUNCHES["qmc_bath_split_phased"]).
+    Both equal the plain version bitwise; neither is a fallback from a
+    failure of the other."""
     if _build.route(a.device, "split") == "cpu":
         return qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b,
                                          seed, global_moves)
@@ -533,8 +569,6 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
         raise ValueError(f"halves have {nh} sites, lattice has {sl.nh}")
     if P < 2:
         raise ValueError(f"the bath engine takes P >= 2 slices, got {P}")
-    R, threads = qmc_bath_geometry(
-        chains, sl.L, P, card_resident("split_qmc_bath", sl.L, P))
     for t, name in ((a, "a"), (b, "b")):
         _build.check_arg(t, name, (chains, P, nh), dev)
     _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
@@ -546,27 +580,42 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
     a_out = torch.empty_like(a)
     b_out = torch.empty_like(b)
     lib = _build.library("split_qmc_bath")
+    head = (*map(_build.ptr, (sl.w_ab, sl.h_ab, b_sched, jp, bath)),
+            ctypes.c_float(teff), ctypes.c_float(2.0 * teff),
+            *map(_build.ptr, (a, b, a_out, b_out)))
+    geometry = qmc_bath_geometry(chains, sl.L, P,
+                                 card_resident("split_qmc_bath", sl.L, P))
+    if geometry is None:
+        n = ctypes.c_longlong(0)  # kernels launched
+        rc = lib.split_qmc_bath_phased_anneal(
+            *head, chains, P, sl.L, sl.nslots, steps, cr.wrap_int32(seed),
+            int(bool(global_moves)), _build.stream_of(dev), ctypes.byref(n))
+        _build.raise_on_error(lib, "split_qmc_bath_phased_anneal", rc,
+                              error_fn="split_qmc_bath_anneal_error_string")
+        _build.LAUNCHES["qmc_bath_split_phased"] += n.value
+        return a_out, b_out
     rc = lib.split_qmc_bath_anneal(
-        *map(_build.ptr, (sl.w_ab, sl.h_ab, b_sched, jp, bath)),
-        ctypes.c_float(teff), ctypes.c_float(2.0 * teff),
-        *map(_build.ptr, (a, b, a_out, b_out)),
-        chains, P, R, threads, sl.L, sl.nslots, steps, cr.wrap_int32(seed),
-        int(bool(global_moves)), _build.stream_of(dev),
+        *head, chains, P, *geometry, sl.L, sl.nslots, steps,
+        cr.wrap_int32(seed), int(bool(global_moves)), _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "split_qmc_bath_anneal", rc)
     _build.LAUNCHES["qmc_bath_split"] += 1
     return a_out, b_out
 
 
-def svmc_smem_bytes(L):
-    """Shared memory of kernel 4's one block per chain: angles, cos and sin
-    of both halves, 6*Nh floats, so the card takes even L <= 138."""
-    return 6 * (L * L // 2) * 4
-
-
 def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf):
     """Kernel 4 on CUDA tensors, `svmc_split_anneal_ref` on CPU tensors.
-    Arguments as for `svmc_split_anneal_ref`; returns new (a, b)."""
+    Arguments as for `svmc_split_anneal_ref`; returns new (a, b).
+
+    Two hand-written CUDA kernels share the work, chosen by shape alone:
+    when `svmc_split_geometry` finds a cluster of up to CLUSTER_SIZES[-1]
+    CTAs whose shared memory holds a band of a chain's angles, cos and sin
+    (even L <= 552), the cluster kernel runs the whole schedule in one
+    launch (LAUNCHES["svmc_split"]); for a larger lattice the per-phase
+    kernels keep them in device memory and launch twice a step, once more
+    to fill the caches (LAUNCHES["svmc_split_phased"]). Both equal the
+    plain version bitwise; neither is a fallback from a failure of the
+    other."""
     if _build.route(a.device, "split") == "cpu":
         return svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed,
                                      tf)
@@ -574,12 +623,6 @@ def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf):
     dev = a.device
     if nh != sl.nh:
         raise ValueError(f"halves have {nh} sites, lattice has {sl.nh}")
-    smem = svmc_smem_bytes(sl.L)
-    if smem > _build.SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"kernel 4 keeps 6*Nh*4 = {smem} bytes of one chain in shared "
-            f"memory; the limit is {_build.SMEM_LIMIT_BYTES} (L = {sl.L})"
-        )
     for t, name in ((a, "a"), (b, "b")):
         _build.check_arg(t, name, (chains, nh), dev)
     _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
@@ -590,11 +633,25 @@ def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf):
     a_out = torch.empty_like(a)
     b_out = torch.empty_like(b)
     lib = _build.library("split_svmc")
+    head = (*map(_build.ptr, (sl.w_ab, sl.h_ab, a_sched, b_sched)),
+            ctypes.c_float(temp), *map(_build.ptr, (a, b, a_out, b_out)))
+    geometry = svmc_split_geometry(chains, sl.L,
+                                   card_resident("split_svmc", sl.L))
+    if geometry is None:
+        scratch = torch.empty((4, chains, nh), dtype=torch.float32,
+                              device=dev)
+        n = ctypes.c_longlong(0)  # kernels launched
+        rc = lib.split_svmc_phased_anneal(
+            *head, _build.ptr(scratch), chains, sl.L, sl.nslots, steps,
+            cr.wrap_int32(seed), int(bool(tf)), _build.stream_of(dev),
+            ctypes.byref(n))
+        _build.raise_on_error(lib, "split_svmc_phased_anneal", rc,
+                              error_fn="split_svmc_anneal_error_string")
+        _build.LAUNCHES["svmc_split_phased"] += n.value
+        return a_out, b_out
     rc = lib.split_svmc_anneal(
-        *map(_build.ptr, (sl.w_ab, sl.h_ab, a_sched, b_sched)),
-        ctypes.c_float(temp), *map(_build.ptr, (a, b, a_out, b_out)),
-        chains, nh, sl.K, sl.nslots, steps, cr.wrap_int32(seed),
-        int(bool(tf)), _build.stream_of(dev),
+        *head, chains, *geometry, sl.L, sl.nslots, steps,
+        cr.wrap_int32(seed), int(bool(tf)), _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "split_svmc_anneal", rc)
     _build.LAUNCHES["svmc_split"] += 1

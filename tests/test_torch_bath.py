@@ -352,10 +352,15 @@ def test_bath_cluster_geometry(L, P, r_32, r_1280):
 
 
 def test_bath_cluster_geometry_refuses_what_no_cluster_holds():
-    # P = 128 at L = 1024: a band of 1024 / 16 rows is 1.1 MB
-    with pytest.raises(ValueError, match="no cluster of up to 16 CTAs"):
-        sk.qmc_bath_geometry(32, 1024, 128)
-    sk.qmc_bath_geometry(32, 256, 128)
+    # P = 128 at L = 1024: a band of 1024 / 16 rows is 1.1 MB; the first
+    # even L no cluster of 16 CTAs holds is 402 at P = 128 and 674 at
+    # P = 40, and the per-phase kernels run there
+    assert sk.qmc_bath_geometry(32, 1024, 128) is None
+    assert sk.qmc_bath_geometry(32, 256, 128) is not None
+    for L, P in ((402, 128), (674, 40)):
+        assert sk.qmc_bath_geometry(1, L - 2, P)[0] == 16
+        assert sk.qmc_bath_geometry(1, L, P) is None
+        assert sk.qmc_bath_smem_bytes(P, L, 16) > _build.SMEM_LIMIT_BYTES
 
 
 def test_bath_refusals():

@@ -14,9 +14,11 @@ runs its per-phase kernels; kernel 3 (`csrc/plane_qmc.cu`) does the same
 with a chain's slices as bits on the full plane
 (`plane_kernels.plane_qmc_geometry`, `pack_slice_bits`), and kernel 7
 (`csrc/plane_svmc.cu`) spreads a chain's angles over a cluster
-(`plane_kernels.plane_svmc_geometry`). Kernel 4 still holds one chain in
-one block, so the card refuses the lattices whose chain does not fit
-(README.md states the limits; the CPU's plain versions take any L).
+(`plane_kernels.plane_svmc_geometry`), and so does kernel 4
+(`csrc/split_svmc.cu`) on the split halves (`split_kernels.
+svmc_split_geometry`). Each geometry function returns None for a shape no
+cluster of 16 CTAs holds, and the wrapper runs that kernel's per-phase
+kernels: the card refuses no lattice (README.md states the edges).
 """
 
 import numpy as np
@@ -62,8 +64,9 @@ def test_sa_geometry_limit():
     # R = 16 holds even L up to 960 (60 rows of 480 sites a band)
     assert sk.sa_geometry(32, 960, lambda r, th: 0)[1] == 16
     assert sk.sa_smem_bytes(256, 1) > _build.SMEM_LIMIT_BYTES
-    with pytest.raises(ValueError, match="no cluster of up to 16 CTAs"):
-        sk.sa_geometry(32, 962)
+    # beyond, the per-phase kernel runs
+    assert sk.sa_smem_bytes(962, 16) > _build.SMEM_LIMIT_BYTES
+    assert sk.sa_geometry(32, 962) is None
 
 
 @pytest.mark.parametrize("C", [1, 8, 32])
@@ -106,8 +109,9 @@ def test_plane_sa_geometry(chains, L, C, R):
 def test_plane_sa_geometry_limit():
     assert pk.sa_plane_smem_bytes(675, 16) <= _build.SMEM_LIMIT_BYTES
     assert pk.sa_plane_smem_bytes(676, 16) > _build.SMEM_LIMIT_BYTES
-    with pytest.raises(ValueError, match="no cluster of up to 16 CTAs"):
-        pk.plane_sa_geometry(32, 676)
+    assert pk.plane_sa_geometry(32, 675)[1] == 16
+    # beyond, the per-phase kernel runs
+    assert pk.plane_sa_geometry(32, 676) is None
 
 
 # (chains, L, P) -> R of kernel B, or None where no cluster of 16 CTAs
@@ -212,15 +216,30 @@ def test_plane_svmc_geometry_limit():
     assert pk.svmc_plane_smem_bytes(480, 16) <= _build.SMEM_LIMIT_BYTES
     assert pk.svmc_plane_smem_bytes(481, 16) > _build.SMEM_LIMIT_BYTES
     assert pk.svmc_plane_smem_bytes(121, 1) > _build.SMEM_LIMIT_BYTES
-    with pytest.raises(ValueError, match="no cluster of up to 16 CTAs"):
-        pk.plane_svmc_geometry(1, 481)
+    assert pk.plane_svmc_geometry(1, 480)[0] == 16
+    # beyond, the per-phase kernels run
+    assert pk.plane_svmc_geometry(1, 481) is None
 
 
-# kernel -> (shared memory of one chain at L, largest L the card takes,
-# step between the L it takes): one block per chain
-@pytest.mark.parametrize("smem,largest_L,step", [
-    (sk.svmc_smem_bytes, 138, 2),       # kernel 4: even L
+# (chains, L) -> R of kernel 4: the largest cluster the card holds for
+# every chain at once (280 clusters of 2 at 256 chains), or None where no
+# cluster of 16 CTAs holds a band of 6 floats a half-site (even L above
+# 552, where one block per chain held L <= 138) and the per-phase kernels
+# run
+@pytest.mark.parametrize("chains,L,R", [
+    (256, 80, 2), (1, 16, 16), (32, 138, 16), (32, 256, 16), (1, 552, 16),
+    (1, 554, None),
 ])
-def test_one_block_kernel_limits(smem, largest_L, step):
-    assert smem(largest_L) <= _build.SMEM_LIMIT_BYTES
-    assert smem(largest_L + step) > _build.SMEM_LIMIT_BYTES
+def test_split_svmc_geometry(chains, L, R):
+    geometry = sk.svmc_split_geometry(chains, L, h100_resident)
+    if R is None:
+        assert geometry is None
+        assert sk.svmc_split_smem_bytes(L, 16) > _build.SMEM_LIMIT_BYTES
+        return
+    r, threads = geometry
+    assert r == R
+    assert sk.svmc_split_smem_bytes(L, r) <= _build.SMEM_LIMIT_BYTES
+    assert sk.svmc_split_smem_bytes(L, r) == 6 * sk.band_sites(L, r) * 4
+    assert threads == sk._threads(L, r)
+    # no count of resident clusters: the largest cluster that fits
+    assert sk.svmc_split_geometry(chains, L)[0] == 16

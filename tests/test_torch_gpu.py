@@ -18,10 +18,14 @@ odd-torus wrap pairs that share a color, kernel 6 at 1, 6, 32, 33 (a
 ragged chain word) and 1280 chains on L = 5 to 243, kernel 3 also at
 P = 40, 64 and 70 (one, two and three words a site), 33 chains, L = 81 and
 243 over clusters of up to 16 CTAs, and L = 677, which no cluster holds
-and the per-phase kernels run; for the SVMC kernels 4 (even L, L = 6 to
-32) and 7 (any L, L = 5 to 243 at 1, 6 and 256 chains), open and
-periodic, TF proposals on and off, held to max |d theta| <= 2e-5 with no
-angle off by more than 1e-3 (no diverged decision); for the
+and the per-phase kernels run; for the SVMC kernels 4 (even L, L = 4 to
+256 at 1, 5, 33 and 256 chains over clusters of up to 16 CTAs, and L =
+554, which no cluster holds and the per-phase kernels run) and 7 (any L,
+L = 5 to 243 at 1, 6 and 256 chains), open and periodic, TF proposals on
+and off, held to max |d theta| <= 2e-5 with no angle off by more than
+1e-3 (no diverged decision); the per-phase kernels of A, 5, 6 and 7 at
+the first shapes no cluster holds (A: L = 962; 5: L = 402 at P = 128 and
+L = 674 at P = 40; 6: L = 676 and the odd torus 677; 7: L = 481); for the
 bath kernel 5 L = 4 to 80, open and periodic, P = 2, 3, 5, 40 and 64 (one
 and two bit words per line; P above 64 takes the runtime-P kernel), B !=
 1, global moves on and off, and L = 176 and 256, which need a cluster of
@@ -153,13 +157,10 @@ def test_wrapper_refusals(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         wide = torch.ones((2, 2 * sl.nh), device=cuda)[:, ::2]
         sk.sa_split_anneal(sl, sched, wide, a, 0)
-    big = _lattice(962, False, cuda)  # R = 16 holds L <= 960
-    sl_big = split_ops.build_split(big)
-    ab = torch.ones((1, sl_big.nh), device=cuda)
-    with pytest.raises(ValueError, match="shared"):
-        sk.sa_split_anneal(sl_big, sched, ab, ab, 0)
-    # kernel B refuses no shape and no chain count: a chain no cluster
-    # holds runs on its per-phase kernels (test_kernel_b_equals_plain)
+    # kernels A and B refuse no shape and no chain count: a lattice no
+    # cluster holds runs on their per-phase kernels
+    # (test_phased_kernels_equal_plain, test_kernel_b_equals_plain)
+    assert sk.sa_geometry(1, 962) is None  # R = 16 holds L <= 960
     q = torch.ones((2, 1, sl.nh), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         sk.qmc_split_anneal(sl, sched, sched, 1.0, (q.double(),) * 4, 0, True)
@@ -241,10 +242,9 @@ def test_plane_wrapper_refusals(cuda):
         pk.sa_plane_anneal(pl, sched, s.double(), 0)
     with pytest.raises(ValueError, match="contiguous"):
         pk.sa_plane_anneal(pl, sched, s.transpose(1, 2), 0)
-    big = plane_ops.build_plane(_lattice(676, False, cuda))  # R = 16: 675
-    with pytest.raises(ValueError, match="shared"):
-        pk.sa_plane_anneal(big, sched, torch.ones((1, 676, 676),
-                                                  device=cuda), 0)
+    # R = 16 holds L <= 675; beyond, the per-phase kernel runs
+    # (test_phased_kernels_equal_plain)
+    assert pk.plane_sa_geometry(1, 676) is None
 
 
 # (L, P, launches): the pre-anneal is one SA launch; PIQMC is one launch
@@ -292,6 +292,107 @@ def test_kernel_4_equals_plain(cuda, L, periodic, tf):
         _assert_angles_equal(x, y, x0)
 
 
+# (L, periodic, tf, chains): one chain over a cluster of up to 16 CTAs
+# (L = 256 lies past the 138 that one block per chain held), and L = 554,
+# which no cluster holds and the per-phase kernels run
+@pytest.mark.parametrize("L,periodic,tf,chains", [
+    (4, True, True, 1), (4, False, False, 33), (16, True, True, 33),
+    (16, False, False, 1), (80, True, True, 256), (80, True, False, 256),
+    (80, False, True, 33), (256, True, True, 1), (256, True, False, 33),
+    (256, False, True, 256), (554, True, True, 1), (554, False, False, 1),
+])
+def test_kernel_4_cluster_shapes_equal_plain(cuda, L, periodic, tf, chains):
+    sl = split_ops.build_split(_lattice(L, periodic, cuda))
+    th = _angles((chains, L * L), cuda, L)
+    a, b = (x.contiguous() for x in split_ops.pack_classical(sl, th))
+    steps = 32
+    A = schedules.linear(2.5, 1e-8, steps, device=cuda)
+    B = torch.full_like(A, 0.9)
+    _build.reset_launches()
+    out = sk.svmc_split_anneal(sl, A, B, 0.1, a, b, 3, tf)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == (
+        {"svmc_split_phased": 1 + 2 * steps}
+        if sk.svmc_split_geometry(chains, L) is None
+        else {"svmc_split": 1})
+    ref = sk.svmc_split_anneal_ref(sl, A, B, 0.1, a, b, 3, tf)
+    for x, y, x0 in zip(out, ref, (a, b)):
+        _assert_angles_equal(x, y, x0)
+
+
+def _phased(launches, key):
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+        {key: launches}
+
+
+@pytest.mark.parametrize("L", [962])
+def test_phased_kernel_a_equals_plain(cuda, L):
+    sl = split_ops.build_split(_lattice(L, True, cuda))
+    rng = np.random.default_rng(8)
+    s = torch.as_tensor(rng.choice([-1.0, 1.0], size=(2, L * L))
+                        .astype(np.float32), device=cuda)
+    a, b = (x.contiguous() for x in split_ops.pack_classical(sl, s))
+    sched = schedules.linear(3.0, 0.0, 8, device=cuda)
+    _build.reset_launches()
+    out = sk.sa_split_anneal(sl, sched, a, b, 9)
+    _phased(16, "sa_split_phased")
+    ref = sk.sa_split_anneal_ref(sl, sched, a, b, 9)
+    for x, y, x0 in zip(out, ref, (a, b)):
+        assert torch.equal(x, y)
+        assert not torch.equal(x, x0)
+
+
+@pytest.mark.parametrize("L", [676, 677])
+def test_phased_kernel_6_equals_plain(cuda, L):
+    pl = plane_ops.build_plane(_lattice(L, True, cuda))
+    rng = np.random.default_rng(9)
+    s = torch.as_tensor(rng.choice([-1.0, 1.0], size=(2, L, L))
+                        .astype(np.float32), device=cuda)
+    sched = schedules.linear(3.0, 0.0, 8, device=cuda)
+    _build.reset_launches()
+    out = pk.sa_plane_anneal(pl, sched, s, 3)
+    _phased(16, "sa_plane_phased")
+    assert torch.equal(out, pk.sa_plane_anneal_ref(pl, sched, s, 3))
+    assert not torch.equal(out, s)
+
+
+@pytest.mark.parametrize("periodic,tf", [(True, True), (False, False)])
+def test_phased_kernel_7_equals_plain(cuda, periodic, tf):
+    L = 481
+    pl = plane_ops.build_plane(_lattice(L, periodic, cuda))
+    th = _angles((2, L, L), cuda, 10)
+    A = schedules.linear(2.5, 1e-8, 16, device=cuda)
+    B = torch.full_like(A, 0.9)
+    _build.reset_launches()
+    out = pk.svmc_plane_anneal(pl, A, B, 0.1, th, 3, tf)
+    _phased(1 + 2 * 16, "svmc_plane_phased")
+    _assert_angles_equal(out, pk.svmc_plane_anneal_ref(pl, A, B, 0.1, th, 3,
+                                                        tf), th)
+
+
+@pytest.mark.parametrize("L,P,gm,steps", [(402, 128, True, 2),
+                                          (674, 40, False, 4),
+                                          (674, 40, True, 4)])
+def test_phased_kernel_5_equals_plain(cuda, L, P, gm, steps):
+    sl = split_ops.build_split(_lattice(L, True, cuda))
+    rng = np.random.default_rng(11)
+    c = torch.as_tensor(rng.choice([-1.0, 1.0], size=(1, P, L * L))
+                        .astype(np.float32), device=cuda)
+    a, b = (x.contiguous() for x in split_ops.pack_classical(sl, c))
+    gamma = schedules.transverse_field(2.5, 1e-8, steps, device=cuda)
+    teff = (1.0 / P) * P
+    jp = schedules.jperp(gamma, teff).contiguous()
+    bs = torch.full_like(gamma, 0.7)
+    bath = piqmc_ops.bath_matrix(
+        schedules.bath_lookuptable(P, 0.5, device=cuda), P).contiguous()
+    _build.reset_launches()
+    out = sk.qmc_bath_split_anneal(sl, bs, jp, teff, bath, a, b, 5, gm)
+    _phased((4 if gm else 2) * steps, "qmc_bath_split_phased")
+    ref = sk.qmc_bath_split_anneal_ref(sl, bs, jp, teff, bath, a, b, 5, gm)
+    for x, y, x0 in zip(out, ref, (a, b)):
+        assert torch.equal(x, y)
+        assert not torch.equal(x, x0)
+
+
 # L = 121 and 243 lie past the 120 that one block per chain held
 @pytest.mark.parametrize("L,periodic,tf,chains", [
     (5, True, True, 6), (5, False, False, 6), (9, False, True, 6),
@@ -311,14 +412,16 @@ def test_kernel_7_equals_plain(cuda, L, periodic, tf, chains):
 
 def test_svmc_wrapper_refusals(cuda):
     A = schedules.linear(1.0, 1e-8, 4, device=cuda)
-    sl = split_ops.build_split(_lattice(140, False, cuda))
+    # no lattice is refused: R = 16 holds even L <= 552 (kernel 4) and
+    # L <= 480 (kernel 7), the per-phase kernels run beyond
+    assert sk.svmc_split_geometry(1, 554) is None
+    assert pk.plane_svmc_geometry(1, 481) is None
+    sl = split_ops.build_split(_lattice(16, True, cuda))
     h = torch.ones((1, sl.nh), device=cuda)
-    with pytest.raises(ValueError, match="shared"):
-        sk.svmc_split_anneal(sl, A, torch.ones_like(A), 0.1, h, h, 0, True)
-    pl = plane_ops.build_plane(_lattice(481, False, cuda))  # R = 16: 480
-    with pytest.raises(ValueError, match="shared"):
-        pk.svmc_plane_anneal(pl, A, torch.ones_like(A), 0.1,
-                             torch.ones((1, 481, 481), device=cuda), 0, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.ones((1, 2 * sl.nh), device=cuda)[:, ::2]
+        sk.svmc_split_anneal(sl, A, torch.ones_like(A), 0.1, wide, h, 0,
+                             True)
     pl = plane_ops.build_plane(_lattice(16, True, cuda))
     with pytest.raises(ValueError, match="float32"):
         pk.svmc_plane_anneal(pl, A, torch.ones_like(A), 0.1,
@@ -327,7 +430,8 @@ def test_svmc_wrapper_refusals(cuda):
 
 
 @pytest.mark.parametrize("L,launches", [(16, {"svmc_split": 1}),
-                                        (9, {"svmc_plane": 1})])
+                                        (9, {"svmc_plane": 1}),
+                                        (256, {"svmc_split": 1})])
 def test_solve_svmc_runs_its_kernel(cuda, L, launches):
     lat = _lattice(L, True, cuda)
     _build.reset_launches()
@@ -368,14 +472,11 @@ def test_kernel_5_equals_plain(cuda, L, periodic, P, bscale, gm):
 
 def test_bath_wrapper_refusals(cuda):
     # P = 128 at L = 1024: a band of 64 rows of 4 words a site is 1.1 MB
-    # even over a cluster of 16 CTAs
-    sl = split_ops.build_split(_lattice(1024, True, cuda))
+    # even over a cluster of 16 CTAs; the per-phase kernels run there
+    # (test_phased_kernel_5_equals_plain)
+    assert sk.qmc_bath_geometry(1, 1024, 128) is None
     A = schedules.linear(1.0, 1e-8, 4, device=cuda)
-    P = 128
-    bath = torch.zeros((P, P), device=cuda)
-    h = torch.ones((1, P, sl.nh), device=cuda)
-    with pytest.raises(ValueError, match="shared"):
-        sk.qmc_bath_split_anneal(sl, A, A, 1.0, bath, h, h, 0, True)
+    bath = torch.zeros((128, 128), device=cuda)
     sl = split_ops.build_split(_lattice(80, True, cuda))
     h = torch.ones((1, 4, sl.nh), device=cuda)
     with pytest.raises(ValueError, match="bath"):

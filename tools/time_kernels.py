@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Slope-time kernels A, 5, 6, B, 3 and 7 of the montecarlosolvers_tpu_torch
-found on the import path, on one CUDA card, at the main path's shapes.
+"""Slope-time kernels A, 5, 6, B, 3, 7 and 4 of the
+montecarlosolvers_tpu_torch found on the import path, on one CUDA card, at
+the main path's shapes.
 
     PYTHONPATH=<checkout> python tools/time_kernels.py [--label NAME]
         [--L 80] [--sa-geometry CHAINS:C:R ...]
         [--bath-geometry R ...] [--qmc-geometry R ...]
         [--plane-qmc-geometry R ...] [--plane-svmc-geometry R ...]
+        [--split-svmc-geometry R ...] [--only KERNEL ...]
 
 Rows: kernel A at 1280 and 32 chains on the seeded L x L torus (T: 3 -> 0),
 kernel 5 at P = 40, 32 chains, alpha = 1e-2, global moves on the same
@@ -13,21 +15,24 @@ torus, kernel 6 at 1280 and 32 chains on the seeded (L+1) x (L+1) torus,
 kernel B at P = 40, 32 chains, global moves on the L x L torus, kernel 3 at
 P = 5, 32 chains, global moves on the L x L and (L+1) x (L+1) tori, and
 kernel 7 at 256 chains, TF proposals (A: 3 -> 1e-8, B = 1, T = 0.05) on
-the (L+1) x (L+1) torus; one JSON line each, with the geometry and the
-clusters the card holds at once where the checkout reports them, with ms
-per sweep (the median pairwise slope of best-of-3 wall times over two
-schedule lengths, as chip_smoke.py's slope_ms), the card's name and power
-limit. It calls only the wrappers `sa_split_anneal`,
-`qmc_bath_split_anneal`, `sa_plane_anneal`, `qmc_split_anneal`,
-`qmc_plane_anneal` and `svmc_plane_anneal`, whose arguments every version
-of the port shares, so the same script times an older checkout (unpacked
-with `git archive`) beside the current one in one run. `--sa-geometry`
-times kernel A at CHAINS (1280 or 32) chains at each given (C, R), and
-`--bath-geometry` / `--qmc-geometry` / `--plane-qmc-geometry` /
-`--plane-svmc-geometry` kernel 5 / B / 3 / 7 at each given R, instead of
-the wrapper's own choice (where the checkout has `sa_geometry` /
+the (L+1) x (L+1) torus, and kernel 4 likewise on the L x L torus; one
+JSON line each, with the geometry and the clusters the card holds at once
+where the checkout reports them, with ms per sweep (the median pairwise
+slope of best-of-3 wall times over two schedule lengths, as
+chip_smoke.py's slope_ms), the card's name and power limit. It calls only
+the wrappers `sa_split_anneal`, `qmc_bath_split_anneal`, `sa_plane_anneal`,
+`qmc_split_anneal`, `qmc_plane_anneal`, `svmc_plane_anneal` and
+`svmc_split_anneal`, whose arguments every version of the port shares, so
+the same script times an older checkout (unpacked with `git archive`)
+beside the current one in one run. `--sa-geometry` times kernel A at
+CHAINS (1280 or 32) chains at each given (C, R), and `--bath-geometry` /
+`--qmc-geometry` / `--plane-qmc-geometry` / `--plane-svmc-geometry` /
+`--split-svmc-geometry` kernel 5 / B / 3 / 7 / 4 at each given R, instead
+of the wrapper's own choice (where the checkout has `sa_geometry` /
 `qmc_bath_geometry` / `qmc_geometry` / `plane_qmc_geometry` /
-`plane_svmc_geometry`).
+`plane_svmc_geometry` / `svmc_split_geometry`). `--only` times just the
+named kernels (split_sa, split_qmc_bath, plane_sa, split_qmc, plane_qmc,
+plane_svmc, split_svmc).
 """
 
 import argparse
@@ -64,6 +69,8 @@ def main():
     ap.add_argument("--qmc-geometry", nargs="*", default=[])
     ap.add_argument("--plane-qmc-geometry", nargs="*", default=[])
     ap.add_argument("--plane-svmc-geometry", nargs="*", default=[])
+    ap.add_argument("--split-svmc-geometry", nargs="*", default=[])
+    ap.add_argument("--only", nargs="*", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -96,9 +103,12 @@ def main():
         print(json.dumps({"label": args.label, **rec, "gpu": smi}),
               flush=True)
 
+    def wanted(kernel):
+        return args.only is None or kernel in args.only
+
     sa_geoms = [tuple(map(int, g.split(":"))) for g in args.sa_geometry]
     own_sa = getattr(sk, "sa_geometry", None)
-    for chains in (1280, 32):
+    for chains in (1280, 32) if wanted("split_sa") else ():
         a, b = (x.contiguous() for x in split_ops.pack_classical(
             sl, spins(chains, L * L)))
 
@@ -131,7 +141,8 @@ def main():
             sl, torch.ones_like(g), schedules.jperp(g, teff).contiguous(),
             teff, bath, a, b, 7, True)
     own_bath = getattr(sk, "qmc_bath_geometry", None)
-    for geom in [int(g) for g in args.bath_geometry] or [None]:
+    for geom in ([int(g) for g in args.bath_geometry] or [None]
+                 if wanted("split_qmc_bath") else []):
         if geom is not None:
             sk.qmc_bath_geometry = (lambda ch, lat, p, *_, r=geom:
                                     (r, sk._threads(lat, r)))
@@ -148,7 +159,7 @@ def main():
     pl = plane_ops.build_plane(instances.gaussian_torus(odd, seed=0,
                                                         device=dev))
     own_plane = getattr(pk, "plane_sa_geometry", None)
-    for chains in (1280, 32):
+    for chains in (1280, 32) if wanted("plane_sa") else ():
         s = spins(chains, odd, odd)
 
         def run(tau):
@@ -167,7 +178,8 @@ def main():
             sl, torch.ones_like(g), schedules.jperp(g, teff).contiguous(),
             teff, qs, 7, True)
     own_qmc = getattr(sk, "qmc_geometry", None)
-    for geom in [int(g) for g in args.qmc_geometry] or [None]:
+    for geom in ([int(g) for g in args.qmc_geometry] or [None]
+                 if wanted("split_qmc") else []):
         if geom is not None:
             sk.qmc_geometry = (lambda ch, lat, p, *_, r=geom:
                                (r, sk._threads(lat, r)))
@@ -181,7 +193,7 @@ def main():
     own_plane_qmc = getattr(pk, "plane_qmc_geometry", None)
     P5 = 5
     teff5 = (1.0 / P5) * P5
-    for lat in (L, odd):
+    for lat in (L, odd) if wanted("plane_qmc") else ():
         pl_q = plane_ops.build_plane(instances.gaussian_torus(
             lat, seed=0, device=dev))
         c = spins(32, P5, lat, lat)
@@ -212,7 +224,8 @@ def main():
         a = schedules.linear(3.0, 1e-8, tau, device=dev)
         return pk.svmc_plane_anneal(pl, a, torch.ones_like(a), 0.05, th, 7,
                                     True)
-    for geom in [int(g) for g in args.plane_svmc_geometry] or [None]:
+    for geom in ([int(g) for g in args.plane_svmc_geometry] or [None]
+                 if wanted("plane_svmc") else []):
         if geom is not None and own_plane_svmc:
             pk.plane_svmc_geometry = (lambda ch, lt, *_, r=geom:
                                       (r, pk._slot_threads(lt, r)))
@@ -224,6 +237,29 @@ def main():
              ms_per_sweep=slope_ms(run, taus(500 * 6400 // odd ** 2)))
         if own_plane_svmc:
             pk.plane_svmc_geometry = own_plane_svmc
+
+    own_split_svmc = getattr(sk, "svmc_split_geometry", None)
+    ah, bh = (x.contiguous() for x in split_ops.pack_classical(
+        sl, torch.as_tensor((rng.random((256, L * L)) * np.pi)
+                            .astype(np.float32), device=dev)))
+
+    def run(tau):
+        a = schedules.linear(3.0, 1e-8, tau, device=dev)
+        return sk.svmc_split_anneal(sl, a, torch.ones_like(a), 0.05, ah, bh,
+                                    7, True)
+    for geom in ([int(g) for g in args.split_svmc_geometry] or [None]
+                 if wanted("split_svmc") else []):
+        if geom is not None and own_split_svmc:
+            sk.svmc_split_geometry = (lambda ch, lt, *_, r=geom:
+                                      (r, sk._threads(lt, r)))
+        used = sk.svmc_split_geometry(256, L, sk.card_resident(
+            "split_svmc", L)) if own_split_svmc else None
+        emit(kernel="split_svmc", chains=256, L=L, tf=True, geometry=used,
+             resident=used and sk.resident_clusters(
+                 "split_svmc", used[0], used[1], L),
+             ms_per_sweep=slope_ms(run, taus(500 * 6400 // L ** 2)))
+        if own_split_svmc:
+            sk.svmc_split_geometry = own_split_svmc
 
 
 if __name__ == "__main__":
