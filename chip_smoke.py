@@ -96,18 +96,58 @@ Phases, each printed as one JSON line:
                       and kernel 3 at P = 5, 32 chains on the 81x81 torus;
                       and each kernel's per-phase kernels and their plain
                       versions at the shape checked above
+  hw_rng_kernel_checks  the generator instantiations (hw_rng=True,
+                      csrc/hw_rng.cuh) of kernels A, B, 4 and 5, on their
+                      cluster kernels and on their per-phase kernels (forced
+                      at any shape by tests/gibbs_check.py::phased_route):
+                      (a) on the open 4x4 lattice with one bonded pair
+                      (tests/gibbs_check.py), 4096 chains,
+                      the pair's state frequencies (A: 4 states at T = 1;
+                      B: 256 line states at P = 4; 5: 64 at P = 3 with a
+                      bath) or rotor moments (4) against the exact weights
+                      and against the plain versions' torch.Generator on
+                      the same inputs: every state within HW_Z standard
+                      errors of the chain means; (b) 1280 SA chains, 128
+                      SVMC chains and 32 chains at P = 40 (B and 5) on the
+                      80x80 torus, started all alike: no two chains, and no
+                      two slices of a chain, end identical; (c) at each
+                      pallas_* bench arm's shape and smallest light tau
+                      (kernel 5's plain comparison at P = 40, its
+                      compile-time-P generator instantiation, but tau =
+                      64, HW_PLAIN_TAU), the per-chain energies per spin
+                      on the same spins, lines or angles: their mean
+                      within HW_QUALITY_SE combined standard errors of the
+                      generator's plain version (the kernel's max_abs_err
+                      in the kernels line) and of the hash
+                      instantiation's; (d) a seed gives the same result
+                      twice, another seed a different one
+  bench               bench/throughput.py --light: the eight arms of
+                      bench.py (the four pallas_* on the generator
+                      instantiations), one line each, with the launches
+                      of each, counted from 0 before the bench
+  hw_rng_timing       ms per sweep of kernels A, B, 4 and 5 with the hash
+                      and with hw_rng=True at the pallas_* arms' shapes, of
+                      the generator's plain versions and per-phase kernels,
+                      and the registers, spills and SASS instructions and
+                      loops of both cluster instantiations
+                      (tools/sass_counts.py)
 then a line {"kernels": [...]} (the seven kernels, then their per-phase
-kernels, which no main-path solve launches), and last {"ok": true,
-"device": {...}}.
+kernels, which no main-path solve launches, then the generator
+instantiations of A, B, 4 and 5 and their per-phase kernels, whose
+launches are the bench's), and last {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero without the last line;
 it also fails when torch sees no CUDA device or the package is missing.
 The script imports no JAX. A torch.profiler breakdown of the main-path
 solves is `python -m montecarlosolvers_tpu_torch.profiling`.
 """
 
+import contextlib
+import functools
+import importlib.util
 import json
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -189,6 +229,36 @@ KERNELS = {
 # same source, under LAUNCHES[key + "_phased"]
 KERNELS.update({f"{k}_phased": (f"{key}_phased", src, tpu)
                 for k, (key, src, tpu) in list(KERNELS.items())})
+# the generator instantiations (hw_rng=True) of kernels A, B, 4 and 5: the
+# hardware-PRNG branch of the TPU kernel each replaces, and the bench arm
+# (bench/throughput.py) that runs it
+HW_BRANCHES = {
+    "split_sa": ("montecarlosolvers_tpu/ops/pallas_split.py:128", "pallas"),
+    "split_qmc": ("montecarlosolvers_tpu/ops/pallas_split.py:465",
+                  "pallas_qmc"),
+    "split_svmc": ("montecarlosolvers_tpu/ops/pallas_split.py:253",
+                   "pallas_svmc"),
+    "split_qmc_bath": ("montecarlosolvers_tpu/ops/pallas_split.py:719",
+                       "pallas_bath"),
+}
+for _k, (_tpu, _) in HW_BRANCHES.items():
+    for _suffix in ("_hw", "_hw_phased"):
+        KERNELS[_k + _suffix] = (KERNELS[_k][0] + _suffix, KERNELS[_k][1],
+                                 _tpu)
+# (a): chains of the exact-distribution samplers, and the largest
+# |mean - exact| (or kernel - plain) they may show, in standard errors of
+# the chain means (gibbs_check.z_scores: at most 1 state in about 3 million
+# passes it by chance)
+HW_CHAINS, HW_Z = 4096, 5.0
+# (c): the largest |difference of mean energy per spin| between the
+# generator and its plain version, or the hash, in combined standard
+# errors of the chain means
+HW_QUALITY_SE = 4.0
+# (c): the tau of the plain comparison where the arm's light tau would
+# keep the plain version past a few seconds (kernel 5's plain version takes
+# about 0.1 s a sweep at P = 40; still P = 40, the generator's
+# compile-time-P instantiation)
+HW_PLAIN_TAU = {"pallas_bath": 64}
 # Least time of a sweep on an H100 SXM: float32 operations over 67 TFLOP/s
 # and bytes over 3.35 TB/s (NVIDIA's data sheet), and special-function
 # operations (logarithm, sine, cosine) over 67e12 * 16 / 256 per second:
@@ -325,6 +395,219 @@ def slope_ms(run, taus, trials):
     slopes = [(best[b] - best[a]) / (b - a)
               for i, a in enumerate(ts) for b in ts[i + 1:]]
     return 1e3 * float(np.median(slopes)), best
+
+
+def launched_now():
+    from montecarlosolvers_tpu_torch.ops import _build
+    return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
+def routes():
+    """The two routes of the split kernels: ("cluster", no change) and
+    ("phased", gibbs_check.phased_route)."""
+    return (("cluster", contextlib.nullcontext),
+            ("phased", gibbs_tool().phased_route))
+
+
+def hw_exact_checks(dev, results):
+    """(a): the generator instantiations, on both routes, and the plain
+    versions' generator, against the exact weights of the bonded pair
+    (tests/gibbs_check.py) and against each other, on the same inputs."""
+    from montecarlosolvers_tpu_torch.ops import _build
+
+    gibbs = gibbs_tool()
+    lat = gibbs.pair_lattice(4, dev)
+    for kname, (sample, exact, samples, what) in gibbs.CASES.items():
+        kernel, plain = gibbs.ENGINES[kname]
+        _build.reset_launches()
+        per_plain = sample(plain, lat, HW_CHAINS)
+        check(not launched_now(), f"the plain {kname} launched nothing")
+        z_plain, d_plain = gibbs.z_scores(per_plain, exact, samples)
+        for route, ctx in routes():
+            name = f"{kname}_hw" + ("_phased" if route == "phased" else "")
+            _build.reset_launches()
+            with ctx():
+                kern = sample(kernel, lat, HW_CHAINS)
+            launched = launched_now()
+            z_k, d_k = gibbs.z_scores(kern, exact, samples)
+            z_kp, d_kp = gibbs.z_between(kern, per_plain, samples)
+            emit({"phase": "hw_rng_kernel_checks", "check": "a_exact",
+                  "kernel": name, "route": route, "what": what,
+                  "chains": HW_CHAINS, "samples": gibbs.SAMPLES,
+                  "z_kernel_vs_exact": z_k, "max_abs_kernel_vs_exact": d_k,
+                  "z_plain_vs_exact": z_plain,
+                  "max_abs_plain_vs_exact": d_plain,
+                  "z_kernel_vs_plain": z_kp, "max_abs_kernel_vs_plain": d_kp,
+                  "bound_z": HW_Z, "launches": launched})
+            check(set(launched) == {KERNELS[name][0]},
+                  f"{name} launched {launched}")
+            check(max(z_k, z_plain, z_kp) < HW_Z,
+                  f"{name} samples the exact weights ({what})")
+
+
+def hw_stream_checks(dev, torus):
+    """(b) and (d): chains (and slices) started alike end apart; a seed
+    reproduces, another differs; each kernel on both routes."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+
+    n = torus.nspins
+    rng = np.random.default_rng(5)
+    one = torch.as_tensor(rng.choice([-1.0, 1.0], size=n).astype(np.float32),
+                          device=dev)
+    angles = torch.as_tensor((rng.random(n) * np.pi).astype(np.float32),
+                             device=dev)
+    gamma = torch.full((2,), 3.0, device=dev)
+    lut = schedules.bath_lookuptable(QMC_SLICES, BATH_ALPHA, device=dev)
+    lines = one.expand(QMC_READS, QMC_SLICES, n).contiguous()
+    cases = {
+        "split_sa": (SA_READS, lambda sd: sk.anneal_lattice_split(
+            torus, schedules.linear(3.0, 0.5, 20, device=dev),
+            one.expand(SA_READS, n).contiguous(), sd, hw_rng=True)),
+        "split_qmc": (QMC_READS, lambda sd: sk.anneal_lattice_qmc_split(
+            torus, gamma, torch.ones_like(gamma), 1.0 / QMC_SLICES, lines,
+            sd, global_moves=True, hw_rng=True)),
+        "split_qmc_bath": (QMC_READS, lambda sd:
+                           sk.anneal_lattice_qmc_bath_split(
+                               torus, gamma, torch.ones_like(gamma),
+                               1.0 / QMC_SLICES, lut, lines, sd,
+                               global_moves=True, hw_rng=True)),
+        "split_svmc": (128, lambda sd: sk.anneal_lattice_svmc_split(
+            torus, torch.ones(20, device=dev), torch.ones(20, device=dev),
+            SVMC_TEMP, angles.expand(128, n).contiguous(), sd, tf=True,
+            hw_rng=True)),
+    }
+    for kname, (chains, run) in cases.items():
+        for route, ctx in routes():
+            with ctx():
+                out, again, other = run(99), run(99), run(100)
+            torch.cuda.synchronize()
+            distinct = int(torch.unique(out.reshape(chains, -1),
+                                        dim=0).shape[0])
+            rec = {"phase": "hw_rng_kernel_checks", "check": "b_d_streams",
+                   "kernel": kname + "_hw", "route": route,
+                   "chains": chains, "started_alike": True,
+                   "distinct_chains": distinct,
+                   "same_seed_equal": bool(torch.equal(out, again)),
+                   "other_seed_differs": not torch.equal(out, other)}
+            if out.ndim == 3:  # no two slices of a chain alike
+                rec["min_distinct_slices"] = min(
+                    int(torch.unique(c, dim=0).shape[0]) for c in out)
+                rec["slices"] = out.shape[1]
+            emit(rec)
+            check(distinct == chains, f"{kname} hw: chains end distinct "
+                                      f"({route})")
+            check(rec.get("min_distinct_slices", 0) == rec.get("slices", 0),
+                  f"{kname} hw: no two slices of a chain alike ({route})")
+            check(rec["same_seed_equal"] and rec["other_seed_differs"],
+                  f"{kname} hw: a seed reproduces, another differs "
+                  f"({route})")
+
+
+def hw_quality_checks(dev, torus, results):
+    """(c): at each pallas_* arm's shape and smallest light tau, on the same
+    spins, lines or angles, the per-chain energies per spin of the
+    generator instantiations (both routes) against the generator's plain
+    version and against the hash instantiation."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.bench import throughput
+    from montecarlosolvers_tpu_torch.ops import svmc_ops
+    from montecarlosolvers_tpu_torch.solvers import qmc
+
+    gibbs = gibbs_tool()
+    n = torus.nspins
+    rng = np.random.default_rng(6)
+
+    def makers(arm):
+        """(tau, run(engine, hw_rng, tau) -> per-chain energies) of
+        `arm`."""
+        chains, slices, _, light, _, _ = throughput.ARMS[arm]
+        spins = torch.as_tensor(rng.choice(
+            [-1.0, 1.0], size=(chains, n)).astype(np.float32), device=dev)
+        lines = qmc.replicate(spins, slices)
+        angles = torch.as_tensor((rng.random((chains, n)) * np.pi)
+                                 .astype(np.float32), device=dev)
+
+        def gamma(tau):
+            return schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+        return light[0], {
+            "pallas": lambda eng, hw, tau: torus.energy(gibbs.anneal_sa(
+                eng, torus, schedules.linear(3.0, 0.0, tau, device=dev),
+                spins, 21, hw)),
+            "pallas_qmc": lambda eng, hw, tau: qmc.best_slice_energy(
+                torus, gibbs.anneal_qmc(eng, torus, gamma(tau), 1.0 / slices,
+                                        lines, 22, True, hw)),
+            "pallas_svmc": lambda eng, hw, tau: torus.energy(
+                svmc_ops.z_projection(gibbs.anneal_svmc(
+                    eng, torus, gamma(tau), torch.ones(tau, device=dev),
+                    SVMC_TEMP, angles, 23, True, hw))),
+            "pallas_bath": lambda eng, hw, tau: qmc.best_slice_energy(
+                torus, gibbs.anneal_bath(eng, torus, gamma(tau),
+                                         1.0 / slices, BATH_ALPHA, lines, 24,
+                                         False, hw)),
+        }[arm]
+
+    def per_spin(energies):
+        return energies.double().cpu().numpy() / n
+
+    def apart(x, y):
+        """|difference of the means|, combined standard error."""
+        se = np.hypot(x.std(ddof=1), y.std(ddof=1)) / np.sqrt(len(x))
+        return float(abs(x.mean() - y.mean())), float(se)
+
+    for kname, (_, arm) in HW_BRANCHES.items():
+        tau, run = makers(arm)
+        plain_tau = HW_PLAIN_TAU.get(arm, tau)
+        kernel, plain = gibbs.ENGINES[kname]
+        ref = per_spin(run(kernel, False, tau))
+        t0 = time.perf_counter()
+        want = per_spin(run(plain, True, plain_tau))
+        plain_s = time.perf_counter() - t0
+        for route, ctx in routes():
+            name = f"{kname}_hw" + ("_phased" if route == "phased" else "")
+            with ctx():
+                got = per_spin(run(kernel, True, tau))
+                got_p = (got if plain_tau == tau
+                         else per_spin(run(kernel, True, plain_tau)))
+            d_plain, se_plain = apart(got_p, want)
+            d_hash, se_hash = apart(got, ref)
+            emit({"phase": "hw_rng_kernel_checks", "check": "c_quality",
+                  "kernel": name, "route": route, "arm": arm,
+                  "chains": len(got), "tau": tau, "plain_tau": plain_tau,
+                  "mean_energy_per_spin_hw": float(got.mean()),
+                  "mean_energy_per_spin_hash": float(ref.mean()),
+                  "mean_energy_per_spin_hw_at_plain_tau": float(got_p.mean()),
+                  "mean_energy_per_spin_plain": float(want.mean()),
+                  "diff_plain": d_plain, "combined_se_plain": se_plain,
+                  "diff_hash": d_hash, "combined_se_hash": se_hash,
+                  "plain_seconds": plain_s, "bound_se": HW_QUALITY_SE})
+            check(d_plain < HW_QUALITY_SE * se_plain,
+                  f"{name} anneals as its plain version does at {arm}'s "
+                  f"shape")
+            check(d_hash < HW_QUALITY_SE * se_hash,
+                  f"{name} anneals as the hash does at {arm}'s shape")
+            results[name]["max_abs_err"] = d_plain
+
+
+def repo_module(relpath):
+    """The Python file `relpath` of this checkout, as a module."""
+    path = Path(__file__).resolve().parent / relpath
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@functools.cache
+def gibbs_tool():
+    """tests/gibbs_check.py of this checkout: the bonded pair's exact
+    weights, the samplers and the per-phase route."""
+    return repo_module("tests/gibbs_check.py")
+
+
+def sass_tool():
+    """tools/sass_counts.py of this checkout, as a module."""
+    return repo_module("tools/sass_counts.py")
 
 
 def energy64(problem, states):
@@ -1046,17 +1329,20 @@ def main():
         ("plane_qmc", "cuda", plane_qmc_runner(pk.qmc_plane_anneal, pl81),
          (200, 800), 3, QMC_READS, ODD_SLICES, ODD_L * ODD_L),
     )
-    for i, (kname, route, run, taus, trials, chains, slices, sites) in \
-            enumerate(timings + extra):
+    def time_row(phase, kname, route, run, taus, trials, chains, slices,
+                 sites, record=True):
+        """Slope-time run and emit its line; with `record`, keep the time
+        (and the bound) as kernel `kname`'s, or as its plain version's."""
         ms, best = slope_ms(run, taus, trials)
         rate = sites * slices * chains / (ms * 1e-3) if ms > 0 \
             else float("nan")
-        base = kname.removesuffix("_phased")  # the work is the kernel's
+        # the work is the kernel's, whichever instantiation does it
+        base = kname.removesuffix("_phased").removesuffix("_hw")
         bound, bound_by, unit = bound_ms(base, chains, slices, sites,
                                          max(taus))
         f32, sfu = ops_per_sweep(base, chains, slices, sites)
         hashed = hash_ops_per_sweep(base, chains, slices, sites)
-        emit({"phase": "timing", "kernel": kname, "route": route,
+        emit({"phase": phase, "kernel": kname, "route": route,
               "chains": chains, "slices": slices, "sites": sites,
               "global_moves": "qmc" in kname,
               "tf": True if base.endswith("svmc") else None,
@@ -1071,16 +1357,97 @@ def main():
                                                    sites, max(taus)),
               "gpu": name, "power_limit": power})
         check(ms > 0, f"{kname} {route} slope is positive")
-        if i < len(timings) and route == "cuda":
+        if record and route == "cuda":
             results[kname].update(ms=ms, bound_ms=bound, bound_by=bound_by)
-        elif i < len(timings):
+        elif record:
             results[kname]["plain_ms"] = ms
 
+    for i, row in enumerate(timings + extra):
+        time_row("timing", *row, record=i < len(timings))
+
+    # ---- the generator instantiations of A, B, 4 and 5 (hw_rng=True)
+    hw_exact_checks(dev, results)
+    hw_stream_checks(dev, torus)
+    hw_quality_checks(dev, torus, results)
+
+    # ---- this slice's path: the bench's eight arms, launch counts read
+    # around the whole bench
+    from montecarlosolvers_tpu_torch.bench import throughput
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for rec in throughput.run_arms(light=True, device=dev):
+        emit({"phase": "bench", **rec})
+        check(np.isfinite(rec["attempts_per_s"])
+              and rec["attempts_per_s"] > 0, f"{rec['arm']} rate")
+        want = {"sa": "sa_split", "piqmc": "qmc_split",
+                "svmc": "svmc_split", "piqmc_bath": "qmc_bath_split",
+                "pallas": "sa_split_hw", "pallas_qmc": "qmc_split_hw",
+                "pallas_svmc": "svmc_split_hw",
+                "pallas_bath": "qmc_bath_split_hw"}[rec["arm"]]
+        # a warm run and one trial at each of the light taus
+        check(rec["launches"] == {want: 2 * len(rec["taus"])},
+              f"{rec['arm']} launched {rec['launches']}")
+        if "mean_energy_per_spin" in rec:
+            check(np.isfinite(rec["mean_energy_per_spin"])
+                  and rec["mean_energy_per_spin"] < 0,
+                  f"{rec['arm']} energy")
+    bench_launches = dict(_build.LAUNCHES)
+    emit({"phase": "bench", "seconds": time.perf_counter() - t0,
+          "launches": {k: v for k, v in bench_launches.items() if v}})
+
+    # ---- hw_rng_timing: hash and generator at the pallas_* arms' shapes
+    arm_rows, hw_rows = [], []
+    runners = {"split_sa": split_sa_runner, "split_qmc": split_qmc_runner,
+               "split_svmc": split_svmc_runner,
+               "split_qmc_bath": split_bath_runner}
+    for kname, (_, arm) in HW_BRANCHES.items():
+        chains, slices = throughput.ARMS[arm][:2]
+        kernel, plain = wrappers[kname]
+        size = ({"chains": chains, "slices": slices}
+                if kname == "split_qmc" else {"chains": chains})
+        taus = {"split_qmc": (100, 400), "split_qmc_bath": (100, 400)}.get(
+            kname, (500, 2000))
+        plain_taus = {"split_qmc_bath": (2, 6), "split_qmc": (4, 12)}.get(
+            kname, (10, 40))
+        hw = functools.partial(kernel, hw_rng=True)
+        arm_rows.append((kname, "cuda", runners[kname](kernel, **size),
+                         taus, 3, chains, slices, L * L))
+        hw_rows += [
+            (f"{kname}_hw", "cuda", runners[kname](hw, **size), taus, 3,
+             chains, slices, L * L),
+            (f"{kname}_hw", "plain", runners[kname](functools.partial(
+                plain, hw_rng=True), **size), plain_taus, 2, chains, slices,
+             L * L)]
+        # the per-phase kernels at the first shape no cluster holds
+        run_p, p_chains, p_slices, p_l = phased[kname]
+        hw_rows += [
+            (f"{kname}_hw_phased", "cuda", run_p(hw),
+             (5, 20) if kname == "split_qmc_bath" else (20, 80), 3,
+             p_chains, p_slices, p_l * p_l),
+            (f"{kname}_hw_phased", "plain", run_p(functools.partial(
+                plain, hw_rng=True)),
+             (1, 3) if kname == "split_qmc_bath" else (2, 6), 2, p_chains,
+             p_slices, p_l * p_l)]
+    for row in arm_rows:
+        time_row("hw_rng_timing", *row, record=False)
+    for row in hw_rows:
+        time_row("hw_rng_timing", *row)
+    sass = sass_tool()
+    for lib in HW_BRANCHES:
+        log = _build.PTXAS_LOG.get(lib, "")
+        for source, part in ((src, nm) for lb, src, nm in sass.KERNELS
+                             if lb == lib):
+            rec = sass.count(_build._lib_path(lib), part, log)
+            rec.pop("by_opcode")
+            emit({"phase": "hw_rng_timing", "library": lib,
+                  "uniforms": source, **rec})
+
     # No single PyTorch call computes a Metropolis sweep, so no kernel has a
-    # library yardstick (library_ms null).
+    # library yardstick (library_ms null). The generator instantiations'
+    # launches are the bench's, the others' the main path's.
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": main_launches[key],
+         "launches": (bench_launches if "_hw" in k else main_launches)[key],
          "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
          "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"],

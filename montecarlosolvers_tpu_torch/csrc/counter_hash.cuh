@@ -61,10 +61,15 @@ __device__ __forceinline__ uint32_t svmc_accept_counter(uint32_t seed_term,
   return counter(seed_term, step, color) ^ kLineXor;
 }
 
-// uniform in [0, 1) with 24 bits; (float) of a value < 2^24 is exact
-__device__ __forceinline__ float uniform01(uint32_t ctr, uint32_t uid) {
-  const uint32_t bits = mix32(uid * kGolden + ctr);
+// Uniform in [0, 1) from the top 24 bits of a 32-bit draw; (float) of a
+// value < 2^24 is exact
+__device__ __forceinline__ float uniform24(uint32_t bits) {
   return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+// uniform in [0, 1) with 24 bits of the hash of (ctr, uid)
+__device__ __forceinline__ float uniform01(uint32_t ctr, uint32_t uid) {
+  return uniform24(mix32(uid * kGolden + ctr));
 }
 
 // Metropolis acceptance in log form (ops/metropolis.py:20):
@@ -76,15 +81,21 @@ __device__ __forceinline__ bool metropolis_accept(float de, float temp,
   return (de <= 0.0f * temp) || (__fmul_rn(-temp, log1pf(-u)) > de);
 }
 
-// metropolis_accept with u = the uniform01 of the hash input
-// x = uid * kGolden + ctr, both sides evaluated with no branch: the hash
-// and log1pf run whatever dE is (the decision is the same), so the lanes of
-// a warp stay converged; kernel A's chain loop runs faster this way than
-// when it hashes only where dE > 0 (PERF.md).
+// metropolis_accept with both sides evaluated with no branch: log1pf runs
+// whatever dE is (the decision is the same), so the lanes of a warp stay
+// converged
+__device__ __forceinline__ bool metropolis_accept_u(float de, float temp,
+                                                    float u) {
+  return (de <= 0.0f * temp) | (__fmul_rn(-temp, log1pf(-u)) > de);
+}
+
+// metropolis_accept_u with u = the uniform01 of the hash input
+// x = uid * kGolden + ctr: the hash runs whatever dE is too; kernel A's
+// chain loop runs faster this way than when it hashes only where dE > 0
+// (PERF.md).
 __device__ __forceinline__ bool metropolis_accept_hashed(float de, float temp,
                                                          uint32_t x) {
-  const float u = static_cast<float>(mix32(x) >> 8) * (1.0f / 16777216.0f);
-  return (de <= 0.0f * temp) | (__fmul_rn(-temp, log1pf(-u)) > de);
+  return metropolis_accept_u(de, temp, uniform24(mix32(x)));
 }
 
 // j + d mod n for |d| <= n

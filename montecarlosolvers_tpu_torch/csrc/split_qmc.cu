@@ -56,6 +56,10 @@
 //   cluster.sync(), and with global moves line A, sync, line B, sync, so Y
 //   reads the new X and line B the A quarters after line A's flips.
 //   ops/split_kernels.py::qmc_geometry chooses R by kernel 5's rules.
+// - The uniform source is a template argument (csrc/hw_rng.cuh): the
+//   counter hash, or with hw_rng the thread's own generator stream, which
+//   draws a site's slices in slice order, then its line moves; the hash
+//   instantiation is the kernel as it was.
 // - A shape no cluster holds (ops/split_kernels.py::qmc_geometry returns
 //   None: at P = 40 an even L above 674, at P = 128 above 480) runs on the
 //   per-phase kernels below (split_qmc_phased_anneal): the state in device
@@ -71,6 +75,7 @@
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "hw_rng.cuh"
 
 namespace {
 
@@ -107,6 +112,8 @@ __device__ __forceinline__ uint32_t ring_word(const uint32_t* quarter, int S,
   return rest | (quarter_bit(quarter, S, (32 * wd + last + 1) % Q) << last);
 }
 
+// kHw: uniforms from the thread's stream (hw_rng.cuh), not the counter hash
+template <bool kHw>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 split_qmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  const float* __restrict__ b_sched,
@@ -151,6 +158,8 @@ split_qmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
   const uint32_t qnh = static_cast<uint32_t>(Q) * static_cast<uint32_t>(nh);
   // the hash input uid*kGolden + ctr steps by Nh*kGolden from q to q + 1
   const uint32_t q_step = static_cast<uint32_t>(nh) * mcs::kGolden;
+  // with kHw, a site's slices draw in slice order from the thread's stream
+  mcs::Uniforms<kHw> rng(seed_term, mcs::thread_stream());
   for (int t = 0; t < steps; ++t) {
     const float bc = -2.0f * b_sched[t];
     const float jpt = jp[t];
@@ -192,7 +201,7 @@ split_qmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
           // sum would change dE: __fmul_rn/__fadd_rn keep the two roundings
           const float de = __fadd_rn(__fmul_rn(bc * sv, f),
                                      __fmul_rn(__fmul_rn(2.0f * sv, jpt), tr));
-          if (mcs::metropolis_accept_hashed(de, teff, x)) flips |= 1u << b;
+          if (rng.accept(de, teff, x)) flips |= 1u << b;
         }
         smem[off(s) + wd * S + il] = word ^ flips;
       }
@@ -249,7 +258,7 @@ split_qmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
              static_cast<uint32_t>(color * nh + j)) *
                 mcs::kGolden +
             ctr;
-        if (mcs::metropolis_accept_hashed(de, teff, x)) {
+        if (rng.accept(de, teff, x)) {
           for (int wd = 0; wd < W; ++wd) {
             const int nbits = min(32, Q - 32 * wd);
             const uint32_t mask = nbits == 32 ? ~0u : (1u << nbits) - 1u;
@@ -283,7 +292,9 @@ size_t smem_bytes(int Q, int L, int R) {
 // Quarter `which` reads its spatial neighbours in o<which> at the same q,
 // and its Trotter neighbours in r<which> at q and at q-1 (which 0) or q+1
 // (which 1), as the cluster kernel's `local`. The counter index is idx0 +
-// which (0, 1 in phase X; 2, 3 in phase Y).
+// which (0, 1 in phase X; 2, 3 in phase Y); with kHw the uniform is the
+// first draw of the thread's stream of this launch, number `launch`.
+template <bool kHw>
 __global__ void __launch_bounds__(kThreads)
 qmc_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  const float* __restrict__ b_sched,
@@ -292,7 +303,7 @@ qmc_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  int color0, float* s1, const float* __restrict__ o1,
                  const float* __restrict__ r1, int color1, int idx0, int Q,
                  int nh, int K, int nslots, int xblocks, int t,
-                 uint32_t seed_term) {
+                 uint32_t seed_term, uint32_t launch) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -321,18 +332,28 @@ qmc_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                        static_cast<uint32_t>(idx) * qnh +
                        static_cast<uint32_t>(q) * static_cast<uint32_t>(nh) +
                        static_cast<uint32_t>(j);
-  const float u = mcs::uniform01(mcs::counter(seed_term, t, idx), uid);
-  if (mcs::metropolis_accept(de, teff, u)) s[row + j] = -sv;
+  bool acc;
+  if constexpr (kHw) {
+    mcs::Uniforms<true> rng(seed_term, mcs::phase_stream(launch));
+    acc = rng.accept(de, teff, 0u);
+  } else {
+    acc = mcs::metropolis_accept(
+        de, teff, mcs::uniform01(mcs::counter(seed_term, t, idx), uid));
+  }
+  if (acc) s[row + j] = -sv;
 }
 
 // Whole-line moves of `color`, one thread per (chain = blockIdx.x /
-// xblocks, site), as the cluster kernel's line moves.
+// xblocks, site), as the cluster kernel's line moves; kHw as for
+// qmc_local_kernel.
+template <bool kHw>
 __global__ void __launch_bounds__(kThreads)
 qmc_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
                 const float* __restrict__ b_sched, float teff, float* s1,
                 const float* __restrict__ o1, float* s2,
                 const float* __restrict__ o2, int color, int Q, int nh, int K,
-                int nslots, int xblocks, int t, uint32_t seed_term) {
+                int nslots, int xblocks, int t, uint32_t seed_term,
+                uint32_t launch) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -358,8 +379,15 @@ qmc_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
       static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
       static_cast<uint32_t>(color) * static_cast<uint32_t>(nh) +
       static_cast<uint32_t>(j);
-  const float u = mcs::uniform01(mcs::counter(seed_term, t, idx), uid);
-  if (mcs::metropolis_accept(de, teff, u)) {
+  bool acc;
+  if constexpr (kHw) {
+    mcs::Uniforms<true> rng(seed_term, mcs::phase_stream(launch));
+    acc = rng.accept(de, teff, 0u);
+  } else {
+    acc = mcs::metropolis_accept(
+        de, teff, mcs::uniform01(mcs::counter(seed_term, t, idx), uid));
+  }
+  if (acc) {
     for (int q = 0; q < Q; ++q) {
       const size_t row = base + static_cast<size_t>(q) * nh;
       s1[row + j] = -s1[row + j];
@@ -373,8 +401,9 @@ qmc_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // Anneal `chains` Trotter states over `steps` schedule points in one launch,
 // each chain over a cluster of R CTAs of `threads` threads. w: (nslots, 2,
 // nh), h: (2, nh), b_sched and jp: (steps,), quarters (chains, Q, nh) of
-// +/-1 with nh = L*L/2; all float32 device pointers. Launches on `stream`
-// and returns cudaGetLastError().
+// +/-1 with nh = L*L/2; all float32 device pointers. hw_rng != 0 draws the
+// uniforms from each thread's stream (hw_rng.cuh). Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int split_qmc_anneal(const float* w, const float* h,
                                 const float* b_sched, const float* jp,
                                 float teff, const float* xe_in,
@@ -383,36 +412,40 @@ extern "C" int split_qmc_anneal(const float* w, const float* h,
                                 float* ye, float* yo, int chains, int Q,
                                 int R, int threads, int L, int nslots,
                                 int steps, int seed, int global_moves,
-                                void* stream) {
+                                int hw_rng, void* stream) {
   if (chains == 0 || Q == 0 || L == 0) return cudaSuccess;
+  const auto kernel =
+      hw_rng ? split_qmc_kernel<true> : split_qmc_kernel<false>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = mcs::cluster_config(split_qmc_kernel, chains * R, R,
+  cudaError_t e = mcs::cluster_config(kernel, chains * R, R,
                                       threads, smem_bytes(Q, L, R),
                                       static_cast<cudaStream_t>(stream),
                                       &cfg, &attr);
   if (e != cudaSuccess) return e;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
-  e = cudaLaunchKernelEx(&cfg, split_qmc_kernel, w, h, b_sched, jp, teff,
+  e = cudaLaunchKernelEx(&cfg, kernel, w, h, b_sched, jp, teff,
                          xe_in, xo_in, ye_in, yo_in, xe, xo, ye, yo, Q, R, L,
                          nslots, steps, seed_term, global_moves);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// Clusters of R CTAs the card holds at once at Q = P/2 and lattice size L.
+// Clusters of R CTAs the card holds at once at Q = P/2 and lattice size L
+// (the hash instantiation's; both have the same register limit and shared
+// memory).
 extern "C" int split_qmc_max_active_clusters(int Q, int R, int threads,
                                              int L, int* count) {
-  return mcs::max_active_clusters(split_qmc_kernel, R, threads,
+  return mcs::max_active_clusters(split_qmc_kernel<false>, R, threads,
                                   smem_bytes(Q, L, R), count);
 }
 
 // The same anneal on the per-phase kernels, the state in device memory:
 // the inputs are copied to the outputs, which are then updated in place,
-// four launches a step (two without global moves). Stores the number of
-// kernels it launched in *launched (a host pointer); returns the first
-// launch error, checked after the first step, or cudaGetLastError() at the
-// end.
+// four launches a step (two without global moves); hw_rng as for
+// split_qmc_anneal. Stores the number of kernels it launched in *launched
+// (a host pointer); returns the first launch error, checked after the
+// first step, or cudaGetLastError() at the end.
 extern "C" int split_qmc_phased_anneal(const float* w, const float* h,
                                        const float* b_sched,
                                        const float* jp, float teff,
@@ -423,8 +456,8 @@ extern "C" int split_qmc_phased_anneal(const float* w, const float* h,
                                        float* xo, float* ye, float* yo,
                                        int chains, int Q, int nh, int K,
                                        int nslots, int steps, int seed,
-                                       int global_moves, void* stream,
-                                       long long* launched) {
+                                       int global_moves, int hw_rng,
+                                       void* stream, long long* launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
   const size_t bytes = static_cast<size_t>(chains) * Q * nh * sizeof(float);
@@ -440,25 +473,27 @@ extern "C" int split_qmc_phased_anneal(const float* w, const float* h,
   const int xblocks = (nh + kThreads - 1) / kThreads;
   const dim3 grid_local(xblocks * chains, 2 * Q);
   const dim3 grid_line(xblocks * chains);
+  const auto local = hw_rng ? qmc_local_kernel<true> : qmc_local_kernel<false>;
+  const auto line = hw_rng ? qmc_line_kernel<true> : qmc_line_kernel<false>;
   for (int t = 0; t < steps; ++t) {
     // phase X: xe (color A) and xo (color B) against ye, yo
-    qmc_local_kernel<<<grid_local, kThreads, 0, st>>>(
+    local<<<grid_local, kThreads, 0, st>>>(
         w, h, b_sched, jp, teff, xe, ye, yo, 0, xo, yo, ye, 1, 0, Q, nh, K,
-        nslots, xblocks, t, seed_term);
+        nslots, xblocks, t, seed_term, static_cast<uint32_t>(*launched));
     // phase Y, after X in stream order: ye (B) and yo (A) against new X
-    qmc_local_kernel<<<grid_local, kThreads, 0, st>>>(
+    local<<<grid_local, kThreads, 0, st>>>(
         w, h, b_sched, jp, teff, ye, xe, xo, 1, yo, xo, xe, 0, 2, Q, nh, K,
-        nslots, xblocks, t, seed_term);
+        nslots, xblocks, t, seed_term, static_cast<uint32_t>(*launched + 1));
     *launched += 2;
     if (global_moves) {
       // lines of color A: sites xe + yo, neighbours ye / xo
-      qmc_line_kernel<<<grid_line, kThreads, 0, st>>>(
+      line<<<grid_line, kThreads, 0, st>>>(
           w, h, b_sched, teff, xe, ye, yo, xo, 0, Q, nh, K, nslots, xblocks,
-          t, seed_term);
+          t, seed_term, static_cast<uint32_t>(*launched));
       // lines of color B, against the A quarters line A just updated
-      qmc_line_kernel<<<grid_line, kThreads, 0, st>>>(
+      line<<<grid_line, kThreads, 0, st>>>(
           w, h, b_sched, teff, ye, xe, xo, yo, 1, Q, nh, K, nslots, xblocks,
-          t, seed_term);
+          t, seed_term, static_cast<uint32_t>(*launched + 1));
       *launched += 2;
     }
     if (t == 0) {

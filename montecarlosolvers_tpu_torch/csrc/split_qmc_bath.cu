@@ -64,6 +64,12 @@
 //   same kernel takes larger P): the bath loop unrolls, the line words sit
 //   in registers and M is read four terms a load, instead of a loop of
 //   about 9 instructions a term.
+// - The uniform source is a template argument (csrc/hw_rng.cuh): the
+//   counter hash, or with hw_rng the thread's own generator stream, which
+//   draws a site's slices in slice order, then its line moves. The hash
+//   instantiations are the kernel as it was; the generator's take P at
+//   compile time only at the bench's P = 40 (kHwStaticP), so the build
+//   adds two instantiations, not 65.
 // - The bath field is recomputed in index order at every update, never
 //   carried as a running sum updated on flips, which would round
 //   differently; M[k, p] * s_p is exact, so the sign flip is bitwise the
@@ -89,6 +95,7 @@
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "hw_rng.cuh"
 
 namespace {
 
@@ -134,7 +141,8 @@ __device__ __forceinline__ float bath_field(const float* mk,
   }
 }
 
-template <int kP>
+// kHw: uniforms from the thread's stream (hw_rng.cuh), not the counter hash
+template <int kP, bool kHw>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 split_qmc_bath_kernel(const float* __restrict__ w,
                       const float* __restrict__ h,
@@ -181,6 +189,9 @@ split_qmc_bath_kernel(const float* __restrict__ w,
       static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh));
   // the bits of a whole line in word wd (the last word may be partial)
   const uint32_t last_mask = (P & 31) ? (1u << (P & 31)) - 1u : ~0u;
+  // with kHw, a site's slices draw in slice order from the thread's stream,
+  // then its line moves
+  mcs::Uniforms<kHw> rng(seed_term, mcs::thread_stream());
   for (int t = 0; t < steps; ++t) {
     const float bc = -2.0f * b_sched[t];
     const float jpt = jp[t];
@@ -214,8 +225,7 @@ split_qmc_bath_kernel(const float* __restrict__ w,
       const uint32_t x =
           (uid0 + static_cast<uint32_t>(half * nh + j)) * mcs::kGolden +
           mcs::counter(seed_term, t, 2 * k + half);
-      if (mcs::metropolis_accept_hashed(de, teff, x))
-        smem[own + kw + il] = wk ^ (1u << kb);
+      if (rng.accept(de, teff, x)) smem[own + kw + il] = wk ^ (1u << kb);
     };
     // All slices of half A, then all slices of half B, one barrier between:
     // A of slice k reads B at slice k, which the plain order updates only
@@ -273,7 +283,7 @@ split_qmc_bath_kernel(const float* __restrict__ w,
           const uint32_t x =
               (uid0 + static_cast<uint32_t>(half * nh + j)) * mcs::kGolden +
               ctr;
-          if (mcs::metropolis_accept_hashed(de, teff, x)) {
+          if (rng.accept(de, teff, x)) {
             for (int wd = 0; wd < words; ++wd)
               smem[own + wd * S + il] ^= wd + 1 == words ? last_mask : ~0u;
           }
@@ -302,13 +312,21 @@ template <int... Ps>
 auto kernel_table(std::integer_sequence<int, Ps...>) {
   // P < 2 is refused by the wrapper; those entries take the runtime kernel
   return std::array<KernelFn, sizeof...(Ps)>{
-      &split_qmc_bath_kernel<(Ps < 2 ? 0 : Ps)>...};
+      &split_qmc_bath_kernel<(Ps < 2 ? 0 : Ps), false>...};
 }
 
-KernelFn kernel_for(int P) {
+// The P the generator's instantiations take at compile time: the bench's
+// (bench/throughput.py, pallas_bath); any other P takes the runtime-P one,
+// so that the build keeps 66 instantiations, not 130
+constexpr int kHwStaticP = 40;
+
+KernelFn kernel_for(int P, int hw_rng) {
+  if (hw_rng)
+    return P == kHwStaticP ? &split_qmc_bath_kernel<kHwStaticP, true>
+                           : &split_qmc_bath_kernel<0, true>;
   static const auto table =
       kernel_table(std::make_integer_sequence<int, kMaxStaticP + 1>{});
-  return P <= kMaxStaticP ? table[P] : &split_qmc_bath_kernel<0>;
+  return P <= kMaxStaticP ? table[P] : &split_qmc_bath_kernel<0, false>;
 }
 
 // Shared memory one CTA takes: its band of both halves' bit planes and the
@@ -327,7 +345,10 @@ constexpr int kThreads = 256;
 // Local half-phase of step t: one thread per site j of half `half` (lines
 // s, (chains, P, nh) +/-1 floats) of chain blockIdx.x / xblocks, walking
 // slices k = 0..P-1 in order against the other half o at slice k, as the
-// cluster kernel's phase; only the thread's own line is written.
+// cluster kernel's phase; only the thread's own line is written. With kHw
+// slice k takes draw k of the thread's stream of this launch, number
+// `launch`.
+template <bool kHw>
 __global__ void __launch_bounds__(kThreads)
 bath_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                   const float* __restrict__ b_sched,
@@ -335,7 +356,7 @@ bath_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                   const float* __restrict__ bath, float teff, float two_teff,
                   float* s, const float* __restrict__ o, int half, int P,
                   int nh, int K, int nslots, int xblocks, int t,
-                  uint32_t seed_term) {
+                  uint32_t seed_term, uint32_t launch) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -348,6 +369,7 @@ bath_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
       (static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
        static_cast<uint32_t>(half * nh + j)) *
       mcs::kGolden;
+  mcs::Uniforms<kHw> rng(seed_term, mcs::phase_stream(launch));
   for (int k = 0; k < P; ++k) {
     const int up = k == 0 ? P - 1 : k - 1;
     const int dn = k + 1 == P ? 0 : k + 1;
@@ -369,18 +391,21 @@ bath_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                   __fmul_rn(__fmul_rn(2.0f * sv, jpt), tr)),
         __fmul_rn(two_teff * sv, bf));
     const uint32_t ctr = mcs::counter(seed_term, t, 2 * k + half);
-    if (mcs::metropolis_accept_hashed(de, teff, x0 + ctr)) line[row] = -sv;
+    if (rng.accept(de, teff, x0 + ctr)) line[row] = -sv;
   }
 }
 
 // Line moves of half `half` at step t: one thread per (chain = blockIdx.x
 // / xblocks, site j) flips its whole line with dE = bc * sum_p s_p (f_p +
-// h), p in index order, against the other half o.
+// h), p in index order, against the other half o; kHw as for
+// bath_local_kernel.
+template <bool kHw>
 __global__ void __launch_bounds__(kThreads)
 bath_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  const float* __restrict__ b_sched, float teff, float* s,
                  const float* __restrict__ o, int half, int P, int nh, int K,
-                 int nslots, int xblocks, int t, uint32_t seed_term) {
+                 int nslots, int xblocks, int t, uint32_t seed_term,
+                 uint32_t launch) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -400,7 +425,8 @@ bath_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
       static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
       static_cast<uint32_t>(half * nh + j);
   const uint32_t ctr = mcs::counter(seed_term, t, 2 * P + half);
-  if (mcs::metropolis_accept_hashed(de, teff, uid * mcs::kGolden + ctr)) {
+  mcs::Uniforms<kHw> rng(seed_term, mcs::phase_stream(launch));
+  if (rng.accept(de, teff, uid * mcs::kGolden + ctr)) {
     for (int p = 0; p < P; ++p) {
       const size_t row = static_cast<size_t>(p) * nh;
       line[row] = -line[row];
@@ -414,16 +440,17 @@ bath_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // each chain over a cluster of R CTAs of `threads` threads. w: (nslots, 2,
 // nh), h: (2, nh), b_sched and jp: (steps,), bath: (P, P), halves
 // (chains, P, nh) of +/-1 with nh = L*L/2; all float32 device pointers.
-// teff and two_teff are T_eff and 2*T_eff rounded to float32. Launches on
+// teff and two_teff are T_eff and 2*T_eff rounded to float32; hw_rng != 0
+// draws the uniforms from each thread's stream (hw_rng.cuh). Launches on
 // `stream` and returns cudaGetLastError().
 extern "C" int split_qmc_bath_anneal(
     const float* w, const float* h, const float* b_sched, const float* jp,
     const float* bath, float teff, float two_teff, const float* a_in,
     const float* b_in, float* a_out, float* b_out, int chains, int P, int R,
     int threads, int L, int nslots, int steps, int seed, int global_moves,
-    void* stream) {
+    int hw_rng, void* stream) {
   if (chains == 0 || L == 0) return cudaSuccess;
-  const KernelFn kernel = kernel_for(P);
+  const KernelFn kernel = kernel_for(P, hw_rng);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = mcs::cluster_config(kernel, chains * R, R, threads,
@@ -439,10 +466,11 @@ extern "C" int split_qmc_bath_anneal(
   return cudaGetLastError();
 }
 
-// Clusters of R CTAs the card holds at once at this P and L.
+// Clusters of R CTAs the card holds at once at this P and L (the hash
+// instantiation's; both have the same register limit and shared memory).
 extern "C" int split_qmc_bath_max_active_clusters(int P, int R, int threads,
                                                   int L, int* count) {
-  return mcs::max_active_clusters(kernel_for(P), R, threads,
+  return mcs::max_active_clusters(kernel_for(P, 0), R, threads,
                                   smem_bytes(P, L, R), count);
 }
 
@@ -450,15 +478,16 @@ extern "C" int split_qmc_bath_max_active_clusters(int P, int R, int threads,
 // halves (chains, P, nh) are copied to a_out, b_out and updated there in
 // place, two launches a step (half A, then half B against the new A), four
 // with global moves (then the lines of A, then those of B against the
-// flipped A). Stores the number of kernels it launched in *launched (a host
-// pointer); returns the first launch error, checked after the first step,
-// or cudaGetLastError() at the end.
+// flipped A); hw_rng as for split_qmc_bath_anneal. Stores the number of
+// kernels it launched in *launched (a host pointer); returns the first
+// launch error, checked after the first step, or cudaGetLastError() at the
+// end.
 extern "C" int split_qmc_bath_phased_anneal(
     const float* w, const float* h, const float* b_sched, const float* jp,
     const float* bath, float teff, float two_teff, const float* a_in,
     const float* b_in, float* a_out, float* b_out, int chains, int P, int L,
-    int nslots, int steps, int seed, int global_moves, void* stream,
-    long long* launched) {
+    int nslots, int steps, int seed, int global_moves, int hw_rng,
+    void* stream, long long* launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
   const int K = L / 2;
@@ -475,18 +504,23 @@ extern "C" int split_qmc_bath_phased_anneal(
   const int xblocks = (nh + kThreads - 1) / kThreads;
   const dim3 grid(static_cast<unsigned>(xblocks) * chains);
   float* halves[2] = {a_out, b_out};
+  const auto local =
+      hw_rng ? bath_local_kernel<true> : bath_local_kernel<false>;
+  const auto line = hw_rng ? bath_line_kernel<true> : bath_line_kernel<false>;
   for (int t = 0; t < steps; ++t) {
     for (int half = 0; half < 2; ++half) {
-      bath_local_kernel<<<grid, kThreads, 0, st>>>(
+      local<<<grid, kThreads, 0, st>>>(
           w, h, b_sched, jp, bath, teff, two_teff, halves[half],
-          halves[1 - half], half, P, nh, K, nslots, xblocks, t, seed_term);
+          halves[1 - half], half, P, nh, K, nslots, xblocks, t, seed_term,
+          static_cast<uint32_t>(*launched));
       *launched += 1;
     }
     if (global_moves) {
       for (int half = 0; half < 2; ++half) {
-        bath_line_kernel<<<grid, kThreads, 0, st>>>(
+        line<<<grid, kThreads, 0, st>>>(
             w, h, b_sched, teff, halves[half], halves[1 - half], half, P, nh,
-            K, nslots, xblocks, t, seed_term);
+            K, nslots, xblocks, t, seed_term,
+            static_cast<uint32_t>(*launched));
         *launched += 1;
       }
     }

@@ -56,6 +56,10 @@
 // - Metropolis without a branch (counter_hash.cuh::metropolis_accept_hashed):
 //   the hash and log1pf run for every chain, so a warp's lanes never split
 //   on dE.
+// - The uniform source is a template argument (csrc/hw_rng.cuh): the
+//   counter hash, or with hw_rng the thread's own generator stream, which
+//   draws a site's chains in chain order; the hash instantiation is the
+//   kernel as it was.
 // - A lattice no cluster holds (even L above 960; sa_geometry returns None)
 //   runs on the per-phase kernel below (split_sa_phased_anneal): the halves
 //   as floats in device memory, updated in place, one thread per (chain,
@@ -66,6 +70,7 @@
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "hw_rng.cuh"
 
 namespace {
 
@@ -79,6 +84,8 @@ namespace cg = cooperative_groups;
 constexpr int kMaxThreads = 256;
 constexpr int kMinBlocks = 5;
 
+// kHw: uniforms from the thread's stream (hw_rng.cuh), not the counter hash
+template <bool kHw>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
                 const float* __restrict__ sched,
@@ -109,6 +116,8 @@ split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
   const uint32_t uid_group = static_cast<uint32_t>(group) *
                              static_cast<uint32_t>(C) * 2u *
                              static_cast<uint32_t>(nh);
+  // with kHw, a site's C chains draw in chain order from the thread's stream
+  mcs::Uniforms<kHw> rng(seed_term, mcs::thread_stream());
   for (int t = 0; t < steps; ++t) {
     const float temp = sched[t];
     // half a (color 0) from half b, then half b from the new half a
@@ -132,7 +141,7 @@ split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
               __fadd_rn(mcs::field_of_bit(wv, o, nslots, c), hj);
           const float s = (word >> c) & 1u ? -1.0f : 1.0f;
           const float de = __fmul_rn(-2.0f * s, f);  // exact
-          if (mcs::metropolis_accept_hashed(de, temp, x)) flips |= 1u << c;
+          if (rng.accept(de, temp, x)) flips |= 1u << c;
         }
         smem[own + il] = word ^ flips;
       }
@@ -157,12 +166,15 @@ constexpr int kThreads = 256;
 
 // One half-phase of step t: one thread per site j of half `color` (spins
 // s, +/-1 floats) of chain blockIdx.x / xblocks, against the other half o;
-// only site j is written.
+// only site j is written. With kHw the uniform is the first draw of the
+// thread's stream of this launch, number `launch`.
+template <bool kHw>
 __global__ void __launch_bounds__(kThreads)
 sa_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
                 const float* __restrict__ sched, float* s,
                 const float* __restrict__ o, int color, int nh, int K,
-                int nslots, int xblocks, int t, uint32_t seed_term) {
+                int nslots, int xblocks, int t, uint32_t seed_term,
+                uint32_t launch) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -176,8 +188,8 @@ sa_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
       static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
       static_cast<uint32_t>(color * nh + j);
   const uint32_t ctr = mcs::counter(seed_term, t, color);
-  if (mcs::metropolis_accept_hashed(de, sched[t], uid * mcs::kGolden + ctr))
-    s[at] = -sv;
+  mcs::Uniforms<kHw> rng(seed_term, mcs::phase_stream(launch));
+  if (rng.accept(de, sched[t], uid * mcs::kGolden + ctr)) s[at] = -sv;
 }
 
 }  // namespace
@@ -186,49 +198,55 @@ sa_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // w: (nslots, 2, nh) and h: (2, nh) float32, sched: (steps,) float32;
 // a_in, b_in, a_out, b_out: (ceil(chains/C), nh) uint32 words, bit c of
 // word g the sign of chain g*C + c. One cluster of R CTAs of `threads`
-// threads per group of C chains. Launches on `stream` and returns
+// threads per group of C chains; hw_rng != 0 draws the uniforms from each
+// thread's stream (hw_rng.cuh). Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int split_sa_anneal(const float* w, const float* h,
                                const float* sched, const uint32_t* a_in,
                                const uint32_t* b_in, uint32_t* a_out,
                                uint32_t* b_out, int chains, int C, int R,
                                int threads, int L, int nslots, int steps,
-                               int seed, void* stream) {
+                               int seed, int hw_rng, void* stream) {
   if (chains == 0 || L == 0) return cudaSuccess;
   const int groups = (chains + C - 1) / C;
+  const auto kernel = hw_rng ? split_sa_kernel<true> : split_sa_kernel<false>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = mcs::cluster_config(split_sa_kernel, groups * R, R,
+  cudaError_t e = mcs::cluster_config(kernel, groups * R, R,
                                       threads, smem_bytes(L, R),
                                       static_cast<cudaStream_t>(stream),
                                       &cfg, &attr);
   if (e != cudaSuccess) return e;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
-  e = cudaLaunchKernelEx(&cfg, split_sa_kernel, w, h, sched, a_in, b_in,
+  e = cudaLaunchKernelEx(&cfg, kernel, w, h, sched, a_in, b_in,
                          a_out, b_out, chains, C, R, L, nslots, steps,
                          seed_term);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// Clusters of R CTAs the card holds at once at lattice size L.
+// Clusters of R CTAs the card holds at once at lattice size L (the hash
+// instantiation's; the launch bounds give both the same register limit,
+// and the shared memory is the same).
 extern "C" int split_sa_max_active_clusters(int R, int threads, int L,
                                             int* count) {
-  return mcs::max_active_clusters(split_sa_kernel, R, threads,
+  return mcs::max_active_clusters(split_sa_kernel<false>, R, threads,
                                   smem_bytes(L, R), count);
 }
 
 // The same anneal on the per-phase kernel: halves a_in, b_in of (chains,
 // nh) float32 +/-1 (nh = L*L/2) are copied to a_out, b_out and updated
-// there in place, two launches a step. Stores the number of kernels it
-// launched in *launched (a host pointer); returns the first launch error,
-// checked after the first step, or cudaGetLastError() at the end.
+// there in place, two launches a step; hw_rng as for split_sa_anneal.
+// Stores the number of kernels it launched in *launched (a host pointer);
+// returns the first launch error, checked after the first step, or
+// cudaGetLastError() at the end.
 extern "C" int split_sa_phased_anneal(const float* w, const float* h,
                                       const float* sched, const float* a_in,
                                       const float* b_in, float* a_out,
                                       float* b_out, int chains, int L,
                                       int nslots, int steps, int seed,
-                                      void* stream, long long* launched) {
+                                      int hw_rng, void* stream,
+                                      long long* launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
   const int K = L / 2;
@@ -243,14 +261,15 @@ extern "C" int split_sa_phased_anneal(const float* w, const float* h,
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
   const int xblocks = (nh + kThreads - 1) / kThreads;
   const dim3 grid(static_cast<unsigned>(xblocks) * chains);
+  const auto kernel = hw_rng ? sa_phase_kernel<true> : sa_phase_kernel<false>;
   for (int t = 0; t < steps; ++t) {
     // half a from half b, then half b from the new half a
-    sa_phase_kernel<<<grid, kThreads, 0, st>>>(w, h, sched, a_out, b_out, 0,
-                                               nh, K, nslots, xblocks, t,
-                                               seed_term);
-    sa_phase_kernel<<<grid, kThreads, 0, st>>>(w, h, sched, b_out, a_out, 1,
-                                               nh, K, nslots, xblocks, t,
-                                               seed_term);
+    kernel<<<grid, kThreads, 0, st>>>(w, h, sched, a_out, b_out, 0, nh, K,
+                                      nslots, xblocks, t, seed_term,
+                                      static_cast<uint32_t>(*launched));
+    kernel<<<grid, kThreads, 0, st>>>(w, h, sched, b_out, a_out, 1, nh, K,
+                                      nslots, xblocks, t, seed_term,
+                                      static_cast<uint32_t>(*launched + 1));
     *launched += 2;
     if (t == 0) {
       e = cudaGetLastError();

@@ -63,6 +63,10 @@
 //   without a branch (counter_hash.cuh::metropolis_accept_hashed). The
 //   caches hold cosf / sinf of the carried angle exactly, never an
 //   increment.
+// - The uniform source is a template argument (csrc/hw_rng.cuh): the
+//   counter hash, or with hw_rng the thread's own generator stream, a
+//   site's proposal and then its acceptance; the hash instantiations are
+//   the kernel as it was.
 // - A lattice no cluster holds (even L above 552; svmc_split_geometry
 //   returns None) runs on the per-phase kernels below
 //   (split_svmc_phased_anneal): angles, cos and sin in device memory, one
@@ -74,6 +78,7 @@
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "hw_rng.cuh"
 #include "svmc.cuh"
 
 namespace {
@@ -87,8 +92,9 @@ constexpr int kMinBlocks = 4;
 constexpr int kThreads = 256;  // the per-phase kernels
 
 // kSlots: the stencil's 5 slots, or 7 with the row wrap, known at compile
-// time so that the weight loads and the sum carry no per-slot test
-template <bool kTF, int kSlots>
+// time so that the weight loads and the sum carry no per-slot test; kHw:
+// uniforms from the thread's stream (hw_rng.cuh), not the counter hash
+template <bool kTF, int kSlots, bool kHw>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 split_svmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
                   const float* __restrict__ a_sched,
@@ -122,6 +128,9 @@ split_svmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
   // uid = chain*2Nh + color*Nh + site, wrapping as the int32 JAX code does
   const uint32_t uid0 =
       static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh));
+  // with kHw, a site draws its proposal, then its acceptance, from the
+  // thread's stream
+  mcs::Uniforms<kHw> rng(seed_term, mcs::thread_stream());
   for (int t = 0; t < steps; ++t) {
     const float a = a_sched[t];
     const float b = b_sched[t];
@@ -141,7 +150,7 @@ split_svmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
         const uint32_t uid = uid_c + static_cast<uint32_t>(j);
         const float theta = th[il];
         const float prop = mcs::propose<kTF>(
-            theta, mcs::uniform01(ctr_prop, uid), width);
+            theta, rng(uid * mcs::kGolden + ctr_prop), width);
         float sin_p, cos_p;
         sincosf(prop, &sin_p, &cos_p);
         // the other half's cos in counter_hash.cuh::stencil's slot order:
@@ -177,8 +186,7 @@ split_svmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
         const float cos_t = f[cs + il];
         const float sin_t = sn[il];
         const float de = mcs::delta_e(b, a, cos_p, cos_t, z, sin_t, sin_p);
-        const bool acc = mcs::metropolis_accept_hashed(
-            de, temp, uid * mcs::kGolden + ctr_acc);
+        const bool acc = rng.accept(de, temp, uid * mcs::kGolden + ctr_acc);
         th[il] = acc ? prop : theta;
         sn[il] = acc ? sin_p : sin_t;
         f[cs + il] = acc ? cos_p : cos_t;
@@ -193,11 +201,15 @@ split_svmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
   }
 }
 
-// The instantiation for TF proposals or not and nslots stencil slots
+// The instantiation for TF proposals or not, nslots stencil slots and the
+// uniform source
+template <bool kHw>
 auto kernel_for(int tf, int nslots) {
   if (nslots > 5)
-    return tf ? split_svmc_kernel<true, 7> : split_svmc_kernel<false, 7>;
-  return tf ? split_svmc_kernel<true, 5> : split_svmc_kernel<false, 5>;
+    return tf ? split_svmc_kernel<true, 7, kHw>
+              : split_svmc_kernel<false, 7, kHw>;
+  return tf ? split_svmc_kernel<true, 5, kHw>
+            : split_svmc_kernel<false, 5, kHw>;
 }
 
 // Shared memory of one CTA: its band of theta, sin theta and cos theta of
@@ -229,15 +241,17 @@ svmc_init_kernel(const float* __restrict__ a_in,
 
 // One half-phase of step t: one thread per site j of half `color` of chain
 // blockIdx.x / xblocks, against the cos of the other half; only site j's
-// angle and caches are written.
-template <bool kTF>
+// angle and caches are written. With kHw the proposal and the acceptance
+// are the first two draws of the thread's stream of this launch, number
+// `launch`.
+template <bool kTF, bool kHw>
 __global__ void __launch_bounds__(kThreads)
 svmc_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
                   const float* __restrict__ a_sched,
                   const float* __restrict__ b_sched, float temp, float* th,
                   float* cs, float* sn, const float* __restrict__ cos_other,
                   int color, int nh, int K, int nslots, int xblocks, int t,
-                  uint32_t seed_term) {
+                  uint32_t seed_term, uint32_t launch) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -249,8 +263,10 @@ svmc_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
       static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
       static_cast<uint32_t>(color * nh + j);
   const float theta = th[at];
+  mcs::Uniforms<kHw> rng(seed_term, mcs::phase_stream(launch));
   const float prop = mcs::propose<kTF>(
-      theta, mcs::uniform01(mcs::counter(seed_term, t, color), uid), width);
+      theta, rng(uid * mcs::kGolden + mcs::counter(seed_term, t, color)),
+      width);
   float sin_p, cos_p;
   sincosf(prop, &sin_p, &cos_p);
   const float z = __fadd_rn(
@@ -260,7 +276,7 @@ svmc_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
   const float sin_t = sn[at];
   const float de = mcs::delta_e(b, a, cos_p, cos_t, z, sin_t, sin_p);
   const uint32_t ctr_acc = mcs::counter(seed_term, t, color + 2);
-  if (mcs::metropolis_accept_hashed(de, temp, uid * mcs::kGolden + ctr_acc)) {
+  if (rng.accept(de, temp, uid * mcs::kGolden + ctr_acc)) {
     th[at] = prop;
     cs[at] = cos_p;
     sn[at] = sin_p;
@@ -273,16 +289,19 @@ svmc_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // `temp` in one launch, each chain over a cluster of R CTAs of `threads`
 // threads. w: (nslots, 2, nh), h: (2, nh), angle halves (chains, nh) with
 // nh = L*L/2; all float32 device pointers. tf != 0 selects the TF
-// proposals. Launches on `stream` and returns cudaGetLastError().
+// proposals, hw_rng != 0 the uniforms of each thread's stream (hw_rng.cuh).
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int split_svmc_anneal(const float* w, const float* h,
                                  const float* a_sched, const float* b_sched,
                                  float temp, const float* a_in,
                                  const float* b_in, float* a_out,
                                  float* b_out, int chains, int R,
                                  int threads, int L, int nslots, int steps,
-                                 int seed, int tf, void* stream) {
+                                 int seed, int tf, int hw_rng,
+                                 void* stream) {
   if (chains == 0 || L == 0) return cudaSuccess;
-  const auto kernel = kernel_for(tf, nslots);
+  const auto kernel =
+      hw_rng ? kernel_for<true>(tf, nslots) : kernel_for<false>(tf, nslots);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = mcs::cluster_config(kernel, chains * R, R, threads,
@@ -298,21 +317,21 @@ extern "C" int split_svmc_anneal(const float* w, const float* h,
 }
 
 // Clusters of R CTAs the card holds at once at lattice size L (the TF,
-// 7-slot instantiation's; the launch bounds give all four the same
+// 7-slot hash instantiation's; the launch bounds give all eight the same
 // register limit, and the shared memory is the same).
 extern "C" int split_svmc_max_active_clusters(int R, int threads, int L,
                                               int* count) {
-  return mcs::max_active_clusters(split_svmc_kernel<true, 7>, R, threads,
-                                  smem_bytes(L, R), count);
+  return mcs::max_active_clusters(split_svmc_kernel<true, 7, false>, R,
+                                  threads, smem_bytes(L, R), count);
 }
 
 // The same anneal on the per-phase kernels, the state in device memory:
 // the angles are copied to a_out, b_out and updated there in place beside
 // their cos and sin caches in `scratch` (4 * chains * nh floats: cos a,
-// cos b, sin a, sin b), one launch to fill them and two a step. Stores the
-// number of kernels it launched in *launched (a host pointer); returns the
-// first launch error, checked after the first step, or cudaGetLastError()
-// at the end.
+// cos b, sin a, sin b), one launch to fill them and two a step; tf and
+// hw_rng as for split_svmc_anneal. Stores the number of kernels it
+// launched in *launched (a host pointer); returns the first launch error,
+// checked after the first step, or cudaGetLastError() at the end.
 extern "C" int split_svmc_phased_anneal(const float* w, const float* h,
                                         const float* a_sched,
                                         const float* b_sched, float temp,
@@ -320,7 +339,7 @@ extern "C" int split_svmc_phased_anneal(const float* w, const float* h,
                                         float* a_out, float* b_out,
                                         float* scratch, int chains, int L,
                                         int nslots, int steps, int seed,
-                                        int tf, void* stream,
+                                        int tf, int hw_rng, void* stream,
                                         long long* launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
@@ -337,7 +356,10 @@ extern "C" int split_svmc_phased_anneal(const float* w, const float* h,
   *launched += 1;
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto kernel = tf ? svmc_phase_kernel<true> : svmc_phase_kernel<false>;
+  auto kernel = hw_rng ? (tf ? svmc_phase_kernel<true, true>
+                             : svmc_phase_kernel<false, true>)
+                       : (tf ? svmc_phase_kernel<true, false>
+                             : svmc_phase_kernel<false, false>);
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
   const int xblocks = (nh + kThreads - 1) / kThreads;
   const dim3 grid(static_cast<unsigned>(xblocks) * chains);
@@ -347,7 +369,8 @@ extern "C" int split_svmc_phased_anneal(const float* w, const float* h,
       kernel<<<grid, kThreads, 0, st>>>(w, h, a_sched, b_sched, temp,
                                         th[color], cs[color], sn[color],
                                         cs[1 - color], color, nh, K, nslots,
-                                        xblocks, t, seed_term);
+                                        xblocks, t, seed_term,
+                                        static_cast<uint32_t>(*launched));
       *launched += 1;
     }
     if (t == 0) {

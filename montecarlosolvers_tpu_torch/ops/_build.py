@@ -46,44 +46,47 @@ _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "split_sa": {
         # w, h, sched, a_in, b_in, a_out, b_out (the halves as chain bits),
-        # chains, C, R, threads, L, nslots, steps, seed, stream
-        "split_sa_anneal": (_I, [_P] * 7 + [_I] * 8 + [_P]),
+        # chains, C, R, threads, L, nslots, steps, seed, hw_rng, stream
+        "split_sa_anneal": (_I, [_P] * 7 + [_I] * 9 + [_P]),
         # R, threads, L, out: clusters resident at once
         "split_sa_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         # the per-phase kernel: w, h, sched, a_in, b_in, a_out, b_out (the
-        # halves as floats), chains, L, nslots, steps, seed, stream, launched
-        "split_sa_phased_anneal": (_I, [_P] * 7 + [_I] * 5 + [_P, _NP]),
+        # halves as floats), chains, L, nslots, steps, seed, hw_rng, stream,
+        # launched
+        "split_sa_phased_anneal": (_I, [_P] * 7 + [_I] * 6 + [_P, _NP]),
         "split_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "split_qmc": {
         # w, h, b_sched, jp, teff, 4 quarters in, 4 quarters out,
-        # chains, Q, R, threads, L, nslots, steps, seed, global_moves, stream
+        # chains, Q, R, threads, L, nslots, steps, seed, global_moves,
+        # hw_rng, stream
         "split_qmc_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 9 + [_P]
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 10 + [_P]
         ),
         # Q, R, threads, L, out: clusters resident at once
         "split_qmc_max_active_clusters": (_I, [_I] * 4 + [_IP]),
         # the per-phase kernels: w, h, b_sched, jp, teff, 4 quarters in,
         # 4 quarters out, chains, Q, nh, K, nslots, steps, seed,
-        # global_moves, stream, launched
+        # global_moves, hw_rng, stream, launched
         "split_qmc_phased_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 8 + [_P, _NP]
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 9 + [_P, _NP]
         ),
         "split_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "split_qmc_bath": {
         # w, h, b_sched, jp, bath, teff, 2*teff, a_in, b_in, a_out, b_out,
-        # chains, P, R, threads, L, nslots, steps, seed, global_moves, stream
+        # chains, P, R, threads, L, nslots, steps, seed, global_moves,
+        # hw_rng, stream
         "split_qmc_bath_anneal": (
-            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 9 + [_P]
+            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 10 + [_P]
         ),
         # P, R, threads, L, out: clusters resident at once
         "split_qmc_bath_max_active_clusters": (_I, [_I] * 4 + [_IP]),
         # the per-phase kernels: w, h, b_sched, jp, bath, teff, 2*teff,
         # a_in, b_in, a_out, b_out, chains, P, L, nslots, steps, seed,
-        # global_moves, stream, launched
+        # global_moves, hw_rng, stream, launched
         "split_qmc_bath_phased_anneal": (
-            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 7
+            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 8
             + [_P, _NP]
         ),
         "split_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
@@ -119,17 +122,17 @@ SIGNATURES = {
     },
     "split_svmc": {
         # w, h, a_sched, b_sched, temp, a_in, b_in, a_out, b_out,
-        # chains, R, threads, L, nslots, steps, seed, tf, stream
+        # chains, R, threads, L, nslots, steps, seed, tf, hw_rng, stream
         "split_svmc_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 4 + [_I] * 8 + [_P]
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 4 + [_I] * 9 + [_P]
         ),
         # R, threads, L, out: clusters resident at once
         "split_svmc_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         # the per-phase kernels: w, h, a_sched, b_sched, temp, a_in, b_in,
-        # a_out, b_out, scratch, chains, L, nslots, steps, seed, tf, stream,
-        # launched
+        # a_out, b_out, scratch, chains, L, nslots, steps, seed, tf, hw_rng,
+        # stream, launched
         "split_svmc_phased_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 5 + [_I] * 6 + [_P, _NP]
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 5 + [_I] * 7 + [_P, _NP]
         ),
         "split_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -152,6 +155,9 @@ SIGNATURES = {
 }
 
 _LIBS = {}
+# ptxas's report (registers, stack frame, spills of every function) of each
+# library that `build(verbose=True)` compiled in this process
+PTXAS_LOG = {}
 
 # Shared memory one Hopper block may use (232,448 bytes of the SM's 256 KB);
 # the kernels that keep a chain in shared memory are refused beyond it.
@@ -161,12 +167,18 @@ SMEM_LIMIT_BYTES = 232448
 # cluster launch, whatever the cluster size; the per-phase kernels of each
 # for the shapes no cluster holds ("*_phased") launch once per phase (and
 # those of 4 and 7 once more to fill their caches), and their C entry
-# points report how many launches they issued.
+# points report how many launches they issued. The generator
+# instantiations of kernels A, B, 4 and 5 (hw_rng=True, csrc/hw_rng.cuh)
+# count apart, under "<key>_hw" and "<key>_hw_phased".
 LAUNCHES = {"sa_split": 0, "sa_split_phased": 0, "qmc_split": 0,
             "qmc_split_phased": 0, "svmc_split": 0, "svmc_split_phased": 0,
             "qmc_bath_split": 0, "qmc_bath_split_phased": 0, "sa_plane": 0,
             "sa_plane_phased": 0, "qmc_plane": 0, "qmc_plane_phased": 0,
             "svmc_plane": 0, "svmc_plane_phased": 0}
+LAUNCHES.update({f"{k}_hw{phased}": 0
+                 for k in ("sa_split", "qmc_split", "svmc_split",
+                           "qmc_bath_split")
+                 for phased in ("", "_phased")})
 
 
 def reset_launches():
@@ -238,7 +250,8 @@ def build(names=KERNELS, verbose=False):
     """Compile every kernel of `names` whose library is missing, all at once
     in parallel. Returns {name: seconds nvcc took (0.0 if it was built
     already)}; with `verbose`, ptxas prints each kernel's registers and
-    shared memory to stderr. Raises RuntimeError if nvcc fails."""
+    shared memory to stderr and keeps the report in PTXAS_LOG[name].
+    Raises RuntimeError if nvcc fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     seconds = {name: 0.0 for name in names}
@@ -259,6 +272,7 @@ def build(names=KERNELS, verbose=False):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}.cu:\n{err}")
         if verbose and err:
+            PTXAS_LOG[name] = err
             print(err, end="", file=sys.stderr, flush=True)
         os.replace(tmp, out)
     return seconds

@@ -29,6 +29,19 @@ back. `_build.LAUNCHES` counts the kernel launches under "sa_split",
 "qmc_split", "qmc_bath_split" and "svmc_split", and those of each kernel's
 per-phase kernels under the same name + "_phased".
 
+`hw_rng=True` is the counterpart of the Pallas kernels' hardware-PRNG
+branch (pallas_split.py:128-135, :253-259, :465-490, :719-725), which draws
+from the TPU's on-chip generator instead of the counter hash. On the card
+each kernel then draws from a generator stream per thread
+(csrc/hw_rng.cuh: xoshiro128+ seeded by curand's Philox4x32-10), counted
+under the kernel's name + "_hw" (+ "_phased"); the plain versions draw
+24-bit uniforms from a `torch.Generator` seeded by `seed`, in the same
+phase order (`hw_uniforms`). The three streams (kernel, plain version,
+TPU) differ from each other and from the hash's: with hw_rng the kernels
+are held to their plain versions, and to exact Boltzmann and Gibbs
+weights, in distribution, not bitwise. A seed reproduces its result on
+one geometry.
+
 All four kernels spread a chain (kernel A: a group of C chains packed as
 bits, `pack_chain_bits`) over a thread-block cluster of R CTAs, each
 holding a band of rows of the halves (csrc/cluster.cuh), and so do kernels
@@ -74,30 +87,53 @@ MAX_THREADS = 256
 # ------------------------------------------------------------ plain versions
 
 
-def sa_split_anneal_ref(sl, sched, a, b, seed):
+def hw_uniforms(seed, device):
+    """The plain versions' uniform source with hw_rng=True: draw(shape)
+    returns float32 uniforms in [0, 1), 24-bit integers from a
+    `torch.Generator` on `device` seeded by `seed`, times 2^-24, as the
+    Pallas kernels turn `pltpu.prng_random_bits` into a float
+    (pallas_split.py:133-135). The port's counterpart of the interpreter's
+    PRNG stub (tests/test_pallas_split.py:115, :368): a uniform source of
+    the same distribution, equal neither to the kernels' streams nor to
+    the TPU's."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+
+    def draw(shape):
+        bits = torch.randint(0, 1 << 24, tuple(shape), generator=gen,
+                             device=device, dtype=torch.int32)
+        return bits.to(torch.float32) * (1.0 / (1 << 24))
+    return draw
+
+
+def sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng=False):
     """Plain form of kernel A: anneal halves a, b (chains, Nh) over the
-    float32 temperatures `sched` (steps,) with counter-hash seed `seed`.
-    Returns the new (a, b). One step updates half a from half b, then half b
-    from the new half a (pallas_split.py:151-164)."""
+    float32 temperatures `sched` (steps,) with counter-hash seed `seed`
+    (with `hw_rng`, uniforms from `hw_uniforms(seed)`, one draw of the
+    half's shape a phase). Returns the new (a, b). One step updates half a
+    from half b, then half b from the new half a (pallas_split.py:151-164)."""
     chains, nh = a.shape
     K = sl.K
     wa, wb = sl.w_ab[:, 0], sl.w_ab[:, 1]
     ha, hb = sl.h_ab[0], sl.h_ab[1]
+    draw = hw_uniforms(seed, a.device) if hw_rng else None
     hu_a = cr.hashed_uid(cr.sa_uids(chains, nh, 0, a.device))
     hu_b = cr.hashed_uid(cr.sa_uids(chains, nh, 1, a.device))
     for t in range(sched.shape[0]):
         temp = sched[t]
         de = -2.0 * a * (split_ops.spatial_field(wa, b, K) + ha)
-        u = cr.uniform01_hashed(cr.counter(seed, t, 0), hu_a)
+        u = (draw(a.shape) if draw else
+             cr.uniform01_hashed(cr.counter(seed, t, 0), hu_a))
         a = torch.where(metropolis_accept(de, temp, u), -a, a)
         de = -2.0 * b * (split_ops.spatial_field(wb, a, K) + hb)
-        u = cr.uniform01_hashed(cr.counter(seed, t, 1), hu_b)
+        u = (draw(b.shape) if draw else
+             cr.uniform01_hashed(cr.counter(seed, t, 1), hu_b))
         b = torch.where(metropolis_accept(de, temp, u), -b, b)
     return a, b
 
 
 def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
-                         global_moves):
+                         global_moves, hw_rng=False):
     """Plain form of kernel B on the quarters (xe, xo, ye, yo), each
     (chains, Q, Nh). `b_sched` and `jp` are float32 (steps,) tensors of the
     longitudinal scale B and of J_perp; `teff` = P*T is a Python float.
@@ -111,11 +147,14 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
 
     With `global_moves`, whole-line flips follow: color A lines (xe, yo)
     against ye, xo, then color B lines (ye, xo) against the updated A
-    quarters. A line's dE is -2B sum_q s f; J_perp cancels."""
+    quarters. A line's dE is -2B sum_q s f; J_perp cancels. With `hw_rng`,
+    uniforms from `hw_uniforms(seed)`, one draw of the quarter's or the
+    lines' shape per update phase, in that order."""
     xe, xo, ye, yo = quarters
     chains, Q, nh = xe.shape
     K = sl.K
     dev = xe.device
+    draw = hw_uniforms(seed, dev) if hw_rng else None
     wa, wb = sl.w_ab[:, 0], sl.w_ab[:, 1]
     ha, hb = sl.h_ab[0], sl.h_ab[1]
     teff32 = torch.tensor(teff, dtype=torch.float32, device=dev)
@@ -130,7 +169,8 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
         def upd(s, o, w, h, tr, idx):
             de = bc * s * (split_ops.spatial_field(w, o, K) + h) \
                 + 2.0 * s * jpt * tr
-            u = cr.uniform01_hashed(cr.counter(seed, t, idx), hq[idx])
+            u = (draw(s.shape) if draw else
+                 cr.uniform01_hashed(cr.counter(seed, t, idx), hq[idx]))
             return torch.where(metropolis_accept(de, teff32, u), -s, s)
 
         xe = upd(xe, ye, wa, ha, yo + torch.roll(yo, 1, dims=-2), 0)
@@ -147,8 +187,9 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
                 f1 = split_ops.spatial_field(w, o1, K) + h
                 f2 = split_ops.spatial_field(w, o2, K) + h
                 de = bc * (sum_in_order(s1 * f1) + sum_in_order(s2 * f2))
-                u = cr.uniform01_hashed(cr.counter(seed, t, 4 + color),
-                                        hl[color])
+                u = (draw(de.shape) if draw else
+                     cr.uniform01_hashed(cr.counter(seed, t, 4 + color),
+                                         hl[color]))
                 acc = metropolis_accept(de, teff32, u)
                 return torch.where(acc, -1.0, 1.0)[:, None, :]
 
@@ -162,7 +203,7 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
 
 
 def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
-                              global_moves):
+                              global_moves, hw_rng=False):
     """Plain form of kernel 5 on the per-slice halves a, b, each
     (chains, P, Nh), P >= 2. `b_sched` and `jp` are float32 (steps,) tensors
     of B and J_perp, `teff` = P*T a Python float, `bath` the (P, P) float32
@@ -181,10 +222,12 @@ def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
     the half. With `global_moves`, whole lines of half A flip with
     dE = -2B sum_p s_p (f_p + h) (slices in index order; J_perp and the
     bath cancel), then those of half B against the flipped A, at counter
-    index 2P + half."""
+    index 2P + half. With `hw_rng`, uniforms from `hw_uniforms(seed)`, one
+    draw of a slice's or the lines' shape per update, in that order."""
     chains, P, nh = a.shape
     K = sl.K
     dev = a.device
+    draw = hw_uniforms(seed, dev) if hw_rng else None
     wa, wb = sl.w_ab[:, 0], sl.w_ab[:, 1]
     ha, hb = sl.h_ab[0], sl.h_ab[1]
     teff32 = torch.tensor(teff, dtype=torch.float32, device=dev)
@@ -207,12 +250,14 @@ def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
             a_k, b_k = a[:, k].clone(), b[:, k].clone()
             de = (bc * a_k * (split_ops.spatial_field(wa, b_k, K) + ha)
                   + 2.0 * a_k * jpt * a_tr + two_teff * a_k * bath_a)
-            u = cr.uniform01_hashed(cr.counter(seed, t, 2 * k), hu[0])
+            u = (draw(a_k.shape) if draw else
+                 cr.uniform01_hashed(cr.counter(seed, t, 2 * k), hu[0]))
             a_k = torch.where(metropolis_accept(de, teff32, u), -a_k, a_k)
             a[:, k] = a_k
             de = (bc * b_k * (split_ops.spatial_field(wb, a_k, K) + hb)
                   + 2.0 * b_k * jpt * b_tr + two_teff * b_k * bath_b)
-            u = cr.uniform01_hashed(cr.counter(seed, t, 2 * k + 1), hu[1])
+            u = (draw(b_k.shape) if draw else
+                 cr.uniform01_hashed(cr.counter(seed, t, 2 * k + 1), hu[1]))
             b[:, k] = torch.where(metropolis_accept(de, teff32, u), -b_k, b_k)
 
         if global_moves:
@@ -221,14 +266,16 @@ def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
                 f = split_ops.spatial_field(sl.w_ab[:, half], o, K) \
                     + sl.h_ab[half]
                 de = bc * sum_in_order(s * f)
-                u = cr.uniform01_hashed(cr.counter(seed, t, 2 * P + half),
-                                        hu[half])
+                u = (draw(de.shape) if draw else
+                     cr.uniform01_hashed(cr.counter(seed, t, 2 * P + half),
+                                         hu[half]))
                 acc = metropolis_accept(de, teff32, u)
                 s.mul_(torch.where(acc, -1.0, 1.0)[:, None, :])
     return a, b
 
 
-def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf):
+def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf,
+                          hw_rng=False):
     """Plain form of kernel 4: anneal the rotor angles of halves a, b
     (chains, Nh), in [0, pi], over the float32 (steps,) schedules A
     (`a_sched`) and B (`b_sched`) at the Python-float temperature `temp`.
@@ -245,10 +292,13 @@ def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf):
 
     cos and sin of each half are carried as the kernel carries them; an
     accepted move writes cos(th') and sin(th'), never an increment, so the
-    caches always equal cos and sin of the angles."""
+    caches always equal cos and sin of the angles. With `hw_rng`, uniforms
+    from `hw_uniforms(seed)`: per half-phase a draw of the half's shape for
+    the proposals, then one for the acceptances."""
     chains, nh = a.shape
     K = sl.K
     dev = a.device
+    draw = hw_uniforms(seed, dev) if hw_rng else None
     temp32 = torch.tensor(temp, dtype=torch.float32, device=dev)
     hu = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev)) for c in (0, 1)]
     halves = [[a, torch.cos(a), torch.sin(a)], [b, torch.cos(b), torch.sin(b)]]
@@ -256,14 +306,16 @@ def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf):
         ac, bc = a_sched[t], b_sched[t]
         for c in (0, 1):
             th, cos_t, sin_t = halves[c]
-            u = cr.uniform01_hashed(cr.counter(seed, t, c), hu[c])
+            u = (draw(th.shape) if draw else
+                 cr.uniform01_hashed(cr.counter(seed, t, c), hu[c]))
             prop = (svmc_ops.propose_tf(th, u, ac, bc) if tf
                     else svmc_ops.propose_uniform(u))
             cos_p, sin_p = torch.cos(prop), torch.sin(prop)
             zf = split_ops.spatial_field(sl.w_ab[:, c], halves[1 - c][1],
                                          K) + sl.h_ab[c]
             de = bc * (cos_p - cos_t) * zf + ac * (sin_t - sin_p)
-            u = cr.uniform01_hashed(cr.counter(seed, t, c + 2), hu[c])
+            u = (draw(th.shape) if draw else
+                 cr.uniform01_hashed(cr.counter(seed, t, c + 2), hu[c]))
             acc = metropolis_accept(de, temp32, u)
             halves[c] = [torch.where(acc, prop, th),
                          torch.where(acc, cos_p, cos_t),
@@ -439,7 +491,13 @@ def card_resident(kernel, L, P=None):
 # ------------------------------------------------------------ kernel wrappers
 
 
-def sa_split_anneal(sl, sched, a, b, seed):
+def _key(key, hw_rng):
+    """The LAUNCHES key of kernel `key`'s hash or generator (hw_rng)
+    instantiation."""
+    return key + "_hw" if hw_rng else key
+
+
+def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False):
     """Kernel A on CUDA tensors, `sa_split_anneal_ref` on CPU tensors.
     Arguments as for `sa_split_anneal_ref`; returns new (a, b). The kernel
     keeps each spin's sign as a bit, so the halves must hold +/-1.
@@ -451,9 +509,11 @@ def sa_split_anneal(sl, sched, a, b, seed):
     (LAUNCHES["sa_split"]); for a larger lattice the per-phase kernel keeps
     the halves as floats in device memory and launches twice a step
     (LAUNCHES["sa_split_phased"]). Both equal the plain version bitwise;
-    neither is a fallback from a failure of the other."""
+    neither is a fallback from a failure of the other. `hw_rng` takes the
+    generator instantiation of either (LAUNCHES["sa_split_hw"],
+    ["sa_split_hw_phased"]), held to the plain version in distribution."""
     if _build.route(a.device, "split") == "cpu":
-        return sa_split_anneal_ref(sl, sched, a, b, seed)
+        return sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng)
     chains, nh = a.shape
     dev = a.device
     if nh != sl.nh:
@@ -471,10 +531,11 @@ def sa_split_anneal(sl, sched, a, b, seed):
         rc = lib.split_sa_phased_anneal(
             *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a, b, a_out, b_out)),
             chains, sl.L, sl.nslots, int(sched.shape[0]),
-            cr.wrap_int32(seed), _build.stream_of(dev), ctypes.byref(n))
+            cr.wrap_int32(seed), int(bool(hw_rng)), _build.stream_of(dev),
+            ctypes.byref(n))
         _build.raise_on_error(lib, "split_sa_phased_anneal", rc,
                               error_fn="split_sa_anneal_error_string")
-        _build.LAUNCHES["sa_split_phased"] += n.value
+        _build.LAUNCHES[_key("sa_split", hw_rng) + "_phased"] += n.value
         return a_out, b_out
     C, R, threads = geometry
     a_in, b_in = pack_chain_bits(a, C), pack_chain_bits(b, C)
@@ -483,15 +544,16 @@ def sa_split_anneal(sl, sched, a, b, seed):
         *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a_in, b_in, a_out,
                           b_out)),
         chains, C, R, threads, sl.L, sl.nslots, int(sched.shape[0]),
-        cr.wrap_int32(seed), _build.stream_of(dev),
+        cr.wrap_int32(seed), int(bool(hw_rng)), _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "split_sa_anneal", rc)
-    _build.LAUNCHES["sa_split"] += 1
+    _build.LAUNCHES[_key("sa_split", hw_rng)] += 1
     return (unpack_chain_bits(a_out, chains, C),
             unpack_chain_bits(b_out, chains, C))
 
 
-def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
+def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
+                     hw_rng=False):
     """Kernel B on CUDA tensors, `qmc_split_anneal_ref` on CPU tensors.
     Arguments as for `qmc_split_anneal_ref`; returns new quarters. The
     kernel keeps each spin's sign as a bit, so the quarters must hold +/-1.
@@ -504,11 +566,13 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
     for a larger chain the per-phase kernels keep the state in device
     memory and launch four times a step, two without global moves
     (LAUNCHES["qmc_split_phased"]). Both equal the plain version bitwise;
-    neither is a fallback from a failure of the other."""
+    neither is a fallback from a failure of the other. `hw_rng` takes the
+    generator instantiation of either (LAUNCHES["qmc_split_hw"],
+    ["qmc_split_hw_phased"]), held to the plain version in distribution."""
     xe = quarters[0]
     if _build.route(xe.device, "split") == "cpu":
         return qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
-                                    global_moves)
+                                    global_moves, hw_rng)
     chains, Q, nh = xe.shape
     dev = xe.device
     if nh != sl.nh:
@@ -529,24 +593,25 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves):
     if geometry is not None:
         rc = lib.split_qmc_anneal(
             *args, chains, Q, *geometry, sl.L, sl.nslots, steps,
-            cr.wrap_int32(seed), int(bool(global_moves)),
+            cr.wrap_int32(seed), int(bool(global_moves)), int(bool(hw_rng)),
             _build.stream_of(dev))
         _build.raise_on_error(lib, "split_qmc_anneal", rc)
-        _build.LAUNCHES["qmc_split"] += 1
+        _build.LAUNCHES[_key("qmc_split", hw_rng)] += 1
         return tuple(outs)
     n = ctypes.c_longlong(0)  # kernels launched
     rc = lib.split_qmc_phased_anneal(
         *args, chains, Q, nh, sl.K, sl.nslots, steps, cr.wrap_int32(seed),
-        int(bool(global_moves)), _build.stream_of(dev), ctypes.byref(n),
+        int(bool(global_moves)), int(bool(hw_rng)), _build.stream_of(dev),
+        ctypes.byref(n),
     )
     _build.raise_on_error(lib, "split_qmc_phased_anneal", rc,
                           error_fn="split_qmc_anneal_error_string")
-    _build.LAUNCHES["qmc_split_phased"] += n.value
+    _build.LAUNCHES[_key("qmc_split", hw_rng) + "_phased"] += n.value
     return tuple(outs)
 
 
 def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
-                          global_moves):
+                          global_moves, hw_rng=False):
     """Kernel 5 on CUDA tensors, `qmc_bath_split_anneal_ref` on CPU tensors.
     Arguments as for `qmc_bath_split_anneal_ref`; returns new (a, b). The
     kernel keeps each spin's sign, so the halves must hold +/-1.
@@ -559,10 +624,12 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
     kernels keep the halves as floats in device memory and launch twice a
     step, four times with global moves (LAUNCHES["qmc_bath_split_phased"]).
     Both equal the plain version bitwise; neither is a fallback from a
-    failure of the other."""
+    failure of the other. `hw_rng` takes the generator instantiation of
+    either (LAUNCHES["qmc_bath_split_hw"], ["qmc_bath_split_hw_phased"]),
+    held to the plain version in distribution."""
     if _build.route(a.device, "split") == "cpu":
         return qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b,
-                                         seed, global_moves)
+                                         seed, global_moves, hw_rng)
     chains, P, nh = a.shape
     dev = a.device
     if nh != sl.nh:
@@ -589,21 +656,24 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
         n = ctypes.c_longlong(0)  # kernels launched
         rc = lib.split_qmc_bath_phased_anneal(
             *head, chains, P, sl.L, sl.nslots, steps, cr.wrap_int32(seed),
-            int(bool(global_moves)), _build.stream_of(dev), ctypes.byref(n))
+            int(bool(global_moves)), int(bool(hw_rng)),
+            _build.stream_of(dev), ctypes.byref(n))
         _build.raise_on_error(lib, "split_qmc_bath_phased_anneal", rc,
                               error_fn="split_qmc_bath_anneal_error_string")
-        _build.LAUNCHES["qmc_bath_split_phased"] += n.value
+        _build.LAUNCHES[_key("qmc_bath_split", hw_rng) + "_phased"] += n.value
         return a_out, b_out
     rc = lib.split_qmc_bath_anneal(
         *head, chains, P, *geometry, sl.L, sl.nslots, steps,
-        cr.wrap_int32(seed), int(bool(global_moves)), _build.stream_of(dev),
+        cr.wrap_int32(seed), int(bool(global_moves)), int(bool(hw_rng)),
+        _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "split_qmc_bath_anneal", rc)
-    _build.LAUNCHES["qmc_bath_split"] += 1
+    _build.LAUNCHES[_key("qmc_bath_split", hw_rng)] += 1
     return a_out, b_out
 
 
-def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf):
+def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf,
+                      hw_rng=False):
     """Kernel 4 on CUDA tensors, `svmc_split_anneal_ref` on CPU tensors.
     Arguments as for `svmc_split_anneal_ref`; returns new (a, b).
 
@@ -615,10 +685,12 @@ def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf):
     kernels keep them in device memory and launch twice a step, once more
     to fill the caches (LAUNCHES["svmc_split_phased"]). Both equal the
     plain version bitwise; neither is a fallback from a failure of the
-    other."""
+    other. `hw_rng` takes the generator instantiation of either
+    (LAUNCHES["svmc_split_hw"], ["svmc_split_hw_phased"]), held to the
+    plain version in distribution."""
     if _build.route(a.device, "split") == "cpu":
         return svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed,
-                                     tf)
+                                     tf, hw_rng)
     chains, nh = a.shape
     dev = a.device
     if nh != sl.nh:
@@ -643,18 +715,19 @@ def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf):
         n = ctypes.c_longlong(0)  # kernels launched
         rc = lib.split_svmc_phased_anneal(
             *head, _build.ptr(scratch), chains, sl.L, sl.nslots, steps,
-            cr.wrap_int32(seed), int(bool(tf)), _build.stream_of(dev),
-            ctypes.byref(n))
+            cr.wrap_int32(seed), int(bool(tf)), int(bool(hw_rng)),
+            _build.stream_of(dev), ctypes.byref(n))
         _build.raise_on_error(lib, "split_svmc_phased_anneal", rc,
                               error_fn="split_svmc_anneal_error_string")
-        _build.LAUNCHES["svmc_split_phased"] += n.value
+        _build.LAUNCHES[_key("svmc_split", hw_rng) + "_phased"] += n.value
         return a_out, b_out
     rc = lib.split_svmc_anneal(
         *head, chains, *geometry, sl.L, sl.nslots, steps,
-        cr.wrap_int32(seed), int(bool(tf)), _build.stream_of(dev),
+        cr.wrap_int32(seed), int(bool(tf)), int(bool(hw_rng)),
+        _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "split_svmc_anneal", rc)
-    _build.LAUNCHES["svmc_split"] += 1
+    _build.LAUNCHES[_key("svmc_split", hw_rng)] += 1
     return a_out, b_out
 
 
@@ -683,27 +756,33 @@ def _on_halves(sl, state, fn):
     return out.reshape(state.shape)
 
 
-def anneal_lattice_split(problem, sched, spins, seed, mcsteps=1):
+def anneal_lattice_split(problem, sched, spins, seed, mcsteps=1,
+                         hw_rng=False):
     """Split-layout SA anneal on an even-L LatticeProblem (counterpart of
-    `pallas_split.anneal_lattice_split`, without its TPU lane rules).
+    `pallas_split.anneal_lattice_split`, without its TPU lane rules and its
+    `chain_block` and `chunk`, which tile the TPU's grid).
 
     sched: (steps,) temperatures; spins: (chains, N) or (N,) float32 +/-1 on
-    the problem's device; seed: int counter-hash seed. Returns the annealed
-    spins, same shape."""
+    the problem's device; seed: int counter-hash seed; hw_rng: draw the
+    uniforms from the kernel's generator streams instead of the counter
+    hash (see the module docstring: another stream, held in distribution).
+    Returns the annealed spins, same shape."""
     sl = _split_of(problem, spins, "spins")
     temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
-    return _on_halves(sl, spins,
-                      lambda a, b: sa_split_anneal(sl, temps, a, b, seed))
+    return _on_halves(sl, spins, lambda a, b: sa_split_anneal(
+        sl, temps, a, b, seed, hw_rng))
 
 
 def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
-                             mcsteps=1, global_moves=True):
+                             mcsteps=1, global_moves=True, hw_rng=False):
     """Split-layout PIQMC anneal on an even-L LatticeProblem at even P
-    (counterpart of `pallas_split.anneal_lattice_qmc_split`).
+    (counterpart of `pallas_split.anneal_lattice_qmc_split`, without its
+    `chain_block` and `chunk`).
 
     a_sched / b_sched: (steps,) Gamma and B; temp: ambient T, T_eff = P*T;
     confs: (chains, P, N) or (P, N) float32 +/-1 slices-major, on the
-    problem's device. Returns the annealed configurations, same shape."""
+    problem's device; hw_rng as for `anneal_lattice_split`. Returns the
+    annealed configurations, same shape."""
     slices = confs.shape[-2]
     sl = _split_of(problem, confs, "confs", slices)
     b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, slices,
@@ -712,25 +791,26 @@ def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
     c = confs[None] if squeeze else confs
     quarters = split_ops.pack_qmc(sl, c.to(torch.float32))
     quarters = qmc_split_anneal(sl, b, jp, teff, quarters, seed,
-                                global_moves)
+                                global_moves, hw_rng)
     out = split_ops.unpack_qmc(sl, *quarters)
     return out[0] if squeeze else out
 
 
 def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
                                   lookuptable, confs, seed, mcsteps=1,
-                                  global_moves=False):
+                                  global_moves=False, hw_rng=False):
     """Split-layout dissipative PIQMC anneal on an even-L LatticeProblem at
     any P >= 2 (counterpart of `pallas_split.anneal_lattice_qmc_bath_split`,
-    without its TPU lane rules).
+    without its TPU lane rules, `chain_block` and `chunk`).
 
     a_sched / b_sched: (steps,) Gamma and B; temp: ambient T, T_eff = P*T;
     lookuptable: (P-1,) bath couplings (`schedules.bath_lookuptable`), a
     tensor or array, taken as float32 on the problem's device; confs:
     (chains, P, N) or (P, N) float32 +/-1 slices-major, on the problem's
     device; seed: int counter-hash seed; global_moves: whole-line flips
-    after each sweep (DissipativeQuantumAnnealGlobal, qmc.pyx:444-609).
-    Returns the annealed configurations, same shape."""
+    after each sweep (DissipativeQuantumAnnealGlobal, qmc.pyx:444-609);
+    hw_rng as for `anneal_lattice_split`. Returns the annealed
+    configurations, same shape."""
     slices = confs.shape[-2]
     if slices < 2:
         raise ValueError(f"the bath engine takes P >= 2 slices, got {slices}")
@@ -750,22 +830,23 @@ def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
     a, b_half = split_ops.pack_classical(sl, c)
     a, b_half = qmc_bath_split_anneal(sl, b, jp, teff, bath, a.contiguous(),
                                       b_half.contiguous(), seed,
-                                      global_moves)
+                                      global_moves, hw_rng)
     out = split_ops.unpack_classical(sl, a, b_half)
     return out[0] if squeeze else out
 
 
 def anneal_lattice_svmc_split(problem, a_sched, b_sched, temp, theta, seed,
-                              mcsteps=1, tf=False):
+                              mcsteps=1, tf=False, hw_rng=False):
     """Split-layout SVMC anneal on an even-L LatticeProblem (counterpart of
-    `pallas_split.anneal_lattice_svmc_split`, without its TPU lane rules).
+    `pallas_split.anneal_lattice_svmc_split`, without its TPU lane rules,
+    `chain_block` and `chunk`).
 
     a_sched / b_sched: (steps,) A and B; temp: the fixed temperature;
     theta: (chains, N) or (N,) float32 angles in [0, pi] on the problem's
-    device; seed: int counter-hash seed; tf: TF proposals. Returns the
-    annealed angles, same shape."""
+    device; seed: int counter-hash seed; tf: TF proposals; hw_rng as for
+    `anneal_lattice_split`. Returns the annealed angles, same shape."""
     sl = _split_of(problem, theta, "theta")
     a_s, b_s = (schedules.expand_mcsteps(x, mcsteps, problem.device)
                 for x in (a_sched, b_sched))
     return _on_halves(sl, theta, lambda a, b: svmc_split_anneal(
-        sl, a_s, b_s, temp, a, b, seed, tf))
+        sl, a_s, b_s, temp, a, b, seed, tf, hw_rng))

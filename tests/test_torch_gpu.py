@@ -32,13 +32,19 @@ and two bit words per line; P above 64 takes the runtime-P kernel), B !=
 CTAs per chain. Kernel A runs 1, 5, 32, 33 (a ragged group) and 1280
 chains, which take chain words of C = 1 to 32 bits over clusters of up to
 16 CTAs, and L = 256. With no device given, the port's problems,
-schedules and states land on the card.
+schedules and states land on the card. The generator instantiations
+(hw_rng=True) of A, B, 4 and 5, on both routes, sample the exact weights
+of tests/gibbs_check.py's bonded pair, reproduce a seed and keep their chains' and
+slices' streams apart; the bench's arms launch their kernels.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
 import torch
 
+import gibbs_check as gibbs
 from montecarlosolvers_tpu_torch import convert, schedules
 from montecarlosolvers_tpu_torch.models import instances
 from montecarlosolvers_tpu_torch.ops import _build
@@ -509,3 +515,86 @@ def test_device_none_means_the_card(cuda):
     assert schedules.linear(1.0, 0.0, 3).device == lat.device
     gen = torch.Generator().manual_seed(0)
     assert sa.random_state(gen, 16, batch=(2,)).device == lat.device
+
+
+# ------------------------------------------- hw_rng: the generator streams
+
+
+def _route(route):
+    return gibbs.phased_route() if route == "phased" \
+        else contextlib.nullcontext()
+
+
+@pytest.mark.parametrize("route", ["cluster", "phased"])
+@pytest.mark.parametrize("engine", ["sa", "qmc", "bath", "svmc"])
+def test_hw_rng_kernels_sample_exact_weights(cuda, engine, route):
+    """The generator instantiations of kernels A, B, 5 and 4, on their
+    cluster and their per-phase kernels, on the bonded pair of
+    gibbs_check.py (as tests/test_torch_hw_rng.py holds the plain
+    versions): every state within 5 standard errors of its exact weight,
+    4096 chains."""
+    name = {"sa": "split_sa", "qmc": "split_qmc", "bath": "split_qmc_bath",
+            "svmc": "split_svmc"}[engine]
+    sample, exact, S, _ = gibbs.CASES[name]
+    _build.reset_launches()
+    with _route(route):
+        f = sample(gibbs.ENGINES[name][0], gibbs.pair_lattice(4, cuda), 4096)
+    key = {"sa": "sa_split", "qmc": "qmc_split", "bath": "qmc_bath_split",
+           "svmc": "svmc_split"}[engine] + "_hw"
+    assert set(k for k, v in _build.LAUNCHES.items() if v) == {
+        key + ("_phased" if route == "phased" else "")}
+    z, d = gibbs.z_scores(f, exact, S)
+    assert z < 5.0, (z, d)
+
+
+@pytest.mark.parametrize("route", ["cluster", "phased"])
+def test_hw_rng_kernel_streams(cuda, route):
+    """Chains (and slices) started alike end apart; a seed reproduces its
+    result, another seed differs."""
+    lat = _lattice(16, True, cuda)
+    one = torch.as_tensor(np.random.default_rng(3).choice(
+        [-1.0, 1.0], size=256).astype(np.float32), device=cuda)
+    g = torch.full((2,), 3.0, device=cuda)
+    lut = schedules.bath_lookuptable(8, 0.01, device=cuda)
+    runs = [
+        lambda sd: sk.anneal_lattice_split(
+            lat, schedules.linear(3.0, 0.5, 10, device=cuda),
+            one.expand(96, 256).contiguous(), sd, hw_rng=True),
+        lambda sd: sk.anneal_lattice_svmc_split(
+            lat, torch.ones(10, device=cuda), torch.ones(10, device=cuda),
+            0.05, (one + 2.0).expand(8, 256).contiguous(), sd, tf=True,
+            hw_rng=True),
+        lambda sd: sk.anneal_lattice_qmc_split(
+            lat, g, torch.ones_like(g), 1.0 / 8,
+            one.expand(4, 8, 256).contiguous(), sd, global_moves=True,
+            hw_rng=True),
+        lambda sd: sk.anneal_lattice_qmc_bath_split(
+            lat, g, torch.ones_like(g), 1.0 / 8, lut,
+            one.expand(4, 8, 256).contiguous(), sd, global_moves=True,
+            hw_rng=True)]
+    with _route(route):
+        for run in runs:
+            out = run(5)
+            assert torch.equal(out, run(5))
+            assert not torch.equal(out, run(6))
+            chains = out.shape[0]
+            assert torch.unique(out.reshape(chains, -1),
+                                dim=0).shape[0] == chains
+            if out.ndim == 3:
+                assert all(torch.unique(c, dim=0).shape[0] == out.shape[1]
+                           for c in out)
+
+
+def test_bench_arms_run_their_kernels(cuda):
+    """Every arm of bench/throughput.py on the card at tiny tau launches
+    its kernel, the pallas_* arms the generator instantiations."""
+    from montecarlosolvers_tpu_torch.bench import throughput
+
+    want = {"sa": "sa_split", "piqmc": "qmc_split", "svmc": "svmc_split",
+            "piqmc_bath": "qmc_bath_split", "pallas": "sa_split_hw",
+            "pallas_qmc": "qmc_split_hw", "pallas_svmc": "svmc_split_hw",
+            "pallas_bath": "qmc_bath_split_hw"}
+    for rec in throughput.run_arms(light=True, device=cuda, side=16,
+                                   taus=(4, 8)):
+        assert rec["launches"] == {want[rec["arm"]]: 4}
+        assert rec["attempts_per_s"] > 0

@@ -211,7 +211,9 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "montecarlosolvers_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    # chip_smoke.py and the two helpers it loads from the checkout
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "gibbs_check.py",
+              REPO / "tools" / "sass_counts.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):

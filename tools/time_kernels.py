@@ -8,6 +8,7 @@ the main path's shapes.
         [--bath-geometry R ...] [--qmc-geometry R ...]
         [--plane-qmc-geometry R ...] [--plane-svmc-geometry R ...]
         [--split-svmc-geometry R ...] [--only KERNEL ...]
+    PYTHONPATH=<checkout> python tools/time_kernels.py --hw-rng [--rounds N]
 
 Rows: kernel A at 1280 and 32 chains on the seeded L x L torus (T: 3 -> 0),
 kernel 5 at P = 40, 32 chains, alpha = 1e-2, global moves on the same
@@ -32,7 +33,11 @@ of the wrapper's own choice (where the checkout has `sa_geometry` /
 `qmc_bath_geometry` / `qmc_geometry` / `plane_qmc_geometry` /
 `plane_svmc_geometry` / `svmc_split_geometry`). `--only` times just the
 named kernels (split_sa, split_qmc_bath, plane_sa, split_qmc, plane_qmc,
-plane_svmc, split_svmc).
+plane_svmc, split_svmc). `--hw-rng` times instead kernels A, B, 4 and 5
+at the shapes of bench/throughput.py's pallas_* arms (A 256 chains; B
+P = 40, 16 chains, global moves; 4 128 chains, TF; 5 P = 40, 8 chains,
+alpha = 1e-2, global moves) with the counter hash and with hw_rng=True,
+in the order hash, hw_rng, hw_rng, hash, `--rounds` times over.
 """
 
 import argparse
@@ -71,6 +76,8 @@ def main():
     ap.add_argument("--plane-svmc-geometry", nargs="*", default=[])
     ap.add_argument("--split-svmc-geometry", nargs="*", default=[])
     ap.add_argument("--only", nargs="*", default=None)
+    ap.add_argument("--hw-rng", action="store_true")
+    ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -105,6 +112,10 @@ def main():
 
     def wanted(kernel):
         return args.only is None or kernel in args.only
+
+    if args.hw_rng:
+        time_hw_rng(args, dev, sl, spins, taus, emit)
+        return
 
     sa_geoms = [tuple(map(int, g.split(":"))) for g in args.sa_geometry]
     own_sa = getattr(sk, "sa_geometry", None)
@@ -260,6 +271,52 @@ def main():
              ms_per_sweep=slope_ms(run, taus(500 * 6400 // L ** 2)))
         if own_split_svmc:
             sk.svmc_split_geometry = own_split_svmc
+
+
+def time_hw_rng(args, dev, sl, spins, taus, emit):
+    """Kernels A, B, 4 and 5 at the pallas_* arms' shapes, hash against
+    hw_rng=True (see the module docstring)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
+    from montecarlosolvers_tpu_torch.ops import split as split_ops
+    from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+
+    L, P = args.L, 40
+    teff = (1.0 / P) * P
+
+    def field(tau):
+        g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+        return torch.ones_like(g), schedules.jperp(g, teff).contiguous()
+
+    a, b = (x.contiguous() for x in split_ops.pack_classical(
+        sl, spins(256, L * L)))
+    qs = split_ops.pack_qmc(sl, spins(16, P, L * L))
+    a5, b5 = (x.contiguous() for x in split_ops.pack_classical(
+        sl, spins(8, P, L * L)))
+    bath = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+        P, 1e-2, device=dev), P).contiguous()
+    ah, bh = (x.contiguous() for x in split_ops.pack_classical(
+        sl, torch.rand((128, L * L), device=dev) * np.pi))
+    rows = {
+        "split_sa": (256, 500, lambda hw: lambda tau: sk.sa_split_anneal(
+            sl, schedules.linear(3.0, 0.0, tau, device=dev), a, b, 7,
+            hw_rng=hw)),
+        "split_qmc": (16, 100, lambda hw: lambda tau: sk.qmc_split_anneal(
+            sl, *field(tau), teff, qs, 7, True, hw_rng=hw)),
+        "split_svmc": (128, 500, lambda hw: lambda tau: sk.svmc_split_anneal(
+            sl, schedules.linear(3.0, 1e-8, tau, device=dev),
+            torch.ones(tau, device=dev), 0.05, ah, bh, 7, True, hw_rng=hw)),
+        "split_qmc_bath": (8, 100, lambda hw: lambda tau:
+                           sk.qmc_bath_split_anneal(
+                               sl, *field(tau), teff, bath, a5, b5, 7, True,
+                               hw_rng=hw)),
+    }
+    for rnd in range(args.rounds):
+        for kernel, (chains, n, make) in rows.items():
+            for hw in (False, True, True, False):
+                emit(kernel=kernel, hw_rng=hw, round=rnd, chains=chains,
+                     L=L, ms_per_sweep=slope_ms(make(hw),
+                                                taus(n * 6400 // L ** 2)))
 
 
 if __name__ == "__main__":
