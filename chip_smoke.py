@@ -7,8 +7,9 @@ Run from the repository root, with no arguments:
 
 Phases, each printed as one JSON line:
   device              nvidia-smi's name and power limit of the card
-  build               nvcc builds kernels A, B, 3, 4, 5, 6 and 7 from csrc/,
-                      all at once (seconds)
+  build               nvcc builds kernels A, B, 3, 4, 5, 6 and 7 and the
+                      energy kernel's entry points from csrc/, all at once
+                      (seconds)
   clusters            the (C, R, threads) kernels A and 6 and the (R,
                       threads) kernels B, 5, 3, 7 and 4 take at the shapes
                       below, and how many of those clusters the card holds
@@ -131,10 +132,48 @@ Phases, each printed as one JSON line:
                       and the registers, spills and SASS instructions and
                       loops of both cluster instantiations
                       (tools/sass_counts.py)
+  collect_energy_vs_plain  collect_energy=: each of the seven kernels'
+                      collecting route (energies=: its per-phase kernels
+                      and the energy kernel, csrc/energy.cuh, once a step)
+                      at the main path's shapes (SA 1280 chains on 80x80
+                      and 81x81, PIQMC P = 40 and 5 and bath P = 40 at 32,
+                      SVMC 256; 20-40 steps) against its plain version and
+                      against the cluster kernel's run without energies:
+                      0 mismatched spins (angles as above), energies
+                      within 1e-5 (sum |J| + sum |h|) of the plain
+                      version's and, at the last step, of a float64
+                      readout; launches exactly the route's. Then
+                      collect_energy_solvers: sa/qmc/svmc.anneal(
+                      collect_energy=True) at the same shapes, the counts
+                      read around each: the energy kernel's launches in
+                      the kernels line
+  collect_energy_timing  slope ms per sweep of each collecting route beside
+                      its cluster kernel's (cluster, collecting,
+                      collecting, cluster), and the energy kernel's
+                      entry points, ms per launch over 200 launches,
+                      beside their plain versions and their bound (the
+                      state's and couplings' bytes over 3.35 TB/s)
+  mst                 bench/mst.py's matrix, the five arms at tau = 60 and
+                      1000, 45 reps, on the santoro instance when
+                      MCS_TPU_INSTANCE_DIR holds it (residual energies),
+                      else on the seeded 80x80 torus with e_gs = 0: launches
+                      exactly its route, every arm lower at tau = 1000, P =
+                      5 and 40 in the main path's ranges, a second run finds
+                      every point cached, and a run stopped by its budget
+                      inside a point (stepping clock, chunks of 16) and
+                      resumed writes bitwise the unbroken run's energies;
+                      mst_chunks: ms per sweep of a PIQMC chunk of 8, 16,
+                      32 and 45 chains at P = 40 and 5
+  examples            examples/dissipative_qa.py's run() at alpha = 0 and
+                      0.01, tau = 1000, P = 20, 16 chains: kernels A, B and
+                      5 once each, energies in range
 then a line {"kernels": [...]} (the seven kernels, then their per-phase
 kernels, which no main-path solve launches, then the generator
 instantiations of A, B, 4 and 5 and their per-phase kernels, whose
-launches are the bench's), and last {"ok": true, "device": {...}}.
+launches are the bench's, then the energy kernel by the layout it reads,
+halves, quarters or planes, whose launches are the collecting solves'),
+a line {"phase": "done", "seconds": ...}, and last
+{"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero without the last line;
 it also fails when torch sees no CUDA device or the package is missing.
 The script imports no JAX. A torch.profiler breakdown of the main-path
@@ -172,6 +211,21 @@ ODD_SLICES = 5
 SVMC_READS, SVMC_SWEEPS, SVMC_TEMP = 256, 2000, 0.05
 # the dissipative arm: bench.py::_piqmc_bath_arm's P, chains and alpha
 BATH_READS, BATH_SLICES, BATH_ALPHA, BATH_SWEEPS = 32, 40, 1e-2, 1000
+# collect_energy=: the steps of each collecting route held to its plain
+# version (the plain bath and PIQMC versions take about 0.1 s a step at
+# P = 40), and the taus its ms per sweep is slope-timed over
+COLLECT_STEPS = {"split_qmc": 20, "split_qmc_bath": 20}
+COLLECT_TAUS = {"split_qmc": (50, 200), "split_qmc_bath": (20, 80)}
+# the MST phase: bench/mst.py's matrix at these taus and reps, the five
+# arms; its resume is checked at chunks of MST_STOP_CHUNK chains (three a
+# point, the last ragged), stopped at the stepping clock's reading
+# MST_BUDGET_READINGS, inside the first PIQMC point after its first chunk;
+# the chunk sizes timed at P = 40 (kernel B) and P = 5 (kernel 3)
+MST_TAUS, MST_REPS = (60, 1000), 45
+MST_STOP_CHUNK, MST_BUDGET_READINGS = 16, 9
+MST_CHUNKS = (8, 16, 32, 45)
+# the open-system driver (examples/dissipative_qa.py's protocol)
+DQA_TAU, DQA_SLICES, DQA_CHAINS, DQA_ALPHAS = 1000, 20, 16, (0.0, 0.01)
 # kernels 4 and 7 against their plain versions: no angle may differ by
 # more than ANGLE_MISMATCH (a diverged accept decision), and none by more
 # than ANGLE_ATOL (last-ulp differences of cos / sin / log1p, if any)
@@ -245,6 +299,19 @@ for _k, (_tpu, _) in HW_BRANCHES.items():
     for _suffix in ("_hw", "_hw_phased"):
         KERNELS[_k + _suffix] = (KERNELS[_k][0] + _suffix, KERNELS[_k][1],
                                  _tpu)
+# the energy kernel of collect_energy= (csrc/energy.cuh), one entry per
+# layout it reads: it replaces no TPU kernel but the XLA readout of the JAX
+# scans (ops/split.py:245); its launches are those of the collecting
+# solves, under the LAUNCHES keys of the kernels whose routes read each
+# layout, "<key>_energy"
+ENERGY_LAYOUTS = {
+    "energy_halves": ("sa_split", "qmc_bath_split", "svmc_split"),
+    "energy_quarters": ("qmc_split",),
+    "energy_plane": ("sa_plane", "qmc_plane", "svmc_plane"),
+}
+for _k in ENERGY_LAYOUTS:
+    KERNELS[_k] = (None, "montecarlosolvers_tpu_torch/csrc/energy.cuh",
+                   "montecarlosolvers_tpu/ops/split.py:245")
 # (a): chains of the exact-distribution samplers, and the largest
 # |mean - exact| (or kernel - plain) they may show, in standard errors of
 # the chain means (gibbs_check.z_scores: at most 1 state in about 3 million
@@ -621,7 +688,466 @@ def energy64(problem, states):
             + (hp * s).sum(axis=(1, 2)))
 
 
+def best_energy64(lat, spins):
+    """Float64 (chains,) energies of flat spins (chains, N), or the least
+    slice energy of (chains, P, N)."""
+    s = spins.cpu().numpy()
+    e = energy64(lat, s.reshape(-1, lat.nspins)).reshape(s.shape[:-1])
+    return e if e.ndim == 1 else e.min(axis=-1)
+
+
+def readout64(kname, lat, state):
+    """`best_energy64` of a collecting route's final state tuple, of
+    sign(cos theta) for SVMC."""
+    from montecarlosolvers_tpu_torch.ops import split as split_ops
+
+    if kname.startswith("split"):
+        sl = split_ops.build_split(lat)
+        flat = (split_ops.unpack_qmc(sl, *state) if kname == "split_qmc"
+                else split_ops.unpack_classical(sl, *state))
+    else:
+        flat = state[0].reshape(state[0].shape[:-2] + (lat.nspins,))
+    if kname.endswith("svmc"):
+        flat = torch.where(torch.cos(flat) >= 0.0, 1.0, -1.0)
+    return best_energy64(lat, flat)
+
+
+# (kernel, lattice, chains, slices) of the collecting routes: the main
+# path's shapes of the seven kernels
+def collect_shapes(torus, odd_torus):
+    return (("split_sa", "gaussian_torus(80, 0)", torus, SA_READS, None),
+            ("plane_sa", "gaussian_torus(81, 0)", odd_torus, SA_READS, None),
+            ("split_qmc", "gaussian_torus(80, 0)", torus, QMC_READS,
+             QMC_SLICES),
+            ("plane_qmc", "gaussian_torus(80, 0)", torus, QMC_READS,
+             ODD_SLICES),
+            ("plane_qmc", "gaussian_torus(81, 0)", odd_torus, QMC_READS,
+             ODD_SLICES),
+            ("split_qmc_bath", "gaussian_torus(80, 0)", torus, BATH_READS,
+             BATH_SLICES),
+            ("split_svmc", "gaussian_torus(80, 0)", torus, SVMC_READS, None),
+            ("plane_svmc", "gaussian_torus(81, 0)", odd_torus, SVMC_READS,
+             None))
+
+
+def collect_energy_checks(dev, results, torus, odd_torus):
+    """collect_energy_vs_plain: at each main-path shape, the collecting
+    route of the wrapper (energies=) against its plain version on the same
+    inputs and against the cluster kernel's run without energies (states:
+    0 mismatched spins, angles as the SVMC checks hold them; energies within
+    ENERGY_RTOL (sum |J| + sum |h|) of the plain version's, the last step's
+    of a float64 readout of the final state; launches exactly the route's).
+    Then the solvers' collect_energy=True through sa/qmc/svmc.anneal at the
+    same shapes, the counts set to 0 before and read after each: this
+    slice's path of the energy kernel, whose counts it returns."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.solvers import qmc, sa, svmc
+
+    gibbs = gibbs_tool()
+    errs = {k: 0.0 for k in ENERGY_LAYOUTS}
+    for kname, lname, lat, chains, slices in collect_shapes(torus,
+                                                            odd_torus):
+        steps = COLLECT_STEPS.get(kname, 40)
+        case = gibbs.collect_case(kname, lat, chains, steps, slices)
+        wrapper, plain, key = gibbs.COLLECTING[kname]
+        es, es_plain = (torch.full((steps, chains), float("nan"), device=dev)
+                        for _ in range(2))
+        _build.reset_launches()
+        out = case["run"](wrapper, es)
+        launched = launched_now()
+        ref = case["run"](plain, es_plain)
+        _build.reset_launches()
+        cluster = case["run"](wrapper, None)
+        cluster_launched = launched_now()
+        torch.cuda.synchronize()
+        rec = {"phase": "collect_energy_vs_plain", "kernel": kname,
+               "lattice": lname, "chains": chains, "slices": slices,
+               "steps": steps, "launches": launched,
+               "cluster_launches": cluster_launched}
+        if case["angles"]:
+            d_plain, d_cluster = angle_diffs(out, ref), angle_diffs(out,
+                                                                    cluster)
+            rec.update(plain=d_plain, cluster=d_cluster)
+            ok = all(d["mismatched_angles"] == 0
+                     and d["max_abs_err"] <= ANGLE_ATOL
+                     for d in (d_plain, d_cluster))
+        else:
+            n_plain, _ = mismatches(out, ref)
+            n_cluster, _ = mismatches(out, cluster)
+            rec.update(mismatched_spins=n_plain,
+                       mismatched_spins_cluster=n_cluster)
+            ok = n_plain == 0 and n_cluster == 0
+        tol = gibbs.ENERGY_RTOL * case["scale"]
+        err = float((es - es_plain).abs().max())
+        last = float(np.abs(es[-1].double().cpu().numpy()
+                            - readout64(kname, lat, out)).max())
+        rec.update(energy_max_abs_err=err, last_step_vs_float64=last,
+                   tolerance=tol, finite=bool(torch.isfinite(es).all()),
+                   mean_last_energy_per_spin=float(es[-1].mean())
+                   / lat.nspins)
+        emit(rec)
+        what = f"{kname} collecting on {lname}"
+        check(ok, f"{what}: states equal the plain version's and the "
+                  f"cluster kernel's")
+        check(rec["finite"] and err <= tol and last <= tol,
+              f"{what}: energies within {tol} (plain {err}, float64 "
+              f"{last})")
+        check(launched == case["launches"],
+              f"{what} launched {launched}, its route {case['launches']}")
+        check(cluster_launched == {key: 1},
+              f"{what}: without energies it launched {cluster_launched}")
+        layout = next(k for k, keys in ENERGY_LAYOUTS.items()
+                      if key in keys)
+        errs[layout] = max(errs[layout], err)
+    for k, err in errs.items():
+        results[k]["max_abs_err"] = err
+
+    # the solvers' collect_energy=True: this slice's path of the kernel
+    path = {k: 0 for k in _build.LAUNCHES}
+    gen = torch.Generator().manual_seed(3)
+    steps = 20
+    sched = schedules.linear(3.0, 0.1, steps, device=dev)
+    gamma = schedules.transverse_field(3.0, 1e-8, steps, device=dev)
+    ones = torch.ones_like(gamma)
+    for kname, lname, lat, chains, slices in collect_shapes(torus,
+                                                            odd_torus):
+        s = sa.random_state(gen, lat.nspins, batch=(chains,), device=dev)
+        _build.reset_launches()
+        if kname.endswith("_sa"):
+            out, es = sa.anneal(lat, sched, s, gen, collect_energy=True)
+            state = out
+        elif kname.endswith("svmc"):
+            th = svmc.random_state(gen, lat.nspins, batch=(chains,),
+                                   device=dev)
+            out, es = svmc.anneal(lat, gamma, ones, SVMC_TEMP, th, gen,
+                                  tf=True, collect_energy=True)
+            state = svmc.z_projection(out)
+        else:
+            lut = (schedules.bath_lookuptable(slices, BATH_ALPHA, device=dev)
+                   if "bath" in kname else None)
+            out, es = qmc.anneal(lat, gamma, ones, 1.0 / slices,
+                                 qmc.replicate(s, slices), gen,
+                                 global_moves=True, lookuptable=lut,
+                                 collect_energy=True)
+            state = out
+        torch.cuda.synchronize()
+        launched = dict(_build.LAUNCHES)
+        for k, v in launched.items():
+            path[k] += v
+        launched = {k: v for k, v in launched.items() if v}
+        last = float(np.abs(es[-1].double().cpu().numpy()
+                            - best_energy64(lat, state)).max())
+        emit({"phase": "collect_energy_solvers", "kernel": kname,
+              "lattice": lname, "chains": chains, "slices": slices,
+              "steps": steps, "shape": list(es.shape),
+              "launches": launched, "last_step_vs_float64": last,
+              "mean_energy_per_spin": [float(es[0].mean()) / lat.nspins,
+                                       float(es[-1].mean()) / lat.nspins]})
+        check(tuple(es.shape) == (steps, chains), f"{kname} energies shape")
+        check(launched == gibbs.collect_launches(kname, steps, slices),
+              f"collecting {kname} solve launched {launched}")
+        check(last <= gibbs.ENERGY_RTOL * gibbs.energy_scale(lat),
+              f"collecting {kname} solve: last energies vs float64 {last}")
+    emit({"phase": "collect_energy_solvers",
+          "launches": {k: v for k, v in path.items() if v}})
+    return path
+
+
+def event_ms(fn, reps):
+    """ms per call of fn(), CUDA events around `reps` calls after a warm
+    one."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def collect_energy_timing(dev, results, torus, odd_torus, power):
+    """collect_energy_timing: at each main-path shape, the slope-timed ms
+    per sweep of the collecting route (per-phase kernels + the energy
+    kernel) beside the cluster kernel's without energies, in turns; and the
+    energy kernel's stand-alone entry points, ms per launch (CUDA events
+    over 200 launches) beside their plain versions and their bound: the
+    state's bytes (read once) and the couplings' (once) over 3.35 TB/s.
+    The kernels line takes, for each layout, the first shape below."""
+    from montecarlosolvers_tpu_torch.ops import energy as energy_ops
+    from montecarlosolvers_tpu_torch.ops import plane as plane_ops
+    from montecarlosolvers_tpu_torch.ops import split as split_ops
+
+    gibbs = gibbs_tool()
+    name = torch.cuda.get_device_name(0)
+    for kname, lname, lat, chains, slices in collect_shapes(torus,
+                                                            odd_torus):
+        taus = COLLECT_TAUS.get(kname, (100, 400))
+        cases = {tau: gibbs.collect_case(kname, lat, chains, tau, slices)
+                 for tau in taus}
+        bufs = {tau: torch.empty((tau, chains), device=dev) for tau in taus}
+        wrapper = gibbs.COLLECTING[kname][0]
+        ms = {}
+        for route in ("cluster", "collecting", "collecting_2", "cluster_2"):
+            collect = route.startswith("collecting")
+            ms[route], _ = slope_ms(lambda tau: cases[tau]["run"](
+                wrapper, bufs[tau] if collect else None), taus, 2)
+        cluster = (ms["cluster"] + ms["cluster_2"]) / 2
+        collecting = (ms["collecting"] + ms["collecting_2"]) / 2
+        emit({"phase": "collect_energy_timing", "kernel": kname,
+              "lattice": lname, "chains": chains, "slices": slices,
+              "taus": list(taus), "ms_per_sweep": ms,
+              "cluster_ms_per_sweep": cluster,
+              "collecting_ms_per_sweep": collecting,
+              "slowdown": collecting / cluster, "gpu": name,
+              "power_limit": power})
+
+    rng = np.random.default_rng(9)
+
+    def spins(*shape):
+        return torch.as_tensor(rng.choice([-1.0, 1.0], size=shape).astype(
+            np.float32), device=dev)
+
+    sl80 = split_ops.build_split(torus)
+    pl80, pl81 = (plane_ops.build_plane(x) for x in (torus, odd_torus))
+    n80, n81 = torus.nspins, odd_torus.nspins
+    cos = torch.cos(torch.as_tensor(rng.random((SVMC_READS, n80)) * np.pi,
+                                    dtype=torch.float32, device=dev))
+    halves_cos = [x.contiguous() for x in split_ops.pack_classical(sl80,
+                                                                    cos)]
+    split_w = (sl80.nslots * 2 + 2) * sl80.nh * 4
+    plane_w = 3 * n80 * 4
+    # layout, what, fn(kernel_or_plain), chains, slices, sites, weights
+    rows = [
+        ("energy_halves", "SA, 1280 chains on 80x80",
+         [x.contiguous() for x in split_ops.pack_classical(
+             sl80, spins(SA_READS, n80))], None, SA_READS, 1, n80, split_w),
+        ("energy_halves", "bath, P = 40, 32 chains on 80x80",
+         [x.contiguous() for x in split_ops.pack_classical(
+             sl80, spins(BATH_READS, BATH_SLICES, n80))], None, BATH_READS,
+         BATH_SLICES, n80, split_w),
+        ("energy_halves", "SVMC cos theta, 256 chains on 80x80", halves_cos,
+         True, SVMC_READS, 1, n80, split_w),
+        ("energy_quarters", "PIQMC P = 40, 32 chains on 80x80",
+         split_ops.pack_qmc(sl80, spins(QMC_READS, QMC_SLICES, n80)), None,
+         QMC_READS, QMC_SLICES, n80, split_w),
+        ("energy_plane", "SA, 1280 chains on 81x81",
+         [spins(SA_READS, ODD_L, ODD_L)], pl81, SA_READS, 1, n81,
+         3 * n81 * 4),
+        ("energy_plane", "PIQMC P = 5, 32 chains on 80x80",
+         [spins(QMC_READS, ODD_SLICES, L, L)], pl80, QMC_READS, ODD_SLICES,
+         n80, plane_w),
+    ]
+    seen = set()
+    for layout, what, state, arg, chains, slices, sites, wbytes in rows:
+        if layout == "energy_halves":
+            cos_theta = arg is True
+            run = {k: (lambda f=f: f(sl80, *state, cos_theta))
+                   for k, f in (("cuda", energy_ops.halves_energy),
+                                ("plain", energy_ops.halves_energy_ref))}
+        elif layout == "energy_quarters":
+            run = {k: (lambda f=f: f(sl80, state))
+                   for k, f in (("cuda", energy_ops.quarters_energy),
+                                ("plain", energy_ops.quarters_energy_ref))}
+        else:
+            run = {k: (lambda f=f: f(arg, *state))
+                   for k, f in (("cuda", energy_ops.plane_energy),
+                                ("plain", energy_ops.plane_energy_ref))}
+        ms = event_ms(run["cuda"], 200)
+        plain_ms = event_ms(run["plain"], 20)
+        state_bytes = chains * slices * sites * 4
+        bound = 1e3 * (state_bytes + wbytes + chains * 4) / PEAK_BYTES
+        err = float((run["cuda"]() - run["plain"]()).abs().max())
+        emit({"phase": "collect_energy_timing", "kernel": layout,
+              "shape": what, "ms_per_step": ms, "plain_ms": plain_ms,
+              "bound_ms": bound, "bound_by": "bytes",
+              "state_bytes": state_bytes, "max_abs_err_vs_plain": err,
+              "gpu": name, "power_limit": power})
+        if layout not in seen:  # the first shape of each layout
+            seen.add(layout)
+            results[layout].update(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound, bound_by="bytes")
+
+
+class SteppingClock:
+    """A stand-in for bench/mst.py's `time` whose time() reads 0, 1, 2, ...
+    at successive readings, so a budget of k stops a run at its k-th
+    reading of the clock, the same place in every run."""
+
+    def __init__(self):
+        self.now = -1.0
+
+    def time(self):
+        self.now += 1.0
+        return self.now
+
+
+def mst_checks(dev, problem, e_gs, torus):
+    """mst: bench/mst.py's matrix through examples/santoro_mst.py's run(),
+    the five arms at MST_TAUS and MST_REPS,
+    on the certified instance when it is reachable (residual energies in
+    EPS_RANGES), else on the seeded 80x80 torus with e_gs = 0 (eps reads as
+    the mean energy per spin, in RANGES); the launches of the whole matrix
+    exactly its route; every arm lower at the longest tau than at the
+    shortest; a second run finds every point cached; a run stopped by its
+    budget and resumed writes bitwise the energies of an unbroken one (at
+    chunks of MST_STOP_CHUNK chains, so it stops inside a point). Then
+    the ms per sweep of a PIQMC chunk of MST_CHUNKS chains at P = 40 and 5,
+    which set mst.PIQMC_CHUNK."""
+    import tempfile
+    from unittest import mock
+
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.bench import mst
+    from montecarlosolvers_tpu_torch.examples import santoro_mst
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.solvers import qmc, sa
+
+    certified = e_gs is not None
+    prob, egs = (problem, e_gs) if certified else (torus, 0.0)
+    lname = "santoro_80x80" if certified else "gaussian_torus(80, seed=0)"
+    arms = ["CA"] + [f"PT={pt}_P={p}" for pt, p in mst.DEFAULT_EXPS]
+    kw = dict(taus=MST_TAUS, reps=MST_REPS, exps=mst.DEFAULT_EXPS,
+              verbose=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        full, broken = Path(tmp) / "full", Path(tmp) / "broken"
+        unbroken = Path(tmp) / "unbroken"
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res, complete = santoro_mst.run(prob, egs, outdir=str(full), **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = launched_now()
+        # the warm-up (one SA anneal and one PIQMC anneal an arm), one SA
+        # anneal a CA point, a pre-anneal and a PIQMC anneal a chunk
+        chunks = -(-MST_REPS // mst.PIQMC_CHUNK) * len(MST_TAUS)
+        want = {"sa_split": 1 + len(MST_TAUS) + 4 * chunks,
+                "qmc_split": 3 + 3 * chunks, "qmc_plane": 1 + chunks}
+        for name in arms:
+            for tau, eps in zip(res[name]["tau"].tolist(),
+                                res[name]["eps"].tolist()):
+                emit({"phase": "mst", "lattice": lname, "arm": name,
+                      "tau": tau, "reps": MST_REPS, "eps": eps,
+                      "eps_is": "residual energy per spin" if certified
+                      else "mean energy per spin (e_gs = 0)"})
+        emit({"phase": "mst", "lattice": lname, "seconds": secs,
+              "chunk": mst.PIQMC_CHUNK, "complete": complete,
+              "launches": launched})
+        check(complete, "the MST matrix completes without a budget")
+        check(launched == want, f"the MST matrix launched {launched}, its "
+                                f"route {want}")
+        for name in arms:
+            eps = res[name]["eps"]
+            check(len(eps) == len(MST_TAUS) and bool(np.all(np.isfinite(
+                eps))), f"MST {name}: a finite point at every tau")
+            check(eps[-1] < eps[0], f"MST {name}: tau={MST_TAUS[-1]} "
+                                    f"({eps[-1]}) below tau={MST_TAUS[0]} "
+                                    f"({eps[0]})")
+        for name, key in (("PT=1_P=5", "piqmc_p5"),
+                          ("PT=1_P=40", "piqmc_p40")):
+            lo, hi = EPS_RANGES[key] if certified else RANGES[key]
+            val = float(res[name]["eps"][-1])
+            check(lo <= val <= hi, f"MST {name} at tau={MST_TAUS[-1]}: "
+                                   f"{val} inside [{lo}, {hi}]")
+
+        def refuse(*args, **kwargs):
+            raise RuntimeError("a cached MST point was computed again")
+
+        with mock.patch.object(mst, "sa_arm", refuse), \
+                mock.patch.object(mst, "piqmc_arm", refuse):
+            again, complete = santoro_mst.run(prob, egs, outdir=str(full),
+                                              **kw)
+        check(complete and all(np.array_equal(again[k]["eps"],
+                                              res[k]["eps"]) for k in arms),
+              "a second MST run finds every point cached")
+        with mock.patch.object(mst, "PIQMC_CHUNK", MST_STOP_CHUNK):
+            santoro_mst.run(prob, egs, outdir=str(unbroken), **kw)
+            with mock.patch.object(mst, "time", SteppingClock()):
+                _, stopped = santoro_mst.run(prob, egs, outdir=str(broken),
+                                             budget=MST_BUDGET_READINGS,
+                                             **kw)
+            left = sorted(p.name for p in broken.glob("*.npz"))
+            _, complete = santoro_mst.run(prob, egs, outdir=str(broken),
+                                          **kw)
+        differing = [p.name for p in unbroken.glob("*.npz")
+                     if not np.array_equal(
+                         np.load(p)["energies"],
+                         np.load(broken / p.name)["energies"])]
+        emit({"phase": "mst", "budget_stop": {
+            "chunk": MST_STOP_CHUNK,
+            "budget_readings": MST_BUDGET_READINGS, "stopped": not stopped,
+            "on_disk_at_stop": left, "resumed_complete": complete,
+            "points_differing_from_unbroken": differing}})
+        check(not stopped and complete and not differing
+              and any(".chunk" in n for n in left),
+              "a budget-stopped MST run, stopped inside a point and resumed, "
+              "equals the unbroken run")
+
+    # PIQMC chunks: ms per sweep of qmc.anneal on a chunk of c chains
+    name = torch.cuda.get_device_name(0)
+    gen = torch.Generator().manual_seed(0)
+    for slices in (QMC_SLICES, ODD_SLICES):
+        per_chain = {}
+        for c in MST_CHUNKS:
+            s = sa.random_state(gen, torus.nspins, batch=(c,), device=dev)
+            confs = qmc.replicate(s, slices)
+
+            def run(tau):
+                g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+                return qmc.anneal(torus, g, torch.ones_like(g),
+                                  1.0 / slices, confs, gen,
+                                  global_moves=True)
+            ms, _ = slope_ms(run, (100, 400), 2)
+            per_chain[c] = ms / c
+            emit({"phase": "mst_chunks", "slices": slices, "chunk": c,
+                  "ms_per_sweep": ms, "ms_per_sweep_per_chain": ms / c,
+                  "gpu": name})
+        emit({"phase": "mst_chunks", "slices": slices,
+              "ms_per_sweep_per_chain": per_chain,
+              "default_chunk": mst.PIQMC_CHUNK})
+
+
+def examples_checks(dev, problem, e_gs, torus):
+    """examples: examples/dissipative_qa.py's run() at DQA_ALPHAS, tau =
+    DQA_TAU, P = DQA_SLICES, DQA_CHAINS chains (the certified instance when
+    it is reachable, else the seeded torus with e_gs = 0): kernel A for the
+    pre-anneal, B at alpha = 0 and 5 at alpha > 0, one launch each; finite
+    energies, the residual (or mean) energy per spin in range."""
+    from montecarlosolvers_tpu_torch.examples import dissipative_qa
+    from montecarlosolvers_tpu_torch.ops import _build
+
+    certified = e_gs is not None
+    prob, egs = (problem, e_gs) if certified else (torus, 0.0)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rows = dissipative_qa.run(prob, egs, tau=DQA_TAU, slices=DQA_SLICES,
+                              chains=DQA_CHAINS, alphas=DQA_ALPHAS,
+                              verbose=False)
+    torch.cuda.synchronize()
+    launched = launched_now()
+    lo, hi = EPS_RANGES["piqmc_p40"] if certified else RANGES["piqmc_p40"]
+    for row in rows:
+        emit({"phase": "examples", "driver": "dissipative_qa",
+              "lattice": "santoro_80x80" if certified
+              else "gaussian_torus(80, seed=0)", "tau": DQA_TAU,
+              "slices": DQA_SLICES, "chains": DQA_CHAINS,
+              **{k: v for k, v in row.items() if k != "energies"}})
+        check(bool(np.all(np.isfinite(row["energies"])))
+              and row["energies"].shape == (DQA_CHAINS,),
+              f"dissipative_qa alpha={row['alpha']}: finite energies")
+        check(lo <= row["eps_res"] <= hi,
+              f"dissipative_qa alpha={row['alpha']}: {row['eps_res']} "
+              f"inside [{lo}, {hi}]")
+    emit({"phase": "examples", "seconds": time.perf_counter() - t0,
+          "launches": launched})
+    check(launched == {"sa_split": 1, "qmc_split": 1, "qmc_bath_split": 1},
+          f"dissipative_qa launched {launched}")
+
+
 def main():
+    t_script = time.perf_counter()
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
     from montecarlosolvers_tpu_torch import schedules
     from montecarlosolvers_tpu_torch.models import instances
@@ -1442,18 +1968,37 @@ def main():
             emit({"phase": "hw_rng_timing", "library": lib,
                   "uniforms": source, **rec})
 
+    # ---- collect_energy=: each kernel's collecting route (its per-phase
+    # kernels and the energy kernel) against its plain version, and against
+    # its cluster kernel's run without energies, at the main path's shapes
+    energy_path_launches = collect_energy_checks(dev, results, torus,
+                                                 odd_torus)
+    collect_energy_timing(dev, results, torus, odd_torus, power)
+
+    # ---- this slice's drivers: the MST matrix and the open-system example
+    mst_checks(dev, problem, e_gs, torus)
+    examples_checks(dev, problem, e_gs, torus)
+
     # No single PyTorch call computes a Metropolis sweep, so no kernel has a
     # library yardstick (library_ms null). The generator instantiations'
     # launches are the bench's, the others' the main path's.
+    # The energy kernel's launches are those of the collecting solves.
+    def path_launches(k, key):
+        if k in ENERGY_LAYOUTS:
+            return sum(energy_path_launches[f"{kk}_energy"]
+                       for kk in ENERGY_LAYOUTS[k])
+        return (bench_launches if "_hw" in k else main_launches)[key]
+
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": (bench_launches if "_hw" in k else main_launches)[key],
+         "launches": path_launches(k, key),
          "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
          "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"],
          "bound_by": results[k]["bound_by"], "library_ms": None}
         for k, (key, src, tpu) in KERNELS.items()
     ]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_script})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
 

@@ -19,8 +19,12 @@ device the seven engines run hand-written CUDA kernels
 `csrc/plane_svmc.cu`); on the CPU they run the plain PyTorch versions
 beside the kernel wrappers, which equal the JAX oracles and the Pallas
 interpreter (bitwise for spins, to the last ulps of cos and sin for rotor
-angles). Everything else raises NotImplementedError naming the ROADMAP.md
-item that will port it.
+angles). The three solvers take `collect_energy=` (on the card: the
+per-phase kernels and the energy kernel, `csrc/energy.cuh`);
+`bench/mst.py` runs the MST matrix with its resume and `examples/` holds
+the reference's `santoro_mst` and `dissipative_qa` drivers. Everything
+else raises NotImplementedError naming the ROADMAP.md item that will port
+it.
 
 Every function that takes `device=None` builds on the CUDA card and raises
 on a host without one (`_device.resolve`); the solvers run on the

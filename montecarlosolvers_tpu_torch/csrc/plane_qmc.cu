@@ -76,6 +76,7 @@
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "energy.cuh"
 #include "plane.cuh"
 
 namespace {
@@ -400,6 +401,10 @@ extern "C" int plane_qmc_max_active_clusters(int P, int R, int threads,
 // number of kernels it launched in *launched (a host pointer); returns the
 // first launch error, checked after the first step, or cudaGetLastError()
 // at the end.
+// With `energies` (a (steps, chains) float32 device buffer; null: none),
+// the energy kernel (energy.cuh) writes each chain's best-slice energy after
+// every step into row t, one launch a step, counted in *energy_launched (a
+// host pointer).
 extern "C" int plane_qmc_phased_anneal(const float* w, const float* b_sched,
                                        const float* jp, float teff,
                                        const float* s_in, float* s_out,
@@ -407,10 +412,13 @@ extern "C" int plane_qmc_phased_anneal(const float* w, const float* b_sched,
                                        int L, int row_stride,
                                        int plane_stride, int m, int steps,
                                        int seed, int global_moves,
-                                       void* stream, long long* launched) {
+                                       float* energies, void* stream,
+                                       long long* launched,
+                                       long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t n = static_cast<size_t>(L) * L;
   *launched = 0;
+  *energy_launched = 0;
   if (chains == 0 || P == 0 || n == 0) return cudaSuccess;
   const long long launches =
       static_cast<long long>(steps) * (m + (global_moves ? 2 : 0));
@@ -449,6 +457,12 @@ extern "C" int plane_qmc_phased_anneal(const float* w, const float* b_sched,
             seed_term);
         src = dst;
       }
+    }
+    if (energies != nullptr) {
+      mcs::launch_plane_energy(w, src, chains, P, L, false,
+                               energies + static_cast<size_t>(t) * chains,
+                               st);
+      *energy_launched += 1;
     }
     if (t == 0) {
       cudaError_t e = cudaGetLastError();

@@ -66,6 +66,7 @@
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "energy.cuh"
 #include "plane.cuh"
 
 namespace {
@@ -250,15 +251,22 @@ extern "C" int plane_sa_max_active_clusters(int R, int threads, int L,
 // number of kernels it launched in *launched (a host pointer); returns the
 // first launch error, checked after the first step, or cudaGetLastError()
 // at the end.
+// With `energies` (a (steps, chains) float32 device buffer; null: none),
+// the energy kernel (energy.cuh) writes each chain's energy after
+// every step into row t, one launch a step, counted in *energy_launched (a
+// host pointer).
 extern "C" int plane_sa_phased_anneal(const float* w, const float* sched,
                                       const float* s_in, float* s_out,
                                       float* scratch, int chains, int L,
                                       int row_stride, int plane_stride,
-                                      int steps, int seed, void* stream,
-                                      long long* launched) {
+                                      int steps, int seed,
+                                      float* energies, void* stream,
+                                      long long* launched,
+                                      long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t n = static_cast<size_t>(L) * L;
   *launched = 0;
+  *energy_launched = 0;
   if (chains == 0 || n == 0) return cudaSuccess;
   const long long launches = 2LL * steps;
   if (launches == 0) {
@@ -278,6 +286,12 @@ extern "C" int plane_sa_phased_anneal(const float* w, const float* sched,
           static_cast<uint32_t>(plane_stride), color, t, xblocks, seed_term);
       *launched += 1;
       src = dst;
+    }
+    if (energies != nullptr) {
+      mcs::launch_plane_energy(w, src, chains, 1, L, false,
+                               energies + static_cast<size_t>(t) * chains,
+                               st);
+      *energy_launched += 1;
     }
     if (t == 0) {
       cudaError_t e = cudaGetLastError();

@@ -68,6 +68,7 @@
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "energy.cuh"
 #include "plane.cuh"
 #include "svmc.cuh"
 
@@ -294,15 +295,22 @@ extern "C" int plane_svmc_max_active_clusters(int R, int threads, int L,
 // them and one a phase. Stores the number of kernels it launched in
 // *launched (a host pointer); returns the first launch error, checked after
 // the first step, or cudaGetLastError() at the end.
+// With `energies` (a (steps, chains) float32 device buffer; null: none),
+// the energy kernel (energy.cuh) writes each chain's energy of sign(cos theta) after
+// every step into row t, one launch a step, counted in *energy_launched (a
+// host pointer).
 extern "C" int plane_svmc_phased_anneal(const float* w, const float* a_sched,
                                         const float* b_sched, float temp,
                                         const float* th_in, float* th_out,
                                         float* scratch, int chains, int L,
                                         int row_stride, int plane_stride,
                                         int steps, int seed, int tf,
-                                        void* stream, long long* launched) {
+                                        float* energies, void* stream,
+                                        long long* launched,
+                                        long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
+  *energy_launched = 0;
   const size_t plane = static_cast<size_t>(L) * L;
   const size_t n = static_cast<size_t>(chains) * plane;
   if (n == 0) return cudaSuccess;
@@ -328,6 +336,13 @@ extern "C" int plane_svmc_phased_anneal(const float* w, const float* a_sched,
           static_cast<uint32_t>(plane_stride), color, t, xblocks, seed_term);
       *launched += 1;
       src = 1 - src;
+    }
+    if (energies != nullptr) {
+      // cs[src] holds cos theta of every site as the step left it
+      mcs::launch_plane_energy(w, cs[src], chains, 1, L, true,
+                               energies + static_cast<size_t>(t) * chains,
+                               st);
+      *energy_launched += 1;
     }
     if (t == 0) {
       e = cudaGetLastError();

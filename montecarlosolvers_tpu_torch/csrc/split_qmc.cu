@@ -75,6 +75,7 @@
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "energy.cuh"
 #include "hw_rng.cuh"
 
 namespace {
@@ -446,6 +447,10 @@ extern "C" int split_qmc_max_active_clusters(int Q, int R, int threads,
 // split_qmc_anneal. Stores the number of kernels it launched in *launched
 // (a host pointer); returns the first launch error, checked after the
 // first step, or cudaGetLastError() at the end.
+// With `energies` (a (steps, chains) float32 device buffer; null: none),
+// the energy kernel (energy.cuh) writes each chain's best-slice energy after
+// every step into row t, one launch a step, counted in *energy_launched (a
+// host pointer).
 extern "C" int split_qmc_phased_anneal(const float* w, const float* h,
                                        const float* b_sched,
                                        const float* jp, float teff,
@@ -457,9 +462,12 @@ extern "C" int split_qmc_phased_anneal(const float* w, const float* h,
                                        int chains, int Q, int nh, int K,
                                        int nslots, int steps, int seed,
                                        int global_moves, int hw_rng,
-                                       void* stream, long long* launched) {
+                                       float* energies, void* stream,
+                                       long long* launched,
+                                       long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
+  *energy_launched = 0;
   const size_t bytes = static_cast<size_t>(chains) * Q * nh * sizeof(float);
   const float* ins[4] = {xe_in, xo_in, ye_in, yo_in};
   float* outs[4] = {xe, xo, ye, yo};
@@ -495,6 +503,12 @@ extern "C" int split_qmc_phased_anneal(const float* w, const float* h,
           w, h, b_sched, teff, ye, xe, xo, yo, 1, Q, nh, K, nslots, xblocks,
           t, seed_term, static_cast<uint32_t>(*launched + 1));
       *launched += 2;
+    }
+    if (energies != nullptr) {
+      mcs::launch_quarters_energy(
+          w, h, xe, xo, ye, yo, chains, Q, nh / K, nslots,
+          energies + static_cast<size_t>(t) * chains, st);
+      *energy_launched += 1;
     }
     if (t == 0) {
       cudaError_t e = cudaGetLastError();

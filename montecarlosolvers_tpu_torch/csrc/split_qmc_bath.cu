@@ -95,6 +95,7 @@
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "energy.cuh"
 #include "hw_rng.cuh"
 
 namespace {
@@ -482,14 +483,20 @@ extern "C" int split_qmc_bath_max_active_clusters(int P, int R, int threads,
 // kernels it launched in *launched (a host pointer); returns the first
 // launch error, checked after the first step, or cudaGetLastError() at the
 // end.
+// With `energies` (a (steps, chains) float32 device buffer; null: none),
+// the energy kernel (energy.cuh) writes each chain's best-slice energy after
+// every step into row t, one launch a step, counted in *energy_launched (a
+// host pointer).
 extern "C" int split_qmc_bath_phased_anneal(
     const float* w, const float* h, const float* b_sched, const float* jp,
     const float* bath, float teff, float two_teff, const float* a_in,
     const float* b_in, float* a_out, float* b_out, int chains, int P, int L,
     int nslots, int steps, int seed, int global_moves, int hw_rng,
-    void* stream, long long* launched) {
+    float* energies, void* stream, long long* launched,
+    long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
+  *energy_launched = 0;
   const int K = L / 2;
   const int nh = L * K;
   const size_t bytes =
@@ -523,6 +530,12 @@ extern "C" int split_qmc_bath_phased_anneal(
             static_cast<uint32_t>(*launched));
         *launched += 1;
       }
+    }
+    if (energies != nullptr) {
+      mcs::launch_halves_energy(w, h, a_out, b_out, chains, P, L, nslots,
+                                false, energies + static_cast<size_t>(t) *
+                                                      chains, st);
+      *energy_launched += 1;
     }
     if (t == 0) {
       e = cudaGetLastError();

@@ -70,6 +70,7 @@
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "energy.cuh"
 #include "hw_rng.cuh"
 
 namespace {
@@ -237,18 +238,23 @@ extern "C" int split_sa_max_active_clusters(int R, int threads, int L,
 // The same anneal on the per-phase kernel: halves a_in, b_in of (chains,
 // nh) float32 +/-1 (nh = L*L/2) are copied to a_out, b_out and updated
 // there in place, two launches a step; hw_rng as for split_sa_anneal.
-// Stores the number of kernels it launched in *launched (a host pointer);
-// returns the first launch error, checked after the first step, or
-// cudaGetLastError() at the end.
+// With `energies` (a (steps, chains) float32 device buffer; null: none),
+// the energy kernel (energy.cuh) writes each chain's energy after every
+// step into row t, one launch a step. Stores the number of update kernels
+// it launched in *launched and of energy kernels in *energy_launched (host
+// pointers); returns the first launch error, checked after the first
+// step, or cudaGetLastError() at the end.
 extern "C" int split_sa_phased_anneal(const float* w, const float* h,
                                       const float* sched, const float* a_in,
                                       const float* b_in, float* a_out,
                                       float* b_out, int chains, int L,
                                       int nslots, int steps, int seed,
-                                      int hw_rng, void* stream,
-                                      long long* launched) {
+                                      int hw_rng, float* energies,
+                                      void* stream, long long* launched,
+                                      long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
+  *energy_launched = 0;
   const int K = L / 2;
   const int nh = L * K;
   const size_t bytes = static_cast<size_t>(chains) * nh * sizeof(float);
@@ -271,6 +277,12 @@ extern "C" int split_sa_phased_anneal(const float* w, const float* h,
                                       nslots, xblocks, t, seed_term,
                                       static_cast<uint32_t>(*launched + 1));
     *launched += 2;
+    if (energies != nullptr) {
+      mcs::launch_halves_energy(w, h, a_out, b_out, chains, 1, L, nslots,
+                                false, energies + static_cast<size_t>(t) *
+                                                      chains, st);
+      *energy_launched += 1;
+    }
     if (t == 0) {
       e = cudaGetLastError();
       if (e != cudaSuccess) return e;

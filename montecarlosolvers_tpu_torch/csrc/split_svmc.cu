@@ -78,6 +78,7 @@
 
 #include "cluster.cuh"
 #include "counter_hash.cuh"
+#include "energy.cuh"
 #include "hw_rng.cuh"
 #include "svmc.cuh"
 
@@ -332,6 +333,10 @@ extern "C" int split_svmc_max_active_clusters(int R, int threads, int L,
 // hw_rng as for split_svmc_anneal. Stores the number of kernels it
 // launched in *launched (a host pointer); returns the first launch error,
 // checked after the first step, or cudaGetLastError() at the end.
+// With `energies` (a (steps, chains) float32 device buffer; null: none),
+// the energy kernel (energy.cuh) writes each chain's energy of sign(cos theta) after
+// every step into row t, one launch a step, counted in *energy_launched (a
+// host pointer).
 extern "C" int split_svmc_phased_anneal(const float* w, const float* h,
                                         const float* a_sched,
                                         const float* b_sched, float temp,
@@ -339,10 +344,13 @@ extern "C" int split_svmc_phased_anneal(const float* w, const float* h,
                                         float* a_out, float* b_out,
                                         float* scratch, int chains, int L,
                                         int nslots, int steps, int seed,
-                                        int tf, int hw_rng, void* stream,
-                                        long long* launched) {
+                                        int tf, int hw_rng,
+                                        float* energies, void* stream,
+                                        long long* launched,
+                                        long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
+  *energy_launched = 0;
   const int K = L / 2;
   const int nh = L * K;
   const size_t n = static_cast<size_t>(chains) * nh;
@@ -372,6 +380,13 @@ extern "C" int split_svmc_phased_anneal(const float* w, const float* h,
                                         xblocks, t, seed_term,
                                         static_cast<uint32_t>(*launched));
       *launched += 1;
+    }
+    if (energies != nullptr) {
+      // the cos caches hold cos theta of both halves as the step left them
+      mcs::launch_halves_energy(w, h, cs[0], cs[1], chains, 1, L, nslots,
+                                true, energies + static_cast<size_t>(t) *
+                                                     chains, st);
+      *energy_launched += 1;
     }
     if (t == 0) {
       e = cudaGetLastError();

@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("split_sa", "split_qmc", "split_svmc", "split_qmc_bath",
-           "plane_sa", "plane_qmc", "plane_svmc")
+           "plane_sa", "plane_qmc", "plane_svmc", "energy")
 
 # No --use_fast_math: kernels and their plain versions must round alike.
 NVCC_FLAGS = (
@@ -42,6 +42,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _NP = ctypes.POINTER(ctypes.c_longlong)  # out: number of kernels launched
 _IP = ctypes.POINTER(ctypes.c_int)
+# the last arguments of every per-phase entry point: energies (a (steps,
+# chains) float32 buffer the energy kernel of csrc/energy.cuh fills after
+# each step, or None), stream, launched and energy_launched (out: the energy
+# kernels launched)
+_PHASED_TAIL = [_P, _P, _NP, _NP]
 # C signatures: function -> (restype, argtypes)
 SIGNATURES = {
     "split_sa": {
@@ -51,9 +56,9 @@ SIGNATURES = {
         # R, threads, L, out: clusters resident at once
         "split_sa_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         # the per-phase kernel: w, h, sched, a_in, b_in, a_out, b_out (the
-        # halves as floats), chains, L, nslots, steps, seed, hw_rng, stream,
-        # launched
-        "split_sa_phased_anneal": (_I, [_P] * 7 + [_I] * 6 + [_P, _NP]),
+        # halves as floats), chains, L, nslots, steps, seed, hw_rng, energies,
+        # stream, launched, energy_launched
+        "split_sa_phased_anneal": (_I, [_P] * 7 + [_I] * 6 + _PHASED_TAIL),
         "split_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "split_qmc": {
@@ -67,9 +72,11 @@ SIGNATURES = {
         "split_qmc_max_active_clusters": (_I, [_I] * 4 + [_IP]),
         # the per-phase kernels: w, h, b_sched, jp, teff, 4 quarters in,
         # 4 quarters out, chains, Q, nh, K, nslots, steps, seed,
-        # global_moves, hw_rng, stream, launched
+        # global_moves, hw_rng, energies, stream, launched,
+        # energy_launched
         "split_qmc_phased_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 9 + [_P, _NP]
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 9
+            + _PHASED_TAIL
         ),
         "split_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -84,10 +91,11 @@ SIGNATURES = {
         "split_qmc_bath_max_active_clusters": (_I, [_I] * 4 + [_IP]),
         # the per-phase kernels: w, h, b_sched, jp, bath, teff, 2*teff,
         # a_in, b_in, a_out, b_out, chains, P, L, nslots, steps, seed,
-        # global_moves, hw_rng, stream, launched
+        # global_moves, hw_rng, energies, stream, launched,
+        # energy_launched
         "split_qmc_bath_phased_anneal": (
             _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 8
-            + [_P, _NP]
+            + _PHASED_TAIL
         ),
         "split_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -99,8 +107,8 @@ SIGNATURES = {
         "plane_sa_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         # the per-phase kernel: planes, sched, s_in, s_out, scratch (the
         # planes as floats), chains, L, row_stride, plane_stride, steps,
-        # seed, stream, launched
-        "plane_sa_phased_anneal": (_I, [_P] * 5 + [_I] * 6 + [_P, _NP]),
+        # seed, energies, stream, launched, energy_launched
+        "plane_sa_phased_anneal": (_I, [_P] * 5 + [_I] * 6 + _PHASED_TAIL),
         "plane_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "plane_qmc": {
@@ -114,9 +122,10 @@ SIGNATURES = {
         "plane_qmc_max_active_clusters": (_I, [_I] * 4 + [_IP]),
         # the per-phase kernels: planes, b_sched, jp, teff, s_in, s_out,
         # scratch, chains, P, L, row_stride, plane_stride, m, steps, seed,
-        # global_moves, stream, launched
+        # global_moves, energies, stream, launched, energy_launched
         "plane_qmc_phased_anneal": (
-            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 9 + [_P, _NP]
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 9
+            + _PHASED_TAIL
         ),
         "plane_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -130,9 +139,10 @@ SIGNATURES = {
         "split_svmc_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         # the per-phase kernels: w, h, a_sched, b_sched, temp, a_in, b_in,
         # a_out, b_out, scratch, chains, L, nslots, steps, seed, tf, hw_rng,
-        # stream, launched
+        # energies, stream, launched, energy_launched
         "split_svmc_phased_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 5 + [_I] * 7 + [_P, _NP]
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 5 + [_I] * 7
+            + _PHASED_TAIL
         ),
         "split_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -146,11 +156,21 @@ SIGNATURES = {
         "plane_svmc_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         # the per-phase kernels: planes, a_sched, b_sched, temp, th_in,
         # th_out, scratch, chains, L, row_stride, plane_stride, steps, seed,
-        # tf, stream, launched
+        # tf, energies, stream, launched, energy_launched
         "plane_svmc_phased_anneal": (
-            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 7 + [_P, _NP]
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 7
+            + _PHASED_TAIL
         ),
         "plane_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "energy": {
+        # w, h, a, b, chains, P, L, nslots, cos_theta, out, stream
+        "energy_halves": (_I, [_P] * 4 + [_I] * 5 + [_P, _P]),
+        # w, h, xe, xo, ye, yo, chains, Q, L, nslots, out, stream
+        "energy_quarters": (_I, [_P] * 6 + [_I] * 4 + [_P, _P]),
+        # w, s, chains, P, L, cos_theta, out, stream
+        "energy_plane": (_I, [_P] * 2 + [_I] * 4 + [_P, _P]),
+        "energy_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
@@ -179,6 +199,14 @@ LAUNCHES.update({f"{k}_hw{phased}": 0
                  for k in ("sa_split", "qmc_split", "svmc_split",
                            "qmc_bath_split")
                  for phased in ("", "_phased")})
+# The energy kernel (csrc/energy.cuh) of a collecting anneal counts under
+# "<key>_energy", one launch a step beside the "<key>_phased" launches; its
+# stand-alone entry points (csrc/energy.cu, ops/energy.py) under "energy".
+LAUNCHES.update({f"{k}_energy": 0
+                 for k in ("sa_split", "qmc_split", "svmc_split",
+                           "qmc_bath_split", "sa_plane", "qmc_plane",
+                           "svmc_plane")})
+LAUNCHES["energy"] = 0
 
 
 def reset_launches():
@@ -209,6 +237,26 @@ def check_arg(t, name, shape, device):
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def collecting(energies, hw_rng=False):
+    """True when a kernel wrapper is given an energy buffer
+    (collect_energy=); raises ValueError with `hw_rng`, whose
+    instantiations collect none."""
+    if energies is not None and hw_rng:
+        raise ValueError("energies are collected on the counter hash only "
+                         "(hw_rng=False)")
+    return energies is not None
+
+
+def energies_ptr(energies, steps, chains, device):
+    """What a per-phase entry point takes for `energies`: None (NULL, no
+    energies) or, once it is known to be a contiguous (steps, chains)
+    float32 buffer on `device`, its pointer."""
+    if energies is None:
+        return None
+    check_arg(energies, "energies", (steps, chains), device)
+    return ptr(energies)
 
 
 def stream_of(device):

@@ -74,3 +74,14 @@ def neighbor_sum(pl, s):
             + jd * torch.roll(s, -1, dims=-2)
             + ju * torch.roll(s, 1, dims=-2)
             + h)
+
+
+def plane_energy(pl, s):
+    """H(s) = sum_bonds J s s + sum h s of (..., L, L) spin planes, (...,)
+    float32: the plane form of `LatticeProblem.energy`, summed in its
+    order. Each site adds its right and down bonds (jr, jd; the wrap bonds
+    of a torus included, so an odd torus counts each once) and its field."""
+    jr, _, jd, _, h = pl.w
+    e = torch.sum(jr * s * torch.roll(s, -1, dims=-1), dim=(-1, -2))
+    e = e + torch.sum(jd * s * torch.roll(s, -1, dims=-2), dim=(-1, -2))
+    return e + torch.sum(h * s, dim=(-1, -2))

@@ -54,6 +54,7 @@ import torch
 from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
+from montecarlosolvers_tpu_torch.ops import energy as energy_ops
 from montecarlosolvers_tpu_torch.ops import plane as plane_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels as sk
 from montecarlosolvers_tpu_torch.ops import svmc_ops
@@ -65,11 +66,14 @@ from montecarlosolvers_tpu_torch.ops.piqmc import (spacetime_num_phases,
 # ------------------------------------------------------------ plain versions
 
 
-def sa_plane_anneal_ref(pl, sched, spins, seed):
+def sa_plane_anneal_ref(pl, sched, spins, seed, energies=None):
     """Plain form of kernel 6: anneal `spins` (chains, L, L) over the
     float32 temperatures `sched` (steps,) with counter-hash seed `seed`.
     One step runs color 0, then color 1 (pallas_sa.py:178-197); color p
-    draws from counter(seed, t, p) at the SA site ids."""
+    draws from counter(seed, t, p) at the SA site ids. With `energies`, a
+    (steps, chains) float32 buffer, row t receives each chain's energy
+    after step t (`energy.plane_energy_ref`); the trajectory is the same
+    with or without it."""
     chains, L = spins.shape[0], pl.L
     hu = cr.hashed_uid(cr.plane_uids(chains, L, spins.device))
     par = plane_ops.parity(L, spins.device)
@@ -81,10 +85,13 @@ def sa_plane_anneal_ref(pl, sched, spins, seed):
             u = cr.uniform01_hashed(cr.counter(seed, t, color), hu)
             flip = metropolis_accept(de, temp, u) & (par == color)
             s = torch.where(flip, -s, s)
+        if energies is not None:
+            energies[t] = energy_ops.plane_energy_ref(pl, s)
     return s
 
 
-def qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed, global_moves):
+def qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed, global_moves,
+                         energies=None):
     """Plain form of kernel 3 on confs (chains, P, L, L). `b_sched` and `jp`
     are float32 (steps,) tensors of the longitudinal scale B and of J_perp;
     `teff` = P*T is a Python float.
@@ -95,7 +102,10 @@ def qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed, global_moves):
     uniforms from counter(seed, t, p). With `global_moves`, whole-line
     flips of color 0 and then color 1 follow: a line's dE is
     sum_k -2B s f in index order (J_perp cancels), its uniform is the
-    k = 0 plane's at line_counter(seed, t, color)."""
+    k = 0 plane's at line_counter(seed, t, color). With `energies`, a
+    (steps, chains) float32 buffer, row t receives each chain's best-slice
+    energy after step t (`energy.plane_energy_ref`, solvers/qmc.py:176);
+    the trajectory is the same with or without it."""
     chains, P, L = confs.shape[0], confs.shape[1], pl.L
     dev = confs.device
     m = spacetime_num_phases(2, P)
@@ -123,10 +133,13 @@ def qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed, global_moves):
                 u = cr.uniform01_hashed(cr.line_counter(seed, t, color), hu0)
                 flip = metropolis_accept(de, teff32, u) & (par == color)
                 s = torch.where(flip[:, None], -s, s)
+        if energies is not None:
+            energies[t] = energy_ops.plane_energy_ref(pl, s)
     return s
 
 
-def svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed, tf):
+def svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed, tf,
+                          energies=None):
     """Plain form of kernel 7: anneal rotor angles `theta` (chains, L, L),
     in [0, pi], over the float32 (steps,) schedules A (`a_sched`) and B
     (`b_sched`) at the Python-float temperature `temp`.
@@ -140,7 +153,10 @@ def svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed, tf):
         z  = neighbor_sum(cos th),
 
     computed from the state as the phase found it; the sites of the phase's
-    color take their accepted proposals."""
+    color take their accepted proposals. With `energies`, a (steps,
+    chains) float32 buffer, row t receives each chain's energy of
+    sign(cos theta) after step t (`energy.plane_energy_ref`); the
+    trajectory is the same with or without it."""
     chains, L = theta.shape[0], pl.L
     dev = theta.device
     temp32 = torch.tensor(temp, dtype=torch.float32, device=dev)
@@ -161,6 +177,9 @@ def svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed, tf):
                                     hu)
             acc = metropolis_accept(de, temp32, u) & (par == color)
             th = torch.where(acc, prop, th)
+        if energies is not None:
+            energies[t] = energy_ops.plane_energy_ref(pl, torch.cos(th),
+                                                      cos_theta=True)
     return th
 
 
@@ -268,7 +287,7 @@ def plane_svmc_geometry(chains, L, resident=None):
     return None if R is None else (R, _slot_threads(L, R))
 
 
-def sa_plane_anneal(pl, sched, spins, seed):
+def sa_plane_anneal(pl, sched, spins, seed, energies=None):
     """Kernel 6 on CUDA tensors, `sa_plane_anneal_ref` on CPU tensors.
     Arguments as for `sa_plane_anneal_ref`; returns the new spins. The
     kernel keeps each spin's sign as a bit, so the spins must hold +/-1.
@@ -280,9 +299,16 @@ def sa_plane_anneal(pl, sched, spins, seed):
     (LAUNCHES["sa_plane"]); for a larger plane the per-phase kernel keeps
     the spins as floats in device memory and launches once a phase
     (LAUNCHES["sa_plane_phased"]). Both equal the plain version bitwise;
-    neither is a fallback from a failure of the other."""
+    neither is a fallback from a failure of the other.
+
+    With `energies`, a (steps, chains) float32 buffer (collect_energy=), each
+    chain's energy after every step is written into it. On the card that takes
+    the per-phase kernels at every shape, by that option and not by a failure,
+    and the energy kernel (csrc/energy.cuh) runs after each step from the same
+    loop (LAUNCHES["sa_plane_energy"], one a step); the states are those of the
+    route without energies."""
     if _build.route(spins.device, "plane") == "cpu":
-        return sa_plane_anneal_ref(pl, sched, spins, seed)
+        return sa_plane_anneal_ref(pl, sched, spins, seed, energies)
     chains, L = spins.shape[0], pl.L
     dev = spins.device
     _build.check_arg(spins, "spins", (chains, L, L), dev)
@@ -291,18 +317,21 @@ def sa_plane_anneal(pl, sched, spins, seed):
     _build.check_arg(sched, "sched", (steps,), dev)
     rows, cols = pl.strides
     lib = _build.library("plane_sa")
-    geometry = plane_sa_geometry(chains, L, sk.card_resident("plane_sa", L))
+    geometry = None if _build.collecting(energies) else plane_sa_geometry(
+        chains, L, sk.card_resident("plane_sa", L))
     if geometry is None:
         out = torch.empty_like(spins)
         scratch = torch.empty_like(spins)
-        n = ctypes.c_longlong(0)  # kernels launched
+        n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # launched
         rc = lib.plane_sa_phased_anneal(
             *map(_build.ptr, (pl.w, sched, spins, out, scratch)), chains, L,
             cols, rows * cols, steps, cr.wrap_int32(seed),
-            _build.stream_of(dev), ctypes.byref(n))
+            _build.energies_ptr(energies, steps, chains, dev),
+            _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "plane_sa_phased_anneal", rc,
                               error_fn="plane_sa_anneal_error_string")
         _build.LAUNCHES["sa_plane_phased"] += n.value
+        _build.LAUNCHES["sa_plane_energy"] += ne.value
         return out
     C, R, threads = geometry
     words = sk.pack_chain_bits(spins.reshape(chains, L * L), C)
@@ -317,7 +346,8 @@ def sa_plane_anneal(pl, sched, spins, seed):
     return sk.unpack_chain_bits(out, chains, C).reshape(chains, L, L)
 
 
-def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves):
+def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves,
+                     energies=None):
     """Kernel 3 on CUDA tensors, `qmc_plane_anneal_ref` on CPU tensors.
     Arguments as for `qmc_plane_anneal_ref`; returns new configurations. The
     kernel keeps each spin's sign as a bit, so confs must hold +/-1.
@@ -330,10 +360,17 @@ def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves):
     larger chain the per-phase kernels keep the state as floats in device
     memory and launch m + 2 times a step, m without global moves
     (LAUNCHES["qmc_plane_phased"]). Both equal the plain version bitwise;
-    neither is a fallback from a failure of the other."""
+    neither is a fallback from a failure of the other.
+
+    With `energies`, a (steps, chains) float32 buffer (collect_energy=), each
+    chain's best-slice energy after every step is written into it. On the card
+    that takes the per-phase kernels at every shape, by that option and not by
+    a failure, and the energy kernel (csrc/energy.cuh) runs after each step
+    from the same loop (LAUNCHES["qmc_plane_energy"], one a step); the states
+    are those of the route without energies."""
     if _build.route(confs.device, "plane") == "cpu":
         return qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed,
-                                    global_moves)
+                                    global_moves, energies)
     chains, P, L = confs.shape[0], confs.shape[1], pl.L
     dev = confs.device
     _build.check_arg(confs, "confs", (chains, P, L, L), dev)
@@ -345,8 +382,8 @@ def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves):
     m = spacetime_num_phases(2, P)
     lib = _build.library("plane_qmc")
     head = (*map(_build.ptr, (pl.w, b_sched, jp)), ctypes.c_float(teff))
-    geometry = plane_qmc_geometry(chains, L, P,
-                                  sk.card_resident("plane_qmc", L, P))
+    geometry = None if _build.collecting(energies) else plane_qmc_geometry(
+        chains, L, P, sk.card_resident("plane_qmc", L, P))
     if geometry is not None:
         words = pack_slice_bits(confs.reshape(chains, P, L * L))
         out = torch.empty_like(words)
@@ -360,19 +397,22 @@ def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves):
         return unpack_slice_bits(out, P).reshape(chains, P, L, L)
     out = torch.empty_like(confs)
     scratch = torch.empty_like(confs)
-    n = ctypes.c_longlong(0)  # kernels launched
+    n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # kernels launched
     rc = lib.plane_qmc_phased_anneal(
         *head, *map(_build.ptr, (confs, out, scratch)), chains, P, L, cols,
         rows * cols, m, steps, cr.wrap_int32(seed), int(bool(global_moves)),
-        _build.stream_of(dev), ctypes.byref(n),
+        _build.energies_ptr(energies, steps, chains, dev),
+        _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne),
     )
     _build.raise_on_error(lib, "plane_qmc_phased_anneal", rc,
                           error_fn="plane_qmc_anneal_error_string")
     _build.LAUNCHES["qmc_plane_phased"] += n.value
+    _build.LAUNCHES["qmc_plane_energy"] += ne.value
     return out
 
 
-def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf):
+def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf,
+                      energies=None):
     """Kernel 7 on CUDA tensors, `svmc_plane_anneal_ref` on CPU tensors.
     Arguments as for `svmc_plane_anneal_ref`; returns the new angles.
 
@@ -384,10 +424,18 @@ def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf):
     kernels keep them in device memory and launch once a phase, once more
     to fill the caches (LAUNCHES["svmc_plane_phased"]). Both equal the
     plain version bitwise; neither is a fallback from a failure of the
-    other."""
+    other.
+
+    With `energies`, a (steps, chains) float32 buffer (collect_energy=), each
+    chain's energy of sign(cos theta), from the cos cache, after every step is
+    written into it. On the card that takes the per-phase kernels at every
+    shape, by that option and not by a failure, and the energy kernel
+    (csrc/energy.cuh) runs after each step from the same loop
+    (LAUNCHES["svmc_plane_energy"], one a step); the states are those of the
+    route without energies."""
     if _build.route(theta.device, "plane") == "cpu":
         return svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed,
-                                     tf)
+                                     tf, energies)
     chains, L = theta.shape[0], pl.L
     dev = theta.device
     _build.check_arg(theta, "theta", (chains, L, L), dev)
@@ -400,19 +448,21 @@ def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf):
     lib = _build.library("plane_svmc")
     head = (*map(_build.ptr, (pl.w, a_sched, b_sched)), ctypes.c_float(temp),
             *map(_build.ptr, (theta, out)))
-    geometry = plane_svmc_geometry(chains, L,
-                                   sk.card_resident("plane_svmc", L))
+    geometry = None if _build.collecting(energies) else plane_svmc_geometry(
+        chains, L, sk.card_resident("plane_svmc", L))
     if geometry is None:
         scratch = torch.empty((3, chains, L, L), dtype=torch.float32,
                               device=dev)
-        n = ctypes.c_longlong(0)  # kernels launched
+        n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # launched
         rc = lib.plane_svmc_phased_anneal(
             *head, _build.ptr(scratch), chains, L, cols, rows * cols, steps,
-            cr.wrap_int32(seed), int(bool(tf)), _build.stream_of(dev),
-            ctypes.byref(n))
+            cr.wrap_int32(seed), int(bool(tf)),
+            _build.energies_ptr(energies, steps, chains, dev),
+            _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "plane_svmc_phased_anneal", rc,
                               error_fn="plane_svmc_anneal_error_string")
         _build.LAUNCHES["svmc_plane_phased"] += n.value
+        _build.LAUNCHES["svmc_plane_energy"] += ne.value
         return out
     rc = lib.plane_svmc_anneal(
         *head, chains, *geometry, L, cols, rows * cols, steps,
@@ -439,52 +489,67 @@ def _planes_of(problem, state, name):
     return plane_ops.build_plane(problem)
 
 
-def anneal_lattice(problem, sched, spins, seed, mcsteps=1):
+def anneal_lattice(problem, sched, spins, seed, mcsteps=1,
+                   collect_energy=False):
     """Full-plane SA anneal on a LatticeProblem of any L, open or periodic
     (counterpart of `pallas_sa.anneal_lattice`, without its TPU padding).
 
     sched: (steps,) temperatures; spins: (chains, N) or (N,) float32 +/-1 on
-    the problem's device; seed: int counter-hash seed. Returns the annealed
-    spins, same shape."""
+    the problem's device; seed: int counter-hash seed; collect_energy: also
+    return the energy after each sweep, (steps * mcsteps,) + batch, as
+    `split_kernels.anneal_lattice_split` does. Returns the annealed spins,
+    same shape, or (spins, energies)."""
     pl = _planes_of(problem, spins, "spins")
     temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
     L = pl.L
+    batch = spins.shape[:-1]
+    es = sk.energy_buffer(collect_energy, temps.shape[0], batch,
+                          problem.device)
     s = spins.to(torch.float32).reshape(-1, L, L).contiguous()
-    out = sa_plane_anneal(pl, temps, s, seed)
-    return out.reshape(spins.shape)
+    out = sa_plane_anneal(pl, temps, s, seed, es)
+    return sk.with_energies(out.reshape(spins.shape), es, batch)
 
 
 def anneal_lattice_qmc(problem, a_sched, b_sched, temp, confs, seed,
-                       mcsteps=1, global_moves=True):
+                       mcsteps=1, global_moves=True, collect_energy=False):
     """Full-plane PIQMC anneal on a LatticeProblem of any L at any P
     (counterpart of `pallas_qmc.anneal_lattice_qmc`).
 
     a_sched / b_sched: (steps,) Gamma and B; temp: ambient T, T_eff = P*T;
     confs: (chains, P, N) or (P, N) float32 +/-1 slices-major, on the
-    problem's device. Returns the annealed configurations, same shape."""
+    problem's device; collect_energy: also return the best-slice energy
+    after each sweep, (steps * mcsteps,) + batch. Returns the annealed
+    configurations, same shape, or (confs, energies)."""
     pl = _planes_of(problem, confs, "confs")
     P, L = confs.shape[-2], pl.L
     b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, P, mcsteps,
                                       problem.device)
+    batch = confs.shape[:-2]
+    es = sk.energy_buffer(collect_energy, b.shape[0], batch, problem.device)
     c = confs.to(torch.float32).reshape(-1, P, L, L).contiguous()
-    out = qmc_plane_anneal(pl, b, jp, teff, c, seed, global_moves)
-    return out.reshape(confs.shape)
+    out = qmc_plane_anneal(pl, b, jp, teff, c, seed, global_moves, es)
+    return sk.with_energies(out.reshape(confs.shape), es, batch)
 
 
 def anneal_lattice_svmc(problem, a_sched, b_sched, temp, theta, seed,
-                        mcsteps=1, tf=False):
+                        mcsteps=1, tf=False, collect_energy=False):
     """Full-plane SVMC anneal on a LatticeProblem of any L, open or periodic
     (counterpart of `pallas_svmc.anneal_lattice_svmc`, without its TPU
     padding).
 
     a_sched / b_sched: (steps,) A and B; temp: the fixed temperature;
     theta: (chains, N) or (N,) float32 angles in [0, pi] on the problem's
-    device; seed: int counter-hash seed; tf: TF proposals. Returns the
-    annealed angles, same shape."""
+    device; seed: int counter-hash seed; tf: TF proposals; collect_energy:
+    also return the energy of sign(cos theta) after each sweep,
+    (steps * mcsteps,) + batch. Returns the annealed angles, same shape,
+    or (theta, energies)."""
     pl = _planes_of(problem, theta, "theta")
     a_s, b_s = (schedules.expand_mcsteps(x, mcsteps, problem.device)
                 for x in (a_sched, b_sched))
     L = pl.L
+    batch = theta.shape[:-1]
+    es = sk.energy_buffer(collect_energy, a_s.shape[0], batch,
+                          problem.device)
     th = theta.to(torch.float32).reshape(-1, L, L).contiguous()
-    out = svmc_plane_anneal(pl, a_s, b_s, temp, th, seed, tf)
-    return out.reshape(theta.shape)
+    out = svmc_plane_anneal(pl, a_s, b_s, temp, th, seed, tf, es)
+    return sk.with_energies(out.reshape(theta.shape), es, batch)

@@ -53,11 +53,18 @@ choice with a stand-in count. For a shape that no cluster of
 CLUSTER_SIZES[-1] CTAs holds they return None, and the wrapper runs the
 kernel's per-phase kernels, which keep the state in device memory: the
 card refuses no lattice and no P.
+
+With an `energies` buffer (the solvers' collect_energy=), every wrapper
+takes its per-phase kernels at any shape and their C++ loop launches the
+energy kernel (csrc/energy.cuh, `ops/energy.py`) after each step, counted
+under "<key>_energy"; each plain version fills the buffer from the
+readouts of `ops/energy.py`. The same holds for `ops/plane_kernels.py`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -65,6 +72,7 @@ import torch
 from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
+from montecarlosolvers_tpu_torch.ops import energy as energy_ops
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
@@ -106,12 +114,16 @@ def hw_uniforms(seed, device):
     return draw
 
 
-def sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng=False):
+def sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng=False,
+                        energies=None):
     """Plain form of kernel A: anneal halves a, b (chains, Nh) over the
     float32 temperatures `sched` (steps,) with counter-hash seed `seed`
     (with `hw_rng`, uniforms from `hw_uniforms(seed)`, one draw of the
     half's shape a phase). Returns the new (a, b). One step updates half a
-    from half b, then half b from the new half a (pallas_split.py:151-164)."""
+    from half b, then half b from the new half a (pallas_split.py:151-164).
+    With `energies`, a (steps, chains) float32 buffer, row t receives each
+    chain's energy after step t (`energy.halves_energy_ref`, the readout of
+    ops/split.py:245); the trajectory is the same with or without it."""
     chains, nh = a.shape
     K = sl.K
     wa, wb = sl.w_ab[:, 0], sl.w_ab[:, 1]
@@ -129,11 +141,13 @@ def sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng=False):
         u = (draw(b.shape) if draw else
              cr.uniform01_hashed(cr.counter(seed, t, 1), hu_b))
         b = torch.where(metropolis_accept(de, temp, u), -b, b)
+        if energies is not None:
+            energies[t] = energy_ops.halves_energy_ref(sl, a, b)
     return a, b
 
 
 def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
-                         global_moves, hw_rng=False):
+                         global_moves, hw_rng=False, energies=None):
     """Plain form of kernel B on the quarters (xe, xo, ye, yo), each
     (chains, Q, Nh). `b_sched` and `jp` are float32 (steps,) tensors of the
     longitudinal scale B and of J_perp; `teff` = P*T is a Python float.
@@ -149,7 +163,10 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
     against ye, xo, then color B lines (ye, xo) against the updated A
     quarters. A line's dE is -2B sum_q s f; J_perp cancels. With `hw_rng`,
     uniforms from `hw_uniforms(seed)`, one draw of the quarter's or the
-    lines' shape per update phase, in that order."""
+    lines' shape per update phase, in that order. With `energies`, a
+    (steps, chains) float32 buffer, row t receives each chain's best-slice
+    energy after step t, line moves included (`energy.quarters_energy_ref`,
+    ops/split.py:676); the trajectory is the same with or without it."""
     xe, xo, ye, yo = quarters
     chains, Q, nh = xe.shape
     K = sl.K
@@ -199,11 +216,14 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
             xe, yo = xe * m, yo * m
             m = line_flips(ye, xe, xo, yo, 1)
             ye, xo = ye * m, xo * m
+        if energies is not None:
+            energies[t] = energy_ops.quarters_energy_ref(sl,
+                                                         (xe, xo, ye, yo))
     return xe, xo, ye, yo
 
 
 def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
-                              global_moves, hw_rng=False):
+                              global_moves, hw_rng=False, energies=None):
     """Plain form of kernel 5 on the per-slice halves a, b, each
     (chains, P, Nh), P >= 2. `b_sched` and `jp` are float32 (steps,) tensors
     of B and J_perp, `teff` = P*T a Python float, `bath` the (P, P) float32
@@ -223,7 +243,10 @@ def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
     dE = -2B sum_p s_p (f_p + h) (slices in index order; J_perp and the
     bath cancel), then those of half B against the flipped A, at counter
     index 2P + half. With `hw_rng`, uniforms from `hw_uniforms(seed)`, one
-    draw of a slice's or the lines' shape per update, in that order."""
+    draw of a slice's or the lines' shape per update, in that order. With
+    `energies`, a (steps, chains) float32 buffer, row t receives each
+    chain's best-slice energy after step t (`energy.halves_energy_ref`,
+    ops/split.py:715); the trajectory is the same with or without it."""
     chains, P, nh = a.shape
     K = sl.K
     dev = a.device
@@ -271,11 +294,13 @@ def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
                                          hu[half]))
                 acc = metropolis_accept(de, teff32, u)
                 s.mul_(torch.where(acc, -1.0, 1.0)[:, None, :])
+        if energies is not None:
+            energies[t] = energy_ops.halves_energy_ref(sl, a, b)
     return a, b
 
 
 def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf,
-                          hw_rng=False):
+                          hw_rng=False, energies=None):
     """Plain form of kernel 4: anneal the rotor angles of halves a, b
     (chains, Nh), in [0, pi], over the float32 (steps,) schedules A
     (`a_sched`) and B (`b_sched`) at the Python-float temperature `temp`.
@@ -294,7 +319,11 @@ def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf,
     accepted move writes cos(th') and sin(th'), never an increment, so the
     caches always equal cos and sin of the angles. With `hw_rng`, uniforms
     from `hw_uniforms(seed)`: per half-phase a draw of the half's shape for
-    the proposals, then one for the acceptances."""
+    the proposals, then one for the acceptances. With `energies`, a
+    (steps, chains) float32 buffer, row t receives each chain's energy of
+    sign(cos theta) after step t, read from the cos caches
+    (`energy.halves_energy_ref`, ops/split.py:324-330); the trajectory is
+    the same with or without it."""
     chains, nh = a.shape
     K = sl.K
     dev = a.device
@@ -320,6 +349,9 @@ def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf,
             halves[c] = [torch.where(acc, prop, th),
                          torch.where(acc, cos_p, cos_t),
                          torch.where(acc, sin_p, sin_t)]
+        if energies is not None:
+            energies[t] = energy_ops.halves_energy_ref(
+                sl, halves[0][1], halves[1][1], cos_theta=True)
     return halves[0][0], halves[1][0]
 
 
@@ -497,7 +529,7 @@ def _key(key, hw_rng):
     return key + "_hw" if hw_rng else key
 
 
-def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False):
+def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False, energies=None):
     """Kernel A on CUDA tensors, `sa_split_anneal_ref` on CPU tensors.
     Arguments as for `sa_split_anneal_ref`; returns new (a, b). The kernel
     keeps each spin's sign as a bit, so the halves must hold +/-1.
@@ -511,9 +543,17 @@ def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False):
     (LAUNCHES["sa_split_phased"]). Both equal the plain version bitwise;
     neither is a fallback from a failure of the other. `hw_rng` takes the
     generator instantiation of either (LAUNCHES["sa_split_hw"],
-    ["sa_split_hw_phased"]), held to the plain version in distribution."""
+    ["sa_split_hw_phased"]), held to the plain version in distribution.
+
+    With `energies`, a (steps, chains) float32 buffer (collect_energy=), each
+    chain's energy after every step is written into it. On the card that takes
+    the per-phase kernels at every shape, by that option and not by a failure,
+    and the energy kernel (csrc/energy.cuh) runs after each step from the same
+    loop (LAUNCHES["sa_split_energy"], one a step); the states are those of the
+    route without energies. `hw_rng` collects none."""
+    collect = _build.collecting(energies, hw_rng)
     if _build.route(a.device, "split") == "cpu":
-        return sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng)
+        return sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng, energies)
     chains, nh = a.shape
     dev = a.device
     if nh != sl.nh:
@@ -524,18 +564,22 @@ def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False):
     _build.check_arg(sl.h_ab, "h_ab", (2, nh), dev)
     _build.check_arg(sched, "sched", (sched.shape[0],), dev)
     lib = _build.library("split_sa")
-    geometry = sa_geometry(chains, sl.L, card_resident("split_sa", sl.L))
+    steps = int(sched.shape[0])
+    geometry = None if collect else sa_geometry(
+        chains, sl.L, card_resident("split_sa", sl.L))
     if geometry is None:
         a_out, b_out = torch.empty_like(a), torch.empty_like(b)
-        n = ctypes.c_longlong(0)  # kernels launched
+        n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # launched
         rc = lib.split_sa_phased_anneal(
             *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a, b, a_out, b_out)),
-            chains, sl.L, sl.nslots, int(sched.shape[0]),
-            cr.wrap_int32(seed), int(bool(hw_rng)), _build.stream_of(dev),
-            ctypes.byref(n))
+            chains, sl.L, sl.nslots, steps, cr.wrap_int32(seed),
+            int(bool(hw_rng)),
+            _build.energies_ptr(energies, steps, chains, dev),
+            _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "split_sa_phased_anneal", rc,
                               error_fn="split_sa_anneal_error_string")
         _build.LAUNCHES[_key("sa_split", hw_rng) + "_phased"] += n.value
+        _build.LAUNCHES["sa_split_energy"] += ne.value
         return a_out, b_out
     C, R, threads = geometry
     a_in, b_in = pack_chain_bits(a, C), pack_chain_bits(b, C)
@@ -543,7 +587,7 @@ def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False):
     rc = lib.split_sa_anneal(
         *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a_in, b_in, a_out,
                           b_out)),
-        chains, C, R, threads, sl.L, sl.nslots, int(sched.shape[0]),
+        chains, C, R, threads, sl.L, sl.nslots, steps,
         cr.wrap_int32(seed), int(bool(hw_rng)), _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "split_sa_anneal", rc)
@@ -553,7 +597,7 @@ def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False):
 
 
 def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
-                     hw_rng=False):
+                     hw_rng=False, energies=None):
     """Kernel B on CUDA tensors, `qmc_split_anneal_ref` on CPU tensors.
     Arguments as for `qmc_split_anneal_ref`; returns new quarters. The
     kernel keeps each spin's sign as a bit, so the quarters must hold +/-1.
@@ -568,11 +612,19 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
     (LAUNCHES["qmc_split_phased"]). Both equal the plain version bitwise;
     neither is a fallback from a failure of the other. `hw_rng` takes the
     generator instantiation of either (LAUNCHES["qmc_split_hw"],
-    ["qmc_split_hw_phased"]), held to the plain version in distribution."""
+    ["qmc_split_hw_phased"]), held to the plain version in distribution.
+
+    With `energies`, a (steps, chains) float32 buffer (collect_energy=), each
+    chain's best-slice energy after every step is written into it. On the card
+    that takes the per-phase kernels at every shape, by that option and not by
+    a failure, and the energy kernel (csrc/energy.cuh) runs after each step
+    from the same loop (LAUNCHES["qmc_split_energy"], one a step); the states
+    are those of the route without energies. `hw_rng` collects none."""
+    collect = _build.collecting(energies, hw_rng)
     xe = quarters[0]
     if _build.route(xe.device, "split") == "cpu":
         return qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
-                                    global_moves, hw_rng)
+                                    global_moves, hw_rng, energies)
     chains, Q, nh = xe.shape
     dev = xe.device
     if nh != sl.nh:
@@ -588,8 +640,8 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
     lib = _build.library("split_qmc")
     args = (*map(_build.ptr, (sl.w_ab, sl.h_ab, b_sched, jp)),
             ctypes.c_float(teff), *map(_build.ptr, (*quarters, *outs)))
-    geometry = qmc_geometry(chains, sl.L, 2 * Q,
-                            card_resident("split_qmc", sl.L, 2 * Q))
+    geometry = None if collect else qmc_geometry(
+        chains, sl.L, 2 * Q, card_resident("split_qmc", sl.L, 2 * Q))
     if geometry is not None:
         rc = lib.split_qmc_anneal(
             *args, chains, Q, *geometry, sl.L, sl.nslots, steps,
@@ -598,20 +650,22 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
         _build.raise_on_error(lib, "split_qmc_anneal", rc)
         _build.LAUNCHES[_key("qmc_split", hw_rng)] += 1
         return tuple(outs)
-    n = ctypes.c_longlong(0)  # kernels launched
+    n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # kernels launched
     rc = lib.split_qmc_phased_anneal(
         *args, chains, Q, nh, sl.K, sl.nslots, steps, cr.wrap_int32(seed),
-        int(bool(global_moves)), int(bool(hw_rng)), _build.stream_of(dev),
-        ctypes.byref(n),
+        int(bool(global_moves)), int(bool(hw_rng)),
+        _build.energies_ptr(energies, steps, chains, dev),
+        _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne),
     )
     _build.raise_on_error(lib, "split_qmc_phased_anneal", rc,
                           error_fn="split_qmc_anneal_error_string")
     _build.LAUNCHES[_key("qmc_split", hw_rng) + "_phased"] += n.value
+    _build.LAUNCHES["qmc_split_energy"] += ne.value
     return tuple(outs)
 
 
 def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
-                          global_moves, hw_rng=False):
+                          global_moves, hw_rng=False, energies=None):
     """Kernel 5 on CUDA tensors, `qmc_bath_split_anneal_ref` on CPU tensors.
     Arguments as for `qmc_bath_split_anneal_ref`; returns new (a, b). The
     kernel keeps each spin's sign, so the halves must hold +/-1.
@@ -626,10 +680,19 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
     Both equal the plain version bitwise; neither is a fallback from a
     failure of the other. `hw_rng` takes the generator instantiation of
     either (LAUNCHES["qmc_bath_split_hw"], ["qmc_bath_split_hw_phased"]),
-    held to the plain version in distribution."""
+    held to the plain version in distribution.
+
+    With `energies`, a (steps, chains) float32 buffer (collect_energy=), each
+    chain's best-slice energy after every step is written into it. On the card
+    that takes the per-phase kernels at every shape, by that option and not by
+    a failure, and the energy kernel (csrc/energy.cuh) runs after each step
+    from the same loop (LAUNCHES["qmc_bath_split_energy"], one a step); the
+    states are those of the route without energies. `hw_rng` collects none."""
+    collect = _build.collecting(energies, hw_rng)
     if _build.route(a.device, "split") == "cpu":
         return qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b,
-                                         seed, global_moves, hw_rng)
+                                         seed, global_moves, hw_rng,
+                                         energies)
     chains, P, nh = a.shape
     dev = a.device
     if nh != sl.nh:
@@ -650,17 +713,19 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
     head = (*map(_build.ptr, (sl.w_ab, sl.h_ab, b_sched, jp, bath)),
             ctypes.c_float(teff), ctypes.c_float(2.0 * teff),
             *map(_build.ptr, (a, b, a_out, b_out)))
-    geometry = qmc_bath_geometry(chains, sl.L, P,
-                                 card_resident("split_qmc_bath", sl.L, P))
+    geometry = None if collect else qmc_bath_geometry(
+        chains, sl.L, P, card_resident("split_qmc_bath", sl.L, P))
     if geometry is None:
-        n = ctypes.c_longlong(0)  # kernels launched
+        n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # launched
         rc = lib.split_qmc_bath_phased_anneal(
             *head, chains, P, sl.L, sl.nslots, steps, cr.wrap_int32(seed),
             int(bool(global_moves)), int(bool(hw_rng)),
-            _build.stream_of(dev), ctypes.byref(n))
+            _build.energies_ptr(energies, steps, chains, dev),
+            _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "split_qmc_bath_phased_anneal", rc,
                               error_fn="split_qmc_bath_anneal_error_string")
         _build.LAUNCHES[_key("qmc_bath_split", hw_rng) + "_phased"] += n.value
+        _build.LAUNCHES["qmc_bath_split_energy"] += ne.value
         return a_out, b_out
     rc = lib.split_qmc_bath_anneal(
         *head, chains, P, *geometry, sl.L, sl.nslots, steps,
@@ -673,7 +738,7 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
 
 
 def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf,
-                      hw_rng=False):
+                      hw_rng=False, energies=None):
     """Kernel 4 on CUDA tensors, `svmc_split_anneal_ref` on CPU tensors.
     Arguments as for `svmc_split_anneal_ref`; returns new (a, b).
 
@@ -687,10 +752,19 @@ def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf,
     plain version bitwise; neither is a fallback from a failure of the
     other. `hw_rng` takes the generator instantiation of either
     (LAUNCHES["svmc_split_hw"], ["svmc_split_hw_phased"]), held to the
-    plain version in distribution."""
+    plain version in distribution.
+
+    With `energies`, a (steps, chains) float32 buffer (collect_energy=), each
+    chain's energy of sign(cos theta), from the cos caches, after every step is
+    written into it. On the card that takes the per-phase kernels at every
+    shape, by that option and not by a failure, and the energy kernel
+    (csrc/energy.cuh) runs after each step from the same loop
+    (LAUNCHES["svmc_split_energy"], one a step); the states are those of the
+    route without energies. `hw_rng` collects none."""
+    collect = _build.collecting(energies, hw_rng)
     if _build.route(a.device, "split") == "cpu":
         return svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed,
-                                     tf, hw_rng)
+                                     tf, hw_rng, energies)
     chains, nh = a.shape
     dev = a.device
     if nh != sl.nh:
@@ -707,19 +781,21 @@ def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf,
     lib = _build.library("split_svmc")
     head = (*map(_build.ptr, (sl.w_ab, sl.h_ab, a_sched, b_sched)),
             ctypes.c_float(temp), *map(_build.ptr, (a, b, a_out, b_out)))
-    geometry = svmc_split_geometry(chains, sl.L,
-                                   card_resident("split_svmc", sl.L))
+    geometry = None if collect else svmc_split_geometry(
+        chains, sl.L, card_resident("split_svmc", sl.L))
     if geometry is None:
         scratch = torch.empty((4, chains, nh), dtype=torch.float32,
                               device=dev)
-        n = ctypes.c_longlong(0)  # kernels launched
+        n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # launched
         rc = lib.split_svmc_phased_anneal(
             *head, _build.ptr(scratch), chains, sl.L, sl.nslots, steps,
             cr.wrap_int32(seed), int(bool(tf)), int(bool(hw_rng)),
-            _build.stream_of(dev), ctypes.byref(n))
+            _build.energies_ptr(energies, steps, chains, dev),
+            _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "split_svmc_phased_anneal", rc,
                               error_fn="split_svmc_anneal_error_string")
         _build.LAUNCHES[_key("svmc_split", hw_rng) + "_phased"] += n.value
+        _build.LAUNCHES["svmc_split_energy"] += ne.value
         return a_out, b_out
     rc = lib.split_svmc_anneal(
         *head, chains, *geometry, sl.L, sl.nslots, steps,
@@ -747,6 +823,24 @@ def _split_of(problem, state, name, slices=None):
     return split_ops.build_split(problem)
 
 
+def energy_buffer(collect_energy, steps, batch, device):
+    """The (steps, chains) float32 buffer a collecting anneal fills, chains
+    the product of the state's `batch` dimensions; None without
+    `collect_energy`."""
+    if not collect_energy:
+        return None
+    return torch.empty((steps, math.prod(batch)), dtype=torch.float32,
+                       device=device)
+
+
+def with_energies(out, energies, batch):
+    """What a lattice-level engine returns: `out`, or (out, energies) with
+    the energies shaped (steps,) + batch, as the JAX solvers return them."""
+    if energies is None:
+        return out
+    return out, energies.reshape((energies.shape[0],) + tuple(batch))
+
+
 def _on_halves(sl, state, fn):
     """Pack `state`, (chains, N) or (N,), into contiguous float32 halves,
     run fn(a, b) -> (a, b) on them, and unpack to the state's shape."""
@@ -757,7 +851,7 @@ def _on_halves(sl, state, fn):
 
 
 def anneal_lattice_split(problem, sched, spins, seed, mcsteps=1,
-                         hw_rng=False):
+                         hw_rng=False, collect_energy=False):
     """Split-layout SA anneal on an even-L LatticeProblem (counterpart of
     `pallas_split.anneal_lattice_split`, without its TPU lane rules and its
     `chain_block` and `chunk`, which tile the TPU's grid).
@@ -765,40 +859,52 @@ def anneal_lattice_split(problem, sched, spins, seed, mcsteps=1,
     sched: (steps,) temperatures; spins: (chains, N) or (N,) float32 +/-1 on
     the problem's device; seed: int counter-hash seed; hw_rng: draw the
     uniforms from the kernel's generator streams instead of the counter
-    hash (see the module docstring: another stream, held in distribution).
-    Returns the annealed spins, same shape."""
+    hash (see the module docstring: another stream, held in distribution);
+    collect_energy: also return the energy after each sweep, float32 of
+    shape (steps * mcsteps,) + batch (the JAX solver's `collect_energy`);
+    on the card it takes the per-phase kernel and the energy kernel.
+    Returns the annealed spins, same shape, or (spins, energies)."""
     sl = _split_of(problem, spins, "spins")
     temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
-    return _on_halves(sl, spins, lambda a, b: sa_split_anneal(
-        sl, temps, a, b, seed, hw_rng))
+    batch = spins.shape[:-1]
+    es = energy_buffer(collect_energy, temps.shape[0], batch, problem.device)
+    out = _on_halves(sl, spins, lambda a, b: sa_split_anneal(
+        sl, temps, a, b, seed, hw_rng, es))
+    return with_energies(out, es, batch)
 
 
 def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
-                             mcsteps=1, global_moves=True, hw_rng=False):
+                             mcsteps=1, global_moves=True, hw_rng=False,
+                             collect_energy=False):
     """Split-layout PIQMC anneal on an even-L LatticeProblem at even P
     (counterpart of `pallas_split.anneal_lattice_qmc_split`, without its
     `chain_block` and `chunk`).
 
     a_sched / b_sched: (steps,) Gamma and B; temp: ambient T, T_eff = P*T;
     confs: (chains, P, N) or (P, N) float32 +/-1 slices-major, on the
-    problem's device; hw_rng as for `anneal_lattice_split`. Returns the
-    annealed configurations, same shape."""
+    problem's device; hw_rng as for `anneal_lattice_split`; collect_energy:
+    also return the best-slice energy after each sweep (line moves
+    included), (steps * mcsteps,) + batch. Returns the annealed
+    configurations, same shape, or (confs, energies)."""
     slices = confs.shape[-2]
     sl = _split_of(problem, confs, "confs", slices)
     b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, slices,
                                       mcsteps, problem.device)
     squeeze = confs.ndim == 2
     c = confs[None] if squeeze else confs
+    batch = confs.shape[:-2]
+    es = energy_buffer(collect_energy, b.shape[0], batch, problem.device)
     quarters = split_ops.pack_qmc(sl, c.to(torch.float32))
     quarters = qmc_split_anneal(sl, b, jp, teff, quarters, seed,
-                                global_moves, hw_rng)
+                                global_moves, hw_rng, es)
     out = split_ops.unpack_qmc(sl, *quarters)
-    return out[0] if squeeze else out
+    return with_energies(out[0] if squeeze else out, es, batch)
 
 
 def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
                                   lookuptable, confs, seed, mcsteps=1,
-                                  global_moves=False, hw_rng=False):
+                                  global_moves=False, hw_rng=False,
+                                  collect_energy=False):
     """Split-layout dissipative PIQMC anneal on an even-L LatticeProblem at
     any P >= 2 (counterpart of `pallas_split.anneal_lattice_qmc_bath_split`,
     without its TPU lane rules, `chain_block` and `chunk`).
@@ -809,8 +915,9 @@ def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
     (chains, P, N) or (P, N) float32 +/-1 slices-major, on the problem's
     device; seed: int counter-hash seed; global_moves: whole-line flips
     after each sweep (DissipativeQuantumAnnealGlobal, qmc.pyx:444-609);
-    hw_rng as for `anneal_lattice_split`. Returns the annealed
-    configurations, same shape."""
+    hw_rng as for `anneal_lattice_split`; collect_energy as for
+    `anneal_lattice_qmc_split`. Returns the annealed configurations, same
+    shape, or (confs, energies)."""
     slices = confs.shape[-2]
     if slices < 2:
         raise ValueError(f"the bath engine takes P >= 2 slices, got {slices}")
@@ -827,16 +934,19 @@ def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
     bath = bath_matrix(lut, slices).contiguous()
     squeeze = confs.ndim == 2
     c = (confs[None] if squeeze else confs).to(torch.float32)
+    batch = confs.shape[:-2]
+    es = energy_buffer(collect_energy, b.shape[0], batch, problem.device)
     a, b_half = split_ops.pack_classical(sl, c)
     a, b_half = qmc_bath_split_anneal(sl, b, jp, teff, bath, a.contiguous(),
                                       b_half.contiguous(), seed,
-                                      global_moves, hw_rng)
+                                      global_moves, hw_rng, es)
     out = split_ops.unpack_classical(sl, a, b_half)
-    return out[0] if squeeze else out
+    return with_energies(out[0] if squeeze else out, es, batch)
 
 
 def anneal_lattice_svmc_split(problem, a_sched, b_sched, temp, theta, seed,
-                              mcsteps=1, tf=False, hw_rng=False):
+                              mcsteps=1, tf=False, hw_rng=False,
+                              collect_energy=False):
     """Split-layout SVMC anneal on an even-L LatticeProblem (counterpart of
     `pallas_split.anneal_lattice_svmc_split`, without its TPU lane rules,
     `chain_block` and `chunk`).
@@ -844,9 +954,15 @@ def anneal_lattice_svmc_split(problem, a_sched, b_sched, temp, theta, seed,
     a_sched / b_sched: (steps,) A and B; temp: the fixed temperature;
     theta: (chains, N) or (N,) float32 angles in [0, pi] on the problem's
     device; seed: int counter-hash seed; tf: TF proposals; hw_rng as for
-    `anneal_lattice_split`. Returns the annealed angles, same shape."""
+    `anneal_lattice_split`; collect_energy: also return the energy of the
+    z-projection sign(cos theta) after each sweep, (steps * mcsteps,) +
+    batch. Returns the annealed angles, same shape, or (theta,
+    energies)."""
     sl = _split_of(problem, theta, "theta")
     a_s, b_s = (schedules.expand_mcsteps(x, mcsteps, problem.device)
                 for x in (a_sched, b_sched))
-    return _on_halves(sl, theta, lambda a, b: svmc_split_anneal(
-        sl, a_s, b_s, temp, a, b, seed, tf, hw_rng))
+    batch = theta.shape[:-1]
+    es = energy_buffer(collect_energy, a_s.shape[0], batch, problem.device)
+    out = _on_halves(sl, theta, lambda a, b: svmc_split_anneal(
+        sl, a_s, b_s, temp, a, b, seed, tf, hw_rng, es))
+    return with_energies(out, es, batch)

@@ -20,6 +20,10 @@ The JAX solver sends odd P there to the masked
 `piqmc.dissipative_local_sweep` on `jax.random`; the port takes the Pallas
 kernel's own form of the same slice-sequential sweep
 (`pallas_split._qmc_bath_split_kernel`), which accepts any P.
+
+`collect_energy=True` returns the best-slice energy after each sweep beside
+the state, on every route, as `sa.anneal` does (there: how the card
+computes it).
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ def best_slice_energy(problem, confs):
 
 
 def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
-           global_moves=False, lookuptable=None, bath_update="sequential"):
+           global_moves=False, lookuptable=None, bath_update="sequential",
+           collect_energy=False):
     """PIQMC anneal over the transverse-field schedule.
 
     problem: LatticeProblem (any L). a_sched: (steps,) Gamma (end > 0,
@@ -63,7 +68,10 @@ def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
     the problem's device: switches to the slice-sequential dissipative
     sweep (DissipativeQuantumAnneal[Global]) on an even-L lattice at any
     P >= 2. bath_update: "sequential", the reference's exact sweep;
-    "colored" is not ported yet. Returns the annealed configurations."""
+    "colored" is not ported yet. collect_energy: also return the best-slice
+    energy (`best_slice_energy`) after each sweep and its line moves,
+    float32 of shape (steps * mcsteps,) + batch on the problem's device.
+    Returns the annealed configurations, or (confs, energies)."""
     if bath_update not in BATH_UPDATES:
         raise ValueError(f"bath_update must be 'sequential' or 'colored', "
                          f"got {bath_update!r}")
@@ -80,13 +88,13 @@ def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
         return split_kernels.anneal_lattice_qmc_bath_split(
             problem, a_sched, b_sched, temp, lookuptable, confs,
             draw_seed(generator), mcsteps=mcsteps,
-            global_moves=global_moves)
+            global_moves=global_moves, collect_energy=collect_energy)
     engine = (split_kernels.anneal_lattice_qmc_split
               if split_ops.supports_split(problem, confs.shape[-2])
               else plane_kernels.anneal_lattice_qmc)
     return engine(problem, a_sched, b_sched, temp, confs,
                   draw_seed(generator), mcsteps=mcsteps,
-                  global_moves=global_moves)
+                  global_moves=global_moves, collect_energy=collect_energy)
 
 
 def anneal_wolff(*args, **kwargs):

@@ -8,6 +8,13 @@ CUDA device and its plain version on the CPU. Unlike the JAX solver, which
 draws from `jax.random`,
 the port draws every uniform from the counter hash of the Pallas kernels;
 the solver takes the hash's integer seed from its `torch.Generator`.
+
+`collect_energy=True` returns the energies after each sweep beside the
+state, as the JAX solver does. On a CUDA device it takes each engine's
+per-phase kernels, which keep the state in device memory, and the energy
+kernel (csrc/energy.cuh) launched after every sweep from the same loop;
+the cluster kernels run the whole schedule in one launch and read out no
+energies. The states are those of the same call without it.
 """
 
 from __future__ import annotations
@@ -36,20 +43,23 @@ def random_state(generator, nspins, batch=(), device=None):
     return (bits.to(torch.float32) * 2.0 - 1.0).to(_device.resolve(device))
 
 
-def anneal(problem, sched, spins, generator, mcsteps=1):
+def anneal(problem, sched, spins, generator, mcsteps=1,
+           collect_energy=False):
     """Thermal anneal over the temperature schedule `sched`.
 
     problem: LatticeProblem (any L). sched: (steps,) temperatures
     (e.g. schedules.linear(3.0, 0.0, tau)). spins: (chains, N) or (N,)
     float32 +/-1 on the problem's device. generator: torch.Generator the
     counter-hash seed is drawn from. mcsteps: sweeps per schedule step
-    (sa.pyx:68). Returns the annealed spins."""
+    (sa.pyx:68). collect_energy: also return the classical energy after
+    each sweep, float32 of shape (steps * mcsteps,) + batch on the
+    problem's device. Returns the annealed spins, or (spins, energies)."""
     _roadmap.require_lattice(problem)
     engine = (split_kernels.anneal_lattice_split
               if split_ops.supports_split(problem)
               else plane_kernels.anneal_lattice)
     return engine(problem, sched, spins, draw_seed(generator),
-                  mcsteps=mcsteps)
+                  mcsteps=mcsteps, collect_energy=collect_energy)
 
 
 def anneal_noisy(*args, **kwargs):

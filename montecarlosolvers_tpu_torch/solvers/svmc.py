@@ -11,8 +11,11 @@ masked engine draws one (proposal, acceptance) pair per site and sweep,
 shared by both color phases (ops/svmc_ops.py:58-63). The port draws every
 uniform from the counter hash of the Pallas kernels, taking the hash's
 integer seed from its `torch.Generator`: kernel 4's stream on even L,
-kernel 7's per-color stream on odd L. The JAX solver's `collect_energy=` and
-`segment=` are not ported.
+kernel 7's per-color stream on odd L. `collect_energy=True` returns the
+classical energy of the z-projection after each sweep beside the angles,
+as `sa.anneal` does (there: how the card computes it). The JAX solver's
+`segment=` is not ported: it only bounds a TPU dispatch (ROADMAP.md, "Not
+to port").
 """
 
 from __future__ import annotations
@@ -28,21 +31,25 @@ from montecarlosolvers_tpu_torch.solvers.sa import draw_seed
 
 
 def anneal(problem, a_sched, b_sched, temp, theta, generator, mcsteps=1,
-           tf=False):
+           tf=False, collect_energy=False):
     """SVMC anneal over the (A, B) schedules at fixed temperature.
 
     problem: LatticeProblem (any L). a_sched / b_sched: (steps,) transverse
     scale A and longitudinal scale B. theta: (chains, N) or (N,) float32
     rotor angles in [0, pi] on the problem's device. generator:
     torch.Generator the counter-hash seed is drawn from. tf: TF proposals
-    (svmc.pyx:198-207). mcsteps: sweeps per schedule step. Returns the
-    annealed angles; project with `z_projection`."""
+    (svmc.pyx:198-207). mcsteps: sweeps per schedule step. collect_energy:
+    also return the classical energy of `z_projection` (sign(cos theta),
+    +1 at cos theta = 0) after each sweep, float32 of shape
+    (steps * mcsteps,) + batch on the problem's device. Returns the
+    annealed angles, or (theta, energies); project with `z_projection`."""
     _roadmap.require_lattice(problem)
     engine = (split_kernels.anneal_lattice_svmc_split
               if split_ops.supports_split(problem)
               else plane_kernels.anneal_lattice_svmc)
     return engine(problem, a_sched, b_sched, temp, theta,
-                  draw_seed(generator), mcsteps=mcsteps, tf=tf)
+                  draw_seed(generator), mcsteps=mcsteps, tf=tf,
+                  collect_energy=collect_energy)
 
 
 def anneal_noisy(*args, **kwargs):

@@ -35,6 +35,10 @@ mean its standard error (`z_scores`, `z_between`), whatever the
 correlation between the samples of one chain. `phased_route` sends the
 wrappers through the per-phase kernels at any shape.
 
+`collect_case` builds the collecting route (`energies=`, collect_energy=)
+of any of the seven kernels beside its plain version on the same inputs,
+with the launches the route must make and the tolerance of its energies.
+
 Used by tests/test_torch_hw_rng.py, tests/test_torch_gpu.py and
 chip_smoke.py; not a part of the package.
 """
@@ -48,6 +52,8 @@ import torch
 
 from montecarlosolvers_tpu_torch import convert, schedules
 from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
+from montecarlosolvers_tpu_torch.ops import plane as plane_ops
+from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels as sk
 
@@ -372,3 +378,120 @@ def phased_route():
     finally:
         for n, fn in saved.items():
             setattr(sk, n, fn)
+
+
+# ------------------------------------------- collect_energy=: the routes
+
+# kernel -> (wrapper, plain version, LAUNCHES key)
+COLLECTING = {
+    "split_sa": (sk.sa_split_anneal, sk.sa_split_anneal_ref, "sa_split"),
+    "split_qmc": (sk.qmc_split_anneal, sk.qmc_split_anneal_ref,
+                  "qmc_split"),
+    "split_qmc_bath": (sk.qmc_bath_split_anneal,
+                       sk.qmc_bath_split_anneal_ref, "qmc_bath_split"),
+    "split_svmc": (sk.svmc_split_anneal, sk.svmc_split_anneal_ref,
+                   "svmc_split"),
+    "plane_sa": (pk.sa_plane_anneal, pk.sa_plane_anneal_ref, "sa_plane"),
+    "plane_qmc": (pk.qmc_plane_anneal, pk.qmc_plane_anneal_ref,
+                  "qmc_plane"),
+    "plane_svmc": (pk.svmc_plane_anneal, pk.svmc_plane_anneal_ref,
+                   "svmc_plane"),
+}
+# the energies of a collecting route may differ from the plain version's by
+# this much per unit of sum |J| + sum |h| (float32 sums in another order)
+ENERGY_RTOL = 1e-5
+
+
+def collect_launches(kernel, steps, slices=None, global_moves=True):
+    """The LAUNCHES a collecting call of kernel `kernel`'s wrapper must
+    make over `steps` steps: its per-phase kernels (a step's phases, and
+    the SVMC caches' fill) and one energy launch a step."""
+    if kernel.endswith("svmc"):
+        phased = 1 + 2 * steps
+    elif kernel == "plane_qmc":
+        phased = (piqmc_ops.spacetime_num_phases(2, slices)
+                  + (2 if global_moves else 0)) * steps
+    elif "qmc" in kernel:
+        phased = (4 if global_moves else 2) * steps
+    else:
+        phased = 2 * steps
+    key = COLLECTING[kernel][2]
+    return {f"{key}_phased": phased, f"{key}_energy": steps}
+
+
+def collect_case(kernel, lat, chains, steps, slices=None, tf=True,
+                 global_moves=True, seed=0, alpha=1e-2):
+    """Kernel `kernel`'s route and inputs on lattice `lat` (its device):
+    `chains` chains (of `slices` slices for PIQMC) of random spins or
+    angles from numpy's `seed`, `steps` steps of its schedule (T: 3 -> 0.1;
+    Gamma: 3 -> 1e-8 with B = 1, T = 1/P, global moves; SVMC A: 3 -> 1e-8,
+    B = 1, T = 0.05, TF proposals; the bath at `alpha`).
+
+    Returns a dict: run(fn, energies) calls the wrapper or the plain
+    version `fn` and returns its state tuple; start, the input state tuple;
+    launches, the LAUNCHES a collecting wrapper call must make (the
+    per-phase kernels and one energy launch a step); scale, sum |J| +
+    sum |h| of the lattice (the energies' tolerance is ENERGY_RTOL times
+    it); angles, whether the state is SVMC angles."""
+    dev = lat.device
+    rng = np.random.default_rng(seed)
+    L = lat.L
+
+    def spins(*shape):
+        return torch.as_tensor(rng.choice([-1.0, 1.0], size=shape).astype(
+            np.float32), device=dev)
+
+    def angles(*shape):
+        return torch.as_tensor((rng.random(shape) * np.pi).astype(
+            np.float32), device=dev)
+
+    P = slices
+    teff = (1.0 / P) * P if P else None
+    gamma = schedules.transverse_field(3.0, 1e-8, steps, device=dev)
+    ones = torch.ones_like(gamma)
+    jp = schedules.jperp(gamma, teff).contiguous() if P else None
+    sched = schedules.linear(3.0, 0.1, steps, device=dev)
+    split = kernel.startswith("split")
+    sl = split_ops.build_split(lat) if split else None
+    pl = None if split else plane_ops.build_plane(lat)
+    if kernel == "split_sa":
+        start = tuple(x.contiguous() for x in split_ops.pack_classical(
+            sl, spins(chains, L * L)))
+        call = lambda fn, es: fn(sl, sched, *start, 11, energies=es)
+    elif kernel == "split_qmc":
+        start = split_ops.pack_qmc(sl, spins(chains, P, L * L))
+        call = lambda fn, es: fn(sl, ones, jp, teff, start, 11,
+                                 global_moves, energies=es)
+    elif kernel == "split_qmc_bath":
+        start = tuple(x.contiguous() for x in split_ops.pack_classical(
+            sl, spins(chains, P, L * L)))
+        bath = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+            P, alpha, device=dev), P).contiguous()
+        call = lambda fn, es: fn(sl, ones, jp, teff, bath, *start, 11,
+                                 global_moves, energies=es)
+    elif kernel == "split_svmc":
+        start = tuple(x.contiguous() for x in split_ops.pack_classical(
+            sl, angles(chains, L * L)))
+        call = lambda fn, es: fn(sl, gamma, ones, 0.05, *start, 11, tf,
+                                 energies=es)
+    elif kernel == "plane_sa":
+        start = (spins(chains, L, L),)
+        call = lambda fn, es: (fn(pl, sched, *start, 11, energies=es),)
+    elif kernel == "plane_qmc":
+        start = (spins(chains, P, L, L),)
+        call = lambda fn, es: (fn(pl, ones, jp, teff, *start, 11,
+                                  global_moves, energies=es),)
+    else:
+        start = (angles(chains, L, L),)
+        call = lambda fn, es: (fn(pl, gamma, ones, 0.05, *start, 11, tf,
+                                  energies=es),)
+    return {"run": call, "start": start, "scale": energy_scale(lat),
+            "angles": kernel.endswith("svmc"),
+            "launches": collect_launches(kernel, steps, P, global_moves)}
+
+
+def energy_scale(lat):
+    """sum |J| + sum |h| of lattice `lat`: collected energies may differ
+    from their plain versions' by ENERGY_RTOL times it."""
+    return float(lat.j_right.abs().sum() + lat.j_down.abs().sum()
+                 + lat.h_plane.abs().sum())

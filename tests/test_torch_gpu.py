@@ -598,3 +598,127 @@ def test_bench_arms_run_their_kernels(cuda):
                                    taus=(4, 8)):
         assert rec["launches"] == {want[rec["arm"]]: 4}
         assert rec["attempts_per_s"] > 0
+
+
+# ------------------------------------- collect_energy=: the energy kernel
+
+
+@pytest.mark.parametrize("kernel,L,periodic,slices", [
+    ("split_sa", 10, True, None), ("split_sa", 80, True, None),
+    ("split_sa", 16, False, None),
+    ("split_qmc", 10, True, 4), ("split_qmc", 80, True, 40),
+    ("split_qmc", 16, False, 2),
+    ("split_qmc_bath", 10, True, 3), ("split_qmc_bath", 16, False, 40),
+    ("split_svmc", 10, True, None), ("split_svmc", 16, False, None),
+    ("plane_sa", 9, True, None), ("plane_sa", 81, True, None),
+    ("plane_sa", 10, False, None),
+    ("plane_qmc", 9, True, 5), ("plane_qmc", 10, True, 3),
+    ("plane_qmc", 7, False, 40),
+    ("plane_svmc", 9, True, None), ("plane_svmc", 10, False, None),
+])
+def test_collecting_route_equals_plain(cuda, kernel, L, periodic, slices):
+    """With `energies=`, each kernel's wrapper takes its per-phase kernels
+    and launches the energy kernel once a step: the states equal the plain
+    version's and those of the call without energies (spins bitwise,
+    angles as the SVMC checks hold them), the energies are within
+    ENERGY_RTOL * (sum |J| + sum |h|) of the plain version's, and a second
+    run reproduces them bitwise."""
+    steps, chains = 6, 5
+    case = gibbs.collect_case(kernel, _lattice(L, periodic, cuda), chains,
+                              steps, slices)
+    wrapper, plain, _ = gibbs.COLLECTING[kernel]
+    es, es_plain, es_again = (torch.full((steps, chains), float("nan"),
+                                         device=cuda) for _ in range(3))
+    _build.reset_launches()
+    out = case["run"](wrapper, es)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+        case["launches"]
+    ref = case["run"](plain, es_plain)
+    without = case["run"](wrapper, None)
+    case["run"](wrapper, es_again)
+    torch.cuda.synchronize()
+    for x, y, z, x0 in zip(out, ref, without, case["start"]):
+        if case["angles"]:
+            _assert_angles_equal(x, y, x0)
+            assert torch.equal(x, z)
+        else:
+            assert torch.equal(x, y) and torch.equal(x, z)
+    assert torch.isfinite(es).all()
+    assert float((es - es_plain).abs().max()) <= \
+        gibbs.ENERGY_RTOL * case["scale"]
+    assert torch.equal(es, es_again)
+
+
+def test_energy_kernel_equals_plain(cuda):
+    """The energy kernel's stand-alone entry points against their plain
+    versions: halves at P = 1 and 3, spins and cos theta; the quarters at
+    P = 6; planes at P = 1 and 5 on an odd torus and an open lattice; 33
+    chains. Each counts one launch under LAUNCHES["energy"]."""
+    from montecarlosolvers_tpu_torch.ops import energy as energy_ops
+
+    rng = np.random.default_rng(5)
+
+    def spins(*shape):
+        return torch.as_tensor(rng.choice([-1.0, 1.0], size=shape).astype(
+            np.float32), device=cuda)
+
+    def bound(lat):
+        return gibbs.ENERGY_RTOL * gibbs.energy_scale(lat)
+
+    for lat in (_lattice(10, True, cuda), _lattice(12, False, cuda)):
+        sl = split_ops.build_split(lat)
+        for shape in ((33, sl.nh), (33, 3, sl.nh)):
+            cosines = [torch.cos(_angles(shape, cuda, i)) for i in (2, 3)]
+            for (a, b), cos in (((spins(*shape), spins(*shape)), False),
+                                (cosines, True)):
+                _build.reset_launches()
+                got = energy_ops.halves_energy(sl, a, b, cos)
+                assert _build.LAUNCHES["energy"] == 1
+                want = energy_ops.halves_energy_ref(sl, a, b, cos)
+                assert float((got - want).abs().max()) <= bound(lat)
+        quarters = split_ops.pack_qmc(sl, spins(33, 6, lat.nspins))
+        got = energy_ops.quarters_energy(sl, quarters)
+        want = energy_ops.quarters_energy_ref(sl, quarters)
+        assert float((got - want).abs().max()) <= bound(lat)
+    for lat in (_lattice(9, True, cuda), _lattice(7, False, cuda)):
+        pl = plane_ops.build_plane(lat)
+        L = lat.L
+        for s, cos in ((spins(33, L, L), False), (spins(33, 5, L, L), False),
+                       (torch.cos(_angles((33, L, L), cuda, 3)), True)):
+            got = energy_ops.plane_energy(pl, s, cos)
+            want = energy_ops.plane_energy_ref(pl, s, cos)
+            assert float((got - want).abs().max()) <= bound(lat)
+
+
+@pytest.mark.parametrize("L,P,bath,launches", [
+    (16, None, False, {"sa_split_phased": 12, "sa_split_energy": 6}),
+    (9, None, False, {"sa_plane_phased": 12, "sa_plane_energy": 6}),
+    (16, 4, False, {"qmc_split_phased": 24, "qmc_split_energy": 6}),
+    (16, 5, False, {"qmc_plane_phased": 30, "qmc_plane_energy": 6}),
+    (16, 4, True, {"qmc_bath_split_phased": 24,
+                   "qmc_bath_split_energy": 6}),
+])
+def test_solvers_collect_on_the_card(cuda, L, P, bath, launches):
+    """sa.anneal and qmc.anneal with collect_energy=True on the card: the
+    energies (steps * mcsteps, chains) on the card, the last row the
+    readout of the returned state, launches of the per-phase and energy
+    kernels only."""
+    lat = _lattice(L, True, cuda)
+    gen = torch.Generator().manual_seed(1)
+    s = sa.random_state(gen, lat.nspins, batch=(3,))
+    _build.reset_launches()
+    if P is None:
+        out, es = sa.anneal(lat, schedules.linear(2.0, 0.1, 3), s, gen,
+                            mcsteps=2, collect_energy=True)
+        want = lat.energy(out)
+    else:
+        a = schedules.transverse_field(2.0, 1e-8, 3)
+        lut = schedules.bath_lookuptable(P, 0.1) if bath else None
+        out, es = qmc.anneal(lat, a, torch.ones_like(a), 1.0 / P,
+                             qmc.replicate(s, P), gen, mcsteps=2,
+                             global_moves=True, lookuptable=lut,
+                             collect_energy=True)
+        want = qmc.best_slice_energy(lat, out)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == launches
+    assert es.shape == (6, 3) and es.device == out.device
+    torch.testing.assert_close(es[-1], want, rtol=1e-5, atol=1e-3)

@@ -224,6 +224,10 @@ def test_port_imports_no_jax():
             "from montecarlosolvers_tpu_torch.ops import split_kernels, "
             "plane_kernels; "
             "import montecarlosolvers_tpu_torch.convert; "
+            "from montecarlosolvers_tpu_torch.ops import energy; "
+            "from montecarlosolvers_tpu_torch.bench import mst; "
+            "from montecarlosolvers_tpu_torch.examples import santoro_mst, "
+            "dissipative_qa; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'montecarlosolvers_tpu')]; "
             "assert not bad, bad")
