@@ -7,9 +7,10 @@ Run from the repository root, with no arguments:
 
 Phases, each printed as one JSON line:
   device              nvidia-smi's name and power limit of the card
-  build               nvcc builds kernels A, B, 3, 4, 5, 6 and 7 and the
-                      energy kernel's entry points from csrc/, all at once
-                      (seconds)
+  build               nvcc builds kernels A, B, 3, 4, 5, 6 and 7, the
+                      energy kernel's entry points and the three generic
+                      kernels (packed SA, generic PIQMC, packed SVMC) from
+                      csrc/, all at once (seconds)
   clusters            the (C, R, threads) kernels A and 6 and the (R,
                       threads) kernels B, 5, 3, 7 and 4 take at the shapes
                       below, and how many of those clusters the card holds
@@ -67,6 +68,25 @@ Phases, each printed as one JSON line:
                       torus (2 chains, 16 steps, TF), 5 on the 674x674
                       torus at P = 40 (1 chain, 4 steps, global moves), each
                       with its "*_phased" launch count
+  generic_kernel_vs_plain  the generic kernels on an IsingProblem
+                      (ops/generic_kernels.py: csrc/packed_sa.cu,
+                      csrc/generic_qmc.cu, csrc/packed_svmc.cu) against
+                      their plain versions on the card, with and without
+                      collect_energy, on the 80x80 torus's to_generic()
+                      (N 6400, maxnb 5, 2 colors; SA 1280 chains, PIQMC
+                      32 chains at P = 40 and 5, SVMC 256 chains, TF and
+                      uniform), random_3d_lattice(16, rng=0) (N 4096, 6
+                      neighbours, 2 colors), chimera_graph(16, rng=0) (the
+                      D-Wave 2000Q's C16, N 2048, 3 colors),
+                      random_graph(2000, 12000, rng=0) (9 colors, more
+                      than the JAX MAX_PACKED_COLORS of 8, maxnb 25) and
+                      the 81x81 torus's to_generic() (4 colors, a proper
+                      coloring); 64 chains (PIQMC 8 at P = 40 and 5) on
+                      the last four: 0 mismatched spins, angles by the
+                      ANGLE_MISMATCH rule, the collecting run's states
+                      bitwise the plain run's, its energies within 1e-5
+                      (sum |J| + sum |h|) of the plain version's
+                      packed_energy, one launch a call
   main_path           eight solves at full width: solve("sa", 1280 reads,
                       2000 sweeps) and solve("piqmc", 32 reads, 1000
                       sweeps) at P = 40 and at P = 5 on the santoro instance
@@ -86,7 +106,16 @@ Phases, each printed as one JSON line:
                       LAUNCHES: one per launch of a kernel, so every
                       kernel counts once per anneal) are
                       set to 0 just before each solve, read just after it
-                      and must equal the solve's route exactly
+                      and must equal the solve's route exactly; then five
+                      solves on IsingProblem graphs: solve("sa"),
+                      solve("piqmc", P = 40) and solve("svmc") at the same
+                      widths on the same instance in its generic form
+                      (santoro_80x80(lattice=False), or the seeded torus's
+                      to_generic()), solve("piqmc", P = 20, 32 reads, 1000
+                      sweeps) on chimera_graph(16, rng=0) and solve("sa",
+                      1280 reads, 2000 sweeps) on random_3d_lattice(16,
+                      rng=0), each launching packed_sa, generic_qmc or
+                      packed_svmc once an anneal and nothing else
   timing              slope-timed ms per sweep of each kernel and of its
                       plain version at the main path's shapes, beside the
                       least time the card could take for a sweep (bound:
@@ -96,7 +125,11 @@ Phases, each printed as one JSON line:
                       kernel 5 at P = 40, 32 chains on the 256x256 torus
                       and kernel 3 at P = 5, 32 chains on the 81x81 torus;
                       and each kernel's per-phase kernels and their plain
-                      versions at the shape checked above
+                      versions at the shape checked above; the generic
+                      kernels at the main path's widths on the 80x80
+                      torus's generic form, and a line generic_vs_lattice
+                      with the lattice kernel's time on the same torus
+                      (A, B, 4) beside each
   hw_rng_kernel_checks  the generator instantiations (hw_rng=True,
                       csrc/hw_rng.cuh) of kernels A, B, 4 and 5, on their
                       cluster kernels and on their per-phase kernels (forced
@@ -171,8 +204,10 @@ then a line {"kernels": [...]} (the seven kernels, then their per-phase
 kernels, which no main-path solve launches, then the generator
 instantiations of A, B, 4 and 5 and their per-phase kernels, whose
 launches are the bench's, then the energy kernel by the layout it reads,
-halves, quarters or planes, whose launches are the collecting solves'),
-a line {"phase": "done", "seconds": ...}, and last
+halves, quarters or planes, whose launches are the collecting solves',
+then the three generic kernels, whose launches are the main path's),
+a line {"phase": "done", "seconds": ..., "phase_seconds": {...}} (the
+seconds from the start at the end of each phase), and last
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero without the last line;
 it also fails when torch sees no CUDA device or the package is missing.
@@ -253,10 +288,33 @@ RANGES = {
     "svmc_l81": (-1.272, -1.251),
     "piqmc_bath_p40": (-1.307, -1.286),
 }
+# The generic solves (IsingProblem): the same instance as the lattice
+# cells in its generic form takes the lattice cells' ranges; the chimera
+# and 3-D glass ranges are JAX CPU anchors (PERF.md section 2,
+# tools/generic_anchors.py: the JAX solve at the same sweeps and P), mean
+# per spin +/- 0.01:
+#   piqmc_chimera  PIQMC P=20 tau=1000 on chimera_graph(16, rng=0), 32
+#                  reads: mean -1.75967, sd 0.00470 a read
+#   sa_3d          SA tau=2000 on random_3d_lattice(16, rng=0), 64 reads:
+#                  mean -1.77815, sd 0.00392 a read
+RANGES.update({
+    "sa_generic": RANGES["sa"],
+    "piqmc_p40_generic": RANGES["piqmc_p40"],
+    "svmc_generic": RANGES["svmc"],
+    "piqmc_chimera": (-1.770, -1.750),
+    "sa_3d": (-1.788, -1.768),
+})
 # residual energy per spin ranges on the certified santoro instance
 EPS_RANGES = {"sa": (0.0, 0.1), "piqmc_p40": (0.0, 0.05),
               "piqmc_p5": (0.0, 0.05), "svmc": (0.0, 0.2),
               "piqmc_bath_p40": (0.0, 0.05)}
+EPS_RANGES.update({f"{k}_generic": EPS_RANGES[k]
+                   for k in ("sa", "piqmc_p40", "svmc")})
+# the chimera PIQMC solve: slices, reads and sweeps of its JAX anchor
+CHIMERA_SLICES, CHIMERA_READS, CHIMERA_SWEEPS = 20, 32, 1000
+# steps of the generic kernels against their plain versions (PIQMC: fewer,
+# its plain version computes every field in every phase)
+GENERIC_STEPS, GENERIC_QMC_STEPS = 20, 10
 # kernel name -> (LAUNCHES key, source, TPU kernel it replaces)
 KERNELS = {
     "split_sa": ("sa_split", "montecarlosolvers_tpu_torch/csrc/split_sa.cu",
@@ -312,6 +370,19 @@ ENERGY_LAYOUTS = {
 for _k in ENERGY_LAYOUTS:
     KERNELS[_k] = (None, "montecarlosolvers_tpu_torch/csrc/energy.cuh",
                    "montecarlosolvers_tpu/ops/split.py:245")
+# the generic kernels on an IsingProblem replace no TPU kernel either, but
+# the XLA scans of the JAX package's generic engines: the body of each scan
+GENERIC_KERNELS = {
+    "packed_sa": ("packed_sa", "montecarlosolvers_tpu_torch/csrc/packed_sa.cu",
+                  "montecarlosolvers_tpu/ops/packed.py:129"),
+    "generic_qmc": ("generic_qmc",
+                    "montecarlosolvers_tpu_torch/csrc/generic_qmc.cu",
+                    "montecarlosolvers_tpu/ops/piqmc.py:79"),
+    "packed_svmc": ("packed_svmc",
+                    "montecarlosolvers_tpu_torch/csrc/packed_svmc.cu",
+                    "montecarlosolvers_tpu/ops/packed.py:149"),
+}
+KERNELS.update(GENERIC_KERNELS)
 # (a): chains of the exact-distribution samplers, and the largest
 # |mean - exact| (or kernel - plain) they may show, in standard errors of
 # the chain means (gibbs_check.z_scores: at most 1 state in about 3 million
@@ -360,10 +431,13 @@ def hash_ops_per_sweep(kname, chains, slices, sites):
     return HASH_OPS * per_site * chains * sites
 
 
-def ops_per_sweep(kname, chains, slices, sites):
+def ops_per_sweep(kname, chains, slices, sites, graph=None):
     """(float32, special-function) operations of one sweep of `kname` at
     this shape, global moves on for the PIQMC kernels and TF proposals for
-    SVMC, as the work needs them:
+    SVMC, as the work needs them. On a lattice a spin's field is
+    SPIN_FIELD adds; on an IsingProblem (`graph` = (degree, maxnb), the
+    mean number of real couplings a site and the table's slots) it is
+    `degree` adds, its couplings and h, and an SVMC field 2 * degree:
       SA      field, 2 f, Metropolis;
       PIQMC   per slice: field, dE = (bc s) f + (2 s J_perp)(s_up + s_dn)
               (four), Metropolis; per line: f + h of each slice, the P - 1
@@ -375,33 +449,38 @@ def ops_per_sweep(kname, chains, slices, sites):
               (8), dE (6), acceptance 1 - u, times T, compare (3); and a
               logarithm, a sine and a cosine."""
     P = slices
-    local = SPIN_FIELD + 4 + METROPOLIS
-    line = (SPIN_FIELD + 1) * P + METROPOLIS
+    field = SPIN_FIELD if graph is None else graph[0]
+    local = field + 4 + METROPOLIS
+    line = (field + 1) * P + METROPOLIS
     f32, sfu = {
-        "sa": (SPIN_FIELD + 1 + METROPOLIS, 1),
+        "sa": (field + 1 + METROPOLIS, 1),
         "qmc": (local * P + line, P + 1),
         "qmc_bath": ((local + P) * P + line, P + 1),
-        "svmc": (4 + 6 + 2 + 8 + 6 + 3, 3),
+        "svmc": (4 + 6 + 2 + 2 * field + 6 + 3, 3),
     }[kname.split("_", 1)[1]]
     return f32 * chains * sites, sfu * chains * sites
 
 
-def bytes_per_anneal(kname, chains, slices, sites, tau):
+def bytes_per_anneal(kname, chains, slices, sites, tau, graph=None):
     """Bytes an anneal of `tau` sweeps must move: the state read once and
     written once; the couplings (right, down), h, the bath matrix and the
-    two schedules read once."""
+    two schedules read once. On an IsingProblem (`graph` = (degree,
+    maxnb)) the couplings are the table as stored, maxnb int32 indices and
+    float32 values a site, with h and the packed layout's original site
+    ids (perm)."""
     state = 2 * chains * slices * sites * 4
     bath = slices * slices * 4 if kname == "split_qmc_bath" else 0
-    return state + 3 * sites * 4 + bath + 2 * tau * 4
+    tables = 3 * sites * 4 if graph is None else sites * (graph[1] * 8 + 8)
+    return state + tables + bath + 2 * tau * 4
 
 
-def bound_ms(kname, chains, slices, sites, tau):
+def bound_ms(kname, chains, slices, sites, tau, graph=None):
     """(least ms per sweep over an anneal of `tau` sweeps, "operations" or
     "bytes", and which of "fp32", "sfu" or "bytes" bounds it)."""
-    f32, sfu = ops_per_sweep(kname, chains, slices, sites)
+    f32, sfu = ops_per_sweep(kname, chains, slices, sites, graph)
     times = {"fp32": f32 / PEAK_FLOPS, "sfu": sfu / PEAK_SFU,
-             "bytes": bytes_per_anneal(kname, chains, slices, sites, tau)
-             / PEAK_BYTES / tau}
+             "bytes": bytes_per_anneal(kname, chains, slices, sites, tau,
+                                       graph) / PEAK_BYTES / tau}
     unit = max(times, key=times.get)
     return (1e3 * times[unit], "bytes" if unit == "bytes" else "operations",
             unit)
@@ -678,7 +757,11 @@ def sass_tool():
 
 
 def energy64(problem, states):
-    """Classical energies of (reads, N) numpy states in float64."""
+    """Classical energies of (reads, N) numpy states in float64, on a
+    LatticeProblem or an IsingProblem."""
+    if not hasattr(problem, "L"):
+        return gibbs_tool().generic_energies(problem,
+                                             states.astype(np.float64))
     Lp = problem.L
     jr, jd, hp = (x.double().cpu().numpy() for x in
                   (problem.j_right, problem.j_down, problem.h_plane))
@@ -1146,8 +1229,103 @@ def examples_checks(dev, problem, e_gs, torus):
           f"dissipative_qa launched {launched}")
 
 
+def generic_graphs(dev):
+    """name -> IsingProblem of the generic phases: the 80x80 torus's
+    generic form first (the main path's instance), then the graphs the
+    generic kernels must take."""
+    from montecarlosolvers_tpu_torch.models import instances
+
+    return {
+        f"gaussian_torus({L}, 0).to_generic()":
+            instances.gaussian_torus(L, seed=0, device=dev).to_generic(),
+        "random_3d_lattice(16, rng=0)":
+            instances.random_3d_lattice(16, rng=0, device=dev)[0],
+        "chimera_graph(16, rng=0)":
+            instances.chimera_graph(16, rng=0, device=dev)[0],
+        "random_graph(2000, 12000, rng=0)":
+            instances.random_graph(2000, 12000, rng=0, device=dev)[0],
+        f"gaussian_torus({ODD_L}, 0).to_generic()":
+            instances.gaussian_torus(ODD_L, seed=0, device=dev).to_generic(),
+    }
+
+
+def graph_shape(problem):
+    """(mean real couplings a site, maxnb) of an IsingProblem: what
+    `ops_per_sweep` and `bytes_per_anneal` count for the generic
+    kernels."""
+    return (float((problem.nbr_J != 0).sum()) / problem.nspins,
+            problem.maxnb)
+
+
+def generic_checks(dev, results, graphs):
+    """Phase generic_kernel_vs_plain: each generic kernel against its plain
+    version with and without energies, on every graph of `graphs`."""
+    from montecarlosolvers_tpu_torch.ops import _build
+
+    gibbs = gibbs_tool()
+    main = next(iter(graphs))
+    cases = []
+    for gname, prob in graphs.items():
+        wide = gname == main
+        cases += [("packed_sa", gname, prob, SA_READS if wide else 64, None,
+                   {})]
+        cases += [("generic_qmc", gname, prob, QMC_READS if wide else 8, P,
+                   {"global_moves": gm, "bscale": bs})
+                  for P, gm, bs in ((QMC_SLICES, True, 1.0),
+                                    (ODD_SLICES, True, 0.7))
+                  + (((ODD_SLICES, False, 1.0),) if wide else ())]
+        cases += [("packed_svmc", gname, prob, SVMC_READS if wide else 64,
+                   None, {"tf": tf}) for tf in ((True, False) if wide
+                                               else (True,))]
+    for kname, gname, prob, chains, slices, kw in cases:
+        steps = GENERIC_QMC_STEPS if slices else GENERIC_STEPS
+        case = gibbs.generic_case(kname, prob, chains, steps, slices, **kw)
+        wrapper, plain, key = gibbs.GENERIC[kname]
+        es, es_plain = (torch.full((steps, chains), float("nan"), device=dev)
+                        for _ in range(2))
+        _build.reset_launches()
+        out = case["run"](wrapper, None)
+        collected = case["run"](wrapper, es)
+        launched = launched_now()
+        ref = case["run"](plain, es_plain)
+        torch.cuda.synchronize()
+        rec = {"phase": "generic_kernel_vs_plain", "kernel": kname,
+               "graph": gname, "nspins": prob.nspins, "maxnb": prob.maxnb,
+               "colors": prob.num_colors, "chains": chains,
+               "slices": slices, "steps": steps, **kw,
+               "launches": launched,
+               "energy_err": float((es - es_plain).abs().max()),
+               "energy_bound": gibbs.ENERGY_RTOL * case["scale"],
+               "collected_equals_uncollected": bool(torch.equal(out,
+                                                                collected))}
+        if case["angles"]:
+            d = angle_diffs([out], [ref])
+            rec.update(d, moved_fraction=float(
+                (out - case["start"]).abs().gt(1e-3).float().mean()))
+            err = d["max_abs_err"]
+            ok = d["mismatched_angles"] == 0 and err <= ANGLE_ATOL
+        else:
+            n_bad, err = mismatches([out], [ref])
+            rec.update(mismatched_spins=n_bad, max_abs_err=err,
+                       flipped_fraction=float(
+                           (out != case["start"]).float().mean()))
+            ok = n_bad == 0
+        emit(rec)
+        what = f"{kname} on {gname}, {chains} chains, P={slices} ({kw})"
+        check(ok, f"{what} equals its plain version")
+        check(rec["collected_equals_uncollected"],
+              f"{what}: collecting changes no state")
+        check(bool(torch.isfinite(es).all())
+              and rec["energy_err"] <= rec["energy_bound"],
+              f"{what}: energies within {rec['energy_bound']}")
+        check(launched == {key: 2}, f"{what} launched {launched}")
+        results[kname]["max_abs_err"] = max(
+            results[kname].get("max_abs_err", 0.0), err)
+
+
 def main():
     t_script = time.perf_counter()
+    phase_seconds = {}
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
     from montecarlosolvers_tpu_torch import schedules
     from montecarlosolvers_tpu_torch.models import instances
@@ -1168,6 +1346,7 @@ def main():
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": name})
+    phase_seconds["device"] = time.perf_counter() - t_script
 
     # ---- build
     t0 = time.perf_counter()
@@ -1225,7 +1404,8 @@ def main():
     torus = instances.gaussian_torus(L, seed=0, device=dev)
     big_torus = instances.gaussian_torus(BIG_L, seed=0, device=dev)
     odd_torus = instances.gaussian_torus(ODD_L, seed=0, device=dev)
-    odd_open = instances.random_2d_lattice(ODD_L, rng=0, device=dev)[0]
+    odd_open = instances.random_2d_lattice(ODD_L, rng=0, lattice=True,
+                                           device=dev)[0]
     sl = split_ops.build_split(torus)
     rng = np.random.default_rng(1)
     results = {k: {} for k in KERNELS}
@@ -1238,6 +1418,7 @@ def main():
     def random_angles(*shape):
         return torch.as_tensor(
             (rng.random(shape) * np.pi).astype(np.float32), device=dev)
+    phase_seconds["build_and_clusters"] = time.perf_counter() - t_script
 
     # ---- kernel A against its plain version
     a, b = (x.contiguous() for x in split_ops.pack_classical(
@@ -1323,7 +1504,8 @@ def main():
               f"kernel B on {lname}, P={slices} launched {launched}")
 
     # ---- kernel 5 against its plain version
-    open80 = instances.random_2d_lattice(L, rng=0, device=dev)[0]
+    open80 = instances.random_2d_lattice(L, rng=0, lattice=True,
+                                         device=dev)[0]
     gamma5 = schedules.transverse_field(3.0, 1e-8, 20, device=dev)
     err_5 = 0.0
     cases = [("gaussian_torus(80, 0)", torus, BATH_SLICES, bscale, gm)
@@ -1616,14 +1798,23 @@ def main():
                                                 BATH_PHASED_L, BATH_SLICES)),
                 4, {"chains": 1, "slices": BATH_SLICES, "steps": 4,
                     "alpha": BATH_ALPHA, "B": 0.7, "global_moves": True})
+    phase_seconds["lattice_vs_plain"] = time.perf_counter() - t_script
+
+    # ---- the generic kernels (IsingProblem) against their plain versions
+    graphs = generic_graphs(dev)
+    generic_checks(dev, results, graphs)
+    phase_seconds["generic_kernel_vs_plain"] = time.perf_counter() - t_script
 
     # ---- main path through solve(), launch counts read around each solve
     try:
         problem, e_gs = instances.santoro_80x80(lattice=True, device=dev)
+        gproblem = instances.santoro_80x80(device=dev)[0]
         lattice = "santoro_80x80"
     except FileNotFoundError:
         problem, e_gs = torus, None
+        gproblem = graphs[f"gaussian_torus({L}, 0).to_generic()"]
         lattice = "gaussian_torus(80, seed=0)"
+    glattice = f"{lattice}, generic (maxnb {gproblem.maxnb})"
     def solved(method):
         def run(prob, num_reads, sweeps, slices=None):
             kw = {} if slices is None else {"slices": slices}
@@ -1663,6 +1854,19 @@ def main():
          svmc_kw, {"svmc_plane": 1}),
         ("piqmc_bath_p40", lattice, problem, dissipative, bath_kw,
          {"sa_split": 1, "qmc_bath_split": 1}),
+        # the generic IsingProblem: the same instance, a chimera, a 3-D glass
+        ("sa_generic", glattice, gproblem, sa_run, sa_kw, {"packed_sa": 1}),
+        ("piqmc_p40_generic", glattice, gproblem, qmc_run,
+         dict(qmc_kw, slices=QMC_SLICES), {"packed_sa": 1, "generic_qmc": 1}),
+        ("svmc_generic", glattice, gproblem, svmc_run, svmc_kw,
+         {"packed_svmc": 1}),
+        ("piqmc_chimera", "chimera_graph(16, rng=0)",
+         graphs["chimera_graph(16, rng=0)"], qmc_run,
+         dict(num_reads=CHIMERA_READS, sweeps=CHIMERA_SWEEPS,
+              slices=CHIMERA_SLICES), {"packed_sa": 1, "generic_qmc": 1}),
+        ("sa_3d", "random_3d_lattice(16, rng=0)",
+         graphs["random_3d_lattice(16, rng=0)"], sa_run, sa_kw,
+         {"packed_sa": 1}),
     )
     main_launches = {k: 0 for k in _build.LAUNCHES}
     for key, lname, prob, run, kw, needs in paths:
@@ -1688,7 +1892,7 @@ def main():
                "mean_energy_per_spin": float(per_spin.mean()),
                "best_energy_per_spin": float(per_spin.min()),
                "launches": launches}
-        certified = e_gs is not None and prob is problem
+        certified = e_gs is not None and prob in (problem, gproblem)
         if certified:
             eps = (energies - e_gs) / n
             rec["eps_res_mean"] = float(eps.mean())
@@ -1702,6 +1906,7 @@ def main():
         check(launched == needs, f"{key} launched {launched}, its route "
                                  f"{needs}")
     emit({"phase": "main_path", "launches": main_launches})
+    phase_seconds["main_path"] = time.perf_counter() - t_script
 
     # ---- timing: slope ms per sweep, kernel and plain version
     def split_sa_runner(fn, chains=SA_READS, sl=sl):
@@ -1807,6 +2012,44 @@ def main():
              (1, 3) if kname == "split_qmc_bath" else (2, 6), 2, chains,
              slices, lat_l * lat_l)]
 
+    # the generic kernels at the main path's widths on the torus's generic
+    # form
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    gtorus = graphs[f"gaussian_torus({L}, 0).to_generic()"]
+    pg80 = packed_ops.build_packed(gtorus)
+
+    def generic_runner(kname, fn, chains, slices=None):
+        n = pg80.nspins
+        if kname == "packed_sa":
+            s = random_spins(chains, n)
+            return lambda tau: fn(pg80, schedules.linear(
+                3.0, 0.0, tau, device=dev), s, 7)
+        if kname == "packed_svmc":
+            th = random_angles(chains, n)
+            return lambda tau: fn(pg80, *svmc_sched(tau), SVMC_TEMP, th, 7,
+                                  True)
+        c = random_spins(chains, slices, n)
+        teff_q = (1.0 / slices) * slices
+
+        def run(tau):
+            g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+            return fn(pg80, torch.ones_like(g), schedules.jperp(g, teff_q)
+                      .contiguous(), teff_q, c, 7, True)
+        return run
+
+    generic_rows = []
+    for kname, chains, slices, taus, plain_taus in (
+            ("packed_sa", SA_READS, 1, (500, 2000), (10, 40)),
+            ("generic_qmc", QMC_READS, QMC_SLICES, (100, 400), (2, 6)),
+            ("packed_svmc", SVMC_READS, 1, (500, 2000), (10, 40))):
+        kernel, plain, _ = gibbs_tool().GENERIC[kname]
+        generic_rows += [
+            (kname, "cuda", generic_runner(kname, kernel, chains, slices),
+             taus, 3, chains, slices, L * L),
+            (kname, "plain", generic_runner(kname, plain, chains, slices),
+             plain_taus, 2, chains, slices, L * L)]
+
     power = smi.split(",")[-1].strip() if "," in smi else smi
     # kernel, route, runner, taus, trials, chains, slices, sites; the rows
     # after the plain ones are beside the main path's shapes and stay out
@@ -1842,6 +2085,7 @@ def main():
          split_bath_runner(sk.qmc_bath_split_anneal_ref), (2, 6), 2,
          BATH_READS, BATH_SLICES, L * L),
         *phased_rows,
+        *generic_rows,
     )
     extra = (
         ("split_sa", "cuda", split_sa_runner(sk.sa_split_anneal, QMC_READS),
@@ -1864,9 +2108,10 @@ def main():
             else float("nan")
         # the work is the kernel's, whichever instantiation does it
         base = kname.removesuffix("_phased").removesuffix("_hw")
+        graph = graph_shape(gtorus) if kname in GENERIC_KERNELS else None
         bound, bound_by, unit = bound_ms(base, chains, slices, sites,
-                                         max(taus))
-        f32, sfu = ops_per_sweep(base, chains, slices, sites)
+                                         max(taus), graph)
+        f32, sfu = ops_per_sweep(base, chains, slices, sites, graph)
         hashed = hash_ops_per_sweep(base, chains, slices, sites)
         emit({"phase": phase, "kernel": kname, "route": route,
               "chains": chains, "slices": slices, "sites": sites,
@@ -1880,7 +2125,7 @@ def main():
               "hash_int32_ops_per_sweep": hashed,
               "hash_ms": 1e3 * hashed / PEAK_INT32,
               "bytes_per_anneal": bytes_per_anneal(base, chains, slices,
-                                                   sites, max(taus)),
+                                                   sites, max(taus), graph),
               "gpu": name, "power_limit": power})
         check(ms > 0, f"{kname} {route} slope is positive")
         if record and route == "cuda":
@@ -1890,11 +2135,24 @@ def main():
 
     for i, row in enumerate(timings + extra):
         time_row("timing", *row, record=i < len(timings))
+    # the same torus through two layouts: the generic kernel beside the
+    # lattice kernel at the same widths
+    for gname, lname in (("packed_sa", "split_sa"),
+                         ("generic_qmc", "split_qmc"),
+                         ("packed_svmc", "split_svmc")):
+        emit({"phase": "generic_vs_lattice", "generic": gname,
+              "lattice": lname, "generic_ms": results[gname]["ms"],
+              "lattice_ms": results[lname]["ms"],
+              "ratio": results[gname]["ms"] / results[lname]["ms"],
+              "generic_bound_ms": results[gname]["bound_ms"],
+              "gpu": name, "power_limit": power})
+    phase_seconds["timing"] = time.perf_counter() - t_script
 
     # ---- the generator instantiations of A, B, 4 and 5 (hw_rng=True)
     hw_exact_checks(dev, results)
     hw_stream_checks(dev, torus)
     hw_quality_checks(dev, torus, results)
+    phase_seconds["hw_rng_kernel_checks"] = time.perf_counter() - t_script
 
     # ---- this slice's path: the bench's eight arms, launch counts read
     # around the whole bench
@@ -1920,6 +2178,7 @@ def main():
     bench_launches = dict(_build.LAUNCHES)
     emit({"phase": "bench", "seconds": time.perf_counter() - t0,
           "launches": {k: v for k, v in bench_launches.items() if v}})
+    phase_seconds["bench"] = time.perf_counter() - t_script
 
     # ---- hw_rng_timing: hash and generator at the pallas_* arms' shapes
     arm_rows, hw_rows = [], []
@@ -1967,6 +2226,7 @@ def main():
             rec.pop("by_opcode")
             emit({"phase": "hw_rng_timing", "library": lib,
                   "uniforms": source, **rec})
+    phase_seconds["hw_rng_timing"] = time.perf_counter() - t_script
 
     # ---- collect_energy=: each kernel's collecting route (its per-phase
     # kernels and the energy kernel) against its plain version, and against
@@ -1974,6 +2234,7 @@ def main():
     energy_path_launches = collect_energy_checks(dev, results, torus,
                                                  odd_torus)
     collect_energy_timing(dev, results, torus, odd_torus, power)
+    phase_seconds["collect_energy"] = time.perf_counter() - t_script
 
     # ---- this slice's drivers: the MST matrix and the open-system example
     mst_checks(dev, problem, e_gs, torus)
@@ -1998,7 +2259,10 @@ def main():
          "bound_by": results[k]["bound_by"], "library_ms": None}
         for k, (key, src, tpu) in KERNELS.items()
     ]})
-    emit({"phase": "done", "seconds": time.perf_counter() - t_script})
+    phase_seconds["mst_and_examples"] = time.perf_counter() - t_script
+    # seconds from the start at the end of each phase
+    emit({"phase": "done", "seconds": time.perf_counter() - t_script,
+          "phase_seconds": phase_seconds})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
 

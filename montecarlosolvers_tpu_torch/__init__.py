@@ -10,13 +10,18 @@ dissipative PIQMC and spin-vector Monte Carlo on any `LatticeProblem` (any
 L, open or periodic) — classical SA, PIQMC at any P (local plus whole-line
 global moves; with a bath `lookuptable`, the slice-sequential dissipative
 sweep on even L at any P >= 2), SVMC with uniform or TF proposals, and the
-one-call `solvers.api.solve` with method "sa", "piqmc" or "svmc". Even L
-(and even P) take the split-checkerboard engines (`ops/split_kernels.py`),
-everything else the full-plane engines (`ops/plane_kernels.py`). On a CUDA
-device the seven engines run hand-written CUDA kernels
-(`csrc/split_sa.cu`, `csrc/split_qmc.cu`, `csrc/split_qmc_bath.cu`,
-`csrc/split_svmc.cu`, `csrc/plane_sa.cu`, `csrc/plane_qmc.cu`,
-`csrc/plane_svmc.cu`); on the CPU they run the plain PyTorch versions
+one-call `solvers.api.solve` with method "sa", "piqmc" or "svmc"; the
+same solvers on the generic `IsingProblem` (neighbor tables, COO triplets,
+QUBOs, chimera graphs, 3-D glasses, random graphs: `models/ising.py`,
+`models/instances.py`). Even L (and even P) take the split-checkerboard
+engines (`ops/split_kernels.py`), other lattices the full-plane engines
+(`ops/plane_kernels.py`), an IsingProblem the class-major packed engines
+(`ops/generic_kernels.py`). On a CUDA device the engines run hand-written
+CUDA kernels (`csrc/split_sa.cu`, `csrc/split_qmc.cu`,
+`csrc/split_qmc_bath.cu`, `csrc/split_svmc.cu`, `csrc/plane_sa.cu`,
+`csrc/plane_qmc.cu`, `csrc/plane_svmc.cu`, and `csrc/packed_sa.cu`,
+`csrc/generic_qmc.cu`, `csrc/packed_svmc.cu` for the generic problem); on
+the CPU they run the plain PyTorch versions
 beside the kernel wrappers, which equal the JAX oracles and the Pallas
 interpreter (bitwise for spins, to the last ulps of cos and sin for rotor
 angles). The three solvers take `collect_energy=` (on the card: the
@@ -39,11 +44,12 @@ This package imports torch and numpy and never jax.
 """
 
 from montecarlosolvers_tpu_torch import schedules
+from montecarlosolvers_tpu_torch.models.ising import IsingProblem
 from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 from montecarlosolvers_tpu_torch.solvers import sa, qmc, svmc
 from montecarlosolvers_tpu_torch.solvers.api import SampleSet, solve
 
 __version__ = "0.1.0"
 
-__all__ = ["LatticeProblem", "SampleSet", "qmc", "sa", "schedules", "solve",
+__all__ = ["IsingProblem", "LatticeProblem", "SampleSet", "qmc", "sa", "schedules", "solve",
            "svmc"]

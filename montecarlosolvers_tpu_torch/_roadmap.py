@@ -3,23 +3,29 @@ queued: every refusal in the port names its ROADMAP.md item through here."""
 
 from __future__ import annotations
 
-GENERIC_PROBLEM = ("queue 1, item 2 (generic IsingProblem and instances, "
-                   "the generic ops/piqmc.py sweeps)")
-BATH = ("queue 1, item 3 (what is left of dissipative PIQMC: odd-L "
-        "lattices, bath_update='colored')")
-GENERIC_GRAPHS = "queue 1, item 4 (generic graphs, anneal_noisy)"
-CLUSTER = "queue 1, item 5 (cluster updates)"
-SAMPLERS = "queue 1, item 6 (samplers and API)"
+BATH = ("queue 1, item 2 (what is left of dissipative PIQMC: odd-L "
+        "lattices, bath_update='colored', the bath on an IsingProblem)")
+GENERIC_GRAPHS = ("queue 1, item 3 (generic graphs: DenseProblem, "
+                  "anneal_noisy, the packed noisy scans)")
+CLUSTER = "queue 1, item 4 (cluster updates)"
+SAMPLERS = "queue 1, item 5 (samplers and API)"
+PARALLEL = "queue 1, item 6 (parallel layer)"
 
 
-def require_lattice(problem):
-    """Raise NotImplementedError unless `problem` is a LatticeProblem, the
-    only problem the port takes yet (any L, open or periodic)."""
+def require_problem(problem):
+    """Raise NotImplementedError unless `problem` is one of the port's own
+    problem types, a LatticeProblem or an IsingProblem (a problem of the
+    JAX package must cross through `convert.py` first)."""
+    from montecarlosolvers_tpu_torch.models.ising import IsingProblem
     from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 
-    if not isinstance(problem, LatticeProblem):
-        raise not_ported("a problem other than a LatticeProblem",
-                         GENERIC_PROBLEM)
+    if not isinstance(problem, (LatticeProblem, IsingProblem)):
+        raise NotImplementedError(
+            f"{type(problem).__module__}.{type(problem).__name__} is not a "
+            "problem of the port: build a LatticeProblem or an IsingProblem "
+            "(convert.lattice_from_arrays / convert.ising_from_arrays carry "
+            "the JAX package's across)"
+        )
 
 
 def not_ported(what, item):

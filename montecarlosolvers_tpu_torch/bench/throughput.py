@@ -102,8 +102,12 @@ def measure_rate(run, taus, work_per_step, trials=3, clock=time.perf_counter):
 
 def problem_of(device, side=L):
     """(problem, certified ground-state energy or None, its name): the
-    santoro instance where MCS_TPU_INSTANCE_DIR holds it (side 80 only),
-    else the seeded Gaussian torus (bench.py::_problem)."""
+    santoro instance as a LatticeProblem where MCS_TPU_INSTANCE_DIR holds
+    it (side 80 only), else the seeded periodic Gaussian torus
+    `gaussian_torus(side, 0)`. This fallback departs from
+    bench.py::_problem, which falls back to the OPEN lattice
+    `random_2d_lattice(80, rng=0, lattice=True)`: the two take different
+    split stencils (7 slots against 5) and give different energies."""
     if side == L:
         try:
             problem, e_gs = instances.santoro_80x80(lattice=True,

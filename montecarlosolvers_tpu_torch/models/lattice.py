@@ -24,6 +24,16 @@ def _plane(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def checkerboard_masks(L):
+    """(2, L*L) bool numpy checkerboard, (r + c) % 2 == color: the lattice's
+    two color classes (a proper coloring on open and even lattices; see
+    ROADMAP.md queue 3 for an odd torus)."""
+    r = np.arange(L)[:, None]
+    c = np.arange(L)[None, :]
+    par = ((r + c) % 2).reshape(-1)
+    return np.stack([par == 0, par == 1])
+
+
 class LatticeProblem(nn.Module):
     """2D lattice Ising problem, H(s) = sum_bonds J s s + sum_i h_i s_i.
 
@@ -118,3 +128,40 @@ class LatticeProblem(nn.Module):
         e = e + torch.sum(self.j_down * sp * torch.roll(sp, -1, dims=-2),
                           dim=(-1, -2))
         return e + torch.sum(self.h_plane * sp, dim=(-1, -2))
+
+    def delta_e(self, s):
+        """dE of flipping each spin of flat (..., L*L) states:
+        -2 s (J s + h)."""
+        s = s.to(torch.float32)
+        return -2.0 * s * self.local_fields(s)
+
+    def to_generic(self, maxnb=None):
+        """The same problem as a padded-gather IsingProblem on the
+        lattice's device (JAX `LatticeProblem.to_generic`): every nonzero
+        right, down and field entry in row-major order, maxnb 5 unless
+        given, greedy-colored."""
+        from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+
+        L = self.L
+        jr, jd, h = (x.cpu().numpy() for x in (self.j_right, self.j_down,
+                                               self.h_plane))
+        rows, cols, vals = [], [], []
+        for r in range(L):
+            for c in range(L):
+                i = r * L + c
+                if jr[r, c] != 0.0:
+                    rows.append(i)
+                    cols.append(r * L + (c + 1) % L)
+                    vals.append(jr[r, c])
+                if jd[r, c] != 0.0:
+                    rows.append(i)
+                    cols.append(((r + 1) % L) * L + c)
+                    vals.append(jd[r, c])
+                if h[r, c] != 0.0:
+                    rows.append(i)
+                    cols.append(i)
+                    vals.append(h[r, c])
+        return IsingProblem.from_edges(
+            L * L, np.array(rows), np.array(cols), np.array(vals),
+            maxnb=maxnb if maxnb is not None else 5, device=self.device,
+        )

@@ -8,7 +8,8 @@ for such a file (a PyTorch C++ extension, whose sources include PyTorch's
 headers, takes minutes). Building happens only when a kernel is first needed or when `build` is
 called; importing this module runs nothing.
 
-The kernel wrappers (`ops/split_kernels.py`, `ops/plane_kernels.py`) share
+The kernel wrappers (`ops/split_kernels.py`, `ops/plane_kernels.py`,
+`ops/generic_kernels.py`) share
 the helpers below: the device route, argument checks, error reporting and
 `LAUNCHES`, the one count of kernel launches.
 """
@@ -30,7 +31,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("split_sa", "split_qmc", "split_svmc", "split_qmc_bath",
-           "plane_sa", "plane_qmc", "plane_svmc", "energy")
+           "plane_sa", "plane_qmc", "plane_svmc", "energy", "packed_sa",
+           "packed_svmc", "generic_qmc")
 
 # No --use_fast_math: kernels and their plain versions must round alike.
 NVCC_FLAGS = (
@@ -163,6 +165,30 @@ SIGNATURES = {
         ),
         "plane_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
+    "packed_sa": {
+        # nbr_idx, nbr_J, h, perm, starts, temps, s (in place), energies,
+        # chains, n, maxnb, ncolors, steps, seed, threads, stream
+        "packed_sa_anneal": (_I, [_P] * 8 + [_I] * 7 + [_P]),
+        "packed_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "packed_svmc": {
+        # nbr_idx, nbr_J, h, perm, starts, a_sched, b_sched, temp, th (in
+        # place), scratch, energies, chains, n, maxnb, ncolors, steps, seed,
+        # tf, threads, stream
+        "packed_svmc_anneal": (
+            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 3 + [_I] * 8 + [_P]
+        ),
+        "packed_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "generic_qmc": {
+        # nbr_idx, nbr_J, h, perm, starts, b_sched, jp, teff, s (in place),
+        # energies, chains, P, n, maxnb, ncolors, m, steps, seed,
+        # global_moves, threads, stream
+        "generic_qmc_anneal": (
+            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 2 + [_I] * 10 + [_P]
+        ),
+        "generic_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
     "energy": {
         # w, h, a, b, chains, P, L, nslots, cos_theta, out, stream
         "energy_halves": (_I, [_P] * 4 + [_I] * 5 + [_P, _P]),
@@ -207,6 +233,9 @@ LAUNCHES.update({f"{k}_energy": 0
                            "qmc_bath_split", "sa_plane", "qmc_plane",
                            "svmc_plane")})
 LAUNCHES["energy"] = 0
+# The generic kernels on an IsingProblem (ops/generic_kernels.py) run the
+# whole schedule in one launch, energies or not.
+LAUNCHES.update({"packed_sa": 0, "packed_svmc": 0, "generic_qmc": 0})
 
 
 def reset_launches():
@@ -221,13 +250,14 @@ def route(device, engine):
     return device.type
 
 
-def check_arg(t, name, shape, device):
-    """Raise ValueError unless `t` is a contiguous float32 tensor of
-    `shape` on `device`: what every kernel takes."""
+def check_arg(t, name, shape, device, dtype=torch.float32):
+    """Raise ValueError unless `t` is a contiguous tensor of `dtype` and
+    `shape` on `device`: what every kernel takes (float32 but for the
+    generic kernels' int32 tables)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

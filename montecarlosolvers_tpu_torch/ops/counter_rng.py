@@ -20,6 +20,12 @@ acceptances a third, `svmc_accept_counter`. The split SVMC kernel draws its
 proposals at index 0 / 1 and its acceptances at index 2 / 3, both at the SA
 uids of the half (`sa_uids(chains, nh, index % 2)`).
 
+The generic engines on an IsingProblem (`ops/generic_kernels.py`, which no
+Pallas kernel covers) use the same hash at `generic_uids`, keyed by each
+site's original index: one uniform per site and sweep at counter(seed, t,
+0), the PIQMC line moves at line_counter(seed, t, 0) and the SVMC
+acceptances at svmc_accept_counter(seed, t, 0).
+
 Two torch pitfalls this module avoids:
   * `>>` on an int32 tensor is an arithmetic shift; the hash needs a logical
     one, emulated as `(x >> n) & ((1 << (32 - n)) - 1)`.
@@ -165,3 +171,21 @@ def plane_uids(chains, L, device, slices=None):
     k = torch.arange(slices, dtype=torch.int32, device=device)
     return (chain[:, None, None, None] * (slices * R * C)
             + k[None, :, None, None] * (R * C) + site)
+
+
+def generic_uids(chains, sites, nspins, slices=None):
+    """Site ids of the generic engines (IsingProblem graphs), keyed by the
+    ORIGINAL index of each site, so that the masked engine (sites = 0..N-1)
+    and the packed one (sites = the packed layout's `perm`) draw the same
+    uniform at the same site.
+
+    sites: int32 tensor of original indices, on the device to draw on.
+    slices=None: (chains, len(sites)), chain * N + site. slices=P:
+    (chains, P, len(sites)), (chain * P + k) * N + site; the PIQMC line
+    moves use the k = 0 ids of these, under `line_counter`."""
+    chain = torch.arange(chains, dtype=torch.int32, device=sites.device)
+    if slices is None:
+        return chain[:, None] * nspins + sites
+    k = torch.arange(slices, dtype=torch.int32, device=sites.device)
+    row = chain[:, None] * slices + k[None, :]  # (chains, P)
+    return row[:, :, None] * nspins + sites

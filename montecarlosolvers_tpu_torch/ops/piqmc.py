@@ -1,17 +1,32 @@
 """PIQMC helpers shared by the engines (counterpart of
 montecarlosolvers_tpu/ops/piqmc.py).
 
-Ported so far: `spacetime_num_phases`, with which the full-plane PIQMC
-engine (`ops/plane_kernels.py`) colors space-time, `sum_in_order`, the
-line-move and bath sum over the Trotter axis of the PIQMC engines, and
-`bath_matrix`, the dissipative engine's slice couplings. The generic
-`local_sweep` / `global_line_moves` / `dissipative_local_sweep` on an
-`IsingProblem` wait for the generic problem model (ROADMAP.md queue 1).
+Ported: `spacetime_num_phases`, with which the full-plane and generic
+PIQMC engines color space-time, `slice_color_masks`, `sum_in_order`, the
+line-move and bath sum over the Trotter axis of the PIQMC engines,
+`bath_matrix`, the dissipative engine's slice couplings, and the generic
+`local_sweep` / `global_line_moves` on an IsingProblem as plain PyTorch
+(the plain version of `csrc/generic_qmc.cu`, run on the packed problem by
+`ops/generic_kernels.py`). They take their uniforms as an argument and
+J_perp precomputed (`schedules.jperp`), as the kernels take them.
+`dissipative_local_sweep` / `dissipative_colored_sweep` on an IsingProblem
+wait for the bath item (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from montecarlosolvers_tpu_torch.models.coloring import ring_coloring
+from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
+
+
+def slice_color_masks(slices):
+    """(num_ring_colors, P) bool numpy masks of the Trotter ring's
+    coloring, and their count."""
+    colors, n = ring_coloring(slices)
+    return np.arange(n)[:, None] == colors[None, :], n
 
 
 def spacetime_num_phases(num_colors, slices):
@@ -52,3 +67,50 @@ def bath_matrix(lookuptable, slices):
     return torch.where(off > 0, lut[(off - 1).clamp(min=0)],
                        torch.zeros((), dtype=torch.float32,
                                    device=lut.device))
+
+
+def _teff32(teff, like):
+    return torch.tensor(teff, dtype=torch.float32, device=like.device)
+
+
+def local_sweep(problem, confs, u, teff, jp, b, num_phases=None):
+    """One space-time colored local sweep (JAX `local_sweep`,
+    ops/piqmc.py:79): phase p flips the accepted sites with
+    (color(i) + k) mod m == p, m = spacetime_num_phases(C, P), on
+
+        dE = (-2B s) f + (2 s J_perp)(s[k-1] + s[k+1])   (ring mod P).
+
+    confs: (..., P, N) float32 +/-1; u: uniforms of the same shape (the
+    phases partition the sites); teff: T_eff = P*T, a Python float; jp:
+    J_perp (`schedules.jperp`) and b: B, float32 tensors."""
+    slices = confs.shape[-2]
+    t32 = _teff32(teff, confs)
+    b_coeff = -2.0 * b
+    m = num_phases or spacetime_num_phases(problem.num_colors, slices)
+    k = torch.arange(slices, device=confs.device)[:, None]
+    stc = (problem.colors[None, :] + k) % m  # (P, N)
+    for p in range(m):
+        field = problem.local_fields(confs)
+        s_up = torch.roll(confs, 1, dims=-2)
+        s_dn = torch.roll(confs, -1, dims=-2)
+        de = b_coeff * confs * field + 2.0 * confs * jp * (s_up + s_dn)
+        accept = metropolis_accept(de, t32, u) & (stc == p)
+        confs = torch.where(accept, -confs, confs)
+    return confs
+
+
+def global_line_moves(problem, confs, u, teff, b):
+    """Whole-line flips, one color class of lines at a time (JAX
+    `global_line_moves`, ops/piqmc.py:193): a line's dE is
+    sum_k (-2B s_k) f_k in slice order (the J_perp terms cancel).
+
+    confs: (..., P, N); u: (..., N) uniforms, one per line; teff: Python
+    float; b: float32 tensor."""
+    t32 = _teff32(teff, confs)
+    b_coeff = -2.0 * b
+    for c in range(problem.num_colors):
+        field = problem.local_fields(confs)
+        de = sum_in_order(b_coeff * confs * field, dim=-2)
+        accept = metropolis_accept(de, t32, u) & problem.color_masks[c]
+        confs = torch.where(accept[..., None, :], -confs, confs)
+    return confs

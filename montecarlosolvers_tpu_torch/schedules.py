@@ -25,6 +25,16 @@ def linear(start, stop, num, device=None):
         _device.resolve(device))
 
 
+def geometric(start, stop, num, device=None):
+    """Geometric schedule from `start` to `stop` (both > 0), `num` points,
+    computed in float64 and rounded once to float32 (the JAX package's
+    `jnp.geomspace` rounds in float32 along the way, so a point may differ
+    from it by about one float32 ulp)."""
+    sched = np.geomspace(start, stop, int(num), dtype=np.float64)
+    return torch.from_numpy(sched.astype(np.float32)).to(
+        _device.resolve(device))
+
+
 def transverse_field(start=3.0, stop=1e-8, num=1000, device=None):
     """Gamma schedule; stop defaults to 1e-8 to keep log(tanh(G/PT)) finite
     (examples/santoro80.py:274)."""

@@ -4,8 +4,10 @@ montecarlosolvers_tpu/solvers/api.py).
 `solve` runs on the problem's device and returns a `SampleSet` of numpy
 arrays, samples sorted by energy. The port covers the methods "sa",
 "piqmc" (at any P) and "svmc" on any LatticeProblem (any L, open or
-periodic); the JAX package's other methods raise NotImplementedError naming
-their ROADMAP.md item.
+periodic) and on any IsingProblem (the generic kernels of
+`ops/generic_kernels.py`); the JAX package's other methods raise
+NotImplementedError naming their ROADMAP.md item, and a problem of the JAX
+package is refused (`convert.py` carries one across).
 """
 
 from __future__ import annotations
@@ -82,7 +84,7 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
                 pt=1.0, field_start=3.0, pre_anneal=True (the MST driver's
                 pre-anneal: T from 3.0 to pt in steps of 0.05, 100 sweeps
                 each, examples/santoro80.py:284-285, through whichever SA
-                engine the lattice takes). Each read returns its best
+                engine the problem takes). Each read returns its best
                 slice.
       "svmc"  — spin-vector MC with TF proposals; kw: field_start=3.0,
                 temp=0.05. A: field_start -> 1e-8 over `sweeps`, B = 1;
@@ -102,7 +104,7 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
             f"solve(method={method!r}) got unexpected options "
             f"{sorted(unknown)}; accepted: {sorted(_METHOD_KW[method])}"
         )
-    _roadmap.require_lattice(problem)
+    _roadmap.require_problem(problem)
 
     dev = problem.device
     gen = torch.Generator().manual_seed(seed)

@@ -21,6 +21,12 @@ The JAX solver sends odd P there to the masked
 kernel's own form of the same slice-sequential sweep
 (`pallas_split._qmc_bath_split_kernel`), which accepts any P.
 
+An IsingProblem at any P takes the generic space-time engine
+(`ops/generic_kernels.py::anneal_generic_qmc`, csrc/generic_qmc.cu), the
+JAX solver's masked `local_sweep` + `global_line_moves` (solvers/qmc.py:
+152-180) on the packed layout; the bath on an IsingProblem is not ported
+yet.
+
 `collect_energy=True` returns the best-slice energy after each sweep beside
 the state, on every route, as `sa.anneal` does (there: how the card
 computes it).
@@ -31,6 +37,8 @@ from __future__ import annotations
 import torch
 
 from montecarlosolvers_tpu_torch import _roadmap
+from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+from montecarlosolvers_tpu_torch.ops import generic_kernels
 from montecarlosolvers_tpu_torch.ops import plane_kernels
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels
@@ -57,25 +65,35 @@ def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
            collect_energy=False):
     """PIQMC anneal over the transverse-field schedule.
 
-    problem: LatticeProblem (any L). a_sched: (steps,) Gamma (end > 0,
-    e.g. 1e-8, to keep J_perp finite). b_sched: (steps,) longitudinal scale
-    B. temp: ambient T; T_eff = P*T (qmc.pyx:85). confs: (chains, P, N) or
-    (P, N) float32 +/-1, any P, on the problem's device. generator:
-    torch.Generator the counter-hash seed is drawn from. global_moves:
-    whole-line flips after each sweep (QuantumAnnealGlobal,
+    problem: LatticeProblem (any L) or IsingProblem. a_sched: (steps,)
+    Gamma (end > 0, e.g. 1e-8, to keep J_perp finite). b_sched: (steps,)
+    longitudinal scale B. temp: ambient T; T_eff = P*T (qmc.pyx:85). confs:
+    (chains, P, N) or (P, N) float32 +/-1, any P, on the problem's device.
+    generator: torch.Generator the counter-hash seed is drawn from.
+    global_moves: whole-line flips after each sweep (QuantumAnnealGlobal,
     qmc.pyx:405-438). lookuptable: optional (P-1,) system-bath couplings
     (`schedules.bath_lookuptable`), numpy or a tensor, taken as float32 on
     the problem's device: switches to the slice-sequential dissipative
-    sweep (DissipativeQuantumAnneal[Global]) on an even-L lattice at any
-    P >= 2. bath_update: "sequential", the reference's exact sweep;
-    "colored" is not ported yet. collect_energy: also return the best-slice
-    energy (`best_slice_energy`) after each sweep and its line moves,
-    float32 of shape (steps * mcsteps,) + batch on the problem's device.
-    Returns the annealed configurations, or (confs, energies)."""
+    sweep (DissipativeQuantumAnneal[Global]) on an even-L lattice at any P
+    >= 2 (not yet on an IsingProblem). bath_update: "sequential", the
+    reference's exact sweep; "colored" is not ported yet. collect_energy:
+    also return the best-slice energy (`best_slice_energy`) after each
+    sweep and its line moves, float32 of shape (steps * mcsteps,) + batch
+    on the problem's device. Returns the annealed configurations, or
+    (confs, energies)."""
     if bath_update not in BATH_UPDATES:
         raise ValueError(f"bath_update must be 'sequential' or 'colored', "
                          f"got {bath_update!r}")
-    _roadmap.require_lattice(problem)
+    _roadmap.require_problem(problem)
+    if isinstance(problem, IsingProblem):
+        if lookuptable is not None:
+            raise _roadmap.not_ported(
+                "qmc.anneal(lookuptable=...) on an IsingProblem",
+                _roadmap.BATH)
+        return generic_kernels.anneal_generic_qmc(
+            problem, a_sched, b_sched, temp, confs, draw_seed(generator),
+            mcsteps=mcsteps, global_moves=global_moves,
+            collect_energy=collect_energy)
     if lookuptable is not None:
         if bath_update == "colored":
             raise _roadmap.not_ported(

@@ -4,7 +4,11 @@ montecarlosolvers_tpu/solvers/svmc.py).
 `anneal` runs on any LatticeProblem, routed as `sa.anneal` routes: an even
 L takes the split-checkerboard engine (`ops/split_kernels.py`, kernel 4),
 any other L the full-plane engine (`ops/plane_kernels.py`, kernel 7); each
-runs its CUDA kernel on a CUDA device and its plain version on the CPU.
+runs its CUDA kernel on a CUDA device and its plain version on the CPU. An
+IsingProblem takes the packed engine
+(`ops/generic_kernels.py::anneal_packed_svmc`, csrc/packed_svmc.cu), as
+the JAX solver sends concrete graphs to `ops/packed.py::packed_svmc_scan`
+(solvers/svmc.py:107).
 
 The JAX solver draws its uniforms from `jax.random`, and for an odd L its
 masked engine draws one (proposal, acceptance) pair per site and sweep,
@@ -23,6 +27,8 @@ from __future__ import annotations
 import torch
 
 from montecarlosolvers_tpu_torch import _device, _roadmap
+from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+from montecarlosolvers_tpu_torch.ops import generic_kernels
 from montecarlosolvers_tpu_torch.ops import plane_kernels
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels
@@ -34,16 +40,20 @@ def anneal(problem, a_sched, b_sched, temp, theta, generator, mcsteps=1,
            tf=False, collect_energy=False):
     """SVMC anneal over the (A, B) schedules at fixed temperature.
 
-    problem: LatticeProblem (any L). a_sched / b_sched: (steps,) transverse
-    scale A and longitudinal scale B. theta: (chains, N) or (N,) float32
-    rotor angles in [0, pi] on the problem's device. generator:
-    torch.Generator the counter-hash seed is drawn from. tf: TF proposals
-    (svmc.pyx:198-207). mcsteps: sweeps per schedule step. collect_energy:
-    also return the classical energy of `z_projection` (sign(cos theta),
-    +1 at cos theta = 0) after each sweep, float32 of shape
-    (steps * mcsteps,) + batch on the problem's device. Returns the
+    problem: LatticeProblem (any L) or IsingProblem. a_sched / b_sched:
+    (steps,) transverse scale A and longitudinal scale B. theta: (chains,
+    N) or (N,) float32 rotor angles in [0, pi] on the problem's device.
+    generator: torch.Generator the counter-hash seed is drawn from. tf: TF
+    proposals (svmc.pyx:198-207). mcsteps: sweeps per schedule step.
+    collect_energy: also return the classical energy of `z_projection`
+    (sign(cos theta), +1 at cos theta = 0) after each sweep, float32 of
+    shape (steps * mcsteps,) + batch on the problem's device. Returns the
     annealed angles, or (theta, energies); project with `z_projection`."""
-    _roadmap.require_lattice(problem)
+    _roadmap.require_problem(problem)
+    if isinstance(problem, IsingProblem):
+        return generic_kernels.anneal_packed_svmc(
+            problem, a_sched, b_sched, temp, theta, draw_seed(generator),
+            mcsteps=mcsteps, tf=tf, collect_energy=collect_energy)
     engine = (split_kernels.anneal_lattice_svmc_split
               if split_ops.supports_split(problem)
               else plane_kernels.anneal_lattice_svmc)

@@ -39,8 +39,17 @@ wrappers through the per-phase kernels at any shape.
 of any of the seven kernels beside its plain version on the same inputs,
 with the launches the route must make and the tolerance of its energies.
 
-Used by tests/test_torch_hw_rng.py, tests/test_torch_gpu.py and
-chip_smoke.py; not a part of the package.
+The generic section at the end does the same for an IsingProblem: exact
+Boltzmann and extended-Gibbs weights over every state of a small graph
+(`generic_sa_weights`, `generic_qmc_weights`, from the problem's tables in
+float64 numpy), the rotor pair as an IsingProblem (`rotor_pair_problem`,
+whose moments are `rotor_moments`'s), samplers that take a problem-level
+engine of ops/generic_kernels.py (`sample_generic_sa`,
+`sample_generic_qmc`, `sample_generic_svmc`), and `generic_case`, the
+inputs of each generic kernel beside its plain version.
+
+Used by tests/test_torch_hw_rng.py, tests/test_torch_packed.py,
+tests/test_torch_gpu.py and chip_smoke.py; not a part of the package.
 """
 
 from __future__ import annotations
@@ -51,6 +60,9 @@ import numpy as np
 import torch
 
 from montecarlosolvers_tpu_torch import convert, schedules
+from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+from montecarlosolvers_tpu_torch.ops import packed as packed_ops
 from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
 from montecarlosolvers_tpu_torch.ops import plane as plane_ops
 from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
@@ -495,3 +507,164 @@ def energy_scale(lat):
     from their plain versions' by ENERGY_RTOL times it."""
     return float(lat.j_right.abs().sum() + lat.j_down.abs().sum()
                  + lat.h_plane.abs().sum())
+
+
+# ------------------------------------------------- generic (IsingProblem)
+
+
+def generic_energies(problem, states):
+    """float64 energies of (S, N) +/-1 numpy states, from the problem's
+    tables: 0.5 sum_i s_i sum_k J_ik s_nb + sum_i h_i s_i."""
+    idx = problem.nbr_idx.cpu().numpy()
+    jv = problem.nbr_J.cpu().double().numpy()
+    h = problem.h.cpu().double().numpy()
+    quad = (jv[None] * states[:, idx]).sum(axis=-1)
+    return 0.5 * (quad * states).sum(axis=-1) + (h * states).sum(axis=-1)
+
+
+def all_states(n):
+    """(2^n, n) float64 +/-1 states; bit i of the index is s_i = -1
+    (`spin_codes`)."""
+    bits = (np.arange(2 ** n)[:, None] >> np.arange(n)[None, :]) & 1
+    return 1.0 - 2.0 * bits
+
+
+def spin_codes(spins):
+    """(chains,) state index of (chains, ...) spins, flattened: bit i is
+    spin i = -1."""
+    flat = spins.reshape(spins.shape[0], -1)
+    w = 1 << torch.arange(flat.shape[1], device=spins.device)
+    return ((flat < 0).long() * w).sum(dim=1)
+
+
+def generic_sa_weights(problem, temp):
+    """Boltzmann weights at T of every state of a small IsingProblem."""
+    return _normalised(generic_energies(problem, all_states(problem.nspins)),
+                       temp)
+
+
+def generic_qmc_weights(problem, P, temp, jp, b=1.0):
+    """Extended Gibbs weights at T_eff = P*T of every (P, N) state of a
+    small IsingProblem, index bit k*N + i the spin i of slice k = -1:
+    E = B sum_k E(s_k) - J_perp sum_k s_k . s_{k+1} (ring)."""
+    n = problem.nspins
+    s = all_states(n * P).reshape(-1, P, n)
+    e = b * generic_energies(problem, s.reshape(-1, n)).reshape(-1, P).sum(1)
+    e -= jp * (s * np.roll(s, -1, axis=1)).sum(axis=(1, 2))
+    return _normalised(e, P * temp)
+
+
+def rotor_pair_problem(device):
+    """The rotor pair of `rotor_moments` as an IsingProblem: bond J, fields
+    H0 and H1 (tests/test_packed.py's two-rotor case)."""
+    return IsingProblem.from_edges(2, [0, 0, 1], [1, 0, 1], [J, H0, H1],
+                                   maxnb=2, device=device)
+
+
+def _random_spins(shape, seed, device):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randint(0, 2, shape, generator=gen).float() * 2
+            - 1).to(device)
+
+
+def sample_generic_sa(engine, problem, chains, temp, seed, burn=BURN,
+                      samples=SAMPLES, every=EVERY):
+    """Per-chain frequencies of the 2^N states under `engine`
+    (generic_kernels.anneal_packed or anneal_masked) at T."""
+    dev = problem.device
+
+    def step(s, n, sd):
+        return engine(problem, torch.full((n,), temp, device=dev), s, sd)
+    return _frequencies(step, _random_spins((chains, problem.nspins), seed,
+                                            dev),
+                        spin_codes, 2 ** problem.nspins, burn, samples,
+                        every, seed)
+
+
+def sample_generic_qmc(problem, chains, P, temp, gamma, seed,
+                       global_moves=True, burn=BURN, samples=SAMPLES,
+                       every=EVERY):
+    """Per-chain frequencies of the 2^(P N) states under
+    generic_kernels.anneal_generic_qmc at fixed Gamma, B = 1 and T."""
+    dev = problem.device
+
+    def step(c, n, sd):
+        g = torch.full((n,), gamma, device=dev)
+        return gk.anneal_generic_qmc(problem, g, torch.ones_like(g), temp, c,
+                                     sd, global_moves=global_moves)
+    return _frequencies(step, _random_spins((chains, P, problem.nspins),
+                                            seed, dev),
+                        spin_codes, 2 ** (P * problem.nspins), burn,
+                        samples, every, seed)
+
+
+def sample_generic_svmc(problem, chains, a, b, temp, seed, burn=BURN,
+                        samples=SAMPLES, every=EVERY):
+    """(chains, 2) per-chain means of E_pair and cos t0 of the rotor pair
+    (`rotor_pair_problem`) under generic_kernels.anneal_packed_svmc with
+    uniform proposals at A, B, T."""
+    dev = problem.device
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    th = (torch.rand((chains, 2), generator=gen) * np.pi).to(dev)
+
+    def step(th, n, sd):
+        return gk.anneal_packed_svmc(problem, torch.full((n,), a, device=dev),
+                                     torch.full((n,), b, device=dev), temp,
+                                     th, sd)
+    th = step(th, burn, seed)
+    obs = np.zeros((chains, 2))
+    for i in range(samples):
+        th = step(th, every, seed + 1 + i)
+        t = th.double().cpu().numpy()
+        obs += np.stack([rotor_energy(t[:, 0], t[:, 1], a, b),
+                         np.cos(t[:, 0])], axis=1)
+    return obs / samples
+
+
+# kernel -> (wrapper, plain version, LAUNCHES key)
+GENERIC = {
+    "packed_sa": (gk.packed_sa_anneal, gk.packed_sa_anneal_ref, "packed_sa"),
+    "generic_qmc": (gk.generic_qmc_anneal, gk.generic_qmc_anneal_ref,
+                    "generic_qmc"),
+    "packed_svmc": (gk.packed_svmc_anneal, gk.packed_svmc_anneal_ref,
+                    "packed_svmc"),
+}
+
+
+def generic_case(kernel, problem, chains, steps, slices=None, tf=True,
+                 global_moves=True, seed=0, bscale=1.0):
+    """Generic kernel `kernel`'s inputs on IsingProblem `problem` (its
+    device), packed: `chains` chains (of `slices` slices for PIQMC) of
+    random spins or angles from numpy's `seed`, `steps` steps of its
+    schedule (T: 3 -> 0.1; Gamma: 3 -> 1e-8 with B = bscale, T = 1/P;
+    SVMC A: 3 -> 1e-8, B = bscale, T = 0.05, TF proposals `tf`).
+
+    Returns a dict: run(fn, energies) calls the wrapper or the plain
+    version `fn` and returns its state; start, the packed input state;
+    pg, the PackedGraph; scale, sum |J| + sum |h| (the energies'
+    tolerance is ENERGY_RTOL times it); angles, whether the state is
+    SVMC angles."""
+    dev = problem.device
+    rng = np.random.default_rng(seed)
+    pg = packed_ops.build_packed(problem)
+    n = problem.nspins
+    gamma = schedules.transverse_field(3.0, 1e-8, steps, device=dev)
+    bs = torch.full_like(gamma, bscale)
+    if kernel == "packed_sa":
+        start = rng.choice([-1.0, 1.0], size=(chains, n))
+        sched = schedules.linear(3.0, 0.1, steps, device=dev)
+        call = lambda fn, es: fn(pg, sched, st, 11, energies=es)
+    elif kernel == "generic_qmc":
+        start = rng.choice([-1.0, 1.0], size=(chains, slices, n))
+        teff = (1.0 / slices) * slices
+        jp = schedules.jperp(gamma, teff).contiguous()
+        call = lambda fn, es: fn(pg, bs, jp, teff, st, 11, global_moves,
+                                 energies=es)
+    else:
+        start = rng.random((chains, n)) * np.pi
+        call = lambda fn, es: fn(pg, gamma, bs, 0.05, st, 11, tf,
+                                 energies=es)
+    st = torch.as_tensor(start.astype(np.float32), device=dev)
+    scale = float(problem.nbr_J.abs().sum() / 2 + problem.h.abs().sum())
+    return {"run": call, "start": st, "pg": pg, "scale": scale,
+            "angles": kernel == "packed_svmc"}

@@ -371,7 +371,7 @@ def test_bath_refusals():
     b = torch.ones_like(a)
     c = qmc.replicate(sa.random_state(gen, 36, batch=(2,), device="cpu"), 3)
     lut = tsched.bath_lookuptable(3, 0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="odd-L.*item 3"):
+    with pytest.raises(NotImplementedError, match="odd-L.*item 2"):
         qmc.anneal(odd, a, b, 0.3,
                    qmc.replicate(torch.ones((2, 25)), 3), gen,
                    lookuptable=lut)
@@ -386,7 +386,7 @@ def test_bath_refusals():
     with pytest.raises(ValueError, match=r"expected \(2,\)"):
         qmc.anneal(even, a, b, 0.3, c, gen,
                    lookuptable=tsched.bath_lookuptable(4, 0.1, device="cpu"))
-    with pytest.raises(NotImplementedError, match="colored.*item 3"):
+    with pytest.raises(NotImplementedError, match="colored.*item 2"):
         qmc.anneal(even, a, b, 0.3, c, gen, lookuptable=lut,
                    bath_update="colored")
     with pytest.raises(ValueError, match="bath_update"):

@@ -35,7 +35,11 @@ chains, which take chain words of C = 1 to 32 bits over clusters of up to
 schedules and states land on the card. The generator instantiations
 (hw_rng=True) of A, B, 4 and 5, on both routes, sample the exact weights
 of tests/gibbs_check.py's bonded pair, reproduce a seed and keep their chains' and
-slices' streams apart; the bench's arms launch their kernels.
+slices' streams apart; the bench's arms launch their kernels. The generic
+kernels on an IsingProblem (packed SA, generic PIQMC, packed SVMC) equal
+their plain versions on small graphs of 2 to 9 colors, collect energies in
+their one launch, run solve() with one launch a kernel and sample exact
+weights; engine="masked" runs the packed kernel.
 """
 
 import contextlib
@@ -69,7 +73,7 @@ def cuda():
 def _lattice(L, periodic, dev):
     if periodic:
         return instances.gaussian_torus(L, seed=L, device=dev)
-    return instances.random_2d_lattice(L, rng=L, device=dev)[0]
+    return instances.random_2d_lattice(L, rng=L, lattice=True, device=dev)[0]
 
 
 @pytest.mark.parametrize("L,periodic", [(10, True), (16, False), (32, True)])
@@ -722,3 +726,125 @@ def test_solvers_collect_on_the_card(cuda, L, P, bath, launches):
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == launches
     assert es.shape == (6, 3) and es.device == out.device
     torch.testing.assert_close(es[-1], want, rtol=1e-5, atol=1e-3)
+
+
+# ---------------------------------- the generic kernels (IsingProblem)
+
+
+def _generic(name, dev):
+    """Small graphs of each kind: a torus's generic form (2 colors), a 3-D
+    glass, a chimera (3 colors), a random graph with 9 colors (more than
+    the JAX package's MAX_PACKED_COLORS) and one with fields, and an odd
+    torus's generic form (a proper 4-coloring)."""
+    return {
+        "torus10": lambda: instances.gaussian_torus(10, 0, device=dev)
+        .to_generic(),
+        "torus9": lambda: instances.gaussian_torus(9, 0, device=dev)
+        .to_generic(),
+        "glass3d": lambda: instances.random_3d_lattice(4, rng=0,
+                                                       device=dev)[0],
+        "chimera": lambda: instances.chimera_graph(3, rng=0, device=dev)[0],
+        "rg9": lambda: instances.random_graph(30, 220, rng=1, device=dev)[0],
+        "rg_fields": lambda: instances.random_graph(
+            300, 900, rng=2, with_fields=True, device=dev)[0],
+    }[name]()
+
+
+@pytest.mark.parametrize("kernel,graph,slices,option", [
+    ("packed_sa", "torus10", None, None), ("packed_sa", "rg9", None, None),
+    ("packed_sa", "rg_fields", None, None),
+    ("packed_sa", "torus9", None, None),
+    ("generic_qmc", "torus10", 4, True), ("generic_qmc", "chimera", 5, True),
+    ("generic_qmc", "rg9", 3, False), ("generic_qmc", "glass3d", 40, True),
+    ("packed_svmc", "torus10", None, True),
+    ("packed_svmc", "rg9", None, False),
+    ("packed_svmc", "rg_fields", None, True),
+])
+def test_generic_kernel_equals_plain(cuda, kernel, graph, slices, option):
+    """Each generic kernel against its plain version on the card, with and
+    without energies: states bitwise (angles as the SVMC checks hold
+    them), energies within ENERGY_RTOL * (sum |J| + sum |h|) of the plain
+    version's, one launch a call."""
+    steps, chains = 12, 5
+    prob = _generic(graph, cuda)
+    kw = ({"tf": option} if kernel == "packed_svmc"
+          else {"global_moves": option} if kernel == "generic_qmc" else {})
+    case = gibbs.generic_case(kernel, prob, chains, steps, slices, bscale=0.8,
+                              **kw)
+    wrapper, plain, key = gibbs.GENERIC[kernel]
+    es, es_plain = (torch.full((steps, chains), float("nan"), device=cuda)
+                    for _ in range(2))
+    _build.reset_launches()
+    out = case["run"](wrapper, None)
+    collected = case["run"](wrapper, es)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {key: 2}
+    ref = case["run"](plain, es_plain)
+    torch.cuda.synchronize()
+    if case["angles"]:
+        _assert_angles_equal(out, ref, case["start"])
+    else:
+        assert torch.equal(out, ref)
+        assert float((out != case["start"]).float().mean()) > 0.05
+    assert torch.equal(out, collected)
+    assert torch.isfinite(es).all()
+    assert float((es - es_plain).abs().max()) <= \
+        gibbs.ENERGY_RTOL * case["scale"]
+
+
+@pytest.mark.parametrize("method,launches", [
+    ("sa", {"packed_sa": 1}),
+    ("piqmc", {"packed_sa": 1, "generic_qmc": 1}),
+    ("svmc", {"packed_svmc": 1}),
+])
+def test_solve_on_an_ising_problem_runs_its_kernels(cuda, method, launches):
+    prob = instances.chimera_graph(2, 2, t=2, rng=1, device=cuda)[0]
+    e_gs = float(gibbs.generic_energies(
+        prob, gibbs.all_states(prob.nspins)).min())
+    kw = {"slices": 4, "pt": 2.0} if method == "piqmc" else {}
+    _build.reset_launches()
+    ss = solve(prob, method, num_reads=16, sweeps=400, seed=1, **kw)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == launches
+    assert abs(ss.best_energy - e_gs) < 1e-3
+
+
+def test_masked_engine_runs_the_packed_kernel(cuda):
+    prob = _generic("rg9", cuda)
+    gen = torch.Generator().manual_seed(2)
+    s = sa.random_state(gen, prob.nspins, batch=(4,))
+    sched = schedules.linear(2.0, 0.1, 20)
+    _build.reset_launches()
+    a = sa.anneal(prob, sched, s, torch.Generator().manual_seed(3))
+    b = sa.anneal(prob, sched, s, torch.Generator().manual_seed(3),
+                  engine="masked")
+    assert _build.LAUNCHES["packed_sa"] == 2
+    assert torch.equal(a, b)
+    cpu = prob.to("cpu")
+    c = sa.anneal(cpu, sched.cpu(), s.cpu(), torch.Generator().manual_seed(3),
+                  engine="masked")
+    assert torch.equal(a.cpu(), c)
+
+
+@pytest.mark.parametrize("engine", ["sa", "qmc", "svmc"])
+def test_generic_kernels_sample_exact_weights(cuda, engine):
+    """The generic kernels on the small exact cases of
+    tests/test_torch_packed.py: every state (or moment) within 5 standard
+    errors of the chain means."""
+    if engine == "sa":
+        prob = instances.random_graph(4, 5, rng=0, with_fields=True,
+                                      device=cuda)[0]
+        from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+        per_chain = gibbs.sample_generic_sa(gk.anneal_packed, prob, 4096,
+                                            1.1, 31)
+        z, _ = gibbs.z_scores(per_chain, gibbs.generic_sa_weights(prob, 1.1),
+                              gibbs.SAMPLES)
+    elif engine == "qmc":
+        prob = instances.random_graph(2, 1, rng=0, device=cuda)[0]
+        per_chain = gibbs.sample_generic_qmc(prob, 4096, 3, 0.6, 0.7, 32)
+        z, _ = gibbs.z_scores(per_chain, gibbs.generic_qmc_weights(
+            prob, 3, 0.6, gibbs.jperp(0.7, 3, 0.6)), gibbs.SAMPLES)
+    else:
+        prob = gibbs.rotor_pair_problem(cuda)
+        per_chain = gibbs.sample_generic_svmc(prob, 4096, 0.6, 1.0, 0.7, 33)
+        z, _ = gibbs.z_scores(per_chain,
+                              np.array(gibbs.rotor_moments(0.6, 1.0, 0.7)))
+    assert z < 5.0

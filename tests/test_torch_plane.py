@@ -274,6 +274,7 @@ def test_instances_odd_l_match_jax(L):
     ref = periodic(L, L)
     lat, (rows, cols, vals) = tinst.random_2d_lattice(L, rng=L,
                                                       with_fields=True,
+                                                      lattice=True,
                                                       device="cpu")
     jlat, (jrows, jcols, jvals) = jinst.random_2d_lattice(
         L, rng=L, with_fields=True, lattice=True)

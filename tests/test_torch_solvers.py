@@ -164,19 +164,27 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="colored"):
         qmc.anneal(lat, sched, torch.ones_like(sched), 0.3, c, gen,
                    lookuptable=np.ones(2), bath_update="colored")
-    # odd P and odd L run now (tests/test_torch_plane.py); a problem that
-    # is not a LatticeProblem, such as the JAX package's generic
-    # IsingProblem, is still refused by every entry point
+    # odd P and odd L run now (tests/test_torch_plane.py), and so does the
+    # port's own generic IsingProblem (tests/test_torch_packed.py); a
+    # problem of the JAX package, such as its generic IsingProblem, is
+    # still refused by every entry point
     generic = jinst.random_2d_lattice(4, rng=0)[0]
-    with pytest.raises(NotImplementedError, match="other than a Lattice"):
+    with pytest.raises(NotImplementedError, match="not a problem of the"):
         qmc.anneal(generic, sched, torch.ones_like(sched), 0.3, c, gen)
-    with pytest.raises(NotImplementedError, match="other than a Lattice"):
+    with pytest.raises(NotImplementedError, match="not a problem of the"):
         sa.anneal(generic, sched, sa.random_state(gen, 16, device="cpu"),
                   gen)
-    with pytest.raises(NotImplementedError, match="other than a Lattice"):
+    with pytest.raises(NotImplementedError, match="not a problem of the"):
         api.solve(generic, "piqmc", num_reads=2, sweeps=3, slices=5)
-    with pytest.raises(NotImplementedError, match="generic IsingProblem"):
-        tinst.random_2d_lattice(4, rng=0, lattice=False, device="cpu")
+    port_generic = tinst.random_2d_lattice(4, rng=0, lattice=False,
+                                           device="cpu")[0]
+    ss = api.solve(port_generic, "piqmc", num_reads=2, sweeps=3, slices=5,
+                   pre_anneal=False)
+    assert ss.samples.shape == (2, 16)
+    # the bath on an IsingProblem waits for its ROADMAP.md item
+    with pytest.raises(NotImplementedError, match="IsingProblem.*item 2"):
+        qmc.anneal(port_generic, sched, torch.ones_like(sched), 0.3,
+                   c[:, :, :16], gen, lookuptable=np.ones(2))
     for fn in (sa.anneal_noisy, sa.anneal_wolff, sa.anneal_sw,
                qmc.anneal_wolff, qmc.anneal_sw, qmc.anneal_sw_bath):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -228,6 +236,9 @@ def test_port_imports_no_jax():
             "from montecarlosolvers_tpu_torch.bench import mst; "
             "from montecarlosolvers_tpu_torch.examples import santoro_mst, "
             "dissipative_qa; "
+            "from montecarlosolvers_tpu_torch.ops import generic_kernels; "
+            "from montecarlosolvers_tpu_torch.models import instances, "
+            "ising, coloring; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'montecarlosolvers_tpu')]; "
             "assert not bad, bad")

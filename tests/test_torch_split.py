@@ -125,6 +125,7 @@ def test_from_edges_and_instances_match_jax():
                                                      lattice=True)
     tl, (trows, tcols, tvals) = tinst.random_2d_lattice(12, rng=4,
                                                         with_fields=True,
+                                                        lattice=True,
                                                         device="cpu")
     assert np.array_equal(vals, tvals)
     for name in ("j_right", "j_down", "h_plane"):
@@ -158,7 +159,7 @@ def test_santoro_lookup_and_triplets(tmp_path, monkeypatch):
     _, (rows, cols, vals) = jinst.random_2d_lattice(80, rng=0)
     path = tmp_path / "santoro_80x80.txt"
     np.savetxt(path, np.stack([rows + 1, cols + 1, vals], axis=1))
-    tl, e_gs = tinst.santoro_80x80(device="cpu")
+    tl, e_gs = tinst.santoro_80x80(lattice=True, device="cpu")
     jl, je_gs = jinst.santoro_80x80(lattice=True)
     assert e_gs == je_gs
     for name in ("j_right", "j_down", "h_plane"):

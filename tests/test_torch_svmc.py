@@ -361,14 +361,20 @@ def test_svmc_refusals():
     lat = tinst.gaussian_torus(6, seed=0, device="cpu")
     a = tsched.linear(1.0, 1e-8, 3, device="cpu")
     th = svmc.random_state(gen, 36, batch=(2,), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4 .generic graphs"):
+    with pytest.raises(NotImplementedError, match="item 3 .generic graphs"):
         svmc.anneal_noisy(lat, a, torch.ones_like(a), 0.1, None, None, th,
                           gen)
+    # a problem of the JAX package is refused; the port's own generic
+    # IsingProblem runs (tests/test_torch_packed.py)
     generic = jinst.random_2d_lattice(4, rng=0)[0]
-    with pytest.raises(NotImplementedError, match="other than a Lattice"):
+    with pytest.raises(NotImplementedError, match="not a problem of the"):
         svmc.anneal(generic, a, torch.ones_like(a), 0.1, th[:, :16], gen)
-    with pytest.raises(NotImplementedError, match="other than a Lattice"):
+    with pytest.raises(NotImplementedError, match="not a problem of the"):
         api.solve(generic, "svmc", num_reads=2, sweeps=3)
+    port_generic = tinst.random_2d_lattice(4, rng=0, device="cpu")[0]
+    out = svmc.anneal(port_generic, a, torch.ones_like(a), 0.1, th[:, :16],
+                      gen)
+    assert out.shape == (2, 16)
     with pytest.raises(TypeError, match="unexpected options"):
         api.solve(lat, "svmc", slices=4)
     with pytest.raises(ValueError, match="problem on cpu"):
