@@ -7,10 +7,11 @@ Run from the repository root, with no arguments:
 
 Phases, each printed as one JSON line:
   device              nvidia-smi's name and power limit of the card
-  build               nvcc builds kernels A, B, 3, 4, 5, 6 and 7, the
-                      energy kernel's entry points and the three generic
-                      kernels (packed SA, generic PIQMC, packed SVMC) from
-                      csrc/, all at once (seconds)
+  build               nvcc builds kernels A, B, 3, 4, 5 (with its colored
+                      template), 6 and 7, the energy kernel's entry points
+                      and the four generic kernels (packed SA, generic
+                      PIQMC, packed SVMC, generic bath) from csrc/, all at
+                      once (seconds)
   clusters            the (C, R, threads) kernels A and 6 and the (R,
                       threads) kernels B, 5, 3, 7 and 4 take at the shapes
                       below, and how many of those clusters the card holds
@@ -87,6 +88,25 @@ Phases, each printed as one JSON line:
                       bitwise the plain run's, its energies within 1e-5
                       (sum |J| + sum |h|) of the plain version's
                       packed_energy, one launch a call
+  bath_kernel_vs_plain  the rest of dissipative PIQMC: the generic bath
+                      kernel (csrc/generic_qmc_bath.cu) against its plain
+                      version on the 80x80 torus's neighbor-table form (P =
+                      40, 32 chains, sequential and colored, global moves
+                      on and off, B = 1 and 0.7), the 81x81 torus's
+                      checkerboard (P = 40 sequential, P = 5 colored: a
+                      coloring that is not proper), the 80x80 torus at P =
+                      5 colored, chimera_graph(16, rng=0) at P = 20, the
+                      9-color random_graph(2000, 12000, rng=0) and the open
+                      81x81 lattice (8 chains, P = 5), BATH_STEPS steps,
+                      each with and without collect_energy; then kernel 5's
+                      colored template (the quarter sweep) on the 80x80
+                      torus at P = 40, 32 chains, B in {1, 0.7} x global
+                      moves on / off (the collecting route beside the
+                      first), P = 2, P = 64, the open 80x80 lattice at
+                      P = 4, the 176x176 torus, and the 674x674 torus,
+                      which no cluster holds and the per-phase kernels run:
+                      0 mismatched spins, energies within 1e-5 (sum |J| +
+                      sum |h|), launches exactly the route's
   main_path           eight solves at full width: solve("sa", 1280 reads,
                       2000 sweeps) and solve("piqmc", 32 reads, 1000
                       sweeps) at P = 40 and at P = 5 on the santoro instance
@@ -115,7 +135,18 @@ Phases, each printed as one JSON line:
                       sweeps) on chimera_graph(16, rng=0) and solve("sa",
                       1280 reads, 2000 sweeps) on random_3d_lattice(16,
                       rng=0), each launching packed_sa, generic_qmc or
-                      packed_svmc once an anneal and nothing else
+                      packed_svmc once an anneal and nothing else; then
+                      six bath solves of examples/dissipative_qa.py's
+                      protocol (32 chains, alpha = 1e-2, tau =
+                      BATH_NEW_SWEEPS, P = 40): sequential and colored on
+                      the 80x80 torus's neighbor-table form (what
+                      compat.DissipativeQuantumAnneal builds; the generic
+                      bath kernel), sequential on the 81x81 torus (the
+                      generic bath kernel on its checkerboard), colored on
+                      the 80x80 torus (kernel 5's colored template) and at
+                      P = 5 (the generic bath kernel), and sequential on
+                      chimera_graph(16, rng=0) at P = 20, each in a range
+                      around its JAX CPU anchor
   timing              slope-timed ms per sweep of each kernel and of its
                       plain version at the main path's shapes, beside the
                       least time the card could take for a sweep (bound:
@@ -129,7 +160,13 @@ Phases, each printed as one JSON line:
                       kernels at the main path's widths on the 80x80
                       torus's generic form, and a line generic_vs_lattice
                       with the lattice kernel's time on the same torus
-                      (A, B, 4) beside each
+                      (A, B, 4) beside each; the generic bath kernel on the
+                      80x80 torus's neighbor-table form (P = 40, 32 chains;
+                      also colored, and on the 81x81 torus and the chimera
+                      beside the kernels line), kernel 5's colored template
+                      on the 80x80 torus and its per-phase kernels on the
+                      674x674 torus, and a line bath_vs_lattice with each
+                      beside kernel 5 on the same torus
   hw_rng_kernel_checks  the generator instantiations (hw_rng=True,
                       csrc/hw_rng.cuh) of kernels A, B, 4 and 5, on their
                       cluster kernels and on their per-phase kernels (forced
@@ -205,7 +242,9 @@ kernels, which no main-path solve launches, then the generator
 instantiations of A, B, 4 and 5 and their per-phase kernels, whose
 launches are the bench's, then the energy kernel by the layout it reads,
 halves, quarters or planes, whose launches are the collecting solves',
-then the three generic kernels, whose launches are the main path's),
+then the three generic kernels, whose launches are the main path's,
+then the generic bath kernel, kernel 5's colored template and its
+per-phase kernels, whose launches are the main path's),
 a line {"phase": "done", "seconds": ..., "phase_seconds": {...}} (the
 seconds from the start at the end of each phase), and last
 {"ok": true, "device": {...}}.
@@ -315,6 +354,28 @@ CHIMERA_SLICES, CHIMERA_READS, CHIMERA_SWEEPS = 20, 32, 1000
 # steps of the generic kernels against their plain versions (PIQMC: fewer,
 # its plain version computes every field in every phase)
 GENERIC_STEPS, GENERIC_QMC_STEPS = 20, 10
+# The rest of dissipative PIQMC (the bath on an IsingProblem, on odd L and
+# with bath_update="colored"): examples/dissipative_qa.py's protocol at the
+# bath arm's 32 chains, P = 40 (the chimera at 20) and alpha = 1e-2, tau =
+# BATH_NEW_SWEEPS. Anchors from the JAX package on the CPU at the same
+# problem, P, tau and bath update (tools/jax_bath_anchor.py --tau 200
+# --chains 32, key 0; PERF.md section 2), mean best-slice energy per spin
+# +/- 0.01 (sd of one read 0.0018-0.0055):
+#   piqmc_bath_nbtable_p40          --problem nbtable --L 80: -1.28242
+#   piqmc_bath_nbtable_colored_p40  the same, --bath-update colored: -1.28268
+#   piqmc_bath_l81_p40              --problem torus --L 81: -1.28648
+#   piqmc_bath_colored_p40          --problem torus --L 80, colored: -1.28303
+#   piqmc_bath_colored_p5           the same at --slices 5: -1.28196
+#   piqmc_bath_chimera_p20          --problem chimera --slices 20: -1.75208
+BATH_NEW_SWEEPS, BATH_STEPS = 200, 10
+RANGES.update({
+    "piqmc_bath_nbtable_p40": (-1.292, -1.272),
+    "piqmc_bath_nbtable_colored_p40": (-1.293, -1.273),
+    "piqmc_bath_l81_p40": (-1.296, -1.276),
+    "piqmc_bath_colored_p40": (-1.293, -1.273),
+    "piqmc_bath_colored_p5": (-1.292, -1.272),
+    "piqmc_bath_chimera_p20": (-1.762, -1.742),
+})
 # kernel name -> (LAUNCHES key, source, TPU kernel it replaces)
 KERNELS = {
     "split_sa": ("sa_split", "montecarlosolvers_tpu_torch/csrc/split_sa.cu",
@@ -383,6 +444,24 @@ GENERIC_KERNELS = {
                     "montecarlosolvers_tpu/ops/packed.py:149"),
 }
 KERNELS.update(GENERIC_KERNELS)
+# the rest of dissipative PIQMC: the generic bath kernel (the XLA masked
+# sweeps of the JAX solver) and kernel 5's colored template with its
+# per-phase kernels (the XLA colored quarter sweep)
+BATH_KERNELS = {
+    "generic_qmc_bath": (
+        "generic_qmc_bath",
+        "montecarlosolvers_tpu_torch/csrc/generic_qmc_bath.cu",
+        "montecarlosolvers_tpu/ops/piqmc.py:110"),
+    "split_qmc_bath_colored": (
+        "qmc_bath_split_colored",
+        "montecarlosolvers_tpu_torch/csrc/split_qmc_bath.cu",
+        "montecarlosolvers_tpu/ops/split.py:578"),
+    "split_qmc_bath_colored_phased": (
+        "qmc_bath_split_colored_phased",
+        "montecarlosolvers_tpu_torch/csrc/split_qmc_bath.cu",
+        "montecarlosolvers_tpu/ops/split.py:578"),
+}
+KERNELS.update(BATH_KERNELS)
 # (a): chains of the exact-distribution samplers, and the largest
 # |mean - exact| (or kernel - plain) they may show, in standard errors of
 # the chain means (gibbs_check.z_scores: at most 1 state in about 3 million
@@ -456,6 +535,8 @@ def ops_per_sweep(kname, chains, slices, sites, graph=None):
         "sa": (field + 1 + METROPOLIS, 1),
         "qmc": (local * P + line, P + 1),
         "qmc_bath": ((local + P) * P + line, P + 1),
+        # the same work: P - 1 nonzero bath terms a slice in two blocks
+        "qmc_bath_colored": ((local + P) * P + line, P + 1),
         "svmc": (4 + 6 + 2 + 2 * field + 6 + 3, 3),
     }[kname.split("_", 1)[1]]
     return f32 * chains * sites, sfu * chains * sites
@@ -469,7 +550,7 @@ def bytes_per_anneal(kname, chains, slices, sites, tau, graph=None):
     float32 values a site, with h and the packed layout's original site
     ids (perm)."""
     state = 2 * chains * slices * sites * 4
-    bath = slices * slices * 4 if kname == "split_qmc_bath" else 0
+    bath = slices * slices * 4 if "qmc_bath" in kname else 0
     tables = 3 * sites * 4 if graph is None else sites * (graph[1] * 8 + 8)
     return state + tables + bath + 2 * tau * 4
 
@@ -1250,11 +1331,11 @@ def generic_graphs(dev):
 
 
 def graph_shape(problem):
-    """(mean real couplings a site, maxnb) of an IsingProblem: what
-    `ops_per_sweep` and `bytes_per_anneal` count for the generic
-    kernels."""
+    """(mean real couplings a site, maxnb) of an IsingProblem or a
+    PackedGraph: what `ops_per_sweep` and `bytes_per_anneal` count for the
+    generic kernels."""
     return (float((problem.nbr_J != 0).sum()) / problem.nspins,
-            problem.maxnb)
+            int(problem.nbr_J.shape[1]))
 
 
 def generic_checks(dev, results, graphs):
@@ -1321,6 +1402,169 @@ def generic_checks(dev, results, graphs):
         check(launched == {key: 2}, f"{what} launched {launched}")
         results[kname]["max_abs_err"] = max(
             results[kname].get("max_abs_err", 0.0), err)
+
+
+def neighbor_table_form(lat):
+    """The IsingProblem compat.DissipativeQuantumAnneal builds for a
+    lattice: IsingProblem.from_neighbor_table of its reference-format
+    (N, 4, 2) table, each site's right, then down bond, in row-major order
+    (tools/jax_bath_anchor.py builds the JAX one alike)."""
+    from montecarlosolvers_tpu_torch.models.ising import (
+        IsingProblem, build_neighbor_table)
+
+    L = lat.L
+    jr, jd = (x.cpu().numpy() for x in (lat.j_right, lat.j_down))
+    i = np.arange(L * L)
+    y, x = np.divmod(i, L)
+    rows = np.repeat(i, 2)
+    cols = np.stack([y * L + (x + 1) % L, ((y + 1) % L) * L + x], 1).ravel()
+    vals = np.stack([jr[y, x], jd[y, x]], 1).ravel()
+    return IsingProblem.from_neighbor_table(
+        build_neighbor_table(L * L, rows, cols, vals, 4), device=lat.device)
+
+
+def bath_problems(dev, graphs, torus, odd_torus):
+    """name -> problem of the bath phases: the 80x80 torus's neighbor-table
+    form (the main path's IsingProblem), the 81x81 torus (its checkerboard
+    is not a proper coloring), the 80x80 torus, the chimera, the 9-color
+    random graph and the open 81x81 lattice."""
+    from montecarlosolvers_tpu_torch.models import instances
+
+    return {
+        f"gaussian_torus({L}, 0), neighbor table": neighbor_table_form(torus),
+        f"gaussian_torus({ODD_L}, 0)": odd_torus,
+        f"gaussian_torus({L}, 0)": torus,
+        "chimera_graph(16, rng=0)": graphs["chimera_graph(16, rng=0)"],
+        "random_graph(2000, 12000, rng=0)":
+            graphs["random_graph(2000, 12000, rng=0)"],
+        f"random_2d_lattice({ODD_L}, 0), open":
+            instances.random_2d_lattice(ODD_L, rng=0, lattice=True,
+                                        device=dev)[0],
+    }
+
+
+def bath_checks(dev, results, problems):
+    """Phase bath_kernel_vs_plain: the generic bath kernel
+    (csrc/generic_qmc_bath.cu) on every problem of `problems` that its
+    routes take, sequential and colored, and kernel 5's colored template
+    on both of its routes, against their plain versions on the card, with
+    and without collect_energy: states bitwise, energies within
+    ENERGY_RTOL (sum |J| + sum |h|) of the plain version's, launches
+    exactly the route's."""
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+
+    gibbs = gibbs_tool()
+    names = list(problems)
+    nbt, odd, tor, chim, rg9, odd_open = names
+    # problem, chains, P, colored, global moves, B
+    cases = [(nbt, QMC_READS, BATH_SLICES, False, True, 1.0),
+             (nbt, QMC_READS, BATH_SLICES, True, True, 1.0),
+             (nbt, QMC_READS, BATH_SLICES, False, False, 0.7),
+             (odd, QMC_READS, BATH_SLICES, False, True, 1.0),
+             (odd, QMC_READS, ODD_SLICES, True, True, 0.7),
+             (tor, QMC_READS, ODD_SLICES, True, True, 1.0),
+             (chim, QMC_READS, CHIMERA_SLICES, False, True, 1.0),
+             (rg9, 8, ODD_SLICES, False, True, 0.7),
+             (rg9, 8, ODD_SLICES, True, False, 1.0),
+             (odd_open, 8, ODD_SLICES, False, True, 1.0)]
+    wrapper, plain, key = gibbs.GENERIC["generic_qmc_bath"]
+    for pname, chains, slices, colored, gm, bscale in cases:
+        case = gibbs.generic_case("generic_qmc_bath", problems[pname],
+                                  chains, BATH_STEPS, slices,
+                                  global_moves=gm, colored=colored,
+                                  bscale=bscale, alpha=BATH_ALPHA)
+        bath_case(results, "generic_qmc_bath", pname, case, wrapper, plain,
+                  {key: 1}, {key: 1},
+                  {"chains": chains, "slices": slices, "colored": colored,
+                   "global_moves": gm, "B": bscale,
+                   "proper": case["pg"].proper})
+    # kernel 5's colored template: lattice, chains, P, global moves, B,
+    # steps; 176 needs a cluster of CTAs, the 674 torus no cluster holds
+    from montecarlosolvers_tpu_torch.models import instances
+    big = instances.gaussian_torus(176, seed=0, device=dev)
+    phased = instances.gaussian_torus(BATH_PHASED_L, seed=0, device=dev)
+    open80 = instances.random_2d_lattice(L, rng=0, lattice=True,
+                                         device=dev)[0]
+    cases = [(tor, problems[tor], BATH_READS, BATH_SLICES, gm, bs, 20)
+             for gm in (True, False) for bs in (1.0, 0.7)]
+    cases += [(tor, problems[tor], BATH_READS, 2, True, 0.7, 20),
+              (f"random_2d_lattice({L}, 0), open", open80, BATH_READS, 4,
+               True, 1.0, 20),
+              (tor, problems[tor], 4, 64, True, 0.7, 8),
+              ("gaussian_torus(176, 0)", big, 4, BATH_SLICES, True, 1.0, 8),
+              (f"gaussian_torus({BATH_PHASED_L}, 0)", phased, 1,
+               BATH_SLICES, True, 0.7, 2)]
+    for lname, lat, chains, slices, gm, bscale, steps in cases:
+        case = gibbs.bath_colored_case(lat, chains, steps, slices,
+                                       global_moves=gm, bscale=bscale,
+                                       alpha=BATH_ALPHA)
+        geometry = sk.qmc_bath_geometry(chains, lat.L, slices,
+                                        sk.card_resident("split_qmc_bath",
+                                                         lat.L, slices))
+        kname = ("split_qmc_bath_colored" if geometry
+                 else "split_qmc_bath_colored_phased")
+        phases = (6 if gm else 4) * steps
+        route = ({"qmc_bath_split_colored": 1} if geometry
+                 else {"qmc_bath_split_colored_phased": phases})
+        collecting = dict(case["launches"],
+                          qmc_bath_split_colored_phased=phases)
+        # the collecting route is the per-phase kernels at any shape: at
+        # the main path's shape it is checked once, beside the cluster run
+        collect = chains == BATH_READS and slices == BATH_SLICES \
+            and gm and bscale == 1.0
+        bath_case(results, kname, lname, case,
+                  sk.qmc_bath_split_colored_anneal,
+                  sk.qmc_bath_split_colored_anneal_ref, route,
+                  collecting if collect else None,
+                  {"chains": chains, "slices": slices, "steps": steps,
+                   "global_moves": gm, "B": bscale, "geometry": geometry})
+
+
+def bath_case(results, kname, pname, case, wrapper, plain, route,
+              collecting, rec):
+    """One case of bath_kernel_vs_plain: the wrapper's run (and, with
+    `collecting`, its collecting run) against the plain version's."""
+    from montecarlosolvers_tpu_torch.ops import _build
+
+    steps, chains = rec.get("steps", BATH_STEPS), rec["chains"]
+    es, es_plain = (torch.full((steps, chains), float("nan"),
+                               device=case["start"].device)
+                    for _ in range(2))
+    _build.reset_launches()
+    out = case["run"](wrapper, None)
+    launched = launched_now()
+    ref = case["run"](plain, es_plain if collecting else None)
+    rec = {"phase": "bath_kernel_vs_plain", "kernel": kname,
+           "problem": pname, **rec, "launches": launched}
+    if collecting:
+        _build.reset_launches()
+        collected = case["run"](wrapper, es)
+        rec.update(collecting_launches=launched_now(),
+                   collected_equals_uncollected=bool(torch.equal(out,
+                                                                 collected)),
+                   energy_err=float((es - es_plain).abs().max()),
+                   energy_bound=gibbs_tool().ENERGY_RTOL * case["scale"])
+    torch.cuda.synchronize()
+    n_bad, err = mismatches([out], [ref])
+    rec.update(mismatched_spins=n_bad, max_abs_err=err,
+               flipped_fraction=float((out != case["start"]).float()
+                                      .mean()))
+    emit(rec)
+    what = f"{kname} on {pname} ({rec})"
+    check(n_bad == 0, f"{what} equals its plain version")
+    check(rec["flipped_fraction"] > 0.05, f"{what} moves")
+    check(launched == route, f"{what} launched {launched}")
+    if collecting:
+        check(rec["collecting_launches"] == collecting,
+              f"{what}: collecting launched {rec['collecting_launches']}")
+        check(rec["collected_equals_uncollected"],
+              f"{what}: collecting changes no state")
+        check(bool(torch.isfinite(es).all())
+              and rec["energy_err"] <= rec["energy_bound"],
+              f"{what}: energies within {rec['energy_bound']}")
+    results[kname]["max_abs_err"] = max(
+        results[kname].get("max_abs_err", 0.0), err)
 
 
 def main():
@@ -1805,6 +2049,12 @@ def main():
     generic_checks(dev, results, graphs)
     phase_seconds["generic_kernel_vs_plain"] = time.perf_counter() - t_script
 
+    # ---- the bath kernels (generic, kernel 5's colored template) against
+    # their plain versions
+    bproblems = bath_problems(dev, graphs, torus, odd_torus)
+    bath_checks(dev, results, bproblems)
+    phase_seconds["bath_kernel_vs_plain"] = time.perf_counter() - t_script
+
     # ---- main path through solve(), launch counts read around each solve
     try:
         problem, e_gs = instances.santoro_80x80(lattice=True, device=dev)
@@ -1827,11 +2077,17 @@ def main():
         return dissipative_qa(prob, num_reads, sweeps, slices, BATH_ALPHA,
                               seed=0)
 
+    def colored(prob, num_reads, sweeps, slices):
+        return dissipative_qa(prob, num_reads, sweeps, slices, BATH_ALPHA,
+                              seed=0, bath_update="colored")
+
     sa_kw = dict(num_reads=SA_READS, sweeps=SA_SWEEPS)
     qmc_kw = dict(num_reads=QMC_READS, sweeps=QMC_SWEEPS)
     svmc_kw = dict(num_reads=SVMC_READS, sweeps=SVMC_SWEEPS)
     bath_kw = dict(num_reads=BATH_READS, sweeps=BATH_SWEEPS,
                    slices=BATH_SLICES)
+    new_kw = dict(bath_kw, sweeps=BATH_NEW_SWEEPS)
+    nbt = f"gaussian_torus({L}, 0), neighbor table"
     sa_run, qmc_run, svmc_run = solved("sa"), solved("piqmc"), solved("svmc")
     # key, lattice name, problem, run(problem, **options) -> (samples,
     # energies), its options, the launches it must make: every kernel once
@@ -1867,6 +2123,25 @@ def main():
         ("sa_3d", "random_3d_lattice(16, rng=0)",
          graphs["random_3d_lattice(16, rng=0)"], sa_run, sa_kw,
          {"packed_sa": 1}),
+        # the rest of dissipative PIQMC: the bath on the neighbor-table
+        # form (compat.DissipativeQuantumAnneal's), on the odd torus, the
+        # colored sweep on the lattice at P = 40 (kernel 5's template) and
+        # P = 5 (the checkerboard packing), and the chimera
+        ("piqmc_bath_nbtable_p40", nbt, bproblems[nbt], dissipative,
+         new_kw, {"packed_sa": 1, "generic_qmc_bath": 1}),
+        ("piqmc_bath_nbtable_colored_p40", nbt, bproblems[nbt], colored,
+         new_kw, {"packed_sa": 1, "generic_qmc_bath": 1}),
+        ("piqmc_bath_l81_p40", "gaussian_torus(81, seed=0)", odd_torus,
+         dissipative, new_kw, {"sa_plane": 1, "generic_qmc_bath": 1}),
+        ("piqmc_bath_colored_p40", "gaussian_torus(80, seed=0)", torus,
+         colored, new_kw, {"sa_split": 1, "qmc_bath_split_colored": 1}),
+        ("piqmc_bath_colored_p5", "gaussian_torus(80, seed=0)", torus,
+         colored, dict(new_kw, slices=ODD_SLICES),
+         {"sa_split": 1, "generic_qmc_bath": 1}),
+        ("piqmc_bath_chimera_p20", "chimera_graph(16, rng=0)",
+         graphs["chimera_graph(16, rng=0)"], dissipative,
+         dict(new_kw, slices=CHIMERA_SLICES),
+         {"packed_sa": 1, "generic_qmc_bath": 1}),
     )
     main_launches = {k: 0 for k in _build.LAUNCHES}
     for key, lname, prob, run, kw, needs in paths:
@@ -2050,6 +2325,76 @@ def main():
             (kname, "plain", generic_runner(kname, plain, chains, slices),
              plain_taus, 2, chains, slices, L * L)]
 
+    # the bath kernels at the main path's widths: the generic bath kernel
+    # on the neighbor-table torus (sequential, as compat's path runs it),
+    # kernel 5's colored template on the torus, its per-phase kernels at
+    # the first torus no cluster holds
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+
+    pg_nbt = packed_ops.build_packed(bproblems[nbt])
+    pg_odd = packed_ops.packed_from_lattice(odd_torus)
+    pg_chim = packed_ops.build_packed(graphs["chimera_graph(16, rng=0)"])
+
+    def bath_of(slices):
+        return piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+            slices, BATH_ALPHA, device=dev), slices).contiguous()
+
+    def generic_bath_runner(fn, pg=pg_nbt, slices=BATH_SLICES,
+                            colored=False):
+        c = random_spins(QMC_READS, slices, pg.nspins)
+        teff_q = (1.0 / slices) * slices
+        bath = bath_of(slices)
+
+        def run(tau):
+            g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+            return fn(pg, torch.ones_like(g), schedules.jperp(g, teff_q)
+                      .contiguous(), teff_q, bath, c, 7, True,
+                      colored=colored)
+        return run
+
+    def colored_runner(fn, sl=sl, chains=BATH_READS):
+        qs = split_ops.pack_qmc(sl, random_spins(chains, BATH_SLICES,
+                                                 sl.L * sl.L))
+        bath = bath_of(BATH_SLICES)
+
+        def run(tau):
+            g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+            return fn(sl, torch.ones_like(g), schedules.jperp(g, teff)
+                      .contiguous(), teff, bath, qs, 7, True)
+        return run
+
+    bath_rows = (
+        ("generic_qmc_bath", "cuda",
+         generic_bath_runner(gk.generic_qmc_bath_anneal), (50, 200), 3,
+         QMC_READS, BATH_SLICES, L * L),
+        ("generic_qmc_bath", "plain",
+         generic_bath_runner(gk.generic_qmc_bath_anneal_ref), (1, 3), 2,
+         QMC_READS, BATH_SLICES, L * L),
+        ("split_qmc_bath_colored", "cuda",
+         colored_runner(sk.qmc_bath_split_colored_anneal), (100, 400), 3,
+         BATH_READS, BATH_SLICES, L * L),
+        ("split_qmc_bath_colored", "plain",
+         colored_runner(sk.qmc_bath_split_colored_anneal_ref), (2, 6), 2,
+         BATH_READS, BATH_SLICES, L * L),
+        ("split_qmc_bath_colored_phased", "cuda",
+         colored_runner(sk.qmc_bath_split_colored_anneal, sl_5, 1), (5, 20),
+         3, 1, BATH_SLICES, BATH_PHASED_L ** 2),
+        ("split_qmc_bath_colored_phased", "plain",
+         colored_runner(sk.qmc_bath_split_colored_anneal_ref, sl_5, 1),
+         (1, 3), 2, 1, BATH_SLICES, BATH_PHASED_L ** 2),
+    )
+    # beside the kernels line: the generic bath kernel's other routes
+    bath_extra = (
+        (pg_nbt, generic_bath_runner(gk.generic_qmc_bath_anneal,
+                                     colored=True), BATH_SLICES, L * L),
+        (pg_odd, generic_bath_runner(gk.generic_qmc_bath_anneal, pg_odd),
+         BATH_SLICES, ODD_L * ODD_L),
+        (pg_chim, generic_bath_runner(gk.generic_qmc_bath_anneal, pg_chim,
+                                      CHIMERA_SLICES), CHIMERA_SLICES,
+         pg_chim.nspins),
+    )
+    graph_of = {"generic_qmc_bath": pg_nbt}
+
     power = smi.split(",")[-1].strip() if "," in smi else smi
     # kernel, route, runner, taus, trials, chains, slices, sites; the rows
     # after the plain ones are beside the main path's shapes and stay out
@@ -2086,6 +2431,7 @@ def main():
          BATH_READS, BATH_SLICES, L * L),
         *phased_rows,
         *generic_rows,
+        *bath_rows,
     )
     extra = (
         ("split_sa", "cuda", split_sa_runner(sk.sa_split_anneal, QMC_READS),
@@ -2100,15 +2446,20 @@ def main():
          (200, 800), 3, QMC_READS, ODD_SLICES, ODD_L * ODD_L),
     )
     def time_row(phase, kname, route, run, taus, trials, chains, slices,
-                 sites, record=True):
+                 sites, record=True, graph_problem=None):
         """Slope-time run and emit its line; with `record`, keep the time
-        (and the bound) as kernel `kname`'s, or as its plain version's."""
+        (and the bound) as kernel `kname`'s, or as its plain version's.
+        The generic kernels' bound counts `graph_problem`'s table (the
+        kernel's row problem by default)."""
         ms, best = slope_ms(run, taus, trials)
         rate = sites * slices * chains / (ms * 1e-3) if ms > 0 \
             else float("nan")
         # the work is the kernel's, whichever instantiation does it
         base = kname.removesuffix("_phased").removesuffix("_hw")
-        graph = graph_shape(gtorus) if kname in GENERIC_KERNELS else None
+        if graph_problem is None and (kname in GENERIC_KERNELS
+                                      or kname in graph_of):
+            graph_problem = graph_of.get(kname, gtorus)
+        graph = None if graph_problem is None else graph_shape(graph_problem)
         bound, bound_by, unit = bound_ms(base, chains, slices, sites,
                                          max(taus), graph)
         f32, sfu = ops_per_sweep(base, chains, slices, sites, graph)
@@ -2135,6 +2486,19 @@ def main():
 
     for i, row in enumerate(timings + extra):
         time_row("timing", *row, record=i < len(timings))
+    for pg_row, run, slices, sites in bath_extra:
+        time_row("timing", "generic_qmc_bath", "cuda", run, (50, 200), 3,
+                 QMC_READS, slices, sites, record=False,
+                 graph_problem=pg_row)
+    # the bath kernels beside kernel 5 on the same torus, P and chains
+    for kname in ("generic_qmc_bath", "split_qmc_bath_colored"):
+        emit({"phase": "bath_vs_lattice", "kernel": kname,
+              "lattice": "split_qmc_bath", "ms": results[kname]["ms"],
+              "lattice_ms": results["split_qmc_bath"]["ms"],
+              "ratio": results[kname]["ms"]
+              / results["split_qmc_bath"]["ms"],
+              "bound_ms": results[kname]["bound_ms"],
+              "gpu": name, "power_limit": power})
     # the same torus through two layouts: the generic kernel beside the
     # lattice kernel at the same widths
     for gname, lname in (("packed_sa", "split_sa"),

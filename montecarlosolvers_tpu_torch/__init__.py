@@ -8,8 +8,9 @@ counterpart is easy to find.
 Scope of this package today: the Martonak-Santoro-Tosatti main path,
 dissipative PIQMC and spin-vector Monte Carlo on any `LatticeProblem` (any
 L, open or periodic) — classical SA, PIQMC at any P (local plus whole-line
-global moves; with a bath `lookuptable`, the slice-sequential dissipative
-sweep on even L at any P >= 2), SVMC with uniform or TF proposals, and the
+global moves; with a bath `lookuptable`, the dissipative sweep,
+sequential or colored, on every problem at any P >= 2), SVMC with uniform
+or TF proposals, and the
 one-call `solvers.api.solve` with method "sa", "piqmc" or "svmc"; the
 same solvers on the generic `IsingProblem` (neighbor tables, COO triplets,
 QUBOs, chimera graphs, 3-D glasses, random graphs: `models/ising.py`,
@@ -20,7 +21,8 @@ engines (`ops/split_kernels.py`), other lattices the full-plane engines
 CUDA kernels (`csrc/split_sa.cu`, `csrc/split_qmc.cu`,
 `csrc/split_qmc_bath.cu`, `csrc/split_svmc.cu`, `csrc/plane_sa.cu`,
 `csrc/plane_qmc.cu`, `csrc/plane_svmc.cu`, and `csrc/packed_sa.cu`,
-`csrc/generic_qmc.cu`, `csrc/packed_svmc.cu` for the generic problem); on
+`csrc/generic_qmc.cu`, `csrc/packed_svmc.cu`, `csrc/generic_qmc_bath.cu`
+for the generic problem and the bath on odd L); on
 the CPU they run the plain PyTorch versions
 beside the kernel wrappers, which equal the JAX oracles and the Pallas
 interpreter (bitwise for spins, to the last ulps of cos and sin for rotor

@@ -3,13 +3,11 @@ queued: every refusal in the port names its ROADMAP.md item through here."""
 
 from __future__ import annotations
 
-BATH = ("queue 1, item 2 (what is left of dissipative PIQMC: odd-L "
-        "lattices, bath_update='colored', the bath on an IsingProblem)")
-GENERIC_GRAPHS = ("queue 1, item 3 (generic graphs: DenseProblem, "
+GENERIC_GRAPHS = ("queue 1, item 2 (generic graphs: DenseProblem, "
                   "anneal_noisy, the packed noisy scans)")
-CLUSTER = "queue 1, item 4 (cluster updates)"
-SAMPLERS = "queue 1, item 5 (samplers and API)"
-PARALLEL = "queue 1, item 6 (parallel layer)"
+CLUSTER = "queue 1, item 3 (cluster updates)"
+SAMPLERS = "queue 1, item 4 (samplers and API)"
+PARALLEL = "queue 1, item 5 (parallel layer)"
 
 
 def require_problem(problem):

@@ -86,6 +86,29 @@
 // order (B reads the new A; line B reads A after line A's flips), the ring
 // at P = 2 (up == dn), and the uid, which is the same for every slice of a
 // half: only the counter index 2k + half differs.
+//
+// The colored template (kColored, even P): the approximate space-time
+// colored sweep of bath_update="colored" on the quarter layout, JAX
+// ops/split.py::qmc_bath_split_colored_sweep (:578) with the line moves of
+// qmc_split_global (:413); plain PyTorch version:
+// ops/split_kernels.py::qmc_bath_split_colored_anneal_ref. A step is four
+// quarter phases, xe (half A, even slices), xo (B, odd), ye (B, even), yo
+// (A, odd), in that order, each against the other half as it stands and
+// with the bath of its line taken before the phase,
+//   bath = sum over even p of M[k, p] s_p, then over odd p, then the two
+//   added (two (Q, Q) blocks, each in index order),
+// the uniforms keyed as kernel B keys its quarters (csrc/split_qmc.cu:
+// counter(seed, step, phase), uid = chain*4QNh + phase*QNh + (k/2)*Nh +
+// site) and the line moves as kernel B's (even slices summed, then odd,
+// counter index 4 + half, the SA uids). Slices k and k + 2 of one line are
+// in one phase and read each other through M, so a thread takes its
+// line's words at the phase's start and updates a copy: 4 cluster barriers
+// a step, 6 with global moves. The per-phase kernels of this template
+// (bath_colored_local_kernel) write each phase out of place, the line's
+// old state in one buffer and its new in another. The work and its bound
+// are the sequential sweep's; measured 0.161 ms a sweep at the main path's
+// shape, 1.14x the sequential kernel (H100 80GB HBM3, 700 W, PERF.md),
+// with 36 bytes spilled at P = 40 against 28.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,8 +165,33 @@ __device__ __forceinline__ float bath_field(const float* mk,
   }
 }
 
-// kHw: uniforms from the thread's stream (hw_rng.cuh), not the counter hash
-template <int kP, bool kHw>
+// The colored sweep's bath of slice k from the line's words lw (word wd at
+// lw[wd]): sum over even p of M[k, p] s_p in index order, the same over odd
+// p, then the two added, as the quarter layout's two (Q, Q) blocks add;
+// P even. kP > 0 is P at compile time, kP = 0 reads P at run time.
+template <int kP>
+__device__ __forceinline__ float bath_field_colored(const float* mk,
+                                                    const uint32_t* lw,
+                                                    int P) {
+  float be = mcs::signed_by(mk[0], lw[0], 0);
+  float bo = mcs::signed_by(mk[1], lw[0], 1);
+  const int n = kP > 0 ? kP : P;
+#pragma unroll
+  for (int p = 2; p < n; p += 2) {
+    be = __fadd_rn(be, mcs::signed_by(mk[p], lw[p >> 5], p & 31));
+    bo = __fadd_rn(bo, mcs::signed_by(mk[p + 1], lw[(p + 1) >> 5],
+                                      (p + 1) & 31));
+  }
+  return __fadd_rn(be, bo);
+}
+
+// Words of a line the runtime-P colored kernel copies: a cluster holds the
+// (P, P) bath matrix in 227 KB only while P <= 238, 8 words.
+constexpr int kMaxRuntimeWords = 8;
+
+// kHw: uniforms from the thread's stream (hw_rng.cuh), not the counter hash;
+// kColored: the colored sweep on the quarters (see the header), even P
+template <int kP, bool kHw, bool kColored>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 split_qmc_bath_kernel(const float* __restrict__ w,
                       const float* __restrict__ h,
@@ -228,6 +276,63 @@ split_qmc_bath_kernel(const float* __restrict__ w,
           mcs::counter(seed_term, t, 2 * k + half);
       if (rng.accept(de, teff, x)) smem[own + kw + il] = wk ^ (1u << kb);
     };
+    if constexpr (kColored) {
+      // the quarter phases xe, xo, ye, yo: half A, B, B, A at slices of
+      // parity 0, 1, 0, 1. A phase writes slices of its parity of its own
+      // half's lines and reads the other half at those slices, which no
+      // update of the phase writes, and its own line as the phase found
+      // it (lw), so a thread's copy is all it needs
+      constexpr int kLW = kP > 0 ? (kP + 31) / 32 : kMaxRuntimeWords;
+      const uint32_t Q = static_cast<uint32_t>(P / 2);
+      const uint32_t qnh = Q * static_cast<uint32_t>(nh);
+      for (int phase = 0; phase < 4; ++phase) {
+        const int half = phase == 1 || phase == 2;
+        const int par = phase & 1;
+        const int own = half ? half_b : 0;
+        const int other = half ? 0 : half_b;
+        const uint32_t ctr = mcs::counter(seed_term, t, phase);
+        const uint32_t quid0 = static_cast<uint32_t>(chain) * (4u * qnh) +
+                               static_cast<uint32_t>(phase) * qnh;
+        for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
+          const int j = band.lo + il;
+          float wv[7];
+          mcs::load_weights(w, half, nh, nslots, j, wv);
+          const float hj = __ldg(h + half * nh + j);
+          uint32_t lw[kLW], nw[kLW];
+#pragma unroll
+          for (int wd = 0; wd < kLW; ++wd)
+            nw[wd] = lw[wd] = wd < words ? smem[own + wd * S + il] : 0u;
+          for (int wd = 0; wd < words; ++wd) {
+            uint32_t o[7];
+            mcs::load_neighbours(band, other + wd * S, il, K, nslots, o);
+            const int end = min(P, 32 * wd + 32);
+            for (int k = 32 * wd + par; k < end; k += 2) {
+              const int up = k == 0 ? P - 1 : k - 1;
+              const int dn = k + 1 == P ? 0 : k + 1;
+              const float sv = spin_of(lw[k >> 5], k);
+              const float f =
+                  __fadd_rn(mcs::field_of_bit(wv, o, nslots, k & 31), hj);
+              const float tr = __fadd_rn(spin_of(lw[dn >> 5], dn),
+                                         spin_of(lw[up >> 5], up));
+              const float bf = bath_field_colored<kP>(m + k * P, lw, P);
+              const float de = __fadd_rn(
+                  __fadd_rn(__fmul_rn(bc * sv, f),
+                            __fmul_rn(__fmul_rn(2.0f * sv, jpt), tr)),
+                  __fmul_rn(two_teff * sv, bf));
+              const uint32_t x =
+                  (quid0 + static_cast<uint32_t>(k >> 1) *
+                               static_cast<uint32_t>(nh) +
+                   static_cast<uint32_t>(j)) * mcs::kGolden + ctr;
+              if (rng.accept(de, teff, x)) nw[k >> 5] ^= 1u << (k & 31);
+            }
+          }
+#pragma unroll
+          for (int wd = 0; wd < kLW; ++wd)
+            if (wd < words) smem[own + wd * S + il] = nw[wd];
+        }
+        cluster.sync();
+      }
+    } else {
     // All slices of half A, then all slices of half B, one barrier between:
     // A of slice k reads B at slice k, which the plain order updates only
     // after it, so every A update of a step reads B as the step found it;
@@ -253,19 +358,23 @@ split_qmc_bath_kernel(const float* __restrict__ w,
       }
       cluster.sync();
     }
+    }
     if (global_moves) {
       // lines of half A against B, then lines of half B against the
-      // flipped A; dE = bc * sum_p s_p (f_p + h), p in index order
+      // flipped A; dE = bc * sum_p s_p (f_p + h), p in index order (the
+      // colored template: even p, then odd p, then the two added, at
+      // kernel B's counter index 4 + half)
       for (int half = 0; half < 2; ++half) {
         const int own = half ? half_b : 0;
         const int other = half ? 0 : half_b;
-        const uint32_t ctr = mcs::counter(seed_term, t, 2 * P + half);
+        const uint32_t ctr = mcs::counter(
+            seed_term, t, kColored ? 4 + half : 2 * P + half);
         for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
           const int j = band.lo + il;
           const float hj = __ldg(h + half * nh + j);
           float wv[7];
           mcs::load_weights(w, half, nh, nslots, j, wv);
-          float sum = 0.0f;
+          float sum = 0.0f, odd = 0.0f;
 #pragma unroll 1
           for (int wd = 0; wd < words; ++wd) {
             uint32_t o[7];
@@ -277,9 +386,13 @@ split_qmc_bath_kernel(const float* __restrict__ w,
               const float x = mcs::signed_by(
                   __fadd_rn(mcs::field_of_bit(wv, o, nslots, bit), hj), lw,
                   bit);
-              sum = wd == 0 && bit == 0 ? x : __fadd_rn(sum, x);
+              if (kColored && (bit & 1))
+                odd = wd == 0 && bit == 1 ? x : __fadd_rn(odd, x);
+              else
+                sum = wd == 0 && bit == 0 ? x : __fadd_rn(sum, x);
             }
           }
+          if (kColored) sum = __fadd_rn(sum, odd);
           const float de = __fmul_rn(bc, sum);
           const uint32_t x =
               (uid0 + static_cast<uint32_t>(half * nh + j)) * mcs::kGolden +
@@ -313,21 +426,37 @@ template <int... Ps>
 auto kernel_table(std::integer_sequence<int, Ps...>) {
   // P < 2 is refused by the wrapper; those entries take the runtime kernel
   return std::array<KernelFn, sizeof...(Ps)>{
-      &split_qmc_bath_kernel<(Ps < 2 ? 0 : Ps), false>...};
+      &split_qmc_bath_kernel<(Ps < 2 ? 0 : Ps), false, false>...};
+}
+
+template <int... Ps>
+auto colored_table(std::integer_sequence<int, Ps...>) {
+  // the colored sweep takes even P only; odd entries are never launched
+  // and share the runtime kernel
+  return std::array<KernelFn, sizeof...(Ps)>{
+      &split_qmc_bath_kernel<(Ps < 2 || Ps % 2 ? 0 : Ps), false, true>...};
 }
 
 // The P the generator's instantiations take at compile time: the bench's
 // (bench/throughput.py, pallas_bath); any other P takes the runtime-P one,
-// so that the build keeps 66 instantiations, not 130
+// so that the build keeps 66 instantiations, not 130 (99 with the colored
+// template's even P)
 constexpr int kHwStaticP = 40;
 
-KernelFn kernel_for(int P, int hw_rng) {
+KernelFn kernel_for(int P, int hw_rng, int colored = 0) {
+  if (colored) {
+    static const auto table =
+        colored_table(std::make_integer_sequence<int, kMaxStaticP + 1>{});
+    return P <= kMaxStaticP ? table[P]
+                            : &split_qmc_bath_kernel<0, false, true>;
+  }
   if (hw_rng)
-    return P == kHwStaticP ? &split_qmc_bath_kernel<kHwStaticP, true>
-                           : &split_qmc_bath_kernel<0, true>;
+    return P == kHwStaticP ? &split_qmc_bath_kernel<kHwStaticP, true, false>
+                           : &split_qmc_bath_kernel<0, true, false>;
   static const auto table =
       kernel_table(std::make_integer_sequence<int, kMaxStaticP + 1>{});
-  return P <= kMaxStaticP ? table[P] : &split_qmc_bath_kernel<0, false>;
+  return P <= kMaxStaticP ? table[P]
+                          : &split_qmc_bath_kernel<0, false, false>;
 }
 
 // Shared memory one CTA takes: its band of both halves' bit planes and the
@@ -396,11 +525,79 @@ bath_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
   }
 }
 
+// The colored template's quarter phase `phase` (0..3: xe, xo, ye, yo) of
+// step t on half `half` at the slices of parity `par`: one thread per site
+// j of the half of chain blockIdx.x / xblocks reads its line from `src` as
+// the phase found it and writes the whole line, its updated slices and the
+// others, to `dst` (out of place: slices k and k + 2 read each other
+// through M), against the other half o at each slice; counter and uids as
+// the cluster kernel's colored phases.
+__global__ void __launch_bounds__(kThreads)
+bath_colored_local_kernel(const float* __restrict__ w,
+                          const float* __restrict__ h,
+                          const float* __restrict__ b_sched,
+                          const float* __restrict__ jp,
+                          const float* __restrict__ bath, float teff,
+                          float two_teff, const float* __restrict__ src,
+                          float* __restrict__ dst,
+                          const float* __restrict__ o, int half, int par,
+                          int phase, int P, int nh, int K, int nslots,
+                          int xblocks, int t, uint32_t seed_term) {
+  const int chain = blockIdx.x / xblocks;
+  const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
+  if (j >= nh) return;
+  const size_t base = static_cast<size_t>(chain) * P * nh;
+  const float* const line = src + base + j;  // slice p at line[p * nh]
+  float* const out = dst + base + j;
+  const float bc = -2.0f * b_sched[t];
+  const float jpt = jp[t];
+  const float hj = __ldg(h + half * nh + j);
+  const uint32_t qnh = static_cast<uint32_t>(P / 2) *
+                       static_cast<uint32_t>(nh);
+  const uint32_t x0 = static_cast<uint32_t>(chain) * (4u * qnh) +
+                      static_cast<uint32_t>(phase) * qnh +
+                      static_cast<uint32_t>(j);
+  const uint32_t ctr = mcs::counter(seed_term, t, phase);
+  for (int k = 0; k < P; ++k) {
+    const size_t row = static_cast<size_t>(k) * nh;
+    const float sv = line[row];
+    if ((k & 1) != par) {
+      out[row] = sv;
+      continue;
+    }
+    const int up = k == 0 ? P - 1 : k - 1;
+    const int dn = k + 1 == P ? 0 : k + 1;
+    const float f = __fadd_rn(
+        mcs::half_field(o + base + row, w, half, nh, K, nslots, j), hj);
+    const float tr = __fadd_rn(line[static_cast<size_t>(dn) * nh],
+                               line[static_cast<size_t>(up) * nh]);
+    // the even slices' bath, then the odd slices', then the two added
+    const float* mk = bath + static_cast<size_t>(k) * P;
+    float be = __fmul_rn(__ldg(mk), line[0]);
+    float bo = __fmul_rn(__ldg(mk + 1), line[nh]);
+    for (int p = 2; p < P; p += 2) {
+      be = __fadd_rn(be, __fmul_rn(__ldg(mk + p),
+                                   line[static_cast<size_t>(p) * nh]));
+      bo = __fadd_rn(bo, __fmul_rn(__ldg(mk + p + 1),
+                                   line[static_cast<size_t>(p + 1) * nh]));
+    }
+    const float de = __fadd_rn(
+        __fadd_rn(__fmul_rn(bc * sv, f),
+                  __fmul_rn(__fmul_rn(2.0f * sv, jpt), tr)),
+        __fmul_rn(two_teff * sv, __fadd_rn(be, bo)));
+    const uint32_t x =
+        (x0 + static_cast<uint32_t>(k >> 1) * static_cast<uint32_t>(nh)) *
+            mcs::kGolden + ctr;
+    out[row] = mcs::metropolis_accept_hashed(de, teff, x) ? -sv : sv;
+  }
+}
+
 // Line moves of half `half` at step t: one thread per (chain = blockIdx.x
 // / xblocks, site j) flips its whole line with dE = bc * sum_p s_p (f_p +
 // h), p in index order, against the other half o; kHw as for
-// bath_local_kernel.
-template <bool kHw>
+// bath_local_kernel. kColored: the colored template's, the even slices
+// summed, then the odd, at kernel B's counter index 4 + half.
+template <bool kHw, bool kColored>
 __global__ void __launch_bounds__(kThreads)
 bath_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  const float* __restrict__ b_sched, float teff, float* s,
@@ -413,19 +610,24 @@ bath_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
   const size_t base = static_cast<size_t>(chain) * P * nh;
   float* const line = s + base + j;
   const float hj = __ldg(h + half * nh + j);
-  float sum = 0.0f;
+  float sum = 0.0f, odd = 0.0f;
   for (int p = 0; p < P; ++p) {
     const size_t row = static_cast<size_t>(p) * nh;
     const float f = __fadd_rn(
         mcs::half_field(o + base + row, w, half, nh, K, nslots, j), hj);
     const float x = __fmul_rn(line[row], f);  // exact
-    sum = p == 0 ? x : __fadd_rn(sum, x);
+    if (kColored && (p & 1))
+      odd = p == 1 ? x : __fadd_rn(odd, x);
+    else
+      sum = p == 0 ? x : __fadd_rn(sum, x);
   }
+  if (kColored) sum = __fadd_rn(sum, odd);
   const float de = __fmul_rn(-2.0f * b_sched[t], sum);
   const uint32_t uid =
       static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
       static_cast<uint32_t>(half * nh + j);
-  const uint32_t ctr = mcs::counter(seed_term, t, 2 * P + half);
+  const uint32_t ctr =
+      mcs::counter(seed_term, t, kColored ? 4 + half : 2 * P + half);
   mcs::Uniforms<kHw> rng(seed_term, mcs::phase_stream(launch));
   if (rng.accept(de, teff, uid * mcs::kGolden + ctr)) {
     for (int p = 0; p < P; ++p) {
@@ -444,14 +646,13 @@ bath_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // teff and two_teff are T_eff and 2*T_eff rounded to float32; hw_rng != 0
 // draws the uniforms from each thread's stream (hw_rng.cuh). Launches on
 // `stream` and returns cudaGetLastError().
-extern "C" int split_qmc_bath_anneal(
-    const float* w, const float* h, const float* b_sched, const float* jp,
-    const float* bath, float teff, float two_teff, const float* a_in,
-    const float* b_in, float* a_out, float* b_out, int chains, int P, int R,
-    int threads, int L, int nslots, int steps, int seed, int global_moves,
-    int hw_rng, void* stream) {
+static int launch_cluster(
+    KernelFn kernel, const float* w, const float* h, const float* b_sched,
+    const float* jp, const float* bath, float teff, float two_teff,
+    const float* a_in, const float* b_in, float* a_out, float* b_out,
+    int chains, int P, int R, int threads, int L, int nslots, int steps,
+    int seed, int global_moves, void* stream) {
   if (chains == 0 || L == 0) return cudaSuccess;
-  const KernelFn kernel = kernel_for(P, hw_rng);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = mcs::cluster_config(kernel, chains * R, R, threads,
@@ -467,8 +668,38 @@ extern "C" int split_qmc_bath_anneal(
   return cudaGetLastError();
 }
 
+extern "C" int split_qmc_bath_anneal(
+    const float* w, const float* h, const float* b_sched, const float* jp,
+    const float* bath, float teff, float two_teff, const float* a_in,
+    const float* b_in, float* a_out, float* b_out, int chains, int P, int R,
+    int threads, int L, int nslots, int steps, int seed, int global_moves,
+    int hw_rng, void* stream) {
+  return launch_cluster(kernel_for(P, hw_rng), w, h, b_sched, jp, bath, teff,
+                        two_teff, a_in, b_in, a_out, b_out, chains, P, R,
+                        threads, L, nslots, steps, seed, global_moves,
+                        stream);
+}
+
+// The colored template (bath_update="colored", even P) of the same anneal on
+// the halves, which hold the quarters' slices in place (xe and yo the even
+// and odd slices of a, ye and xo those of b); arguments as for
+// split_qmc_bath_anneal, on the counter hash only.
+extern "C" int split_qmc_bath_colored_anneal(
+    const float* w, const float* h, const float* b_sched, const float* jp,
+    const float* bath, float teff, float two_teff, const float* a_in,
+    const float* b_in, float* a_out, float* b_out, int chains, int P, int R,
+    int threads, int L, int nslots, int steps, int seed, int global_moves,
+    void* stream) {
+  if (P % 2 || (P + 31) / 32 > kMaxRuntimeWords) return cudaErrorInvalidValue;
+  return launch_cluster(kernel_for(P, 0, 1), w, h, b_sched, jp, bath, teff,
+                        two_teff, a_in, b_in, a_out, b_out, chains, P, R,
+                        threads, L, nslots, steps, seed, global_moves,
+                        stream);
+}
+
 // Clusters of R CTAs the card holds at once at this P and L (the hash
-// instantiation's; both have the same register limit and shared memory).
+// instantiation's; the generator's and the colored template's have the
+// same register limit and shared memory).
 extern "C" int split_qmc_bath_max_active_clusters(int P, int R, int threads,
                                                   int L, int* count) {
   return mcs::max_active_clusters(kernel_for(P, 0), R, threads,
@@ -513,7 +744,8 @@ extern "C" int split_qmc_bath_phased_anneal(
   float* halves[2] = {a_out, b_out};
   const auto local =
       hw_rng ? bath_local_kernel<true> : bath_local_kernel<false>;
-  const auto line = hw_rng ? bath_line_kernel<true> : bath_line_kernel<false>;
+  const auto line = hw_rng ? bath_line_kernel<true, false>
+                           : bath_line_kernel<false, false>;
   for (int t = 0; t < steps; ++t) {
     for (int half = 0; half < 2; ++half) {
       local<<<grid, kThreads, 0, st>>>(
@@ -528,6 +760,74 @@ extern "C" int split_qmc_bath_phased_anneal(
             w, h, b_sched, teff, halves[half], halves[1 - half], half, P, nh,
             K, nslots, xblocks, t, seed_term,
             static_cast<uint32_t>(*launched));
+        *launched += 1;
+      }
+    }
+    if (energies != nullptr) {
+      mcs::launch_halves_energy(w, h, a_out, b_out, chains, P, L, nslots,
+                                false, energies + static_cast<size_t>(t) *
+                                                      chains, st);
+      *energy_launched += 1;
+    }
+    if (t == 0) {
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+  }
+  return cudaGetLastError();
+}
+
+// The colored template on the per-phase kernels: a_in, b_in copied to
+// a_out, b_out, four out-of-place launches a step (xe, xo, ye, yo), each
+// from its half's buffer into the other of a_out / a_tmp (b_out / b_tmp),
+// so every half is back in a_out, b_out after the step; with global moves
+// two more, kernel B's line moves in place; with `energies` the energy
+// kernel after each step. a_tmp, b_tmp: scratch of a half's size.
+// Arguments and results otherwise as for split_qmc_bath_phased_anneal, on
+// the counter hash only.
+extern "C" int split_qmc_bath_colored_phased_anneal(
+    const float* w, const float* h, const float* b_sched, const float* jp,
+    const float* bath, float teff, float two_teff, const float* a_in,
+    const float* b_in, float* a_out, float* b_out, float* a_tmp,
+    float* b_tmp, int chains, int P, int L, int nslots, int steps, int seed,
+    int global_moves, float* energies, void* stream, long long* launched,
+    long long* energy_launched) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  *energy_launched = 0;
+  if (P % 2) return cudaErrorInvalidValue;
+  const int K = L / 2;
+  const int nh = L * K;
+  const size_t bytes =
+      static_cast<size_t>(chains) * P * nh * sizeof(float);
+  cudaError_t e = cudaMemcpyAsync(a_out, a_in, bytes,
+                                  cudaMemcpyDeviceToDevice, st);
+  if (e != cudaSuccess) return e;
+  e = cudaMemcpyAsync(b_out, b_in, bytes, cudaMemcpyDeviceToDevice, st);
+  if (e != cudaSuccess) return e;
+  if (chains == 0 || P == 0 || nh == 0) return cudaSuccess;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const int xblocks = (nh + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned>(xblocks) * chains);
+  float* cur[2] = {a_out, b_out};
+  float* nxt[2] = {a_tmp, b_tmp};
+  for (int t = 0; t < steps; ++t) {
+    for (int phase = 0; phase < 4; ++phase) {
+      const int half = phase == 1 || phase == 2;
+      bath_colored_local_kernel<<<grid, kThreads, 0, st>>>(
+          w, h, b_sched, jp, bath, teff, two_teff, cur[half], nxt[half],
+          cur[1 - half], half, phase & 1, phase, P, nh, K, nslots, xblocks,
+          t, seed_term);
+      float* done = nxt[half];
+      nxt[half] = cur[half];
+      cur[half] = done;
+      *launched += 1;
+    }
+    if (global_moves) {
+      for (int half = 0; half < 2; ++half) {
+        bath_line_kernel<false, true><<<grid, kThreads, 0, st>>>(
+            w, h, b_sched, teff, cur[half], cur[1 - half], half, P, nh, K,
+            nslots, xblocks, t, seed_term, 0u);
         *launched += 1;
       }
     }

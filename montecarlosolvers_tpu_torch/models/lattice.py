@@ -45,7 +45,11 @@ class LatticeProblem(nn.Module):
     col_wrap: True iff any horizontal wrap coupling j_right[:, -1] is
       nonzero; the split-checkerboard engine then needs its two row-wrap
       stencil slots.
+    colors / color_masks / num_colors: the checkerboard, the IsingProblem
+      interface of the masked sweeps (JAX `LatticeProblem.color_masks`).
     """
+
+    num_colors = 2
 
     def __init__(self, j_right, j_down, h_plane, col_wrap):
         super().__init__()
@@ -104,6 +108,16 @@ class LatticeProblem(nn.Module):
     @property
     def device(self):
         return self.j_right.device
+
+    @property
+    def color_masks(self):
+        """(2, L*L) bool checkerboard on the lattice's device."""
+        return torch.as_tensor(checkerboard_masks(self.L), device=self.device)
+
+    @property
+    def colors(self):
+        """(L*L,) int32 parity (r + c) % 2 of each site."""
+        return self.color_masks[1].to(torch.int32)
 
     def _planes(self, s):
         return s.to(torch.float32).reshape(s.shape[:-1] + (self.L, self.L))

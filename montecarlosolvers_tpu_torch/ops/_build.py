@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("split_sa", "split_qmc", "split_svmc", "split_qmc_bath",
            "plane_sa", "plane_qmc", "plane_svmc", "energy", "packed_sa",
-           "packed_svmc", "generic_qmc")
+           "packed_svmc", "generic_qmc", "generic_qmc_bath")
 
 # No --use_fast_math: kernels and their plain versions must round alike.
 NVCC_FLAGS = (
@@ -97,6 +97,18 @@ SIGNATURES = {
         # energy_launched
         "split_qmc_bath_phased_anneal": (
             _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 8
+            + _PHASED_TAIL
+        ),
+        # the colored template: as split_qmc_bath_anneal without hw_rng
+        "split_qmc_bath_colored_anneal": (
+            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 9 + [_P]
+        ),
+        # its per-phase kernels: w, h, b_sched, jp, bath, teff, 2*teff,
+        # a_in, b_in, a_out, b_out, a_tmp, b_tmp, chains, P, L, nslots,
+        # steps, seed, global_moves, energies, stream, launched,
+        # energy_launched
+        "split_qmc_bath_colored_phased_anneal": (
+            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 6 + [_I] * 7
             + _PHASED_TAIL
         ),
         "split_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
@@ -189,6 +201,17 @@ SIGNATURES = {
         ),
         "generic_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
+    "generic_qmc_bath": {
+        # nbr_idx, nbr_J, h, perm, starts, b_sched, jp, bath, teff, 2*teff,
+        # s (in place), snap (scratch or null), energies, chains, P, n,
+        # maxnb, ncolors, m, steps, seed, colored, global_moves, proper,
+        # threads, stream
+        "generic_qmc_bath_anneal": (
+            _I, [_P] * 8 + [ctypes.c_float] * 2 + [_P] * 3 + [_I] * 12
+            + [_P]
+        ),
+        "generic_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
     "energy": {
         # w, h, a, b, chains, P, L, nslots, cos_theta, out, stream
         "energy_halves": (_I, [_P] * 4 + [_I] * 5 + [_P, _P]),
@@ -225,17 +248,22 @@ LAUNCHES.update({f"{k}_hw{phased}": 0
                  for k in ("sa_split", "qmc_split", "svmc_split",
                            "qmc_bath_split")
                  for phased in ("", "_phased")})
+# Kernel 5's colored template (bath_update="colored", even P) counts apart.
+LAUNCHES.update({"qmc_bath_split_colored": 0,
+                 "qmc_bath_split_colored_phased": 0})
 # The energy kernel (csrc/energy.cuh) of a collecting anneal counts under
 # "<key>_energy", one launch a step beside the "<key>_phased" launches; its
 # stand-alone entry points (csrc/energy.cu, ops/energy.py) under "energy".
 LAUNCHES.update({f"{k}_energy": 0
                  for k in ("sa_split", "qmc_split", "svmc_split",
-                           "qmc_bath_split", "sa_plane", "qmc_plane",
-                           "svmc_plane")})
+                           "qmc_bath_split", "qmc_bath_split_colored",
+                           "sa_plane", "qmc_plane", "svmc_plane")})
 LAUNCHES["energy"] = 0
 # The generic kernels on an IsingProblem (ops/generic_kernels.py) run the
-# whole schedule in one launch, energies or not.
-LAUNCHES.update({"packed_sa": 0, "packed_svmc": 0, "generic_qmc": 0})
+# whole schedule in one launch, energies or not; so does the generic bath
+# kernel, on an IsingProblem or a lattice's checkerboard packing.
+LAUNCHES.update({"packed_sa": 0, "packed_svmc": 0, "generic_qmc": 0,
+                 "generic_qmc_bath": 0})
 
 
 def reset_launches():

@@ -1,5 +1,5 @@
-"""Generic SA, PIQMC and SVMC engines on an IsingProblem: plain versions,
-kernel wrappers, problem-level anneals.
+"""Generic SA, PIQMC, dissipative PIQMC and SVMC engines on an
+IsingProblem: plain versions, kernel wrappers, problem-level anneals.
 
 No Pallas kernel covers this path: the JAX package runs it as XLA scans,
 `ops/packed.py::packed_sweep_scan` (:282), `packed_svmc_scan` (:298) and the
@@ -10,13 +10,20 @@ port gives each a hand-written CUDA kernel that runs the whole schedule in
 one launch: `csrc/packed_sa.cu`, `csrc/packed_svmc.cu` and
 `csrc/generic_qmc.cu`, all on the class-major packed layout
 (`ops/packed.py`, `csrc/packed.cuh`), one CTA of THREADS threads a chain,
-the state in device memory.
+the state in device memory. The dissipative sweeps of the JAX solver's
+masked path (`ops/piqmc.py::dissipative_local_sweep` :110 and
+`dissipative_colored_sweep` :152) are `csrc/generic_qmc_bath.cu`, which
+also runs the bath on every lattice the split bath engines do not take (an
+odd L, or bath_update="colored" at odd P), on the lattice's checkerboard
+packing (`ops/packed.py::packed_from_lattice`).
 
 Beside each wrapper sits its plain version (`packed_sa_anneal_ref`,
-`packed_svmc_anneal_ref`, `generic_qmc_anneal_ref`), which runs the port's
+`packed_svmc_anneal_ref`, `generic_qmc_anneal_ref`,
+`generic_qmc_bath_anneal_ref`), which runs the port's
 plain sweeps (`ops/packed.py::packed_sweep` and
-`packed_svmc_sweep_cached`; `ops/piqmc.py::local_sweep` and
-`global_line_moves` on the packed problem) on the counter hash: one uniform
+`packed_svmc_sweep_cached`; `ops/piqmc.py::local_sweep`, the dissipative
+sweeps and `global_line_moves` on the packed problem) on the counter hash:
+one uniform
 per site and sweep at counter(seed, t, 0), keyed by the site's ORIGINAL
 index (`counter_rng.generic_uids`), the PIQMC line moves at
 line_counter(seed, t, 0), the SVMC acceptances at svmc_accept_counter(seed,
@@ -28,7 +35,8 @@ the plain sweeps to them on the same `jax.random` draws.
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts one launch an anneal under "packed_sa",
-"packed_svmc" and "generic_qmc". With an `energies` buffer
+"packed_svmc", "generic_qmc" and "generic_qmc_bath". With an `energies`
+buffer
 (collect_energy=) the same single launch reduces each chain's energy (the
 best slice's, for PIQMC) after every sweep into it, in a fixed order.
 """
@@ -40,6 +48,7 @@ import ctypes
 import torch
 
 from montecarlosolvers_tpu_torch import schedules
+from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.ops import packed as packed_ops
@@ -113,6 +122,33 @@ def generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed, global_moves,
         c = piqmc_ops.local_sweep(prob, c, u, teff, jp[t], b_sched[t])
         if global_moves:
             ul = cr.uniform01_hashed(cr.line_counter(seed, t, 0), hu0)
+            c = piqmc_ops.global_line_moves(prob, c, ul, teff, b_sched[t])
+        if energies is not None:
+            energies[t] = torch.min(packed_ops.packed_energy(pg, c),
+                                    dim=-1).values
+    return c
+
+
+def generic_qmc_bath_anneal_ref(pg, b_sched, jp, teff, bath, confs, seed,
+                                global_moves, colored=False, energies=None):
+    """Plain form of csrc/generic_qmc_bath.cu on packed confs (chains, P,
+    N), P >= 2: sweep t is `piqmc.dissipative_local_sweep` (with `colored`,
+    `dissipative_colored_sweep`) on the packed problem with B_t, J_perp_t
+    and the (P, P) `bath` matrix, then the line moves, uniforms and
+    energies all as in `generic_qmc_anneal_ref`. On a packing that is not
+    `proper` the masked sweeps read a same-class neighbour as it stood at
+    the start of its class's phase, which is what the kernel must match."""
+    prob = pg.as_problem()
+    sweep = (piqmc_ops.dissipative_colored_sweep if colored
+             else piqmc_ops.dissipative_local_sweep)
+    chains, P, n = confs.shape
+    hu = cr.hashed_uid(cr.generic_uids(chains, pg.perm, n, slices=P))
+    c = confs
+    for t in range(b_sched.shape[0]):
+        u = cr.uniform01_hashed(cr.counter(seed, t, 0), hu)
+        c = sweep(prob, c, u, teff, jp[t], b_sched[t], bath)
+        if global_moves:
+            ul = cr.uniform01_hashed(cr.line_counter(seed, t, 0), hu[:, 0])
             c = piqmc_ops.global_line_moves(prob, c, ul, teff, b_sched[t])
         if energies is not None:
             energies[t] = torch.min(packed_ops.packed_energy(pg, c),
@@ -219,6 +255,41 @@ def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
     return out
 
 
+def generic_qmc_bath_anneal(pg, b_sched, jp, teff, bath, confs, seed,
+                            global_moves, colored=False, energies=None):
+    """csrc/generic_qmc_bath.cu on CUDA tensors, `generic_qmc_bath_anneal_ref`
+    on CPU tensors; arguments as for the plain version. Returns the new
+    configurations. One launch (LAUNCHES["generic_qmc_bath"]), sequential
+    or colored, energies or not."""
+    if _build.route(confs.device, "packed") == "cpu":
+        return generic_qmc_bath_anneal_ref(pg, b_sched, jp, teff, bath,
+                                           confs, seed, global_moves,
+                                           colored, energies)
+    chains, P, n = confs.shape
+    dev = confs.device
+    graph = _check_graph(pg, dev)
+    _build.check_arg(confs, "confs", (chains, P, pg.nspins), dev)
+    _build.check_arg(bath, "bath", (P, P), dev)
+    steps = int(b_sched.shape[0])
+    _build.check_arg(b_sched, "b_sched", (steps,), dev)
+    _build.check_arg(jp, "jp", (steps,), dev)
+    out = confs.clone()
+    snap = (torch.empty_like(confs) if colored or not pg.proper else None)
+    lib = _build.library("generic_qmc_bath")
+    rc = lib.generic_qmc_bath_anneal(
+        *graph, _build.ptr(b_sched), _build.ptr(jp), _build.ptr(bath),
+        ctypes.c_float(teff), ctypes.c_float(2.0 * teff), _build.ptr(out),
+        None if snap is None else _build.ptr(snap),
+        _build.energies_ptr(energies, steps, chains, dev), chains, P, n,
+        pg.nbr_idx.shape[1], pg.num_colors,
+        piqmc_ops.spacetime_num_phases(pg.num_colors, P), steps,
+        cr.wrap_int32(seed), int(bool(colored)), int(bool(global_moves)),
+        int(pg.proper), THREADS, _build.stream_of(dev))
+    _build.raise_on_error(lib, "generic_qmc_bath_anneal", rc)
+    _build.LAUNCHES["generic_qmc_bath"] += 1
+    return out
+
+
 # ------------------------------------------------------ problem-level engines
 
 
@@ -308,6 +379,48 @@ def anneal_generic_qmc(problem, a_sched, b_sched, temp, confs, seed,
     c = packed_ops.pack_state(
         pg, confs.to(torch.float32).reshape(-1, P, n)).contiguous()
     out = generic_qmc_anneal(pg, b, jp, teff, c, seed, global_moves, es)
+    return with_energies(packed_ops.unpack_state(pg, out).reshape(
+        confs.shape), es, batch)
+
+
+def anneal_generic_qmc_bath(problem, a_sched, b_sched, temp, lookuptable,
+                            confs, seed, mcsteps=1, global_moves=False,
+                            colored=False, collect_energy=False):
+    """Dissipative PIQMC anneal at any P >= 2 on the packed layout
+    (counterpart of the JAX solver's masked bath path, solvers/qmc.py:
+    152-180, with `dissipative_local_sweep` or, with `colored`,
+    `dissipative_colored_sweep`): of an IsingProblem on its greedy colors
+    (`build_packed`), or of a LatticeProblem on its own checkerboard
+    (`packed_from_lattice`), the lattices the split bath engines do not
+    take.
+
+    a_sched / b_sched: (steps,) Gamma and B; temp: ambient T, T_eff = P*T;
+    lookuptable: (P-1,) bath couplings (`schedules.bath_lookuptable`),
+    numpy or a tensor; confs: (chains, P, N) or (P, N) float32 +/-1
+    slices-major on the problem's device; collect_energy: also return the
+    best-slice energy after each sweep (line moves included), (steps *
+    mcsteps,) + batch. Returns the annealed configurations, same shape, or
+    (confs, energies)."""
+    if packed_ops.supports_packed(problem):
+        pg = _graph_of(problem, confs, "confs")
+    else:
+        if not isinstance(problem, LatticeProblem):
+            raise ValueError("the generic bath engine takes an IsingProblem "
+                             "or a LatticeProblem")
+        if confs.device != problem.device:
+            raise ValueError(f"confs is on {confs.device}, problem on "
+                             f"{problem.device}")
+        pg = packed_ops.packed_from_lattice(problem)
+    P, n = confs.shape[-2], pg.nspins
+    bath = piqmc_ops.bath_matrix_of(lookuptable, P, problem.device)
+    b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, P, mcsteps,
+                                      problem.device)
+    batch = confs.shape[:-2]
+    es = energy_buffer(collect_energy, b.shape[0], batch, problem.device)
+    c = packed_ops.pack_state(
+        pg, confs.to(torch.float32).reshape(-1, P, n)).contiguous()
+    out = generic_qmc_bath_anneal(pg, b, jp, teff, bath, c, seed,
+                                  global_moves, colored, es)
     return with_energies(packed_ops.unpack_state(pg, out).reshape(
         confs.shape), es, batch)
 

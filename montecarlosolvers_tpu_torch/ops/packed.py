@@ -46,6 +46,10 @@ class PackedGraph:
     starts: the C + 1 block boundaries as Python ints; block k =
       packed[starts[k]:starts[k+1]] is color class k, an independent set.
     starts_dev: the same boundaries as an int32 tensor, for the kernels.
+    proper: False when some coupling joins two sites of one class (an odd
+      periodic lattice's checkerboard, `packed_from_lattice`): a block is
+      then not an independent set, and a sweep must read a same-class
+      neighbour as it stood before the class's phase.
     """
 
     nbr_idx: torch.Tensor
@@ -55,6 +59,7 @@ class PackedGraph:
     inv: torch.Tensor
     starts: tuple
     starts_dev: torch.Tensor
+    proper: bool = True
 
     @property
     def nspins(self):
@@ -80,24 +85,57 @@ def supports_packed(problem):
     return type(problem) is IsingProblem
 
 
-def build_packed(problem):
-    """The PackedGraph of `problem`: sites sorted by color, stably."""
-    colors = problem.colors.cpu().numpy()
+def _packed_graph(nbr_idx, nbr_J, h, colors, num_colors, device):
+    """The PackedGraph of numpy tables in original order (nbr_idx (N,
+    maxnb), nbr_J, h, colors (N,)): sites sorted by color, stably."""
     perm = np.argsort(colors, kind="stable")
     inv = np.argsort(perm)
-    nbr_idx = inv[problem.nbr_idx.cpu().numpy()[perm]]
-    counts = np.bincount(colors, minlength=problem.num_colors)
+    counts = np.bincount(colors, minlength=num_colors)
     starts = np.concatenate([[0], np.cumsum(counts)])
-    dev = problem.device
+    own = np.arange(len(colors))[:, None]
+    same = (colors[nbr_idx] == colors[:, None]) & (nbr_idx != own)
     return PackedGraph(
-        nbr_idx=torch.as_tensor(nbr_idx.astype(np.int32), device=dev),
-        nbr_J=problem.nbr_J[torch.as_tensor(perm, device=dev)].contiguous(),
-        h=problem.h[torch.as_tensor(perm, device=dev)].contiguous(),
-        perm=torch.as_tensor(perm.astype(np.int32), device=dev),
-        inv=torch.as_tensor(inv, device=dev),
+        nbr_idx=torch.as_tensor(inv[nbr_idx[perm]].astype(np.int32),
+                                device=device),
+        nbr_J=torch.as_tensor(nbr_J[perm].astype(np.float32), device=device),
+        h=torch.as_tensor(h[perm].astype(np.float32), device=device),
+        perm=torch.as_tensor(perm.astype(np.int32), device=device),
+        inv=torch.as_tensor(inv, device=device),
         starts=tuple(int(x) for x in starts),
-        starts_dev=torch.as_tensor(starts.astype(np.int32), device=dev),
+        starts_dev=torch.as_tensor(starts.astype(np.int32), device=device),
+        proper=not bool((same & (nbr_J != 0.0)).any()),
     )
+
+
+def build_packed(problem):
+    """The PackedGraph of IsingProblem `problem`, on its device."""
+    return _packed_graph(*(x.cpu().numpy() for x in (
+        problem.nbr_idx, problem.nbr_J, problem.h, problem.colors)),
+        problem.num_colors, problem.device)
+
+
+def packed_from_lattice(problem):
+    """The PackedGraph of LatticeProblem `problem` with the lattice's own
+    checkerboard colors (`models/lattice.py::checkerboard_masks`: class c
+    the sites of parity (r + c) % 2 == c) and its slots in the order
+    `LatticeProblem.local_fields` adds them, right, left, down, up (the
+    JAX `LatticeProblem.local_fields`, models/lattice.py:136-144), then h:
+    the packed engines on it compute the masked lattice sweeps' fields
+    bitwise, phase for phase (an open boundary's slots keep J = 0). Not
+    `to_generic()`, whose greedy colors and slot order are another
+    problem's. On an odd periodic lattice the wrap pairs share a parity,
+    so the packing is not `proper` (ROADMAP.md queue 3)."""
+    L = problem.L
+    jr, jd, hp = (x.cpu().numpy() for x in (problem.j_right, problem.j_down,
+                                            problem.h_plane))
+    r, c = np.divmod(np.arange(L * L), L)
+    nbr_idx = np.stack([r * L + (c + 1) % L, r * L + (c - 1) % L,
+                        ((r + 1) % L) * L + c, ((r - 1) % L) * L + c], axis=1)
+    nbr_J = np.stack([jr[r, c], jr[r, (c - 1) % L], jd[r, c],
+                      jd[(r - 1) % L, c]], axis=1)
+    colors = ((r + c) % 2).astype(np.int32)
+    return _packed_graph(nbr_idx, nbr_J, hp.reshape(-1), colors, 2,
+                         problem.device)
 
 
 def pack_state(pg, spins):

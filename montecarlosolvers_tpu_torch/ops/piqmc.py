@@ -7,10 +7,17 @@ line-move and bath sum over the Trotter axis of the PIQMC engines,
 `bath_matrix`, the dissipative engine's slice couplings, and the generic
 `local_sweep` / `global_line_moves` on an IsingProblem as plain PyTorch
 (the plain version of `csrc/generic_qmc.cu`, run on the packed problem by
-`ops/generic_kernels.py`). They take their uniforms as an argument and
-J_perp precomputed (`schedules.jperp`), as the kernels take them.
-`dissipative_local_sweep` / `dissipative_colored_sweep` on an IsingProblem
-wait for the bath item (ROADMAP.md queue 1).
+`ops/generic_kernels.py`), and the dissipative `dissipative_local_sweep` /
+`dissipative_colored_sweep` with `bath_fields` (the plain versions of
+`csrc/generic_qmc_bath.cu`) on an IsingProblem or a LatticeProblem. They
+take their uniforms as an argument and J_perp precomputed
+(`schedules.jperp`), as the kernels take them.
+
+The bath field of slice k is sum_p M[k, p] s_p added in index order from
+p = 0, as kernel 5 and the JAX slice-sequential sweep add it. The JAX
+colored sweep contracts the whole (P, P) matrix in one einsum, which XLA's
+CPU dot adds in another order from P = 4 on (ROADMAP.md queue 3); the port
+keeps the index order there too.
 """
 
 from __future__ import annotations
@@ -113,4 +120,93 @@ def global_line_moves(problem, confs, u, teff, b):
         de = sum_in_order(b_coeff * confs * field, dim=-2)
         accept = metropolis_accept(de, t32, u) & problem.color_masks[c]
         confs = torch.where(accept[..., None, :], -confs, confs)
+    return confs
+
+
+def bath_matrix_of(lookuptable, slices, device):
+    """The contiguous (P, P) `bath_matrix` of a (P-1,) `lookuptable` (numpy
+    or a tensor, taken as float32 on `device`), once the table is known to
+    fit P = `slices` >= 2; raises ValueError otherwise."""
+    if slices < 2:
+        raise ValueError(f"the bath engine takes P >= 2 slices, got {slices}")
+    if not torch.is_tensor(lookuptable):  # a copy: it may be read-only
+        lookuptable = np.array(lookuptable, dtype=np.float32)
+    lut = torch.as_tensor(lookuptable, dtype=torch.float32, device=device)
+    if tuple(lut.shape) != (slices - 1,):
+        raise ValueError(f"lookuptable has shape {tuple(lut.shape)}, "
+                         f"expected ({slices - 1},) at P = {slices}")
+    return bath_matrix(lut, slices).contiguous()
+
+
+def bath_fields(bath_mat, confs):
+    """(..., P, N) bath fields of every slice of (..., P, N) confs:
+    sum_p M[k, p] s_p, p added in index order from 0. Each product with a
+    spin is exact, so the order alone fixes the float32 result."""
+    acc = bath_mat[:, 0, None] * confs[..., 0:1, :]
+    for p in range(1, confs.shape[-2]):
+        acc = acc + bath_mat[:, p, None] * confs[..., p:p + 1, :]
+    return acc
+
+
+def _bath_terms(confs, teff, b):
+    """(T_eff, 2 T_eff as float32 tensors, -2B): what the dissipative dE
+    reads. 2 * T_eff is a Python double rounded to float32, as the JAX code
+    rounds it where it meets the spins."""
+    two_teff = torch.tensor(2.0 * teff, dtype=torch.float32,
+                            device=confs.device)
+    return _teff32(teff, confs), two_teff, -2.0 * b
+
+
+def dissipative_local_sweep(problem, confs, u, teff, jp, b, bath_mat):
+    """The slice-sequential dissipative sweep (JAX `dissipative_local_sweep`,
+    ops/piqmc.py:110; qmc.pyx:149-278): slices k = 0..P-1 in order; at the
+    start of slice k its bath field (`bath_mat` row k against the state as
+    it stands) and Trotter sums are taken, then each color class c of the
+    slice flips its accepted sites on
+
+        dE = (-2B s) f + (2 s J_perp)(s[k-1] + s[k+1]) + (2 T_eff s) bath,
+
+    added left to right, the field f of the slice as it stands at the start
+    of the class's phase.
+
+    confs: (..., P, N) float32 +/-1, P >= 2; u: uniforms of the same shape
+    (the classes partition each slice); teff: T_eff = P*T, a Python float;
+    jp, b: float32 tensors; bath_mat: the (P, P) `bath_matrix`. Returns the
+    new confs."""
+    slices = confs.shape[-2]
+    t32, two_teff, b_coeff = _bath_terms(confs, teff, b)
+    confs = confs.clone()  # slices are written in place below
+    for k in range(slices):
+        s_k = confs[..., k, :]
+        tr = confs[..., (k - 1) % slices, :] + confs[..., (k + 1) % slices, :]
+        bath = sum_in_order(bath_mat[k][:, None] * confs, dim=-2)
+        for c in range(problem.num_colors):
+            de = (b_coeff * s_k * problem.local_fields(s_k)
+                  + 2.0 * s_k * jp * tr + two_teff * s_k * bath)
+            accept = (metropolis_accept(de, t32, u[..., k, :])
+                      & problem.color_masks[c])
+            s_k = torch.where(accept, -s_k, s_k)
+        confs[..., k, :] = s_k
+    return confs
+
+
+def dissipative_colored_sweep(problem, confs, u, teff, jp, b, bath_mat):
+    """The space-time colored dissipative sweep (JAX
+    `dissipative_colored_sweep`, ops/piqmc.py:152), the fast approximate
+    form: phase p flips the accepted sites with (color(i) + k) mod m == p,
+    m = spacetime_num_phases(C, P), every field, Trotter sum and bath field
+    (`bath_fields`) of the phase taken from the state at its start; dE as
+    in `dissipative_local_sweep`. Arguments as there."""
+    slices = confs.shape[-2]
+    t32, two_teff, b_coeff = _bath_terms(confs, teff, b)
+    m = spacetime_num_phases(problem.num_colors, slices)
+    k = torch.arange(slices, device=confs.device)[:, None]
+    stc = (problem.colors[None, :] + k) % m  # (P, N)
+    for p in range(m):
+        tr = torch.roll(confs, 1, dims=-2) + torch.roll(confs, -1, dims=-2)
+        de = (b_coeff * confs * problem.local_fields(confs)
+              + 2.0 * confs * jp * tr
+              + two_teff * confs * bath_fields(bath_mat, confs))
+        accept = metropolis_accept(de, t32, u) & (stc == p)
+        confs = torch.where(accept, -confs, confs)
     return confs

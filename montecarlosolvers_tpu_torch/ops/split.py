@@ -14,7 +14,9 @@ For PIQMC at even P the state is four quarter arrays, each (..., P/2, Nh):
     xo[q] = slice 2q+1, color B        yo[q] = slice 2q+1, color A
 
 The sweeps themselves live in `ops/split_kernels.py`, beside their CUDA
-kernels.
+kernels, but for the colored dissipative sweep on the quarters
+(`qmc_bath_split_colored_sweep`), which they share with kernel 5's colored
+form there.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
+from montecarlosolvers_tpu_torch.ops.piqmc import bath_fields
 
 
 def supports_split(problem, slices=None):
@@ -240,3 +244,56 @@ def qmc_slice_energies_split(sl, xe, xo, ye, yo):
     )
     e = torch.stack([e_even, e_odd], dim=-1)  # (..., P/2, 2)
     return e.reshape(e.shape[:-2] + (e.shape[-2] * 2,))
+
+
+def _bath_quarter_mats(bath_mat):
+    """The four (Q, Q) even/odd-slice blocks of the (P, P) bath matrix that
+    the quarter layout reads (JAX ops/split.py:567): ee, eo, oe, oo."""
+    return (bath_mat[0::2, 0::2], bath_mat[0::2, 1::2],
+            bath_mat[1::2, 0::2], bath_mat[1::2, 1::2])
+
+
+def qmc_bath_split_colored_sweep(sl, quarters, us, teff, jp, b, bath_mat):
+    """The space-time colored dissipative sweep on the quarters (JAX
+    `qmc_bath_split_colored_sweep`, ops/split.py:578), the split form of
+    `piqmc.dissipative_colored_sweep`: four updates, xe, xo, ye, yo, in
+    kernel B's order and with its spatial and Trotter terms, each also
+    with (2 T_eff s) bath, its bath two (Q, Q) blocks against its line's
+    quarters, the even block summed, then the odd block, then the two
+    added (`piqmc.bath_fields` each):
+
+        xe: M_ee xe + M_eo yo      xo: M_oe ye + M_oo xo
+        ye: M_ee ye + M_eo xo      yo: M_oe xe + M_oo yo
+
+    taken from the live state just before that quarter's update. A line of
+    an A site interleaves (xe, yo), of a B site (ye, xo).
+
+    quarters: (xe, xo, ye, yo), each (..., Q, Nh) float32 +/-1; us: their
+    four uniforms, same shapes; teff: T_eff = P*T, a Python float; jp, b:
+    float32 tensors; bath_mat: the (P, P) `bath_matrix`. Returns the new
+    quarters."""
+    xe, xo, ye, yo = quarters
+    teff32 = torch.tensor(teff, dtype=torch.float32, device=xe.device)
+    two_teff = torch.tensor(2.0 * teff, dtype=torch.float32,
+                            device=xe.device)
+    bc = -2.0 * b
+    wa, ha = sl.w_ab[:, 0], sl.h_ab[0]
+    wb, hb = sl.w_ab[:, 1], sl.h_ab[1]
+    mee, meo, moe, moo = _bath_quarter_mats(bath_mat)
+
+    def upd(s, f, tr, bath, u):
+        de = bc * s * f + 2.0 * s * jp * tr + two_teff * s * bath
+        return torch.where(metropolis_accept(de, teff32, u), -s, s)
+
+    def bath(m_even, even, m_odd, odd):
+        return bath_fields(m_even, even) + bath_fields(m_odd, odd)
+
+    xe = upd(xe, spatial_field(wa, ye, sl.K) + ha,
+             yo + torch.roll(yo, 1, dims=-2), bath(mee, xe, meo, yo), us[0])
+    xo = upd(xo, spatial_field(wb, yo, sl.K) + hb,
+             ye + torch.roll(ye, -1, dims=-2), bath(moe, ye, moo, xo), us[1])
+    ye = upd(ye, spatial_field(wb, xe, sl.K) + hb,
+             xo + torch.roll(xo, 1, dims=-2), bath(mee, ye, meo, xo), us[2])
+    yo = upd(yo, spatial_field(wa, xo, sl.K) + ha,
+             xe + torch.roll(xe, -1, dims=-2), bath(moe, xe, moo, yo), us[3])
+    return xe, xo, ye, yo

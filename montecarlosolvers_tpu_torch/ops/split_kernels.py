@@ -66,7 +66,6 @@ from __future__ import annotations
 import ctypes
 import math
 
-import numpy as np
 import torch
 
 from montecarlosolvers_tpu_torch import schedules
@@ -76,7 +75,7 @@ from montecarlosolvers_tpu_torch.ops import energy as energy_ops
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
-from montecarlosolvers_tpu_torch.ops.piqmc import bath_matrix, sum_in_order
+from montecarlosolvers_tpu_torch.ops.piqmc import bath_matrix_of, sum_in_order
 
 # Cluster sizes kernels A, B, 3, 5, 6 and 7 may take: up to 8 CTAs is
 # portable, 16 needs cudaFuncAttributeNonPortableClusterSizeAllowed (Hopper
@@ -196,30 +195,40 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
         yo = upd(yo, xo, wa, ha, xe + torch.roll(xe, -1, dims=-2), 3)
 
         if global_moves:
-
-            def line_flips(s1, o1, s2, o2, color):
-                """(chains, 1, Nh) factors -1 / +1 of the lines of `color`,
-                whose sites are s1 and s2 with neighbours in o1 and o2."""
-                w, h = sl.w_ab[:, color], sl.h_ab[color]
-                f1 = split_ops.spatial_field(w, o1, K) + h
-                f2 = split_ops.spatial_field(w, o2, K) + h
-                de = bc * (sum_in_order(s1 * f1) + sum_in_order(s2 * f2))
-                u = (draw(de.shape) if draw else
-                     cr.uniform01_hashed(cr.counter(seed, t, 4 + color),
-                                         hl[color]))
-                acc = metropolis_accept(de, teff32, u)
-                return torch.where(acc, -1.0, 1.0)[:, None, :]
-
-            # color A lines (xe, yo), then color B lines (ye, xo) against
-            # the updated A quarters
-            m = line_flips(xe, ye, yo, xo, 0)
-            xe, yo = xe * m, yo * m
-            m = line_flips(ye, xe, xo, yo, 1)
-            ye, xo = ye * m, xo * m
+            xe, xo, ye, yo = quarter_line_moves(
+                sl, (xe, xo, ye, yo), bc, teff32, lambda color, shape: (
+                    draw(shape) if draw else cr.uniform01_hashed(
+                        cr.counter(seed, t, 4 + color), hl[color])))
         if energies is not None:
             energies[t] = energy_ops.quarters_energy_ref(sl,
                                                          (xe, xo, ye, yo))
     return xe, xo, ye, yo
+
+
+def quarter_line_moves(sl, quarters, bc, teff32, uniforms):
+    """Kernel B's whole-line flips on the quarters (JAX `qmc_split_global`,
+    ops/split.py:413): the lines of color A (xe, yo) against ye and xo,
+    then those of color B (ye, xo) against the updated A quarters. A line's
+    dE is bc * (sum_q s f over its even quarter + the same over its odd
+    quarter), each sum in slice order (J_perp cancels). bc: -2B; teff32:
+    T_eff as a float32 tensor; uniforms(color, shape) gives the lines'
+    uniforms. Returns the new quarters."""
+    xe, xo, ye, yo = quarters
+
+    def line_flips(s1, o1, s2, o2, color):
+        """(chains, 1, Nh) factors -1 / +1 of the lines of `color`, whose
+        sites are s1 and s2 with neighbours in o1 and o2."""
+        w, h = sl.w_ab[:, color], sl.h_ab[color]
+        f1 = split_ops.spatial_field(w, o1, sl.K) + h
+        f2 = split_ops.spatial_field(w, o2, sl.K) + h
+        de = bc * (sum_in_order(s1 * f1) + sum_in_order(s2 * f2))
+        acc = metropolis_accept(de, teff32, uniforms(color, de.shape))
+        return torch.where(acc, -1.0, 1.0)[:, None, :]
+
+    m = line_flips(xe, ye, yo, xo, 0)
+    xe, yo = xe * m, yo * m
+    m = line_flips(ye, xe, xo, yo, 1)
+    return xe, xo * m, ye * m, yo
 
 
 def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
@@ -297,6 +306,44 @@ def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
         if energies is not None:
             energies[t] = energy_ops.halves_energy_ref(sl, a, b)
     return a, b
+
+
+def qmc_bath_split_colored_anneal_ref(sl, b_sched, jp, teff, bath,
+                                      quarters, seed, global_moves,
+                                      energies=None):
+    """Plain form of kernel 5's colored template on the quarters (xe, xo,
+    ye, yo), each (chains, Q, Nh), Q = P/2 (bath_update="colored"; JAX
+    `qmc_bath_anneal_split`'s colored branch, ops/split.py:643-669).
+    `b_sched`, `jp`: float32 (steps,) tensors of B and J_perp; `teff` = P*T
+    a Python float; `bath` the (P, P) float32 `bath_matrix`. Returns the
+    new quarters.
+
+    Step t is `split.qmc_bath_split_colored_sweep` on the uniforms kernel B
+    draws (counter(seed, t, i) at the quarter uids of quarter i), then,
+    with `global_moves`, kernel B's line moves (`quarter_line_moves`, at
+    counter index 4 + color). With `energies`, a (steps, chains) float32
+    buffer, row t receives each chain's best-slice energy after step t
+    (`energy.quarters_energy_ref`); the trajectory is the same with or
+    without it."""
+    chains, Q, nh = quarters[0].shape
+    dev = quarters[0].device
+    teff32 = torch.tensor(teff, dtype=torch.float32, device=dev)
+    hq = [cr.hashed_uid(cr.quarter_uids(chains, Q, nh, i, dev))
+          for i in range(4)]
+    hl = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev)) for c in (0, 1)]
+    for t in range(b_sched.shape[0]):
+        us = [cr.uniform01_hashed(cr.counter(seed, t, i), hq[i])
+              for i in range(4)]
+        quarters = split_ops.qmc_bath_split_colored_sweep(
+            sl, quarters, us, teff, jp[t], b_sched[t], bath)
+        if global_moves:
+            quarters = quarter_line_moves(
+                sl, quarters, -2.0 * b_sched[t], teff32,
+                lambda color, shape: cr.uniform01_hashed(
+                    cr.counter(seed, t, 4 + color), hl[color]))
+        if energies is not None:
+            energies[t] = energy_ops.quarters_energy_ref(sl, quarters)
+    return tuple(quarters)
 
 
 def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf,
@@ -737,6 +784,76 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
     return a_out, b_out
 
 
+def qmc_bath_split_colored_anneal(sl, b_sched, jp, teff, bath, quarters,
+                                  seed, global_moves, energies=None):
+    """Kernel 5's colored template on CUDA tensors,
+    `qmc_bath_split_colored_anneal_ref` on CPU tensors; arguments as for
+    the plain version (even P, the counter hash only). Returns the new
+    quarters. The kernel keeps each spin's sign, so the quarters must hold
+    +/-1.
+
+    The kernel reads the halves a (xe and yo as its even and odd slices)
+    and b (ye and xo), which the wrapper interleaves from the quarters and
+    splits back. Its two routes are kernel 5's, by shape alone
+    (`qmc_bath_geometry`): the cluster kernel, one launch
+    (LAUNCHES["qmc_bath_split_colored"]), or its per-phase kernels, four
+    launches a step and two more with global moves
+    (LAUNCHES["qmc_bath_split_colored_phased"]). With `energies` the
+    per-phase kernels run at any shape and the energy kernel after each
+    step (LAUNCHES["qmc_bath_split_colored_energy"]); the states are those
+    of the route without energies."""
+    xe = quarters[0]
+    if _build.route(xe.device, "split") == "cpu":
+        return qmc_bath_split_colored_anneal_ref(
+            sl, b_sched, jp, teff, bath, quarters, seed, global_moves,
+            energies)
+    chains, Q, nh = xe.shape
+    P = 2 * Q
+    dev = xe.device
+    if nh != sl.nh:
+        raise ValueError(f"quarters have {nh} sites, lattice has {sl.nh}")
+    for t, name in zip(quarters, ("xe", "xo", "ye", "yo")):
+        _build.check_arg(t, name, (chains, Q, nh), dev)
+    _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
+    _build.check_arg(sl.h_ab, "h_ab", (2, nh), dev)
+    _build.check_arg(bath, "bath", (P, P), dev)
+    steps = int(b_sched.shape[0])
+    _build.check_arg(b_sched, "b_sched", (steps,), dev)
+    _build.check_arg(jp, "jp", (steps,), dev)
+    xe, xo, ye, yo = quarters
+    a = torch.stack([xe, yo], dim=2).reshape(chains, P, nh)
+    b = torch.stack([ye, xo], dim=2).reshape(chains, P, nh)
+    a_out, b_out = torch.empty_like(a), torch.empty_like(b)
+    lib = _build.library("split_qmc_bath")
+    head = (*map(_build.ptr, (sl.w_ab, sl.h_ab, b_sched, jp, bath)),
+            ctypes.c_float(teff), ctypes.c_float(2.0 * teff),
+            *map(_build.ptr, (a, b, a_out, b_out)))
+    geometry = None if energies is not None else qmc_bath_geometry(
+        chains, sl.L, P, card_resident("split_qmc_bath", sl.L, P))
+    if geometry is None:
+        tmp = torch.empty((2,) + a.shape, dtype=torch.float32, device=dev)
+        n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # launched
+        rc = lib.split_qmc_bath_colored_phased_anneal(
+            *head, _build.ptr(tmp[0]), _build.ptr(tmp[1]), chains, P, sl.L,
+            sl.nslots, steps, cr.wrap_int32(seed), int(bool(global_moves)),
+            _build.energies_ptr(energies, steps, chains, dev),
+            _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
+        _build.raise_on_error(lib, "split_qmc_bath_colored_phased_anneal",
+                              rc, error_fn="split_qmc_bath_anneal_error_string")
+        _build.LAUNCHES["qmc_bath_split_colored_phased"] += n.value
+        _build.LAUNCHES["qmc_bath_split_colored_energy"] += ne.value
+    else:
+        rc = lib.split_qmc_bath_colored_anneal(
+            *head, chains, P, *geometry, sl.L, sl.nslots, steps,
+            cr.wrap_int32(seed), int(bool(global_moves)),
+            _build.stream_of(dev))
+        _build.raise_on_error(lib, "split_qmc_bath_colored_anneal", rc,
+                              error_fn="split_qmc_bath_anneal_error_string")
+        _build.LAUNCHES["qmc_bath_split_colored"] += 1
+    return (a_out[:, 0::2].contiguous(), b_out[:, 1::2].contiguous(),
+            b_out[:, 0::2].contiguous(), a_out[:, 1::2].contiguous())
+
+
 def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf,
                       hw_rng=False, energies=None):
     """Kernel 4 on CUDA tensors, `svmc_split_anneal_ref` on CPU tensors.
@@ -904,10 +1021,13 @@ def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
 def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
                                   lookuptable, confs, seed, mcsteps=1,
                                   global_moves=False, hw_rng=False,
-                                  collect_energy=False):
+                                  collect_energy=False, colored=False):
     """Split-layout dissipative PIQMC anneal on an even-L LatticeProblem at
     any P >= 2 (counterpart of `pallas_split.anneal_lattice_qmc_bath_split`,
-    without its TPU lane rules, `chain_block` and `chunk`).
+    without its TPU lane rules, `chain_block` and `chunk`); with `colored`,
+    at even P, the colored sweep on the quarters (JAX
+    `qmc_bath_anneal_split(bath_update="colored")`, ops/split.py:618),
+    kernel 5's colored template.
 
     a_sched / b_sched: (steps,) Gamma and B; temp: ambient T, T_eff = P*T;
     lookuptable: (P-1,) bath couplings (`schedules.bath_lookuptable`), a
@@ -915,27 +1035,26 @@ def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
     (chains, P, N) or (P, N) float32 +/-1 slices-major, on the problem's
     device; seed: int counter-hash seed; global_moves: whole-line flips
     after each sweep (DissipativeQuantumAnnealGlobal, qmc.pyx:444-609);
-    hw_rng as for `anneal_lattice_split`; collect_energy as for
-    `anneal_lattice_qmc_split`. Returns the annealed configurations, same
-    shape, or (confs, energies)."""
+    hw_rng as for `anneal_lattice_split` (not with `colored`);
+    collect_energy as for `anneal_lattice_qmc_split`. Returns the annealed
+    configurations, same shape, or (confs, energies)."""
     slices = confs.shape[-2]
-    if slices < 2:
-        raise ValueError(f"the bath engine takes P >= 2 slices, got {slices}")
-    if not torch.is_tensor(lookuptable):  # a copy: it may be read-only
-        lookuptable = np.array(lookuptable, dtype=np.float32)
-    lut = torch.as_tensor(lookuptable, dtype=torch.float32,
-                          device=problem.device)
-    if tuple(lut.shape) != (slices - 1,):
-        raise ValueError(f"lookuptable has shape {tuple(lut.shape)}, "
-                         f"expected ({slices - 1},) at P = {slices}")
-    sl = _split_of(problem, confs, "confs")
+    bath = bath_matrix_of(lookuptable, slices, problem.device)
+    sl = _split_of(problem, confs, "confs", slices if colored else None)
     b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, slices,
                                       mcsteps, problem.device)
-    bath = bath_matrix(lut, slices).contiguous()
     squeeze = confs.ndim == 2
     c = (confs[None] if squeeze else confs).to(torch.float32)
     batch = confs.shape[:-2]
     es = energy_buffer(collect_energy, b.shape[0], batch, problem.device)
+    if colored:
+        if hw_rng:
+            raise ValueError("the colored bath sweep draws from the counter "
+                             "hash only")
+        out = split_ops.unpack_qmc(sl, *qmc_bath_split_colored_anneal(
+            sl, b, jp, teff, bath, split_ops.pack_qmc(sl, c), seed,
+            global_moves, es))
+        return with_energies(out[0] if squeeze else out, es, batch)
     a, b_half = split_ops.pack_classical(sl, c)
     a, b_half = qmc_bath_split_anneal(sl, b, jp, teff, bath, a.contiguous(),
                                       b_half.contiguous(), seed,

@@ -11,8 +11,10 @@ share of the wall, the eight kernels with the most device time (summed
 over their launches, with the launch count the trace saw) and the kernel
 launches `ops/_build.py::LAUNCHES` counted in the same solve. Each solve
 is traced after an untraced warm-up solve, so the kernels are built and
-the caching allocator is warm. The dissipative path runs through
-`solvers/dissipative.py::dissipative_qa`.
+the caching allocator is warm. The dissipative paths run through
+`solvers/dissipative.py::dissipative_qa`: kernel 5 on the lattice, its
+colored template, and the generic bath kernel on the odd torus and on the
+80x80 torus's generic form (tau = 200, as chip_smoke.py runs them).
 """
 
 from __future__ import annotations
@@ -98,6 +100,14 @@ def main():
         # 32 chains, P = 40, alpha = 1e-2: bench.py::_piqmc_bath_arm
         ("piqmc_bath_p40", lattice,
          partial(dissipative_qa, problem, 32, 1000, 40, 1e-2, seed=1)),
+        ("piqmc_bath_colored_p40", lattice,
+         partial(dissipative_qa, problem, 32, 200, 40, 1e-2, seed=1,
+                 bath_update="colored")),
+        ("piqmc_bath_l81_p40", odd_name,
+         partial(dissipative_qa, odd, 32, 200, 40, 1e-2, seed=1)),
+        ("piqmc_bath_generic_p40", f"{lattice}, generic",
+         partial(dissipative_qa, problem.to_generic(), 32, 200, 40, 1e-2,
+                 seed=1)),
     )
     for key, lname, run in runs:
         print(json.dumps({"phase": "profile", "path": key, "lattice": lname,

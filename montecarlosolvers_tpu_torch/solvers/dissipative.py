@@ -13,13 +13,15 @@ from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.solvers import qmc, sa
 
 
-def dissipative_qa(problem, reads, sweeps, slices, alpha, seed):
+def dissipative_qa(problem, reads, sweeps, slices, alpha, seed,
+                   bath_update="sequential"):
     """sa.random_state -> sa.anneal(pre-anneal 3 -> 1, mcsteps=5) ->
     qmc.replicate -> qmc.anneal(Gamma: 3 -> 1e-8 over `sweeps`, B = 1,
-    T = 1/P, lookuptable=bath_lookuptable(P, alpha), global moves) on the
-    problem's device, with the best slice of each chain read out as
-    solve("piqmc") reads it. Returns (states (reads, N), energies) as numpy
-    arrays."""
+    T = 1/P, lookuptable=bath_lookuptable(P, alpha), global moves,
+    bath_update) on the problem's device, any problem qmc.anneal takes,
+    with the best slice of each chain read out as solve("piqmc") reads it.
+    bath_update: "sequential" (the JAX example's) or "colored". Returns
+    (states (reads, N), energies) as numpy arrays."""
     dev = problem.device
     gen = torch.Generator().manual_seed(seed)
     s = sa.random_state(gen, problem.nspins, batch=(reads,), device=dev)
@@ -30,7 +32,8 @@ def dissipative_qa(problem, reads, sweeps, slices, alpha, seed):
     confs = qmc.anneal(problem, a, torch.ones_like(a), 1.0 / slices,
                        qmc.replicate(s, slices), gen, global_moves=True,
                        lookuptable=schedules.bath_lookuptable(
-                           slices, alpha, device=dev))
+                           slices, alpha, device=dev),
+                       bath_update=bath_update)
     es = problem.energy(confs).cpu().numpy()  # (reads, P)
     best = es.argmin(axis=-1)
     rows = np.arange(reads)

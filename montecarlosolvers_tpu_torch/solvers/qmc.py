@@ -14,18 +14,29 @@ that sweep, the Pallas kernel `pallas_qmc._qmc_kernel`, whose counter hash
 lets the port be held bitwise against the Pallas interpreter.
 
 With a bath `lookuptable` (dissipative PIQMC, qmc.pyx:149-278 and
-444-609), an even-L lattice takes the split bath engine
-(`split_kernels.anneal_lattice_qmc_bath_split`, kernel 5) at every P >= 2.
-The JAX solver sends odd P there to the masked
-`piqmc.dissipative_local_sweep` on `jax.random`; the port takes the Pallas
-kernel's own form of the same slice-sequential sweep
-(`pallas_split._qmc_bath_split_kernel`), which accepts any P.
+444-609), the routes follow the JAX solver's (solvers/qmc.py:125-182):
+- an even-L lattice with the sequential sweep takes the split bath engine
+  (`split_kernels.anneal_lattice_qmc_bath_split`, kernel 5) at every P >= 2.
+  The JAX solver sends odd P there to the masked
+  `piqmc.dissipative_local_sweep` on `jax.random`; the port takes the
+  Pallas kernel's own form of the same slice-sequential sweep
+  (`pallas_split._qmc_bath_split_kernel`), which accepts any P;
+- an even-L lattice at even P with bath_update="colored" takes kernel 5's
+  colored template on the quarters (JAX `split.qmc_bath_split_colored_sweep`
+  and `qmc_split_global`);
+- everything else, an IsingProblem, an odd-L lattice, or the colored sweep
+  at odd P, takes the masked sweeps `piqmc.dissipative_local_sweep` /
+  `dissipative_colored_sweep` with `global_line_moves` on the packed layout
+  (`ops/generic_kernels.py::anneal_generic_qmc_bath`,
+  csrc/generic_qmc_bath.cu): an IsingProblem on its greedy colors, a
+  lattice on its own checkerboard (`packed.packed_from_lattice`), which
+  the masked sweep runs on and which on an odd torus is not a proper
+  coloring (ROADMAP.md queue 3).
 
-An IsingProblem at any P takes the generic space-time engine
-(`ops/generic_kernels.py::anneal_generic_qmc`, csrc/generic_qmc.cu), the
-JAX solver's masked `local_sweep` + `global_line_moves` (solvers/qmc.py:
-152-180) on the packed layout; the bath on an IsingProblem is not ported
-yet.
+An IsingProblem at any P without a bath takes the generic space-time
+engine (`ops/generic_kernels.py::anneal_generic_qmc`, csrc/generic_qmc.cu),
+the JAX solver's masked `local_sweep` + `global_line_moves` (solvers/qmc.py:
+152-180) on the packed layout.
 
 `collect_energy=True` returns the best-slice energy after each sweep beside
 the state, on every route, as `sa.anneal` does (there: how the card
@@ -73,10 +84,11 @@ def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
     global_moves: whole-line flips after each sweep (QuantumAnnealGlobal,
     qmc.pyx:405-438). lookuptable: optional (P-1,) system-bath couplings
     (`schedules.bath_lookuptable`), numpy or a tensor, taken as float32 on
-    the problem's device: switches to the slice-sequential dissipative
-    sweep (DissipativeQuantumAnneal[Global]) on an even-L lattice at any P
-    >= 2 (not yet on an IsingProblem). bath_update: "sequential", the
-    reference's exact sweep; "colored" is not ported yet. collect_energy:
+    the problem's device: switches to the dissipative sweep
+    (DissipativeQuantumAnneal[Global]) at any P >= 2, on every problem.
+    bath_update: "sequential", the reference's exact slice-sequential
+    sweep, or "colored", the approximate space-time colored sweep with a
+    snapshot bath (JAX `piqmc.dissipative_colored_sweep`). collect_energy:
     also return the best-slice energy (`best_slice_energy`) after each
     sweep and its line moves, float32 of shape (steps * mcsteps,) + batch
     on the problem's device. Returns the annealed configurations, or
@@ -85,30 +97,25 @@ def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
         raise ValueError(f"bath_update must be 'sequential' or 'colored', "
                          f"got {bath_update!r}")
     _roadmap.require_problem(problem)
+    slices = confs.shape[-2]
+    if lookuptable is not None:
+        colored = bath_update == "colored"
+        kw = dict(mcsteps=mcsteps, global_moves=global_moves,
+                  collect_energy=collect_energy)
+        if split_ops.supports_split(problem, slices if colored else None):
+            return split_kernels.anneal_lattice_qmc_bath_split(
+                problem, a_sched, b_sched, temp, lookuptable, confs,
+                draw_seed(generator), colored=colored, **kw)
+        return generic_kernels.anneal_generic_qmc_bath(
+            problem, a_sched, b_sched, temp, lookuptable, confs,
+            draw_seed(generator), colored=colored, **kw)
     if isinstance(problem, IsingProblem):
-        if lookuptable is not None:
-            raise _roadmap.not_ported(
-                "qmc.anneal(lookuptable=...) on an IsingProblem",
-                _roadmap.BATH)
         return generic_kernels.anneal_generic_qmc(
             problem, a_sched, b_sched, temp, confs, draw_seed(generator),
             mcsteps=mcsteps, global_moves=global_moves,
             collect_energy=collect_energy)
-    if lookuptable is not None:
-        if bath_update == "colored":
-            raise _roadmap.not_ported(
-                "qmc.anneal(lookuptable=..., bath_update='colored')",
-                _roadmap.BATH)
-        if not split_ops.supports_split(problem):
-            raise _roadmap.not_ported(
-                "qmc.anneal(lookuptable=...) on an odd-L lattice",
-                _roadmap.BATH)
-        return split_kernels.anneal_lattice_qmc_bath_split(
-            problem, a_sched, b_sched, temp, lookuptable, confs,
-            draw_seed(generator), mcsteps=mcsteps,
-            global_moves=global_moves, collect_energy=collect_energy)
     engine = (split_kernels.anneal_lattice_qmc_split
-              if split_ops.supports_split(problem, confs.shape[-2])
+              if split_ops.supports_split(problem, slices)
               else plane_kernels.anneal_lattice_qmc)
     return engine(problem, a_sched, b_sched, temp, confs,
                   draw_seed(generator), mcsteps=mcsteps,

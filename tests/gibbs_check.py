@@ -46,7 +46,10 @@ float64 numpy), the rotor pair as an IsingProblem (`rotor_pair_problem`,
 whose moments are `rotor_moments`'s), samplers that take a problem-level
 engine of ops/generic_kernels.py (`sample_generic_sa`,
 `sample_generic_qmc`, `sample_generic_svmc`), and `generic_case`, the
-inputs of each generic kernel beside its plain version.
+inputs of each generic kernel beside its plain version. `generic_case`
+also builds the generic bath kernel's inputs, on an IsingProblem or on a
+lattice's checkerboard packing, and `bath_colored_case` those of kernel
+5's colored template.
 
 Used by tests/test_torch_hw_rng.py, tests/test_torch_packed.py,
 tests/test_torch_gpu.py and chip_smoke.py; not a part of the package.
@@ -543,14 +546,18 @@ def generic_sa_weights(problem, temp):
                        temp)
 
 
-def generic_qmc_weights(problem, P, temp, jp, b=1.0):
+def generic_qmc_weights(problem, P, temp, jp, b=1.0, bath=None):
     """Extended Gibbs weights at T_eff = P*T of every (P, N) state of a
     small IsingProblem, index bit k*N + i the spin i of slice k = -1:
-    E = B sum_k E(s_k) - J_perp sum_k s_k . s_{k+1} (ring)."""
+    E = B sum_k E(s_k) - J_perp sum_k s_k . s_{k+1} (ring)
+    - (T_eff / 2) sum_i s_i M s_i with the bath matrix `bath` ((P, P) or
+    None)."""
     n = problem.nspins
     s = all_states(n * P).reshape(-1, P, n)
     e = b * generic_energies(problem, s.reshape(-1, n)).reshape(-1, P).sum(1)
     e -= jp * (s * np.roll(s, -1, axis=1)).sum(axis=(1, 2))
+    if bath is not None:
+        e -= 0.5 * P * temp * np.einsum("spn,pq,sqn->s", s, bath, s)
     return _normalised(e, P * temp)
 
 
@@ -598,6 +605,27 @@ def sample_generic_qmc(problem, chains, P, temp, gamma, seed,
                         samples, every, seed)
 
 
+def sample_generic_bath(problem, chains, P, temp, gamma, alpha, seed, codes,
+                        nstates, global_moves=True, colored=False,
+                        burn=BURN, samples=SAMPLES, every=EVERY):
+    """Per-chain frequencies of `codes` (spin_codes for a whole small
+    problem, line_codes for `pair_lattice`'s pair) under
+    generic_kernels.anneal_generic_qmc_bath (an IsingProblem, or a
+    LatticeProblem on its checkerboard packing) at fixed Gamma, B = 1, T
+    and bath strength alpha, sequential or `colored`."""
+    dev = problem.device
+    lut = schedules.bath_lookuptable(P, alpha, device=dev)
+
+    def step(c, n, sd):
+        g = torch.full((n,), gamma, device=dev)
+        return gk.anneal_generic_qmc_bath(
+            problem, g, torch.ones_like(g), temp, lut, c, sd,
+            global_moves=global_moves, colored=colored)
+    return _frequencies(step, _random_spins((chains, P, problem.nspins),
+                                            seed, dev),
+                        codes, nstates, burn, samples, every, seed)
+
+
 def sample_generic_svmc(problem, chains, a, b, temp, seed, burn=BURN,
                         samples=SAMPLES, every=EVERY):
     """(chains, 2) per-chain means of E_pair and cos t0 of the rotor pair
@@ -628,15 +656,35 @@ GENERIC = {
                     "generic_qmc"),
     "packed_svmc": (gk.packed_svmc_anneal, gk.packed_svmc_anneal_ref,
                     "packed_svmc"),
+    "generic_qmc_bath": (gk.generic_qmc_bath_anneal,
+                         gk.generic_qmc_bath_anneal_ref, "generic_qmc_bath"),
 }
 
 
+def packed_of(problem):
+    """The PackedGraph the generic engines take for `problem`: an
+    IsingProblem's own, or a LatticeProblem's checkerboard packing."""
+    if packed_ops.supports_packed(problem):
+        return packed_ops.build_packed(problem)
+    return packed_ops.packed_from_lattice(problem)
+
+
+def problem_scale(problem):
+    """sum |J| + sum |h| of an IsingProblem or a LatticeProblem."""
+    if packed_ops.supports_packed(problem):
+        return float(problem.nbr_J.abs().sum() / 2 + problem.h.abs().sum())
+    return energy_scale(problem)
+
+
 def generic_case(kernel, problem, chains, steps, slices=None, tf=True,
-                 global_moves=True, seed=0, bscale=1.0):
+                 global_moves=True, seed=0, bscale=1.0, colored=False,
+                 alpha=0.01):
     """Generic kernel `kernel`'s inputs on IsingProblem `problem` (its
-    device), packed: `chains` chains (of `slices` slices for PIQMC) of
-    random spins or angles from numpy's `seed`, `steps` steps of its
-    schedule (T: 3 -> 0.1; Gamma: 3 -> 1e-8 with B = bscale, T = 1/P;
+    device), packed (for "generic_qmc_bath" also a LatticeProblem, on its
+    checkerboard packing): `chains` chains (of `slices` slices for PIQMC)
+    of random spins or angles from numpy's `seed`, `steps` steps of its
+    schedule (T: 3 -> 0.1; Gamma: 3 -> 1e-8 with B = bscale, T = 1/P, and
+    for the bath the sweep `colored` or not at bath strength `alpha`;
     SVMC A: 3 -> 1e-8, B = bscale, T = 0.05, TF proposals `tf`).
 
     Returns a dict: run(fn, energies) calls the wrapper or the plain
@@ -646,7 +694,7 @@ def generic_case(kernel, problem, chains, steps, slices=None, tf=True,
     SVMC angles."""
     dev = problem.device
     rng = np.random.default_rng(seed)
-    pg = packed_ops.build_packed(problem)
+    pg = packed_of(problem)
     n = problem.nspins
     gamma = schedules.transverse_field(3.0, 1e-8, steps, device=dev)
     bs = torch.full_like(gamma, bscale)
@@ -660,11 +708,52 @@ def generic_case(kernel, problem, chains, steps, slices=None, tf=True,
         jp = schedules.jperp(gamma, teff).contiguous()
         call = lambda fn, es: fn(pg, bs, jp, teff, st, 11, global_moves,
                                  energies=es)
+    elif kernel == "generic_qmc_bath":
+        start = rng.choice([-1.0, 1.0], size=(chains, slices, n))
+        teff = (1.0 / slices) * slices
+        jp = schedules.jperp(gamma, teff).contiguous()
+        bath = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+            slices, alpha, device=dev), slices).contiguous()
+        call = lambda fn, es: fn(pg, bs, jp, teff, bath, st, 11,
+                                 global_moves, colored=colored, energies=es)
     else:
         start = rng.random((chains, n)) * np.pi
         call = lambda fn, es: fn(pg, gamma, bs, 0.05, st, 11, tf,
                                  energies=es)
     st = torch.as_tensor(start.astype(np.float32), device=dev)
-    scale = float(problem.nbr_J.abs().sum() / 2 + problem.h.abs().sum())
-    return {"run": call, "start": st, "pg": pg, "scale": scale,
+    return {"run": call, "start": st, "pg": pg,
+            "scale": problem_scale(problem),
             "angles": kernel == "packed_svmc"}
+
+
+def bath_colored_case(lat, chains, steps, slices, global_moves=True,
+                      seed=0, bscale=1.0, alpha=0.01):
+    """Kernel 5's colored template's inputs on even-L lattice `lat` at even
+    P = `slices`: `chains` chains of random spins from numpy's `seed`, in
+    quarters, `steps` steps of Gamma: 3 -> 1e-8 with B = bscale, T = 1/P,
+    bath strength `alpha`. Returns a dict as `generic_case`'s, run(fn,
+    energies) giving fn's (chains, P, N) state for fn
+    qmc_bath_split_colored_anneal or its _ref, and the LAUNCHES its
+    collecting route makes (`launches`)."""
+    dev = lat.device
+    rng = np.random.default_rng(seed)
+    sl = split_ops.build_split(lat)
+    start = torch.as_tensor(rng.choice(
+        [-1.0, 1.0], size=(chains, slices, lat.nspins)).astype(np.float32),
+        device=dev)
+    gamma = schedules.transverse_field(3.0, 1e-8, steps, device=dev)
+    teff = (1.0 / slices) * slices
+    jp = schedules.jperp(gamma, teff).contiguous()
+    bath = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+        slices, alpha, device=dev), slices).contiguous()
+    quarters = split_ops.pack_qmc(sl, start)
+
+    def call(fn, es):
+        return split_ops.unpack_qmc(sl, *fn(
+            sl, torch.full_like(gamma, bscale), jp, teff, bath, quarters,
+            11, global_moves, energies=es))
+    return {"run": call, "start": start, "scale": energy_scale(lat),
+            "angles": False,
+            "launches": {"qmc_bath_split_colored_phased":
+                         (6 if global_moves else 4) * steps,
+                         "qmc_bath_split_colored_energy": steps}}

@@ -32,6 +32,8 @@ from montecarlosolvers_tpu.solvers import qmc as jqmc
 from montecarlosolvers_tpu_torch import convert
 from montecarlosolvers_tpu_torch import schedules as tsched
 from montecarlosolvers_tpu_torch.ops import _build
+from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+from montecarlosolvers_tpu_torch.ops import packed as packed_ops
 from montecarlosolvers_tpu_torch.ops import piqmc as tpiqmc
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels as sk
@@ -371,10 +373,24 @@ def test_bath_refusals():
     b = torch.ones_like(a)
     c = qmc.replicate(sa.random_state(gen, 36, batch=(2,), device="cpu"), 3)
     lut = tsched.bath_lookuptable(3, 0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="odd-L.*item 2"):
-        qmc.anneal(odd, a, b, 0.3,
-                   qmc.replicate(torch.ones((2, 25)), 3), gen,
-                   lookuptable=lut)
+    # an odd L, and the colored sweep at odd P, run on the generic bath
+    # engine, the lattice's checkerboard packed (tests/
+    # test_torch_dissipative.py), and give its plain version's spins
+    c5 = qmc.replicate(sa.random_state(gen, 25, batch=(2,), device="cpu"), 3)
+    for lat, confs, bath_update in ((odd, c5, "sequential"),
+                                    (even, c, "colored")):
+        out = qmc.anneal(lat, a, b, 0.3, confs,
+                         torch.Generator().manual_seed(7), lookuptable=lut,
+                         bath_update=bath_update)
+        pg = packed_ops.packed_from_lattice(lat)
+        bq, jp, teff = tsched.qmc_terms(a, b, 0.3, 3, 1, torch.device("cpu"))
+        ref = gk.generic_qmc_bath_anneal_ref(
+            pg, bq, jp, teff, tpiqmc.bath_matrix(lut, 3),
+            packed_ops.pack_state(pg, confs),
+            sa.draw_seed(torch.Generator().manual_seed(7)), False,
+            colored=bath_update == "colored")
+        assert torch.equal(out, packed_ops.unpack_state(pg, ref))
+        assert not torch.equal(out, confs)
     with pytest.raises(ValueError, match="even-L"):
         sk.anneal_lattice_qmc_bath_split(odd, a, b, 0.3, lut,
                                          torch.ones((2, 3, 25)), 0)
@@ -386,9 +402,18 @@ def test_bath_refusals():
     with pytest.raises(ValueError, match=r"expected \(2,\)"):
         qmc.anneal(even, a, b, 0.3, c, gen,
                    lookuptable=tsched.bath_lookuptable(4, 0.1, device="cpu"))
-    with pytest.raises(NotImplementedError, match="colored.*item 2"):
-        qmc.anneal(even, a, b, 0.3, c, gen, lookuptable=lut,
-                   bath_update="colored")
+    # the colored sweep at even P runs on kernel 5's colored template
+    c4 = qmc.replicate(sa.random_state(gen, 36, batch=(2,), device="cpu"), 4)
+    lut4 = tsched.bath_lookuptable(4, 0.1, device="cpu")
+    out = qmc.anneal(even, a, b, 0.3, c4, torch.Generator().manual_seed(7),
+                     lookuptable=lut4, bath_update="colored")
+    sl = split_ops.build_split(even)
+    bq, jp, teff = tsched.qmc_terms(a, b, 0.3, 4, 1, torch.device("cpu"))
+    ref = sk.qmc_bath_split_colored_anneal_ref(
+        sl, bq, jp, teff, tpiqmc.bath_matrix(lut4, 4),
+        split_ops.pack_qmc(sl, c4),
+        sa.draw_seed(torch.Generator().manual_seed(7)), False)
+    assert torch.equal(out, split_ops.unpack_qmc(sl, *ref))
     with pytest.raises(ValueError, match="bath_update"):
         qmc.anneal(even, a, b, 0.3, c, gen, lookuptable=lut,
                    bath_update="nope")

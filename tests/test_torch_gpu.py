@@ -39,7 +39,14 @@ slices' streams apart; the bench's arms launch their kernels. The generic
 kernels on an IsingProblem (packed SA, generic PIQMC, packed SVMC) equal
 their plain versions on small graphs of 2 to 9 colors, collect energies in
 their one launch, run solve() with one launch a kernel and sample exact
-weights; engine="masked" runs the packed kernel.
+weights; engine="masked" runs the packed kernel. The bath kernels: the
+generic bath kernel (sequential and colored, on IsingProblem graphs and on
+lattices' checkerboard packings, the odd torus's improper one included)
+and kernel 5's colored template (L = 10 to 674, P = 2 to 66, both routes,
+the per-phase kernels also forced at small shapes) equal their plain
+versions with and without energies; the generic bath kernel samples the
+exact bath-extended weights, and qmc.anneal(lookuptable=...) launches the
+route of the JAX solver's table.
 """
 
 import contextlib
@@ -848,3 +855,171 @@ def test_generic_kernels_sample_exact_weights(cuda, engine):
         z, _ = gibbs.z_scores(per_chain,
                               np.array(gibbs.rotor_moments(0.6, 1.0, 0.7)))
     assert z < 5.0
+
+
+# ------------------- the rest of dissipative PIQMC (the bath kernels)
+
+
+def _bath_problem(name, dev):
+    """The generic bath kernel's problems: IsingProblem graphs, and
+    lattices on their checkerboard packing (the odd torus's is not a
+    proper coloring)."""
+    if name == "odd_torus9":
+        return instances.gaussian_torus(9, 1, device=dev)
+    if name == "odd_open9":
+        return instances.random_2d_lattice(9, rng=2, lattice=True,
+                                           with_fields=True, device=dev)[0]
+    if name == "torus10":
+        return instances.gaussian_torus(10, 3, device=dev)
+    return _generic(name, dev)
+
+
+@pytest.mark.parametrize("graph,slices,colored,gm", [
+    ("torus10", 4, False, True), ("chimera", 5, False, True),
+    ("rg9", 3, False, False), ("rg_fields", 40, False, True),
+    ("odd_torus9", 4, False, True), ("odd_open9", 3, False, True),
+    ("torus10", 4, True, True), ("chimera", 6, True, False),
+    ("rg9", 2, True, True), ("odd_torus9", 5, True, True),
+    ("odd_torus9", 40, True, True), ("torus10", 5, True, True),
+])
+def test_generic_bath_kernel_equals_plain(cuda, graph, slices, colored, gm):
+    """csrc/generic_qmc_bath.cu against its plain version, with and without
+    energies, on IsingProblem graphs (2 to 9 colors) and on lattices'
+    checkerboard packings (torus10 is the lattice itself, at odd P for the
+    colored sweep): states bitwise, energies within ENERGY_RTOL * (sum |J|
+    + sum |h|), one launch a call."""
+    steps, chains = 10, 5
+    prob = _bath_problem(graph, cuda)
+    if graph == "torus10" and not colored:
+        prob = prob.to_generic()
+    case = gibbs.generic_case("generic_qmc_bath", prob, chains, steps, slices,
+                              global_moves=gm, colored=colored, bscale=0.8,
+                              alpha=0.3)
+    assert case["pg"].proper is (graph != "odd_torus9")
+    wrapper, plain, key = gibbs.GENERIC["generic_qmc_bath"]
+    es, es_plain = (torch.full((steps, chains), float("nan"), device=cuda)
+                    for _ in range(2))
+    _build.reset_launches()
+    out = case["run"](wrapper, None)
+    collected = case["run"](wrapper, es)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {key: 2}
+    ref = case["run"](plain, es_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert float((out != case["start"]).float().mean()) > 0.05
+    assert torch.equal(out, collected)
+    assert torch.isfinite(es).all()
+    assert float((es - es_plain).abs().max()) <= \
+        gibbs.ENERGY_RTOL * case["scale"]
+
+
+# (L, P, periodic, global moves, B, chains); L = 674 at P = 40 is held by
+# no cluster of 16 CTAs and runs on the per-phase kernels, P = 66 takes
+# the runtime-P kernel
+@pytest.mark.parametrize("L,P,periodic,gm,bscale,chains", [
+    (10, 2, True, True, 1.0, 3), (16, 4, False, True, 0.7, 3),
+    (16, 6, True, False, 0.7, 3), (80, 40, True, True, 0.7, 4),
+    (80, 64, True, False, 1.0, 2), (16, 66, True, True, 0.7, 2),
+    (176, 40, True, True, 1.0, 2), (674, 40, True, True, 0.7, 1)])
+def test_bath_colored_kernel_equals_plain(cuda, L, P, periodic, gm, bscale,
+                                          chains):
+    """Kernel 5's colored template against its plain version on both
+    routes, bitwise, and its collecting route (the per-phase kernels and
+    the energy kernel) against the plain version's energies."""
+    lat = _lattice(L, periodic, cuda)
+    steps = 2 if L > 600 else 8
+    case = gibbs.bath_colored_case(lat, chains, steps, P, global_moves=gm,
+                                   bscale=bscale, alpha=0.3)
+    geometry = sk.qmc_bath_geometry(chains, L, P, sk.card_resident(
+        "split_qmc_bath", L, P))
+    _build.reset_launches()
+    out = case["run"](sk.qmc_bath_split_colored_anneal, None)
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert launched == ({"qmc_bath_split_colored": 1} if geometry else
+                        {"qmc_bath_split_colored_phased":
+                         (6 if gm else 4) * steps})
+    ref = case["run"](sk.qmc_bath_split_colored_anneal_ref, None)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert float((out != case["start"]).float().mean()) > 0.05
+    if L > 200:
+        return
+    es, es_plain = (torch.full((steps, chains), float("nan"), device=cuda)
+                    for _ in range(2))
+    _build.reset_launches()
+    collected = case["run"](sk.qmc_bath_split_colored_anneal, es)
+    want = dict(case["launches"])
+    if not gm:
+        want["qmc_bath_split_colored_phased"] = 4 * steps
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == want
+    case["run"](sk.qmc_bath_split_colored_anneal_ref, es_plain)
+    assert torch.equal(collected, out)
+    assert float((es - es_plain).abs().max()) <= \
+        gibbs.ENERGY_RTOL * case["scale"]
+
+
+def test_bath_colored_per_phase_kernels_at_small_shapes(cuda):
+    """The colored template's per-phase kernels, forced at any shape
+    (gibbs_check.phased_route), equal the plain version on small open and
+    periodic lattices."""
+    for L, periodic, P in ((4, True, 2), (10, False, 6), (16, True, 8)):
+        case = gibbs.bath_colored_case(_lattice(L, periodic, cuda), 3, 6, P,
+                                       alpha=0.3)
+        with gibbs.phased_route():
+            _build.reset_launches()
+            out = case["run"](sk.qmc_bath_split_colored_anneal, None)
+            assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+                {"qmc_bath_split_colored_phased": 36}
+        ref = case["run"](sk.qmc_bath_split_colored_anneal_ref, None)
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("case", ["ising", "odd_lattice"])
+def test_generic_bath_kernel_samples_extended_gibbs(cuda, case):
+    """The generic bath kernel on the exact cases of
+    tests/test_torch_dissipative.py: every state within 5 standard errors
+    of the chain means."""
+    if case == "ising":
+        from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+        prob = IsingProblem.from_edges(2, [0], [1], [0.8], maxnb=1,
+                                       device=cuda)
+        P, temp, gamma, alpha = 2, 0.9, 0.6, 0.05
+        exact = gibbs.generic_qmc_weights(prob, P, temp,
+                                          gibbs.jperp(gamma, P, temp),
+                                          bath=gibbs.bath_matrix(P, alpha))
+        codes, nstates = gibbs.spin_codes, 2 ** (P * prob.nspins)
+    else:
+        prob = gibbs.pair_lattice(3, cuda)
+        P, temp, gamma, alpha = 3, 0.45, 0.6, 0.1
+        exact = gibbs.qmc_weights(P, temp, gibbs.jperp(gamma, P, temp),
+                                  bath=gibbs.bath_matrix(P, alpha))
+        codes, nstates = gibbs.line_codes, 4 ** P
+    per_chain = gibbs.sample_generic_bath(prob, 4096, P, temp, gamma, alpha,
+                                          44, codes, nstates)
+    z, _ = gibbs.z_scores(per_chain, exact, gibbs.SAMPLES)
+    assert z < 5.0
+
+
+@pytest.mark.parametrize("name,P,bath_update,launches", [
+    ("ising", 4, "sequential", {"generic_qmc_bath": 1}),
+    ("ising", 4, "colored", {"generic_qmc_bath": 1}),
+    ("odd_torus9", 40, "sequential", {"generic_qmc_bath": 1}),
+    ("torus10", 5, "colored", {"generic_qmc_bath": 1}),
+    ("torus10", 40, "colored", {"qmc_bath_split_colored": 1}),
+    ("torus10", 40, "sequential", {"qmc_bath_split": 1}),
+])
+def test_bath_routes_on_the_card(cuda, name, P, bath_update, launches):
+    """qmc.anneal(lookuptable=...) launches the route of the JAX solver's
+    table (solvers/qmc.py): one launch an anneal."""
+    prob = (_generic("chimera", cuda) if name == "ising"
+            else _bath_problem(name, cuda))
+    gen = torch.Generator().manual_seed(4)
+    c = qmc.replicate(sa.random_state(gen, prob.nspins, batch=(3,)), P)
+    g = schedules.transverse_field(3.0, 1e-8, 20)
+    _build.reset_launches()
+    out = qmc.anneal(prob, g, torch.ones_like(g), 1.0 / P, c, gen,
+                     global_moves=True,
+                     lookuptable=schedules.bath_lookuptable(P, 0.01),
+                     bath_update=bath_update)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == launches
+    assert set(torch.unique(out).tolist()) <= {-1.0, 1.0}

@@ -233,7 +233,7 @@ def test_plain_versions_collect_energies(kernel):
     last = (tsv.z_projection_from_cos(torch.cos(out)) if case["angles"]
             else out)
     e = tpk.packed_energy(case["pg"], last)
-    if kernel == "generic_qmc":
+    if kernel in ("generic_qmc", "generic_qmc_bath"):
         e = e.min(dim=-1).values
     assert torch.allclose(es[-1], e, atol=1e-6 * case["scale"])
 
@@ -363,12 +363,21 @@ def test_generic_refusals():
     with pytest.raises(ValueError, match="engine must be"):
         sa.anneal(prob, sched, s, gen, engine="split")
     lat = tinst.gaussian_torus(4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6 .parallel"):
+    with pytest.raises(NotImplementedError, match="item 5 .parallel"):
         sa.anneal(lat, sched, s[:, :16], gen, engine="masked")
     c = qmc.replicate(s, 4)
-    with pytest.raises(NotImplementedError, match="IsingProblem.*item 2"):
-        qmc.anneal(prob, sched, torch.ones_like(sched), 0.3, c, gen,
-                   lookuptable=np.ones(3))
+    # the bath on an IsingProblem runs on the generic bath engine
+    # (tests/test_torch_dissipative.py) and gives its plain version's spins
+    out = qmc.anneal(prob, sched, torch.ones_like(sched), 0.3, c,
+                     torch.Generator().manual_seed(5), lookuptable=np.ones(3))
+    pg = tpk.build_packed(prob)
+    b, jp, teff = tsched.qmc_terms(sched, torch.ones_like(sched), 0.3, 4, 1,
+                                   torch.device("cpu"))
+    ref = gk.generic_qmc_bath_anneal_ref(
+        pg, b, jp, teff, tpq.bath_matrix(torch.ones(3), 4),
+        tpk.pack_state(pg, c), sa.draw_seed(torch.Generator().manual_seed(5)),
+        False)
+    assert torch.equal(out, tpk.unpack_state(pg, ref))
     with pytest.raises(ValueError, match="problem on cpu"):
         gk.anneal_packed(prob, sched, s.to("meta"), 0)
     with pytest.raises(ValueError, match="take an IsingProblem"):

@@ -25,6 +25,9 @@ from montecarlosolvers_tpu.solvers import qmc as jqmc
 from montecarlosolvers_tpu_torch import convert
 from montecarlosolvers_tpu_torch import schedules as tsched
 from montecarlosolvers_tpu_torch.models import instances as tinst
+from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+from montecarlosolvers_tpu_torch.ops import packed as tpk
+from montecarlosolvers_tpu_torch.ops import piqmc as tpq
 from montecarlosolvers_tpu_torch.solvers import api, qmc, sa
 
 torch.set_num_threads(1)
@@ -149,21 +152,41 @@ def test_determinism_and_valid_spins():
                        lat.energy(out1).min(dim=-1).values)
 
 
+def plain_generic_bath(problem, gamma, temp, lut, confs, gen_seed,
+                       bath_update):
+    """The generic bath engine's plain version on `problem` packed as
+    qmc.anneal packs it, B = 1, no line moves, at the counter seed a
+    generator seeded `gen_seed` draws first."""
+    pg = (tpk.build_packed(problem) if tpk.supports_packed(problem)
+          else tpk.packed_from_lattice(problem))
+    P = confs.shape[-2]
+    b, jp, teff = tsched.qmc_terms(gamma, torch.ones_like(gamma), temp, P, 1,
+                                   torch.device("cpu"))
+    bath = tpq.bath_matrix(torch.as_tensor(lut, dtype=torch.float32), P)
+    out = gk.generic_qmc_bath_anneal_ref(
+        pg, b, jp, teff, bath, tpk.pack_state(pg, confs),
+        sa.draw_seed(torch.Generator().manual_seed(gen_seed)), False,
+        colored=bath_update == "colored")
+    return tpk.unpack_state(pg, out)
+
+
 def test_refusals():
     gen = torch.Generator().manual_seed(0)
     lat = tinst.gaussian_torus(6, seed=0, device="cpu")
     sched = tsched.linear(1.0, 0.0, 3, device="cpu")
     c = qmc.replicate(sa.random_state(gen, 36, batch=(2,), device="cpu"), 3)
-    # the bath runs on even L (tests/test_torch_bath.py); what is left of
-    # dissipative PIQMC is refused with its ROADMAP.md item
+    # dissipative PIQMC runs on every problem now, odd L and
+    # bath_update="colored" included, and gives the plain version's spins
+    # (tests/test_torch_dissipative.py)
     odd = tinst.gaussian_torus(5, seed=0, device="cpu")
     c5 = qmc.replicate(sa.random_state(gen, 25, batch=(2,), device="cpu"), 3)
-    with pytest.raises(NotImplementedError, match="dissipative"):
-        qmc.anneal(odd, sched, torch.ones_like(sched), 0.3, c5, gen,
-                   lookuptable=np.ones(2))
-    with pytest.raises(NotImplementedError, match="colored"):
-        qmc.anneal(lat, sched, torch.ones_like(sched), 0.3, c, gen,
-                   lookuptable=np.ones(2), bath_update="colored")
+    for prob, confs, bath_update in ((odd, c5, "sequential"),
+                                     (lat, c, "colored")):
+        out = qmc.anneal(prob, sched, torch.ones_like(sched), 0.3, confs,
+                         torch.Generator().manual_seed(3),
+                         lookuptable=np.ones(2), bath_update=bath_update)
+        assert torch.equal(out, plain_generic_bath(
+            prob, sched, 0.3, np.ones(2), confs, 3, bath_update))
     # odd P and odd L run now (tests/test_torch_plane.py), and so does the
     # port's own generic IsingProblem (tests/test_torch_packed.py); a
     # problem of the JAX package, such as its generic IsingProblem, is
@@ -181,10 +204,13 @@ def test_refusals():
     ss = api.solve(port_generic, "piqmc", num_reads=2, sweeps=3, slices=5,
                    pre_anneal=False)
     assert ss.samples.shape == (2, 16)
-    # the bath on an IsingProblem waits for its ROADMAP.md item
-    with pytest.raises(NotImplementedError, match="IsingProblem.*item 2"):
-        qmc.anneal(port_generic, sched, torch.ones_like(sched), 0.3,
-                   c[:, :, :16], gen, lookuptable=np.ones(2))
+    # and so does the bath on an IsingProblem
+    out = qmc.anneal(port_generic, sched, torch.ones_like(sched), 0.3,
+                     c[:, :, :16], torch.Generator().manual_seed(3),
+                     lookuptable=np.ones(2))
+    assert torch.equal(out, plain_generic_bath(
+        port_generic, sched, 0.3, np.ones(2), c[:, :, :16], 3,
+        "sequential"))
     for fn in (sa.anneal_noisy, sa.anneal_wolff, sa.anneal_sw,
                qmc.anneal_wolff, qmc.anneal_sw, qmc.anneal_sw_bath):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -361,7 +361,7 @@ def test_svmc_refusals():
     lat = tinst.gaussian_torus(6, seed=0, device="cpu")
     a = tsched.linear(1.0, 1e-8, 3, device="cpu")
     th = svmc.random_state(gen, 36, batch=(2,), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3 .generic graphs"):
+    with pytest.raises(NotImplementedError, match="item 2 .generic graphs"):
         svmc.anneal_noisy(lat, a, torch.ones_like(a), 0.1, None, None, th,
                           gen)
     # a problem of the JAX package is refused; the port's own generic
