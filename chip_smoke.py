@@ -8,10 +8,10 @@ Run from the repository root, with no arguments:
 Phases, each printed as one JSON line:
   device              nvidia-smi's name and power limit of the card
   build               nvcc builds kernels A, B, 3, 4, 5 (with its colored
-                      template), 6 and 7, the energy kernel's entry points
-                      and the four generic kernels (packed SA, generic
-                      PIQMC, packed SVMC, generic bath) from csrc/, all at
-                      once (seconds)
+                      template), 6 and 7, the energy kernel's entry points,
+                      the four generic kernels (packed SA, generic PIQMC,
+                      packed SVMC, generic bath) and the dense in-block
+                      kernel from csrc/, all at once (seconds)
   clusters            the (C, R, threads) kernels A and 6 and the (R,
                       threads) kernels B, 5, 3, 7 and 4 take at the shapes
                       below, and how many of those clusters the card holds
@@ -107,6 +107,23 @@ Phases, each printed as one JSON line:
                       which no cluster holds and the per-phase kernels run:
                       0 mismatched spins, energies within 1e-5 (sum |J| +
                       sum |h|), launches exactly the route's
+  dense_kernel_vs_plain  the dense engine's in-block kernel
+                      (csrc/dense_sa.cu, ops/dense_kernels.py) against its
+                      plain version on the card: sk_model(2048, rng=0) at
+                      the main path's 1024 chains, 3 sweeps of T: 3 -> 0.1,
+                      blocks of 128, systematic, shuffled and bf16, and one
+                      sweep of an SK problem of N = 8192 drawn on the
+                      card: 0 mismatched spins, sweeps x ceil(N / 128)
+                      launches (TF32 off, so both take full-float32 block
+                      fields from the same torch.matmul)
+  noisy_kernel_vs_plain  the packed SA and SVMC kernels' table variant
+                      (the noisy anneals: per-step coupling tables) against
+                      their plain versions on the 80x80 torus's
+                      to_generic(), 1280 and 256 chains, 20 steps of the
+                      main path's noisy tables, at mcsteps 1 and 2 (a row
+                      for two sweeps), SVMC with TF proposals and uniform:
+                      0 mismatched spins, angles by the ANGLE_MISMATCH
+                      rule, one launch an anneal
   main_path           eight solves at full width: solve("sa", 1280 reads,
                       2000 sweeps) and solve("piqmc", 32 reads, 1000
                       sweeps) at P = 40 and at P = 5 on the santoro instance
@@ -146,7 +163,14 @@ Phases, each printed as one JSON line:
                       the 80x80 torus (kernel 5's colored template) and at
                       P = 5 (the generic bath kernel), and sequential on
                       chimera_graph(16, rng=0) at P = 20, each in a range
-                      around its JAX CPU anchor
+                      around its JAX CPU anchor; then solve("sa", 1024
+                      reads, 1000 sweeps) on sk_model(2048, rng=0) (the
+                      dense engine: 16000 launches of dense_sa), and
+                      sa.anneal_noisy (1280 chains, T 3 -> 0) and
+                      svmc.anneal_noisy (256 chains, TF, T = 0.05) over
+                      1000 steps of per-step tables nbr_J (1 + 0.1 xi_t)
+                      on the 80x80 torus's generic form (one launch each),
+                      in ranges around their JAX CPU anchors
   timing              slope-timed ms per sweep of each kernel and of its
                       plain version at the main path's shapes, beside the
                       least time the card could take for a sweep (bound:
@@ -166,7 +190,14 @@ Phases, each printed as one JSON line:
                       beside the kernels line), kernel 5's colored template
                       on the 80x80 torus and its per-phase kernels on the
                       674x674 torus, and a line bath_vs_lattice with each
-                      beside kernel 5 on the same torus
+                      beside kernel 5 on the same torus; the dense sweep
+                      (kernel route and plain route) at N = 2048, 1024
+                      chains, and the kernel route at N = 8192, each with
+                      the in-block kernel's ms alone (CUDA events) and one
+                      sweep's block products by torch.matmul (its
+                      library_ms); the noisy kernels and their plain
+                      versions at the main path's widths, their bounds
+                      counting the tables' bytes
   hw_rng_kernel_checks  the generator instantiations (hw_rng=True,
                       csrc/hw_rng.cuh) of kernels A, B, 4 and 5, on their
                       cluster kernels and on their per-phase kernels (forced
@@ -244,7 +275,8 @@ launches are the bench's, then the energy kernel by the layout it reads,
 halves, quarters or planes, whose launches are the collecting solves',
 then the three generic kernels, whose launches are the main path's,
 then the generic bath kernel, kernel 5's colored template and its
-per-phase kernels, whose launches are the main path's),
+per-phase kernels, the dense in-block kernel and the packed SA and SVMC
+kernels' table variant, whose launches are the main path's),
 a line {"phase": "done", "seconds": ..., "phase_seconds": {...}} (the
 seconds from the start at the end of each phase), and last
 {"ok": true, "device": {...}}.
@@ -376,6 +408,33 @@ RANGES.update({
     "piqmc_bath_colored_p5": (-1.292, -1.272),
     "piqmc_bath_chimera_p20": (-1.762, -1.742),
 })
+# The dense engine (DenseProblem) and the noisy anneals. Dense: the main
+# path's solve("sa", DENSE_READS reads, DENSE_SWEEPS sweeps) on
+# sk_model(DENSE_N, rng=0), the largest SK size of
+# bench/ladder_calibration.py, blocks of DENSE_BLOCK; its kernel held to
+# the plain version over DENSE_STEPS sweeps (the plain micro-steps are a
+# loop of PyTorch ops, about 0.2 s a sweep at N = 2048), and timed also at
+# N = DENSE_BIG_N, the largest shape of the JAX dense_sweep docstring (an
+# SK matrix drawn on the card: its J is 256 MB). Noisy: per-step tables
+# nbr_J_t = nbr_J (1 + NOISY_SCALE xi_t), h_t = h, xi float32 normals of
+# default_rng(NOISY_SEED) (`noisy_tables`; tools/generic_anchors.py builds
+# the same for the JAX anchors), NOISY_SWEEPS steps on the 80x80 torus's
+# generic form: SA at SA_READS chains, T 3 -> 0; SVMC-TF at SVMC_READS,
+# T = SVMC_TEMP; NOISY_STEPS of them against the plain versions.
+DENSE_N, DENSE_READS, DENSE_SWEEPS, DENSE_BLOCK = 2048, 1024, 1000, 128
+DENSE_BIG_N, DENSE_STEPS = 8192, 3
+NOISY_SWEEPS, NOISY_SEED, NOISY_SCALE, NOISY_STEPS = 1000, 0, 0.1, 20
+# Their ranges: the JAX CPU anchors (tools/generic_anchors.py sk | noisy_sa
+# | noisy_svmc, 64 reads, key 0; PERF.md section 2), mean per spin +/- 5 sd
+# of one read:
+#   sa_dense    sk: -0.751803, sd 0.002466
+#   sa_noisy    noisy_sa: -1.273436, sd 0.002740
+#   svmc_noisy  noisy_svmc: -1.251242, sd 0.003017
+RANGES.update({
+    "sa_dense": (-0.764134, -0.739471),
+    "sa_noisy": (-1.287138, -1.259734),
+    "svmc_noisy": (-1.266325, -1.236159),
+})
 # kernel name -> (LAUNCHES key, source, TPU kernel it replaces)
 KERNELS = {
     "split_sa": ("sa_split", "montecarlosolvers_tpu_torch/csrc/split_sa.cu",
@@ -462,6 +521,20 @@ BATH_KERNELS = {
         "montecarlosolvers_tpu/ops/split.py:578"),
 }
 KERNELS.update(BATH_KERNELS)
+# the dense in-block kernel (the sequential loop of the JAX
+# dense_metropolis_sweep, an XLA fori_loop) and the packed kernels' table
+# variant (the XLA noisy scans), whose launches are the main path's
+DENSE_NOISY_KERNELS = {
+    "dense_sa": ("dense_sa", "montecarlosolvers_tpu_torch/csrc/dense_sa.cu",
+                 "montecarlosolvers_tpu/ops/dense_sweep.py:45"),
+    "packed_sa_noisy": ("packed_sa_noisy",
+                        "montecarlosolvers_tpu_torch/csrc/packed_sa.cu",
+                        "montecarlosolvers_tpu/ops/packed.py:221"),
+    "packed_svmc_noisy": ("packed_svmc_noisy",
+                          "montecarlosolvers_tpu_torch/csrc/packed_svmc.cu",
+                          "montecarlosolvers_tpu/ops/packed.py:259"),
+}
+KERNELS.update(DENSE_NOISY_KERNELS)
 # (a): chains of the exact-distribution samplers, and the largest
 # |mean - exact| (or kernel - plain) they may show, in standard errors of
 # the chain means (gibbs_check.z_scores: at most 1 state in about 3 million
@@ -839,7 +912,11 @@ def sass_tool():
 
 def energy64(problem, states):
     """Classical energies of (reads, N) numpy states in float64, on a
-    LatticeProblem or an IsingProblem."""
+    LatticeProblem, an IsingProblem or a DenseProblem."""
+    if hasattr(problem, "J"):
+        J, h = (x.double().cpu().numpy() for x in (problem.J, problem.h))
+        s = states.astype(np.float64)
+        return 0.5 * ((s @ J) * s).sum(axis=1) + s @ h
     if not hasattr(problem, "L"):
         return gibbs_tool().generic_energies(problem,
                                              states.astype(np.float64))
@@ -1567,10 +1644,280 @@ def bath_case(results, kname, pname, case, wrapper, plain, route,
         results[kname].get("max_abs_err", 0.0), err)
 
 
+def dense_problem(n, dev):
+    """An SK DenseProblem of n spins drawn on the card (torch's generator,
+    seed 0): J_ij ~ N(0, 1/n) above the diagonal, mirrored, h = 0. For the
+    shapes where building sk_model's matrix on the host would take
+    seconds."""
+    from montecarlosolvers_tpu_torch.models.dense import DenseProblem
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    J = torch.randn((n, n), generator=gen, device=dev).triu(1) / n ** 0.5
+    return DenseProblem(J=(J + J.T).contiguous(),
+                        h=torch.zeros(n, device=dev))
+
+
+def random_pm1(rng, shape, dev):
+    return torch.as_tensor(rng.choice([-1.0, 1.0], size=shape).astype(
+        np.float32), device=dev)
+
+
+def dense_checks(dev, results):
+    """Phase dense_kernel_vs_plain: csrc/dense_sa.cu against its plain
+    version on the card at the main path's shape, systematic, shuffled
+    and bf16, and one sweep at N = DENSE_BIG_N; sweeps x ceil(N / B)
+    launches each. Returns the main path's sk_model(DENSE_N, rng=0)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import dense_kernels as dk
+
+    sk = instances.sk_model(DENSE_N, rng=0, device=dev)[0]
+    rng = np.random.default_rng(3)
+    for name, dp, steps, shuffle, md in (
+            (f"sk_model({DENSE_N}, rng=0)", sk, DENSE_STEPS, False, None),
+            (f"sk_model({DENSE_N}, rng=0)", sk, DENSE_STEPS, True, None),
+            (f"sk_model({DENSE_N}, rng=0)", sk, DENSE_STEPS, False,
+             torch.bfloat16),
+            (f"SK N={DENSE_BIG_N} drawn on the card",
+             dense_problem(DENSE_BIG_N, dev), 1, False, None)):
+        n = dp.nspins
+        s = random_pm1(rng, (DENSE_READS, n), dev)
+        temps = schedules.linear(3.0, 0.1, steps, device=dev)
+        _build.reset_launches()
+        out = dk.dense_sa_anneal(dp, temps, s, 77, DENSE_BLOCK, shuffle, md)
+        launched = launched_now()
+        ref = dk.dense_sa_anneal_ref(dp, temps, s, 77, DENSE_BLOCK, shuffle,
+                                     md)
+        torch.cuda.synchronize()
+        n_bad, err = mismatches([out], [ref])
+        rec = {"phase": "dense_kernel_vs_plain", "problem": name,
+               "nspins": n, "chains": DENSE_READS, "steps": steps,
+               "block": DENSE_BLOCK, "shuffle": shuffle,
+               "matmul_dtype": str(md), "launches": launched,
+               "mismatched_spins": n_bad, "max_abs_err": err,
+               "flipped_fraction": float((out != s).float().mean())}
+        emit(rec)
+        what = f"dense_sa on {name} ({rec})"
+        check(n_bad == 0, f"{what} equals its plain version")
+        check(rec["flipped_fraction"] > 0.01, f"{what} moves")
+        check(launched == {"dense_sa": steps * -(-n // DENSE_BLOCK)},
+              f"{what} launched {launched}")
+        results["dense_sa"]["max_abs_err"] = max(
+            results["dense_sa"].get("max_abs_err", 0.0), err)
+    return sk
+
+
+def noisy_tables(problem, dev, steps=NOISY_SWEEPS, seed=NOISY_SEED):
+    """The per-step tables of the noisy anneals on IsingProblem `problem`
+    in its slot layout, float32 on `dev`: nbr_J (1 + NOISY_SCALE xi), xi of
+    shape (steps,) + nbr_J.shape from default_rng(seed), and h each step
+    (tools/generic_anchors.py::noisy_tables, bitwise)."""
+    nbr_J, h = (x.cpu().numpy() for x in (problem.nbr_J, problem.h))
+    xi = np.random.default_rng(seed).standard_normal(
+        (steps,) + nbr_J.shape, dtype=np.float32)
+    jt = nbr_J * (np.float32(1.0) + np.float32(NOISY_SCALE) * xi)
+    return (torch.as_tensor(jt, device=dev),
+            torch.as_tensor(h, device=dev).expand(steps, -1).contiguous())
+
+
+def noisy_checks(dev, results, gtorus, tables):
+    """Phase noisy_kernel_vs_plain: the packed SA and SVMC kernels on
+    per-step tables against their plain versions on the card, the main
+    path's chains on the 80x80 torus's generic form, NOISY_STEPS steps
+    (and half as many rows at mcsteps = 2): 0 mismatched spins, angles by
+    the ANGLE_MISMATCH rule, one launch an anneal."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    pg = packed_ops.build_packed(gtorus)
+    n = pg.nspins
+    rng = np.random.default_rng(4)
+    steps = NOISY_STEPS
+    for mcsteps in (1, 2):
+        rows = steps // mcsteps
+        tb = gk.packed_tables(pg, tables[0][:rows], tables[1][:rows],
+                              mcsteps, steps, dev)
+        s = random_pm1(rng, (SA_READS, n), dev)
+        th = torch.as_tensor((rng.random((SVMC_READS, n)) * np.pi).astype(
+            np.float32), device=dev)
+        a = schedules.linear(3.0, 1e-8, steps, device=dev)
+        b = torch.ones_like(a)
+        cases = [("packed_sa_noisy", None, s,
+                  lambda fn: fn(pg, schedules.linear(3.0, 0.0, steps,
+                                                     device=dev),
+                                s, 7, tables=tb))]
+        cases += [("packed_svmc_noisy", tf, th,
+                   lambda fn, tf=tf: fn(pg, a, b, SVMC_TEMP, th, 7, tf,
+                                        tables=tb))
+                  for tf in (True, False)]
+        for kname, tf, start, run in cases:
+            wrapper, plain = ((gk.packed_sa_anneal, gk.packed_sa_anneal_ref)
+                              if tf is None else
+                              (gk.packed_svmc_anneal,
+                               gk.packed_svmc_anneal_ref))
+            _build.reset_launches()
+            out = run(wrapper)
+            launched = launched_now()
+            ref = run(plain)
+            torch.cuda.synchronize()
+            rec = {"phase": "noisy_kernel_vs_plain", "kernel": kname,
+                   "graph": f"gaussian_torus({L}, 0).to_generic()",
+                   "chains": start.shape[0], "steps": steps,
+                   "mcsteps": mcsteps, "tf": tf, "launches": launched}
+            if tf is None:
+                n_bad, err = mismatches([out], [ref])
+                rec.update(mismatched_spins=n_bad, max_abs_err=err,
+                           flipped_fraction=float((out != start).float()
+                                                  .mean()))
+                ok = n_bad == 0
+            else:
+                d = angle_diffs([out], [ref])
+                rec.update(d)
+                err = d["max_abs_err"]
+                ok = d["mismatched_angles"] == 0 and err <= ANGLE_ATOL
+            emit(rec)
+            what = f"{kname} ({rec})"
+            check(ok, f"{what} equals its plain version")
+            check(launched == {kname: 1}, f"{what} launched {launched}")
+            results[kname]["max_abs_err"] = max(
+                results[kname].get("max_abs_err", 0.0), err)
+
+
+def dense_noisy_timing(dev, results, sk, gtorus, tables, power, name):
+    """Slope ms per sweep of the dense engine (kernel route and plain
+    route at the main path's shape, the kernel route also at N =
+    DENSE_BIG_N) and of the noisy kernels and their plain versions at the
+    main path's widths, beside each bound; the dense in-block kernel alone
+    and one sweep's block products (torch.matmul, the library yardstick),
+    ms by CUDA events."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import dense_kernels as dk
+    from montecarlosolvers_tpu_torch.ops import dense_sweep as ds
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    rng = np.random.default_rng(5)
+    B = DENSE_BLOCK
+
+    def dense_bound(chains, n):
+        """The least ms of a dense sweep: its 2 C N^2 field operations and
+        C N (B + 6) in-block ones over the float32 peak, C N logarithms
+        over the special-function peak, or J read once and the spins read
+        and written over 3.35 TB/s, the largest."""
+        times = {"fp32": (2 * chains * n * n + chains * n * (B + 6))
+                 / PEAK_FLOPS,
+                 "sfu": chains * n / PEAK_SFU,
+                 "bytes": (n * n * 4 + 2 * chains * n * 4) / PEAK_BYTES}
+        unit = max(times, key=times.get)
+        return 1e3 * times[unit], ("bytes" if unit == "bytes"
+                                   else "operations"), unit
+
+    big = dense_problem(DENSE_BIG_N, dev)
+    for dp, fn, route, taus, trials, record in (
+            (sk, dk.dense_sa_anneal, "cuda", (10, 40), 3, True),
+            (sk, dk.dense_sa_anneal_ref, "plain", (1, 3), 2, True),
+            (big, dk.dense_sa_anneal, "cuda", (2, 6), 2, False)):
+        n = dp.nspins
+        s = random_pm1(rng, (DENSE_READS, n), dev)
+        ms, best = slope_ms(
+            lambda tau, dp=dp, fn=fn, s=s: fn(
+                dp, schedules.linear(3.0, 0.1, tau, device=dev), s, 7, B),
+            taus, trials)
+        Jp, hp, sp = ds.padded(dp.J, dp.h, s.clone(), B)
+        fb = ds.block_fields(sp, Jp, hp, 0, B)
+        temps = schedules.linear(3.0, 0.1, 1, device=dev)
+        nblocks = Jp.shape[0] // B
+        block_ms = event_ms(lambda: dk.dense_sa_block(sp, fb, Jp, 0, temps,
+                                                      0, 7), 200)
+        matmul_ms = event_ms(lambda: [torch.matmul(sp, Jp[:, st:st + B])
+                                      for st in range(0, Jp.shape[0], B)],
+                             20)
+        bound, bound_by, unit = dense_bound(DENSE_READS, n)
+        emit({"phase": "timing", "kernel": "dense_sa", "route": route,
+              "chains": DENSE_READS, "nspins": n, "block": B,
+              "taus": list(taus),
+              "best_seconds": {str(k): v for k, v in best.items()},
+              "ms_per_sweep": ms,
+              "attempts_per_s": DENSE_READS * n / (ms * 1e-3),
+              "kernel_ms_per_block": block_ms,
+              "kernel_ms_per_sweep": block_ms * nblocks,
+              "matmul_ms_per_sweep": matmul_ms,
+              "bound_ms": bound, "bound_by": bound_by, "bound_unit": unit,
+              "gpu": name, "power_limit": power})
+        check(ms > 0, f"dense_sa {route} slope is positive")
+        if record and route == "cuda":
+            results["dense_sa"].update(ms=ms, bound_ms=bound,
+                                       bound_by=bound_by,
+                                       library_ms=matmul_ms)
+        elif record:
+            results["dense_sa"]["plain_ms"] = ms
+
+    pg = packed_ops.build_packed(gtorus)
+    n = pg.nspins
+    jt, ht, _ = gk.packed_tables(pg, *tables, 1, NOISY_SWEEPS, dev)
+    graph = graph_shape(gtorus)
+    s = random_pm1(rng, (SA_READS, n), dev)
+    th = torch.as_tensor((rng.random((SVMC_READS, n)) * np.pi).astype(
+        np.float32), device=dev)
+
+    def sa_run(fn):
+        return lambda tau: fn(pg, schedules.linear(3.0, 0.0, tau, device=dev),
+                              s, 7, tables=(jt[:tau], ht[:tau], 1))
+
+    def svmc_run(fn):
+        def run(tau):
+            a = schedules.linear(3.0, 1e-8, tau, device=dev)
+            return fn(pg, a, torch.ones_like(a), SVMC_TEMP, th, 7, True,
+                      tables=(jt[:tau], ht[:tau], 1))
+        return run
+
+    for kname, base, chains, run, route, taus, trials in (
+            ("packed_sa_noisy", "packed_sa", SA_READS,
+             sa_run(gk.packed_sa_anneal), "cuda", (250, 1000), 3),
+            ("packed_sa_noisy", "packed_sa", SA_READS,
+             sa_run(gk.packed_sa_anneal_ref), "plain", (10, 40), 2),
+            ("packed_svmc_noisy", "packed_svmc", SVMC_READS,
+             svmc_run(gk.packed_svmc_anneal), "cuda", (250, 1000), 3),
+            ("packed_svmc_noisy", "packed_svmc", SVMC_READS,
+             svmc_run(gk.packed_svmc_anneal_ref), "plain", (10, 40), 2)):
+        ms, best = slope_ms(run, taus, trials)
+        f32, sfu = ops_per_sweep(base, chains, 1, n, graph)
+        tau = max(taus)
+        moved = (bytes_per_anneal(base, chains, 1, n, tau, graph)
+                 + tau * n * (graph[1] + 1) * 4)
+        times = {"fp32": f32 / PEAK_FLOPS, "sfu": sfu / PEAK_SFU,
+                 "bytes": moved / PEAK_BYTES / tau}
+        unit = max(times, key=times.get)
+        bound = 1e3 * times[unit]
+        bound_by = "bytes" if unit == "bytes" else "operations"
+        emit({"phase": "timing", "kernel": kname, "route": route,
+              "chains": chains, "sites": n, "taus": list(taus),
+              "best_seconds": {str(k): v for k, v in best.items()},
+              "ms_per_sweep": ms, "attempts_per_s": chains * n / (ms * 1e-3),
+              "bound_ms": bound, "bound_by": bound_by, "bound_unit": unit,
+              "fp32_ops_per_sweep": f32, "sfu_ops_per_sweep": sfu,
+              "bytes_per_anneal": moved, "table_bytes": int(
+                  tau * n * (graph[1] + 1) * 4),
+              "gpu": name, "power_limit": power})
+        check(ms > 0, f"{kname} {route} slope is positive")
+        if route == "cuda":
+            results[kname].update(ms=ms, bound_ms=bound, bound_by=bound_by)
+        else:
+            results[kname]["plain_ms"] = ms
+
+
 def main():
     t_script = time.perf_counter()
     phase_seconds = {}
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
+    # the dense engine's kernel equals its plain version bitwise only when
+    # both take their block fields from full-float32 products
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls run in full float32 (no TF32)")
     from montecarlosolvers_tpu_torch import schedules
     from montecarlosolvers_tpu_torch.models import instances
     from montecarlosolvers_tpu_torch.ops import _build
@@ -2055,6 +2402,14 @@ def main():
     bath_checks(dev, results, bproblems)
     phase_seconds["bath_kernel_vs_plain"] = time.perf_counter() - t_script
 
+    # ---- the dense engine and the noisy kernels against their plain
+    # versions
+    sk_problem = dense_checks(dev, results)
+    gtorus80 = graphs[f"gaussian_torus({L}, 0).to_generic()"]
+    tables = noisy_tables(gtorus80, dev)
+    noisy_checks(dev, results, gtorus80, tables)
+    phase_seconds["dense_noisy_vs_plain"] = time.perf_counter() - t_script
+
     # ---- main path through solve(), launch counts read around each solve
     try:
         problem, e_gs = instances.santoro_80x80(lattice=True, device=dev)
@@ -2080,6 +2435,32 @@ def main():
     def colored(prob, num_reads, sweeps, slices):
         return dissipative_qa(prob, num_reads, sweeps, slices, BATH_ALPHA,
                               seed=0, bath_update="colored")
+
+    def noisy(kind):
+        """sa.anneal_noisy (T 3 -> 0) or svmc.anneal_noisy (TF, A 3 ->
+        1e-8, B = 1, T = SVMC_TEMP) over the first `sweeps` rows of the
+        noisy tables, from the solvers' random states of a generator of
+        seed 0: (spins or z-projections, their static-problem
+        energies)."""
+        from montecarlosolvers_tpu_torch.solvers import sa, svmc
+
+        def run(prob, num_reads, sweeps):
+            gen = torch.Generator().manual_seed(0)
+            jt, ht = tables[0][:sweeps], tables[1][:sweeps]
+            if kind == "sa":
+                s0 = sa.random_state(gen, prob.nspins, batch=(num_reads,),
+                                     device=dev)
+                out = sa.anneal_noisy(prob, schedules.linear(
+                    3.0, 0.0, sweeps, device=dev), jt, ht, s0, gen)
+            else:
+                th = svmc.random_state(gen, prob.nspins, batch=(num_reads,),
+                                       device=dev)
+                a = schedules.linear(3.0, 1e-8, sweeps, device=dev)
+                out = svmc.z_projection(svmc.anneal_noisy(
+                    prob, a, torch.ones_like(a), SVMC_TEMP, jt, ht, th, gen,
+                    tf=True))
+            return out.cpu().numpy(), prob.energy(out).cpu().numpy()
+        return run
 
     sa_kw = dict(num_reads=SA_READS, sweeps=SA_SWEEPS)
     qmc_kw = dict(num_reads=QMC_READS, sweeps=QMC_SWEEPS)
@@ -2142,6 +2523,19 @@ def main():
          graphs["chimera_graph(16, rng=0)"], dissipative,
          dict(new_kw, slices=CHIMERA_SLICES),
          {"packed_sa": 1, "generic_qmc_bath": 1}),
+        # the dense engine: one in-block launch a block and sweep; the
+        # noisy anneals: one launch an anneal
+        ("sa_dense", f"sk_model({DENSE_N}, rng=0)", sk_problem, sa_run,
+         dict(num_reads=DENSE_READS, sweeps=DENSE_SWEEPS),
+         {"dense_sa": DENSE_SWEEPS * -(-DENSE_N // DENSE_BLOCK)}),
+        ("sa_noisy", f"gaussian_torus({L}, 0).to_generic(), noisy tables",
+         gtorus80, noisy("sa"), dict(num_reads=SA_READS,
+                                     sweeps=NOISY_SWEEPS),
+         {"packed_sa_noisy": 1}),
+        ("svmc_noisy", f"gaussian_torus({L}, 0).to_generic(), noisy tables",
+         gtorus80, noisy("svmc"), dict(num_reads=SVMC_READS,
+                                       sweeps=NOISY_SWEEPS),
+         {"packed_svmc_noisy": 1}),
     )
     main_launches = {k: 0 for k in _build.LAUNCHES}
     for key, lname, prob, run, kw, needs in paths:
@@ -2510,6 +2904,8 @@ def main():
               "ratio": results[gname]["ms"] / results[lname]["ms"],
               "generic_bound_ms": results[gname]["bound_ms"],
               "gpu": name, "power_limit": power})
+    dense_noisy_timing(dev, results, sk_problem, gtorus80, tables, power,
+                       name)
     phase_seconds["timing"] = time.perf_counter() - t_script
 
     # ---- the generator instantiations of A, B, 4 and 5 (hw_rng=True)
@@ -2605,8 +3001,10 @@ def main():
     examples_checks(dev, problem, e_gs, torus)
 
     # No single PyTorch call computes a Metropolis sweep, so no kernel has a
-    # library yardstick (library_ms null). The generator instantiations'
-    # launches are the bench's, the others' the main path's.
+    # library yardstick (library_ms null) but the dense engine's: one
+    # sweep's block products by torch.matmul, which its sweep contains.
+    # The generator instantiations' launches are the bench's, the others'
+    # the main path's.
     # The energy kernel's launches are those of the collecting solves.
     def path_launches(k, key):
         if k in ENERGY_LAYOUTS:
@@ -2620,7 +3018,8 @@ def main():
          "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
          "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"],
-         "bound_by": results[k]["bound_by"], "library_ms": None}
+         "bound_by": results[k]["bound_by"],
+         "library_ms": results[k].get("library_ms")}
         for k, (key, src, tpu) in KERNELS.items()
     ]})
     phase_seconds["mst_and_examples"] = time.perf_counter() - t_script

@@ -29,9 +29,17 @@ interpreter (bitwise for spins, to the last ulps of cos and sin for rotor
 angles). The three solvers take `collect_energy=` (on the card: the
 per-phase kernels and the energy kernel, `csrc/energy.cuh`);
 `bench/mst.py` runs the MST matrix with its resume and `examples/` holds
-the reference's `santoro_mst` and `dissipative_qa` drivers. Everything
-else raises NotImplementedError naming the ROADMAP.md item that will port
-it.
+the reference's `santoro_mst` and `dissipative_qa` scripts. The
+fully-connected `DenseProblem` (`models/dense.py`, `instances.sk_model`'s
+default) anneals through `sa.anneal` and `solve(method="sa")` on the dense
+engine (`ops/dense_kernels.py`: block fields by torch.matmul, the
+sequential in-block steps on `csrc/dense_sa.cu`), and `sa.anneal_noisy` /
+`svmc.anneal_noisy` anneal an IsingProblem on per-step coupling tables
+through the packed kernels. What the port does not cover yet (the cluster
+updates, PT and PA, the compat shims, the parallel layer) raises
+NotImplementedError naming the ROADMAP.md item that will port it, and so
+does a call the JAX package does not run on a DenseProblem (`qmc.anneal`,
+`svmc.anneal`, solve's "piqmc" and "svmc").
 
 Every function that takes `device=None` builds on the CUDA card and raises
 on a host without one (`_device.resolve`); the solvers run on the
@@ -46,6 +54,7 @@ This package imports torch and numpy and never jax.
 """
 
 from montecarlosolvers_tpu_torch import schedules
+from montecarlosolvers_tpu_torch.models.dense import DenseProblem
 from montecarlosolvers_tpu_torch.models.ising import IsingProblem
 from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 from montecarlosolvers_tpu_torch.solvers import sa, qmc, svmc
@@ -53,5 +62,5 @@ from montecarlosolvers_tpu_torch.solvers.api import SampleSet, solve
 
 __version__ = "0.1.0"
 
-__all__ = ["IsingProblem", "LatticeProblem", "SampleSet", "qmc", "sa", "schedules", "solve",
-           "svmc"]
+__all__ = ["DenseProblem", "IsingProblem", "LatticeProblem", "SampleSet",
+           "qmc", "sa", "schedules", "solve", "svmc"]

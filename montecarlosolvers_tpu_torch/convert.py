@@ -5,8 +5,9 @@ and returns the port's objects on `device` (None: the CUDA device), so the
 two packages compute on the same inputs. States, spins or SVMC rotor angles alike, are
 plain arrays and cross as numpy through `state_from_numpy`, so SVMC needs
 no converter of its own; a bath lookuptable crosses through
-`lookuptable_from_numpy`, and the JAX package's generic IsingProblem
-through `ising_from_arrays`.
+`lookuptable_from_numpy`, the JAX package's generic IsingProblem
+through `ising_from_arrays` and its DenseProblem through
+`dense_from_arrays`.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from montecarlosolvers_tpu_torch import _device
+from montecarlosolvers_tpu_torch.models.dense import DenseProblem
 from montecarlosolvers_tpu_torch.models.ising import IsingProblem
 from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 
@@ -48,6 +50,18 @@ def ising_from_arrays(nbr_idx, nbr_J, h, color_masks, device=None):
         torch.as_tensor(colors, device=dev),
         masks.shape[0],
     )
+
+
+def dense_from_arrays(J, h, device=None):
+    """The port's DenseProblem from the JAX DenseProblem's arrays
+    (`np.asarray(jax_problem.J)`, `np.asarray(jax_problem.h)`), on
+    `device` (None: the CUDA device): the float32 matrix and fields cross
+    bitwise, in the storage convention they already have (both halves,
+    zero diagonal), so `DenseProblem.from_couplings` is not applied."""
+    dev = _device.resolve(device)
+    return DenseProblem(
+        J=torch.as_tensor(np.array(J, dtype=np.float32), device=dev),
+        h=torch.as_tensor(np.array(h, dtype=np.float32), device=dev))
 
 
 def lookuptable_from_numpy(lut, device=None):

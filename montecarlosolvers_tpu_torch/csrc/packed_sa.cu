@@ -18,6 +18,17 @@
 // energy after step t is reduced inside the kernel into energies[t, chain]
 // (packed.cuh::packed_block_energy): no launch a step.
 //
+// Noisy anneals (per-step couplings, sa.anneal_noisy). The same kernel
+// reads the tables of step t at nbr_J + (t / mcsteps) * j_stride and h +
+// (t / mcsteps) * h_stride: strides 0 give the static tables, strides N *
+// maxnb and N a (rows, N, maxnb) and (rows, N) stack in packed row order,
+// each row held for `mcsteps` sweeps. That is the JAX package's
+// montecarlosolvers_tpu/ops/packed.py::_noisy_scan (:221) over
+// packed_sweep(nbr_J=, h=) (:124-129) with its tables repeated mcsteps
+// times (solvers/sa.py:150-151), still one launch an anneal. The tables
+// add their bytes to the bound: 1000 steps of the 80x80 torus's are 154
+// MB, past L2, read once each.
+//
 // What bounds it on an H100. Per update: maxnb gathered neighbour spins and
 // couplings, the hash (about 19 integer operations), log1pf and a few
 // float operations. At the main path's 1280 chains of the 80x80 torus
@@ -47,7 +58,8 @@ packed_sa_kernel(const int* __restrict__ nbr_idx,
                  const int* __restrict__ starts,
                  const float* __restrict__ temps, float* s,
                  float* __restrict__ energies, int chains, int n, int maxnb,
-                 int ncolors, int steps, uint32_t seed_term) {
+                 int ncolors, int steps, uint32_t seed_term, int j_stride,
+                 int h_stride, int mcsteps) {
   __shared__ float red[mcs::kPackedThreads / 32];
   const int chain = blockIdx.x;
   float* sc = s + static_cast<size_t>(chain) * n;
@@ -56,11 +68,14 @@ packed_sa_kernel(const int* __restrict__ nbr_idx,
   for (int t = 0; t < steps; ++t) {
     const float temp = __ldg(temps + t);
     const uint32_t ctr = mcs::counter(seed_term, t, 0);
+    const size_t row = static_cast<size_t>(t / mcsteps);
+    const float* jt = nbr_J + row * j_stride;
+    const float* ht = h + row * h_stride;
     for (int c = 0; c < ncolors; ++c) {
       const int hi = __ldg(starts + c + 1);
       for (int i = __ldg(starts + c) + threadIdx.x; i < hi; i += blockDim.x) {
         const float si = sc[i];
-        const float f = mcs::packed_field(sc, nbr_idx, nbr_J, h, i, maxnb);
+        const float f = mcs::packed_field(sc, nbr_idx, jt, ht, i, maxnb);
         const float de = __fmul_rn(__fmul_rn(-2.0f, si), f);
         const uint32_t uid = uid0 + static_cast<uint32_t>(__ldg(perm + i));
         if (mcs::metropolis_accept_hashed(de, temp,
@@ -71,7 +86,7 @@ packed_sa_kernel(const int* __restrict__ nbr_idx,
       __syncthreads();
     }
     if (energies != nullptr) {
-      const float e = mcs::packed_block_energy<false>(sc, nbr_idx, nbr_J, h,
+      const float e = mcs::packed_block_energy<false>(sc, nbr_idx, jt, ht,
                                                       n, maxnb, red);
       if (threadIdx.x == 0) {
         energies[static_cast<size_t>(t) * chains + chain] = e;
@@ -86,19 +101,23 @@ packed_sa_kernel(const int* __restrict__ nbr_idx,
 // the (steps,) temperatures, one CTA of `threads` (256) threads a chain, in
 // one launch. nbr_idx / nbr_J (n, maxnb), h (n), perm (n) and starts
 // (ncolors + 1) are the packed layout's; energies: a (steps, chains)
-// float32 buffer or null. All device pointers; launches on `stream` and
-// returns cudaGetLastError().
+// float32 buffer or null; j_stride, h_stride and mcsteps: 0, 0 and 1 for
+// the static tables, else the per-step stacks' strides and the sweeps a
+// row (above). All device pointers; launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int packed_sa_anneal(const int* nbr_idx, const float* nbr_J,
                                 const float* h, const int* perm,
                                 const int* starts, const float* temps,
                                 float* s, float* energies, int chains, int n,
                                 int maxnb, int ncolors, int steps, int seed,
-                                int threads, void* stream) {
+                                int threads, int j_stride, int h_stride,
+                                int mcsteps, void* stream) {
   if (chains == 0 || n == 0) return cudaSuccess;
+  if (mcsteps < 1) return cudaErrorInvalidValue;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
   packed_sa_kernel<<<chains, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       nbr_idx, nbr_J, h, perm, starts, temps, s, energies, chains, n, maxnb,
-      ncolors, steps, seed_term);
+      ncolors, steps, seed_term, j_stride, h_stride, mcsteps);
   return cudaGetLastError();
 }
 

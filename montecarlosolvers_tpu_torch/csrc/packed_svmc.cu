@@ -21,6 +21,14 @@
 // sign(cos theta) after step t goes into energies[t, chain], reduced in
 // the kernel.
 //
+// Noisy anneals (svmc.anneal_noisy): step t reads its tables at nbr_J +
+// (t / mcsteps) * j_stride and h + (t / mcsteps) * h_stride, strides 0 for
+// the static tables, as csrc/packed_sa.cu does; the JAX package's
+// montecarlosolvers_tpu/ops/packed.py::_noisy_svmc_scan (:259) over
+// packed_svmc_sweep_cached(nbr_J=, h=) (:149). The uniforms are the static
+// kernel's two streams, so equal table rows give the static anneal's
+// angles.
+//
 // What bounds it on an H100. Per update: two hashed uniforms, one sincosf
 // of the proposal, log1pf, maxnb gathered cos values and couplings and
 // about 12 rounded float operations: issue- and special-function-bound.
@@ -51,7 +59,8 @@ packed_svmc_kernel(const int* __restrict__ nbr_idx,
                    const float* __restrict__ b_sched, float temp, float* th,
                    float* cs, float* sn, float* __restrict__ energies,
                    int chains, int n, int maxnb, int ncolors, int steps,
-                   uint32_t seed_term) {
+                   uint32_t seed_term, int j_stride, int h_stride,
+                   int mcsteps) {
   __shared__ float red[mcs::kPackedThreads / 32];
   const int chain = blockIdx.x;
   const size_t base = static_cast<size_t>(chain) * n;
@@ -70,6 +79,9 @@ packed_svmc_kernel(const int* __restrict__ nbr_idx,
     const float width = kTF ? mcs::tf_width(a, b) : 0.0f;
     const uint32_t ctr = mcs::counter(seed_term, t, 0);
     const uint32_t ctr_acc = mcs::svmc_accept_counter(seed_term, t, 0);
+    const size_t row = static_cast<size_t>(t / mcsteps);
+    const float* jt = nbr_J + row * j_stride;
+    const float* ht = h + row * h_stride;
     for (int c = 0; c < ncolors; ++c) {
       const int hi = __ldg(starts + c + 1);
       for (int i = __ldg(starts + c) + threadIdx.x; i < hi; i += blockDim.x) {
@@ -79,7 +91,7 @@ packed_svmc_kernel(const int* __restrict__ nbr_idx,
             mcs::propose<kTF>(theta, mcs::uniform01(ctr, uid), width);
         float sin_p, cos_p;
         sincosf(prop, &sin_p, &cos_p);
-        const float z = mcs::packed_field(cs, nbr_idx, nbr_J, h, i, maxnb);
+        const float z = mcs::packed_field(cs, nbr_idx, jt, ht, i, maxnb);
         const float de = mcs::delta_e(b, a, cos_p, cs[i], z, sn[i], sin_p);
         if (mcs::metropolis_accept_hashed(de, temp,
                                           uid * mcs::kGolden + ctr_acc)) {
@@ -91,7 +103,7 @@ packed_svmc_kernel(const int* __restrict__ nbr_idx,
       __syncthreads();
     }
     if (energies != nullptr) {
-      const float e = mcs::packed_block_energy<true>(cs, nbr_idx, nbr_J, h, n,
+      const float e = mcs::packed_block_energy<true>(cs, nbr_idx, jt, ht, n,
                                                      maxnb, red);
       if (threadIdx.x == 0) {
         energies[static_cast<size_t>(t) * chains + chain] = e;
@@ -107,7 +119,8 @@ packed_svmc_kernel(const int* __restrict__ nbr_idx,
 // `threads` (256) threads a chain, in one launch. scratch: 2 * chains * n
 // floats for the cos and sin caches; the packed layout's nbr_idx / nbr_J
 // (n, maxnb), h (n), perm (n), starts (ncolors + 1); tf != 0 selects the
-// TF proposals; energies: a (steps, chains) float32 buffer or null. All
+// TF proposals; energies: a (steps, chains) float32 buffer or null;
+// j_stride, h_stride, mcsteps: 0, 0, 1 for the static tables (above). All
 // device pointers; launches on `stream` and returns cudaGetLastError().
 extern "C" int packed_svmc_anneal(const int* nbr_idx, const float* nbr_J,
                                   const float* h, const int* perm,
@@ -116,15 +129,18 @@ extern "C" int packed_svmc_anneal(const int* nbr_idx, const float* nbr_J,
                                   float* scratch, float* energies, int chains,
                                   int n, int maxnb, int ncolors, int steps,
                                   int seed, int tf, int threads,
+                                  int j_stride, int h_stride, int mcsteps,
                                   void* stream) {
   if (chains == 0 || n == 0) return cudaSuccess;
+  if (mcsteps < 1) return cudaErrorInvalidValue;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
   auto kernel = tf ? packed_svmc_kernel<true> : packed_svmc_kernel<false>;
   float* cs = scratch;
   float* sn = scratch + static_cast<size_t>(chains) * n;
   kernel<<<chains, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       nbr_idx, nbr_J, h, perm, starts, a_sched, b_sched, temp, th, cs, sn,
-      energies, chains, n, maxnb, ncolors, steps, seed_term);
+      energies, chains, n, maxnb, ncolors, steps, seed_term, j_stride,
+      h_stride, mcsteps);
   return cudaGetLastError();
 }
 

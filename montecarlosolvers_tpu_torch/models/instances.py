@@ -9,7 +9,8 @@ data, not code: it is looked up in the directory that `MCS_TPU_INSTANCE_DIR`
 names. Every generator draws the same numbers as the JAX function of the
 same name for the same `rng`, and returns the generic `IsingProblem`
 unless asked for the `LatticeProblem` (`lattice=True`), as the JAX
-functions do. Every function here puts its problem on `device`, and
+functions do; `sk_model` returns the `DenseProblem` by default, as
+there. Every function here puts its problem on `device`, and
 device=None means the CUDA device (`_device.resolve`).
 """
 
@@ -19,7 +20,7 @@ import os
 
 import numpy as np
 
-from montecarlosolvers_tpu_torch import _roadmap
+from montecarlosolvers_tpu_torch.models.dense import DenseProblem
 from montecarlosolvers_tpu_torch.models.ising import IsingProblem
 from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 
@@ -201,21 +202,23 @@ def save_triplets(path, rows, cols, vals, one_indexed=True):
 
 
 def sk_model(nspins, rng=None, dense=True, device=None):
-    """Sherrington-Kirkpatrick spin glass: J_ij ~ N(0, 1/N) for all pairs.
+    """Sherrington-Kirkpatrick spin glass: J_ij ~ N(0, 1/N) for all pairs,
+    drawn over triu_indices(nspins, 1) as the JAX package draws them.
 
-    dense=False returns the generic IsingProblem (maxnb = N - 1, N colors:
-    for small N). dense=True, the JAX package's default, builds its
-    DenseProblem, which the port does not have yet: it raises
-    NotImplementedError naming its ROADMAP.md item.
+    dense=True (the default) returns a DenseProblem, the engine built for
+    exactly this class (the padded-gather IsingProblem needs maxnb = N - 1
+    and N color phases); dense=False returns the generic IsingProblem, for
+    small N. On `device` (None: the CUDA device).
     Returns (problem, (rows, cols, vals))."""
-    if dense:
-        raise _roadmap.not_ported("sk_model(dense=True) (DenseProblem)",
-                                  _roadmap.GENERIC_GRAPHS)
     rng = np.random.default_rng(rng)
     iu = np.triu_indices(nspins, k=1)
     vals = rng.normal(scale=1.0 / np.sqrt(nspins), size=iu[0].shape)
-    problem = IsingProblem.from_edges(nspins, iu[0], iu[1], vals,
-                                      maxnb=nspins - 1, device=device)
+    if dense:
+        problem = DenseProblem.from_edges(nspins, iu[0], iu[1], vals,
+                                          device=device)
+    else:
+        problem = IsingProblem.from_edges(nspins, iu[0], iu[1], vals,
+                                          maxnb=nspins - 1, device=device)
     return problem, (iu[0], iu[1], vals)
 
 

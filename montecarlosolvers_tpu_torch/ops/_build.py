@@ -9,7 +9,7 @@ headers, takes minutes). Building happens only when a kernel is first needed or 
 called; importing this module runs nothing.
 
 The kernel wrappers (`ops/split_kernels.py`, `ops/plane_kernels.py`,
-`ops/generic_kernels.py`) share
+`ops/generic_kernels.py`, `ops/dense_kernels.py`) share
 the helpers below: the device route, argument checks, error reporting and
 `LAUNCHES`, the one count of kernel launches.
 """
@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("split_sa", "split_qmc", "split_svmc", "split_qmc_bath",
            "plane_sa", "plane_qmc", "plane_svmc", "energy", "packed_sa",
-           "packed_svmc", "generic_qmc", "generic_qmc_bath")
+           "packed_svmc", "generic_qmc", "generic_qmc_bath", "dense_sa")
 
 # No --use_fast_math: kernels and their plain versions must round alike.
 NVCC_FLAGS = (
@@ -179,16 +179,18 @@ SIGNATURES = {
     },
     "packed_sa": {
         # nbr_idx, nbr_J, h, perm, starts, temps, s (in place), energies,
-        # chains, n, maxnb, ncolors, steps, seed, threads, stream
-        "packed_sa_anneal": (_I, [_P] * 8 + [_I] * 7 + [_P]),
+        # chains, n, maxnb, ncolors, steps, seed, threads, j_stride,
+        # h_stride, mcsteps (the per-step tables' strides, 0 for the
+        # static ones, and the sweeps a table row), stream
+        "packed_sa_anneal": (_I, [_P] * 8 + [_I] * 10 + [_P]),
         "packed_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "packed_svmc": {
         # nbr_idx, nbr_J, h, perm, starts, a_sched, b_sched, temp, th (in
         # place), scratch, energies, chains, n, maxnb, ncolors, steps, seed,
-        # tf, threads, stream
+        # tf, threads, j_stride, h_stride, mcsteps, stream
         "packed_svmc_anneal": (
-            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 3 + [_I] * 8 + [_P]
+            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 3 + [_I] * 11 + [_P]
         ),
         "packed_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -211,6 +213,12 @@ SIGNATURES = {
             + [_P]
         ),
         "generic_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "dense_sa": {
+        # J, fb, temps, s (in place), chains, np, start, B, step, seed,
+        # warps, stream
+        "dense_sa_block": (_I, [_P] * 4 + [_I] * 7 + [_P]),
+        "dense_sa_block_error_string": (ctypes.c_char_p, [_I]),
     },
     "energy": {
         # w, h, a, b, chains, P, L, nslots, cos_theta, out, stream
@@ -264,6 +272,11 @@ LAUNCHES["energy"] = 0
 # kernel, on an IsingProblem or a lattice's checkerboard packing.
 LAUNCHES.update({"packed_sa": 0, "packed_svmc": 0, "generic_qmc": 0,
                  "generic_qmc_bath": 0})
+# The noisy anneals (per-step coupling tables) run the packed SA and SVMC
+# kernels, one launch an anneal, counted apart; the dense engine launches
+# its in-block kernel once a block and sweep.
+LAUNCHES.update({"packed_sa_noisy": 0, "packed_svmc_noisy": 0,
+                 "dense_sa": 0})
 
 
 def reset_launches():

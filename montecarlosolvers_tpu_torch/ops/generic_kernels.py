@@ -35,7 +35,10 @@ the plain sweeps to them on the same `jax.random` draws.
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts one launch an anneal under "packed_sa",
-"packed_svmc", "generic_qmc" and "generic_qmc_bath". With an `energies`
+"packed_svmc", "generic_qmc" and "generic_qmc_bath", and the noisy
+anneals (`packed_noisy_scan`, `packed_noisy_svmc_scan`: per-step coupling
+tables, the same two kernels with table strides) under "packed_sa_noisy"
+and "packed_svmc_noisy". With an `energies`
 buffer
 (collect_energy=) the same single launch reduces each chain's energy (the
 best slice's, for PIQMC) after every sweep into it, in a fixed order.
@@ -65,30 +68,44 @@ THREADS = 256
 # ------------------------------------------------------------ plain versions
 
 
-def packed_sa_anneal_ref(pg, temps, spins, seed, energies=None):
+def _step_tables(tables, t):
+    """{nbr_J, h} of step t of `tables` = (nbr_J (rows, N, maxnb), h (rows,
+    N), mcsteps), row t // mcsteps; {} for the static tables (None)."""
+    if tables is None:
+        return {}
+    row = t // tables[2]
+    return {"nbr_J": tables[0][row], "h": tables[1][row]}
+
+
+def packed_sa_anneal_ref(pg, temps, spins, seed, energies=None,
+                         tables=None):
     """Plain form of csrc/packed_sa.cu: anneal packed spins (chains, N)
     over the float32 temperatures `temps` (steps,), sweep t by
     `packed_sweep` on the uniforms of counter(seed, t, 0). With `energies`,
     a (steps, chains) float32 buffer, row t receives each chain's
-    `packed_energy` after sweep t."""
+    `packed_energy` after sweep t. With `tables` = (nbr_J (rows, N,
+    maxnb), h (rows, N), mcsteps), per-step couplings in packed row order,
+    sweep t reads row t // mcsteps (the noisy anneal; no energies)."""
     hu = cr.hashed_uid(cr.generic_uids(spins.shape[0], pg.perm, pg.nspins))
     s = spins
     for t in range(temps.shape[0]):
         u = cr.uniform01_hashed(cr.counter(seed, t, 0), hu)
-        s = packed_ops.packed_sweep(pg, s, u, temps[t])
+        s = packed_ops.packed_sweep(pg, s, u, temps[t],
+                                    **_step_tables(tables, t))
         if energies is not None:
             energies[t] = packed_ops.packed_energy(pg, s)
     return s
 
 
 def packed_svmc_anneal_ref(pg, a_sched, b_sched, temp, theta, seed, tf,
-                           energies=None):
+                           energies=None, tables=None):
     """Plain form of csrc/packed_svmc.cu: anneal packed angles (chains, N)
     over the float32 (steps,) schedules A and B at the Python-float
     temperature `temp`, sweep t by `packed_svmc_sweep_cached` on the
     proposal uniforms of counter(seed, t, 0) and the acceptance uniforms
     of svmc_accept_counter(seed, t, 0). With `energies`, row t receives
-    each chain's energy of sign(cos theta) after sweep t."""
+    each chain's energy of sign(cos theta) after sweep t; `tables` as for
+    `packed_sa_anneal_ref`."""
     temp32 = torch.tensor(temp, dtype=torch.float32, device=theta.device)
     hu = cr.hashed_uid(cr.generic_uids(theta.shape[0], pg.perm, pg.nspins))
     state = (theta, torch.cos(theta), torch.sin(theta))
@@ -96,7 +113,8 @@ def packed_svmc_anneal_ref(pg, a_sched, b_sched, temp, theta, seed, tf,
         u_prop = cr.uniform01_hashed(cr.counter(seed, t, 0), hu)
         u_acc = cr.uniform01_hashed(cr.svmc_accept_counter(seed, t, 0), hu)
         state = packed_ops.packed_svmc_sweep_cached(
-            pg, state, u_prop, u_acc, temp32, a_sched[t], b_sched[t], tf=tf)
+            pg, state, u_prop, u_acc, temp32, a_sched[t], b_sched[t], tf=tf,
+            **_step_tables(tables, t))
         if energies is not None:
             energies[t] = packed_ops.packed_energy(
                 pg, svmc_ops.z_projection_from_cos(state[1]))
@@ -171,18 +189,43 @@ def _check_graph(pg, device):
                               pg.starts_dev)),)
 
 
-def packed_sa_anneal(pg, temps, spins, seed, energies=None):
+def _check_tables(pg, tables, steps, energies, device):
+    """(graph pointers, j_stride, h_stride, mcsteps) of a packed kernel's
+    launch: the static tables, or the per-step `tables` once they are
+    contiguous float32 (rows, N, maxnb) and (rows, N) stacks on `device`
+    whose rows cover the `steps` sweeps. Raises ValueError on anything
+    else, or on tables with `energies` (the noisy anneals collect none)."""
+    graph = _check_graph(pg, device)
+    if tables is None:
+        return graph, 0, 0, 1
+    if energies is not None:
+        raise ValueError("the noisy anneals collect no energies")
+    nbr_J, h, mcsteps = tables
+    n, maxnb = pg.nbr_J.shape
+    rows = int(nbr_J.shape[0])
+    _build.check_arg(nbr_J, "nbr_J_sched", (rows, n, maxnb), device)
+    _build.check_arg(h, "h_sched", (rows, n), device)
+    if mcsteps < 1 or rows * mcsteps != steps:
+        raise ValueError(f"{rows} table rows x mcsteps {mcsteps} do not "
+                         f"cover {steps} sweeps")
+    return ((graph[0], _build.ptr(nbr_J), _build.ptr(h)) + graph[3:],
+            n * maxnb, n, int(mcsteps))
+
+
+def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None):
     """csrc/packed_sa.cu on CUDA tensors, `packed_sa_anneal_ref` on CPU
     tensors; arguments as for the plain version. Returns the new spins
     (a copy: the kernel anneals it in place). One launch
-    (LAUNCHES["packed_sa"]), energies or not."""
+    (LAUNCHES["packed_sa"], energies or not; with `tables`,
+    LAUNCHES["packed_sa_noisy"])."""
     if _build.route(spins.device, "packed") == "cpu":
-        return packed_sa_anneal_ref(pg, temps, spins, seed, energies)
+        return packed_sa_anneal_ref(pg, temps, spins, seed, energies, tables)
     chains, n = spins.shape
     dev = spins.device
-    graph = _check_graph(pg, dev)
-    _build.check_arg(spins, "spins", (chains, pg.nspins), dev)
     steps = int(temps.shape[0])
+    graph, j_stride, h_stride, mcsteps = _check_tables(pg, tables, steps,
+                                                       energies, dev)
+    _build.check_arg(spins, "spins", (chains, pg.nspins), dev)
     _build.check_arg(temps, "temps", (steps,), dev)
     out = spins.clone()
     lib = _build.library("packed_sa")
@@ -190,25 +233,28 @@ def packed_sa_anneal(pg, temps, spins, seed, energies=None):
         *graph, _build.ptr(temps), _build.ptr(out),
         _build.energies_ptr(energies, steps, chains, dev), chains, n,
         pg.nbr_idx.shape[1], pg.num_colors, steps, cr.wrap_int32(seed),
-        THREADS, _build.stream_of(dev))
+        THREADS, j_stride, h_stride, mcsteps, _build.stream_of(dev))
     _build.raise_on_error(lib, "packed_sa_anneal", rc)
-    _build.LAUNCHES["packed_sa"] += 1
+    _build.LAUNCHES["packed_sa" if tables is None
+                    else "packed_sa_noisy"] += 1
     return out
 
 
 def packed_svmc_anneal(pg, a_sched, b_sched, temp, theta, seed, tf,
-                       energies=None):
+                       energies=None, tables=None):
     """csrc/packed_svmc.cu on CUDA tensors, `packed_svmc_anneal_ref` on CPU
     tensors; arguments as for the plain version. Returns the new angles.
-    One launch (LAUNCHES["packed_svmc"]), energies or not."""
+    One launch (LAUNCHES["packed_svmc"], energies or not; with `tables`,
+    LAUNCHES["packed_svmc_noisy"])."""
     if _build.route(theta.device, "packed") == "cpu":
         return packed_svmc_anneal_ref(pg, a_sched, b_sched, temp, theta,
-                                      seed, tf, energies)
+                                      seed, tf, energies, tables)
     chains, n = theta.shape
     dev = theta.device
-    graph = _check_graph(pg, dev)
-    _build.check_arg(theta, "theta", (chains, pg.nspins), dev)
     steps = int(a_sched.shape[0])
+    graph, j_stride, h_stride, mcsteps = _check_tables(pg, tables, steps,
+                                                       energies, dev)
+    _build.check_arg(theta, "theta", (chains, pg.nspins), dev)
     _build.check_arg(a_sched, "a_sched", (steps,), dev)
     _build.check_arg(b_sched, "b_sched", (steps,), dev)
     out = theta.clone()
@@ -219,9 +265,11 @@ def packed_svmc_anneal(pg, a_sched, b_sched, temp, theta, seed, tf,
         ctypes.c_float(temp), _build.ptr(out), _build.ptr(scratch),
         _build.energies_ptr(energies, steps, chains, dev), chains, n,
         pg.nbr_idx.shape[1], pg.num_colors, steps, cr.wrap_int32(seed),
-        int(bool(tf)), THREADS, _build.stream_of(dev))
+        int(bool(tf)), THREADS, j_stride, h_stride, mcsteps,
+        _build.stream_of(dev))
     _build.raise_on_error(lib, "packed_svmc_anneal", rc)
-    _build.LAUNCHES["packed_svmc"] += 1
+    _build.LAUNCHES["packed_svmc" if tables is None
+                    else "packed_svmc_noisy"] += 1
     return out
 
 
@@ -444,3 +492,70 @@ def anneal_packed_svmc(problem, a_sched, b_sched, temp, theta, seed,
                              _packed(pg, theta, pg.nspins), seed, tf, es)
     return with_energies(packed_ops.unpack_state(pg, out).reshape(
         theta.shape), es, batch)
+
+
+# ------------------------------------------------------------ noisy anneals
+
+
+def packed_tables(pg, nbr_J_sched, h_sched, mcsteps, steps, device):
+    """The per-step tables (rows, N, maxnb) and (rows, N), numpy or
+    tensors in original row order, as contiguous float32 stacks in packed
+    row order on `device`, permuted there once; with `mcsteps`, what the
+    kernels and plain versions take as `tables`. Raises ValueError unless
+    they are of the problem's shape and rows * mcsteps == steps."""
+    perm = pg.perm.long()
+    jt, ht = (torch.as_tensor(x, dtype=torch.float32, device=device)
+              .index_select(1, perm).contiguous()
+              for x in (nbr_J_sched, h_sched))
+    rows = jt.shape[0]
+    if (tuple(jt.shape[1:]) != tuple(pg.nbr_J.shape)
+            or tuple(ht.shape) != (rows, pg.nspins)
+            or mcsteps < 1 or rows * mcsteps != steps):
+        raise ValueError(
+            f"tables {tuple(jt.shape)} and {tuple(ht.shape)} at mcsteps "
+            f"{mcsteps} do not fit {steps} sweeps of a problem with tables "
+            f"{tuple(pg.nbr_J.shape)}")
+    return jt, ht, int(mcsteps)
+
+
+def packed_noisy_scan(problem, temps, nbr_J_sched, h_sched, spins, seed,
+                      mcsteps=1):
+    """Noisy SA anneal of an IsingProblem on the packed layout (JAX
+    `packed_noisy_scan`, ops/packed.py:290, and `_noisy_scan` :221; the
+    engine of sa.anneal_noisy): the per-step tables are permuted into
+    packed row order once, on the device, and the whole anneal is one
+    launch of csrc/packed_sa.cu (LAUNCHES["packed_sa_noisy"]).
+
+    temps: float32 (rows * mcsteps,) temperatures, one a sweep;
+    nbr_J_sched (rows, N, maxnb) and h_sched (rows, N): the couplings of
+    each schedule step in the problem's slot layout, sweep t reading row t
+    // mcsteps (the JAX solver repeats each row mcsteps times: the same
+    sweeps); spins: (chains, N) or (N,) float32 +/-1 on the problem's
+    device; seed: int counter-hash seed. Returns the annealed spins."""
+    pg = _graph_of(problem, spins, "spins")
+    tables = packed_tables(pg, nbr_J_sched, h_sched, mcsteps,
+                           temps.shape[0], problem.device)
+    out = packed_sa_anneal(pg, temps, _packed(pg, spins, pg.nspins), seed,
+                           tables=tables)
+    return packed_ops.unpack_state(pg, out).reshape(spins.shape)
+
+
+def packed_noisy_svmc_scan(problem, a_sched, b_sched, temp, nbr_J_sched,
+                           h_sched, theta, seed, tf=False, mcsteps=1):
+    """Noisy SVMC anneal of an IsingProblem on the packed layout (JAX
+    `packed_noisy_svmc_scan`, ops/packed.py:308, and `_noisy_svmc_scan`
+    :259; NoisySVMC / NoisySVMCTF, svmc.pyx:236-448): one launch of
+    csrc/packed_svmc.cu (LAUNCHES["packed_svmc_noisy"]) on the static
+    kernel's two uniform streams.
+
+    a_sched / b_sched: float32 (rows * mcsteps,) A and B, one a sweep;
+    temp: the fixed temperature; tables, mcsteps and theta ((chains, N) or
+    (N,) angles) as for `packed_noisy_scan`; tf: TF proposals. Returns the
+    annealed angles."""
+    pg = _graph_of(problem, theta, "theta")
+    tables = packed_tables(pg, nbr_J_sched, h_sched, mcsteps,
+                           a_sched.shape[0], problem.device)
+    out = packed_svmc_anneal(pg, a_sched, b_sched, float(temp),
+                             _packed(pg, theta, pg.nspins), seed, tf,
+                             tables=tables)
+    return packed_ops.unpack_state(pg, out).reshape(theta.shape)

@@ -8,14 +8,15 @@ each sweep's uniforms from the counter hash at the sites' original indices
 (`counter_rng.generic_uids`), the same uniforms the packed engine
 (`ops/packed.py`, `ops/generic_kernels.py`) draws, so the two give the same
 spins bitwise, and `solvers/sa.py` sends engine="masked" on the card to
-the packed kernel. The noisy sweep waits for `anneal_noisy` (ROADMAP.md
-queue 1).
+the packed kernel. `noisy_colored_sweep` is the masked sweep on per-step
+tables, the plain form that `sa.anneal_noisy`'s packed engine is held to.
 """
 
 from __future__ import annotations
 
 import torch
 
+from montecarlosolvers_tpu_torch.models.ising import slot_sum
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 
 
@@ -34,21 +35,35 @@ def metropolis_accept(de, temp, u):
     return (de <= 0.0 * temp) | (-temp * torch.log1p(-u) > de)
 
 
-def colored_metropolis_sweep(problem, spins, u, temp, b_coeff=None):
+def colored_metropolis_sweep(problem, spins, u, temp, b_coeff=None,
+                             fields=None):
     """One sweep of single-spin Metropolis updates over all spins, color
     by color (JAX `colored_metropolis_sweep`, ops/metropolis.py:60).
 
     spins: (..., N) float32 +/-1; u: uniforms of the same shape, one per
     site (the color classes partition the sites); temp: float32 tensor;
     b_coeff: dE = b_coeff * s * field, None meaning -2 (classical SA;
-    PIQMC slices pass -2B). Returns the new spins."""
+    PIQMC slices pass -2B); fields: the field function of the spins,
+    problem.local_fields by default. Returns the new spins."""
     if b_coeff is None:
         b_coeff = -2.0
+    fields = problem.local_fields if fields is None else fields
     for c in range(problem.num_colors):
-        de = b_coeff * spins * problem.local_fields(spins)
+        de = b_coeff * spins * fields(spins)
         accept = metropolis_accept(de, temp, u) & problem.color_masks[c]
         spins = torch.where(accept, -spins, spins)
     return spins
+
+
+def noisy_colored_sweep(problem, nbr_J_t, h_t, spins, u, temp):
+    """The masked colored sweep on this step's couplings (JAX
+    `noisy_colored_sweep`, ops/metropolis.py:125; NoisyAnneal,
+    sa.pyx:291-378): nbr_J_t (N, maxnb) and h_t (N,) replace the problem's
+    static tables, which keep only their neighbor indices and colors.
+    spins, u: (..., N); temp: float32 tensor. Returns the new spins."""
+    return colored_metropolis_sweep(
+        problem, spins, u, temp,
+        fields=lambda s: slot_sum(problem.nbr_idx, nbr_J_t, s) + h_t)
 
 
 def sweep_scan(problem, spins, seed, temps, collect_energy=False):

@@ -17,8 +17,11 @@ these functions and to the JAX package's.
 
 The JAX package's `MAX_PACKED_COLORS` is not ported: it bounds the size of
 an unrolled TPU program, and the kernels here loop over the color blocks
-at run time, so any color count takes this layout. The noisy scans
-(per-step coupling tables) wait for `anneal_noisy` (ROADMAP.md queue 1).
+at run time, so any color count takes this layout. The sweeps take
+per-step tables `nbr_J=` and `h=` in packed row order (NoisyAnneal
+semantics, sa.pyx:291-378); the noisy scans that permute a schedule of
+them once are `ops/generic_kernels.py::packed_noisy_scan` and
+`packed_noisy_svmc_scan`.
 """
 
 from __future__ import annotations
@@ -163,42 +166,48 @@ def _blocks(pg):
             yield lo, hi
 
 
-def block_fields(pg, x, lo, hi):
+def block_fields(pg, x, lo, hi, nbr_J=None, h=None):
     """sum_k J x_nb + h of the sites lo:hi of packed (..., N) values x, the
-    slots in index order, then h."""
-    return slot_sum(pg.nbr_idx[lo:hi], pg.nbr_J[lo:hi], x) + pg.h[lo:hi]
+    slots in index order, then h; `nbr_J` (N, maxnb) and `h` (N,), in
+    packed row order, replace the static tables."""
+    nbr_J = pg.nbr_J if nbr_J is None else nbr_J
+    h = pg.h if h is None else h
+    return slot_sum(pg.nbr_idx[lo:hi], nbr_J[lo:hi], x) + h[lo:hi]
 
 
-def packed_sweep(pg, spins, u, temp, b_coeff=-2.0):
+def packed_sweep(pg, spins, u, temp, b_coeff=-2.0, nbr_J=None, h=None):
     """One maskless Metropolis sweep over the class blocks, in block order.
 
     spins: (..., N) float32 +/-1 in packed order; u: uniforms of the same
     shape (one per site); temp: float32 tensor; b_coeff: dE = b_coeff * s *
-    field (-2 for SA; -2B for a PIQMC slice). Returns the new spins."""
+    field (-2 for SA; -2B for a PIQMC slice); nbr_J / h: this step's
+    tables in packed row order, None for the static ones (JAX
+    `packed_sweep`, ops/packed.py:124-129). Returns the new spins."""
     spins = spins.clone()
     for lo, hi in _blocks(pg):
         s_blk = spins[..., lo:hi]
-        de = b_coeff * s_blk * block_fields(pg, spins, lo, hi)
+        de = b_coeff * s_blk * block_fields(pg, spins, lo, hi, nbr_J, h)
         acc = metropolis_accept(de, temp, u[..., lo:hi])
         spins[..., lo:hi] = torch.where(acc, -s_blk, s_blk)
     return spins
 
 
 def packed_svmc_sweep_cached(pg, state, u_prop, u_acc, temp, a_coeff,
-                             b_coeff, tf=False):
+                             b_coeff, tf=False, nbr_J=None, h=None):
     """One maskless SVMC sweep over the class blocks (rotor dE of
     svmc.pyx:96-110) on carried trig caches: state = (theta, cos theta,
     sin theta), each (..., N) in packed order; u_prop / u_acc: the
     proposal and acceptance uniforms, same shape; temp, a_coeff, b_coeff:
-    float32 tensors. Returns the new state; the caches hold cos and sin of
-    the accepted angles, never an increment."""
+    float32 tensors; nbr_J / h: this step's tables in packed row order,
+    None for the static ones. Returns the new state; the caches hold cos
+    and sin of the accepted angles, never an increment."""
     theta, cos_all, sin_all = (x.clone() for x in state)
     for lo, hi in _blocks(pg):
         th_blk = theta[..., lo:hi]
         up = u_prop[..., lo:hi]
         prop = (svmc_ops.propose_tf(th_blk, up, a_coeff, b_coeff)
                 if tf else svmc_ops.propose_uniform(up))
-        zfield = block_fields(pg, cos_all, lo, hi)
+        zfield = block_fields(pg, cos_all, lo, hi, nbr_J, h)
         cos_prop = torch.cos(prop)
         sin_prop = torch.sin(prop)
         de = b_coeff * (cos_prop - cos_all[..., lo:hi]) * zfield
@@ -211,10 +220,10 @@ def packed_svmc_sweep_cached(pg, state, u_prop, u_acc, temp, a_coeff,
 
 
 def packed_svmc_sweep(pg, theta, u_prop, u_acc, temp, a_coeff, b_coeff,
-                      tf=False):
+                      tf=False, nbr_J=None, h=None):
     """Single-sweep form of `packed_svmc_sweep_cached` (builds and drops
     the trig caches)."""
     theta, _, _ = packed_svmc_sweep_cached(
         pg, (theta, torch.cos(theta), torch.sin(theta)), u_prop, u_acc,
-        temp, a_coeff, b_coeff, tf=tf)
+        temp, a_coeff, b_coeff, tf=tf, nbr_J=nbr_J, h=h)
     return theta

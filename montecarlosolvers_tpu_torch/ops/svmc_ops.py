@@ -9,8 +9,8 @@ Metropolis-accepts it on
 with z = sum_j J_ij cos th_j + h_i (svmc.pyx:96-110). The lattice sweeps live
 in `ops/split_kernels.py` and `ops/plane_kernels.py`, beside their CUDA
 kernels; the masked `svmc_sweep` on an IsingProblem is here, the packed
-one in `ops/packed.py`. The noisy sweeps wait for `anneal_noisy`
-(ROADMAP.md queue 1).
+one in `ops/packed.py`; `noisy_svmc_sweep[_cached]` run the masked sweep
+on per-step tables (`svmc.anneal_noisy`).
 
 Every function here rounds in float32 as the JAX package does: `PI` is
 float32(pi) = 3.14159274..., the value `jnp.pi` takes against a float32
@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from montecarlosolvers_tpu_torch.models.ising import slot_sum
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
 
 PI = float(np.float32(np.pi))
@@ -63,19 +64,21 @@ def _delta_e(problem, theta, theta_prop, a_coeff, b_coeff):
 
 
 def svmc_sweep_cached(problem, state, u_prop, u_acc, temp, a_coeff,
-                      b_coeff, tf=False):
+                      b_coeff, tf=False, fields=None):
     """One masked colored SVMC sweep on carried trig caches (JAX
     `svmc_sweep_cached`, ops/svmc_ops.py:52): state = (theta, cos theta,
     sin theta), each (..., N); u_prop / u_acc: the proposal and acceptance
     uniforms, one pair per site and sweep (the colors partition the
-    sites); temp, a_coeff, b_coeff: float32 tensors."""
+    sites); temp, a_coeff, b_coeff: float32 tensors; fields: the field
+    function of the cos cache, problem.local_fields by default."""
+    fields = problem.local_fields if fields is None else fields
     theta, cos_t, sin_t = state
     for c in range(problem.num_colors):
         prop = (propose_tf(theta, u_prop, a_coeff, b_coeff) if tf
                 else propose_uniform(u_prop))
         cos_p = torch.cos(prop)
         sin_p = torch.sin(prop)
-        zfield = problem.local_fields(cos_t)
+        zfield = fields(cos_t)
         de = b_coeff * (cos_p - cos_t) * zfield + a_coeff * (sin_t - sin_p)
         accept = metropolis_accept(de, temp, u_acc) & problem.color_masks[c]
         theta = torch.where(accept, prop, theta)
@@ -91,4 +94,24 @@ def svmc_sweep(problem, theta, u_prop, u_acc, temp, a_coeff, b_coeff,
     theta, _, _ = svmc_sweep_cached(
         problem, (theta, torch.cos(theta), torch.sin(theta)), u_prop, u_acc,
         temp, a_coeff, b_coeff, tf=tf)
+    return theta
+
+
+def noisy_svmc_sweep_cached(problem, nbr_J_t, h_t, state, u_prop, u_acc,
+                            temp, a_coeff, b_coeff, tf=False):
+    """`svmc_sweep_cached` on this step's couplings (JAX
+    `noisy_svmc_sweep_cached`, ops/svmc_ops.py:96; NoisySVMC /
+    NoisySVMCTF, svmc.pyx:236-448): the field of the cos cache is
+    sum_k nbr_J_t cos_nb + h_t, with nbr_J_t (N, maxnb) and h_t (N,)."""
+    return svmc_sweep_cached(
+        problem, state, u_prop, u_acc, temp, a_coeff, b_coeff, tf=tf,
+        fields=lambda c: slot_sum(problem.nbr_idx, nbr_J_t, c) + h_t)
+
+
+def noisy_svmc_sweep(problem, nbr_J_t, h_t, theta, u_prop, u_acc, temp,
+                     a_coeff, b_coeff, tf=False):
+    """Single-sweep form of `noisy_svmc_sweep_cached`."""
+    theta, _, _ = noisy_svmc_sweep_cached(
+        problem, nbr_J_t, h_t, (theta, torch.cos(theta), torch.sin(theta)),
+        u_prop, u_acc, temp, a_coeff, b_coeff, tf=tf)
     return theta

@@ -14,7 +14,12 @@ is traced after an untraced warm-up solve, so the kernels are built and
 the caching allocator is warm. The dissipative paths run through
 `solvers/dissipative.py::dissipative_qa`: kernel 5 on the lattice, its
 colored template, and the generic bath kernel on the odd torus and on the
-80x80 torus's generic form (tau = 200, as chip_smoke.py runs them).
+80x80 torus's generic form (tau = 200, as chip_smoke.py runs them). The
+dense engine runs solve("sa") on sk_model(2048, rng=0) at 1024 reads, 1000
+sweeps; the noisy anneals run sa.anneal_noisy (1280 chains) and
+svmc.anneal_noisy (256 chains, TF) over 1000 steps of per-step tables
+nbr_J (1 + 0.1 xi) on the 80x80 torus's generic form, xi drawn on the card
+(chip_smoke.py draws its tables with numpy instead, for its JAX anchors).
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ from functools import partial
 
 import torch
 
+from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.models import instances
 from montecarlosolvers_tpu_torch.ops import _build
+from montecarlosolvers_tpu_torch.solvers import sa, svmc
 from montecarlosolvers_tpu_torch.solvers.api import solve
 from montecarlosolvers_tpu_torch.solvers.dissipative import dissipative_qa
 
@@ -71,6 +78,32 @@ def profile_run(run):
             "launches": launches}
 
 
+def noisy_run(kind, problem, chains, steps, dev):
+    """sa.anneal_noisy (T 3 -> 0) or svmc.anneal_noisy (TF, A 3 -> 1e-8,
+    B = 1, T = 0.05) of `chains` chains over `steps` per-step tables
+    nbr_J (1 + 0.1 xi), h, xi drawn on the card: a function of no
+    arguments."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xi = torch.randn((steps,) + tuple(problem.nbr_J.shape), generator=gen,
+                     device=dev)
+    jt = problem.nbr_J * (1.0 + 0.1 * xi)
+    ht = problem.h.expand(steps, -1)
+
+    def run():
+        g = torch.Generator().manual_seed(1)
+        if kind == "sa":
+            s0 = sa.random_state(g, problem.nspins, batch=(chains,),
+                                 device=dev)
+            return sa.anneal_noisy(problem, schedules.linear(
+                3.0, 0.0, steps, device=dev), jt, ht, s0, g)
+        th = svmc.random_state(g, problem.nspins, batch=(chains,),
+                               device=dev)
+        a = schedules.linear(3.0, 1e-8, steps, device=dev)
+        return svmc.anneal_noisy(problem, a, torch.ones_like(a), 0.05, jt,
+                                 ht, th, g, tf=True)
+    return run
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("torch sees no CUDA device")
@@ -86,6 +119,8 @@ def main():
     qmc_kw = dict(method="piqmc", num_reads=32, sweeps=1000)
     svmc_kw = dict(method="svmc", num_reads=256, sweeps=2000)
     odd_name = "gaussian_torus(81, seed=0)"
+    generic_name = "gaussian_torus(80, seed=0), generic"
+    generic = instances.gaussian_torus(80, seed=0, device=dev).to_generic()
     runs = (
         ("sa", lattice, partial(solve, problem, seed=1, **sa_kw)),
         ("piqmc_p40", lattice,
@@ -108,6 +143,13 @@ def main():
         ("piqmc_bath_generic_p40", f"{lattice}, generic",
          partial(dissipative_qa, problem.to_generic(), 32, 200, 40, 1e-2,
                  seed=1)),
+        ("sa_dense", "sk_model(2048, rng=0)",
+         partial(solve, instances.sk_model(2048, rng=0, device=dev)[0],
+                 method="sa", num_reads=1024, sweeps=1000, seed=1)),
+        ("sa_noisy", f"{generic_name}, noisy tables",
+         noisy_run("sa", generic, 1280, 1000, dev)),
+        ("svmc_noisy", f"{generic_name}, noisy tables",
+         noisy_run("svmc", generic, 256, 1000, dev)),
     )
     for key, lname, run in runs:
         print(json.dumps({"phase": "profile", "path": key, "lattice": lname,

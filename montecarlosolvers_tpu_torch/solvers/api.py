@@ -5,7 +5,8 @@ montecarlosolvers_tpu/solvers/api.py).
 arrays, samples sorted by energy. The port covers the methods "sa",
 "piqmc" (at any P) and "svmc" on any LatticeProblem (any L, open or
 periodic) and on any IsingProblem (the generic kernels of
-`ops/generic_kernels.py`); the JAX package's other methods raise
+`ops/generic_kernels.py`), and "sa" on a DenseProblem (the dense engine,
+`ops/dense_kernels.py`); the JAX package's other methods raise
 NotImplementedError naming their ROADMAP.md item, and a problem of the JAX
 package is refused (`convert.py` carries one across).
 """
@@ -104,7 +105,8 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
             f"solve(method={method!r}) got unexpected options "
             f"{sorted(unknown)}; accepted: {sorted(_METHOD_KW[method])}"
         )
-    _roadmap.require_problem(problem)
+    _roadmap.require_problem(
+        problem, None if method == "sa" else f"solve(method={method!r})")
 
     dev = problem.device
     gen = torch.Generator().manual_seed(seed)

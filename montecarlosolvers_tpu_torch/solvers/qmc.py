@@ -96,7 +96,7 @@ def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
     if bath_update not in BATH_UPDATES:
         raise ValueError(f"bath_update must be 'sequential' or 'colored', "
                          f"got {bath_update!r}")
-    _roadmap.require_problem(problem)
+    _roadmap.require_problem(problem, "qmc.anneal")
     slices = confs.shape[-2]
     if lookuptable is not None:
         colored = bath_update == "colored"

@@ -3,7 +3,10 @@
 `anneal` runs on any LatticeProblem, routed as the JAX solver routes
 lattices (solvers/sa.py:106-121): an even L takes the split-checkerboard
 engine (`ops/split_kernels.py`, kernel A), any other L the full-plane
-engine (`ops/plane_kernels.py`, kernel 6). An IsingProblem takes the
+engine (`ops/plane_kernels.py`, kernel 6). A DenseProblem takes the dense
+engine (`ops/dense_kernels.py`: block fields by torch.matmul, the
+sequential in-block steps on csrc/dense_sa.cu), as the JAX solver routes
+it (solvers/sa.py:94-101). An IsingProblem takes the
 class-major packed engine (`ops/generic_kernels.py`, csrc/packed_sa.cu),
 as the JAX solver sends concrete graphs to `ops/packed.py`; engine="masked"
 there runs the masked engine, which gives the same spins bitwise and so
@@ -19,15 +22,22 @@ per-phase kernels, which keep the state in device memory, and the energy
 kernel (csrc/energy.cuh) launched after every sweep from the same loop;
 the cluster kernels run the whole schedule in one launch and read out no
 energies. The generic kernel reduces the energies itself, in its one
-launch. The states are those of the same call without it.
+launch; the dense engine computes them with a matmul after each sweep.
+The states are those of the same call without it.
+
+`anneal_noisy` anneals an IsingProblem on per-step coupling tables
+(sa.NoisyAnneal, sa.pyx:291-378) through the packed kernel's table
+variant, one launch an anneal.
 """
 
 from __future__ import annotations
 
 import torch
 
-from montecarlosolvers_tpu_torch import _device, _roadmap
+from montecarlosolvers_tpu_torch import _device, _roadmap, schedules
+from montecarlosolvers_tpu_torch.models.dense import DenseProblem
 from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+from montecarlosolvers_tpu_torch.ops import dense_kernels
 from montecarlosolvers_tpu_torch.ops import generic_kernels
 from montecarlosolvers_tpu_torch.ops import plane_kernels
 from montecarlosolvers_tpu_torch.ops import split as split_ops
@@ -57,7 +67,8 @@ def anneal(problem, sched, spins, generator, mcsteps=1,
            collect_energy=False, engine="auto"):
     """Thermal anneal over the temperature schedule `sched`.
 
-    problem: LatticeProblem (any L) or IsingProblem. sched: (steps,)
+    problem: LatticeProblem (any L), IsingProblem or DenseProblem. sched:
+    (steps,)
     temperatures (e.g. schedules.linear(3.0, 0.0, tau)). spins: (chains, N)
     or (N,) float32 +/-1 on the problem's device. generator:
     torch.Generator the counter-hash seed is drawn from. mcsteps: sweeps
@@ -72,6 +83,12 @@ def anneal(problem, sched, spins, generator, mcsteps=1,
         raise ValueError(f"engine must be 'auto' or 'masked', got "
                          f"{engine!r}")
     _roadmap.require_problem(problem)
+    if isinstance(problem, DenseProblem):
+        # the JAX solver sends a DenseProblem to the dense engine whatever
+        # the engine argument (solvers/sa.py:94-101)
+        return dense_kernels.dense_anneal(
+            problem, sched, spins, draw_seed(generator), mcsteps=mcsteps,
+            collect_energy=collect_energy)
     if isinstance(problem, IsingProblem):
         run = (generic_kernels.anneal_masked if engine == "masked"
                else generic_kernels.anneal_packed)
@@ -87,9 +104,25 @@ def anneal(problem, sched, spins, generator, mcsteps=1,
                   mcsteps=mcsteps, collect_energy=collect_energy)
 
 
-def anneal_noisy(*args, **kwargs):
-    """Anneal with time-dependent couplings: not ported yet."""
-    raise _roadmap.not_ported("sa.anneal_noisy", _roadmap.GENERIC_GRAPHS)
+def anneal_noisy(problem, sched, nbr_J_sched, h_sched, spins, generator,
+                 mcsteps=1):
+    """Thermal anneal with time-dependent couplings (sa.NoisyAnneal,
+    sa.pyx:291-378; JAX `anneal_noisy`, solvers/sa.py:142).
+
+    problem: IsingProblem (its neighbor indices and coloring; the tables
+    replace its couplings). sched: (steps,) temperatures. nbr_J_sched:
+    (steps, N, maxnb) per-step couplings in the problem's slot layout;
+    h_sched: (steps, N) per-step fields (numpy or tensors; the reference's
+    4-D nbs array, sa.pyx:308-311, maps to these two). spins: (chains, N)
+    or (N,) float32 +/-1 on the problem's device. generator:
+    torch.Generator the counter-hash seed is drawn from. mcsteps: sweeps
+    per step, each reading its step's row (the JAX solver repeats the
+    rows: the same sweeps). Returns the annealed spins."""
+    _roadmap.require_problem(problem, "sa.anneal_noisy")
+    temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
+    return generic_kernels.packed_noisy_scan(
+        problem, temps, nbr_J_sched, h_sched, spins, draw_seed(generator),
+        mcsteps=mcsteps)
 
 
 def anneal_wolff(*args, **kwargs):

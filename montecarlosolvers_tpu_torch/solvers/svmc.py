@@ -8,7 +8,9 @@ runs its CUDA kernel on a CUDA device and its plain version on the CPU. An
 IsingProblem takes the packed engine
 (`ops/generic_kernels.py::anneal_packed_svmc`, csrc/packed_svmc.cu), as
 the JAX solver sends concrete graphs to `ops/packed.py::packed_svmc_scan`
-(solvers/svmc.py:107).
+(solvers/svmc.py:107). `anneal_noisy` anneals an IsingProblem on
+per-step coupling tables (NoisySVMC / NoisySVMCTF, svmc.pyx:236-448)
+through the packed kernel's table variant, one launch an anneal.
 
 The JAX solver draws its uniforms from `jax.random`, and for an odd L its
 masked engine draws one (proposal, acceptance) pair per site and sweep,
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from montecarlosolvers_tpu_torch import _device, _roadmap
+from montecarlosolvers_tpu_torch import _device, _roadmap, schedules
 from montecarlosolvers_tpu_torch.models.ising import IsingProblem
 from montecarlosolvers_tpu_torch.ops import generic_kernels
 from montecarlosolvers_tpu_torch.ops import plane_kernels
@@ -49,7 +51,7 @@ def anneal(problem, a_sched, b_sched, temp, theta, generator, mcsteps=1,
     (sign(cos theta), +1 at cos theta = 0) after each sweep, float32 of
     shape (steps * mcsteps,) + batch on the problem's device. Returns the
     annealed angles, or (theta, energies); project with `z_projection`."""
-    _roadmap.require_problem(problem)
+    _roadmap.require_problem(problem, "svmc.anneal")
     if isinstance(problem, IsingProblem):
         return generic_kernels.anneal_packed_svmc(
             problem, a_sched, b_sched, temp, theta, draw_seed(generator),
@@ -62,9 +64,19 @@ def anneal(problem, a_sched, b_sched, temp, theta, generator, mcsteps=1,
                   collect_energy=collect_energy)
 
 
-def anneal_noisy(*args, **kwargs):
-    """SVMC anneal with time-dependent couplings: not ported yet."""
-    raise _roadmap.not_ported("svmc.anneal_noisy", _roadmap.GENERIC_GRAPHS)
+def anneal_noisy(problem, a_sched, b_sched, temp, nbr_J_sched, h_sched,
+                 theta, generator, mcsteps=1, tf=False):
+    """SVMC anneal with per-step couplings (NoisySVMC / NoisySVMCTF,
+    svmc.pyx:236-448; JAX `anneal_noisy`, solvers/svmc.py:126): as
+    `anneal` on an IsingProblem, with nbr_J_sched (steps, N, maxnb) and
+    h_sched (steps, N) replacing its couplings step by step (see
+    `sa.anneal_noisy`). Returns the annealed angles."""
+    _roadmap.require_problem(problem, "svmc.anneal_noisy")
+    a_s, b_s = (schedules.expand_mcsteps(x, mcsteps, problem.device)
+                for x in (a_sched, b_sched))
+    return generic_kernels.packed_noisy_svmc_scan(
+        problem, a_s, b_s, temp, nbr_J_sched, h_sched, theta,
+        draw_seed(generator), tf=tf, mcsteps=mcsteps)
 
 
 def random_state(generator, nspins, batch=(), device=None):

@@ -46,7 +46,12 @@ and kernel 5's colored template (L = 10 to 674, P = 2 to 66, both routes,
 the per-phase kernels also forced at small shapes) equal their plain
 versions with and without energies; the generic bath kernel samples the
 exact bath-extended weights, and qmc.anneal(lookuptable=...) launches the
-route of the JAX solver's table.
+route of the JAX solver's table. The dense kernel (csrc/dense_sa.cu)
+equals its plain version on SK problems of N = 64 to 2048 (block 7 to
+128, ragged CTAs, shuffled, bf16) with sweeps x ceil(N / B) launches, and
+solve("sa") on a DenseProblem launches it; the packed SA and SVMC kernels
+on per-step tables (the noisy anneals) equal their plain versions, one
+launch an anneal, and equal the static anneals on equal rows.
 """
 
 import contextlib
@@ -59,12 +64,15 @@ import gibbs_check as gibbs
 from montecarlosolvers_tpu_torch import convert, schedules
 from montecarlosolvers_tpu_torch.models import instances
 from montecarlosolvers_tpu_torch.ops import _build
+from montecarlosolvers_tpu_torch.ops import dense_kernels as dk
+from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+from montecarlosolvers_tpu_torch.ops import packed as packed_ops
 from montecarlosolvers_tpu_torch.ops import plane as plane_ops
 from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels as sk
-from montecarlosolvers_tpu_torch.solvers import qmc, sa
+from montecarlosolvers_tpu_torch.solvers import qmc, sa, svmc
 from montecarlosolvers_tpu_torch.solvers.api import solve
 
 pytestmark = pytest.mark.gpu
@@ -1023,3 +1031,130 @@ def test_bath_routes_on_the_card(cuda, name, P, bath_update, launches):
                      bath_update=bath_update)
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == launches
     assert set(torch.unique(out).tolist()) <= {-1.0, 1.0}
+
+
+# ------------------------------ the dense engine and the noisy anneals
+
+
+@pytest.mark.parametrize("N,chains,block,shuffle,bf16", [
+    (1000, 33, 128, False, False), (1000, 9, 128, True, True),
+    (2048, 16, 128, False, False), (2048, 8, 128, True, False),
+    (2048, 8, 128, False, True), (70, 5, 7, False, False),
+    (300, 40, 100, True, True), (64, 3, 64, False, False),
+])
+def test_dense_kernel_equals_plain(cuda, N, chains, block, shuffle, bf16):
+    """csrc/dense_sa.cu against its plain version on the card: the same
+    torch.matmul block fields, spins bitwise; ragged CTAs (chains not a
+    multiple of 8 warps), padded blocks (N not a multiple of B), B below
+    32 and between 32 and 128, shuffled and bf16."""
+    dp = instances.sk_model(N, rng=N, device=cuda)[0]
+    s = torch.as_tensor(np.random.default_rng(N).choice(
+        [-1.0, 1.0], size=(chains, N)).astype(np.float32), device=cuda)
+    temps = schedules.linear(2.0, 0.2, 3, device=cuda)
+    md = torch.bfloat16 if bf16 else None
+    _build.reset_launches()
+    out = dk.dense_sa_anneal(dp, temps, s, 5, block, shuffle, md)
+    B = min(block, N)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "dense_sa": 3 * -(-N // B)}
+    ref = dk.dense_sa_anneal_ref(dp, temps, s, 5, block, shuffle, md)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert float((out != s).float().mean()) > 0.01
+
+
+def test_dense_kernel_refuses_blocks_past_its_tile(cuda):
+    dp = instances.sk_model(300, rng=0, device=cuda)[0]
+    s = torch.ones((2, 300), device=cuda)
+    with pytest.raises(ValueError, match="block <= 128"):
+        dk.dense_sa_anneal(dp, schedules.linear(1.0, 0.1, 2, device=cuda), s,
+                           0, block=256)
+
+
+def test_solve_on_a_dense_problem_runs_its_kernel(cuda):
+    dp = instances.sk_model(12, rng=5, device=cuda)[0]
+    e_gs = float(dp.energy(torch.as_tensor(
+        gibbs.all_states(12), dtype=torch.float32, device=cuda)).min())
+    _build.reset_launches()
+    ss = solve(dp, "sa", num_reads=16, sweeps=300, seed=1)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"dense_sa": 300}
+    assert abs(ss.best_energy - e_gs) < 1e-3
+    gen = torch.Generator().manual_seed(0)
+    s0 = sa.random_state(gen, 12, batch=(2, 3))
+    out, es = sa.anneal(dp, schedules.linear(2.0, 0.1, 10), s0, gen,
+                        collect_energy=True)
+    assert es.shape == (10, 2, 3)
+    torch.testing.assert_close(es[-1], dp.energy(out))
+
+
+def _noisy_case(graph, dev, steps, mcsteps):
+    prob = _generic(graph, dev)
+    pg = packed_ops.build_packed(prob)
+    r = np.random.default_rng(steps)
+    nbr_J, h = prob.nbr_J.cpu().numpy(), prob.h.cpu().numpy()
+    jt = nbr_J * (1 + 0.1 * r.standard_normal((steps,) + nbr_J.shape))
+    ht = h * (1 + 0.1 * r.standard_normal((steps,) + h.shape))
+    return prob, pg, gk.packed_tables(pg, jt, ht, mcsteps, steps * mcsteps,
+                                      dev)
+
+
+@pytest.mark.parametrize("graph,mcsteps", [("torus10", 1), ("rg9", 2),
+                                           ("rg_fields", 1),
+                                           ("chimera", 3)])
+def test_noisy_kernels_equal_plain(cuda, graph, mcsteps):
+    """The packed SA and SVMC kernels on per-step tables (csrc/packed_sa.cu
+    and csrc/packed_svmc.cu with table strides) against their plain
+    versions: spins bitwise, angles as the SVMC checks hold them; one
+    launch an anneal under the noisy keys."""
+    steps = 12
+    prob, pg, tables = _noisy_case(graph, cuda, steps, mcsteps)
+    n = prob.nspins
+    rng = np.random.default_rng(1)
+    s = torch.as_tensor(rng.choice([-1.0, 1.0], size=(6, n))
+                        .astype(np.float32), device=cuda)
+    temps = schedules.linear(3.0, 0.1, steps * mcsteps, device=cuda)
+    _build.reset_launches()
+    out = gk.packed_sa_anneal(pg, temps, s, 7, tables=tables)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "packed_sa_noisy": 1}
+    ref = gk.packed_sa_anneal_ref(pg, temps, s, 7, tables=tables)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and not torch.equal(out, s)
+    th = _angles((6, n), cuda, 2)
+    a = schedules.linear(3.0, 1e-8, steps * mcsteps, device=cuda)
+    b = torch.full_like(a, 0.9)
+    for tf in (True, False):
+        _build.reset_launches()
+        out = gk.packed_svmc_anneal(pg, a, b, 0.05, th, 7, tf, tables=tables)
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+            "packed_svmc_noisy": 1}
+        ref = gk.packed_svmc_anneal_ref(pg, a, b, 0.05, th, 7, tf,
+                                        tables=tables)
+        torch.cuda.synchronize()
+        _assert_angles_equal(out, ref, th)
+
+
+def test_noisy_solvers_run_their_kernels(cuda):
+    steps = 20
+    prob, pg, _ = _noisy_case("rg_fields", cuda, steps, 1)
+    jt = prob.nbr_J.expand((steps,) + tuple(prob.nbr_J.shape))
+    ht = prob.h.expand(steps, prob.nspins)
+    gen = torch.Generator().manual_seed(0)
+    s0 = sa.random_state(gen, prob.nspins, batch=(4,))
+    sched = schedules.linear(2.0, 0.1, steps)
+    _build.reset_launches()
+    noisy = sa.anneal_noisy(prob, sched, jt, ht, s0,
+                            torch.Generator().manual_seed(1))
+    static = sa.anneal(prob, sched, s0, torch.Generator().manual_seed(1))
+    assert _build.LAUNCHES["packed_sa_noisy"] == 1
+    assert torch.equal(noisy, static)
+    th = svmc.random_state(gen, prob.nspins, batch=(4,))
+    _build.reset_launches()
+    noisy = svmc.anneal_noisy(prob, sched, torch.ones_like(sched), 0.1, jt,
+                              ht, th, torch.Generator().manual_seed(1),
+                              tf=True)
+    static = svmc.anneal(prob, sched, torch.ones_like(sched), 0.1, th,
+                         torch.Generator().manual_seed(1), tf=True)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "packed_svmc_noisy": 1, "packed_svmc": 1}
+    assert torch.equal(noisy, static)

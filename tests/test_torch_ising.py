@@ -248,8 +248,9 @@ def test_instance_generators_match_jax(name):
 
 def test_instance_sizes_and_refusals():
     assert tinst.chimera_graph(16, rng=0, device="cpu")[0].num_colors == 3
-    with pytest.raises(NotImplementedError, match="DenseProblem.*item 2"):
-        tinst.sk_model(8, rng=0, device="cpu")
+    # sk_model's default is the DenseProblem (tests/test_torch_dense.py)
+    dense = tinst.sk_model(8, rng=0, device="cpu")[0]
+    assert type(dense).__name__ == "DenseProblem" and dense.nspins == 8
     with pytest.raises(ValueError):
         tinst.random_3d_lattice(2, dist="cauchy", device="cpu")
 

@@ -2,10 +2,14 @@
 CPU: resume after a budget stop, bitwise; the file layout the JAX driver's
 `summarize_dir` reads; cached points and chunks.
 
-An 8x8 Gaussian torus, taus (8, 32), arms CA, PT=1_P=2 and PT=1_P=5, 3
-reps. A stop is made deterministic by a stand-in clock that advances one
-second at every reading, so a budget of k seconds stops the run at the k-th
-reading of the clock, between points or between PIQMC chunks.
+An 8x8 Gaussian torus, taus (4, 16), arms CA, PT=2.5_P=2 and PT=2.5_P=5,
+3 reps in chunks of 2. PT = 2.5 keeps each PIQMC chunk's pre-anneal (T
+from 3.0 down to PT in steps of 0.05, 100 sweeps each) at 1100 sweeps, a
+quarter of PT = 1's: on the CPU that pre-anneal, not tau or the reps, is
+what a chunk costs. A stop is made deterministic by a stand-in clock that
+advances one second at every reading, so a budget of k seconds stops the
+run at the k-th reading of the clock, between points or between PIQMC
+chunks.
 """
 
 import json
@@ -20,9 +24,9 @@ from montecarlosolvers_tpu_torch.models import instances
 
 torch.set_num_threads(1)
 
-TAUS, EXPS, REPS, CHUNK = (8, 32), ((1, 2), (1, 5)), 3, 2
-POINTS = [f"{name}_tau{tau}" for name in ("CA", "PT=1_P=2", "PT=1_P=5")
-          for tau in TAUS]
+TAUS, EXPS, REPS, CHUNK = (4, 16), ((2.5, 2), (2.5, 5)), 3, 2
+ARMS = ("CA",) + tuple(f"PT={pt}_P={p}" for pt, p in EXPS)
+POINTS = [f"{name}_tau{tau}" for name in ARMS for tau in TAUS]
 
 
 def run(outdir, **kw):
@@ -128,7 +132,7 @@ def test_jax_summarize_dir_reads_the_port_directory(unbroken):
     outdir, results = unbroken
     port = json.loads((outdir / "summary.json").read_text())
     got = jmst.summarize_dir(str(outdir), 64, 0.0, exps=EXPS)
-    assert set(got) == set(results) == {"CA", "PT=1_P=2", "PT=1_P=5"}
+    assert set(got) == set(results) == set(ARMS)
     for name, v in results.items():
         for k in ("tau", "total_sweeps", "eps"):
             assert np.array_equal(got[name][k], v[k]), (name, k)
@@ -144,15 +148,16 @@ def test_points_depend_on_the_seed_and_not_on_the_order(unbroken, tmp_path):
     alone equals it inside the matrix; another seed gives others."""
     outdir, _ = unbroken
     problem = instances.gaussian_torus(8, seed=0, device="cpu")
-    key = mst.point_key(0, "PT=1_P=5", 32)
-    alone = mst.piqmc_arm(problem, 32, REPS, key, slices=5, chunk=CHUNK)
-    assert np.array_equal(alone, energies(outdir)["PT=1_P=5_tau32"])
-    other = mst.piqmc_arm(problem, 32, REPS, mst.point_key(1, "PT=1_P=5",
-                                                           32),
-                          slices=5, chunk=CHUNK)
+    (pt, p), name, tau = EXPS[1], ARMS[2], TAUS[1]
+    alone = mst.piqmc_arm(problem, tau, REPS, mst.point_key(0, name, tau),
+                          pt=pt, slices=p, chunk=CHUNK)
+    assert np.array_equal(alone, energies(outdir)[f"{name}_tau{tau}"])
+    other = mst.piqmc_arm(problem, tau, REPS, mst.point_key(1, name, tau),
+                          pt=pt, slices=p, chunk=CHUNK)
     assert not np.array_equal(alone, other)
-    sa_alone = mst.sa_arm(problem, 8, REPS, mst.point_key(0, "CA", 8))
-    assert np.array_equal(sa_alone, energies(outdir)["CA_tau8"])
+    tau = TAUS[0]
+    sa_alone = mst.sa_arm(problem, tau, REPS, mst.point_key(0, "CA", tau))
+    assert np.array_equal(sa_alone, energies(outdir)[f"CA_tau{tau}"])
 
 
 def test_cached_chunk_of_another_size_is_refused(tmp_path):
@@ -174,10 +179,10 @@ def test_default_grid_is_the_references():
 
 
 def test_max_tau_cuts_the_grid(tmp_path):
-    """max_tau drops the taus above it, here all but 8."""
+    """max_tau drops the taus above it, here all but the first."""
     results, complete = run(tmp_path, max_tau=10, exps=())
     assert complete and list(results) == ["CA"]
-    assert list(results["CA"]["tau"]) == [8]
+    assert list(results["CA"]["tau"]) == [TAUS[0]]
 
 
 def test_plot_needs_matplotlib_only_when_called(unbroken, tmp_path):

@@ -363,7 +363,7 @@ def test_generic_refusals():
     with pytest.raises(ValueError, match="engine must be"):
         sa.anneal(prob, sched, s, gen, engine="split")
     lat = tinst.gaussian_torus(4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5 .parallel"):
+    with pytest.raises(NotImplementedError, match="item 4 .parallel"):
         sa.anneal(lat, sched, s[:, :16], gen, engine="masked")
     c = qmc.replicate(s, 4)
     # the bath on an IsingProblem runs on the generic bath engine

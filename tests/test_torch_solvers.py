@@ -211,10 +211,14 @@ def test_refusals():
     assert torch.equal(out, plain_generic_bath(
         port_generic, sched, 0.3, np.ones(2), c[:, :, :16], 3,
         "sequential"))
-    for fn in (sa.anneal_noisy, sa.anneal_wolff, sa.anneal_sw,
-               qmc.anneal_wolff, qmc.anneal_sw, qmc.anneal_sw_bath):
+    for fn in (sa.anneal_wolff, sa.anneal_sw, qmc.anneal_wolff, qmc.anneal_sw,
+               qmc.anneal_sw_bath):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fn(lat, sched, c, gen)
+    # the noisy anneal runs on an IsingProblem (tests/test_torch_noisy.py);
+    # a lattice has no neighbor table for its per-step couplings
+    with pytest.raises(ValueError, match="take an IsingProblem"):
+        sa.anneal_noisy(lat, sched, None, None, c[:, 0], gen)
     with pytest.raises(ValueError, match="unknown method"):
         api.solve(lat, "nope")
     with pytest.raises(TypeError, match="unexpected options"):

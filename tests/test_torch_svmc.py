@@ -361,7 +361,9 @@ def test_svmc_refusals():
     lat = tinst.gaussian_torus(6, seed=0, device="cpu")
     a = tsched.linear(1.0, 1e-8, 3, device="cpu")
     th = svmc.random_state(gen, 36, batch=(2,), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2 .generic graphs"):
+    # the noisy anneal runs on an IsingProblem (tests/test_torch_noisy.py);
+    # a lattice has no neighbor table for its per-step couplings
+    with pytest.raises(ValueError, match="take an IsingProblem"):
         svmc.anneal_noisy(lat, a, torch.ones_like(a), 0.1, None, None, th,
                           gen)
     # a problem of the JAX package is refused; the port's own generic
