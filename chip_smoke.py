@@ -10,8 +10,10 @@ Phases, each printed as one JSON line:
   build               nvcc builds kernels A, B, 3, 4, 5 (with its colored
                       template), 6 and 7, the energy kernel's entry points,
                       the four generic kernels (packed SA, generic PIQMC,
-                      packed SVMC, generic bath) and the dense in-block
-                      kernel from csrc/, all at once (seconds)
+                      packed SVMC, generic bath), the dense in-block
+                      kernel and the three cluster kernels (fk_wolff,
+                      fk_label, fk_line) from csrc/, all at once
+                      (seconds)
   clusters            the (C, R, threads) kernels A and 6 and the (R,
                       threads) kernels B, 5, 3, 7 and 4 take at the shapes
                       below, and how many of those clusters the card holds
@@ -124,6 +126,17 @@ Phases, each printed as one JSON line:
                       for two sweeps), SVMC with TF proposals and uniform:
                       0 mismatched spins, angles by the ANGLE_MISMATCH
                       rule, one launch an anneal
+  cluster_kernel_vs_plain  the cluster kernels (ops/cluster_kernels.py)
+                      against their plain versions on the card, on the
+                      80x80 torus's generic form, CLUSTER_STEPS steps:
+                      fk_wolff at P = 40 (16 chains, rule "local"; 4 with
+                      the bath; 4 with rule "full") and P = 1 (64 chains,
+                      the classical Wolff), fk_label at P = 1 (64 chains,
+                      labels in shared memory) and P = 40 (8 chains, and 4
+                      with the bath; in device memory), fk_line WC2 and
+                      WC3 at P = 40, 16 chains, 3 steps of both colors: 0
+                      mismatched spins, equal cluster sizes, one launch an
+                      anneal (fk_line one a color phase)
   main_path           eight solves at full width: solve("sa", 1280 reads,
                       2000 sweeps) and solve("piqmc", 32 reads, 1000
                       sweeps) at P = 40 and at P = 5 on the santoro instance
@@ -170,7 +183,18 @@ Phases, each printed as one JSON line:
                       svmc.anneal_noisy (256 chains, TF, T = 0.05) over
                       1000 steps of per-step tables nbr_J (1 + 0.1 xi_t)
                       on the 80x80 torus's generic form (one launch each),
-                      in ranges around their JAX CPU anchors
+                      in ranges around their JAX CPU anchors; then the
+                      five cluster methods on the 80x80 torus's generic
+                      form: solve("sa_wolff") and solve("sa_sw") (64
+                      reads, 200 sweeps, T 3 -> 0.05, a packed SA launch
+                      and a cluster launch a sweep), solve("piqmc_wolff"),
+                      solve("piqmc_sw", alpha = 1e-2) and
+                      solve("piqmc_sw_full") (8 reads, 50 sweeps, P = 40,
+                      after the pre-anneal's one packed SA launch: one
+                      fk_wolff launch; a fk_line launch a color phase; a
+                      generic PIQMC and a fk_label launch a sweep), in
+                      ranges around their JAX CPU anchors
+                      (tools/cluster_anchors.py)
   timing              slope-timed ms per sweep of each kernel and of its
                       plain version at the main path's shapes, beside the
                       least time the card could take for a sweep (bound:
@@ -197,7 +221,12 @@ Phases, each printed as one JSON line:
                       sweep's block products by torch.matmul (its
                       library_ms); the noisy kernels and their plain
                       versions at the main path's widths, their bounds
-                      counting the tables' bytes
+                      counting the tables' bytes; the cluster kernels' ms
+                      a step (fk_wolff at 1 and 16 chains, P = 40, with
+                      the mean cluster it counted; fk_label at P = 40, 8
+                      chains and P = 1, 64 chains; fk_line a WC3 and a
+                      WC2 step at one chain, P = 40) beside
+                      `cluster_bound`
   hw_rng_kernel_checks  the generator instantiations (hw_rng=True,
                       csrc/hw_rng.cuh) of kernels A, B, 4 and 5, on their
                       cluster kernels and on their per-phase kernels (forced
@@ -227,6 +256,12 @@ Phases, each printed as one JSON line:
                       bench.py (the four pallas_* on the generator
                       instantiations), one line each, with the launches
                       of each, counted from 0 before the bench
+  cluster_bench       bench/throughput.py's cluster arm in full
+                      (bench.py::_cluster_arm): wolff_cluster_ms (one
+                      chain, tau 30 and 90), wolff_cluster_ms_per_chain
+                      (16 chains), sw_bath_sweep_ms (WC2) and
+                      sw_full_sweep_ms (WC3), P = 40, alpha = 1e-2, with
+                      exactly the launches of its runs
   hw_rng_timing       ms per sweep of kernels A, B, 4 and 5 with the hash
                       and with hw_rng=True at the pallas_* arms' shapes, of
                       the generator's plain versions and per-phase kernels,
@@ -275,8 +310,9 @@ launches are the bench's, then the energy kernel by the layout it reads,
 halves, quarters or planes, whose launches are the collecting solves',
 then the three generic kernels, whose launches are the main path's,
 then the generic bath kernel, kernel 5's colored template and its
-per-phase kernels, the dense in-block kernel and the packed SA and SVMC
-kernels' table variant, whose launches are the main path's),
+per-phase kernels, the dense in-block kernel, the packed SA and SVMC
+kernels' table variant and the three cluster kernels, whose launches are
+the main path's),
 a line {"phase": "done", "seconds": ..., "phase_seconds": {...}} (the
 seconds from the start at the end of each phase), and last
 {"ok": true, "device": {...}}.
@@ -435,6 +471,31 @@ RANGES.update({
     "sa_noisy": (-1.287138, -1.259734),
     "svmc_noisy": (-1.266325, -1.236159),
 })
+# The cluster solves: the five cluster methods of solve() on the 80x80
+# torus's generic form at bench.py::_cluster_arm's P = 40 and alpha = 1e-2
+# (piqmc_sw), CLUSTER_SA_* reads and sweeps for sa_wolff / sa_sw and
+# CLUSTER_QMC_* for the three PIQMC methods; their ranges are the JAX CPU
+# anchors (tools/cluster_anchors.py, the same reads, sweeps and options,
+# seed 0; PERF.md section 2), mean per spin +/- max(0.01, 5 sd of a read).
+# Their kernels against their plain versions run CLUSTER_STEPS steps.
+CLUSTER_SLICES, CLUSTER_ALPHA = 40, 1e-2
+CLUSTER_SA_READS, CLUSTER_SA_SWEEPS = 64, 200
+CLUSTER_QMC_READS, CLUSTER_QMC_SWEEPS = 8, 50
+CLUSTER_STEPS = 6
+#   sa_wolff           tools/cluster_anchors.py sa_wolff: -1.26789, sd 0.00286
+#   sa_sw              ... sa_sw: -1.26569, sd 0.00354
+#   piqmc_wolff_p40    ... piqmc_wolff: -1.21749, sd 0.00418
+#   piqmc_sw_full_p40  ... piqmc_sw_full: -1.26540, sd 0.00333
+#   piqmc_sw_p40       ... piqmc_sw: -1.26347, sd 0.00440
+CLUSTER_ANCHORS = {
+    "sa_wolff": (-1.2678889036178589, 0.0028559609781950712),
+    "sa_sw": (-1.2656936645507812, 0.003539035562425852),
+    "piqmc_wolff_p40": (-1.2174911499023438, 0.0041766115464270115),
+    "piqmc_sw_full_p40": (-1.2654012441635132, 0.0033305161632597446),
+    "piqmc_sw_p40": (-1.2634696960449219, 0.004400114994496107),
+}
+RANGES.update({k: (m - max(0.01, 5 * sd), m + max(0.01, 5 * sd))
+               for k, (m, sd) in CLUSTER_ANCHORS.items()})
 # kernel name -> (LAUNCHES key, source, TPU kernel it replaces)
 KERNELS = {
     "split_sa": ("sa_split", "montecarlosolvers_tpu_torch/csrc/split_sa.cu",
@@ -535,6 +596,19 @@ DENSE_NOISY_KERNELS = {
                           "montecarlosolvers_tpu/ops/packed.py:259"),
 }
 KERNELS.update(DENSE_NOISY_KERNELS)
+# The cluster updates: three kernels that replace no TPU kernel but the XLA
+# loops of the JAX cluster engine (the BFS of wolff_update, the relaxation
+# of _label_components, the closure of the line phases), whose launches
+# are the main path's
+CLUSTER_KERNELS = {
+    "fk_wolff": ("fk_wolff", "montecarlosolvers_tpu_torch/csrc/fk_wolff.cu",
+                 "montecarlosolvers_tpu/ops/cluster.py:174"),
+    "fk_label": ("fk_label", "montecarlosolvers_tpu_torch/csrc/fk_label.cu",
+                 "montecarlosolvers_tpu/ops/cluster.py:487"),
+    "fk_line": ("fk_line", "montecarlosolvers_tpu_torch/csrc/fk_line.cu",
+                "montecarlosolvers_tpu/ops/cluster.py:316"),
+}
+KERNELS.update(CLUSTER_KERNELS)
 # (a): chains of the exact-distribution samplers, and the largest
 # |mean - exact| (or kernel - plain) they may show, in standard errors of
 # the chain means (gibbs_check.z_scores: at most 1 state in about 3 million
@@ -1909,6 +1983,285 @@ def dense_noisy_timing(dev, results, sk, gtorus, tables, power, name):
             results[kname]["plain_ms"] = ms
 
 
+def cluster_inputs(pg, dev, rng, chains, P, steps, classical=False):
+    """Random packed (chains, P, N) spins and the (B, J_perp, T_eff)
+    schedules of `steps` steps: PIQMC at T = 1/P over Gamma: 3 -> 1e-8, B =
+    1; with `classical` (P = 1) B = 1, J_perp = 0 and T_eff: 3 -> 0.05."""
+    from montecarlosolvers_tpu_torch import schedules
+
+    confs = random_pm1(rng, (chains, P, pg.nspins), dev)
+    if classical:
+        temps = schedules.linear(3.0, 0.05, steps, device=dev)
+        return confs, torch.ones_like(temps), torch.zeros_like(temps), temps
+    gamma = schedules.transverse_field(3.0, 1e-8, steps, device=dev)
+    teff = (1.0 / P) * P
+    return (confs, torch.ones_like(gamma),
+            schedules.jperp(gamma, teff).contiguous(),
+            torch.full_like(gamma, teff))
+
+
+def cluster_checks(dev, results, gtorus):
+    """Phase cluster_kernel_vs_plain: fk_wolff, fk_label and fk_line
+    against their plain versions on the card on the 80x80 torus's generic
+    form at the cluster solves' widths, CLUSTER_STEPS steps: 0 mismatched
+    spins, the same cluster sizes, one launch an anneal (fk_line: one a
+    color phase)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    pg = packed_ops.build_packed(gtorus)
+    rng = np.random.default_rng(7)
+    P, steps = CLUSTER_SLICES, CLUSTER_STEPS
+    lut = schedules.bath_lookuptable(P, CLUSTER_ALPHA, device=dev)
+    graph = f"gaussian_torus({L}, 0).to_generic()"
+
+    def record(kname, case, out, ref, start, launched, want, extra=None):
+        torch.cuda.synchronize()
+        n_bad, err = mismatches([out], [ref])
+        rec = {"phase": "cluster_kernel_vs_plain", "kernel": kname,
+               "graph": graph, **case, "launches": launched,
+               "mismatched_spins": n_bad, "max_abs_err": err,
+               "flipped_fraction": float((out != start).float().mean()),
+               **(extra or {})}
+        emit(rec)
+        check(n_bad == 0, f"{kname} ({rec}) equals its plain version")
+        check(rec["flipped_fraction"] > 0, f"{kname} ({rec}) moves")
+        check(launched == want, f"{kname} ({rec}) launched {launched}")
+        results[kname]["max_abs_err"] = max(
+            results[kname].get("max_abs_err", 0.0), err)
+
+    # Wolff: rule "local" at the bench's 16 chains, with the bath, rule
+    # "full", and the classical cluster (P = 1, Gamma = inf) at 64 chains
+    for chains, slices, rule, bath in ((16, P, "local", False),
+                                       (4, P, "local", True),
+                                       (4, P, "full", False),
+                                       (CLUSTER_SA_READS, 1, "local", False)):
+        c, b, jp, teff = cluster_inputs(pg, dev, rng, chains, slices, steps,
+                                        classical=slices == 1)
+        table = lut if bath else None
+        vis, vis_ref = (torch.zeros(chains, dtype=torch.int64, device=dev)
+                        for _ in range(2))
+        _build.reset_launches()
+        out = ck.wolff_anneal(pg, b, jp, teff, c, 21, rule, table, 0, vis)
+        launched = launched_now()
+        ref = cl.wolff_anneal_ref(pg, b, jp, teff, c, 21, rule, table, 0,
+                                  vis_ref)
+        record("fk_wolff", {"chains": chains, "slices": slices, "rule": rule,
+                            "bath": bath, "steps": steps}, out, ref, c,
+               launched, {"fk_wolff": 1},
+               {"mean_cluster_sites": float(vis.double().mean()) / steps})
+        check(torch.equal(vis, vis_ref), "fk_wolff counts its clusters as "
+                                         "its plain version")
+    # Swendsen-Wang: classical (labels in shared memory) and space-time at
+    # P = 40 with and without a bath (labels in device memory)
+    for chains, slices, bath in ((CLUSTER_SA_READS, 1, False),
+                                 (CLUSTER_QMC_READS, P, False),
+                                 (4, P, True)):
+        classical = slices == 1
+        c, b, jp, teff = cluster_inputs(pg, dev, rng, chains, slices, steps,
+                                        classical)
+        table = lut if bath else None
+        _build.reset_launches()
+        out = ck.sw_anneal(pg, b, jp, teff, c, 22, table, 0, classical)
+        launched = launched_now()
+        ref = cl.sw_anneal_ref(pg, b, jp, teff, c, 22, table, 0, classical)
+        record("fk_label", {"chains": chains, "slices": slices,
+                            "bath": bath, "steps": steps,
+                            "shared_memory": ck.label_smem(slices,
+                                                           pg.nspins)},
+               out, ref, c, launched, {"fk_label": 1})
+    # the line phases, WC2 and WC3, 3 steps of both colors
+    for per_slice_seeds in (False, True):
+        c, b, jp, teff = cluster_inputs(pg, dev, rng, 16, P, 3)
+        t_eff = float(teff[0])
+        p_pair, p_t = ck.line_tables(lut, jp, t_eff, P, dev)
+        out = ref = c
+        _build.reset_launches()
+        for t in range(3):
+            for color in range(pg.num_colors):
+                out = ck.line_phase(pg, b, jp, p_t, t, t_eff, lut, p_pair,
+                                    out, 23, t, color, per_slice_seeds)
+        launched = launched_now()
+        for t in range(3):
+            for color in range(pg.num_colors):
+                ref = cl.line_phase_ref(pg, b[t], jp[t], t_eff, lut, ref,
+                                        23, t, color, per_slice_seeds,
+                                        p_pair)
+        record("fk_line", {"chains": 16, "slices": P, "steps": 3,
+                           "per_slice_seeds": per_slice_seeds}, out, ref,
+               c, launched, {"fk_line": 3 * pg.num_colors})
+
+
+def cluster_bound(kname, chains, slices, sites, degree, visited=None,
+                  bath=False):
+    """(least ms of one step, "bytes" or "operations", unit) of a cluster
+    kernel at this shape, as the work needs it:
+      fk_wolff  the bonds drawn from the `visited` (chains x per step)
+                cluster sites, each shared by at most two of them: (degree
+                + 2 + (P - 1 with a bath)) / 2 exponentials a site; bytes:
+                each visited site read and written;
+      fk_label  every bond of the graph drawn once: degree / 2 spatial, one
+                Trotter (P > 1) and one ghost a site, an exponential each;
+                bytes: the state read and written;
+      fk_line   no exponential (the host's table holds the bath pairs'
+                probabilities): a site's field (degree adds), its pair
+                comparisons (P - 1), the cluster sum (P adds) as float32
+                operations, one logarithm a slice (its accept); bytes: the
+                state read and written.
+    The exponentials and logarithms run at the special-function rate."""
+    P = slices
+    f32 = 0.0
+    if kname == "fk_wolff":
+        sfu = visited * (degree + 2 + (P - 1 if bath else 0)) / 2
+        moved = visited * 8
+    elif kname == "fk_label":
+        sfu = chains * P * sites * (degree / 2 + (1 if P > 1 else 0) + 1)
+        moved = chains * P * sites * 8
+    else:
+        f32 = chains * P * sites * (degree + (P - 1) + P)
+        sfu = chains * P * sites
+        moved = chains * P * sites * 8
+    times = {"fp32": f32 / PEAK_FLOPS, "sfu": sfu / PEAK_SFU,
+             "bytes": moved / PEAK_BYTES}
+    unit = max(times, key=times.get)
+    return 1e3 * times[unit], ("bytes" if unit == "bytes"
+                               else "operations"), unit
+
+
+def cluster_timing(dev, results, gtorus, power, name):
+    """Slope ms a step of fk_wolff (one chain and 16, P = 40: the bench's
+    two Wolff shapes), fk_label (the space-time sweep at the PIQMC solves'
+    8 chains, P = 40, and the classical sweep at 64 chains) and fk_line (a
+    WC3 and a WC2 step, both colors, one chain at P = 40: the bench's
+    shape), and of their plain versions, beside each bound
+    (`cluster_bound`); the kernels line takes the first row of each."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    pg = packed_ops.build_packed(gtorus)
+    n = pg.nspins
+    degree = graph_shape(gtorus)[0]
+    rng = np.random.default_rng(8)
+    P = CLUSTER_SLICES
+    lut = schedules.bath_lookuptable(P, CLUSTER_ALPHA, device=dev)
+
+    def wolff_runner(fn, chains):
+        c = random_pm1(rng, (chains, P, n), dev)
+        vis = torch.zeros(chains, dtype=torch.int64, device=dev)
+
+        def run(tau):
+            _, b, jp, teff = cluster_inputs(pg, dev, rng, 1, P, tau)
+            vis.zero_()
+            return fn(pg, b, jp, teff, c, 7, "local", None, 0, vis)
+        return run, vis
+
+    def label_runner(fn, chains, slices):
+        c = random_pm1(rng, (chains, slices, n), dev)
+
+        def run(tau):
+            _, b, jp, teff = cluster_inputs(pg, dev, rng, 1, slices, tau,
+                                            classical=slices == 1)
+            return fn(pg, b, jp, teff, c, 7, None, 0, slices == 1)
+        return run
+
+    def line_runner(phase, per_slice_seeds):
+        c = random_pm1(rng, (1, P, n), dev)
+
+        def run(tau):
+            _, b, jp, teff = cluster_inputs(pg, dev, rng, 1, P, tau)
+            t_eff = float(teff[0])
+            p_pair, p_t = ck.line_tables(lut, jp, t_eff, P, dev)
+            x = c
+            for t in range(tau):
+                for color in range(pg.num_colors):
+                    x = (phase(pg, b, jp, p_t, t, t_eff, lut, p_pair, x, 7,
+                               t, color, per_slice_seeds)
+                         if phase is ck.line_phase else
+                         phase(pg, b[t], jp[t], t_eff, lut, x, 7, t, color,
+                               per_slice_seeds, p_pair))
+            return x
+        return run
+
+    rows = []
+    for chains in (1, 16):
+        run, vis = wolff_runner(ck.wolff_anneal, chains)
+        rows.append(("fk_wolff", "cuda", run, (30, 90), 3, chains, P, vis))
+    # the plain versions take 8-60 ms a step: taus far enough apart that
+    # the host's jitter does not swamp the slope
+    run_p, vis_p = wolff_runner(cl.wolff_anneal_ref, 1)
+    rows.append(("fk_wolff", "plain", run_p, (2, 6), 2, 1, P, vis_p))
+    for chains, slices in ((CLUSTER_QMC_READS, P), (CLUSTER_SA_READS, 1)):
+        rows.append(("fk_label", "cuda", label_runner(ck.sw_anneal, chains,
+                                                      slices),
+                     (10, 30), 3, chains, slices, None))
+        rows.append(("fk_label", "plain", label_runner(cl.sw_anneal_ref,
+                                                       chains, slices),
+                     (1, 4), 2, chains, slices, None))
+    for per_slice_seeds in (True, False):
+        rows.append(("fk_line", "cuda", line_runner(ck.line_phase,
+                                                    per_slice_seeds),
+                     (20, 80), 3, 1, P, per_slice_seeds))
+        rows.append(("fk_line", "plain", line_runner(cl.line_phase_ref,
+                                                     per_slice_seeds),
+                     (2, 8), 2, 1, P, per_slice_seeds))
+    for kname, route, run, taus, trials, chains, slices, extra in rows:
+        ms, best = slope_ms(run, taus, trials)
+        rec = {"phase": "timing", "kernel": kname, "route": route,
+               "graph": f"gaussian_torus({L}, 0).to_generic()",
+               "chains": chains, "slices": slices, "taus": list(taus),
+               "best_seconds": {str(k): v for k, v in best.items()},
+               "ms_per_step": ms}
+        visited = None
+        if kname == "fk_wolff":
+            # the cluster sites of the last run, at the largest tau
+            visited = float(extra.sum()) / max(taus)
+            rec["mean_cluster_sites"] = visited / chains
+        if kname == "fk_line":
+            rec["per_slice_seeds"] = extra
+            rec["launches_per_step"] = pg.num_colors
+        bound, bound_by, unit = cluster_bound(kname, chains, slices, n,
+                                              degree, visited)
+        rec.update(bound_ms=bound, bound_by=bound_by, bound_unit=unit,
+                   gpu=name, power_limit=power)
+        emit(rec)
+        check(ms > 0, f"{kname} {route} slope is positive")
+        if "ms" not in results[kname] and route == "cuda":
+            results[kname].update(ms=ms, bound_ms=bound, bound_by=bound_by)
+        elif "plain_ms" not in results[kname] and route == "plain":
+            results[kname]["plain_ms"] = ms
+
+
+def cluster_bench(dev, problem):
+    """Phase cluster_bench: bench/throughput.py's cluster arm
+    (bench.py::_cluster_arm) in full, its four timings and exactly the
+    launches its runs make: a warm run and two trials at each of two taus,
+    fk_wolff once a run (unbatched and 16 chains), WC2 a generic bath
+    launch and a fk_line launch a color a step, WC3 a fk_line launch a
+    color a step."""
+    from montecarlosolvers_tpu_torch.bench import throughput
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    t0 = time.perf_counter()
+    rec = throughput.cluster_arm(problem)
+    colors = ck.generic_form(problem).num_colors
+    emit({"phase": "cluster_bench", **rec,
+          "seconds": time.perf_counter() - t0,
+          "nvidia_smi": throughput.nvidia_smi()})
+    for key in ("wolff_cluster_ms", "wolff_cluster_ms_per_chain",
+                "sw_bath_sweep_ms", "sw_full_sweep_ms"):
+        check(np.isfinite(rec[key]) and rec[key] > 0, f"cluster bench {key}")
+    steps = 3 * (10 + 30)  # a warm run and two trials at tau 10 and 30
+    want = {"fk_wolff": 2 * 3 * 2, "generic_qmc_bath": steps,
+            "fk_line": 2 * steps * colors}
+    check(rec["launches"] == want,
+          f"cluster bench launched {rec['launches']}, its route {want}")
+
+
 def main():
     t_script = time.perf_counter()
     phase_seconds = {}
@@ -2410,6 +2763,10 @@ def main():
     noisy_checks(dev, results, gtorus80, tables)
     phase_seconds["dense_noisy_vs_plain"] = time.perf_counter() - t_script
 
+    # ---- the cluster kernels against their plain versions
+    cluster_checks(dev, results, gtorus80)
+    phase_seconds["cluster_kernel_vs_plain"] = time.perf_counter() - t_script
+
     # ---- main path through solve(), launch counts read around each solve
     try:
         problem, e_gs = instances.santoro_80x80(lattice=True, device=dev)
@@ -2462,12 +2819,25 @@ def main():
             return out.cpu().numpy(), prob.energy(out).cpu().numpy()
         return run
 
+    def cluster_solved(method, **opts):
+        """solve(method) with `opts` beside the slices."""
+        def run(prob, num_reads, sweeps, slices=None):
+            kw = dict(opts, **({} if slices is None else {"slices": slices}))
+            ss = solve(prob, method=method, num_reads=num_reads,
+                       sweeps=sweeps, seed=0, **kw)
+            return ss.samples, ss.energies
+        return run
+
     sa_kw = dict(num_reads=SA_READS, sweeps=SA_SWEEPS)
     qmc_kw = dict(num_reads=QMC_READS, sweeps=QMC_SWEEPS)
     svmc_kw = dict(num_reads=SVMC_READS, sweeps=SVMC_SWEEPS)
     bath_kw = dict(num_reads=BATH_READS, sweeps=BATH_SWEEPS,
                    slices=BATH_SLICES)
     new_kw = dict(bath_kw, sweeps=BATH_NEW_SWEEPS)
+    csa_kw = dict(num_reads=CLUSTER_SA_READS, sweeps=CLUSTER_SA_SWEEPS)
+    cqmc_kw = dict(num_reads=CLUSTER_QMC_READS, sweeps=CLUSTER_QMC_SWEEPS,
+                   slices=CLUSTER_SLICES)
+    gname80 = f"gaussian_torus({L}, 0).to_generic()"
     nbt = f"gaussian_torus({L}, 0), neighbor table"
     sa_run, qmc_run, svmc_run = solved("sa"), solved("piqmc"), solved("svmc")
     # key, lattice name, problem, run(problem, **options) -> (samples,
@@ -2536,6 +2906,26 @@ def main():
          gtorus80, noisy("svmc"), dict(num_reads=SVMC_READS,
                                        sweeps=NOISY_SWEEPS),
          {"packed_svmc_noisy": 1}),
+        # the cluster methods: the classical ones a local sweep and a
+        # cluster launch a step, the PIQMC ones after the pre-anneal's one
+        # SA launch (piqmc_sw: a fk_line launch a color phase;
+        # piqmc_sw_full: a local and a labeling launch a step)
+        ("sa_wolff", gname80, gtorus80, cluster_solved("sa_wolff"),
+         csa_kw, {"packed_sa": CLUSTER_SA_SWEEPS,
+                  "fk_wolff": CLUSTER_SA_SWEEPS}),
+        ("sa_sw", gname80, gtorus80, cluster_solved("sa_sw"), csa_kw,
+         {"packed_sa": CLUSTER_SA_SWEEPS, "fk_label": CLUSTER_SA_SWEEPS}),
+        ("piqmc_wolff_p40", gname80, gtorus80,
+         cluster_solved("piqmc_wolff"), cqmc_kw,
+         {"packed_sa": 1, "fk_wolff": 1}),
+        ("piqmc_sw_p40", gname80, gtorus80,
+         cluster_solved("piqmc_sw", alpha=CLUSTER_ALPHA), cqmc_kw,
+         {"packed_sa": 1,
+          "fk_line": CLUSTER_QMC_SWEEPS * gtorus80.num_colors}),
+        ("piqmc_sw_full_p40", gname80, gtorus80,
+         cluster_solved("piqmc_sw_full"), cqmc_kw,
+         {"packed_sa": 1, "generic_qmc": CLUSTER_QMC_SWEEPS,
+          "fk_label": CLUSTER_QMC_SWEEPS}),
     )
     main_launches = {k: 0 for k in _build.LAUNCHES}
     for key, lname, prob, run, kw, needs in paths:
@@ -2906,6 +3296,7 @@ def main():
               "gpu": name, "power_limit": power})
     dense_noisy_timing(dev, results, sk_problem, gtorus80, tables, power,
                        name)
+    cluster_timing(dev, results, gtorus80, power, name)
     phase_seconds["timing"] = time.perf_counter() - t_script
 
     # ---- the generator instantiations of A, B, 4 and 5 (hw_rng=True)
@@ -2939,6 +3330,10 @@ def main():
     emit({"phase": "bench", "seconds": time.perf_counter() - t0,
           "launches": {k: v for k, v in bench_launches.items() if v}})
     phase_seconds["bench"] = time.perf_counter() - t_script
+
+    # ---- the cluster arm of the bench (bench.py::_cluster_arm)
+    cluster_bench(dev, problem)
+    phase_seconds["cluster_bench"] = time.perf_counter() - t_script
 
     # ---- hw_rng_timing: hash and generator at the pallas_* arms' shapes
     arm_rows, hw_rows = [], []
@@ -3000,9 +3395,10 @@ def main():
     mst_checks(dev, problem, e_gs, torus)
     examples_checks(dev, problem, e_gs, torus)
 
-    # No single PyTorch call computes a Metropolis sweep, so no kernel has a
-    # library yardstick (library_ms null) but the dense engine's: one
-    # sweep's block products by torch.matmul, which its sweep contains.
+    # No single PyTorch call computes a Metropolis sweep or labels the
+    # components of a graph, so no kernel has a library yardstick
+    # (library_ms null) but the dense engine's: one sweep's block products
+    # by torch.matmul, which its sweep contains.
     # The generator instantiations' launches are the bench's, the others'
     # the main path's.
     # The energy kernel's launches are those of the collecting solves.

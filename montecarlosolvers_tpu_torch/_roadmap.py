@@ -3,9 +3,8 @@ queued: every refusal in the port names its ROADMAP.md item through here."""
 
 from __future__ import annotations
 
-CLUSTER = "queue 1, item 2 (cluster updates)"
-SAMPLERS = "queue 1, item 3 (samplers and API)"
-PARALLEL = "queue 1, item 4 (parallel layer)"
+SAMPLERS = "queue 1, item 2 (samplers and API)"
+PARALLEL = "queue 1, item 3 (parallel layer)"
 
 
 def require_problem(problem, sparse_only=None):

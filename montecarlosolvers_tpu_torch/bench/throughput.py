@@ -3,6 +3,7 @@
 
     python -m montecarlosolvers_tpu_torch.bench.throughput [--light]
         [--arms NAME ...] [--device cpu] [--L L] [--taus T1 T2 ...]
+        [--cluster]
 
 Runs on the CUDA card unless `--device cpu` is given, and raises on a host
 without one (`_device.resolve`). Prints one JSON line per arm: its name,
@@ -34,6 +35,17 @@ the Pallas kernels with the TPU's on-chip generator:
     pallas_svmc   anneal_lattice_svmc_split, 128 chains, TF       (:403)
     pallas_bath   anneal_lattice_qmc_bath_split, P = 40, 8 chains,
                   alpha = 1e-2                                    (:430)
+
+`--cluster` runs the cluster arm instead (`cluster_arm`, bench.py::
+_cluster_arm :467) on the same lattice's generic form at P = 40: ms per
+Wolff cluster step (qmc.anneal_wolff, rule "local"), unbatched at tau 30
+and 90 (`wolff_cluster_ms`) and over 16 chains (`wolff_cluster_ms_per_chain`),
+and ms per SW-bath sweep, WC2 (`sw_bath_sweep_ms`, qmc.anneal_sw_bath with
+per_slice_seeds=False and its local sweeps) and WC3 (`sw_full_sweep_ms`,
+per_slice_seeds=True), alpha = 1e-2, each the slope over two taus, best of
+two trials a point, flagged `<key>_degraded` (and the single-shot ms at the
+largest tau given) when the slope is not in (0, single-shot], as bench.py
+flags it. The keys are BENCH_r05.json's; the numbers are not rounded.
 
 bench.py's `chain_block` (the TPU grid's chains per program) has no
 counterpart: the CUDA kernels choose their cluster geometry from the shape
@@ -264,6 +276,79 @@ def run_arm(name, problem, light=False, taus=None, e_gs=None):
     return rec
 
 
+def time_steps(run, taus, clock=time.perf_counter):
+    """(ms per step, degraded) of run(tau, seed) over the tau points
+    (bench.py::_cluster_arm's time_steps): each tau once to warm, then the
+    best of two trials; the slope between the smallest and largest tau,
+    or, when it is not in (0, single-shot], the single-shot ms at the
+    largest tau (overhead included) and degraded=True."""
+    t_at = {}
+    for tau in taus:
+        run(tau, 0)
+        best = np.inf
+        for t in (1, 2):
+            t0 = clock()
+            run(tau, t)
+            best = min(best, clock() - t0)
+        t_at[tau] = best
+    ts = sorted(t_at)
+    slope = (t_at[ts[-1]] - t_at[ts[0]]) / (ts[-1] - ts[0])
+    single = t_at[ts[-1]] / ts[-1]
+    if not 0.0 < slope <= single:
+        return 1e3 * single, True
+    return 1e3 * slope, False
+
+
+# the cluster arm's chains of the batched Wolff timing
+WOLFF_CHAINS = 16
+
+
+def cluster_arm(problem, light=False, taus=None):
+    """bench.py::_cluster_arm on `problem` (a LatticeProblem is taken
+    to_generic() once): the record of BENCH_r05.json's keys, with the
+    launches the arm made. `taus` overrides every timing's tau points;
+    light runs bench.py's light grids and leaves out the batched Wolff
+    and WC3 timings, as bench.py's light run does."""
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels
+
+    prob = cluster_kernels.generic_form(problem)
+    dev = prob.device
+    confs = qmc.replicate(_spins(prob, 1, 7)[0], P)
+    confs_b = qmc.replicate(_spins(prob, WOLFF_CHAINS, 7), P)
+    lut = schedules.bath_lookuptable(P, ALPHA, device=dev)
+    before = dict(_build.LAUNCHES)
+    out = {"arm": "cluster", "slices": P, "sites": prob.nspins}
+
+    def timed(key, run, grid):
+        ms, degraded = time_steps(
+            lambda tau, seed: _fetch(run(tau, seed)), tuple(taus or grid))
+        out[key] = ms
+        if degraded:
+            out[key + "_degraded"] = True
+        return ms
+
+    def wolff(c):
+        return lambda tau, seed: qmc.anneal_wolff(
+            prob, *_field(tau, dev), 1.0 / P, c, _gen(seed), rule="local")
+
+    def sw_bath(per_slice_seeds):
+        return lambda tau, seed: qmc.anneal_sw_bath(
+            prob, *_field(tau, dev), 1.0 / P, lut, confs, _gen(seed),
+            per_slice_seeds=per_slice_seeds)
+
+    timed("wolff_cluster_ms", wolff(confs), (10, 30) if light else (30, 90))
+    if not light:
+        ms = timed("wolff_cluster_ms_per_chain", wolff(confs_b), (30, 90))
+        out["wolff_cluster_ms_per_chain"] = ms / WOLFF_CHAINS
+        out["wolff_cluster_chains"] = WOLFF_CHAINS
+    timed("sw_bath_sweep_ms", sw_bath(False), (4, 12) if light else (10, 30))
+    if not light:
+        timed("sw_full_sweep_ms", sw_bath(True), (10, 30))
+    out["launches"] = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                       if v - before[k]}
+    return out
+
+
 def run_arms(arms=tuple(ARMS), light=False, device=None, side=L, taus=None):
     """Yield the record of each arm of `arms`, in order, on `device` (None:
     the card), each with the card's name and power limit."""
@@ -290,7 +375,18 @@ def main(argv=None):
                          "instance where it is reachable)")
     ap.add_argument("--taus", type=int, nargs="+", default=None,
                     help="every arm's tau points (default: the arm's)")
+    ap.add_argument("--cluster", action="store_true",
+                    help="run the cluster arm (bench.py::_cluster_arm) "
+                         "instead of the throughput arms")
     args = ap.parse_args(argv)
+    if args.cluster:
+        dev = _device.resolve(args.device)
+        problem, _, lattice = problem_of(dev, args.L)
+        rec = cluster_arm(problem, args.light, args.taus)
+        print(json.dumps({**rec, "lattice": lattice, "device": str(dev),
+                          "nvidia_smi": nvidia_smi() if dev.type == "cuda"
+                          else None}), flush=True)
+        return
     for rec in run_arms(args.arms, args.light, args.device, args.L,
                         args.taus):
         print(json.dumps(rec), flush=True)

@@ -140,18 +140,22 @@ generic_qmc_kernel(const int* __restrict__ nbr_idx,
 // phases a step, one CTA of `threads` (256) threads a chain, in one
 // launch. The packed layout's nbr_idx / nbr_J (n, maxnb), h (n), perm (n),
 // starts (ncolors + 1); global_moves != 0 adds the line moves; energies: a
-// (steps, chains) float32 buffer or null. All device pointers; launches on
-// `stream` and returns cudaGetLastError().
+// (steps, chains) float32 buffer or null; step0: the step the hash counts
+// the first sweep as. All device pointers; launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int generic_qmc_anneal(const int* nbr_idx, const float* nbr_J,
                                   const float* h, const int* perm,
                                   const int* starts, const float* b_sched,
                                   const float* jp, float teff, float* s,
                                   float* energies, int chains, int P, int n,
                                   int maxnb, int ncolors, int m, int steps,
-                                  int seed, int global_moves, int threads,
-                                  void* stream) {
+                                  int seed, int step0, int global_moves,
+                                  int threads, void* stream) {
   if (chains == 0 || n == 0 || P == 0) return cudaSuccess;
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  // step0 folds into the seed term: counter(seed_term, t, i) is then
+  // counter(seed, step0 + t, i), and so is every other counter of the step
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
+                             static_cast<uint32_t>(step0) * mcs::kStepMult;
   auto kernel =
       global_moves ? generic_qmc_kernel<true> : generic_qmc_kernel<false>;
   kernel<<<chains, threads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -243,18 +243,22 @@ generic_qmc_bath_kernel(const int* __restrict__ nbr_idx,
 // global_moves != 0 adds the line moves; proper == 0 says a class is not
 // an independent set; snap: scratch of the state's size, needed when
 // colored or not proper (null otherwise); energies: a (steps, chains)
-// float32 buffer or null. All device pointers; launches on `stream` and
-// returns cudaGetLastError().
+// float32 buffer or null; step0: the step the hash counts the first sweep
+// as. All device pointers; launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int generic_qmc_bath_anneal(
     const int* nbr_idx, const float* nbr_J, const float* h, const int* perm,
     const int* starts, const float* b_sched, const float* jp,
     const float* bath, float teff, float two_teff, float* s, float* snap,
     float* energies, int chains, int P, int n, int maxnb, int ncolors, int m,
-    int steps, int seed, int colored, int global_moves, int proper,
+    int steps, int seed, int step0, int colored, int global_moves, int proper,
     int threads, void* stream) {
   if (chains == 0 || n == 0 || P == 0) return cudaSuccess;
   if ((colored || !proper) && snap == nullptr) return cudaErrorInvalidValue;
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  // step0 folds into the seed term: counter(seed_term, t, i) is then
+  // counter(seed, step0 + t, i), and so is every other counter of the step
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
+                             static_cast<uint32_t>(step0) * mcs::kStepMult;
   auto kernel = colored ? (global_moves ? generic_qmc_bath_kernel<true, true>
                                         : generic_qmc_bath_kernel<true, false>)
                         : (global_moves ? generic_qmc_bath_kernel<false, true>

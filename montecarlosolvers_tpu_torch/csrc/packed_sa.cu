@@ -103,18 +103,22 @@ packed_sa_kernel(const int* __restrict__ nbr_idx,
 // (ncolors + 1) are the packed layout's; energies: a (steps, chains)
 // float32 buffer or null; j_stride, h_stride and mcsteps: 0, 0 and 1 for
 // the static tables, else the per-step stacks' strides and the sweeps a
-// row (above). All device pointers; launches on `stream` and returns
-// cudaGetLastError().
+// row (above); step0: the step the hash counts the first sweep as (a
+// one-sweep launch inside a longer anneal). All device pointers; launches
+// on `stream` and returns cudaGetLastError().
 extern "C" int packed_sa_anneal(const int* nbr_idx, const float* nbr_J,
                                 const float* h, const int* perm,
                                 const int* starts, const float* temps,
                                 float* s, float* energies, int chains, int n,
                                 int maxnb, int ncolors, int steps, int seed,
-                                int threads, int j_stride, int h_stride,
+                                int step0, int threads, int j_stride, int h_stride,
                                 int mcsteps, void* stream) {
   if (chains == 0 || n == 0) return cudaSuccess;
   if (mcsteps < 1) return cudaErrorInvalidValue;
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  // step0 folds into the seed term: counter(seed_term, t, i) is then
+  // counter(seed, step0 + t, i), and so is every other counter of the step
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
+                             static_cast<uint32_t>(step0) * mcs::kStepMult;
   packed_sa_kernel<<<chains, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       nbr_idx, nbr_J, h, perm, starts, temps, s, energies, chains, n, maxnb,
       ncolors, steps, seed_term, j_stride, h_stride, mcsteps);

@@ -9,7 +9,8 @@ headers, takes minutes). Building happens only when a kernel is first needed or 
 called; importing this module runs nothing.
 
 The kernel wrappers (`ops/split_kernels.py`, `ops/plane_kernels.py`,
-`ops/generic_kernels.py`, `ops/dense_kernels.py`) share
+`ops/generic_kernels.py`, `ops/dense_kernels.py`,
+`ops/cluster_kernels.py`) share
 the helpers below: the device route, argument checks, error reporting and
 `LAUNCHES`, the one count of kernel launches.
 """
@@ -32,7 +33,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("split_sa", "split_qmc", "split_svmc", "split_qmc_bath",
            "plane_sa", "plane_qmc", "plane_svmc", "energy", "packed_sa",
-           "packed_svmc", "generic_qmc", "generic_qmc_bath", "dense_sa")
+           "packed_svmc", "generic_qmc", "generic_qmc_bath", "dense_sa",
+           "fk_wolff", "fk_label", "fk_line")
 
 # No --use_fast_math: kernels and their plain versions must round alike.
 NVCC_FLAGS = (
@@ -179,10 +181,11 @@ SIGNATURES = {
     },
     "packed_sa": {
         # nbr_idx, nbr_J, h, perm, starts, temps, s (in place), energies,
-        # chains, n, maxnb, ncolors, steps, seed, threads, j_stride,
-        # h_stride, mcsteps (the per-step tables' strides, 0 for the
-        # static ones, and the sweeps a table row), stream
-        "packed_sa_anneal": (_I, [_P] * 8 + [_I] * 10 + [_P]),
+        # chains, n, maxnb, ncolors, steps, seed, step0 (the step the hash
+        # counts the first sweep as), threads, j_stride, h_stride, mcsteps
+        # (the per-step tables' strides, 0 for the static ones, and the
+        # sweeps a table row), stream
+        "packed_sa_anneal": (_I, [_P] * 8 + [_I] * 11 + [_P]),
         "packed_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "packed_svmc": {
@@ -196,20 +199,20 @@ SIGNATURES = {
     },
     "generic_qmc": {
         # nbr_idx, nbr_J, h, perm, starts, b_sched, jp, teff, s (in place),
-        # energies, chains, P, n, maxnb, ncolors, m, steps, seed,
+        # energies, chains, P, n, maxnb, ncolors, m, steps, seed, step0,
         # global_moves, threads, stream
         "generic_qmc_anneal": (
-            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 2 + [_I] * 10 + [_P]
+            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 2 + [_I] * 11 + [_P]
         ),
         "generic_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "generic_qmc_bath": {
         # nbr_idx, nbr_J, h, perm, starts, b_sched, jp, bath, teff, 2*teff,
         # s (in place), snap (scratch or null), energies, chains, P, n,
-        # maxnb, ncolors, m, steps, seed, colored, global_moves, proper,
-        # threads, stream
+        # maxnb, ncolors, m, steps, seed, step0, colored, global_moves,
+        # proper, threads, stream
         "generic_qmc_bath_anneal": (
-            _I, [_P] * 8 + [ctypes.c_float] * 2 + [_P] * 3 + [_I] * 12
+            _I, [_P] * 8 + [ctypes.c_float] * 2 + [_P] * 3 + [_I] * 13
             + [_P]
         ),
         "generic_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
@@ -219,6 +222,29 @@ SIGNATURES = {
         # warps, stream
         "dense_sa_block": (_I, [_P] * 4 + [_I] * 7 + [_P]),
         "dense_sa_block_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "fk_wolff": {
+        # nbr_idx, nbr_J, h, perm, b_sched, jp, teff, lut (or null), s (in
+        # place), visited bits, queues (scratch), visited counts (or null),
+        # chains, P, n, maxnb, steps, seed, step0, rule_full, threads,
+        # stream
+        "fk_wolff_anneal": (_I, [_P] * 12 + [_I] * 9 + [_P]),
+        "fk_wolff_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "fk_label": {
+        # nbr_idx, nbr_J, h, perm, b_sched, jp, teff, lut (or null), s (in
+        # place), parents and flags (scratch, null with smem), chains, P,
+        # n, maxnb, steps, seed, step0, smem, threads, stream
+        "fk_label_anneal": (_I, [_P] * 11 + [_I] * 9 + [_P]),
+        "fk_label_anneal_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "fk_line": {
+        # nbr_idx, nbr_J, h, perm, starts, b_sched, jp, p_t, p_pair, teff,
+        # s (in place), chains, P, n, maxnb, t, step, color, class size,
+        # seed, per_slice_seeds, warps, stream
+        "fk_line_phase": (
+            _I, [_P] * 9 + [ctypes.c_float] + [_P] + [_I] * 11 + [_P]),
+        "fk_line_phase_error_string": (ctypes.c_char_p, [_I]),
     },
     "energy": {
         # w, h, a, b, chains, P, L, nslots, cos_theta, out, stream
@@ -277,6 +303,10 @@ LAUNCHES.update({"packed_sa": 0, "packed_svmc": 0, "generic_qmc": 0,
 # its in-block kernel once a block and sweep.
 LAUNCHES.update({"packed_sa_noisy": 0, "packed_svmc_noisy": 0,
                  "dense_sa": 0})
+# The cluster kernels (ops/cluster_kernels.py): fk_wolff and fk_label once
+# an anneal, or once a step where local sweeps interleave; fk_line once a
+# color phase.
+LAUNCHES.update({"fk_wolff": 0, "fk_label": 0, "fk_line": 0})
 
 
 def reset_launches():

@@ -26,6 +26,49 @@ site's original index: one uniform per site and sweep at counter(seed, t,
 0), the PIQMC line moves at line_counter(seed, t, 0) and the SVMC
 acceptances at svmc_accept_counter(seed, t, 0).
 
+The cluster updates (`ops/cluster.py`, `ops/cluster_kernels.py`,
+csrc/fk_*.cu; no Pallas kernel covers them either) draw from streams of
+their own, `cluster_counter(seed, t, stream) = counter(seed, t,
+CLUSTER_INDEX + stream)`, one stream a kind of draw. Their uids are keyed
+so that a kernel can draw a bond only when its search reaches it and still
+get the uniform the plain version drew for it; `ids` is each site's
+ORIGINAL index (the packed layout's `perm`), P the slices, N the spins,
+maxnb the table's slots:
+
+    stream        draw                                uid
+    SP_BOND       spatial bond of slot m of the       ((chain * P + k) * N
+                  row of the pair's endpoint whose       + ids[i]) * maxnb + m
+                  id is lower (rule "full": of
+                  either row), slice k
+    TROTTER_BOND  bond (k, k + 1 mod P) of spin i     (chain * P + k) * N
+                                                         + ids[i]
+    BATH_BOND     bath pair (lo, hi) = (min(k, q),    ((chain * N + ids[i])
+                  max(k, q)) of spin i's line           * P + lo) * P + hi
+    WOLFF_SEED    the Wolff seed's packed position    2 * chain
+                  and its slice, floor(u * n)         2 * chain + 1
+                  clamped to n - 1
+    ACCEPT        the field accept of the Wolff       chain
+                  cluster
+    LINE_ACCEPT   the accept of a line's cluster,     (chain * P + k) * N
+                  k = 0 (bath_cluster_phase) or        + ids[i]
+                  its lowest slice (sw_full_phase)
+    LINE_SEED     a line's seed slice (WC2), once a   chain * N + ids[i]
+                  sweep, floor(u * P) clamped
+    COIN          the Swendsen-Wang coin of the       chain * P * N + label
+                  component labeled `label` (its
+                  least k * N + ids[i]), u < 0.5
+    GHOST         the ghost-spin bond of site (k, i)  (chain * P + k) * N
+                                                         + ids[i]
+
+A step's draws are keyed by step only: the color phases of one sweep read
+the same uniforms, and each line uses them only in its own color's phase.
+The indices CLUSTER_INDEX + stream and the 0..3 of the other kernels differ
+by at most 16, and d * INDEX_MULT = dt * STEP_MULT (mod 2**32) has no
+solution with 0 < d <= 36 and |dt| < 2**26: no cluster counter equals
+counter(seed, t', 0), the local sweeps' counter, for any two steps of a
+schedule shorter than 67 million sweeps. The cluster solvers run their
+local sweeps without line moves, so no other counter shares their seed.
+
 Two torch pitfalls this module avoids:
   * `>>` on an int32 tensor is an arithmetic shift; the hash needs a logical
     one, emulated as `(x >> n) & ((1 << (32 - n)) - 1)`.
@@ -52,6 +95,10 @@ _M2 = -1028477387  # 0xc2b2ae35
 # (pallas_svmc.py:94)
 LINE_XOR = 374761393
 LINE_MULT = 69069
+# first counter index of the cluster streams, and the streams
+CLUSTER_INDEX = 8
+(SP_BOND, TROTTER_BOND, BATH_BOND, WOLFF_SEED, ACCEPT, LINE_ACCEPT,
+ LINE_SEED, COIN, GHOST) = range(9)
 # TPU tile of the full-plane kernels' padded planes (pallas_sa.py:57-58):
 # their site ids stride by pad8(L) rows of pad128(L) columns
 SUBLANE = 8
@@ -86,6 +133,18 @@ def svmc_accept_counter(seed, step, color):
     since `+` binds tighter than `^`; unlike `line_counter`, nothing is
     added after the XOR."""
     return wrap_int32(counter(seed, step, color) ^ LINE_XOR)
+
+
+def cluster_counter(seed, step, stream):
+    """Counter of cluster stream `stream` at `step` (module docstring)."""
+    return counter(seed, step, CLUSTER_INDEX + stream)
+
+
+def index_draw(u, n):
+    """floor(u * n) clamped to n - 1, as int64, for float32 uniforms `u`:
+    how a seed position or slice is drawn from one uniform (the product is
+    rounded in float32, as the kernels round it)."""
+    return torch.floor(u * float(n)).long().clamp(max=n - 1)
 
 
 def _srl(x, n):

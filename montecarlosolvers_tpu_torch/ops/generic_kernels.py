@@ -78,18 +78,20 @@ def _step_tables(tables, t):
 
 
 def packed_sa_anneal_ref(pg, temps, spins, seed, energies=None,
-                         tables=None):
+                         tables=None, step0=0):
     """Plain form of csrc/packed_sa.cu: anneal packed spins (chains, N)
     over the float32 temperatures `temps` (steps,), sweep t by
     `packed_sweep` on the uniforms of counter(seed, t, 0). With `energies`,
     a (steps, chains) float32 buffer, row t receives each chain's
     `packed_energy` after sweep t. With `tables` = (nbr_J (rows, N,
     maxnb), h (rows, N), mcsteps), per-step couplings in packed row order,
-    sweep t reads row t // mcsteps (the noisy anneal; no energies)."""
+    sweep t reads row t // mcsteps (the noisy anneal; no energies). step0:
+    the step the hash counts sweep 0 as (a one-sweep call inside a longer
+    anneal, as the cluster solvers make)."""
     hu = cr.hashed_uid(cr.generic_uids(spins.shape[0], pg.perm, pg.nspins))
     s = spins
     for t in range(temps.shape[0]):
-        u = cr.uniform01_hashed(cr.counter(seed, t, 0), hu)
+        u = cr.uniform01_hashed(cr.counter(seed, step0 + t, 0), hu)
         s = packed_ops.packed_sweep(pg, s, u, temps[t],
                                     **_step_tables(tables, t))
         if energies is not None:
@@ -122,24 +124,26 @@ def packed_svmc_anneal_ref(pg, a_sched, b_sched, temp, theta, seed, tf,
 
 
 def generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed, global_moves,
-                           energies=None):
+                           energies=None, step0=0):
     """Plain form of csrc/generic_qmc.cu on packed confs (chains, P, N):
     sweep t is `piqmc.local_sweep` on the packed problem with B_t, J_perp_t
     (float32 (steps,) tensors) at T_eff = `teff` (a Python float), on the
     uniforms of counter(seed, t, 0) at the (chain, slice, original site)
     ids, then, with `global_moves`, `piqmc.global_line_moves` on those of
     line_counter(seed, t, 0) at the slice-0 ids. With `energies`, row t
-    receives each chain's least slice energy after step t."""
+    receives each chain's least slice energy after step t. step0: the step
+    the hash counts sweep 0 as."""
     prob = pg.as_problem()
     chains, P, n = confs.shape
     hu = cr.hashed_uid(cr.generic_uids(chains, pg.perm, n, slices=P))
     hu0 = hu[:, 0]
     c = confs
     for t in range(b_sched.shape[0]):
-        u = cr.uniform01_hashed(cr.counter(seed, t, 0), hu)
+        u = cr.uniform01_hashed(cr.counter(seed, step0 + t, 0), hu)
         c = piqmc_ops.local_sweep(prob, c, u, teff, jp[t], b_sched[t])
         if global_moves:
-            ul = cr.uniform01_hashed(cr.line_counter(seed, t, 0), hu0)
+            ul = cr.uniform01_hashed(cr.line_counter(seed, step0 + t, 0),
+                                     hu0)
             c = piqmc_ops.global_line_moves(prob, c, ul, teff, b_sched[t])
         if energies is not None:
             energies[t] = torch.min(packed_ops.packed_energy(pg, c),
@@ -148,12 +152,14 @@ def generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed, global_moves,
 
 
 def generic_qmc_bath_anneal_ref(pg, b_sched, jp, teff, bath, confs, seed,
-                                global_moves, colored=False, energies=None):
+                                global_moves, colored=False, energies=None,
+                                step0=0):
     """Plain form of csrc/generic_qmc_bath.cu on packed confs (chains, P,
     N), P >= 2: sweep t is `piqmc.dissipative_local_sweep` (with `colored`,
     `dissipative_colored_sweep`) on the packed problem with B_t, J_perp_t
     and the (P, P) `bath` matrix, then the line moves, uniforms and
-    energies all as in `generic_qmc_anneal_ref`. On a packing that is not
+    energies and step0 all as in `generic_qmc_anneal_ref`. On a packing
+    that is not
     `proper` the masked sweeps read a same-class neighbour as it stood at
     the start of its class's phase, which is what the kernel must match."""
     prob = pg.as_problem()
@@ -163,10 +169,11 @@ def generic_qmc_bath_anneal_ref(pg, b_sched, jp, teff, bath, confs, seed,
     hu = cr.hashed_uid(cr.generic_uids(chains, pg.perm, n, slices=P))
     c = confs
     for t in range(b_sched.shape[0]):
-        u = cr.uniform01_hashed(cr.counter(seed, t, 0), hu)
+        u = cr.uniform01_hashed(cr.counter(seed, step0 + t, 0), hu)
         c = sweep(prob, c, u, teff, jp[t], b_sched[t], bath)
         if global_moves:
-            ul = cr.uniform01_hashed(cr.line_counter(seed, t, 0), hu[:, 0])
+            ul = cr.uniform01_hashed(cr.line_counter(seed, step0 + t, 0),
+                                     hu[:, 0])
             c = piqmc_ops.global_line_moves(prob, c, ul, teff, b_sched[t])
         if energies is not None:
             energies[t] = torch.min(packed_ops.packed_energy(pg, c),
@@ -212,14 +219,16 @@ def _check_tables(pg, tables, steps, energies, device):
             n * maxnb, n, int(mcsteps))
 
 
-def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None):
+def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
+                     step0=0):
     """csrc/packed_sa.cu on CUDA tensors, `packed_sa_anneal_ref` on CPU
     tensors; arguments as for the plain version. Returns the new spins
     (a copy: the kernel anneals it in place). One launch
     (LAUNCHES["packed_sa"], energies or not; with `tables`,
     LAUNCHES["packed_sa_noisy"])."""
     if _build.route(spins.device, "packed") == "cpu":
-        return packed_sa_anneal_ref(pg, temps, spins, seed, energies, tables)
+        return packed_sa_anneal_ref(pg, temps, spins, seed, energies, tables,
+                                    step0)
     chains, n = spins.shape
     dev = spins.device
     steps = int(temps.shape[0])
@@ -233,7 +242,8 @@ def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None):
         *graph, _build.ptr(temps), _build.ptr(out),
         _build.energies_ptr(energies, steps, chains, dev), chains, n,
         pg.nbr_idx.shape[1], pg.num_colors, steps, cr.wrap_int32(seed),
-        THREADS, j_stride, h_stride, mcsteps, _build.stream_of(dev))
+        int(step0), THREADS, j_stride, h_stride, mcsteps,
+        _build.stream_of(dev))
     _build.raise_on_error(lib, "packed_sa_anneal", rc)
     _build.LAUNCHES["packed_sa" if tables is None
                     else "packed_sa_noisy"] += 1
@@ -274,14 +284,14 @@ def packed_svmc_anneal(pg, a_sched, b_sched, temp, theta, seed, tf,
 
 
 def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
-                       energies=None):
+                       energies=None, step0=0):
     """csrc/generic_qmc.cu on CUDA tensors, `generic_qmc_anneal_ref` on
     CPU tensors; arguments as for the plain version. Returns the new
     configurations. One launch (LAUNCHES["generic_qmc"]), energies or
     not."""
     if _build.route(confs.device, "packed") == "cpu":
         return generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed,
-                                      global_moves, energies)
+                                      global_moves, energies, step0)
     chains, P, n = confs.shape
     dev = confs.device
     graph = _check_graph(pg, dev)
@@ -296,7 +306,7 @@ def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
         _build.ptr(out), _build.energies_ptr(energies, steps, chains, dev),
         chains, P, n, pg.nbr_idx.shape[1], pg.num_colors,
         piqmc_ops.spacetime_num_phases(pg.num_colors, P), steps,
-        cr.wrap_int32(seed), int(bool(global_moves)), THREADS,
+        cr.wrap_int32(seed), int(step0), int(bool(global_moves)), THREADS,
         _build.stream_of(dev))
     _build.raise_on_error(lib, "generic_qmc_anneal", rc)
     _build.LAUNCHES["generic_qmc"] += 1
@@ -304,7 +314,8 @@ def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
 
 
 def generic_qmc_bath_anneal(pg, b_sched, jp, teff, bath, confs, seed,
-                            global_moves, colored=False, energies=None):
+                            global_moves, colored=False, energies=None,
+                            step0=0):
     """csrc/generic_qmc_bath.cu on CUDA tensors, `generic_qmc_bath_anneal_ref`
     on CPU tensors; arguments as for the plain version. Returns the new
     configurations. One launch (LAUNCHES["generic_qmc_bath"]), sequential
@@ -312,7 +323,7 @@ def generic_qmc_bath_anneal(pg, b_sched, jp, teff, bath, confs, seed,
     if _build.route(confs.device, "packed") == "cpu":
         return generic_qmc_bath_anneal_ref(pg, b_sched, jp, teff, bath,
                                            confs, seed, global_moves,
-                                           colored, energies)
+                                           colored, energies, step0)
     chains, P, n = confs.shape
     dev = confs.device
     graph = _check_graph(pg, dev)
@@ -331,7 +342,8 @@ def generic_qmc_bath_anneal(pg, b_sched, jp, teff, bath, confs, seed,
         _build.energies_ptr(energies, steps, chains, dev), chains, P, n,
         pg.nbr_idx.shape[1], pg.num_colors,
         piqmc_ops.spacetime_num_phases(pg.num_colors, P), steps,
-        cr.wrap_int32(seed), int(bool(colored)), int(bool(global_moves)),
+        cr.wrap_int32(seed), int(step0), int(bool(colored)),
+        int(bool(global_moves)),
         int(pg.proper), THREADS, _build.stream_of(dev))
     _build.raise_on_error(lib, "generic_qmc_bath_anneal", rc)
     _build.LAUNCHES["generic_qmc_bath"] += 1

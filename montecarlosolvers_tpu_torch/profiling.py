@@ -3,7 +3,7 @@ main-path solves of chip_smoke.py.
 
 Run from the repository root on a CUDA machine:
 
-    python -m montecarlosolvers_tpu_torch.profiling
+    python -m montecarlosolvers_tpu_torch.profiling [--paths KEY ...]
 
 For each solve it prints one JSON line: the host wall time of the traced
 solve, the device busy time (the union of the device intervals) and its
@@ -20,10 +20,16 @@ sweeps; the noisy anneals run sa.anneal_noisy (1280 chains) and
 svmc.anneal_noisy (256 chains, TF) over 1000 steps of per-step tables
 nbr_J (1 + 0.1 xi) on the 80x80 torus's generic form, xi drawn on the card
 (chip_smoke.py draws its tables with numpy instead, for its JAX anchors).
+The cluster methods run as chip_smoke.py runs them on the 80x80 torus's
+generic form: solve("sa_wolff") and solve("sa_sw") at 64 reads, 200
+sweeps; solve("piqmc_wolff"), solve("piqmc_sw", alpha = 1e-2) and
+solve("piqmc_sw_full") at 8 reads, 50 sweeps, P = 40. `--paths` traces
+only the solves of those keys.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from functools import partial
@@ -104,7 +110,11 @@ def noisy_run(kind, problem, chains, steps, dev):
     return run
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--paths", nargs="+", default=None,
+                    help="trace only these solves (default: all)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch sees no CUDA device")
     dev = torch.device("cuda", 0)
@@ -151,7 +161,23 @@ def main():
         ("svmc_noisy", f"{generic_name}, noisy tables",
          noisy_run("svmc", generic, 256, 1000, dev)),
     )
+    cluster = dict(num_reads=8, sweeps=50, seed=1, slices=40)
+    runs += (
+        ("sa_wolff", generic_name, partial(solve, generic, "sa_wolff",
+                                           num_reads=64, sweeps=200,
+                                           seed=1)),
+        ("sa_sw", generic_name, partial(solve, generic, "sa_sw",
+                                        num_reads=64, sweeps=200, seed=1)),
+        ("piqmc_wolff_p40", generic_name,
+         partial(solve, generic, "piqmc_wolff", **cluster)),
+        ("piqmc_sw_p40", generic_name,
+         partial(solve, generic, "piqmc_sw", alpha=1e-2, **cluster)),
+        ("piqmc_sw_full_p40", generic_name,
+         partial(solve, generic, "piqmc_sw_full", **cluster)),
+    )
     for key, lname, run in runs:
+        if args.paths is not None and key not in args.paths:
+            continue
         print(json.dumps({"phase": "profile", "path": key, "lattice": lname,
                           "gpu": torch.cuda.get_device_name(0),
                           **profile_run(run)}), flush=True)

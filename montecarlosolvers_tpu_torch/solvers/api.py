@@ -5,10 +5,13 @@ montecarlosolvers_tpu/solvers/api.py).
 arrays, samples sorted by energy. The port covers the methods "sa",
 "piqmc" (at any P) and "svmc" on any LatticeProblem (any L, open or
 periodic) and on any IsingProblem (the generic kernels of
-`ops/generic_kernels.py`), and "sa" on a DenseProblem (the dense engine,
-`ops/dense_kernels.py`); the JAX package's other methods raise
-NotImplementedError naming their ROADMAP.md item, and a problem of the JAX
-package is refused (`convert.py` carries one across).
+`ops/generic_kernels.py`), "sa" on a DenseProblem (the dense engine,
+`ops/dense_kernels.py`), and the cluster methods "sa_wolff", "sa_sw",
+"piqmc_wolff", "piqmc_sw" and "piqmc_sw_full" on a LatticeProblem (taken
+to_generic()) or an IsingProblem (`ops/cluster_kernels.py`); the JAX
+package's other methods raise NotImplementedError naming their ROADMAP.md
+item, and a problem of the JAX package is refused (`convert.py` carries
+one across).
 """
 
 from __future__ import annotations
@@ -57,17 +60,20 @@ def _finalize(problem, states, info, energies=None):
 
 _METHOD_KW = {
     "sa": {"t_start", "t_end"},
+    "sa_wolff": {"t_start", "t_end", "local_sweeps"},
+    "sa_sw": {"t_start", "t_end", "local_sweeps"},
     "piqmc": {"slices", "pt", "field_start", "pre_anneal"},
+    "piqmc_wolff": {"slices", "pt", "field_start", "pre_anneal", "rule",
+                    "alpha"},
+    "piqmc_sw": {"slices", "pt", "field_start", "pre_anneal", "alpha",
+                 "per_slice_seeds"},
+    "piqmc_sw_full": {"slices", "pt", "field_start", "pre_anneal", "alpha",
+                      "local_sweeps"},
     "svmc": {"field_start", "temp"},
 }
 
 # the JAX package's other methods, and where the port queues them
 _NOT_PORTED = {
-    "sa_wolff": _roadmap.CLUSTER,
-    "sa_sw": _roadmap.CLUSTER,
-    "piqmc_wolff": _roadmap.CLUSTER,
-    "piqmc_sw": _roadmap.CLUSTER,
-    "piqmc_sw_full": _roadmap.CLUSTER,
     "pt": _roadmap.SAMPLERS,
     "icm": _roadmap.SAMPLERS,
     "pa": _roadmap.SAMPLERS,
@@ -87,6 +93,20 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
                 each, examples/santoro80.py:284-285, through whichever SA
                 engine the problem takes). Each read returns its best
                 slice.
+      "sa_wolff" — classical annealing with one Wolff cluster a sweep;
+                kw: t_start=3.0, t_end=0.05 (cluster bonds degenerate at
+                T = 0), local_sweeps=True (a colored sweep before each).
+      "sa_sw" — classical Swendsen-Wang, every cluster a sweep; kw as
+                sa_wolff.
+      "piqmc_wolff" — PIQMC with one space-time Wolff cluster a sweep; kw:
+                piqmc's + rule="local" | "full", alpha (bath bonds when
+                given).
+      "piqmc_sw" — dissipative PIQMC with SW bath line clusters
+                (qmc.anneal_sw_bath); kw: piqmc's + alpha=1e-3,
+                per_slice_seeds=True.
+      "piqmc_sw_full" — PIQMC with full space-time Swendsen-Wang sweeps
+                (qmc.anneal_sw); kw: piqmc's + alpha (optional bath
+                bonds), local_sweeps=True.
       "svmc"  — spin-vector MC with TF proposals; kw: field_start=3.0,
                 temp=0.05. A: field_start -> 1e-8 over `sweeps`, B = 1;
                 each read returns the z-projection of its angles.
@@ -113,11 +133,21 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
     n = problem.nspins
     info = dict(method=method, num_reads=num_reads, sweeps=sweeps, seed=seed)
 
-    if method == "sa":
-        sched = schedules.linear(kw.get("t_start", 3.0), kw.get("t_end", 0.0),
-                                 sweeps, device=dev)
+    if method in ("sa", "sa_wolff", "sa_sw"):
+        # cluster bond probabilities degenerate at T = 0 (every satisfied
+        # bond activates), so the cluster anneals stop at a small floor
+        sched = schedules.linear(
+            kw.get("t_start", 3.0),
+            kw.get("t_end", 0.0 if method == "sa" else 0.05), sweeps,
+            device=dev)
         s0 = sa_mod.random_state(gen, n, batch=(num_reads,), device=dev)
-        out = sa_mod.anneal(problem, sched, s0, gen)
+        if method == "sa":
+            out = sa_mod.anneal(problem, sched, s0, gen)
+        else:
+            run = (sa_mod.anneal_wolff if method == "sa_wolff"
+                   else sa_mod.anneal_sw)
+            out = run(problem, sched, s0, gen,
+                      local_sweeps=kw.get("local_sweeps", True))
         return _finalize(problem, out, info)
 
     if method == "svmc":
@@ -128,7 +158,7 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
                               kw.get("temp", 0.05), th, gen, tf=True)
         return _finalize(problem, svmc_mod.z_projection(out), info)
 
-    # method == "piqmc"
+    # the PIQMC methods
     slices = kw.get("slices", 20)
     pt = kw.get("pt", 1.0)
     s0 = sa_mod.random_state(gen, n, batch=(num_reads,), device=dev)
@@ -138,8 +168,26 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
     confs = qmc_mod.replicate(s0, slices)
     a = schedules.transverse_field(kw.get("field_start", 3.0), 1e-8, sweeps,
                                    device=dev)
-    confs = qmc_mod.anneal(problem, a, torch.ones_like(a), pt / slices, confs,
-                           gen, global_moves=True)
+    b = torch.ones_like(a)
+    lut = (schedules.bath_lookuptable(slices, kw["alpha"], device=dev)
+           if "alpha" in kw else None)
+    if method == "piqmc":
+        confs = qmc_mod.anneal(problem, a, b, pt / slices, confs, gen,
+                               global_moves=True)
+    elif method == "piqmc_wolff":
+        confs = qmc_mod.anneal_wolff(problem, a, b, pt / slices, confs, gen,
+                                     rule=kw.get("rule", "local"),
+                                     lookuptable=lut)
+    elif method == "piqmc_sw":
+        lut = schedules.bath_lookuptable(slices, kw.get("alpha", 1e-3),
+                                         device=dev)
+        confs = qmc_mod.anneal_sw_bath(
+            problem, a, b, pt / slices, lut, confs, gen,
+            per_slice_seeds=kw.get("per_slice_seeds", True))
+    else:  # piqmc_sw_full: the global space-time SW decomposition
+        confs = qmc_mod.anneal_sw(problem, a, b, pt / slices, confs, gen,
+                                  lookuptable=lut,
+                                  local_sweeps=kw.get("local_sweeps", True))
     # best slice per read, chosen on the host as the JAX solve chooses it
     es = problem.energy(confs).cpu().numpy()  # (reads, P)
     best_k = es.argmin(axis=-1)

@@ -41,14 +41,21 @@ the JAX solver's masked `local_sweep` + `global_line_moves` (solvers/qmc.py:
 `collect_energy=True` returns the best-slice energy after each sweep beside
 the state, on every route, as `sa.anneal` does (there: how the card
 computes it).
+
+The cluster solvers `anneal_wolff`, `anneal_sw` and `anneal_sw_bath` run
+an IsingProblem (a LatticeProblem taken to_generic()) on the cluster
+kernels of `ops/cluster_kernels.py`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from montecarlosolvers_tpu_torch import _roadmap
 from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+from montecarlosolvers_tpu_torch.ops import cluster_kernels
 from montecarlosolvers_tpu_torch.ops import generic_kernels
 from montecarlosolvers_tpu_torch.ops import plane_kernels
 from montecarlosolvers_tpu_torch.ops import split as split_ops
@@ -122,16 +129,81 @@ def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
                   global_moves=global_moves, collect_energy=collect_energy)
 
 
-def anneal_wolff(*args, **kwargs):
-    """PIQMC with Wolff cluster updates: not ported yet."""
-    raise _roadmap.not_ported("qmc.anneal_wolff", _roadmap.CLUSTER)
+def _bath_guard(problem, confs, what):
+    """The JAX solvers' memory guard (solvers/qmc.py:200-214): their bath
+    bond draw holds about three (chains, N, P, P) float32 tensors, and more
+    than 8 GiB of them is refused. The kernels here draw a bath bond only
+    when they reach it, but the contract is the reference's."""
+    chains = math.prod(confs.shape[:-2])
+    slices = confs.shape[-2]
+    est = 3 * 4 * chains * problem.nspins * slices * slices
+    if est > 8 << 30:
+        raise ValueError(
+            f"{what} bath draw needs ~{est / 2**30:.1f} GiB of (chains="
+            f"{chains}, N={problem.nspins}, P={slices}) imaginary-time bond "
+            "tensors: reduce the chain batch (e.g. <= 8 chains at N=6400, "
+            "P=40) or split the chains across calls")
 
 
-def anneal_sw(*args, **kwargs):
-    """PIQMC with space-time Swendsen-Wang sweeps: not ported yet."""
-    raise _roadmap.not_ported("qmc.anneal_sw", _roadmap.CLUSTER)
+def anneal_wolff(problem, a_sched, b_sched, temp, confs, generator,
+                 mcsteps=1, rule="local", lookuptable=None):
+    """PIQMC anneal with Wolff cluster updates, one cluster a chain and
+    step (JAX `anneal_wolff`, solvers/qmc.py:185; QuantumAnnealWCL with
+    rule="local", QuantumAnnealWC with rule="full", and with a
+    `lookuptable` the bath bonds of DissaptiveQuantumAnnealWCL).
+
+    problem: IsingProblem, or a LatticeProblem (taken to_generic()).
+    confs: (..., P, N) float32 +/-1 on the problem's device; the other
+    arguments as for `anneal`. On the card csrc/fk_wolff.cu runs the
+    whole schedule in one launch. Returns the annealed configurations."""
+    _roadmap.require_problem(problem, "qmc.anneal_wolff")
+    problem = cluster_kernels.generic_form(problem)
+    if lookuptable is not None:
+        _bath_guard(problem, confs, "dissipative Wolff")
+    return cluster_kernels.qmc_cluster_anneal(
+        problem, a_sched, b_sched, temp, confs, draw_seed(generator),
+        mcsteps, "wolff", rule, lookuptable)
 
 
-def anneal_sw_bath(*args, **kwargs):
-    """Dissipative PIQMC with bath-bond clusters: not ported yet."""
-    raise _roadmap.not_ported("qmc.anneal_sw_bath", _roadmap.CLUSTER)
+def anneal_sw(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
+              lookuptable=None, local_sweeps=False):
+    """PIQMC anneal with full space-time Swendsen-Wang sweeps (JAX
+    `anneal_sw`, solvers/qmc.py:247): every FK cluster of the (P, N)
+    system (spatial, Trotter and optional bath bonds) flips on a fair coin
+    each step; local_sweeps=True interleaves a space-time local sweep
+    before each. Arguments as for `anneal_wolff`. On the card
+    csrc/fk_label.cu, one launch an anneal, or with local sweeps one of it
+    and one of csrc/generic_qmc.cu a step. Returns the annealed
+    configurations."""
+    _roadmap.require_problem(problem, "qmc.anneal_sw")
+    problem = cluster_kernels.generic_form(problem)
+    if lookuptable is not None:
+        _bath_guard(problem, confs, "space-time SW")
+    return cluster_kernels.qmc_cluster_anneal(
+        problem, a_sched, b_sched, temp, confs, draw_seed(generator),
+        mcsteps, "sw", lookuptable=lookuptable, local_sweeps=local_sweeps)
+
+
+def anneal_sw_bath(problem, a_sched, b_sched, temp, lookuptable, confs,
+                   generator, mcsteps=1, per_slice_seeds=True,
+                   local_sweeps=True):
+    """Dissipative anneal with Swendsen-Wang-style bath-bond clusters along
+    imaginary time (JAX `anneal_sw_bath`, solvers/qmc.py:313; the WC2 / WC3
+    family, qmc.pyx:1231-1621).
+
+    per_slice_seeds=True (WC3): every line of a color class decomposes into
+    clusters over its bath and Trotter bonds, each accepted on its own
+    field energy (`ops/cluster.py::sw_full_phase`). per_slice_seeds=False
+    (WC2): one random seed slice a line, its bath cluster accepted on the
+    non-bath set-flip energy (`bath_cluster_phase`), after a dissipative
+    local sweep when `local_sweeps`. lookuptable: the (P-1,) bath
+    couplings, P >= 2. problem: IsingProblem, or a LatticeProblem (taken
+    to_generic(), as the other cluster solvers take it). On the card
+    csrc/fk_line.cu once a color phase (P <= 64), and
+    csrc/generic_qmc_bath.cu once a step for WC2's local sweeps. Returns
+    the annealed configurations."""
+    _roadmap.require_problem(problem, "qmc.anneal_sw_bath")
+    return cluster_kernels.sw_bath_anneal(
+        cluster_kernels.generic_form(problem), a_sched, b_sched, temp,
+        lookuptable, confs, draw_seed(generator), mcsteps, per_slice_seeds,
+        local_sweeps)

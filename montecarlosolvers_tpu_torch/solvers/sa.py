@@ -28,6 +28,10 @@ The states are those of the same call without it.
 `anneal_noisy` anneals an IsingProblem on per-step coupling tables
 (sa.NoisyAnneal, sa.pyx:291-378) through the packed kernel's table
 variant, one launch an anneal.
+
+`anneal_wolff` and `anneal_sw` are the classical cluster anneals on the
+cluster kernels of `ops/cluster_kernels.py` (a LatticeProblem taken
+to_generic(), as the JAX solvers take it).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from montecarlosolvers_tpu_torch import _device, _roadmap, schedules
 from montecarlosolvers_tpu_torch.models.dense import DenseProblem
 from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+from montecarlosolvers_tpu_torch.ops import cluster_kernels
 from montecarlosolvers_tpu_torch.ops import dense_kernels
 from montecarlosolvers_tpu_torch.ops import generic_kernels
 from montecarlosolvers_tpu_torch.ops import plane_kernels
@@ -125,11 +130,37 @@ def anneal_noisy(problem, sched, nbr_J_sched, h_sched, spins, generator,
         mcsteps=mcsteps)
 
 
-def anneal_wolff(*args, **kwargs):
-    """Classical Wolff cluster anneal: not ported yet."""
-    raise _roadmap.not_ported("sa.anneal_wolff", _roadmap.CLUSTER)
+def anneal_wolff(problem, sched, spins, generator, mcsteps=1,
+                 local_sweeps=True):
+    """Classical annealing or sampling with Wolff cluster updates (JAX
+    `anneal_wolff`, solvers/sa.py:162): one cluster a chain and schedule
+    step, the space-time engine at P = 1 and Gamma = inf (J_perp = 0: the
+    satisfied-bond draw holds spatial bonds only, with the Metropolis field
+    correction); local_sweeps=True precedes each cluster with a colored
+    Metropolis sweep.
+
+    problem: IsingProblem, or a LatticeProblem (taken to_generic(), as the
+    JAX solver takes it). sched: (steps,) temperatures (a constant one
+    samples at fixed T). spins: (..., N) float32 +/-1 on the problem's
+    device. On the card: csrc/fk_wolff.cu, one launch an anneal, or with
+    local sweeps one launch of it and one of csrc/packed_sa.cu a step
+    (`ops/cluster_kernels.py`). Returns the annealed spins."""
+    _roadmap.require_problem(problem, "sa.anneal_wolff")
+    return cluster_kernels.classical_anneal(
+        cluster_kernels.generic_form(problem), sched, spins,
+        draw_seed(generator), mcsteps, "wolff", local_sweeps)
 
 
-def anneal_sw(*args, **kwargs):
-    """Classical Swendsen-Wang anneal: not ported yet."""
-    raise _roadmap.not_ported("sa.anneal_sw", _roadmap.CLUSTER)
+def anneal_sw(problem, sched, spins, generator, mcsteps=1,
+              local_sweeps=False):
+    """Classical Swendsen-Wang annealing or sampling (JAX `anneal_sw`,
+    solvers/sa.py:216): every FK cluster of the problem flips on a fair
+    coin each step, fields by ghost-spin bonds; local_sweeps=True
+    interleaves a colored Metropolis sweep before each SW sweep. Arguments
+    as for `anneal_wolff`. On the card: csrc/fk_label.cu, one launch an
+    anneal, or with local sweeps one of it and one of csrc/packed_sa.cu a
+    step. Returns the annealed spins."""
+    _roadmap.require_problem(problem, "sa.anneal_sw")
+    return cluster_kernels.classical_anneal(
+        cluster_kernels.generic_form(problem), sched, spins,
+        draw_seed(generator), mcsteps, "sw", local_sweeps)

@@ -51,7 +51,13 @@ also builds the generic bath kernel's inputs, on an IsingProblem or on a
 lattice's checkerboard packing, and `bath_colored_case` those of kernel
 5's colored template.
 
+The cluster section holds the cluster solvers' engines
+(`ops/cluster_kernels.py`) to the same weights: `two_spin_problem` (the
+pair of tests/test_cluster_exact.py) and the samplers `sample_cluster_sa`
+and `sample_cluster_qmc`.
+
 Used by tests/test_torch_hw_rng.py, tests/test_torch_packed.py,
+tests/test_torch_cluster_solvers.py,
 tests/test_torch_gpu.py and chip_smoke.py; not a part of the package.
 """
 
@@ -757,3 +763,69 @@ def bath_colored_case(lat, chains, steps, slices, global_moves=True,
             "launches": {"qmc_bath_split_colored_phased":
                          (6 if global_moves else 4) * steps,
                          "qmc_bath_split_colored_energy": steps}}
+
+
+# ------------------------------------------------------- the cluster updates
+
+
+def two_spin_problem(j, h, device):
+    """Two spins with bond j and fields h = (h0, h1), an IsingProblem
+    (tests/test_cluster_exact.py::_two_spin_problem)."""
+    rows, cols, vals = [0], [1], [j]
+    for i, hv in enumerate(h):
+        if hv != 0.0:
+            rows.append(i)
+            cols.append(i)
+            vals.append(hv)
+    return IsingProblem.from_edges(2, rows, cols, vals, maxnb=2,
+                                   device=device)
+
+
+def sample_cluster_sa(kind, problem, chains, temp, seed, local_sweeps,
+                      burn=BURN, samples=SAMPLES, every=EVERY):
+    """Per-chain frequencies of the 2^N states under
+    cluster_kernels.classical_anneal (kind "wolff" or "sw", the engine of
+    sa.anneal_wolff / anneal_sw) at T."""
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    dev = problem.device
+
+    def step(s, n, sd):
+        return ck.classical_anneal(problem, torch.full((n,), temp,
+                                                       device=dev), s, sd,
+                                   kind=kind, local_sweeps=local_sweeps)
+    return _frequencies(step, _random_spins((chains, problem.nspins), seed,
+                                            dev),
+                        spin_codes, 2 ** problem.nspins, burn, samples,
+                        every, seed)
+
+
+def sample_cluster_qmc(kind, problem, chains, P, temp, gamma, seed,
+                       alpha=None, rule="local", local_sweeps=False,
+                       per_slice_seeds=None, burn=BURN, samples=SAMPLES,
+                       every=EVERY):
+    """Per-chain frequencies of the 2^(P N) states at fixed Gamma, B = 1
+    and T under cluster_kernels.qmc_cluster_anneal (kind "wolff" or "sw",
+    the engine of qmc.anneal_wolff / anneal_sw, a bath of strength `alpha`
+    if given) or, with kind "line", sw_bath_anneal (qmc.anneal_sw_bath)."""
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    dev = problem.device
+    lut = (None if alpha is None
+           else schedules.bath_lookuptable(P, alpha, device=dev))
+
+    def step(c, n, sd):
+        g = torch.full((n,), gamma, device=dev)
+        if kind == "line":
+            return ck.sw_bath_anneal(problem, g, torch.ones_like(g), temp,
+                                     lut, c, sd,
+                                     per_slice_seeds=per_slice_seeds,
+                                     local_sweeps=local_sweeps)
+        return ck.qmc_cluster_anneal(problem, g, torch.ones_like(g), temp, c,
+                                     sd, kind=kind, rule=rule,
+                                     lookuptable=lut,
+                                     local_sweeps=local_sweeps)
+    return _frequencies(step, _random_spins((chains, P, problem.nspins),
+                                            seed, dev),
+                        spin_codes, 2 ** (P * problem.nspins), burn,
+                        samples, every, seed)

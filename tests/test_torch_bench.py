@@ -109,3 +109,33 @@ def test_no_card_means_no_run(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device=None means the CUDA"):
         throughput.main(["--arms", "sa", "--L", "16", "--taus", "2", "4"])
+
+
+def test_time_steps_slope_and_degraded_flag():
+    clock = FakeClock()
+
+    def run(tau, seed):
+        clock.now += 0.2 + 1e-3 * tau
+
+    ms, degraded = throughput.time_steps(run, (30, 90), clock=clock)
+    assert np.isclose(ms, 1.0) and not degraded
+    times = {10: 3.0, 30: 1.0}  # a negative slope: the single shot
+
+    def wild(tau, seed):
+        clock.now += times[tau]
+
+    ms, degraded = throughput.time_steps(wild, (10, 30), clock=clock)
+    assert degraded and np.isclose(ms, 1e3 * 1.0 / 30)
+
+
+def test_cluster_arm_prints_bench_r05_keys_on_the_cpu(capsys):
+    throughput.main(["--device", "cpu", "--L", "8", "--taus", "1", "2",
+                     "--cluster"])
+    (rec,) = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert rec["arm"] == "cluster" and rec["slices"] == 40
+    assert rec["sites"] == 64 and rec["wolff_cluster_chains"] == 16
+    for key in ("wolff_cluster_ms", "wolff_cluster_ms_per_chain",
+                "sw_bath_sweep_ms", "sw_full_sweep_ms"):
+        assert np.isfinite(rec[key]) and rec[key] > 0, key
+    # the plain versions on the CPU launch no kernel
+    assert rec["launches"] == {} and rec["nvidia_smi"] is None

@@ -1,5 +1,5 @@
-"""Kernels A, B, 3, 4, 5, 6 and 7 against their plain PyTorch versions on
-a CUDA device.
+"""Kernels A, B, 3, 4, 5, 6 and 7 and the later kernels against their
+plain PyTorch versions on a CUDA device.
 
 Marked `gpu`: each test skips when torch sees no CUDA device. The repo's
 tests/conftest.py imports JAX, which the GPU machine need not have, so run
@@ -51,7 +51,13 @@ equals its plain version on SK problems of N = 64 to 2048 (block 7 to
 128, ragged CTAs, shuffled, bf16) with sweeps x ceil(N / B) launches, and
 solve("sa") on a DenseProblem launches it; the packed SA and SVMC kernels
 on per-step tables (the noisy anneals) equal their plain versions, one
-launch an anneal, and equal the static anneals on equal rows.
+launch an anneal, and equal the static anneals on equal rows. The
+cluster kernels (fk_wolff, fk_label, fk_line) equal their plain versions
+on small graphs (the duplicate-slot table, P = 1 to 64, rules "local" and
+"full", with and without a bath, union-find labels in shared and in device
+memory, P = 2's doubled ring bond), the local kernels' one-step launches
+at step0 = t equal a whole anneal, each cluster solver launches exactly
+its route, and the engines sample exact weights on the card.
 """
 
 import contextlib
@@ -1158,3 +1164,251 @@ def test_noisy_solvers_run_their_kernels(cuda):
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
         "packed_svmc_noisy": 1, "packed_svmc": 1}
     assert torch.equal(noisy, static)
+
+
+# ------------------------------------------------------ the cluster kernels
+
+
+def _cluster_graph(name, dev):
+    """The generic graphs above, the 80x80 torus's generic form (P N past
+    fk_label's shared memory at P = 8) and a dense symmetric J whose pairs
+    fill two slots of each row (duplicate slots)."""
+    if name == "torus80":
+        return instances.gaussian_torus(80, 0, device=dev).to_generic()
+    if name == "dup":
+        from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+        r = np.random.default_rng(5)
+        J = np.triu(r.normal(size=(12, 12)) * (r.random((12, 12)) < 0.5), 1)
+        return IsingProblem.from_couplings(12, J + J.T, maxnb=24,
+                                           device=dev)
+    return _generic(name, dev)
+
+
+def _cluster_case(name, P, dev, chains=4, steps=6, seed=3):
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    prob = _cluster_graph(name, dev)
+    pg = packed_ops.build_packed(prob)
+    rng = np.random.default_rng(seed)
+    confs = torch.as_tensor(rng.choice(
+        [-1.0, 1.0], size=(chains, P, prob.nspins)).astype(np.float32),
+        device=dev)
+    gamma = schedules.transverse_field(2.0, 0.2, steps, device=dev)
+    teff = 0.6 * P
+    jp = schedules.jperp(gamma, teff).contiguous()
+    b = torch.linspace(0.7, 1.0, steps, device=dev)
+    return ck, pg, confs, b, jp, torch.full_like(b, teff)
+
+
+@pytest.mark.parametrize("graph,P,rule,bath", [
+    ("torus10", 1, "local", False), ("torus10", 2, "local", True),
+    ("torus10", 40, "local", True), ("torus10", 8, "full", False),
+    ("chimera", 3, "local", False), ("chimera", 5, "full", True),
+    ("rg_fields", 1, "local", False), ("rg_fields", 4, "local", True),
+    ("rg9", 2, "full", False), ("dup", 1, "local", False),
+    ("dup", 3, "local", True), ("dup", 2, "full", False)])
+def test_wolff_kernel_equals_plain(cuda, graph, P, rule, bath):
+    """csrc/fk_wolff.cu against wolff_anneal_ref on the card: spins
+    bitwise, the cluster sizes it counts equal the plain version's, one
+    launch an anneal; the duplicate-slot table and P = 1 included."""
+    ck, pg, confs, b, jp, teff = _cluster_case(graph, P, cuda)
+    lut = (schedules.bath_lookuptable(P, 0.3, device=cuda) if bath
+           else None)
+    vis, vis_ref = (torch.zeros(confs.shape[0], dtype=torch.int64,
+                                device=cuda) for _ in range(2))
+    _build.reset_launches()
+    out = ck.wolff_anneal(pg, b, jp, teff, confs, 11, rule, lut, 2, vis)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "fk_wolff": 1}
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    ref = cl.wolff_anneal_ref(pg, b, jp, teff, confs, 11, rule, lut, 2,
+                              vis_ref)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and not torch.equal(out, confs)
+    assert torch.equal(vis, vis_ref)
+
+
+@pytest.mark.parametrize("graph,P,bath", [
+    ("torus10", 1, False), ("rg_fields", 1, False), ("dup", 1, False),
+    ("torus10", 2, True), ("chimera", 3, False), ("rg_fields", 5, True),
+    ("dup", 4, True), ("torus10", 40, True), ("torus80", 8, False)])
+def test_label_kernel_equals_plain(cuda, graph, P, bath):
+    """csrc/fk_label.cu against sw_anneal_ref: the classical sweep at
+    P = 1, the space-time one with and without a bath, labels in shared
+    memory and (the 80x80 torus at P = 8) in device memory."""
+    ck, pg, confs, b, jp, teff = _cluster_case(graph, P, cuda)
+    classical = P == 1
+    if classical:
+        b, jp = torch.ones_like(b), torch.zeros_like(jp)
+    lut = (schedules.bath_lookuptable(P, 0.3, device=cuda) if bath
+           else None)
+    assert ck.label_smem(P, pg.nspins) == (graph != "torus80")
+    _build.reset_launches()
+    out = ck.sw_anneal(pg, b, jp, teff, confs, 12, lut, 1, classical)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "fk_label": 1}
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    ref = cl.sw_anneal_ref(pg, b, jp, teff, confs, 12, lut, 1, classical)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and not torch.equal(out, confs)
+
+
+@pytest.mark.parametrize("graph,P,per_slice_seeds", [
+    ("torus10", 2, True), ("torus10", 2, False), ("torus10", 3, True),
+    ("chimera", 5, False), ("rg_fields", 40, True), ("rg_fields", 40, False),
+    ("dup", 33, True), ("torus10", 64, True), ("torus10", 64, False)])
+def test_line_kernel_equals_plain(cuda, graph, P, per_slice_seeds):
+    """csrc/fk_line.cu against line_phase_ref, one launch a color phase:
+    P = 2 (the ring bond doubled), one and two slices a lane (P <= 64)."""
+    ck, pg, confs, b, jp, teff = _cluster_case(graph, P, cuda, steps=3)
+    lut = schedules.bath_lookuptable(P, 0.2, device=cuda)
+    p_pair, p_t = ck.line_tables(lut, jp, float(teff[0]), P, cuda)
+    out = ref = confs
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    _build.reset_launches()
+    for t in range(3):
+        for color in range(pg.num_colors):
+            out = ck.line_phase(pg, b, jp, p_t, t, float(teff[0]), lut,
+                                p_pair, out, 13, 4 + t, color,
+                                per_slice_seeds)
+            ref = cl.line_phase_ref(pg, b[t], jp[t], float(teff[0]), lut,
+                                    ref, 13, 4 + t, color, per_slice_seeds,
+                                    p_pair)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "fk_line": 3 * pg.num_colors}
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and not torch.equal(out, confs)
+
+
+@pytest.mark.parametrize("kernel", ["packed_sa", "generic_qmc",
+                                    "generic_qmc_bath"])
+def test_local_kernels_take_a_step_offset(cuda, kernel):
+    """The per-step launches the cluster solvers make: T one-step launches
+    at step0 = t equal one T-step launch (and one-step launches that all
+    start at step 0 do not), against the plain version too."""
+    steps, P = 5, 4
+    prob = _generic("chimera", cuda)
+    pg = packed_ops.build_packed(prob)
+    rng = np.random.default_rng(2)
+    shape = (3, prob.nspins) if kernel == "packed_sa" else (3, P,
+                                                             prob.nspins)
+    start = torch.as_tensor(rng.choice([-1.0, 1.0], size=shape).astype(
+        np.float32), device=cuda)
+    temps = schedules.linear(2.0, 0.5, steps, device=cuda)
+    jp = schedules.jperp(temps, 1.2).contiguous()
+    bath = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+        P, 0.3, device=cuda), P).contiguous()
+
+    def run(fn, sl, x, step0):
+        if kernel == "packed_sa":
+            return fn(pg, temps[sl], x, 5, step0=step0)
+        if kernel == "generic_qmc":
+            return fn(pg, temps[sl], jp[sl], 1.2, x, 5, False, step0=step0)
+        return fn(pg, temps[sl], jp[sl], 1.2, bath, x, 5, False,
+                  step0=step0)
+    wrapper, plain, _ = gibbs.GENERIC[kernel]
+    whole = run(wrapper, slice(None), start, 0)
+    x, y, z = start, start, start
+    for t in range(steps):
+        x = run(wrapper, slice(t, t + 1), x, t)
+        y = run(plain, slice(t, t + 1), y, t)
+        z = run(wrapper, slice(t, t + 1), z, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, x) and torch.equal(x, y)
+    assert not torch.equal(whole, z)
+
+
+@pytest.mark.parametrize("name,launches", [
+    ("sa_wolff", lambda T, C: {"packed_sa": T, "fk_wolff": T}),
+    ("sa_wolff_alone", lambda T, C: {"fk_wolff": 1}),
+    ("sa_sw", lambda T, C: {"packed_sa": T, "fk_label": T}),
+    ("qmc_wolff", lambda T, C: {"fk_wolff": 1}),
+    ("qmc_sw", lambda T, C: {"generic_qmc": T, "fk_label": T}),
+    ("qmc_sw_bath", lambda T, C: {"fk_label": 1}),
+    ("wc2", lambda T, C: {"generic_qmc_bath": T, "fk_line": T * C}),
+    ("wc3", lambda T, C: {"fk_line": T * C})])
+def test_cluster_solvers_launch_their_kernels(cuda, name, launches):
+    """Each cluster solver on the card (problem, state and schedules there
+    by default): valid spins, the same result twice, and exactly its
+    route's launches."""
+    prob = _generic("chimera", cuda)
+    steps, P = 7, 4
+    gen = torch.Generator().manual_seed(0)
+    s0 = sa.random_state(gen, prob.nspins, batch=(5,))
+    sched = schedules.linear(2.0, 0.3, steps)
+    lut = schedules.bath_lookuptable(P, 0.01)
+    calls = {
+        "sa_wolff": lambda g: sa.anneal_wolff(prob, sched, s0, g),
+        "sa_wolff_alone": lambda g: sa.anneal_wolff(prob, sched, s0, g,
+                                                    local_sweeps=False),
+        "sa_sw": lambda g: sa.anneal_sw(prob, sched, s0, g,
+                                        local_sweeps=True),
+        "qmc_wolff": lambda g: qmc.anneal_wolff(
+            prob, sched, torch.ones_like(sched), 0.3, qmc.replicate(s0, P),
+            g, lookuptable=lut),
+        "qmc_sw": lambda g: qmc.anneal_sw(
+            prob, sched, torch.ones_like(sched), 0.3, qmc.replicate(s0, P),
+            g, local_sweeps=True),
+        "qmc_sw_bath": lambda g: qmc.anneal_sw(
+            prob, sched, torch.ones_like(sched), 0.3, qmc.replicate(s0, P),
+            g, lookuptable=lut),
+        "wc2": lambda g: qmc.anneal_sw_bath(
+            prob, sched, torch.ones_like(sched), 0.3, lut,
+            qmc.replicate(s0, P), g, per_slice_seeds=False),
+        "wc3": lambda g: qmc.anneal_sw_bath(
+            prob, sched, torch.ones_like(sched), 0.3, lut,
+            qmc.replicate(s0, P), g),
+    }
+    _build.reset_launches()
+    out = calls[name](torch.Generator().manual_seed(1))
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == launches(
+        steps, prob.num_colors)
+    again = calls[name](torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    assert out.is_cuda and torch.equal(out, again)
+    assert set(torch.unique(out).tolist()) <= {-1.0, 1.0}
+
+
+@pytest.mark.parametrize("case", ["wolff", "sw_bath", "wc3", "classical_sw"])
+def test_cluster_kernels_sample_exact_weights(cuda, case):
+    """The cluster solvers' engines on the card against the exact weights
+    of the two-spin problems (tests/gibbs_check.py), z < 5."""
+    if case == "classical_sw":
+        prob = gibbs.two_spin_problem(0.9, (0.4, -0.3), cuda)
+        f = gibbs.sample_cluster_sa("sw", prob, 1024, 1.3, 40, False)
+        exact = gibbs.generic_sa_weights(prob, 1.3)
+    else:
+        prob = gibbs.two_spin_problem(0.7, (0.2, 0.0), cuda)
+        P, temp, gamma, alpha = 2, 0.9, 0.6, 0.4
+        if case == "wolff":
+            f = gibbs.sample_cluster_qmc("wolff", prob, 1024, P, temp, gamma,
+                                         41, alpha=alpha)
+        elif case == "sw_bath":
+            f = gibbs.sample_cluster_qmc("sw", prob, 1024, P, temp, gamma,
+                                         42, alpha=alpha)
+        else:
+            f = gibbs.sample_cluster_qmc("line", prob, 1024, P, temp, gamma,
+                                         43, alpha=alpha,
+                                         per_slice_seeds=True)
+        exact = gibbs.generic_qmc_weights(prob, P, temp,
+                                          gibbs.jperp(gamma, P, temp),
+                                          bath=gibbs.bath_matrix(P, alpha))
+    z, d = gibbs.z_scores(f, exact, gibbs.SAMPLES)
+    assert z < 5.0, (z, d)
+
+
+def test_cluster_wrappers_refuse_on_the_card(cuda):
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    ck_, pg, confs, b, jp, teff = _cluster_case("torus10", 65, cuda,
+                                                steps=2)
+    lut = schedules.bath_lookuptable(65, 0.1, device=cuda)
+    p_pair, p_t = ck.line_tables(lut, jp, 1.0, 65, cuda)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ck.line_phase(pg, b, jp, p_t, 0, 1.0, lut, p_pair, confs, 1, 0, 0,
+                      True)
+    with pytest.raises(ValueError, match="symmetric"):
+        ck.sw_anneal(pg, b, jp, teff, confs, 1,
+                     torch.arange(64, dtype=torch.float32, device=cuda))
+    with pytest.raises(ValueError):
+        ck.wolff_anneal(pg, b, jp, teff.double(), confs, 1)

@@ -211,10 +211,18 @@ def test_refusals():
     assert torch.equal(out, plain_generic_bath(
         port_generic, sched, 0.3, np.ones(2), c[:, :, :16], 3,
         "sequential"))
-    for fn in (sa.anneal_wolff, sa.anneal_sw, qmc.anneal_wolff, qmc.anneal_sw,
-               qmc.anneal_sw_bath):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(lat, sched, c, gen)
+    # the cluster solvers run on the port's problems (tests/
+    # test_torch_cluster_solvers.py) and refuse a problem of the JAX
+    # package like every other entry point
+    ones = torch.ones_like(sched)
+    for call in (lambda: sa.anneal_wolff(generic, sched, c[:, 0], gen),
+                 lambda: sa.anneal_sw(generic, sched, c[:, 0], gen),
+                 lambda: qmc.anneal_wolff(generic, sched, ones, 0.3, c, gen),
+                 lambda: qmc.anneal_sw(generic, sched, ones, 0.3, c, gen),
+                 lambda: qmc.anneal_sw_bath(generic, sched, ones, 0.3,
+                                            np.ones(2), c, gen)):
+        with pytest.raises(NotImplementedError, match="not a problem of the"):
+            call()
     # the noisy anneal runs on an IsingProblem (tests/test_torch_noisy.py);
     # a lattice has no neighbor table for its per-step couplings
     with pytest.raises(ValueError, match="take an IsingProblem"):
