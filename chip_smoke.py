@@ -11,9 +11,9 @@ Phases, each printed as one JSON line:
                       template), 6 and 7, the energy kernel's entry points,
                       the four generic kernels (packed SA, generic PIQMC,
                       packed SVMC, generic bath), the dense in-block
-                      kernel and the three cluster kernels (fk_wolff,
-                      fk_label, fk_line) from csrc/, all at once
-                      (seconds)
+                      kernel, the three cluster kernels (fk_wolff,
+                      fk_label, fk_line) and the Houdayer kernel from
+                      csrc/, all at once (seconds)
   clusters            the (C, R, threads) kernels A and 6 and the (R,
                       threads) kernels B, 5, 3, 7 and 4 take at the shapes
                       below, and how many of those clusters the card holds
@@ -137,6 +137,48 @@ Phases, each printed as one JSON line:
                       WC3 at P = 40, 16 chains, 3 steps of both colors: 0
                       mismatched spins, equal cluster sizes, one launch an
                       anneal (fk_line one a color phase)
+  sampler_kernels_vs_plain  the samplers' kernels (solvers/pt.py,
+                      solvers/pa.py): the per-chain-schedule instantiations
+                      against their plain versions on the card, a (steps,
+                      chains) table that repeats one row, as the samplers
+                      pass it, and one that changes every step: kernel A
+                      at PT_RUNGS x PT_READS = 384 chains (pt_value's 48
+                      rungs x 8 reads), 1000 (a ragged last word of 8
+                      chains) and 33 on the 80x80 torus, and 33 on its
+                      per-phase kernel; kernel
+                      B at P = 40, 32 chains of distinct Gamma, global
+                      moves, and 4 chains on its per-phase kernels; the
+                      packed SA kernel at 384 chains on the torus's
+                      generic form and at 64 on the 81x81 torus's
+                      checkerboard (not a proper coloring: the kernel's
+                      snapshot template), the generic PIQMC kernel at P =
+                      40 and P = 5 on those two, and the dense kernel at
+                      64 chains on sk_model(2048, rng=0): 0 mismatched
+                      spins, one launch each; step0 splits kernels A and B
+                      (two one-step launches equal one two-step launch,
+                      shared and per chain); the energy kernel on kernel
+                      A's chain-bit words (the samplers' split engine
+                      keeps those from launch to launch) at 384 and 7040
+                      chains on the 80x80 torus, bitwise the energy
+                      kernel on the unpacked halves and within
+                      ENERGY_RTOL x sum |J| of its plain version, timed
+                      beside it; the timing of each per-chain
+                      instantiation beside the shared one at its shape
+                      (shared, per chain, per chain, shared) and of its
+                      plain version; then the whole samplers, pt.sample,
+                      sample_piqmc, sample_icm and pa.sample,
+                      sample_adaptive, sample_piqmc, sample_piqmc_adaptive,
+                      run twice from one seed at small widths, on the
+                      kernels and on their plain versions
+                      (gibbs_check.plain_route): states, rates, log_z and
+                      stats bitwise equal (+/-1 couplings where the split
+                      engines' energy kernel reads the energies)
+  houdayer_vs_plain   csrc/houdayer.cu against cluster.houdayer_move_ref,
+                      bitwise, on the 80x80 torus's generic form (48 pairs)
+                      and random_3d_lattice(12, rng=0) (24 pairs): spins and
+                      flipped counts, the overlap and E1 + E2 kept; ms a
+                      move beside its bound (the table and both replicas'
+                      bytes) and the plain version
   main_path           eight solves at full width: solve("sa", 1280 reads,
                       2000 sweeps) and solve("piqmc", 32 reads, 1000
                       sweeps) at P = 40 and at P = 5 on the santoro instance
@@ -194,7 +236,23 @@ Phases, each printed as one JSON line:
                       fk_wolff launch; a fk_line launch a color phase; a
                       generic PIQMC and a fk_label launch a sweep), in
                       ranges around their JAX CPU anchors
-                      (tools/cluster_anchors.py)
+                      (tools/cluster_anchors.py); then the samplers
+                      (sampler_solves): pt.sample on the 80x80 torus with
+                      pt_value's ladder (48 rungs, T 0.5 -> 2.5, 2000
+                      sweeps, swap_every 2, the cold rung's mean over the
+                      second half; a kernel-A launch and an energy launch
+                      on its chain-bit words a sweep), solve("pt", 64
+                      reads, 500 sweeps; the auto ladder, 110 rungs, 7040
+                      chains), solve("icm", 32 reads, 1000 sweeps,
+                      ladder 24) on random_3d_lattice(12, rng=0) (a
+                      packed SA launch per exchange interval, a Houdayer
+                      launch every second sweep), solve("pa", 1024
+                      reads, 500 steps; adaptive to beta = 2 in at most
+                      2000 steps; a kernel-A and an energy launch on its
+                      words a step) and solve("paq", 32 reads, 500 steps,
+                      P = 20; a kernel-B launch a step), each with exactly
+                      its launches and in a range around its JAX CPU
+                      anchor (tools/sampler_anchors.py)
   timing              slope-timed ms per sweep of each kernel and of its
                       plain version at the main path's shapes, beside the
                       least time the card could take for a sweep (bound:
@@ -312,7 +370,10 @@ then the three generic kernels, whose launches are the main path's,
 then the generic bath kernel, kernel 5's colored template and its
 per-phase kernels, the dense in-block kernel, the packed SA and SVMC
 kernels' table variant and the three cluster kernels, whose launches are
-the main path's),
+the main path's, then the per-chain instantiations of kernels A and B
+(and their per-phase kernels, which no main-path solve launches), of the
+packed SA, generic PIQMC and dense kernels, and the Houdayer kernel, whose
+launches are the sampler solves'),
 a line {"phase": "done", "seconds": ..., "phase_seconds": {...}} (the
 seconds from the start at the end of each phase), and last
 {"ok": true, "device": {...}}.
@@ -496,6 +557,68 @@ CLUSTER_ANCHORS = {
 }
 RANGES.update({k: (m - max(0.01, 5 * sd), m + max(0.01, 5 * sd))
                for k, (m, sd) in CLUSTER_ANCHORS.items()})
+# The samplers (solvers/pt.py, solvers/pa.py). pt.sample: bench/pt_value.py's
+# ladder (PT_RUNGS rungs, geometric T PT_COLD -> PT_HOT), PT_SWEEPS sweeps,
+# swap_every PT_SWAP, the cold rung's energy averaged over the second half;
+# the per-chain kernels are held to their plain versions at PT_RUNGS x
+# PT_READS chains (kernel A, packed SA), QPT_CHAINS chains of distinct
+# Gamma at P = 40 (kernel B, generic PIQMC) and DENSE_PT_CHAINS (dense),
+# SAMPLER_STEPS (SAMPLER_QMC_STEPS) steps; the Houdayer kernel at PT_RUNGS
+# pairs and at ICM_RUNGS (bench/icm_value.py's RUNGS) on the 3-D glass.
+# The solves: solve("pt") at PT_SOLVE_READS reads and the auto ladder
+# (PT_AUTO_RUNGS rungs at N = 6400), solve("icm") at ICM_READS reads,
+# ladder ICM_RUNGS, on random_3d_lattice(12, rng=0), solve("pa") at
+# bench/pa_value.py's PA_READS replicas, fixed (PA_SWEEPS steps to beta =
+# 10) and adaptive (to beta = PA_ADAPTIVE_BETA, pa_value's sampling target
+# T = 0.5, in at most PA_ADAPTIVE_STEPS steps), and solve("paq") at P =
+# PAQ_SLICES.
+PT_RUNGS, PT_READS, PT_COLD, PT_HOT, PT_SWEEPS, PT_SWAP = (48, 8, 0.5, 2.5,
+                                                          2000, 2)
+QPT_CHAINS, DENSE_PT_CHAINS, ICM_RUNGS = 32, 64, 24
+SAMPLER_STEPS, SAMPLER_QMC_STEPS = 20, 10
+PT_SOLVE_READS, PT_SOLVE_SWEEPS, PT_AUTO_RUNGS = 64, 500, 110
+# quantum PT (pt.sample_piqmc): pt_value's quantum arm on the torus (48
+# rungs, geometric Gamma 1.5 -> 0.3, P = 20, T = 1/P, 500 sweeps, swap
+# every 2, line moves, from random paths; kernel B per chain) and a 16-rung
+# P = 8 ladder on random_3d_lattice(12, rng=0) (the generic PIQMC kernel
+# per chain); PT on sk_model(2048, rng=0) through solve("pt") (the dense
+# kernel per chain; the auto ladder, 63 rungs)
+QPT_RUNGS, QPT_SLICES, QPT_SWEEPS = 48, 20, 500
+QPT_GENERIC_RUNGS, QPT_GENERIC_SLICES, QPT_GENERIC_SWEEPS = 16, 8, 300
+PT_DENSE_READS, PT_DENSE_SWEEPS = 16, 200
+ICM_READS, ICM_SWEEPS = 32, 1000
+PA_READS, PA_SWEEPS, PA_ADAPTIVE_STEPS, PA_ADAPTIVE_BETA = 1024, 500, 2000, 2.0
+PAQ_READS, PAQ_SWEEPS, PAQ_SLICES = 32, 500, 20
+# Their JAX CPU anchors (tools/sampler_anchors.py <case>, the JAX call on
+# the CPU at the chip's shapes but for the reads: pt, paq, icm and pt_dense
+# 8; PERF.md section 2): the mean energy per spin and the sd of one read,
+# seed 0; for the single ladders (pt_sample, qpt_sample, qpt_generic) the
+# mean and sd over seeds 0 to 3. The range is the anchor +/- max(0.01, 5
+# sd):
+#   pt_sample    -1.26734, sd 0.00033 (the cold rung's second-half mean)
+#   pt           pt 8 500: -1.26830, sd 0.00134 (110 rungs, swap 0.623)
+#   qpt_sample   -1.26664, sd 0.00189 (the Gamma = 0.3 rung's mean slice
+#                energy at the end; swap 0.025-0.033)
+#   qpt_generic  -1.72027, sd 0.00820 (swap 0.049-0.069)
+#   pt_dense     pt_dense 8 200: -0.75160, sd 0.00175 (63 rungs)
+#   icm          icm 8 1000: -1.75897, sd 0.00212 (swap 0.324, Houdayer
+#                flips 0.250)
+#   pa           pa 1024 500: -1.28072, sd 0.00014 (min ESS 0.0084)
+#   pa_adaptive  pa_adaptive 1024 2000: -1.26652, sd 0.00217 (334 steps)
+#   paq          paq 8 500: -1.27069, sd 0.00097
+SAMPLER_ANCHORS = {
+    "pt_sample": (-1.267336130142212, 0.0003321066115573864),
+    "qpt_sample": (-1.2666440308094025, 0.001888496000323475),
+    "qpt_generic": (-1.7202690839767456, 0.008195563280163557),
+    "pt_dense": (-0.7515978813171387, 0.001746332854963839),
+    "pt": (-1.2682995796203613, 0.0013372339308261871),
+    "icm": (-1.758969783782959, 0.0021206524688750505),
+    "pa": (-1.280724048614502, 0.00013869453687220812),
+    "pa_adaptive": (-1.2665197849273682, 0.0021736216731369495),
+    "paq": (-1.2706942558288574, 0.0009730702731758356),
+}
+RANGES.update({k: (m - max(0.01, 5 * sd), m + max(0.01, 5 * sd))
+               for k, (m, sd) in SAMPLER_ANCHORS.items()})
 # kernel name -> (LAUNCHES key, source, TPU kernel it replaces)
 KERNELS = {
     "split_sa": ("sa_split", "montecarlosolvers_tpu_torch/csrc/split_sa.cu",
@@ -609,6 +732,36 @@ CLUSTER_KERNELS = {
                 "montecarlosolvers_tpu/ops/cluster.py:316"),
 }
 KERNELS.update(CLUSTER_KERNELS)
+# The samplers: the per-chain-schedule instantiations of kernels A and B
+# (and their per-phase kernels), of the packed SA, generic PIQMC and dense
+# kernels, which replace the XLA sweeps the JAX samplers run with one
+# temperature or Gamma a chain (pt.py:112, :123, :221, :238), and the
+# Houdayer kernel, which replaces the XLA relaxation of houdayer_sweep
+_SRC = "montecarlosolvers_tpu_torch/csrc/"
+SAMPLER_KERNELS = {
+    "split_sa_chain": ("sa_split_chain", _SRC + "split_sa.cu",
+                       "montecarlosolvers_tpu/ops/split.py:209"),
+    "split_qmc_chain": ("qmc_split_chain", _SRC + "split_qmc.cu",
+                        "montecarlosolvers_tpu/ops/split.py:379"),
+    "packed_sa_chain": ("packed_sa_chain", _SRC + "packed_sa.cu",
+                        "montecarlosolvers_tpu/ops/metropolis.py:60"),
+    "generic_qmc_chain": ("generic_qmc_chain", _SRC + "generic_qmc.cu",
+                          "montecarlosolvers_tpu/ops/piqmc.py:79"),
+    "dense_sa_chain": ("dense_sa_chain", _SRC + "dense_sa.cu",
+                       "montecarlosolvers_tpu/ops/dense_sweep.py:45"),
+    "split_sa_chain_phased": ("sa_split_chain_phased", _SRC + "split_sa.cu",
+                              "montecarlosolvers_tpu/ops/split.py:209"),
+    "split_qmc_chain_phased": ("qmc_split_chain_phased",
+                               _SRC + "split_qmc.cu",
+                               "montecarlosolvers_tpu/ops/split.py:379"),
+    "houdayer": ("houdayer", _SRC + "houdayer.cu",
+                 "montecarlosolvers_tpu/ops/cluster.py:730"),
+    # the exchanges' energies on kernel A's chain-bit words: the XLA
+    # readout the JAX samplers compute (classical_energy_split)
+    "energy_chain_bits": ("energy_bits", _SRC + "energy.cuh",
+                          "montecarlosolvers_tpu/ops/split.py:197"),
+}
+KERNELS.update(SAMPLER_KERNELS)
 # (a): chains of the exact-distribution samplers, and the largest
 # |mean - exact| (or kernel - plain) they may show, in standard errors of
 # the chain means (gibbs_check.z_scores: at most 1 state in about 3 million
@@ -1876,19 +2029,6 @@ def dense_noisy_timing(dev, results, sk, gtorus, tables, power, name):
     rng = np.random.default_rng(5)
     B = DENSE_BLOCK
 
-    def dense_bound(chains, n):
-        """The least ms of a dense sweep: its 2 C N^2 field operations and
-        C N (B + 6) in-block ones over the float32 peak, C N logarithms
-        over the special-function peak, or J read once and the spins read
-        and written over 3.35 TB/s, the largest."""
-        times = {"fp32": (2 * chains * n * n + chains * n * (B + 6))
-                 / PEAK_FLOPS,
-                 "sfu": chains * n / PEAK_SFU,
-                 "bytes": (n * n * 4 + 2 * chains * n * 4) / PEAK_BYTES}
-        unit = max(times, key=times.get)
-        return 1e3 * times[unit], ("bytes" if unit == "bytes"
-                                   else "operations"), unit
-
     big = dense_problem(DENSE_BIG_N, dev)
     for dp, fn, route, taus, trials, record in (
             (sk, dk.dense_sa_anneal, "cuda", (10, 40), 3, True),
@@ -2262,6 +2402,701 @@ def cluster_bench(dev, problem):
           f"cluster bench launched {rec['launches']}, its route {want}")
 
 
+# ---------------------------------------------------------------- samplers
+
+
+def dense_bound(chains, n, block=DENSE_BLOCK):
+    """The least ms of a dense sweep: its 2 C N^2 field operations and
+    C N (B + 6) in-block ones over the float32 peak, C N logarithms over
+    the special-function peak, or J read once and the spins read and
+    written over 3.35 TB/s, the largest."""
+    times = {"fp32": (2 * chains * n * n + chains * n * (block + 6))
+             / PEAK_FLOPS,
+             "sfu": chains * n / PEAK_SFU,
+             "bytes": (n * n * 4 + 2 * chains * n * 4) / PEAK_BYTES}
+    unit = max(times, key=times.get)
+    return 1e3 * times[unit], ("bytes" if unit == "bytes"
+                               else "operations"), unit
+
+
+def houdayer_bound(pairs, n, maxnb):
+    """(least ms of one Houdayer move, "bytes", unit): the table (maxnb
+    int32 indices and float32 couplings a site) read once, both replicas
+    read and written once and the counts written, over 3.35 TB/s. Its
+    labelling is integer work whose amount depends on the overlap."""
+    moved = n * maxnb * 8 + 4 * pairs * n * 4 + pairs * 4
+    return 1e3 * moved / PEAK_BYTES, "bytes", "bytes"
+
+
+def per_chain(values, chains):
+    """A sampler's per-chain values: the ladder `values` repeated over
+    `chains` chains (rungs x reads), float32, contiguous."""
+    reps = -(-chains // values.shape[0])
+    return values.repeat(reps)[:chains].contiguous()
+
+
+def sampler_kernel_checks(dev, results, torus, gtorus, odd_torus, power,
+                          name):
+    """Phase sampler_kernels_vs_plain: the per-chain-schedule instantiations
+    of kernels A and B (cluster and per-phase routes), of the packed SA,
+    generic PIQMC and dense kernels against their plain versions on the
+    card, a (steps, chains) table that repeats one row, as the samplers
+    pass it, and one that changes every step; the packed kernels also on
+    the 81x81 torus's checkerboard, a packing that is not proper; the
+    step0 split of kernels A and B (two one-step launches at step0 0 and 1
+    against one two-step launch, bitwise, shared and per chain). Then the
+    timing of each per-chain instantiation beside the shared-schedule one
+    at the same shape, and of its plain version."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import dense_kernels as dk
+    from montecarlosolvers_tpu_torch.ops import energy as energy_ops
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import split as split_ops
+    from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+
+    gibbs = gibbs_tool()
+    rng = np.random.default_rng(11)
+    sl = split_ops.build_split(torus)
+    ladder = schedules.geometric(PT_COLD, PT_HOT, PT_RUNGS, device=dev)
+    gammas = schedules.linear(3.0, 0.3, QPT_CHAINS, device=dev)
+
+    def tables(values, steps):
+        """The row table the samplers pass, and one that changes every
+        step."""
+        row = values[None, :].expand(steps, -1)
+        scale = torch.linspace(1.0, 0.5, steps, device=dev)[:, None]
+        return {"row": row, "every_step": (row * scale).contiguous()}
+
+    def record(kname, case, out, ref, start, launched, want):
+        torch.cuda.synchronize()
+        out = out if isinstance(out, (tuple, list)) else (out,)
+        ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+        start = start if isinstance(start, (tuple, list)) else (start,)
+        n_bad, err = mismatches(out, ref)
+        moved = float(sum(int((o != s).sum()) for o, s in zip(out, start))
+                      / sum(o.numel() for o in out))
+        rec = {"phase": "sampler_kernels_vs_plain", "kernel": kname, **case,
+               "launches": launched, "mismatched_spins": n_bad,
+               "max_abs_err": err, "flipped_fraction": moved}
+        emit(rec)
+        check(n_bad == 0, f"{kname} ({case}) equals its plain version")
+        check(moved > 0, f"{kname} ({case}) moves")
+        check(launched == want, f"{kname} ({case}) launched {launched}, "
+                                f"want {want}")
+        results[kname]["max_abs_err"] = max(
+            results[kname].get("max_abs_err", 0.0), err)
+
+    # kernel A: the PT ladder's 48 rungs x 8 reads (8 chains a word), 1000
+    # chains (31 words of 32 and a ragged last word of 8, which must read
+    # only its own chains' temperatures) and 33 (one a word) on the cluster
+    # route; 33 chains on the per-phase kernel
+    steps = SAMPLER_STEPS
+    for chains, route in ((PT_RUNGS * PT_READS, "cluster"),
+                          (1000, "cluster"), (33, "cluster"),
+                          (33, "phased")):
+        a, b = (x.contiguous() for x in split_ops.pack_classical(
+            sl, random_pm1(rng, (chains, L * L), dev)))
+        temps = per_chain(ladder, chains)
+        kinds = tables(temps, steps)
+        if chains != PT_RUNGS * PT_READS:
+            kinds.pop("every_step")
+        ctx = gibbs.phased_route if route == "phased" else \
+            contextlib.nullcontext
+        key = "sa_split_chain" + ("_phased" if route == "phased" else "")
+        for kind, tab in kinds.items():
+            _build.reset_launches()
+            with ctx():
+                out = sk.sa_split_anneal(sl, tab, a, b, 31)
+            launched = launched_now()
+            ref = sk.sa_split_anneal_ref(sl, tab, a, b, 31)
+            record("split_sa" + key[8:], {"lattice": f"gaussian_torus({L}, "
+                                          "0)", "chains": chains,
+                                          "route": route, "table": kind,
+                                          "steps": steps},
+                   out, ref, (a, b), launched,
+                   {key: 2 * steps if route == "phased" else 1})
+
+    # kernel B: 32 chains of distinct Gamma at P = 40, global moves, both
+    # routes (the per-phase kernels at 4 chains)
+    teff = 1.0 * QMC_SLICES / QMC_SLICES
+    qsteps = SAMPLER_QMC_STEPS
+    for chains, route in ((QPT_CHAINS, "cluster"), (4, "phased")):
+        quarters = tuple(q.contiguous() for q in split_ops.pack_qmc(
+            sl, random_pm1(rng, (chains, QMC_SLICES, L * L), dev)))
+        jp = schedules.jperp(per_chain(gammas, chains), teff).contiguous()
+        b_sched = torch.ones(qsteps, device=dev)
+        ctx = gibbs.phased_route if route == "phased" else \
+            contextlib.nullcontext
+        key = "qmc_split_chain" + ("_phased" if route == "phased" else "")
+        for kind, tab in tables(jp, qsteps).items():
+            _build.reset_launches()
+            with ctx():
+                out = sk.qmc_split_anneal(sl, b_sched, tab, teff, quarters,
+                                          32, True)
+            launched = launched_now()
+            ref = sk.qmc_split_anneal_ref(sl, b_sched, tab, teff, quarters,
+                                          32, True)
+            record("split_qmc" + key[9:], {
+                "lattice": f"gaussian_torus({L}, 0)", "chains": chains,
+                "slices": QMC_SLICES, "route": route, "table": kind,
+                "steps": qsteps}, out, ref, quarters, launched,
+                {key: 4 * qsteps if route == "phased" else 1})
+
+    # the step0 split: two one-step launches against one two-step launch
+    a, b = (x.contiguous() for x in split_ops.pack_classical(
+        sl, random_pm1(rng, (PT_RUNGS * PT_READS, L * L), dev)))
+    temps = per_chain(ladder, a.shape[0])
+    quarters = tuple(q.contiguous() for q in split_ops.pack_qmc(
+        sl, random_pm1(rng, (QPT_CHAINS, QMC_SLICES, L * L), dev)))
+    jp = schedules.jperp(gammas, teff).contiguous()
+    ones = torch.ones(2, device=dev)
+    for kname, shared, run in (
+            ("split_sa", True,
+             lambda s, n, t0: sk.sa_split_anneal(
+                 sl, torch.full((n,), 1.2, device=dev), *s, 33, step0=t0)),
+            ("split_sa", False,
+             lambda s, n, t0: sk.sa_split_anneal(
+                 sl, temps[None, :].expand(n, -1), *s, 33, step0=t0)),
+            ("split_qmc", True,
+             lambda s, n, t0: sk.qmc_split_anneal(
+                 sl, ones[:n], jp[:1].expand(n).contiguous(), teff, s, 34,
+                 True, step0=t0)),
+            ("split_qmc", False,
+             lambda s, n, t0: sk.qmc_split_anneal(
+                 sl, ones[:n], jp[None, :].expand(n, -1), teff, s, 34, True,
+                 step0=t0))):
+        start = (a, b) if kname == "split_sa" else quarters
+        whole = run(start, 2, 0)
+        split = run(run(start, 1, 0), 1, 1)
+        torch.cuda.synchronize()
+        n_bad, _ = mismatches(whole, split)
+        n_same, _ = mismatches(run(start, 1, 0), run(start, 1, 1))
+        emit({"phase": "sampler_kernels_vs_plain", "kernel": kname,
+              "check": "step0_split", "shared_schedule": shared,
+              "mismatched_spins": n_bad,
+              "step0_changes_the_draws": n_same > 0})
+        check(n_bad == 0, f"{kname} step0 splits a run bitwise "
+                          f"(shared {shared})")
+        check(n_same > 0, f"{kname}: step0 1 draws other uniforms")
+
+    # the energy kernel on kernel A's chain-bit words, what the samplers'
+    # split engine reads at each exchange: pt_value's 384 chains and
+    # solve("pt")'s 7040 on the 80x80 torus, against the energy kernel on
+    # the unpacked halves (bitwise) and the plain version (within
+    # ENERGY_RTOL x sum |J|); ms a call beside the halves' kernel and the
+    # bound (the words, the couplings and the energies moved once)
+    tol = gibbs.ENERGY_RTOL * float(torus.j_right.abs().sum()
+                                    + torus.j_down.abs().sum()
+                                    + torus.h_plane.abs().sum())
+    for chains in (PT_RUNGS * PT_READS, PT_AUTO_RUNGS * PT_SOLVE_READS):
+        a, b = (x.contiguous() for x in split_ops.pack_classical(
+            sl, random_pm1(rng, (chains, L * L), dev)))
+        C = sk.words_geometry(sl, chains, dev)[0]
+        words = (sk.pack_chain_bits(a, C), sk.pack_chain_bits(b, C))
+        _build.reset_launches()
+        e = sk.words_energy(sl, *words, chains, C)
+        launched = launched_now()
+        same = torch.equal(e, energy_ops.halves_energy(sl, a, b))
+        err = float((e - sk.words_energy_ref(sl, *words, chains, C)).abs()
+                    .max())
+        ms = event_ms(lambda: sk.words_energy(sl, *words, chains, C), 200)
+        halves_ms = event_ms(lambda: energy_ops.halves_energy(sl, a, b),
+                             200)
+        plain_ms = event_ms(lambda: sk.words_energy_ref(sl, *words, chains,
+                                                        C), 5)
+        nbytes = (2 * words[0].numel() * 4
+                  + (sl.nslots * 2 + 2) * sl.nh * 4 + chains * 4)
+        bound = 1e3 * nbytes / PEAK_BYTES
+        emit({"phase": "sampler_kernels_vs_plain",
+              "kernel": "energy_chain_bits", "chains": chains,
+              "chains_a_word": C, "launches": launched,
+              "equals_halves_kernel": same, "max_abs_err": err,
+              "tolerance": tol, "ms": ms, "halves_kernel_ms": halves_ms,
+              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+              "bytes": nbytes, "gpu": name, "power_limit": power})
+        what = f"energy_chain_bits at {chains} chains"
+        check(same, f"{what} equals the energy kernel on the halves")
+        check(err <= tol, f"{what} within {tol} of its plain version")
+        check(launched == {"energy_bits": 1}, f"{what} launched {launched}")
+        results["energy_chain_bits"]["max_abs_err"] = max(
+            results["energy_chain_bits"].get("max_abs_err", 0.0), err)
+        if "ms" not in results["energy_chain_bits"]:
+            results["energy_chain_bits"].update(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes")
+
+    # the packed SA kernel: the 80x80 torus's generic form (PT's 384
+    # chains), and the 81x81 torus's checkerboard (not proper), per chain
+    # and shared
+    for gname, pg, chains in (
+            (f"gaussian_torus({L}, 0).to_generic()",
+             packed_ops.build_packed(gtorus), PT_RUNGS * PT_READS),
+            (f"gaussian_torus({ODD_L}, 0) checkerboard",
+             packed_ops.packed_from_lattice(odd_torus), 64)):
+        s = random_pm1(rng, (chains, pg.nspins), dev)
+        temps = per_chain(ladder, chains)
+        cases = [("row", temps[None, :].expand(steps, -1), "packed_sa_chain"),
+                 ("every_step", tables(temps, steps)["every_step"],
+                  "packed_sa_chain")]
+        if not pg.proper:
+            cases.append(("shared", schedules.linear(3.0, 0.1, steps,
+                                                     device=dev),
+                          "packed_sa"))
+        for kind, tab, key in cases:
+            _build.reset_launches()
+            out = gk.packed_sa_anneal(pg, tab, s, 35)
+            launched = launched_now()
+            ref = gk.packed_sa_anneal_ref(pg, tab, s, 35)
+            record("packed_sa_chain" if key == "packed_sa_chain"
+                   else "packed_sa", {"graph": gname, "chains": chains,
+                                      "proper": pg.proper, "table": kind,
+                                      "steps": steps},
+                   out, ref, s, launched, {key: 1})
+
+    # the generic PIQMC kernel: P = 40 on the torus's generic form, P = 5
+    # on the 81x81 checkerboard, global moves, per chain and shared
+    for gname, pg, slices, chains in (
+            (f"gaussian_torus({L}, 0).to_generic()",
+             packed_ops.build_packed(gtorus), QMC_SLICES, 8),
+            (f"gaussian_torus({ODD_L}, 0) checkerboard",
+             packed_ops.packed_from_lattice(odd_torus), ODD_SLICES, 8)):
+        c = random_pm1(rng, (chains, slices, pg.nspins), dev)
+        jpc = schedules.jperp(per_chain(gammas, chains), teff).contiguous()
+        b_sched = torch.ones(GENERIC_QMC_STEPS, device=dev)
+        cases = [("row", jpc[None, :].expand(GENERIC_QMC_STEPS, -1),
+                  "generic_qmc_chain")]
+        if not pg.proper:
+            cases.append(("shared", schedules.jperp(schedules.transverse_field(
+                3.0, 0.3, GENERIC_QMC_STEPS, device=dev), teff).contiguous(),
+                "generic_qmc"))
+        for kind, tab, key in cases:
+            _build.reset_launches()
+            out = gk.generic_qmc_anneal(pg, b_sched, tab, teff, c, 36, True)
+            launched = launched_now()
+            ref = gk.generic_qmc_anneal_ref(pg, b_sched, tab, teff, c, 36,
+                                            True)
+            record(key, {"graph": gname, "chains": chains, "slices": slices,
+                         "proper": pg.proper, "table": kind,
+                         "steps": GENERIC_QMC_STEPS},
+                   out, ref, c, launched, {key: 1})
+
+    # the dense kernel: sk_model(2048, rng=0), 64 chains of a ladder
+    skp = instances.sk_model(DENSE_N, rng=0, device=dev)[0]
+    s = random_pm1(rng, (DENSE_PT_CHAINS, DENSE_N), dev)
+    dtemps = per_chain(schedules.geometric(0.3, 2.0, 16, device=dev),
+                       DENSE_PT_CHAINS)
+    tab = dtemps[None, :].expand(DENSE_STEPS, -1)
+    _build.reset_launches()
+    out = dk.dense_sa_anneal(skp, tab, s, 37, DENSE_BLOCK)
+    launched = launched_now()
+    ref = dk.dense_sa_anneal_ref(skp, tab, s, 37, DENSE_BLOCK)
+    record("dense_sa_chain", {"problem": f"sk_model({DENSE_N}, rng=0)",
+                              "chains": DENSE_PT_CHAINS,
+                              "steps": DENSE_STEPS},
+           out, ref, s, launched,
+           {"dense_sa_chain": DENSE_STEPS * -(-DENSE_N // DENSE_BLOCK)})
+
+    # timing: each per-chain instantiation beside the shared one, and its
+    # plain version, ms per sweep (slope over two schedule lengths)
+    pg80 = packed_ops.build_packed(gtorus)
+    graph = graph_shape(gtorus)
+    nh = sl.nh
+
+    def sa_runner(fn, chains, per, ctx=contextlib.nullcontext):
+        a, b = (x.contiguous() for x in split_ops.pack_classical(
+            sl, random_pm1(rng, (chains, L * L), dev)))
+        temps = per_chain(ladder, chains)
+
+        def run(tau):
+            tab = (temps[None, :].expand(tau, -1) if per else
+                   schedules.linear(3.0, 0.1, tau, device=dev))
+            with ctx():
+                return fn(sl, tab, a, b, 7)
+        return run
+
+    def qmc_runner(fn, chains, per, ctx=contextlib.nullcontext):
+        q = tuple(x.contiguous() for x in split_ops.pack_qmc(
+            sl, random_pm1(rng, (chains, QMC_SLICES, L * L), dev)))
+        jpc = schedules.jperp(per_chain(gammas, chains), teff).contiguous()
+
+        def run(tau):
+            tab = (jpc[None, :].expand(tau, -1) if per else schedules.jperp(
+                schedules.transverse_field(3.0, 1e-8, tau, device=dev),
+                teff).contiguous())
+            with ctx():
+                return fn(sl, torch.ones(tau, device=dev), tab, teff, q, 7,
+                          True)
+        return run
+
+    def packed_runner(fn, chains, per):
+        s = random_pm1(rng, (chains, L * L), dev)
+        temps = per_chain(ladder, chains)
+        return lambda tau: fn(pg80, temps[None, :].expand(tau, -1) if per
+                              else schedules.linear(3.0, 0.1, tau,
+                                                    device=dev), s, 7)
+
+    def gqmc_runner(fn, chains, per):
+        c = random_pm1(rng, (chains, QMC_SLICES, L * L), dev)
+        jpc = schedules.jperp(per_chain(gammas, chains), teff).contiguous()
+        return lambda tau: fn(pg80, torch.ones(tau, device=dev), jpc[
+            None, :].expand(tau, -1) if per else schedules.jperp(
+                schedules.transverse_field(3.0, 1e-8, tau, device=dev),
+                teff).contiguous(), teff, c, 7, True)
+
+    def dense_runner(fn, chains, per):
+        s = random_pm1(rng, (chains, DENSE_N), dev)
+        temps = per_chain(dtemps, chains)
+        return lambda tau: fn(skp, temps[None, :].expand(tau, -1) if per
+                              else schedules.linear(3.0, 0.1, tau,
+                                                    device=dev), s, 7,
+                              DENSE_BLOCK)
+
+    na = PT_RUNGS * PT_READS
+    phased = gibbs.phased_route
+    rows = [
+        # (kernel, runner(fn, per), chains, slices, taus, plain taus, bound)
+        ("split_sa_chain", lambda fn, per: sa_runner(fn, na, per), na, 1,
+         (100, 400), (2, 8), bound_ms("split_sa", na, 1, 2 * nh, 400),
+         sk.sa_split_anneal, sk.sa_split_anneal_ref),
+        ("split_sa_chain_phased",
+         lambda fn, per: sa_runner(fn, 33, per, phased), 33, 1, (20, 80),
+         (2, 8), bound_ms("split_sa", 33, 1, 2 * nh, 80),
+         sk.sa_split_anneal, sk.sa_split_anneal_ref),
+        ("split_qmc_chain",
+         lambda fn, per: qmc_runner(fn, QPT_CHAINS, per), QPT_CHAINS,
+         QMC_SLICES, (50, 200), (1, 3),
+         bound_ms("split_qmc", QPT_CHAINS, QMC_SLICES, 2 * nh, 200),
+         sk.qmc_split_anneal, sk.qmc_split_anneal_ref),
+        ("split_qmc_chain_phased",
+         lambda fn, per: qmc_runner(fn, 4, per, phased), 4, QMC_SLICES,
+         (10, 40), (1, 3), bound_ms("split_qmc", 4, QMC_SLICES, 2 * nh, 40),
+         sk.qmc_split_anneal, sk.qmc_split_anneal_ref),
+        ("packed_sa_chain", lambda fn, per: packed_runner(fn, na, per), na,
+         1, (50, 200), (2, 8),
+         bound_ms("packed_sa", na, 1, L * L, 200, graph),
+         gk.packed_sa_anneal, gk.packed_sa_anneal_ref),
+        ("generic_qmc_chain",
+         lambda fn, per: gqmc_runner(fn, QPT_CHAINS, per), QPT_CHAINS,
+         QMC_SLICES, (10, 40), (1, 2),
+         bound_ms("generic_qmc", QPT_CHAINS, QMC_SLICES, L * L, 40, graph),
+         gk.generic_qmc_anneal, gk.generic_qmc_anneal_ref),
+        ("dense_sa_chain",
+         lambda fn, per: dense_runner(fn, DENSE_PT_CHAINS, per),
+         DENSE_PT_CHAINS, 1, (4, 16), (1, 2),
+         dense_bound(DENSE_PT_CHAINS, DENSE_N),
+         dk.dense_sa_anneal, dk.dense_sa_anneal_ref),
+    ]
+    for kname, runner, chains, slices, taus, ptaus, bound, fn, plain in rows:
+        # shared, per chain, per chain, shared: the two in turns
+        ms = {"shared": [], "per_chain": []}
+        for per in (False, True, True, False):
+            ms["per_chain" if per else "shared"].append(
+                slope_ms(runner(fn, per), taus, 3)[0])
+        plain_ms = slope_ms(runner(plain, True), ptaus, 2)[0]
+        chain_ms = float(np.mean(ms["per_chain"]))
+        shared_ms = float(np.mean(ms["shared"]))
+        emit({"phase": "timing", "kernel": kname, "chains": chains,
+              "slices": slices, "taus": list(taus),
+              "ms_per_sweep": chain_ms, "ms_per_chain_runs": ms["per_chain"],
+              "shared_schedule_ms": shared_ms,
+              "shared_schedule_runs": ms["shared"],
+              "per_chain_over_shared": chain_ms / shared_ms,
+              "plain_ms": plain_ms, "bound_ms": bound[0],
+              "bound_by": bound[1], "bound_unit": bound[2], "gpu": name,
+              "power_limit": power})
+        check(chain_ms > 0 and shared_ms > 0, f"{kname} slopes positive")
+        results[kname].update(ms=chain_ms, plain_ms=plain_ms,
+                              bound_ms=bound[0], bound_by=bound[1])
+
+
+def houdayer_checks(dev, results, gtorus, power, name):
+    """Phase houdayer_vs_plain: csrc/houdayer.cu against
+    cluster.houdayer_move_ref on the card, bitwise (spins and flipped
+    counts), on the 80x80 torus's generic form (48 pairs: pt_value's
+    rungs) and on the 3-D +/-J glass random_3d_lattice(12, rng=0) (24
+    pairs: icm_value's rungs), from random replicas; the move keeps each
+    pair's overlap q and E1 + E2 (float64); ms a move beside the bound
+    and the plain version."""
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    rng = np.random.default_rng(12)
+    glass = instances.random_3d_lattice(12, rng=0, device=dev)[0]
+    for gname, prob, pairs in (
+            (f"gaussian_torus({L}, 0).to_generic()", gtorus, PT_RUNGS),
+            ("random_3d_lattice(12, rng=0)", glass, ICM_RUNGS)):
+        n = prob.nspins
+        s1, s2 = (random_pm1(rng, (pairs, n), dev) for _ in range(2))
+        _build.reset_launches()
+        a, b, f = ck.houdayer_move(prob, s1, s2, 41, 7)
+        launched = launched_now()
+        ra, rb, rf = cl.houdayer_move_ref(prob, s1, s2, 41, 7)
+        torch.cuda.synchronize()
+        n_bad, err = mismatches((a, b), (ra, rb))
+        e0 = energy64(prob, s1.cpu().numpy()) + energy64(prob,
+                                                         s2.cpu().numpy())
+        e1 = energy64(prob, a.cpu().numpy()) + energy64(prob,
+                                                        b.cpu().numpy())
+        scale = float(prob.nbr_J.abs().sum() + prob.h.abs().sum())
+        rec = {"phase": "houdayer_vs_plain", "graph": gname, "nspins": n,
+               "pairs": pairs, "launches": launched,
+               "mismatched_spins": n_bad, "max_abs_err": err,
+               "flips_equal": bool(torch.equal(f, rf)),
+               "flipped_fraction": float(f.sum()) / (pairs * n),
+               "overlap_kept": bool(torch.equal(a * b, s1 * s2)),
+               "max_energy_sum_change": float(np.abs(e1 - e0).max()),
+               "energy_scale": scale}
+        ms = event_ms(lambda: ck.houdayer_move(prob, s1, s2, 41, 7), 50)
+        plain_ms = event_ms(lambda: cl.houdayer_move_ref(prob, s1, s2, 41,
+                                                         7), 2)
+        bound, bound_by, unit = houdayer_bound(pairs, n,
+                                               int(prob.nbr_idx.shape[1]))
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=bound_by, gpu=name, power_limit=power)
+        emit(rec)
+        what = f"houdayer on {gname}, {pairs} pairs"
+        check(n_bad == 0 and rec["flips_equal"],
+              f"{what} equals its plain version")
+        check(rec["flipped_fraction"] > 0, f"{what} flips")
+        check(rec["overlap_kept"], f"{what} keeps the overlap")
+        check(rec["max_energy_sum_change"] <= 1e-9 * scale,
+              f"{what} keeps E1 + E2")
+        check(launched == {"houdayer": 1}, f"{what} launched {launched}")
+        results["houdayer"]["max_abs_err"] = max(
+            results["houdayer"].get("max_abs_err", 0.0), err)
+        if "ms" not in results["houdayer"]:
+            results["houdayer"].update(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound, bound_by=bound_by)
+
+
+def sampler_bitwise_checks(dev):
+    """Phase sampler_kernels_vs_plain, whole samplers: pt.sample,
+    sample_piqmc and sample_icm and pa.sample, sample_adaptive,
+    sample_piqmc and sample_piqmc_adaptive run on the card twice from the
+    same generator seed, on the kernels and on their plain versions
+    (gibbs_check.plain_route), at small widths; states, swap and Houdayer
+    rates, log_z and stats bitwise equal. The split engines' energies come
+    from the energy kernel on the one run and from torch on the other, so
+    their problems have +/-1 couplings, where every energy is an exact
+    integer; the packed and dense engines take torch's energies on both,
+    so a Gaussian torus (the 9x9 one, a packing that is not proper) and an
+    SK problem serve there."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.solvers import pa, pt
+
+    gibbs = gibbs_tool()
+    pm1 = instances.random_2d_lattice(16, rng=0, dist="pm1", lattice=True,
+                                      device=dev)[0]
+    glass = instances.random_3d_lattice(4, rng=0, device=dev)[0]
+    odd = instances.gaussian_torus(9, seed=0, device=dev)
+    skp = instances.sk_model(256, rng=0, device=dev)[0]
+    ladder = schedules.geometric(0.5, 2.5, 8, device=dev)
+    gam = schedules.geometric(0.5, 3.0, 6, device=dev)
+
+    def states(seed, shape):
+        g = torch.Generator().manual_seed(seed)
+        return (torch.randint(0, 2, shape, generator=g).float() * 2 - 1).to(
+            dev)
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    cases = (
+        ("pt.sample, 16x16 +/-1 lattice (kernel A)", lambda: pt.sample(
+            pm1, ladder, states(1, (2, 8, 256)), gen(1), 60,
+            per_pair_rates=True)),
+        ("pt.sample, 9x9 torus checkerboard (packed SA)", lambda: pt.sample(
+            odd, ladder, states(2, (8, 81)), gen(2), 40, swap_every=2,
+            collect_energy=True)),
+        ("pt.sample, sk_model(256) (dense)", lambda: pt.sample(
+            skp, ladder, states(3, (8, 256)), gen(3), 10)),
+        ("pt.sample_piqmc, 16x16 +/-1 lattice, P = 4 (kernel B)",
+         lambda: pt.sample_piqmc(pm1, gam, 0.25, states(4, (6, 4, 256)),
+                                 gen(4), 30, global_moves=True,
+                                 per_pair_rates=True)),
+        ("pt.sample_piqmc, random_3d_lattice(4), P = 3 (generic PIQMC)",
+         lambda: pt.sample_piqmc(glass, gam, 1 / 3, states(5, (6, 3, 64)),
+                                 gen(5), 30, global_moves=True)),
+        ("pt.sample_icm, random_3d_lattice(4) (packed SA, Houdayer)",
+         lambda: pt.sample_icm(glass, ladder[:6], states(6, (2, 2, 6, 64)),
+                               gen(6), 40, swap_every=2)),
+        ("pt.sample_icm, 16x16 +/-1 lattice (kernel A, Houdayer)",
+         lambda: pt.sample_icm(pm1, ladder[:6], states(7, (2, 6, 256)),
+                               gen(7), 30)),
+        ("pa.sample, 16x16 +/-1 lattice (kernel A)", lambda: pa.sample(
+            pm1, pa.beta_linear(2.0, 60, device=dev), states(8, (128, 256)),
+            gen(8), beta0=0.0, collect_stats=True)),
+        ("pa.sample multinomial, random_3d_lattice(4) (packed SA)",
+         lambda: pa.sample(glass, pa.beta_linear(2.0, 40, device=dev),
+                           states(9, (128, 64)), gen(9), mcsteps=2,
+                           beta0=0.0, resample="multinomial",
+                           collect_stats=True)),
+        ("pa.sample_adaptive, 16x16 +/-1 lattice (kernel A)",
+         lambda: pa.sample_adaptive(pm1, 2.0, states(10, (128, 256)),
+                                    gen(10), max_steps=100)),
+        ("pa.sample_piqmc, 16x16 +/-1 lattice, P = 4 (kernel B)",
+         lambda: pa.sample_piqmc(pm1, schedules.transverse_field(
+             2.5, 0.2, 30, device=dev), 0.25, states(11, (64, 4, 256)),
+             gen(11), global_moves=True, collect_stats=True)),
+        ("pa.sample_piqmc_adaptive, random_3d_lattice(4), P = 3",
+         lambda: pa.sample_piqmc_adaptive(glass, 2.5, 0.2, 1 / 3,
+                                          states(12, (64, 3, 64)), gen(12),
+                                          max_steps=60, global_moves=True)),
+    )
+
+    def flat(out):
+        if isinstance(out, dict):
+            return [v for k in sorted(out) for v in flat(out[k])]
+        if isinstance(out, (tuple, list)):
+            return [v for x in out for v in flat(x)]
+        if torch.is_tensor(out):
+            return [out]
+        return [torch.as_tensor(np.asarray(out, dtype=np.float64))]
+
+    for what, run in cases:
+        kernel = flat(run())
+        with gibbs.plain_route():
+            plain = flat(run())
+        torch.cuda.synchronize()
+        same = len(kernel) == len(plain) and all(
+            k.shape == p.shape and torch.equal(k.cpu(), p.cpu())
+            for k, p in zip(kernel, plain))
+        emit({"phase": "sampler_kernels_vs_plain", "sampler": what,
+              "outputs": len(kernel), "bitwise_equal": same})
+        check(same, f"{what}: kernels and plain versions agree bitwise")
+
+
+def sampler_solves(dev, main_launches, torus, power, name):
+    """Phase sampler_solves: the four sampler methods and pt.sample at full
+    width through the public entry points, each with the counts set to 0
+    just before it and read just after (its exact launches), and its mean
+    energy per spin in the range around its JAX CPU anchor
+    (tools/sampler_anchors.py)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.solvers import pt
+    from montecarlosolvers_tpu_torch.solvers.api import solve
+
+    glass = instances.random_3d_lattice(12, rng=0, device=dev)[0]
+    gname80 = f"gaussian_torus({L}, 0)"
+
+    def pt_sample():
+        gen = torch.Generator().manual_seed(0)
+        s0 = (torch.randint(0, 2, (PT_RUNGS, L * L), generator=gen).float()
+              * 2 - 1).to(dev)
+        ladder = pt.geometric_ladder(PT_COLD, PT_HOT, PT_RUNGS, device=dev)
+        out, rate, es = pt.sample(torus, ladder, s0, gen, PT_SWEEPS,
+                                  swap_every=PT_SWAP, collect_energy=True)
+        value = float(es[PT_SWEEPS // 2:, 0].double().mean()) / (L * L)
+        return out, {"swap_rate": float(rate)}, value
+
+    def solved(prob, method, **kw):
+        def run():
+            ss = solve(prob, method, seed=0, **kw)
+            value = float(np.mean(ss.energies)) / prob.nspins
+            check(np.allclose(ss.energies, energy64(prob, ss.samples),
+                              rtol=1e-5, atol=1e-3),
+                  f"{method} energies equal a float64 recomputation")
+            return ss.samples, ss.info, value
+        return run
+
+    def qpt_sample(prob, rungs, slices, sweeps):
+        def run():
+            gen = torch.Generator().manual_seed(0)
+            confs = (torch.randint(0, 2, (rungs, slices, prob.nspins),
+                                   generator=gen).float() * 2 - 1).to(dev)
+            gammas = schedules.geometric(1.5, 0.3, rungs, device=dev)
+            out, rate = pt.sample_piqmc(prob, gammas, 1.0 / slices, confs,
+                                        gen, sweeps, swap_every=2,
+                                        global_moves=True)
+            value = float(prob.energy(out[-1]).double().mean()) / prob.nspins
+            return out, {"swap_rate": float(rate)}, value
+        return run
+
+    skp = instances.sk_model(DENSE_N, rng=0, device=dev)[0]
+
+    def pa_launches(info, steps):
+        n = info.get("n_steps", steps)
+        return {"sa_split": n, "energy_bits": n}
+
+    cases = (
+        ("pt_sample", gname80, pt_sample,
+         lambda info: {"sa_split_chain": PT_SWEEPS,
+                       "energy_bits": PT_SWEEPS}),
+        ("pt", gname80, solved(torus, "pt", num_reads=PT_SOLVE_READS,
+                               sweeps=PT_SOLVE_SWEEPS),
+         lambda info: {"sa_split_chain": PT_SOLVE_SWEEPS,
+                       "energy_bits": PT_SOLVE_SWEEPS}),
+        # a launch a sweep up to each exchange, every second sweep, and one
+        # for the last
+        ("qpt_sample", gname80,
+         qpt_sample(torus, QPT_RUNGS, QPT_SLICES, QPT_SWEEPS),
+         lambda info: {"qmc_split_chain": QPT_SWEEPS // 2 + 1}),
+        ("qpt_generic", "random_3d_lattice(12, rng=0)",
+         qpt_sample(glass, QPT_GENERIC_RUNGS, QPT_GENERIC_SLICES,
+                    QPT_GENERIC_SWEEPS),
+         lambda info: {"generic_qmc_chain": QPT_GENERIC_SWEEPS // 2 + 1}),
+        ("pt_dense", f"sk_model({DENSE_N}, rng=0)",
+         solved(skp, "pt", num_reads=PT_DENSE_READS,
+                sweeps=PT_DENSE_SWEEPS),
+         lambda info: {"dense_sa_chain": PT_DENSE_SWEEPS
+                       * -(-DENSE_N // DENSE_BLOCK)}),
+        ("icm", "random_3d_lattice(12, rng=0)",
+         solved(glass, "icm", num_reads=ICM_READS, sweeps=ICM_SWEEPS,
+                ladder=ICM_RUNGS),
+         lambda info: {"packed_sa_chain": ICM_SWEEPS // 2 + 1,
+                       "houdayer": ICM_SWEEPS // 2}),
+        ("pa", gname80, solved(torus, "pa", num_reads=PA_READS,
+                               sweeps=PA_SWEEPS),
+         lambda info: pa_launches(info, PA_SWEEPS)),
+        ("pa_adaptive", gname80,
+         solved(torus, "pa", num_reads=PA_READS, sweeps=PA_ADAPTIVE_STEPS,
+                adaptive=True, beta_end=PA_ADAPTIVE_BETA),
+         lambda info: pa_launches(info, PA_ADAPTIVE_STEPS)),
+        ("paq", gname80, solved(torus, "paq", num_reads=PAQ_READS,
+                                sweeps=PAQ_SWEEPS, slices=PAQ_SLICES),
+         lambda info: {"qmc_split": PAQ_SWEEPS}),
+    )
+    for key, lname, run, needs in cases:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        samples, info, value = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = launched_now()
+        for k, v in launched.items():
+            main_launches[k] += v
+        samples = np.asarray(samples.cpu() if torch.is_tensor(samples)
+                             else samples)
+        check(set(np.unique(samples)) <= {-1.0, 1.0}, f"{key} spins +/-1")
+        check(np.isfinite(value), f"{key} finite")
+        lo, hi = RANGES[key]
+        rec = {"phase": "sampler_solves", "path": key, "problem": lname,
+               "seconds": secs, "mean_energy_per_spin": value,
+               "range": [lo, hi], "anchor": SAMPLER_ANCHORS[key],
+               "info": {k: v for k, v in info.items()
+                        if isinstance(v, (int, float, bool, str))},
+               "launches": launched, "gpu": name, "power_limit": power}
+        emit(rec)
+        check(lo <= value <= hi, f"{key} mean {value} inside [{lo}, {hi}]")
+        want = needs(info)
+        check(launched == want, f"{key} launched {launched}, its route "
+                                f"{want}")
+        if key == "pt":
+            check(info["ladder"] == PT_AUTO_RUNGS,
+                  f"pt auto ladder {info['ladder']}")
+        if key in ("pa", "pa_adaptive"):
+            check(np.isfinite(info["log_z"]), f"{key} log_z finite")
+        if key == "pa_adaptive":
+            check(info["reached"], "pa_adaptive reached beta_end")
+
+
 def main():
     t_script = time.perf_counter()
     phase_seconds = {}
@@ -2287,6 +3122,7 @@ def main():
     # ---- device
     smi = nvidia_smi()
     print(smi, flush=True)
+    power = smi.split(",")[-1].strip() if "," in smi else smi
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": name})
@@ -2767,6 +3603,14 @@ def main():
     cluster_checks(dev, results, gtorus80)
     phase_seconds["cluster_kernel_vs_plain"] = time.perf_counter() - t_script
 
+    # ---- the samplers' kernels against their plain versions: the per-chain
+    # instantiations, the Houdayer kernel, the whole samplers on both
+    sampler_kernel_checks(dev, results, torus, gtorus80, odd_torus, power,
+                          name)
+    houdayer_checks(dev, results, gtorus80, power, name)
+    sampler_bitwise_checks(dev)
+    phase_seconds["sampler_kernels_vs_plain"] = time.perf_counter() - t_script
+
     # ---- main path through solve(), launch counts read around each solve
     try:
         problem, e_gs = instances.santoro_80x80(lattice=True, device=dev)
@@ -2964,6 +3808,8 @@ def main():
         launched = {k: v for k, v in launches.items() if v}
         check(launched == needs, f"{key} launched {launched}, its route "
                                  f"{needs}")
+    # ---- the samplers at full width, launch counts read around each
+    sampler_solves(dev, main_launches, torus, power, name)
     emit({"phase": "main_path", "launches": main_launches})
     phase_seconds["main_path"] = time.perf_counter() - t_script
 
@@ -3179,7 +4025,6 @@ def main():
     )
     graph_of = {"generic_qmc_bath": pg_nbt}
 
-    power = smi.split(",")[-1].strip() if "," in smi else smi
     # kernel, route, runner, taus, trials, chains, slices, sites; the rows
     # after the plain ones are beside the main path's shapes and stay out
     # of the kernels line

@@ -35,11 +35,15 @@ default) anneals through `sa.anneal` and `solve(method="sa")` on the dense
 engine (`ops/dense_kernels.py`: block fields by torch.matmul, the
 sequential in-block steps on `csrc/dense_sa.cu`), and `sa.anneal_noisy` /
 `svmc.anneal_noisy` anneal an IsingProblem on per-step coupling tables
-through the packed kernels. What the port does not cover yet (the cluster
-updates, PT and PA, the compat shims, the parallel layer) raises
-NotImplementedError naming the ROADMAP.md item that will port it, and so
-does a call the JAX package does not run on a DenseProblem (`qmc.anneal`,
-`svmc.anneal`, solve's "piqmc" and "svmc").
+through the packed kernels. The cluster updates (`sa/qmc.anneal_wolff`,
+`anneal_sw`, `qmc.anneal_sw_bath`, `ops/cluster_kernels.py`) and the
+samplers (`solvers/pt.py`: parallel tempering, quantum PT, ICM;
+`solvers/pa.py`: population annealing, classical and quantum, fixed and
+adaptive; solve's "pt", "icm", "pa" and "paq") run too. The parallel
+layer is not ported yet: a call that needs it raises NotImplementedError
+naming its ROADMAP.md item, and so does a call the JAX package does not
+run on a DenseProblem (`qmc.anneal`, `svmc.anneal`, solve's "piqmc",
+"svmc", "paq").
 
 Every function that takes `device=None` builds on the CUDA card and raises
 on a host without one (`_device.resolve`); the solvers run on the
@@ -57,10 +61,10 @@ from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.models.dense import DenseProblem
 from montecarlosolvers_tpu_torch.models.ising import IsingProblem
 from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
-from montecarlosolvers_tpu_torch.solvers import sa, qmc, svmc
+from montecarlosolvers_tpu_torch.solvers import sa, qmc, svmc, pt
 from montecarlosolvers_tpu_torch.solvers.api import SampleSet, solve
 
 __version__ = "0.1.0"
 
 __all__ = ["DenseProblem", "IsingProblem", "LatticeProblem", "SampleSet",
-           "qmc", "sa", "schedules", "solve", "svmc"]
+           "pt", "qmc", "sa", "schedules", "solve", "svmc"]

@@ -3,7 +3,6 @@ queued: every refusal in the port names its ROADMAP.md item through here."""
 
 from __future__ import annotations
 
-SAMPLERS = "queue 1, item 2 (samplers and API)"
 PARALLEL = "queue 1, item 3 (parallel layer)"
 
 
@@ -12,8 +11,8 @@ def require_problem(problem, sparse_only=None):
     problem types, a LatticeProblem, an IsingProblem or a DenseProblem (a
     problem of the JAX package must cross through `convert.py` first).
     With `sparse_only`, the name of a call the JAX package does not run on
-    a DenseProblem (it runs only SA there, and PT and PA, which wait for
-    SAMPLERS), a DenseProblem is refused too."""
+    a DenseProblem (it runs only SA, PT and PA there), a DenseProblem is
+    refused too."""
     from montecarlosolvers_tpu_torch.models.dense import DenseProblem
     from montecarlosolvers_tpu_torch.models.ising import IsingProblem
     from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem

@@ -15,7 +15,10 @@
 // u = uniform01(counter(seed, step, 0), chain * Np + i); then s_i' = -s_i
 // or s_i, and every field of the block takes f_k + (s_i' - s_i) J[i,
 // start+k]. The difference is 0 or +/-2, so the product is exact and the
-// add rounds once, as the plain version's does. T = temps[step].
+// add rounds once, as the plain version's does. T = temps[row], or with a
+// temperature per chain (parallel tempering, solvers/pt.py; the template
+// argument kPerChain) temps[row * stride_t + chain * stride_c]; `step` is
+// the sweep the hash counts (a launch inside a longer run passes its own).
 //
 // What bounds it on an H100. The B steps of a chain are a dependent chain:
 // the next decision reads a field the last step updated. Per step a chain
@@ -45,12 +48,13 @@ constexpr int kMaxBlock = 128;
 constexpr int kPerLane = kMaxBlock / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+template <bool kPerChain>
 __global__ void __launch_bounds__(256)
 dense_sa_block_kernel(const float* __restrict__ J,
                       const float* __restrict__ fb,
                       const float* __restrict__ temps, float* s, int chains,
-                      int np, int start, int B, int step,
-                      uint32_t seed_term) {
+                      int np, int start, int B, int row, int step,
+                      uint32_t seed_term, int stride_t, int stride_c) {
   extern __shared__ float tile[];  // B x B: tile[r * B + c] = J[start+r,
                                    // start+c]
   for (int idx = threadIdx.x; idx < B * B; idx += blockDim.x) {
@@ -62,7 +66,10 @@ dense_sa_block_kernel(const float* __restrict__ J,
   const int lane = threadIdx.x & 31;
   const int chain = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (chain >= chains) return;
-  const float temp = __ldg(temps + step);
+  const float temp =
+      kPerChain ? __ldg(temps + static_cast<size_t>(row) * stride_t +
+                        static_cast<size_t>(chain) * stride_c)
+                : __ldg(temps + row);
   const uint32_t ctr = mcs::counter(seed_term, step, 0);
   float* sc = s + static_cast<size_t>(chain) * np + start;
   const float* fc = fb + static_cast<size_t>(chain) * B;
@@ -115,26 +122,30 @@ dense_sa_block_kernel(const float* __restrict__ J,
 
 // The micro-steps of the block at `start` (B <= 128 sites) of padded spins
 // s (chains, np), in place: J (np, np) the padded couplings, fb (chains, B)
-// the block's fields, temps the schedule, read at `step`. `warps` chains a
-// CTA of warps * 32 threads (<= 256), B * B floats of dynamic shared
-// memory. All device pointers; launches on `stream` and returns
-// cudaGetLastError().
+// the block's fields, temps the schedule, read at `row` (stride_c != 0: a
+// temperature per chain, temps[row * stride_t + chain * stride_c]); `step`
+// the sweep the hash counts. `warps` chains a CTA of warps * 32 threads
+// (<= 256), B * B floats of dynamic shared memory. All device pointers;
+// launches on `stream` and returns cudaGetLastError().
 extern "C" int dense_sa_block(const float* J, const float* fb,
                               const float* temps, float* s, int chains,
-                              int np, int start, int B, int step, int seed,
-                              int warps, void* stream) {
+                              int np, int start, int B, int row, int step,
+                              int seed, int warps, int stride_t,
+                              int stride_c, void* stream) {
   if (chains == 0 || B == 0) return cudaSuccess;
   if (B > kMaxBlock || warps < 1 || warps > 8) return cudaErrorInvalidValue;
   const size_t smem = static_cast<size_t>(B) * B * sizeof(float);
+  const auto kernel = stride_c ? dense_sa_block_kernel<true>
+                               : dense_sa_block_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      dense_sa_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
   const int grid = (chains + warps - 1) / warps;
-  dense_sa_block_kernel<<<grid, warps * 32, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      J, fb, temps, s, chains, np, start, B, step, seed_term);
+  kernel<<<grid, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      J, fb, temps, s, chains, np, start, B, row, step, seed_term, stride_t,
+      stride_c);
   return cudaGetLastError();
 }
 

@@ -21,6 +21,19 @@ extern "C" int energy_halves(const float* w, const float* h, const float* a,
   return cudaGetLastError();
 }
 
+// Halves a, b of an even-L lattice as kernel A's chain bits,
+// (ceil(chains/C), nh) int32 words each, C chains a word; w, h as for
+// energy_halves. Writes out (chains,).
+extern "C" int energy_chain_bits(const float* w, const float* h, const int* a,
+                                 const int* b, int chains, int C, int L,
+                                 int nslots, float* out, void* stream) {
+  if (chains == 0) return cudaSuccess;
+  if (C < 1 || C > 32) return cudaErrorInvalidValue;
+  mcs::launch_chain_bits_energy(w, h, a, b, chains, C, L, nslots, out,
+                                static_cast<cudaStream_t>(stream));
+  return cudaGetLastError();
+}
+
 // PIQMC quarters xe, xo, ye, yo (chains, Q, nh) each; the rest as for
 // energy_halves.
 extern "C" int energy_quarters(const float* w, const float* h,

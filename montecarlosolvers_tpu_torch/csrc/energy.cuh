@@ -1,7 +1,8 @@
 // The per-step energy kernel of collect_energy=: one launch a step from the
 // per-phase host loops of split_sa.cu, split_qmc.cu, split_qmc_bath.cu,
 // split_svmc.cu, plane_sa.cu, plane_qmc.cu and plane_svmc.cu, and from the
-// stand-alone entry points of energy.cu.
+// stand-alone entry points of energy.cu (the samplers' exchanges read the
+// energies of kernel A's chain-bit words through chain_bits_energy_kernel).
 //
 // Replaces no TPU kernel: the JAX package computes the per-step energies in
 // XLA inside its scans (ops/split.py:245, :324-330, :676, :715;
@@ -73,22 +74,32 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
 }
 
 // This thread's share of the energy of one slice in the split layout:
-// half a (color A) and half b (color B), nh floats each; w (nslots, 2,
-// nh), h (2, nh).
+// the spins of half a (color A) and half b (color B), nh sites each, read
+// by sa(j) and sb(j); w (nslots, 2, nh), h (2, nh).
+template <typename ReadA, typename ReadB>
+__device__ __forceinline__ float halves_share_of(ReadA sa, ReadB sb,
+                                                 const float* __restrict__ w,
+                                                 const float* __restrict__ h,
+                                                 int nh, int K, int nslots) {
+  float acc = 0.0f;
+  for (int j = threadIdx.x; j < nh; j += blockDim.x) {
+    const float f = stencil(sb, w, 0, nh, K, nslots, j);
+    acc += sa(j) * (f + __ldg(h + j)) + __ldg(h + nh + j) * sb(j);
+  }
+  return acc;
+}
+
+// halves_share_of over halves stored as floats (or SVMC's cos theta)
 template <bool kCos>
 __device__ __forceinline__ float halves_share(const float* __restrict__ a,
                                               const float* __restrict__ b,
                                               const float* __restrict__ w,
                                               const float* __restrict__ h,
                                               int nh, int K, int nslots) {
-  float acc = 0.0f;
-  for (int j = threadIdx.x; j < nh; j += blockDim.x) {
-    const float f = stencil([b](int i) { return spin_of<kCos>(__ldg(b + i)); },
-                            w, 0, nh, K, nslots, j);
-    acc += spin_of<kCos>(__ldg(a + j)) * (f + __ldg(h + j)) +
-           __ldg(h + nh + j) * spin_of<kCos>(__ldg(b + j));
-  }
-  return acc;
+  return halves_share_of(
+      [a](int i) { return spin_of<kCos>(__ldg(a + i)); },
+      [b](int i) { return spin_of<kCos>(__ldg(b + i)); }, w, h, nh, K,
+      nslots);
 }
 
 // out[chain] = min over p < P of the energy of slice p of halves a, b
@@ -109,6 +120,31 @@ halves_energy_kernel(const float* __restrict__ w, const float* __restrict__ h,
     best = p == 0 ? e : fminf(best, e);
   }
   if (threadIdx.x == 0) out[blockIdx.x] = best;
+}
+
+// out[chain] = the energy of one chain of halves a, b held as kernel A's
+// chain bits (ops/split_kernels.py::pack_chain_bits): (ceil(chains/C), nh)
+// int32 words each, bit c of word (g, j) the sign of chain g*C + c at site
+// j, 1 for -1. The same sum in the same order as halves_energy_kernel at
+// P = 1, so the two agree bitwise on the same spins.
+__global__ void __launch_bounds__(kEnergyThreads)
+chain_bits_energy_kernel(const float* __restrict__ w,
+                         const float* __restrict__ h,
+                         const int* __restrict__ a, const int* __restrict__ b,
+                         int C, int nh, int K, int nslots,
+                         float* __restrict__ out) {
+  __shared__ float red[kEnergyThreads / 32];
+  const int g = blockIdx.x / C;
+  const int c = blockIdx.x - g * C;
+  const int* wa = a + static_cast<size_t>(g) * nh;
+  const int* wb = b + static_cast<size_t>(g) * nh;
+  const float e = block_sum(
+      halves_share_of(
+          [wa, c](int i) { return (__ldg(wa + i) >> c) & 1 ? -1.0f : 1.0f; },
+          [wb, c](int i) { return (__ldg(wb + i) >> c) & 1 ? -1.0f : 1.0f; },
+          w, h, nh, K, nslots),
+      red);
+  if (threadIdx.x == 0) out[blockIdx.x] = e;
 }
 
 // out[chain] = min over the 2Q slices of the energy of PIQMC quarters
@@ -177,6 +213,15 @@ inline void launch_halves_energy(const float* w, const float* h,
                                 : halves_energy_kernel<false>;
   kernel<<<chains, kEnergyThreads, 0, st>>>(w, h, a, b, P, L * K, K, nslots,
                                             out);
+}
+
+inline void launch_chain_bits_energy(const float* w, const float* h,
+                                     const int* a, const int* b, int chains,
+                                     int C, int L, int nslots, float* out,
+                                     cudaStream_t st) {
+  const int K = L / 2;
+  chain_bits_energy_kernel<<<chains, kEnergyThreads, 0, st>>>(
+      w, h, a, b, C, L * K, K, nslots, out);
 }
 
 inline void launch_quarters_energy(const float* w, const float* h,

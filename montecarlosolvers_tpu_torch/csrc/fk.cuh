@@ -1,5 +1,6 @@
 // Fortuin-Kasteleyn draws shared by the cluster kernels (fk_wolff.cu,
-// fk_label.cu, fk_line.cu).
+// fk_label.cu, fk_line.cu), and the union-find of fk_label.cu and
+// houdayer.cu.
 //
 // Device form of the cluster streams of
 // montecarlosolvers_tpu_torch/ops/counter_rng.py (cluster_counter, the
@@ -60,6 +61,39 @@ __device__ __forceinline__ void bath_probs(const float* __restrict__ lut,
   const float x = __fmul_rn(__fmul_rn(-2.0f, teff), __ldg(lut + d - 1));
   *p_same = bond_prob(x, teff);
   *p_diff = bond_prob(-x, teff);
+}
+
+// The root of x, halving the path as it goes (parent[x] = x at a root).
+__device__ __forceinline__ int find_root(volatile int* parent, int x) {
+  for (;;) {
+    const int p = parent[x];
+    if (p == x) return x;
+    const int gp = parent[p];
+    if (gp != p) parent[x] = gp;  // path halving: gp is an ancestor of x
+    x = p;
+  }
+}
+
+// Unite the sets of a and b, hooking the larger root under the smaller with
+// atomicCAS (a failed hook retries from the new root): the least node of a
+// set is never hooked, so once every bond is united each set's one root is
+// its least node, whatever order the threads united in.
+__device__ __forceinline__ void unite(int* parent, int a, int b) {
+  volatile int* vp = parent;
+  for (;;) {
+    a = find_root(vp, a);
+    b = find_root(vp, b);
+    if (a == b) return;
+    if (a > b) {
+      const int t = a;
+      a = b;
+      b = t;
+    }
+    // hook the larger root b under the smaller a, if b is still a root
+    const int old = atomicCAS(parent + b, b, a);
+    if (old == b) return;
+    b = old;
+  }
 }
 
 }  // namespace mcs

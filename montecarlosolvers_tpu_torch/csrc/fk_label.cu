@@ -46,34 +46,6 @@
 
 namespace {
 
-__device__ __forceinline__ int find_root(volatile int* parent, int x) {
-  for (;;) {
-    const int p = parent[x];
-    if (p == x) return x;
-    const int gp = parent[p];
-    if (gp != p) parent[x] = gp;  // path halving: gp is an ancestor of x
-    x = p;
-  }
-}
-
-__device__ __forceinline__ void unite(int* parent, int a, int b) {
-  volatile int* vp = parent;
-  for (;;) {
-    a = find_root(vp, a);
-    b = find_root(vp, b);
-    if (a == b) return;
-    if (a > b) {
-      const int t = a;
-      a = b;
-      b = t;
-    }
-    // hook the larger root b under the smaller a, if b is still a root
-    const int old = atomicCAS(parent + b, b, a);
-    if (old == b) return;
-    b = old;
-  }
-}
-
 template <bool kBath>
 __global__ void __launch_bounds__(1024)
 fk_label_kernel(const int* __restrict__ nbr_idx,
@@ -152,7 +124,7 @@ fk_label_kernel(const int* __restrict__ nbr_idx,
             sc[static_cast<size_t>(k) * n + j]);
         if (mcs::uniform01(c_sp, uid * static_cast<uint32_t>(maxnb) + m) <
             mcs::bond_prob(de, teff)) {
-          unite(parent, node, k * n + idj);
+          mcs::unite(parent, node, k * n + idj);
         }
       }
       if (P > 1) {
@@ -160,7 +132,7 @@ fk_label_kernel(const int* __restrict__ nbr_idx,
         const float de = __fmul_rn(__fmul_rn(m2jp, si),
                                    sc[static_cast<size_t>(kp) * n + i]);
         if (mcs::uniform01(c_t, uid) < mcs::bond_prob(de, teff)) {
-          unite(parent, node, kp * n + idi);
+          mcs::unite(parent, node, kp * n + idi);
         }
       }
       if (kBath) {
@@ -170,7 +142,7 @@ fk_label_kernel(const int* __restrict__ nbr_idx,
           const float p = sq == si ? p_same[q - k] : p_diff[q - k];
           const float u = mcs::uniform01(
               c_b, (line + k) * static_cast<uint32_t>(P) + q);
-          if (u < p) unite(parent, node, q * n + idi);
+          if (u < p) mcs::unite(parent, node, q * n + idi);
         }
       }
     }
@@ -178,14 +150,14 @@ fk_label_kernel(const int* __restrict__ nbr_idx,
 
     // a ghost bond freezes its component
     for (int x = threadIdx.x; x < PN; x += blockDim.x) {
-      if (ghost[x]) vfrozen[find_root(parent, x)] = 1;
+      if (ghost[x]) vfrozen[mcs::find_root(parent, x)] = 1;
     }
     __syncthreads();
 
     // every free component flips on the coin of its least node
     for (int e = threadIdx.x; e < PN; e += blockDim.x) {
       const int k = e / n, i = e - k * n;
-      const int r = find_root(parent, k * n + __ldg(perm + i));
+      const int r = mcs::find_root(parent, k * n + __ldg(perm + i));
       if (!vfrozen[r] &&
           mcs::uniform01(c_coin, static_cast<uint32_t>(chain) * PN + r) <
               0.5f) {

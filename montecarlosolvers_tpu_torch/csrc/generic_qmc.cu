@@ -36,6 +36,16 @@
 // threads a chain, the state in device memory (any N, P, color count),
 // threads striding over a slice's block, slice after slice, and a
 // __syncthreads() between phases and between line colors.
+//
+// A J_perp per chain (quantum parallel tempering, solvers/pt.py::
+// sample_piqmc): the template argument kPerChain reads jp[t * stride_t +
+// chain * stride_c] once a step; the shared instantiation reads jp[t]. A
+// packing that is not proper (an odd periodic lattice's checkerboard,
+// ops/packed.py::packed_from_lattice) takes kImproper: a local phase
+// copies the blocks it updates, and a line color its block, all slices,
+// into the scratch `snap` first and reads same-class neighbours there, as
+// the plain version's masked phases read them (csrc/generic_qmc_bath.cu
+// does the same).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,7 +55,7 @@
 
 namespace {
 
-template <bool kGlobal>
+template <bool kGlobal, bool kPerChain, bool kImproper>
 __global__ void __launch_bounds__(mcs::kPackedThreads)
 generic_qmc_kernel(const int* __restrict__ nbr_idx,
                    const float* __restrict__ nbr_J,
@@ -53,35 +63,55 @@ generic_qmc_kernel(const int* __restrict__ nbr_idx,
                    const int* __restrict__ starts,
                    const float* __restrict__ b_sched,
                    const float* __restrict__ jp, float teff, float* s,
-                   float* __restrict__ energies, int chains, int P, int n,
-                   int maxnb, int ncolors, int m, int steps,
-                   uint32_t seed_term) {
+                   float* snap, float* __restrict__ energies, int chains,
+                   int P, int n, int maxnb, int ncolors, int m, int steps,
+                   uint32_t seed_term, int stride_t, int stride_c) {
   __shared__ float red[mcs::kPackedThreads / 32];
   const int chain = blockIdx.x;
   const size_t stride = static_cast<size_t>(n);
   float* const base = s + static_cast<size_t>(chain) * P * stride;
+  float* const sbase =
+      kImproper ? snap + static_cast<size_t>(chain) * P * stride : nullptr;
   const uint32_t N = static_cast<uint32_t>(n);
   const uint32_t line_uid0 = static_cast<uint32_t>(chain) *
                              static_cast<uint32_t>(P) * N;
   for (int t = 0; t < steps; ++t) {
     const float bc = __fmul_rn(-2.0f, __ldg(b_sched + t));
-    const float jpt = __ldg(jp + t);
+    const float jpt =
+        kPerChain ? __ldg(jp + static_cast<size_t>(t) * stride_t +
+                          static_cast<size_t>(chain) * stride_c)
+                  : __ldg(jp + t);
     const uint32_t ctr = mcs::counter(seed_term, t, 0);
     for (int p = 0; p < m; ++p) {
+      if (kImproper) {  // the blocks this phase updates, as they stand
+        for (int k = 0; k < P; ++k) {
+          const int c = ((p - k) % m + m) % m;
+          if (c >= ncolors) continue;
+          const int hi = __ldg(starts + c + 1);
+          for (int i = __ldg(starts + c) + threadIdx.x; i < hi;
+               i += blockDim.x)
+            sbase[k * stride + i] = base[k * stride + i];
+        }
+        __syncthreads();
+      }
       for (int k = 0; k < P; ++k) {
         const int c = ((p - k) % m + m) % m;
         if (c >= ncolors) continue;
         float* sk = base + k * stride;
+        const int lo = __ldg(starts + c);
         const float* up = base + (k == 0 ? P - 1 : k - 1) * stride;
         const float* dn = base + (k + 1 == P ? 0 : k + 1) * stride;
         const uint32_t uid0 =
             (static_cast<uint32_t>(chain) * static_cast<uint32_t>(P) +
              static_cast<uint32_t>(k)) * N;
         const int hi = __ldg(starts + c + 1);
-        for (int i = __ldg(starts + c) + threadIdx.x; i < hi;
-             i += blockDim.x) {
+        for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
           const float si = sk[i];
-          const float f = mcs::packed_field(sk, nbr_idx, nbr_J, h, i, maxnb);
+          const float f =
+              kImproper ? mcs::field_in_phase(sk, sbase + k * stride,
+                                              nbr_idx, nbr_J, h, i, maxnb,
+                                              lo, hi)
+                        : mcs::packed_field(sk, nbr_idx, nbr_J, h, i, maxnb);
           const float de = __fadd_rn(
               __fmul_rn(__fmul_rn(bc, si), f),
               __fmul_rn(__fmul_rn(__fmul_rn(2.0f, si), jpt),
@@ -98,15 +128,24 @@ generic_qmc_kernel(const int* __restrict__ nbr_idx,
     if (kGlobal) {
       const uint32_t lctr = mcs::line_counter(seed_term, t, 0);
       for (int c = 0; c < ncolors; ++c) {
-        const int hi = __ldg(starts + c + 1);
-        for (int i = __ldg(starts + c) + threadIdx.x; i < hi;
-             i += blockDim.x) {
+        const int lo = __ldg(starts + c), hi = __ldg(starts + c + 1);
+        if (kImproper) {
+          for (int k = 0; k < P; ++k)
+            for (int i = lo + threadIdx.x; i < hi; i += blockDim.x)
+              sbase[k * stride + i] = base[k * stride + i];
+          __syncthreads();
+        }
+        for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
           float de = 0.0f;
           for (int k = 0; k < P; ++k) {
             const float* sk = base + k * stride;
-            const float term = __fmul_rn(
-                __fmul_rn(bc, sk[i]),
-                mcs::packed_field(sk, nbr_idx, nbr_J, h, i, maxnb));
+            const float f =
+                kImproper ? mcs::field_in_phase(sk, sbase + k * stride,
+                                                nbr_idx, nbr_J, h, i, maxnb,
+                                                lo, hi)
+                          : mcs::packed_field(sk, nbr_idx, nbr_J, h, i,
+                                              maxnb);
+            const float term = __fmul_rn(__fmul_rn(bc, sk[i]), f);
             de = k == 0 ? term : __fadd_rn(de, term);
           }
           const uint32_t uid =
@@ -141,26 +180,41 @@ generic_qmc_kernel(const int* __restrict__ nbr_idx,
 // launch. The packed layout's nbr_idx / nbr_J (n, maxnb), h (n), perm (n),
 // starts (ncolors + 1); global_moves != 0 adds the line moves; energies: a
 // (steps, chains) float32 buffer or null; step0: the step the hash counts
-// the first sweep as. All device pointers; launches on `stream` and returns
-// cudaGetLastError().
+// the first sweep as; stride_c != 0 reads a J_perp per chain, jp[t *
+// stride_t + chain * stride_c]; snap, scratch of the state's size or null,
+// marks a packing that is not proper. All device pointers; launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int generic_qmc_anneal(const int* nbr_idx, const float* nbr_J,
                                   const float* h, const int* perm,
                                   const int* starts, const float* b_sched,
                                   const float* jp, float teff, float* s,
-                                  float* energies, int chains, int P, int n,
+                                  float* snap, float* energies, int chains,
+                                  int P, int n,
                                   int maxnb, int ncolors, int m, int steps,
                                   int seed, int step0, int global_moves,
-                                  int threads, void* stream) {
+                                  int threads, int stride_t, int stride_c,
+                                  void* stream) {
   if (chains == 0 || n == 0 || P == 0) return cudaSuccess;
   // step0 folds into the seed term: counter(seed_term, t, i) is then
   // counter(seed, step0 + t, i), and so is every other counter of the step
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
                              static_cast<uint32_t>(step0) * mcs::kStepMult;
-  auto kernel =
-      global_moves ? generic_qmc_kernel<true> : generic_qmc_kernel<false>;
+  using Kernel = decltype(&generic_qmc_kernel<false, false, false>);
+  // [global_moves][per chain][improper]
+  const Kernel kernels[2][2][2] = {
+      {{generic_qmc_kernel<false, false, false>,
+        generic_qmc_kernel<false, false, true>},
+       {generic_qmc_kernel<false, true, false>,
+        generic_qmc_kernel<false, true, true>}},
+      {{generic_qmc_kernel<true, false, false>,
+        generic_qmc_kernel<true, false, true>},
+       {generic_qmc_kernel<true, true, false>,
+        generic_qmc_kernel<true, true, true>}}};
+  const Kernel kernel =
+      kernels[global_moves != 0][stride_c != 0][snap != nullptr];
   kernel<<<chains, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nbr_idx, nbr_J, h, perm, starts, b_sched, jp, teff, s, energies,
-      chains, P, n, maxnb, ncolors, m, steps, seed_term);
+      nbr_idx, nbr_J, h, perm, starts, b_sched, jp, teff, s, snap, energies,
+      chains, P, n, maxnb, ncolors, m, steps, seed_term, stride_t, stride_c);
   return cudaGetLastError();
 }
 

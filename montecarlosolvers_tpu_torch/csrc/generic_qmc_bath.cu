@@ -71,22 +71,6 @@
 
 namespace {
 
-// The local field of packed site i of slice values sk, its neighbours in
-// the block [lo, hi) read from `same` (sk itself when the coloring is
-// proper, and then none lies there).
-__device__ __forceinline__ float field_in_phase(
-    const float* sk, const float* same, const int* __restrict__ nbr_idx,
-    const float* __restrict__ nbr_J, const float* __restrict__ h, int i,
-    int maxnb, int lo, int hi) {
-  return __fadd_rn(
-      mcs::slot_sum(
-          [sk, same, lo, hi](int j) {
-            return j >= lo && j < hi ? same[j] : sk[j];
-          },
-          nbr_idx, nbr_J, i, maxnb),
-      __ldg(h + i));
-}
-
 // sum_p M[k, p] s_p of the line at `line` (slice p at line[p * stride]), p
 // in index order from 0; every product with a spin is exact
 __device__ __forceinline__ float bath_field(const float* __restrict__ mk,
@@ -139,8 +123,8 @@ generic_qmc_bath_kernel(const int* __restrict__ nbr_idx,
     auto update = [&](int k, int i, const float* same, int lo, int hi) {
       const float* sk = base + k * stride;
       const float si = sk[i];
-      const float f = field_in_phase(sk, same + k * stride, nbr_idx, nbr_J,
-                                     h, i, maxnb, lo, hi);
+      const float f = mcs::field_in_phase(sk, same + k * stride, nbr_idx,
+                                          nbr_J, h, i, maxnb, lo, hi);
       const int up = k == 0 ? P - 1 : k - 1;
       const int dn = k + 1 == P ? 0 : k + 1;
       const float tr = __fadd_rn(base[up * stride + i], base[dn * stride + i]);
@@ -204,8 +188,8 @@ generic_qmc_bath_kernel(const int* __restrict__ nbr_idx,
             const float* sk = base + k * stride;
             const float term = __fmul_rn(
                 __fmul_rn(bc, sk[i]),
-                field_in_phase(sk, same + k * stride, nbr_idx, nbr_J, h, i,
-                               maxnb, lo, hi));
+                mcs::field_in_phase(sk, same + k * stride, nbr_idx, nbr_J,
+                                    h, i, maxnb, lo, hi));
             de = k == 0 ? term : __fadd_rn(de, term);
           }
           const uint32_t uid =

@@ -58,6 +58,22 @@ __device__ __forceinline__ float packed_field(const float* x,
       __ldg(h + i));
 }
 
+// The local field of packed site i of slice values sk, its neighbours in
+// the block [lo, hi) read from `same` (sk itself when the coloring is
+// proper, and then none lies there).
+__device__ __forceinline__ float field_in_phase(
+    const float* sk, const float* same, const int* __restrict__ nbr_idx,
+    const float* __restrict__ nbr_J, const float* __restrict__ h, int i,
+    int maxnb, int lo, int hi) {
+  return __fadd_rn(
+      slot_sum(
+          [sk, same, lo, hi](int j) {
+            return j >= lo && j < hi ? same[j] : sk[j];
+          },
+          nbr_idx, nbr_J, i, maxnb),
+      __ldg(h + i));
+}
+
 // The classical energy of n packed sites x (spins, or cos theta read as
 // sign(cos theta) with kCos), 0.5 * sum_i s_i (sum_k J s_nb) + sum_i h_i
 // s_i, reduced over the CTA in a fixed order (energy.cuh::block_sum): no

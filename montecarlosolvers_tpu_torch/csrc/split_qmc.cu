@@ -56,6 +56,11 @@
 //   cluster.sync(), and with global moves line A, sync, line B, sync, so Y
 //   reads the new X and line B the A quarters after line A's flips.
 //   ops/split_kernels.py::qmc_geometry chooses R by kernel 5's rules.
+// - A J_perp per chain (quantum parallel tempering's Gamma ladder,
+//   solvers/pt.py::sample_piqmc): the template argument kPerChain reads
+//   jp[t * stride_t + chain * stride_c] once a step (B stays shared, and the
+//   line moves read no J_perp). A step offset, step0, folds into the seed
+//   term on the host, so a run split into launches draws as one launch.
 // - The uniform source is a template argument (csrc/hw_rng.cuh): the
 //   counter hash, or with hw_rng the thread's own generator stream, which
 //   draws a site's slices in slice order, then its line moves; the hash
@@ -113,8 +118,10 @@ __device__ __forceinline__ uint32_t ring_word(const uint32_t* quarter, int S,
   return rest | (quarter_bit(quarter, S, (32 * wd + last + 1) % Q) << last);
 }
 
-// kHw: uniforms from the thread's stream (hw_rng.cuh), not the counter hash
-template <bool kHw>
+// kHw: uniforms from the thread's stream (hw_rng.cuh), not the counter hash;
+// kPerChain: J_perp of chain c at step t is jp[t * stride_t + c * stride_c]
+// (quantum parallel tempering's Gamma ladder), else jp[t]
+template <bool kHw, bool kPerChain>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 split_qmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  const float* __restrict__ b_sched,
@@ -125,7 +132,8 @@ split_qmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  const float* __restrict__ yo_in, float* __restrict__ xe_out,
                  float* __restrict__ xo_out, float* __restrict__ ye_out,
                  float* __restrict__ yo_out, int Q, int R, int L, int nslots,
-                 int steps, uint32_t seed_term, int global_moves) {
+                 int steps, uint32_t seed_term, int global_moves,
+                 int stride_t, int stride_c) {
   extern __shared__ uint32_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int K = L / 2;
@@ -163,7 +171,10 @@ split_qmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
   mcs::Uniforms<kHw> rng(seed_term, mcs::thread_stream());
   for (int t = 0; t < steps; ++t) {
     const float bc = -2.0f * b_sched[t];
-    const float jpt = jp[t];
+    const float jpt =
+        kPerChain ? __ldg(jp + static_cast<size_t>(t) * stride_t +
+                          static_cast<size_t>(chain) * stride_c)
+                  : jp[t];
     // One local phase's update of quarter `s` (counter index `idx`, the
     // weights of half `color`) at band site il: stencil over quarter `o`
     // at the same q, Trotter ring over quarter `r` at q and q + dir:
@@ -294,8 +305,9 @@ size_t smem_bytes(int Q, int L, int R) {
 // and its Trotter neighbours in r<which> at q and at q-1 (which 0) or q+1
 // (which 1), as the cluster kernel's `local`. The counter index is idx0 +
 // which (0, 1 in phase X; 2, 3 in phase Y); with kHw the uniform is the
-// first draw of the thread's stream of this launch, number `launch`.
-template <bool kHw>
+// first draw of the thread's stream of this launch, number `launch`;
+// kPerChain as for split_qmc_kernel.
+template <bool kHw, bool kPerChain>
 __global__ void __launch_bounds__(kThreads)
 qmc_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  const float* __restrict__ b_sched,
@@ -304,7 +316,8 @@ qmc_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  int color0, float* s1, const float* __restrict__ o1,
                  const float* __restrict__ r1, int color1, int idx0, int Q,
                  int nh, int K, int nslots, int xblocks, int t,
-                 uint32_t seed_term, uint32_t launch) {
+                 uint32_t seed_term, uint32_t launch, int stride_t,
+                 int stride_c) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -325,8 +338,12 @@ qmc_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                             __ldg(h + color * nh + j));
   const float tr = __fadd_rn(r[row + j], r[row_n + j]);
   const float bc = -2.0f * b_sched[t];
+  const float jpt =
+      kPerChain ? __ldg(jp + static_cast<size_t>(t) * stride_t +
+                        static_cast<size_t>(chain) * stride_c)
+                : jp[t];
   const float de = __fadd_rn(__fmul_rn(bc * sv, f),
-                             __fmul_rn(__fmul_rn(2.0f * sv, jp[t]), tr));
+                             __fmul_rn(__fmul_rn(2.0f * sv, jpt), tr));
   const int idx = idx0 + which;
   const uint32_t qnh = static_cast<uint32_t>(Q) * static_cast<uint32_t>(nh);
   const uint32_t uid = static_cast<uint32_t>(chain) * (4u * qnh) +
@@ -403,8 +420,10 @@ qmc_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // each chain over a cluster of R CTAs of `threads` threads. w: (nslots, 2,
 // nh), h: (2, nh), b_sched and jp: (steps,), quarters (chains, Q, nh) of
 // +/-1 with nh = L*L/2; all float32 device pointers. hw_rng != 0 draws the
-// uniforms from each thread's stream (hw_rng.cuh). Launches on `stream` and
-// returns cudaGetLastError().
+// uniforms from each thread's stream (hw_rng.cuh). stride_c != 0 reads a
+// J_perp per chain, jp[t * stride_t + chain * stride_c] (the hash only; the
+// line moves read no J_perp); step0: the step the hash counts the first step
+// as. Launches on `stream` and returns cudaGetLastError().
 extern "C" int split_qmc_anneal(const float* w, const float* h,
                                 const float* b_sched, const float* jp,
                                 float teff, const float* xe_in,
@@ -413,10 +432,13 @@ extern "C" int split_qmc_anneal(const float* w, const float* h,
                                 float* ye, float* yo, int chains, int Q,
                                 int R, int threads, int L, int nslots,
                                 int steps, int seed, int global_moves,
-                                int hw_rng, void* stream) {
+                                int hw_rng, int stride_t, int stride_c,
+                                int step0, void* stream) {
   if (chains == 0 || Q == 0 || L == 0) return cudaSuccess;
-  const auto kernel =
-      hw_rng ? split_qmc_kernel<true> : split_qmc_kernel<false>;
+  if (hw_rng && stride_c != 0) return cudaErrorInvalidValue;
+  const auto kernel = hw_rng ? split_qmc_kernel<true, false>
+                      : stride_c ? split_qmc_kernel<false, true>
+                                 : split_qmc_kernel<false, false>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = mcs::cluster_config(kernel, chains * R, R,
@@ -424,10 +446,14 @@ extern "C" int split_qmc_anneal(const float* w, const float* h,
                                       static_cast<cudaStream_t>(stream),
                                       &cfg, &attr);
   if (e != cudaSuccess) return e;
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  // step0 folds into the seed term: counter(seed_term, t, i) is then
+  // counter(seed, step0 + t, i)
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
+                             static_cast<uint32_t>(step0) * mcs::kStepMult;
   e = cudaLaunchKernelEx(&cfg, kernel, w, h, b_sched, jp, teff,
                          xe_in, xo_in, ye_in, yo_in, xe, xo, ye, yo, Q, R, L,
-                         nslots, steps, seed_term, global_moves);
+                         nslots, steps, seed_term, global_moves, stride_t,
+                         stride_c);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -437,14 +463,14 @@ extern "C" int split_qmc_anneal(const float* w, const float* h,
 // memory).
 extern "C" int split_qmc_max_active_clusters(int Q, int R, int threads,
                                              int L, int* count) {
-  return mcs::max_active_clusters(split_qmc_kernel<false>, R, threads,
+  return mcs::max_active_clusters(split_qmc_kernel<false, false>, R, threads,
                                   smem_bytes(Q, L, R), count);
 }
 
 // The same anneal on the per-phase kernels, the state in device memory:
 // the inputs are copied to the outputs, which are then updated in place,
-// four launches a step (two without global moves); hw_rng as for
-// split_qmc_anneal. Stores the number of kernels it launched in *launched
+// four launches a step (two without global moves); hw_rng, stride_t,
+// stride_c and step0 as for split_qmc_anneal. Stores the number of kernels it launched in *launched
 // (a host pointer); returns the first launch error, checked after the
 // first step, or cudaGetLastError() at the end.
 // With `energies` (a (steps, chains) float32 device buffer; null: none),
@@ -462,12 +488,14 @@ extern "C" int split_qmc_phased_anneal(const float* w, const float* h,
                                        int chains, int Q, int nh, int K,
                                        int nslots, int steps, int seed,
                                        int global_moves, int hw_rng,
+                                       int stride_t, int stride_c, int step0,
                                        float* energies, void* stream,
                                        long long* launched,
                                        long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
   *energy_launched = 0;
+  if (hw_rng && stride_c != 0) return cudaErrorInvalidValue;
   const size_t bytes = static_cast<size_t>(chains) * Q * nh * sizeof(float);
   const float* ins[4] = {xe_in, xo_in, ye_in, yo_in};
   float* outs[4] = {xe, xo, ye, yo};
@@ -477,21 +505,26 @@ extern "C" int split_qmc_phased_anneal(const float* w, const float* h,
     if (e != cudaSuccess) return e;
   }
   if (chains == 0 || Q == 0 || nh == 0) return cudaGetLastError();
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
+                             static_cast<uint32_t>(step0) * mcs::kStepMult;
   const int xblocks = (nh + kThreads - 1) / kThreads;
   const dim3 grid_local(xblocks * chains, 2 * Q);
   const dim3 grid_line(xblocks * chains);
-  const auto local = hw_rng ? qmc_local_kernel<true> : qmc_local_kernel<false>;
+  const auto local = hw_rng ? qmc_local_kernel<true, false>
+                     : stride_c ? qmc_local_kernel<false, true>
+                                : qmc_local_kernel<false, false>;
   const auto line = hw_rng ? qmc_line_kernel<true> : qmc_line_kernel<false>;
   for (int t = 0; t < steps; ++t) {
     // phase X: xe (color A) and xo (color B) against ye, yo
     local<<<grid_local, kThreads, 0, st>>>(
         w, h, b_sched, jp, teff, xe, ye, yo, 0, xo, yo, ye, 1, 0, Q, nh, K,
-        nslots, xblocks, t, seed_term, static_cast<uint32_t>(*launched));
+        nslots, xblocks, t, seed_term, static_cast<uint32_t>(*launched),
+        stride_t, stride_c);
     // phase Y, after X in stream order: ye (B) and yo (A) against new X
     local<<<grid_local, kThreads, 0, st>>>(
         w, h, b_sched, jp, teff, ye, xe, xo, 1, yo, xo, xe, 0, 2, Q, nh, K,
-        nslots, xblocks, t, seed_term, static_cast<uint32_t>(*launched + 1));
+        nslots, xblocks, t, seed_term, static_cast<uint32_t>(*launched + 1),
+        stride_t, stride_c);
     *launched += 2;
     if (global_moves) {
       // lines of color A: sites xe + yo, neighbours ye / xo

@@ -60,6 +60,20 @@
 //   counter hash, or with hw_rng the thread's own generator stream, which
 //   draws a site's chains in chain order; the hash instantiation is the
 //   kernel as it was.
+// - A temperature per chain (parallel tempering's ladders, solvers/pt.py):
+//   the template argument kPerChain reads the schedule as a table,
+//   sched[t * stride_t + chain * stride_c], one temperature a chain and
+//   step (stride_t = 0: one per chain for the whole launch). The group's C
+//   temperatures sit in 32 floats of shared memory after the halves,
+//   loaded once a launch when stride_t = 0, else once a step, and the
+//   chain loop reads its chain's there (an __ldg a chain in the loop
+//   measured 1.26-1.34x the shared schedule, PERF.md). 128 bytes more
+//   never change which cluster size fits: no even L and R put the halves
+//   within 128 bytes of the limit (tests/test_torch_geometry.py). The
+//   shared-schedule instantiation reads sched[t] once a step.
+// - A step offset: step0 folds into the seed term on the host, so the hash
+//   counts step t of a launch as step0 + t and a run split into launches
+//   draws the uniforms of one launch (the hash instantiations only).
 // - A lattice no cluster holds (even L above 960; sa_geometry returns None)
 //   runs on the per-phase kernel below (split_sa_phased_anneal): the halves
 //   as floats in device memory, updated in place, one thread per (chain,
@@ -85,8 +99,10 @@ namespace cg = cooperative_groups;
 constexpr int kMaxThreads = 256;
 constexpr int kMinBlocks = 5;
 
-// kHw: uniforms from the thread's stream (hw_rng.cuh), not the counter hash
-template <bool kHw>
+// kHw: uniforms from the thread's stream (hw_rng.cuh), not the counter hash;
+// kPerChain: the temperature of chain c at step t is sched[t * stride_t +
+// c * stride_c], else sched[t]
+template <bool kHw, bool kPerChain>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
                 const float* __restrict__ sched,
@@ -94,7 +110,7 @@ split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
                 const uint32_t* __restrict__ b_in,
                 uint32_t* __restrict__ a_out, uint32_t* __restrict__ b_out,
                 int chains, int C, int R, int L, int nslots, int steps,
-                uint32_t seed_term) {
+                uint32_t seed_term, int stride_t, int stride_c) {
   extern __shared__ uint32_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int K = L / 2;
@@ -108,9 +124,16 @@ split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
     smem[il] = a_in[base + il];
     smem[S + il] = b_in[base + il];
   }
-  cluster.sync();  // every band is loaded before any is read
-
   const int cv = min(C, chains - group * C);  // chains of this group
+  // kPerChain: the group's temperatures of the step, after the halves; a
+  // ragged last group loads and reads only its own cv chains'
+  float* const tg = reinterpret_cast<float*>(smem + 2 * S);
+  const float* const tcol =
+      sched + static_cast<size_t>(group) * C * stride_c;
+  if (kPerChain && threadIdx.x < cv) {
+    tg[threadIdx.x] = __ldg(tcol + threadIdx.x * stride_c);
+  }
+  cluster.sync();  // every band is loaded before any is read
   // uid = chain*2Nh + color*Nh + site wraps as the int32 JAX code does; the
   // hash input uid*kGolden + ctr steps by 2Nh*kGolden from chain to chain
   const uint32_t chain_step = 2u * static_cast<uint32_t>(nh) * mcs::kGolden;
@@ -120,7 +143,15 @@ split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
   // with kHw, a site's C chains draw in chain order from the thread's stream
   mcs::Uniforms<kHw> rng(seed_term, mcs::thread_stream());
   for (int t = 0; t < steps; ++t) {
-    const float temp = sched[t];
+    const float temp = kPerChain ? 0.0f : sched[t];
+    if (kPerChain && t > 0 && stride_t != 0) {
+      // the last step ended at a cluster barrier: no thread still reads
+      if (threadIdx.x < cv) {
+        tg[threadIdx.x] = __ldg(tcol + static_cast<size_t>(t) * stride_t +
+                                threadIdx.x * stride_c);
+      }
+      __syncthreads();
+    }
     // half a (color 0) from half b, then half b from the new half a
     for (int color = 0; color < 2; ++color) {
       const int own = color ? S : 0;
@@ -142,7 +173,8 @@ split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
               __fadd_rn(mcs::field_of_bit(wv, o, nslots, c), hj);
           const float s = (word >> c) & 1u ? -1.0f : 1.0f;
           const float de = __fmul_rn(-2.0f * s, f);  // exact
-          if (rng.accept(de, temp, x)) flips |= 1u << c;
+          const float tc = kPerChain ? tg[c] : temp;
+          if (rng.accept(de, tc, x)) flips |= 1u << c;
         }
         smem[own + il] = word ^ flips;
       }
@@ -156,9 +188,11 @@ split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
   }
 }
 
-size_t smem_bytes(int L, int R) {
+// the halves' band; with a temperature per chain 32 floats more
+size_t smem_bytes(int L, int R, bool per_chain = false) {
   return 2 * static_cast<size_t>(mcs::band_stride(L, R, L / 2)) *
-         sizeof(uint32_t);
+             sizeof(uint32_t) +
+         (per_chain ? 32 * sizeof(float) : 0);
 }
 
 // ---- the per-phase kernel, for lattices no cluster holds
@@ -168,14 +202,15 @@ constexpr int kThreads = 256;
 // One half-phase of step t: one thread per site j of half `color` (spins
 // s, +/-1 floats) of chain blockIdx.x / xblocks, against the other half o;
 // only site j is written. With kHw the uniform is the first draw of the
-// thread's stream of this launch, number `launch`.
-template <bool kHw>
+// thread's stream of this launch, number `launch`; kPerChain as for
+// split_sa_kernel.
+template <bool kHw, bool kPerChain>
 __global__ void __launch_bounds__(kThreads)
 sa_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
                 const float* __restrict__ sched, float* s,
                 const float* __restrict__ o, int color, int nh, int K,
                 int nslots, int xblocks, int t, uint32_t seed_term,
-                uint32_t launch) {
+                uint32_t launch, int stride_t, int stride_c) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -190,7 +225,11 @@ sa_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
       static_cast<uint32_t>(color * nh + j);
   const uint32_t ctr = mcs::counter(seed_term, t, color);
   mcs::Uniforms<kHw> rng(seed_term, mcs::phase_stream(launch));
-  if (rng.accept(de, sched[t], uid * mcs::kGolden + ctr)) s[at] = -sv;
+  const float temp =
+      kPerChain ? __ldg(sched + static_cast<size_t>(t) * stride_t +
+                        static_cast<size_t>(chain) * stride_c)
+                : sched[t];
+  if (rng.accept(de, temp, uid * mcs::kGolden + ctr)) s[at] = -sv;
 }
 
 }  // namespace
@@ -200,28 +239,37 @@ sa_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // a_in, b_in, a_out, b_out: (ceil(chains/C), nh) uint32 words, bit c of
 // word g the sign of chain g*C + c. One cluster of R CTAs of `threads`
 // threads per group of C chains; hw_rng != 0 draws the uniforms from each
-// thread's stream (hw_rng.cuh). Launches on `stream` and returns
+// thread's stream (hw_rng.cuh). stride_c != 0 reads a temperature per
+// chain, sched[t * stride_t + chain * stride_c] (the hash only); step0: the
+// step the hash counts the first step as. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int split_sa_anneal(const float* w, const float* h,
                                const float* sched, const uint32_t* a_in,
                                const uint32_t* b_in, uint32_t* a_out,
                                uint32_t* b_out, int chains, int C, int R,
                                int threads, int L, int nslots, int steps,
-                               int seed, int hw_rng, void* stream) {
+                               int seed, int hw_rng, int stride_t,
+                               int stride_c, int step0, void* stream) {
   if (chains == 0 || L == 0) return cudaSuccess;
+  if (hw_rng && stride_c != 0) return cudaErrorInvalidValue;
   const int groups = (chains + C - 1) / C;
-  const auto kernel = hw_rng ? split_sa_kernel<true> : split_sa_kernel<false>;
+  const auto kernel = hw_rng ? split_sa_kernel<true, false>
+                      : stride_c ? split_sa_kernel<false, true>
+                                 : split_sa_kernel<false, false>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = mcs::cluster_config(kernel, groups * R, R,
-                                      threads, smem_bytes(L, R),
+                                      threads, smem_bytes(L, R, stride_c),
                                       static_cast<cudaStream_t>(stream),
                                       &cfg, &attr);
   if (e != cudaSuccess) return e;
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  // step0 folds into the seed term: counter(seed_term, t, i) is then
+  // counter(seed, step0 + t, i)
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
+                             static_cast<uint32_t>(step0) * mcs::kStepMult;
   e = cudaLaunchKernelEx(&cfg, kernel, w, h, sched, a_in, b_in,
                          a_out, b_out, chains, C, R, L, nslots, steps,
-                         seed_term);
+                         seed_term, stride_t, stride_c);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -231,13 +279,14 @@ extern "C" int split_sa_anneal(const float* w, const float* h,
 // and the shared memory is the same).
 extern "C" int split_sa_max_active_clusters(int R, int threads, int L,
                                             int* count) {
-  return mcs::max_active_clusters(split_sa_kernel<false>, R, threads,
+  return mcs::max_active_clusters(split_sa_kernel<false, false>, R, threads,
                                   smem_bytes(L, R), count);
 }
 
 // The same anneal on the per-phase kernel: halves a_in, b_in of (chains,
 // nh) float32 +/-1 (nh = L*L/2) are copied to a_out, b_out and updated
-// there in place, two launches a step; hw_rng as for split_sa_anneal.
+// there in place, two launches a step; hw_rng, stride_t, stride_c and step0
+// as for split_sa_anneal.
 // With `energies` (a (steps, chains) float32 device buffer; null: none),
 // the energy kernel (energy.cuh) writes each chain's energy after every
 // step into row t, one launch a step. Stores the number of update kernels
@@ -249,12 +298,14 @@ extern "C" int split_sa_phased_anneal(const float* w, const float* h,
                                       const float* b_in, float* a_out,
                                       float* b_out, int chains, int L,
                                       int nslots, int steps, int seed,
-                                      int hw_rng, float* energies,
+                                      int hw_rng, int stride_t, int stride_c,
+                                      int step0, float* energies,
                                       void* stream, long long* launched,
                                       long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
   *energy_launched = 0;
+  if (hw_rng && stride_c != 0) return cudaErrorInvalidValue;
   const int K = L / 2;
   const int nh = L * K;
   const size_t bytes = static_cast<size_t>(chains) * nh * sizeof(float);
@@ -264,18 +315,23 @@ extern "C" int split_sa_phased_anneal(const float* w, const float* h,
   e = cudaMemcpyAsync(b_out, b_in, bytes, cudaMemcpyDeviceToDevice, st);
   if (e != cudaSuccess) return e;
   if (chains == 0 || nh == 0) return cudaSuccess;
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
+                             static_cast<uint32_t>(step0) * mcs::kStepMult;
   const int xblocks = (nh + kThreads - 1) / kThreads;
   const dim3 grid(static_cast<unsigned>(xblocks) * chains);
-  const auto kernel = hw_rng ? sa_phase_kernel<true> : sa_phase_kernel<false>;
+  const auto kernel = hw_rng ? sa_phase_kernel<true, false>
+                      : stride_c ? sa_phase_kernel<false, true>
+                                 : sa_phase_kernel<false, false>;
   for (int t = 0; t < steps; ++t) {
     // half a from half b, then half b from the new half a
     kernel<<<grid, kThreads, 0, st>>>(w, h, sched, a_out, b_out, 0, nh, K,
                                       nslots, xblocks, t, seed_term,
-                                      static_cast<uint32_t>(*launched));
+                                      static_cast<uint32_t>(*launched),
+                                      stride_t, stride_c);
     kernel<<<grid, kThreads, 0, st>>>(w, h, sched, b_out, a_out, 1, nh, K,
                                       nslots, xblocks, t, seed_term,
-                                      static_cast<uint32_t>(*launched + 1));
+                                      static_cast<uint32_t>(*launched + 1),
+                                      stride_t, stride_c);
     *launched += 2;
     if (energies != nullptr) {
       mcs::launch_halves_energy(w, h, a_out, b_out, chains, 1, L, nslots,

@@ -34,7 +34,7 @@ BUILD_DIR = _PKG / "_build"
 KERNELS = ("split_sa", "split_qmc", "split_svmc", "split_qmc_bath",
            "plane_sa", "plane_qmc", "plane_svmc", "energy", "packed_sa",
            "packed_svmc", "generic_qmc", "generic_qmc_bath", "dense_sa",
-           "fk_wolff", "fk_label", "fk_line")
+           "fk_wolff", "fk_label", "fk_line", "houdayer")
 
 # No --use_fast_math: kernels and their plain versions must round alike.
 NVCC_FLAGS = (
@@ -55,31 +55,35 @@ _PHASED_TAIL = [_P, _P, _NP, _NP]
 SIGNATURES = {
     "split_sa": {
         # w, h, sched, a_in, b_in, a_out, b_out (the halves as chain bits),
-        # chains, C, R, threads, L, nslots, steps, seed, hw_rng, stream
-        "split_sa_anneal": (_I, [_P] * 7 + [_I] * 9 + [_P]),
+        # chains, C, R, threads, L, nslots, steps, seed, hw_rng, stride_t,
+        # stride_c (the schedule table's strides, stride_c 0 for one shared
+        # schedule), step0 (the step the hash counts the first step as),
+        # stream
+        "split_sa_anneal": (_I, [_P] * 7 + [_I] * 12 + [_P]),
         # R, threads, L, out: clusters resident at once
         "split_sa_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         # the per-phase kernel: w, h, sched, a_in, b_in, a_out, b_out (the
-        # halves as floats), chains, L, nslots, steps, seed, hw_rng, energies,
-        # stream, launched, energy_launched
-        "split_sa_phased_anneal": (_I, [_P] * 7 + [_I] * 6 + _PHASED_TAIL),
+        # halves as floats), chains, L, nslots, steps, seed, hw_rng,
+        # stride_t, stride_c, step0, energies, stream, launched,
+        # energy_launched
+        "split_sa_phased_anneal": (_I, [_P] * 7 + [_I] * 9 + _PHASED_TAIL),
         "split_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "split_qmc": {
         # w, h, b_sched, jp, teff, 4 quarters in, 4 quarters out,
         # chains, Q, R, threads, L, nslots, steps, seed, global_moves,
-        # hw_rng, stream
+        # hw_rng, stride_t, stride_c (jp's strides), step0, stream
         "split_qmc_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 10 + [_P]
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 13 + [_P]
         ),
         # Q, R, threads, L, out: clusters resident at once
         "split_qmc_max_active_clusters": (_I, [_I] * 4 + [_IP]),
         # the per-phase kernels: w, h, b_sched, jp, teff, 4 quarters in,
         # 4 quarters out, chains, Q, nh, K, nslots, steps, seed,
-        # global_moves, hw_rng, energies, stream, launched,
-        # energy_launched
+        # global_moves, hw_rng, stride_t, stride_c, step0, energies,
+        # stream, launched, energy_launched
         "split_qmc_phased_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 9
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 12
             + _PHASED_TAIL
         ),
         "split_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
@@ -180,12 +184,14 @@ SIGNATURES = {
         "plane_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "packed_sa": {
-        # nbr_idx, nbr_J, h, perm, starts, temps, s (in place), energies,
-        # chains, n, maxnb, ncolors, steps, seed, step0 (the step the hash
+        # nbr_idx, nbr_J, h, perm, starts, temps, s (in place), snap
+        # (scratch of the state's size for a packing that is not proper,
+        # else null), energies, chains, n, maxnb, ncolors, steps, seed, step0 (the step the hash
         # counts the first sweep as), threads, j_stride, h_stride, mcsteps
         # (the per-step tables' strides, 0 for the static ones, and the
-        # sweeps a table row), stream
-        "packed_sa_anneal": (_I, [_P] * 8 + [_I] * 11 + [_P]),
+        # sweeps a table row), stride_t, stride_c (the temperature table's
+        # strides, stride_c 0 for one shared schedule), stream
+        "packed_sa_anneal": (_I, [_P] * 9 + [_I] * 13 + [_P]),
         "packed_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "packed_svmc": {
@@ -199,10 +205,11 @@ SIGNATURES = {
     },
     "generic_qmc": {
         # nbr_idx, nbr_J, h, perm, starts, b_sched, jp, teff, s (in place),
-        # energies, chains, P, n, maxnb, ncolors, m, steps, seed, step0,
-        # global_moves, threads, stream
+        # snap (scratch, or null for a proper packing), energies, chains, P,
+        # n, maxnb, ncolors, m, steps, seed, step0, global_moves, threads,
+        # stride_t, stride_c (jp's strides), stream
         "generic_qmc_anneal": (
-            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 2 + [_I] * 11 + [_P]
+            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 3 + [_I] * 13 + [_P]
         ),
         "generic_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -218,9 +225,10 @@ SIGNATURES = {
         "generic_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "dense_sa": {
-        # J, fb, temps, s (in place), chains, np, start, B, step, seed,
-        # warps, stream
-        "dense_sa_block": (_I, [_P] * 4 + [_I] * 7 + [_P]),
+        # J, fb, temps, s (in place), chains, np, start, B, row (of the
+        # temperature table), step (of the hash), seed, warps, stride_t,
+        # stride_c, stream
+        "dense_sa_block": (_I, [_P] * 4 + [_I] * 10 + [_P]),
         "dense_sa_block_error_string": (ctypes.c_char_p, [_I]),
     },
     "fk_wolff": {
@@ -246,9 +254,18 @@ SIGNATURES = {
             _I, [_P] * 9 + [ctypes.c_float] + [_P] + [_I] * 11 + [_P]),
         "fk_line_phase_error_string": (ctypes.c_char_p, [_I]),
     },
+    "houdayer": {
+        # nbr_idx, nbr_J, s1, s2 (in place), flipped (out), parents
+        # (scratch, null with smem), pairs, n, maxnb, seed, step, smem,
+        # threads, stream
+        "houdayer_move": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+        "houdayer_move_error_string": (ctypes.c_char_p, [_I]),
+    },
     "energy": {
         # w, h, a, b, chains, P, L, nslots, cos_theta, out, stream
         "energy_halves": (_I, [_P] * 4 + [_I] * 5 + [_P, _P]),
+        # w, h, a_words, b_words, chains, C, L, nslots, out, stream
+        "energy_chain_bits": (_I, [_P] * 4 + [_I] * 4 + [_P, _P]),
         # w, h, xe, xo, ye, yo, chains, Q, L, nslots, out, stream
         "energy_quarters": (_I, [_P] * 6 + [_I] * 4 + [_P, _P]),
         # w, s, chains, P, L, cos_theta, out, stream
@@ -287,12 +304,15 @@ LAUNCHES.update({"qmc_bath_split_colored": 0,
                  "qmc_bath_split_colored_phased": 0})
 # The energy kernel (csrc/energy.cuh) of a collecting anneal counts under
 # "<key>_energy", one launch a step beside the "<key>_phased" launches; its
-# stand-alone entry points (csrc/energy.cu, ops/energy.py) under "energy".
+# stand-alone entry points (csrc/energy.cu, ops/energy.py) under "energy",
+# but that on kernel A's chain-bit words (the samplers' exchanges), which
+# counts under "energy_bits".
 LAUNCHES.update({f"{k}_energy": 0
                  for k in ("sa_split", "qmc_split", "svmc_split",
                            "qmc_bath_split", "qmc_bath_split_colored",
                            "sa_plane", "qmc_plane", "svmc_plane")})
 LAUNCHES["energy"] = 0
+LAUNCHES["energy_bits"] = 0
 # The generic kernels on an IsingProblem (ops/generic_kernels.py) run the
 # whole schedule in one launch, energies or not; so does the generic bath
 # kernel, on an IsingProblem or a lattice's checkerboard packing.
@@ -307,6 +327,16 @@ LAUNCHES.update({"packed_sa_noisy": 0, "packed_svmc_noisy": 0,
 # an anneal, or once a step where local sweeps interleave; fk_line once a
 # color phase.
 LAUNCHES.update({"fk_wolff": 0, "fk_label": 0, "fk_line": 0})
+# The samplers (solvers/pt.py, solvers/pa.py): the per-chain-schedule
+# instantiations of kernels A and B, of the packed SA, generic PIQMC and
+# dense kernels count apart, under "<key>_chain" (kernel A's and B's
+# per-phase kernels under "<key>_chain_phased"); the Houdayer kernel once a
+# move.
+LAUNCHES.update({f"{k}_chain": 0 for k in ("sa_split", "qmc_split",
+                                          "packed_sa", "generic_qmc",
+                                          "dense_sa")})
+LAUNCHES.update({"sa_split_chain_phased": 0, "qmc_split_chain_phased": 0,
+                 "houdayer": 0})
 
 
 def reset_launches():
@@ -334,6 +364,28 @@ def check_arg(t, name, shape, device, dtype=torch.float32):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def schedule_strides(sched, name, steps, chains, device):
+    """(stride_t, stride_c) of a kernel's schedule argument: (1, 0) for one
+    shared (steps,) schedule, else the strides of a (steps, chains) float32
+    table read as sched[t * stride_t + chain * stride_c], whose chains must
+    lie next to each other (stride 1) and whose steps may repeat one row
+    (stride 0: one value a chain for the whole launch, an `expand` of a
+    (chains,) vector). Raises ValueError on anything else."""
+    if sched.dim() == 1:
+        check_arg(sched, name, (steps,), device)
+        return 1, 0
+    if sched.device != device or sched.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 on {device}")
+    if tuple(sched.shape) != (steps, chains):
+        raise ValueError(f"{name} has shape {tuple(sched.shape)}, expected "
+                         f"({steps},) or ({steps}, {chains})")
+    stride_t, stride_c = sched.stride()
+    if (chains > 1 and stride_c != 1) or stride_t not in (0, chains):
+        raise ValueError(f"{name} must be a (steps, chains) table with "
+                         "contiguous rows")
+    return stride_t, 1
 
 
 def ptr(t):

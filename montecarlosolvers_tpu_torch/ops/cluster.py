@@ -25,12 +25,16 @@ the spins, then over the slices; the line's set-flip energy and
 `sw_full_phase`'s closure sum over the slices (`piqmc.sum_in_order`). The
 kernels add them in the same order.
 
-Deferred with their only callers, parallel tempering's Houdayer move and
-ICM (ROADMAP.md queue 1, the samplers item): `houdayer_sweep`,
-`houdayer_sweep_grid`, `grid_bonds_from_edges`, `_label_components_grid`,
-`_seg_min_scan`, `_label_components_lattice` and
-`classical_sw_sweep_lattice`; `classical_sw_sweep` on a LatticeProblem
-raises, naming that item (the solvers take the generic form first).
+The Houdayer move of parallel tempering's ICM (`solvers/pt.py::
+sample_icm`): `houdayer_sweep` on a neighbour table and
+`houdayer_sweep_grid` on per-axis bond masks (`grid_bonds_from_edges`,
+labelled by `_label_components_grid`), both labelling each q = -1
+component by its least flat index; `houdayer_move_ref` is the plain
+version of csrc/houdayer.cu (`cluster_kernels.houdayer_move`) on the
+counter hash's HOUDAYER stream. `classical_sw_sweep` on a LatticeProblem
+runs `classical_sw_sweep_lattice` (the coupling planes, labelled by the
+segmented row and column min-scans of `_label_components_lattice` /
+`_seg_min_scan`), as the JAX function routes it.
 """
 
 from __future__ import annotations
@@ -39,7 +43,9 @@ import math
 
 import torch
 
-from montecarlosolvers_tpu_torch import _roadmap
+import numpy as np
+
+from montecarlosolvers_tpu_torch import _device
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
 from montecarlosolvers_tpu_torch.ops.piqmc import sum_in_order
@@ -402,12 +408,11 @@ def classical_sw_sweep(problem, s, u_sp, u_h, coins, temp, ids=None):
     `classical_sw_sweep`, :559): FK bonds on satisfied pairs, ghost-spin
     bonds for the fields (label -1), every free cluster flipped on its
     coin. u_sp: (..., N, maxnb); u_h: (..., N); coins: (..., N) bool,
-    read at each component's label (its least id)."""
+    read at each component's label (its least id). A LatticeProblem runs
+    `classical_sw_sweep_lattice` (u_sp then (..., 2, L, L), u_h (..., L,
+    L)), as the JAX function routes it."""
     if not hasattr(problem, "nbr_idx"):
-        raise _roadmap.not_ported(
-            "classical_sw_sweep on a LatticeProblem "
-            "(classical_sw_sweep_lattice; the solvers take to_generic())",
-            _roadmap.SAMPLERS)
+        return classical_sw_sweep_lattice(problem, s, u_sp, u_h, coins, temp)
     n = problem.nspins
     nbr = problem.nbr_idx.long()
     idv = _ids(ids, n, s.device)
@@ -468,6 +473,189 @@ def spacetime_sw_sweep(problem, confs, u_sp, u_t, u_b, u_h, coins, teff, jp,
     flat = labels.reshape(labels.shape[:-2] + (-1,))
     flip = (flat >= 0) & coins.gather(-1, flat.clamp(min=0))
     return torch.where(flip.reshape(confs.shape), -confs, confs)
+
+
+# ------------------------------------- Houdayer moves, the lattice labelers
+
+
+def grid_bonds_from_edges(shape, rows, cols, vals, device=None):
+    """Per-axis bond masks of a k-D grid instance (JAX
+    `grid_bonds_from_edges`, :610), built on the host: for sites raveled
+    in C order over `shape` whose every edge joins x and x + e_a (mod L_a)
+    along one axis a, mask_a[x] is True iff the bond (x, x + e_a) has a
+    nonzero coupling. Diagonal entries (fields) are ignored. Raises
+    ValueError on an edge that is not a unit grid step. Returns a tuple of
+    k bool tensors on `device` (None: the CUDA device)."""
+    shape = tuple(int(x) for x in shape)
+    masks = [np.zeros(shape, dtype=bool) for _ in shape]
+    for a, b, v in zip(np.asarray(rows), np.asarray(cols), np.asarray(vals)):
+        if a == b or v == 0.0:
+            continue
+        ia = np.unravel_index(int(a), shape)
+        ib = np.unravel_index(int(b), shape)
+        hit = None
+        for ax in range(len(shape)):
+            d = (ib[ax] - ia[ax]) % shape[ax]
+            if d == 0:
+                continue
+            rest_equal = all(ia[o] == ib[o] for o in range(len(shape))
+                             if o != ax)
+            if d == 1 and rest_equal:
+                hit = (ax, ia)
+            elif d == shape[ax] - 1 and rest_equal:
+                hit = (ax, ib)
+            else:
+                hit = None
+                break
+        if hit is None:
+            raise ValueError(f"edge ({a},{b}) is not a unit grid step")
+        masks[hit[0]][hit[1]] = True
+    dev = _device.resolve(device)
+    return tuple(torch.as_tensor(m, device=dev) for m in masks)
+
+
+def _label_components_grid(bond_masks, init, rounds_per_check=8):
+    """Component labels on a k-D grid bond graph by roll-based min-label
+    relaxation (JAX `_label_components_grid`, :656): mask_a[x] marks the
+    bond (x, x + e_a mod L_a); init an int label grid (leading batch axes
+    allowed, on the masks too: a vmapped JAX call sees its masks without
+    them), -1 absorbing. Returns the fixed point, each component's least
+    init label."""
+    k = len(bond_masks)
+    big = math.prod(bond_masks[0].shape[-k:])
+
+    def relax(lab):
+        off = lab.ndim - k
+        m = lab
+        for ax, mask in enumerate(bond_masks):
+            axis = off + ax
+            fwd = torch.where(mask, torch.roll(lab, -1, axis), big)
+            bwd = torch.where(torch.roll(mask, 1, mask.ndim - k + ax),
+                              torch.roll(lab, 1, axis), big)
+            m = torch.minimum(m, torch.minimum(fwd, bwd))
+        return m
+
+    labels = init
+    while True:
+        new = labels
+        for _ in range(rounds_per_check):
+            new = relax(new)
+        if bool((new == labels).all()):
+            return labels
+        labels = new
+
+
+def houdayer_sweep_grid(bond_masks, s1, s2, coins):
+    """Houdayer move on a regular grid (JAX `houdayer_sweep_grid`, :704):
+    the q = -1 domain of s1, s2 (..., n) (C-order raveled grid) labelled
+    by `_label_components_grid` from the flat index (n at q = +1 sites);
+    coins (..., n + 1) bool, read at min(label, n). Returns (s1', s2',
+    flipped (..., n) bool)."""
+    shape = tuple(bond_masks[0].shape)
+    n = s1.shape[-1]
+    lead = s1.shape[:-1]
+    q_neg = ((s1 * s2) < 0).reshape(lead + shape)
+    off = len(lead)
+    active = tuple(m & q_neg & torch.roll(q_neg, -1, off + ax)
+                   for ax, m in enumerate(bond_masks))
+    flat = torch.arange(n, device=s1.device).reshape(shape)
+    init = torch.where(q_neg, flat, n)
+    labels = _label_components_grid(active, init).reshape(lead + (n,))
+    flip = q_neg.reshape(lead + (n,)) & coins.gather(
+        -1, torch.clamp(labels, max=n))
+    return torch.where(flip, -s1, s1), torch.where(flip, -s2, s2), flip
+
+
+def houdayer_sweep(problem, s1, s2, coins, jump_every=0):
+    """Houdayer isoenergetic cluster move between replicas s1, s2 (..., N)
+    (JAX `houdayer_sweep`, :730): the q = -1 domain cut into components
+    over the problem's nonzero couplings (`label_components` from the
+    index), each flipped in both replicas on coins (..., N) bool read at
+    its label, its least site id. problem: an IsingProblem (a lattice's
+    to_generic()). Returns (s1', s2', flipped (..., N) bool)."""
+    nbr = problem.nbr_idx.long()
+    q_neg = (s1 * s2) < 0
+    active = (problem.nbr_J != 0.0) & q_neg[..., None] & q_neg[..., nbr]
+    labels = label_components(active, nbr, jump_every=jump_every)
+    flip = q_neg & coins.gather(-1, labels)
+    return torch.where(flip, -s1, s1), torch.where(flip, -s2, s2), flip
+
+
+def houdayer_coins(seed, step, pairs, n, device):
+    """(pairs, n) bool coins of the counter hash's HOUDAYER stream at
+    `step`: uniform01(sampler_counter(seed, step, HOUDAYER), pair * n +
+    site) < 0.5, the coin of the component whose least id is `site`."""
+    u = cr.sampler_uniforms(seed, step, cr.HOUDAYER, pairs * n, device)
+    return (u < 0.5).reshape(pairs, n)
+
+
+def houdayer_move_ref(problem, s1, s2, seed, step):
+    """Plain form of csrc/houdayer.cu: `houdayer_sweep` of the (pairs, N)
+    replicas s1, s2 on `houdayer_coins(seed, step)`. Returns (s1', s2',
+    flipped (pairs,) int32, the count of flipped sites a pair)."""
+    coins = houdayer_coins(seed, step, s1.shape[0], s1.shape[1], s1.device)
+    a, b, flip = houdayer_sweep(problem, s1, s2, coins)
+    return a, b, flip.sum(-1, dtype=torch.int32)
+
+
+def _seg_min_scan(vals, link_prev, axis):
+    """Per-site min over its maximal connected circular run along `axis`
+    (JAX `_seg_min_scan`, :777): link_prev[..., c] marks the link of site
+    c to site c - 1 mod n. The JAX function's segmented associative scans
+    over the doubled axis, forward and backward, here as their sequential
+    form (a scan of an associative operator has one result)."""
+    n = vals.shape[axis]
+
+    def scan(v, g):
+        v2 = torch.cat([v, v], dim=axis).movedim(axis, 0)
+        g2 = torch.cat([g, g], dim=axis).movedim(axis, 0)
+        out = [v2[0]]
+        for i in range(1, 2 * n):
+            out.append(torch.where(g2[i], torch.minimum(out[-1], v2[i]),
+                                   v2[i]))
+        return torch.stack(out[n:]).movedim(0, axis)
+
+    fwd = scan(vals, link_prev)
+    link_next = torch.roll(link_prev, -1, dims=axis)
+    bwd = scan(torch.flip(vals, dims=(axis,)),
+               torch.flip(link_next, dims=(axis,)))
+    return torch.minimum(fwd, torch.flip(bwd, dims=(axis,)))
+
+
+def _label_components_lattice(link_left, link_up, init):
+    """Component labels on an L x L lattice bond graph by alternating row
+    and column segmented min-scans (JAX `_label_components_lattice`,
+    :810); the fixed point is each component's least init label."""
+    labels = init
+    while True:
+        new = _seg_min_scan(labels, link_left, axis=-1)
+        new = _seg_min_scan(new, link_up, axis=-2)
+        if bool((new == labels).all()):
+            return labels
+        labels = new
+
+
+def classical_sw_sweep_lattice(problem, s, u_sp, u_h, coins, temp):
+    """classical_sw_sweep on a LatticeProblem's coupling planes (JAX
+    `classical_sw_sweep_lattice`, :842): s (..., L*L); u_sp (..., 2, L,
+    L), the right then down bond uniforms; u_h (..., L, L); coins (...,
+    L*L) bool, read at each free component's least flat index."""
+    L = problem.L
+    lead = s.shape[:-1]
+    sp = s.reshape(lead + (L, L)).to(torch.float32)
+    de_r = 2.0 * problem.j_right * sp * torch.roll(sp, -1, dims=-1)
+    de_d = 2.0 * problem.j_down * sp * torch.roll(sp, -1, dims=-2)
+    active_right = u_sp[..., 0, :, :] < bond_prob(de_r, temp)
+    active_down = u_sp[..., 1, :, :] < bond_prob(de_d, temp)
+    link_left = torch.roll(active_right, 1, dims=-1)
+    link_up = torch.roll(active_down, 1, dims=-2)
+    ghosted = u_h < bond_prob(2.0 * problem.h_plane * sp, temp)
+    flat = torch.arange(L * L, device=s.device).reshape(L, L)
+    labels = _label_components_lattice(link_left, link_up,
+                                       torch.where(ghosted, -1, flat))
+    lab = labels.reshape(lead + (L * L,))
+    flip = (lab >= 0) & coins.gather(-1, lab.clamp(min=0))
+    return torch.where(flip.reshape(sp.shape), -sp, sp).reshape(s.shape)
 
 
 # ------------------------------------------- the counter-hash plain anneals

@@ -18,9 +18,12 @@ class-major packed layout of `ops/packed.py` (the site's original index
   csrc/fk_line.cu   one color phase of the imaginary-time line clusters
                     (`bath_cluster_phase`, `sw_full_phase`): one warp a
                     line, P <= 64; LAUNCHES["fk_line"]
+  csrc/houdayer.cu  the Houdayer move of ICM (`houdayer_sweep`) on replica
+                    pairs in the problem's generic order: one CTA a pair,
+                    union-find labels; LAUNCHES["houdayer"]
 
 Their plain versions are `ops/cluster.py`'s `wolff_anneal_ref`,
-`sw_anneal_ref` and `line_phase_ref`. A wrapper given CPU tensors runs the
+`sw_anneal_ref`, `line_phase_ref` and `houdayer_move_ref`. A wrapper given CPU tensors runs the
 plain version; given CUDA tensors it launches the kernel or raises.
 
 Launch pattern. fk_wolff and fk_label run a whole schedule in one launch
@@ -55,8 +58,10 @@ WOLFF_THREADS, LABEL_THREADS, LINE_WARPS = 512, 1024, 8
 # 64-bit word
 LINE_MAX_SLICES = 64
 # fk_label keeps its union-find parents (int32) and two flag bytes a site
-# in shared memory up to this many bytes, else in device memory
+# in shared memory up to this many bytes, else in device memory; so does
+# the Houdayer kernel its parents (1024 threads a pair)
 LABEL_SMEM_BYTES = 200 * 1024
+HOUDAYER_THREADS = 1024
 
 
 def _check_graph(pg, device):
@@ -165,6 +170,39 @@ def sw_anneal(pg, b_sched, jp, teff, confs, seed, lookuptable=None, step0=0,
     _build.raise_on_error(lib, "fk_label_anneal", rc)
     _build.LAUNCHES["fk_label"] += 1
     return out
+
+
+def houdayer_move(problem, s1, s2, seed, step):
+    """csrc/houdayer.cu on CUDA tensors, `cluster.houdayer_move_ref` on CPU
+    tensors: one Houdayer move of the (pairs, N) replicas s1, s2 (sites in
+    the IsingProblem's own order; a lattice's to_generic()) on the coins of
+    the HOUDAYER stream at `step`. Returns (s1', s2', flipped (pairs,)
+    int32). One launch (LAUNCHES["houdayer"])."""
+    if _build.route(s1.device, "cluster") == "cpu":
+        return cl.houdayer_move_ref(problem, s1, s2, seed, step)
+    pairs, n = s1.shape
+    dev = s1.device
+    maxnb = problem.nbr_idx.shape[1]
+    _build.check_arg(problem.nbr_idx, "nbr_idx", (n, maxnb), dev,
+                     torch.int32)
+    _build.check_arg(problem.nbr_J, "nbr_J", (n, maxnb), dev)
+    a, b = s1.clone(), s2.clone()
+    _build.check_arg(a, "s1", (pairs, problem.nspins), dev)
+    _build.check_arg(b, "s2", (pairs, problem.nspins), dev)
+    flipped = torch.empty(pairs, dtype=torch.int32, device=dev)
+    smem = n * 4 <= LABEL_SMEM_BYTES
+    parent = None if smem else torch.empty((pairs, n), dtype=torch.int32,
+                                           device=dev)
+    lib = _build.library("houdayer")
+    rc = lib.houdayer_move(
+        _build.ptr(problem.nbr_idx), _build.ptr(problem.nbr_J),
+        _build.ptr(a), _build.ptr(b), _build.ptr(flipped),
+        None if parent is None else _build.ptr(parent), pairs, n, maxnb,
+        cr.wrap_int32(seed), int(step), int(smem), HOUDAYER_THREADS,
+        _build.stream_of(dev))
+    _build.raise_on_error(lib, "houdayer_move", rc)
+    _build.LAUNCHES["houdayer"] += 1
+    return a, b, flipped
 
 
 def line_tables(lookuptable, jp, teff, P, device):

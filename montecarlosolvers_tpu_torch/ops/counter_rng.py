@@ -69,6 +69,37 @@ counter(seed, t', 0), the local sweeps' counter, for any two steps of a
 schedule shorter than 67 million sweeps. The cluster solvers run their
 local sweeps without line moves, so no other counter shares their seed.
 
+The samplers (`solvers/pt.py`, `solvers/pa.py`, the Houdayer move of
+`ops/cluster.py` and csrc/houdayer.cu) draw from streams of their own,
+`sampler_counter(seed, t, stream) = counter(seed, t, SAMPLER_INDEX +
+stream)`, at the step t of the sweep clock (PT and ICM: the sweep after
+which the exchange or move happens; PA: the schedule step). Their sweeps
+keep the uids above, keyed by the chain's place in the batch, so a
+chain's stream does not depend on the rung it holds. B is the batch of
+ladders (reads, or ICM's pairs x 2 ladders), M the rungs, R the
+population, N the spins:
+
+    stream        draw                                uid
+    EXCHANGE      the exchange uniform of anchor      ladder * M + rung
+                  rung k of a ladder (pair k, k + 1)
+    SYSTEMATIC    PA's one systematic-resampling      0
+                  offset of the step
+    MULTINOMIAL   PA's multinomial draw of replica    replica
+                  slot i (inverse CDF)
+    HOUDAYER      the coin of the overlap component   pair * N + label
+                  labelled `label` (its least site
+                  id) of ICM pair (read, rung), u <
+                  0.5, so every member reads one coin
+    MERGE         merge_populations' run draw of      2 * slot
+                  output slot i, and its replica      2 * slot + 1
+                  draw
+
+The ICM pair (read, rung) of the HOUDAYER stream is read * M + rung, the
+pair's place in the launch. SAMPLER_INDEX + stream lies in 24..28, inside
+the 36 indices the bound above covers: no sampler counter equals a
+sweep's, a line move's or a cluster stream's counter for any two steps of
+a run shorter than 67 million sweeps.
+
 Two torch pitfalls this module avoids:
   * `>>` on an int32 tensor is an arithmetic shift; the hash needs a logical
     one, emulated as `(x >> n) & ((1 << (32 - n)) - 1)`.
@@ -99,6 +130,9 @@ LINE_MULT = 69069
 CLUSTER_INDEX = 8
 (SP_BOND, TROTTER_BOND, BATH_BOND, WOLFF_SEED, ACCEPT, LINE_ACCEPT,
  LINE_SEED, COIN, GHOST) = range(9)
+# first counter index of the sampler streams, and the streams
+SAMPLER_INDEX = 24
+EXCHANGE, SYSTEMATIC, MULTINOMIAL, HOUDAYER, MERGE = range(5)
 # TPU tile of the full-plane kernels' padded planes (pallas_sa.py:57-58):
 # their site ids stride by pad8(L) rows of pad128(L) columns
 SUBLANE = 8
@@ -138,6 +172,18 @@ def svmc_accept_counter(seed, step, color):
 def cluster_counter(seed, step, stream):
     """Counter of cluster stream `stream` at `step` (module docstring)."""
     return counter(seed, step, CLUSTER_INDEX + stream)
+
+
+def sampler_counter(seed, step, stream):
+    """Counter of sampler stream `stream` at `step` (module docstring)."""
+    return counter(seed, step, SAMPLER_INDEX + stream)
+
+
+def sampler_uniforms(seed, step, stream, n, device):
+    """(n,) float32 uniforms of sampler stream `stream` at `step`, uids
+    0..n-1 (the table's layouts are all flat indices)."""
+    uid = torch.arange(n, dtype=torch.int32, device=device)
+    return uniform01(sampler_counter(seed, step, stream), uid)
 
 
 def index_draw(u, n):

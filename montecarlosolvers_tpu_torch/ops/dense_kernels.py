@@ -62,24 +62,27 @@ def visit_order(seed, step, n, device):
     return torch.sort(keys, stable=True).indices
 
 
-def dense_sa_block_ref(s, fb, J, start, temps, step, seed):
+def dense_sa_block_ref(s, fb, J, start, temps, step, seed, step0=0):
     """Plain form of csrc/dense_sa.cu: the micro-steps of the block at
     `start` (`dense_sweep.block_steps`) on the uniforms of
-    `block_uniforms`, at temperature temps[step], in place on padded
+    `block_uniforms` at sweep step0 + step, at temperature temps[step] (a
+    (steps, chains) `temps` gives each chain its own), in place on padded
     (chains, Np) spins `s`; fb (chains, B) the block's fields, J (Np, Np)
     the padded couplings."""
     chains, np_ = s.shape
-    u = block_uniforms(seed, step, chains, np_, start, fb.shape[1], s.device)
+    u = block_uniforms(seed, step0 + step, chains, np_, start, fb.shape[1],
+                       s.device)
     return ds.block_steps(s, fb, J, start, u, temps[step])
 
 
-def dense_sa_block(s, fb, J, start, temps, step, seed):
+def dense_sa_block(s, fb, J, start, temps, step, seed, step0=0):
     """csrc/dense_sa.cu on CUDA tensors, `dense_sa_block_ref` on CPU
     tensors; arguments as for the plain version (s updated in place, B =
     fb.shape[1] <= MAX_BLOCK on the card). One launch
-    (LAUNCHES["dense_sa"])."""
+    (LAUNCHES["dense_sa"]; with a (steps, chains) `temps`, the per-chain
+    instantiation, LAUNCHES["dense_sa_chain"])."""
     if _build.route(s.device, "dense") == "cpu":
-        return dense_sa_block_ref(s, fb, J, start, temps, step, seed)
+        return dense_sa_block_ref(s, fb, J, start, temps, step, seed, step0)
     chains, np_ = s.shape
     B = fb.shape[1]
     if not 0 < B <= MAX_BLOCK:
@@ -89,26 +92,28 @@ def dense_sa_block(s, fb, J, start, temps, step, seed):
     _build.check_arg(s, "spins", (chains, np_), dev)
     _build.check_arg(fb, "fields", (chains, B), dev)
     _build.check_arg(J, "J", (np_, np_), dev)
-    _build.check_arg(temps, "temps", (temps.shape[0],), dev)
+    strides = _build.schedule_strides(temps, "temps", temps.shape[0], chains,
+                                      dev)
     if not (0 <= start <= np_ - B and 0 <= step < temps.shape[0]):
         raise ValueError(f"block at {start} of {B} or step {step} out of "
                          "range")
     lib = _build.library("dense_sa")
     rc = lib.dense_sa_block(
         _build.ptr(J), _build.ptr(fb), _build.ptr(temps), _build.ptr(s),
-        chains, np_, start, B, step, cr.wrap_int32(seed), WARPS,
-        _build.stream_of(dev))
+        chains, np_, start, B, step, step0 + step, cr.wrap_int32(seed),
+        WARPS, *strides, _build.stream_of(dev))
     _build.raise_on_error(lib, "dense_sa_block", rc)
-    _build.LAUNCHES["dense_sa"] += 1
+    _build.LAUNCHES["dense_sa_chain" if strides[1] else "dense_sa"] += 1
     return s
 
 
 def _anneal(dp, temps, spins, seed, block, shuffle, matmul_dtype, energies,
-            step_fn):
-    """Anneal (C, N) spins over the float32 (steps,) `temps` with the
-    micro-step function `step_fn` (`dense_sa_block` or its plain version);
-    with `energies`, a (steps, C) buffer, row t receives dp.energy after
-    sweep t."""
+            step_fn, step0=0):
+    """Anneal (C, N) spins over the float32 (steps,) `temps` (or a (steps,
+    C) table, a temperature a chain and sweep) with the micro-step function
+    `step_fn` (`dense_sa_block` or its plain version), the hash counting
+    sweep t as step0 + t; with `energies`, a (steps, C) buffer, row t
+    receives dp.energy after sweep t."""
     C, N = spins.shape
     B = ds.block_size(block, N)
     J = ds.rounded(dp.J, matmul_dtype)
@@ -116,12 +121,12 @@ def _anneal(dp, temps, spins, seed, block, shuffle, matmul_dtype, energies,
         Jp, hp, s = ds.padded(J, dp.h, spins.clone(), B)
     for t in range(temps.shape[0]):
         if shuffle:
-            perm = visit_order(seed, t, N, spins.device)
+            perm = visit_order(seed, step0 + t, N, spins.device)
             Jp, hp, s = ds.padded(J[perm][:, perm], dp.h[perm],
                                   spins[:, perm], B)
         for start in range(0, Jp.shape[0], B):
             fb = ds.block_fields(s, Jp, hp, start, B)
-            step_fn(s, fb, Jp, start, temps, t, seed)
+            step_fn(s, fb, Jp, start, temps, t, seed, step0)
         if shuffle:
             spins = torch.empty_like(spins)
             spins[:, perm] = s[:, :N]
@@ -131,21 +136,23 @@ def _anneal(dp, temps, spins, seed, block, shuffle, matmul_dtype, energies,
 
 
 def dense_sa_anneal_ref(dp, temps, spins, seed, block=128, shuffle=False,
-                        matmul_dtype=None, energies=None):
+                        matmul_dtype=None, energies=None, step0=0):
     """Plain anneal of (C, N) spins on `dense_sa_block_ref`, on any device:
     what the kernel's anneal is held to."""
     return _anneal(dp, temps, spins, seed, block, shuffle, matmul_dtype,
-                   energies, dense_sa_block_ref)
+                   energies, dense_sa_block_ref, step0)
 
 
 def dense_sa_anneal(dp, temps, spins, seed, block=128, shuffle=False,
-                    matmul_dtype=None, energies=None):
+                    matmul_dtype=None, energies=None, step0=0):
     """Anneal of (C, N) spins on `dense_sa_block`: the kernel on a CUDA
     device, the plain version on the CPU. temps: float32 (steps,) on the
-    spins' device; seed: int counter-hash seed; block, shuffle,
-    matmul_dtype: see `ops/dense_sweep.py`. Returns the new spins."""
+    spins' device, or a (steps, C) table (a temperature a chain: the
+    per-chain instantiation); seed: int counter-hash seed; block, shuffle,
+    matmul_dtype: see `ops/dense_sweep.py`; step0: the sweep the hash
+    counts sweep 0 as. Returns the new spins."""
     return _anneal(dp, temps, spins, seed, block, shuffle, matmul_dtype,
-                   energies, dense_sa_block)
+                   energies, dense_sa_block, step0)
 
 
 def dense_anneal(dp, sched, spins, seed, mcsteps=1, block=128,

@@ -59,12 +59,14 @@ def plane_energy_ref(pl, s, cos_theta=False):
     return e if s.ndim == 3 else torch.min(e, dim=-1).values
 
 
-def _launch(fn, dev, chains, *args):
+def launch(fn, dev, chains, *args, key="energy"):
+    """Launch the energy entry point `fn` into a new (chains,) float32
+    tensor, counted under LAUNCHES[key]."""
     lib = _build.library("energy")
     out = torch.empty(chains, dtype=torch.float32, device=dev)
     rc = getattr(lib, fn)(*args, _build.ptr(out), _build.stream_of(dev))
     _build.raise_on_error(lib, fn, rc, error_fn="energy_error_string")
-    _build.LAUNCHES["energy"] += 1
+    _build.LAUNCHES[key] += 1
     return out
 
 
@@ -79,7 +81,7 @@ def halves_energy(sl, a, b, cos_theta=False):
     for t, name in ((a, "a"), (b, "b")):
         _build.check_arg(t, name, shape, a.device)
     P = shape[1] if len(shape) == 3 else 1
-    return _launch("energy_halves", a.device, shape[0],
+    return launch("energy_halves", a.device, shape[0],
                    *map(_build.ptr, (sl.w_ab, sl.h_ab, a, b)), shape[0], P,
                    sl.L, sl.nslots, int(bool(cos_theta)))
 
@@ -95,7 +97,7 @@ def quarters_energy(sl, quarters):
         raise ValueError(f"quarters have {nh} sites, lattice has {sl.nh}")
     for t, name in zip(quarters, ("xe", "xo", "ye", "yo")):
         _build.check_arg(t, name, (chains, Q, nh), xe.device)
-    return _launch("energy_quarters", xe.device, chains,
+    return launch("energy_quarters", xe.device, chains,
                    *map(_build.ptr, (sl.w_ab, sl.h_ab, *quarters)), chains,
                    Q, sl.L, sl.nslots)
 
@@ -110,6 +112,6 @@ def plane_energy(pl, s, cos_theta=False):
                          f"lattice")
     _build.check_arg(s, "s", shape, s.device)
     P = shape[1] if len(shape) == 4 else 1
-    return _launch("energy_plane", s.device, shape[0],
+    return launch("energy_plane", s.device, shape[0],
                    *map(_build.ptr, (pl.w, s)), shape[0], P, pl.L,
                    int(bool(cos_theta)))

@@ -59,6 +59,7 @@ from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
 from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import sweep_scan
 from montecarlosolvers_tpu_torch.ops.split_kernels import (energy_buffer,
+                                                           step_values,
                                                            with_energies)
 
 # threads of the one CTA a chain (csrc/packed.cuh::kPackedThreads)
@@ -80,7 +81,8 @@ def _step_tables(tables, t):
 def packed_sa_anneal_ref(pg, temps, spins, seed, energies=None,
                          tables=None, step0=0):
     """Plain form of csrc/packed_sa.cu: anneal packed spins (chains, N)
-    over the float32 temperatures `temps` (steps,), sweep t by
+    over the float32 temperatures `temps` ((steps,), or (steps, chains): a
+    temperature a chain and step), sweep t by
     `packed_sweep` on the uniforms of counter(seed, t, 0). With `energies`,
     a (steps, chains) float32 buffer, row t receives each chain's
     `packed_energy` after sweep t. With `tables` = (nbr_J (rows, N,
@@ -92,7 +94,7 @@ def packed_sa_anneal_ref(pg, temps, spins, seed, energies=None,
     s = spins
     for t in range(temps.shape[0]):
         u = cr.uniform01_hashed(cr.counter(seed, step0 + t, 0), hu)
-        s = packed_ops.packed_sweep(pg, s, u, temps[t],
+        s = packed_ops.packed_sweep(pg, s, u, step_values(temps, t),
                                     **_step_tables(tables, t))
         if energies is not None:
             energies[t] = packed_ops.packed_energy(pg, s)
@@ -127,7 +129,8 @@ def generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed, global_moves,
                            energies=None, step0=0):
     """Plain form of csrc/generic_qmc.cu on packed confs (chains, P, N):
     sweep t is `piqmc.local_sweep` on the packed problem with B_t, J_perp_t
-    (float32 (steps,) tensors) at T_eff = `teff` (a Python float), on the
+    (float32 (steps,) tensors; `jp` may be a (steps, chains) table, a
+    J_perp a chain and step) at T_eff = `teff` (a Python float), on the
     uniforms of counter(seed, t, 0) at the (chain, slice, original site)
     ids, then, with `global_moves`, `piqmc.global_line_moves` on those of
     line_counter(seed, t, 0) at the slice-0 ids. With `energies`, row t
@@ -140,7 +143,8 @@ def generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed, global_moves,
     c = confs
     for t in range(b_sched.shape[0]):
         u = cr.uniform01_hashed(cr.counter(seed, step0 + t, 0), hu)
-        c = piqmc_ops.local_sweep(prob, c, u, teff, jp[t], b_sched[t])
+        jpt = jp[t] if jp.dim() == 1 else jp[t][:, None, None]
+        c = piqmc_ops.local_sweep(prob, c, u, teff, jpt, b_sched[t])
         if global_moves:
             ul = cr.uniform01_hashed(cr.line_counter(seed, step0 + t, 0),
                                      hu0)
@@ -219,13 +223,24 @@ def _check_tables(pg, tables, steps, energies, device):
             n * maxnb, n, int(mcsteps))
 
 
+def _snap(pg, state):
+    """The scratch a packed kernel reads same-class neighbours from on a
+    packing that is not proper (`PackedGraph.proper`, an odd periodic
+    lattice's checkerboard): a tensor of the state's size; None on a
+    proper one. Freed after the launch, its memory is reused only by work
+    queued after it on the stream."""
+    return None if pg.proper else torch.empty_like(state)
+
+
 def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
                      step0=0):
     """csrc/packed_sa.cu on CUDA tensors, `packed_sa_anneal_ref` on CPU
     tensors; arguments as for the plain version. Returns the new spins
     (a copy: the kernel anneals it in place). One launch
     (LAUNCHES["packed_sa"], energies or not; with `tables`,
-    LAUNCHES["packed_sa_noisy"])."""
+    LAUNCHES["packed_sa_noisy"]; with a (steps, chains) `temps`, the
+    per-chain instantiation, LAUNCHES["packed_sa_chain"], whose table may
+    repeat one row: `_build.schedule_strides`)."""
     if _build.route(spins.device, "packed") == "cpu":
         return packed_sa_anneal_ref(pg, temps, spins, seed, energies, tables,
                                     step0)
@@ -235,18 +250,23 @@ def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
     graph, j_stride, h_stride, mcsteps = _check_tables(pg, tables, steps,
                                                        energies, dev)
     _build.check_arg(spins, "spins", (chains, pg.nspins), dev)
-    _build.check_arg(temps, "temps", (steps,), dev)
+    strides = _build.schedule_strides(temps, "temps", steps, chains, dev)
+    if strides[1] and tables is not None:
+        raise ValueError("the noisy anneal takes one shared schedule")
     out = spins.clone()
+    snap = _snap(pg, out)
     lib = _build.library("packed_sa")
     rc = lib.packed_sa_anneal(
         *graph, _build.ptr(temps), _build.ptr(out),
+        None if snap is None else _build.ptr(snap),
         _build.energies_ptr(energies, steps, chains, dev), chains, n,
         pg.nbr_idx.shape[1], pg.num_colors, steps, cr.wrap_int32(seed),
-        int(step0), THREADS, j_stride, h_stride, mcsteps,
+        int(step0), THREADS, j_stride, h_stride, mcsteps, *strides,
         _build.stream_of(dev))
     _build.raise_on_error(lib, "packed_sa_anneal", rc)
-    _build.LAUNCHES["packed_sa" if tables is None
-                    else "packed_sa_noisy"] += 1
+    _build.LAUNCHES["packed_sa_noisy" if tables is not None
+                    else "packed_sa_chain" if strides[1]
+                    else "packed_sa"] += 1
     return out
 
 
@@ -288,7 +308,8 @@ def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
     """csrc/generic_qmc.cu on CUDA tensors, `generic_qmc_anneal_ref` on
     CPU tensors; arguments as for the plain version. Returns the new
     configurations. One launch (LAUNCHES["generic_qmc"]), energies or
-    not."""
+    not; with a (steps, chains) `jp`, the per-chain instantiation
+    (LAUNCHES["generic_qmc_chain"])."""
     if _build.route(confs.device, "packed") == "cpu":
         return generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed,
                                       global_moves, energies, step0)
@@ -298,18 +319,21 @@ def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
     _build.check_arg(confs, "confs", (chains, P, pg.nspins), dev)
     steps = int(b_sched.shape[0])
     _build.check_arg(b_sched, "b_sched", (steps,), dev)
-    _build.check_arg(jp, "jp", (steps,), dev)
+    strides = _build.schedule_strides(jp, "jp", steps, chains, dev)
     out = confs.clone()
+    snap = _snap(pg, out)
     lib = _build.library("generic_qmc")
     rc = lib.generic_qmc_anneal(
         *graph, _build.ptr(b_sched), _build.ptr(jp), ctypes.c_float(teff),
-        _build.ptr(out), _build.energies_ptr(energies, steps, chains, dev),
+        _build.ptr(out), None if snap is None else _build.ptr(snap),
+        _build.energies_ptr(energies, steps, chains, dev),
         chains, P, n, pg.nbr_idx.shape[1], pg.num_colors,
         piqmc_ops.spacetime_num_phases(pg.num_colors, P), steps,
         cr.wrap_int32(seed), int(step0), int(bool(global_moves)), THREADS,
-        _build.stream_of(dev))
+        *strides, _build.stream_of(dev))
     _build.raise_on_error(lib, "generic_qmc_anneal", rc)
-    _build.LAUNCHES["generic_qmc"] += 1
+    _build.LAUNCHES["generic_qmc_chain" if strides[1]
+                    else "generic_qmc"] += 1
     return out
 
 

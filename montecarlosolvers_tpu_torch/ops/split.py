@@ -188,6 +188,19 @@ def unpack_classical(sl, a, b):
     return torch.cat([a, b], dim=-1)[..., sl.inv_perm]
 
 
+def sa_split_sweep(sl, a, b, ua, ub, temp):
+    """One SA sweep of halves a, b (..., Nh) (JAX `sa_split_sweep`,
+    ops/split.py:209): half a from half b on uniforms ua, then half b from
+    the new half a on ub; temp a float32 tensor broadcastable against the
+    halves (a (chains, 1) column gives each chain its own, as parallel
+    tempering does). Returns (a, b)."""
+    de = -2.0 * a * (spatial_field(sl.w_ab[:, 0], b, sl.K) + sl.h_ab[0])
+    a = torch.where(metropolis_accept(de, temp, ua), -a, a)
+    de = -2.0 * b * (spatial_field(sl.w_ab[:, 1], a, sl.K) + sl.h_ab[1])
+    b = torch.where(metropolis_accept(de, temp, ub), -b, b)
+    return a, b
+
+
 def classical_energy_split(sl, a, b):
     """H = sum_bonds J s s + sum h s on split halves. Every lattice bond
     joins opposite colors, so sum_A s_A * spatial_field_A counts each bond
@@ -244,6 +257,21 @@ def qmc_slice_energies_split(sl, xe, xo, ye, yo):
     )
     e = torch.stack([e_even, e_odd], dim=-1)  # (..., P/2, 2)
     return e.reshape(e.shape[:-2] + (e.shape[-2] * 2,))
+
+
+def qmc_split_kinetic(sl, xe, xo, ye, yo):
+    """Trotter kinetic term K(x) = sum_{i,k} s_i^k s_i^{k+1} (periodic) of
+    the split state, shape (...,) (JAX `qmc_split_kinetic`, ops/split.py:
+    467): color A's adjacent slice pairs are xe[j] yo[j] and yo[j] xe[j+1
+    mod P/2], color B's ye[j] xo[j] and xo[j] ye[j+1]. Each term is +/-1 and
+    |K| <= P N, so float32 holds every partial sum exactly and the order of
+    the sum does not matter (quantum parallel tempering's exchange and
+    quantum PA's reweighting, solvers/pt.py and solvers/pa.py)."""
+    ka = torch.sum(xe * yo, dim=(-1, -2)) + torch.sum(
+        yo * torch.roll(xe, -1, dims=-2), dim=(-1, -2))
+    kb = torch.sum(ye * xo, dim=(-1, -2)) + torch.sum(
+        xo * torch.roll(ye, -1, dims=-2), dim=(-1, -2))
+    return ka + kb
 
 
 def _bath_quarter_mats(bath_mat):

@@ -113,43 +113,52 @@ def hw_uniforms(seed, device):
     return draw
 
 
+def step_values(sched, t):
+    """Row t of a schedule: sched[t], a 0-d tensor, for one shared (steps,)
+    schedule; the (chains, 1) column sched[t][:, None] of a (steps, chains)
+    table (a value a chain, the samplers' ladders), which broadcasts over
+    each chain's sites."""
+    return sched[t] if sched.dim() == 1 else sched[t][:, None]
+
+
 def sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng=False,
-                        energies=None):
+                        energies=None, step0=0):
     """Plain form of kernel A: anneal halves a, b (chains, Nh) over the
-    float32 temperatures `sched` (steps,) with counter-hash seed `seed`
+    float32 temperatures `sched` ((steps,), or (steps, chains): a
+    temperature a chain and step) with counter-hash seed `seed`
     (with `hw_rng`, uniforms from `hw_uniforms(seed)`, one draw of the
     half's shape a phase). Returns the new (a, b). One step updates half a
     from half b, then half b from the new half a (pallas_split.py:151-164).
     With `energies`, a (steps, chains) float32 buffer, row t receives each
     chain's energy after step t (`energy.halves_energy_ref`, the readout of
-    ops/split.py:245); the trajectory is the same with or without it."""
+    ops/split.py:245); the trajectory is the same with or without it.
+    step0: the step the hash counts step 0 as (a launch inside a longer
+    run)."""
     chains, nh = a.shape
-    K = sl.K
-    wa, wb = sl.w_ab[:, 0], sl.w_ab[:, 1]
-    ha, hb = sl.h_ab[0], sl.h_ab[1]
     draw = hw_uniforms(seed, a.device) if hw_rng else None
     hu_a = cr.hashed_uid(cr.sa_uids(chains, nh, 0, a.device))
     hu_b = cr.hashed_uid(cr.sa_uids(chains, nh, 1, a.device))
     for t in range(sched.shape[0]):
-        temp = sched[t]
-        de = -2.0 * a * (split_ops.spatial_field(wa, b, K) + ha)
-        u = (draw(a.shape) if draw else
-             cr.uniform01_hashed(cr.counter(seed, t, 0), hu_a))
-        a = torch.where(metropolis_accept(de, temp, u), -a, a)
-        de = -2.0 * b * (split_ops.spatial_field(wb, a, K) + hb)
-        u = (draw(b.shape) if draw else
-             cr.uniform01_hashed(cr.counter(seed, t, 1), hu_b))
-        b = torch.where(metropolis_accept(de, temp, u), -b, b)
+        if draw:
+            ua, ub = draw(a.shape), draw(b.shape)
+        else:
+            ua = cr.uniform01_hashed(cr.counter(seed, step0 + t, 0), hu_a)
+            ub = cr.uniform01_hashed(cr.counter(seed, step0 + t, 1), hu_b)
+        a, b = split_ops.sa_split_sweep(sl, a, b, ua, ub,
+                                        step_values(sched, t))
         if energies is not None:
             energies[t] = energy_ops.halves_energy_ref(sl, a, b)
     return a, b
 
 
 def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
-                         global_moves, hw_rng=False, energies=None):
+                         global_moves, hw_rng=False, energies=None,
+                         step0=0):
     """Plain form of kernel B on the quarters (xe, xo, ye, yo), each
     (chains, Q, Nh). `b_sched` and `jp` are float32 (steps,) tensors of the
-    longitudinal scale B and of J_perp; `teff` = P*T is a Python float.
+    longitudinal scale B and of J_perp (`jp` may be a (steps, chains)
+    table: a J_perp a chain and step); `teff` = P*T is a Python float;
+    step0 the step the hash counts step 0 as.
 
     Per step: phase X updates xe, xo against ye, yo; phase Y updates ye, yo
     against the new xe, xo. dE = -2B s f + 2 s J_perp (up + down), with the
@@ -179,14 +188,15 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
     hl = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev)) for c in (0, 1)]
 
     for t in range(b_sched.shape[0]):
-        jpt = jp[t]
+        jpt = jp[t] if jp.dim() == 1 else jp[t][:, None, None]
         bc = -2.0 * b_sched[t]
+        tc = step0 + t
 
         def upd(s, o, w, h, tr, idx):
             de = bc * s * (split_ops.spatial_field(w, o, K) + h) \
                 + 2.0 * s * jpt * tr
             u = (draw(s.shape) if draw else
-                 cr.uniform01_hashed(cr.counter(seed, t, idx), hq[idx]))
+                 cr.uniform01_hashed(cr.counter(seed, tc, idx), hq[idx]))
             return torch.where(metropolis_accept(de, teff32, u), -s, s)
 
         xe = upd(xe, ye, wa, ha, yo + torch.roll(yo, 1, dims=-2), 0)
@@ -198,7 +208,7 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
             xe, xo, ye, yo = quarter_line_moves(
                 sl, (xe, xo, ye, yo), bc, teff32, lambda color, shape: (
                     draw(shape) if draw else cr.uniform01_hashed(
-                        cr.counter(seed, t, 4 + color), hl[color])))
+                        cr.counter(seed, tc, 4 + color), hl[color])))
         if energies is not None:
             energies[t] = energy_ops.quarters_energy_ref(sl,
                                                          (xe, xo, ye, yo))
@@ -518,11 +528,26 @@ def pack_chain_bits(x, C):
     """(chains, Nh) +/-1 -> (ceil(chains/C), Nh) int32 words: bit c of word
     g is the sign of chain g*C + c (1 for -1); a ragged last group's spare
     bits are 0."""
-    chains, nh = x.shape
+    return _pack_bits(x < 0, C)
+
+
+def gather_chain_bits(words, idx, C):
+    """Chain-bit words at C chains a word whose chain i is chain idx[i] of
+    `words`: a gather of the chains that never unpacks them."""
+    idx = idx.to(torch.int64)
+    shift = (idx % C).to(torch.int32)[:, None]
+    return _pack_bits((words[idx // C] >> shift) & 1, C)
+
+
+def _pack_bits(neg_bits, C):
+    """(chains, Nh) sign bits (bool or 0/1) -> the words of
+    `pack_chain_bits`."""
+    chains, nh = neg_bits.shape
+    dev = neg_bits.device
     groups = -(-chains // C)
-    neg = torch.zeros((groups * C, nh), dtype=torch.int64, device=x.device)
-    neg[:chains] = x < 0
-    shift = torch.arange(C, dtype=torch.int64, device=x.device)
+    neg = torch.zeros((groups * C, nh), dtype=torch.int64, device=dev)
+    neg[:chains] = neg_bits
+    shift = torch.arange(C, dtype=torch.int64, device=dev)
     words = (neg.reshape(groups, C, nh) << shift[:, None]).sum(dim=1)
     return torch.where(words >= 1 << 31, words - (1 << 32),
                        words).to(torch.int32)
@@ -576,7 +601,8 @@ def _key(key, hw_rng):
     return key + "_hw" if hw_rng else key
 
 
-def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False, energies=None):
+def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False, energies=None,
+                    step0=0):
     """Kernel A on CUDA tensors, `sa_split_anneal_ref` on CPU tensors.
     Arguments as for `sa_split_anneal_ref`; returns new (a, b). The kernel
     keeps each spin's sign as a bit, so the halves must hold +/-1.
@@ -597,10 +623,16 @@ def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False, energies=None):
     the per-phase kernels at every shape, by that option and not by a failure,
     and the energy kernel (csrc/energy.cuh) runs after each step from the same
     loop (LAUNCHES["sa_split_energy"], one a step); the states are those of the
-    route without energies. `hw_rng` collects none."""
+    route without energies. `hw_rng` collects none.
+
+    A (steps, chains) `sched` takes the per-chain instantiation of either
+    kernel (LAUNCHES["sa_split_chain"], ["sa_split_chain_phased"]; the
+    hash only), whose table may repeat one row (an `expand` of a (chains,)
+    vector: `_build.schedule_strides`)."""
     collect = _build.collecting(energies, hw_rng)
     if _build.route(a.device, "split") == "cpu":
-        return sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng, energies)
+        return sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng, energies,
+                                   step0)
     chains, nh = a.shape
     dev = a.device
     if nh != sl.nh:
@@ -609,9 +641,12 @@ def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False, energies=None):
         _build.check_arg(t, name, (chains, nh), dev)
     _build.check_arg(sl.w_ab, "w_ab", (sl.nslots, 2, nh), dev)
     _build.check_arg(sl.h_ab, "h_ab", (2, nh), dev)
-    _build.check_arg(sched, "sched", (sched.shape[0],), dev)
-    lib = _build.library("split_sa")
     steps = int(sched.shape[0])
+    strides = _build.schedule_strides(sched, "sched", steps, chains, dev)
+    if hw_rng and strides[1]:
+        raise ValueError("a temperature per chain runs on the hash only")
+    key = "sa_split_chain" if strides[1] else _key("sa_split", hw_rng)
+    lib = _build.library("split_sa")
     geometry = None if collect else sa_geometry(
         chains, sl.L, card_resident("split_sa", sl.L))
     if geometry is None:
@@ -620,31 +655,98 @@ def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False, energies=None):
         rc = lib.split_sa_phased_anneal(
             *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a, b, a_out, b_out)),
             chains, sl.L, sl.nslots, steps, cr.wrap_int32(seed),
-            int(bool(hw_rng)),
+            int(bool(hw_rng)), *strides, int(step0),
             _build.energies_ptr(energies, steps, chains, dev),
             _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "split_sa_phased_anneal", rc,
                               error_fn="split_sa_anneal_error_string")
-        _build.LAUNCHES[_key("sa_split", hw_rng) + "_phased"] += n.value
+        _build.LAUNCHES[key + "_phased"] += n.value
         _build.LAUNCHES["sa_split_energy"] += ne.value
         return a_out, b_out
-    C, R, threads = geometry
-    a_in, b_in = pack_chain_bits(a, C), pack_chain_bits(b, C)
-    a_out, b_out = torch.empty_like(a_in), torch.empty_like(b_in)
-    rc = lib.split_sa_anneal(
-        *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a_in, b_in, a_out,
-                          b_out)),
-        chains, C, R, threads, sl.L, sl.nslots, steps,
-        cr.wrap_int32(seed), int(bool(hw_rng)), _build.stream_of(dev),
-    )
-    _build.raise_on_error(lib, "split_sa_anneal", rc)
-    _build.LAUNCHES[_key("sa_split", hw_rng)] += 1
+    C = geometry[0]
+    a_out, b_out = sa_split_words_anneal(
+        sl, sched, pack_chain_bits(a, C), pack_chain_bits(b, C), chains,
+        geometry, seed, hw_rng, step0)
     return (unpack_chain_bits(a_out, chains, C),
             unpack_chain_bits(b_out, chains, C))
 
 
+def words_geometry(sl, chains, device):
+    """Kernel A's cluster geometry (C, R, threads) for `chains` chains of
+    the lattice on `device`, the one `sa_split_anneal` launches at: None on
+    the CPU and where no cluster holds the lattice (the per-phase kernel
+    then takes float halves). A caller that launches kernel A again and
+    again keeps its state as chain-bit words at this geometry."""
+    if _build.route(device, "split") == "cpu":
+        return None
+    return sa_geometry(chains, sl.L, card_resident("split_sa", sl.L))
+
+
+def sa_split_words_anneal(sl, sched, a, b, chains, geometry, seed,
+                          hw_rng=False, step0=0):
+    """Kernel A's cluster route on its own layout: halves a, b of `chains`
+    chains as chain-bit words (`pack_chain_bits` at C = geometry[0], int32
+    (ceil(chains/C), Nh)) in and new words out, one launch at
+    `geometry` (`words_geometry`); `sched`, `seed`, `hw_rng` and `step0`
+    as for `sa_split_anneal`, which packs, calls this and unpacks. A
+    sampler that launches once an exchange keeps its state in these words
+    from launch to launch. On CPU words, `sa_split_anneal_ref` on the
+    unpacked halves, packed again."""
+    C, R, threads = geometry
+    dev = a.device
+    if _build.route(dev, "split") == "cpu":
+        out = sa_split_anneal_ref(sl, sched, unpack_chain_bits(a, chains, C),
+                                  unpack_chain_bits(b, chains, C), seed,
+                                  hw_rng, step0=step0)
+        return tuple(pack_chain_bits(x, C) for x in out)
+    groups = -(-chains // C)
+    for t, name in ((a, "a"), (b, "b")):
+        _build.check_arg(t, name, (groups, sl.nh), dev, torch.int32)
+    steps = int(sched.shape[0])
+    strides = _build.schedule_strides(sched, "sched", steps, chains, dev)
+    if hw_rng and strides[1]:
+        raise ValueError("a temperature per chain runs on the hash only")
+    key = "sa_split_chain" if strides[1] else _key("sa_split", hw_rng)
+    lib = _build.library("split_sa")
+    a_out, b_out = torch.empty_like(a), torch.empty_like(b)
+    rc = lib.split_sa_anneal(
+        *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a, b, a_out, b_out)),
+        chains, C, R, threads, sl.L, sl.nslots, steps,
+        cr.wrap_int32(seed), int(bool(hw_rng)), *strides, int(step0),
+        _build.stream_of(dev),
+    )
+    _build.raise_on_error(lib, "split_sa_anneal", rc)
+    _build.LAUNCHES[key] += 1
+    return a_out, b_out
+
+
+def words_energy_ref(sl, a, b, chains, C):
+    """Plain form of the chain-bit energy kernel: (chains,) float32
+    energies of halves held as chain-bit words (`energy.halves_energy_ref`
+    of the unpacked halves)."""
+    return energy_ops.halves_energy_ref(sl, unpack_chain_bits(a, chains, C),
+                                        unpack_chain_bits(b, chains, C))
+
+
+def words_energy(sl, a, b, chains, C):
+    """The energy kernel on kernel A's chain-bit words (csrc/energy.cuh::
+    chain_bits_energy_kernel, LAUNCHES["energy_bits"]) on CUDA tensors,
+    `words_energy_ref` on CPU ones: the energies without unpacking the
+    state, bitwise those of `energy.halves_energy` on the unpacked
+    halves."""
+    if _build.route(a.device, "energy") == "cpu":
+        return words_energy_ref(sl, a, b, chains, C)
+    groups = -(-chains // C)
+    for t, name in ((a, "a"), (b, "b")):
+        _build.check_arg(t, name, (groups, sl.nh), a.device, torch.int32)
+    return energy_ops.launch(
+        "energy_chain_bits", a.device, chains,
+        *map(_build.ptr, (sl.w_ab, sl.h_ab, a, b)), chains, C, sl.L,
+        sl.nslots, key="energy_bits")
+
+
 def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
-                     hw_rng=False, energies=None):
+                     hw_rng=False, energies=None, step0=0):
     """Kernel B on CUDA tensors, `qmc_split_anneal_ref` on CPU tensors.
     Arguments as for `qmc_split_anneal_ref`; returns new quarters. The
     kernel keeps each spin's sign as a bit, so the quarters must hold +/-1.
@@ -666,12 +768,16 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
     that takes the per-phase kernels at every shape, by that option and not by
     a failure, and the energy kernel (csrc/energy.cuh) runs after each step
     from the same loop (LAUNCHES["qmc_split_energy"], one a step); the states
-    are those of the route without energies. `hw_rng` collects none."""
+    are those of the route without energies. `hw_rng` collects none.
+
+    A (steps, chains) `jp` takes the per-chain instantiation of either
+    kernel (LAUNCHES["qmc_split_chain"], ["qmc_split_chain_phased"]; the
+    hash only), as `sa_split_anneal` takes a temperature table."""
     collect = _build.collecting(energies, hw_rng)
     xe = quarters[0]
     if _build.route(xe.device, "split") == "cpu":
         return qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
-                                    global_moves, hw_rng, energies)
+                                    global_moves, hw_rng, energies, step0)
     chains, Q, nh = xe.shape
     dev = xe.device
     if nh != sl.nh:
@@ -682,7 +788,10 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
     _build.check_arg(sl.h_ab, "h_ab", (2, nh), dev)
     steps = int(b_sched.shape[0])
     _build.check_arg(b_sched, "b_sched", (steps,), dev)
-    _build.check_arg(jp, "jp", (steps,), dev)
+    strides = _build.schedule_strides(jp, "jp", steps, chains, dev)
+    if hw_rng and strides[1]:
+        raise ValueError("a J_perp per chain runs on the hash only")
+    key = "qmc_split_chain" if strides[1] else _key("qmc_split", hw_rng)
     outs = [torch.empty_like(q) for q in quarters]
     lib = _build.library("split_qmc")
     args = (*map(_build.ptr, (sl.w_ab, sl.h_ab, b_sched, jp)),
@@ -693,20 +802,20 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
         rc = lib.split_qmc_anneal(
             *args, chains, Q, *geometry, sl.L, sl.nslots, steps,
             cr.wrap_int32(seed), int(bool(global_moves)), int(bool(hw_rng)),
-            _build.stream_of(dev))
+            *strides, int(step0), _build.stream_of(dev))
         _build.raise_on_error(lib, "split_qmc_anneal", rc)
-        _build.LAUNCHES[_key("qmc_split", hw_rng)] += 1
+        _build.LAUNCHES[key] += 1
         return tuple(outs)
     n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # kernels launched
     rc = lib.split_qmc_phased_anneal(
         *args, chains, Q, nh, sl.K, sl.nslots, steps, cr.wrap_int32(seed),
-        int(bool(global_moves)), int(bool(hw_rng)),
+        int(bool(global_moves)), int(bool(hw_rng)), *strides, int(step0),
         _build.energies_ptr(energies, steps, chains, dev),
         _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne),
     )
     _build.raise_on_error(lib, "split_qmc_phased_anneal", rc,
                           error_fn="split_qmc_anneal_error_string")
-    _build.LAUNCHES[_key("qmc_split", hw_rng) + "_phased"] += n.value
+    _build.LAUNCHES[key + "_phased"] += n.value
     _build.LAUNCHES["qmc_split_energy"] += ne.value
     return tuple(outs)
 

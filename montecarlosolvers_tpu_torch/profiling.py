@@ -23,8 +23,13 @@ nbr_J (1 + 0.1 xi) on the 80x80 torus's generic form, xi drawn on the card
 The cluster methods run as chip_smoke.py runs them on the 80x80 torus's
 generic form: solve("sa_wolff") and solve("sa_sw") at 64 reads, 200
 sweeps; solve("piqmc_wolff"), solve("piqmc_sw", alpha = 1e-2) and
-solve("piqmc_sw_full") at 8 reads, 50 sweeps, P = 40. `--paths` traces
-only the solves of those keys.
+solve("piqmc_sw_full") at 8 reads, 50 sweeps, P = 40. The samplers run as
+chip_smoke.py's sampler_solves run them: solve("pt") at 64 reads, 500
+sweeps on the 80x80 torus (the auto ladder, 110 rungs), solve("icm") at 32
+reads, 1000 sweeps, ladder 24, on random_3d_lattice(12, rng=0),
+solve("pa") at 1024 reads, 500 steps, and adaptive to beta = 2, and
+solve("paq") at 32 reads, 500 steps, P = 20. `--paths` traces only the
+solves of those keys.
 """
 
 from __future__ import annotations
@@ -174,6 +179,23 @@ def main(argv=None):
          partial(solve, generic, "piqmc_sw", alpha=1e-2, **cluster)),
         ("piqmc_sw_full_p40", generic_name,
          partial(solve, generic, "piqmc_sw_full", **cluster)),
+    )
+    glass = instances.random_3d_lattice(12, rng=0, device=dev)[0]
+    torus = instances.gaussian_torus(80, seed=0, device=dev)
+    tname = "gaussian_torus(80, seed=0)"
+    runs += (
+        ("pt", tname, partial(solve, torus, "pt", num_reads=64, sweeps=500,
+                              seed=1)),
+        ("icm", "random_3d_lattice(12, rng=0)",
+         partial(solve, glass, "icm", num_reads=32, sweeps=1000, ladder=24,
+                 seed=1)),
+        ("pa", tname, partial(solve, torus, "pa", num_reads=1024,
+                              sweeps=500, seed=1)),
+        ("pa_adaptive", tname,
+         partial(solve, torus, "pa", num_reads=1024, sweeps=2000,
+                 adaptive=True, beta_end=2.0, seed=1)),
+        ("paq", tname, partial(solve, torus, "paq", num_reads=32,
+                               sweeps=500, slices=20, seed=1)),
     )
     for key, lname, run in runs:
         if args.paths is not None and key not in args.paths:

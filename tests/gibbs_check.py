@@ -401,6 +401,25 @@ def phased_route():
             setattr(sk, n, fn)
 
 
+@contextlib.contextmanager
+def plain_route():
+    """Within the block, every kernel wrapper of the port takes its plain
+    version on any device (`_build.route` answers "cpu"), so a sampler run
+    on CUDA tensors with the plain versions can be held bitwise to the same
+    run on the kernels: the torch arithmetic around the sweeps (energies
+    of the packed and dense forms, exchanges, reweights, resamples) then
+    runs on one device in both. A monkeypatch for checks run one at a
+    time; the package has no such switch."""
+    from montecarlosolvers_tpu_torch.ops import _build
+
+    saved = _build.route
+    try:
+        _build.route = lambda device, engine: "cpu"
+        yield
+    finally:
+        _build.route = saved
+
+
 # ------------------------------------------- collect_energy=: the routes
 
 # kernel -> (wrapper, plain version, LAUNCHES key)

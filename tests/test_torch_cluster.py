@@ -353,10 +353,19 @@ def test_spacetime_sw_sweep_matches_jax(graph, P, bath):
 
 
 def test_classical_sw_on_a_lattice_is_queued():
+    """On a LatticeProblem classical_sw_sweep runs
+    classical_sw_sweep_lattice (its draws on the coupling planes;
+    tests/test_torch_houdayer.py holds it to the JAX function bitwise), as
+    the JAX classical_sw_sweep routes a lattice."""
     lat = tinst.gaussian_torus(4, device="cpu")
     s = torch.ones((2, 16))
-    with pytest.raises(NotImplementedError, match="item 2 .samplers"):
-        tc.classical_sw_sweep(lat, s, None, None, None, 1.0)
+    g = torch.Generator().manual_seed(0)
+    u_sp, u_h = torch.rand((2, 2, 4, 4), generator=g), torch.rand(
+        (2, 4, 4), generator=g)
+    coins = torch.ones((2, 16), dtype=torch.bool)
+    got = tc.classical_sw_sweep(lat, s, u_sp, u_h, coins, 1.0)
+    want = tc.classical_sw_sweep_lattice(lat, s, u_sp, u_h, coins, 1.0)
+    assert torch.equal(got, want) and got.shape == s.shape
 
 
 # ------------------------------------------- counter-hash streams and refs

@@ -88,6 +88,20 @@ def test_pack_chain_bits_round_trip(C):
     assert out.dtype == torch.float32 and torch.equal(out, x)
 
 
+@pytest.mark.parametrize("C", [1, 8, 32])
+def test_gather_chain_bits_is_a_gather_of_the_chains(C):
+    """PA's resample gathers the chains in their chain-bit words: the same
+    words as packing the gathered halves, bit 31 (a negative word) and a
+    ragged last group included."""
+    rng = np.random.default_rng(40 + C)
+    chains, nh = 37, 50
+    x = torch.from_numpy(rng.choice([-1.0, 1.0], size=(chains, nh))
+                         .astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, chains, size=chains))
+    got = sk.gather_chain_bits(sk.pack_chain_bits(x, C), idx, C)
+    assert torch.equal(got, sk.pack_chain_bits(x[idx], C))
+
+
 # (chains, L) -> (C, R) of kernel 6, by kernel A's rules; L = 675 is the
 # largest plane whose band, twice, fits a CTA of a 16-CTA cluster, where
 # 1280 chains' 40 groups take R = 16 though not all 40 clusters fit at once
@@ -243,3 +257,15 @@ def test_split_svmc_geometry(chains, L, R):
     assert threads == sk._threads(L, r)
     # no count of resident clusters: the largest cluster that fits
     assert sk.svmc_split_geometry(chains, L)[0] == 16
+
+
+def test_sa_per_chain_temperatures_fit_wherever_the_halves_do():
+    """Kernel A's per-chain instantiation keeps its group's 32
+    temperatures after the halves (csrc/split_sa.cu): no even L and
+    cluster size put the halves within those 128 bytes of the limit, so
+    sa_geometry's choice holds for both instantiations."""
+    for L in range(2, 2000, 2):
+        for r in sk.CLUSTER_SIZES:
+            if r <= L and sk.sa_smem_bytes(L, r) <= _build.SMEM_LIMIT_BYTES:
+                assert sk.sa_smem_bytes(L, r) + 128 <= \
+                    _build.SMEM_LIMIT_BYTES, (L, r)

@@ -57,7 +57,14 @@ on small graphs (the duplicate-slot table, P = 1 to 64, rules "local" and
 "full", with and without a bath, union-find labels in shared and in device
 memory, P = 2's doubled ring bond), the local kernels' one-step launches
 at step0 = t equal a whole anneal, each cluster solver launches exactly
-its route, and the engines sample exact weights on the card.
+its route, and the engines sample exact weights on the card. The
+samplers' kernels: the per-chain instantiations of A and B (both routes),
+of the packed SA, generic PIQMC and dense kernels equal their plain
+versions on a row table and a table that changes every step (1000 chains
+for A's ragged last word, the 9 x 9 torus's improper checkerboard for the
+packed kernels), A and B split a run at step0, the Houdayer kernel equals
+its plain version, and pt.sample, sample_icm and pa.sample equal their
+plain route bitwise with their routes' launches.
 """
 
 import contextlib
@@ -71,6 +78,7 @@ from montecarlosolvers_tpu_torch import convert, schedules
 from montecarlosolvers_tpu_torch.models import instances
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import dense_kernels as dk
+from montecarlosolvers_tpu_torch.ops import energy as energy_ops
 from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
 from montecarlosolvers_tpu_torch.ops import packed as packed_ops
 from montecarlosolvers_tpu_torch.ops import plane as plane_ops
@@ -679,8 +687,6 @@ def test_energy_kernel_equals_plain(cuda):
     versions: halves at P = 1 and 3, spins and cos theta; the quarters at
     P = 6; planes at P = 1 and 5 on an odd torus and an open lattice; 33
     chains. Each counts one launch under LAUNCHES["energy"]."""
-    from montecarlosolvers_tpu_torch.ops import energy as energy_ops
-
     rng = np.random.default_rng(5)
 
     def spins(*shape):
@@ -1412,3 +1418,198 @@ def test_cluster_wrappers_refuse_on_the_card(cuda):
                      torch.arange(64, dtype=torch.float32, device=cuda))
     with pytest.raises(ValueError):
         ck.wolff_anneal(pg, b, jp, teff.double(), confs, 1)
+
+
+# ------------------------------------------------------------ the samplers
+
+
+def _per_chain_case(kernel, dev, rng):
+    """(start, run(fn, table, x)) of a per-chain kernel at a small shape:
+    kernel A at 1000 chains (31 words of 32 and a ragged last word of 8)
+    on the 10 x 10 torus, B at P = 4,
+    the packed kernels on the 9 x 9 torus's checkerboard (not a proper
+    coloring) and the dense kernel at N = 64, block 16."""
+    def pm1(*shape):
+        return torch.as_tensor(rng.choice([-1.0, 1.0], size=shape).astype(
+            np.float32), device=dev)
+    lat = instances.gaussian_torus(10, 0, device=dev)
+    sl = split_ops.build_split(lat)
+    pg = packed_ops.packed_from_lattice(instances.gaussian_torus(9, 0,
+                                                                 device=dev))
+    if kernel == "split_sa":
+        start = tuple(x.contiguous() for x in split_ops.pack_classical(
+            sl, pm1(1000, 100)))
+        return start, lambda fn, tab, x, t0=0: fn(sl, tab, *x, 5, step0=t0)
+    if kernel == "split_qmc":
+        start = tuple(x.contiguous() for x in split_ops.pack_qmc(
+            sl, pm1(5, 4, 100)))
+        return start, lambda fn, tab, x, t0=0: fn(
+            sl, torch.ones(tab.shape[0], device=dev), tab, 1.5, x, 5, True,
+            step0=t0)
+    if kernel == "packed_sa":
+        return pm1(7, 81), lambda fn, tab, x, t0=0: fn(pg, tab, x, 5,
+                                                       step0=t0)
+    if kernel == "generic_qmc":
+        return pm1(5, 3, 81), lambda fn, tab, x, t0=0: fn(
+            pg, torch.ones(tab.shape[0], device=dev), tab, 1.5, x, 5, True,
+            step0=t0)
+    dp = gibbs_sk(dev)
+    return pm1(9, 64), lambda fn, tab, x, t0=0: fn(dp, tab, x, 5, block=16,
+                                                   step0=t0)
+
+
+def gibbs_sk(dev):
+    return instances.sk_model(64, rng=0, device=dev)[0]
+
+
+_PER_CHAIN = {
+    "split_sa": (sk.sa_split_anneal, sk.sa_split_anneal_ref,
+                 "sa_split_chain"),
+    "split_qmc": (sk.qmc_split_anneal, sk.qmc_split_anneal_ref,
+                  "qmc_split_chain"),
+    "packed_sa": (gk.packed_sa_anneal, gk.packed_sa_anneal_ref,
+                  "packed_sa_chain"),
+    "generic_qmc": (gk.generic_qmc_anneal, gk.generic_qmc_anneal_ref,
+                    "generic_qmc_chain"),
+    "dense_sa": (dk.dense_sa_anneal, dk.dense_sa_anneal_ref,
+                 "dense_sa_chain"),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(_PER_CHAIN))
+@pytest.mark.parametrize("route", ["cluster", "phased"])
+def test_per_chain_kernels_equal_plain(cuda, kernel, route):
+    """Each kernel's per-chain instantiation, a (steps, chains) table that
+    repeats one row and one that changes every step, equals its plain
+    version; A and B also on their per-phase kernels."""
+    if route == "phased" and kernel not in ("split_sa", "split_qmc"):
+        pytest.skip("only kernels A and B have per-phase kernels")
+    rng = np.random.default_rng(3)
+    start, run = _per_chain_case(kernel, cuda, rng)
+    chains = (start[0] if isinstance(start, tuple) else start).shape[0]
+    steps = 4
+    row = torch.linspace(0.4, 2.5, chains, device=cuda)[None, :].expand(
+        steps, -1)
+    every = (row * torch.linspace(1.0, 0.5, steps, device=cuda)[:, None]
+             ).contiguous()
+    wrapper, plain, key = _PER_CHAIN[kernel]
+    ctx = gibbs.phased_route if route == "phased" else contextlib.nullcontext
+    for tab in (row, every):
+        _build.reset_launches()
+        with ctx():
+            out = run(wrapper, tab, start)
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        ref = run(plain, tab, start)
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        assert all(torch.equal(a, b) for a, b in zip(outs, refs))
+        assert list(launched) == [key + ("_phased" if route == "phased"
+                                         else "")]
+
+
+@pytest.mark.parametrize("kernel", ["split_sa", "split_qmc"])
+def test_split_kernels_take_a_step_offset(cuda, kernel):
+    """Kernels A and B gained step0 for the samplers' per-exchange
+    launches: two one-step launches at step0 0 and 1 equal one two-step
+    launch, shared and per chain; step0 1 draws other uniforms."""
+    rng = np.random.default_rng(4)
+    start, run = _per_chain_case(kernel, cuda, rng)
+    chains = start[0].shape[0]
+    wrapper = _PER_CHAIN[kernel][0]
+    for tab in (torch.full((2,), 1.1, device=cuda),
+                torch.linspace(0.4, 2.5, chains, device=cuda)[None, :]
+                .expand(2, -1)):
+        whole = run(wrapper, tab, start)
+        split = run(wrapper, tab[1:], run(wrapper, tab[:1], start), 1)
+        other = run(wrapper, tab[1:], run(wrapper, tab[:1], start), 0)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(whole, split))
+        assert not all(torch.equal(a, b) for a, b in zip(whole, other))
+
+
+@pytest.mark.parametrize("chains", [1, 33, 1000])
+def test_chain_bit_words_run_and_read_as_the_halves(cuda, chains):
+    """The samplers' split engine keeps kernel A's chain-bit words: the
+    words entry equals sa_split_anneal on the halves, and the energy kernel
+    on the words equals, bitwise, the energy kernel on the unpacked halves
+    (and its plain version on these +/-1 couplings)."""
+    rng = np.random.default_rng(6)
+    lat = instances.random_2d_lattice(10, rng=2, dist="pm1", lattice=True,
+                                      device=cuda)[0]
+    sl = split_ops.build_split(lat)
+    a, b = (x.contiguous() for x in split_ops.pack_classical(
+        sl, torch.as_tensor(rng.choice([-1.0, 1.0], size=(chains, 100))
+                            .astype(np.float32), device=cuda)))
+    geometry = sk.words_geometry(sl, chains, cuda)
+    C = geometry[0]
+    tab = torch.linspace(0.4, 2.5, chains, device=cuda)[None, :].expand(
+        3, -1)
+    words = sk.sa_split_words_anneal(sl, tab, sk.pack_chain_bits(a, C),
+                                     sk.pack_chain_bits(b, C), chains,
+                                     geometry, 5, step0=2)
+    halves = sk.sa_split_anneal(sl, tab, a, b, 5, step0=2)
+    assert all(torch.equal(sk.unpack_chain_bits(w, chains, C), h)
+               for w, h in zip(words, halves))
+    _build.reset_launches()
+    e = sk.words_energy(sl, *words, chains, C)
+    assert _build.LAUNCHES["energy_bits"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(e, energy_ops.halves_energy(sl, *halves))
+    assert torch.equal(e, sk.words_energy_ref(sl, *words, chains, C))
+
+
+@pytest.mark.parametrize("graph", ["torus10", "glass3d", "rg_fields"])
+def test_houdayer_kernel_equals_plain(cuda, graph):
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    prob = _generic(graph, cuda)
+    rng = np.random.default_rng(5)
+    s1, s2 = (torch.as_tensor(rng.choice([-1.0, 1.0], size=(
+        6, prob.nspins)).astype(np.float32), device=cuda) for _ in range(2))
+    _build.reset_launches()
+    got = ck.houdayer_move(prob, s1, s2, 9, 4)
+    assert _build.LAUNCHES["houdayer"] == 1
+    want = cl.houdayer_move_ref(prob, s1, s2, 9, 4)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(got[0] * got[1], s1 * s2)
+    assert int(got[2].sum()) > 0
+
+
+def test_samplers_equal_their_plain_route_and_launch_their_kernels(cuda):
+    """pt.sample, sample_icm and pa.sample on a +/-1 lattice: the same run
+    on the kernels and on the plain versions (gibbs_check.plain_route),
+    bitwise; the kernel run's launches are its route's."""
+    from montecarlosolvers_tpu_torch.solvers import pa, pt
+
+    lat = instances.random_2d_lattice(8, rng=1, dist="pm1", lattice=True,
+                                      device=cuda)[0]
+    ladder = schedules.geometric(0.5, 2.5, 4, device=cuda)
+
+    def states(seed, shape):
+        g = torch.Generator().manual_seed(seed)
+        return (torch.randint(0, 2, shape, generator=g).float() * 2
+                - 1).to(cuda)
+    runs = (
+        (lambda: pt.sample(lat, ladder, states(1, (2, 4, 64)),
+                           torch.Generator().manual_seed(1), 10),
+         {"sa_split_chain": 10, "energy_bits": 10}),
+        (lambda: pt.sample_icm(lat, ladder, states(2, (2, 4, 64)),
+                               torch.Generator().manual_seed(2), 6),
+         {"sa_split_chain": 6, "energy_bits": 6, "houdayer": 3}),
+        (lambda: pa.sample(lat, pa.beta_linear(2.0, 8, device=cuda),
+                           states(3, (32, 64)),
+                           torch.Generator().manual_seed(3), beta0=0.0),
+         {"sa_split": 8, "energy_bits": 8}),
+    )
+    for run, want in runs:
+        _build.reset_launches()
+        kernel = run()
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        with gibbs.plain_route():
+            plain = run()
+        torch.cuda.synchronize()
+        assert launched == want
+        assert all(torch.equal(a, b) for a, b in zip(kernel, plain))

@@ -239,11 +239,13 @@ def test_refusals():
         sa.random_state(gen, 36, batch=(2,), device="cuda")
 
 
-@pytest.mark.parametrize("method", sorted(api._NOT_PORTED))
+@pytest.mark.parametrize("method", ("icm", "pa", "paq", "pt"))
 def test_other_solve_methods_raise(method):
+    """The sampler methods run (tests/test_torch_pt.py, test_torch_pa.py);
+    each refuses an option it does not take, as every method does."""
     lat = tinst.gaussian_torus(4, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        api.solve(lat, method)
+    with pytest.raises(TypeError, match="unexpected options"):
+        api.solve(lat, method, local_sweeps=True)
 
 
 def _imports(path):

@@ -16,14 +16,24 @@ torus, kernel 6 at 1280 and 32 chains on the seeded (L+1) x (L+1) torus,
 kernel B at P = 40, 32 chains, global moves on the L x L torus, kernel 3 at
 P = 5, 32 chains, global moves on the L x L and (L+1) x (L+1) tori, and
 kernel 7 at 256 chains, TF proposals (A: 3 -> 1e-8, B = 1, T = 0.05) on
-the (L+1) x (L+1) torus, and kernel 4 likewise on the L x L torus; one
+the (L+1) x (L+1) torus, and kernel 4 likewise on the L x L torus; the
+packed SA kernel at 1280 chains and the generic PIQMC kernel at P = 40, 32
+chains, global moves, on the L x L torus's generic form, and the dense
+in-block kernel (400 block launches queued behind a spin kernel, CUDA
+events, and the sweep with its block products, slope-timed; beside them
+the host path: the host's time to queue a block launch and a sweep, and
+the card's time for 5 sweeps queued behind a spin kernel, the least of
+three) at 1024
+chains on sk_model(2048, rng=0); one
 JSON line each, with the geometry and the clusters the card holds at once
 where the checkout reports them, with ms per sweep (the median pairwise
 slope of best-of-3 wall times over two schedule lengths, as
 chip_smoke.py's slope_ms), the card's name and power limit. It calls only
 the wrappers `sa_split_anneal`, `qmc_bath_split_anneal`, `sa_plane_anneal`,
-`qmc_split_anneal`, `qmc_plane_anneal`, `svmc_plane_anneal` and
-`svmc_split_anneal`, whose arguments every version of the port shares, so
+`qmc_split_anneal`, `qmc_plane_anneal`, `svmc_plane_anneal`,
+`svmc_split_anneal`, `packed_sa_anneal`, `generic_qmc_anneal`,
+`dense_sa_block` and `dense_sa_anneal`, with the arguments every version
+of the port since their slice shares, so
 the same script times an older checkout (unpacked with `git archive`)
 beside the current one in one run. `--sa-geometry` times kernel A at
 CHAINS (1280 or 32) chains at each given (C, R), and `--bath-geometry` /
@@ -33,7 +43,7 @@ of the wrapper's own choice (where the checkout has `sa_geometry` /
 `qmc_bath_geometry` / `qmc_geometry` / `plane_qmc_geometry` /
 `plane_svmc_geometry` / `svmc_split_geometry`). `--only` times just the
 named kernels (split_sa, split_qmc_bath, plane_sa, split_qmc, plane_qmc,
-plane_svmc, split_svmc). `--hw-rng` times instead kernels A, B, 4 and 5
+plane_svmc, split_svmc, packed_sa, generic_qmc, dense_sa). `--hw-rng` times instead kernels A, B, 4 and 5
 at the shapes of bench/throughput.py's pallas_* arms (A 256 chains; B
 P = 40, 16 chains, global moves; 4 128 chains, TF; 5 P = 40, 8 chains,
 alpha = 1e-2, global moves) with the counter hash and with hw_rng=True,
@@ -271,6 +281,92 @@ def main():
              ms_per_sweep=slope_ms(run, taus(500 * 6400 // L ** 2)))
         if own_split_svmc:
             sk.svmc_split_geometry = own_split_svmc
+
+    time_generic(dev, spins, taus, emit, wanted, L)
+
+
+def time_generic(dev, spins, taus, emit, wanted, L):
+    """The packed SA and generic PIQMC kernels on the L x L torus's generic
+    form, and the dense in-block kernel and sweep on sk_model(2048)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import dense_kernels as dk
+    from montecarlosolvers_tpu_torch.ops import dense_sweep as ds
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    pg = packed_ops.build_packed(instances.gaussian_torus(
+        L, seed=0, device=dev).to_generic())
+    if wanted("packed_sa"):
+        s = spins(1280, L * L)
+        emit(kernel="packed_sa", chains=1280, L=L, ms_per_sweep=slope_ms(
+            lambda tau: gk.packed_sa_anneal(
+                pg, schedules.linear(3.0, 0.0, tau, device=dev), s, 7),
+            taus(250)))
+    if wanted("generic_qmc"):
+        c = spins(32, 40, L * L)
+
+        def run(tau):
+            g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+            return gk.generic_qmc_anneal(
+                pg, torch.ones_like(g),
+                schedules.jperp(g, 1.0).contiguous(), 1.0, c, 7, True)
+        emit(kernel="generic_qmc", chains=32, L=L, P=40,
+             ms_per_sweep=slope_ms(run, taus(20)))
+    if wanted("dense_sa"):
+        dp = instances.sk_model(2048, rng=0, device=dev)[0]
+        s = spins(1024, 2048)
+        temps = schedules.linear(3.0, 0.1, 1, device=dev)
+        Jp, hp, sp = ds.padded(dp.J, dp.h, s.clone(), 128)
+        fb = ds.block_fields(sp, Jp, hp, 0, 128)
+        dk.dense_sa_block(sp, fb, Jp, 0, temps, 0, 7)  # warm
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def queued(fn, calls, cycles):
+            """fn() `calls` times behind a spin kernel of `cycles` clocks,
+            three times: the least host time a call (the host queues while
+            the card spins) and the least device time a call between the
+            events (the card runs the queued work back to back)."""
+            host, card = [], []
+            for _ in range(3):
+                torch.cuda._sleep(cycles)
+                start.record()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                host.append((time.perf_counter() - t0) / calls)
+                end.record()
+                torch.cuda.synchronize()
+                card.append(start.elapsed_time(end) / calls)
+            return min(host), min(card)
+
+        # a block launch is about as short as the wrapper's host time: 400
+        # queued behind a spin kernel, so the events time the launches, not
+        # the host, and the host's time is the wrapper's own
+        host_block, ms_per_block = queued(
+            lambda: dk.dense_sa_block(sp, fb, Jp, 0, temps, 0, 7), 400,
+            200_000_000)
+
+        def sweeps(tau, sched=None):
+            if sched is None:
+                sched = schedules.linear(3.0, 0.1, tau, device=dev)
+            return dk.dense_sa_anneal(dp, sched, s, 7, 128)
+        # the host path of 5 sweeps (the wrapper, the products, the
+        # padding; the schedule made before, as its copy from the host
+        # would wait for the spin kernel) and the card's time for them; a
+        # sweep whose host time exceeds its device time is host-bound, and
+        # its slope follows the host's speed
+        sched5 = schedules.linear(3.0, 0.1, 5, device=dev)
+        sweeps(5, sched5)
+        host_sweep, card_sweep = queued(lambda: sweeps(5, sched5), 1,
+                                        400_000_000)
+        emit(kernel="dense_sa", chains=1024, nspins=2048,
+             ms_per_block=ms_per_block,
+             host_us_per_block=1e6 * host_block,
+             host_ms_per_sweep=1e3 * host_sweep / 5,
+             queued_device_ms_per_sweep=card_sweep / 5,
+             ms_per_sweep=slope_ms(sweeps, taus(5)))
 
 
 def time_hw_rng(args, dev, sl, spins, taus, emit):
