@@ -253,6 +253,43 @@ Phases, each printed as one JSON line:
                       P = 20; a kernel-B launch a step), each with exactly
                       its launches and in a range around its JAX CPU
                       anchor (tools/sampler_anchors.py)
+  api_surface         the compat shims on the 80x80 torus's reference-format
+                      table: Anneal (64 reads, 2000 steps), QuantumAnneal-
+                      Global (P = 40, 500 steps), DissipativeQuantumAnneal-
+                      Global (P = 40, 200 steps), DissipativeQuantumAnneal-
+                      WC3 (P = 40, 20 steps), SpinVectorMonteCarloTFCompact
+                      (256 reads, 2000 steps), NoisyAnneal and NoisySVMCTF
+                      (64 reads, 200 steps of noisy tables); the CLI's
+                      solve in process ("sa", "piqmc" at P = 40 and "svmc"
+                      with --lattice 80, "sa" on the generic form) on the
+                      torus's triplet file; a CheckpointedAnneal of SA
+                      (1280 chains, 2000 steps, 4 segments), unbroken and
+                      stopped after 2 and resumed, bitwise equal. Each run
+                      with the counts set to 0 just before it: exactly its
+                      route's launches, no wrapper on its plain version,
+                      its energy per spin in the range around its JAX CPU
+                      anchor (tools/compat_anchors.py) or the main path's
+                      range for the same solve
+  studies             the value studies' arms at full width and reduced
+                      sweeps on the 80x80 torus (e_gs = -sum |J|):
+                      pt_value (48 rungs, 200 sweeps; quantum 48 rungs, P =
+                      20, 50 sweeps), pa_value's sampling and optimization
+                      arms (1024 replicas, 50 steps), icm_value on
+                      random_3d_lattice(12, 0) (one seed, two segments of
+                      500 sweeps, cadences 2, 8 and 32, and the PT
+                      baseline), cluster_value (32 chains, P = 40, tau 200,
+                      with and without the bath), the crossover's arms at
+                      L = 32, P = 4, 16 chains and its classical arms at
+                      L = 32, the ladder calibration at N = 6400, and the
+                      examples compat_migration and cluster_and_pt: each
+                      arm's record keys (the study's RECORD_KEYS), its
+                      route's kernels (exact counts where the arm fixes
+                      them), no plain route, and its value in the range
+                      around its JAX CPU anchor (an equal-wall arm's eps
+                      between 0 and its fixed-tau sibling's range; the
+                      crossover's tau_int and Wolff flip fraction too, and
+                      its cluster moves' tau_int below the local
+                      dynamics')
   timing              slope-timed ms per sweep of each kernel and of its
                       plain version at the main path's shapes, beside the
                       least time the card could take for a sweep (bound:
@@ -361,8 +398,11 @@ Phases, each printed as one JSON line:
   examples            examples/dissipative_qa.py's run() at alpha = 0 and
                       0.01, tau = 1000, P = 20, 16 chains: kernels A, B and
                       5 once each, energies in range
-then a line {"kernels": [...]} (the seven kernels, then their per-phase
-kernels, which no main-path solve launches, then the generator
+then a line {"kernels": [...]} (the launches of the main path's solves,
+the sampler solves and the api_surface and studies runs unless said: the
+seven kernels, then their per-phase kernels, which only the studies'
+collecting quench arms launch (sa.anneal(collect_energy=True)), then the
+generator
 instantiations of A, B, 4 and 5 and their per-phase kernels, whose
 launches are the bench's, then the energy kernel by the layout it reads,
 halves, quarters or planes, whose launches are the collecting solves',
@@ -373,7 +413,7 @@ kernels' table variant and the three cluster kernels, whose launches are
 the main path's, then the per-chain instantiations of kernels A and B
 (and their per-phase kernels, which no main-path solve launches), of the
 packed SA, generic PIQMC and dense kernels, and the Houdayer kernel, whose
-launches are the sampler solves'),
+launches are the sampler solves' and the studies'),
 a line {"phase": "done", "seconds": ..., "phase_seconds": {...}} (the
 seconds from the start at the end of each phase), and last
 {"ok": true, "device": {...}}.
@@ -619,6 +659,119 @@ SAMPLER_ANCHORS = {
 }
 RANGES.update({k: (m - max(0.01, 5 * sd), m + max(0.01, 5 * sd))
                for k, (m, sd) in SAMPLER_ANCHORS.items()})
+# The API surface (phase api_surface) on the 80x80 torus's reference-format
+# (6400, 4, 2) table: the compat shims, SA and the noisy ones at
+# SHIM_*_READS reads (svec (reads, N)), the PIQMC shims one chain in the
+# (N, P) layout at P = SHIM_SLICES (T = 1/P, A 3 -> 1e-8, B = 1; the bath
+# alpha SHIM_ALPHA), SVMC-TF compact at SHIM_SVMC_READS reads, T
+# SHIM_SVMC_TEMP; the noisy tables J_t = J (1 + SHIM_NOISY_SCALE xi_t), xi
+# default_rng(0) normals, SHIM_NOISY_STEPS steps. The CLI's solve at the
+# main path's reads and sweeps, and a CheckpointedAnneal of SA (CKPT_*).
+SHIM_SA_READS, SHIM_SA_SWEEPS = 64, 2000
+SHIM_SLICES, SHIM_ALPHA = 40, 1e-2
+SHIM_QMC_SWEEPS, SHIM_BATH_SWEEPS, SHIM_WC3_SWEEPS = 500, 200, 20
+SHIM_SVMC_READS, SHIM_SVMC_SWEEPS, SHIM_SVMC_TEMP = 256, 2000, 0.05
+SHIM_NOISY_READS, SHIM_NOISY_STEPS, SHIM_NOISY_SCALE = 64, 200, 0.1
+CKPT_READS, CKPT_SWEEPS, CKPT_SEGMENTS = 1280, 2000, 4
+# The studies (phase studies) at full width and reduced sweeps: each
+# module's constants while it runs, cluster_value at tau CV_TAU, the
+# crossover at L XO_L, P XO_SLICES, XO_CHAINS chains, XO_SWEEPS sweeps
+# after XO_BURN in chunks of XO_CHUNK, the ladder calibration's auto ladder
+# at N = 6400 (LADDER_RUNGS rungs), and examples/cluster_and_pt.py's run()
+# at EXAMPLE_CLUSTER_PT on the torus's generic form.
+STUDY_CONSTS = {
+    "pt_value": dict(RUNGS=48, SWEEPS=200, Q_RUNGS=48, Q_SLICES=20,
+                     Q_SWEEPS=50),
+    "pa_value": dict(REPLICAS=1024, SWEEPS=50),
+    "icm_value": dict(RUNGS=24, SEG=500, ICM_SEGS={12: 2}, REPS={12: 1},
+                      L_SIZES=(12,), SEEDS_BY_L={12: (0,)},
+                      CADENCES_BY_L={12: (2, 8, 32)}),
+    "cluster_value": dict(CHAINS=32, P=40),
+}
+CV_TAU = 200
+XO_L, XO_SLICES, XO_CHAINS, XO_SWEEPS, XO_BURN, XO_CHUNK = (32, 4, 16, 2048,
+                                                            256, 512)
+LADDER_RUNGS = 53
+EXAMPLE_CLUSTER_PT = dict(tau=200, chains=8, rungs=48, pt_sweeps=100,
+                          slices=8)
+# Their JAX CPU anchors (tools/compat_anchors.py <case>, the JAX shims,
+# studies and examples at these shapes on the CPU; PERF.md section 2):
+# key -> (mean, sd, floor), the range mean +/- max(floor, 5 sd). The shims'
+# sd is that of one read (of one run for the one-chain PIQMC shims, over 8
+# seeds); SVMC-TF's anchor ran 32 reads; their floor 0.01 is the main
+# path's (RANGES). A study arm's value is its eps (mean or least energy
+# per spin above e_gs = -sum |J|), sd over 3 JAX keys, floor 0.005: an
+# annealed eps is a value out of equilibrium, which depends on the order
+# of the updates, and the JAX package on the CPU shares that order with
+# neither its TPU kernels nor the port's (the port's card values sit up to
+# 0.0033 from these means, pa_value.opt_pa; cluster_value's four arms,
+# from one pre-annealed start, all 0.0009-0.0015 below). icm_value's value
+# is the cold-rung mean energy per spin of the second segment (2 keys;
+# floor 0.02: two keys understate the spread of the cold rung after 1000
+# sweeps at T = 0.3, the port's first card run read 0.008 from one
+# anchor). The crossover's are the mean m^2, tau_int and the Wolff flip
+# fraction, the ladder's the swap rate (8 keys each, no floor); the
+# examples' the energy per spin (8 seeds) and eps (3 runs), floor 0.01.
+# An equal-wall arm, whose tau this card's walls set, has no JAX run at
+# its shape (studies(): eps_value).
+API_ANCHORS = {
+    "Anneal": (-1.278756, 0.002921, 0.01),
+    "QuantumAnnealGlobal": (-1.268876, 0.001120, 0.01),
+    "DissipativeQuantumAnnealGlobal": (-1.268490, 0.001132, 0.01),
+    "DissipativeQuantumAnnealWC3": (-1.189597, 0.002788, 0.01),
+    "SpinVectorMonteCarloTFCompact": (-1.256581, 0.003243, 0.01),
+    "NoisyAnneal": (-1.255622, 0.003565, 0.01),
+    "NoisySVMCTF": (-1.228408, 0.004147, 0.01),
+    "pt_value.sampling_pt": (0.346552, 0.000712, 0.005),
+    "pt_value.sampling_quench": (0.372295, 0.000649, 0.005),
+    "pt_value.opt_pt": (0.332092, 0.002335, 0.005),
+    "pt_value.opt_sa_tau200": (0.331969, 0.002143, 0.005),
+    "pt_value.quantum_pt": (0.306428, 0.000947, 0.005),
+    "pt_value.quantum_piqmc_tau50": (0.317628, 0.000393, 0.005),
+    "pt_value.sampling_icm": (0.353212, 0.000403, 0.005),
+    "pt_value.opt_icm": (0.333662, 0.002103, 0.005),
+    "pa_value.sampling_pa": (0.350371, 0.000468, 0.005),
+    "pa_value.sampling_quench": (0.400619, 0.000237, 0.005),
+    "pa_value.sampling_pt_matched_21x48": (0.376233, 0.000620, 0.005),
+    "pa_value.opt_pa": (0.367513, 0.001399, 0.005),
+    "pa_value.opt_sa_tau50": (0.349635, 0.002614, 0.005),
+    "pa_value.opt_pt_matched_21x48": (0.346955, 0.000902, 0.005),
+    "cluster_value.baseline_tau200": (0.312449, 0.000170, 0.005),
+    "cluster_value.mixed_wcl_tau200": (0.312362, 0.000504, 0.005),
+    "cluster_value.bath_baseline_tau200": (0.309420, 0.000597, 0.005),
+    "cluster_value.bath_mixed_sw_tau200": (0.308760, 0.000222, 0.005),
+    "icm_value.icm_h2_L12_s0": (-1.765727, 0.000936, 0.02),
+    "icm_value.icm_h8_L12_s0": (-1.761623, 0.001771, 0.02),
+    "icm_value.icm_h32_L12_s0": (-1.760387, 0.000390, 0.02),
+    "icm_value.pt_L12_s0": (-1.763838, 0.001296, 0.02),
+    "crossover.critical_localglobal_L32": (0.455955, 0.006753, 0.0),
+    "crossover.critical_wolff1_L32": (0.456809, 0.001418, 0.0),
+    "crossover.critical_wolff4_L32": (0.453737, 0.004154, 0.0),
+    "crossover.cl_critical_local_L32": (0.456691, 0.007648, 0.0),
+    "crossover.cl_critical_wolff_L32": (0.457854, 0.001805, 0.0),
+    "crossover.cl_critical_sw_L32": (0.458704, 0.002249, 0.0),
+    "crossover.cl_critical_sw+local_L32": (0.459018, 0.001535, 0.0),
+    "crossover.critical_localglobal_L32.tau_int": (29.572468, 6.017145, 0.0),
+    "crossover.critical_wolff1_L32.tau_int": (2.374157, 0.072228, 0.0),
+    "crossover.critical_wolff1_L32.flip_frac": (0.456000, 0.001860, 0.0),
+    "crossover.critical_wolff4_L32.tau_int": (6.719087, 0.509179, 0.0),
+    "crossover.critical_wolff4_L32.flip_frac": (0.113074, 0.001280, 0.0),
+    "crossover.cl_critical_local_L32.tau_int": (30.939619, 3.500380, 0.0),
+    "crossover.cl_critical_wolff_L32.tau_int": (3.114916, 0.207490, 0.0),
+    "crossover.cl_critical_sw_L32.tau_int": (3.643554, 0.142580, 0.0),
+    "crossover.cl_critical_sw+local_L32.tau_int": (2.857295, 0.125396, 0.0),
+    "ladder_calibration.lattice_N6400": (0.430625, 0.007094, 0.0),
+    "examples.compat_migration.sa": (-1.176240, 0.010443, 0.01),
+    "examples.compat_migration.piqmc": (-1.197361, 0.004288, 0.01),
+    "examples.cluster_and_pt.sa": (0.339600, 0.000458, 0.01),
+    "examples.cluster_and_pt.sa_wolff": (0.325800, 0.000917, 0.01),
+    "examples.cluster_and_pt.sa_sw": (0.330967, 0.001159, 0.01),
+    "examples.cluster_and_pt.piqmc_sw": (0.374667, 0.002122, 0.01),
+    "examples.cluster_and_pt.pt": (0.339600, 0.000872, 0.01),
+    "examples.cluster_and_pt.icm": (0.351467, 0.001882, 0.01),
+    "examples.cluster_and_pt.quantum_pt": (0.344567, 0.005358, 0.01),
+    "examples.cluster_and_pt.pa": (0.323467, 0.001650, 0.01),
+}
 # kernel name -> (LAUNCHES key, source, TPU kernel it replaces)
 KERNELS = {
     "split_sa": ("sa_split", "montecarlosolvers_tpu_torch/csrc/split_sa.cu",
@@ -1711,20 +1864,14 @@ def generic_checks(dev, results, graphs):
 def neighbor_table_form(lat):
     """The IsingProblem compat.DissipativeQuantumAnneal builds for a
     lattice: IsingProblem.from_neighbor_table of its reference-format
-    (N, 4, 2) table, each site's right, then down bond, in row-major order
-    (tools/jax_bath_anchor.py builds the JAX one alike)."""
+    (N, 4, 2) table of `torus_triplets` (tools/jax_bath_anchor.py builds
+    the JAX one alike)."""
     from montecarlosolvers_tpu_torch.models.ising import (
         IsingProblem, build_neighbor_table)
 
-    L = lat.L
-    jr, jd = (x.cpu().numpy() for x in (lat.j_right, lat.j_down))
-    i = np.arange(L * L)
-    y, x = np.divmod(i, L)
-    rows = np.repeat(i, 2)
-    cols = np.stack([y * L + (x + 1) % L, ((y + 1) % L) * L + x], 1).ravel()
-    vals = np.stack([jr[y, x], jd[y, x]], 1).ravel()
     return IsingProblem.from_neighbor_table(
-        build_neighbor_table(L * L, rows, cols, vals, 4), device=lat.device)
+        build_neighbor_table(lat.L ** 2, *torus_triplets(lat), 4),
+        device=lat.device)
 
 
 def bath_problems(dev, graphs, torus, odd_torus):
@@ -3097,6 +3244,563 @@ def sampler_solves(dev, main_launches, torus, power, name):
             check(info["reached"], "pa_adaptive reached beta_end")
 
 
+# ------------------------------------------------ the API surface, studies
+
+
+@contextlib.contextmanager
+def no_plain_route():
+    """Count every wrapper call that takes its plain version (`_build.route`
+    answering "cpu") inside the block; yields the count box, which must
+    stay 0 on the card."""
+    from montecarlosolvers_tpu_torch.ops import _build
+
+    saved, box = _build.route, {"plain": 0}
+
+    def route(device, engine):
+        r = saved(device, engine)
+        box["plain"] += r == "cpu"
+        return r
+
+    _build.route = route
+    try:
+        yield box
+    finally:
+        _build.route = saved
+
+
+def torus_triplets(lat):
+    """(rows, cols, vals) of a periodic lattice: each site's right, then
+    down bond, in row-major order."""
+    Lt = lat.L
+    jr, jd = (x.double().cpu().numpy() for x in (lat.j_right, lat.j_down))
+    i = np.arange(Lt * Lt)
+    y, x = np.divmod(i, Lt)
+    rows = np.repeat(i, 2)
+    cols = np.stack([y * Lt + (x + 1) % Lt, ((y + 1) % Lt) * Lt + x],
+                    1).ravel()
+    return rows, cols, np.stack([jr[y, x], jd[y, x]], 1).ravel()
+
+
+def table_energy(nbs, s):
+    """Float64 energies of (..., N) spins on a reference-format table with
+    no fields."""
+    idx = nbs[:, :, 0].astype(np.int64)
+    val = nbs[:, :, 1]
+    s = np.asarray(s, np.float64)
+    return 0.5 * np.sum(s * np.sum(val * s[..., idx], axis=-1), axis=-1)
+
+
+def z_of(theta):
+    return np.where(np.cos(theta) >= 0, 1.0, -1.0)
+
+
+def anchored(key):
+    """The range of `key`: RANGES, else its compat anchor +/- max(floor, 5
+    sd)."""
+    if key in RANGES:
+        return RANGES[key]
+    m, sd, floor = API_ANCHORS[key]
+    return m - max(floor, 5 * sd), m + max(floor, 5 * sd)
+
+
+def driven(phase, key, run, want, main_launches, power, name, **rec):
+    """Drive run() -> (value or None, info) with the counts set to 0 just
+    before it and read just after; check its launches against `want` (a
+    dict: exact counts; a set: exactly these kernels), no plain route, and
+    the value inside anchored(key) when it is not None. Emits a record and
+    returns (value, info)."""
+    from montecarlosolvers_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with no_plain_route() as box:
+        value, info = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = launched_now()
+    for k, v in launched.items():
+        main_launches[k] += v
+    out = {"phase": phase, "path": key, "seconds": secs,
+           "launches": launched, "plain_routes": box["plain"], **rec,
+           "info": info, "gpu": name, "power_limit": power}
+    if value is not None:
+        lo, hi = anchored(key)
+        out.update(value=value, range=[lo, hi])
+    emit(out)
+    check(box["plain"] == 0, f"{key}: no plain route on the card")
+    got = set(launched) if isinstance(want, set) else launched
+    check(got == want, f"{key} launched {launched}, its route {want}")
+    if value is not None:
+        check(np.isfinite(value) and lo <= value <= hi,
+              f"{key} value {value} inside [{lo}, {hi}]")
+    return value, info
+
+
+def api_surface(dev, main_launches, torus, power, name):
+    """Phase api_surface: the compat shims at full width on the 80x80
+    torus's reference-format table, the CLI's solve in process, and a
+    CheckpointedAnneal stopped after 2 of 4 segments and resumed, bitwise
+    the unbroken run."""
+    import tempfile
+
+    from montecarlosolvers_tpu_torch import compat, schedules
+    from montecarlosolvers_tpu_torch.models.ising import build_neighbor_table
+
+    n = torus.nspins
+    rows, cols, vals = torus_triplets(torus)
+    nbs = build_neighbor_table(n, rows, cols, vals, 4)
+    colors = compat._problem(nbs).num_colors
+    xi = np.random.default_rng(0).normal(size=(SHIM_NOISY_STEPS,)
+                                         + nbs.shape[:2])
+    nbs4d = np.broadcast_to(nbs, (SHIM_NOISY_STEPS,) + nbs.shape).copy()
+    nbs4d[..., 1] *= 1.0 + SHIM_NOISY_SCALE * xi
+    lut = schedules.bath_lookuptable(SHIM_SLICES, SHIM_ALPHA,
+                                     device="cpu").numpy()
+    P = SHIM_SLICES
+
+    def spins(reads):
+        return np.random.default_rng(0).choice([-1.0, 1.0], size=(reads, n))
+
+    def angles(reads):
+        return np.random.default_rng(0).uniform(0, np.pi, size=(reads, n))
+
+    def sa_shim(fn, table, steps, reads):
+        def run():
+            s = spins(reads)
+            fn(np.linspace(3.0, 0.0, steps), 1, s, table, seed=0)
+            check(set(np.unique(s)) <= {-1.0, 1.0}, "shim spins +/-1")
+            return float(table_energy(nbs, s).mean()) / n, {"reads": reads}
+        return run
+
+    def svmc_shim(fn, table, steps, reads):
+        def run():
+            th = angles(reads)
+            a = np.linspace(3.0, 1e-8, steps)
+            fn(a, np.ones_like(a), 1, SHIM_SVMC_TEMP, th, table, seed=0)
+            check(th.min() >= 0 and th.max() <= np.pi + 1e-6,
+                  "shim angles in [0, pi]")
+            return (float(table_energy(nbs, z_of(th)).mean()) / n,
+                    {"reads": reads})
+        return run
+
+    def qmc_shim(fn, steps, bath):
+        def run():
+            c = np.tile(spins(1)[0], (P, 1)).T.copy()
+            a = np.linspace(3.0, 1e-8, steps)
+            args = (a, np.ones_like(a), 1, 1.0 / P) + ((lut,) if bath
+                                                       else ())
+            fn(*args, c, nbs, seed=0)
+            check(c.shape == (n, P) and set(np.unique(c)) <= {-1.0, 1.0},
+                  "shim confs (N, P) +/-1")
+            return (float(table_energy(nbs, c.T).mean()) / n,
+                    {"slices": P, "steps": steps})
+        return run
+
+    shims = (
+        ("Anneal", sa_shim(compat.Anneal, nbs, SHIM_SA_SWEEPS,
+                           SHIM_SA_READS), {"packed_sa": 1}),
+        ("QuantumAnnealGlobal", qmc_shim(compat.QuantumAnnealGlobal,
+                                         SHIM_QMC_SWEEPS, False),
+         {"generic_qmc": 1}),
+        ("DissipativeQuantumAnnealGlobal",
+         qmc_shim(compat.DissipativeQuantumAnnealGlobal, SHIM_BATH_SWEEPS,
+                  True), {"generic_qmc_bath": 1}),
+        ("DissipativeQuantumAnnealWC3",
+         qmc_shim(compat.DissipativeQuantumAnnealWC3, SHIM_WC3_SWEEPS,
+                  True), {"fk_line": SHIM_WC3_SWEEPS * colors}),
+        ("SpinVectorMonteCarloTFCompact",
+         svmc_shim(compat.SpinVectorMonteCarloTFCompact, nbs,
+                   SHIM_SVMC_SWEEPS, SHIM_SVMC_READS), {"packed_svmc": 1}),
+        ("NoisyAnneal", sa_shim(compat.NoisyAnneal, nbs4d, SHIM_NOISY_STEPS,
+                                SHIM_NOISY_READS), {"packed_sa_noisy": 1}),
+        ("NoisySVMCTF", svmc_shim(compat.NoisySVMCTF, nbs4d,
+                                  SHIM_NOISY_STEPS, SHIM_NOISY_READS),
+         {"packed_svmc_noisy": 1}),
+    )
+    for key, run, want in shims:
+        driven("api_surface", key, run, want, main_launches, power, name,
+               problem=f"gaussian_torus({L}, 0), reference table")
+
+    # the command line, in process, on the torus's triplet file, and the
+    # checkpoints, in a directory removed at the end
+    with tempfile.TemporaryDirectory(prefix="mcs_api_") as tmp:
+        api_files(dev, main_launches, torus, power, name, tmp, rows,
+                  cols, vals)
+
+
+def api_files(dev, main_launches, torus, power, name, tmp, rows, cols,
+              vals):
+    """api_surface's CLI solves and CheckpointedAnneal runs, their files
+    in `tmp`."""
+    import io
+
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.__main__ import main as cli
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.solvers import sa
+    from montecarlosolvers_tpu_torch.utils.checkpoint import (
+        CheckpointedAnneal)
+
+    n = torus.nspins
+    inst = str(Path(tmp) / "torus80.txt")
+    instances.save_triplets(inst, rows, cols, vals)
+
+    def cli_run(args, prob):
+        def run():
+            out = str(Path(tmp) / "samples.npz")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli(["solve", inst, "--out", out] + args)
+            check(rc == 0, "cli solve rc 0")
+            res = json.loads([ln for ln in buf.getvalue().splitlines()
+                              if ln.startswith("{")][-1])
+            data = np.load(out)
+            e = energy64(prob, data["samples"])
+            check(np.allclose(data["energies"], e, rtol=1e-5, atol=1e-3)
+                  and res["best_energy"] == float(data["energies"][0]),
+                  "cli energies: the npz's, a float64 recomputation's, "
+                  "the JSON's")
+            return float(e.mean()) / n, {k: v for k, v in res.items()
+                                         if not isinstance(v, dict)}
+        return run
+
+    gtorus = instances.gaussian_torus(L, 0, device=dev).to_generic()
+    cases = (
+        ("cli_sa", ["--method", "sa", "--lattice", str(L), "--num-reads",
+                    str(SA_READS), "--sweeps", str(SA_SWEEPS)], torus,
+         {"sa_split": 1}, "sa"),
+        ("cli_piqmc", ["--method", "piqmc", "--lattice", str(L),
+                       "--slices", str(QMC_SLICES), "--num-reads",
+                       str(QMC_READS), "--sweeps", str(QMC_SWEEPS)], torus,
+         {"sa_split": 1, "qmc_split": 1}, "piqmc_p40"),
+        ("cli_svmc", ["--method", "svmc", "--lattice", str(L),
+                      "--num-reads", str(SVMC_READS), "--sweeps",
+                      str(SVMC_SWEEPS)], torus, {"svmc_split": 1}, "svmc"),
+        ("cli_sa_generic", ["--method", "sa", "--num-reads", str(SA_READS),
+                            "--sweeps", str(SA_SWEEPS)], gtorus,
+         {"packed_sa": 1}, "sa_generic"),
+    )
+    for key, args, prob, want, rkey in cases:
+        RANGES[key] = RANGES[rkey]
+        driven("api_surface", key, cli_run(args, prob), want, main_launches,
+               power, name, argv=args)
+
+    # CheckpointedAnneal: 4 segments unbroken, and stopped after 2, resumed
+    sched = schedules.linear(3.0, 0.0, CKPT_SWEEPS, device=dev)
+    s0 = sa.random_state(torch.Generator().manual_seed(0), n,
+                         batch=(CKPT_READS,), device=dev)
+    seg = CKPT_SWEEPS // CKPT_SEGMENTS
+
+    def solver(part, state, gen):
+        return sa.anneal(torus, part, state, gen)
+
+    class Stop(Exception):
+        pass
+
+    def stopping(part, state, gen):
+        stopping.calls += 1
+        if stopping.calls > 2:
+            raise Stop
+        return solver(part, state, gen)
+    stopping.calls = 0
+
+    def unbroken():
+        full = CheckpointedAnneal(str(Path(tmp) / "a.npz"), segment=seg,
+                                  validate="ising").run(solver, sched, s0, 0)
+        unbroken.state = full
+        return (float(energy64(torus, full.cpu().numpy()).mean()) / n,
+                {"segments": CKPT_SEGMENTS})
+
+    RANGES["checkpoint_unbroken"] = RANGES["checkpoint_resumed"] = \
+        RANGES["sa"]
+    driven("api_surface", "checkpoint_unbroken", unbroken,
+           {"sa_split": CKPT_SEGMENTS}, main_launches, power, name,
+           reads=CKPT_READS, sweeps=CKPT_SWEEPS)
+    path = str(Path(tmp) / "b.npz")
+    try:
+        CheckpointedAnneal(path, segment=seg).run(stopping, sched, s0, 0)
+    except Stop:
+        pass
+    check(int(np.load(path)["seg_idx"]) == 2, "checkpoint stopped at 2")
+
+    def resumed():
+        out = CheckpointedAnneal(path, segment=seg).run(solver, sched, s0, 0)
+        check(torch.equal(out, unbroken.state),
+              "resumed checkpoint equals the unbroken run bitwise")
+        return (float(energy64(torus, out.cpu().numpy()).mean()) / n,
+                {"resumed_from": 2, "bitwise": True})
+
+    driven("api_surface", "checkpoint_resumed", resumed,
+           {"sa_split": CKPT_SEGMENTS - 2}, main_launches, power, name,
+           reads=CKPT_READS, sweeps=CKPT_SWEEPS)
+
+
+def study_recorder(phase, study, routes, keys, values, main_launches, power,
+                   name):
+    """A `record(name, fn)` for a study's arms: each arm driven (its
+    launches against its family's entry in `routes` and no plain route),
+    its record's keys against its family's in `keys` (the study's
+    RECORD_KEYS; `_common.by_family`), and values(arm, rec) -> None or
+    (value, (lo, hi)) checked. Returns (record, done)."""
+    from montecarlosolvers_tpu_torch.bench._common import by_family
+
+    done = {}
+
+    def record(arm, fn):
+        box = {}
+
+        def run():
+            box["rec"] = fn()
+            return None, None
+
+        driven(phase, f"{study}.{arm}", run, by_family(routes, arm),
+               main_launches, power, name)
+        rec = box["rec"]
+        check(set(rec) == by_family(keys, arm),
+              f"{study}.{arm} record keys {sorted(rec)}")
+        # a cluster move that flips nothing leaves every value the same
+        for k, v in rec.items():
+            if k.endswith("flip_frac"):
+                check(0 < v <= 1, f"{study}.{arm} {k} {v} in (0, 1]")
+        held = values(arm, rec)
+        emit({"phase": phase, "path": f"{study}.{arm}", "record": rec,
+              "range": None if held is None else held[1]})
+        if held is not None:
+            value, (lo, hi) = held
+            check(np.isfinite(value) and lo <= value <= hi,
+                  f"{study}.{arm} {value} inside [{lo}, {hi}]")
+        done[arm] = rec
+        return rec
+
+    return record, done
+
+
+def eps_value(arm, rec, prefix):
+    """(value, range) of a study arm's eps (eps_cold, eps_best or eps): an
+    arm of fixed shape around its JAX anchor prefix.arm; an equal-wall arm,
+    whose tau this card's walls set, between 0 and the upper end of its
+    fixed-tau sibling's range (it runs the sibling's protocol at tau' =
+    tau x the wall ratio, and tau' >= tau: the ratio is that of a costlier
+    arm's wall to the sibling's, so it must not end worse)."""
+    field = next(f for f in ("eps_cold", "eps_best", "eps") if f in rec)
+    key = f"{prefix}.{arm}"
+    if key in API_ANCHORS:
+        return rec[field], anchored(key)
+    check("_equalwall" in arm, f"{key} has a JAX anchor")
+    base = f"{prefix}.{arm.split('_equalwall')[0]}"
+    sibling = [k for k in API_ANCHORS
+               if k.startswith(base) and "_equalwall" not in k]
+    check(len(sibling) == 1, f"{key}: one fixed-tau sibling {sibling}")
+    return rec[field], (0.0, anchored(sibling[0])[1])
+
+
+def studies(dev, main_launches, torus, power, name):
+    """Phase studies: each value study's arms at full width and reduced
+    sweeps on the 80x80 torus (e_gs = -sum |J|, a certified lower bound),
+    icm_value on random_3d_lattice(12, 0), the crossover on the 32 x 32
+    ferromagnet, the ladder calibration at N = 6400, and the two new
+    examples."""
+    from montecarlosolvers_tpu_torch.bench import (cluster_crossover,
+                                                   cluster_value, icm_value,
+                                                   ladder_calibration,
+                                                   pa_value, pt_value)
+    from montecarlosolvers_tpu_torch.bench._common import generator
+    from montecarlosolvers_tpu_torch.examples import (cluster_and_pt,
+                                                      compat_migration)
+    from montecarlosolvers_tpu_torch.models import instances
+
+    e_gs = -float(torus.j_right.abs().sum() + torus.j_down.abs().sum())
+    chain = {"sa_split_chain", "energy_bits"}
+    collect = {"sa_split_phased", "sa_split_energy"}
+    saved = {}
+
+    def setconst(mod, **kw):
+        for k, v in kw.items():
+            saved.setdefault((mod, k), getattr(mod, k))
+            setattr(mod, k, v)
+
+    try:
+        # --- pt_value
+        setconst(pt_value, **STUDY_CONSTS["pt_value"])
+        pt_routes = {"sampling_pt": chain, "sampling_quench": collect,
+                     "opt_pt": chain, "opt_sa": {"sa_split"},
+                     "quantum_pt": {"qmc_split_chain", "qmc_split"},
+                     "quantum_piqmc": {"qmc_split"},
+                     "sampling_icm": chain | {"houdayer"},
+                     "opt_icm": chain | {"houdayer"}}
+        record, done = study_recorder(
+            "studies", "pt_value", pt_routes, pt_value.RECORD_KEYS,
+            lambda a, r: eps_value(a, r, "pt_value"), main_launches, power,
+            name)
+        for arms_fn, seed in ((pt_value.sampling_arms, 1),
+                              (pt_value.optimization_arms, 2),
+                              (pt_value.quantum_arms, 3),
+                              (pt_value.icm_arms, 4)):
+            arms_fn(torus, e_gs, generator(dev, 11, seed), done, record)
+        check(len(done) == 11, f"pt_value ran {sorted(done)}")
+
+        # --- pa_value
+        setconst(pa_value, **STUDY_CONSTS["pa_value"])
+        pa_routes = {"sampling_pa": {"sa_split", "energy_bits"},
+                     "opt_pa": {"sa_split", "energy_bits"},
+                     "sampling_quench": collect, "opt_sa": {"sa_split"},
+                     "sampling_pt_matched": chain, "opt_pt_matched": chain}
+        record, done = study_recorder(
+            "studies", "pa_value", pa_routes, pa_value.RECORD_KEYS,
+            lambda a, r: eps_value(a, r, "pa_value"), main_launches, power,
+            name)
+        pa_value.sampling_arms(torus, e_gs, generator(dev, 23, 1), done,
+                               record)
+        pa_value.optimization_arms(torus, e_gs, generator(dev, 23, 2), done,
+                                   record)
+        check(len(done) == 8, f"pa_value ran {sorted(done)}")
+
+        # --- icm_value: L = 12, one seed, two segments
+        setconst(icm_value, **STUDY_CONSTS["icm_value"])
+        icm_l = 12
+        routes_icm = {"tune": {"packed_sa_chain"},
+                      "icm": {"packed_sa_chain", "houdayer"},
+                      "pt": {"packed_sa_chain"}}
+
+        def icm_values(arm, rec):
+            if arm.startswith("tune"):
+                check(len(rec["temps"]) == icm_value.RUNGS, "tuned ladder")
+                return None
+            segs = rec["segments"]
+            check(all(set(s) == icm_value.SEGMENT_KEYS for s in segs),
+                  f"{arm} segment keys")
+            check(all((s["h_frac"] > 0) == arm.startswith("icm")
+                      for s in segs), f"{arm} Houdayer flips only in ICM")
+            return (segs[min(1, len(segs) - 1)]["e_cold"] / icm_l ** 3,
+                    anchored(f"icm_value.{arm}"))
+
+        record, done = study_recorder(
+            "studies", "icm_value", routes_icm, icm_value.RECORD_KEYS,
+            icm_values, main_launches, power, name)
+        icm_value.run_instance(icm_l, 0, generator(dev, 5, 100 * icm_l),
+                               record)
+        verdict = icm_value.summarize(done)
+        emit({"phase": "studies", "path": "icm_value.summarize",
+              "verdicts": verdict})
+        check(set(verdict) == {f"L{icm_l}_h{h}" for h in (2, 8, 32)},
+              "icm_value verdicts")
+
+        # --- cluster_value: 32 chains, P = 40, with and without the bath
+        setconst(cluster_value, **STUDY_CONSTS["cluster_value"])
+        cv_routes = {"baseline": {"qmc_split"},
+                     "mixed_wcl": {"qmc_split", "fk_wolff"},
+                     "bath_baseline": {"qmc_bath_split"},
+                     "bath_mixed_sw": {"qmc_bath_split", "fk_line"}}
+        record, done = study_recorder(
+            "studies", "cluster_value", cv_routes, cluster_value.RECORD_KEYS,
+            lambda a, r: eps_value(a, r, "cluster_value"), main_launches,
+            power, name)
+        cluster_value.arms(torus, e_gs, generator(dev, 0), record,
+                           taus=(CV_TAU,))
+        check(len(done) == 6, f"cluster_value ran {sorted(done)}")
+
+        # --- cluster_crossover: L = 32, P = 4, 16 chains, and classical.
+        # Every dynamics samples the same m^2 (driven's value), so each
+        # arm's tau_int and a Wolff arm's flip fraction are held to their
+        # anchors too, and the cluster moves' tau_int must be below the
+        # local dynamics'
+        fm = cluster_crossover.fm_lattice(XO_L, device=dev)
+        n_all = XO_BURN + XO_SWEEPS
+        tau = {}
+
+        def crossover_arm(key, run, want):
+            def go():
+                out = dict(zip(("tau_int_sweeps", "wall_per_sweep_s",
+                                "mean_m2", "flip_frac"), run()))
+                return out["mean_m2"], out
+
+            _, out = driven("studies", key, go, want, main_launches, power,
+                            name)
+            tau[key] = out["tau_int_sweeps"]
+            for akey, field in (("tau_int", "tau_int_sweeps"),
+                                ("flip_frac", "flip_frac")):
+                if f"{key}.{akey}" in API_ANCHORS:
+                    lo, hi = anchored(f"{key}.{akey}")
+                    check(lo <= out[field] <= hi,
+                          f"{key} {field} {out[field]} inside [{lo}, {hi}]")
+            if "fk_wolff" in want and "flip_frac" in out:
+                check(out["flip_frac"] > 0, f"{key} Wolff flips spins")
+
+        q, c = "crossover.critical_", "crossover.cl_critical_"
+        for arm, we in (("localglobal", 0), ("wolff1", 1), ("wolff4", 4)):
+            want = {"generic_qmc": n_all}
+            if we:
+                want["fk_wolff"] = -(-n_all // we)
+            crossover_arm(f"{q}{arm}_L{XO_L}", lambda we=we: (
+                cluster_crossover.run_arm(
+                    fm, cluster_crossover.T_C, 0.1, XO_CHAINS, XO_SWEEPS,
+                    generator(dev, 0, we), wolff_every=we, P=XO_SLICES,
+                    chunk=XO_CHUNK, burn=XO_BURN)), want)
+        moves = {"local": {"packed_sa": n_all}, "wolff": {"fk_wolff": n_all},
+                 "sw": {"fk_label": n_all},
+                 "sw+local": {"packed_sa": n_all, "fk_label": n_all}}
+        for move, want in moves.items():
+            crossover_arm(f"{c}{move}_L{XO_L}", lambda move=move: (
+                cluster_crossover.run_classical_arm(
+                    fm, cluster_crossover.T_C, XO_CHAINS, XO_SWEEPS,
+                    generator(dev, 42, len(move)), move=move,
+                    chunk=XO_CHUNK, burn=XO_BURN)), want)
+        for fast, slow in ((f"{q}wolff1", f"{q}localglobal"),
+                           (f"{q}wolff4", f"{q}localglobal"),
+                           (f"{c}wolff", f"{c}local"), (f"{c}sw", f"{c}local"),
+                           (f"{c}sw+local", f"{c}local")):
+            f, s_ = tau[f"{fast}_L{XO_L}"], tau[f"{slow}_L{XO_L}"]
+            check(f < s_, f"tau_int {fast} {f} below {slow} {s_}")
+
+        # --- ladder_calibration at N = 6400
+        lat80 = instances.random_2d_lattice(L, rng=L, lattice=True,
+                                            device=dev)[0]
+
+        def ladder():
+            out = ladder_calibration._measure(lat80, L * L,
+                                              generator(dev, 21, L))
+            check(out["rungs"] == LADDER_RUNGS, f"auto ladder {out}")
+            return out["swap_rate"], out
+
+        driven("studies", "ladder_calibration.lattice_N6400", ladder, chain,
+               main_launches, power, name)
+
+        # --- the two new examples
+        def migration():
+            out = compat_migration.run(device=dev, verbose=False)
+            check(out["bound"] <= out["sa_energy"] < 0, "migration SA")
+            RANGES["examples.compat_migration.piqmc"] = anchored(
+                "examples.compat_migration.piqmc")
+            lo, hi = RANGES["examples.compat_migration.piqmc"]
+            value = out["piqmc_best_energy"] / out["nspins"]
+            check(lo <= value <= hi, f"migration PIQMC {value} inside "
+                                     f"[{lo}, {hi}]")
+            return out["sa_energy"] / out["nspins"], out
+
+        driven("studies", "examples.compat_migration.sa", migration,
+               {"packed_sa": 2, "generic_qmc": 1}, main_launches, power,
+               name)
+
+        gtorus = torus.to_generic()
+
+        def cluster_pt():
+            out = cluster_and_pt.run(gtorus, e_gs, verbose=False,
+                                     **EXAMPLE_CLUSTER_PT)
+            for k, v in out.items():
+                eps = v["eps_res"] if isinstance(v, dict) else v
+                lo, hi = anchored(f"examples.cluster_and_pt.{k}")
+                check(np.isfinite(eps) and lo <= eps <= hi,
+                      f"cluster_and_pt {k} {eps} inside [{lo}, {hi}]")
+            return None, out
+
+        driven("studies", "examples.cluster_and_pt", cluster_pt,
+               {"packed_sa", "fk_wolff", "fk_label", "packed_sa_chain",
+                "houdayer", "generic_qmc_chain"}, main_launches, power, name)
+    finally:
+        for (mod, k), v in saved.items():
+            setattr(mod, k, v)
+
+
 def main():
     t_script = time.perf_counter()
     phase_seconds = {}
@@ -3810,6 +4514,12 @@ def main():
                                  f"{needs}")
     # ---- the samplers at full width, launch counts read around each
     sampler_solves(dev, main_launches, torus, power, name)
+    phase_seconds["sampler_solves"] = time.perf_counter() - t_script
+    # ---- the API surface and the studies, the counts read around each run
+    api_surface(dev, main_launches, torus, power, name)
+    phase_seconds["api_surface"] = time.perf_counter() - t_script
+    studies(dev, main_launches, torus, power, name)
+    phase_seconds["studies"] = time.perf_counter() - t_script
     emit({"phase": "main_path", "launches": main_launches})
     phase_seconds["main_path"] = time.perf_counter() - t_script
 

@@ -39,11 +39,19 @@ through the packed kernels. The cluster updates (`sa/qmc.anneal_wolff`,
 `anneal_sw`, `qmc.anneal_sw_bath`, `ops/cluster_kernels.py`) and the
 samplers (`solvers/pt.py`: parallel tempering, quantum PT, ICM;
 `solvers/pa.py`: population annealing, classical and quantum, fixed and
-adaptive; solve's "pt", "icm", "pa" and "paq") run too. The parallel
-layer is not ported yet: a call that needs it raises NotImplementedError
-naming its ROADMAP.md item, and so does a call the JAX package does not
-run on a DenseProblem (`qmc.anneal`, `svmc.anneal`, solve's "piqmc",
-"svmc", "paq").
+adaptive; solve's "pt", "icm", "pa" and "paq") run too.
+
+The API surface of the JAX package is here as well: the reference-name
+shims of `compat.py` (in-place NumPy calls on reference-format neighbor
+tables), the command line `python -m montecarlosolvers_tpu_torch solve |
+bench` (`__main__.py`), `utils/` (observables, resumable checkpointed
+anneals, flip counters and torch.profiler traces), the value studies of
+`bench/` (`pt_value`, `pa_value`, `icm_value`, `cluster_value`,
+`cluster_crossover`, `ladder_calibration`) and the four drivers of
+`examples/`. The parallel layer is not ported yet: a call that needs it
+raises NotImplementedError naming its ROADMAP.md item, and so does a call
+the JAX package does not run on a DenseProblem (`qmc.anneal`,
+`svmc.anneal`, solve's "piqmc", "svmc", "paq").
 
 Every function that takes `device=None` builds on the CUDA card and raises
 on a host without one (`_device.resolve`); the solvers run on the
@@ -59,7 +67,13 @@ This package imports torch and numpy and never jax.
 
 from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.models.dense import DenseProblem
-from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+from montecarlosolvers_tpu_torch.models.ising import (
+    IsingProblem,
+    bits2spins,
+    classical_ising_energy,
+    generate_neighbors,
+    spins2bits,
+)
 from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 from montecarlosolvers_tpu_torch.solvers import sa, qmc, svmc, pt
 from montecarlosolvers_tpu_torch.solvers.api import SampleSet, solve
@@ -67,4 +81,5 @@ from montecarlosolvers_tpu_torch.solvers.api import SampleSet, solve
 __version__ = "0.1.0"
 
 __all__ = ["DenseProblem", "IsingProblem", "LatticeProblem", "SampleSet",
-           "pt", "qmc", "sa", "schedules", "solve", "svmc"]
+           "bits2spins", "classical_ising_energy", "generate_neighbors",
+           "pt", "qmc", "sa", "schedules", "solve", "spins2bits", "svmc"]

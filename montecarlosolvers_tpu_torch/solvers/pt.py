@@ -238,8 +238,22 @@ def sample_piqmc(problem, gammas, temp, confs, generator, nsweeps, b=1.0,
     return out
 
 
+def _check_grid_bonds(grid_bonds, nspins):
+    """Raise ValueError unless `grid_bonds` is a tuple of k same-shape bond
+    masks over a k-D grid of `nspins` sites (`cluster.grid_bonds_from_edges`
+    on the problem's edges)."""
+    shapes = [tuple(np.shape(m)) for m in grid_bonds]
+    if (not shapes or any(s != shapes[0] for s in shapes)
+            or len(shapes[0]) != len(shapes)
+            or int(np.prod(shapes[0])) != nspins):
+        raise ValueError(
+            f"grid_bonds must be one mask an axis of a grid of {nspins} "
+            f"sites, got shapes {shapes}")
+
+
 def sample_icm(problem, temps, states, generator, nsweeps, swap_every=1,
-               houdayer_every=2, collect_energy=False, per_pair_rates=False):
+               houdayer_every=2, collect_energy=False, per_pair_rates=False,
+               grid_bonds=None):
     """Isoenergetic cluster moves + parallel tempering (JAX `sample_icm` /
     `_icm_impl`, pt.py:302-481): two PT ladders side by side, and every
     `houdayer_every` sweeps each same-rung replica pair exchanges energy by
@@ -257,11 +271,15 @@ def sample_icm(problem, temps, states, generator, nsweeps, swap_every=1,
     order and repacked around each move, as the JAX sampler unpacks its
     halves (pt.py:435-444); any other problem sweeps on the generic form
     itself (pt.py:393-399: an odd-L lattice on its IsingProblem's proper
-    coloring, not the masked checkerboard `sample` sweeps). The JAX
-    `grid_bonds=` option is not taken: it picks a faster labeler of the
-    same components (the grid form labels as the generic one, tests/
-    test_torch_houdayer.py), and the port's union-find labels any graph in
-    one pass, so there is no choice left to make.
+    coloring, not the masked checkerboard `sample` sweeps).
+
+    grid_bonds: the JAX option (pt.py:302-304), per-axis bond masks of a
+    grid instance (`ops/cluster.py::grid_bonds_from_edges`). It is taken
+    and its shape checked against the problem (ValueError), and nothing
+    else: in JAX it picks a faster labeler of the same components (the
+    grid form labels as the generic one, tests/test_torch_houdayer.py),
+    and the port's union-find labels any graph in one pass, so a run with
+    the masks equals the same run without them bitwise.
 
     Returns (states (..., 2, M, N) rung-ordered, swap_rate, houdayer_flip_
     frac[, energies (nsweeps, ..., 2, M)][, pair_rates (..., M-1), the
@@ -269,6 +287,8 @@ def sample_icm(problem, temps, states, generator, nsweeps, swap_every=1,
     if isinstance(problem, DenseProblem):
         raise ValueError("sample_icm needs a sparse/lattice problem")
     _roadmap.require_problem(problem)
+    if grid_bonds is not None:
+        _check_grid_bonds(grid_bonds, problem.nspins)
     dev = problem.device
     temps = torch.as_tensor(temps, dtype=torch.float32, device=dev)
     M = temps.shape[0]
@@ -353,7 +373,7 @@ def tune_ladder(problem, temps, generator, rounds=4, sweeps_per_round=200,
     temps = np.asarray(torch.as_tensor(temps).cpu(), dtype=np.float64)
     asc = temps[0] < temps[-1]
     if not asc:
-        temps = temps[::-1]
+        temps = temps[::-1].copy()
     M = temps.shape[0]
     bits = torch.randint(0, 2, (M, problem.nspins), generator=generator,
                          device=generator.device)
@@ -383,7 +403,7 @@ def tune_ladder_piqmc(problem, gammas, temp, generator, rounds=4,
     gammas = np.asarray(torch.as_tensor(gammas).cpu(), dtype=np.float64)
     asc = gammas[0] < gammas[-1]
     if not asc:
-        gammas = gammas[::-1]
+        gammas = gammas[::-1].copy()
     M = gammas.shape[0]
     if confs is None:
         if slices is None:

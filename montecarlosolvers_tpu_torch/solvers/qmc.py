@@ -72,6 +72,12 @@ def replicate(spins, slices):
     return spins[..., None, :].expand(shape).contiguous()
 
 
+def slice_energies(problem, confs):
+    """Classical Ising energy of every Trotter slice: (..., P, N) ->
+    (..., P) (JAX `slice_energies`, solvers/qmc.py:48)."""
+    return problem.energy(confs)
+
+
 def best_slice_energy(problem, confs):
     """min over slices of the classical energy — the benchmark readout
     (examples/santoro80.py:290-296)."""

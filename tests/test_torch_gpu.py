@@ -64,7 +64,9 @@ versions on a row table and a table that changes every step (1000 chains
 for A's ragged last word, the 9 x 9 torus's improper checkerboard for the
 packed kernels), A and B split a run at step0, the Houdayer kernel equals
 its plain version, and pt.sample, sample_icm and pa.sample equal their
-plain route bitwise with their routes' launches.
+plain route bitwise with their routes' launches. The compat shims on the
+card equal their plain route bitwise, with their routes' launches, and a
+CheckpointedAnneal resumed on the card equals the unbroken run bitwise.
 """
 
 import contextlib
@@ -1613,3 +1615,96 @@ def test_samplers_equal_their_plain_route_and_launch_their_kernels(cuda):
         torch.cuda.synchronize()
         assert launched == want
         assert all(torch.equal(a, b) for a, b in zip(kernel, plain))
+
+
+def _compat_cases(rng):
+    """(name, call(nbs, seed, state) in place, a fresh state, the launches
+    of its route) of the compat shims on an 8 x 8 open glass's table."""
+    from montecarlosolvers_tpu_torch import compat
+
+    _, (rows, cols, vals) = instances.random_2d_lattice(8, rng=3,
+                                                        device="cpu")
+    nbs = compat.GenerateNeighbors(
+        64, instances.dense_matrix(64, rows, cols, vals), 4)
+    steps, P = 12, 4
+    A, B = np.linspace(2.0, 1e-8, steps), np.ones(steps)
+    lut = schedules.bath_lookuptable(P, 0.05, device="cpu").numpy()
+    nbs4d = np.broadcast_to(nbs, (steps,) + nbs.shape).copy()
+    nbs4d[..., 1] *= 1.0 + 0.1 * rng.normal(size=nbs4d.shape[:-1])
+    spins = lambda: rng.choice([-1.0, 1.0], size=(5, 64))  # noqa: E731
+    confs = lambda: rng.choice([-1.0, 1.0], size=(64, P))  # noqa: E731
+    angles = lambda: rng.uniform(0, np.pi, size=(5, 64))  # noqa: E731
+    colors = compat._problem(nbs, "cpu").num_colors
+    return nbs, [
+        ("Anneal", lambda s, seed, x: compat.Anneal(
+            np.linspace(3, 0.1, steps), 1, x, nbs, seed=seed), spins,
+         {"packed_sa": 1}),
+        ("NoisyAnneal", lambda s, seed, x: compat.NoisyAnneal(
+            np.linspace(3, 0.1, steps), 1, x, nbs4d, seed=seed), spins,
+         {"packed_sa_noisy": 1}),
+        ("QuantumAnnealGlobal", lambda s, seed, x: compat.QuantumAnnealGlobal(
+            A, B, 1, 0.25, x, nbs, seed=seed), confs, {"generic_qmc": 1}),
+        ("DissipativeQuantumAnnealGlobal",
+         lambda s, seed, x: compat.DissipativeQuantumAnnealGlobal(
+             A, B, 1, 0.25, lut, x, nbs, seed=seed), confs,
+         {"generic_qmc_bath": 1}),
+        ("QuantumAnnealWCL", lambda s, seed, x: compat.QuantumAnnealWCL(
+            A, B, 1, 0.25, x, nbs, seed=seed), confs, {"fk_wolff": 1}),
+        ("DissipativeQuantumAnnealWC3",
+         lambda s, seed, x: compat.DissipativeQuantumAnnealWC3(
+             A, B, 1, 0.25, lut, x, nbs, seed=seed), confs,
+         {"fk_line": steps * colors}),
+        ("SpinVectorMonteCarloTFCompact",
+         lambda s, seed, x: compat.SpinVectorMonteCarloTFCompact(
+             A, B, 1, 0.1, x, nbs, seed=seed), angles, {"packed_svmc": 1}),
+        ("NoisySVMCTF", lambda s, seed, x: compat.NoisySVMCTF(
+            A, B, 1, 0.1, x, nbs4d, seed=seed), angles,
+         {"packed_svmc_noisy": 1}),
+    ]
+
+
+def test_compat_shims_equal_their_plain_route_on_the_card(cuda):
+    """Each shim, with no device given, runs on the card on its route's
+    kernels, and writes the same result in place as the same call on the
+    plain versions (gibbs_check.plain_route) from the same seed."""
+    rng = np.random.default_rng(0)
+    _, cases = _compat_cases(rng)
+    for name, call, state, want in cases:
+        x0 = state()
+        a, b = x0.copy(), x0.copy()
+        _build.reset_launches()
+        call(None, 17, a)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        with gibbs.plain_route():
+            call(None, 17, b)
+        assert launched == want, name
+        assert np.array_equal(a, b), name
+        assert not np.array_equal(a, x0), name
+
+
+def test_checkpointed_anneal_resumes_bitwise_on_the_card(cuda, tmp_path):
+    from montecarlosolvers_tpu_torch.utils.checkpoint import (
+        CheckpointedAnneal, generator)
+
+    lat = instances.gaussian_torus(16, 0, device=cuda)
+    s0 = sa.random_state(torch.Generator().manual_seed(0), 256,
+                         batch=(40,), device=cuda)
+    sched = schedules.linear(3.0, 0.1, 120, device=cuda)
+
+    def solver(seg, state, gen):
+        return sa.anneal(lat, seg, state, gen)
+
+    _build.reset_launches()
+    full = CheckpointedAnneal(str(tmp_path / "a.npz"), segment=30).run(
+        solver, sched, s0, seed=4)
+    assert _build.LAUNCHES["sa_split"] == 4
+    ck = CheckpointedAnneal(str(tmp_path / "b.npz"), segment=30)
+    state = s0
+    for i in range(2):
+        state = solver(sched[i * 30:(i + 1) * 30], state,
+                       generator(cuda, 4, i))
+        ck._save(i + 1, state)
+    resumed = ck.run(solver, sched, s0, seed=4)
+    assert resumed.device.type == "cuda"
+    assert torch.equal(full, resumed)
