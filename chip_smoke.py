@@ -398,6 +398,32 @@ Phases, each printed as one JSON line:
   examples            examples/dissipative_qa.py's run() at alpha = 0 and
                       0.01, tau = 1000, P = 20, 16 chains: kernels A, B and
                       5 once each, energies in range
+  parallel            the parallel layer's chain and Trotter axes
+                      (parallel/): (a) each kernel of a chain-sharded solve
+                      (A and packed SA at 1280 chains, 6 at 1280 on the
+                      81x81 torus, B, 5 sequential and colored, generic
+                      PIQMC and generic bath at P = 40, 3 at P = 5, 32
+                      chains; the per-phase kernels of A, B and 5) runs a
+                      block of chains with its chain0 and equals those rows
+                      of the whole batch's run, 0 mismatched spins; (b) the
+                      shard kernels S1-S4 (ops/shard_kernels.py) on rank 1's
+                      slab of 4 at 80x80, P = 40, 32 chains (the generic
+                      form likewise) against their plain versions, timed
+                      beside them and their bounds; (c) a one-rank NCCL
+                      mesh: chain-sharded SA and PIQMC equal the unsharded
+                      runs, and the Trotter-sharded anneals (PARALLEL_STEPS
+                      steps, line moves off and on: the launches of S1-S4
+                      in the kernels line) equal kernel B's and the generic
+                      kernel's; their ms a sweep beside kernel B's cluster
+                      and per-phase routes and the exchange's share; (d)
+                      PARALLEL_RANKS gloo ranks sharing the card run both
+                      Trotter-sharded anneals at replica 4: bitwise the
+                      single-device kernels without line moves, within
+                      PARALLEL_ANCHOR of their mean best-slice energy with
+                      them and at most PARALLEL_LINES differing lines, each
+                      rank's launches exact; (e)
+                      parallel.dryrun.dryrun_multichip on PARALLEL_RANKS
+                      ranks
 then a line {"kernels": [...]} (the launches of the main path's solves,
 the sampler solves and the api_surface and studies runs unless said: the
 seven kernels, then their per-phase kernels, which only the studies'
@@ -413,7 +439,9 @@ kernels' table variant and the three cluster kernels, whose launches are
 the main path's, then the per-chain instantiations of kernels A and B
 (and their per-phase kernels, which no main-path solve launches), of the
 packed SA, generic PIQMC and dense kernels, and the Houdayer kernel, whose
-launches are the sampler solves' and the studies'),
+launches are the sampler solves' and the studies', then the shard kernels
+S1-S4 of the Trotter-sharded engines, whose launches are the parallel
+phase's one-rank sharded anneals),
 a line {"phase": "done", "seconds": ..., "phase_seconds": {...}} (the
 seconds from the start at the end of each phase), and last
 {"ok": true, "device": {...}}.
@@ -915,6 +943,41 @@ SAMPLER_KERNELS = {
                           "montecarlosolvers_tpu/ops/split.py:197"),
 }
 KERNELS.update(SAMPLER_KERNELS)
+# The parallel layer's shard kernels (ops/shard_kernels.py), which replace
+# no TPU kernel but the XLA code the JAX package's Trotter-sharded engines
+# run inside shard_map; their launches are the one-rank mesh's sharded
+# anneals of the parallel phase
+PARALLEL_KERNELS = {
+    "shard_phase": ("shard_phase", _SRC + "split_qmc.cu",
+                    "montecarlosolvers_tpu/parallel/trotter.py:358"),
+    "shard_line_part": ("shard_line_part", _SRC + "split_qmc.cu",
+                        "montecarlosolvers_tpu/parallel/trotter.py:386"),
+    "shard_line_accept": ("shard_line_accept", _SRC + "split_qmc.cu",
+                          "montecarlosolvers_tpu/parallel/trotter.py:386"),
+    "generic_shard_phase": ("generic_shard_phase", _SRC + "generic_qmc.cu",
+                            "montecarlosolvers_tpu/parallel/trotter.py:115"),
+    "generic_shard_line_part": (
+        "generic_shard_line_part", _SRC + "generic_qmc.cu",
+        "montecarlosolvers_tpu/parallel/trotter.py:233"),
+    "generic_shard_line_accept": (
+        "generic_shard_line_accept", _SRC + "generic_qmc.cu",
+        "montecarlosolvers_tpu/parallel/trotter.py:233"),
+}
+KERNELS.update(PARALLEL_KERNELS)
+# the parallel phase: gloo ranks sharing the card, steps of its sharded
+# anneals, the taus of its slope timings, and the largest difference of the
+# mean best-slice energy per spin between a sharded anneal with line moves
+# and the single-device kernel's from the same seed (the main path's
+# ranges' half-width)
+PARALLEL_RANKS, PARALLEL_STEPS, PARALLEL_TAUS = 4, 60, (20, 60)
+PARALLEL_ANCHOR = 0.0105
+# ... and the most lines (chain, site) whose spins may differ there: one
+# chain's (6400 of the 204800 at 80x80, 32 chains). The ranks add their
+# parts of a line's dE in another order than kernel B adds its rows, so a
+# float32 rounding may turn one near-tie decision, and that chain's
+# trajectory parts from there on; a wrong or lost sum parts every chain.
+# Measured: 0 on every run
+PARALLEL_LINES = 80 * 80
 # (a): chains of the exact-distribution samplers, and the largest
 # |mean - exact| (or kernel - plain) they may show, in standard errors of
 # the chain means (gibbs_check.z_scores: at most 1 state in about 3 million
@@ -1056,19 +1119,21 @@ def angle_diffs(xs, ys):
             "max_abs_err": max(float(e.max()) for e in d)}
 
 
-def slope_ms(run, taus, trials):
+def slope_ms(run, taus, trials, sync=None):
     """Median pairwise slope of the best-of-`trials` wall time of run(tau)
-    (ending in a synchronize) over the tau points, in ms per sweep;
-    fixed overhead cancels in the slope (bench.py::_measure_rate)."""
+    (ending in a synchronize, `sync`: the card's by default) over the tau
+    points, in ms per sweep; fixed overhead cancels in the slope
+    (bench.py::_measure_rate)."""
+    sync = sync or torch.cuda.synchronize
     best = {}
     for tau in taus:
         run(tau)  # warm
         times = []
         for _ in range(trials):
-            torch.cuda.synchronize()
+            sync()
             t0 = time.perf_counter()
             run(tau)
-            torch.cuda.synchronize()
+            sync()
             times.append(time.perf_counter() - t0)
         best[tau] = min(times)
     ts = sorted(best)
@@ -3801,6 +3866,501 @@ def studies(dev, main_launches, torus, power, name):
             setattr(mod, k, v)
 
 
+def shard_bound(kname, chains, rows, sites, graph=None, updated=None,
+                block=None):
+    """(least ms of one launch of shard kernel `kname`, "bytes" or
+    "operations"): the work of kernel B's (split) or the generic PIQMC
+    kernel's (generic) update or line move on a slab of `rows` quarter rows
+    or slices of `sites` sites a row, `chains` chains, by `ops_per_sweep`'s
+    counts, plus the halo rows' bytes. graph: (degree, maxnb) of a generic
+    form; updated: the sites a generic phase updates; block: the sites of
+    the generic line color."""
+    field = SPIN_FIELD if graph is None else graph[0]
+    local = field + 4 + METROPOLIS
+    slab = chains * rows * sites * 4
+    tables = (5 * sites * 4 if graph is None
+              else sites * (graph[1] * 8 + 8))
+    row = chains * sites * 4
+    f32, sfu, nbytes = {
+        # a phase: two quarters' updates; the four quarters read, the two
+        # updated ones written, the two halo rows read
+        "shard_phase": (local * chains * 2 * rows * sites,
+                        chains * 2 * rows * sites,
+                        6 * slab + 2 * row + tables),
+        # two quarters' field sums a line: field and h (field + 1) and the
+        # running sum (1) a row; four quarters read, the part written
+        "shard_line_part": ((field + 2) * 2 * rows * chains * sites, 0,
+                            4 * slab + row + tables),
+        # a line: bc * total and Metropolis; the total read, s1 and s2 read
+        # and written
+        "shard_line_accept": ((1 + METROPOLIS) * chains * sites,
+                              chains * sites, row + 4 * slab),
+        # a phase: its updated sites; the slab read, the updated sites
+        # written, both halo rows read
+        "generic_shard_phase": (local * (updated or 0), updated or 0,
+                                slab + 4 * (updated or 0) + 2 * row
+                                + tables),
+        # a color's lines: (bc s) f summed over the slab's slices; the slab
+        # read, the part written
+        "generic_shard_line_part": ((field + 2) * rows * chains
+                                    * (block or 0), 0,
+                                    slab + chains * (block or 0) * 4
+                                    + tables),
+        # a color's lines: Metropolis; the total read, the lines' slab
+        # sites read and written
+        "generic_shard_line_accept": (
+            METROPOLIS * chains * (block or 0), chains * (block or 0),
+            chains * (block or 0) * 4 * (1 + 2 * rows)
+            + (block or 0) * 4),
+    }[kname]
+    times = {"operations": max(f32 / PEAK_FLOPS, sfu / PEAK_SFU),
+             "bytes": nbytes / PEAK_BYTES}
+    unit = max(times, key=times.get)
+    return 1e3 * times[unit], unit
+
+
+def parallel_state(chains, slices, sites, seed, dev):
+    """(chains, slices, sites) random +/-1 float32 confs from `seed` on
+    `dev`, the same on every rank."""
+    r = np.random.default_rng(seed)
+    return torch.as_tensor(
+        r.choice([-1.0, 1.0], size=(chains, slices, sites)).astype(
+            np.float32), device=dev)
+
+
+def card_trotter_rank(n_ranks, device_type, lat_l, chains, slices, steps,
+                      taus, trials):
+    """The body of each gloo rank of the parallel phase on the card:
+    anneal_sharded_split on the lat_l x lat_l torus and anneal_sharded on
+    its generic form at P = `slices`, `chains` chains, replica n_ranks,
+    line moves off and on, from one seed; the launches each made on this
+    rank; rank 0's slope ms a sweep of the split anneal with line moves and
+    the host ms of one ring exchange of its rows. Rank 0 returns the states
+    as int8."""
+    import torch.distributed as dist
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.parallel import _collectives as coll
+    from montecarlosolvers_tpu_torch.parallel import make_mesh, trotter
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    rank = dist.get_rank()
+    torus = instances.gaussian_torus(lat_l, seed=0, device=dev)
+    confs = parallel_state(chains, slices, lat_l * lat_l, 31, dev)
+    mesh = make_mesh(replica=n_ranks, device_type=device_type)
+    a = schedules.transverse_field(3.0, 1e-8, steps, device=dev)
+    b = torch.ones_like(a)
+    out = {}
+    for kind, prob, engine in (
+            ("split", torus, trotter.anneal_sharded_split),
+            ("generic", torus.to_generic(), trotter.anneal_sharded)):
+        for gm in (False, True):
+            _build.reset_launches()
+            got = pmesh.full_tensor(engine(
+                prob, a, b, 1.0 / slices, confs,
+                torch.Generator().manual_seed(5), mesh, global_moves=gm))
+            sync()
+            out[f"{kind}_gm{int(gm)}"] = (
+                got.to(torch.int8).cpu().numpy() if rank == 0 else None,
+                launched_now())
+
+    def run(tau):
+        g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+        trotter.anneal_sharded_split(
+            torus, g, torch.ones_like(g), 1.0 / slices, confs,
+            torch.Generator().manual_seed(5), mesh, global_moves=True)
+    sweep_ms, _ = slope_ms(run, taus, trials, sync)
+    rows = confs[:, :2, : lat_l * lat_l // 2].contiguous()
+    group = mesh.get_group("replica")
+    coll.ring_halo(rows[:, -1], rows[:, 0], group)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        coll.ring_halo(rows[:, -1], rows[:, 0], group)
+    sync()
+    out["timing"] = {"sweep_ms": sweep_ms,
+                     "exchange_ms": 1e3 * (time.perf_counter() - t0) / 20}
+    return out
+
+
+def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
+                    name):
+    """parallel: the parallel layer's chain and Trotter axes on the card.
+    (a) each kernel of a chain-sharded solve (A, 6, B, 3, 5 sequential and
+    colored, packed SA, generic PIQMC, generic bath, and the per-phase
+    kernels of A, B and 5) runs a block of chains with its chain0, at the
+    main path's widths, and equals those rows of the whole batch's run;
+    (b) the shard kernels S1-S4 against their plain versions on a slab of
+    one rank of 4 (80x80, P = 40, 32 chains; the generic form likewise),
+    timed beside them and their bounds; (c) a one-rank NCCL mesh: chain
+    sharding equals the unsharded run, and the Trotter-sharded anneals
+    (the main path of S1-S4, their launches counted) equal kernel B's and
+    the generic kernel's, line moves or not; their ms a sweep beside kernel
+    B's two routes; (d) PARALLEL_RANKS gloo ranks sharing the card run the
+    Trotter-sharded anneals: bitwise the single-device kernels without line
+    moves, within PARALLEL_ANCHOR with them, the lines that differ
+    printed, exact launches; (e) dryrun.dryrun_multichip(PARALLEL_RANKS).
+    """
+    import torch.distributed as dist
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
+    from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
+    from montecarlosolvers_tpu_torch.ops import split as split_ops
+    from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+    from montecarlosolvers_tpu_torch.ops.piqmc import spacetime_num_phases
+    from montecarlosolvers_tpu_torch.parallel import _collectives as coll
+    from montecarlosolvers_tpu_torch.parallel import dryrun
+    from montecarlosolvers_tpu_torch.parallel import make_mesh, shard_chains
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+    from montecarlosolvers_tpu_torch.parallel import trotter
+    from montecarlosolvers_tpu_torch.solvers import qmc, sa
+
+    t_phase = time.perf_counter()
+    gtorus = torus.to_generic()
+    P, n, nh = QMC_SLICES, L * L, L * L // 2
+    temp = 1.0 / P
+    a20 = schedules.transverse_field(3.0, 1e-8, 20, device=dev)
+    b20 = torch.ones_like(a20)
+    sched = schedules.linear(3.0, 0.1, 50, device=dev)
+    lut = schedules.bath_lookuptable(P, BATH_ALPHA, device=dev)
+
+    def conf(chains, slices, sites, seed):
+        return parallel_state(chains, slices, sites, seed, dev)
+
+    # (a) chain offsets at full width
+    sa_state = conf(SA_READS, 1, n, 1)[:, 0].contiguous()
+    odd_state = conf(SA_READS, 1, ODD_L * ODD_L, 2)[:, 0].contiguous()
+    q40 = conf(QMC_READS, P, n, 3)
+    q5 = conf(QMC_READS, ODD_SLICES, n, 4)
+    # a block of chains that starts inside a chain word (kernels A and 6
+    # pack 32 chains a word) and one of PIQMC chains
+    sa_block = (SA_READS // 4 + 13, SA_READS // 4)
+    q_block = (QMC_READS // 4, QMC_READS // 2)
+    cases = (
+        ("split_sa", lambda s, c0: sk.anneal_lattice_split(
+            torus, sched, s, 101, chain0=c0), sa_state, *sa_block),
+        ("plane_sa", lambda s, c0: pk.anneal_lattice(
+            odd_torus, sched, s, 101, chain0=c0), odd_state, *sa_block),
+        ("split_qmc", lambda c, c0: sk.anneal_lattice_qmc_split(
+            torus, a20, b20, temp, c, 101, chain0=c0), q40, *q_block),
+        ("plane_qmc", lambda c, c0: pk.anneal_lattice_qmc(
+            torus, a20, b20, 1.0 / ODD_SLICES, c, 101, chain0=c0), q5,
+         *q_block),
+        ("split_qmc_bath", lambda c, c0: sk.anneal_lattice_qmc_bath_split(
+            torus, a20, b20, temp, lut, c, 101, global_moves=True,
+            chain0=c0), q40, *q_block),
+        ("split_qmc_bath_colored",
+         lambda c, c0: sk.anneal_lattice_qmc_bath_split(
+             torus, a20, b20, temp, lut, c, 101, global_moves=True,
+             colored=True, chain0=c0), q40, *q_block),
+        ("packed_sa", lambda s, c0: gk.anneal_packed(
+            gtorus, sched, s, 101, chain0=c0), sa_state, *sa_block),
+        ("generic_qmc", lambda c, c0: gk.anneal_generic_qmc(
+            gtorus, a20, b20, temp, c, 101, chain0=c0), q40, *q_block),
+        ("generic_qmc_bath", lambda c, c0: gk.anneal_generic_qmc_bath(
+            gtorus, a20, b20, temp, lut, c, 101, global_moves=True,
+            chain0=c0), q40, *q_block),
+    )
+    phased = {"split_sa", "split_qmc", "split_qmc_bath"}
+    for kname, run, state, c0, width in cases:
+        for route, ctx in routes():
+            if route == "phased" and kname not in phased:
+                continue
+            with ctx():
+                full = run(state, 0)
+                block = run(state[c0:c0 + width].contiguous(), c0)
+            torch.cuda.synchronize()
+            bad, _ = mismatches([full[c0:c0 + width]], [block])
+            emit({"phase": "parallel", "check": "chain_offset",
+                  "kernel": kname, "route": route,
+                  "chains": int(state.shape[0]),
+                  "block": [c0, c0 + width], "mismatched_spins": bad})
+            check(bad == 0, f"{kname} ({route}) on chains [{c0}, "
+                            f"{c0 + width}) with chain0 equals the "
+                            "unsharded rows")
+
+    # (b) S1-S4 against their plain versions on rank 1's slab of 4
+    sl = split_ops.build_split(torus)
+    jp = schedules.jperp(a20, temp * P).contiguous()
+    quarters = split_ops.pack_qmc(sl, conf(QMC_READS, P, n, 5))
+    Q, ranks = P // 2, PARALLEL_RANKS
+    rows = Q // ranks
+    q0 = rows
+    slab = [x[:, q0:q0 + rows].contiguous() for x in quarters]
+    up_rows = [x[:, q0 - 1].contiguous() for x in quarters]
+    dn_rows = [x[:, q0 + rows].contiguous() for x in quarters]
+
+    def timed(kname, kernel_fn, plain_fn, reps=50, plain_reps=5):
+        ms = event_ms(kernel_fn, reps)
+        results[kname]["ms"] = min(results[kname].get("ms", ms), ms)
+        results[kname]["plain_ms"] = event_ms(plain_fn, plain_reps)
+
+    def record(kname, err, bound):
+        results[kname]["max_abs_err"] = max(
+            results[kname].get("max_abs_err", 0.0), err)
+        results[kname]["bound_ms"], results[kname]["bound_by"] = bound
+
+    t = 3
+    args = (sl, b20, jp, temp * P)
+    for phase, updates in enumerate(shk.PHASES):
+        halos = [up_rows[r] if d < 0 else dn_rows[r]
+                 for _, _, r, d, _ in updates]
+        tail = (halos, phase, t, 77, 0, q0, Q)
+        want = shk.shard_phase_ref(*args, slab, *tail)
+        got = shk.shard_phase(*args, [x.clone() for x in slab], *tail)
+        torch.cuda.synchronize()
+        bad, err = mismatches(got, want)
+        check(bad == 0, f"S1 phase {phase} equals its plain version")
+        record("shard_phase", err,
+               shard_bound("shard_phase", QMC_READS, rows, nh))
+        work = [x.clone() for x in slab]
+        timed("shard_phase",
+              lambda: shk.shard_phase(*args, work, *tail),
+              lambda: shk.shard_phase_ref(*args, slab, *tail))
+    for color in (0, 1):
+        part = shk.shard_line_part(sl, slab, color)
+        want = shk.shard_line_part_ref(sl, slab, color)
+        bad, err = mismatches([part], [want])
+        check(bad == 0, f"S2 part of color {color} equals its plain version")
+        record("shard_line_part", err,
+               shard_bound("shard_line_part", QMC_READS, rows, nh))
+        timed("shard_line_part",
+              lambda: shk.shard_line_part(sl, slab, color),
+              lambda: shk.shard_line_part_ref(sl, slab, color))
+        total = part * ranks  # a stand-in for the sum of 4 ranks' parts
+        want = shk.shard_line_accept_ref(b20, temp * P, total, slab, color, t,
+                                         77)
+        got = shk.shard_line_accept(sl, b20, temp * P, total,
+                                    [x.clone() for x in slab], color, t, 77)
+        torch.cuda.synchronize()
+        bad, err = mismatches(got, want)
+        check(bad == 0, f"S2 accept of color {color} equals its plain "
+                        "version")
+        record("shard_line_accept", err,
+               shard_bound("shard_line_accept", QMC_READS, rows, nh))
+        work = [x.clone() for x in slab]
+        timed("shard_line_accept",
+              lambda: shk.shard_line_accept(sl, b20, temp * P, total, work,
+                                            color, t, 77),
+              lambda: shk.shard_line_accept_ref(b20, temp * P, total, slab,
+                                                color, t, 77))
+    pg = packed_ops.build_packed(gtorus)
+    m = spacetime_num_phases(pg.num_colors, P)
+    graph = graph_shape(gtorus)
+    rows_g = P // ranks
+    k0 = rows_g
+    full_g = packed_ops.pack_state(pg, conf(QMC_READS, P, n, 6)).contiguous()
+    gslab = full_g[:, k0:k0 + rows_g].contiguous()
+    gup = full_g[:, k0 - 1].contiguous()
+    gdn = full_g[:, k0 + rows_g].contiguous()
+    sizes = np.diff(pg.starts)
+    for p in range(m):
+        gargs = (pg, b20, jp, temp * P, gslab, gup, gdn, p, m, t, 77, 0, k0,
+                 P)
+        got = shk.generic_shard_phase(*gargs)
+        want = shk.generic_shard_phase_ref(*gargs)
+        torch.cuda.synchronize()
+        bad, err = mismatches([got], [want])
+        check(bad == 0, f"S3 phase {p} equals its plain version")
+        updated = QMC_READS * sum(
+            int(sizes[(p - k) % m]) for k in range(k0, k0 + rows_g)
+            if (p - k) % m < pg.num_colors)
+        record("generic_shard_phase", err,
+               shard_bound("generic_shard_phase", QMC_READS, rows_g, n,
+                           graph, updated=updated))
+        timed("generic_shard_phase",
+              lambda: shk.generic_shard_phase(*gargs),
+              lambda: shk.generic_shard_phase_ref(*gargs))
+    for c in range(pg.num_colors):
+        part = shk.generic_shard_line_part(pg, b20, gslab, c, t)
+        want = shk.generic_shard_line_part_ref(pg, b20, gslab, c, t)
+        bad, err = mismatches([part], [want])
+        check(bad == 0, f"S4 part of color {c} equals its plain version")
+        block = int(sizes[c])
+        record("generic_shard_line_part", err,
+               shard_bound("generic_shard_line_part", QMC_READS, rows_g, n,
+                           graph, block=block))
+        timed("generic_shard_line_part",
+              lambda: shk.generic_shard_line_part(pg, b20, gslab, c, t),
+              lambda: shk.generic_shard_line_part_ref(pg, b20, gslab, c,
+                                                      t))
+        total = part * ranks
+        got = shk.generic_shard_line_accept(pg, temp * P, total,
+                                            gslab.clone(), c, t, 77, 0, P)
+        want = shk.generic_shard_line_accept_ref(pg, temp * P, total, gslab,
+                                                 c, t, 77, 0, P)
+        torch.cuda.synchronize()
+        bad, err = mismatches([got], [want])
+        check(bad == 0, f"S4 accept of color {c} equals its plain version")
+        record("generic_shard_line_accept", err,
+               shard_bound("generic_shard_line_accept", QMC_READS, rows_g, n,
+                           graph, block=block))
+        work = gslab.clone()
+        timed("generic_shard_line_accept",
+              lambda: shk.generic_shard_line_accept(pg, temp * P, total,
+                                                    work, c, t, 77, 0, P),
+              lambda: shk.generic_shard_line_accept_ref(
+                  pg, temp * P, total, gslab, c, t, 77, 0, P))
+    for kname in PARALLEL_KERNELS:
+        emit({"phase": "parallel", "check": "shard_kernel_vs_plain",
+              "kernel": kname, "chains": QMC_READS, "slices": P,
+              "rank_of": [1, ranks], **results[kname],
+              "card": name, "power_limit": power})
+
+    # (c) a one-rank NCCL mesh: chain sharding, and the main path of S1-S4
+    cmesh = make_mesh(chains=1, device_type=dev.type)
+    check(dist.get_backend() == {"cuda": "nccl", "cpu": "gloo"}[dev.type],
+          "a one-rank mesh on the card runs NCCL")
+    for what, run, state in (
+            ("sa.anneal split", lambda s: sa.anneal(
+                torus, sched, s, torch.Generator().manual_seed(3)),
+             sa_state),
+            ("qmc.anneal split", lambda c: qmc.anneal(
+                torus, a20, b20, temp, c, torch.Generator().manual_seed(3),
+                global_moves=True), q40)):
+        got = pmesh.full_tensor(run(shard_chains(state, cmesh)))
+        bad, _ = mismatches([got], [run(state)])
+        emit({"phase": "parallel", "check": "one_rank_nccl_chains",
+              "solve": what, "mismatched_spins": bad})
+        check(bad == 0, f"{what} on a one-rank NCCL mesh equals the "
+                        "unsharded run")
+    rmesh = make_mesh(replica=1, device_type=dev.type)
+    steps = PARALLEL_STEPS
+    a_p = schedules.transverse_field(3.0, 1e-8, steps, device=dev)
+    b_p = torch.ones_like(a_p)
+    confs = parallel_state(QMC_READS, P, n, 31, dev)
+    singles = {}
+    for kind, prob, engine, counts in (
+            ("split", torus, trotter.anneal_sharded_split,
+             lambda gm: {"shard_phase": 2 * steps,
+                         **({"shard_line_part": 2 * steps,
+                             "shard_line_accept": 2 * steps} if gm else {})}),
+            ("generic", gtorus, trotter.anneal_sharded,
+             lambda gm: {"generic_shard_phase": m * steps,
+                         **({"generic_shard_line_part":
+                             pg.num_colors * steps,
+                             "generic_shard_line_accept":
+                             pg.num_colors * steps} if gm else {})})):
+        for gm in (False, True):
+            single = qmc.anneal(prob, a_p, b_p, temp, confs,
+                                torch.Generator().manual_seed(5),
+                                global_moves=gm)
+            singles[f"{kind}_gm{int(gm)}"] = single
+            _build.reset_launches()
+            got = pmesh.full_tensor(engine(
+                prob, a_p, b_p, temp, confs,
+                torch.Generator().manual_seed(5), rmesh, global_moves=gm))
+            torch.cuda.synchronize()
+            launched = launched_now()
+            for k, v in launched.items():
+                if k in PARALLEL_KERNELS:
+                    main_launches[k] += v
+            bad, _ = mismatches([got], [single])
+            emit({"phase": "parallel", "check": "one_rank_nccl_trotter",
+                  "engine": kind, "global_moves": gm, "steps": steps,
+                  "mismatched_spins": bad, "launches": launched})
+            check(bad == 0, f"the one-rank {kind} Trotter-sharded anneal "
+                            f"(global_moves={gm}) equals the single-device "
+                            "kernel's")
+            check(launched == counts(gm), f"one-rank {kind} launched "
+                                          f"{launched}")
+
+    def sharded_run(tau):
+        g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+        trotter.anneal_sharded_split(torus, g, torch.ones_like(g), temp,
+                                     confs, torch.Generator().manual_seed(5),
+                                     rmesh, global_moves=True)
+
+    def kernel_b_run(tau):
+        g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+        sk.anneal_lattice_qmc_split(torus, g, torch.ones_like(g), temp,
+                                    confs, 5)
+    sweep = {"sharded_one_rank": slope_ms(sharded_run, PARALLEL_TAUS, 3)[0],
+             "kernel_b_cluster": slope_ms(kernel_b_run, PARALLEL_TAUS, 3)[0]}
+    with gibbs_tool().phased_route():
+        sweep["kernel_b_phased"] = slope_ms(kernel_b_run, PARALLEL_TAUS,
+                                            3)[0]
+    group = rmesh.get_group("replica")
+    last, first = quarters[3][:, -1], quarters[2][:, 0]
+    exchange_ms = event_ms(lambda: coll.ring_halo(last, first, group), 100)
+    emit({"phase": "parallel", "check": "sweep_ms", "lattice": f"{L}x{L}",
+          "slices": P, "chains": QMC_READS, "global_moves": True,
+          **sweep, "exchange_ms_one_rank": exchange_ms,
+          "exchange_share_one_rank": 2 * exchange_ms
+          / sweep["sharded_one_rank"], "card": name, "power_limit": power})
+
+    # (d) gloo ranks sharing the card
+    t0 = time.perf_counter()
+    out = dryrun.run_ranks(card_trotter_rank, PARALLEL_RANKS, dev.type,
+                           args=(L, QMC_READS, P, steps, PARALLEL_TAUS, 2))
+    rank_seconds = time.perf_counter() - t0
+    for key, (state, _) in out[0].items():
+        if key == "timing":
+            continue
+        single = singles[key].to(torch.int8).cpu().numpy()
+        kind, gm = key.split("_gm")
+        prob = torus if kind == "split" else gtorus
+        lines = int(np.any(state != single, axis=1).sum())
+        e_sh = float(qmc.best_slice_energy(prob, torch.as_tensor(
+            state, dtype=torch.float32, device=dev)).mean()) / n
+        e_1 = float(qmc.best_slice_energy(prob, singles[key]).mean()) / n
+        emit({"phase": "parallel", "check": "gloo_ranks_on_the_card",
+              "engine": kind, "ranks": PARALLEL_RANKS,
+              "global_moves": gm == "1", "steps": steps,
+              "mismatched_spins": int((state != single).sum()),
+              "differing_lines": lines,
+              "mean_best_energy_per_spin": e_sh,
+              "single_device_energy_per_spin": e_1,
+              "launches_each_rank": [o[key][1] for o in out]})
+        if gm == "0":
+            check(lines == 0, f"{PARALLEL_RANKS} gloo ranks' {kind} anneal "
+                              "equals the single-device kernel's")
+        else:
+            check(lines <= PARALLEL_LINES,
+                  f"{PARALLEL_RANKS} gloo ranks' {kind} anneal with line "
+                  f"moves: {lines} lines differ from the single-device "
+                  f"kernel's (at most {PARALLEL_LINES})")
+            check(abs(e_sh - e_1) <= PARALLEL_ANCHOR,
+                  f"{PARALLEL_RANKS} gloo ranks' {kind} anneal with line "
+                  f"moves: {e_sh} within {PARALLEL_ANCHOR} of {e_1}")
+        rows_k = P // 2 // PARALLEL_RANKS if kind == "split" else \
+            P // PARALLEL_RANKS
+        want = ({"shard_phase": 2 * steps} if kind == "split" else
+                {"generic_shard_phase": m * steps})
+        if gm == "1":
+            want.update({"shard_line_part": 2 * steps,
+                         "shard_line_accept": 2 * steps}
+                        if kind == "split" else
+                        {"generic_shard_line_part": pg.num_colors * steps,
+                         "generic_shard_line_accept":
+                         pg.num_colors * steps})
+        check(all(o[key][1] == want for o in out),
+              f"each rank's {kind} launches {want} (rows {rows_k})")
+    timing = out[0]["timing"]
+    emit({"phase": "parallel", "check": "gloo_timing",
+          "ranks": PARALLEL_RANKS, "seconds": rank_seconds,
+          "sweep_ms_rank0": timing["sweep_ms"],
+          "exchange_ms": timing["exchange_ms"],
+          "exchange_share": 2 * timing["exchange_ms"] / timing["sweep_ms"],
+          "card": name, "power_limit": power})
+
+    # (e) the dry run
+    t0 = time.perf_counter()
+    legs = dryrun.dryrun_multichip(PARALLEL_RANKS, dev.type)
+    emit({"phase": "parallel", "check": "dryrun_multichip",
+          "ranks": PARALLEL_RANKS, "legs": legs,
+          "seconds": time.perf_counter() - t0})
+    dist.destroy_process_group()
+    emit({"phase": "parallel", "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     t_script = time.perf_counter()
     phase_seconds = {}
@@ -4949,6 +5509,13 @@ def main():
     # ---- this slice's drivers: the MST matrix and the open-system example
     mst_checks(dev, problem, e_gs, torus)
     examples_checks(dev, problem, e_gs, torus)
+    phase_seconds["mst_and_examples"] = time.perf_counter() - t_script
+
+    # ---- the parallel layer: chain offsets, the shard kernels, a one-rank
+    # NCCL mesh, gloo ranks sharing the card, the dry run
+    parallel_checks(dev, results, main_launches, torus, odd_torus, power,
+                    name)
+    phase_seconds["parallel"] = time.perf_counter() - t_script
 
     # No single PyTorch call computes a Metropolis sweep or labels the
     # components of a graph, so no kernel has a library yardstick
@@ -4973,7 +5540,6 @@ def main():
          "library_ms": results[k].get("library_ms")}
         for k, (key, src, tpu) in KERNELS.items()
     ]})
-    phase_seconds["mst_and_examples"] = time.perf_counter() - t_script
     # seconds from the start at the end of each phase
     emit({"phase": "done", "seconds": time.perf_counter() - t_script,
           "phase_seconds": phase_seconds})

@@ -3,7 +3,9 @@ queued: every refusal in the port names its ROADMAP.md item through here."""
 
 from __future__ import annotations
 
-PARALLEL = "queue 1, item 3 (parallel layer)"
+# The parallel layer's chain and Trotter axes are ported (queue 1, item 3,
+# done: montecarlosolvers_tpu_torch/parallel/); the rest of it is item 4.
+SHARDED = "queue 1, item 4 (the rest of the parallel layer)"
 
 
 def require_problem(problem, sparse_only=None):
@@ -37,3 +39,23 @@ def not_ported(what, item):
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet: ROADMAP.md {item}"
     )
+
+
+def is_sharded(x):
+    """True when `x` is a DTensor (a state placed on a device mesh by
+    `parallel.shard_chains` or returned by a sharded engine)."""
+    import torch.distributed as dist
+
+    if not dist.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def refuse_sharded(what, *states):
+    """Raise `not_ported(what on a sharded state, SHARDED)` when any of
+    `states` is a DTensor: the engines whose chain sharding is still
+    queued at ROADMAP.md queue 1, item 4."""
+    if any(is_sharded(s) for s in states):
+        raise not_ported(f"{what} on a sharded (DTensor) state", SHARDED)

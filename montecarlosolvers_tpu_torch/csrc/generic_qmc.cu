@@ -46,6 +46,12 @@
 // into the scratch `snap` first and reads same-class neighbours there, as
 // the plain version's masked phases read them (csrc/generic_qmc_bath.cu
 // does the same).
+//
+// chain0, the global index of the first chain of a chain shard
+// (parallel/mesh.py), counts every uid from the global chain; 0
+// unsharded. The shard kernels S3 and S4 at the end (ops/shard_kernels.py)
+// run one phase, or one color's line moves, a launch on a rank's slab of
+// slices, for parallel/trotter.py::anneal_sharded.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,7 +71,8 @@ generic_qmc_kernel(const int* __restrict__ nbr_idx,
                    const float* __restrict__ jp, float teff, float* s,
                    float* snap, float* __restrict__ energies, int chains,
                    int P, int n, int maxnb, int ncolors, int m, int steps,
-                   uint32_t seed_term, int stride_t, int stride_c) {
+                   uint32_t seed_term, int stride_t, int stride_c,
+                   uint32_t chain0) {
   __shared__ float red[mcs::kPackedThreads / 32];
   const int chain = blockIdx.x;
   const size_t stride = static_cast<size_t>(n);
@@ -73,8 +80,10 @@ generic_qmc_kernel(const int* __restrict__ nbr_idx,
   float* const sbase =
       kImproper ? snap + static_cast<size_t>(chain) * P * stride : nullptr;
   const uint32_t N = static_cast<uint32_t>(n);
-  const uint32_t line_uid0 = static_cast<uint32_t>(chain) *
-                             static_cast<uint32_t>(P) * N;
+  // the chain of the uids, counted from chain0 (the first chain of a chain
+  // shard)
+  const uint32_t uchain = chain0 + static_cast<uint32_t>(chain);
+  const uint32_t line_uid0 = uchain * static_cast<uint32_t>(P) * N;
   for (int t = 0; t < steps; ++t) {
     const float bc = __fmul_rn(-2.0f, __ldg(b_sched + t));
     const float jpt =
@@ -102,8 +111,8 @@ generic_qmc_kernel(const int* __restrict__ nbr_idx,
         const float* up = base + (k == 0 ? P - 1 : k - 1) * stride;
         const float* dn = base + (k + 1 == P ? 0 : k + 1) * stride;
         const uint32_t uid0 =
-            (static_cast<uint32_t>(chain) * static_cast<uint32_t>(P) +
-             static_cast<uint32_t>(k)) * N;
+            (uchain * static_cast<uint32_t>(P) + static_cast<uint32_t>(k)) *
+            N;
         const int hi = __ldg(starts + c + 1);
         for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
           const float si = sk[i];
@@ -172,6 +181,127 @@ generic_qmc_kernel(const int* __restrict__ nbr_idx,
   }
 }
 
+// ---- the shard kernels of the Trotter-sharded generic engine
+// (parallel/trotter.py::anneal_sharded), a rank's slab of slices k0 .. k0 +
+// Ps - 1 of a P-slice state, one thread per (chain, slice, site)
+
+// The color class of packed site i: the block [starts[c], starts[c+1])
+// holding it.
+__device__ __forceinline__ int class_of(const int* __restrict__ starts,
+                                        int ncolors, int i) {
+  int c = 0;
+  while (c + 1 < ncolors && i >= __ldg(starts + c + 1)) ++c;
+  return c;
+}
+
+// S3: local phase p of step t on a slab, out of place: site i of slice k
+// (global kg = k0 + k) is updated when (class(i) + kg) mod m == p, reading
+// the slab `src` as the phase found it; every site is written to `dst`.
+// The Trotter partners past the slab's edges are the neighbour ranks' rows
+// `halo_up` (slice k0 - 1) and `halo_dn` (slice k0 + Ps), (chains, n) with
+// their chains halo_stride floats apart, filled by the ring exchange before
+// the phase. Since every read is of the
+// phase's start, a packing that is not proper reads its same-class
+// neighbours as generic_qmc_kernel's kImproper snapshot does. uid
+// ((chain0 + chain)*P + kg)*N + perm[i] at counter(seed, t, 0).
+__global__ void __launch_bounds__(mcs::kPackedThreads)
+generic_shard_phase_kernel(
+    const int* __restrict__ nbr_idx, const float* __restrict__ nbr_J,
+    const float* __restrict__ h, const int* __restrict__ perm,
+    const int* __restrict__ starts, const float* __restrict__ b_sched,
+    const float* __restrict__ jp, float teff, const float* __restrict__ src,
+    float* __restrict__ dst, const float* __restrict__ halo_up,
+    const float* __restrict__ halo_dn, int halo_stride, int Ps, int n,
+    int maxnb, int ncolors, int m, int p, int xblocks, int t,
+    uint32_t seed_term, uint32_t chain0, uint32_t k0, uint32_t P) {
+  const int ck = blockIdx.x / xblocks;  // chain * Ps + k
+  const int i = (blockIdx.x - ck * xblocks) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int chain = ck / Ps;
+  const int k = ck - chain * Ps;
+  const size_t stride = static_cast<size_t>(n);
+  const float* sk = src + static_cast<size_t>(ck) * stride;
+  const float si = sk[i];
+  const uint32_t kg = k0 + static_cast<uint32_t>(k);
+  const int c = class_of(starts, ncolors, i);
+  if ((static_cast<uint32_t>(c) + kg) % static_cast<uint32_t>(m) !=
+      static_cast<uint32_t>(p)) {
+    dst[static_cast<size_t>(ck) * stride + i] = si;
+    return;
+  }
+  const size_t at = static_cast<size_t>(chain) * halo_stride + i;
+  const float up = k == 0 ? halo_up[at] : sk[i - stride];
+  const float dn = k + 1 == Ps ? halo_dn[at] : sk[i + stride];
+  const float bc = __fmul_rn(-2.0f, __ldg(b_sched + t));
+  const float f = mcs::packed_field(sk, nbr_idx, nbr_J, h, i, maxnb);
+  const float de = __fadd_rn(
+      __fmul_rn(__fmul_rn(bc, si), f),
+      __fmul_rn(__fmul_rn(__fmul_rn(2.0f, si), __ldg(jp + t)),
+                __fadd_rn(up, dn)));
+  const uint32_t uid =
+      ((chain0 + static_cast<uint32_t>(chain)) * P + kg) *
+          static_cast<uint32_t>(n) +
+      static_cast<uint32_t>(__ldg(perm + i));
+  dst[static_cast<size_t>(ck) * stride + i] =
+      mcs::metropolis_accept_hashed(de, teff,
+                                    uid * mcs::kGolden +
+                                        mcs::counter(seed_term, t, 0))
+          ? -si
+          : si;
+}
+
+// S4, first half: a slab's part of the line dE of the lines of class c
+// (packed sites lo .. lo + nc - 1), sum_k (-2B s_k) f_k over the slab's
+// slices in order, into part (chains, nc); no site is written.
+__global__ void __launch_bounds__(mcs::kPackedThreads)
+generic_shard_line_part_kernel(
+    const int* __restrict__ nbr_idx, const float* __restrict__ nbr_J,
+    const float* __restrict__ h, const float* __restrict__ b_sched,
+    const float* __restrict__ s, float* __restrict__ part, int Ps, int n,
+    int maxnb, int lo, int nc, int xblocks, int t) {
+  const int chain = blockIdx.x / xblocks;
+  const int a = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
+  if (a >= nc) return;
+  const int i = lo + a;
+  const size_t stride = static_cast<size_t>(n);
+  const float* base = s + static_cast<size_t>(chain) * Ps * stride;
+  const float bc = __fmul_rn(-2.0f, __ldg(b_sched + t));
+  float de = 0.0f;
+  for (int k = 0; k < Ps; ++k) {
+    const float* sk = base + k * stride;
+    const float term = __fmul_rn(
+        __fmul_rn(bc, sk[i]), mcs::packed_field(sk, nbr_idx, nbr_J, h, i,
+                                                maxnb));
+    de = k == 0 ? term : __fadd_rn(de, term);
+  }
+  part[static_cast<size_t>(chain) * nc + a] = de;
+}
+
+// S4, second half: the lines of class c accept on the summed dE `total`
+// (chains, nc) at line_counter(seed, t, 0), uid (chain0 + chain)*P*N +
+// perm[i], and flip the slab's slices of their site.
+__global__ void __launch_bounds__(mcs::kPackedThreads)
+generic_shard_line_accept_kernel(const int* __restrict__ perm, float teff,
+                                 const float* __restrict__ total, float* s,
+                                 int Ps, int n, int lo, int nc, int xblocks,
+                                 int t, uint32_t seed_term, uint32_t chain0,
+                                 uint32_t P) {
+  const int chain = blockIdx.x / xblocks;
+  const int a = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
+  if (a >= nc) return;
+  const int i = lo + a;
+  const uint32_t uid =
+      (chain0 + static_cast<uint32_t>(chain)) * P *
+          static_cast<uint32_t>(n) +
+      static_cast<uint32_t>(__ldg(perm + i));
+  if (!mcs::metropolis_accept_hashed(
+          total[static_cast<size_t>(chain) * nc + a], teff,
+          uid * mcs::kGolden + mcs::line_counter(seed_term, t, 0)))
+    return;
+  float* base = s + static_cast<size_t>(chain) * Ps * n + i;
+  for (int k = 0; k < Ps; ++k) base[static_cast<size_t>(k) * n] *= -1.0f;
+}
+
 }  // namespace
 
 // Anneal `chains` chains of P packed slices `s` (chains, P, n) in place
@@ -182,8 +312,9 @@ generic_qmc_kernel(const int* __restrict__ nbr_idx,
 // (steps, chains) float32 buffer or null; step0: the step the hash counts
 // the first sweep as; stride_c != 0 reads a J_perp per chain, jp[t *
 // stride_t + chain * stride_c]; snap, scratch of the state's size or null,
-// marks a packing that is not proper. All device pointers; launches on
-// `stream` and returns cudaGetLastError().
+// marks a packing that is not proper; chain0: the global index of the
+// first chain, which the uids count from (a chain shard; 0 unsharded). All
+// device pointers; launches on `stream` and returns cudaGetLastError().
 extern "C" int generic_qmc_anneal(const int* nbr_idx, const float* nbr_J,
                                   const float* h, const int* perm,
                                   const int* starts, const float* b_sched,
@@ -193,7 +324,7 @@ extern "C" int generic_qmc_anneal(const int* nbr_idx, const float* nbr_J,
                                   int maxnb, int ncolors, int m, int steps,
                                   int seed, int step0, int global_moves,
                                   int threads, int stride_t, int stride_c,
-                                  void* stream) {
+                                  int chain0, void* stream) {
   if (chains == 0 || n == 0 || P == 0) return cudaSuccess;
   // step0 folds into the seed term: counter(seed_term, t, i) is then
   // counter(seed, step0 + t, i), and so is every other counter of the step
@@ -214,10 +345,70 @@ extern "C" int generic_qmc_anneal(const int* nbr_idx, const float* nbr_J,
       kernels[global_moves != 0][stride_c != 0][snap != nullptr];
   kernel<<<chains, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       nbr_idx, nbr_J, h, perm, starts, b_sched, jp, teff, s, snap, energies,
-      chains, P, n, maxnb, ncolors, m, steps, seed_term, stride_t, stride_c);
+      chains, P, n, maxnb, ncolors, m, steps, seed_term, stride_t, stride_c,
+      static_cast<uint32_t>(chain0));
   return cudaGetLastError();
 }
 
 extern "C" const char* generic_qmc_anneal_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// S3 on a rank's slab: phase p of step t from src to dst (chains, Ps, n),
+// with the halo rows halo_up, halo_dn (chains, n), their chains
+// halo_stride floats apart; the packed layout, schedules and seed as for
+// generic_qmc_anneal; chain0, k0 and P the slab's global first chain,
+// first slice and the state's P. One launch on `stream`; returns
+// cudaGetLastError().
+extern "C" int generic_qmc_shard_phase(
+    const int* nbr_idx, const float* nbr_J, const float* h, const int* perm,
+    const int* starts, const float* b_sched, const float* jp, float teff,
+    const float* src, float* dst, const float* halo_up, const float* halo_dn,
+    int halo_stride, int chains, int Ps, int n, int maxnb, int ncolors,
+    int m, int p, int t, int seed, int chain0, int k0, int P,
+    void* stream) {
+  if (chains == 0 || Ps == 0 || n == 0) return cudaSuccess;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const int xblocks = (n + mcs::kPackedThreads - 1) / mcs::kPackedThreads;
+  generic_shard_phase_kernel<<<static_cast<unsigned>(xblocks) * chains * Ps,
+                               mcs::kPackedThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      nbr_idx, nbr_J, h, perm, starts, b_sched, jp, teff, src, dst, halo_up,
+      halo_dn, halo_stride, Ps, n, maxnb, ncolors, m, p, xblocks, t,
+      seed_term, static_cast<uint32_t>(chain0), static_cast<uint32_t>(k0),
+      static_cast<uint32_t>(P));
+  return cudaGetLastError();
+}
+
+// S4's first half: the part (chains, nc) of the line dE of class block
+// [lo, lo + nc) over the slab s (chains, Ps, n) at step t. One launch.
+extern "C" int generic_qmc_shard_line_part(
+    const int* nbr_idx, const float* nbr_J, const float* h,
+    const float* b_sched, const float* s, float* part, int chains, int Ps,
+    int n, int maxnb, int lo, int nc, int t, void* stream) {
+  if (chains == 0 || nc == 0) return cudaSuccess;
+  const int xblocks = (nc + mcs::kPackedThreads - 1) / mcs::kPackedThreads;
+  generic_shard_line_part_kernel<<<static_cast<unsigned>(xblocks) * chains,
+                                   mcs::kPackedThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      nbr_idx, nbr_J, h, b_sched, s, part, Ps, n, maxnb, lo, nc, xblocks, t);
+  return cudaGetLastError();
+}
+
+// S4's second half: the lines of block [lo, lo + nc) accept on `total`
+// (chains, nc) and flip the slab s (chains, Ps, n) in place; seed, chain0
+// and P as for generic_qmc_shard_phase. One launch.
+extern "C" int generic_qmc_shard_line_accept(
+    const int* perm, float teff, const float* total, float* s, int chains,
+    int Ps, int n, int lo, int nc, int t, int seed, int chain0, int P,
+    void* stream) {
+  if (chains == 0 || nc == 0) return cudaSuccess;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const int xblocks = (nc + mcs::kPackedThreads - 1) / mcs::kPackedThreads;
+  generic_shard_line_accept_kernel<<<static_cast<unsigned>(xblocks) * chains,
+                                     mcs::kPackedThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      perm, teff, total, s, Ps, n, lo, nc, xblocks, t, seed_term,
+      static_cast<uint32_t>(chain0), static_cast<uint32_t>(P));
+  return cudaGetLastError();
 }

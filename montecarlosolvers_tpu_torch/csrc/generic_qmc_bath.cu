@@ -104,7 +104,7 @@ generic_qmc_bath_kernel(const int* __restrict__ nbr_idx,
                         float two_teff, float* s, float* snap,
                         float* __restrict__ energies, int chains, int P,
                         int n, int maxnb, int ncolors, int m, int steps,
-                        uint32_t seed_term, int proper) {
+                        uint32_t seed_term, int proper, uint32_t chain0) {
   __shared__ float red[mcs::kPackedThreads / 32];
   const int chain = blockIdx.x;
   const size_t stride = static_cast<size_t>(n);
@@ -112,8 +112,10 @@ generic_qmc_bath_kernel(const int* __restrict__ nbr_idx,
   float* const base = s + off;
   float* const sbase = snap == nullptr ? nullptr : snap + off;
   const uint32_t N = static_cast<uint32_t>(n);
-  const uint32_t line_uid0 = static_cast<uint32_t>(chain) *
-                             static_cast<uint32_t>(P) * N;
+  // the chain of the uids, counted from chain0 (the first chain of a chain
+  // shard)
+  const uint32_t uchain = chain0 + static_cast<uint32_t>(chain);
+  const uint32_t line_uid0 = uchain * static_cast<uint32_t>(P) * N;
   for (int t = 0; t < steps; ++t) {
     const float bc = __fmul_rn(-2.0f, __ldg(b_sched + t));
     const float jpt = __ldg(jp + t);
@@ -134,8 +136,8 @@ generic_qmc_bath_kernel(const int* __restrict__ nbr_idx,
                     __fmul_rn(__fmul_rn(__fmul_rn(2.0f, si), jpt), tr)),
           __fmul_rn(__fmul_rn(two_teff, si), bf));
       const uint32_t uid =
-          (static_cast<uint32_t>(chain) * static_cast<uint32_t>(P) +
-           static_cast<uint32_t>(k)) * N +
+          (uchain * static_cast<uint32_t>(P) + static_cast<uint32_t>(k)) *
+              N +
           static_cast<uint32_t>(__ldg(perm + i));
       return mcs::metropolis_accept_hashed(de, teff, uid * mcs::kGolden + ctr)
                  ? -si
@@ -228,15 +230,16 @@ generic_qmc_bath_kernel(const int* __restrict__ nbr_idx,
 // an independent set; snap: scratch of the state's size, needed when
 // colored or not proper (null otherwise); energies: a (steps, chains)
 // float32 buffer or null; step0: the step the hash counts the first sweep
-// as. All device pointers; launches on `stream` and returns
-// cudaGetLastError().
+// as; chain0: the global index of the first chain, which the uids count
+// from (a chain shard; 0 unsharded). All device pointers; launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int generic_qmc_bath_anneal(
     const int* nbr_idx, const float* nbr_J, const float* h, const int* perm,
     const int* starts, const float* b_sched, const float* jp,
     const float* bath, float teff, float two_teff, float* s, float* snap,
     float* energies, int chains, int P, int n, int maxnb, int ncolors, int m,
     int steps, int seed, int step0, int colored, int global_moves, int proper,
-    int threads, void* stream) {
+    int threads, int chain0, void* stream) {
   if (chains == 0 || n == 0 || P == 0) return cudaSuccess;
   if ((colored || !proper) && snap == nullptr) return cudaErrorInvalidValue;
   // step0 folds into the seed term: counter(seed_term, t, i) is then
@@ -250,7 +253,7 @@ extern "C" int generic_qmc_bath_anneal(
   kernel<<<chains, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       nbr_idx, nbr_J, h, perm, starts, b_sched, jp, bath, teff, two_teff, s,
       snap, energies, chains, P, n, maxnb, ncolors, m, steps, seed_term,
-      proper);
+      proper, static_cast<uint32_t>(chain0));
   return cudaGetLastError();
 }
 

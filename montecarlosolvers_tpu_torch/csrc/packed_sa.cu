@@ -69,14 +69,17 @@ packed_sa_kernel(const int* __restrict__ nbr_idx,
                  const float* __restrict__ temps, float* s, float* snap,
                  float* __restrict__ energies, int chains, int n, int maxnb,
                  int ncolors, int steps, uint32_t seed_term, int j_stride,
-                 int h_stride, int mcsteps, int stride_t, int stride_c) {
+                 int h_stride, int mcsteps, int stride_t, int stride_c,
+                 uint32_t chain0) {
   __shared__ float red[mcs::kPackedThreads / 32];
   const int chain = blockIdx.x;
   float* sc = s + static_cast<size_t>(chain) * n;
   float* const ss = kImproper ? snap + static_cast<size_t>(chain) * n
                               : nullptr;
-  const uint32_t uid0 =
-      static_cast<uint32_t>(chain) * static_cast<uint32_t>(n);
+  // uid = chain*n + perm[i], the chain counted from chain0 (the first
+  // chain of a chain shard)
+  const uint32_t uid0 = (chain0 + static_cast<uint32_t>(chain)) *
+                        static_cast<uint32_t>(n);
   for (int t = 0; t < steps; ++t) {
     const float temp =
         kPerChain ? __ldg(temps + static_cast<size_t>(t) * stride_t +
@@ -129,8 +132,10 @@ packed_sa_kernel(const int* __restrict__ nbr_idx,
 // energies: a (steps, chains) float32 buffer or null; j_stride, h_stride
 // and mcsteps: 0, 0 and 1 for the static tables, else the per-step stacks'
 // strides and the sweeps a row (above); step0: the step the hash counts
-// the first sweep as (a one-sweep launch inside a longer anneal). All
-// device pointers; launches on `stream` and returns cudaGetLastError().
+// the first sweep as (a one-sweep launch inside a longer anneal); chain0:
+// the global index of the first chain, which the uids count from (a chain
+// shard; 0 unsharded). All device pointers; launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int packed_sa_anneal(const int* nbr_idx, const float* nbr_J,
                                 const float* h, const int* perm,
                                 const int* starts, const float* temps,
@@ -138,7 +143,8 @@ extern "C" int packed_sa_anneal(const int* nbr_idx, const float* nbr_J,
                                 int chains, int n, int maxnb, int ncolors,
                                 int steps, int seed, int step0, int threads,
                                 int j_stride, int h_stride, int mcsteps,
-                                int stride_t, int stride_c, void* stream) {
+                                int stride_t, int stride_c, int chain0,
+                                void* stream) {
   if (chains == 0 || n == 0) return cudaSuccess;
   if (mcsteps < 1) return cudaErrorInvalidValue;
   // step0 folds into the seed term: counter(seed_term, t, i) is then
@@ -154,7 +160,7 @@ extern "C" int packed_sa_anneal(const int* nbr_idx, const float* nbr_J,
       nbr_idx, nbr_J, h, perm, starts, temps, s, snap, energies, chains, n,
       maxnb,
       ncolors, steps, seed_term, j_stride, h_stride, mcsteps, stride_t,
-      stride_c);
+      stride_c, static_cast<uint32_t>(chain0));
   return cudaGetLastError();
 }
 

@@ -103,7 +103,7 @@ plane_qmc_kernel(const float* __restrict__ w,
                  const uint32_t* __restrict__ s_in,
                  uint32_t* __restrict__ s_out, int P, int m, int R, int L,
                  uint32_t row_stride, uint32_t plane_stride, int steps,
-                 uint32_t seed_term, int global_moves) {
+                 uint32_t seed_term, int global_moves, uint32_t chain0) {
   extern __shared__ uint32_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = L * L;
@@ -120,10 +120,11 @@ plane_qmc_kernel(const float* __restrict__ w,
       smem[wd * S + il] = s_in[base + static_cast<size_t>(wd) * n + il];
   cluster.sync();  // every band is loaded before any is read
 
-  // uid = chain*P*R*C + k*R*C + r*C + c wraps as the int32 JAX code does;
-  // the hash input uid*kGolden + ctr steps by plane_stride*kGolden a slice
-  const uint32_t uid_chain =
-      static_cast<uint32_t>(chain) * static_cast<uint32_t>(P) * plane_stride;
+  // uid = chain*P*R*C + k*R*C + r*C + c wraps as the int32 JAX code does,
+  // the chain counted from chain0 (the first chain of a chain shard); the
+  // hash input uid*kGolden + ctr steps by plane_stride*kGolden a slice
+  const uint32_t uid_chain = (chain0 + static_cast<uint32_t>(chain)) *
+                             static_cast<uint32_t>(P) * plane_stride;
   const uint32_t k_step = plane_stride * mcs::kGolden;
   // the bits of a whole line in its last word
   const uint32_t last_mask = (P & 31) ? (1u << (P & 31)) - 1u : ~0u;
@@ -271,7 +272,8 @@ qmc_local_kernel(const float* __restrict__ w,
                  const float* __restrict__ jp, float teff,
                  const float* __restrict__ src, float* __restrict__ dst,
                  int P, int L, uint32_t row_stride, uint32_t plane_stride,
-                 int m, int p, int t, int xblocks, uint32_t seed_term) {
+                 int m, int p, int t, int xblocks, uint32_t seed_term,
+                 uint32_t chain0) {
   const int n = L * L;
   const int ck = blockIdx.x / xblocks;  // chain * P + k
   const int i = (blockIdx.x - ck * xblocks) * blockDim.x + threadIdx.x;
@@ -300,7 +302,7 @@ qmc_local_kernel(const float* __restrict__ w,
   // uid = chain*P*R*C + k*R*C + r*C + c, wrapping as the int32 JAX code
   const uint32_t chain_stride = static_cast<uint32_t>(P) * plane_stride;
   const uint32_t uid =
-      static_cast<uint32_t>(chain) * chain_stride +
+      (chain0 + static_cast<uint32_t>(chain)) * chain_stride +
       static_cast<uint32_t>(k) * plane_stride +
       static_cast<uint32_t>(r) * row_stride + static_cast<uint32_t>(c);
   const float u = mcs::uniform01(mcs::counter(seed_term, t, p), uid);
@@ -316,7 +318,7 @@ qmc_line_kernel(const float* __restrict__ w,
                 const float* __restrict__ src,
                 float* __restrict__ dst, int P, int L, uint32_t row_stride,
                 uint32_t plane_stride, int color, int t, int xblocks,
-                uint32_t seed_term) {
+                uint32_t seed_term, uint32_t chain0) {
   const int n = L * L;
   const int chain = blockIdx.x / xblocks;
   const int i = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
@@ -342,7 +344,8 @@ qmc_line_kernel(const float* __restrict__ w,
   }
   // one decision per line, from the k = 0 plane's uid
   const uint32_t chain_stride = static_cast<uint32_t>(P) * plane_stride;
-  const uint32_t uid = static_cast<uint32_t>(chain) * chain_stride +
+  const uint32_t uid = (chain0 + static_cast<uint32_t>(chain)) *
+                           chain_stride +
                        static_cast<uint32_t>(r) * row_stride +
                        static_cast<uint32_t>(c);
   const float u = mcs::uniform01(mcs::line_counter(seed_term, t, color), uid);
@@ -360,15 +363,16 @@ qmc_line_kernel(const float* __restrict__ w,
 // float32 planes jr, jl, jd, ju, h; b_sched and jp: (steps,) float32; s_in,
 // s_out: (chains, ceil(P/32), L*L) uint32 words, bit k % 32 of word k / 32
 // the sign of slice k. row_stride = C and plane_stride = R*C are the uid
-// strides, m the number of local phases. Launches on `stream` and returns
-// cudaGetLastError().
+// strides, m the number of local phases; chain0: the global index of the
+// first chain, which the uids count from (a chain shard; 0 unsharded).
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int plane_qmc_anneal(const float* w, const float* b_sched,
                                 const float* jp, float teff,
                                 const uint32_t* s_in, uint32_t* s_out,
                                 int chains, int P, int m, int R, int threads,
                                 int L, int row_stride, int plane_stride,
                                 int steps, int seed, int global_moves,
-                                void* stream) {
+                                int chain0, void* stream) {
   if (chains == 0 || P == 0 || L == 0) return cudaSuccess;
   const auto kernel = kernel_for(P);
   cudaLaunchConfig_t cfg;
@@ -383,7 +387,8 @@ extern "C" int plane_qmc_anneal(const float* w, const float* b_sched,
                          s_out, P, m, R, L,
                          static_cast<uint32_t>(row_stride),
                          static_cast<uint32_t>(plane_stride), steps,
-                         seed_term, global_moves);
+                         seed_term, global_moves,
+                         static_cast<uint32_t>(chain0));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -400,7 +405,7 @@ extern "C" int plane_qmc_max_active_clusters(int P, int R, int threads,
 // ordered so that the last one writes s_out; s_in is only read. Stores the
 // number of kernels it launched in *launched (a host pointer); returns the
 // first launch error, checked after the first step, or cudaGetLastError()
-// at the end.
+// at the end; chain0 as for plane_qmc_anneal.
 // With `energies` (a (steps, chains) float32 device buffer; null: none),
 // the energy kernel (energy.cuh) writes each chain's best-slice energy after
 // every step into row t, one launch a step, counted in *energy_launched (a
@@ -412,7 +417,8 @@ extern "C" int plane_qmc_phased_anneal(const float* w, const float* b_sched,
                                        int L, int row_stride,
                                        int plane_stride, int m, int steps,
                                        int seed, int global_moves,
-                                       float* energies, void* stream,
+                                       int chain0, float* energies,
+                                       void* stream,
                                        long long* launched,
                                        long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -446,7 +452,7 @@ extern "C" int plane_qmc_phased_anneal(const float* w, const float* b_sched,
       float* dst = next_dst();
       qmc_local_kernel<<<grid_local, kThreads, 0, st>>>(
           w, b_sched, jp, teff, src, dst, P, L, rs, ps, m, p, t, xblocks,
-          seed_term);
+          seed_term, static_cast<uint32_t>(chain0));
       src = dst;
     }
     if (global_moves) {
@@ -454,7 +460,7 @@ extern "C" int plane_qmc_phased_anneal(const float* w, const float* b_sched,
         float* dst = next_dst();
         qmc_line_kernel<<<grid_line, kThreads, 0, st>>>(
             w, b_sched, teff, src, dst, P, L, rs, ps, color, t, xblocks,
-            seed_term);
+            seed_term, static_cast<uint32_t>(chain0));
         src = dst;
       }
     }

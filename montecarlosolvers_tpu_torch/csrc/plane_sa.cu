@@ -213,13 +213,18 @@ sa_plane_phase_kernel(const float* __restrict__ w,
 // (steps,) float32; s_in, s_out: (ceil(chains/C), L*L) uint32 words, bit k
 // of word g the sign of chain g*C + k. row_stride = C and plane_stride =
 // R*C are the uid strides of the padded plane. One cluster of R CTAs of
-// `threads` threads per group. Launches on `stream` and returns
-// cudaGetLastError().
+// `threads` threads per group; chain0: the global index of the first chain,
+// which the uids count from (a chain shard; 0 unsharded). Launches on
+// `stream` and returns cudaGetLastError().
+//
+// chain0 never reaches the kernels: the hash input uid*kGolden + ctr has no
+// XOR, so a uid offset of chain0*R*C is the seed-term offset
+// chain0*R*C*kGolden (mod 2^32), and the kernels stay as they are.
 extern "C" int plane_sa_anneal(const float* w, const float* sched,
                                const uint32_t* s_in, uint32_t* s_out,
                                int chains, int C, int R, int threads, int L,
                                int row_stride, int plane_stride, int steps,
-                               int seed, void* stream) {
+                               int seed, int chain0, void* stream) {
   if (chains == 0 || L == 0) return cudaSuccess;
   const int groups = (chains + C - 1) / C;
   cudaLaunchConfig_t cfg;
@@ -229,7 +234,10 @@ extern "C" int plane_sa_anneal(const float* w, const float* sched,
                                       static_cast<cudaStream_t>(stream),
                                       &cfg, &attr);
   if (e != cudaSuccess) return e;
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const uint32_t seed_term =
+      static_cast<uint32_t>(seed) * mcs::kSeedMult +
+      static_cast<uint32_t>(chain0) * static_cast<uint32_t>(plane_stride) *
+          mcs::kGolden;
   e = cudaLaunchKernelEx(&cfg, plane_sa_kernel, w, sched, s_in, s_out,
                          chains, C, R, L, static_cast<uint32_t>(row_stride),
                          static_cast<uint32_t>(plane_stride), steps,
@@ -250,7 +258,7 @@ extern "C" int plane_sa_max_active_clusters(int R, int threads, int L,
 // ordered so that the last one writes s_out; s_in is only read. Stores the
 // number of kernels it launched in *launched (a host pointer); returns the
 // first launch error, checked after the first step, or cudaGetLastError()
-// at the end.
+// at the end; chain0 as for plane_sa_anneal.
 // With `energies` (a (steps, chains) float32 device buffer; null: none),
 // the energy kernel (energy.cuh) writes each chain's energy after
 // every step into row t, one launch a step, counted in *energy_launched (a
@@ -259,7 +267,7 @@ extern "C" int plane_sa_phased_anneal(const float* w, const float* sched,
                                       const float* s_in, float* s_out,
                                       float* scratch, int chains, int L,
                                       int row_stride, int plane_stride,
-                                      int steps, int seed,
+                                      int steps, int seed, int chain0,
                                       float* energies, void* stream,
                                       long long* launched,
                                       long long* energy_launched) {
@@ -273,7 +281,10 @@ extern "C" int plane_sa_phased_anneal(const float* w, const float* sched,
     return cudaMemcpyAsync(s_out, s_in, chains * n * sizeof(float),
                            cudaMemcpyDeviceToDevice, st);
   }
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const uint32_t seed_term =
+      static_cast<uint32_t>(seed) * mcs::kSeedMult +
+      static_cast<uint32_t>(chain0) * static_cast<uint32_t>(plane_stride) *
+          mcs::kGolden;
   const int xblocks = static_cast<int>((n + kThreads - 1) / kThreads);
   const dim3 grid(static_cast<unsigned>(xblocks) * chains);
   const float* src = s_in;

@@ -69,6 +69,14 @@
 //   None: at P = 40 an even L above 674, at P = 128 above 480) runs on the
 //   per-phase kernels below (split_qmc_phased_anneal): the state in device
 //   memory, four launches a step, chains along gridDim.x.
+// - chain0, the global index of the first chain of a chain shard
+//   (parallel/mesh.py), counts every uid from the global chain, so a shard
+//   draws the unsharded run's uniforms; 0 unsharded.
+// - The shard kernels S1 and S2 (ops/shard_kernels.py) of the
+//   Trotter-sharded engine (parallel/trotter.py::anneal_sharded_split) are
+//   the per-phase kernels on a rank's slab of quarter rows: the ring
+//   partner past the slab's edge is a halo row, and the uids count from the
+//   global row and Q.
 //
 // Trouble spots, each handled where it bites below: the Trotter ring
 // (indices mod Q; at Q = 1 both ring terms are the same element), the FMA
@@ -133,7 +141,7 @@ split_qmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  float* __restrict__ xo_out, float* __restrict__ ye_out,
                  float* __restrict__ yo_out, int Q, int R, int L, int nslots,
                  int steps, uint32_t seed_term, int global_moves,
-                 int stride_t, int stride_c) {
+                 int stride_t, int stride_c, uint32_t chain0) {
   extern __shared__ uint32_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int K = L / 2;
@@ -167,6 +175,9 @@ split_qmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
   const uint32_t qnh = static_cast<uint32_t>(Q) * static_cast<uint32_t>(nh);
   // the hash input uid*kGolden + ctr steps by Nh*kGolden from q to q + 1
   const uint32_t q_step = static_cast<uint32_t>(nh) * mcs::kGolden;
+  // the chain of the uids, counted from chain0 (the first chain of a chain
+  // shard)
+  const uint32_t uchain = chain0 + static_cast<uint32_t>(chain);
   // with kHw, a site's slices draw in slice order from the thread's stream
   mcs::Uniforms<kHw> rng(seed_term, mcs::thread_stream());
   for (int t = 0; t < steps; ++t) {
@@ -189,7 +200,7 @@ split_qmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
       mcs::load_weights(w, color, nh, nslots, j, wv);
       const float hj = __ldg(h + color * nh + j);
       // uid = chain*4QNh + idx*QNh + q*Nh + site, wrapping as int32
-      uint32_t x = (static_cast<uint32_t>(chain) * (4u * qnh) +
+      uint32_t x = (uchain * (4u * qnh) +
                     static_cast<uint32_t>(idx) * qnh +
                     static_cast<uint32_t>(j)) *
                        mcs::kGolden +
@@ -266,7 +277,7 @@ split_qmc_kernel(const float* __restrict__ w, const float* __restrict__ h,
         const float de = __fmul_rn(bc, __fadd_rn(sums[0], sums[1]));
         // uid = chain*2Nh + color*Nh + site, wrapping as int32
         const uint32_t x =
-            (static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
+            (uchain * (2u * static_cast<uint32_t>(nh)) +
              static_cast<uint32_t>(color * nh + j)) *
                 mcs::kGolden +
             ctr;
@@ -297,17 +308,27 @@ size_t smem_bytes(int Q, int L, int R) {
          mcs::band_stride(L, R, L / 2) * sizeof(uint32_t);
 }
 
-// ---- the per-phase kernels, for shapes no cluster holds
+// ---- the per-phase kernels, for shapes no cluster holds, and the shard
+// kernels S1 and S2 of the Trotter-sharded split engine
+// (parallel/trotter.py::anneal_sharded_split), which are the same kernels
+// on a rank's slab of quarter rows q0 .. q0 + Q - 1 of a Qg-row state
+// (kShard): the unsharded route is the one-rank case (no halo, q0 = 0,
+// Qg = Q), compiled without the shard's arguments, so it is the kernel it
+// was
 
 // One local phase: blockIdx.y < Q updates quarter s0 (its q = blockIdx.y)
 // and blockIdx.y >= Q updates quarter s1, for chain blockIdx.x / xblocks.
 // Quarter `which` reads its spatial neighbours in o<which> at the same q,
 // and its Trotter neighbours in r<which> at q and at q-1 (which 0) or q+1
-// (which 1), as the cluster kernel's `local`. The counter index is idx0 +
-// which (0, 1 in phase X; 2, 3 in phase Y); with kHw the uniform is the
-// first draw of the thread's stream of this launch, number `launch`;
-// kPerChain as for split_qmc_kernel.
-template <bool kHw, bool kPerChain>
+// (which 1), as the cluster kernel's `local`. Past the slab's edge that
+// partner is, with kShard, the neighbour rank's row halo<which>[chain *
+// halo_stride + j] that the ring exchange filled (S1), else the ring's
+// wrap mod Q (at Q = 1 it is q itself). The counter index is idx0 + which
+// (0, 1 in phase X; 2, 3 in phase Y), the uid (chain0 + chain)*4QgNh +
+// idx*QgNh + (q0 + q)*Nh + j, the single-device draw at the global chain
+// and row; with kHw the uniform is the first draw of the thread's stream
+// of this launch, number `launch`; kPerChain as for split_qmc_kernel.
+template <bool kHw, bool kPerChain, bool kShard>
 __global__ void __launch_bounds__(kThreads)
 qmc_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  const float* __restrict__ b_sched,
@@ -317,7 +338,10 @@ qmc_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  const float* __restrict__ r1, int color1, int idx0, int Q,
                  int nh, int K, int nslots, int xblocks, int t,
                  uint32_t seed_term, uint32_t launch, int stride_t,
-                 int stride_c) {
+                 int stride_c, uint32_t chain0,
+                 const float* __restrict__ halo0,
+                 const float* __restrict__ halo1, int halo_stride,
+                 uint32_t q0, uint32_t Qg) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -327,16 +351,21 @@ qmc_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
   const float* o = which ? o1 : o0;
   const float* r = which ? r1 : r0;
   const int color = which ? color1 : color0;
-  // Trotter ring partner, mod Q (at Q = 1 it is q itself)
-  const int qn = which ? (q + 1 == Q ? 0 : q + 1) : (q == 0 ? Q - 1 : q - 1);
   const size_t row = (static_cast<size_t>(chain) * Q + q) * nh;
-  const size_t row_n = (static_cast<size_t>(chain) * Q + qn) * nh;
+  // Trotter ring partner, mod Q (at Q = 1 it is q itself); past the slab's
+  // edge, with kShard, the halo row
+  const int qn = which ? (q + 1 == Q ? 0 : q + 1) : (q == 0 ? Q - 1 : q - 1);
+  const bool edge = which ? q + 1 == Q : q == 0;
+  const float* halo = which ? halo1 : halo0;
+  const float partner =
+      kShard && edge ? halo[static_cast<size_t>(chain) * halo_stride + j]
+                     : r[(static_cast<size_t>(chain) * Q + qn) * nh + j];
 
   const float sv = s[row + j];
   const float f = __fadd_rn(mcs::half_field(o + row, w, color, nh, K,
                                             nslots, j),
                             __ldg(h + color * nh + j));
-  const float tr = __fadd_rn(r[row + j], r[row_n + j]);
+  const float tr = __fadd_rn(r[row + j], partner);
   const float bc = -2.0f * b_sched[t];
   const float jpt =
       kPerChain ? __ldg(jp + static_cast<size_t>(t) * stride_t +
@@ -345,10 +374,12 @@ qmc_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
   const float de = __fadd_rn(__fmul_rn(bc * sv, f),
                              __fmul_rn(__fmul_rn(2.0f * sv, jpt), tr));
   const int idx = idx0 + which;
-  const uint32_t qnh = static_cast<uint32_t>(Q) * static_cast<uint32_t>(nh);
-  const uint32_t uid = static_cast<uint32_t>(chain) * (4u * qnh) +
+  const uint32_t qnh =
+      (kShard ? Qg : static_cast<uint32_t>(Q)) * static_cast<uint32_t>(nh);
+  const uint32_t qg = (kShard ? q0 : 0u) + static_cast<uint32_t>(q);
+  const uint32_t uid = (chain0 + static_cast<uint32_t>(chain)) * (4u * qnh) +
                        static_cast<uint32_t>(idx) * qnh +
-                       static_cast<uint32_t>(q) * static_cast<uint32_t>(nh) +
+                       qg * static_cast<uint32_t>(nh) +
                        static_cast<uint32_t>(j);
   bool acc;
   if constexpr (kHw) {
@@ -363,38 +394,54 @@ qmc_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
 
 // Whole-line moves of `color`, one thread per (chain = blockIdx.x /
 // xblocks, site), as the cluster kernel's line moves; kHw as for
-// qmc_local_kernel.
-template <bool kHw>
+// qmc_local_kernel. The line sum is sum_q s1 f1 + sum_q s2 f2 over the
+// rows in order. On a rank's slab (kShard) it is split in two launches
+// (S2): with `part` the kernel writes the slab's part of the sum there
+// (chains, nh) and stops; the ranks' parts are then summed (all_reduce),
+// and with `total` it accepts on that sum instead of its own.
+template <bool kHw, bool kShard>
 __global__ void __launch_bounds__(kThreads)
 qmc_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
                 const float* __restrict__ b_sched, float teff, float* s1,
                 const float* __restrict__ o1, float* s2,
                 const float* __restrict__ o2, int color, int Q, int nh, int K,
                 int nslots, int xblocks, int t, uint32_t seed_term,
-                uint32_t launch) {
+                uint32_t launch, uint32_t chain0, float* __restrict__ part,
+                const float* __restrict__ total) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
   const size_t base = static_cast<size_t>(chain) * Q * nh;
-  const float hj = __ldg(h + color * nh + j);
-  float sum1 = -0.0f;
-  for (int q = 0; q < Q; ++q) {
-    const size_t row = base + static_cast<size_t>(q) * nh;
-    const float f = __fadd_rn(
-        mcs::half_field(o1 + row, w, color, nh, K, nslots, j), hj);
-    sum1 = __fadd_rn(sum1, __fmul_rn(s1[row + j], f));
+  float sum;
+  if (kShard && total != nullptr) {
+    sum = total[static_cast<size_t>(chain) * nh + j];
+  } else {
+    const float hj = __ldg(h + color * nh + j);
+    float sum1 = -0.0f;  // -0.0 + x == x: the sum starts at its first term
+    for (int q = 0; q < Q; ++q) {
+      const size_t row = base + static_cast<size_t>(q) * nh;
+      const float f = __fadd_rn(
+          mcs::half_field(o1 + row, w, color, nh, K, nslots, j), hj);
+      sum1 = __fadd_rn(sum1, __fmul_rn(s1[row + j], f));
+    }
+    float sum2 = -0.0f;
+    for (int q = 0; q < Q; ++q) {
+      const size_t row = base + static_cast<size_t>(q) * nh;
+      const float f = __fadd_rn(
+          mcs::half_field(o2 + row, w, color, nh, K, nslots, j), hj);
+      sum2 = __fadd_rn(sum2, __fmul_rn(s2[row + j], f));
+    }
+    sum = __fadd_rn(sum1, sum2);
+    if (kShard && part != nullptr) {
+      part[static_cast<size_t>(chain) * nh + j] = sum;
+      return;
+    }
   }
-  float sum2 = -0.0f;
-  for (int q = 0; q < Q; ++q) {
-    const size_t row = base + static_cast<size_t>(q) * nh;
-    const float f = __fadd_rn(
-        mcs::half_field(o2 + row, w, color, nh, K, nslots, j), hj);
-    sum2 = __fadd_rn(sum2, __fmul_rn(s2[row + j], f));
-  }
-  const float de = __fmul_rn(-2.0f * b_sched[t], __fadd_rn(sum1, sum2));
+  const float de = __fmul_rn(-2.0f * b_sched[t], sum);
   const int idx = 4 + color;
   const uint32_t uid =
-      static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
+      (chain0 + static_cast<uint32_t>(chain)) *
+          (2u * static_cast<uint32_t>(nh)) +
       static_cast<uint32_t>(color) * static_cast<uint32_t>(nh) +
       static_cast<uint32_t>(j);
   bool acc;
@@ -414,6 +461,41 @@ qmc_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
   }
 }
 
+// The quarters of local phase X (0: xe with color A and xo with B, against
+// ye, yo) or Y (1: ye with B and yo with A, against the new X), as
+// qmc_local_kernel takes them, and of the line moves of color A (0: sites
+// xe + yo, neighbours ye / xo) or B (1: ye + xo against xe / yo).
+struct PhaseQuarters {
+  float* s0;
+  const float* o0;
+  const float* r0;
+  int color0;
+  float* s1;
+  const float* o1;
+  const float* r1;
+  int color1;
+  int idx0;
+};
+
+PhaseQuarters phase_quarters(int phase, float* xe, float* xo, float* ye,
+                             float* yo) {
+  return phase == 0 ? PhaseQuarters{xe, ye, yo, 0, xo, yo, ye, 1, 0}
+                    : PhaseQuarters{ye, xe, xo, 1, yo, xo, xe, 0, 2};
+}
+
+struct LineQuarters {
+  float* s1;
+  const float* o1;
+  float* s2;
+  const float* o2;
+};
+
+LineQuarters line_quarters(int color, float* xe, float* xo, float* ye,
+                           float* yo) {
+  return color == 0 ? LineQuarters{xe, ye, yo, xo}
+                    : LineQuarters{ye, xe, xo, yo};
+}
+
 }  // namespace
 
 // Anneal `chains` Trotter states over `steps` schedule points in one launch,
@@ -423,7 +505,9 @@ qmc_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // uniforms from each thread's stream (hw_rng.cuh). stride_c != 0 reads a
 // J_perp per chain, jp[t * stride_t + chain * stride_c] (the hash only; the
 // line moves read no J_perp); step0: the step the hash counts the first step
-// as. Launches on `stream` and returns cudaGetLastError().
+// as; chain0: the global index of the first chain, which the uids count
+// from (a chain shard; 0 unsharded). Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int split_qmc_anneal(const float* w, const float* h,
                                 const float* b_sched, const float* jp,
                                 float teff, const float* xe_in,
@@ -433,7 +517,7 @@ extern "C" int split_qmc_anneal(const float* w, const float* h,
                                 int R, int threads, int L, int nslots,
                                 int steps, int seed, int global_moves,
                                 int hw_rng, int stride_t, int stride_c,
-                                int step0, void* stream) {
+                                int step0, int chain0, void* stream) {
   if (chains == 0 || Q == 0 || L == 0) return cudaSuccess;
   if (hw_rng && stride_c != 0) return cudaErrorInvalidValue;
   const auto kernel = hw_rng ? split_qmc_kernel<true, false>
@@ -453,7 +537,7 @@ extern "C" int split_qmc_anneal(const float* w, const float* h,
   e = cudaLaunchKernelEx(&cfg, kernel, w, h, b_sched, jp, teff,
                          xe_in, xo_in, ye_in, yo_in, xe, xo, ye, yo, Q, R, L,
                          nslots, steps, seed_term, global_moves, stride_t,
-                         stride_c);
+                         stride_c, static_cast<uint32_t>(chain0));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -470,9 +554,10 @@ extern "C" int split_qmc_max_active_clusters(int Q, int R, int threads,
 // The same anneal on the per-phase kernels, the state in device memory:
 // the inputs are copied to the outputs, which are then updated in place,
 // four launches a step (two without global moves); hw_rng, stride_t,
-// stride_c and step0 as for split_qmc_anneal. Stores the number of kernels it launched in *launched
-// (a host pointer); returns the first launch error, checked after the
-// first step, or cudaGetLastError() at the end.
+// stride_c, step0 and chain0 as for split_qmc_anneal. Stores the number
+// of kernels it launched in *launched (a host pointer); returns the first
+// launch error, checked after the first step, or cudaGetLastError() at the
+// end.
 // With `energies` (a (steps, chains) float32 device buffer; null: none),
 // the energy kernel (energy.cuh) writes each chain's best-slice energy after
 // every step into row t, one launch a step, counted in *energy_launched (a
@@ -489,7 +574,8 @@ extern "C" int split_qmc_phased_anneal(const float* w, const float* h,
                                        int nslots, int steps, int seed,
                                        int global_moves, int hw_rng,
                                        int stride_t, int stride_c, int step0,
-                                       float* energies, void* stream,
+                                       int chain0, float* energies,
+                                       void* stream,
                                        long long* launched,
                                        long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -510,31 +596,33 @@ extern "C" int split_qmc_phased_anneal(const float* w, const float* h,
   const int xblocks = (nh + kThreads - 1) / kThreads;
   const dim3 grid_local(xblocks * chains, 2 * Q);
   const dim3 grid_line(xblocks * chains);
-  const auto local = hw_rng ? qmc_local_kernel<true, false>
-                     : stride_c ? qmc_local_kernel<false, true>
-                                : qmc_local_kernel<false, false>;
-  const auto line = hw_rng ? qmc_line_kernel<true> : qmc_line_kernel<false>;
+  const auto local = hw_rng ? qmc_local_kernel<true, false, false>
+                     : stride_c ? qmc_local_kernel<false, true, false>
+                                : qmc_local_kernel<false, false, false>;
+  const auto line = hw_rng ? qmc_line_kernel<true, false>
+                           : qmc_line_kernel<false, false>;
   for (int t = 0; t < steps; ++t) {
-    // phase X: xe (color A) and xo (color B) against ye, yo
-    local<<<grid_local, kThreads, 0, st>>>(
-        w, h, b_sched, jp, teff, xe, ye, yo, 0, xo, yo, ye, 1, 0, Q, nh, K,
-        nslots, xblocks, t, seed_term, static_cast<uint32_t>(*launched),
-        stride_t, stride_c);
-    // phase Y, after X in stream order: ye (B) and yo (A) against new X
-    local<<<grid_local, kThreads, 0, st>>>(
-        w, h, b_sched, jp, teff, ye, xe, xo, 1, yo, xo, xe, 0, 2, Q, nh, K,
-        nslots, xblocks, t, seed_term, static_cast<uint32_t>(*launched + 1),
-        stride_t, stride_c);
+    // phase X, then phase Y against the new X in stream order
+    for (int phase = 0; phase < 2; ++phase) {
+      const PhaseQuarters u = phase_quarters(phase, xe, xo, ye, yo);
+      local<<<grid_local, kThreads, 0, st>>>(
+          w, h, b_sched, jp, teff, u.s0, u.o0, u.r0, u.color0, u.s1, u.o1,
+          u.r1, u.color1, u.idx0, Q, nh, K, nslots, xblocks, t, seed_term,
+          static_cast<uint32_t>(*launched + phase), stride_t, stride_c,
+          static_cast<uint32_t>(chain0), nullptr, nullptr, 0, 0u,
+          static_cast<uint32_t>(Q));
+    }
     *launched += 2;
     if (global_moves) {
-      // lines of color A: sites xe + yo, neighbours ye / xo
-      line<<<grid_line, kThreads, 0, st>>>(
-          w, h, b_sched, teff, xe, ye, yo, xo, 0, Q, nh, K, nslots, xblocks,
-          t, seed_term, static_cast<uint32_t>(*launched));
-      // lines of color B, against the A quarters line A just updated
-      line<<<grid_line, kThreads, 0, st>>>(
-          w, h, b_sched, teff, ye, xe, xo, yo, 1, Q, nh, K, nslots, xblocks,
-          t, seed_term, static_cast<uint32_t>(*launched + 1));
+      // lines of color A, then of B against the quarters A just updated
+      for (int color = 0; color < 2; ++color) {
+        const LineQuarters v = line_quarters(color, xe, xo, ye, yo);
+        line<<<grid_line, kThreads, 0, st>>>(
+            w, h, b_sched, teff, v.s1, v.o1, v.s2, v.o2, color, Q, nh, K,
+            nslots, xblocks, t, seed_term,
+            static_cast<uint32_t>(*launched + color),
+            static_cast<uint32_t>(chain0), nullptr, nullptr);
+      }
       *launched += 2;
     }
     if (energies != nullptr) {
@@ -553,4 +641,61 @@ extern "C" int split_qmc_phased_anneal(const float* w, const float* h,
 
 extern "C" const char* split_qmc_anneal_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// S1 on a rank's slab of quarter rows (qmc_local_kernel): local phase
+// `phase` (0: X, 1: Y) of step t of the (steps,) b_sched and jp on the
+// quarters xe, xo, ye, yo (chains, Qs, nh), updated in place, with the
+// halo rows halo0 (the previous rank's last row of the phase's first ring
+// quarter) and halo1 (the next rank's first row of its second), their
+// chains halo_stride floats apart; seed as for split_qmc_anneal; chain0,
+// q0 and Q the slab's global first chain, first row and the state's Q.
+// One launch on `stream`; returns cudaGetLastError().
+extern "C" int split_qmc_shard_phase(
+    const float* w, const float* h, const float* b_sched, const float* jp,
+    float teff, float* xe, float* xo, float* ye, float* yo,
+    const float* halo0, const float* halo1, int halo_stride, int phase,
+    int chains, int Qs, int nh, int K, int nslots, int t, int seed,
+    int chain0, int q0, int Q, void* stream) {
+  if (chains == 0 || Qs == 0 || nh == 0) return cudaSuccess;
+  if (halo0 == nullptr || halo1 == nullptr) return cudaErrorInvalidValue;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const int xblocks = (nh + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned>(xblocks) * chains, 2 * Qs);
+  const PhaseQuarters u = phase_quarters(phase, xe, xo, ye, yo);
+  qmc_local_kernel<false, false, true><<<grid, kThreads, 0,
+                                         static_cast<cudaStream_t>(stream)>>>(
+      w, h, b_sched, jp, teff, u.s0, u.o0, u.r0, u.color0, u.s1, u.o1, u.r1,
+      u.color1, u.idx0, Qs, nh, K, nslots, xblocks, t, seed_term, 0u, 1, 0,
+      static_cast<uint32_t>(chain0), halo0, halo1, halo_stride,
+      static_cast<uint32_t>(q0), static_cast<uint32_t>(Q));
+  return cudaGetLastError();
+}
+
+// S2 on a rank's slab (qmc_line_kernel), the line moves of `color` at step
+// t on the quarters xe, xo, ye, yo (chains, Qs, nh): with `part` (chains,
+// nh) the slab's part of the line sums is written there and no spin moves;
+// else the lines accept on the ranks' summed parts `total` (chains, nh)
+// and the slab's rows flip in place; seed and chain0 as for
+// split_qmc_shard_phase. One launch on `stream`; returns
+// cudaGetLastError().
+extern "C" int split_qmc_shard_line(const float* w, const float* h,
+                                    const float* b_sched, float teff,
+                                    float* xe, float* xo, float* ye,
+                                    float* yo, float* part,
+                                    const float* total, int color,
+                                    int chains, int Qs, int nh, int K,
+                                    int nslots, int t, int seed, int chain0,
+                                    void* stream) {
+  if (chains == 0 || nh == 0) return cudaSuccess;
+  if ((part == nullptr) == (total == nullptr)) return cudaErrorInvalidValue;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const int xblocks = (nh + kThreads - 1) / kThreads;
+  const LineQuarters v = line_quarters(color, xe, xo, ye, yo);
+  qmc_line_kernel<false, true><<<static_cast<unsigned>(xblocks) * chains,
+                                 kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      w, h, b_sched, teff, v.s1, v.o1, v.s2, v.o2, color, Qs, nh, K, nslots,
+      xblocks, t, seed_term, 0u, static_cast<uint32_t>(chain0), part, total);
+  return cudaGetLastError();
 }

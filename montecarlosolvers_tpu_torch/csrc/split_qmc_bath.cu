@@ -202,7 +202,8 @@ split_qmc_bath_kernel(const float* __restrict__ w,
                       const float* __restrict__ b_in,
                       float* __restrict__ a_out, float* __restrict__ b_out,
                       int P_run, int R, int L, int nslots, int steps,
-                      uint32_t seed_term, int global_moves) {
+                      uint32_t seed_term, int global_moves,
+                      uint32_t chain0) {
   extern __shared__ uint32_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int P = kP > 0 ? kP : P_run;
@@ -233,9 +234,10 @@ split_qmc_bath_kernel(const float* __restrict__ w,
   }
   cluster.sync();  // every band is loaded before any is read
 
-  // uid = chain*2Nh + half*Nh + site, wrapping as the int32 JAX code does
-  const uint32_t uid0 =
-      static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh));
+  // uid = chain*2Nh + half*Nh + site, wrapping as the int32 JAX code does,
+  // the chain counted from chain0 (the first chain of a chain shard)
+  const uint32_t uchain = chain0 + static_cast<uint32_t>(chain);
+  const uint32_t uid0 = uchain * (2u * static_cast<uint32_t>(nh));
   // the bits of a whole line in word wd (the last word may be partial)
   const uint32_t last_mask = (P & 31) ? (1u << (P & 31)) - 1u : ~0u;
   // with kHw, a site's slices draw in slice order from the thread's stream,
@@ -291,7 +293,7 @@ split_qmc_bath_kernel(const float* __restrict__ w,
         const int own = half ? half_b : 0;
         const int other = half ? 0 : half_b;
         const uint32_t ctr = mcs::counter(seed_term, t, phase);
-        const uint32_t quid0 = static_cast<uint32_t>(chain) * (4u * qnh) +
+        const uint32_t quid0 = uchain * (4u * qnh) +
                                static_cast<uint32_t>(phase) * qnh;
         for (int il = threadIdx.x; il < band.nb; il += blockDim.x) {
           const int j = band.lo + il;
@@ -420,7 +422,7 @@ split_qmc_bath_kernel(const float* __restrict__ w,
 using KernelFn = void (*)(const float*, const float*, const float*,
                           const float*, const float*, float, float,
                           const float*, const float*, float*, float*, int,
-                          int, int, int, int, uint32_t, int);
+                          int, int, int, int, uint32_t, int, uint32_t);
 
 template <int... Ps>
 auto kernel_table(std::integer_sequence<int, Ps...>) {
@@ -486,7 +488,7 @@ bath_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
                   const float* __restrict__ bath, float teff, float two_teff,
                   float* s, const float* __restrict__ o, int half, int P,
                   int nh, int K, int nslots, int xblocks, int t,
-                  uint32_t seed_term, uint32_t launch) {
+                  uint32_t seed_term, uint32_t launch, uint32_t chain0) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -496,7 +498,8 @@ bath_local_kernel(const float* __restrict__ w, const float* __restrict__ h,
   const float jpt = jp[t];
   const float hj = __ldg(h + half * nh + j);
   const uint32_t x0 =
-      (static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
+      ((chain0 + static_cast<uint32_t>(chain)) *
+           (2u * static_cast<uint32_t>(nh)) +
        static_cast<uint32_t>(half * nh + j)) *
       mcs::kGolden;
   mcs::Uniforms<kHw> rng(seed_term, mcs::phase_stream(launch));
@@ -542,7 +545,8 @@ bath_colored_local_kernel(const float* __restrict__ w,
                           float* __restrict__ dst,
                           const float* __restrict__ o, int half, int par,
                           int phase, int P, int nh, int K, int nslots,
-                          int xblocks, int t, uint32_t seed_term) {
+                          int xblocks, int t, uint32_t seed_term,
+                          uint32_t chain0) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -554,7 +558,7 @@ bath_colored_local_kernel(const float* __restrict__ w,
   const float hj = __ldg(h + half * nh + j);
   const uint32_t qnh = static_cast<uint32_t>(P / 2) *
                        static_cast<uint32_t>(nh);
-  const uint32_t x0 = static_cast<uint32_t>(chain) * (4u * qnh) +
+  const uint32_t x0 = (chain0 + static_cast<uint32_t>(chain)) * (4u * qnh) +
                       static_cast<uint32_t>(phase) * qnh +
                       static_cast<uint32_t>(j);
   const uint32_t ctr = mcs::counter(seed_term, t, phase);
@@ -603,7 +607,7 @@ bath_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
                  const float* __restrict__ b_sched, float teff, float* s,
                  const float* __restrict__ o, int half, int P, int nh, int K,
                  int nslots, int xblocks, int t, uint32_t seed_term,
-                 uint32_t launch) {
+                 uint32_t launch, uint32_t chain0) {
   const int chain = blockIdx.x / xblocks;
   const int j = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
   if (j >= nh) return;
@@ -624,7 +628,8 @@ bath_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
   if (kColored) sum = __fadd_rn(sum, odd);
   const float de = __fmul_rn(-2.0f * b_sched[t], sum);
   const uint32_t uid =
-      static_cast<uint32_t>(chain) * (2u * static_cast<uint32_t>(nh)) +
+      (chain0 + static_cast<uint32_t>(chain)) *
+          (2u * static_cast<uint32_t>(nh)) +
       static_cast<uint32_t>(half * nh + j);
   const uint32_t ctr =
       mcs::counter(seed_term, t, kColored ? 4 + half : 2 * P + half);
@@ -644,14 +649,16 @@ bath_line_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // nh), h: (2, nh), b_sched and jp: (steps,), bath: (P, P), halves
 // (chains, P, nh) of +/-1 with nh = L*L/2; all float32 device pointers.
 // teff and two_teff are T_eff and 2*T_eff rounded to float32; hw_rng != 0
-// draws the uniforms from each thread's stream (hw_rng.cuh). Launches on
-// `stream` and returns cudaGetLastError().
+// draws the uniforms from each thread's stream (hw_rng.cuh); chain0: the
+// global index of the first chain, which the uids count from (a chain
+// shard; 0 unsharded). Launches on `stream` and returns
+// cudaGetLastError().
 static int launch_cluster(
     KernelFn kernel, const float* w, const float* h, const float* b_sched,
     const float* jp, const float* bath, float teff, float two_teff,
     const float* a_in, const float* b_in, float* a_out, float* b_out,
     int chains, int P, int R, int threads, int L, int nslots, int steps,
-    int seed, int global_moves, void* stream) {
+    int seed, int global_moves, int chain0, void* stream) {
   if (chains == 0 || L == 0) return cudaSuccess;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -663,7 +670,8 @@ static int launch_cluster(
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
   e = cudaLaunchKernelEx(&cfg, kernel, w, h, b_sched, jp, bath, teff,
                          two_teff, a_in, b_in, a_out, b_out, P, R, L, nslots,
-                         steps, seed_term, global_moves);
+                         steps, seed_term, global_moves,
+                         static_cast<uint32_t>(chain0));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -673,11 +681,11 @@ extern "C" int split_qmc_bath_anneal(
     const float* bath, float teff, float two_teff, const float* a_in,
     const float* b_in, float* a_out, float* b_out, int chains, int P, int R,
     int threads, int L, int nslots, int steps, int seed, int global_moves,
-    int hw_rng, void* stream) {
+    int hw_rng, int chain0, void* stream) {
   return launch_cluster(kernel_for(P, hw_rng), w, h, b_sched, jp, bath, teff,
                         two_teff, a_in, b_in, a_out, b_out, chains, P, R,
                         threads, L, nslots, steps, seed, global_moves,
-                        stream);
+                        chain0, stream);
 }
 
 // The colored template (bath_update="colored", even P) of the same anneal on
@@ -689,12 +697,12 @@ extern "C" int split_qmc_bath_colored_anneal(
     const float* bath, float teff, float two_teff, const float* a_in,
     const float* b_in, float* a_out, float* b_out, int chains, int P, int R,
     int threads, int L, int nslots, int steps, int seed, int global_moves,
-    void* stream) {
+    int chain0, void* stream) {
   if (P % 2 || (P + 31) / 32 > kMaxRuntimeWords) return cudaErrorInvalidValue;
   return launch_cluster(kernel_for(P, 0, 1), w, h, b_sched, jp, bath, teff,
                         two_teff, a_in, b_in, a_out, b_out, chains, P, R,
                         threads, L, nslots, steps, seed, global_moves,
-                        stream);
+                        chain0, stream);
 }
 
 // Clusters of R CTAs the card holds at once at this P and L (the hash
@@ -710,7 +718,8 @@ extern "C" int split_qmc_bath_max_active_clusters(int P, int R, int threads,
 // halves (chains, P, nh) are copied to a_out, b_out and updated there in
 // place, two launches a step (half A, then half B against the new A), four
 // with global moves (then the lines of A, then those of B against the
-// flipped A); hw_rng as for split_qmc_bath_anneal. Stores the number of
+// flipped A); hw_rng and chain0 as for split_qmc_bath_anneal. Stores the
+// number of
 // kernels it launched in *launched (a host pointer); returns the first
 // launch error, checked after the first step, or cudaGetLastError() at the
 // end.
@@ -723,7 +732,7 @@ extern "C" int split_qmc_bath_phased_anneal(
     const float* bath, float teff, float two_teff, const float* a_in,
     const float* b_in, float* a_out, float* b_out, int chains, int P, int L,
     int nslots, int steps, int seed, int global_moves, int hw_rng,
-    float* energies, void* stream, long long* launched,
+    int chain0, float* energies, void* stream, long long* launched,
     long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
@@ -751,7 +760,7 @@ extern "C" int split_qmc_bath_phased_anneal(
       local<<<grid, kThreads, 0, st>>>(
           w, h, b_sched, jp, bath, teff, two_teff, halves[half],
           halves[1 - half], half, P, nh, K, nslots, xblocks, t, seed_term,
-          static_cast<uint32_t>(*launched));
+          static_cast<uint32_t>(*launched), static_cast<uint32_t>(chain0));
       *launched += 1;
     }
     if (global_moves) {
@@ -759,7 +768,7 @@ extern "C" int split_qmc_bath_phased_anneal(
         line<<<grid, kThreads, 0, st>>>(
             w, h, b_sched, teff, halves[half], halves[1 - half], half, P, nh,
             K, nslots, xblocks, t, seed_term,
-            static_cast<uint32_t>(*launched));
+            static_cast<uint32_t>(*launched), static_cast<uint32_t>(chain0));
         *launched += 1;
       }
     }
@@ -790,7 +799,8 @@ extern "C" int split_qmc_bath_colored_phased_anneal(
     const float* bath, float teff, float two_teff, const float* a_in,
     const float* b_in, float* a_out, float* b_out, float* a_tmp,
     float* b_tmp, int chains, int P, int L, int nslots, int steps, int seed,
-    int global_moves, float* energies, void* stream, long long* launched,
+    int global_moves, int chain0, float* energies, void* stream,
+    long long* launched,
     long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
@@ -817,7 +827,7 @@ extern "C" int split_qmc_bath_colored_phased_anneal(
       bath_colored_local_kernel<<<grid, kThreads, 0, st>>>(
           w, h, b_sched, jp, bath, teff, two_teff, cur[half], nxt[half],
           cur[1 - half], half, phase & 1, phase, P, nh, K, nslots, xblocks,
-          t, seed_term);
+          t, seed_term, static_cast<uint32_t>(chain0));
       float* done = nxt[half];
       nxt[half] = cur[half];
       cur[half] = done;
@@ -827,7 +837,8 @@ extern "C" int split_qmc_bath_colored_phased_anneal(
       for (int half = 0; half < 2; ++half) {
         bath_line_kernel<false, true><<<grid, kThreads, 0, st>>>(
             w, h, b_sched, teff, cur[half], cur[1 - half], half, P, nh, K,
-            nslots, xblocks, t, seed_term, 0u);
+            nslots, xblocks, t, seed_term, 0u,
+            static_cast<uint32_t>(chain0));
         *launched += 1;
       }
     }

@@ -188,6 +188,13 @@ split_sa_kernel(const float* __restrict__ w, const float* __restrict__ h,
   }
 }
 
+// The seed-term offset of a chain shard from chain0: chain0*2Nh*kGolden,
+// the uid offset chain0*2Nh times the hash's multiplier (split_sa_anneal).
+uint32_t chain_term(int chain0, int L) {
+  return static_cast<uint32_t>(chain0) * 2u *
+         static_cast<uint32_t>(L * (L / 2)) * mcs::kGolden;
+}
+
 // the halves' band; with a temperature per chain 32 floats more
 size_t smem_bytes(int L, int R, bool per_chain = false) {
   return 2 * static_cast<size_t>(mcs::band_stride(L, R, L / 2)) *
@@ -241,17 +248,24 @@ sa_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // threads per group of C chains; hw_rng != 0 draws the uniforms from each
 // thread's stream (hw_rng.cuh). stride_c != 0 reads a temperature per
 // chain, sched[t * stride_t + chain * stride_c] (the hash only); step0: the
-// step the hash counts the first step as. Launches on `stream` and returns
+// step the hash counts the first step as; chain0: the global index of the
+// first chain, which the hash's uids count from (a chain shard of a longer
+// batch; 0 unsharded; the hash only). Launches on `stream` and returns
 // cudaGetLastError().
+//
+// chain0 never reaches the kernels: the hash input uid*kGolden + ctr has no
+// XOR, so a uid offset of chain0*2Nh is the seed-term offset
+// chain0*2Nh*kGolden (mod 2^32), and the kernels stay as they are.
 extern "C" int split_sa_anneal(const float* w, const float* h,
                                const float* sched, const uint32_t* a_in,
                                const uint32_t* b_in, uint32_t* a_out,
                                uint32_t* b_out, int chains, int C, int R,
                                int threads, int L, int nslots, int steps,
                                int seed, int hw_rng, int stride_t,
-                               int stride_c, int step0, void* stream) {
+                               int stride_c, int step0, int chain0,
+                               void* stream) {
   if (chains == 0 || L == 0) return cudaSuccess;
-  if (hw_rng && stride_c != 0) return cudaErrorInvalidValue;
+  if (hw_rng && (stride_c != 0 || chain0 != 0)) return cudaErrorInvalidValue;
   const int groups = (chains + C - 1) / C;
   const auto kernel = hw_rng ? split_sa_kernel<true, false>
                       : stride_c ? split_sa_kernel<false, true>
@@ -264,9 +278,10 @@ extern "C" int split_sa_anneal(const float* w, const float* h,
                                       &cfg, &attr);
   if (e != cudaSuccess) return e;
   // step0 folds into the seed term: counter(seed_term, t, i) is then
-  // counter(seed, step0 + t, i)
+  // counter(seed, step0 + t, i); and so does chain0 (above)
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
-                             static_cast<uint32_t>(step0) * mcs::kStepMult;
+                             static_cast<uint32_t>(step0) * mcs::kStepMult +
+                             chain_term(chain0, L);
   e = cudaLaunchKernelEx(&cfg, kernel, w, h, sched, a_in, b_in,
                          a_out, b_out, chains, C, R, L, nslots, steps,
                          seed_term, stride_t, stride_c);
@@ -285,8 +300,8 @@ extern "C" int split_sa_max_active_clusters(int R, int threads, int L,
 
 // The same anneal on the per-phase kernel: halves a_in, b_in of (chains,
 // nh) float32 +/-1 (nh = L*L/2) are copied to a_out, b_out and updated
-// there in place, two launches a step; hw_rng, stride_t, stride_c and step0
-// as for split_sa_anneal.
+// there in place, two launches a step; hw_rng, stride_t, stride_c, step0
+// and chain0 as for split_sa_anneal.
 // With `energies` (a (steps, chains) float32 device buffer; null: none),
 // the energy kernel (energy.cuh) writes each chain's energy after every
 // step into row t, one launch a step. Stores the number of update kernels
@@ -299,13 +314,14 @@ extern "C" int split_sa_phased_anneal(const float* w, const float* h,
                                       float* b_out, int chains, int L,
                                       int nslots, int steps, int seed,
                                       int hw_rng, int stride_t, int stride_c,
-                                      int step0, float* energies,
+                                      int step0, int chain0,
+                                      float* energies,
                                       void* stream, long long* launched,
                                       long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
   *energy_launched = 0;
-  if (hw_rng && stride_c != 0) return cudaErrorInvalidValue;
+  if (hw_rng && (stride_c != 0 || chain0 != 0)) return cudaErrorInvalidValue;
   const int K = L / 2;
   const int nh = L * K;
   const size_t bytes = static_cast<size_t>(chains) * nh * sizeof(float);
@@ -316,7 +332,8 @@ extern "C" int split_sa_phased_anneal(const float* w, const float* h,
   if (e != cudaSuccess) return e;
   if (chains == 0 || nh == 0) return cudaSuccess;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
-                             static_cast<uint32_t>(step0) * mcs::kStepMult;
+                             static_cast<uint32_t>(step0) * mcs::kStepMult +
+                             chain_term(chain0, L);
   const int xblocks = (nh + kThreads - 1) / kThreads;
   const dim3 grid(static_cast<unsigned>(xblocks) * chains);
   const auto kernel = hw_rng ? sa_phase_kernel<true, false>

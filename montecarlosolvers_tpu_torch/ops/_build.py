@@ -51,7 +51,11 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # each step, or None), stream, launched and energy_launched (out: the energy
 # kernels launched)
 _PHASED_TAIL = [_P, _P, _NP, _NP]
-# C signatures: function -> (restype, argtypes)
+# C signatures: function -> (restype, argtypes). Every entry point of the
+# engines a chain-sharded state runs on (kernels A, B, 5, 6, 3, packed SA,
+# generic PIQMC and its bath form) takes `chain0`, the global index of its
+# first chain, which the hash's uids count from (0 unsharded), as its last
+# int, before energies or stream.
 SIGNATURES = {
     "split_sa": {
         # w, h, sched, a_in, b_in, a_out, b_out (the halves as chain bits),
@@ -59,14 +63,14 @@ SIGNATURES = {
         # stride_c (the schedule table's strides, stride_c 0 for one shared
         # schedule), step0 (the step the hash counts the first step as),
         # stream
-        "split_sa_anneal": (_I, [_P] * 7 + [_I] * 12 + [_P]),
+        "split_sa_anneal": (_I, [_P] * 7 + [_I] * 13 + [_P]),
         # R, threads, L, out: clusters resident at once
         "split_sa_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         # the per-phase kernel: w, h, sched, a_in, b_in, a_out, b_out (the
         # halves as floats), chains, L, nslots, steps, seed, hw_rng,
         # stride_t, stride_c, step0, energies, stream, launched,
         # energy_launched
-        "split_sa_phased_anneal": (_I, [_P] * 7 + [_I] * 9 + _PHASED_TAIL),
+        "split_sa_phased_anneal": (_I, [_P] * 7 + [_I] * 10 + _PHASED_TAIL),
         "split_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "split_qmc": {
@@ -74,7 +78,7 @@ SIGNATURES = {
         # chains, Q, R, threads, L, nslots, steps, seed, global_moves,
         # hw_rng, stride_t, stride_c (jp's strides), step0, stream
         "split_qmc_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 13 + [_P]
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 14 + [_P]
         ),
         # Q, R, threads, L, out: clusters resident at once
         "split_qmc_max_active_clusters": (_I, [_I] * 4 + [_IP]),
@@ -83,9 +87,20 @@ SIGNATURES = {
         # global_moves, hw_rng, stride_t, stride_c, step0, energies,
         # stream, launched, energy_launched
         "split_qmc_phased_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 12
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 8 + [_I] * 13
             + _PHASED_TAIL
         ),
+        # the shard kernels of parallel/trotter.py::anneal_sharded_split,
+        # the per-phase kernels on a slab: S1, w, h, b_sched, jp, teff, xe,
+        # xo, ye, yo (in place), halo0, halo1, halo_stride, phase, chains,
+        # Qs, nh, K, nslots, t, seed, chain0, q0, Q, stream
+        "split_qmc_shard_phase": (
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 6 + [_I] * 12 + [_P]),
+        # S2: w, h, b_sched, teff, xe, xo, ye, yo, part, total (one of the
+        # two null), color, chains, Qs, nh, K, nslots, t, seed, chain0,
+        # stream
+        "split_qmc_shard_line": (
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 6 + [_I] * 9 + [_P]),
         "split_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "split_qmc_bath": {
@@ -93,7 +108,7 @@ SIGNATURES = {
         # chains, P, R, threads, L, nslots, steps, seed, global_moves,
         # hw_rng, stream
         "split_qmc_bath_anneal": (
-            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 10 + [_P]
+            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 11 + [_P]
         ),
         # P, R, threads, L, out: clusters resident at once
         "split_qmc_bath_max_active_clusters": (_I, [_I] * 4 + [_IP]),
@@ -102,19 +117,19 @@ SIGNATURES = {
         # global_moves, hw_rng, energies, stream, launched,
         # energy_launched
         "split_qmc_bath_phased_anneal": (
-            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 8
+            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 9
             + _PHASED_TAIL
         ),
         # the colored template: as split_qmc_bath_anneal without hw_rng
         "split_qmc_bath_colored_anneal": (
-            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 9 + [_P]
+            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 4 + [_I] * 10 + [_P]
         ),
         # its per-phase kernels: w, h, b_sched, jp, bath, teff, 2*teff,
         # a_in, b_in, a_out, b_out, a_tmp, b_tmp, chains, P, L, nslots,
         # steps, seed, global_moves, energies, stream, launched,
         # energy_launched
         "split_qmc_bath_colored_phased_anneal": (
-            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 6 + [_I] * 7
+            _I, [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 6 + [_I] * 8
             + _PHASED_TAIL
         ),
         "split_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
@@ -122,13 +137,13 @@ SIGNATURES = {
     "plane_sa": {
         # planes, sched, s_in, s_out (the planes as chain bits), chains, C,
         # R, threads, L, row_stride, plane_stride, steps, seed, stream
-        "plane_sa_anneal": (_I, [_P] * 4 + [_I] * 9 + [_P]),
+        "plane_sa_anneal": (_I, [_P] * 4 + [_I] * 10 + [_P]),
         # R, threads, L, out: clusters resident at once
         "plane_sa_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         # the per-phase kernel: planes, sched, s_in, s_out, scratch (the
         # planes as floats), chains, L, row_stride, plane_stride, steps,
         # seed, energies, stream, launched, energy_launched
-        "plane_sa_phased_anneal": (_I, [_P] * 5 + [_I] * 6 + _PHASED_TAIL),
+        "plane_sa_phased_anneal": (_I, [_P] * 5 + [_I] * 7 + _PHASED_TAIL),
         "plane_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "plane_qmc": {
@@ -136,7 +151,7 @@ SIGNATURES = {
         # chains, P, m, R, threads, L, row_stride, plane_stride, steps, seed,
         # global_moves, stream
         "plane_qmc_anneal": (
-            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 2 + [_I] * 11 + [_P]
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 2 + [_I] * 12 + [_P]
         ),
         # P, R, threads, L, out: clusters resident at once
         "plane_qmc_max_active_clusters": (_I, [_I] * 4 + [_IP]),
@@ -144,7 +159,7 @@ SIGNATURES = {
         # scratch, chains, P, L, row_stride, plane_stride, m, steps, seed,
         # global_moves, energies, stream, launched, energy_launched
         "plane_qmc_phased_anneal": (
-            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 9
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 10
             + _PHASED_TAIL
         ),
         "plane_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
@@ -191,7 +206,7 @@ SIGNATURES = {
         # (the per-step tables' strides, 0 for the static ones, and the
         # sweeps a table row), stride_t, stride_c (the temperature table's
         # strides, stride_c 0 for one shared schedule), stream
-        "packed_sa_anneal": (_I, [_P] * 9 + [_I] * 13 + [_P]),
+        "packed_sa_anneal": (_I, [_P] * 9 + [_I] * 14 + [_P]),
         "packed_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "packed_svmc": {
@@ -209,8 +224,20 @@ SIGNATURES = {
         # n, maxnb, ncolors, m, steps, seed, step0, global_moves, threads,
         # stride_t, stride_c (jp's strides), stream
         "generic_qmc_anneal": (
-            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 3 + [_I] * 13 + [_P]
+            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 3 + [_I] * 14 + [_P]
         ),
+        # the shard kernels of parallel/trotter.py::anneal_sharded: S3,
+        # nbr_idx, nbr_J, h, perm, starts, b_sched, jp, teff, src, dst,
+        # halo_up, halo_dn, halo_stride, chains, Ps, n, maxnb, ncolors, m,
+        # p, t, seed, chain0, k0, P, stream
+        "generic_qmc_shard_phase": (
+            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 4 + [_I] * 13 + [_P]),
+        # S4: nbr_idx, nbr_J, h, b_sched, s, part, chains, Ps, n, maxnb, lo,
+        # nc, t, stream; then perm, teff, total, s (in place), chains, Ps,
+        # n, lo, nc, t, seed, chain0, P, stream
+        "generic_qmc_shard_line_part": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+        "generic_qmc_shard_line_accept": (
+            _I, [_P] + [ctypes.c_float] + [_P] * 2 + [_I] * 9 + [_P]),
         "generic_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "generic_qmc_bath": {
@@ -219,7 +246,7 @@ SIGNATURES = {
         # maxnb, ncolors, m, steps, seed, step0, colored, global_moves,
         # proper, threads, stream
         "generic_qmc_bath_anneal": (
-            _I, [_P] * 8 + [ctypes.c_float] * 2 + [_P] * 3 + [_I] * 13
+            _I, [_P] * 8 + [ctypes.c_float] * 2 + [_P] * 3 + [_I] * 14
             + [_P]
         ),
         "generic_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
@@ -337,6 +364,14 @@ LAUNCHES.update({f"{k}_chain": 0 for k in ("sa_split", "qmc_split",
                                           "dense_sa")})
 LAUNCHES.update({"sa_split_chain_phased": 0, "qmc_split_chain_phased": 0,
                  "houdayer": 0})
+# The shard kernels of the Trotter-sharded engines (parallel/trotter.py),
+# once a launch: S1 twice a step (a local phase), S2's two halves once a
+# line color and step with global moves, S3 once a local phase, S4's two
+# halves once a spatial color and step with global moves.
+LAUNCHES.update({"shard_phase": 0, "shard_line_part": 0,
+                 "shard_line_accept": 0, "generic_shard_phase": 0,
+                 "generic_shard_line_part": 0,
+                 "generic_shard_line_accept": 0})
 
 
 def reset_launches():

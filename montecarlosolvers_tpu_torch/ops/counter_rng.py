@@ -228,24 +228,41 @@ def uniform01(ctr, uid):
     return uniform01_hashed(ctr, hashed_uid(uid))
 
 
-def sa_uids(chains, nh, color, device):
+def _chains(chains, chain0, device):
+    """(chains,) int32 global chain indices chain0 .. chain0 + chains - 1:
+    a chain shard's chains, whose uids count from the global chain, so
+    that the shard draws the unsharded run's uniforms (0: unsharded). The
+    uids wrap as int32, as the kernels' uint32 ones do."""
+    return (torch.arange(chains, dtype=torch.int64, device=device)
+            + chain0).to(torch.int32)
+
+
+def sa_uids(chains, nh, color, device, chain0=0):
     """(chains, nh) uids of the SA kernel's half `color`
     (pallas_split.py:142): chain * 2nh + color * nh + site. PIQMC line moves
-    of `color` use the same uids (pallas_split.py:492)."""
-    chain = torch.arange(chains, dtype=torch.int32, device=device)[:, None]
+    of `color` use the same uids (pallas_split.py:492). chain0: the global
+    index of the first chain (a chain shard)."""
+    chain = _chains(chains, chain0, device)[:, None]
     flat = torch.arange(nh, dtype=torch.int32, device=device)[None, :]
     return chain * (2 * nh) + color * nh + flat
 
 
-def quarter_uids(chains, q_len, nh, index, device):
+def quarter_uids(chains, q_len, nh, index, device, chain0=0, q0=0,
+                 q_total=None):
     """(chains, Q, nh) uids of PIQMC quarter `index` in 0..3
-    (pallas_split.py:483-486): chain * 4Qnh + index * Qnh + q * nh + site."""
-    chain = torch.arange(chains, dtype=torch.int32, device=device)
-    qid = torch.arange(q_len, dtype=torch.int32, device=device)
+    (pallas_split.py:483-486): chain * 4Qnh + index * Qnh + q * nh + site.
+
+    A shard of the state draws the unsharded run's uniforms: chain0 is the
+    global index of its first chain, q0 the global index of its first
+    quarter row and q_total the global Q (default q_len); the rows are
+    then q0 .. q0 + q_len - 1 of a Q = q_total state."""
+    q_total = q_len if q_total is None else q_total
+    chain = _chains(chains, chain0, device)
+    qid = torch.arange(q0, q0 + q_len, dtype=torch.int32, device=device)
     flat = torch.arange(nh, dtype=torch.int32, device=device)
     return (
-        chain[:, None, None] * (4 * q_len * nh)
-        + index * q_len * nh
+        chain[:, None, None] * wrap_int32(4 * q_total * nh)
+        + wrap_int32(index * q_total * nh)
         + qid[None, :, None] * nh
         + flat[None, None, :]
     )
@@ -259,18 +276,19 @@ def plane_strides(L):
     return (-(-L // SUBLANE) * SUBLANE, -(-L // LANE) * LANE)
 
 
-def plane_uids(chains, L, device, slices=None):
+def plane_uids(chains, L, device, slices=None, chain0=0):
     """Site ids of the full-plane kernels on the physical sites.
 
     slices=None: (chains, L, L), the SA kernel's chain*R*C + r*C + c
     (pallas_sa.py:171-175). slices=P: (chains, P, L, L), the PIQMC
     kernel's chain*P*R*C + k*R*C + r*C + c (pallas_qmc.py:91-97); its line
-    moves use the k = 0 plane of these (pallas_qmc.py:135-137)."""
+    moves use the k = 0 plane of these (pallas_qmc.py:135-137). chain0:
+    the global index of the first chain (a chain shard)."""
     R, C = plane_strides(L)
     rows = torch.arange(L, dtype=torch.int32, device=device)[:, None]
     cols = torch.arange(L, dtype=torch.int32, device=device)[None, :]
     site = rows * C + cols  # (L, L)
-    chain = torch.arange(chains, dtype=torch.int32, device=device)
+    chain = _chains(chains, chain0, device)
     if slices is None:
         return chain[:, None, None] * (R * C) + site
     k = torch.arange(slices, dtype=torch.int32, device=device)
@@ -278,7 +296,8 @@ def plane_uids(chains, L, device, slices=None):
             + k[None, :, None, None] * (R * C) + site)
 
 
-def generic_uids(chains, sites, nspins, slices=None):
+def generic_uids(chains, sites, nspins, slices=None, chain0=0, k0=0,
+                 p_total=None):
     """Site ids of the generic engines (IsingProblem graphs), keyed by the
     ORIGINAL index of each site, so that the masked engine (sites = 0..N-1)
     and the packed one (sites = the packed layout's `perm`) draw the same
@@ -287,10 +306,14 @@ def generic_uids(chains, sites, nspins, slices=None):
     sites: int32 tensor of original indices, on the device to draw on.
     slices=None: (chains, len(sites)), chain * N + site. slices=P:
     (chains, P, len(sites)), (chain * P + k) * N + site; the PIQMC line
-    moves use the k = 0 ids of these, under `line_counter`."""
-    chain = torch.arange(chains, dtype=torch.int32, device=sites.device)
+    moves use the k = 0 ids of these, under `line_counter`. A shard of the
+    state draws the unsharded run's uniforms: chain0 is the global index
+    of its first chain, k0 that of its first slice and p_total the global
+    P (default `slices`), the slices then k0 .. k0 + slices - 1."""
+    chain = _chains(chains, chain0, sites.device)
     if slices is None:
         return chain[:, None] * nspins + sites
-    k = torch.arange(slices, dtype=torch.int32, device=sites.device)
-    row = chain[:, None] * slices + k[None, :]  # (chains, P)
+    p_total = slices if p_total is None else p_total
+    k = torch.arange(k0, k0 + slices, dtype=torch.int32, device=sites.device)
+    row = chain[:, None] * wrap_int32(p_total) + k[None, :]  # (chains, P)
     return row[:, :, None] * nspins + sites

@@ -79,7 +79,7 @@ def _step_tables(tables, t):
 
 
 def packed_sa_anneal_ref(pg, temps, spins, seed, energies=None,
-                         tables=None, step0=0):
+                         tables=None, step0=0, chain0=0):
     """Plain form of csrc/packed_sa.cu: anneal packed spins (chains, N)
     over the float32 temperatures `temps` ((steps,), or (steps, chains): a
     temperature a chain and step), sweep t by
@@ -89,8 +89,10 @@ def packed_sa_anneal_ref(pg, temps, spins, seed, energies=None,
     maxnb), h (rows, N), mcsteps), per-step couplings in packed row order,
     sweep t reads row t // mcsteps (the noisy anneal; no energies). step0:
     the step the hash counts sweep 0 as (a one-sweep call inside a longer
-    anneal, as the cluster solvers make)."""
-    hu = cr.hashed_uid(cr.generic_uids(spins.shape[0], pg.perm, pg.nspins))
+    anneal, as the cluster solvers make); chain0: the global index of the
+    first chain (a chain shard, whose uids count from it)."""
+    hu = cr.hashed_uid(cr.generic_uids(spins.shape[0], pg.perm, pg.nspins,
+                                       chain0=chain0))
     s = spins
     for t in range(temps.shape[0]):
         u = cr.uniform01_hashed(cr.counter(seed, step0 + t, 0), hu)
@@ -126,7 +128,7 @@ def packed_svmc_anneal_ref(pg, a_sched, b_sched, temp, theta, seed, tf,
 
 
 def generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed, global_moves,
-                           energies=None, step0=0):
+                           energies=None, step0=0, chain0=0):
     """Plain form of csrc/generic_qmc.cu on packed confs (chains, P, N):
     sweep t is `piqmc.local_sweep` on the packed problem with B_t, J_perp_t
     (float32 (steps,) tensors; `jp` may be a (steps, chains) table, a
@@ -135,10 +137,12 @@ def generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed, global_moves,
     ids, then, with `global_moves`, `piqmc.global_line_moves` on those of
     line_counter(seed, t, 0) at the slice-0 ids. With `energies`, row t
     receives each chain's least slice energy after step t. step0: the step
-    the hash counts sweep 0 as."""
+    the hash counts sweep 0 as; chain0: the global index of the first chain
+    (a chain shard)."""
     prob = pg.as_problem()
     chains, P, n = confs.shape
-    hu = cr.hashed_uid(cr.generic_uids(chains, pg.perm, n, slices=P))
+    hu = cr.hashed_uid(cr.generic_uids(chains, pg.perm, n, slices=P,
+                                       chain0=chain0))
     hu0 = hu[:, 0]
     c = confs
     for t in range(b_sched.shape[0]):
@@ -157,7 +161,7 @@ def generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed, global_moves,
 
 def generic_qmc_bath_anneal_ref(pg, b_sched, jp, teff, bath, confs, seed,
                                 global_moves, colored=False, energies=None,
-                                step0=0):
+                                step0=0, chain0=0):
     """Plain form of csrc/generic_qmc_bath.cu on packed confs (chains, P,
     N), P >= 2: sweep t is `piqmc.dissipative_local_sweep` (with `colored`,
     `dissipative_colored_sweep`) on the packed problem with B_t, J_perp_t
@@ -165,12 +169,14 @@ def generic_qmc_bath_anneal_ref(pg, b_sched, jp, teff, bath, confs, seed,
     energies and step0 all as in `generic_qmc_anneal_ref`. On a packing
     that is not
     `proper` the masked sweeps read a same-class neighbour as it stood at
-    the start of its class's phase, which is what the kernel must match."""
+    the start of its class's phase, which is what the kernel must match.
+    chain0: the global index of the first chain (a chain shard)."""
     prob = pg.as_problem()
     sweep = (piqmc_ops.dissipative_colored_sweep if colored
              else piqmc_ops.dissipative_local_sweep)
     chains, P, n = confs.shape
-    hu = cr.hashed_uid(cr.generic_uids(chains, pg.perm, n, slices=P))
+    hu = cr.hashed_uid(cr.generic_uids(chains, pg.perm, n, slices=P,
+                                       chain0=chain0))
     c = confs
     for t in range(b_sched.shape[0]):
         u = cr.uniform01_hashed(cr.counter(seed, step0 + t, 0), hu)
@@ -233,7 +239,7 @@ def _snap(pg, state):
 
 
 def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
-                     step0=0):
+                     step0=0, chain0=0):
     """csrc/packed_sa.cu on CUDA tensors, `packed_sa_anneal_ref` on CPU
     tensors; arguments as for the plain version. Returns the new spins
     (a copy: the kernel anneals it in place). One launch
@@ -243,7 +249,7 @@ def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
     repeat one row: `_build.schedule_strides`)."""
     if _build.route(spins.device, "packed") == "cpu":
         return packed_sa_anneal_ref(pg, temps, spins, seed, energies, tables,
-                                    step0)
+                                    step0, chain0)
     chains, n = spins.shape
     dev = spins.device
     steps = int(temps.shape[0])
@@ -262,7 +268,7 @@ def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
         _build.energies_ptr(energies, steps, chains, dev), chains, n,
         pg.nbr_idx.shape[1], pg.num_colors, steps, cr.wrap_int32(seed),
         int(step0), THREADS, j_stride, h_stride, mcsteps, *strides,
-        _build.stream_of(dev))
+        int(chain0), _build.stream_of(dev))
     _build.raise_on_error(lib, "packed_sa_anneal", rc)
     _build.LAUNCHES["packed_sa_noisy" if tables is not None
                     else "packed_sa_chain" if strides[1]
@@ -304,7 +310,7 @@ def packed_svmc_anneal(pg, a_sched, b_sched, temp, theta, seed, tf,
 
 
 def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
-                       energies=None, step0=0):
+                       energies=None, step0=0, chain0=0):
     """csrc/generic_qmc.cu on CUDA tensors, `generic_qmc_anneal_ref` on
     CPU tensors; arguments as for the plain version. Returns the new
     configurations. One launch (LAUNCHES["generic_qmc"]), energies or
@@ -312,7 +318,7 @@ def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
     (LAUNCHES["generic_qmc_chain"])."""
     if _build.route(confs.device, "packed") == "cpu":
         return generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed,
-                                      global_moves, energies, step0)
+                                      global_moves, energies, step0, chain0)
     chains, P, n = confs.shape
     dev = confs.device
     graph = _check_graph(pg, dev)
@@ -330,7 +336,7 @@ def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
         chains, P, n, pg.nbr_idx.shape[1], pg.num_colors,
         piqmc_ops.spacetime_num_phases(pg.num_colors, P), steps,
         cr.wrap_int32(seed), int(step0), int(bool(global_moves)), THREADS,
-        *strides, _build.stream_of(dev))
+        *strides, int(chain0), _build.stream_of(dev))
     _build.raise_on_error(lib, "generic_qmc_anneal", rc)
     _build.LAUNCHES["generic_qmc_chain" if strides[1]
                     else "generic_qmc"] += 1
@@ -339,7 +345,7 @@ def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
 
 def generic_qmc_bath_anneal(pg, b_sched, jp, teff, bath, confs, seed,
                             global_moves, colored=False, energies=None,
-                            step0=0):
+                            step0=0, chain0=0):
     """csrc/generic_qmc_bath.cu on CUDA tensors, `generic_qmc_bath_anneal_ref`
     on CPU tensors; arguments as for the plain version. Returns the new
     configurations. One launch (LAUNCHES["generic_qmc_bath"]), sequential
@@ -347,7 +353,7 @@ def generic_qmc_bath_anneal(pg, b_sched, jp, teff, bath, confs, seed,
     if _build.route(confs.device, "packed") == "cpu":
         return generic_qmc_bath_anneal_ref(pg, b_sched, jp, teff, bath,
                                            confs, seed, global_moves,
-                                           colored, energies, step0)
+                                           colored, energies, step0, chain0)
     chains, P, n = confs.shape
     dev = confs.device
     graph = _check_graph(pg, dev)
@@ -368,7 +374,7 @@ def generic_qmc_bath_anneal(pg, b_sched, jp, teff, bath, confs, seed,
         piqmc_ops.spacetime_num_phases(pg.num_colors, P), steps,
         cr.wrap_int32(seed), int(step0), int(bool(colored)),
         int(bool(global_moves)),
-        int(pg.proper), THREADS, _build.stream_of(dev))
+        int(pg.proper), THREADS, int(chain0), _build.stream_of(dev))
     _build.raise_on_error(lib, "generic_qmc_bath_anneal", rc)
     _build.LAUNCHES["generic_qmc_bath"] += 1
     return out
@@ -401,26 +407,28 @@ def _packed(pg, state, n):
 
 
 def anneal_packed(problem, sched, spins, seed, mcsteps=1,
-                  collect_energy=False):
+                  collect_energy=False, chain0=0):
     """SA anneal of an IsingProblem on the packed layout (counterpart of
     `ops/packed.py::packed_sweep_scan`, the JAX solver's engine for
     IsingProblem graphs).
 
     sched: (steps,) temperatures; spins: (chains, N) or (N,) float32 +/-1
     on the problem's device; seed: int counter-hash seed; collect_energy:
-    also return the energy after each sweep, (steps * mcsteps,) + batch.
-    Returns the annealed spins, same shape, or (spins, energies)."""
+    also return the energy after each sweep, (steps * mcsteps,) + batch;
+    chain0: the global index of the first chain (a chain shard). Returns
+    the annealed spins, same shape, or (spins, energies)."""
     pg = _graph_of(problem, spins, "spins")
     temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
     batch = spins.shape[:-1]
     es = energy_buffer(collect_energy, temps.shape[0], batch, problem.device)
-    out = packed_sa_anneal(pg, temps, _packed(pg, spins, pg.nspins), seed, es)
+    out = packed_sa_anneal(pg, temps, _packed(pg, spins, pg.nspins), seed, es,
+                           chain0=chain0)
     return with_energies(packed_ops.unpack_state(pg, out).reshape(
         spins.shape), es, batch)
 
 
 def anneal_masked(problem, sched, spins, seed, mcsteps=1,
-                  collect_energy=False):
+                  collect_energy=False, chain0=0):
     """SA anneal of an IsingProblem on the masked engine
     (`ops/metropolis.py::sweep_scan`, the JAX solver's engine="masked"),
     arguments and result as for `anneal_packed`. The masked and packed
@@ -430,13 +438,13 @@ def anneal_masked(problem, sched, spins, seed, mcsteps=1,
     plain version runs on the CPU."""
     if _build.route(spins.device, "packed") == "cuda":
         return anneal_packed(problem, sched, spins, seed, mcsteps,
-                             collect_energy)
+                             collect_energy, chain0)
     _check_problem(problem, spins, "spins")
     temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
     batch = spins.shape[:-1]
     s = spins.to(torch.float32).reshape(-1, problem.nspins)
     out, es = sweep_scan(problem, s, seed, temps,
-                         collect_energy=collect_energy)
+                         collect_energy=collect_energy, chain0=chain0)
     out = out.reshape(spins.shape)
     if es is None:
         return out
@@ -444,16 +452,17 @@ def anneal_masked(problem, sched, spins, seed, mcsteps=1,
 
 
 def anneal_generic_qmc(problem, a_sched, b_sched, temp, confs, seed,
-                       mcsteps=1, global_moves=True, collect_energy=False):
+                       mcsteps=1, global_moves=True, collect_energy=False,
+                       chain0=0):
     """PIQMC anneal of an IsingProblem at any P (counterpart of the masked
     space-time sweep of the JAX `solvers/qmc.py`, :152-180).
 
     a_sched / b_sched: (steps,) Gamma and B; temp: ambient T, T_eff = P*T;
     confs: (chains, P, N) or (P, N) float32 +/-1 slices-major on the
     problem's device; collect_energy: also return the best-slice energy
-    after each sweep (line moves included), (steps * mcsteps,) + batch.
-    Returns the annealed configurations, same shape, or (confs,
-    energies)."""
+    after each sweep (line moves included), (steps * mcsteps,) + batch;
+    chain0: the global index of the first chain (a chain shard). Returns
+    the annealed configurations, same shape, or (confs, energies)."""
     pg = _graph_of(problem, confs, "confs")
     P, n = confs.shape[-2], pg.nspins
     b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, P, mcsteps,
@@ -462,14 +471,15 @@ def anneal_generic_qmc(problem, a_sched, b_sched, temp, confs, seed,
     es = energy_buffer(collect_energy, b.shape[0], batch, problem.device)
     c = packed_ops.pack_state(
         pg, confs.to(torch.float32).reshape(-1, P, n)).contiguous()
-    out = generic_qmc_anneal(pg, b, jp, teff, c, seed, global_moves, es)
+    out = generic_qmc_anneal(pg, b, jp, teff, c, seed, global_moves, es,
+                             chain0=chain0)
     return with_energies(packed_ops.unpack_state(pg, out).reshape(
         confs.shape), es, batch)
 
 
 def anneal_generic_qmc_bath(problem, a_sched, b_sched, temp, lookuptable,
                             confs, seed, mcsteps=1, global_moves=False,
-                            colored=False, collect_energy=False):
+                            colored=False, collect_energy=False, chain0=0):
     """Dissipative PIQMC anneal at any P >= 2 on the packed layout
     (counterpart of the JAX solver's masked bath path, solvers/qmc.py:
     152-180, with `dissipative_local_sweep` or, with `colored`,
@@ -483,7 +493,8 @@ def anneal_generic_qmc_bath(problem, a_sched, b_sched, temp, lookuptable,
     numpy or a tensor; confs: (chains, P, N) or (P, N) float32 +/-1
     slices-major on the problem's device; collect_energy: also return the
     best-slice energy after each sweep (line moves included), (steps *
-    mcsteps,) + batch. Returns the annealed configurations, same shape, or
+    mcsteps,) + batch; chain0: the global index of the first chain (a
+    chain shard). Returns the annealed configurations, same shape, or
     (confs, energies)."""
     if packed_ops.supports_packed(problem):
         pg = _graph_of(problem, confs, "confs")
@@ -504,7 +515,7 @@ def anneal_generic_qmc_bath(problem, a_sched, b_sched, temp, lookuptable,
     c = packed_ops.pack_state(
         pg, confs.to(torch.float32).reshape(-1, P, n)).contiguous()
     out = generic_qmc_bath_anneal(pg, b, jp, teff, bath, c, seed,
-                                  global_moves, colored, es)
+                                  global_moves, colored, es, chain0=chain0)
     return with_energies(packed_ops.unpack_state(pg, out).reshape(
         confs.shape), es, batch)
 

@@ -66,18 +66,19 @@ def noisy_colored_sweep(problem, nbr_J_t, h_t, spins, u, temp):
         fields=lambda s: slot_sum(problem.nbr_idx, nbr_J_t, s) + h_t)
 
 
-def sweep_scan(problem, spins, seed, temps, collect_energy=False):
+def sweep_scan(problem, spins, seed, temps, collect_energy=False, chain0=0):
     """A whole schedule of masked SA sweeps (JAX `sweep_scan`,
     ops/metropolis.py:90, without its `b_coeffs`, which no caller of the
     port passes): sweep t at temps[t] on the uniforms of counter(seed, t,
     0) at the original site ids.
 
     spins: (chains, N) float32 +/-1 on the problem's device; temps: float32
-    (steps,) tensor. Returns (spins, energies) with energies (steps,
-    chains) after each sweep, or None."""
+    (steps,) tensor; chain0: the global index of the first chain (a chain
+    shard). Returns (spins, energies) with energies (steps, chains) after
+    each sweep, or None."""
     chains, n = spins.shape
     sites = torch.arange(n, dtype=torch.int32, device=spins.device)
-    hu = cr.hashed_uid(cr.generic_uids(chains, sites, n))
+    hu = cr.hashed_uid(cr.generic_uids(chains, sites, n, chain0=chain0))
     es = [] if collect_energy else None
     for t in range(temps.shape[0]):
         u = cr.uniform01_hashed(cr.counter(seed, t, 0), hu)

@@ -66,16 +66,18 @@ from montecarlosolvers_tpu_torch.ops.piqmc import (spacetime_num_phases,
 # ------------------------------------------------------------ plain versions
 
 
-def sa_plane_anneal_ref(pl, sched, spins, seed, energies=None):
+def sa_plane_anneal_ref(pl, sched, spins, seed, energies=None, chain0=0):
     """Plain form of kernel 6: anneal `spins` (chains, L, L) over the
     float32 temperatures `sched` (steps,) with counter-hash seed `seed`.
     One step runs color 0, then color 1 (pallas_sa.py:178-197); color p
     draws from counter(seed, t, p) at the SA site ids. With `energies`, a
     (steps, chains) float32 buffer, row t receives each chain's energy
     after step t (`energy.plane_energy_ref`); the trajectory is the same
-    with or without it."""
+    with or without it. chain0: the global index of the first chain (a
+    chain shard, whose uids count from it)."""
     chains, L = spins.shape[0], pl.L
-    hu = cr.hashed_uid(cr.plane_uids(chains, L, spins.device))
+    hu = cr.hashed_uid(cr.plane_uids(chains, L, spins.device,
+                                     chain0=chain0))
     par = plane_ops.parity(L, spins.device)
     s = spins
     for t in range(sched.shape[0]):
@@ -91,7 +93,7 @@ def sa_plane_anneal_ref(pl, sched, spins, seed, energies=None):
 
 
 def qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed, global_moves,
-                         energies=None):
+                         energies=None, chain0=0):
     """Plain form of kernel 3 on confs (chains, P, L, L). `b_sched` and `jp`
     are float32 (steps,) tensors of the longitudinal scale B and of J_perp;
     `teff` = P*T is a Python float.
@@ -105,14 +107,16 @@ def qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed, global_moves,
     k = 0 plane's at line_counter(seed, t, color). With `energies`, a
     (steps, chains) float32 buffer, row t receives each chain's best-slice
     energy after step t (`energy.plane_energy_ref`, solvers/qmc.py:176);
-    the trajectory is the same with or without it."""
+    the trajectory is the same with or without it. chain0: the global index
+    of the first chain (a chain shard)."""
     chains, P, L = confs.shape[0], confs.shape[1], pl.L
     dev = confs.device
     m = spacetime_num_phases(2, P)
     par = plane_ops.parity(L, dev)
     k = torch.arange(P, device=dev)[:, None, None]
     stc = (par + k) % m  # (P, L, L)
-    hu = cr.hashed_uid(cr.plane_uids(chains, L, dev, slices=P))
+    hu = cr.hashed_uid(cr.plane_uids(chains, L, dev, slices=P,
+                                     chain0=chain0))
     hu0 = hu[:, 0]  # line moves: the k = 0 plane's ids
     teff32 = torch.tensor(teff, dtype=torch.float32, device=dev)
     s = confs
@@ -287,7 +291,7 @@ def plane_svmc_geometry(chains, L, resident=None):
     return None if R is None else (R, _slot_threads(L, R))
 
 
-def sa_plane_anneal(pl, sched, spins, seed, energies=None):
+def sa_plane_anneal(pl, sched, spins, seed, energies=None, chain0=0):
     """Kernel 6 on CUDA tensors, `sa_plane_anneal_ref` on CPU tensors.
     Arguments as for `sa_plane_anneal_ref`; returns the new spins. The
     kernel keeps each spin's sign as a bit, so the spins must hold +/-1.
@@ -306,9 +310,10 @@ def sa_plane_anneal(pl, sched, spins, seed, energies=None):
     the per-phase kernels at every shape, by that option and not by a failure,
     and the energy kernel (csrc/energy.cuh) runs after each step from the same
     loop (LAUNCHES["sa_plane_energy"], one a step); the states are those of the
-    route without energies."""
+    route without energies. chain0: the global index of the first chain,
+    which the uids count from (a chain shard)."""
     if _build.route(spins.device, "plane") == "cpu":
-        return sa_plane_anneal_ref(pl, sched, spins, seed, energies)
+        return sa_plane_anneal_ref(pl, sched, spins, seed, energies, chain0)
     chains, L = spins.shape[0], pl.L
     dev = spins.device
     _build.check_arg(spins, "spins", (chains, L, L), dev)
@@ -325,7 +330,7 @@ def sa_plane_anneal(pl, sched, spins, seed, energies=None):
         n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # launched
         rc = lib.plane_sa_phased_anneal(
             *map(_build.ptr, (pl.w, sched, spins, out, scratch)), chains, L,
-            cols, rows * cols, steps, cr.wrap_int32(seed),
+            cols, rows * cols, steps, cr.wrap_int32(seed), int(chain0),
             _build.energies_ptr(energies, steps, chains, dev),
             _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "plane_sa_phased_anneal", rc,
@@ -338,7 +343,7 @@ def sa_plane_anneal(pl, sched, spins, seed, energies=None):
     out = torch.empty_like(words)
     rc = lib.plane_sa_anneal(
         *map(_build.ptr, (pl.w, sched, words, out)), chains, C, R, threads,
-        L, cols, rows * cols, steps, cr.wrap_int32(seed),
+        L, cols, rows * cols, steps, cr.wrap_int32(seed), int(chain0),
         _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "plane_sa_anneal", rc)
@@ -347,7 +352,7 @@ def sa_plane_anneal(pl, sched, spins, seed, energies=None):
 
 
 def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves,
-                     energies=None):
+                     energies=None, chain0=0):
     """Kernel 3 on CUDA tensors, `qmc_plane_anneal_ref` on CPU tensors.
     Arguments as for `qmc_plane_anneal_ref`; returns new configurations. The
     kernel keeps each spin's sign as a bit, so confs must hold +/-1.
@@ -367,10 +372,11 @@ def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves,
     that takes the per-phase kernels at every shape, by that option and not by
     a failure, and the energy kernel (csrc/energy.cuh) runs after each step
     from the same loop (LAUNCHES["qmc_plane_energy"], one a step); the states
-    are those of the route without energies."""
+    are those of the route without energies. chain0 as for
+    `sa_plane_anneal`."""
     if _build.route(confs.device, "plane") == "cpu":
         return qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed,
-                                    global_moves, energies)
+                                    global_moves, energies, chain0)
     chains, P, L = confs.shape[0], confs.shape[1], pl.L
     dev = confs.device
     _build.check_arg(confs, "confs", (chains, P, L, L), dev)
@@ -390,7 +396,7 @@ def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves,
         rc = lib.plane_qmc_anneal(
             *head, *map(_build.ptr, (words, out)), chains, P, m, *geometry,
             L, cols, rows * cols, steps, cr.wrap_int32(seed),
-            int(bool(global_moves)), _build.stream_of(dev),
+            int(bool(global_moves)), int(chain0), _build.stream_of(dev),
         )
         _build.raise_on_error(lib, "plane_qmc_anneal", rc)
         _build.LAUNCHES["qmc_plane"] += 1
@@ -401,7 +407,7 @@ def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves,
     rc = lib.plane_qmc_phased_anneal(
         *head, *map(_build.ptr, (confs, out, scratch)), chains, P, L, cols,
         rows * cols, m, steps, cr.wrap_int32(seed), int(bool(global_moves)),
-        _build.energies_ptr(energies, steps, chains, dev),
+        int(chain0), _build.energies_ptr(energies, steps, chains, dev),
         _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne),
     )
     _build.raise_on_error(lib, "plane_qmc_phased_anneal", rc,
@@ -490,15 +496,16 @@ def _planes_of(problem, state, name):
 
 
 def anneal_lattice(problem, sched, spins, seed, mcsteps=1,
-                   collect_energy=False):
+                   collect_energy=False, chain0=0):
     """Full-plane SA anneal on a LatticeProblem of any L, open or periodic
     (counterpart of `pallas_sa.anneal_lattice`, without its TPU padding).
 
     sched: (steps,) temperatures; spins: (chains, N) or (N,) float32 +/-1 on
     the problem's device; seed: int counter-hash seed; collect_energy: also
     return the energy after each sweep, (steps * mcsteps,) + batch, as
-    `split_kernels.anneal_lattice_split` does. Returns the annealed spins,
-    same shape, or (spins, energies)."""
+    `split_kernels.anneal_lattice_split` does; chain0: the global index of
+    the first chain (a chain shard). Returns the annealed spins, same
+    shape, or (spins, energies)."""
     pl = _planes_of(problem, spins, "spins")
     temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
     L = pl.L
@@ -506,20 +513,22 @@ def anneal_lattice(problem, sched, spins, seed, mcsteps=1,
     es = sk.energy_buffer(collect_energy, temps.shape[0], batch,
                           problem.device)
     s = spins.to(torch.float32).reshape(-1, L, L).contiguous()
-    out = sa_plane_anneal(pl, temps, s, seed, es)
+    out = sa_plane_anneal(pl, temps, s, seed, es, chain0)
     return sk.with_energies(out.reshape(spins.shape), es, batch)
 
 
 def anneal_lattice_qmc(problem, a_sched, b_sched, temp, confs, seed,
-                       mcsteps=1, global_moves=True, collect_energy=False):
+                       mcsteps=1, global_moves=True, collect_energy=False,
+                       chain0=0):
     """Full-plane PIQMC anneal on a LatticeProblem of any L at any P
     (counterpart of `pallas_qmc.anneal_lattice_qmc`).
 
     a_sched / b_sched: (steps,) Gamma and B; temp: ambient T, T_eff = P*T;
     confs: (chains, P, N) or (P, N) float32 +/-1 slices-major, on the
     problem's device; collect_energy: also return the best-slice energy
-    after each sweep, (steps * mcsteps,) + batch. Returns the annealed
-    configurations, same shape, or (confs, energies)."""
+    after each sweep, (steps * mcsteps,) + batch; chain0 as for
+    `anneal_lattice`. Returns the annealed configurations, same shape, or
+    (confs, energies)."""
     pl = _planes_of(problem, confs, "confs")
     P, L = confs.shape[-2], pl.L
     b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, P, mcsteps,
@@ -527,7 +536,8 @@ def anneal_lattice_qmc(problem, a_sched, b_sched, temp, confs, seed,
     batch = confs.shape[:-2]
     es = sk.energy_buffer(collect_energy, b.shape[0], batch, problem.device)
     c = confs.to(torch.float32).reshape(-1, P, L, L).contiguous()
-    out = qmc_plane_anneal(pl, b, jp, teff, c, seed, global_moves, es)
+    out = qmc_plane_anneal(pl, b, jp, teff, c, seed, global_moves, es,
+                           chain0)
     return sk.with_energies(out.reshape(confs.shape), es, batch)
 
 

@@ -122,7 +122,7 @@ def step_values(sched, t):
 
 
 def sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng=False,
-                        energies=None, step0=0):
+                        energies=None, step0=0, chain0=0):
     """Plain form of kernel A: anneal halves a, b (chains, Nh) over the
     float32 temperatures `sched` ((steps,), or (steps, chains): a
     temperature a chain and step) with counter-hash seed `seed`
@@ -133,11 +133,12 @@ def sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng=False,
     chain's energy after step t (`energy.halves_energy_ref`, the readout of
     ops/split.py:245); the trajectory is the same with or without it.
     step0: the step the hash counts step 0 as (a launch inside a longer
-    run)."""
+    run); chain0: the global index of the first chain (a chain shard,
+    whose uids count from it)."""
     chains, nh = a.shape
     draw = hw_uniforms(seed, a.device) if hw_rng else None
-    hu_a = cr.hashed_uid(cr.sa_uids(chains, nh, 0, a.device))
-    hu_b = cr.hashed_uid(cr.sa_uids(chains, nh, 1, a.device))
+    hu_a = cr.hashed_uid(cr.sa_uids(chains, nh, 0, a.device, chain0))
+    hu_b = cr.hashed_uid(cr.sa_uids(chains, nh, 1, a.device, chain0))
     for t in range(sched.shape[0]):
         if draw:
             ua, ub = draw(a.shape), draw(b.shape)
@@ -153,12 +154,13 @@ def sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng=False,
 
 def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
                          global_moves, hw_rng=False, energies=None,
-                         step0=0):
+                         step0=0, chain0=0):
     """Plain form of kernel B on the quarters (xe, xo, ye, yo), each
     (chains, Q, Nh). `b_sched` and `jp` are float32 (steps,) tensors of the
     longitudinal scale B and of J_perp (`jp` may be a (steps, chains)
     table: a J_perp a chain and step); `teff` = P*T is a Python float;
-    step0 the step the hash counts step 0 as.
+    step0 the step the hash counts step 0 as; chain0 the global index of
+    the first chain (a chain shard).
 
     Per step: phase X updates xe, xo against ye, yo; phase Y updates ye, yo
     against the new xe, xo. dE = -2B s f + 2 s J_perp (up + down), with the
@@ -183,9 +185,10 @@ def qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
     wa, wb = sl.w_ab[:, 0], sl.w_ab[:, 1]
     ha, hb = sl.h_ab[0], sl.h_ab[1]
     teff32 = torch.tensor(teff, dtype=torch.float32, device=dev)
-    hq = [cr.hashed_uid(cr.quarter_uids(chains, Q, nh, i, dev))
+    hq = [cr.hashed_uid(cr.quarter_uids(chains, Q, nh, i, dev, chain0))
           for i in range(4)]
-    hl = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev)) for c in (0, 1)]
+    hl = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev, chain0))
+          for c in (0, 1)]
 
     for t in range(b_sched.shape[0]):
         jpt = jp[t] if jp.dim() == 1 else jp[t][:, None, None]
@@ -242,7 +245,8 @@ def quarter_line_moves(sl, quarters, bc, teff32, uniforms):
 
 
 def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
-                              global_moves, hw_rng=False, energies=None):
+                              global_moves, hw_rng=False, energies=None,
+                              chain0=0):
     """Plain form of kernel 5 on the per-slice halves a, b, each
     (chains, P, Nh), P >= 2. `b_sched` and `jp` are float32 (steps,) tensors
     of B and J_perp, `teff` = P*T a Python float, `bath` the (P, P) float32
@@ -265,7 +269,8 @@ def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
     draw of a slice's or the lines' shape per update, in that order. With
     `energies`, a (steps, chains) float32 buffer, row t receives each
     chain's best-slice energy after step t (`energy.halves_energy_ref`,
-    ops/split.py:715); the trajectory is the same with or without it."""
+    ops/split.py:715); the trajectory is the same with or without it.
+    chain0: the global index of the first chain (a chain shard)."""
     chains, P, nh = a.shape
     K = sl.K
     dev = a.device
@@ -276,7 +281,8 @@ def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
     # 2.0 * teff in the Pallas kernel is a Python double, rounded to float32
     # where it meets the spins
     two_teff = torch.tensor(2.0 * teff, dtype=torch.float32, device=dev)
-    hu = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev)) for c in (0, 1)]
+    hu = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev, chain0))
+          for c in (0, 1)]
     a, b = a.clone(), b.clone()  # slices are written in place below
 
     for t in range(b_sched.shape[0]):
@@ -320,7 +326,7 @@ def qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b, seed,
 
 def qmc_bath_split_colored_anneal_ref(sl, b_sched, jp, teff, bath,
                                       quarters, seed, global_moves,
-                                      energies=None):
+                                      energies=None, chain0=0):
     """Plain form of kernel 5's colored template on the quarters (xe, xo,
     ye, yo), each (chains, Q, Nh), Q = P/2 (bath_update="colored"; JAX
     `qmc_bath_anneal_split`'s colored branch, ops/split.py:643-669).
@@ -334,13 +340,15 @@ def qmc_bath_split_colored_anneal_ref(sl, b_sched, jp, teff, bath,
     counter index 4 + color). With `energies`, a (steps, chains) float32
     buffer, row t receives each chain's best-slice energy after step t
     (`energy.quarters_energy_ref`); the trajectory is the same with or
-    without it."""
+    without it. chain0: the global index of the first chain (a chain
+    shard)."""
     chains, Q, nh = quarters[0].shape
     dev = quarters[0].device
     teff32 = torch.tensor(teff, dtype=torch.float32, device=dev)
-    hq = [cr.hashed_uid(cr.quarter_uids(chains, Q, nh, i, dev))
+    hq = [cr.hashed_uid(cr.quarter_uids(chains, Q, nh, i, dev, chain0))
           for i in range(4)]
-    hl = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev)) for c in (0, 1)]
+    hl = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev, chain0))
+          for c in (0, 1)]
     for t in range(b_sched.shape[0]):
         us = [cr.uniform01_hashed(cr.counter(seed, t, i), hq[i])
               for i in range(4)]
@@ -601,8 +609,17 @@ def _key(key, hw_rng):
     return key + "_hw" if hw_rng else key
 
 
+def _check_chain0(chain0, hw_rng):
+    """Raise ValueError when a chain shard (chain0 > 0) asks for the
+    generator streams, which are keyed by thread and not by chain: the
+    shards would draw alike."""
+    if chain0 and hw_rng:
+        raise ValueError("a chain shard (chain0 > 0) draws from the counter "
+                         "hash only (hw_rng=False)")
+
+
 def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False, energies=None,
-                    step0=0):
+                    step0=0, chain0=0):
     """Kernel A on CUDA tensors, `sa_split_anneal_ref` on CPU tensors.
     Arguments as for `sa_split_anneal_ref`; returns new (a, b). The kernel
     keeps each spin's sign as a bit, so the halves must hold +/-1.
@@ -628,11 +645,16 @@ def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False, energies=None,
     A (steps, chains) `sched` takes the per-chain instantiation of either
     kernel (LAUNCHES["sa_split_chain"], ["sa_split_chain_phased"]; the
     hash only), whose table may repeat one row (an `expand` of a (chains,)
-    vector: `_build.schedule_strides`)."""
+    vector: `_build.schedule_strides`).
+
+    chain0: the global index of the first chain, which the hash's uids
+    count from (a chain shard draws the unsharded run's uniforms; the
+    counter hash only)."""
     collect = _build.collecting(energies, hw_rng)
+    _check_chain0(chain0, hw_rng)
     if _build.route(a.device, "split") == "cpu":
         return sa_split_anneal_ref(sl, sched, a, b, seed, hw_rng, energies,
-                                   step0)
+                                   step0, chain0)
     chains, nh = a.shape
     dev = a.device
     if nh != sl.nh:
@@ -655,7 +677,7 @@ def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False, energies=None,
         rc = lib.split_sa_phased_anneal(
             *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a, b, a_out, b_out)),
             chains, sl.L, sl.nslots, steps, cr.wrap_int32(seed),
-            int(bool(hw_rng)), *strides, int(step0),
+            int(bool(hw_rng)), *strides, int(step0), int(chain0),
             _build.energies_ptr(energies, steps, chains, dev),
             _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "split_sa_phased_anneal", rc,
@@ -666,7 +688,7 @@ def sa_split_anneal(sl, sched, a, b, seed, hw_rng=False, energies=None,
     C = geometry[0]
     a_out, b_out = sa_split_words_anneal(
         sl, sched, pack_chain_bits(a, C), pack_chain_bits(b, C), chains,
-        geometry, seed, hw_rng, step0)
+        geometry, seed, hw_rng, step0, chain0)
     return (unpack_chain_bits(a_out, chains, C),
             unpack_chain_bits(b_out, chains, C))
 
@@ -683,21 +705,22 @@ def words_geometry(sl, chains, device):
 
 
 def sa_split_words_anneal(sl, sched, a, b, chains, geometry, seed,
-                          hw_rng=False, step0=0):
+                          hw_rng=False, step0=0, chain0=0):
     """Kernel A's cluster route on its own layout: halves a, b of `chains`
     chains as chain-bit words (`pack_chain_bits` at C = geometry[0], int32
     (ceil(chains/C), Nh)) in and new words out, one launch at
-    `geometry` (`words_geometry`); `sched`, `seed`, `hw_rng` and `step0`
-    as for `sa_split_anneal`, which packs, calls this and unpacks. A
+    `geometry` (`words_geometry`); `sched`, `seed`, `hw_rng`, `step0` and
+    `chain0` as for `sa_split_anneal`, which packs, calls this and unpacks. A
     sampler that launches once an exchange keeps its state in these words
     from launch to launch. On CPU words, `sa_split_anneal_ref` on the
     unpacked halves, packed again."""
     C, R, threads = geometry
     dev = a.device
+    _check_chain0(chain0, hw_rng)
     if _build.route(dev, "split") == "cpu":
         out = sa_split_anneal_ref(sl, sched, unpack_chain_bits(a, chains, C),
                                   unpack_chain_bits(b, chains, C), seed,
-                                  hw_rng, step0=step0)
+                                  hw_rng, step0=step0, chain0=chain0)
         return tuple(pack_chain_bits(x, C) for x in out)
     groups = -(-chains // C)
     for t, name in ((a, "a"), (b, "b")):
@@ -713,7 +736,7 @@ def sa_split_words_anneal(sl, sched, a, b, chains, geometry, seed,
         *map(_build.ptr, (sl.w_ab, sl.h_ab, sched, a, b, a_out, b_out)),
         chains, C, R, threads, sl.L, sl.nslots, steps,
         cr.wrap_int32(seed), int(bool(hw_rng)), *strides, int(step0),
-        _build.stream_of(dev),
+        int(chain0), _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "split_sa_anneal", rc)
     _build.LAUNCHES[key] += 1
@@ -746,7 +769,7 @@ def words_energy(sl, a, b, chains, C):
 
 
 def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
-                     hw_rng=False, energies=None, step0=0):
+                     hw_rng=False, energies=None, step0=0, chain0=0):
     """Kernel B on CUDA tensors, `qmc_split_anneal_ref` on CPU tensors.
     Arguments as for `qmc_split_anneal_ref`; returns new quarters. The
     kernel keeps each spin's sign as a bit, so the quarters must hold +/-1.
@@ -772,12 +795,15 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
 
     A (steps, chains) `jp` takes the per-chain instantiation of either
     kernel (LAUNCHES["qmc_split_chain"], ["qmc_split_chain_phased"]; the
-    hash only), as `sa_split_anneal` takes a temperature table."""
+    hash only), as `sa_split_anneal` takes a temperature table. chain0 as
+    for `sa_split_anneal`."""
     collect = _build.collecting(energies, hw_rng)
+    _check_chain0(chain0, hw_rng)
     xe = quarters[0]
     if _build.route(xe.device, "split") == "cpu":
         return qmc_split_anneal_ref(sl, b_sched, jp, teff, quarters, seed,
-                                    global_moves, hw_rng, energies, step0)
+                                    global_moves, hw_rng, energies, step0,
+                                    chain0)
     chains, Q, nh = xe.shape
     dev = xe.device
     if nh != sl.nh:
@@ -802,7 +828,7 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
         rc = lib.split_qmc_anneal(
             *args, chains, Q, *geometry, sl.L, sl.nslots, steps,
             cr.wrap_int32(seed), int(bool(global_moves)), int(bool(hw_rng)),
-            *strides, int(step0), _build.stream_of(dev))
+            *strides, int(step0), int(chain0), _build.stream_of(dev))
         _build.raise_on_error(lib, "split_qmc_anneal", rc)
         _build.LAUNCHES[key] += 1
         return tuple(outs)
@@ -810,7 +836,7 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
     rc = lib.split_qmc_phased_anneal(
         *args, chains, Q, nh, sl.K, sl.nslots, steps, cr.wrap_int32(seed),
         int(bool(global_moves)), int(bool(hw_rng)), *strides, int(step0),
-        _build.energies_ptr(energies, steps, chains, dev),
+        int(chain0), _build.energies_ptr(energies, steps, chains, dev),
         _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne),
     )
     _build.raise_on_error(lib, "split_qmc_phased_anneal", rc,
@@ -821,7 +847,8 @@ def qmc_split_anneal(sl, b_sched, jp, teff, quarters, seed, global_moves,
 
 
 def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
-                          global_moves, hw_rng=False, energies=None):
+                          global_moves, hw_rng=False, energies=None,
+                          chain0=0):
     """Kernel 5 on CUDA tensors, `qmc_bath_split_anneal_ref` on CPU tensors.
     Arguments as for `qmc_bath_split_anneal_ref`; returns new (a, b). The
     kernel keeps each spin's sign, so the halves must hold +/-1.
@@ -843,12 +870,14 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
     that takes the per-phase kernels at every shape, by that option and not by
     a failure, and the energy kernel (csrc/energy.cuh) runs after each step
     from the same loop (LAUNCHES["qmc_bath_split_energy"], one a step); the
-    states are those of the route without energies. `hw_rng` collects none."""
+    states are those of the route without energies. `hw_rng` collects none.
+    chain0 as for `sa_split_anneal`."""
     collect = _build.collecting(energies, hw_rng)
+    _check_chain0(chain0, hw_rng)
     if _build.route(a.device, "split") == "cpu":
         return qmc_bath_split_anneal_ref(sl, b_sched, jp, teff, bath, a, b,
                                          seed, global_moves, hw_rng,
-                                         energies)
+                                         energies, chain0)
     chains, P, nh = a.shape
     dev = a.device
     if nh != sl.nh:
@@ -875,7 +904,7 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
         n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # launched
         rc = lib.split_qmc_bath_phased_anneal(
             *head, chains, P, sl.L, sl.nslots, steps, cr.wrap_int32(seed),
-            int(bool(global_moves)), int(bool(hw_rng)),
+            int(bool(global_moves)), int(bool(hw_rng)), int(chain0),
             _build.energies_ptr(energies, steps, chains, dev),
             _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "split_qmc_bath_phased_anneal", rc,
@@ -886,7 +915,7 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
     rc = lib.split_qmc_bath_anneal(
         *head, chains, P, *geometry, sl.L, sl.nslots, steps,
         cr.wrap_int32(seed), int(bool(global_moves)), int(bool(hw_rng)),
-        _build.stream_of(dev),
+        int(chain0), _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "split_qmc_bath_anneal", rc)
     _build.LAUNCHES[_key("qmc_bath_split", hw_rng)] += 1
@@ -894,7 +923,8 @@ def qmc_bath_split_anneal(sl, b_sched, jp, teff, bath, a, b, seed,
 
 
 def qmc_bath_split_colored_anneal(sl, b_sched, jp, teff, bath, quarters,
-                                  seed, global_moves, energies=None):
+                                  seed, global_moves, energies=None,
+                                  chain0=0):
     """Kernel 5's colored template on CUDA tensors,
     `qmc_bath_split_colored_anneal_ref` on CPU tensors; arguments as for
     the plain version (even P, the counter hash only). Returns the new
@@ -910,12 +940,12 @@ def qmc_bath_split_colored_anneal(sl, b_sched, jp, teff, bath, quarters,
     (LAUNCHES["qmc_bath_split_colored_phased"]). With `energies` the
     per-phase kernels run at any shape and the energy kernel after each
     step (LAUNCHES["qmc_bath_split_colored_energy"]); the states are those
-    of the route without energies."""
+    of the route without energies. chain0 as for `sa_split_anneal`."""
     xe = quarters[0]
     if _build.route(xe.device, "split") == "cpu":
         return qmc_bath_split_colored_anneal_ref(
             sl, b_sched, jp, teff, bath, quarters, seed, global_moves,
-            energies)
+            energies, chain0)
     chains, Q, nh = xe.shape
     P = 2 * Q
     dev = xe.device
@@ -945,7 +975,7 @@ def qmc_bath_split_colored_anneal(sl, b_sched, jp, teff, bath, quarters,
         rc = lib.split_qmc_bath_colored_phased_anneal(
             *head, _build.ptr(tmp[0]), _build.ptr(tmp[1]), chains, P, sl.L,
             sl.nslots, steps, cr.wrap_int32(seed), int(bool(global_moves)),
-            _build.energies_ptr(energies, steps, chains, dev),
+            int(chain0), _build.energies_ptr(energies, steps, chains, dev),
             _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "split_qmc_bath_colored_phased_anneal",
                               rc, error_fn="split_qmc_bath_anneal_error_string")
@@ -954,7 +984,7 @@ def qmc_bath_split_colored_anneal(sl, b_sched, jp, teff, bath, quarters,
     else:
         rc = lib.split_qmc_bath_colored_anneal(
             *head, chains, P, *geometry, sl.L, sl.nslots, steps,
-            cr.wrap_int32(seed), int(bool(global_moves)),
+            cr.wrap_int32(seed), int(bool(global_moves)), int(chain0),
             _build.stream_of(dev))
         _build.raise_on_error(lib, "split_qmc_bath_colored_anneal", rc,
                               error_fn="split_qmc_bath_anneal_error_string")
@@ -1077,7 +1107,7 @@ def _on_halves(sl, state, fn):
 
 
 def anneal_lattice_split(problem, sched, spins, seed, mcsteps=1,
-                         hw_rng=False, collect_energy=False):
+                         hw_rng=False, collect_energy=False, chain0=0):
     """Split-layout SA anneal on an even-L LatticeProblem (counterpart of
     `pallas_split.anneal_lattice_split`, without its TPU lane rules and its
     `chain_block` and `chunk`, which tile the TPU's grid).
@@ -1088,20 +1118,22 @@ def anneal_lattice_split(problem, sched, spins, seed, mcsteps=1,
     hash (see the module docstring: another stream, held in distribution);
     collect_energy: also return the energy after each sweep, float32 of
     shape (steps * mcsteps,) + batch (the JAX solver's `collect_energy`);
-    on the card it takes the per-phase kernel and the energy kernel.
-    Returns the annealed spins, same shape, or (spins, energies)."""
+    on the card it takes the per-phase kernel and the energy kernel;
+    chain0: the global index of the first chain (a chain shard, whose
+    uniforms are then those of the unsharded run). Returns the annealed
+    spins, same shape, or (spins, energies)."""
     sl = _split_of(problem, spins, "spins")
     temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
     batch = spins.shape[:-1]
     es = energy_buffer(collect_energy, temps.shape[0], batch, problem.device)
     out = _on_halves(sl, spins, lambda a, b: sa_split_anneal(
-        sl, temps, a, b, seed, hw_rng, es))
+        sl, temps, a, b, seed, hw_rng, es, chain0=chain0))
     return with_energies(out, es, batch)
 
 
 def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
                              mcsteps=1, global_moves=True, hw_rng=False,
-                             collect_energy=False):
+                             collect_energy=False, chain0=0):
     """Split-layout PIQMC anneal on an even-L LatticeProblem at even P
     (counterpart of `pallas_split.anneal_lattice_qmc_split`, without its
     `chain_block` and `chunk`).
@@ -1110,8 +1142,9 @@ def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
     confs: (chains, P, N) or (P, N) float32 +/-1 slices-major, on the
     problem's device; hw_rng as for `anneal_lattice_split`; collect_energy:
     also return the best-slice energy after each sweep (line moves
-    included), (steps * mcsteps,) + batch. Returns the annealed
-    configurations, same shape, or (confs, energies)."""
+    included), (steps * mcsteps,) + batch; chain0 as for
+    `anneal_lattice_split`. Returns the annealed configurations, same
+    shape, or (confs, energies)."""
     slices = confs.shape[-2]
     sl = _split_of(problem, confs, "confs", slices)
     b, jp, teff = schedules.qmc_terms(a_sched, b_sched, temp, slices,
@@ -1122,7 +1155,7 @@ def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
     es = energy_buffer(collect_energy, b.shape[0], batch, problem.device)
     quarters = split_ops.pack_qmc(sl, c.to(torch.float32))
     quarters = qmc_split_anneal(sl, b, jp, teff, quarters, seed,
-                                global_moves, hw_rng, es)
+                                global_moves, hw_rng, es, chain0=chain0)
     out = split_ops.unpack_qmc(sl, *quarters)
     return with_energies(out[0] if squeeze else out, es, batch)
 
@@ -1130,7 +1163,8 @@ def anneal_lattice_qmc_split(problem, a_sched, b_sched, temp, confs, seed,
 def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
                                   lookuptable, confs, seed, mcsteps=1,
                                   global_moves=False, hw_rng=False,
-                                  collect_energy=False, colored=False):
+                                  collect_energy=False, colored=False,
+                                  chain0=0):
     """Split-layout dissipative PIQMC anneal on an even-L LatticeProblem at
     any P >= 2 (counterpart of `pallas_split.anneal_lattice_qmc_bath_split`,
     without its TPU lane rules, `chain_block` and `chunk`); with `colored`,
@@ -1145,8 +1179,8 @@ def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
     device; seed: int counter-hash seed; global_moves: whole-line flips
     after each sweep (DissipativeQuantumAnnealGlobal, qmc.pyx:444-609);
     hw_rng as for `anneal_lattice_split` (not with `colored`);
-    collect_energy as for `anneal_lattice_qmc_split`. Returns the annealed
-    configurations, same shape, or (confs, energies)."""
+    collect_energy and chain0 as for `anneal_lattice_qmc_split`. Returns
+    the annealed configurations, same shape, or (confs, energies)."""
     slices = confs.shape[-2]
     bath = bath_matrix_of(lookuptable, slices, problem.device)
     sl = _split_of(problem, confs, "confs", slices if colored else None)
@@ -1162,12 +1196,12 @@ def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
                              "hash only")
         out = split_ops.unpack_qmc(sl, *qmc_bath_split_colored_anneal(
             sl, b, jp, teff, bath, split_ops.pack_qmc(sl, c), seed,
-            global_moves, es))
+            global_moves, es, chain0))
         return with_energies(out[0] if squeeze else out, es, batch)
     a, b_half = split_ops.pack_classical(sl, c)
     a, b_half = qmc_bath_split_anneal(sl, b, jp, teff, bath, a.contiguous(),
                                       b_half.contiguous(), seed,
-                                      global_moves, hw_rng, es)
+                                      global_moves, hw_rng, es, chain0)
     out = split_ops.unpack_classical(sl, a, b_half)
     return with_energies(out[0] if squeeze else out, es, batch)
 

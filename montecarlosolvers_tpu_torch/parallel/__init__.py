@@ -1,0 +1,13 @@
+"""The parallel layer on torch.distributed (counterpart of
+montecarlosolvers_tpu/parallel/): device meshes and chain sharding
+(`mesh.py`), and the Trotter-sharded PIQMC engines (`trotter.py`). The
+disorder and multihost modules are queued at ROADMAP.md queue 1, item 4."""
+
+from montecarlosolvers_tpu_torch.parallel.mesh import (
+    chain_sharding,
+    make_mesh,
+    shard_chains,
+)
+from montecarlosolvers_tpu_torch.parallel import trotter
+
+__all__ = ["make_mesh", "shard_chains", "chain_sharding", "trotter"]

@@ -1,0 +1,277 @@
+"""The port's dry run of the parallel layer (counterpart of the JAX
+package's `__graft_entry__.py`): a one-step check of the PIQMC split
+engine, and a multi-rank run of every leg of the JAX `_dryrun_impl` that
+the port carries.
+
+`dryrun_multichip(n)` spawns n ranks (torch.multiprocessing, start method
+spawn; the ranks run this module, which imports no JAX) joined by a
+process group of their own: NCCL when the machine has a card for every
+rank, else gloo, which runs several ranks on one card with the halo rows
+and sums staged through host memory. The kernels are built in the parent
+before any rank starts, so that no two nvcc builds race in one build
+directory. Every rank ends with a barrier before it leaves the group.
+"""
+
+from __future__ import annotations
+
+import datetime
+import queue
+import socket
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from montecarlosolvers_tpu_torch import _device, schedules
+from montecarlosolvers_tpu_torch.models import instances
+from montecarlosolvers_tpu_torch.ops import _build
+from montecarlosolvers_tpu_torch.ops import split as split_ops
+from montecarlosolvers_tpu_torch.ops import split_kernels
+from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+from montecarlosolvers_tpu_torch.parallel import trotter
+from montecarlosolvers_tpu_torch.solvers import qmc, sa
+
+def entry(device=None):
+    """(fn, example_args): one PIQMC step of the split-checkerboard engine
+    (kernel B: the local sweep and the line moves) on the 80 x 80 random
+    lattice at P = 20, the JAX `entry()` on the port. fn(quarters, seed,
+    gamma, b) returns the new quarters; device None is the card."""
+    dev = _device.resolve(device)
+    problem, _ = instances.random_2d_lattice(80, rng=0, lattice=True,
+                                             device=dev)
+    slices = 20
+    temp = 1.0 / slices
+    sl = split_ops.build_split(problem)
+
+    def step(quarters, seed, gamma, b):
+        b_t, jp, teff = schedules.qmc_terms([gamma], [b], temp, slices, 1,
+                                            dev)
+        return split_kernels.qmc_split_anneal(sl, b_t, jp, teff, quarters,
+                                              seed, True)
+
+    gen = torch.Generator().manual_seed(0)
+    confs = (torch.randint(0, 2, (1, slices, problem.nspins), generator=gen)
+             .float() * 2 - 1).to(dev)
+    return step, (split_ops.pack_qmc(sl, confs), 0, 1.5, 1.0)
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def brute_force_ground(problem):
+    """Exact ground energy of a small problem (N <= 20) by enumeration."""
+    n = problem.nspins
+    assert n <= 20, "brute force limited to tiny instances"
+    bits = (np.arange(1 << n)[:, None] >> np.arange(n)) & 1
+    states = torch.as_tensor(bits * 2 - 1, dtype=torch.float32,
+                             device=problem.device)
+    return float(problem.energy(states).min())
+
+
+def _best(problem, confs):
+    return float(qmc.best_slice_energy(problem, confs).min())
+
+
+def legs(n_ranks, device_type):
+    """Every leg of the JAX `_dryrun_impl` that the port carries, on the
+    ranks of the default process group (n_ranks of them), each leg
+    asserting its bar: chain sharding bitwise on SA and PIQMC (generic),
+    split SA, split PIQMC and the split bath (sequential and colored); the
+    chain-sharded split engine reaching the brute-force ground state; the
+    Trotter-sharded generic anneal with global moves on a chains x replica
+    mesh reaching it; the Trotter-sharded split anneal bitwise equal to the
+    single-device split engine without global moves and reaching the
+    ground state with them. Returns {leg: value} of the ground-state
+    legs."""
+    dev = torch.device(device_type) if device_type == "cpu" else \
+        torch.device("cuda", torch.cuda.current_device())
+    full = pmesh.full_tensor
+    problem, _ = instances.random_2d_lattice(4, rng=0, device=dev)
+    lat, _ = instances.random_2d_lattice(4, rng=0, lattice=True, device=dev)
+    chain_mesh = pmesh.make_mesh(chains=n_ranks, device_type=device_type)
+    sched = schedules.linear(2.0, 0.0, 20, device=dev)
+    a = schedules.transverse_field(2.0, 1e-8, 10, device=dev)
+    b = torch.ones_like(a)
+
+    def chain_bitwise(name, run, state):
+        ref = run(state)
+        out = full(run(pmesh.shard_chains(state, chain_mesh)))
+        assert torch.equal(ref, out), f"chain-sharded {name} diverged"
+
+    s0 = sa.random_state(_gen(0), 16, batch=(2 * n_ranks,), device=dev)
+    confs = qmc.replicate(sa.random_state(_gen(0), 16, batch=(n_ranks,),
+                                          device=dev), 4)
+    lut = schedules.bath_lookuptable(4, 1e-2, device=dev)
+    chain_bitwise("SA", lambda s: sa.anneal(problem, sched, s, _gen(0)), s0)
+    chain_bitwise("PIQMC", lambda c: qmc.anneal(
+        problem, a, b, 0.25, c, _gen(0), global_moves=True), confs)
+    chain_bitwise("split SA", lambda s: sa.anneal(lat, sched, s, _gen(0)),
+                  s0)
+    chain_bitwise("split PIQMC", lambda c: qmc.anneal(
+        lat, a, b, 0.25, c, _gen(0), global_moves=True), confs)
+    for bath_update in ("sequential", "colored"):
+        chain_bitwise(f"split bath ({bath_update})", lambda c: qmc.anneal(
+            lat, a, b, 0.25, c, _gen(0), lookuptable=lut,
+            bath_update=bath_update), confs)
+
+    out = {}
+    e_lat = brute_force_ground(lat)
+    s0q = sa.anneal(lat, schedules.pre_anneal_schedule(3.0, 1.0, device=dev),
+                    sa.random_state(_gen(3), 16, batch=(n_ranks,),
+                                    device=dev), _gen(4), mcsteps=5)
+    a_gs = schedules.transverse_field(3.0, 1e-8, 300, device=dev)
+    b_gs = torch.ones_like(a_gs)
+    got = full(qmc.anneal(lat, a_gs, b_gs, 0.25, pmesh.shard_chains(
+        qmc.replicate(s0q, 4), chain_mesh), _gen(5), global_moves=True))
+    out["chain_sharded_split_gs"] = (_best(lat, got), e_lat)
+    assert out["chain_sharded_split_gs"][0] <= e_lat + 0.1 * abs(e_lat), out
+
+    # the Trotter-sharded generic anneal on a chains x replica mesh
+    if n_ranks >= 4 and n_ranks % 2 == 0:
+        chains_ax, replica_ax, chains_sharded = 2, n_ranks // 2, True
+    else:
+        chains_ax, replica_ax, chains_sharded = None, n_ranks, False
+    mesh = pmesh.make_mesh(chains=chains_ax, replica=replica_ax,
+                           device_type=device_type)
+    slices = 2 * replica_ax
+    e_gs = brute_force_ground(problem)
+    s1 = sa.anneal(problem, schedules.pre_anneal_schedule(3.0, 1.0,
+                                                          device=dev),
+                   sa.random_state(_gen(1), 16, batch=(4,), device=dev),
+                   _gen(2), mcsteps=5)
+    got = full(trotter.anneal_sharded(
+        problem, a_gs, b_gs, 1.0 / slices, qmc.replicate(s1, slices),
+        _gen(6), mesh, global_moves=True, chains_sharded=chains_sharded))
+    assert got.shape == (4, slices, 16)
+    assert bool(((got == 1) | (got == -1)).all()), "non-spin values"
+    out["trotter_sharded_gs"] = (_best(problem, got), e_gs)
+    assert out["trotter_sharded_gs"][0] <= e_gs + 0.1 * abs(e_gs), out
+
+    # the Trotter-sharded split engine: bitwise without line moves, the
+    # ground state with them
+    mesh_r = pmesh.make_mesh(replica=n_ranks, device_type=device_type)
+    p_split = 2 * n_ranks
+    confs_sp = qmc.replicate(sa.random_state(_gen(0), 16, batch=(2,),
+                                             device=dev), p_split)
+    a_sp = schedules.transverse_field(2.5, 1e-8, 20, device=dev)
+    ref = qmc.anneal(lat, a_sp, torch.ones_like(a_sp), 1.0 / p_split,
+                     confs_sp, _gen(0))
+    got = full(trotter.anneal_sharded_split(
+        lat, a_sp, torch.ones_like(a_sp), 1.0 / p_split, confs_sp, _gen(0),
+        mesh_r, rng="replicated"))
+    assert torch.equal(ref, got), "Trotter-sharded split engine diverged"
+    got = full(trotter.anneal_sharded_split(
+        lat, a_gs, b_gs, 1.0 / p_split, qmc.replicate(s0q, p_split), _gen(5),
+        mesh_r, global_moves=True))
+    out["trotter_sharded_split_gs"] = (_best(lat, got), e_lat)
+    assert out["trotter_sharded_split_gs"][0] <= e_lat + 0.1 * abs(e_lat), \
+        out
+    return out
+
+
+def free_port():
+    """A free TCP port on localhost for a process group's store."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def backend_for(device_type, n_ranks):
+    """NCCL when every rank has a card of its own, else gloo."""
+    if device_type == "cuda" and torch.cuda.device_count() >= n_ranks:
+        return "nccl"
+    return "gloo"
+
+
+def init_rank(rank, n_ranks, port, device_type, backend=None):
+    """Join rank `rank` of n_ranks to a process group on localhost:port
+    (the card rank % cards on the card; on the CPU one thread a rank, so
+    that the ranks do not oversubscribe the host's cores)."""
+    if device_type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(backend or backend_for(device_type, n_ranks),
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=n_ranks, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+
+
+def _rank_main(fn, rank, n_ranks, port, device_type, args, results):
+    try:
+        init_rank(rank, n_ranks, port, device_type)
+        out = fn(n_ranks, device_type, *args)
+        results.put((rank, None, out))
+    except BaseException:  # the parent reports it
+        results.put((rank, traceback.format_exc(), None))
+        raise
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# seconds the ranks of `run_ranks` may take to report
+RANK_TIMEOUT = 900
+
+
+def run_ranks(fn, n_ranks, device_type="cuda", args=()):
+    """Spawn n_ranks ranks, each joined to a process group of its own
+    (`init_rank`) running fn(n_ranks, device_type, *args); returns their
+    results in rank order (picklable: host tensors or numpy). `fn` must be
+    importable from its module, which each rank imports afresh. On the
+    card the kernels are built here first. Raises RuntimeError with the
+    first failing rank's traceback, and then stops every rank."""
+    if device_type == "cuda":
+        _device.resolve(None)  # raises without a card
+        _build.build()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, args=(
+        fn, r, n_ranks, port, device_type, tuple(args), results))
+        for r in range(n_ranks)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        while len(got) < n_ranks:
+            try:
+                rank, err, out = results.get(timeout=5)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"ranks exited with {dead} before "
+                                       "reporting") from None
+                if time.monotonic() > deadline:
+                    raise RuntimeError("ranks gave no result in "
+                                       f"{RANK_TIMEOUT} s") from None
+                continue
+            if err is not None:
+                raise RuntimeError(f"rank {rank} failed:\n{err}")
+            got[rank] = out
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    for p in procs:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"ranks exited with {bad}")
+    return [got[r] for r in range(n_ranks)]
+
+
+def dryrun_multichip(n_ranks, device_type="cuda"):
+    """Run `legs` on n_ranks spawned ranks (`run_ranks`); raises
+    RuntimeError with the first failing rank's traceback. device_type:
+    "cuda" (the default: the ranks share the machine's cards, gloo when
+    there are fewer cards than ranks) or "cpu" (gloo). Returns rank 0's
+    {leg: (best, ground)}."""
+    return run_ranks(legs, n_ranks, device_type)[0]

@@ -44,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from montecarlosolvers_tpu_torch import _device, schedules
+from montecarlosolvers_tpu_torch import _device, _roadmap, schedules
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.solvers._engines import (ClassicalEngine,
                                                           QuantumEngine)
@@ -164,6 +164,7 @@ def sample(problem, temps, states, generator, mcsteps=1, beta0=None,
     Returns (states, log_z[, stats]): log_z a float32 0-d tensor of
     ln[Z(1/temps[-1]) / Z(beta0)]; stats {"ess" (S,), "e_mean" (S,),
     "resampled" (S,) bool, "families" int}."""
+    _roadmap.refuse_sharded("pa.sample", states)
     _check_resample(resample)
     dev = problem.device
     temps = torch.as_tensor(temps, dtype=torch.float32, device=dev)
@@ -231,6 +232,7 @@ def sample_adaptive(problem, beta_end, states, generator, target_frac=0.9,
     Returns (states, log_z, stats) with stats {"betas", "ess", "e_mean"
     (n_steps,) numpy, "n_steps", "reached" (the final beta reached
     beta_end: the module docstring's first departure), "families"}."""
+    _roadmap.refuse_sharded("pa.sample_adaptive", states)
     _check_resample(resample)
     dev = problem.device
     r = states.shape[0]
@@ -317,6 +319,7 @@ def sample_piqmc(problem, gammas, temp, confs, generator, mcsteps=1, b=1.0,
 
     Returns (confs, log_z[, stats {"ess" (S,), "resampled" (S,),
     "families"}])."""
+    _roadmap.refuse_sharded("pa.sample_piqmc", confs)
     _check_resample(resample)
     dev = problem.device
     gammas = torch.as_tensor(gammas, dtype=torch.float32, device=dev)
@@ -366,6 +369,7 @@ def sample_piqmc_adaptive(problem, gamma_start, gamma_end, temp, confs,
 
     Returns (confs, log_z, stats {"jps", "ess" (n_steps,) numpy, "n_steps",
     "reached" (the final J_perp reached its end), "families"})."""
+    _roadmap.refuse_sharded("pa.sample_piqmc_adaptive", confs)
     _check_resample(resample)
     dev = problem.device
     r = confs.shape[0]

@@ -162,6 +162,7 @@ def sample(problem, temps, states, generator, nsweeps, swap_every=1,
 
     Returns (states rung-ordered, swap_rate (a tensor of the batch shape)
     [, energies (nsweeps, ..., M) rung-ordered][, pair_rates])."""
+    _roadmap.refuse_sharded("pt.sample", states)
     _roadmap.require_problem(problem)
     dev = problem.device
     temps = torch.as_tensor(temps, dtype=torch.float32, device=dev)
@@ -210,6 +211,7 @@ def sample_piqmc(problem, gammas, temp, confs, generator, nsweeps, b=1.0,
     confs: (..., M, P, N); temp: per-slice temperature (T_eff = P temp).
     A DenseProblem is refused, as in the JAX package. Returns (confs
     rung-ordered, swap_rate[, pair_rates])."""
+    _roadmap.refuse_sharded("pt.sample_piqmc", confs)
     dev = problem.device
     gammas = torch.as_tensor(gammas, dtype=torch.float32, device=dev)
     M = gammas.shape[0]
@@ -284,6 +286,7 @@ def sample_icm(problem, temps, states, generator, nsweeps, swap_every=1,
     Returns (states (..., 2, M, N) rung-ordered, swap_rate, houdayer_flip_
     frac[, energies (nsweeps, ..., 2, M)][, pair_rates (..., M-1), the
     mean of the two ladders])."""
+    _roadmap.refuse_sharded("pt.sample_icm", states)
     if isinstance(problem, DenseProblem):
         raise ValueError("sample_icm needs a sparse/lattice problem")
     _roadmap.require_problem(problem)

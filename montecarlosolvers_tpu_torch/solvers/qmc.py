@@ -45,6 +45,12 @@ computes it).
 The cluster solvers `anneal_wolff`, `anneal_sw` and `anneal_sw_bath` run
 an IsingProblem (a LatticeProblem taken to_generic()) on the cluster
 kernels of `ops/cluster_kernels.py`.
+
+A chain-sharded state (a DTensor from `parallel.shard_chains`) runs on
+`anneal`, every route above, block by block with the blocks' global uids,
+and equals the unsharded run bitwise; the cluster solvers refuse it
+(ROADMAP.md queue 1, item 4). The Trotter axis is sharded by
+`parallel.trotter`.
 """
 
 from __future__ import annotations
@@ -105,34 +111,42 @@ def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
     also return the best-slice energy (`best_slice_energy`) after each
     sweep and its line moves, float32 of shape (steps * mcsteps,) + batch
     on the problem's device. Returns the annealed configurations, or
-    (confs, energies)."""
+    (confs, energies).
+
+    confs may be a chain-sharded DTensor (`parallel.shard_chains`): each
+    rank anneals its block of chains on its global uids, and the result
+    (and the energies, sharded on their chain axis) comes back as a
+    DTensor of the same placements, bitwise the unsharded run's. Every
+    rank must pass the same generator state."""
     if bath_update not in BATH_UPDATES:
         raise ValueError(f"bath_update must be 'sequential' or 'colored', "
                          f"got {bath_update!r}")
     _roadmap.require_problem(problem, "qmc.anneal")
     slices = confs.shape[-2]
+    kw = dict(mcsteps=mcsteps, global_moves=global_moves,
+              collect_energy=collect_energy)
     if lookuptable is not None:
         colored = bath_update == "colored"
-        kw = dict(mcsteps=mcsteps, global_moves=global_moves,
-                  collect_energy=collect_energy)
-        if split_ops.supports_split(problem, slices if colored else None):
-            return split_kernels.anneal_lattice_qmc_bath_split(
-                problem, a_sched, b_sched, temp, lookuptable, confs,
-                draw_seed(generator), colored=colored, **kw)
-        return generic_kernels.anneal_generic_qmc_bath(
-            problem, a_sched, b_sched, temp, lookuptable, confs,
-            draw_seed(generator), colored=colored, **kw)
-    if isinstance(problem, IsingProblem):
-        return generic_kernels.anneal_generic_qmc(
-            problem, a_sched, b_sched, temp, confs, draw_seed(generator),
-            mcsteps=mcsteps, global_moves=global_moves,
-            collect_energy=collect_energy)
-    engine = (split_kernels.anneal_lattice_qmc_split
-              if split_ops.supports_split(problem, slices)
-              else plane_kernels.anneal_lattice_qmc)
-    return engine(problem, a_sched, b_sched, temp, confs,
-                  draw_seed(generator), mcsteps=mcsteps,
-                  global_moves=global_moves, collect_energy=collect_energy)
+        kw.update(colored=colored)
+        args = (problem, a_sched, b_sched, temp, lookuptable)
+        run = (split_kernels.anneal_lattice_qmc_bath_split
+               if split_ops.supports_split(problem,
+                                           slices if colored else None)
+               else generic_kernels.anneal_generic_qmc_bath)
+    else:
+        args = (problem, a_sched, b_sched, temp)
+        run = (generic_kernels.anneal_generic_qmc
+               if isinstance(problem, IsingProblem)
+               else split_kernels.anneal_lattice_qmc_split
+               if split_ops.supports_split(problem, slices)
+               else plane_kernels.anneal_lattice_qmc)
+    seed = draw_seed(generator)
+    if _roadmap.is_sharded(confs):
+        from montecarlosolvers_tpu_torch.parallel import mesh
+
+        return mesh.run_chain_sharded(confs, lambda c, chain0: run(
+            *args, c, seed, chain0=chain0, **kw))
+    return run(*args, confs, seed, **kw)
 
 
 def _bath_guard(problem, confs, what):
@@ -163,6 +177,7 @@ def anneal_wolff(problem, a_sched, b_sched, temp, confs, generator,
     arguments as for `anneal`. On the card csrc/fk_wolff.cu runs the
     whole schedule in one launch. Returns the annealed configurations."""
     _roadmap.require_problem(problem, "qmc.anneal_wolff")
+    _roadmap.refuse_sharded("qmc.anneal_wolff", confs)
     problem = cluster_kernels.generic_form(problem)
     if lookuptable is not None:
         _bath_guard(problem, confs, "dissipative Wolff")
@@ -182,6 +197,7 @@ def anneal_sw(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
     and one of csrc/generic_qmc.cu a step. Returns the annealed
     configurations."""
     _roadmap.require_problem(problem, "qmc.anneal_sw")
+    _roadmap.refuse_sharded("qmc.anneal_sw", confs)
     problem = cluster_kernels.generic_form(problem)
     if lookuptable is not None:
         _bath_guard(problem, confs, "space-time SW")
@@ -209,6 +225,7 @@ def anneal_sw_bath(problem, a_sched, b_sched, temp, lookuptable, confs,
     csrc/generic_qmc_bath.cu once a step for WC2's local sweeps. Returns
     the annealed configurations."""
     _roadmap.require_problem(problem, "qmc.anneal_sw_bath")
+    _roadmap.refuse_sharded("qmc.anneal_sw_bath", confs)
     return cluster_kernels.sw_bath_anneal(
         cluster_kernels.generic_form(problem), a_sched, b_sched, temp,
         lookuptable, confs, draw_seed(generator), mcsteps, per_slice_seeds,

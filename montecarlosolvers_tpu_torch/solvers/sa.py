@@ -32,6 +32,11 @@ variant, one launch an anneal.
 `anneal_wolff` and `anneal_sw` are the classical cluster anneals on the
 cluster kernels of `ops/cluster_kernels.py` (a LatticeProblem taken
 to_generic(), as the JAX solvers take it).
+
+A chain-sharded state (a DTensor from `parallel.shard_chains`) runs on
+`anneal` block by block, each rank its own chains with their global uids,
+and equals the unsharded run bitwise; the other solvers here refuse it
+(ROADMAP.md queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -82,13 +87,21 @@ def anneal(problem, sched, spins, generator, mcsteps=1,
     + batch on the problem's device. engine: "auto", or "masked" for the
     masked colored engine on an IsingProblem (the same spins as "auto";
     on a LatticeProblem the JAX package's masked engine serves vmapped
-    disorder, which waits for the parallel layer). Returns the annealed
-    spins, or (spins, energies)."""
+    disorder, which is queued at ROADMAP.md queue 1, item 4). Returns the
+    annealed spins, or (spins, energies).
+
+    spins may be a chain-sharded DTensor (`parallel.shard_chains`; not on
+    a DenseProblem): each rank anneals its block of chains, whose hash
+    uids count from the block's global first chain, and the result (and
+    the energies, sharded on their chain axis) comes back as a DTensor of
+    the same placements, bitwise the unsharded run's. Every rank must pass
+    the same generator state, as the JAX package replicates its key."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be 'auto' or 'masked', got "
                          f"{engine!r}")
     _roadmap.require_problem(problem)
     if isinstance(problem, DenseProblem):
+        _roadmap.refuse_sharded("sa.anneal on a DenseProblem", spins)
         # the JAX solver sends a DenseProblem to the dense engine whatever
         # the engine argument (solvers/sa.py:94-101)
         return dense_kernels.dense_anneal(
@@ -97,16 +110,22 @@ def anneal(problem, sched, spins, generator, mcsteps=1,
     if isinstance(problem, IsingProblem):
         run = (generic_kernels.anneal_masked if engine == "masked"
                else generic_kernels.anneal_packed)
-        return run(problem, sched, spins, draw_seed(generator),
-                   mcsteps=mcsteps, collect_energy=collect_energy)
-    if engine == "masked":
+    elif engine == "masked":
         raise _roadmap.not_ported("sa.anneal(engine='masked') on a "
-                                  "LatticeProblem", _roadmap.PARALLEL)
-    engine = (split_kernels.anneal_lattice_split
-              if split_ops.supports_split(problem)
-              else plane_kernels.anneal_lattice)
-    return engine(problem, sched, spins, draw_seed(generator),
-                  mcsteps=mcsteps, collect_energy=collect_energy)
+                                  "LatticeProblem", _roadmap.SHARDED)
+    else:
+        run = (split_kernels.anneal_lattice_split
+               if split_ops.supports_split(problem)
+               else plane_kernels.anneal_lattice)
+    seed = draw_seed(generator)
+    if _roadmap.is_sharded(spins):
+        from montecarlosolvers_tpu_torch.parallel import mesh
+
+        return mesh.run_chain_sharded(spins, lambda s, chain0: run(
+            problem, sched, s, seed, mcsteps=mcsteps,
+            collect_energy=collect_energy, chain0=chain0))
+    return run(problem, sched, spins, seed, mcsteps=mcsteps,
+               collect_energy=collect_energy)
 
 
 def anneal_noisy(problem, sched, nbr_J_sched, h_sched, spins, generator,
@@ -124,6 +143,7 @@ def anneal_noisy(problem, sched, nbr_J_sched, h_sched, spins, generator,
     per step, each reading its step's row (the JAX solver repeats the
     rows: the same sweeps). Returns the annealed spins."""
     _roadmap.require_problem(problem, "sa.anneal_noisy")
+    _roadmap.refuse_sharded("sa.anneal_noisy", spins)
     temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
     return generic_kernels.packed_noisy_scan(
         problem, temps, nbr_J_sched, h_sched, spins, draw_seed(generator),
@@ -146,6 +166,7 @@ def anneal_wolff(problem, sched, spins, generator, mcsteps=1,
     local sweeps one launch of it and one of csrc/packed_sa.cu a step
     (`ops/cluster_kernels.py`). Returns the annealed spins."""
     _roadmap.require_problem(problem, "sa.anneal_wolff")
+    _roadmap.refuse_sharded("sa.anneal_wolff", spins)
     return cluster_kernels.classical_anneal(
         cluster_kernels.generic_form(problem), sched, spins,
         draw_seed(generator), mcsteps, "wolff", local_sweeps)
@@ -161,6 +182,7 @@ def anneal_sw(problem, sched, spins, generator, mcsteps=1,
     anneal, or with local sweeps one of it and one of csrc/packed_sa.cu a
     step. Returns the annealed spins."""
     _roadmap.require_problem(problem, "sa.anneal_sw")
+    _roadmap.refuse_sharded("sa.anneal_sw", spins)
     return cluster_kernels.classical_anneal(
         cluster_kernels.generic_form(problem), sched, spins,
         draw_seed(generator), mcsteps, "sw", local_sweeps)

@@ -51,6 +51,7 @@ def anneal(problem, a_sched, b_sched, temp, theta, generator, mcsteps=1,
     (sign(cos theta), +1 at cos theta = 0) after each sweep, float32 of
     shape (steps * mcsteps,) + batch on the problem's device. Returns the
     annealed angles, or (theta, energies); project with `z_projection`."""
+    _roadmap.refuse_sharded("svmc.anneal", theta)
     _roadmap.require_problem(problem, "svmc.anneal")
     if isinstance(problem, IsingProblem):
         return generic_kernels.anneal_packed_svmc(
@@ -71,6 +72,7 @@ def anneal_noisy(problem, a_sched, b_sched, temp, nbr_J_sched, h_sched,
     `anneal` on an IsingProblem, with nbr_J_sched (steps, N, maxnb) and
     h_sched (steps, N) replacing its couplings step by step (see
     `sa.anneal_noisy`). Returns the annealed angles."""
+    _roadmap.refuse_sharded("svmc.anneal_noisy", theta)
     _roadmap.require_problem(problem, "svmc.anneal_noisy")
     a_s, b_s = (schedules.expand_mcsteps(x, mcsteps, problem.device)
                 for x in (a_sched, b_sched))

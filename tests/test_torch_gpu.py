@@ -1708,3 +1708,150 @@ def test_checkpointed_anneal_resumes_bitwise_on_the_card(cuda, tmp_path):
     resumed = ck.run(solver, sched, s0, seed=4)
     assert resumed.device.type == "cuda"
     assert torch.equal(full, resumed)
+
+
+# ---- the parallel layer: chain offsets, the shard kernels, a one-rank mesh
+
+
+def _offset_case(kind, dev):
+    """(run, state): run(state, chain0) on the card for one engine of a
+    chain-sharded solve, at a small width."""
+    lat4 = instances.gaussian_torus(16, 0, device=dev)
+    lat5 = instances.gaussian_torus(17, 0, device=dev)
+    gen = lat4.to_generic()
+    g = torch.Generator().manual_seed(5)
+
+    def spins(*shape):
+        return (torch.randint(0, 2, shape, generator=g).float() * 2
+                - 1).to(dev)
+    a = schedules.transverse_field(2.0, 1e-8, 12, device=dev)
+    b = torch.ones_like(a)
+    sched = schedules.linear(2.0, 0.1, 12, device=dev)
+    lut = schedules.bath_lookuptable(8, 1e-2, device=dev)
+    runs = {
+        "split_sa": (lambda s, c0: sk.anneal_lattice_split(
+            lat4, sched, s, 9, chain0=c0), spins(70, 256)),
+        "plane_sa": (lambda s, c0: pk.anneal_lattice(
+            lat5, sched, s, 9, chain0=c0), spins(70, 289)),
+        "split_qmc": (lambda s, c0: sk.anneal_lattice_qmc_split(
+            lat4, a, b, 0.3, s, 9, chain0=c0), spins(8, 8, 256)),
+        "plane_qmc": (lambda s, c0: pk.anneal_lattice_qmc(
+            lat4, a, b, 0.3, s, 9, chain0=c0), spins(8, 5, 256)),
+        "bath": (lambda s, c0: sk.anneal_lattice_qmc_bath_split(
+            lat4, a, b, 0.3, lut, s, 9, global_moves=True, chain0=c0),
+            spins(8, 8, 256)),
+        "bath_colored": (lambda s, c0: sk.anneal_lattice_qmc_bath_split(
+            lat4, a, b, 0.3, lut, s, 9, global_moves=True, colored=True,
+            chain0=c0), spins(8, 8, 256)),
+        "packed_sa": (lambda s, c0: gk.anneal_packed(
+            gen, sched, s, 9, chain0=c0), spins(70, 256)),
+        "generic_qmc": (lambda s, c0: gk.anneal_generic_qmc(
+            gen, a, b, 0.3, s, 9, chain0=c0), spins(8, 8, 256)),
+        "generic_bath": (lambda s, c0: gk.anneal_generic_qmc_bath(
+            gen, a, b, 0.3, lut, s, 9, global_moves=True, chain0=c0),
+            spins(8, 8, 256)),
+    }
+    return runs[kind]
+
+
+@pytest.mark.parametrize("kind", ["split_sa", "plane_sa", "split_qmc",
+                                  "plane_qmc", "bath", "bath_colored",
+                                  "packed_sa", "generic_qmc",
+                                  "generic_bath"])
+@pytest.mark.parametrize("phased", [False, True])
+def test_kernel_chain_offset_is_the_unsharded_rows(cuda, kind, phased):
+    """A block of chains run with its chain0 equals those rows of the
+    whole batch's run, on the cluster and on the per-phase kernels."""
+    run, state = _offset_case(kind, cuda)
+    route = gibbs.phased_route() if phased else contextlib.nullcontext()
+    with route:
+        full = run(state, 0)
+        c0 = 3 if state.shape[0] > 8 else 2
+        block = run(state[c0:c0 + 5].contiguous(), c0)
+    assert torch.equal(full[c0:c0 + 5], block)
+
+
+def test_shard_kernels_equal_plain(cuda):
+    """S1-S4 on a slab of 3 rows of a 12-row state, against their plain
+    versions, bitwise: halo rows of their own, and rows of the slab
+    itself (the ring of one rank, which passes views)."""
+    from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
+
+    lat = instances.gaussian_torus(16, 0, device=cuda)
+    sl = split_ops.build_split(lat)
+    g = torch.Generator().manual_seed(2)
+
+    def spins(*shape):
+        return (torch.randint(0, 2, shape, generator=g).float() * 2
+                - 1).to(cuda)
+    b = torch.full((4,), 0.7, device=cuda)
+    jp = schedules.jperp(torch.linspace(2.0, 0.5, 4, device=cuda), 2.4)
+    q = [spins(5, 3, sl.nh) for _ in range(4)]
+    for phase in (0, 1):
+        for halos in ((spins(5, sl.nh), spins(5, sl.nh)),
+                      shk.halo_rows(q, phase)):
+            want = shk.shard_phase_ref(sl, b, jp, 2.4, q, halos, phase, 2, 11,
+                                       7, 3, 12)
+            got = shk.shard_phase(sl, b, jp, 2.4, [x.clone() for x in q],
+                                  halos, phase, 2, 11, 7, 3, 12)
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+    for color in (0, 1):
+        part = shk.shard_line_part(sl, q, color)
+        assert torch.equal(part, shk.shard_line_part_ref(sl, q, color))
+        want = shk.shard_line_accept_ref(b, 2.4, part * 0.3, q, color, 1, 11,
+                                         7)
+        got = shk.shard_line_accept(sl, b, 2.4, part * 0.3,
+                                    [x.clone() for x in q], color, 1, 11, 7)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    for prob in (lat.to_generic(), instances.gaussian_torus(17, 0, device=cuda)):
+        pg = (packed_ops.packed_from_lattice(prob) if prob.nspins == 289
+              else packed_ops.build_packed(prob))
+        s = spins(4, 3, pg.nspins)
+        m = piqmc_ops.spacetime_num_phases(pg.num_colors, 12)
+        for up, dn in ((spins(4, pg.nspins), spins(4, pg.nspins)),
+                       (s[:, -1], s[:, 0])):
+            for p in range(m):
+                assert torch.equal(
+                    shk.generic_shard_phase(pg, b, jp, 2.4, s, up, dn, p, m,
+                                            2, 11, 7, 3, 12),
+                    shk.generic_shard_phase_ref(pg, b, jp, 2.4, s, up, dn, p,
+                                                m, 2, 11, 7, 3, 12))
+        for c in range(pg.num_colors):
+            part = shk.generic_shard_line_part(pg, b, s, c, 1)
+            assert torch.equal(part, shk.generic_shard_line_part_ref(
+                pg, b, s, c, 1))
+            assert torch.equal(
+                shk.generic_shard_line_accept(pg, 2.4, part * 0.2, s.clone(),
+                                              c, 1, 11, 7, 12),
+                shk.generic_shard_line_accept_ref(pg, 2.4, part * 0.2, s, c,
+                                                  1, 11, 7, 12))
+
+
+def test_one_rank_mesh_equals_the_single_device_engines(cuda):
+    """On a one-rank NCCL mesh chain sharding is the unsharded run, and
+    the Trotter-sharded split engine is kernel B's run, line moves or not
+    (one rank adds the line sums as kernel B does)."""
+    from montecarlosolvers_tpu_torch.parallel import make_mesh, shard_chains
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+    from montecarlosolvers_tpu_torch.parallel import trotter
+
+    lat = instances.gaussian_torus(16, 0, device=cuda)
+    gen = lambda: torch.Generator().manual_seed(4)  # noqa: E731
+    confs = qmc.replicate(sa.random_state(gen(), 256, batch=(6,),
+                                          device=cuda), 8)
+    a = schedules.transverse_field(2.0, 1e-8, 10, device=cuda)
+    b = torch.ones_like(a)
+    cmesh = make_mesh(chains=1)
+    out = qmc.anneal(lat, a, b, 0.3, shard_chains(confs, cmesh), gen(),
+                     global_moves=True)
+    assert torch.equal(pmesh.full_tensor(out), qmc.anneal(
+        lat, a, b, 0.3, confs, gen(), global_moves=True))
+    rmesh = make_mesh(replica=1)
+    for gm in (False, True):
+        _build.reset_launches()
+        out = trotter.anneal_sharded_split(lat, a, b, 0.3, confs, gen(),
+                                           rmesh, global_moves=gm)
+        assert _build.LAUNCHES["shard_phase"] == 2 * 10
+        assert _build.LAUNCHES["shard_line_accept"] == (20 if gm else 0)
+        assert torch.equal(pmesh.full_tensor(out), qmc.anneal(
+            lat, a, b, 0.3, confs, gen(), global_moves=gm))

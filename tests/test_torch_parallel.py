@@ -1,0 +1,485 @@
+"""The port's parallel layer (montecarlosolvers_tpu_torch/parallel/) on
+gloo ranks on the CPU.
+
+Two pools of ranks are spawned once for the module, one of 4 and one of 2
+(tests/torch_parallel_worker.py, which imports no JAX), and take the cases
+in turn. Held bitwise against the port's unsharded runs in this process:
+chain sharding of every engine of `sa.anneal` and `qmc.anneal` on a
+chains mesh of 4 and 2 ranks and on a 2 x 2 chains x replica mesh; the
+Trotter-sharded engines without line moves at replica 2 and 4. Held
+bitwise against the JAX package's sharded engines on the 8-device virtual
+CPU mesh, fed JAX's own draws: the shard functions of the split and
+generic engines. The physics bars of tests/test_parallel.py run on the
+port: the ground state with line moves, T -> 0 monotonicity, the exact
+equilibrium of N = 2 at P = 8, and the split engine against the
+unsharded one within 4 standard errors. The refusals of ROADMAP.md queue
+1, item 4 and the indivisible axes are checked, and the dry run runs.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gibbs_check as gibbs
+import torch_parallel_worker as W
+from montecarlosolvers_tpu_torch import schedules
+from montecarlosolvers_tpu_torch.models import instances
+from montecarlosolvers_tpu_torch.ops import counter_rng as cr
+from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+from montecarlosolvers_tpu_torch.ops.piqmc import spacetime_num_phases
+from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
+from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
+from montecarlosolvers_tpu_torch.ops import split as split_ops
+from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+from montecarlosolvers_tpu_torch.parallel import dryrun
+from montecarlosolvers_tpu_torch.solvers import qmc, sa
+
+CPU = torch.device("cpu")
+
+
+class RankPool:
+    """n gloo ranks (`torch_parallel_worker.serve`) taking cases in turn."""
+
+    def __init__(self, n):
+        ctx = mp.get_context("spawn")
+        self.n = n
+        self.inboxes = [ctx.Queue() for _ in range(n)]
+        self.outbox = ctx.Queue()
+        port = dryrun.free_port()
+        self.procs = [ctx.Process(target=W.serve, args=(
+            r, n, port, self.inboxes[r], self.outbox), daemon=True)
+            for r in range(n)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, case, **kwargs):
+        """Rank 0's result of `case`; AssertionError with the tracebacks of
+        the ranks that failed."""
+        for box in self.inboxes:
+            box.put((case, kwargs))
+        got, errors = None, []
+        for _ in range(self.n):
+            rank, ok, payload = self.outbox.get(timeout=600)
+            if not ok:
+                errors.append(f"rank {rank}:\n{payload}")
+            elif rank == 0:
+                got = payload
+        assert not errors, "\n".join(errors)
+        return got
+
+    def close(self):
+        for box in self.inboxes:
+            box.put(None)
+        for p in self.procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+
+
+@pytest.fixture(scope="module")
+def pools():
+    made = {4: RankPool(4), 2: RankPool(2)}
+    yield made
+    for pool in made.values():
+        pool.close()
+
+
+def _unsharded(engine):
+    state, run = W.ENGINES[engine]()
+    return W.numpy_of(run(state))
+
+
+def _equal(a, b):
+    if isinstance(a, tuple):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _equal(x, y)
+    else:
+        assert a.shape == b.shape
+        assert np.array_equal(a, b)
+
+
+# ------------------------------------------------------------ chain sharding
+
+
+@pytest.mark.parametrize("ranks,mesh_kind", [(4, "chains"),
+                                             (4, "chains_x_replica"),
+                                             (2, "chains")])
+@pytest.mark.parametrize("engine", sorted(W.ENGINES))
+def test_chain_sharding_is_bitwise(pools, engine, ranks, mesh_kind):
+    """Every engine of sa.anneal and qmc.anneal on a chain-sharded DTensor
+    equals the unsharded run bitwise, and comes back with the state's
+    placements (energies sharded on their chain axis, dim 1)."""
+    out, placements = pools[ranks].run("chain_sharded", engine=engine,
+                                       mesh_kind=mesh_kind)
+    _equal(out, _unsharded(engine))
+    rest = ", Replicate()" if mesh_kind == "chains_x_replica" else ""
+    assert placements[0] == f"[Shard(dim=0){rest}]"
+    if len(placements) > 1:
+        assert placements[1] == f"[Shard(dim=1){rest}]"
+
+
+def _wrapped(x):
+    """int64 -> the int32 it wraps to."""
+    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+@pytest.mark.parametrize("chain0", [0, 3, 2**26 + 5])
+def test_offset_uids_are_the_unsharded_rows(chain0):
+    """The uid helpers' offsets: a block of chains from chain0, and of
+    rows from q0 / k0 of a longer axis, holds the whole state's uids of
+    those chains and rows (int64 formulas here), wrapping as int32 as the
+    kernels' uint32 uids do."""
+    c = torch.arange(chain0, chain0 + 2, dtype=torch.int64)
+    site = torch.arange(10, dtype=torch.int64)
+    assert torch.equal(cr.sa_uids(2, 10, 1, CPU, chain0),
+                       _wrapped(c[:, None] * 20 + 10 + site))
+    q = torch.arange(3, 6, dtype=torch.int64)
+    want = (c[:, None, None] * 4 * 6 * 10 + 2 * 6 * 10
+            + q[None, :, None] * 10 + site)
+    assert torch.equal(cr.quarter_uids(2, 3, 10, 2, CPU, chain0, 3, 6),
+                       _wrapped(want))
+    full = cr.plane_uids(4, 5, CPU, slices=3).long()
+    stride = full[1, 0, 0, 0] - full[0, 0, 0, 0]
+    assert torch.equal(cr.plane_uids(2, 5, CPU, slices=3, chain0=chain0),
+                       _wrapped(full[:2] + chain0 * stride))
+    sites = torch.arange(7, dtype=torch.int32)
+    k = torch.arange(4, 6, dtype=torch.int64)
+    want = (c[:, None, None] * 8 + k[None, :, None]) * 7 + sites.long()
+    assert torch.equal(cr.generic_uids(2, sites, 7, slices=2, chain0=chain0,
+                                       k0=4, p_total=8), _wrapped(want))
+
+
+def _block_case(kind):
+    """(full run, block run) of a plain version on chains 0..5 and on the
+    block 2..4 with chain0 = 2."""
+    lat4, lat5 = W.lattice(4), W.lattice(5)
+    g = torch.Generator().manual_seed(3)
+    temps = torch.linspace(2.0, 0.1, 6)
+    b = torch.ones(6)
+    jp = schedules.jperp(torch.linspace(2.0, 0.1, 6), 1.2)
+    if kind == "split_sa":
+        sl = split_ops.build_split(lat4)
+        a, bb = (torch.randint(0, 2, (6, 8), generator=g).float() * 2 - 1
+                 for _ in range(2))
+        return (lambda c0, s: sk.sa_split_anneal_ref(sl, temps, *s, 5,
+                                                     chain0=c0), (a, bb))
+    if kind == "split_qmc":
+        sl = split_ops.build_split(lat4)
+        q = tuple(torch.randint(0, 2, (6, 2, 8), generator=g).float() * 2 - 1
+                  for _ in range(4))
+        return (lambda c0, s: sk.qmc_split_anneal_ref(
+            sl, b, jp, 1.2, s, 5, True, chain0=c0), q)
+    if kind == "plane_qmc":
+        pl = pk._planes_of(lat5, torch.zeros(1, 25), "s")
+        c = torch.randint(0, 2, (6, 3, 5, 5), generator=g).float() * 2 - 1
+        return (lambda c0, s: pk.qmc_plane_anneal_ref(
+            pl, b, jp, 1.2, s[0], 5, True, chain0=c0), (c,))
+    pg = packed_ops.build_packed(W.ising4())
+    c = torch.randint(0, 2, (6, 4, 16), generator=g).float() * 2 - 1
+    return (lambda c0, s: gk.generic_qmc_anneal_ref(
+        pg, b, jp, 1.2, s[0], 5, True, chain0=c0), (c,))
+
+
+@pytest.mark.parametrize("kind", ["split_sa", "split_qmc", "plane_qmc",
+                                  "generic_qmc"])
+def test_plain_versions_take_the_chain_offset(kind):
+    run, state = _block_case(kind)
+    full = run(0, state)
+    block = run(2, tuple(x[2:5] for x in state))
+    full = full if isinstance(full, tuple) else (full,)
+    block = block if isinstance(block, tuple) else (block,)
+    for f, b in zip(full, block):
+        assert torch.equal(f[2:5], b)
+
+
+# ------------------------------------------------------------ Trotter axis
+
+
+def _trotter_reference(kind, slices=8, runs=1, global_moves=False):
+    """The single-device engine's state after `runs` anneals of
+    `torch_parallel_worker.trotter_case`, each from the last's state."""
+    engine, problem = W.TROTTER_PROBLEMS[kind]
+    problem = problem()
+    confs, a, b, temp, _ = W.trotter_case(engine, problem, slices, chains=4)
+    for _ in range(runs):
+        if kind == "generic_lattice":
+            pg = packed_ops.packed_from_lattice(problem)
+            bb, jp, teff = schedules.qmc_terms(a, b, temp, slices, 1, CPU)
+            seed = sa.draw_seed(W.gen(2))
+            out = gk.generic_qmc_anneal(pg, bb, jp, teff,
+                                        packed_ops.pack_state(
+                                            pg, confs).contiguous(), seed,
+                                        global_moves)
+            confs = packed_ops.unpack_state(pg, out)
+        else:
+            confs = qmc.anneal(problem, a, b, temp, confs, W.gen(2),
+                               global_moves=global_moves)
+    return confs.numpy()
+
+
+@pytest.mark.parametrize("ranks,mesh_kind,dtensor", [
+    (2, "replica", False), (4, "replica", False),
+    (4, "chains_x_replica", False), (4, "chains_x_replica", True)])
+@pytest.mark.parametrize("kind", ["split", "generic", "generic_lattice"])
+def test_trotter_sharding_is_bitwise(pools, kind, ranks, mesh_kind,
+                                     dtensor):
+    """Without line moves the Trotter-sharded engines equal the
+    single-device engine bitwise at replica 2 and 4, with the chains
+    sharded too on a 2 x 2 mesh, from a full or a chain-sharded state;
+    the result is sharded on 'replica' along the slice axis."""
+    out, placements = pools[ranks].run("trotter", kind=kind,
+                                       mesh_kind=mesh_kind, dtensor=dtensor)
+    assert np.array_equal(out, _trotter_reference(kind))
+    want = ("[Shard(dim=0), Shard(dim=1)]" if mesh_kind == "chains_x_replica"
+            else "[Shard(dim=1)]")
+    assert placements == want
+
+
+@pytest.mark.parametrize("global_moves", [False, True])
+@pytest.mark.parametrize("kind", ["split", "generic", "generic_lattice"])
+def test_one_rank_ring_is_the_single_device_engine(pools, kind,
+                                                   global_moves):
+    """On a replica axis of one rank (2 chains x 1 replica) the ring hands
+    back the rows themselves and the line sum the part itself, with no
+    copy, and the engines equal the single-device engine bitwise, line
+    moves too (one rank adds a line's dE in the single-device order)."""
+    no_copy, out = pools[2].run("one_rank_ring", kind=kind,
+                                global_moves=global_moves)
+    assert no_copy
+    assert np.array_equal(out, _trotter_reference(
+        kind, global_moves=global_moves))
+
+
+@pytest.mark.parametrize("mesh_kind", ["replica", "chains_x_replica"])
+@pytest.mark.parametrize("kind", ["split", "generic"])
+def test_trotter_output_feeds_the_next_call_in_place(pools, kind,
+                                                      mesh_kind):
+    """One call's DTensor fed straight into a second call: the rank takes
+    its local block with no gather (the state never becomes whole on a
+    rank), and the two calls equal two single-device runs bitwise."""
+    out, gathers = pools[4].run("trotter_chained", kind=kind,
+                                mesh_kind=mesh_kind)
+    assert gathers == 0
+    assert np.array_equal(out, _trotter_reference(kind, runs=2))
+
+
+@pytest.mark.parametrize("kind", ["generic", "split"])
+def test_global_moves_reach_the_ground_state(pools, kind):
+    """tests/test_parallel.py:153 (generic, P = 8) and :354 (split, P =
+    16) at replica 4, line moves summed over the ranks."""
+    best, e_gs, values_ok = pools[4].run("ground_state", kind=kind)
+    assert values_ok
+    assert best <= e_gs + 0.1 * abs(e_gs), (best, e_gs)
+
+
+def _extended_energy(problem, confs, temp, gamma):
+    """E = sum_k E(s_k) - J_perp sum_k s_k . s_{k+1} (ring), float64, at
+    T_eff = P*T (tests/test_qmc.py::extended_energy)."""
+    c = np.asarray(confs, dtype=np.float64)
+    teff = temp * c.shape[-2]
+    jp = gibbs.jperp(gamma, c.shape[-2], temp)
+    e = gibbs.generic_energies(problem, c.reshape(-1, c.shape[-1]))
+    e = e.reshape(c.shape[:-1]).sum(-1)
+    assert teff > 0
+    return e - jp * (c * np.roll(c, -1, axis=-2)).sum(axis=(-1, -2))
+
+
+def test_energy_does_not_increase_at_zero_temperature(pools):
+    """tests/test_parallel.py:172 on the port."""
+    before, after = pools[4].run("zero_temperature")
+    problem = instances.random_2d_lattice(3, rng=0, device=CPU)[0]
+    e0 = _extended_energy(problem, before, 1e-6, 1.0)
+    e1 = _extended_energy(problem, after, 1e-6, 1.0)
+    assert e1 <= e0 + 1e-3, (e0, e1)
+
+
+def test_equilibrium_matches_exact(pools):
+    """tests/test_parallel.py:279: the sharded sweep's mean extended energy
+    over 192 chains against the exact Gibbs mean of N = 2, P = 8 (65536
+    states, tests/gibbs_check.py's weights)."""
+    out = pools[4].run("equilibrium")
+    problem = W.equilibrium_problem()
+    slices, temp, gamma = 8, 0.8, 8.0
+    w = gibbs.generic_qmc_weights(problem, slices, temp,
+                                  gibbs.jperp(gamma, slices, temp))
+    states = gibbs.all_states(2 * slices).reshape(-1, slices, 2)
+    e_exact = float((w * _extended_energy(problem, states, temp,
+                                          gamma)).sum())
+    e_emp = float(_extended_energy(problem, out, temp, gamma).mean())
+    assert abs(e_emp - e_exact) < 0.35, (e_emp, e_exact)
+
+
+def test_split_sharded_matches_unsharded_in_distribution(pools):
+    """tests/test_parallel.py:397: the sharded split engine, line moves on,
+    against the single-device one from another seed, mean extended energy
+    within 4 standard errors (2 x 2 lattice, P = 16, 128 chains)."""
+    out, ref = pools[4].run("split_statistics")
+    generic = W.lattice(2).to_generic()
+    e_sh = _extended_energy(generic, out, 0.8, 6.0)
+    e_ref = _extended_energy(generic, ref, 0.8, 6.0)
+    se = np.sqrt(e_sh.var() / len(e_sh) + e_ref.var() / len(e_ref))
+    assert abs(e_sh.mean() - e_ref.mean()) < 4.0 * se, (
+        e_sh.mean(), e_ref.mean(), se)
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_refusals(pools, ranks):
+    """Indivisible axes raise ValueError naming the division; every engine
+    outside the slice refuses a sharded state with NotImplementedError
+    naming ROADMAP.md queue 1, item 4."""
+    msgs = pools[ranks].run("refusals")
+    for key in ("shard_indivisible", "split_indivisible",
+                "generic_indivisible"):
+        assert msgs[key].startswith("ValueError") and "divide" in msgs[key]
+    assert msgs["rng"].startswith("ValueError: rng must be")
+    assert msgs["trotter_state_to_qmc"].startswith("ValueError")
+    for key, msg in msgs.items():
+        if key in ("shard_indivisible", "split_indivisible",
+                   "generic_indivisible", "rng", "trotter_state_to_qmc"):
+            continue
+        assert msg.startswith("NotImplementedError"), (key, msg)
+        assert "ROADMAP.md queue 1, item 4" in msg, (key, msg)
+
+
+# ------------------------------------------------------------ against JAX
+
+
+@pytest.fixture(scope="module")
+def eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
+
+
+def _jax_lattice(L):
+    from montecarlosolvers_tpu.models import instances as jinst
+
+    return jinst.random_2d_lattice(L, rng=0, lattice=True)[0]
+
+
+def test_split_shards_match_jax_on_its_draws(eight_devices):
+    """The port's S1 plain version, run shard by shard at replica 8 with
+    the ring's halo rows, a local phase at a time, on the uniforms JAX's
+    anneal_sharded_split (rng="replicated", test_parallel.py:324) draws:
+    bitwise its result."""
+    from montecarlosolvers_tpu import schedules as jsched
+    from montecarlosolvers_tpu.parallel import make_mesh as jmesh
+    from montecarlosolvers_tpu.parallel import trotter as jtrotter
+    from montecarlosolvers_tpu.solvers import qmc as jqmc
+    from montecarlosolvers_tpu.solvers import sa as jsa
+
+    jprob = _jax_lattice(4)
+    replicas, slices, steps = 8, 16, 6
+    key = jax.random.key(21)
+    confs = jqmc.replicate(jsa.random_state(key, 16, batch=(3,)), slices)
+    a = jsched.transverse_field(2.5, 1e-8, steps)
+    want = np.asarray(jtrotter.anneal_sharded_split(
+        jprob, a, jnp.ones_like(a), 1.0 / slices, confs, key,
+        jmesh(replica=replicas), rng="replicated"))
+
+    sl = split_ops.build_split(W.lattice(4))  # the same draws of rng 0
+    b, jp, teff = schedules.qmc_terms(np.asarray(a), np.ones(steps),
+                                      1.0 / slices, slices, 1, CPU)
+    quarters = list(split_ops.pack_qmc(sl, torch.as_tensor(
+        np.asarray(confs))))
+    rows = slices // 2 // replicas
+    keys = jax.random.split(key, steps)
+    for t in range(steps):
+        qkeys = jax.random.split(jax.random.split(keys[t])[0], 4)
+        u = [torch.as_tensor(np.asarray(jax.random.uniform(
+            qkeys[s], quarters[s].shape))) for s in range(4)]
+        for phase, updates in enumerate(shk.PHASES):
+            shards = []
+            for k in range(replicas):
+                blk = slice(k * rows, (k + 1) * rows)
+                # the previous rank's last row and the next rank's first
+                halos = [quarters[r][:, (k * rows - 1) % (slices // 2)
+                                     if direction < 0
+                                     else ((k + 1) * rows) % (slices // 2)]
+                         for _, _, r, direction, _ in updates]
+                shards.append(shk.shard_phase_ref(
+                    sl, b, jp, teff, [x[:, blk] for x in quarters], halos,
+                    phase, t, 0, draws=[u[s][:, blk] for s, *_ in updates]))
+            quarters = [torch.cat([sh[i] for sh in shards], dim=1)
+                        for i in range(4)]
+    got = split_ops.unpack_qmc(sl, *quarters).numpy()
+    assert np.array_equal(got, want)
+
+
+def test_generic_shards_match_jax_on_its_draws(eight_devices):
+    """The port's S3 plain version, shard by shard at replica 4, on each
+    shard's fold_in(fold_in(k, replica), chains) draws of JAX's
+    anneal_sharded (global moves off): bitwise its result."""
+    from montecarlosolvers_tpu import schedules as jsched
+    from montecarlosolvers_tpu.models import instances as jinst
+    from montecarlosolvers_tpu.parallel import make_mesh as jmesh
+    from montecarlosolvers_tpu.parallel import trotter as jtrotter
+    from montecarlosolvers_tpu.solvers import qmc as jqmc
+    from montecarlosolvers_tpu.solvers import sa as jsa
+
+    jprob = jinst.random_2d_lattice(4, rng=0)[0]
+    replicas, slices, steps = 4, 8, 5
+    key = jax.random.key(4)
+    confs = jqmc.replicate(jsa.random_state(key, 16, batch=(3,)), slices)
+    confs = confs.at[:, 2, :5].multiply(-1.0)
+    a = jsched.transverse_field(2.0, 1e-8, steps)
+    want = np.asarray(jtrotter.anneal_sharded(
+        jprob, a, jnp.ones_like(a), 1.0 / slices, confs, key,
+        jmesh(replica=replicas)))
+
+    pg = packed_ops.build_packed(W.ising4())  # the same draws of rng 0
+    m = spacetime_num_phases(pg.num_colors, slices)
+    b, jp, teff = schedules.qmc_terms(np.asarray(a), np.ones(steps),
+                                      1.0 / slices, slices, 1, CPU)
+    s = packed_ops.pack_state(pg, torch.as_tensor(np.asarray(confs)))
+    rows = slices // replicas
+    perm = pg.perm.long()
+    keys = jax.random.split(key, steps)
+    for t in range(steps):
+        k1 = jax.random.split(keys[t])[0]
+        draws = [torch.as_tensor(np.asarray(jax.random.uniform(
+            jax.random.fold_in(jax.random.fold_in(k1, r), 0),
+            (3, rows, 16))))[..., perm] for r in range(replicas)]
+        for p in range(m):
+            shards = []
+            for r in range(replicas):
+                blk = slice(r * rows, (r + 1) * rows)
+                shards.append(shk.generic_shard_phase_ref(
+                    pg, b, jp, teff, s[:, blk], s[:, (r * rows - 1) % slices],
+                    s[:, ((r + 1) * rows) % slices], p, m, t, 0, k0=r * rows,
+                    p_total=slices, draws=draws[r]))
+            s = torch.cat(shards, dim=1)
+    assert np.array_equal(packed_ops.unpack_state(pg, s).numpy(), want)
+
+
+# ------------------------------------------------------------ the dry run
+
+
+def test_dry_run_legs_on_four_ranks(pools):
+    """Every leg of the port's dry run (parallel/dryrun.py::legs) on the
+    4-rank pool, the chains x replica mesh among them."""
+    out = pools[4].run("dryrun_legs")
+    for best, e_gs in out.values():
+        assert best <= e_gs + 0.1 * abs(e_gs)
+
+
+def test_dryrun_multichip_spawns_its_ranks():
+    out = dryrun.dryrun_multichip(2, device_type="cpu")
+    assert set(out) == {"chain_sharded_split_gs", "trotter_sharded_gs",
+                        "trotter_sharded_split_gs"}
+
+
+def test_entry_takes_one_split_step():
+    step, args = dryrun.entry(device="cpu")
+    out = step(*args)
+    assert len(out) == 4
+    for q in out:
+        assert q.shape == (1, 10, 3200)
+        assert bool(((q == 1) | (q == -1)).all())

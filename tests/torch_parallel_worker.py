@@ -1,0 +1,380 @@
+"""Rank body of the parallel-layer tests (tests/test_torch_parallel.py).
+
+A pool of gloo ranks on the CPU, spawned once per test module, takes the
+cases one at a time: the test process puts (case, kwargs) into every
+rank's queue, each rank runs `CASES[case](**kwargs)` on its process group
+(the same program on every rank, as `shard_map` runs it), and rank 0's
+result comes back as numpy arrays. The module imports no JAX: a spawned
+rank imports it afresh.
+
+The engine registry `ENGINES` builds each chain-sharded run from a seed
+alone, so that the test process can run the same engine unsharded and
+hold the ranks' result to it bitwise.
+"""
+
+from __future__ import annotations
+
+import datetime
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from montecarlosolvers_tpu_torch import schedules
+from montecarlosolvers_tpu_torch.models import instances
+from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+from montecarlosolvers_tpu_torch.parallel import make_mesh, shard_chains
+from montecarlosolvers_tpu_torch.parallel import _collectives, dryrun, trotter
+from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+from montecarlosolvers_tpu_torch.solvers import pa, pt, qmc, sa, svmc
+
+CPU = torch.device("cpu")
+CHAINS = 8
+
+
+def gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def ising4():
+    return instances.random_2d_lattice(4, rng=0, device=CPU)[0]
+
+
+def lattice(L):
+    """An even L takes the split engines, an odd L the full-plane ones."""
+    if L % 2:
+        return instances.gaussian_torus(L, 0, device=CPU)
+    return instances.random_2d_lattice(L, rng=0, lattice=True, device=CPU)[0]
+
+
+def _sa(problem, **kw):
+    sched = schedules.linear(2.0, 0.0, 12, device=CPU)
+    state = sa.random_state(gen(1), problem.nspins, batch=(CHAINS,),
+                            device=CPU)
+    return state, lambda s: sa.anneal(problem, sched, s, gen(2), **kw)
+
+
+def _qmc(problem, slices=4, **kw):
+    a = schedules.transverse_field(2.0, 1e-8, 8, device=CPU)
+    confs = sa.random_state(gen(1), slices * problem.nspins, batch=(CHAINS,),
+                            device=CPU).reshape(CHAINS, slices, -1)
+    return confs, lambda c: qmc.anneal(problem, a, torch.ones_like(a), 0.3,
+                                       c, gen(2), **kw)
+
+
+def _lut(slices=4):
+    return schedules.bath_lookuptable(slices, 1e-2, device=CPU)
+
+
+# engine -> () -> (state, run): run(state) anneals a full or a
+# chain-sharded state; one engine of modules 2 and 4 of the slice each
+ENGINES = {
+    "sa_packed": lambda: _sa(ising4()),
+    "sa_masked": lambda: _sa(ising4(), engine="masked"),
+    "sa_split": lambda: _sa(lattice(4)),
+    "sa_plane": lambda: _sa(lattice(5)),
+    "sa_split_energies": lambda: _sa(lattice(4), collect_energy=True),
+    "qmc_generic": lambda: _qmc(ising4(), global_moves=True),
+    "qmc_split": lambda: _qmc(lattice(4), global_moves=True),
+    "qmc_plane": lambda: _qmc(lattice(5), slices=3, global_moves=True),
+    "qmc_split_energies": lambda: _qmc(lattice(4), global_moves=True,
+                                       collect_energy=True),
+    "bath_split_sequential": lambda: _qmc(lattice(4), lookuptable=_lut(),
+                                          global_moves=True),
+    "bath_split_colored": lambda: _qmc(lattice(4), lookuptable=_lut(),
+                                       global_moves=True,
+                                       bath_update="colored"),
+    "bath_generic_sequential": lambda: _qmc(ising4(), lookuptable=_lut(),
+                                            global_moves=True),
+    "bath_generic_colored": lambda: _qmc(ising4(), lookuptable=_lut(),
+                                         bath_update="colored"),
+    "bath_odd_lattice": lambda: _qmc(lattice(5), lookuptable=_lut()),
+}
+
+
+def _numpy(x):
+    if isinstance(x, tuple):
+        return tuple(_numpy(y) for y in x)
+    return pmesh.full_tensor(x).numpy()
+
+
+def _mesh(kind):
+    """'chains': every rank on the chain axis; 'chains_x_replica': (2,
+    world / 2); 'replica': every rank on the replica axis."""
+    world = dist.get_world_size()
+    if kind == "chains":
+        return make_mesh(chains=world, device_type="cpu")
+    if kind == "replica":
+        return make_mesh(replica=world, device_type="cpu")
+    return make_mesh(chains=2, replica=world // 2, device_type="cpu")
+
+
+def case_chain_sharded(engine, mesh_kind):
+    """The engine's run on its state chain-sharded over `mesh_kind`, with
+    the placements of what came back."""
+    state, run = ENGINES[engine]()
+    out = run(shard_chains(state, _mesh(mesh_kind)))
+    outs = out if isinstance(out, tuple) else (out,)
+    return _numpy(out), [str(list(x.placements)) for x in outs]
+
+
+def trotter_case(kind, problem, slices, chains=3, steps=10, seed=2):
+    """(confs, a, b, temp, run) of a Trotter-sharded run: kind "split" or
+    "generic"; run(confs, mesh, **kw) -> DTensor."""
+    a = schedules.transverse_field(2.5, 1e-8, steps, device=CPU)
+    confs = sa.random_state(gen(7), slices * problem.nspins, batch=(chains,),
+                            device=CPU).reshape(chains, slices, -1)
+    engine = (trotter.anneal_sharded_split if kind == "split"
+              else trotter.anneal_sharded)
+
+    def run(c, mesh, **kw):
+        return engine(problem, a, torch.ones_like(a), 1.0 / slices, c,
+                      gen(seed), mesh, **kw)
+    return confs, a, torch.ones_like(a), 1.0 / slices, run
+
+
+# kind -> (engine, problem): the split engine on an even lattice, the
+# generic one on an IsingProblem and on an odd torus's checkerboard
+TROTTER_PROBLEMS = {"split": ("split", lambda: lattice(4)),
+                    "generic": ("generic", ising4),
+                    "generic_lattice": ("generic", lambda: lattice(5))}
+
+
+def case_trotter(kind, mesh_kind, slices=8, dtensor=False, **kw):
+    """A Trotter-sharded run without line moves on `mesh_kind`; with
+    dtensor, confs go in chain-sharded."""
+    mesh = _mesh(mesh_kind)
+    engine, problem = TROTTER_PROBLEMS[kind]
+    confs, *_, run = trotter_case(engine, problem(), slices, chains=4)
+    chains_sharded = mesh_kind == "chains_x_replica"
+    if dtensor:
+        confs = shard_chains(confs, mesh)
+    out = run(confs, mesh, chains_sharded=chains_sharded, **kw)
+    return _numpy(out), str(list(out.placements))
+
+
+def case_one_rank_ring(kind, global_moves):
+    """A Trotter-sharded run on a (chains, replica = 1) mesh, each rank's
+    ring its own: whether the one-rank exchange handed back the rows
+    themselves and the one-rank sum the tensor itself (no copy), and the
+    run."""
+    mesh = _mesh("chains_x_replica")
+    group = mesh.get_group("replica")
+    rows, part = torch.zeros(2, 3, 4), torch.zeros(2, 4)
+    halos = _collectives.ring_halo(rows[:, -1], rows[:, 0], group)
+    no_copy = (halos[0].data_ptr() == rows[:, -1].data_ptr()
+               and halos[1].data_ptr() == rows[:, 0].data_ptr()
+               and _collectives.axis_sum(part, group) is part)
+    engine, problem = TROTTER_PROBLEMS[kind]
+    confs, *_, run = trotter_case(engine, problem(), 8, chains=4)
+    out = run(confs, mesh, chains_sharded=True, global_moves=global_moves)
+    return no_copy, _numpy(out)
+
+
+def case_trotter_chained(kind, mesh_kind):
+    """Two Trotter-sharded runs without line moves, the second on the
+    first's DTensor as it came back, with the number of gathers the second
+    call made (none: the state is already placed as the engine wants)."""
+    mesh = _mesh(mesh_kind)
+    engine, problem = TROTTER_PROBLEMS[kind]
+    confs, *_, run = trotter_case(engine, problem(), 8, chains=4)
+    chains_sharded = mesh_kind == "chains_x_replica"
+    first = run(confs, mesh, chains_sharded=chains_sharded)
+    gathers = []
+    gather = _collectives.gather
+    _collectives.gather = lambda *a, **k: gathers.append(1) or gather(*a,
+                                                                     **k)
+    try:
+        out = run(first, mesh, chains_sharded=chains_sharded)
+    finally:
+        _collectives.gather = gather
+    return _numpy(out), len(gathers)
+
+
+def case_ground_state(kind):
+    """The Trotter-sharded anneal with global moves on the replica mesh
+    (JAX test_parallel.py:153 and :354): (best slice energy, brute-force
+    ground energy)."""
+    mesh = _mesh("replica")
+    if kind == "split":
+        problem, slices = lattice(4), 16
+    else:
+        problem, slices = ising4(), 8
+    s0 = sa.anneal(problem, schedules.pre_anneal_schedule(3.0, 1.0,
+                                                          device=CPU),
+                   sa.random_state(gen(1), problem.nspins, batch=(4,),
+                                   device=CPU), gen(2), mcsteps=5)
+    a = schedules.transverse_field(3.0, 1e-8, 300, device=CPU)
+    engine = (trotter.anneal_sharded_split if kind == "split"
+              else trotter.anneal_sharded)
+    out = pmesh.full_tensor(engine(problem, a, torch.ones_like(a),
+                                   1.0 / slices, qmc.replicate(s0, slices),
+                                   gen(3), mesh, global_moves=True))
+    values_ok = bool(((out == 1) | (out == -1)).all())
+    return (float(qmc.best_slice_energy(problem, out).min()),
+            dryrun.brute_force_ground(problem), values_ok)
+
+
+def case_zero_temperature():
+    """JAX test_parallel.py:172: at T -> 0 the sharded generic sweep takes
+    only downhill moves. Returns (confs before, confs after)."""
+    problem = instances.random_2d_lattice(3, rng=0, device=CPU)[0]
+    slices = 8
+    confs = qmc.replicate(sa.random_state(gen(2), problem.nspins,
+                                          device=CPU), slices)
+    confs[3, :4] *= -1.0
+    a = torch.full((4,), 1.0)
+    out = trotter.anneal_sharded(problem, a, torch.ones(4), 1e-6, confs,
+                                 gen(2), _mesh("replica"))
+    return confs.numpy(), _numpy(out)
+
+
+def equilibrium_problem():
+    return IsingProblem.from_edges(2, [0], [1], [0.8], maxnb=1, device=CPU)
+
+
+def case_equilibrium(chains=192, steps=250):
+    """JAX test_parallel.py:279: N = 2, P = 8, weak Trotter coupling, the
+    sharded sweep from random states; returns the final confs."""
+    slices, temp, gamma = 8, 0.8, 8.0
+    g = gen(9)
+    confs = (torch.randint(0, 2, (chains, slices, 2), generator=g).float()
+             * 2 - 1)
+    a = torch.full((steps,), gamma)
+    out = trotter.anneal_sharded(equilibrium_problem(), a, torch.ones_like(a),
+                                 temp, confs, gen(9), _mesh("replica"))
+    return _numpy(out)
+
+
+def case_split_statistics(chains=128, steps=250):
+    """JAX test_parallel.py:397 on a 2 x 2 lattice at P = 16: the sharded
+    split engine with line moves (seed 31) beside the single-device one
+    (seed 33); returns both final states."""
+    problem = lattice(2)
+    slices, temp, gamma = 16, 0.8, 6.0
+    confs = qmc.replicate(sa.random_state(gen(31), problem.nspins,
+                                          batch=(chains,), device=CPU),
+                          slices)
+    a = torch.full((steps,), gamma)
+    b = torch.ones_like(a)
+    out = trotter.anneal_sharded_split(problem, a, b, temp, confs, gen(31),
+                                       _mesh("replica"), global_moves=True)
+    ref = qmc.anneal(problem, a, b, temp, confs, gen(33), global_moves=True)
+    return _numpy(out), ref.numpy()
+
+
+def _message(fn):
+    try:
+        fn()
+    except (ValueError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    return "no error"
+
+
+def case_refusals():
+    """The messages of every call this slice refuses on a sharded state or
+    an indivisible axis."""
+    mesh = _mesh("replica")
+    cmesh = _mesh("chains")
+    lat, prob = lattice(4), ising4()
+    world = dist.get_world_size()
+    slices = 2 * world - 2  # P/2 = world - 1: no replica axis divides it
+    a = schedules.transverse_field(2.0, 1e-8, 2, device=CPU)
+    b = torch.ones_like(a)
+    c = qmc.replicate(sa.random_state(gen(0), 16, batch=(world,),
+                                      device=CPU), slices)
+    s = shard_chains(sa.random_state(gen(0), 16, batch=(world,),
+                                     device=CPU), cmesh)
+    cs = shard_chains(qmc.replicate(sa.random_state(
+        gen(0), 16, batch=(world,), device=CPU), 4), cmesh)
+    sched = schedules.linear(1.0, 0.1, 2, device=CPU)
+    dense = instances.sk_model(8, rng=0, device=CPU)[0]
+    s8 = shard_chains(sa.random_state(gen(0), 8, batch=(world,),
+                                      device=CPU), cmesh)
+    return {
+        "shard_indivisible": _message(lambda: shard_chains(sa.random_state(
+            gen(0), 16, batch=(world + 1,), device=CPU), cmesh)),
+        "split_indivisible": _message(lambda: trotter.anneal_sharded_split(
+            lat, a, b, 0.3, c, gen(0), mesh)),
+        "generic_indivisible": _message(lambda: trotter.anneal_sharded(
+            prob, a, b, 0.3, c[:, :world - 1], gen(0), mesh)),
+        "rng": _message(lambda: trotter.anneal_sharded_split(
+            lat, a, b, 0.3, c, gen(0), mesh, rng="fast")),
+        "bath": _message(lambda: trotter.anneal_sharded(
+            prob, a, b, 0.3, c, gen(0), mesh, lookuptable=_lut(slices))),
+        "wolff_sharded": _message(lambda: trotter.anneal_wolff_sharded()),
+        "sw_sharded": _message(lambda: trotter.anneal_sw_sharded()),
+        "svmc": _message(lambda: svmc.anneal(prob, sched, sched, 0.1, s,
+                                             gen(0))),
+        "svmc_noisy": _message(lambda: svmc.anneal_noisy(
+            prob, sched, sched, 0.1, None, None, s, gen(0))),
+        "dense": _message(lambda: sa.anneal(dense, sched, s8, gen(0))),
+        "sa_noisy": _message(lambda: sa.anneal_noisy(prob, sched, None, None,
+                                                     s, gen(0))),
+        "sa_wolff": _message(lambda: sa.anneal_wolff(prob, sched, s,
+                                                     gen(0))),
+        "sa_sw": _message(lambda: sa.anneal_sw(prob, sched, s, gen(0))),
+        "qmc_wolff": _message(lambda: qmc.anneal_wolff(prob, a, b, 0.3, cs,
+                                                       gen(0))),
+        "qmc_sw": _message(lambda: qmc.anneal_sw(prob, a, b, 0.3, cs,
+                                                 gen(0))),
+        "qmc_sw_bath": _message(lambda: qmc.anneal_sw_bath(
+            prob, a, b, 0.3, _lut(), cs, gen(0))),
+        "pt": _message(lambda: pt.sample(prob, sched, s, gen(0), 2)),
+        "pt_piqmc": _message(lambda: pt.sample_piqmc(prob, a, 0.3, cs,
+                                                     gen(0), 2)),
+        "icm": _message(lambda: pt.sample_icm(prob, sched, s, gen(0), 2)),
+        "pa": _message(lambda: pa.sample(prob, sched, s, gen(0))),
+        "pa_adaptive": _message(lambda: pa.sample_adaptive(prob, 1.0, s,
+                                                           gen(0))),
+        "pa_piqmc": _message(lambda: pa.sample_piqmc(prob, a, 0.3, cs,
+                                                     gen(0))),
+        "pa_piqmc_adaptive": _message(lambda: pa.sample_piqmc_adaptive(
+            prob, 2.0, 0.1, 0.3, cs, gen(0))),
+        "masked_lattice": _message(lambda: sa.anneal(lat, sched, s, gen(0),
+                                                     engine="masked")),
+        "trotter_state_to_qmc": _message(lambda: qmc.anneal(
+            lat, a, b, 0.3, trotter.anneal_sharded_split(
+                lat, a, b, 0.3, qmc.replicate(sa.random_state(
+                    gen(0), 16, batch=(2,), device=CPU), 2 * world),
+                gen(0), mesh), gen(0))),
+    }
+
+
+def case_dryrun_legs():
+    """The dry run's legs on this pool's ranks."""
+    return dryrun.legs(dist.get_world_size(), "cpu")
+
+
+CASES = {name[5:]: fn for name, fn in globals().items()
+         if name.startswith("case_")}
+
+
+def serve(rank, world, port, inbox, outbox):
+    """A rank of the pool: join the gloo group, then run cases from
+    `inbox` until it yields None; each result, or the traceback, goes to
+    `outbox` as (rank, ok, payload), the payload of ranks > 0 None."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    while True:
+        item = inbox.get()
+        if item is None:
+            break
+        name, kwargs = item
+        try:
+            out = CASES[name](**kwargs)
+            outbox.put((rank, True, out if rank == 0 else None))
+        except BaseException:
+            outbox.put((rank, False, traceback.format_exc()))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def numpy_of(x):
+    """A result of the test process's own unsharded runs as numpy."""
+    if isinstance(x, tuple):
+        return tuple(numpy_of(y) for y in x)
+    return np.asarray(x.cpu())

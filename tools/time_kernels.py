@@ -7,7 +7,7 @@ the main path's shapes.
         [--L 80] [--sa-geometry CHAINS:C:R ...]
         [--bath-geometry R ...] [--qmc-geometry R ...]
         [--plane-qmc-geometry R ...] [--plane-svmc-geometry R ...]
-        [--split-svmc-geometry R ...] [--only KERNEL ...]
+        [--split-svmc-geometry R ...] [--only KERNEL ...] [--qmc-phased]
     PYTHONPATH=<checkout> python tools/time_kernels.py --hw-rng [--rounds N]
 
 Rows: kernel A at 1280 and 32 chains on the seeded L x L torus (T: 3 -> 0),
@@ -43,7 +43,10 @@ of the wrapper's own choice (where the checkout has `sa_geometry` /
 `qmc_bath_geometry` / `qmc_geometry` / `plane_qmc_geometry` /
 `plane_svmc_geometry` / `svmc_split_geometry`). `--only` times just the
 named kernels (split_sa, split_qmc_bath, plane_sa, split_qmc, plane_qmc,
-plane_svmc, split_svmc, packed_sa, generic_qmc, dense_sa). `--hw-rng` times instead kernels A, B, 4 and 5
+plane_svmc, split_svmc, packed_sa, generic_qmc, dense_sa). `--qmc-phased`
+adds a row of kernel B's per-phase route at the same shape (its
+`qmc_geometry` answering that no cluster holds it). `--hw-rng` times
+instead kernels A, B, 4 and 5
 at the shapes of bench/throughput.py's pallas_* arms (A 256 chains; B
 P = 40, 16 chains, global moves; 4 128 chains, TF; 5 P = 40, 8 chains,
 alpha = 1e-2, global moves) with the counter hash and with hw_rng=True,
@@ -87,6 +90,7 @@ def main():
     ap.add_argument("--split-svmc-geometry", nargs="*", default=[])
     ap.add_argument("--only", nargs="*", default=None)
     ap.add_argument("--hw-rng", action="store_true")
+    ap.add_argument("--qmc-phased", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -210,6 +214,11 @@ def main():
              ms_per_sweep=slope_ms(run, taus(100 * 6400 // L ** 2)))
         if own_qmc:
             sk.qmc_geometry = own_qmc
+    if args.qmc_phased and own_qmc and wanted("split_qmc"):
+        sk.qmc_geometry = lambda *a, **k: None
+        emit(kernel="split_qmc", route="phased", chains=32, L=L, P=P,
+             ms_per_sweep=slope_ms(run, taus(100 * 6400 // L ** 2)))
+        sk.qmc_geometry = own_qmc
 
     own_plane_qmc = getattr(pk, "plane_qmc_geometry", None)
     P5 = 5
