@@ -12,8 +12,9 @@ Phases, each printed as one JSON line:
                       the four generic kernels (packed SA, generic PIQMC,
                       packed SVMC, generic bath), the dense in-block
                       kernel, the three cluster kernels (fk_wolff,
-                      fk_label, fk_line) and the Houdayer kernel from
-                      csrc/, all at once (seconds)
+                      fk_label, fk_line), the Houdayer kernel and the
+                      sharded cluster kernels (fk_shard) from csrc/, all
+                      at once (seconds)
   clusters            the (C, R, threads) kernels A and 6 and the (R,
                       threads) kernels B, 5, 3, 7 and 4 take at the shapes
                       below, and how many of those clusters the card holds
@@ -421,9 +422,30 @@ Phases, each printed as one JSON line:
                       single-device kernels without line moves, within
                       PARALLEL_ANCHOR of their mean best-slice energy with
                       them and at most PARALLEL_LINES differing lines, each
-                      rank's launches exact; (e)
+                      rank's launches exact; (f) the rest of the Trotter
+                      axis's shard kernels S5 (the sharded bath's slice
+                      step: the torus's packing, P = 40, 32 chains, alpha =
+                      1e-2) and S6, S7 (the sharded Wolff round, field sums
+                      and flip, rules "local" and "full", and the sharded
+                      SW labels: the generic form, one chain at P = 40,
+                      with and without bath bonds) on rank 1's slab of 4
+                      against their plain versions, 0 mismatches, timed
+                      beside shard_bound; (g) the one-rank NCCL mesh: the
+                      sharded bath (tau = 200, line moves off and on)
+                      equals the sequential generic bath kernel, the
+                      sharded Wolff and SW engines (50 steps) equal
+                      fk_wolff and fk_label, with and without the bath,
+                      launches exact, ms a sweep or step beside the
+                      single-device kernels', rounds a step and the
+                      exchange's share; (h) PARALLEL_RANKS gloo ranks
+                      sharing the card: the sharded bath at P = 40 and at
+                      P = 4 (one slice a rank, the ring coloured) equals
+                      its one-process lockstep plain version, within
+                      PARALLEL_ANCHOR of the sequential bath's energy, and
+                      the sharded Wolff and SW engines equal the
+                      single-device kernels; (i)
                       parallel.dryrun.dryrun_multichip on PARALLEL_RANKS
-                      ranks
+                      ranks, JAX's legs 3c, 3d and 4 among them
 then a line {"kernels": [...]} (the launches of the main path's solves,
 the sampler solves and the api_surface and studies runs unless said: the
 seven kernels, then their per-phase kernels, which only the studies'
@@ -440,7 +462,7 @@ the main path's, then the per-chain instantiations of kernels A and B
 (and their per-phase kernels, which no main-path solve launches), of the
 packed SA, generic PIQMC and dense kernels, and the Houdayer kernel, whose
 launches are the sampler solves' and the studies', then the shard kernels
-S1-S4 of the Trotter-sharded engines, whose launches are the parallel
+S1-S7 of the Trotter-sharded engines, whose launches are the parallel
 phase's one-rank sharded anneals),
 a line {"phase": "done", "seconds": ..., "phase_seconds": {...}} (the
 seconds from the start at the end of each phase), and last
@@ -962,6 +984,16 @@ PARALLEL_KERNELS = {
     "generic_shard_line_accept": (
         "generic_shard_line_accept", _SRC + "generic_qmc.cu",
         "montecarlosolvers_tpu/parallel/trotter.py:233"),
+    # the rest of the Trotter axis: S5, the sharded bath's slice step, and
+    # S6, S7, the sharded Wolff and Swendsen-Wang rounds; their launches
+    # are the one-rank mesh's sharded anneals too
+    "generic_shard_bath_slice": (
+        "generic_shard_bath_slice", _SRC + "generic_qmc_bath.cu",
+        "montecarlosolvers_tpu/parallel/trotter.py:170"),
+    "shard_wolff": ("shard_wolff", _SRC + "fk_shard.cu",
+                    "montecarlosolvers_tpu/parallel/trotter.py:500"),
+    "shard_label": ("shard_label", _SRC + "fk_shard.cu",
+                    "montecarlosolvers_tpu/parallel/trotter.py:689"),
 }
 KERNELS.update(PARALLEL_KERNELS)
 # the parallel phase: gloo ranks sharing the card, steps of its sharded
@@ -971,6 +1003,13 @@ KERNELS.update(PARALLEL_KERNELS)
 # ranges' half-width)
 PARALLEL_RANKS, PARALLEL_STEPS, PARALLEL_TAUS = 4, 60, (20, 60)
 PARALLEL_ANCHOR = 0.0105
+# the sharded bath's one-rank check (tau, as the main path's bath solves),
+# the sharded cluster engines' steps, and the gloo legs' sweeps (fewer:
+# every local slice step of the sharded bath gathers the state through
+# host memory) and the sharded bath's second P there (one slice a rank,
+# the ring coloured)
+SHARD_BATH_TAU, SHARD_CLUSTER_STEPS = 200, 50
+GLOO_BATH_TAU, GLOO_CLUSTER_STEPS, GLOO_RING_SLICES = 30, 12, 4
 # ... and the most lines (chain, site) whose spins may differ there: one
 # chain's (6400 of the 204800 at 80x80, 32 chains). The ranks add their
 # parts of a line's dE in another order than kernel B adds its rows, so a
@@ -3867,14 +3906,31 @@ def studies(dev, main_launches, torus, power, name):
 
 
 def shard_bound(kname, chains, rows, sites, graph=None, updated=None,
-                block=None):
+                block=None, slices=None, visited=None, bath=False):
     """(least ms of one launch of shard kernel `kname`, "bytes" or
     "operations"): the work of kernel B's (split) or the generic PIQMC
     kernel's (generic) update or line move on a slab of `rows` quarter rows
     or slices of `sites` sites a row, `chains` chains, by `ops_per_sweep`'s
     counts, plus the halo rows' bytes. graph: (degree, maxnb) of a generic
     form; updated: the sites a generic phase updates; block: the sites of
-    the generic line color."""
+    the generic line color. The rest of the Trotter axis, at P = `slices`:
+    S5 a slice of every chain as the generic bath kernel's update
+    (`ops_per_sweep`'s "qmc_bath" a site), the gathered state read once;
+    S6 a round's bonds from its `visited` sites and S7 its draw, every bond
+    of the rows, as `cluster_bound` counts them (the bath pairs with
+    `bath`)."""
+    if kname in ("shard_wolff", "shard_label"):
+        degree, P = graph[0], slices
+        if kname == "shard_wolff":
+            sfu = visited * (degree + 2 + (P - 1 if bath else 0)) / 2
+            nbytes = visited * 8
+        else:
+            sfu = rows * sites * (degree / 2 + 2 + ((P - 1) / 2 if bath
+                                                    else 0))
+            nbytes = rows * sites * 8
+        times = {"operations": sfu / PEAK_SFU, "bytes": nbytes / PEAK_BYTES}
+        unit = max(times, key=times.get)
+        return 1e3 * times[unit], unit
     field = SPIN_FIELD if graph is None else graph[0]
     local = field + 4 + METROPOLIS
     slab = chains * rows * sites * 4
@@ -3912,11 +3968,191 @@ def shard_bound(kname, chains, rows, sites, graph=None, updated=None,
             METROPOLIS * chains * (block or 0), chains * (block or 0),
             chains * (block or 0) * 4 * (1 + 2 * rows)
             + (block or 0) * 4),
+        # a slice of every chain: the bath update (local + P) a site; the
+        # slice read and written, the gathered state and the bath row read
+        "generic_shard_bath_slice": (
+            (local + (slices or 0)) * chains * sites, chains * sites,
+            2 * row + chains * (slices or 0) * sites * 4 + tables
+            + (slices or 0) * 4),
     }[kname]
     times = {"operations": max(f32 / PEAK_FLOPS, sfu / PEAK_SFU),
              "bytes": nbytes / PEAK_BYTES}
     unit = max(times, key=times.get)
     return 1e3 * times[unit], unit
+
+
+def shard_rest_checks(dev, results, torus, power, name):
+    """(f) of phase parallel: S5, S6 and S7 against their plain versions on
+    rank 1's slab of PARALLEL_RANKS, timed with CUDA events beside
+    `shard_bound`. S5: the 80x80 torus's own packing at P = QMC_SLICES,
+    QMC_READS chains, alpha = BATH_ALPHA, every local slice step of the
+    slab. S6 and S7: the torus's generic form, one chain at P =
+    QMC_SLICES, replicated slices (the pre-anneal's start, whose Trotter
+    bonds hold), rules "local" and "full", with and without bath bonds;
+    S6 a round from a seed in the slab with random messages from both
+    ranks around it (and random fresh sites of the others with the bath),
+    its field sums and its flip; S7 the draw, a round on random labels of
+    the neighbours, and the flip. Every output equal: 0 mismatched spins,
+    bits, messages and labels."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
+    from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
+
+    P, n, ranks = QMC_SLICES, L * L, PARALLEL_RANKS
+    ps = P // ranks
+    k0 = ps  # rank 1
+    temp, t = 1.0 / P, 15
+    gamma = schedules.transverse_field(3.0, 1e-8, 20, device=dev)
+    b20 = torch.ones_like(gamma)
+    jp = schedules.jperp(gamma, temp * P).contiguous()
+    rng = np.random.default_rng(41)
+
+    def record(kname, bad, bound, ms, plain_ms, rec):
+        """Emit one case; the kernels line takes each kernel's first case
+        (S6: rule "local", no bath; S7: no bath), its times beside its
+        own bound."""
+        if "ms" not in results[kname]:
+            results[kname].update(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound[0], bound_by=bound[1])
+        rec.update(kernel=kname, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound[0])
+        emit({"phase": "parallel", "check": "shard_kernel_vs_plain",
+              "rank_of": [1, ranks], **rec, "card": name,
+              "power_limit": power})
+        check(sum(bad) == 0, f"{kname} equals its plain version ({rec})")
+
+    # S5
+    pg = packed_ops.packed_from_lattice(torus)
+    lut = schedules.bath_lookuptable(P, BATH_ALPHA, device=dev)
+    bath = piqmc_ops.bath_matrix_of(lut, P, dev)
+    full = packed_ops.pack_state(pg, parallel_state(QMC_READS, P, n, 42,
+                                                    dev)).contiguous()
+    slab = full[:, k0:k0 + ps].contiguous()
+    bad = 0
+    for kloc in range(ps):
+        args = (pg, b20, jp, temp * P, bath)
+        want = shk.generic_shard_bath_slice_ref(*args, slab, full, kloc,
+                                                k0 + kloc, t, 77)
+        got = shk.generic_shard_bath_slice(*args, slab.clone(), full, kloc,
+                                           k0 + kloc, t, 77)
+        torch.cuda.synchronize()
+        bad += mismatches([got], [want])[0]
+        slab = want
+    work, kt = slab.clone(), ps - 1
+    ms = event_ms(lambda: shk.generic_shard_bath_slice(
+        pg, b20, jp, temp * P, bath, work, full, kt, k0 + kt, t, 77), 50)
+    plain_ms = event_ms(lambda: shk.generic_shard_bath_slice_ref(
+        pg, b20, jp, temp * P, bath, slab, full, kt, k0 + kt, t, 77), 5)
+    bound = shard_bound("generic_shard_bath_slice", QMC_READS, 1, n,
+                        graph_shape(torus.to_generic()), slices=P)
+    record("generic_shard_bath_slice", [bad], bound, ms, plain_ms,
+           {"slices": P, "chains": QMC_READS, "slab_slices": ps,
+            "mismatched_spins": bad})
+
+    # S6 and S7
+    gtorus = torus.to_generic()
+    graph = graph_shape(gtorus)
+    gp = packed_ops.build_packed(gtorus)
+    one = torch.as_tensor(rng.choice([-1.0, 1.0], size=(1, n)).astype(
+        np.float32), device=dev)
+    state = packed_ops.pack_state(gp, one.expand(P, n)[None])[0]
+    state[:, : n // 8] *= -1.0  # a stripe the Trotter bonds cut
+    state = state.contiguous()
+    rows = state[k0:k0 + ps].contiguous()
+    up, dn = state[k0 - 1].contiguous(), state[k0 + ps].contiguous()
+    words = -(-ps * n // 32)
+
+    def messages(density):
+        return torch.as_tensor((rng.random(n) < density).astype(np.uint8),
+                               device=dev)
+
+    in_prev, in_next = messages(0.05), messages(0.05)
+    ff_words = torch.as_tensor(rng.integers(
+        -2**31, 2**31, size=ranks * words, dtype=np.int64).astype(
+            np.int32) & np.int32(0x01010101), device=dev)
+    seed_r, seed_j = ps // 2, n // 2 + 1
+    seed_x = seed_r * n + seed_j
+
+    def step(x, rule="local", with_bath=False):
+        return ck.ShardStep(gp, x, up, dn, state if with_bath else None, k0,
+                            P, b20, jp, temp * P, t, 77,
+                            lut.contiguous() if with_bath else None, rule,
+                            x[seed_r, seed_j:seed_j + 1].clone())
+
+    def differ(xs, ys):
+        return [int((x != y).sum()) for x, y in zip(xs, ys)]
+
+    for rule in ("local", "full"):
+        for with_bath in (False, True):
+            zero = torch.zeros(words, dtype=torch.int32, device=dev)
+            ff = ff_words if with_bath else None
+            msgs = (in_prev, in_next, ff, seed_x)
+            got = ck.shard_wolff_round(step(rows.clone(), rule, with_bath),
+                                       zero.clone(), *msgs)
+            want = ck.shard_wolff_round_ref(step(rows, rule, with_bath),
+                                            zero.clone(), *msgs)
+            torch.cuda.synchronize()
+            bad = differ(got, want)
+            visited = int(cl.unpack_bits(got[0], ps * n).sum())
+            sums = ck.shard_wolff_sums(step(rows, rule, with_bath), got[0])
+            bad += differ([sums], [ck.shard_wolff_sums_ref(
+                step(rows, rule, with_bath), got[0])])
+            rows_full = torch.cat([sums] * ranks)
+            flipped = ck.shard_wolff_flip(step(rows.clone(), rule,
+                                               with_bath), got[0], rows_full)
+            bad += differ([flipped], [ck.shard_wolff_flip_ref(
+                step(rows, rule, with_bath), got[0], rows_full)])
+            ms = event_ms(lambda: ck.shard_wolff_round(
+                step(rows, rule, with_bath), zero.clone(), *msgs), 20)
+            plain_ms = event_ms(lambda: ck.shard_wolff_round_ref(
+                step(rows, rule, with_bath), zero.clone(), *msgs), 2)
+            bound = shard_bound("shard_wolff", 1, ps, n, graph, slices=P,
+                                visited=visited, bath=with_bath)
+            record("shard_wolff", bad, bound, ms, plain_ms,
+                   {"rule": rule, "bath": with_bath,
+                    "visited_in_round": visited,
+                    "plain_visited": int(cl.unpack_bits(
+                        want[0], ps * n).sum()),
+                    "changed": int(got[4].item()),
+                    "mismatches": dict(zip(
+                        ("visited", "fresh", "out_up", "out_dn", "changed",
+                         "sums", "flip"), bad))})
+    for with_bath in (False, True):
+        lab_g, bdn_g = ck.shard_label_init(step(rows.clone(), "local",
+                                                with_bath))
+        st_ref = step(rows, "local", with_bath)
+        lab_w, bdn_w = ck.shard_label_init_ref(st_ref)
+        torch.cuda.synchronize()
+        bad = differ([lab_g, bdn_g], [lab_w, bdn_w])
+        halo_prev, halo_next = (torch.as_tensor(rng.integers(
+            -1, P * n, n).astype(np.int32), device=dev) for _ in range(2))
+        full_labels = torch.as_tensor(rng.integers(-1, P * n, (P, n)).astype(
+            np.int32), device=dev) if with_bath else None
+        bond_up = messages(0.5)
+        st = step(rows.clone(), "local", with_bath)
+        lab_g, bdn_g = ck.shard_label_init(st)
+        got = ck.shard_label_round(st, lab_g.clone(), bdn_g, halo_prev,
+                                   bond_up, halo_next, full_labels)
+        want = ck.shard_label_round_ref(st_ref, lab_w.clone(), bdn_w,
+                                        halo_prev, bond_up, halo_next,
+                                        full_labels)
+        bad += differ(got, want)
+        bad += differ([ck.shard_label_flip(st, got[0])],
+                      [ck.shard_label_flip_ref(st_ref, got[0])])
+        ms = event_ms(lambda: ck.shard_label_init(
+            step(rows, "local", with_bath)), 20)
+        plain_ms = event_ms(lambda: ck.shard_label_init_ref(
+            step(rows, "local", with_bath)), 2)
+        bound = shard_bound("shard_label", 1, ps, n, graph, slices=P,
+                            bath=with_bath)
+        record("shard_label", bad, bound, ms, plain_ms,
+               {"bath": with_bath, "changed": int(got[1].item()),
+                "mismatches": dict(zip(
+                    ("labels", "bond_dn", "round_labels", "changed",
+                     "flip"), bad))})
 
 
 def parallel_state(chains, slices, sites, seed, dev):
@@ -3987,6 +4223,265 @@ def card_trotter_rank(n_ranks, device_type, lat_l, chains, slices, steps,
     return out
 
 
+def rest_confs(slices, sites, seed, dev):
+    """One (slices, sites) chain of the sharded cluster engines: a random
+    +/-1 configuration from `seed` in every slice, as the pre-anneal hands
+    PIQMC its replicated states."""
+    return parallel_state(1, 1, sites, seed, dev)[0].expand(
+        slices, sites).contiguous()
+
+
+def cluster_runs(problem, slices, steps, dev):
+    """(name, run(engine kwargs) -> state, single-device run) of the
+    sharded Wolff and SW legs: rules "local" without and "full" with bath
+    bonds, SW without and with them, at T = 1/P over Gamma: 3 -> 1e-8."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.solvers import qmc
+
+    a = schedules.transverse_field(3.0, 1e-8, steps, device=dev)
+    b = torch.ones_like(a)
+    lut = schedules.bath_lookuptable(slices, BATH_ALPHA, device=dev)
+    confs = rest_confs(slices, problem.nspins, 17, dev)
+    cases = []
+    for label, kind, kw in (
+            ("wolff_local", "wolff", {"rule": "local"}),
+            ("wolff_full_bath", "wolff", {"rule": "full",
+                                          "lookuptable": lut}),
+            ("sw", "sw", {}),
+            ("sw_bath", "sw", {"lookuptable": lut})):
+        single = qmc.anneal_wolff if kind == "wolff" else qmc.anneal_sw
+        cases.append((label, kind, kw, lambda engine, kw=kw: engine(
+            problem, a, b, 1.0 / slices, confs,
+            torch.Generator().manual_seed(5), **kw),
+            lambda kw=kw, single=single: single(
+                problem, a, b, 1.0 / slices, confs,
+                torch.Generator().manual_seed(5), **kw)))
+    return cases
+
+
+def one_rank_rest(dev, main_launches, torus, rmesh, power, name):
+    """(g) of phase parallel: on the one-rank NCCL mesh, the sharded bath
+    (SHARD_BATH_TAU sweeps, QMC_READS chains, P = QMC_SLICES, line moves
+    off and on) equals the sequential generic bath kernel bitwise, and the
+    sharded Wolff and SW engines (SHARD_CLUSTER_STEPS steps, one chain)
+    equal fk_wolff and fk_label, with and without the bath; each run's
+    launches exact and counted into the kernels line; ms a sweep or step
+    beside the single-device kernels', rounds a step and the exchange's
+    share."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+    from montecarlosolvers_tpu_torch.parallel import trotter
+    from montecarlosolvers_tpu_torch.solvers.sa import draw_seed
+
+    P, n, tau = QMC_SLICES, L * L, SHARD_BATH_TAU
+    temp = 1.0 / P
+    a = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+    b = torch.ones_like(a)
+    lut = schedules.bath_lookuptable(P, BATH_ALPHA, device=dev)
+    confs = parallel_state(QMC_READS, P, n, 31, dev)
+    seed = draw_seed(torch.Generator().manual_seed(5))
+    colors = packed_ops.packed_from_lattice(torus).num_colors
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for gm in (False, True):
+        single, t_single = wall(lambda: gk.anneal_generic_qmc_bath(
+            torus, a, b, temp, lut, confs, seed, global_moves=gm))
+        _build.reset_launches()
+        got, t_sharded = wall(lambda: pmesh.full_tensor(trotter.anneal_sharded(
+            torus, a, b, temp, confs, torch.Generator().manual_seed(5), rmesh,
+            global_moves=gm, lookuptable=lut)))
+        launched = launched_now()
+        for k, v in launched.items():
+            if k in PARALLEL_KERNELS:
+                main_launches[k] += v
+        bad, _ = mismatches([got], [single])
+        want = {"generic_shard_bath_slice": P * tau}
+        if gm:
+            want.update({"generic_shard_line_part": colors * tau,
+                         "generic_shard_line_accept": colors * tau})
+        k5 = None
+        if gm:
+            _, t5 = wall(lambda: sk.anneal_lattice_qmc_bath_split(
+                torus, a, b, temp, lut, confs, 5, global_moves=True))
+            k5 = 1e3 * t5 / tau
+        emit({"phase": "parallel", "check": "one_rank_nccl_bath",
+              "global_moves": gm, "slices": P, "chains": QMC_READS,
+              "tau": tau, "mismatched_spins": bad, "launches": launched,
+              "ms_per_sweep_sharded": 1e3 * t_sharded / tau,
+              "ms_per_sweep_generic_bath": 1e3 * t_single / tau,
+              "ms_per_sweep_kernel5": k5, "card": name,
+              "power_limit": power})
+        check(bad == 0, f"the one-rank sharded bath (global_moves={gm}) "
+                        "equals the generic bath kernel's")
+        check(launched == want, f"the one-rank sharded bath launched "
+                                f"{launched}")
+    gtorus = torus.to_generic()
+    has_field = bool((gtorus.h != 0).any())
+    steps = SHARD_CLUSTER_STEPS
+    for label, kind, kw, run, single_run in cluster_runs(gtorus, P, steps,
+                                                         dev):
+        single, t_single = wall(single_run)
+        stats = {}
+        engine = (trotter.anneal_wolff_sharded if kind == "wolff"
+                  else trotter.anneal_sw_sharded)
+        _build.reset_launches()
+        got, t_sharded = wall(lambda: pmesh.full_tensor(run(
+            lambda *x, **y: engine(*x, rmesh, stats=stats, **y))))
+        launched = launched_now()
+        for k, v in launched.items():
+            if k in PARALLEL_KERNELS:
+                main_launches[k] += v
+        bad, _ = mismatches([got], [single])
+        if kind == "wolff":
+            extra = 1 + int(kw["rule"] == "local" and has_field)
+            want = {"shard_wolff": sum(stats["rounds"]) + extra * steps}
+        else:
+            want = {"shard_label": 2 * steps + sum(stats["rounds"])}
+        emit({"phase": "parallel", "check": "one_rank_nccl_cluster",
+              "case": label, "slices": P, "steps": steps,
+              "mismatched_spins": bad, "launches": launched,
+              "rounds_per_step": sum(stats["rounds"]) / steps,
+              "ms_per_step_sharded": 1e3 * t_sharded / steps,
+              "ms_per_step_single_device": 1e3 * t_single / steps,
+              "exchange_share": stats["exchange_seconds"] / t_sharded,
+              "card": name, "power_limit": power})
+        check(bad == 0, f"the one-rank sharded {label} equals the "
+                        "single-device kernel's")
+        check(launched == want, f"the one-rank sharded {label} launched "
+                                f"{launched}")
+
+
+def card_rest_rank(n_ranks, device_type, lat_l, chains, slices, ring_slices,
+                   tau, steps):
+    """The body of each gloo rank of (h): the sharded bath on the lat_l x
+    lat_l torus at P = `slices` and at P = `ring_slices` (one slice a
+    rank: the ring coloured), `chains` chains, `tau` sweeps; the sharded
+    Wolff and SW legs of `cluster_runs` on its generic form at P = `slices`,
+    `steps` steps. Rank 0 returns the states (int8) and the rounds; every
+    rank its launches."""
+    import torch.distributed as dist
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.parallel import make_mesh, trotter
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    rank = dist.get_rank()
+    torus = instances.gaussian_torus(lat_l, seed=0, device=dev)
+    mesh = make_mesh(replica=n_ranks, device_type=device_type)
+    out = {}
+
+    def keep(key, x, stats=None):
+        x = pmesh.full_tensor(x)
+        out[key] = (x.to(torch.int8).cpu().numpy() if rank == 0 else None,
+                    launched_now(), stats and stats["rounds"])
+
+    for p in (slices, ring_slices):
+        a = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+        lut = schedules.bath_lookuptable(p, BATH_ALPHA, device=dev)
+        confs = parallel_state(chains, p, lat_l * lat_l, 33, dev)
+        _build.reset_launches()
+        keep(f"bath_p{p}", trotter.anneal_sharded(
+            torus, a, torch.ones_like(a), 1.0 / p, confs,
+            torch.Generator().manual_seed(5), mesh, lookuptable=lut))
+    for label, kind, kw, run, _ in cluster_runs(torus.to_generic(), slices,
+                                                steps, dev):
+        engine = (trotter.anneal_wolff_sharded if kind == "wolff"
+                  else trotter.anneal_sw_sharded)
+        stats = {}
+        _build.reset_launches()
+        keep(label, run(lambda *x, **y: engine(*x, mesh, stats=stats, **y)),
+             stats)
+    return out
+
+
+def gloo_rest(dev, torus, power, name):
+    """(h) of phase parallel: PARALLEL_RANKS gloo ranks sharing the card
+    (`dryrun.run_ranks`, `card_rest_rank`): the sharded bath at P =
+    QMC_SLICES and at P = GLOO_RING_SLICES equals the one-process lockstep
+    plain version (`trotter.anneal_sharded_bath_ref`) bitwise, and its mean
+    energy per spin lies within PARALLEL_ANCHOR of the sequential bath
+    kernel's from the same seed; the sharded Wolff and SW legs equal the
+    single-device kernels bitwise; every rank's launches as its rounds
+    say."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.parallel import dryrun, trotter
+    from montecarlosolvers_tpu_torch.solvers import qmc
+    from montecarlosolvers_tpu_torch.solvers.sa import draw_seed
+
+    P, n, ranks = QMC_SLICES, L * L, PARALLEL_RANKS
+    tau, steps = GLOO_BATH_TAU, GLOO_CLUSTER_STEPS
+    t0 = time.perf_counter()
+    out = dryrun.run_ranks(card_rest_rank, ranks, dev.type, args=(
+        L, QMC_READS, P, GLOO_RING_SLICES, tau, steps))
+    seconds = time.perf_counter() - t0
+    seed = draw_seed(torch.Generator().manual_seed(5))
+    for p in (P, GLOO_RING_SLICES):
+        state = torch.as_tensor(out[0][f"bath_p{p}"][0], dtype=torch.float32,
+                                device=dev)
+        a = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+        b = torch.ones_like(a)
+        lut = schedules.bath_lookuptable(p, BATH_ALPHA, device=dev)
+        confs = parallel_state(QMC_READS, p, n, 33, dev)
+        ref = trotter.anneal_sharded_bath_ref(torus, a, b, 1.0 / p, lut,
+                                              confs, seed, ranks)
+        single = gk.anneal_generic_qmc_bath(torus, a, b, 1.0 / p, lut, confs,
+                                            seed)
+        bad = int((state != ref).sum())
+        e_sh = float(qmc.best_slice_energy(torus, state).mean()) / n
+        e_1 = float(qmc.best_slice_energy(torus, single).mean()) / n
+        launches = [o[f"bath_p{p}"][1] for o in out]
+        per_rank = max(1, p // ranks)
+        emit({"phase": "parallel", "check": "gloo_bath", "ranks": ranks,
+              "slices": p, "slices_per_rank": p // ranks, "tau": tau,
+              "mismatched_spins_vs_lockstep": bad,
+              "mean_best_energy_per_spin": e_sh,
+              "sequential_energy_per_spin": e_1,
+              "launches_each_rank": launches})
+        check(bad == 0, f"{ranks} gloo ranks' sharded bath at P = {p} equals "
+                        "the one-process lockstep plain version")
+        check(abs(e_sh - e_1) <= PARALLEL_ANCHOR,
+              f"the sharded bath at P = {p}: {e_sh} within "
+              f"{PARALLEL_ANCHOR} of the sequential bath's {e_1}")
+        check(all(x == {"generic_shard_bath_slice": per_rank * tau}
+                  for x in launches), f"each rank's bath launches "
+                                      f"{launches}")
+    gtorus = torus.to_generic()
+    has_field = bool((gtorus.h != 0).any())
+    for label, kind, kw, _, single_run in cluster_runs(gtorus, P, steps,
+                                                       dev):
+        state, launched, rounds = out[0][label]
+        single = single_run().to(torch.int8).cpu().numpy()
+        bad = int((state != single).sum())
+        key = "shard_wolff" if kind == "wolff" else "shard_label"
+        extra = ((1 + int(kw["rule"] == "local" and has_field))
+                 if kind == "wolff" else 2)
+        want = sum(rounds) + extra * steps
+        emit({"phase": "parallel", "check": "gloo_cluster", "case": label,
+              "ranks": ranks, "slices": P, "steps": steps,
+              "mismatched_spins": bad, "rounds": rounds,
+              "launches_each_rank": [o[label][1] for o in out]})
+        check(bad == 0, f"{ranks} gloo ranks' sharded {label} equals the "
+                        "single-device kernel's")
+        check(all(o[label][1] == {key: want} for o in out),
+              f"each rank's {label} launches {want}")
+    emit({"phase": "parallel", "check": "gloo_rest_timing", "ranks": ranks,
+          "seconds": seconds, "card": name, "power_limit": power})
+
+
 def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
                     name):
     """parallel: the parallel layer's chain and Trotter axes on the card.
@@ -4003,7 +4498,10 @@ def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
     B's two routes; (d) PARALLEL_RANKS gloo ranks sharing the card run the
     Trotter-sharded anneals: bitwise the single-device kernels without line
     moves, within PARALLEL_ANCHOR with them, the lines that differ
-    printed, exact launches; (e) dryrun.dryrun_multichip(PARALLEL_RANKS).
+    printed, exact launches; (f) S5-S7 against their plain versions
+    (`shard_rest_checks`); (g) the sharded bath, Wolff and SW engines on
+    the one-rank mesh (`one_rank_rest`); (h) on the gloo ranks
+    (`gloo_rest`); (i) dryrun.dryrun_multichip(PARALLEL_RANKS).
     """
     import torch.distributed as dist
     from montecarlosolvers_tpu_torch import schedules
@@ -4208,11 +4706,14 @@ def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
                                                     work, c, t, 77, 0, P),
               lambda: shk.generic_shard_line_accept_ref(
                   pg, temp * P, total, gslab, c, t, 77, 0, P))
-    for kname in PARALLEL_KERNELS:
+    for kname in list(PARALLEL_KERNELS)[:6]:
         emit({"phase": "parallel", "check": "shard_kernel_vs_plain",
               "kernel": kname, "chains": QMC_READS, "slices": P,
               "rank_of": [1, ranks], **results[kname],
               "card": name, "power_limit": power})
+
+    # (f) S5-S7 against their plain versions
+    shard_rest_checks(dev, results, torus, power, name)
 
     # (c) a one-rank NCCL mesh: chain sharding, and the main path of S1-S4
     cmesh = make_mesh(chains=1, device_type=dev.type)
@@ -4296,6 +4797,9 @@ def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
           "exchange_share_one_rank": 2 * exchange_ms
           / sweep["sharded_one_rank"], "card": name, "power_limit": power})
 
+    # (g) the rest of the Trotter axis on the one-rank NCCL mesh
+    one_rank_rest(dev, main_launches, torus, rmesh, power, name)
+
     # (d) gloo ranks sharing the card
     t0 = time.perf_counter()
     out = dryrun.run_ranks(card_trotter_rank, PARALLEL_RANKS, dev.type,
@@ -4351,7 +4855,10 @@ def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
           "exchange_share": 2 * timing["exchange_ms"] / timing["sweep_ms"],
           "card": name, "power_limit": power})
 
-    # (e) the dry run
+    # (h) the rest of the Trotter axis on the gloo ranks
+    gloo_rest(dev, torus, power, name)
+
+    # (i) the dry run, legs 3c, 3d and 4 among them
     t0 = time.perf_counter()
     legs = dryrun.dryrun_multichip(PARALLEL_RANKS, dev.type)
     emit({"phase": "parallel", "check": "dryrun_multichip",

@@ -62,6 +62,23 @@
 // Rounding: the field is the slot products in slot order, then h; every
 // product and sum with __fmul_rn / __fadd_rn, so nvcc contracts nothing
 // into an FMA that the plain version rounds twice.
+//
+// S5, the sharded bath's slice step (generic_shard_bath_slice_kernel below,
+// parallel/trotter.py::anneal_sharded(lookuptable=)). Replaces no TPU
+// kernel: the JAX package runs `updated_slice` of
+// montecarlosolvers_tpu/parallel/trotter.py::_sharded_dissipative_sweep
+// (:170-192) as XLA inside shard_map. Plain PyTorch version:
+// ops/shard_kernels.py::generic_shard_bath_slice_ref. A rank owns Ps of
+// the P slices; one launch updates its local slice kloc (global kglob) of
+// every chain through the classes in order, on the same dE, sums and
+// uniforms as the sequential sweep above, the Trotter and bath terms read
+// from `full`, every rank's slices gathered at the step's start (at one
+// rank the slab itself: M[k, k] = 0 makes the slice's own entry +/-0).
+// So one rank's sharded anneal equals the sequential kernel bitwise. An
+// improper class reads its same-class neighbours from a copy of its block
+// taken before its phase (`snap`, one slice a chain), as above.
+// The design, simply (a first kernel): one CTA of 256 threads a chain, a
+// barrier between classes, a launch a local slice step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -218,6 +235,64 @@ generic_qmc_bath_kernel(const int* __restrict__ nbr_idx,
   }
 }
 
+
+// S5: slice kloc of the slab s (chains, Ps, n), global slice kglob of P,
+// through the classes in order; `full` (chains, P, n) at chain stride
+// full_stride holds the state the Trotter and bath terms read.
+__global__ void __launch_bounds__(mcs::kPackedThreads)
+generic_shard_bath_slice_kernel(
+    const int* __restrict__ nbr_idx, const float* __restrict__ nbr_J,
+    const float* __restrict__ h, const int* __restrict__ perm,
+    const int* __restrict__ starts, const float* __restrict__ b_sched,
+    const float* __restrict__ jp, const float* __restrict__ bath,
+    float teff, float two_teff, float* s, const float* full, float* snap,
+    int Ps, int n, int maxnb, int ncolors, int kloc, int kglob, int P, int t,
+    uint32_t seed_term, int proper, uint32_t chain0) {
+  const int chain = blockIdx.x;
+  const size_t stride = static_cast<size_t>(n);
+  float* const sk = s + (static_cast<size_t>(chain) * Ps + kloc) * stride;
+  const float* const line0 = full + static_cast<size_t>(chain) * P * stride;
+  float* const ssnap = snap == nullptr ? nullptr : snap + chain * stride;
+  const float bc = __fmul_rn(-2.0f, __ldg(b_sched + t));
+  const float jpt = __ldg(jp + t);
+  const uint32_t ctr = mcs::counter(seed_term, t, 0);
+  const int up = kglob == 0 ? P - 1 : kglob - 1;
+  const int dn = kglob + 1 == P ? 0 : kglob + 1;
+  const uint32_t row =
+      (chain0 + static_cast<uint32_t>(chain)) * static_cast<uint32_t>(P) +
+      static_cast<uint32_t>(kglob);
+  for (int c = 0; c < ncolors; ++c) {
+    const int lo = __ldg(starts + c), hi = __ldg(starts + c + 1);
+    if (!proper) {
+      for (int i = lo + threadIdx.x; i < hi; i += blockDim.x)
+        ssnap[i] = sk[i];
+      __syncthreads();
+    }
+    // the same-class neighbours: the slice itself when proper (none lies
+    // in the block), else the copy; field_in_phase reads `same + j`
+    const float* same = proper ? sk : ssnap;
+    for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+      const float si = sk[i];
+      const float f = mcs::field_in_phase(sk, same, nbr_idx, nbr_J, h, i,
+                                          maxnb, lo, hi);
+      const float tr =
+          __fadd_rn(line0[up * stride + i], line0[dn * stride + i]);
+      const float bf = bath_field(bath + static_cast<size_t>(kglob) * P,
+                                  line0 + i, stride, P);
+      const float de = __fadd_rn(
+          __fadd_rn(__fmul_rn(__fmul_rn(bc, si), f),
+                    __fmul_rn(__fmul_rn(__fmul_rn(2.0f, si), jpt), tr)),
+          __fmul_rn(__fmul_rn(two_teff, si), bf));
+      const uint32_t uid =
+          row * static_cast<uint32_t>(n) +
+          static_cast<uint32_t>(__ldg(perm + i));
+      if (mcs::metropolis_accept_hashed(de, teff, uid * mcs::kGolden + ctr))
+        sk[i] = -si;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // Anneal `chains` chains of P packed slices `s` (chains, P, n) in place
@@ -254,6 +329,32 @@ extern "C" int generic_qmc_bath_anneal(
       nbr_idx, nbr_J, h, perm, starts, b_sched, jp, bath, teff, two_teff, s,
       snap, energies, chains, P, n, maxnb, ncolors, m, steps, seed_term,
       proper, static_cast<uint32_t>(chain0));
+  return cudaGetLastError();
+}
+
+// S5: one local slice step of the sharded bath (see the header): slice
+// kloc of the slab s (chains, Ps, n) in place, global slice kglob of P,
+// at step t of the (steps,) schedules B and J_perp, the (P, P) bath
+// matrix at T_eff = `teff` (two_teff: 2 T_eff rounded to float32); full
+// (chains, P, n), the gathered state (s itself at one rank); snap (chains,
+// n) scratch when proper == 0, else null; chain0 the global index of the
+// first chain. One CTA of 256 threads a chain. All device pointers;
+// launches on `stream` and returns cudaGetLastError().
+extern "C" int generic_qmc_bath_shard_slice(
+    const int* nbr_idx, const float* nbr_J, const float* h, const int* perm,
+    const int* starts, const float* b_sched, const float* jp,
+    const float* bath, float teff, float two_teff, float* s,
+    const float* full, float* snap, int chains, int Ps, int n, int maxnb,
+    int ncolors, int kloc, int kglob, int P, int t, int seed, int proper,
+    int chain0, void* stream) {
+  if (chains == 0 || n == 0) return cudaSuccess;
+  if (!proper && snap == nullptr) return cudaErrorInvalidValue;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  generic_shard_bath_slice_kernel<<<chains, mcs::kPackedThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      nbr_idx, nbr_J, h, perm, starts, b_sched, jp, bath, teff, two_teff, s,
+      full, snap, Ps, n, maxnb, ncolors, kloc, kglob, P, t, seed_term, proper,
+      static_cast<uint32_t>(chain0));
   return cudaGetLastError();
 }
 

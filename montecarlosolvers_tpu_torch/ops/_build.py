@@ -34,7 +34,7 @@ BUILD_DIR = _PKG / "_build"
 KERNELS = ("split_sa", "split_qmc", "split_svmc", "split_qmc_bath",
            "plane_sa", "plane_qmc", "plane_svmc", "energy", "packed_sa",
            "packed_svmc", "generic_qmc", "generic_qmc_bath", "dense_sa",
-           "fk_wolff", "fk_label", "fk_line", "houdayer")
+           "fk_wolff", "fk_label", "fk_line", "houdayer", "fk_shard")
 
 # No --use_fast_math: kernels and their plain versions must round alike.
 NVCC_FLAGS = (
@@ -244,9 +244,17 @@ SIGNATURES = {
         # nbr_idx, nbr_J, h, perm, starts, b_sched, jp, bath, teff, 2*teff,
         # s (in place), snap (scratch or null), energies, chains, P, n,
         # maxnb, ncolors, m, steps, seed, step0, colored, global_moves,
-        # proper, threads, stream
+        # proper, threads, chain0, stream
         "generic_qmc_bath_anneal": (
             _I, [_P] * 8 + [ctypes.c_float] * 2 + [_P] * 3 + [_I] * 14
+            + [_P]
+        ),
+        # S5, the sharded bath's slice step: nbr_idx, nbr_J, h, perm,
+        # starts, b_sched, jp, bath, teff, 2*teff, s (in place), full, snap
+        # (scratch or null), chains, Ps, n, maxnb, ncolors, kloc, kglob, P,
+        # t, seed, proper, chain0, stream
+        "generic_qmc_bath_shard_slice": (
+            _I, [_P] * 8 + [ctypes.c_float] * 2 + [_P] * 3 + [_I] * 12
             + [_P]
         ),
         "generic_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
@@ -280,6 +288,21 @@ SIGNATURES = {
         "fk_line_phase": (
             _I, [_P] * 9 + [ctypes.c_float] + [_P] + [_I] * 11 + [_P]),
         "fk_line_phase_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "fk_shard": {
+        # S6: nbr_idx, nbr_J, h, perm, b_sched, jp, lut, s, up, dn, full,
+        # kval, vis, fresh, queue, in_prev, in_next, full_fresh, out_up,
+        # out_dn, changed, rows_full, rows_out, teff, Ps, n, maxnb, P, k0,
+        # seed_x, t, seed, rule_full, mode, stream
+        "fk_shard_wolff": (
+            _I, [_P] * 23 + [ctypes.c_float] + [_I] * 10 + [_P]),
+        # S7: nbr_idx, nbr_J, h, perm, b_sched, jp, lut, s, dn, full,
+        # parent, lab, root, ext, labels, bond_dn, halo_prev, bond_up,
+        # halo_next, full_labels, changed, teff, Ps, n, maxnb, P, k0, t,
+        # seed, mode, stream
+        "fk_shard_label": (
+            _I, [_P] * 21 + [ctypes.c_float] + [_I] * 8 + [_P]),
+        "fk_shard_error_string": (ctypes.c_char_p, [_I]),
     },
     "houdayer": {
         # nbr_idx, nbr_J, s1, s2 (in place), flipped (out), parents
@@ -372,6 +395,11 @@ LAUNCHES.update({"shard_phase": 0, "shard_line_part": 0,
                  "shard_line_accept": 0, "generic_shard_phase": 0,
                  "generic_shard_line_part": 0,
                  "generic_shard_line_accept": 0})
+# ... and of the sharded bath and cluster engines: S5 once a local slice
+# step (p_local of them a step, one at p_local = 1), S6 and S7 once a round
+# (and S6's field sums and flip, S7's bond draw and flip, once a step).
+LAUNCHES.update({"generic_shard_bath_slice": 0, "shard_wolff": 0,
+                 "shard_label": 0})
 
 
 def reset_launches():

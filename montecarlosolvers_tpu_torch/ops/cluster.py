@@ -808,3 +808,480 @@ def line_phase_ref(pg, b, jp, teff, lookuptable, confs, seed, step, color,
                              lookuptable, p_pair)
     return bath_cluster_phase(prob, confs, *d[0], d[1], mask, teff, jp, b,
                               lookuptable, p_pair)
+
+
+# ------------------------------ the Trotter-sharded rounds (S6, S7), plain
+#
+# A rank of parallel/trotter.py's sharded cluster engines owns the rows k0
+# .. k0 + Ps - 1 of one unbatched (P, N) chain, P = R * Ps. The functions
+# below are the plain versions of the shard kernels of csrc/fk_shard.cu
+# (`cluster_kernels.shard_wolff_*`, `shard_label_*`): each takes the
+# rank's rows, the rows the ring exchange brought (`halo_up`: row k0 - 1,
+# `halo_dn`: row k0 + Ps, the rows themselves on a ring of one rank) and,
+# with a bath, every rank's rows gathered (`full`). Every draw is the
+# single-device kernels' counter hash at the global (slice, site), chain
+# 0, or, in the tests, the JAX engines' own draws sliced to the rank's rows
+# (`draws`), so the sharded result is the single-device one bitwise.
+
+
+def pack_bits(mask):
+    """(..., M) bool -> (..., ceil(M / 32)) int32 words, element x at bit
+    x % 32 of word x // 32: the kernels' bit arrays."""
+    m = mask.shape[-1]
+    words = -(-m // 32)
+    pad = torch.zeros(mask.shape[:-1] + (words * 32 - m,), dtype=torch.bool,
+                      device=mask.device)
+    x = torch.cat([mask, pad], dim=-1).reshape(mask.shape[:-1]
+                                               + (words, 32)).long()
+    w = (x << torch.arange(32, device=mask.device)).sum(-1)
+    return ((w + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def unpack_bits(words, m):
+    """The (..., m) bool mask of `pack_bits`' words."""
+    bits = (words.long()[..., None] >> torch.arange(
+        32, device=words.device)) & 1
+    return bits.reshape(words.shape[:-1] + (-1,))[..., :m].bool()
+
+
+def _row_draw(seed, step, stream, k0, rows, ids, slices=None):
+    """Uniforms of stream `stream` at chain 0's uids k * N + ids[i] of the
+    global rows k = k0 .. k0 + rows - 1 (mod `slices` when given)."""
+    k = torch.arange(k0, k0 + rows, dtype=torch.int64, device=ids.device)
+    if slices is not None:
+        k = k % slices
+    uid = k[:, None] * ids.shape[0] + ids.long()
+    return _hash(seed, step, stream, uid.to(torch.int32))
+
+
+def _shard_bath_uniforms(seed, step, k0, rows, slices, ids):
+    """(N, rows, P) pair uniforms of chain 0's lines, rows a = k0 .. of the
+    pairs (a, b), each the draw of its (min, max) pair
+    (`bath_uniforms` then `mirror_upper`, on the rank's rows)."""
+    a = torch.arange(k0, k0 + rows, dtype=torch.int64, device=ids.device)
+    b = torch.arange(slices, dtype=torch.int64, device=ids.device)
+    lo = torch.minimum(a[:, None], b[None, :])
+    hi = torch.maximum(a[:, None], b[None, :])
+    uid = (ids.long()[:, None, None] * slices + lo) * slices + hi
+    return _hash(seed, step, cr.BATH_BOND, uid.to(torch.int32))
+
+
+def _shard_bath_prob(s_rows, full, k0, teff, lookuptable):
+    """(N, Ps, P) FK probabilities of the bath pairs (a, b), a a rank row,
+    b any slice: `bath_bond_prob`'s rows a."""
+    slices = full.shape[-2]
+    ps = s_rows.shape[-2]
+    lut = _f32(lookuptable, full)
+    a = torch.arange(k0, k0 + ps, device=full.device)
+    r = torch.arange(slices, device=full.device)
+    off = (r[None, :] - a[:, None]) % slices  # (Ps, P): (b - a) mod P
+    de_b = (-2.0 * _f32(teff, full) * lut[(off - 1).clamp(min=0)]
+            * s_rows.transpose(-1, -2)[:, :, None]
+            * full.transpose(-1, -2)[:, None, :])
+    return torch.where(off > 0, bond_prob(de_b, teff),
+                       torch.zeros_like(de_b))
+
+
+def wolff_shard_bonds(problem, s, halo_up, halo_dn, full, kval, k0, slices,
+                      b, jp, teff, rule, lookuptable, seed, step, ids=None,
+                      draws=None):
+    """The bonds of a rank's rows in one Wolff step of the sharded engine
+    (`_wolff`'s, rows k0 .. k0 + Ps - 1): (active_full (Ps, N, maxnb) the
+    symmetrized spatial bonds, active_up (Ps, N) the Trotter bond of row r
+    and row r - 1 (global k0 + r - 1 mod P, the halo row at r = 0: drawn by
+    the rank that owns its upper slice), active_bath (N, Ps, P): row a
+    reaches b's line partner, or None). s (Ps, N), halo_up and halo_dn (N,)
+    float32 +/-1; full (P, N), every rank's rows (with a bath); kval: the
+    seed spin (rule "full"), a float32 tensor. draws: (u_sp (Ps, N, maxnb),
+    u_t (Ps, N) the uniforms of bond rows k0 - 1 .., u_b (N, Ps, P)
+    mirrored, or None), else the counter hash at step `step`."""
+    ps, n = s.shape
+    nbr = problem.nbr_idx.long()
+    idv = _ids(ids, n, s.device)
+    b, jp = _f32(b, s), _f32(jp, s)
+    ext = torch.cat([halo_up[None], s, halo_dn[None]])  # rows k0-1 .. k0+Ps
+    if draws is None:
+        m = torch.arange(nbr.shape[1], dtype=torch.int32, device=s.device)
+        rows = torch.arange(k0, k0 + ps, dtype=torch.int32, device=s.device)
+        uid = (rows[:, None] * n + idv.to(torch.int32))[..., None] \
+            * nbr.shape[1] + m
+        u_sp = _hash(seed, step, cr.SP_BOND, uid)
+        u_t = _row_draw(seed, step, cr.TROTTER_BOND, k0 - 1, ps, idv, slices)
+        u_b = (_shard_bath_uniforms(seed, step, k0, ps, slices, idv)
+               if lookuptable is not None else None)
+    else:
+        u_sp, u_t, u_b = draws
+    if rule == "local":
+        de_sp = 2.0 * b * problem.nbr_J * s[..., None] * s[:, nbr]
+        de_t = -2.0 * jp * ext[:-2] * ext[1:-1]
+        gate_sp = idv[:, None] < idv[nbr]
+        gate_t = torch.ones_like(s, dtype=torch.bool)
+        same_ext = None
+    else:
+        same_ext = ext == kval
+        de_site = (-2.0 * b * kval * problem.local_fields(s)
+                   + 2.0 * jp * kval * (ext[:-2] + ext[2:]))
+        de_sp = de_site[:, nbr]
+        de_t = de_site
+        pad = nbr == torch.arange(n, device=s.device)[:, None]
+        same = same_ext[1:-1]
+        gate_sp = same[..., None] & same[:, nbr] & ~pad
+        gate_t = same_ext[:-2] & same
+    active_full = symmetrize_spatial(gate_sp & (u_sp < bond_prob(de_sp, teff)),
+                                     nbr)
+    active_up = gate_t & (u_t < bond_prob(de_t, teff))
+    active_bath = None
+    if lookuptable is not None:
+        active_bath = u_b < _shard_bath_prob(s, full, k0, teff, lookuptable)
+        if rule != "local":
+            sf = (full == kval).transpose(-1, -2)  # (N, P)
+            active_bath = (active_bath & same_ext[1:-1].transpose(
+                -1, -2)[:, :, None] & sf[:, None, :])
+    return active_full, active_up, active_bath
+
+
+def wolff_shard_round_ref(problem, bonds, visited, in_prev, in_next,
+                          full_fresh, k0, slices, seed_x=-1):
+    """Plain form of a round of S6: the rank's part of the Wolff cluster
+    grown to its block's fixed point from this round's frontier.
+
+    bonds: `wolff_shard_bonds`; visited (Ps, N) bool, the cluster so far;
+    in_prev (N,) bool, the previous rank's last-row sites visited in its
+    last round, which reach row 0 through active_up[0]; in_next (N,) bool,
+    the sites of the last row the next rank's first row reached; full_fresh
+    (P, N) bool, every rank's sites visited in its last round, which reach
+    the rank's rows through the bath (None: none); seed_x: the seed's flat
+    index in the block, or -1. On a ring of one rank (Ps = P) the block is
+    the whole ring and the messages are not read.
+
+    Returns (visited, fresh: the sites visited in this round, out_up (N,)
+    the sites of row k0 - 1 that row 0 reached (for the previous rank),
+    out_dn (N,) the last row's fresh sites (for the next rank, which draws
+    their bond), changed: whether any of them, or with a bath any fresh
+    site, is news for another rank). A message never goes back to the rank
+    it came from."""
+    active_full, active_up, active_bath = bonds
+    ps, n = visited.shape
+    ring = ps == slices
+    nbr = problem.nbr_idx.long()
+    frontier = torch.zeros_like(visited)
+    if seed_x >= 0:
+        frontier.view(-1)[seed_x] = True
+    if not ring:
+        frontier[-1] |= in_next
+        frontier[0] |= in_prev & active_up[0]
+        if active_bath is not None and full_fresh is not None:
+            remote = torch.ones(slices, dtype=torch.bool,
+                                device=visited.device)
+            remote[k0:k0 + ps] = False
+            src = (full_fresh & remote[:, None]).transpose(-1, -2)  # (N, P)
+            frontier |= (active_bath & src[:, None, :]).any(-1).transpose(
+                -1, -2)
+    frontier &= ~visited
+    visited = visited | frontier
+    fresh = frontier.clone()
+    own = slice(k0, k0 + ps)
+    while bool(frontier.any()):
+        reach = (frontier[:, nbr] & active_full).any(-1)
+        if ring:
+            reach |= active_up & torch.roll(frontier, 1, dims=0)
+            reach |= torch.roll(active_up & frontier, -1, dims=0)
+        else:
+            reach[1:] |= active_up[1:] & frontier[:-1]
+            reach[:-1] |= active_up[1:] & frontier[1:]
+        if active_bath is not None:
+            reach |= (active_bath[:, :, own] & frontier.transpose(
+                -1, -2)[:, None, :]).any(-1).transpose(-1, -2)
+        frontier = reach & ~visited
+        visited = visited | frontier
+        fresh |= frontier
+    if ring:
+        out_up = out_dn = torch.zeros(n, dtype=torch.bool,
+                                      device=visited.device)
+    else:
+        out_up = fresh[0] & active_up[0] & ~in_prev
+        out_dn = fresh[-1] & ~in_next
+    changed = bool(out_up.any() or out_dn.any() or (
+        active_bath is not None and not ring and fresh.any()))
+    return visited, fresh, out_up, out_dn, changed
+
+
+def wolff_shard_sums_ref(problem, s, visited):
+    """Plain form of S6's field sums: (Ps,) sum of h_i s_i over each row's
+    cluster sites in index order (`field_sum`'s inner sum); the ranks'
+    rows, gathered in slice order, are added in order by the flip."""
+    x = torch.where(visited, problem.h * s, torch.zeros_like(s))
+    return sum_in_order(x, dim=-1)
+
+
+def wolff_shard_flip_ref(s, visited, rows_full, b, teff, seed, step, rule,
+                         u_acc=None):
+    """Plain form of S6's flip: the cluster's sites of the rank's rows
+    flipped, under rule "local" on a Metropolis accept of -2B times the
+    field term, `rows_full` (P,) (every rank's `wolff_shard_sums_ref`, in
+    slice order) added in order, or 0 when the problem has no fields
+    (rows_full None); u_acc: the accept's uniform, else the hash's at
+    chain 0."""
+    if rule == "local" and rows_full is not None:
+        de = -2.0 * _f32(b, s) * sum_in_order(rows_full, dim=-1)
+        if u_acc is None:
+            u_acc = _hash(seed, step, cr.ACCEPT,
+                          torch.zeros((), dtype=torch.int32,
+                                      device=s.device))
+        if not bool(metropolis_accept(de, _f32(teff, s), u_acc)):
+            return s
+    return torch.where(visited, -s, s)
+
+
+def sw_shard_bonds(problem, s, halo_dn, full, k0, slices, b, jp, teff,
+                   lookuptable, seed, step, ids=None, draws=None):
+    """The bonds and first labels of a rank's rows in one Swendsen-Wang
+    step of the sharded engine (`spacetime_sw_sweep`'s, rows k0 .. k0 + Ps
+    - 1): (active_full (Ps, N, maxnb) the symmetrized spatial bonds, act_dn
+    (Ps, N) the Trotter bond of row r and row r + 1 (the halo row at the
+    last row: drawn by the rank that owns its lower slice), active_bath (N,
+    Ps, P) or None, labels0 (Ps, N) int64: (k0 + r) * N + id, -1 where the
+    ghost bond of the field holds). draws: (u_sp, u_t (Ps, N) of bond rows
+    k0 .., u_b (N, Ps, P) mirrored or None, u_h), else the counter hash."""
+    ps, n = s.shape
+    nbr = problem.nbr_idx.long()
+    idv = _ids(ids, n, s.device)
+    b, jp = _f32(b, s), _f32(jp, s)
+    if draws is None:
+        m = torch.arange(nbr.shape[1], dtype=torch.int32, device=s.device)
+        rows = torch.arange(k0, k0 + ps, dtype=torch.int32, device=s.device)
+        uid = (rows[:, None] * n + idv.to(torch.int32))[..., None] \
+            * nbr.shape[1] + m
+        u_sp = _hash(seed, step, cr.SP_BOND, uid)
+        u_t = _row_draw(seed, step, cr.TROTTER_BOND, k0, ps, idv)
+        u_b = (_shard_bath_uniforms(seed, step, k0, ps, slices, idv)
+               if lookuptable is not None else None)
+        u_h = _row_draw(seed, step, cr.GHOST, k0, ps, idv)
+    else:
+        u_sp, u_t, u_b, u_h = draws
+    de_sp = 2.0 * b * problem.nbr_J * s[..., None] * s[:, nbr]
+    lower = idv[:, None] < idv[nbr]
+    active_full = symmetrize_spatial(lower & (u_sp < bond_prob(de_sp, teff)),
+                                     nbr)
+    below = torch.cat([s[1:], halo_dn[None]])
+    act_dn = u_t < bond_prob(-2.0 * jp * s * below, teff)
+    active_bath = None
+    if lookuptable is not None:
+        active_bath = u_b < _shard_bath_prob(s, full, k0, teff, lookuptable)
+    ghosted = u_h < bond_prob(2.0 * b * problem.h * s, teff)
+    k = torch.arange(k0, k0 + ps, device=s.device)[:, None]
+    labels0 = torch.where(ghosted, -1, k * n + idv)
+    return active_full, act_dn, active_bath, labels0
+
+
+def _relax(problem, bonds, labels, ext, k0, slices):
+    """Min-label relaxation of the block to its fixed point, each site also
+    taking the external labels `ext` (Ps, N) (`spacetime_sw_sweep`'s
+    relaxation on the rank's rows: spatial, the Trotter bonds inside the
+    block, around the ring on a ring of one rank, and the bath pairs of
+    two rows of the block)."""
+    active_full, act_dn, active_bath, _ = bonds
+    ps = labels.shape[0]
+    nbr = problem.nbr_idx.long()
+    big = slices * labels.shape[1]
+    ring = ps == slices
+    while True:
+        new = torch.minimum(labels, ext)
+        new = torch.minimum(new, torch.where(
+            active_full, labels[:, nbr], big).min(-1).values)
+        if ring:
+            new = torch.minimum(new, torch.where(
+                act_dn, torch.roll(labels, -1, dims=0), big))
+            new = torch.minimum(new, torch.where(
+                torch.roll(act_dn, 1, dims=0), torch.roll(labels, 1, dims=0),
+                big))
+        else:
+            new[:-1] = torch.minimum(new[:-1], torch.where(
+                act_dn[:-1], labels[1:], big))
+            new[1:] = torch.minimum(new[1:], torch.where(
+                act_dn[:-1], labels[:-1], big))
+        if active_bath is not None:
+            lt = labels.transpose(-1, -2)  # (N, Ps)
+            own = active_bath[:, :, k0:k0 + ps]
+            new = torch.minimum(new, torch.where(
+                own, lt[:, None, :], big).min(-1).values.transpose(-1, -2))
+        if bool((new == labels).all()):
+            return labels
+        labels = new
+
+
+def sw_shard_init_ref(problem, bonds, k0, slices):
+    """Plain form of S7's first launch of a step: the labels of the
+    block's own components, each its least `labels0` (-1 absorbing), with
+    no label from another rank."""
+    labels0 = bonds[3]
+    big = torch.full_like(labels0, slices * labels0.shape[1])
+    return _relax(problem, bonds, labels0, big, k0, slices)
+
+
+def sw_shard_round_ref(problem, bonds, labels, halo_prev, bond_up,
+                       halo_next, full_labels, k0, slices):
+    """Plain form of a round of S7: the block's labels relaxed to their
+    fixed point with the other ranks' labels as they stood after their
+    last round: halo_prev (N,), the previous rank's last row, across the
+    bonds `bond_up` (N,) bool (that rank's act_dn of its last row);
+    halo_next (N,), the next rank's first row, across the last row's
+    act_dn; full_labels (P, N), every rank's labels, across the bath pairs
+    with another rank's rows (None without a bath). Returns (labels,
+    changed)."""
+    _, act_dn, active_bath, _ = bonds
+    ps = labels.shape[0]
+    big = slices * labels.shape[1]
+    ext = torch.full_like(labels, big)
+    if ps != slices:
+        ext[0] = torch.where(bond_up, halo_prev.long(), big)
+        ext[-1] = torch.minimum(ext[-1], torch.where(
+            act_dn[-1], halo_next.long(), big))
+        if active_bath is not None:
+            remote = torch.ones(slices, dtype=torch.bool,
+                                device=labels.device)
+            remote[k0:k0 + ps] = False
+            lf = full_labels.long().transpose(-1, -2)  # (N, P)
+            pulled = torch.where(active_bath & remote, lf[:, None, :],
+                                 big).min(-1).values.transpose(-1, -2)
+            ext = torch.minimum(ext, pulled)
+    new = _relax(problem, bonds, labels, ext, k0, slices)
+    return new, bool((new != labels).any())
+
+
+def sw_shard_flip_ref(s, labels, seed, step, coins=None):
+    """Plain form of S7's flip: every site of a free component (label >=
+    0) flips on the coin of its label, the hash's at chain 0 (uid = the
+    label), or `coins` (P * N,) bool."""
+    lab = labels.clamp(min=0)
+    if coins is None:
+        heads = _hash(seed, step, cr.COIN, lab.to(torch.int32)) < 0.5
+    else:
+        heads = coins[lab]
+    return torch.where((labels >= 0) & heads, -s, s)
+
+
+def wolff_seed_draw(seed, step, slices, n, device):
+    """(seed slice, seed position) of chain 0's Wolff cluster at `step`
+    (`wolff_draws`' first two), as Python ints."""
+    u = _hash(seed, step, cr.WOLFF_SEED,
+              torch.arange(2, dtype=torch.int32, device=device))
+    return (int(cr.index_draw(u[1:], slices)[0]),
+            int(cr.index_draw(u[:1], n)[0]))
+
+
+def wolff_sharded_steps_ref(problem, s, b_sched, jp, teff, seed, ranks,
+                            rule="local", lookuptable=None, ids=None,
+                            draws=None, rounds=None):
+    """The sharded Wolff engine's ranks run in lockstep in one process (the
+    plain version the gloo runs are held to): one (P, N) chain `s` on
+    `problem` (sites in `ids` order), B_t, J_perp_t (float32 (steps,)
+    tensors), T_eff a Python float, `ranks` ranks of P / ranks rows. Each
+    step: the seed, the rounds of every rank (`wolff_shard_round_ref`)
+    with the ring's messages and, with a bath, the gathered fresh sites,
+    until no rank sends news; then the field sums and the flip. draws:
+    None (the counter hash) or draws(t) -> (seed_slice, seed_spin, u_sp,
+    u_t, u_b, u_acc), JAX's full-state draws (u_b unmirrored), sliced
+    here to each rank's rows. rounds: a list that gains each step's number
+    of rounds. Returns the new (P, N) chain."""
+    slices, n = s.shape
+    ps = slices // ranks
+    has_field = bool((problem.h != 0).any())
+    for t in range(b_sched.shape[0]):
+        if draws is None:
+            seed_slice, seed_spin = wolff_seed_draw(seed, t, slices, n,
+                                                    s.device)
+            rank_draws = [None] * ranks
+            u_acc = None
+        else:
+            seed_slice, seed_spin, u_sp, u_t, u_b, u_acc = draws(t)
+            seed_slice, seed_spin = int(seed_slice), int(seed_spin)
+            u_bm = mirror_upper(u_b) if u_b is not None else None
+            rank_draws = [(u_sp[r * ps:(r + 1) * ps],
+                           u_t[torch.arange(r * ps - 1, (r + 1) * ps - 1)
+                               % slices],
+                           None if u_bm is None
+                           else u_bm[:, r * ps:(r + 1) * ps])
+                          for r in range(ranks)]
+        kval = s[seed_slice, seed_spin]
+        bonds = [wolff_shard_bonds(
+            problem, s[r * ps:(r + 1) * ps], s[(r * ps - 1) % slices],
+            s[((r + 1) * ps) % slices], s, kval, r * ps, slices, b_sched[t],
+            jp[t], teff, rule, lookuptable, seed, t, ids, rank_draws[r])
+            for r in range(ranks)]
+        visited = [torch.zeros((ps, n), dtype=torch.bool, device=s.device)
+                   for _ in range(ranks)]
+        none = torch.zeros(n, dtype=torch.bool, device=s.device)
+        in_prev, in_next = [none] * ranks, [none] * ranks
+        full_fresh = None
+        owner = seed_slice // ps
+        count = 0
+        while True:
+            outs = [wolff_shard_round_ref(
+                problem, bonds[r], visited[r], in_prev[r], in_next[r],
+                full_fresh, r * ps, slices,
+                (seed_slice - r * ps) * n + seed_spin
+                if r == owner and count == 0 else -1)
+                for r in range(ranks)]
+            count += 1
+            visited = [o[0] for o in outs]
+            if not any(o[4] for o in outs):
+                break
+            in_prev = [outs[(r - 1) % ranks][3] for r in range(ranks)]
+            in_next = [outs[(r + 1) % ranks][2] for r in range(ranks)]
+            if lookuptable is not None:
+                full_fresh = torch.cat([o[1] for o in outs])
+        if rounds is not None:
+            rounds.append(count)
+        comp = torch.cat(visited)
+        rows = (wolff_shard_sums_ref(problem, s, comp)
+                if rule == "local" and has_field else None)
+        s = wolff_shard_flip_ref(s, comp, rows, b_sched[t], teff, seed, t,
+                                 rule, u_acc)
+    return s
+
+
+def sw_sharded_steps_ref(problem, s, b_sched, jp, teff, seed, ranks,
+                         lookuptable=None, ids=None, draws=None,
+                         rounds=None):
+    """The sharded Swendsen-Wang engine's ranks run in lockstep in one
+    process (the plain version the gloo runs are held to), arguments as
+    for `wolff_sharded_steps_ref`: each step every rank's bonds and own
+    labels (`sw_shard_bonds`, `sw_shard_init_ref`), then, with more than
+    one rank, rounds (`sw_shard_round_ref`) on the labels of the last
+    until none changes, then the flip. draws: None or draws(t) -> (u_sp,
+    u_t, u_b, u_h, coins), JAX's full-state draws (u_b unmirrored)."""
+    slices, n = s.shape
+    ps = slices // ranks
+    for t in range(b_sched.shape[0]):
+        coins = None
+        rank_draws = [None] * ranks
+        if draws is not None:
+            u_sp, u_t, u_b, u_h, coins = draws(t)
+            u_bm = mirror_upper(u_b) if u_b is not None else None
+            rank_draws = [(u_sp[r * ps:(r + 1) * ps],
+                           u_t[r * ps:(r + 1) * ps],
+                           None if u_bm is None
+                           else u_bm[:, r * ps:(r + 1) * ps],
+                           u_h[r * ps:(r + 1) * ps]) for r in range(ranks)]
+        bonds = [sw_shard_bonds(
+            problem, s[r * ps:(r + 1) * ps], s[((r + 1) * ps) % slices], s,
+            r * ps, slices, b_sched[t], jp[t], teff, lookuptable, seed, t,
+            ids, rank_draws[r]) for r in range(ranks)]
+        labels = [sw_shard_init_ref(problem, bonds[r], r * ps, slices)
+                  for r in range(ranks)]
+        count = 0
+        while ranks > 1:
+            full = torch.cat(labels) if lookuptable is not None else None
+            outs = [sw_shard_round_ref(
+                problem, bonds[r], labels[r], labels[(r - 1) % ranks][-1],
+                bonds[(r - 1) % ranks][1][-1], labels[(r + 1) % ranks][0],
+                full, r * ps, slices) for r in range(ranks)]
+            count += 1
+            labels = [o[0] for o in outs]
+            if not any(o[1] for o in outs):
+                break
+        if rounds is not None:
+            rounds.append(count)
+        s = sw_shard_flip_ref(s, torch.cat(labels), seed, t, coins)
+    return s

@@ -366,3 +366,294 @@ def sw_bath_anneal(problem, a_sched, b_sched, temp, lookuptable, confs, seed,
             c = line_phase(pg, b, jp, p_t, t, teff, lut, p_pair, c, seed, t,
                            color, per_slice_seeds)
     return _unpacked(pg, c, confs.shape)
+
+
+# ------------------------------------ the Trotter-sharded rounds (S6, S7)
+
+
+class ShardStep:
+    """One step of one rank of the Trotter-sharded cluster engines
+    (parallel/trotter.py): what every launch of the step reads, and the
+    scratch kept from its first launch to its last.
+
+    pg: the PackedGraph; s (Ps, N) float32 +/-1, the rank's rows k0 .. k0
+    + Ps - 1 of a (P, N) chain in packed order (flipped in place by the
+    card's flip); up, dn (N,), rows k0 - 1 and k0 + Ps (the ring's halo
+    rows; on a ring of one rank the block's last and first rows
+    themselves); full (P, N), every rank's rows, with a bath, else None;
+    b_sched, jp: float32 (steps,) schedules, read at step t; teff: P*T, a
+    Python float; seed: the hash seed; lookuptable: a contiguous float32
+    (P-1,) tensor or None; rule: the Wolff rule; kval: the seed spin, a
+    float32 (1,) tensor (rule "full")."""
+
+    def __init__(self, pg, s, up, dn, full, k0, slices, b_sched, jp, teff, t,
+                 seed, lookuptable=None, rule="local", kval=None):
+        self.pg, self.s, self.up, self.dn, self.full = pg, s, up, dn, full
+        self.k0, self.slices, self.b_sched, self.jp = k0, slices, b_sched, jp
+        self.teff, self.t, self.seed = teff, t, seed
+        self.lut, self.rule, self.kval = lookuptable, rule, kval
+        self.bonds = None  # the plain version's bonds, drawn once a step
+        self.scratch = None  # the kernel's buffers
+        self.cpu = _build.route(s.device, "shard") == "cpu"
+        self.words = -(-s.numel() // 32)
+
+
+def _fk_shard(lib, fn, rc):
+    _build.raise_on_error(lib, fn, rc, error_fn="fk_shard_error_string")
+
+
+def _shard_args(st):
+    """The launch's common pointers, once they are checked."""
+    dev = st.s.device
+    ps, n = st.s.shape
+    graph = _check_graph(st.pg, dev)
+    _build.check_arg(st.s, "s", (ps, st.pg.nspins), dev)
+    for name, x in (("up", st.up), ("dn", st.dn)):
+        if x.device != dev or x.dtype != torch.float32 or \
+                tuple(x.shape) != (n,) or x.stride(0) != 1:
+            raise ValueError(f"halo row {name} must be a float32 ({n},) row "
+                             f"with unit stride on {dev}")
+    if st.full is not None:
+        _build.check_arg(st.full, "full", (st.slices, n), dev)
+    for name, x in (("b_sched", st.b_sched), ("jp", st.jp)):
+        if x.dim() != 1 or st.t >= x.shape[0]:
+            raise ValueError(f"{name} must be a (steps,) schedule with step "
+                             f"{st.t}")
+        _build.check_arg(x, name, tuple(x.shape), dev)
+    lut = _check_lut(st.lut, st.slices, dev)
+    return graph, lut
+
+
+def _opt(x):
+    return None if x is None else _build.ptr(x)
+
+
+def shard_wolff_round_ref(st, visited, in_prev, in_next, full_fresh,
+                          seed_x=-1):
+    """`shard_wolff_round`'s plain version, on any device: `cluster.
+    wolff_shard_round_ref` on the bonds of `cluster.wolff_shard_bonds`
+    (drawn at the step's first round), the bits packed as the kernel's."""
+    ps, n = st.s.shape
+    prob = st.pg.as_problem()
+    if st.bonds is None:
+        st.bonds = cl.wolff_shard_bonds(
+            prob, st.s, st.up, st.dn, st.full, st.kval, st.k0, st.slices,
+            st.b_sched[st.t], st.jp[st.t], st.teff, st.rule, st.lut,
+            st.seed, st.t, st.pg.perm)
+    ff = None
+    if full_fresh is not None:
+        ff = cl.unpack_bits(full_fresh.reshape(-1, st.words),
+                            ps * n).reshape(st.slices, n)
+    vis, fresh, up, dn, changed = cl.wolff_shard_round_ref(
+        prob, st.bonds, cl.unpack_bits(visited, ps * n).reshape(ps, n),
+        in_prev.bool(), in_next.bool(), ff, st.k0, st.slices, seed_x)
+    return (cl.pack_bits(vis.reshape(-1)), cl.pack_bits(fresh.reshape(-1)),
+            up.to(torch.uint8), dn.to(torch.uint8),
+            torch.tensor([int(changed)], dtype=torch.int32,
+                         device=st.s.device))
+
+
+def shard_wolff_round(st, visited, in_prev, in_next, full_fresh, seed_x=-1):
+    """S6's round on CUDA tensors (csrc/fk_shard.cu::fk_shard_wolff, mode
+    0, one launch, `visited` updated in place), `shard_wolff_round_ref` on
+    CPU tensors. visited: (W,) int32 bits of the block's Ps * N sites;
+    in_prev, in_next: (N,) uint8; full_fresh: (R * W,) int32, every rank's
+    fresh bits in rank order, or None. Returns (visited, fresh (W,) int32,
+    out_up (N,) uint8, out_dn (N,) uint8, changed (1,) int32).
+    LAUNCHES["shard_wolff"]."""
+    ps, n = st.s.shape
+    if st.cpu:
+        return shard_wolff_round_ref(st, visited, in_prev, in_next,
+                                     full_fresh, seed_x)
+    dev = st.s.device
+    graph, lut = _shard_args(st)
+    _build.check_arg(visited, "visited", (st.words,), dev, torch.int32)
+    for name, x in (("in_prev", in_prev), ("in_next", in_next)):
+        _build.check_arg(x, name, (n,), dev, torch.uint8)
+    if full_fresh is not None:
+        _build.check_arg(full_fresh, "full_fresh",
+                         (st.slices // ps * st.words,), dev, torch.int32)
+    if st.rule == "full":
+        _build.check_arg(st.kval, "kval", (1,), dev)
+    if st.scratch is None:
+        st.scratch = torch.empty(2 * ps * n, dtype=torch.int32, device=dev)
+    fresh = torch.empty(st.words, dtype=torch.int32, device=dev)
+    out_up = torch.zeros(n, dtype=torch.uint8, device=dev)
+    out_dn = torch.zeros(n, dtype=torch.uint8, device=dev)
+    changed = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch_wolff(st, graph, lut, 0, visited, fresh, st.scratch, in_prev,
+                  in_next, full_fresh, out_up, out_dn, changed, None, None,
+                  seed_x)
+    return visited, fresh, out_up, out_dn, changed
+
+
+def _launch_wolff(st, graph, lut, mode, visited, fresh, queue, in_prev,
+                  in_next, full_fresh, out_up, out_dn, changed, rows_full,
+                  rows_out, seed_x=-1):
+    ps, n = st.s.shape
+    lib = _build.library("fk_shard")
+    rc = lib.fk_shard_wolff(
+        *graph, _build.ptr(st.b_sched), _build.ptr(st.jp), lut,
+        _build.ptr(st.s), _build.ptr(st.up), _build.ptr(st.dn),
+        _opt(st.full), _opt(st.kval if st.rule == "full" else None),
+        _build.ptr(visited), *map(_opt, (
+            fresh, queue, in_prev, in_next, full_fresh, out_up, out_dn,
+            changed, rows_full, rows_out)),
+        ctypes.c_float(st.teff), ps, n, st.pg.nbr_idx.shape[1], st.slices,
+        int(st.k0), int(seed_x), int(st.t), cr.wrap_int32(st.seed),
+        int(st.rule == "full"), int(mode), _build.stream_of(st.s.device))
+    _fk_shard(lib, "fk_shard_wolff", rc)
+    _build.LAUNCHES["shard_wolff"] += 1
+
+
+def shard_wolff_sums_ref(st, visited):
+    """`shard_wolff_sums`' plain version, on any device."""
+    ps, n = st.s.shape
+    return cl.wolff_shard_sums_ref(
+        st.pg.as_problem(), st.s,
+        cl.unpack_bits(visited, ps * n).reshape(ps, n))
+
+
+def shard_wolff_sums(st, visited):
+    """S6's field sums on CUDA tensors (fk_shard_wolff mode 1, one
+    launch), `cluster.wolff_shard_sums_ref` on CPU tensors: (Ps,) float32,
+    each row's h_i s_i over its cluster sites in index order."""
+    if st.cpu:
+        return shard_wolff_sums_ref(st, visited)
+    ps = st.s.shape[0]
+    graph, lut = _shard_args(st)
+    rows = torch.empty(ps, dtype=torch.float32, device=st.s.device)
+    _launch_wolff(st, graph, lut, 1, visited, None, None, None, None, None,
+                  None, None, None, None, rows)
+    return rows
+
+
+def shard_wolff_flip_ref(st, visited, rows_full):
+    """`shard_wolff_flip`'s plain version, on any device (a new tensor)."""
+    ps, n = st.s.shape
+    return cl.wolff_shard_flip_ref(
+        st.s, cl.unpack_bits(visited, ps * n).reshape(ps, n), rows_full,
+        st.b_sched[st.t], st.teff, st.seed, st.t, st.rule)
+
+
+def shard_wolff_flip(st, visited, rows_full):
+    """S6's flip on CUDA tensors (fk_shard_wolff mode 2, one launch, the
+    rows flipped in place), `cluster.wolff_shard_flip_ref` on CPU tensors:
+    rows_full (P,) float32, every rank's `shard_wolff_sums` in slice order,
+    or None (no field term). Returns the rows."""
+    if st.cpu:
+        return shard_wolff_flip_ref(st, visited, rows_full)
+    graph, lut = _shard_args(st)
+    if rows_full is not None:
+        _build.check_arg(rows_full, "rows_full", (st.slices,), st.s.device)
+    _launch_wolff(st, graph, lut, 2, visited, None, None, None, None, None,
+                  None, None, None, rows_full, None)
+    return st.s
+
+
+def shard_label_init_ref(st):
+    """`shard_label_init`'s plain version, on any device."""
+    prob = st.pg.as_problem()
+    st.bonds = cl.sw_shard_bonds(
+        prob, st.s, st.dn, st.full, st.k0, st.slices, st.b_sched[st.t],
+        st.jp[st.t], st.teff, st.lut, st.seed, st.t, st.pg.perm)
+    labels = cl.sw_shard_init_ref(prob, st.bonds, st.k0, st.slices)
+    return labels.to(torch.int32), st.bonds[1][-1].to(torch.uint8)
+
+
+def shard_label_init(st):
+    """S7's first launch of a step on CUDA tensors (csrc/fk_shard.cu::
+    fk_shard_label, mode 0: the draw, the block's union-find and labels),
+    `cluster.sw_shard_bonds` and `sw_shard_init_ref` on CPU tensors.
+    Returns (labels (Ps, N) int32, bond_dn (N,) uint8: the last row's
+    Trotter bonds to the next rank's first row). LAUNCHES["shard_label"]."""
+    ps, n = st.s.shape
+    if st.cpu:
+        return shard_label_init_ref(st)
+    dev = st.s.device
+    graph, lut = _shard_args(st)
+    pw = -(-st.slices // 32)
+    st.scratch = [torch.empty(ps * n, dtype=torch.int32, device=dev)
+                  for _ in range(3)]
+    st.scratch.append(torch.empty(ps * n * pw if st.lut is not None else 1,
+                                  dtype=torch.int32, device=dev))
+    labels = torch.empty((ps, n), dtype=torch.int32, device=dev)
+    bond_dn = torch.zeros(n, dtype=torch.uint8, device=dev)
+    _launch_label(st, graph, lut, 0, labels, bond_dn)
+    return labels, bond_dn
+
+
+def _launch_label(st, graph, lut, mode, labels, bond_dn=None, halo_prev=None,
+                  bond_up=None, halo_next=None, full_labels=None,
+                  changed=None):
+    ps, n = st.s.shape
+    lib = _build.library("fk_shard")
+    rc = lib.fk_shard_label(
+        *graph, _build.ptr(st.b_sched), _build.ptr(st.jp), lut,
+        _build.ptr(st.s), _build.ptr(st.dn), _opt(st.full),
+        *map(_build.ptr, st.scratch), _build.ptr(labels), *map(_opt, (
+            bond_dn, halo_prev, bond_up, halo_next, full_labels, changed)),
+        ctypes.c_float(st.teff), ps, n, st.pg.nbr_idx.shape[1], st.slices,
+        int(st.k0), int(st.t), cr.wrap_int32(st.seed), int(mode),
+        _build.stream_of(st.s.device))
+    _fk_shard(lib, "fk_shard_label", rc)
+    _build.LAUNCHES["shard_label"] += 1
+
+
+def shard_label_round_ref(st, labels, bond_dn, halo_prev, bond_up,
+                          halo_next, full_labels):
+    """`shard_label_round`'s plain version, on any device (the last row's
+    bonds are the plain draw's own, `bond_dn` is not read)."""
+    new, changed = cl.sw_shard_round_ref(
+        st.pg.as_problem(), st.bonds, labels.long(), halo_prev,
+        bond_up.bool(), halo_next, full_labels, st.k0, st.slices)
+    return (new.to(torch.int32),
+            torch.tensor([int(changed)], dtype=torch.int32,
+                         device=st.s.device))
+
+
+def shard_label_round(st, labels, bond_dn, halo_prev, bond_up, halo_next,
+                      full_labels):
+    """S7's round on CUDA tensors (fk_shard_label mode 1, one launch,
+    `labels` updated in place), `cluster.sw_shard_round_ref` on CPU
+    tensors: halo_prev, halo_next (N,) int32, the previous rank's last and
+    the next rank's first row of labels; bond_up (N,) uint8, the previous
+    rank's bond_dn; full_labels (P, N) int32 or None. Returns (labels,
+    changed (1,) int32)."""
+    ps, n = st.s.shape
+    if st.cpu:
+        return shard_label_round_ref(st, labels, bond_dn, halo_prev, bond_up,
+                                     halo_next, full_labels)
+    dev = st.s.device
+    graph, lut = _shard_args(st)
+    _build.check_arg(labels, "labels", (ps, n), dev, torch.int32)
+    for name, x, dt in (("bond_dn", bond_dn, torch.uint8),
+                        ("halo_prev", halo_prev, torch.int32),
+                        ("bond_up", bond_up, torch.uint8),
+                        ("halo_next", halo_next, torch.int32)):
+        _build.check_arg(x, name, (n,), dev, dt)
+    if full_labels is not None:
+        _build.check_arg(full_labels, "full_labels", (st.slices, n), dev,
+                         torch.int32)
+    changed = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch_label(st, graph, lut, 1, labels, bond_dn, halo_prev, bond_up,
+                  halo_next, full_labels, changed)
+    return labels, changed
+
+
+def shard_label_flip_ref(st, labels):
+    """`shard_label_flip`'s plain version, on any device (a new tensor)."""
+    return cl.sw_shard_flip_ref(st.s, labels.long(), st.seed, st.t)
+
+
+def shard_label_flip(st, labels):
+    """S7's flip on CUDA tensors (fk_shard_label mode 2, one launch, the
+    rows flipped in place), `cluster.sw_shard_flip_ref` on CPU tensors.
+    Returns the rows."""
+    if st.cpu:
+        return shard_label_flip_ref(st, labels)
+    graph, lut = _shard_args(st)
+    _build.check_arg(labels, "labels", tuple(st.s.shape), st.s.device,
+                     torch.int32)
+    _launch_label(st, graph, lut, 2, labels)
+    return st.s

@@ -17,7 +17,12 @@ on a rank's slab of the Trotter axis:
                           engine (`_sharded_local_sweep` :115);
   S4 `generic_shard_line_part`, `generic_shard_line_accept`  the generic
                           line moves of one spatial color
-                          (`_sharded_global_moves` :233).
+                          (`_sharded_global_moves` :233);
+  S5 `generic_shard_bath_slice`  one local slice step of the sharded bath:
+                          a slice of the slab through the color classes
+                          in order, its Trotter and bath terms read from
+                          the gathered state (`updated_slice` of
+                          `_sharded_dissipative_sweep` :170-192).
 
 The Trotter partners past a slab's edges come from halo rows that the ring
 exchange filled (`parallel/_collectives.py::ring_halo`), and every uid
@@ -25,12 +30,15 @@ counts from the global chain and row, so a slab draws the single-device
 engine's uniforms: without line moves a sharded anneal equals the
 single-device one bitwise. S1 and S2 are kernel B's per-phase kernels
 (csrc/split_qmc.cu::qmc_local_kernel, qmc_line_kernel), whose unsharded
-route is the one-rank case; S3 and S4 are in csrc/generic_qmc.cu.
+route is the one-rank case; S3 and S4 are in csrc/generic_qmc.cu, S5 in
+csrc/generic_qmc_bath.cu. The sharded Wolff and Swendsen-Wang rounds (S6,
+S7) are in `ops/cluster_kernels.py`.
 
 Each wrapper takes its plain version on a CPU tensor and launches its
 kernel on a CUDA tensor (LAUNCHES["shard_phase"], ["shard_line_part"],
 ["shard_line_accept"], ["generic_shard_phase"], ["generic_shard_line_part"],
-["generic_shard_line_accept"], one a launch); nothing falls back. A plain
+["generic_shard_line_accept"], ["generic_shard_bath_slice"], one a
+launch); nothing falls back. A plain
 version takes its uniforms from the counter hash, or from `draws=`, which
 the tests fill with the JAX engines' own `jax.random` draws.
 """
@@ -43,6 +51,7 @@ import torch
 
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
+from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops.generic_kernels import _check_graph
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
@@ -210,6 +219,48 @@ def generic_shard_line_accept_ref(pg, teff, total, s, c, t, seed, chain0=0,
     out = s.clone()
     out[:, :, lo:hi] = torch.where(acc[:, None, :], -s[:, :, lo:hi],
                                    s[:, :, lo:hi])
+    return out
+
+
+def generic_shard_bath_slice_ref(pg, b_sched, jp, teff, bath, s, full, kloc,
+                                 kglob, t, seed, chain0=0, draws=None):
+    """Plain form of S5: the packed slab `s` (chains, Ps, N) after one local
+    slice step of the sharded bath at step t: its slice kloc (global slice
+    kglob of the P in `full`) goes through the color classes in order, a
+    site of class c flipping when Metropolis accepts
+
+        dE = (-2B s) f + (2 s J_perp)(full[kglob-1] + full[kglob+1])
+             + (2 T_eff s) sum_p M[kglob, p] full[p],
+
+    added left to right, the bath sum in index order from p = 0 (M the
+    (P, P) `bath` matrix, zero diagonal), the field f of the slice as it
+    stands at the start of the class's phase (`piqmc.
+    dissipative_local_sweep`'s slice). full: (chains, P, N), the state of
+    every rank gathered at the step's start; at one rank it may be `s`
+    itself, whose slice kglob the bath reads only through M[kglob, kglob]
+    = 0. teff: P*T, a Python float. Uniforms: `draws` (one (chains, N) a
+    class, packed order), else counter(seed, t, 0) at the generic uids of
+    slice kglob from chain chain0, one a site for every class, as
+    csrc/generic_qmc_bath.cu draws them. Returns the new slab."""
+    chains, _, n = s.shape
+    P = full.shape[1]
+    prob = pg.as_problem()
+    t32, two_teff, bc = piqmc_ops._bath_terms(s, teff, b_sched[t])
+    s_k = s[:, kloc]
+    tr = full[:, (kglob - 1) % P] + full[:, (kglob + 1) % P]
+    bath_f = sum_in_order(bath[kglob][:, None] * full, dim=-2)
+    if draws is None:
+        u = cr.uniform01(cr.counter(seed, t, 0), cr.generic_uids(
+            chains, pg.perm, n, slices=1, chain0=chain0, k0=kglob,
+            p_total=P))[:, 0]
+        draws = [u] * prob.num_colors
+    for c in range(prob.num_colors):
+        de = (bc * s_k * prob.local_fields(s_k) + 2.0 * s_k * jp[t] * tr
+              + two_teff * s_k * bath_f)
+        accept = metropolis_accept(de, t32, draws[c]) & prob.color_masks[c]
+        s_k = torch.where(accept, -s_k, s_k)
+    out = s.clone()
+    out[:, kloc] = s_k
     return out
 
 
@@ -408,4 +459,44 @@ def generic_shard_line_accept(pg, teff, total, s, c, t, seed, chain0=0,
     _build.raise_on_error(lib, "generic_qmc_shard_line_accept", rc,
                           error_fn="generic_qmc_anneal_error_string")
     _build.LAUNCHES["generic_shard_line_accept"] += 1
+    return s
+
+
+def generic_shard_bath_slice(pg, b_sched, jp, teff, bath, s, full, kloc,
+                             kglob, t, seed, chain0=0):
+    """S5 on CUDA tensors (csrc/generic_qmc_bath.cu::
+    generic_shard_bath_slice_kernel, one launch, slice kloc of the slab
+    updated in place), `generic_shard_bath_slice_ref` on CPU tensors;
+    arguments as for the plain version (no `draws`; `full` contiguous or
+    the slab itself at one rank). Returns the slab."""
+    if _build.route(s.device, "shard") == "cpu":
+        return generic_shard_bath_slice_ref(pg, b_sched, jp, teff, bath, s,
+                                            full, kloc, kglob, t, seed,
+                                            chain0)
+    chains, ps, n = s.shape
+    P = full.shape[1]
+    dev = s.device
+    graph = _check_graph(pg, dev)
+    _build.check_arg(s, "s", (chains, ps, pg.nspins), dev)
+    _build.check_arg(full, "full", (chains, P, pg.nspins), dev)
+    _build.check_arg(bath, "bath", (P, P), dev)
+    _step_arg(b_sched, "b_sched", t, dev)
+    _step_arg(jp, "jp", t, dev)
+    if not (0 <= kloc < ps and 0 <= kglob < P):
+        raise ValueError(f"slice {kloc} (global {kglob}) is not in a slab "
+                         f"of {ps} of {P}")
+    snap = None if pg.proper else torch.empty((chains, n),
+                                              dtype=torch.float32,
+                                              device=dev)
+    lib = _build.library("generic_qmc_bath")
+    rc = lib.generic_qmc_bath_shard_slice(
+        *graph, _build.ptr(b_sched), _build.ptr(jp), _build.ptr(bath),
+        ctypes.c_float(teff), ctypes.c_float(2.0 * teff), _build.ptr(s),
+        _build.ptr(full), None if snap is None else _build.ptr(snap), chains,
+        ps, n, pg.nbr_idx.shape[1], pg.num_colors, int(kloc), int(kglob), P,
+        int(t), cr.wrap_int32(seed), int(pg.proper), int(chain0),
+        _build.stream_of(dev))
+    _build.raise_on_error(lib, "generic_qmc_bath_shard_slice", rc,
+                          error_fn="generic_qmc_bath_anneal_error_string")
+    _build.LAUNCHES["generic_shard_bath_slice"] += 1
     return s

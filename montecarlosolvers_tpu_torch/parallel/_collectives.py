@@ -5,7 +5,13 @@
                in one `batch_isend_irecv` to the ring neighbours;
   axis_sum   — the sum over an axis (JAX `lax.psum`): `all_reduce`;
   gather     — the blocks of an axis put back together (JAX
-               `lax.all_gather(tiled=True)`): `all_gather`.
+               `lax.all_gather(tiled=True)`): `all_gather`;
+  any_flag   — whether any rank raised a flag (JAX `lax.psum` of a bit,
+               parallel/trotter.py:613, :782): `all_reduce` MAX of one
+               int, read on the host, so that every rank runs the same
+               number of rounds, and so of collectives;
+  broadcast  — one rank's value on every rank (JAX `lax.psum` of a masked
+               value, trotter.py:554-556): `broadcast`.
 
 Under gloo a tensor on the card is staged through a pinned host buffer,
 because gloo's send and receive take CPU tensors; under NCCL it goes from
@@ -96,3 +102,34 @@ def gather(t, group, dim):
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
+
+
+def any_flag(flag, group):
+    """True when the one-element int tensor `flag` is nonzero on any rank
+    of `group` (all_reduce MAX, read on the host: a sync with the device).
+    Every rank must call it as often as every other, so a loop that ends
+    on it makes the same calls on every rank."""
+    if dist.get_world_size(group) == 1:
+        return bool(flag.item())
+    buf = flag.reshape(1).to(torch.int32)
+    if _staged(group, buf):
+        torch.cuda.current_stream(buf.device).synchronize()
+        buf = _host(buf)
+    elif buf is flag:
+        buf = buf.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    return bool(buf.item())
+
+
+def broadcast(t, src, group):
+    """The tensor `t` of group rank `src` on every rank of `group`, on the
+    device of `t` (a new tensor; on a group of one rank `t` itself)."""
+    if dist.get_world_size(group) == 1:
+        return t
+    staged = _staged(group, t)
+    if staged:
+        torch.cuda.current_stream(t.device).synchronize()
+    buf = _host(t) if staged else t.clone()
+    dist.broadcast(buf, src=dist.get_process_group_ranks(group)[src],
+                   group=group)
+    return buf.to(t.device, non_blocking=True) if staged else buf

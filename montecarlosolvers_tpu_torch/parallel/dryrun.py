@@ -85,8 +85,12 @@ def legs(n_ranks, device_type):
     Trotter-sharded generic anneal with global moves on a chains x replica
     mesh reaching it; the Trotter-sharded split anneal bitwise equal to the
     single-device split engine without global moves and reaching the
-    ground state with them. Returns {leg: value} of the ground-state
-    legs."""
+    ground state with them; the Trotter-sharded Wolff and Swendsen-Wang
+    engines with bath bonds bitwise equal to the single-device ones (JAX
+    legs 3c, 3d); the sharded bath on the mesh of the generic leg giving
+    +/-1 states (leg 4). Returns {leg: (best, ground)} of the ground-state
+    legs and {leg: count} of the others (mismatched or non-spin values,
+    0)."""
     dev = torch.device(device_type) if device_type == "cpu" else \
         torch.device("cuda", torch.cuda.current_device())
     full = pmesh.full_tensor
@@ -170,6 +174,37 @@ def legs(n_ranks, device_type):
     out["trotter_sharded_split_gs"] = (_best(lat, got), e_lat)
     assert out["trotter_sharded_split_gs"][0] <= e_lat + 0.1 * abs(e_lat), \
         out
+
+    # 3c, 3d: the Trotter-sharded Wolff and Swendsen-Wang engines, bath
+    # bonds on, bitwise the single-device ones (qmc.anneal_wolff,
+    # qmc.anneal_sw)
+    confs_w = qmc.replicate(sa.random_state(_gen(7), 16, device=dev),
+                            p_split)
+    lut_w = schedules.bath_lookuptable(p_split, 0.2, device=dev)
+    a_w = torch.ones_like(a_sp)
+    for leg, single, sharded, kw in (
+            ("trotter_sharded_wolff", qmc.anneal_wolff,
+             trotter.anneal_wolff_sharded, {"rule": "local"}),
+            ("trotter_sharded_sw", qmc.anneal_sw, trotter.anneal_sw_sharded,
+             {})):
+        ref = single(lat, a_sp, a_w, 1.0 / p_split, confs_w, _gen(8),
+                     lookuptable=lut_w, **kw)
+        got = full(sharded(lat, a_sp, a_w, 1.0 / p_split, confs_w, _gen(8),
+                           mesh_r, lookuptable=lut_w, **kw))
+        out[leg] = int((ref != got).sum())
+        assert out[leg] == 0, f"{leg} diverged from the single-device engine"
+
+    # 4: the sharded bath runs on the chains x replica mesh: +/-1 states
+    lut = schedules.bath_lookuptable(slices, 1e-2, device=dev)
+    a_d = schedules.transverse_field(2.0, 1e-8, 5, device=dev)
+    got = full(trotter.anneal_sharded(
+        problem, a_d, torch.ones_like(a_d), 1.0 / slices,
+        qmc.replicate(s1, slices), _gen(9), mesh, lookuptable=lut,
+        chains_sharded=chains_sharded))
+    assert got.shape == (4, slices, 16)
+    out["trotter_sharded_bath_spins"] = int(
+        ((got != 1) & (got != -1)).sum())
+    assert out["trotter_sharded_bath_spins"] == 0, "non-spin values"
     return out
 
 
@@ -273,5 +308,5 @@ def dryrun_multichip(n_ranks, device_type="cuda"):
     RuntimeError with the first failing rank's traceback. device_type:
     "cuda" (the default: the ranks share the machine's cards, gloo when
     there are fewer cards than ranks) or "cpu" (gloo). Returns rank 0's
-    {leg: (best, ground)}."""
+    legs (`legs`' values)."""
     return run_ranks(legs, n_ranks, device_type)[0]

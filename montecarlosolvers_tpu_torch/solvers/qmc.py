@@ -49,7 +49,7 @@ kernels of `ops/cluster_kernels.py`.
 A chain-sharded state (a DTensor from `parallel.shard_chains`) runs on
 `anneal`, every route above, block by block with the blocks' global uids,
 and equals the unsharded run bitwise; the cluster solvers refuse it
-(ROADMAP.md queue 1, item 4). The Trotter axis is sharded by
+(ROADMAP.md queue 1, item 5). The Trotter axis is sharded by
 `parallel.trotter`.
 """
 

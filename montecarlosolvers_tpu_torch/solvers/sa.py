@@ -36,7 +36,7 @@ to_generic(), as the JAX solvers take it).
 A chain-sharded state (a DTensor from `parallel.shard_chains`) runs on
 `anneal` block by block, each rank its own chains with their global uids,
 and equals the unsharded run bitwise; the other solvers here refuse it
-(ROADMAP.md queue 1, item 4).
+(ROADMAP.md queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -87,7 +87,7 @@ def anneal(problem, sched, spins, generator, mcsteps=1,
     + batch on the problem's device. engine: "auto", or "masked" for the
     masked colored engine on an IsingProblem (the same spins as "auto";
     on a LatticeProblem the JAX package's masked engine serves vmapped
-    disorder, which is queued at ROADMAP.md queue 1, item 4). Returns the
+    disorder, which is queued at ROADMAP.md queue 1, item 5). Returns the
     annealed spins, or (spins, energies).
 
     spins may be a chain-sharded DTensor (`parallel.shard_chains`; not on

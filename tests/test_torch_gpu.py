@@ -1855,3 +1855,144 @@ def test_one_rank_mesh_equals_the_single_device_engines(cuda):
         assert _build.LAUNCHES["shard_line_accept"] == (20 if gm else 0)
         assert torch.equal(pmesh.full_tensor(out), qmc.anneal(
             lat, a, b, 0.3, confs, gen(), global_moves=gm))
+
+
+def test_shard_rest_kernels_equal_plain(cuda):
+    """S5, S6 and S7 against their plain versions on a slab of 3 of 12
+    rows: S5 every slice step on an IsingProblem and on an odd torus's
+    improper checkerboard, and at one rank on the slab itself; S6 a round
+    from a seed with random messages (and random fresh sites of the other
+    ranks with a bath), rules "local" and "full", its field sums and flip;
+    S7 the draw, a round on random neighbour labels, the flip."""
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
+    from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
+
+    g = torch.Generator().manual_seed(5)
+
+    def spins(*shape):
+        return (torch.randint(0, 2, shape, generator=g).float() * 2
+                - 1).to(cuda)
+    P, k0 = 12, 3
+    b = torch.full((4,), 0.8, device=cuda)
+    jp = schedules.jperp(torch.linspace(2.0, 0.5, 4, device=cuda), 2.4)
+    lut = schedules.bath_lookuptable(P, 0.3, device=cuda)
+    bath = piqmc_ops.bath_matrix_of(lut, P, cuda)
+    for pg in (packed_ops.build_packed(instances.random_graph(
+            30, 70, rng=2, with_fields=True, device=cuda)[0]),
+               packed_ops.packed_from_lattice(
+                   instances.gaussian_torus(5, 0, device=cuda))):
+        full = spins(5, P, pg.nspins)
+        slab = full[:, k0:k0 + 3].contiguous()
+        for kloc in range(3):
+            want = shk.generic_shard_bath_slice_ref(
+                pg, b, jp, 2.4, bath, slab, full, kloc, k0 + kloc, 2, 11, 7)
+            got = shk.generic_shard_bath_slice(
+                pg, b, jp, 2.4, bath, slab.clone(), full, kloc, k0 + kloc, 2,
+                11, 7)
+            assert torch.equal(got, want)
+            slab = want
+        whole = full.clone()
+        want = shk.generic_shard_bath_slice_ref(pg, b, jp, 2.4, bath, whole,
+                                                whole, 4, 4, 2, 11)
+        got = shk.generic_shard_bath_slice(pg, b, jp, 2.4, bath, whole,
+                                           whole, 4, 4, 2, 11)
+        assert torch.equal(got, want)
+    prob = instances.random_graph(30, 70, rng=2, with_fields=True,
+                                  device=cuda)[0]
+    pg = packed_ops.build_packed(prob)
+    n = pg.nspins
+    state = spins(1, n).expand(P, n).contiguous()
+    state[:, :5] *= -1.0
+    rows = state[k0:k0 + 3].contiguous()
+    up, dn = state[k0 - 1].contiguous(), state[k0 + 3].contiguous()
+    words = -(-3 * n // 32)
+
+    def msgs(p):
+        return (torch.rand(n, generator=g) < p).to(torch.uint8).to(cuda)
+    in_prev, in_next = msgs(0.2), msgs(0.2)
+    ff = cl.pack_bits((torch.rand(4, 3 * n, generator=g) < 0.1)).reshape(
+        -1).to(cuda)
+
+    def step(x, rule, with_bath):
+        return ck.ShardStep(pg, x, up, dn, state if with_bath else None, k0,
+                            P, b, jp, 2.4, 2, 11, lut if with_bath else None,
+                            rule, x[1, 4:5].clone())
+    for rule in ("local", "full"):
+        for with_bath in (False, True):
+            zero = torch.zeros(words, dtype=torch.int32, device=cuda)
+            args = (in_prev, in_next, ff if with_bath else None, n + 4)
+            got = ck.shard_wolff_round(step(rows, rule, with_bath),
+                                       zero.clone(), *args)
+            want = ck.shard_wolff_round_ref(step(rows, rule, with_bath),
+                                            zero.clone(), *args)
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+            sums = ck.shard_wolff_sums(step(rows, rule, with_bath), got[0])
+            assert torch.equal(sums, ck.shard_wolff_sums_ref(
+                step(rows, rule, with_bath), got[0]))
+            rows_full = torch.cat([sums] * 4)
+            assert torch.equal(
+                ck.shard_wolff_flip(step(rows.clone(), rule, with_bath),
+                                    got[0], rows_full),
+                ck.shard_wolff_flip_ref(step(rows, rule, with_bath), got[0],
+                                        rows_full))
+    for with_bath in (False, True):
+        st, ref = step(rows.clone(), "local", with_bath), step(
+            rows, "local", with_bath)
+        got, want = ck.shard_label_init(st), ck.shard_label_init_ref(ref)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        halo = [torch.randint(-1, P * n, (n,), generator=g).to(
+            torch.int32).to(cuda) for _ in range(2)]
+        fl = torch.randint(-1, P * n, (P, n), generator=g).to(
+            torch.int32).to(cuda) if with_bath else None
+        bond_up = msgs(0.5)
+        rg = ck.shard_label_round(st, got[0].clone(), got[1], halo[0],
+                                  bond_up, halo[1], fl)
+        rw = ck.shard_label_round_ref(ref, want[0].clone(), want[1],
+                                      halo[0], bond_up, halo[1], fl)
+        assert all(torch.equal(x, y) for x, y in zip(rg, rw))
+        assert torch.equal(ck.shard_label_flip(st, rg[0]),
+                           ck.shard_label_flip_ref(ref, rw[0]))
+
+
+def test_one_rank_mesh_runs_the_rest_of_the_trotter_axis(cuda):
+    """On a one-rank NCCL mesh the sharded bath equals the sequential
+    generic bath kernel, and the sharded Wolff and SW engines equal
+    fk_wolff and fk_label, bath bonds on, each launching its shard
+    kernel."""
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.parallel import make_mesh
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+    from montecarlosolvers_tpu_torch.parallel import trotter
+
+    lat = instances.gaussian_torus(9, 0, device=cuda)
+    gen = lambda: torch.Generator().manual_seed(4)  # noqa: E731
+    confs = qmc.replicate(sa.random_state(gen(), 81, batch=(3,),
+                                          device=cuda), 8)
+    a = schedules.transverse_field(2.0, 1e-8, 6, device=cuda)
+    b = torch.ones_like(a)
+    lut = schedules.bath_lookuptable(8, 0.2, device=cuda)
+    rmesh = make_mesh(replica=1)
+    for gm in (False, True):
+        _build.reset_launches()
+        out = trotter.anneal_sharded(lat, a, b, 0.3, confs, gen(), rmesh,
+                                     global_moves=gm, lookuptable=lut)
+        assert _build.LAUNCHES["generic_shard_bath_slice"] == 8 * 6
+        assert torch.equal(pmesh.full_tensor(out), gk.anneal_generic_qmc_bath(
+            lat, a, b, 0.3, lut, confs, sa.draw_seed(gen()),
+            global_moves=gm))
+    for engine, single, kw in (
+            (trotter.anneal_wolff_sharded, qmc.anneal_wolff,
+             {"rule": "local"}),
+            (trotter.anneal_wolff_sharded, qmc.anneal_wolff,
+             {"rule": "full"}),
+            (trotter.anneal_sw_sharded, qmc.anneal_sw, {})):
+        _build.reset_launches()
+        out = engine(lat, a, b, 0.3, confs[0], gen(), rmesh,
+                     lookuptable=lut, **kw)
+        assert (_build.LAUNCHES["shard_wolff"]
+                + _build.LAUNCHES["shard_label"]) >= 2 * 6
+        assert torch.equal(pmesh.full_tensor(out), single(
+            lat, a, b, 0.3, confs[0], gen(), lookuptable=lut, **kw))

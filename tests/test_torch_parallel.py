@@ -30,6 +30,7 @@ import gibbs_check as gibbs
 import torch_parallel_worker as W
 from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.models import instances
+from montecarlosolvers_tpu_torch.ops import cluster as cl
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
 from montecarlosolvers_tpu_torch.ops import packed as packed_ops
@@ -38,7 +39,7 @@ from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
 from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels as sk
-from montecarlosolvers_tpu_torch.parallel import dryrun
+from montecarlosolvers_tpu_torch.parallel import dryrun, trotter
 from montecarlosolvers_tpu_torch.solvers import qmc, sa
 
 CPU = torch.device("cpu")
@@ -85,7 +86,7 @@ class RankPool:
 
 @pytest.fixture(scope="module")
 def pools():
-    made = {4: RankPool(4), 2: RankPool(2)}
+    made = {4: RankPool(4), 2: RankPool(2), 3: RankPool(3)}
     yield made
     for pool in made.values():
         pool.close()
@@ -280,16 +281,26 @@ def test_global_moves_reach_the_ground_state(pools, kind):
     assert best <= e_gs + 0.1 * abs(e_gs), (best, e_gs)
 
 
-def _extended_energy(problem, confs, temp, gamma):
+def _extended_energy(problem, confs, temp, gamma, lookuptable=None):
     """E = sum_k E(s_k) - J_perp sum_k s_k . s_{k+1} (ring), float64, at
-    T_eff = P*T (tests/test_qmc.py::extended_energy)."""
+    T_eff = P*T (tests/test_qmc.py::extended_energy); with a (P-1,)
+    `lookuptable`, plus the bath term -T_eff/2 sum_i sum_{k != k'}
+    M[k, k'] s_k s_k' of the bath matrix M."""
     c = np.asarray(confs, dtype=np.float64)
-    teff = temp * c.shape[-2]
-    jp = gibbs.jperp(gamma, c.shape[-2], temp)
+    slices = c.shape[-2]
+    teff = temp * slices
+    jp = gibbs.jperp(gamma, slices, temp)
     e = gibbs.generic_energies(problem, c.reshape(-1, c.shape[-1]))
     e = e.reshape(c.shape[:-1]).sum(-1)
     assert teff > 0
-    return e - jp * (c * np.roll(c, -1, axis=-2)).sum(axis=(-1, -2))
+    e = e - jp * (c * np.roll(c, -1, axis=-2)).sum(axis=(-1, -2))
+    if lookuptable is not None:
+        lut = np.asarray(lookuptable, dtype=np.float64)
+        k = np.arange(slices)
+        off = (k[None, :] - k[:, None]) % slices
+        m = np.where(off > 0, lut[np.maximum(off - 1, 0)], 0.0)
+        e = e - 0.5 * teff * np.einsum("...kn,kq,...qn->...", c, m, c)
+    return e
 
 
 def test_energy_does_not_increase_at_zero_temperature(pools):
@@ -332,21 +343,171 @@ def test_split_sharded_matches_unsharded_in_distribution(pools):
 
 @pytest.mark.parametrize("ranks", [2, 4])
 def test_refusals(pools, ranks):
-    """Indivisible axes raise ValueError naming the division; every engine
-    outside the slice refuses a sharded state with NotImplementedError
-    naming ROADMAP.md queue 1, item 4."""
+    """Indivisible axes raise ValueError naming the division, the sharded
+    bath, Wolff and SW engines' too; every engine outside the slice refuses
+    a sharded state with NotImplementedError naming ROADMAP.md queue 1,
+    item 5."""
     msgs = pools[ranks].run("refusals")
-    for key in ("shard_indivisible", "split_indivisible",
-                "generic_indivisible"):
+    indivisible = ("shard_indivisible", "split_indivisible",
+                   "generic_indivisible", "bath_indivisible",
+                   "wolff_indivisible", "sw_indivisible")
+    for key in indivisible:
         assert msgs[key].startswith("ValueError") and "divide" in msgs[key]
     assert msgs["rng"].startswith("ValueError: rng must be")
     assert msgs["trotter_state_to_qmc"].startswith("ValueError")
     for key, msg in msgs.items():
-        if key in ("shard_indivisible", "split_indivisible",
-                   "generic_indivisible", "rng", "trotter_state_to_qmc"):
+        if key in indivisible + ("rng", "trotter_state_to_qmc"):
             continue
         assert msg.startswith("NotImplementedError"), (key, msg)
-        assert "ROADMAP.md queue 1, item 4" in msg, (key, msg)
+        assert "ROADMAP.md queue 1, item 5" in msg, (key, msg)
+
+
+# ------------------------------------------ the rest of the Trotter axis
+
+
+def _bath_seed():
+    return sa.draw_seed(W.gen(13))
+
+
+@pytest.mark.parametrize("global_moves", [False, True])
+@pytest.mark.parametrize("kind", sorted(W.BATH_PROBLEMS))
+def test_sharded_bath_at_one_rank_is_the_sequential_bath(pools, kind,
+                                                          global_moves):
+    """anneal_sharded(lookuptable=) on a replica axis of one rank (2 chains
+    x 1 replica) equals the generic bath engine's sequential sweep
+    (generic_qmc_bath_anneal_ref) bitwise, line moves on and off, on an
+    IsingProblem, an odd torus (its improper checkerboard) and an even
+    lattice."""
+    out, placements = pools[2].run("bath_sharded", kind=kind, slices=8,
+                                   global_moves=global_moves,
+                                   mesh_kind="chains_x_replica")
+    problem, confs, a, b, temp, lut = W.bath_case(kind, 8)
+    want = gk.anneal_generic_qmc_bath(problem, a, b, temp, lut, confs,
+                                      _bath_seed(),
+                                      global_moves=global_moves)
+    assert np.array_equal(out, want.numpy())
+    assert placements == "[Shard(dim=0), Shard(dim=1)]"
+    assert (out != confs.numpy()).mean() > 0.1
+
+
+@pytest.mark.parametrize("ranks,slices,kind,global_moves", [
+    (2, 8, "ising", True), (2, 2, "odd_lattice", False),
+    (4, 8, "odd_lattice", True), (4, 4, "ising", False),
+    (4, 4, "even_lattice", True), (3, 3, "ising", True),
+    (3, 6, "odd_lattice", False)])
+def test_sharded_bath_is_the_lockstep_plain_version(pools, ranks, slices,
+                                                    kind, global_moves):
+    """At 2, 3 and 4 ranks the sharded bath equals its ranks run in
+    lockstep in one process (trotter.anneal_sharded_bath_ref) bitwise: p_local
+    >= 2, and one slice a rank, where the device ring is coloured (2
+    colours on an even ring, 3 on the odd ring of 3)."""
+    out, placements = pools[ranks].run("bath_sharded", kind=kind,
+                                       slices=slices,
+                                       global_moves=global_moves)
+    problem, confs, a, b, temp, lut = W.bath_case(kind, slices)
+    want = trotter.anneal_sharded_bath_ref(problem, a, b, temp, lut, confs,
+                                           _bath_seed(), ranks,
+                                           global_moves=global_moves)
+    assert np.array_equal(out, want.numpy())
+    assert placements == "[Shard(dim=1)]"
+
+
+def test_sharded_bath_energy_does_not_increase_at_zero_temperature(pools):
+    """tests/test_parallel.py:215 on the port (P = 8 on 4 ranks)."""
+    before, after = pools[4].run("bath_zero_temperature")
+    problem = instances.random_2d_lattice(3, rng=0, device=CPU)[0]
+    lut = schedules.bath_lookuptable(8, 1e-2, device=CPU).numpy()
+    e0 = _extended_energy(problem, before, 1e-6, 0.9, lut)
+    e1 = _extended_energy(problem, after, 1e-6, 0.9, lut)
+    assert e1 <= e0 + 1e-3, (e0, e1)
+    assert not np.array_equal(before, after)
+
+
+def test_sharded_bath_equilibrium_matches_sequential(pools):
+    """tests/test_parallel.py:234 on the port, at one slice a rank (P = 4
+    on 4 ranks, the ring coloured: the stalest snapshot): the stationary
+    extended energy of the sharded bath within 3 standard errors of the
+    sequential bath engine's (tests/test_reference_equivalence.py::
+    _assert_equilibrium_match)."""
+    from tests.test_reference_equivalence import _assert_equilibrium_match
+
+    tails_sh = pools[4].run("bath_equilibrium")
+    tails_sq = W.bath_equilibrium_run(
+        lambda problem, a, b, temp, confs, g, lut: qmc.anneal(
+            problem, a, b, temp, confs, g, lookuptable=lut), 4)
+    c = W.BATH_EQUILIBRIUM
+    problem = instances.random_2d_lattice(3, rng=0, device=CPU)[0]
+    lut = schedules.bath_lookuptable(4, c["alpha"], device=CPU).numpy()
+
+    def energies(tails):
+        return _extended_energy(problem, tails.reshape(
+            -1, 4, problem.nspins), c["temp"], c["gamma"], lut)
+    _assert_equilibrium_match(energies(tails_sh), energies(tails_sq),
+                              label="sharded-bath")
+
+
+CLUSTER_CASES = [
+    ("wolff", 4, {"rule": "local"}), ("wolff", 2, {"rule": "full"}),
+    ("wolff", 4, {"rule": "local", "bath": True}),
+    ("wolff", 2, {"rule": "full", "bath": True}),
+    ("wolff", 4, {"rule": "local", "with_fields": True}),
+    ("wolff", 3, {"rule": "local", "with_fields": True, "bath": True,
+                  "slices": 6}),
+    ("sw", 4, {}), ("sw", 2, {"with_fields": True}),
+    ("sw", 4, {"bath": True}),
+    ("sw", 3, {"with_fields": True, "bath": True, "slices": 6})]
+
+
+@pytest.mark.parametrize("kind,ranks,kw", CLUSTER_CASES)
+def test_sharded_cluster_engines_equal_single_device(pools, kind, ranks, kw):
+    """tests/test_parallel.py:448-532 on the port: the sharded Wolff
+    (rules "local" and "full") and SW engines equal the single-device
+    qmc.anneal_wolff / anneal_sw bitwise, with bath bonds and with fields
+    (the Wolff field term added in slice order, as fk_wolff.cu adds it),
+    at 2, 3 and 4 ranks; their rounds a step end when no rank has news."""
+    out, placements, rounds = pools[ranks].run("cluster_sharded", kind=kind,
+                                               **kw)
+    problem, confs, a, kwargs = W.cluster_case(kind, **kw)
+    single = qmc.anneal_wolff if kind == "wolff" else qmc.anneal_sw
+    want = single(problem, a, torch.ones_like(a), 1.0 / confs.shape[0],
+                  confs, W.gen(9), **kwargs)
+    assert np.array_equal(out, want.numpy())
+    assert placements == "[Shard(dim=0)]"
+    assert len(rounds) == a.shape[0] and min(rounds) >= 1
+    assert (out != confs.numpy()).any()
+
+
+@pytest.mark.parametrize("kind", ["wolff", "sw"])
+def test_sharded_cluster_lockstep_plain_versions(kind):
+    """The one-process lockstep plain versions (anneal_wolff_sharded_ref,
+    anneal_sw_sharded_ref), which chip_smoke.py holds the card's gloo runs
+    to, equal the single-device plain engines at 1 to 4 ranks, bath bonds
+    and fields on, and count more rounds as the ranks grow."""
+    problem, confs, a, kwargs = W.cluster_case(kind, with_fields=True,
+                                               bath=True)
+    b = torch.ones_like(a)
+    seed = sa.draw_seed(W.gen(9))
+    single = qmc.anneal_wolff if kind == "wolff" else qmc.anneal_sw
+    want = single(problem, a, b, 1.0 / 8, confs, W.gen(9), **kwargs)
+    ref = (trotter.anneal_wolff_sharded_ref if kind == "wolff"
+           else trotter.anneal_sw_sharded_ref)
+    totals = []
+    for ranks in (1, 2, 4):
+        rounds = []
+        got = ref(problem, a, b, 1.0 / 8, confs, seed, ranks,
+                  rounds=rounds, **kwargs)
+        assert torch.equal(got, want), ranks
+        totals.append(sum(rounds))
+    assert totals[0] <= totals[1] <= totals[2]
+
+
+def test_bit_packing_round_trips():
+    g = torch.Generator().manual_seed(1)
+    for m in (1, 31, 32, 33, 100):
+        mask = torch.randint(0, 2, (3, m), generator=g).bool()
+        words = cl.pack_bits(mask)
+        assert words.dtype == torch.int32 and words.shape == (3, -(-m // 32))
+        assert torch.equal(cl.unpack_bits(words, m), mask)
 
 
 # ------------------------------------------------------------ against JAX
@@ -459,21 +620,200 @@ def test_generic_shards_match_jax_on_its_draws(eight_devices):
     assert np.array_equal(packed_ops.unpack_state(pg, s).numpy(), want)
 
 
+def _jax_steps(steps):
+    from montecarlosolvers_tpu import schedules as jsched
+
+    a = jsched.transverse_field(2.5, 1e-8, steps)
+    return a, jnp.ones_like(a)
+
+
+@pytest.mark.parametrize("replicas", [4, 8])
+def test_bath_shards_match_jax_on_its_draws(eight_devices, replicas):
+    """S5's plain version, shard by shard in lockstep at replica 4 (two
+    slices a rank) and 8 (one: the ring coloured), on each shard's
+    fold_in(fold_in(fold_in(k1, replica), chains), slice) per-class draws
+    of JAX's sharded bath (_sharded_dissipative_sweep): bitwise its
+    result."""
+    from montecarlosolvers_tpu import schedules as jsched
+    from montecarlosolvers_tpu.models import instances as jinst
+    from montecarlosolvers_tpu.parallel import make_mesh as jmesh
+    from montecarlosolvers_tpu.parallel import trotter as jtrotter
+    from montecarlosolvers_tpu.solvers import qmc as jqmc
+    from montecarlosolvers_tpu.solvers import sa as jsa
+    from montecarlosolvers_tpu_torch.ops import piqmc as tpq
+
+    jprob = jinst.random_2d_lattice(4, rng=0)[0]
+    slices, steps, temp = 8, 4, 0.3
+    key = jax.random.key(6)
+    confs = jqmc.replicate(jsa.random_state(key, 16, batch=(3,)), slices)
+    confs = confs.at[:, 2, :5].multiply(-1.0)
+    a, b_j = _jax_steps(steps)
+    lut = jsched.bath_lookuptable(slices, 0.3)
+    want = np.asarray(jtrotter.anneal_sharded(
+        jprob, a, b_j, temp, confs, key, jmesh(replica=replicas),
+        lookuptable=lut))
+
+    pg = packed_ops.build_packed(W.ising4())
+    perm = pg.perm.long()
+    bath = tpq.bath_matrix_of(np.asarray(lut), slices, CPU)
+    b, jp, teff = schedules.qmc_terms(np.asarray(a), np.ones(steps), temp,
+                                      slices, 1, CPU)
+    s = packed_ops.pack_state(pg, torch.as_tensor(np.asarray(confs)))
+    ps = slices // replicas
+    keys = jax.random.split(key, steps)
+    for t in range(steps):
+        k1 = jax.random.split(keys[t])[0]
+
+        def draws(r, kloc):
+            kk = jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(
+                k1, r), 0), kloc)
+            return [torch.as_tensor(np.asarray(jax.random.uniform(
+                jax.random.fold_in(kk, c), (3, 16))))[:, perm]
+                for c in range(pg.num_colors)]
+
+        def step(x, owners, kloc):
+            full = x.clone()
+            return torch.cat([shk.generic_shard_bath_slice_ref(
+                pg, b, jp, teff, bath, x[:, r * ps:(r + 1) * ps], full, kloc,
+                r * ps + kloc, t, 0, draws=draws(r, kloc)) if r in owners
+                else x[:, r * ps:(r + 1) * ps] for r in range(replicas)],
+                dim=1)
+        if ps == 1:
+            for colour in range(2):
+                s = step(s, [r for r in range(replicas) if r % 2 == colour],
+                         0)
+        else:
+            for kloc in range(ps):
+                s = step(s, range(replicas), kloc)
+    assert np.array_equal(packed_ops.unpack_state(pg, s).numpy(), want)
+
+
+def _jax_cluster_setup(with_fields, bath):
+    from montecarlosolvers_tpu import schedules as jsched
+    from montecarlosolvers_tpu.models import instances as jinst
+    from montecarlosolvers_tpu.solvers import qmc as jqmc
+    from montecarlosolvers_tpu.solvers import sa as jsa
+
+    jprob = jinst.random_2d_lattice(4, rng=0, with_fields=with_fields)[0]
+    port = instances.random_2d_lattice(4, rng=0, with_fields=with_fields,
+                                       device=CPU)[0]
+    slices, steps = 8, 6
+    key = jax.random.key(9)
+    confs = jqmc.replicate(jsa.random_state(key, 16), slices)
+    a, b_j = _jax_steps(steps)
+    lut = jsched.bath_lookuptable(slices, 0.2) if bath else None
+    b, jp, teff = schedules.qmc_terms(np.asarray(a), np.ones(steps),
+                                      1.0 / slices, slices, 1, CPU)
+    return (jprob, port, confs, a, b_j, key, lut, b, jp, teff, slices,
+            jax.random.split(key, steps))
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+@pytest.mark.parametrize("replicas,rule,bath", [
+    (4, "local", True), (8, "full", False), (4, "full", True),
+    (8, "local", False)])
+def test_wolff_shards_match_jax_on_its_draws(eight_devices, replicas, rule,
+                                             bath):
+    """S6's plain versions, the ranks in lockstep (cluster.
+    wolff_sharded_steps_ref) at replica 4 and 8, on the draws of JAX's
+    _wolff_sharded_update (its seed, bond and accept uniforms of the full
+    state, each rank taking its rows): bitwise JAX's anneal_wolff_sharded,
+    rules "local" and "full", with and without bath bonds."""
+    from montecarlosolvers_tpu.parallel import make_mesh as jmesh
+    from montecarlosolvers_tpu.parallel import trotter as jtrotter
+
+    (jprob, port, confs, a, b_j, key, lut, b, jp, teff, slices,
+     keys) = _jax_cluster_setup(False, bath)
+    want = np.asarray(jtrotter.anneal_wolff_sharded(
+        jprob, a, b_j, 1.0 / slices, confs, key, jmesh(replica=replicas),
+        rule=rule, lookuptable=lut))
+    maxnb = port.nbr_idx.shape[1]
+
+    def draws(t):
+        k_seed, k_sp, k_t, k_site, k_bath, k_acc = jax.random.split(keys[t],
+                                                                    6)
+        return (int(jax.random.randint(k_site, (), 0, slices)),
+                int(jax.random.randint(k_seed, (), 0, 16)),
+                _t(jax.random.uniform(k_sp, (slices, 16, maxnb))),
+                _t(jax.random.uniform(k_t, (slices, 16))),
+                _t(jax.random.uniform(k_bath, (16, slices, slices)))
+                if bath else None, _t(jax.random.uniform(k_acc, ())))
+    got = cl.wolff_sharded_steps_ref(
+        port, _t(confs), b, jp, teff, 0, replicas, rule,
+        None if lut is None else _t(lut), draws=draws)
+    assert np.array_equal(got.numpy(), want)
+    assert (want != np.asarray(confs)).any()
+
+
+@pytest.mark.parametrize("replicas,with_fields,bath", [
+    (8, True, False), (4, False, True), (4, True, True)])
+def test_sw_shards_match_jax_on_its_draws(eight_devices, replicas,
+                                          with_fields, bath):
+    """S7's plain versions, the ranks in lockstep (cluster.
+    sw_sharded_steps_ref) at replica 4 and 8, on the draws of JAX's
+    _spacetime_sw_sharded_sweep (bond, ghost and coin draws of the full
+    state): bitwise JAX's anneal_sw_sharded, with fields and with the
+    bath."""
+    from montecarlosolvers_tpu.parallel import make_mesh as jmesh
+    from montecarlosolvers_tpu.parallel import trotter as jtrotter
+
+    (jprob, port, confs, a, b_j, key, lut, b, jp, teff, slices,
+     keys) = _jax_cluster_setup(with_fields, bath)
+    want = np.asarray(jtrotter.anneal_sw_sharded(
+        jprob, a, b_j, 1.0 / slices, confs, key, jmesh(replica=replicas),
+        lookuptable=lut))
+    maxnb = port.nbr_idx.shape[1]
+
+    def draws(t):
+        k2 = jax.random.split(keys[t])[1]
+        k_sp, k_t, k_bath, k_h, k_coin = jax.random.split(k2, 5)
+        return (_t(jax.random.uniform(k_sp, (slices, 16, maxnb))),
+                _t(jax.random.uniform(k_t, (slices, 16))),
+                _t(jax.random.uniform(k_bath, (16, slices, slices)))
+                if bath else None,
+                _t(jax.random.uniform(k_h, (slices, 16))),
+                _t(jax.random.bernoulli(k_coin, 0.5, (slices * 16,))))
+    got = cl.sw_sharded_steps_ref(port, _t(confs), b, jp, teff, 0, replicas,
+                                  None if lut is None else _t(lut),
+                                  draws=draws)
+    assert np.array_equal(got.numpy(), want)
+    assert (want != np.asarray(confs)).any()
+
+
 # ------------------------------------------------------------ the dry run
+
+
+DRYRUN_LEGS = {"chain_sharded_split_gs", "trotter_sharded_gs",
+               "trotter_sharded_split_gs", "trotter_sharded_wolff",
+               "trotter_sharded_sw", "trotter_sharded_bath_spins"}
+
+
+def _legs_hold(out):
+    """The ground-state legs within 10% of the ground; the sharded Wolff
+    and SW legs (3c, 3d) with 0 mismatched spins, the sharded bath's (4)
+    with 0 values other than +/-1."""
+    assert set(out) == DRYRUN_LEGS
+    for leg, value in out.items():
+        if leg.endswith("_gs"):
+            best, e_gs = value
+            assert best <= e_gs + 0.1 * abs(e_gs), leg
+        else:
+            assert value == 0, leg
 
 
 def test_dry_run_legs_on_four_ranks(pools):
     """Every leg of the port's dry run (parallel/dryrun.py::legs) on the
-    4-rank pool, the chains x replica mesh among them."""
-    out = pools[4].run("dryrun_legs")
-    for best, e_gs in out.values():
-        assert best <= e_gs + 0.1 * abs(e_gs)
+    4-rank pool, the chains x replica mesh among them, and JAX's legs 3c,
+    3d and 4: the sharded Wolff and SW engines with bath bonds, the
+    sharded bath."""
+    _legs_hold(pools[4].run("dryrun_legs"))
 
 
 def test_dryrun_multichip_spawns_its_ranks():
-    out = dryrun.dryrun_multichip(2, device_type="cpu")
-    assert set(out) == {"chain_sharded_split_gs", "trotter_sharded_gs",
-                        "trotter_sharded_split_gs"}
+    _legs_hold(dryrun.dryrun_multichip(2, device_type="cpu"))
 
 
 def test_entry_takes_one_split_step():

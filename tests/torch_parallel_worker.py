@@ -264,6 +264,117 @@ def case_split_statistics(chains=128, steps=250):
     return _numpy(out), ref.numpy()
 
 
+# ------------------------------------------ the rest of the Trotter axis
+
+
+# kind -> the problem of the sharded bath: an IsingProblem, an odd torus and
+# an even lattice on their own checkerboards
+BATH_PROBLEMS = {"ising": ising4, "odd_lattice": lambda: lattice(5),
+                 "even_lattice": lambda: lattice(4)}
+
+
+def bath_case(kind, slices, chains=4, steps=5):
+    """(problem, confs, a, b, temp, lookuptable) of a sharded bath run."""
+    problem = BATH_PROBLEMS[kind]()
+    g = gen(11)
+    confs = (torch.randint(0, 2, (chains, slices, problem.nspins),
+                           generator=g).float() * 2 - 1)
+    a = schedules.transverse_field(2.0, 0.2, steps, device=CPU)
+    return (problem, confs, a, torch.ones_like(a), 0.4,
+            schedules.bath_lookuptable(slices, 0.3, device=CPU))
+
+
+def case_bath_sharded(kind, slices, global_moves, mesh_kind="replica"):
+    """anneal_sharded(lookuptable=) on `mesh_kind` (chains x replica: one
+    rank on the replica axis), generator seed 13."""
+    problem, confs, a, b, temp, lut = bath_case(kind, slices)
+    out = trotter.anneal_sharded(
+        problem, a, b, temp, confs, gen(13), _mesh(mesh_kind),
+        global_moves=global_moves, lookuptable=lut,
+        chains_sharded=mesh_kind == "chains_x_replica")
+    return _numpy(out), str(list(out.placements))
+
+
+def cluster_case(kind, slices=8, with_fields=False, bath=False,
+                 rule="local", steps=20):
+    """(problem, confs, a, kwargs) of a sharded cluster run (JAX
+    test_parallel.py:448-532's setups): the random 4 x 4 lattice's
+    generic form, one replicated chain, Gamma: 2.5 -> 1e-8."""
+    problem = instances.random_2d_lattice(4, rng=0, with_fields=with_fields,
+                                          device=CPU)[0]
+    confs = qmc.replicate(sa.random_state(gen(7), problem.nspins,
+                                          device=CPU), slices)
+    a = schedules.transverse_field(2.5, 1e-8, steps, device=CPU)
+    kw = {"lookuptable": schedules.bath_lookuptable(slices, 0.2, device=CPU)
+          if bath else None}
+    if kind == "wolff":
+        kw["rule"] = rule
+    return problem, confs, a, kw
+
+
+def case_cluster_sharded(kind, **kw):
+    """anneal_wolff_sharded / anneal_sw_sharded on the replica mesh,
+    generator seed 9: (state, placements, rounds a step)."""
+    problem, confs, a, kwargs = cluster_case(kind, **kw)
+    engine = (trotter.anneal_wolff_sharded if kind == "wolff"
+              else trotter.anneal_sw_sharded)
+    stats = {}
+    out = engine(problem, a, torch.ones_like(a), 1.0 / confs.shape[0], confs,
+                 gen(9), _mesh("replica"), stats=stats, **kwargs)
+    return _numpy(out), str(list(out.placements)), stats["rounds"]
+
+
+def case_bath_zero_temperature():
+    """JAX test_parallel.py:215: at T -> 0 the sharded bath takes only
+    downhill moves (P = 8, replica = world). Returns (before, after)."""
+    problem = instances.random_2d_lattice(3, rng=0, device=CPU)[0]
+    slices = 8
+    confs = qmc.replicate(sa.random_state(gen(5), problem.nspins,
+                                          device=CPU), slices)
+    confs[2, :3] *= -1.0
+    lut = schedules.bath_lookuptable(slices, 1e-2, device=CPU)
+    a = torch.full((3,), 0.9)
+    out = trotter.anneal_sharded(problem, a, torch.ones(3), 1e-6, confs,
+                                 gen(5), _mesh("replica"), lookuptable=lut)
+    return confs.numpy(), _numpy(out)
+
+
+# JAX test_parallel.py:234's equilibrium run but for P, which the port
+# takes as the world size (one slice a rank, the ring coloured)
+BATH_EQUILIBRIUM = dict(temp=0.7, gamma=1.2, alpha=2e-2, chains=48, burn=25,
+                        tail=50, seg=2)
+
+
+def bath_equilibrium_run(step, slices):
+    """JAX test_parallel.py:234's collection at P = `slices`: 48 random
+    chains of the random 3 x 3 lattice, `burn` segments of `seg` sweeps,
+    then the confs after each of `tail` more, every segment from its own
+    generator. step(problem, a, b, temp, confs, generator, lut) -> confs."""
+    c = BATH_EQUILIBRIUM
+    problem = instances.random_2d_lattice(3, rng=0, device=CPU)[0]
+    confs = (torch.randint(0, 2, (c["chains"], slices, problem.nspins),
+                           generator=gen(17)).float() * 2 - 1)
+    a = torch.full((c["seg"],), c["gamma"])
+    lut = schedules.bath_lookuptable(slices, c["alpha"], device=CPU)
+    tails = []
+    for t in range(c["burn"] + c["tail"]):
+        confs = step(problem, a, torch.ones_like(a), c["temp"], confs,
+                     gen(1000 + t), lut)
+        if t >= c["burn"]:
+            tails.append(confs.numpy())
+    return np.stack(tails)
+
+
+def case_bath_equilibrium():
+    """The sharded bath's equilibrium run at one slice a rank."""
+    mesh = _mesh("replica")
+
+    def step(problem, a, b, temp, confs, g, lut):
+        return pmesh.full_tensor(trotter.anneal_sharded(
+            problem, a, b, temp, confs, g, mesh, lookuptable=lut))
+    return bath_equilibrium_run(step, dist.get_world_size())
+
+
 def _message(fn):
     try:
         fn()
@@ -301,10 +412,13 @@ def case_refusals():
             prob, a, b, 0.3, c[:, :world - 1], gen(0), mesh)),
         "rng": _message(lambda: trotter.anneal_sharded_split(
             lat, a, b, 0.3, c, gen(0), mesh, rng="fast")),
-        "bath": _message(lambda: trotter.anneal_sharded(
-            prob, a, b, 0.3, c, gen(0), mesh, lookuptable=_lut(slices))),
-        "wolff_sharded": _message(lambda: trotter.anneal_wolff_sharded()),
-        "sw_sharded": _message(lambda: trotter.anneal_sw_sharded()),
+        "bath_indivisible": _message(lambda: trotter.anneal_sharded(
+            prob, a, b, 0.3, c[:, :world - 1], gen(0), mesh,
+            lookuptable=_lut(4))),
+        "wolff_indivisible": _message(lambda: trotter.anneal_wolff_sharded(
+            prob, a, b, 0.3, c[0, :world - 1], gen(0), mesh)),
+        "sw_indivisible": _message(lambda: trotter.anneal_sw_sharded(
+            prob, a, b, 0.3, c[0, :world - 1], gen(0), mesh)),
         "svmc": _message(lambda: svmc.anneal(prob, sched, sched, 0.1, s,
                                              gen(0))),
         "svmc_noisy": _message(lambda: svmc.anneal_noisy(
