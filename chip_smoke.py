@@ -443,9 +443,30 @@ Phases, each printed as one JSON line:
                       its one-process lockstep plain version, within
                       PARALLEL_ANCHOR of the sequential bath's energy, and
                       the sharded Wolff and SW engines equal the
-                      single-device kernels; (i)
+                      single-device kernels; (j) kernels 4 and 7 (cluster
+                      and per-phase routes), packed SVMC (static and
+                      per-step tables) at SVMC_READS chains, TF, the dense
+                      in-block kernel at DENSE_READS chains of sk_model(
+                      DENSE_N) (shared and per-chain temperatures) and the
+                      Houdayer move at PT_RUNGS pairs run a block with its
+                      chain (pair) offset and equal those rows of the
+                      whole batch's run, 0 mismatches, each timed at offset
+                      0 and at OFFSET_CHAIN0 (the dense anneal's rows,
+                      block products of the block's own row count, counted);
+                      (k) a one-rank NCCL mesh: pt.sample, sample_piqmc,
+                      sample_icm, pa.sample, sample_adaptive, sample_piqmc,
+                      svmc.anneal, both noisy anneals and the dense anneal
+                      at full width on a chain-sharded state equal the
+                      unsharded calls bitwise (rates, log_z and stats too),
+                      launches exact, walls and the gathers' share; (l)
+                      PARALLEL_RANKS gloo ranks sharing the card: the same
+                      calls at GLOO_SAMPLER_STEPS, bitwise (the dense
+                      anneal within 4 standard errors, its mismatches
+                      counted), each rank's launches exact, and the bytes
+                      a pa.sample step gathers; (i) and (m)
                       parallel.dryrun.dryrun_multichip on PARALLEL_RANKS
-                      ranks, JAX's legs 3c, 3d and 4 among them
+                      ranks, JAX's legs 3c, 3d, 4, 5, 5b, 6 and 6b among
+                      them
 then a line {"kernels": [...]} (the launches of the main path's solves,
 the sampler solves and the api_surface and studies runs unless said: the
 seven kernels, then their per-phase kernels, which only the studies'
@@ -1017,6 +1038,14 @@ GLOO_BATH_TAU, GLOO_CLUSTER_STEPS, GLOO_RING_SLICES = 30, 12, 4
 # trajectory parts from there on; a wrong or lost sum parts every chain.
 # Measured: 0 on every run
 PARALLEL_LINES = 80 * 80
+# the sharded samplers in the parallel phase: (j) the five kernels that take
+# a chain (pair) offset for them, timed at offset 0 and at OFFSET_CHAIN0 in turns,
+# OFFSET_STEPS steps (SVMC) or sweeps; (k) and (l) each sharded entry point
+# (`sampler_calls`) at full width, SHARDED_STEPS sweeps or steps on the
+# one-rank NCCL mesh and GLOO_SAMPLER_STEPS on the gloo ranks (fewer: every
+# exchange, reweight and resample gathers through host memory there)
+OFFSET_STEPS, OFFSET_CHAIN0 = 200, 100003
+SHARDED_STEPS, GLOO_SAMPLER_STEPS = 100, 40
 # (a): chains of the exact-distribution samplers, and the largest
 # |mean - exact| (or kernel - plain) they may show, in standard errors of
 # the chain means (gibbs_check.z_scores: at most 1 state in about 3 million
@@ -4482,6 +4511,423 @@ def gloo_rest(dev, torus, power, name):
           "seconds": seconds, "card": name, "power_limit": power})
 
 
+@contextlib.contextmanager
+def plane_svmc_phased():
+    """Within the block kernel 7's wrapper takes its per-phase kernels at
+    every shape (gibbs_check.phased_route does so for kernels A, B, 4 and
+    5)."""
+    from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
+
+    saved = pk.plane_svmc_geometry
+    try:
+        pk.plane_svmc_geometry = lambda *args, **kw: None
+        yield
+    finally:
+        pk.plane_svmc_geometry = saved
+
+
+def sampler_offset_checks(dev, torus, odd_torus, power, name):
+    """(j): kernels 4 and 7 (each on its cluster and per-phase route) and
+    packed SVMC (static and per-step tables) at SVMC_READS chains, TF, on
+    the 80x80 torus, the 81x81 one and the generic form; the dense in-block
+    kernel at sk_model(DENSE_N), DENSE_READS chains, shared and per-chain
+    temperatures, on one block's fields; the Houdayer move on the generic
+    form, PT_RUNGS pairs: a block of chains (pairs) with its offset equals
+    those rows of the whole batch's run, 0 mismatches. Each is timed with
+    CUDA events at offset 0 and at OFFSET_CHAIN0 on the whole batch, in
+    turns (0, offset, offset, 0; the best of each). The dense anneal's
+    rows (block products of the block's own row count, ROADMAP.md queue 3)
+    are counted, not held."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import dense_kernels as dk
+    from montecarlosolvers_tpu_torch.ops import dense_sweep as ds
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
+    from montecarlosolvers_tpu_torch.ops import split as split_ops
+    from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+
+    gtorus = torus.to_generic()
+    rng = np.random.default_rng(41)
+
+    def angles(*shape):
+        return torch.as_tensor((rng.random(shape) * np.pi).astype(
+            np.float32), device=dev)
+
+    def spins(*shape):
+        return torch.as_tensor(rng.choice([-1.0, 1.0], size=shape).astype(
+            np.float32), device=dev)
+    steps = OFFSET_STEPS
+    a = schedules.transverse_field(2.0, 1e-3, steps, device=dev)
+    b = torch.ones_like(a)
+    sl = split_ops.build_split(torus)
+    pl = pk._planes_of(odd_torus, torch.empty(0, device=dev), "planes")
+    pg = packed_ops.build_packed(gtorus)
+    tables = gk.packed_tables(pg, *noisy_tables(gtorus, dev, steps), 1,
+                              steps, dev)
+    halves = tuple(x.contiguous() for x in split_ops.pack_classical(
+        sl, angles(SVMC_READS, L * L)))
+    th81 = angles(SVMC_READS, ODD_L, ODD_L)
+    packed_th = packed_ops.pack_state(pg, angles(SVMC_READS, L * L)
+                                      ).contiguous()
+    dp = instances.sk_model(DENSE_N, rng=0, device=dev)[0]
+    jp_, hp_, dense_s = ds.padded(dp.J, dp.h, spins(DENSE_READS, DENSE_N),
+                                  DENSE_BLOCK)
+    start = DENSE_BLOCK  # the second block
+    fb = ds.block_fields(dense_s, jp_, hp_, start, DENSE_BLOCK)
+    dense_t = schedules.linear(3.0, 0.1, 4, device=dev)
+    dense_pc = torch.linspace(0.5, 3.0, DENSE_READS, device=dev)[None].expand(
+        4, -1)
+    pairs = tuple(spins(PT_RUNGS, L * L) for _ in range(2))
+    temp = SVMC_TEMP
+    # kernel -> (run(state, chain0) -> tuple, state tuple, route context,
+    # block width)
+    cases = {
+        "split_svmc": (lambda st, c0: sk.svmc_split_anneal(
+            sl, a, b, temp, *st, 71, True, chain0=c0), halves),
+        "plane_svmc": (lambda st, c0: (pk.svmc_plane_anneal(
+            pl, a, b, temp, st[0], 71, True, chain0=c0),), (th81,)),
+        "packed_svmc": (lambda st, c0: (gk.packed_svmc_anneal(
+            pg, a, b, temp, st[0], 71, True, chain0=c0),), (packed_th,)),
+        "packed_svmc_noisy": (lambda st, c0: (gk.packed_svmc_anneal(
+            pg, a, b, temp, st[0], 71, True, tables=tables, chain0=c0),),
+            (packed_th,)),
+        "dense_sa": (lambda st, c0: (dk.dense_sa_block(
+            st[0].clone(), st[1], jp_, start, dense_t, 2, 71,
+            chain0=c0),), (dense_s, fb)),
+        "dense_sa_chain": (lambda st, c0: (dk.dense_sa_block(
+            st[0].clone(), st[1], jp_, start, st[2], 2, 71, chain0=c0),),
+            (dense_s, fb, dense_pc)),
+        "houdayer": (lambda st, c0: ck.houdayer_move(
+            gtorus, *st, 71, 4, pair0=c0), pairs),
+    }
+    routes_of = {"split_svmc": routes(),
+                 "plane_svmc": (("cluster", contextlib.nullcontext),
+                                ("phased", plane_svmc_phased))}
+    for kname, (run, state) in cases.items():
+        width = state[0].shape[0]
+        c0, w = width // 4 + 13, width // 4
+        if kname == "dense_sa_chain":  # the table's rows of the block
+            def cut(x, i):
+                return x[c0:c0 + w] if i < 2 else x[:, c0:c0 + w]
+        else:
+            def cut(x, i):
+                return x[c0:c0 + w]
+        for route, ctx in routes_of.get(kname, (("cluster",
+                                                 contextlib.nullcontext),)):
+            with ctx():
+                full = run(state, 0)
+                block = run(tuple(cut(x, i).contiguous()
+                                  for i, x in enumerate(state)), c0)
+                torch.cuda.synchronize()
+                bad = sum(int((f[c0:c0 + w] != g).sum())
+                          for f, g in zip(full, block))
+                times = {0: [], OFFSET_CHAIN0: []}
+                for off in (0, OFFSET_CHAIN0, OFFSET_CHAIN0, 0):
+                    times[off].append(event_ms(lambda: run(state, off),
+                                               3 if "svmc" in kname else 20))
+            emit({"phase": "parallel", "check": "sampler_kernel_offset",
+                  "kernel": kname, "route": route, "chains": width,
+                  "block": [c0, c0 + w], "mismatched": bad,
+                  "ms_offset_0": min(times[0]),
+                  "ms_offset": min(times[OFFSET_CHAIN0]),
+                  "offset": OFFSET_CHAIN0,
+                  "steps": steps if "svmc" in kname else 1,
+                  "card": name, "power_limit": power})
+            check(bad == 0, f"{kname} ({route}) on [{c0}, {c0 + w}) with "
+                            "its offset equals the unsharded rows")
+
+    # the dense anneal's block against the whole batch's rows: counted
+    sweeps = 4
+    sched = schedules.linear(3.0, 0.1, sweeps, device=dev)
+    s0 = dense_s[:, :DENSE_N].contiguous()
+    full = dk.dense_anneal(dp, sched, s0, 71)
+    c0, w = DENSE_READS // 4, DENSE_READS // 4
+    block = dk.dense_anneal(dp, sched, s0[c0:c0 + w].contiguous(), 71,
+                            chain0=c0)
+    emit({"phase": "parallel", "check": "dense_anneal_block_rows",
+          "chains": DENSE_READS, "block": [c0, c0 + w], "sweeps": sweeps,
+          "mismatched_spins": int((full[c0:c0 + w] != block).sum()),
+          "of": int(block.numel())})
+
+
+def sampler_calls(dev, steps):
+    """name -> (state, sharded dim, run): every entry point the samplers'
+    slice shards, at the main path's widths, `steps` sweeps or steps, from
+    fixed seeds; run(state) takes the full or the chain-sharded state.
+    pt.sample at PT_RUNGS rungs and sample_piqmc at P = QMC_SLICES on the
+    80x80 torus, sample_icm (ICM_RUNGS) on random_3d_lattice(12), pa.sample
+    and sample_adaptive at PA_READS, sample_piqmc at PAQ_READS x
+    PAQ_SLICES, svmc.anneal (SVMC_READS, TF), the noisy anneals on the
+    generic form (SA_READS, SVMC_READS) and the dense anneal (sk_model(
+    DENSE_N), DENSE_READS)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.solvers import pa, pt, qmc, sa, svmc
+
+    torus = instances.gaussian_torus(L, seed=0, device=dev)
+    gtorus = torus.to_generic()
+    g3 = instances.random_3d_lattice(12, rng=0, device=dev)[0]
+    dp = instances.sk_model(DENSE_N, rng=0, device=dev)[0]
+    n = L * L
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def spins(batch, sites, seed):
+        return sa.random_state(gen(seed), sites, batch=batch, device=dev)
+    temps = pt.geometric_ladder(PT_COLD, PT_HOT, PT_RUNGS, device=dev)
+    gammas = torch.tensor(np.geomspace(1.5, 0.3, PT_RUNGS),
+                          dtype=torch.float32, device=dev)
+    temps_icm = pt.geometric_ladder(0.5, 3.0, ICM_RUNGS, device=dev)
+    a = schedules.transverse_field(2.0, 1e-3, steps, device=dev)
+    b = torch.ones_like(a)
+    jt, ht = noisy_tables(gtorus, dev, steps)
+    return {
+        "pt.sample": (spins((PT_RUNGS,), n, 21), 0, lambda s: pt.sample(
+            torus, temps, s, gen(22), steps, swap_every=PT_SWAP,
+            collect_energy=True, per_pair_rates=True)),
+        "pt.sample_piqmc": (
+            qmc.replicate(spins((PT_RUNGS,), n, 23), QMC_SLICES), 0,
+            lambda c: pt.sample_piqmc(torus, gammas, 1.0 / QMC_SLICES, c,
+                                      gen(24), steps, swap_every=2,
+                                      global_moves=True,
+                                      per_pair_rates=True)),
+        "pt.sample_icm": (spins((2, ICM_RUNGS), g3.nspins, 25), 1,
+                          lambda s: pt.sample_icm(g3, temps_icm, s, gen(26),
+                                                  steps, houdayer_every=2)),
+        "pa.sample": (spins((PA_READS,), n, 27), 0, lambda s: pa.sample(
+            torus, pa.beta_linear(3.0, steps, beta_start=0.0, device=dev),
+            s, gen(28), beta0=0.0, collect_stats=True)),
+        "pa.sample_adaptive": (spins((PA_READS,), n, 29), 0,
+                               lambda s: pa.sample_adaptive(
+                                   torus, PA_ADAPTIVE_BETA, s, gen(30),
+                                   max_steps=steps)),
+        "pa.sample_piqmc": (
+            qmc.replicate(spins((PAQ_READS,), n, 31), PAQ_SLICES), 0,
+            lambda c: pa.sample_piqmc(
+                torus, torch.linspace(2.0, 0.3, steps, device=dev),
+                1.0 / PAQ_SLICES, c, gen(32), global_moves=True,
+                collect_stats=True)),
+        "svmc.anneal": (
+            svmc.random_state(gen(33), n, batch=(SVMC_READS,), device=dev),
+            0, lambda th: svmc.anneal(torus, a, b, SVMC_TEMP, th, gen(34),
+                                      tf=True)),
+        "sa.anneal_noisy": (spins((SA_READS,), n, 35), 0,
+                            lambda s: sa.anneal_noisy(
+                                gtorus, schedules.linear(3.0, 0.1, steps,
+                                                         device=dev),
+                                jt, ht, s, gen(36))),
+        "svmc.anneal_noisy": (
+            svmc.random_state(gen(37), n, batch=(SVMC_READS,), device=dev),
+            0, lambda th: svmc.anneal_noisy(gtorus, a, b, SVMC_TEMP, jt, ht,
+                                            th, gen(38), tf=True)),
+        "sa.anneal dense": (spins((DENSE_READS,), DENSE_N, 39), 0,
+                            lambda s: sa.anneal(dp, schedules.linear(
+                                3.0, 0.1, max(2, steps // 10), device=dev),
+                                s, gen(40))),
+    }
+
+
+def flat_outputs(out):
+    """A call's outputs as a tuple of host tensors, in order: DTensors
+    gathered, a stats dict by sorted key, numbers as 0-d tensors; +/-1
+    states as int8."""
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+
+    if isinstance(out, tuple):
+        return sum((flat_outputs(x) for x in out), ())
+    if isinstance(out, dict):
+        return sum((flat_outputs(out[k]) for k in sorted(out)), ())
+    if torch.is_tensor(out):
+        x = pmesh.full_tensor(out)
+        if x.dtype == torch.float32 and x.dim() >= 2 and bool(
+                (x.abs() == 1).all()):
+            x = x.to(torch.int8)
+        return (x.cpu(),)
+    return (torch.as_tensor(np.asarray(out)),)
+
+
+def sharded_launches(name, launched):
+    """The launches a sharded call makes on each rank, from its unsharded
+    call's: the same, but for ICM, whose rank sweeps each ladder's run of
+    its rungs on an engine of its own (two launches, and two energy
+    launches, where the unsharded run makes one)."""
+    if name != "pt.sample_icm":
+        return launched
+    return {k: v * (1 if k == "houdayer" else 2) for k, v in launched.items()}
+
+
+def card_sampler_rank(n_ranks, device_type, steps):
+    """The body of each gloo rank of (l): every call of `sampler_calls` on
+    its state sharded over a chains mesh of n_ranks, each returning (rank
+    0's outputs, the launches this rank made, the wall); and the bytes
+    this rank sent in each gather of pa.sample."""
+    import torch.distributed as dist
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.parallel import _collectives as coll
+    from montecarlosolvers_tpu_torch.parallel import make_mesh
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    rank = dist.get_rank()
+    mesh = make_mesh(chains=n_ranks, device_type=device_type)
+    out = {}
+    sent = []
+    gather = coll.gather
+    for name, (state, dim, run) in sampler_calls(dev, steps).items():
+        local = pmesh.as_dtensor(pmesh.local_block(state, mesh,
+                                                   {dim: "chains"}),
+                                 mesh, {dim: "chains"}, tuple(state.shape))
+        if name == "pa.sample":
+            coll.gather = lambda t, g, d: (sent.append(
+                t.numel() * t.element_size()) or gather(t, g, d))
+        _build.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        try:
+            res = run(local)
+        finally:
+            coll.gather = gather
+        sync()
+        wall = time.perf_counter() - t0
+        flat = flat_outputs(res)
+        out[name] = (tuple(x.numpy() for x in flat) if rank == 0 else None,
+                     launched_now(), wall)
+    out["pa_gather_bytes"] = sent
+    return out
+
+
+def sampler_sharding_checks(dev, power, name):
+    """(k) a one-rank NCCL mesh: each call of `sampler_calls` at
+    SHARDED_STEPS on its chain-sharded state equals the unsharded call
+    bitwise (states, rates, log_z, stats, energies), with the launches of
+    `sharded_launches`; its wall beside the unsharded wall and the share
+    spent in gathers. (l) PARALLEL_RANKS gloo ranks sharing the card run
+    the same calls at GLOO_SAMPLER_STEPS: bitwise the single-device run
+    (the dense anneal: in distribution, its mismatched spins counted,
+    ROADMAP.md queue 3), each rank's launches exact; the bytes a rank sends
+    a pa.sample step."""
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.parallel import _collectives as coll
+    from montecarlosolvers_tpu_torch.parallel import dryrun, make_mesh
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+
+    def differing(want, got):
+        """Differing values of paired outputs (a whole output's size where
+        the shapes differ, and one more where the counts do)."""
+        bad = abs(len(want) - len(got))
+        for x, y in zip(want, got):
+            x, y = np.asarray(x), np.asarray(y)
+            bad += int((x != y).sum()) if x.shape == y.shape else x.size
+        return bad
+
+    # (k) one NCCL rank
+    cmesh = make_mesh(chains=1, device_type=dev.type)
+    for cname, (state, dim, run) in sampler_calls(dev, SHARDED_STEPS).items():
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = run(state)
+        torch.cuda.synchronize()
+        wall_1 = time.perf_counter() - t0
+        launched = launched_now()
+        in_gather = []
+        gather = coll.gather
+
+        def timed_gather(t, g, d):
+            t1 = time.perf_counter()
+            out = gather(t, g, d)
+            torch.cuda.synchronize()
+            in_gather.append(time.perf_counter() - t1)
+            return out
+        placed = pmesh.as_dtensor(pmesh.local_block(state, cmesh,
+                                                    {dim: "chains"}),
+                                  cmesh, {dim: "chains"}, tuple(state.shape))
+        coll.gather = timed_gather
+        _build.reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = run(placed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            coll.gather = gather
+        launched_sh = launched_now()
+        w, g_ = flat_outputs(want), flat_outputs(got)
+        bad = differing(w, g_)
+        emit({"phase": "parallel", "check": "one_rank_nccl_samplers",
+              "call": cname, "shape": list(state.shape), "sharded_dim": dim,
+              "steps": SHARDED_STEPS, "mismatched": bad,
+              "outputs": len(w), "launches": launched_sh,
+              "wall_s": wall, "unsharded_wall_s": wall_1,
+              "gathers": len(in_gather),
+              "gather_share": sum(in_gather) / wall,
+              "card": name, "power_limit": power})
+        check(bad == 0,
+              f"{cname} on a one-rank NCCL mesh equals the unsharded call")
+        check(launched_sh == sharded_launches(cname, launched),
+              f"{cname} on one rank launched {launched_sh}, the unsharded "
+              f"call {launched}")
+
+    # (l) gloo ranks sharing the card
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(card_sampler_rank, PARALLEL_RANKS, dev.type,
+                             args=(GLOO_SAMPLER_STEPS,))
+    rank_seconds = time.perf_counter() - t0
+    for cname, (state, dim, run) in sampler_calls(
+            dev, GLOO_SAMPLER_STEPS).items():
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = flat_outputs(run(state))
+        torch.cuda.synchronize()
+        wall_1 = time.perf_counter() - t1
+        launched = sharded_launches(cname, launched_now())
+        got, _, wall = ranks[0][cname]
+        bad = differing(want, got)
+        rec = {"phase": "parallel", "check": "gloo_ranks_samplers",
+               "call": cname, "ranks": PARALLEL_RANKS,
+               "steps": GLOO_SAMPLER_STEPS, "mismatched": bad,
+               "wall_s_rank0": wall, "unsharded_wall_s": wall_1,
+               "launches_each_rank": [r[cname][1] for r in ranks]}
+        if cname == "sa.anneal dense":
+            from montecarlosolvers_tpu_torch.models import instances
+
+            dp = instances.sk_model(DENSE_N, rng=0, device=dev)[0]
+            e_sh, e_1 = (dp.energy(torch.as_tensor(x, device=dev).float()
+                                   ).double().cpu().numpy() / DENSE_N
+                         for x in (got[0], want[0]))
+            se = float(np.sqrt(e_sh.var() / e_sh.size
+                               + e_1.var() / e_1.size))
+            rec.update({"energy_per_spin": float(e_sh.mean()),
+                        "unsharded_energy_per_spin": float(e_1.mean()),
+                        "standard_error": se})
+            emit(rec)
+            check(abs(e_sh.mean() - e_1.mean()) <= 4 * se + 1e-6,
+                  "the gloo ranks' dense anneal within 4 standard errors "
+                  "of the single-device run")
+        else:
+            emit(rec)
+            check(bad == 0, f"{PARALLEL_RANKS} gloo ranks' {cname} equals "
+                            "the single-device call")
+        check(all(r[cname][1] == launched for r in ranks),
+              f"each gloo rank's {cname} launched {launched}")
+    sent = ranks[0]["pa_gather_bytes"]
+    emit({"phase": "parallel", "check": "gloo_pa_gathered_bytes",
+          "ranks": PARALLEL_RANKS, "replicas": PA_READS,
+          "steps": GLOO_SAMPLER_STEPS, "gathers": len(sent),
+          "bytes_sent_by_rank0": int(sum(sent)),
+          "bytes_a_step_each_rank": sum(sent) / GLOO_SAMPLER_STEPS,
+          "bytes_a_step_all_ranks": PARALLEL_RANKS * sum(sent)
+          / GLOO_SAMPLER_STEPS, "seconds": rank_seconds})
+
+
 def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
                     name):
     """parallel: the parallel layer's chain and Trotter axes on the card.
@@ -4501,7 +4947,11 @@ def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
     printed, exact launches; (f) S5-S7 against their plain versions
     (`shard_rest_checks`); (g) the sharded bath, Wolff and SW engines on
     the one-rank mesh (`one_rank_rest`); (h) on the gloo ranks
-    (`gloo_rest`); (i) dryrun.dryrun_multichip(PARALLEL_RANKS).
+    (`gloo_rest`); (j) the samplers' five kernel offsets
+    (`sampler_offset_checks`); (k) and (l) the sharded samplers and
+    non-cluster engines on the one-rank mesh and the gloo ranks
+    (`sampler_sharding_checks`); (i) and (m)
+    dryrun.dryrun_multichip(PARALLEL_RANKS), JAX's legs 5-6b among them.
     """
     import torch.distributed as dist
     from montecarlosolvers_tpu_torch import schedules
@@ -4858,7 +5308,16 @@ def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
     # (h) the rest of the Trotter axis on the gloo ranks
     gloo_rest(dev, torus, power, name)
 
-    # (i) the dry run, legs 3c, 3d and 4 among them
+    # (j) the five kernels the sharded samplers add offsets to
+    t0 = time.perf_counter()
+    sampler_offset_checks(dev, torus, odd_torus, power, name)
+    # (k) the sharded samplers and non-cluster engines on the one-rank
+    # NCCL mesh, (l) on the gloo ranks
+    sampler_sharding_checks(dev, power, name)
+    emit({"phase": "parallel", "check": "samplers_slice_seconds",
+          "seconds": time.perf_counter() - t0})
+
+    # (i) and (m): the dry run, legs 3c, 3d, 4, 5, 5b, 6 and 6b among them
     t0 = time.perf_counter()
     legs = dryrun.dryrun_multichip(PARALLEL_RANKS, dev.type)
     emit({"phase": "parallel", "check": "dryrun_multichip",

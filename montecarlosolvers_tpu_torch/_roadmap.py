@@ -3,11 +3,12 @@ queued: every refusal in the port names its ROADMAP.md item through here."""
 
 from __future__ import annotations
 
-# The parallel layer's chain and Trotter axes are ported (queue 1, items 3
-# and 4, done: montecarlosolvers_tpu_torch/parallel/); the rest of it (the
-# disorder axis, rung-sharded PT, chain sharding of the other engines) is
-# item 5.
-SHARDED = "queue 1, item 5 (the rest of the parallel layer)"
+# The parallel layer's chain and Trotter axes (queue 1, items 3 and 4) and
+# the chain sharding of the samplers and the non-cluster engines (item 5)
+# are ported: montecarlosolvers_tpu_torch/parallel/. The rest of it (chain
+# sharding of the cluster engines, the disorder axis, multihost, and the
+# masked lattice engine) is item 6.
+SHARDED = "queue 1, item 6 (the rest of the parallel layer)"
 
 
 def require_problem(problem, sparse_only=None):
@@ -58,6 +59,6 @@ def is_sharded(x):
 def refuse_sharded(what, *states):
     """Raise `not_ported(what on a sharded state, SHARDED)` when any of
     `states` is a DTensor: the engines whose chain sharding is still
-    queued at ROADMAP.md queue 1, item 5."""
+    queued at ROADMAP.md queue 1, item 6."""
     if any(is_sharded(s) for s in states):
         raise not_ported(f"{what} on a sharded (DTensor) state", SHARDED)

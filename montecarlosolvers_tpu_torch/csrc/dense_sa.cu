@@ -54,7 +54,8 @@ dense_sa_block_kernel(const float* __restrict__ J,
                       const float* __restrict__ fb,
                       const float* __restrict__ temps, float* s, int chains,
                       int np, int start, int B, int row, int step,
-                      uint32_t seed_term, int stride_t, int stride_c) {
+                      uint32_t seed_term, int stride_t, int stride_c,
+                      uint32_t chain0) {
   extern __shared__ float tile[];  // B x B: tile[r * B + c] = J[start+r,
                                    // start+c]
   for (int idx = threadIdx.x; idx < B * B; idx += blockDim.x) {
@@ -73,7 +74,9 @@ dense_sa_block_kernel(const float* __restrict__ J,
   const uint32_t ctr = mcs::counter(seed_term, step, 0);
   float* sc = s + static_cast<size_t>(chain) * np + start;
   const float* fc = fb + static_cast<size_t>(chain) * B;
-  const uint32_t uid0 = static_cast<uint32_t>(chain) *
+  // uid = chain*Np + start + k, the chain counted from chain0 (the first
+  // chain of a chain shard)
+  const uint32_t uid0 = (chain0 + static_cast<uint32_t>(chain)) *
                             static_cast<uint32_t>(np) +
                         static_cast<uint32_t>(start);
   float f[kPerLane], sp[kPerLane], th[kPerLane];
@@ -124,14 +127,16 @@ dense_sa_block_kernel(const float* __restrict__ J,
 // s (chains, np), in place: J (np, np) the padded couplings, fb (chains, B)
 // the block's fields, temps the schedule, read at `row` (stride_c != 0: a
 // temperature per chain, temps[row * stride_t + chain * stride_c]); `step`
-// the sweep the hash counts. `warps` chains a CTA of warps * 32 threads
-// (<= 256), B * B floats of dynamic shared memory. All device pointers;
-// launches on `stream` and returns cudaGetLastError().
+// the sweep the hash counts; chain0 the global index of the first chain,
+// which the uids count from (a chain shard; 0 unsharded). `warps` chains a
+// CTA of warps * 32 threads (<= 256), B * B floats of dynamic shared
+// memory. All device pointers; launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int dense_sa_block(const float* J, const float* fb,
                               const float* temps, float* s, int chains,
                               int np, int start, int B, int row, int step,
                               int seed, int warps, int stride_t,
-                              int stride_c, void* stream) {
+                              int stride_c, int chain0, void* stream) {
   if (chains == 0 || B == 0) return cudaSuccess;
   if (B > kMaxBlock || warps < 1 || warps > 8) return cudaErrorInvalidValue;
   const size_t smem = static_cast<size_t>(B) * B * sizeof(float);
@@ -145,7 +150,7 @@ extern "C" int dense_sa_block(const float* J, const float* fb,
   const int grid = (chains + warps - 1) / warps;
   kernel<<<grid, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       J, fb, temps, s, chains, np, start, B, row, step, seed_term, stride_t,
-      stride_c);
+      stride_c, static_cast<uint32_t>(chain0));
   return cudaGetLastError();
 }
 

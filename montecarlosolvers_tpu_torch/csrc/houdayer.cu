@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(1024)
 houdayer_kernel(const int* __restrict__ nbr_idx,
                 const float* __restrict__ nbr_J, float* s1, float* s2,
                 int* __restrict__ flipped, int* parent_g, int n, int maxnb,
-                uint32_t seed_term, int step, int use_smem) {
+                uint32_t seed_term, int step, int use_smem, uint32_t pair0) {
   extern __shared__ int dyn[];
   __shared__ int count;
   const int pair = blockIdx.x;
@@ -82,7 +82,10 @@ houdayer_kernel(const int* __restrict__ nbr_idx,
   // every q = -1 component flips in both replicas on its least id's coin
   const uint32_t ctr =
       mcs::counter(seed_term, step, kSamplerIndex + kHoudayerCoin);
-  const uint32_t uid0 = static_cast<uint32_t>(pair) * static_cast<uint32_t>(n);
+  // uid = pair*n + label, the pair counted from pair0 (the first pair of a
+  // rung block of a sharded ladder)
+  const uint32_t uid0 =
+      (pair0 + static_cast<uint32_t>(pair)) * static_cast<uint32_t>(n);
   int mine = 0;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const float ai = a[i], bi = b[i];
@@ -105,13 +108,15 @@ houdayer_kernel(const int* __restrict__ nbr_idx,
 // the table nbr_idx / nbr_J (n, maxnb) in the problem's generic order, the
 // coins at counter(seed, step, SAMPLER_INDEX + HOUDAYER), flipped (pairs,)
 // int32 out. With use_smem the parents live in shared memory (n * 4 bytes);
-// else parents (pairs, n) int32 is device scratch. All device pointers;
-// launches on `stream` and returns cudaGetLastError().
+// else parents (pairs, n) int32 is device scratch. pair0: the global index
+// of the first pair, which the coins' uids count from (a rung block of a
+// sharded ladder; 0 unsharded). All device pointers; launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int houdayer_move(const int* nbr_idx, const float* nbr_J,
                              float* s1, float* s2, int* flipped,
                              int* parents, int pairs, int n, int maxnb,
                              int seed, int step, int use_smem, int threads,
-                             void* stream) {
+                             int pair0, void* stream) {
   if (pairs == 0 || n == 0) return cudaSuccess;
   if (!use_smem && parents == nullptr) return cudaErrorInvalidValue;
   const size_t smem = use_smem ? static_cast<size_t>(n) * sizeof(int) : 0;
@@ -123,7 +128,7 @@ extern "C" int houdayer_move(const int* nbr_idx, const float* nbr_J,
   houdayer_kernel<<<pairs, threads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       nbr_idx, nbr_J, s1, s2, flipped, parents, n, maxnb, seed_term, step,
-      use_smem);
+      use_smem, static_cast<uint32_t>(pair0));
   return cudaGetLastError();
 }
 

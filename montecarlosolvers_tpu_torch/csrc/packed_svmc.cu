@@ -60,7 +60,7 @@ packed_svmc_kernel(const int* __restrict__ nbr_idx,
                    float* cs, float* sn, float* __restrict__ energies,
                    int chains, int n, int maxnb, int ncolors, int steps,
                    uint32_t seed_term, int j_stride, int h_stride,
-                   int mcsteps) {
+                   int mcsteps, uint32_t chain0) {
   __shared__ float red[mcs::kPackedThreads / 32];
   const int chain = blockIdx.x;
   const size_t base = static_cast<size_t>(chain) * n;
@@ -71,8 +71,11 @@ packed_svmc_kernel(const int* __restrict__ nbr_idx,
     sincosf(th[i], sn + i, cs + i);
   }
   __syncthreads();
-  const uint32_t uid0 =
-      static_cast<uint32_t>(chain) * static_cast<uint32_t>(n);
+  // uid = chain*n + perm[i], the chain counted from chain0 (the first chain
+  // of a chain shard; the acceptance counter is XORed, so the offset is no
+  // seed-term offset)
+  const uint32_t uid0 = (chain0 + static_cast<uint32_t>(chain)) *
+                        static_cast<uint32_t>(n);
   for (int t = 0; t < steps; ++t) {
     const float a = __ldg(a_sched + t);
     const float b = __ldg(b_sched + t);
@@ -120,8 +123,10 @@ packed_svmc_kernel(const int* __restrict__ nbr_idx,
 // floats for the cos and sin caches; the packed layout's nbr_idx / nbr_J
 // (n, maxnb), h (n), perm (n), starts (ncolors + 1); tf != 0 selects the
 // TF proposals; energies: a (steps, chains) float32 buffer or null;
-// j_stride, h_stride, mcsteps: 0, 0, 1 for the static tables (above). All
-// device pointers; launches on `stream` and returns cudaGetLastError().
+// j_stride, h_stride, mcsteps: 0, 0, 1 for the static tables (above);
+// chain0: the global index of the first chain, which the uids count from (a
+// chain shard; 0 unsharded). All device pointers; launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int packed_svmc_anneal(const int* nbr_idx, const float* nbr_J,
                                   const float* h, const int* perm,
                                   const int* starts, const float* a_sched,
@@ -130,7 +135,7 @@ extern "C" int packed_svmc_anneal(const int* nbr_idx, const float* nbr_J,
                                   int n, int maxnb, int ncolors, int steps,
                                   int seed, int tf, int threads,
                                   int j_stride, int h_stride, int mcsteps,
-                                  void* stream) {
+                                  int chain0, void* stream) {
   if (chains == 0 || n == 0) return cudaSuccess;
   if (mcsteps < 1) return cudaErrorInvalidValue;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
@@ -140,7 +145,7 @@ extern "C" int packed_svmc_anneal(const int* nbr_idx, const float* nbr_J,
   kernel<<<chains, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       nbr_idx, nbr_J, h, perm, starts, a_sched, b_sched, temp, th, cs, sn,
       energies, chains, n, maxnb, ncolors, steps, seed_term, j_stride,
-      h_stride, mcsteps);
+      h_stride, mcsteps, static_cast<uint32_t>(chain0));
   return cudaGetLastError();
 }
 

@@ -89,7 +89,7 @@ plane_svmc_kernel(const float* __restrict__ w,
                   const float* __restrict__ b_sched, float temp,
                   const float* __restrict__ th_in, float* __restrict__ th_out,
                   int R, int L, uint32_t row_stride, uint32_t plane_stride,
-                  int steps, uint32_t seed_term) {
+                  int steps, uint32_t seed_term, uint32_t chain0) {
   extern __shared__ uint32_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = L * L;
@@ -112,8 +112,9 @@ plane_svmc_kernel(const float* __restrict__ w,
   cluster.sync();  // every band is loaded before any is read
 
   const bool odd = L & 1;  // the wrap neighbours have the site's color
-  // uid = chain*R*C + r*C + c, wrapping as the int32 JAX code does
-  const uint32_t uid0 = static_cast<uint32_t>(chain) * plane_stride;
+  // uid = chain*R*C + r*C + c, wrapping as the int32 JAX code does, the
+  // chain counted from chain0 (the first chain of a chain shard)
+  const uint32_t uid0 = (chain0 + static_cast<uint32_t>(chain)) * plane_stride;
   for (int t = 0; t < steps; ++t) {
     const float a = a_sched[t];
     const float b = b_sched[t];
@@ -212,7 +213,7 @@ svmc_plane_phase_kernel(const float* __restrict__ w,
                         const float* __restrict__ src,
                         float* __restrict__ dst, int L, uint32_t row_stride,
                         uint32_t plane_stride, int color, int t, int xblocks,
-                        uint32_t seed_term) {
+                        uint32_t seed_term, uint32_t chain0) {
   const int n = L * L;
   const int chain = blockIdx.x / xblocks;
   const int i = (blockIdx.x - chain * xblocks) * blockDim.x + threadIdx.x;
@@ -228,8 +229,9 @@ svmc_plane_phase_kernel(const float* __restrict__ w,
   const float a = a_sched[t];
   const float b = b_sched[t];
   const float width = kTF ? mcs::tf_width(a, b) : 0.0f;
-  // uid = chain*R*C + r*C + c, wrapping as the int32 JAX code does
-  const uint32_t uid = static_cast<uint32_t>(chain) * plane_stride +
+  // uid = chain*R*C + r*C + c, wrapping as the int32 JAX code does, the
+  // chain counted from chain0
+  const uint32_t uid = (chain0 + static_cast<uint32_t>(chain)) * plane_stride +
                        static_cast<uint32_t>(r) * row_stride +
                        static_cast<uint32_t>(c);
   const float theta = th[at];
@@ -254,14 +256,20 @@ svmc_plane_phase_kernel(const float* __restrict__ w,
 // at temperature `temp` in one launch, each chain over a cluster of R CTAs
 // of `threads` threads. w: (5, L, L) planes jr, jl, jd, ju, h; th_in,
 // th_out: (chains, L, L); all float32 device pointers. row_stride = C and
-// plane_stride = R*C are the uid strides; tf != 0 selects the TF proposals.
-// Launches on `stream` and returns cudaGetLastError().
+// plane_stride = R*C are the uid strides; tf != 0 selects the TF proposals;
+// chain0: the global index of the first chain, which the uids count from (a
+// chain shard; 0 unsharded). Launches on `stream` and returns
+// cudaGetLastError().
+//
+// chain0 reaches the kernels, unlike plane_sa.cu's: the acceptance counter
+// is XORed (svmc_accept_counter), so a uid offset is no seed-term offset.
 extern "C" int plane_svmc_anneal(const float* w, const float* a_sched,
                                  const float* b_sched, float temp,
                                  const float* th_in, float* th_out,
                                  int chains, int R, int threads, int L,
                                  int row_stride, int plane_stride, int steps,
-                                 int seed, int tf, void* stream) {
+                                 int seed, int tf, int chain0,
+                                 void* stream) {
   if (chains == 0 || L == 0) return cudaSuccess;
   auto kernel = tf ? plane_svmc_kernel<true> : plane_svmc_kernel<false>;
   cudaLaunchConfig_t cfg;
@@ -275,7 +283,7 @@ extern "C" int plane_svmc_anneal(const float* w, const float* a_sched,
   e = cudaLaunchKernelEx(&cfg, kernel, w, a_sched, b_sched, temp, th_in,
                          th_out, R, L, static_cast<uint32_t>(row_stride),
                          static_cast<uint32_t>(plane_stride), steps,
-                         seed_term);
+                         seed_term, static_cast<uint32_t>(chain0));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -292,9 +300,10 @@ extern "C" int plane_svmc_max_active_clusters(int R, int threads, int L,
 // The same anneal on the per-phase kernels: th_in is copied to th_out,
 // which is then updated in place beside the caches in `scratch` (3 *
 // chains * L * L floats: sin theta and cos theta twice), one launch to fill
-// them and one a phase. Stores the number of kernels it launched in
-// *launched (a host pointer); returns the first launch error, checked after
-// the first step, or cudaGetLastError() at the end.
+// them and one a phase; chain0 as for plane_svmc_anneal. Stores the number
+// of kernels it launched in *launched (a host pointer); returns the first
+// launch error, checked after the first step, or cudaGetLastError() at the
+// end.
 // With `energies` (a (steps, chains) float32 device buffer; null: none),
 // the energy kernel (energy.cuh) writes each chain's energy of sign(cos theta) after
 // every step into row t, one launch a step, counted in *energy_launched (a
@@ -305,7 +314,8 @@ extern "C" int plane_svmc_phased_anneal(const float* w, const float* a_sched,
                                         float* scratch, int chains, int L,
                                         int row_stride, int plane_stride,
                                         int steps, int seed, int tf,
-                                        float* energies, void* stream,
+                                        int chain0, float* energies,
+                                        void* stream,
                                         long long* launched,
                                         long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -333,7 +343,8 @@ extern "C" int plane_svmc_phased_anneal(const float* w, const float* a_sched,
       kernel<<<grid, kThreads, 0, st>>>(
           w, a_sched, b_sched, temp, th_out, sn, cs[src], cs[1 - src], L,
           static_cast<uint32_t>(row_stride),
-          static_cast<uint32_t>(plane_stride), color, t, xblocks, seed_term);
+          static_cast<uint32_t>(plane_stride), color, t, xblocks, seed_term,
+          static_cast<uint32_t>(chain0));
       *launched += 1;
       src = 1 - src;
     }

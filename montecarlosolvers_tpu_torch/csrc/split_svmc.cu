@@ -284,6 +284,13 @@ svmc_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
   }
 }
 
+// The seed-term offset of a chain shard from chain0: chain0*2Nh*kGolden,
+// the uid offset chain0*2Nh times the hash's multiplier (split_svmc_anneal).
+uint32_t chain_term(int chain0, int L) {
+  return static_cast<uint32_t>(chain0) * 2u *
+         static_cast<uint32_t>(L * (L / 2)) * mcs::kGolden;
+}
+
 }  // namespace
 
 // Anneal `chains` chains over the (steps,) schedules A and B at temperature
@@ -291,16 +298,23 @@ svmc_phase_kernel(const float* __restrict__ w, const float* __restrict__ h,
 // threads. w: (nslots, 2, nh), h: (2, nh), angle halves (chains, nh) with
 // nh = L*L/2; all float32 device pointers. tf != 0 selects the TF
 // proposals, hw_rng != 0 the uniforms of each thread's stream (hw_rng.cuh).
+// chain0: the global index of the first chain, which the hash's uids count
+// from (a chain shard of a longer batch; 0 unsharded; the hash only).
 // Launches on `stream` and returns cudaGetLastError().
+//
+// chain0 never reaches the kernels: the hash inputs uid*kGolden + ctr have
+// no XOR, so a uid offset of chain0*2Nh is the seed-term offset
+// chain0*2Nh*kGolden (mod 2^32), as in split_sa.cu.
 extern "C" int split_svmc_anneal(const float* w, const float* h,
                                  const float* a_sched, const float* b_sched,
                                  float temp, const float* a_in,
                                  const float* b_in, float* a_out,
                                  float* b_out, int chains, int R,
                                  int threads, int L, int nslots, int steps,
-                                 int seed, int tf, int hw_rng,
+                                 int seed, int tf, int hw_rng, int chain0,
                                  void* stream) {
   if (chains == 0 || L == 0) return cudaSuccess;
+  if (hw_rng && chain0 != 0) return cudaErrorInvalidValue;
   const auto kernel =
       hw_rng ? kernel_for<true>(tf, nslots) : kernel_for<false>(tf, nslots);
   cudaLaunchConfig_t cfg;
@@ -310,7 +324,8 @@ extern "C" int split_svmc_anneal(const float* w, const float* h,
                                       static_cast<cudaStream_t>(stream),
                                       &cfg, &attr);
   if (e != cudaSuccess) return e;
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const uint32_t seed_term =
+      static_cast<uint32_t>(seed) * mcs::kSeedMult + chain_term(chain0, L);
   e = cudaLaunchKernelEx(&cfg, kernel, w, h, a_sched, b_sched, temp, a_in,
                          b_in, a_out, b_out, R, L, steps, seed_term);
   if (e != cudaSuccess) return e;
@@ -329,8 +344,8 @@ extern "C" int split_svmc_max_active_clusters(int R, int threads, int L,
 // The same anneal on the per-phase kernels, the state in device memory:
 // the angles are copied to a_out, b_out and updated there in place beside
 // their cos and sin caches in `scratch` (4 * chains * nh floats: cos a,
-// cos b, sin a, sin b), one launch to fill them and two a step; tf and
-// hw_rng as for split_svmc_anneal. Stores the number of kernels it
+// cos b, sin a, sin b), one launch to fill them and two a step; tf,
+// hw_rng and chain0 as for split_svmc_anneal. Stores the number of kernels it
 // launched in *launched (a host pointer); returns the first launch error,
 // checked after the first step, or cudaGetLastError() at the end.
 // With `energies` (a (steps, chains) float32 device buffer; null: none),
@@ -344,13 +359,14 @@ extern "C" int split_svmc_phased_anneal(const float* w, const float* h,
                                         float* a_out, float* b_out,
                                         float* scratch, int chains, int L,
                                         int nslots, int steps, int seed,
-                                        int tf, int hw_rng,
+                                        int tf, int hw_rng, int chain0,
                                         float* energies, void* stream,
                                         long long* launched,
                                         long long* energy_launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
   *energy_launched = 0;
+  if (hw_rng && chain0 != 0) return cudaErrorInvalidValue;
   const int K = L / 2;
   const int nh = L * K;
   const size_t n = static_cast<size_t>(chains) * nh;
@@ -368,7 +384,8 @@ extern "C" int split_svmc_phased_anneal(const float* w, const float* h,
                              : svmc_phase_kernel<false, true>)
                        : (tf ? svmc_phase_kernel<true, false>
                              : svmc_phase_kernel<false, false>);
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const uint32_t seed_term =
+      static_cast<uint32_t>(seed) * mcs::kSeedMult + chain_term(chain0, L);
   const int xblocks = (nh + kThreads - 1) / kThreads;
   const dim3 grid(static_cast<unsigned>(xblocks) * chains);
   for (int t = 0; t < steps; ++t) {

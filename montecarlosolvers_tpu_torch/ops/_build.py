@@ -166,34 +166,35 @@ SIGNATURES = {
     },
     "split_svmc": {
         # w, h, a_sched, b_sched, temp, a_in, b_in, a_out, b_out,
-        # chains, R, threads, L, nslots, steps, seed, tf, hw_rng, stream
+        # chains, R, threads, L, nslots, steps, seed, tf, hw_rng, chain0,
+        # stream
         "split_svmc_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 4 + [_I] * 9 + [_P]
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 4 + [_I] * 10 + [_P]
         ),
         # R, threads, L, out: clusters resident at once
         "split_svmc_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         # the per-phase kernels: w, h, a_sched, b_sched, temp, a_in, b_in,
         # a_out, b_out, scratch, chains, L, nslots, steps, seed, tf, hw_rng,
-        # energies, stream, launched, energy_launched
+        # chain0, energies, stream, launched, energy_launched
         "split_svmc_phased_anneal": (
-            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 5 + [_I] * 7
+            _I, [_P] * 4 + [ctypes.c_float] + [_P] * 5 + [_I] * 8
             + _PHASED_TAIL
         ),
         "split_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "plane_svmc": {
         # planes, a_sched, b_sched, temp, th_in, th_out, chains, R, threads,
-        # L, row_stride, plane_stride, steps, seed, tf, stream
+        # L, row_stride, plane_stride, steps, seed, tf, chain0, stream
         "plane_svmc_anneal": (
-            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 2 + [_I] * 9 + [_P]
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 2 + [_I] * 10 + [_P]
         ),
         # R, threads, L, out: clusters resident at once
         "plane_svmc_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         # the per-phase kernels: planes, a_sched, b_sched, temp, th_in,
         # th_out, scratch, chains, L, row_stride, plane_stride, steps, seed,
-        # tf, energies, stream, launched, energy_launched
+        # tf, chain0, energies, stream, launched, energy_launched
         "plane_svmc_phased_anneal": (
-            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 7
+            _I, [_P] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 8
             + _PHASED_TAIL
         ),
         "plane_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
@@ -212,9 +213,9 @@ SIGNATURES = {
     "packed_svmc": {
         # nbr_idx, nbr_J, h, perm, starts, a_sched, b_sched, temp, th (in
         # place), scratch, energies, chains, n, maxnb, ncolors, steps, seed,
-        # tf, threads, j_stride, h_stride, mcsteps, stream
+        # tf, threads, j_stride, h_stride, mcsteps, chain0, stream
         "packed_svmc_anneal": (
-            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 3 + [_I] * 11 + [_P]
+            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 3 + [_I] * 12 + [_P]
         ),
         "packed_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -262,8 +263,8 @@ SIGNATURES = {
     "dense_sa": {
         # J, fb, temps, s (in place), chains, np, start, B, row (of the
         # temperature table), step (of the hash), seed, warps, stride_t,
-        # stride_c, stream
-        "dense_sa_block": (_I, [_P] * 4 + [_I] * 10 + [_P]),
+        # stride_c, chain0, stream
+        "dense_sa_block": (_I, [_P] * 4 + [_I] * 11 + [_P]),
         "dense_sa_block_error_string": (ctypes.c_char_p, [_I]),
     },
     "fk_wolff": {
@@ -307,8 +308,8 @@ SIGNATURES = {
     "houdayer": {
         # nbr_idx, nbr_J, s1, s2 (in place), flipped (out), parents
         # (scratch, null with smem), pairs, n, maxnb, seed, step, smem,
-        # threads, stream
-        "houdayer_move": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+        # threads, pair0, stream
+        "houdayer_move": (_I, [_P] * 6 + [_I] * 8 + [_P]),
         "houdayer_move_error_string": (ctypes.c_char_p, [_I]),
     },
     "energy": {

@@ -581,19 +581,23 @@ def houdayer_sweep(problem, s1, s2, coins, jump_every=0):
     return torch.where(flip, -s1, s1), torch.where(flip, -s2, s2), flip
 
 
-def houdayer_coins(seed, step, pairs, n, device):
+def houdayer_coins(seed, step, pairs, n, device, pair0=0):
     """(pairs, n) bool coins of the counter hash's HOUDAYER stream at
     `step`: uniform01(sampler_counter(seed, step, HOUDAYER), pair * n +
-    site) < 0.5, the coin of the component whose least id is `site`."""
-    u = cr.sampler_uniforms(seed, step, cr.HOUDAYER, pairs * n, device)
+    site) < 0.5, the coin of the component whose least id is `site`, the
+    pairs counted from pair0 (a rung block of a sharded ladder)."""
+    u = cr.sampler_uniforms(seed, step, cr.HOUDAYER, pairs * n, device,
+                            uid0=pair0 * n)
     return (u < 0.5).reshape(pairs, n)
 
 
-def houdayer_move_ref(problem, s1, s2, seed, step):
+def houdayer_move_ref(problem, s1, s2, seed, step, pair0=0):
     """Plain form of csrc/houdayer.cu: `houdayer_sweep` of the (pairs, N)
-    replicas s1, s2 on `houdayer_coins(seed, step)`. Returns (s1', s2',
-    flipped (pairs,) int32, the count of flipped sites a pair)."""
-    coins = houdayer_coins(seed, step, s1.shape[0], s1.shape[1], s1.device)
+    replicas s1, s2 on `houdayer_coins(seed, step, pair0=pair0)`. Returns
+    (s1', s2', flipped (pairs,) int32, the count of flipped sites a
+    pair)."""
+    coins = houdayer_coins(seed, step, s1.shape[0], s1.shape[1], s1.device,
+                           pair0)
     a, b, flip = houdayer_sweep(problem, s1, s2, coins)
     return a, b, flip.sum(-1, dtype=torch.int32)
 

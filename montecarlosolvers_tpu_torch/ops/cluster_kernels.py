@@ -172,14 +172,16 @@ def sw_anneal(pg, b_sched, jp, teff, confs, seed, lookuptable=None, step0=0,
     return out
 
 
-def houdayer_move(problem, s1, s2, seed, step):
+def houdayer_move(problem, s1, s2, seed, step, pair0=0):
     """csrc/houdayer.cu on CUDA tensors, `cluster.houdayer_move_ref` on CPU
     tensors: one Houdayer move of the (pairs, N) replicas s1, s2 (sites in
     the IsingProblem's own order; a lattice's to_generic()) on the coins of
-    the HOUDAYER stream at `step`. Returns (s1', s2', flipped (pairs,)
-    int32). One launch (LAUNCHES["houdayer"])."""
+    the HOUDAYER stream at `step`, the pairs counted from pair0 (a rung
+    block of a sharded ladder moves the whole ladder's pairs of its
+    rungs). Returns (s1', s2', flipped (pairs,) int32). One launch
+    (LAUNCHES["houdayer"])."""
     if _build.route(s1.device, "cluster") == "cpu":
-        return cl.houdayer_move_ref(problem, s1, s2, seed, step)
+        return cl.houdayer_move_ref(problem, s1, s2, seed, step, pair0)
     pairs, n = s1.shape
     dev = s1.device
     maxnb = problem.nbr_idx.shape[1]
@@ -199,7 +201,7 @@ def houdayer_move(problem, s1, s2, seed, step):
         _build.ptr(a), _build.ptr(b), _build.ptr(flipped),
         None if parent is None else _build.ptr(parent), pairs, n, maxnb,
         cr.wrap_int32(seed), int(step), int(smem), HOUDAYER_THREADS,
-        _build.stream_of(dev))
+        int(pair0), _build.stream_of(dev))
     _build.raise_on_error(lib, "houdayer_move", rc)
     _build.LAUNCHES["houdayer"] += 1
     return a, b, flipped

@@ -179,10 +179,11 @@ def sampler_counter(seed, step, stream):
     return counter(seed, step, SAMPLER_INDEX + stream)
 
 
-def sampler_uniforms(seed, step, stream, n, device):
+def sampler_uniforms(seed, step, stream, n, device, uid0=0):
     """(n,) float32 uniforms of sampler stream `stream` at `step`, uids
-    0..n-1 (the table's layouts are all flat indices)."""
-    uid = torch.arange(n, dtype=torch.int32, device=device)
+    uid0..uid0+n-1 (the table's layouts are all flat indices; uid0 > 0 is
+    a block of a longer table), wrapping as int32."""
+    uid = _chains(n, uid0, device)
     return uniform01(sampler_counter(seed, step, stream), uid)
 
 

@@ -45,10 +45,11 @@ WARPS, MAX_BLOCK = 8, 128
 PERM_INDEX = 1
 
 
-def block_uniforms(seed, step, chains, np_, start, B, device):
+def block_uniforms(seed, step, chains, np_, start, B, device, chain0=0):
     """(chains, B) uniforms of the block at `start` in sweep `step`:
-    uniform01(counter(seed, step, 0), chain * Np + start + j)."""
-    chain = torch.arange(chains, dtype=torch.int32, device=device)[:, None]
+    uniform01(counter(seed, step, 0), chain * Np + start + j), the chains
+    counted from chain0 (a chain shard)."""
+    chain = cr._chains(chains, chain0, device)[:, None]
     pos = torch.arange(start, start + B, dtype=torch.int32,
                        device=device)[None, :]
     return cr.uniform01(cr.counter(seed, step, 0), chain * np_ + pos)
@@ -62,27 +63,30 @@ def visit_order(seed, step, n, device):
     return torch.sort(keys, stable=True).indices
 
 
-def dense_sa_block_ref(s, fb, J, start, temps, step, seed, step0=0):
+def dense_sa_block_ref(s, fb, J, start, temps, step, seed, step0=0,
+                       chain0=0):
     """Plain form of csrc/dense_sa.cu: the micro-steps of the block at
     `start` (`dense_sweep.block_steps`) on the uniforms of
     `block_uniforms` at sweep step0 + step, at temperature temps[step] (a
     (steps, chains) `temps` gives each chain its own), in place on padded
     (chains, Np) spins `s`; fb (chains, B) the block's fields, J (Np, Np)
-    the padded couplings."""
+    the padded couplings; chain0 the global index of the first chain (a
+    chain shard, whose uids count from it)."""
     chains, np_ = s.shape
     u = block_uniforms(seed, step0 + step, chains, np_, start, fb.shape[1],
-                       s.device)
+                       s.device, chain0)
     return ds.block_steps(s, fb, J, start, u, temps[step])
 
 
-def dense_sa_block(s, fb, J, start, temps, step, seed, step0=0):
+def dense_sa_block(s, fb, J, start, temps, step, seed, step0=0, chain0=0):
     """csrc/dense_sa.cu on CUDA tensors, `dense_sa_block_ref` on CPU
     tensors; arguments as for the plain version (s updated in place, B =
     fb.shape[1] <= MAX_BLOCK on the card). One launch
     (LAUNCHES["dense_sa"]; with a (steps, chains) `temps`, the per-chain
     instantiation, LAUNCHES["dense_sa_chain"])."""
     if _build.route(s.device, "dense") == "cpu":
-        return dense_sa_block_ref(s, fb, J, start, temps, step, seed, step0)
+        return dense_sa_block_ref(s, fb, J, start, temps, step, seed, step0,
+                                  chain0)
     chains, np_ = s.shape
     B = fb.shape[1]
     if not 0 < B <= MAX_BLOCK:
@@ -101,19 +105,19 @@ def dense_sa_block(s, fb, J, start, temps, step, seed, step0=0):
     rc = lib.dense_sa_block(
         _build.ptr(J), _build.ptr(fb), _build.ptr(temps), _build.ptr(s),
         chains, np_, start, B, step, step0 + step, cr.wrap_int32(seed),
-        WARPS, *strides, _build.stream_of(dev))
+        WARPS, *strides, int(chain0), _build.stream_of(dev))
     _build.raise_on_error(lib, "dense_sa_block", rc)
     _build.LAUNCHES["dense_sa_chain" if strides[1] else "dense_sa"] += 1
     return s
 
 
 def _anneal(dp, temps, spins, seed, block, shuffle, matmul_dtype, energies,
-            step_fn, step0=0):
+            step_fn, step0=0, chain0=0):
     """Anneal (C, N) spins over the float32 (steps,) `temps` (or a (steps,
     C) table, a temperature a chain and sweep) with the micro-step function
     `step_fn` (`dense_sa_block` or its plain version), the hash counting
-    sweep t as step0 + t; with `energies`, a (steps, C) buffer, row t
-    receives dp.energy after sweep t."""
+    sweep t as step0 + t and the chains from chain0; with `energies`, a
+    (steps, C) buffer, row t receives dp.energy after sweep t."""
     C, N = spins.shape
     B = ds.block_size(block, N)
     J = ds.rounded(dp.J, matmul_dtype)
@@ -126,7 +130,7 @@ def _anneal(dp, temps, spins, seed, block, shuffle, matmul_dtype, energies,
                                   spins[:, perm], B)
         for start in range(0, Jp.shape[0], B):
             fb = ds.block_fields(s, Jp, hp, start, B)
-            step_fn(s, fb, Jp, start, temps, t, seed, step0)
+            step_fn(s, fb, Jp, start, temps, t, seed, step0, chain0)
         if shuffle:
             spins = torch.empty_like(spins)
             spins[:, perm] = s[:, :N]
@@ -136,33 +140,37 @@ def _anneal(dp, temps, spins, seed, block, shuffle, matmul_dtype, energies,
 
 
 def dense_sa_anneal_ref(dp, temps, spins, seed, block=128, shuffle=False,
-                        matmul_dtype=None, energies=None, step0=0):
+                        matmul_dtype=None, energies=None, step0=0,
+                        chain0=0):
     """Plain anneal of (C, N) spins on `dense_sa_block_ref`, on any device:
     what the kernel's anneal is held to."""
     return _anneal(dp, temps, spins, seed, block, shuffle, matmul_dtype,
-                   energies, dense_sa_block_ref, step0)
+                   energies, dense_sa_block_ref, step0, chain0)
 
 
 def dense_sa_anneal(dp, temps, spins, seed, block=128, shuffle=False,
-                    matmul_dtype=None, energies=None, step0=0):
+                    matmul_dtype=None, energies=None, step0=0, chain0=0):
     """Anneal of (C, N) spins on `dense_sa_block`: the kernel on a CUDA
     device, the plain version on the CPU. temps: float32 (steps,) on the
     spins' device, or a (steps, C) table (a temperature a chain: the
     per-chain instantiation); seed: int counter-hash seed; block, shuffle,
     matmul_dtype: see `ops/dense_sweep.py`; step0: the sweep the hash
-    counts sweep 0 as. Returns the new spins."""
+    counts sweep 0 as; chain0: the global index of the first chain (a
+    chain shard, whose uids count from it). Returns the new spins."""
     return _anneal(dp, temps, spins, seed, block, shuffle, matmul_dtype,
-                   energies, dense_sa_block, step0)
+                   energies, dense_sa_block, step0, chain0)
 
 
 def dense_anneal(dp, sched, spins, seed, mcsteps=1, block=128,
-                 collect_energy=False, shuffle=False, matmul_dtype=None):
+                 collect_energy=False, shuffle=False, matmul_dtype=None,
+                 chain0=0):
     """Thermal anneal on a DenseProblem (JAX `dense_anneal`,
     ops/dense_sweep.py:132): sequential-scan sweeps of (..., N) spins on
     the problem's device, any batch shape; sched (steps,) temperatures,
     mcsteps sweeps a step; collect_energy also returns the energy after
-    each sweep, (steps * mcsteps,) + batch. Returns the spins, same shape,
-    or (spins, energies)."""
+    each sweep, (steps * mcsteps,) + batch; chain0: the global index of the
+    first chain (a chain shard). Returns the spins, same shape, or (spins,
+    energies)."""
     if spins.device != dp.device:
         raise ValueError(f"spins is on {spins.device}, problem on "
                          f"{dp.device}")
@@ -171,5 +179,5 @@ def dense_anneal(dp, sched, spins, seed, mcsteps=1, block=128,
     es = energy_buffer(collect_energy, temps.shape[0], batch, dp.device)
     s = spins.to(torch.float32).reshape(math.prod(batch), dp.nspins)
     out = dense_sa_anneal(dp, temps, s, seed, block, shuffle, matmul_dtype,
-                          es)
+                          es, chain0=chain0)
     return with_energies(out.reshape(spins.shape), es, batch)

@@ -104,16 +104,17 @@ def packed_sa_anneal_ref(pg, temps, spins, seed, energies=None,
 
 
 def packed_svmc_anneal_ref(pg, a_sched, b_sched, temp, theta, seed, tf,
-                           energies=None, tables=None):
+                           energies=None, tables=None, chain0=0):
     """Plain form of csrc/packed_svmc.cu: anneal packed angles (chains, N)
     over the float32 (steps,) schedules A and B at the Python-float
     temperature `temp`, sweep t by `packed_svmc_sweep_cached` on the
     proposal uniforms of counter(seed, t, 0) and the acceptance uniforms
     of svmc_accept_counter(seed, t, 0). With `energies`, row t receives
-    each chain's energy of sign(cos theta) after sweep t; `tables` as for
-    `packed_sa_anneal_ref`."""
+    each chain's energy of sign(cos theta) after sweep t; `tables` and
+    chain0 as for `packed_sa_anneal_ref`."""
     temp32 = torch.tensor(temp, dtype=torch.float32, device=theta.device)
-    hu = cr.hashed_uid(cr.generic_uids(theta.shape[0], pg.perm, pg.nspins))
+    hu = cr.hashed_uid(cr.generic_uids(theta.shape[0], pg.perm, pg.nspins,
+                                       chain0=chain0))
     state = (theta, torch.cos(theta), torch.sin(theta))
     for t in range(a_sched.shape[0]):
         u_prop = cr.uniform01_hashed(cr.counter(seed, t, 0), hu)
@@ -277,14 +278,14 @@ def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
 
 
 def packed_svmc_anneal(pg, a_sched, b_sched, temp, theta, seed, tf,
-                       energies=None, tables=None):
+                       energies=None, tables=None, chain0=0):
     """csrc/packed_svmc.cu on CUDA tensors, `packed_svmc_anneal_ref` on CPU
     tensors; arguments as for the plain version. Returns the new angles.
     One launch (LAUNCHES["packed_svmc"], energies or not; with `tables`,
     LAUNCHES["packed_svmc_noisy"])."""
     if _build.route(theta.device, "packed") == "cpu":
         return packed_svmc_anneal_ref(pg, a_sched, b_sched, temp, theta,
-                                      seed, tf, energies, tables)
+                                      seed, tf, energies, tables, chain0)
     chains, n = theta.shape
     dev = theta.device
     steps = int(a_sched.shape[0])
@@ -301,7 +302,7 @@ def packed_svmc_anneal(pg, a_sched, b_sched, temp, theta, seed, tf,
         ctypes.c_float(temp), _build.ptr(out), _build.ptr(scratch),
         _build.energies_ptr(energies, steps, chains, dev), chains, n,
         pg.nbr_idx.shape[1], pg.num_colors, steps, cr.wrap_int32(seed),
-        int(bool(tf)), THREADS, j_stride, h_stride, mcsteps,
+        int(bool(tf)), THREADS, j_stride, h_stride, mcsteps, int(chain0),
         _build.stream_of(dev))
     _build.raise_on_error(lib, "packed_svmc_anneal", rc)
     _build.LAUNCHES["packed_svmc" if tables is None
@@ -521,22 +522,24 @@ def anneal_generic_qmc_bath(problem, a_sched, b_sched, temp, lookuptable,
 
 
 def anneal_packed_svmc(problem, a_sched, b_sched, temp, theta, seed,
-                       mcsteps=1, tf=False, collect_energy=False):
+                       mcsteps=1, tf=False, collect_energy=False, chain0=0):
     """SVMC anneal of an IsingProblem on the packed layout (counterpart of
     `ops/packed.py::packed_svmc_scan`).
 
     a_sched / b_sched: (steps,) A and B; temp: the fixed temperature;
     theta: (chains, N) or (N,) float32 angles in [0, pi] on the problem's
     device; tf: TF proposals; collect_energy: also return the energy of
-    sign(cos theta) after each sweep, (steps * mcsteps,) + batch. Returns
-    the annealed angles, same shape, or (theta, energies)."""
+    sign(cos theta) after each sweep, (steps * mcsteps,) + batch; chain0:
+    the global index of the first chain (a chain shard). Returns the
+    annealed angles, same shape, or (theta, energies)."""
     pg = _graph_of(problem, theta, "theta")
     a_s, b_s = (schedules.expand_mcsteps(x, mcsteps, problem.device)
                 for x in (a_sched, b_sched))
     batch = theta.shape[:-1]
     es = energy_buffer(collect_energy, a_s.shape[0], batch, problem.device)
     out = packed_svmc_anneal(pg, a_s, b_s, float(temp),
-                             _packed(pg, theta, pg.nspins), seed, tf, es)
+                             _packed(pg, theta, pg.nspins), seed, tf, es,
+                             chain0=chain0)
     return with_energies(packed_ops.unpack_state(pg, out).reshape(
         theta.shape), es, batch)
 
@@ -566,7 +569,7 @@ def packed_tables(pg, nbr_J_sched, h_sched, mcsteps, steps, device):
 
 
 def packed_noisy_scan(problem, temps, nbr_J_sched, h_sched, spins, seed,
-                      mcsteps=1):
+                      mcsteps=1, chain0=0):
     """Noisy SA anneal of an IsingProblem on the packed layout (JAX
     `packed_noisy_scan`, ops/packed.py:290, and `_noisy_scan` :221; the
     engine of sa.anneal_noisy): the per-step tables are permuted into
@@ -578,17 +581,20 @@ def packed_noisy_scan(problem, temps, nbr_J_sched, h_sched, spins, seed,
     each schedule step in the problem's slot layout, sweep t reading row t
     // mcsteps (the JAX solver repeats each row mcsteps times: the same
     sweeps); spins: (chains, N) or (N,) float32 +/-1 on the problem's
-    device; seed: int counter-hash seed. Returns the annealed spins."""
+    device; seed: int counter-hash seed; chain0: the global index of the
+    first chain (a chain shard; the tables are every chain's). Returns the
+    annealed spins."""
     pg = _graph_of(problem, spins, "spins")
     tables = packed_tables(pg, nbr_J_sched, h_sched, mcsteps,
                            temps.shape[0], problem.device)
     out = packed_sa_anneal(pg, temps, _packed(pg, spins, pg.nspins), seed,
-                           tables=tables)
+                           tables=tables, chain0=chain0)
     return packed_ops.unpack_state(pg, out).reshape(spins.shape)
 
 
 def packed_noisy_svmc_scan(problem, a_sched, b_sched, temp, nbr_J_sched,
-                           h_sched, theta, seed, tf=False, mcsteps=1):
+                           h_sched, theta, seed, tf=False, mcsteps=1,
+                           chain0=0):
     """Noisy SVMC anneal of an IsingProblem on the packed layout (JAX
     `packed_noisy_svmc_scan`, ops/packed.py:308, and `_noisy_svmc_scan`
     :259; NoisySVMC / NoisySVMCTF, svmc.pyx:236-448): one launch of
@@ -597,12 +603,12 @@ def packed_noisy_svmc_scan(problem, a_sched, b_sched, temp, nbr_J_sched,
 
     a_sched / b_sched: float32 (rows * mcsteps,) A and B, one a sweep;
     temp: the fixed temperature; tables, mcsteps and theta ((chains, N) or
-    (N,) angles) as for `packed_noisy_scan`; tf: TF proposals. Returns the
-    annealed angles."""
+    (N,) angles) and chain0 as for `packed_noisy_scan`; tf: TF proposals.
+    Returns the annealed angles."""
     pg = _graph_of(problem, theta, "theta")
     tables = packed_tables(pg, nbr_J_sched, h_sched, mcsteps,
                            a_sched.shape[0], problem.device)
     out = packed_svmc_anneal(pg, a_sched, b_sched, float(temp),
                              _packed(pg, theta, pg.nspins), seed, tf,
-                             tables=tables)
+                             tables=tables, chain0=chain0)
     return packed_ops.unpack_state(pg, out).reshape(theta.shape)

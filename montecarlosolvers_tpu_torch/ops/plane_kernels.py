@@ -143,7 +143,7 @@ def qmc_plane_anneal_ref(pl, b_sched, jp, teff, confs, seed, global_moves,
 
 
 def svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed, tf,
-                          energies=None):
+                          energies=None, chain0=0):
     """Plain form of kernel 7: anneal rotor angles `theta` (chains, L, L),
     in [0, pi], over the float32 (steps,) schedules A (`a_sched`) and B
     (`b_sched`) at the Python-float temperature `temp`.
@@ -160,11 +160,12 @@ def svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed, tf,
     color take their accepted proposals. With `energies`, a (steps,
     chains) float32 buffer, row t receives each chain's energy of
     sign(cos theta) after step t (`energy.plane_energy_ref`); the
-    trajectory is the same with or without it."""
+    trajectory is the same with or without it. chain0: the global index of
+    the first chain (a chain shard, whose uids count from it)."""
     chains, L = theta.shape[0], pl.L
     dev = theta.device
     temp32 = torch.tensor(temp, dtype=torch.float32, device=dev)
-    hu = cr.hashed_uid(cr.plane_uids(chains, L, dev))
+    hu = cr.hashed_uid(cr.plane_uids(chains, L, dev, chain0=chain0))
     par = plane_ops.parity(L, dev)
     th = theta
     for t in range(a_sched.shape[0]):
@@ -418,7 +419,7 @@ def qmc_plane_anneal(pl, b_sched, jp, teff, confs, seed, global_moves,
 
 
 def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf,
-                      energies=None):
+                      energies=None, chain0=0):
     """Kernel 7 on CUDA tensors, `svmc_plane_anneal_ref` on CPU tensors.
     Arguments as for `svmc_plane_anneal_ref`; returns the new angles.
 
@@ -438,10 +439,11 @@ def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf,
     shape, by that option and not by a failure, and the energy kernel
     (csrc/energy.cuh) runs after each step from the same loop
     (LAUNCHES["svmc_plane_energy"], one a step); the states are those of the
-    route without energies."""
+    route without energies. chain0: the global index of the first chain,
+    which the uids count from (a chain shard)."""
     if _build.route(theta.device, "plane") == "cpu":
         return svmc_plane_anneal_ref(pl, a_sched, b_sched, temp, theta, seed,
-                                     tf, energies)
+                                     tf, energies, chain0)
     chains, L = theta.shape[0], pl.L
     dev = theta.device
     _build.check_arg(theta, "theta", (chains, L, L), dev)
@@ -462,7 +464,7 @@ def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf,
         n, ne = ctypes.c_longlong(0), ctypes.c_longlong(0)  # launched
         rc = lib.plane_svmc_phased_anneal(
             *head, _build.ptr(scratch), chains, L, cols, rows * cols, steps,
-            cr.wrap_int32(seed), int(bool(tf)),
+            cr.wrap_int32(seed), int(bool(tf)), int(chain0),
             _build.energies_ptr(energies, steps, chains, dev),
             _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "plane_svmc_phased_anneal", rc,
@@ -472,7 +474,8 @@ def svmc_plane_anneal(pl, a_sched, b_sched, temp, theta, seed, tf,
         return out
     rc = lib.plane_svmc_anneal(
         *head, chains, *geometry, L, cols, rows * cols, steps,
-        cr.wrap_int32(seed), int(bool(tf)), _build.stream_of(dev),
+        cr.wrap_int32(seed), int(bool(tf)), int(chain0),
+        _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "plane_svmc_anneal", rc)
     _build.LAUNCHES["svmc_plane"] += 1
@@ -542,7 +545,7 @@ def anneal_lattice_qmc(problem, a_sched, b_sched, temp, confs, seed,
 
 
 def anneal_lattice_svmc(problem, a_sched, b_sched, temp, theta, seed,
-                        mcsteps=1, tf=False, collect_energy=False):
+                        mcsteps=1, tf=False, collect_energy=False, chain0=0):
     """Full-plane SVMC anneal on a LatticeProblem of any L, open or periodic
     (counterpart of `pallas_svmc.anneal_lattice_svmc`, without its TPU
     padding).
@@ -551,8 +554,9 @@ def anneal_lattice_svmc(problem, a_sched, b_sched, temp, theta, seed,
     theta: (chains, N) or (N,) float32 angles in [0, pi] on the problem's
     device; seed: int counter-hash seed; tf: TF proposals; collect_energy:
     also return the energy of sign(cos theta) after each sweep,
-    (steps * mcsteps,) + batch. Returns the annealed angles, same shape,
-    or (theta, energies)."""
+    (steps * mcsteps,) + batch; chain0: the global index of the first
+    chain (a chain shard). Returns the annealed angles, same shape, or
+    (theta, energies)."""
     pl = _planes_of(problem, theta, "theta")
     a_s, b_s = (schedules.expand_mcsteps(x, mcsteps, problem.device)
                 for x in (a_sched, b_sched))
@@ -561,5 +565,5 @@ def anneal_lattice_svmc(problem, a_sched, b_sched, temp, theta, seed,
     es = sk.energy_buffer(collect_energy, a_s.shape[0], batch,
                           problem.device)
     th = theta.to(torch.float32).reshape(-1, L, L).contiguous()
-    out = svmc_plane_anneal(pl, a_s, b_s, temp, th, seed, tf, es)
+    out = svmc_plane_anneal(pl, a_s, b_s, temp, th, seed, tf, es, chain0)
     return sk.with_energies(out.reshape(theta.shape), es, batch)

@@ -365,7 +365,7 @@ def qmc_bath_split_colored_anneal_ref(sl, b_sched, jp, teff, bath,
 
 
 def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf,
-                          hw_rng=False, energies=None):
+                          hw_rng=False, energies=None, chain0=0):
     """Plain form of kernel 4: anneal the rotor angles of halves a, b
     (chains, Nh), in [0, pi], over the float32 (steps,) schedules A
     (`a_sched`) and B (`b_sched`) at the Python-float temperature `temp`.
@@ -388,13 +388,15 @@ def svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed, tf,
     (steps, chains) float32 buffer, row t receives each chain's energy of
     sign(cos theta) after step t, read from the cos caches
     (`energy.halves_energy_ref`, ops/split.py:324-330); the trajectory is
-    the same with or without it."""
+    the same with or without it. chain0: the global index of the first
+    chain (a chain shard, whose uids count from it)."""
     chains, nh = a.shape
     K = sl.K
     dev = a.device
     draw = hw_uniforms(seed, dev) if hw_rng else None
     temp32 = torch.tensor(temp, dtype=torch.float32, device=dev)
-    hu = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev)) for c in (0, 1)]
+    hu = [cr.hashed_uid(cr.sa_uids(chains, nh, c, dev, chain0))
+          for c in (0, 1)]
     halves = [[a, torch.cos(a), torch.sin(a)], [b, torch.cos(b), torch.sin(b)]]
     for t in range(a_sched.shape[0]):
         ac, bc = a_sched[t], b_sched[t]
@@ -994,7 +996,7 @@ def qmc_bath_split_colored_anneal(sl, b_sched, jp, teff, bath, quarters,
 
 
 def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf,
-                      hw_rng=False, energies=None):
+                      hw_rng=False, energies=None, chain0=0):
     """Kernel 4 on CUDA tensors, `svmc_split_anneal_ref` on CPU tensors.
     Arguments as for `svmc_split_anneal_ref`; returns new (a, b).
 
@@ -1016,11 +1018,13 @@ def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf,
     shape, by that option and not by a failure, and the energy kernel
     (csrc/energy.cuh) runs after each step from the same loop
     (LAUNCHES["svmc_split_energy"], one a step); the states are those of the
-    route without energies. `hw_rng` collects none."""
+    route without energies. `hw_rng` collects none. chain0 as for
+    `sa_split_anneal`."""
     collect = _build.collecting(energies, hw_rng)
+    _check_chain0(chain0, hw_rng)
     if _build.route(a.device, "split") == "cpu":
         return svmc_split_anneal_ref(sl, a_sched, b_sched, temp, a, b, seed,
-                                     tf, hw_rng, energies)
+                                     tf, hw_rng, energies, chain0)
     chains, nh = a.shape
     dev = a.device
     if nh != sl.nh:
@@ -1046,7 +1050,7 @@ def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf,
         rc = lib.split_svmc_phased_anneal(
             *head, _build.ptr(scratch), chains, sl.L, sl.nslots, steps,
             cr.wrap_int32(seed), int(bool(tf)), int(bool(hw_rng)),
-            _build.energies_ptr(energies, steps, chains, dev),
+            int(chain0), _build.energies_ptr(energies, steps, chains, dev),
             _build.stream_of(dev), ctypes.byref(n), ctypes.byref(ne))
         _build.raise_on_error(lib, "split_svmc_phased_anneal", rc,
                               error_fn="split_svmc_anneal_error_string")
@@ -1055,7 +1059,7 @@ def svmc_split_anneal(sl, a_sched, b_sched, temp, a, b, seed, tf,
         return a_out, b_out
     rc = lib.split_svmc_anneal(
         *head, chains, *geometry, sl.L, sl.nslots, steps,
-        cr.wrap_int32(seed), int(bool(tf)), int(bool(hw_rng)),
+        cr.wrap_int32(seed), int(bool(tf)), int(bool(hw_rng)), int(chain0),
         _build.stream_of(dev),
     )
     _build.raise_on_error(lib, "split_svmc_anneal", rc)
@@ -1208,7 +1212,7 @@ def anneal_lattice_qmc_bath_split(problem, a_sched, b_sched, temp,
 
 def anneal_lattice_svmc_split(problem, a_sched, b_sched, temp, theta, seed,
                               mcsteps=1, tf=False, hw_rng=False,
-                              collect_energy=False):
+                              collect_energy=False, chain0=0):
     """Split-layout SVMC anneal on an even-L LatticeProblem (counterpart of
     `pallas_split.anneal_lattice_svmc_split`, without its TPU lane rules,
     `chain_block` and `chunk`).
@@ -1218,13 +1222,13 @@ def anneal_lattice_svmc_split(problem, a_sched, b_sched, temp, theta, seed,
     device; seed: int counter-hash seed; tf: TF proposals; hw_rng as for
     `anneal_lattice_split`; collect_energy: also return the energy of the
     z-projection sign(cos theta) after each sweep, (steps * mcsteps,) +
-    batch. Returns the annealed angles, same shape, or (theta,
-    energies)."""
+    batch; chain0: the global index of the first chain (a chain shard).
+    Returns the annealed angles, same shape, or (theta, energies)."""
     sl = _split_of(problem, theta, "theta")
     a_s, b_s = (schedules.expand_mcsteps(x, mcsteps, problem.device)
                 for x in (a_sched, b_sched))
     batch = theta.shape[:-1]
     es = energy_buffer(collect_energy, a_s.shape[0], batch, problem.device)
     out = _on_halves(sl, theta, lambda a, b: svmc_split_anneal(
-        sl, a_s, b_s, temp, a, b, seed, tf, hw_rng, es))
+        sl, a_s, b_s, temp, a, b, seed, tf, hw_rng, es, chain0))
     return with_energies(out, es, batch)

@@ -5,7 +5,8 @@
                in one `batch_isend_irecv` to the ring neighbours;
   axis_sum   — the sum over an axis (JAX `lax.psum`): `all_reduce`;
   gather     — the blocks of an axis put back together (JAX
-               `lax.all_gather(tiled=True)`): `all_gather`;
+               `lax.all_gather(tiled=True)`): `all_gather`; `gather_spins`
+               sends +/-1 values as int8;
   any_flag   — whether any rank raised a flag (JAX `lax.psum` of a bit,
                parallel/trotter.py:613, :782): `all_reduce` MAX of one
                int, read on the host, so that every rank runs the same
@@ -102,6 +103,13 @@ def gather(t, group, dim):
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
+
+
+def gather_spins(t, group, dim):
+    """`gather` of +/-1 values (spins, or a state's +/-1 floats) sent as
+    int8 and given back in t's dtype: the same values, a quarter of the
+    bytes of float32 (and of what gloo stages through host memory)."""
+    return gather(t.to(torch.int8), group, dim).to(t.dtype)
 
 
 def any_flag(flag, group):

@@ -32,7 +32,7 @@ from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels
 from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
 from montecarlosolvers_tpu_torch.parallel import trotter
-from montecarlosolvers_tpu_torch.solvers import qmc, sa
+from montecarlosolvers_tpu_torch.solvers import pa, pt, qmc, sa
 
 def entry(device=None):
     """(fn, example_args): one PIQMC step of the split-checkerboard engine
@@ -88,9 +88,12 @@ def legs(n_ranks, device_type):
     ground state with them; the Trotter-sharded Wolff and Swendsen-Wang
     engines with bath bonds bitwise equal to the single-device ones (JAX
     legs 3c, 3d); the sharded bath on the mesh of the generic leg giving
-    +/-1 states (leg 4). Returns {leg: (best, ground)} of the ground-state
-    legs and {leg: count} of the others (mismatched or non-spin values,
-    0)."""
+    +/-1 states (leg 4); rung-sharded PT and quantum PT (leg 5), ICM (5b),
+    population-sharded PA (6) and quantum PA (6b) bitwise equal to the
+    single-device samplers, their rates, Houdayer fractions and log_z equal
+    too (where JAX holds its sharded log_z to allclose). Returns {leg:
+    (best, ground)} of the ground-state legs and {leg: count} of the others
+    (mismatched or non-spin values, and differing rates or log_z, 0)."""
     dev = torch.device(device_type) if device_type == "cpu" else \
         torch.device("cuda", torch.cuda.current_device())
     full = pmesh.full_tensor
@@ -205,6 +208,56 @@ def legs(n_ranks, device_type):
     out["trotter_sharded_bath_spins"] = int(
         ((got != 1) & (got != -1)).sum())
     assert out["trotter_sharded_bath_spins"] == 0, "non-spin values"
+    out.update(sampler_legs(n_ranks, lat, chain_mesh, dev))
+    return out
+
+
+def sampler_legs(n_ranks, lat, chain_mesh, dev):
+    """JAX's legs 5, 5b, 6 and 6b (__graft_entry__.py:366-463) on the
+    split lattice `lat`: each sampler on a state sharded over
+    `chain_mesh`'s ranks against the same call unsharded, bitwise. Returns
+    {leg: mismatched values + differing scalars}, each asserted 0."""
+    full = pmesh.full_tensor
+
+    def differ(ref, got):
+        return sum(int((torch.as_tensor(r) != full(g)).sum())
+                   for r, g in zip(ref, got))
+
+    def shard(x, dim=0):
+        return pmesh.as_dtensor(pmesh.local_block(x, chain_mesh,
+                                                  {dim: "chains"}),
+                                chain_mesh, {dim: "chains"}, tuple(x.shape))
+
+    out = {}
+    temps = pt.geometric_ladder(0.5, 3.0, 2 * n_ranks, device=dev)
+    s0 = sa.random_state(_gen(10), 16, batch=(2 * n_ranks,), device=dev)
+    out["rung_sharded_pt"] = differ(
+        pt.sample(lat, temps, s0, _gen(11), 30, swap_every=2),
+        pt.sample(lat, temps, shard(s0), _gen(11), 30, swap_every=2))
+    gammas = torch.tensor(np.geomspace(2.0, 0.3, 2 * n_ranks),
+                          dtype=torch.float32, device=dev)
+    confs = qmc.replicate(s0, 4)
+    out["rung_sharded_quantum_pt"] = differ(
+        pt.sample_piqmc(lat, gammas, 0.5, confs, _gen(12), 20, swap_every=2,
+                        global_moves=True),
+        pt.sample_piqmc(lat, gammas, 0.5, shard(confs), _gen(12), 20,
+                        swap_every=2, global_moves=True))
+    temps_icm = pt.geometric_ladder(0.5, 3.0, n_ranks, device=dev)
+    s_icm = sa.random_state(_gen(13), 16, batch=(2, n_ranks), device=dev)
+    out["rung_sharded_icm"] = differ(
+        pt.sample_icm(lat, temps_icm, s_icm, _gen(14), 20, houdayer_every=2),
+        pt.sample_icm(lat, temps_icm, shard(s_icm, 1), _gen(14), 20,
+                      houdayer_every=2))
+    temps_pa = pa.beta_linear(3.0, 16, beta_start=0.0, device=dev)
+    out["population_sharded_pa"] = differ(
+        pa.sample(lat, temps_pa, s0, _gen(15), mcsteps=2, beta0=0.0),
+        pa.sample(lat, temps_pa, shard(s0), _gen(15), mcsteps=2, beta0=0.0))
+    gam_pa = torch.linspace(2.0, 0.5, 12, device=dev)
+    out["population_sharded_quantum_pa"] = differ(
+        pa.sample_piqmc(lat, gam_pa, 0.5, confs, _gen(16)),
+        pa.sample_piqmc(lat, gam_pa, 0.5, shard(confs), _gen(16)))
+    for leg, bad in out.items():
+        assert bad == 0, f"{leg} diverged from the single-device sampler"
     return out
 
 

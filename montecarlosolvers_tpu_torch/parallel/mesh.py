@@ -134,29 +134,38 @@ def shard_chains(state, mesh):
                       {0: "chains"}, tuple(state.shape))
 
 
+def chain_block(state, dim=0):
+    """(local, chain0, mesh) of a DTensor `state` sharded Shard(dim) on the
+    mesh's "chains" axis and replicated elsewhere: this rank's block, the
+    global index of its first chain along `dim`, and the mesh. A state
+    placed any other way raises ValueError."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = state.device_mesh
+    if state.ndim < dim + 2:
+        raise ValueError(f"a state sharded on dim {dim} needs a chain axis "
+                         "there and at least one more")
+    for name, pl in zip(mesh.mesh_dim_names, state.placements):
+        want = Shard(dim) if name == "chains" else Replicate()
+        if pl != want:
+            raise ValueError(
+                f"the solvers take a state sharded Shard({dim}) on 'chains' "
+                f"and replicated elsewhere (parallel.shard_chains); got "
+                f"{list(state.placements)} on {mesh.mesh_dim_names}; a "
+                "Trotter-sharded state runs on parallel.trotter")
+    size = axis_size(mesh, "chains")
+    chain0 = axis_rank(mesh, "chains") * -(-state.shape[dim] // size)
+    return state.to_local(), chain0, mesh
+
+
 def run_chain_sharded(state, fn):
     """Run a solver on a chain-sharded DTensor `state` block by block:
     fn(local, chain0) -> out or (out, energies) on this rank's chains, with
     chain0 the global index of its first chain, whose hash uids the block
     then draws. Returns DTensors of the same placements: the state's, and
     energies (steps, chains, ...) sharded on their chain axis, dim 1.
-    A state sharded any other way raises ValueError."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    mesh = state.device_mesh
-    if state.ndim < 2:
-        raise ValueError("a chain-sharded state needs a leading chain axis")
-    for name, pl in zip(mesh.mesh_dim_names, state.placements):
-        want = Shard(0) if name == "chains" else Replicate()
-        if pl != want:
-            raise ValueError(
-                f"the solvers take a state sharded Shard(0) on 'chains' and "
-                f"replicated elsewhere (parallel.shard_chains); got "
-                f"{list(state.placements)} on {mesh.mesh_dim_names}; a "
-                "Trotter-sharded state runs on parallel.trotter")
-    local = state.to_local()
-    size = axis_size(mesh, "chains")
-    chain0 = axis_rank(mesh, "chains") * -(-state.shape[0] // size)
+    A state sharded any other way raises ValueError (`chain_block`)."""
+    local, chain0, mesh = chain_block(state)
     out = fn(local, chain0)
     energies = None
     if isinstance(out, tuple):

@@ -37,6 +37,21 @@ package keeps (ADVICE.md):
     sampler resamples every step), where the JAX solve ignores it.
 `combine_runs` computes in float64, as the JAX function does, and
 `merge_populations` draws on float32 weights, as it does.
+
+Population sharding (the JAX samplers shard the population by GSPMD
+annotation, pa.py:15-21). A chain-sharded DTensor population (parallel.
+shard_chains: (R, N) or (R, P, N) sharded on dim 0) runs on a
+`ShardedEngine`: each rank sweeps its replicas with their global uids, the
+(R,) energies (or kinetic terms) are gathered once a step, and every rank
+computes the weights, the ESS, log_z, the dbeta bisection and the resample
+indices from them with the same ops on the same values, so all of it is
+bitwise the unsharded run's on every rank (JAX holds its sharded log_z
+only to allclose). A resample gathers the population as int8 and keeps
+each rank's rows of it; the fixed-schedule samplers read the resample flag
+on the host, the same value on every rank, and gather only on the steps
+that resample, so every rank makes the same collectives. The population
+comes back as a DTensor of the state's placements; log_z and the stats
+are plain tensors and numbers, the same on every rank.
 """
 
 from __future__ import annotations
@@ -47,7 +62,9 @@ import torch
 from montecarlosolvers_tpu_torch import _device, _roadmap, schedules
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.solvers._engines import (ClassicalEngine,
-                                                          QuantumEngine)
+                                                          QuantumEngine,
+                                                          ShardedEngine,
+                                                          sharded_state)
 from montecarlosolvers_tpu_torch.solvers.sa import draw_seed
 
 RESAMPLES = ("systematic", "multinomial")
@@ -132,7 +149,12 @@ class _Population:
 
     def resample(self, engine, idx, do_rs=None):
         """Gather the population at idx where do_rs (a bool tensor; None:
-        always), resetting those weights."""
+        always), resetting those weights. On a sharded engine do_rs is read
+        on the host, and a step that does not resample gathers nothing."""
+        if do_rs is not None and getattr(engine, "sharded", False):
+            if not bool(do_rs):
+                return
+            do_rs = None
         if do_rs is not None:
             idx = torch.where(do_rs, idx, torch.arange(
                 self.r, device=idx.device))
@@ -163,14 +185,15 @@ def sample(problem, temps, states, generator, mcsteps=1, beta0=None,
 
     Returns (states, log_z[, stats]): log_z a float32 0-d tensor of
     ln[Z(1/temps[-1]) / Z(beta0)]; stats {"ess" (S,), "e_mean" (S,),
-    "resampled" (S,) bool, "families" int}."""
-    _roadmap.refuse_sharded("pa.sample", states)
+    "resampled" (S,) bool, "families" int}. states may be a DTensor
+    sharded on the population (module docstring); the population comes
+    back so sharded."""
     _check_resample(resample)
     dev = problem.device
     temps = torch.as_tensor(temps, dtype=torch.float32, device=dev)
     r = states.shape[0]
     seed = draw_seed(generator)
-    eng = ClassicalEngine(problem, states)
+    eng = _classical(problem, states, "pa.sample")
     pop = _Population(r, dev)
     beta_prev = (torch.tensor(beta0, dtype=torch.float32, device=dev)
                  if beta0 is not None else 1.0 / temps[0])
@@ -191,12 +214,40 @@ def sample(problem, temps, states, generator, mcsteps=1, beta0=None,
             ess_s.append(ess)
             e_s.append(torch.mean(e))
             rs_s.append(do_rs)
-    out = eng.full()
+    out = _population(eng)
     if collect_stats:
         return out, pop.log_z, {
             "ess": torch.stack(ess_s), "e_mean": torch.stack(e_s),
             "resampled": torch.stack(rs_s), "families": pop.families()}
     return out, pop.log_z
+
+
+def _classical(problem, states, what):
+    """The engine of a classical population: a `ShardedEngine` of a
+    DTensor (R, N) sharded on dim 0, else a ClassicalEngine."""
+    if _roadmap.is_sharded(states):
+        sharded_state(states, 2, 0, what)
+        return ShardedEngine(lambda s, c0: ClassicalEngine(problem, s, c0),
+                             states)
+    return ClassicalEngine(problem, states)
+
+
+def _quantum(problem, confs, temp, b, global_moves, what):
+    """The engine of a population of paths: a `ShardedEngine` of a
+    DTensor (R, P, N) sharded on dim 0, else a QuantumEngine."""
+    if _roadmap.is_sharded(confs):
+        sharded_state(confs, 3, 0, what)
+        return ShardedEngine(lambda c, c0: QuantumEngine(
+            problem, c, temp, b, global_moves, what, c0), confs)
+    return QuantumEngine(problem, confs, temp, b, global_moves, what)
+
+
+def _population(eng):
+    """The final population: the engine's states, or on a sharded engine
+    this rank's block as a DTensor of the state's placements."""
+    if getattr(eng, "sharded", False):
+        return eng.placed_local(eng.local_full())
+    return eng.full()
 
 
 def _ess_of(logw):
@@ -231,13 +282,13 @@ def sample_adaptive(problem, beta_end, states, generator, target_frac=0.9,
 
     Returns (states, log_z, stats) with stats {"betas", "ess", "e_mean"
     (n_steps,) numpy, "n_steps", "reached" (the final beta reached
-    beta_end: the module docstring's first departure), "families"}."""
-    _roadmap.refuse_sharded("pa.sample_adaptive", states)
+    beta_end: the module docstring's first departure), "families"}.
+    states may be sharded as for `sample`."""
     _check_resample(resample)
     dev = problem.device
     r = states.shape[0]
     seed = draw_seed(generator)
-    eng = ClassicalEngine(problem, states)
+    eng = _classical(problem, states, "pa.sample_adaptive")
     pop = _Population(r, dev)
     beta_end = torch.tensor(beta_end, dtype=torch.float32, device=dev)
     beta = torch.tensor(beta0, dtype=torch.float32, device=dev)
@@ -264,7 +315,7 @@ def sample_adaptive(problem, beta_end, states, generator, target_frac=0.9,
         "betas": _host(betas), "ess": _host(ess_s), "e_mean": _host(e_s),
         "n_steps": len(betas), "reached": bool(beta >= beta_end),
         "families": pop.families()}
-    return eng.full(), pop.log_z, stats
+    return _population(eng), pop.log_z, stats
 
 
 def _host(xs):
@@ -318,15 +369,13 @@ def sample_piqmc(problem, gammas, temp, confs, generator, mcsteps=1, b=1.0,
     gammas[0]).
 
     Returns (confs, log_z[, stats {"ess" (S,), "resampled" (S,),
-    "families"}])."""
-    _roadmap.refuse_sharded("pa.sample_piqmc", confs)
+    "families"}]). confs may be sharded as `sample` takes its states."""
     _check_resample(resample)
     dev = problem.device
     gammas = torch.as_tensor(gammas, dtype=torch.float32, device=dev)
     r = confs.shape[0]
     seed = draw_seed(generator)
-    eng = QuantumEngine(problem, confs, temp, b, global_moves,
-                        "pa.sample_piqmc")
+    eng = _quantum(problem, confs, temp, b, global_moves, "pa.sample_piqmc")
     teff32 = torch.tensor(eng.teff, dtype=torch.float32, device=dev)
     jps = schedules.jperp(gammas, eng.teff)
     g0 = (torch.tensor([gamma0], dtype=torch.float32, device=dev)
@@ -349,7 +398,7 @@ def sample_piqmc(problem, gammas, temp, confs, generator, mcsteps=1, b=1.0,
         if collect_stats:
             ess_s.append(ess)
             rs_s.append(do_rs)
-    out = eng.full()
+    out = _population(eng)
     if collect_stats:
         return out, pop.log_z, {"ess": torch.stack(ess_s),
                                 "resampled": torch.stack(rs_s),
@@ -368,13 +417,13 @@ def sample_piqmc_adaptive(problem, gamma_start, gamma_end, temp, confs,
     clipped as the JAX sampler clips it, and that Gamma's J_perp.
 
     Returns (confs, log_z, stats {"jps", "ess" (n_steps,) numpy, "n_steps",
-    "reached" (the final J_perp reached its end), "families"})."""
-    _roadmap.refuse_sharded("pa.sample_piqmc_adaptive", confs)
+    "reached" (the final J_perp reached its end), "families"}). confs may
+    be sharded as for `sample_piqmc`."""
     _check_resample(resample)
     dev = problem.device
     r = confs.shape[0]
-    eng = QuantumEngine(problem, confs, temp, b, global_moves,
-                        "pa.sample_piqmc_adaptive")
+    eng = _quantum(problem, confs, temp, b, global_moves,
+                   "pa.sample_piqmc_adaptive")
     teff, teff32 = eng.teff, torch.tensor(eng.teff, dtype=torch.float32,
                                           device=dev)
     jp = schedules.jperp(torch.tensor([gamma_start], dtype=torch.float32,
@@ -408,7 +457,7 @@ def sample_piqmc_adaptive(problem, gamma_start, gamma_end, temp, confs,
         ess_s.append(ess)
     stats = {"jps": _host(jps), "ess": _host(ess_s), "n_steps": len(jps),
              "reached": bool(jp >= jp_end), "families": pop.families()}
-    return eng.full(), pop.log_z, stats
+    return _population(eng), pop.log_z, stats
 
 
 def merge_populations(states_list, log_zs, generator, r_out=None,

@@ -25,6 +25,18 @@ The exchange arithmetic on the (M,) vectors stays torch on the chains'
 device; energies come from the engine (on the card the split engine's
 energy kernel), kinetic terms from `split.qmc_split_kinetic` or its packed
 form.
+
+Rung sharding (the JAX samplers shard the ladder by GSPMD annotation,
+pt.py:7-10, :132-133, :259). A chain-sharded DTensor state (parallel.
+shard_chains: (M, N) or (M, P, N) sharded on the rungs, ICM's (2, M, N) on
+dim 1) runs on a `ShardedEngine`: each rank sweeps its rungs' replicas with
+their global uids, and every rank computes every exchange from the
+gathered energies (or kinetic terms) and the same hash draws, so the label
+map, the swap rate and the pair rates come out equal on every rank with no
+broadcast, and bitwise the unsharded run's. The rung-ordered states (and
+energies) come back as DTensors sharded on the rung axis; the rates are
+plain tensors. A sharded state with leading ladder axes raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -40,7 +52,9 @@ from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
 from montecarlosolvers_tpu_torch.solvers._engines import (ClassicalEngine,
-                                                          QuantumEngine)
+                                                          QuantumEngine,
+                                                          ShardedEngine,
+                                                          sharded_state)
 from montecarlosolvers_tpu_torch.solvers.sa import draw_seed
 
 
@@ -161,8 +175,11 @@ def sample(problem, temps, states, generator, nsweeps, swap_every=1,
     per_pair_rates: also return the (..., M-1) per-pair acceptance rates.
 
     Returns (states rung-ordered, swap_rate (a tensor of the batch shape)
-    [, energies (nsweeps, ..., M) rung-ordered][, pair_rates])."""
-    _roadmap.refuse_sharded("pt.sample", states)
+    [, energies (nsweeps, ..., M) rung-ordered][, pair_rates]).
+
+    states may be an (M, N) DTensor sharded on the rungs (module
+    docstring): the states and energies then come back sharded on the rung
+    axis, bitwise the unsharded run's."""
     _roadmap.require_problem(problem)
     dev = problem.device
     temps = torch.as_tensor(temps, dtype=torch.float32, device=dev)
@@ -170,7 +187,13 @@ def sample(problem, temps, states, generator, nsweeps, swap_every=1,
     batch = states.shape[:-2]
     n = states.shape[-1]
     seed = draw_seed(generator)
-    eng = ClassicalEngine(problem, states.reshape(-1, n))
+    sharded = _roadmap.is_sharded(states)
+    if sharded:
+        sharded_state(states, 2, 0, "pt.sample")
+        eng = ShardedEngine(lambda s, c0: ClassicalEngine(problem, s, c0),
+                            states)
+    else:
+        eng = ClassicalEngine(problem, states.reshape(-1, n))
     lad = _Ladders(batch, M, dev)
     beta = 1.0 / temps
     one = torch.ones((), device=dev)
@@ -192,9 +215,11 @@ def sample(problem, temps, states, generator, nsweeps, swap_every=1,
                 e = eng.energy().reshape(batch + (M,))
             es.append(torch.gather(e, -1, lad.ror))
     out_states = _rung_ordered(eng.full().reshape(batch + (M, n)), lad.ror)
-    out = (out_states, lad.swap_rate())
+    out = (eng.placed(out_states) if sharded else out_states,
+           lad.swap_rate())
     if collect_energy:
-        out = out + (torch.stack(es),)
+        es = torch.stack(es)
+        out = out + (eng.placed(es, 1) if sharded else es,)
     if per_pair_rates:
         out = out + (lad.pair_rates(lad.nacc),)
     return out
@@ -210,15 +235,21 @@ def sample_piqmc(problem, gammas, temp, confs, generator, nsweeps, b=1.0,
 
     confs: (..., M, P, N); temp: per-slice temperature (T_eff = P temp).
     A DenseProblem is refused, as in the JAX package. Returns (confs
-    rung-ordered, swap_rate[, pair_rates])."""
-    _roadmap.refuse_sharded("pt.sample_piqmc", confs)
+    rung-ordered, swap_rate[, pair_rates]). confs may be an (M, P, N)
+    DTensor sharded on the rungs, as `sample` takes its states."""
     dev = problem.device
     gammas = torch.as_tensor(gammas, dtype=torch.float32, device=dev)
     M = gammas.shape[0]
     batch = confs.shape[:-3]
     slices, n = confs.shape[-2:]
-    eng = QuantumEngine(problem, confs.reshape(-1, slices, n), temp, b,
-                        global_moves, "pt.sample_piqmc")
+    sharded = _roadmap.is_sharded(confs)
+    if sharded:
+        sharded_state(confs, 3, 0, "pt.sample_piqmc")
+        eng = ShardedEngine(lambda c, c0: QuantumEngine(
+            problem, c, temp, b, global_moves, "pt.sample_piqmc", c0), confs)
+    else:
+        eng = QuantumEngine(problem, confs.reshape(-1, slices, n), temp, b,
+                            global_moves, "pt.sample_piqmc")
     jps = schedules.jperp(gammas, eng.teff)
     teff = torch.tensor(eng.teff, dtype=torch.float32, device=dev)
     seed = draw_seed(generator)
@@ -233,8 +264,9 @@ def sample_piqmc(problem, gammas, temp, confs, generator, nsweeps, b=1.0,
                                      teff)
             lad.nacc += acc.to(torch.int32)
             lad.attempt(parity)
-    out = (_rung_ordered(eng.full().reshape(batch + (M, slices, n)),
-                         lad.ror), lad.swap_rate())
+    out_confs = _rung_ordered(eng.full().reshape(batch + (M, slices, n)),
+                              lad.ror)
+    out = (eng.placed(out_confs) if sharded else out_confs, lad.swap_rate())
     if per_pair_rates:
         out = out + (lad.pair_rates(lad.nacc),)
     return out
@@ -285,8 +317,13 @@ def sample_icm(problem, temps, states, generator, nsweeps, swap_every=1,
 
     Returns (states (..., 2, M, N) rung-ordered, swap_rate, houdayer_flip_
     frac[, energies (nsweeps, ..., 2, M)][, pair_rates (..., M-1), the
-    mean of the two ladders])."""
-    _roadmap.refuse_sharded("pt.sample_icm", states)
+    mean of the two ladders]).
+
+    states may be a (2, M, N) DTensor sharded on the rungs, dim 1 (JAX's
+    tests/test_pt.py:330): each ladder's run of a rank's rungs sweeps on an
+    engine of its own (two launches a sweep), and each rank moves the
+    pairs of its rungs (the whole ladder's pair uids, `pair0`) and gathers
+    them back; states and energies come back sharded on the rung axis."""
     if isinstance(problem, DenseProblem):
         raise ValueError("sample_icm needs a sparse/lattice problem")
     _roadmap.require_problem(problem)
@@ -300,8 +337,14 @@ def sample_icm(problem, temps, states, generator, nsweeps, swap_every=1,
     gp = (problem.to_generic() if isinstance(problem, LatticeProblem)
           else problem)
     seed = draw_seed(generator)
-    eng = ClassicalEngine(problem if split_ops.supports_split(problem)
-                          else gp, states.reshape(-1, n))
+    sweep_problem = problem if split_ops.supports_split(problem) else gp
+    sharded = _roadmap.is_sharded(states)
+    if sharded:
+        sharded_state(states, 3, 1, "pt.sample_icm")
+        eng = ShardedEngine(lambda s, c0: ClassicalEngine(sweep_problem, s,
+                                                          c0), states, dim=1)
+    else:
+        eng = ClassicalEngine(sweep_problem, states.reshape(-1, n))
     lad = _Ladders(batch + (2,), M, dev)
     beta = 1.0 / temps
     one = torch.ones((), device=dev)
@@ -326,11 +369,12 @@ def sample_icm(problem, temps, states, generator, nsweeps, swap_every=1,
         if collect_energy:
             es.append(torch.gather(eng.energy().reshape(batch + (2, M)), -1,
                                    lad.ror))
-    full = eng.full().reshape(batch + (2, M, n))
-    out = (_rung_ordered(full, lad.ror), lad.swap_rate(2).sum(-1),
+    full = _rung_ordered(eng.full().reshape(batch + (2, M, n)), lad.ror)
+    out = (eng.placed(full) if sharded else full, lad.swap_rate(2).sum(-1),
            h_sum / max(h_cnt, 1))
     if collect_energy:
-        out = out + (torch.stack(es),)
+        es = torch.stack(es)
+        out = out + (eng.placed(es, 2) if sharded else es,)
     if per_pair_rates:
         out = out + (lad.pair_rates(lad.nacc.sum(-2), 2),)
     return out
@@ -344,9 +388,22 @@ def _houdayer_phase(eng, gp, ror, batch, M, n, seed, step):
     batch shape."""
     full = eng.full().reshape(batch + (2, M, n))
     r = _rung_ordered(full, ror)  # (..., 2, M, N) by rung
-    s1 = r[..., 0, :, :].reshape(-1, n).contiguous()
-    s2 = r[..., 1, :, :].reshape(-1, n).contiguous()
-    a, b, flipped = cluster_kernels.houdayer_move(gp, s1, s2, seed, step)
+    s1 = r[..., 0, :, :].reshape(-1, n)
+    s2 = r[..., 1, :, :].reshape(-1, n)
+    if getattr(eng, "sharded", False):
+        # the pairs of this rank's rungs, at their global pair uids, then
+        # every rank's moved pairs in rung order
+        from montecarlosolvers_tpu_torch.parallel import _collectives as coll
+
+        m0, k = eng.starts[0], eng.k
+        a, b, flipped = cluster_kernels.houdayer_move(
+            gp, s1[m0:m0 + k].contiguous(), s2[m0:m0 + k].contiguous(), seed,
+            step, pair0=m0)
+        a, b = (coll.gather_spins(x, eng.group, 0) for x in (a, b))
+        flipped = coll.gather(flipped, eng.group, 0)
+    else:
+        a, b, flipped = cluster_kernels.houdayer_move(
+            gp, s1.contiguous(), s2.contiguous(), seed, step)
     new = torch.stack([a.reshape(batch + (M, n)), b.reshape(batch + (M, n))],
                       dim=-3)
     lab = _labels(ror)

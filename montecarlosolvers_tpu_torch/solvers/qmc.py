@@ -49,7 +49,7 @@ kernels of `ops/cluster_kernels.py`.
 A chain-sharded state (a DTensor from `parallel.shard_chains`) runs on
 `anneal`, every route above, block by block with the blocks' global uids,
 and equals the unsharded run bitwise; the cluster solvers refuse it
-(ROADMAP.md queue 1, item 5). The Trotter axis is sharded by
+(ROADMAP.md queue 1, item 6). The Trotter axis is sharded by
 `parallel.trotter`.
 """
 
@@ -66,7 +66,7 @@ from montecarlosolvers_tpu_torch.ops import generic_kernels
 from montecarlosolvers_tpu_torch.ops import plane_kernels
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels
-from montecarlosolvers_tpu_torch.solvers.sa import draw_seed
+from montecarlosolvers_tpu_torch.solvers.sa import chain_sharded, draw_seed
 
 BATH_UPDATES = ("sequential", "colored")
 
@@ -141,12 +141,8 @@ def anneal(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
                if split_ops.supports_split(problem, slices)
                else plane_kernels.anneal_lattice_qmc)
     seed = draw_seed(generator)
-    if _roadmap.is_sharded(confs):
-        from montecarlosolvers_tpu_torch.parallel import mesh
-
-        return mesh.run_chain_sharded(confs, lambda c, chain0: run(
-            *args, c, seed, chain0=chain0, **kw))
-    return run(*args, confs, seed, **kw)
+    return chain_sharded(confs, lambda c, chain0=0: run(
+        *args, c, seed, chain0=chain0, **kw))
 
 
 def _bath_guard(problem, confs, what):

@@ -34,9 +34,11 @@ cluster kernels of `ops/cluster_kernels.py` (a LatticeProblem taken
 to_generic(), as the JAX solvers take it).
 
 A chain-sharded state (a DTensor from `parallel.shard_chains`) runs on
-`anneal` block by block, each rank its own chains with their global uids,
-and equals the unsharded run bitwise; the other solvers here refuse it
-(ROADMAP.md queue 1, item 5).
+`anneal` and `anneal_noisy` block by block, each rank its own chains with
+their global uids, and equals the unsharded run bitwise (on a
+DenseProblem: in distribution, ROADMAP.md queue 3, since a rank's block
+products are library matmuls of another row count); the cluster solvers
+here refuse it (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -70,6 +72,19 @@ def random_state(generator, nspins, batch=(), device=None):
     return (bits.to(torch.float32) * 2.0 - 1.0).to(_device.resolve(device))
 
 
+def chain_sharded(state, run):
+    """run(state) on a plain tensor; on a chain-sharded DTensor (`parallel.
+    shard_chains`), run(block, chain0) on this rank's block, whose uids
+    count from its global first chain, the result placed as the state
+    (`parallel.mesh.run_chain_sharded`). `run` takes chain0 as its second
+    argument, 0 by default."""
+    if _roadmap.is_sharded(state):
+        from montecarlosolvers_tpu_torch.parallel import mesh
+
+        return mesh.run_chain_sharded(state, run)
+    return run(state)
+
+
 ENGINES = ("auto", "masked")
 
 
@@ -87,27 +102,27 @@ def anneal(problem, sched, spins, generator, mcsteps=1,
     + batch on the problem's device. engine: "auto", or "masked" for the
     masked colored engine on an IsingProblem (the same spins as "auto";
     on a LatticeProblem the JAX package's masked engine serves vmapped
-    disorder, which is queued at ROADMAP.md queue 1, item 5). Returns the
+    disorder, which is queued at ROADMAP.md queue 1, item 6). Returns the
     annealed spins, or (spins, energies).
 
-    spins may be a chain-sharded DTensor (`parallel.shard_chains`; not on
-    a DenseProblem): each rank anneals its block of chains, whose hash
-    uids count from the block's global first chain, and the result (and
-    the energies, sharded on their chain axis) comes back as a DTensor of
-    the same placements, bitwise the unsharded run's. Every rank must pass
-    the same generator state, as the JAX package replicates its key."""
+    spins may be a chain-sharded DTensor (`parallel.shard_chains`): each
+    rank anneals its block of chains, whose hash uids count from the
+    block's global first chain, and the result (and the energies, sharded
+    on their chain axis) comes back as a DTensor of the same placements,
+    bitwise the unsharded run's. On a DenseProblem the block's fields are
+    torch.matmul products of its own row count, whose sum order the BLAS
+    may choose by that count: there the sharded run equals the unsharded
+    one in distribution (ROADMAP.md queue 3). Every rank must pass the
+    same generator state, as the JAX package replicates its key."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be 'auto' or 'masked', got "
                          f"{engine!r}")
     _roadmap.require_problem(problem)
     if isinstance(problem, DenseProblem):
-        _roadmap.refuse_sharded("sa.anneal on a DenseProblem", spins)
         # the JAX solver sends a DenseProblem to the dense engine whatever
         # the engine argument (solvers/sa.py:94-101)
-        return dense_kernels.dense_anneal(
-            problem, sched, spins, draw_seed(generator), mcsteps=mcsteps,
-            collect_energy=collect_energy)
-    if isinstance(problem, IsingProblem):
+        run = dense_kernels.dense_anneal
+    elif isinstance(problem, IsingProblem):
         run = (generic_kernels.anneal_masked if engine == "masked"
                else generic_kernels.anneal_packed)
     elif engine == "masked":
@@ -118,14 +133,9 @@ def anneal(problem, sched, spins, generator, mcsteps=1,
                if split_ops.supports_split(problem)
                else plane_kernels.anneal_lattice)
     seed = draw_seed(generator)
-    if _roadmap.is_sharded(spins):
-        from montecarlosolvers_tpu_torch.parallel import mesh
-
-        return mesh.run_chain_sharded(spins, lambda s, chain0: run(
-            problem, sched, s, seed, mcsteps=mcsteps,
-            collect_energy=collect_energy, chain0=chain0))
-    return run(problem, sched, spins, seed, mcsteps=mcsteps,
-               collect_energy=collect_energy)
+    return chain_sharded(spins, lambda s, chain0=0: run(
+        problem, sched, s, seed, mcsteps=mcsteps,
+        collect_energy=collect_energy, chain0=chain0))
 
 
 def anneal_noisy(problem, sched, nbr_J_sched, h_sched, spins, generator,
@@ -141,13 +151,16 @@ def anneal_noisy(problem, sched, nbr_J_sched, h_sched, spins, generator,
     or (N,) float32 +/-1 on the problem's device. generator:
     torch.Generator the counter-hash seed is drawn from. mcsteps: sweeps
     per step, each reading its step's row (the JAX solver repeats the
-    rows: the same sweeps). Returns the annealed spins."""
+    rows: the same sweeps). Returns the annealed spins. spins may
+    be a chain-sharded DTensor, as for `anneal`; the tables are every
+    chain's, replicated."""
     _roadmap.require_problem(problem, "sa.anneal_noisy")
-    _roadmap.refuse_sharded("sa.anneal_noisy", spins)
     temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
-    return generic_kernels.packed_noisy_scan(
-        problem, temps, nbr_J_sched, h_sched, spins, draw_seed(generator),
-        mcsteps=mcsteps)
+    seed = draw_seed(generator)
+    return chain_sharded(spins, lambda s, chain0=0: (
+        generic_kernels.packed_noisy_scan(problem, temps, nbr_J_sched,
+                                          h_sched, s, seed, mcsteps=mcsteps,
+                                          chain0=chain0)))
 
 
 def anneal_wolff(problem, sched, spins, generator, mcsteps=1,

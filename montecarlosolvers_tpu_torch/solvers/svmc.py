@@ -22,6 +22,11 @@ classical energy of the z-projection after each sweep beside the angles,
 as `sa.anneal` does (there: how the card computes it). The JAX solver's
 `segment=` is not ported: it only bounds a TPU dispatch (ROADMAP.md, "Not
 to port").
+
+A chain-sharded state (a DTensor from `parallel.shard_chains`) runs on
+`anneal` and `anneal_noisy` block by block, each rank its own chains with
+their global uids (the kernels' `chain0`), and equals the unsharded run
+bitwise; the noisy anneal's tables are every chain's, replicated.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from montecarlosolvers_tpu_torch.ops import plane_kernels
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels
 from montecarlosolvers_tpu_torch.ops import svmc_ops
-from montecarlosolvers_tpu_torch.solvers.sa import draw_seed
+from montecarlosolvers_tpu_torch.solvers.sa import chain_sharded, draw_seed
 
 
 def anneal(problem, a_sched, b_sched, temp, theta, generator, mcsteps=1,
@@ -50,19 +55,20 @@ def anneal(problem, a_sched, b_sched, temp, theta, generator, mcsteps=1,
     collect_energy: also return the classical energy of `z_projection`
     (sign(cos theta), +1 at cos theta = 0) after each sweep, float32 of
     shape (steps * mcsteps,) + batch on the problem's device. Returns the
-    annealed angles, or (theta, energies); project with `z_projection`."""
-    _roadmap.refuse_sharded("svmc.anneal", theta)
+    annealed angles, or (theta, energies); project with `z_projection`.
+    theta may be a chain-sharded DTensor (module docstring); the angles
+    (and the energies, sharded on their chain axis) come back so sharded."""
     _roadmap.require_problem(problem, "svmc.anneal")
     if isinstance(problem, IsingProblem):
-        return generic_kernels.anneal_packed_svmc(
-            problem, a_sched, b_sched, temp, theta, draw_seed(generator),
-            mcsteps=mcsteps, tf=tf, collect_energy=collect_energy)
-    engine = (split_kernels.anneal_lattice_svmc_split
-              if split_ops.supports_split(problem)
-              else plane_kernels.anneal_lattice_svmc)
-    return engine(problem, a_sched, b_sched, temp, theta,
-                  draw_seed(generator), mcsteps=mcsteps, tf=tf,
-                  collect_energy=collect_energy)
+        engine = generic_kernels.anneal_packed_svmc
+    elif split_ops.supports_split(problem):
+        engine = split_kernels.anneal_lattice_svmc_split
+    else:
+        engine = plane_kernels.anneal_lattice_svmc
+    seed = draw_seed(generator)
+    return chain_sharded(theta, lambda th, chain0=0: engine(
+        problem, a_sched, b_sched, temp, th, seed, mcsteps=mcsteps, tf=tf,
+        collect_energy=collect_energy, chain0=chain0))
 
 
 def anneal_noisy(problem, a_sched, b_sched, temp, nbr_J_sched, h_sched,
@@ -71,14 +77,16 @@ def anneal_noisy(problem, a_sched, b_sched, temp, nbr_J_sched, h_sched,
     svmc.pyx:236-448; JAX `anneal_noisy`, solvers/svmc.py:126): as
     `anneal` on an IsingProblem, with nbr_J_sched (steps, N, maxnb) and
     h_sched (steps, N) replacing its couplings step by step (see
-    `sa.anneal_noisy`). Returns the annealed angles."""
-    _roadmap.refuse_sharded("svmc.anneal_noisy", theta)
+    `sa.anneal_noisy`). Returns the annealed angles. theta may be a
+    chain-sharded DTensor (module docstring)."""
     _roadmap.require_problem(problem, "svmc.anneal_noisy")
     a_s, b_s = (schedules.expand_mcsteps(x, mcsteps, problem.device)
                 for x in (a_sched, b_sched))
-    return generic_kernels.packed_noisy_svmc_scan(
-        problem, a_s, b_s, temp, nbr_J_sched, h_sched, theta,
-        draw_seed(generator), tf=tf, mcsteps=mcsteps)
+    seed = draw_seed(generator)
+    return chain_sharded(theta, lambda th, chain0=0: (
+        generic_kernels.packed_noisy_svmc_scan(
+            problem, a_s, b_s, temp, nbr_J_sched, h_sched, th, seed, tf=tf,
+            mcsteps=mcsteps, chain0=chain0)))
 
 
 def random_state(generator, nspins, batch=(), device=None):

@@ -1996,3 +1996,139 @@ def test_one_rank_mesh_runs_the_rest_of_the_trotter_axis(cuda):
                 + _build.LAUNCHES["shard_label"]) >= 2 * 6
         assert torch.equal(pmesh.full_tensor(out), single(
             lat, a, b, 0.3, confs[0], gen(), lookuptable=lut, **kw))
+
+
+# ---- the sharded samplers: five kernel offsets, the samplers on one rank
+
+
+def _sampler_offset_case(kind, dev):
+    """(run, state): run(state, chain0) -> tuple on the card for one of the
+    five kernels that take a chain (pair) offset for the sharded samplers,
+    at a small width."""
+    lat4 = instances.gaussian_torus(16, 0, device=dev)
+    lat5 = instances.gaussian_torus(17, 0, device=dev)
+    gen4 = lat4.to_generic()
+    g = torch.Generator().manual_seed(6)
+
+    def angles(*shape):
+        return (torch.rand(shape, generator=g) * 3.1415927).to(dev)
+
+    def spins(*shape):
+        return (torch.randint(0, 2, shape, generator=g).float() * 2
+                - 1).to(dev)
+    a = schedules.transverse_field(2.0, 1e-3, 12, device=dev)
+    b = torch.ones_like(a)
+    if kind == "split_svmc":
+        return (lambda s, c0: (sk.anneal_lattice_svmc_split(
+            lat4, a, b, 0.2, s, 9, tf=True, chain0=c0),), angles(40, 256))
+    if kind == "plane_svmc":
+        return (lambda s, c0: (pk.anneal_lattice_svmc(
+            lat5, a, b, 0.2, s, 9, tf=True, chain0=c0),), angles(40, 289))
+    if kind == "packed_svmc":
+        return (lambda s, c0: (gk.anneal_packed_svmc(
+            gen4, a, b, 0.2, s, 9, tf=True, chain0=c0),), angles(40, 256))
+    if kind == "packed_svmc_tables":
+        rng = np.random.default_rng(0)
+        nbr_J = (gen4.nbr_J.cpu().numpy()[None] * (1 + 0.1 * rng.standard_normal(
+            (12,) + tuple(gen4.nbr_J.shape)))).astype(np.float32)
+        h = np.zeros((12, 256), dtype=np.float32)
+        return (lambda s, c0: (gk.packed_noisy_svmc_scan(
+            gen4, a, b, 0.2, nbr_J, h, s, 9, tf=True, chain0=c0),),
+            angles(40, 256))
+    dp = instances.sk_model(300, rng=0, device=dev)[0]
+    temps = schedules.linear(2.0, 0.2, 6, device=dev)
+    if kind in ("dense", "dense_per_chain"):
+        def run(s, c0):
+            t = temps
+            if kind == "dense_per_chain":
+                t = torch.linspace(0.5, 2.0, 40, device=dev)[
+                    c0:c0 + s.shape[0]][None].expand(6, -1)
+            return (dk.dense_sa_anneal(dp, t, s, 9, chain0=c0),)
+        return run, spins(40, 300)
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    def houdayer(s, c0):
+        return ck.houdayer_move(gen4, s[0].contiguous(), s[1].contiguous(),
+                                9, 3, pair0=c0)
+    return houdayer, spins(2, 40, 256)
+
+
+@pytest.mark.parametrize("kind", ["split_svmc", "plane_svmc", "packed_svmc",
+                                  "packed_svmc_tables", "dense",
+                                  "dense_per_chain", "houdayer"])
+def test_sampler_kernel_offsets_are_the_unsharded_rows(cuda, kind):
+    """Kernels 4 and 7, packed SVMC (static and per-step tables), the dense
+    in-block kernel (shared and per-chain temperatures) and the Houdayer
+    move run a block of chains (pairs) 3..10 with its offset: equal to
+    those rows of the whole batch's run (the dense anneal: to the block's
+    own plain version with that offset, since its block products are
+    matmuls of the block's row count) and to the plain version."""
+    run, state = _sampler_offset_case(kind, cuda)
+    c0, w = 3, 8
+    cut = ((slice(None), slice(c0, c0 + w)) if kind == "houdayer"
+           else (slice(c0, c0 + w),))
+    block_state = state[cut].contiguous()
+    full = run(state, 0)
+    block = run(block_state, c0)
+    with gibbs.plain_route():
+        plain = run(block_state, c0)
+    for f, b_, p in zip(full, block, plain):
+        assert torch.equal(b_, p)
+        if not kind.startswith("dense"):
+            assert torch.equal(f[c0:c0 + w], b_)
+
+
+def test_one_rank_mesh_runs_the_samplers(cuda):
+    """On a one-rank NCCL mesh every sampler, svmc.anneal, both noisy
+    anneals and the dense anneal take a chain-sharded state and equal the
+    unsharded call bitwise, rates and log_z too, with the same launches."""
+    from montecarlosolvers_tpu_torch.parallel import make_mesh, shard_chains
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+    from montecarlosolvers_tpu_torch.solvers import pa, pt
+
+    lat = instances.gaussian_torus(16, 0, device=cuda)
+    gen4 = lat.to_generic()
+    dp = instances.sk_model(200, rng=0, device=cuda)[0]
+    g = lambda: torch.Generator().manual_seed(4)  # noqa: E731
+    s8 = sa.random_state(g(), 256, batch=(8,), device=cuda)
+    temps = pt.geometric_ladder(0.5, 3.0, 8, device=cuda)
+    gammas = torch.linspace(2.0, 0.3, 8, device=cuda)
+    a = schedules.transverse_field(2.0, 1e-3, 10, device=cuda)
+    th = svmc.random_state(g(), 256, batch=(8,), device=cuda)
+    mesh = make_mesh(chains=1)
+    cases = {
+        "pt": (lambda s: pt.sample(lat, temps, s, g(), 20, swap_every=2,
+                                   collect_energy=True), s8),
+        "qpt": (lambda c: pt.sample_piqmc(lat, gammas, 0.5, c, g(), 10,
+                                          global_moves=True),
+                qmc.replicate(s8, 4)),
+        "pa": (lambda s: pa.sample(lat, pa.beta_linear(
+            2.0, 10, beta_start=0.0, device=cuda), s, g(), beta0=0.0,
+            collect_stats=True), s8),
+        "pa_adaptive": (lambda s: pa.sample_adaptive(lat, 1.0, s, g(),
+                                                     max_steps=10), s8),
+        "paq": (lambda c: pa.sample_piqmc(gen4, gammas, 0.5, c, g()),
+                qmc.replicate(s8, 3)),
+        "svmc": (lambda t: svmc.anneal(lat, a, torch.ones_like(a), 0.2, t,
+                                       g(), tf=True), th),
+        "sa_dense": (lambda s: sa.anneal(dp, schedules.linear(
+            2.0, 0.1, 5, device=cuda), s, g()),
+            sa.random_state(g(), 200, batch=(8,), device=cuda)),
+    }
+    for name, (run, state) in cases.items():
+        _build.reset_launches()
+        want = run(state)
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        _build.reset_launches()
+        got = run(shard_chains(state, mesh))
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == launched
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for x, y in zip(want, got):
+            if isinstance(x, dict):
+                for k in x:
+                    assert np.array_equal(np.asarray(torch.as_tensor(
+                        x[k]).cpu()), np.asarray(torch.as_tensor(
+                            y[k]).cpu())), (name, k)
+            else:
+                assert torch.equal(x, pmesh.full_tensor(y)), name

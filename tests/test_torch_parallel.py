@@ -32,6 +32,7 @@ from montecarlosolvers_tpu_torch import schedules
 from montecarlosolvers_tpu_torch.models import instances
 from montecarlosolvers_tpu_torch.ops import cluster as cl
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
+from montecarlosolvers_tpu_torch.ops import dense_kernels as dense
 from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
 from montecarlosolvers_tpu_torch.ops import packed as packed_ops
 from montecarlosolvers_tpu_torch.ops.piqmc import spacetime_num_phases
@@ -201,6 +202,154 @@ def test_plain_versions_take_the_chain_offset(kind):
         assert torch.equal(f[2:5], b)
 
 
+def _offset_case(kind):
+    """(run(chain0, state) -> tuple, state tuple) of a plain version of
+    the five kernels whose chain (or pair) offset the sharded samplers
+    and SVMC, noisy and dense anneals use, on chains 0..5."""
+    lat4, lat5, prob = W.lattice(4), W.lattice(5), W.ising4()
+    g = torch.Generator().manual_seed(4)
+    a = schedules.transverse_field(2.0, 1e-3, 5, device=CPU)
+    b = torch.ones_like(a)
+
+    def angles(*shape):
+        return torch.rand(shape, generator=g) * 3.1415927
+
+    if kind == "split_svmc":
+        sl = split_ops.build_split(lat4)
+        return (lambda c0, s: sk.svmc_split_anneal_ref(
+            sl, a, b, 0.2, *s, 5, True, chain0=c0), (angles(6, 8),
+                                                      angles(6, 8)))
+    if kind == "plane_svmc":
+        pl = pk._planes_of(lat5, torch.zeros(1, 25), "s")
+        return (lambda c0, s: pk.svmc_plane_anneal_ref(
+            pl, a, b, 0.2, s[0], 5, True, chain0=c0), (angles(6, 5, 5),))
+    if kind in ("packed_svmc", "packed_svmc_tables"):
+        pg = packed_ops.build_packed(prob)
+        tables = None
+        if kind == "packed_svmc_tables":
+            nbr_J, h = W.noisy_tables(prob, 5)
+            tables = gk.packed_tables(pg, nbr_J, h, 1, 5, CPU)
+        return (lambda c0, s: gk.packed_svmc_anneal_ref(
+            pg, a, b, 0.2, s[0], 5, False, tables=tables, chain0=c0),
+            (angles(6, 16),))
+    if kind == "dense_block":
+        dp = instances.sk_model(40, rng=0, device=CPU)[0]
+        J = dp.J.contiguous()
+        s = torch.randint(0, 2, (6, 40), generator=g).float() * 2 - 1
+        temps = torch.linspace(2.0, 0.5, 3)
+        fb = torch.matmul(s, J[:, 8:40])  # one set of fields for both runs
+
+        def run(c0, st):
+            rows = slice(c0, c0 + st[0].shape[0])
+            return dense.dense_sa_block_ref(st[0].clone(), fb[rows], J, 8,
+                                            temps, 1, 5, chain0=c0)
+        return run, (s,)
+    problem = W.lattice(4).to_generic()
+    s1, s2 = (torch.randint(0, 2, (6, 16), generator=g).float() * 2 - 1
+              for _ in range(2))
+    return (lambda c0, st: cl.houdayer_move_ref(problem, *st, 5, 3,
+                                                pair0=c0), (s1, s2))
+
+
+@pytest.mark.parametrize("kind", ["split_svmc", "plane_svmc", "packed_svmc",
+                                  "packed_svmc_tables", "dense_block",
+                                  "houdayer"])
+def test_plain_versions_take_the_sampler_offsets(kind):
+    """The plain versions of kernels 4 and 7, packed SVMC (static tables
+    and per-step ones), the dense in-block kernel and the Houdayer move
+    (pair0) run a block of chains (pairs) 2..4 with its offset and equal
+    those rows of the whole batch's run, and at offset 0 move something."""
+    run, state = _offset_case(kind)
+    full = run(0, state)
+    block = run(2, tuple(x[2:5] for x in state))
+    full = full if isinstance(full, tuple) else (full,)
+    block = block if isinstance(block, tuple) else (block,)
+    for f, b in zip(full, block):
+        assert torch.equal(f[2:5], b)
+    assert not torch.equal(full[0], state[0])
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("sampler", sorted(W.SAMPLERS))
+def test_sharded_samplers_are_bitwise(pools, sampler, ranks):
+    """Every sampler (pt.sample, sample_piqmc, sample_icm; pa.sample,
+    sample_adaptive, sample_piqmc, sample_piqmc_adaptive) and every
+    non-cluster engine that takes a sharded state (svmc.anneal on kernels 4, 7 and
+    packed SVMC, both noisy anneals) on a chain-sharded DTensor equals its
+    unsharded call bitwise at 2 and 4 ranks: states, rates, log_z, stats
+    and energies; the states and energies come back sharded on their chain
+    (rung) axis."""
+    got, placements = pools[ranks].run("sampler_sharded", sampler=sampler)
+    state, dim, run = W.SAMPLERS[sampler]()
+    _equal(got, W.flat(run(state)))
+    assert placements[0] == f"[Shard(dim={dim})]"
+    for p in placements[1:]:  # energies: (steps, ...) then the state's axes
+        assert p == f"[Shard(dim={dim + 1})]"
+
+
+@pytest.mark.parametrize("sampler", ["pt_split", "icm_split", "pa_split",
+                                     "paq_adaptive"])
+def test_sharded_samplers_on_chains_x_replica(pools, sampler):
+    """On a 2 x 2 chains x replica mesh (the state replicated on
+    'replica') the samplers equal the unsharded call bitwise too."""
+    got, placements = pools[4].run("sampler_sharded", sampler=sampler,
+                                   mesh_kind="chains_x_replica")
+    state, dim, run = W.SAMPLERS[sampler]()
+    _equal(got, W.flat(run(state)))
+    assert placements[0] == f"[Shard(dim={dim}), Replicate()]"
+
+
+def test_population_gathers_energies_and_int8_states(pools):
+    """A population-sharded pa.sample gathers its (R,) energies once a step
+    (4 bytes a replica) and, on a step that resamples, the population as
+    int8 (N bytes a replica): each of 4 ranks sends k = R / 4 replicas'
+    worth, and nothing on a step that does not resample."""
+    sent = pools[4].run("sampler_gathers", sampler="pa_odd_lattice")
+    state, _, run = W.SAMPLERS["pa_odd_lattice"]()
+    _, _, stats = run(state)
+    k, n = state.shape[0] // 4, state.shape[1]
+    steps, resampled = len(stats["ess"]), int(stats["resampled"].sum())
+    assert 0 < resampled < steps
+    assert sorted(sent) == sorted([4 * k] * steps + [k * n] * resampled)
+
+
+def test_dense_sharded_anneal_in_distribution(pools):
+    """sa.anneal on a DenseProblem at 4 ranks (ROADMAP.md queue 3: a
+    rank's block products are matmuls of its own row count): the mean
+    final energy within 4 standard errors of the unsharded run's, and the
+    mismatched spins counted."""
+    problem, state, run = W.dense_case()
+    got = torch.as_tensor(pools[4].run("dense_sharded"))
+    want = run(state)
+    e_sh, e_1 = problem.energy(got).numpy(), problem.energy(want).numpy()
+    se = np.sqrt(e_sh.var() / len(e_sh) + e_1.var() / len(e_1))
+    assert abs(e_sh.mean() - e_1.mean()) < 4.0 * se + 1e-6, (
+        e_sh.mean(), e_1.mean(), se, int((got != want).sum()))
+    assert bool(((got == 1) | (got == -1)).all())
+
+
+def test_sharded_pa_and_jax_pa_reach_exact_log_z(pools):
+    """One bar on the JAX package for the sharded samplers as a whole: on
+    the random 4 x 4 lattice (16 spins, ln Z at beta = 1 by enumeration of its 65536
+    states), JAX's pa.sample and the port's pa.sample on 2 ranks, each 512
+    replicas from beta = 0, come within LOG_Z_TOL of the exact ln Z."""
+    from montecarlosolvers_tpu.models import instances as jinst
+    from montecarlosolvers_tpu.solvers import pa as jpa
+    from montecarlosolvers_tpu.solvers import sa as jsa
+
+    exact = W.exact_log_z(W.lattice(4), W.LOG_Z_BETA)
+    jprob = jinst.random_2d_lattice(4, rng=0, lattice=True)[0]
+    key = jax.random.key(3)
+    temps = jpa.beta_linear(W.LOG_Z_BETA, W.LOG_Z_STEPS, beta_start=0.0)
+    _, z_jax = jpa.sample(jprob, temps, jsa.random_state(
+        key, 16, batch=(W.LOG_Z_READS,)), key, mcsteps=W.LOG_Z_MCSTEPS,
+        beta0=0.0)
+    z_port = pools[2].run("log_z")
+    z_jax = float(z_jax) + jpa.uniform_log_z(16)
+    assert abs(z_jax - exact) < W.LOG_Z_TOL, (z_jax, exact)
+    assert abs(z_port - exact) < W.LOG_Z_TOL, (z_port, exact)
+
+
 # ------------------------------------------------------------ Trotter axis
 
 
@@ -344,9 +493,11 @@ def test_split_sharded_matches_unsharded_in_distribution(pools):
 @pytest.mark.parametrize("ranks", [2, 4])
 def test_refusals(pools, ranks):
     """Indivisible axes raise ValueError naming the division, the sharded
-    bath, Wolff and SW engines' too; every engine outside the slice refuses
-    a sharded state with NotImplementedError naming ROADMAP.md queue 1,
-    item 5."""
+    bath, Wolff and SW engines' too; a sampler's sharded state with the
+    port's leading ladder axes, or ICM's sharded on its ladder axis, raises
+    ValueError; every engine outside the parallel layer's ported items
+    refuses a sharded state with NotImplementedError naming ROADMAP.md
+    queue 1, item 6."""
     msgs = pools[ranks].run("refusals")
     indivisible = ("shard_indivisible", "split_indivisible",
                    "generic_indivisible", "bath_indivisible",
@@ -355,11 +506,20 @@ def test_refusals(pools, ranks):
         assert msgs[key].startswith("ValueError") and "divide" in msgs[key]
     assert msgs["rng"].startswith("ValueError: rng must be")
     assert msgs["trotter_state_to_qmc"].startswith("ValueError")
-    for key, msg in msgs.items():
-        if key in indivisible + ("rng", "trotter_state_to_qmc"):
-            continue
+    for key in ("pt_ladders", "pa_piqmc_ladders"):
+        assert msgs[key].startswith("ValueError") and "JAX sampler's shape" \
+            in msgs[key], (key, msgs[key])
+    assert msgs["icm_on_dim0"].startswith("ValueError") and \
+        "Shard(1)" in msgs["icm_on_dim0"]
+    values = indivisible + ("rng", "trotter_state_to_qmc", "pt_ladders",
+                            "pa_piqmc_ladders", "icm_on_dim0")
+    refused = {key for key in msgs if key not in values}
+    assert refused == {"sa_wolff", "sa_sw", "qmc_wolff", "qmc_sw",
+                       "qmc_sw_bath", "masked_lattice"}
+    for key in refused:
+        msg = msgs[key]
         assert msg.startswith("NotImplementedError"), (key, msg)
-        assert "ROADMAP.md queue 1, item 5" in msg, (key, msg)
+        assert "ROADMAP.md queue 1, item 6" in msg, (key, msg)
 
 
 # ------------------------------------------ the rest of the Trotter axis
@@ -788,13 +948,17 @@ def test_sw_shards_match_jax_on_its_draws(eight_devices, replicas,
 
 DRYRUN_LEGS = {"chain_sharded_split_gs", "trotter_sharded_gs",
                "trotter_sharded_split_gs", "trotter_sharded_wolff",
-               "trotter_sharded_sw", "trotter_sharded_bath_spins"}
+               "trotter_sharded_sw", "trotter_sharded_bath_spins",
+               "rung_sharded_pt", "rung_sharded_quantum_pt",
+               "rung_sharded_icm", "population_sharded_pa",
+               "population_sharded_quantum_pa"}
 
 
 def _legs_hold(out):
     """The ground-state legs within 10% of the ground; the sharded Wolff
     and SW legs (3c, 3d) with 0 mismatched spins, the sharded bath's (4)
-    with 0 values other than +/-1."""
+    with 0 values other than +/-1, the sharded samplers' (5, 5b, 6, 6b)
+    with 0 mismatched values, rates and log_z among them."""
     assert set(out) == DRYRUN_LEGS
     for leg, value in out.items():
         if leg.endswith("_gs"):
@@ -808,7 +972,8 @@ def test_dry_run_legs_on_four_ranks(pools):
     """Every leg of the port's dry run (parallel/dryrun.py::legs) on the
     4-rank pool, the chains x replica mesh among them, and JAX's legs 3c,
     3d and 4: the sharded Wolff and SW engines with bath bonds, the
-    sharded bath."""
+    sharded bath; and 5, 5b, 6, 6b: rung-sharded PT, quantum PT and ICM,
+    population-sharded PA and quantum PA, bitwise."""
     _legs_hold(pools[4].run("dryrun_legs"))
 
 

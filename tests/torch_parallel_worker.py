@@ -384,8 +384,9 @@ def _message(fn):
 
 
 def case_refusals():
-    """The messages of every call this slice refuses on a sharded state or
-    an indivisible axis."""
+    """The messages of every call the port refuses on a sharded state, an
+    indivisible axis, or a sharded sampler state not of the JAX sampler's
+    shape."""
     mesh = _mesh("replica")
     cmesh = _mesh("chains")
     lat, prob = lattice(4), ising4()
@@ -400,9 +401,14 @@ def case_refusals():
     cs = shard_chains(qmc.replicate(sa.random_state(
         gen(0), 16, batch=(world,), device=CPU), 4), cmesh)
     sched = schedules.linear(1.0, 0.1, 2, device=CPU)
-    dense = instances.sk_model(8, rng=0, device=CPU)[0]
-    s8 = shard_chains(sa.random_state(gen(0), 8, batch=(world,),
-                                      device=CPU), cmesh)
+    # a sampler's sharded state with the port's leading ladder axes, and
+    # ICM's state sharded on its ladder axis
+    temps = pt.geometric_ladder(0.5, 3.0, world, device=CPU)
+    ladders = shard_chains(sa.random_state(gen(0), 16, batch=(world, 2,
+                                                               world),
+                                           device=CPU), cmesh)
+    icm0 = shard_chains(sa.random_state(gen(0), 16, batch=(2 * world, world),
+                                        device=CPU), cmesh)
     return {
         "shard_indivisible": _message(lambda: shard_chains(sa.random_state(
             gen(0), 16, batch=(world + 1,), device=CPU), cmesh)),
@@ -419,13 +425,6 @@ def case_refusals():
             prob, a, b, 0.3, c[0, :world - 1], gen(0), mesh)),
         "sw_indivisible": _message(lambda: trotter.anneal_sw_sharded(
             prob, a, b, 0.3, c[0, :world - 1], gen(0), mesh)),
-        "svmc": _message(lambda: svmc.anneal(prob, sched, sched, 0.1, s,
-                                             gen(0))),
-        "svmc_noisy": _message(lambda: svmc.anneal_noisy(
-            prob, sched, sched, 0.1, None, None, s, gen(0))),
-        "dense": _message(lambda: sa.anneal(dense, sched, s8, gen(0))),
-        "sa_noisy": _message(lambda: sa.anneal_noisy(prob, sched, None, None,
-                                                     s, gen(0))),
         "sa_wolff": _message(lambda: sa.anneal_wolff(prob, sched, s,
                                                      gen(0))),
         "sa_sw": _message(lambda: sa.anneal_sw(prob, sched, s, gen(0))),
@@ -435,17 +434,13 @@ def case_refusals():
                                                  gen(0))),
         "qmc_sw_bath": _message(lambda: qmc.anneal_sw_bath(
             prob, a, b, 0.3, _lut(), cs, gen(0))),
-        "pt": _message(lambda: pt.sample(prob, sched, s, gen(0), 2)),
-        "pt_piqmc": _message(lambda: pt.sample_piqmc(prob, a, 0.3, cs,
-                                                     gen(0), 2)),
-        "icm": _message(lambda: pt.sample_icm(prob, sched, s, gen(0), 2)),
-        "pa": _message(lambda: pa.sample(prob, sched, s, gen(0))),
-        "pa_adaptive": _message(lambda: pa.sample_adaptive(prob, 1.0, s,
-                                                           gen(0))),
-        "pa_piqmc": _message(lambda: pa.sample_piqmc(prob, a, 0.3, cs,
-                                                     gen(0))),
-        "pa_piqmc_adaptive": _message(lambda: pa.sample_piqmc_adaptive(
-            prob, 2.0, 0.1, 0.3, cs, gen(0))),
+        "pt_ladders": _message(lambda: pt.sample(prob, temps, ladders, gen(0),
+                                                 2)),
+        "icm_on_dim0": _message(lambda: pt.sample_icm(prob, temps, icm0,
+                                                      gen(0), 2)),
+        "pa_piqmc_ladders": _message(lambda: pa.sample_piqmc(
+            prob, a, 0.3, shard_chains(qmc.replicate(ladders.full_tensor(),
+                                                     4), cmesh), gen(0))),
         "masked_lattice": _message(lambda: sa.anneal(lat, sched, s, gen(0),
                                                      engine="masked")),
         "trotter_state_to_qmc": _message(lambda: qmc.anneal(
@@ -459,6 +454,250 @@ def case_refusals():
 def case_dryrun_legs():
     """The dry run's legs on this pool's ranks."""
     return dryrun.legs(dist.get_world_size(), "cpu")
+
+
+def numpy_of(x):
+    """A result of the test process's own unsharded runs as numpy."""
+    if isinstance(x, tuple):
+        return tuple(numpy_of(y) for y in x)
+    return np.asarray(x.cpu())
+
+
+# ------------------------------------------------ the samplers, sharded
+
+
+def ising3():
+    """The random 3 x 3 lattice's generic form (odd L: JAX's generic
+    engine case, tests/test_parallel.py:564)."""
+    return instances.random_2d_lattice(3, rng=0, device=CPU)[0]
+
+
+def _pt(problem, rungs=8, sweeps=40, **kw):
+    temps = pt.geometric_ladder(0.5, 3.0, rungs, device=CPU)
+    state = sa.random_state(gen(8), problem.nspins, batch=(rungs,),
+                            device=CPU)
+    return state, 0, lambda s: pt.sample(problem, temps, s, gen(8), sweeps,
+                                         swap_every=2, **kw)
+
+
+def _qpt(problem, rungs=8, slices=4, sweeps=30, **kw):
+    gammas = torch.tensor(np.geomspace(2.0, 0.3, rungs), dtype=torch.float32)
+    confs = (torch.randint(0, 2, (rungs, slices, problem.nspins),
+                           generator=gen(10)).float() * 2 - 1)
+    return confs, 0, lambda c: pt.sample_piqmc(
+        problem, gammas, 0.5, c, gen(10), sweeps, swap_every=2, **kw)
+
+
+def _icm(problem, rungs=8, sweeps=30, **kw):
+    temps = pt.geometric_ladder(0.5, 3.0, rungs, device=CPU)
+    state = sa.random_state(gen(2), problem.nspins, batch=(2, rungs),
+                            device=CPU)
+    return state, 1, lambda s: pt.sample_icm(problem, temps, s, gen(2),
+                                             sweeps, houdayer_every=2, **kw)
+
+
+def _pa(problem, reads=8, **kw):
+    temps = pa.beta_linear(3.0, 16, beta_start=0.0, device=CPU)
+    state = sa.random_state(gen(4), problem.nspins, batch=(reads,),
+                            device=CPU)
+    return state, 0, lambda s: pa.sample(problem, temps, s, gen(4),
+                                         mcsteps=2, beta0=0.0,
+                                         collect_stats=True, **kw)
+
+
+def _pa_adaptive(problem, reads=8):
+    state = sa.random_state(gen(5), problem.nspins, batch=(reads,),
+                            device=CPU)
+    return state, 0, lambda s: pa.sample_adaptive(problem, 2.0, s, gen(5),
+                                                  mcsteps=2, max_steps=30)
+
+
+def _paq(problem, reads=8, slices=4, **kw):
+    gammas = torch.linspace(2.0, 0.5, 12)
+    confs = qmc.replicate(sa.random_state(gen(6), problem.nspins,
+                                          batch=(reads,), device=CPU),
+                          slices)
+    return confs, 0, lambda c: pa.sample_piqmc(
+        problem, gammas, 0.5, c, gen(6), collect_stats=True, **kw)
+
+
+def _paq_adaptive(problem, reads=8, slices=4):
+    confs = qmc.replicate(sa.random_state(gen(7), problem.nspins,
+                                          batch=(reads,), device=CPU),
+                          slices)
+    return confs, 0, lambda c: pa.sample_piqmc_adaptive(
+        problem, 2.0, 0.3, 0.5, c, gen(7), target_frac=0.99, max_steps=20,
+        global_moves=True)
+
+
+def _svmc(problem, **kw):
+    a = schedules.transverse_field(2.0, 1e-3, 10, device=CPU)
+    theta = svmc.random_state(gen(3), problem.nspins, batch=(CHAINS,),
+                              device=CPU)
+    return theta, 0, lambda th: svmc.anneal(problem, a, torch.ones_like(a),
+                                            0.2, th, gen(3), **kw)
+
+
+def noisy_tables(problem, steps, seed=0):
+    """Per-step tables nbr_J (1 + 0.1 xi), h (1 + 0.1 xi) of `problem`,
+    xi standard normals from numpy's default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    nbr_J = problem.nbr_J.numpy()[None] * (
+        1.0 + 0.1 * rng.standard_normal((steps,) + problem.nbr_J.shape))
+    h = problem.h.numpy()[None] * (
+        1.0 + 0.1 * rng.standard_normal((steps, problem.nspins)))
+    return nbr_J.astype(np.float32), h.astype(np.float32)
+
+
+def _sa_noisy(problem, steps=8):
+    nbr_J, h = noisy_tables(problem, steps)
+    sched = schedules.linear(2.0, 0.1, steps, device=CPU)
+    state = sa.random_state(gen(11), problem.nspins, batch=(CHAINS,),
+                            device=CPU)
+    return state, 0, lambda s: sa.anneal_noisy(problem, sched, nbr_J, h, s,
+                                               gen(11), mcsteps=2)
+
+
+def _svmc_noisy(problem, steps=8):
+    nbr_J, h = noisy_tables(problem, steps)
+    a = schedules.transverse_field(2.0, 1e-3, steps, device=CPU)
+    theta = svmc.random_state(gen(12), problem.nspins, batch=(CHAINS,),
+                              device=CPU)
+    return theta, 0, lambda th: svmc.anneal_noisy(
+        problem, a, torch.ones_like(a), 0.2, nbr_J, h, th, gen(12),
+        tf=True)
+
+
+# sampler -> () -> (state, sharded dim, run): run(state) is one entry
+# point that takes a sharded state, on a full or a chain-sharded state (JAX's test shapes,
+# tests/test_parallel.py:539-598 and tests/test_pt.py:316-337, and an odd
+# lattice); each output is compared whole
+SAMPLERS = {
+    "pt_split": lambda: _pt(lattice(4), sweeps=60, collect_energy=True,
+                            per_pair_rates=True),
+    "pt_generic": lambda: _pt(ising3()),
+    "pt_odd_lattice": lambda: _pt(lattice(5), per_pair_rates=True),
+    "qpt_split": lambda: _qpt(lattice(4), global_moves=True),
+    "qpt_generic": lambda: _qpt(ising4(), slices=3, per_pair_rates=True),
+    "qpt_odd_lattice": lambda: _qpt(lattice(5), global_moves=True),
+    "icm_split": lambda: _icm(lattice(4), collect_energy=True,
+                              per_pair_rates=True),
+    "icm_generic": lambda: _icm(ising3()),
+    "icm_odd_lattice": lambda: _icm(lattice(5)),
+    "pa_split": lambda: _pa(lattice(4)),
+    "pa_generic": lambda: _pa(ising4(), ess_threshold=0.5,
+                              resample="multinomial"),
+    "pa_odd_lattice": lambda: _pa(lattice(5), ess_threshold=0.7),
+    "pa_adaptive": lambda: _pa_adaptive(lattice(4)),
+    "pa_adaptive_generic": lambda: _pa_adaptive(ising3()),
+    "paq_split": lambda: _paq(lattice(4), global_moves=True),
+    "paq_generic": lambda: _paq(ising4(), slices=3, ess_threshold=0.6),
+    "paq_adaptive": lambda: _paq_adaptive(lattice(4)),
+    "paq_adaptive_generic": lambda: _paq_adaptive(ising3(), slices=3),
+    "svmc_split": lambda: _svmc(lattice(4), tf=True, collect_energy=True),
+    "svmc_plane": lambda: _svmc(lattice(5), tf=True),
+    "svmc_packed": lambda: _svmc(ising4(), collect_energy=True),
+    "svmc_noisy": lambda: _svmc_noisy(ising4()),
+    "sa_noisy": lambda: _sa_noisy(ising4()),
+}
+
+
+def flat(out):
+    """A sampler's outputs as a tuple of numpy arrays, in order: DTensors
+    gathered, a stats dict by sorted key, numbers as 0-d arrays."""
+    if isinstance(out, tuple):
+        return sum((flat(x) for x in out), ())
+    if isinstance(out, dict):
+        return sum((flat(out[k]) for k in sorted(out)), ())
+    if torch.is_tensor(out):
+        return (pmesh.full_tensor(out).numpy(),)
+    return (np.asarray(out),)
+
+
+def placements(out):
+    """The placements of every DTensor among the outputs, in order."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return [str(list(x.placements)) for x in outs
+            if hasattr(x, "placements")]
+
+
+def case_sampler_sharded(sampler, mesh_kind="chains"):
+    """The sampler's run on its state sharded along its chain dim over
+    `mesh_kind`: (outputs, placements of the DTensors among them)."""
+    state, dim, run = SAMPLERS[sampler]()
+    mesh = _mesh(mesh_kind)
+    out = run(pmesh.as_dtensor(pmesh.local_block(state, mesh,
+                                                 {dim: "chains"}),
+                               mesh, {dim: "chains"}, tuple(state.shape)))
+    return flat(out), placements(out)
+
+
+def case_sampler_gathers(sampler):
+    """The gathers a rung- or population-sharded run makes and the bytes
+    each rank sends in them (`_collectives.gather`'s tensors)."""
+    state, dim, run = SAMPLERS[sampler]()
+    mesh = _mesh("chains")
+    sent = []
+    gather = _collectives.gather
+
+    def counting(t, group, d):
+        sent.append(t.numel() * t.element_size())
+        return gather(t, group, d)
+    _collectives.gather = counting
+    try:
+        run(pmesh.as_dtensor(pmesh.local_block(state, mesh, {dim: "chains"}),
+                             mesh, {dim: "chains"}, tuple(state.shape)))
+    finally:
+        _collectives.gather = gather
+    return sent
+
+
+def dense_case(chains=64, n=64, steps=30):
+    """(problem, state, run) of a dense anneal: sk_model(n), T 3 -> 0.05."""
+    problem = instances.sk_model(n, rng=0, device=CPU)[0]
+    sched = schedules.linear(3.0, 0.05, steps, device=CPU)
+    state = sa.random_state(gen(14), n, batch=(chains,), device=CPU)
+    return problem, state, lambda s: sa.anneal(problem, sched, s, gen(14))
+
+
+def case_dense_sharded():
+    """sa.anneal on a DenseProblem, chain-sharded: the gathered spins."""
+    _, state, run = dense_case()
+    return _numpy(run(shard_chains(state, _mesh("chains"))))
+
+
+# the sharded samplers' bar on the JAX package: ln Z at beta LOG_Z_BETA of the random
+# 4 x 4 lattice by PA from beta = 0 (LOG_Z_READS replicas, LOG_Z_STEPS
+# steps of LOG_Z_MCSTEPS sweeps), within LOG_Z_TOL of enumeration
+LOG_Z_BETA, LOG_Z_READS, LOG_Z_STEPS, LOG_Z_MCSTEPS = 1.0, 512, 32, 4
+LOG_Z_TOL = 0.1
+
+
+def exact_log_z(problem, beta):
+    """ln Z(beta) of a problem of at most 20 spins by enumeration, float64
+    (the energies float32, as the problem computes them)."""
+    n = problem.nspins
+    bits = (np.arange(1 << n)[:, None] >> np.arange(n)) & 1
+    e = problem.energy(torch.as_tensor(bits * 2 - 1, dtype=torch.float32))
+    x = -beta * e.double().numpy()
+    return float(x.max() + np.log(np.exp(x - x.max()).sum()))
+
+
+def log_z_run(state):
+    """The port's ln Z estimate of the LOG_Z run on `state` (full or
+    population-sharded), seed 3."""
+    problem = lattice(4)
+    temps = pa.beta_linear(LOG_Z_BETA, LOG_Z_STEPS, beta_start=0.0,
+                           device=CPU)
+    _, log_z = pa.sample(problem, temps, state, gen(3),
+                         mcsteps=LOG_Z_MCSTEPS, beta0=0.0)
+    return float(log_z) + pa.uniform_log_z(problem.nspins)
+
+
+def case_log_z():
+    """log_z_run on LOG_Z_READS replicas sharded over the ranks."""
+    state = sa.random_state(gen(3), 16, batch=(LOG_Z_READS,), device=CPU)
+    return log_z_run(shard_chains(state, _mesh("chains")))
 
 
 CASES = {name[5:]: fn for name, fn in globals().items()
@@ -485,10 +724,3 @@ def serve(rank, world, port, inbox, outbox):
             outbox.put((rank, False, traceback.format_exc()))
     dist.barrier()
     dist.destroy_process_group()
-
-
-def numpy_of(x):
-    """A result of the test process's own unsharded runs as numpy."""
-    if isinstance(x, tuple):
-        return tuple(numpy_of(y) for y in x)
-    return np.asarray(x.cpu())
