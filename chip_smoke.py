@@ -1017,6 +1017,10 @@ PARALLEL_KERNELS = {
                     "montecarlosolvers_tpu/parallel/trotter.py:689"),
 }
 KERNELS.update(PARALLEL_KERNELS)
+# what the rest of the parallel layer added to four kernels: the cluster
+# kernels' chain offset, packed SA's disorder stride
+GAINED = {"fk_wolff": "chain0", "fk_label": "chain0", "fk_line": "chain0",
+          "packed_sa": "disorder stride (d_chains, seeds)"}
 # the parallel phase: gloo ranks sharing the card, steps of its sharded
 # anneals, the taus of its slope timings, and the largest difference of the
 # mean best-slice energy per spin between a sharded anneal with line moves
@@ -1046,6 +1050,18 @@ PARALLEL_LINES = 80 * 80
 # exchange, reweight and resample gathers through host memory there)
 OFFSET_STEPS, OFFSET_CHAIN0 = 200, 100003
 SHARDED_STEPS, GLOO_SAMPLER_STEPS = 100, 40
+# the rest of the parallel layer, (n)-(r): (n) the cluster kernels' chain
+# offsets at their PERF.md rows' widths, P = CLUSTER_SLICES, fk_wolff and
+# fk_label CLUSTER_OFFSET_STEPS steps, fk_line one step (both colors),
+# timed at offset 0 and OFFSET_CHAIN0 in turns; (o) the cluster solves
+# (`cluster_calls`) at the main path's reads and sweeps; (p) and (q) the
+# disorder batch at the SA arm's width, DISORDER_D realizations of
+# gaussian_torus(L, d).to_generic() with SA_READS // DISORDER_D chains each,
+# SA_SWEEPS sweeps, slope-timed over DISORDER_TAUS; (q) on the gloo ranks
+# as DISORDER_HOSTS hosts; (r) the masked lattice engine at SA_READS x
+# SA_SWEEPS, slope-timed over the same taus
+CLUSTER_OFFSET_STEPS, DISORDER_D, DISORDER_HOSTS = 6, 8, 2
+DISORDER_TAUS = (500, 2000)
 # (a): chains of the exact-distribution samplers, and the largest
 # |mean - exact| (or kernel - plain) they may show, in standard errors of
 # the chain means (gibbs_check.z_scores: at most 1 state in about 3 million
@@ -4927,6 +4943,450 @@ def sampler_sharding_checks(dev, power, name):
           "bytes_a_step_all_ranks": PARALLEL_RANKS * sum(sent)
           / GLOO_SAMPLER_STEPS, "seconds": rank_seconds})
 
+# ---------------------------------------- the rest of the parallel layer
+
+
+def cluster_offset_checks(dev, gtorus, power, name):
+    """(n): fk_wolff (16 chains, rule "local"), fk_label (8 chains, the
+    space-time sweep) and fk_line (16 chains, WC3 and WC2, alpha
+    CLUSTER_ALPHA) at P = CLUSTER_SLICES on the 80x80 torus's generic form:
+    a block of chains run with its chain0 equals those rows of the whole
+    batch's run, 0 mismatched spins. Each is timed with CUDA events on the
+    whole batch at offset 0 and at OFFSET_CHAIN0, in turns (0, offset,
+    offset, 0; the best of each). A Wolff step's work is its clusters,
+    which the offset's draws change: its line gives the cluster sites of
+    one run at each offset beside the times."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    pg = packed_ops.build_packed(gtorus)
+    rng = np.random.default_rng(43)
+    P, steps = CLUSTER_SLICES, CLUSTER_OFFSET_STEPS
+    lut = schedules.bath_lookuptable(P, CLUSTER_ALPHA, device=dev)
+
+    def wolff(chains):
+        c, b, jp, teff = cluster_inputs(pg, dev, rng, chains, P, steps)
+        vis = torch.zeros(chains, dtype=torch.int64, device=dev)
+        # the cluster sites are counted on runs of the whole batch
+        return (lambda x, c0: ck.wolff_anneal(
+            pg, b, jp, teff, x, 31, "local", None, 0,
+            vis if x.shape[0] == chains else None, chain0=c0)), c, vis
+
+    def label(chains):
+        c, b, jp, teff = cluster_inputs(pg, dev, rng, chains, P, steps)
+        return (lambda x, c0: ck.sw_anneal(pg, b, jp, teff, x, 32, None, 0,
+                                           chain0=c0)), c, None
+
+    def line(per_slice_seeds, chains):
+        c, b, jp, teff = cluster_inputs(pg, dev, rng, chains, P, 1)
+        t_eff = float(teff[0])
+        p_pair, p_t = ck.line_tables(lut, jp, t_eff, P, dev)
+
+        def run(x, c0):
+            for color in range(pg.num_colors):
+                x = ck.line_phase(pg, b, jp, p_t, 0, t_eff, lut, p_pair, x,
+                                  33, 0, color, per_slice_seeds, chain0=c0)
+            return x
+        return run, c, None
+
+    for kname, case, (run, state, vis) in (
+            ("fk_wolff", "rule local", wolff(16)),
+            ("fk_label", "space-time", label(8)),
+            ("fk_line", "WC3", line(True, 16)),
+            ("fk_line", "WC2", line(False, 16))):
+        width = state.shape[0]
+        c0, w = width // 4 + 1, width // 4
+        full = run(state, 0)
+        block = run(state[c0:c0 + w].contiguous(), c0)
+        torch.cuda.synchronize()
+        bad = int((full[c0:c0 + w] != block).sum())
+        times = {0: [], OFFSET_CHAIN0: []}
+        for off in (0, OFFSET_CHAIN0, OFFSET_CHAIN0, 0):
+            times[off].append(event_ms(lambda: run(state, off), 3))
+        rec = {"phase": "parallel", "check": "cluster_kernel_offset",
+               "kernel": kname, "case": case, "chains": width,
+               "slices": P, "steps": 1 if kname == "fk_line" else steps,
+               "block": [c0, c0 + w], "mismatched_spins": bad,
+               "ms_offset_0": min(times[0]),
+               "ms_offset": min(times[OFFSET_CHAIN0]),
+               "offset": OFFSET_CHAIN0,
+               "ratio": min(times[OFFSET_CHAIN0]) / min(times[0]),
+               "card": name, "power_limit": power}
+        if vis is not None:
+            for off in (0, OFFSET_CHAIN0):
+                vis.zero_()
+                run(state, off)
+                rec[f"cluster_sites_offset_{off}"] = int(vis.sum())
+        emit(rec)
+        check(bad == 0, f"{kname} ({case}) on [{c0}, {c0 + w}) with its "
+                        "offset equals the unsharded rows")
+
+
+def cluster_calls(dev, sa_steps, qmc_steps):
+    """name -> (state, run): the five cluster methods of solve() as it runs
+    them (sa_wolff and sa_sw with local sweeps; piqmc_wolff, rule "local";
+    piqmc_sw, WC3 at alpha CLUSTER_ALPHA; piqmc_sw_full with local sweeps),
+    sa.anneal_sw without local sweeps (one fk_label launch) and WC2
+    (anneal_sw_bath, per_slice_seeds=False), on the 80x80 torus's generic
+    form at CLUSTER_SA_READS chains, `sa_steps` steps, and CLUSTER_QMC_READS
+    x CLUSTER_SLICES, `qmc_steps`, from fixed seeds; run(state) takes the
+    full or the chain-sharded state."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.solvers import qmc, sa
+
+    gtorus = instances.gaussian_torus(L, seed=0, device=dev).to_generic()
+    n, P = L * L, CLUSTER_SLICES
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def spins(seed):
+        return sa.random_state(gen(seed), n, batch=(CLUSTER_SA_READS,),
+                               device=dev)
+
+    def confs(seed):
+        return qmc.replicate(sa.random_state(
+            gen(seed), n, batch=(CLUSTER_QMC_READS,), device=dev), P)
+    sched = schedules.linear(3.0, 0.05, sa_steps, device=dev)
+    a = schedules.transverse_field(3.0, 1e-8, qmc_steps, device=dev)
+    b = torch.ones_like(a)
+    lut = schedules.bath_lookuptable(P, CLUSTER_ALPHA, device=dev)
+    return {
+        "sa_wolff": (spins(51), lambda s: sa.anneal_wolff(
+            gtorus, sched, s, gen(52))),
+        "sa_sw": (spins(53), lambda s: sa.anneal_sw(
+            gtorus, sched, s, gen(54), local_sweeps=True)),
+        "sa_sw_no_local": (spins(55), lambda s: sa.anneal_sw(
+            gtorus, sched, s, gen(56))),
+        "piqmc_wolff": (confs(57), lambda c: qmc.anneal_wolff(
+            gtorus, a, b, 1.0 / P, c, gen(58))),
+        "piqmc_sw": (confs(59), lambda c: qmc.anneal_sw_bath(
+            gtorus, a, b, 1.0 / P, lut, c, gen(60))),
+        "piqmc_sw_wc2": (confs(61), lambda c: qmc.anneal_sw_bath(
+            gtorus, a, b, 1.0 / P, lut, c, gen(62), per_slice_seeds=False)),
+        "piqmc_sw_full": (confs(63), lambda c: qmc.anneal_sw(
+            gtorus, a, b, 1.0 / P, c, gen(64), local_sweeps=True)),
+    }
+
+
+def disorder_case(dev, steps=SA_SWEEPS):
+    """(problems, sched, states, generators()) of the disorder batch:
+    DISORDER_D realizations gaussian_torus(L, d).to_generic(), SA_READS //
+    DISORDER_D chains each, SA's schedule 3 -> 0 over `steps` sweeps, one
+    generator a realization (made anew by each call of generators())."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.solvers import sa
+
+    probs = [instances.gaussian_torus(L, seed=d, device=dev).to_generic()
+             for d in range(DISORDER_D)]
+    states = sa.random_state(torch.Generator().manual_seed(81), L * L,
+                             batch=(DISORDER_D, SA_READS // DISORDER_D),
+                             device=dev)
+    sched = schedules.linear(3.0, 0.0, steps, device=dev)
+
+    def generators():
+        return [torch.Generator().manual_seed(90 + d)
+                for d in range(DISORDER_D)]
+    return probs, sched, states, generators
+
+
+def card_cluster_disorder_rank(n_ranks, device_type, sa_steps, qmc_steps):
+    """The body of each gloo rank of (o) and (q): every call of
+    `cluster_calls` on its state sharded over a chains mesh of n_ranks,
+    each (rank 0's outputs as int8, this rank's launches, wall); and
+    run_disorder_sharded(sa.anneal) of `disorder_case` on a dcn_mesh of
+    DISORDER_HOSTS hosts (LOCAL_WORLD_SIZE, which the parent sets): (this
+    rank's block as int8, its placements, its launches, wall, the mesh's
+    rows)."""
+    import torch.distributed as dist
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.parallel import make_mesh, multihost
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+    from montecarlosolvers_tpu_torch.parallel import shard_chains
+    from montecarlosolvers_tpu_torch.solvers import sa
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    rank = dist.get_rank()
+    mesh = make_mesh(chains=n_ranks, device_type=device_type)
+    out = {}
+    for cname, (state, run) in cluster_calls(dev, sa_steps,
+                                             qmc_steps).items():
+        run(shard_chains(state, mesh))  # warm: the wall is the second run's
+        _build.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        res = run(shard_chains(state, mesh))
+        sync()
+        wall = time.perf_counter() - t0
+        launched = launched_now()
+        full = pmesh.full_tensor(res).to(torch.int8).cpu().numpy()
+        out[cname] = (full if rank == 0 else None, launched, wall)
+    probs, sched, states, generators = disorder_case(dev)
+    dmesh = multihost.dcn_mesh(disorder=DISORDER_HOSTS,
+                               device_type=device_type)
+    _build.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    res = multihost.run_disorder_sharded(sa.anneal, probs, sched, states,
+                                         generators(), dmesh)
+    sync()
+    out["disorder"] = (res.to_local().to(torch.int8).cpu().numpy(),
+                       str(list(res.placements)), launched_now(),
+                       time.perf_counter() - t0, dmesh.mesh.tolist())
+    return out
+
+
+def rest_sharding_checks(dev, main_launches, power, name):
+    """(o) and (q). On the one-rank NCCL mesh: each call of `cluster_calls`
+    (CLUSTER_SA_SWEEPS and CLUSTER_QMC_SWEEPS) on its chain-sharded state
+    equals the unsharded call bitwise with the same launches (which the
+    kernels line counts as the main path's), its wall beside the
+    unsharded wall; run_disorder_sharded(sa.anneal) on a (1, 1) dcn_mesh
+    equals vmap_disorder bitwise, one packed SA launch. On PARALLEL_RANKS
+    gloo ranks sharing the card: the same calls, rank 0's gathered output
+    bitwise the unsharded call and each rank's launches the unsharded
+    call's; the disorder batch on a dcn_mesh of DISORDER_HOSTS hosts, each
+    row on one host, every rank's block bitwise its rows of vmap_disorder,
+    one packed SA launch a rank."""
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.parallel import (disorder, dryrun,
+                                                      make_mesh, multihost,
+                                                      shard_chains)
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+    from montecarlosolvers_tpu_torch.solvers import sa
+
+    def timed(run, state):
+        run(state)  # warm: the wall is the second run's
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(state)
+        torch.cuda.synchronize()
+        return out, launched_now(), time.perf_counter() - t0
+
+    # (o) one NCCL rank
+    cmesh = make_mesh(chains=1, device_type=dev.type)
+    unsharded = {}
+    for cname, (state, run) in cluster_calls(dev, CLUSTER_SA_SWEEPS,
+                                             CLUSTER_QMC_SWEEPS).items():
+        want, launched, wall_1 = timed(run, state)
+        unsharded[cname] = (want, launched)
+        got, launched_sh, wall = timed(run, shard_chains(state, cmesh))
+        for k, v in launched_sh.items():
+            main_launches[k] += v
+        bad = int((pmesh.full_tensor(got) != want).sum())
+        emit({"phase": "parallel", "check": "one_rank_nccl_cluster",
+              "call": cname, "shape": list(state.shape),
+              "mismatched_spins": bad, "launches": launched_sh,
+              "wall_s": wall, "unsharded_wall_s": wall_1,
+              "card": name, "power_limit": power})
+        check(bad == 0, f"{cname} on a one-rank NCCL mesh equals the "
+                        "unsharded call")
+        check(launched_sh == launched, f"{cname} on one rank launched "
+                                       f"{launched_sh}, unsharded {launched}")
+    probs, sched, states, generators = disorder_case(dev)
+    stacked, axes = disorder.stack_problems(probs)
+    want_d, _, wall_1 = timed(lambda s: disorder.vmap_disorder(
+        sa.anneal, axes)(stacked, sched, s, generators()), states)
+    got, launched, wall = timed(lambda s: multihost.run_disorder_sharded(
+        sa.anneal, probs, sched, s, generators(), multihost.dcn_mesh(
+            device_type=dev.type)), states)
+    main_launches["packed_sa"] += launched.get("packed_sa", 0)
+    bad = int((pmesh.full_tensor(got) != want_d).sum())
+    emit({"phase": "parallel", "check": "one_rank_nccl_disorder",
+          "realizations": DISORDER_D, "chains": SA_READS // DISORDER_D,
+          "sweeps": SA_SWEEPS, "mismatched_spins": bad,
+          "placements": str(list(got.placements)), "launches": launched,
+          "wall_s": wall, "unsharded_wall_s": wall_1,
+          "card": name, "power_limit": power})
+    check(bad == 0, "run_disorder_sharded on a one-rank mesh equals "
+                    "vmap_disorder")
+    check(launched == {"packed_sa": 1}, f"the one-rank disorder run "
+                                        f"launched {launched}")
+
+    # (o) and (q) on gloo ranks sharing the card, two "hosts"
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(
+        card_cluster_disorder_rank, PARALLEL_RANKS, dev.type,
+        args=(CLUSTER_SA_SWEEPS, CLUSTER_QMC_SWEEPS),
+        env={"LOCAL_WORLD_SIZE": str(PARALLEL_RANKS // DISORDER_HOSTS)})
+    rank_seconds = time.perf_counter() - t0
+    for cname, (want, launched) in unsharded.items():
+        got, _, wall = ranks[0][cname]
+        bad = int((got != want.to(torch.int8).cpu().numpy()).sum())
+        emit({"phase": "parallel", "check": "gloo_ranks_cluster",
+              "call": cname, "ranks": PARALLEL_RANKS,
+              "mismatched_spins": bad, "wall_s_rank0": wall,
+              "launches_each_rank": [r[cname][1] for r in ranks]})
+        check(bad == 0, f"{PARALLEL_RANKS} gloo ranks' {cname} equals the "
+                        "single-device call")
+        check(all(r[cname][1] == launched for r in ranks),
+              f"each gloo rank's {cname} launched {launched}")
+    want_np = want_d.to(torch.int8).cpu().numpy()
+    rows = ranks[0]["disorder"][4]
+    # the (disorder, chains) mesh: a host's ranks a row
+    chains_ax = PARALLEL_RANKS // DISORDER_HOSTS
+    d_loc = DISORDER_D // DISORDER_HOSTS
+    c_loc = SA_READS // DISORDER_D // chains_ax
+    bad = 0
+    for r, out in enumerate(ranks):
+        block, placements, launched, _, _ = out["disorder"]
+        dr, cr_ = r // chains_ax, r % chains_ax
+        want_block = want_np[dr * d_loc:(dr + 1) * d_loc,
+                             cr_ * c_loc:(cr_ + 1) * c_loc]
+        bad += int((block != want_block).sum()) if \
+            block.shape == want_block.shape else block.size
+        check(placements == "[Shard(dim=0), Shard(dim=1)]",
+              f"rank {r}'s disorder block is placed {placements}")
+        check(launched == {"packed_sa": 1},
+              f"gloo rank {r}'s disorder block launched {launched}")
+    emit({"phase": "parallel", "check": "gloo_ranks_disorder",
+          "ranks": PARALLEL_RANKS, "hosts": DISORDER_HOSTS,
+          "mesh_rows": rows, "mismatched_spins": bad,
+          "wall_s_each_rank": [out["disorder"][3] for out in ranks],
+          "seconds": rank_seconds})
+    check(all(len({x // chains_ax for x in row}) == 1 for row in rows),
+          f"each disorder row {rows} lies on one host")
+    check(bad == 0, "every gloo rank's disorder block equals its rows of "
+                    "vmap_disorder")
+
+
+def disorder_checks(dev, main_launches, power, name):
+    """(p): vmap_disorder(sa.anneal) on `disorder_case` is one packed SA
+    launch (the main path's); each realization's rows equal its solo
+    sa.anneal(p_d, engine="masked") with its generator bitwise;
+    realization 0's mean energy per spin lies in SA's 80x80 range, the
+    others printed. Slope-timed beside one packed SA launch of the same
+    SA_READS chains on realization 0 (the stride's cost), beside the
+    DISORDER_D solo calls and beside its plain version, with the bound of
+    the batch's work (its D tables read once each)."""
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.parallel import disorder
+    from montecarlosolvers_tpu_torch.solvers import sa
+
+    probs, sched, states, generators = disorder_case(dev)
+    stacked, axes = disorder.stack_problems(probs)
+    run = disorder.vmap_disorder(sa.anneal, axes)
+    n = L * L
+    _build.reset_launches()
+    out = run(stacked, sched, states, generators())
+    torch.cuda.synchronize()
+    launched = launched_now()
+    main_launches["packed_sa"] += launched.get("packed_sa", 0)
+    bad = []
+    for d, (p, g) in enumerate(zip(probs, generators())):
+        solo = sa.anneal(p, sched, states[d], g, engine="masked")
+        bad.append(int((solo != out[d]).sum()))
+    means = [float(x) for x in stacked.energy(out).double().mean(1) / n]
+    emit({"phase": "parallel", "check": "disorder_batch",
+          "realizations": DISORDER_D, "chains": SA_READS // DISORDER_D,
+          "sweeps": SA_SWEEPS, "launches": launched,
+          "mismatched_spins_each": bad, "mean_energy_per_spin": means,
+          "range_realization_0": RANGES["sa"]})
+    check(launched == {"packed_sa": 1}, f"the disorder batch launched "
+                                        f"{launched}")
+    check(sum(bad) == 0, "each realization equals its solo masked anneal")
+    lo, hi = RANGES["sa"]
+    check(lo <= means[0] <= hi, f"realization 0's mean {means[0]} lies in "
+                                f"SA's range [{lo}, {hi}]")
+
+    from montecarlosolvers_tpu_torch import schedules
+
+    def batched(tau):
+        run(stacked, schedules.linear(3.0, 0.0, tau, device=dev), states,
+            generators())
+
+    flat = states.reshape(SA_READS, n)
+
+    def single(tau):
+        gk.anneal_packed(probs[0], schedules.linear(3.0, 0.0, tau,
+                                                    device=dev), flat, 7)
+
+    def solos(tau):
+        s = schedules.linear(3.0, 0.0, tau, device=dev)
+        for d, (p, g) in enumerate(zip(probs, generators())):
+            sa.anneal(p, s, states[d], g, engine="masked")
+    pg, nbr_j, h = stacked.packed
+    packed = packed_ops.pack_state(pg, flat).contiguous()
+    seeds = [sa.draw_seed(g) for g in generators()]
+
+    def plain(tau):
+        gk.packed_sa_anneal_ref(pg, schedules.linear(3.0, 0.0, tau,
+                                                     device=dev), packed,
+                                0, disorder=(nbr_j, h, seeds))
+    times = {}
+    for key, fn in (("batched", batched), ("one_launch_realization_0",
+                                           single),
+                    ("solo_calls", solos), ("batched_again", batched)):
+        times[key] = slope_ms(fn, DISORDER_TAUS, 3)[0]
+    # the plain version takes about 2 ms a sweep: a few sweeps suffice
+    times["plain"] = slope_ms(plain, (2, 6), 2)[0]
+    graph = graph_shape(probs[0])
+    f32, sfu = ops_per_sweep("packed_sa", SA_READS, 1, n, graph)
+    moved = bytes_per_anneal("packed_sa", SA_READS, 1, n, SA_SWEEPS, graph) \
+        + (DISORDER_D - 1) * n * (graph[1] * 4 + 4)
+    bounds = {"fp32": f32 / PEAK_FLOPS, "sfu": sfu / PEAK_SFU,
+              "bytes": moved / PEAK_BYTES / SA_SWEEPS}
+    unit = max(bounds, key=bounds.get)
+    batched_ms = min(times["batched"], times["batched_again"])
+    emit({"phase": "parallel", "check": "disorder_timing",
+          "realizations": DISORDER_D, "chains": SA_READS,
+          "taus": list(DISORDER_TAUS), "ms_per_sweep": times,
+          "stride_cost": batched_ms / times["one_launch_realization_0"],
+          "bound_ms": 1e3 * bounds[unit],
+          "bound_by": "bytes" if unit == "bytes" else "operations",
+          "bound_unit": unit, "card": name, "power_limit": power})
+
+
+def masked_lattice_checks(dev, main_launches, torus, odd_torus, power,
+                          name):
+    """(r): sa.anneal(engine="masked") on the 80x80 and 81x81 tori at
+    SA_READS x SA_SWEEPS: one packed SA launch each (the main path's), the
+    mean energy per spin in SA's range for that torus; its ms a sweep
+    slope-timed beside the lattice's own engine (kernel A on 80x80, kernel
+    6 on 81x81)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.solvers import sa
+
+    for key, lat, own in (("sa", torus, "split_sa"),
+                          ("sa_l81", odd_torus, "plane_sa")):
+        n = lat.nspins
+        s0 = sa.random_state(torch.Generator().manual_seed(101), n,
+                             batch=(SA_READS,), device=dev)
+
+        def anneal(tau, engine="masked"):
+            return sa.anneal(lat, schedules.linear(3.0, 0.0, tau, device=dev),
+                             s0, torch.Generator().manual_seed(102),
+                             engine=engine)
+        _build.reset_launches()
+        out = anneal(SA_SWEEPS)
+        torch.cuda.synchronize()
+        launched = launched_now()
+        main_launches["packed_sa"] += launched.get("packed_sa", 0)
+        mean = float(lat.energy(out).double().mean()) / n
+        ms = slope_ms(anneal, DISORDER_TAUS, 3)[0]
+        own_ms = slope_ms(lambda tau: anneal(tau, "auto"), DISORDER_TAUS,
+                          3)[0]
+        lo, hi = RANGES[key]
+        emit({"phase": "parallel", "check": "masked_lattice",
+              "lattice": f"{int(n ** 0.5)}x{int(n ** 0.5)}",
+              "chains": SA_READS, "sweeps": SA_SWEEPS, "launches": launched,
+              "mean_energy_per_spin": mean, "range": [lo, hi],
+              "ms_per_sweep": ms, f"{own}_ms_per_sweep": own_ms,
+              "ratio": ms / own_ms, "card": name, "power_limit": power})
+        check(launched == {"packed_sa": 1}, f"the masked {key} anneal "
+                                            f"launched {launched}")
+        check(lo <= mean <= hi, f"the masked {key} mean {mean} lies in "
+                                f"[{lo}, {hi}]")
+
 
 def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
                     name):
@@ -4950,8 +5410,13 @@ def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
     (`gloo_rest`); (j) the samplers' five kernel offsets
     (`sampler_offset_checks`); (k) and (l) the sharded samplers and
     non-cluster engines on the one-rank mesh and the gloo ranks
-    (`sampler_sharding_checks`); (i) and (m)
-    dryrun.dryrun_multichip(PARALLEL_RANKS), JAX's legs 5-6b among them.
+    (`sampler_sharding_checks`); (n) the cluster kernels' chain offsets
+    (`cluster_offset_checks`); (o) and (q) the sharded cluster solves and
+    the disorder batch on the one-rank mesh and the gloo ranks as two
+    hosts (`rest_sharding_checks`); (p) the disorder batch, one launch
+    (`disorder_checks`); (r) the masked lattice engine
+    (`masked_lattice_checks`); (i) and (m)
+    dryrun.dryrun_multichip(PARALLEL_RANKS), JAX's legs 5-7 among them.
     """
     import torch.distributed as dist
     from montecarlosolvers_tpu_torch import schedules
@@ -5317,7 +5782,19 @@ def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
     emit({"phase": "parallel", "check": "samplers_slice_seconds",
           "seconds": time.perf_counter() - t0})
 
-    # (i) and (m): the dry run, legs 3c, 3d, 4, 5, 5b, 6 and 6b among them
+    # (n) the cluster kernels' chain offsets
+    t0 = time.perf_counter()
+    cluster_offset_checks(dev, gtorus, power, name)
+    # (o) and (q): the sharded cluster solves and the disorder batch on the
+    # one-rank NCCL mesh and the gloo ranks
+    rest_sharding_checks(dev, main_launches, power, name)
+    # (p) the disorder batch, (r) the masked lattice engine
+    disorder_checks(dev, main_launches, power, name)
+    masked_lattice_checks(dev, main_launches, torus, odd_torus, power, name)
+    emit({"phase": "parallel", "check": "rest_slice_seconds",
+          "seconds": time.perf_counter() - t0})
+
+    # (i) and (m): the dry run, legs 3c, 3d, 4, 5, 5b, 6, 6b and 7 among them
     t0 = time.perf_counter()
     legs = dryrun.dryrun_multichip(PARALLEL_RANKS, dev.type)
     emit({"phase": "parallel", "check": "dryrun_multichip",
@@ -6503,7 +6980,8 @@ def main():
          "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"],
          "bound_by": results[k]["bound_by"],
-         "library_ms": results[k].get("library_ms")}
+         "library_ms": results[k].get("library_ms"),
+         **({"gained": GAINED[k]} if k in GAINED else {})}
         for k, (key, src, tpu) in KERNELS.items()
     ]})
     # seconds from the start at the end of each phase

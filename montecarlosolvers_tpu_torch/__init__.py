@@ -48,13 +48,13 @@ bench` (`__main__.py`), `utils/` (observables, resumable checkpointed
 anneals, flip counters and torch.profiler traces), the value studies of
 `bench/` (`pt_value`, `pa_value`, `icm_value`, `cluster_value`,
 `cluster_crossover`, `ladder_calibration`) and the four drivers of
-`examples/`. The parallel layer's chain and Trotter axes are here on
-torch.distributed (`parallel/`: chain-sharded `sa.anneal` and `qmc.anneal`
-on a DTensor state, the Trotter-sharded PIQMC engines of
-`parallel/trotter.py`); a call that needs the rest of it raises
-NotImplementedError naming its ROADMAP.md item, and so does a call the JAX
-package does not run on a DenseProblem (`qmc.anneal`, `svmc.anneal`,
-solve's "piqmc", "svmc", "paq").
+`examples/`. The parallel layer is here on torch.distributed
+(`parallel/`: every solver on a chain-sharded DTensor state, the
+Trotter-sharded PIQMC engines of `parallel/trotter.py`, the disorder
+batches of `parallel/disorder.py` and their (disorder, chains) mesh across
+hosts, `parallel/multihost.py`). A call the JAX package does not run on a
+DenseProblem (`qmc.anneal`, `svmc.anneal`, solve's "piqmc", "svmc",
+"paq") raises NotImplementedError.
 
 Every function that takes `device=None` builds on the CUDA card and raises
 on a host without one (`_device.resolve`); the solvers run on the

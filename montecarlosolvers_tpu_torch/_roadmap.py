@@ -1,14 +1,10 @@
-"""Where each part of the JAX package that the port does not cover yet is
-queued: every refusal in the port names its ROADMAP.md item through here."""
+"""The port's refusals: a problem that is not one of the port's types
+(`require_problem`), and the error a part of the JAX package not ported
+yet raises, naming its ROADMAP.md item (`not_ported`; after ROADMAP.md
+queue 1 no call of the port raises it). `is_sharded` tells a DTensor
+state from a plain one."""
 
 from __future__ import annotations
-
-# The parallel layer's chain and Trotter axes (queue 1, items 3 and 4) and
-# the chain sharding of the samplers and the non-cluster engines (item 5)
-# are ported: montecarlosolvers_tpu_torch/parallel/. The rest of it (chain
-# sharding of the cluster engines, the disorder axis, multihost, and the
-# masked lattice engine) is item 6.
-SHARDED = "queue 1, item 6 (the rest of the parallel layer)"
 
 
 def require_problem(problem, sparse_only=None):
@@ -55,10 +51,3 @@ def is_sharded(x):
 
     return isinstance(x, DTensor)
 
-
-def refuse_sharded(what, *states):
-    """Raise `not_ported(what on a sharded state, SHARDED)` when any of
-    `states` is a DTensor: the engines whose chain sharding is still
-    queued at ROADMAP.md queue 1, item 6."""
-    if any(is_sharded(s) for s in states):
-        raise not_ported(f"{what} on a sharded (DTensor) state", SHARDED)

@@ -56,13 +56,16 @@ fk_label_kernel(const int* __restrict__ nbr_idx,
                 const float* __restrict__ teff_sched,
                 const float* __restrict__ lut, float* s, int* parent_g,
                 unsigned char* flags_g, int P, int n, int maxnb, int steps,
-                uint32_t seed_term, int use_smem) {
+                uint32_t seed_term, int use_smem, uint32_t chain0) {
   // p_same[P], p_diff[P], then with use_smem parent[P n] (int) and the
   // ghost and frozen flags (P n bytes each)
   extern __shared__ float dyn[];
   float* p_same = dyn;
   float* p_diff = dyn + P;
+  // the state and scratch of local chain `chain`; every draw keyed by its
+  // global index gchain (a chain shard's chains count from chain0)
   const int chain = blockIdx.x;
+  const uint32_t gchain = chain0 + static_cast<uint32_t>(chain);
   const int PN = P * n;
   int* parent;
   unsigned char* ghost;
@@ -76,7 +79,7 @@ fk_label_kernel(const int* __restrict__ nbr_idx,
   unsigned char* frozen = ghost + PN;
   volatile unsigned char* vfrozen = frozen;
   float* sc = s + static_cast<size_t>(chain) * PN;
-  const uint32_t row0 = static_cast<uint32_t>(chain) * P;
+  const uint32_t row0 = gchain * P;
 
   for (int t = 0; t < steps; ++t) {
     const float b = __ldg(b_sched + t);
@@ -136,7 +139,7 @@ fk_label_kernel(const int* __restrict__ nbr_idx,
         }
       }
       if (kBath) {
-        const uint32_t line = (static_cast<uint32_t>(chain) * n + idi) * P;
+        const uint32_t line = (gchain * n + idi) * P;
         for (int q = k + 1; q < P; ++q) {
           const float sq = sc[static_cast<size_t>(q) * n + i];
           const float p = sq == si ? p_same[q - k] : p_diff[q - k];
@@ -159,7 +162,7 @@ fk_label_kernel(const int* __restrict__ nbr_idx,
       const int k = e / n, i = e - k * n;
       const int r = mcs::find_root(parent, k * n + __ldg(perm + i));
       if (!vfrozen[r] &&
-          mcs::uniform01(c_coin, static_cast<uint32_t>(chain) * PN + r) <
+          mcs::uniform01(c_coin, gchain * PN + r) <
               0.5f) {
         sc[e] = -sc[e];
       }
@@ -173,7 +176,8 @@ fk_label_kernel(const int* __restrict__ nbr_idx,
 // `steps` Swendsen-Wang sweeps of chains x (P, n) packed spins `s` in place,
 // in one launch: the schedules B, J_perp, T_eff (steps,), the bath table
 // lut (P - 1,) or null (symmetric in ring distance), step0 the hash step of
-// the first. With use_smem the union-find lives in shared memory; else
+// the first, chain0 the global index of the first chain, which keys the
+// draws (a chain shard; 0 unsharded). With use_smem the union-find lives in shared memory; else
 // parents (chains, P n) int32 and flags (chains, 2 P n) bytes are device
 // scratch. All device pointers; launches on `stream` and returns
 // cudaGetLastError().
@@ -184,7 +188,7 @@ extern "C" int fk_label_anneal(const int* nbr_idx, const float* nbr_J,
                                int* parents, unsigned char* flags,
                                int chains, int P, int n, int maxnb,
                                int steps, int seed, int step0, int use_smem,
-                               int threads, void* stream) {
+                               int threads, int chain0, void* stream) {
   if (chains == 0 || n == 0 || P == 0 || steps == 0) return cudaSuccess;
   if (!use_smem && (parents == nullptr || flags == nullptr)) {
     return cudaErrorInvalidValue;
@@ -201,7 +205,7 @@ extern "C" int fk_label_anneal(const int* nbr_idx, const float* nbr_J,
   if (err != cudaSuccess) return err;
   kernel<<<chains, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       nbr_idx, nbr_J, h, perm, b_sched, jp, teff, lut, s, parents, flags, P,
-      n, maxnb, steps, seed_term, use_smem);
+      n, maxnb, steps, seed_term, use_smem, static_cast<uint32_t>(chain0));
   return cudaGetLastError();
 }
 

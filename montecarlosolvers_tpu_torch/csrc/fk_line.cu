@@ -98,11 +98,14 @@ __global__ void fk_line_kernel(const int* __restrict__ nbr_idx,
                                const float* __restrict__ p_pair, float teff,
                                float* s, int P, int n, int maxnb, int t,
                                int step, int color, int ncls,
-                               uint32_t seed_term) {
+                               uint32_t seed_term, uint32_t chain0) {
   const int lane = threadIdx.x & 31;
   const int li = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (li >= ncls) return;  // the whole warp
+  // the state of local chain `chain`; every draw keyed by its global index
+  // gchain (a chain shard's chains count from chain0)
   const int chain = blockIdx.y;
+  const uint32_t gchain = chain0 + static_cast<uint32_t>(chain);
   const int i = __ldg(starts + color) + li;
   const uint32_t idi = static_cast<uint32_t>(__ldg(perm + i));
   float* sc = s + static_cast<size_t>(chain) * P * n;
@@ -123,14 +126,14 @@ __global__ void fk_line_kernel(const int* __restrict__ nbr_idx,
   const uint32_t c_b = mcs::cluster_counter(seed_term, step, mcs::kBathBond);
   const uint32_t c_acc =
       mcs::cluster_counter(seed_term, step, mcs::kLineAccept);
-  const uint32_t line = (static_cast<uint32_t>(chain) * n + idi) * P;
+  const uint32_t line = (gchain * n + idi) * P;
   float kval = 0.0f;
   int seed_slice = 0;
   if (!kFullSw) {
     const uint32_t c_seed =
         mcs::cluster_counter(seed_term, step, mcs::kLineSeed);
     seed_slice = mcs::index_draw(
-        mcs::uniform01(c_seed, static_cast<uint32_t>(chain) * n + idi), P);
+        mcs::uniform01(c_seed, gchain * n + idi), P);
     kval = slice_of(s0, s1, seed_slice);
   }
 
@@ -177,7 +180,7 @@ __global__ void fk_line_kernel(const int* __restrict__ nbr_idx,
         __fsub_rn(__fmul_rn(t1, tn1), __fmul_rn(s1, sn1)), P);
     const float de = __fsub_rn(__fmul_rn(b, lin), __fmul_rn(jp, tro));
     const float u = mcs::uniform01(
-        c_acc, static_cast<uint32_t>(chain) * P * n + idi);
+        c_acc, gchain * P * n + idi);
     if (mcs::metropolis_accept(de, teff, u)) {
       if (c0) sc[static_cast<size_t>(a0) * n + i] = t0;
       if (c1) sc[static_cast<size_t>(a1) * n + i] = t1;
@@ -189,7 +192,7 @@ __global__ void fk_line_kernel(const int* __restrict__ nbr_idx,
   const uint32_t c_t =
       mcs::cluster_counter(seed_term, step, mcs::kTrotterBond);
   const float pt = __ldg(pt_sched + t);
-  const uint32_t row0 = static_cast<uint32_t>(chain) * P;
+  const uint32_t row0 = gchain * P;
   const int n0 = a0 + 1 == P ? 0 : a0 + 1, n1 = a1 + 1 == P ? 0 : a1 + 1;
   const float sn0 = slice_of(s0, s1, n0), sn1 = slice_of(s0, s1, n1);
   if (h0 && s0 == sn0 &&
@@ -254,8 +257,9 @@ __global__ void fk_line_kernel(const int* __restrict__ nbr_idx,
 // at schedule index t (b_sched, jp, p_t) and T_eff `teff`, on the draws of
 // hash step `step`; p_pair (P, P) the bath pairs' probabilities;
 // per_slice_seeds != 0 for WC3 (sw_full_phase), else WC2
-// (bath_cluster_phase). `warps` lines a CTA. All device pointers; launches
-// on `stream` and returns cudaGetLastError().
+// (bath_cluster_phase); chain0 the global index of the first chain, which
+// keys the draws (a chain shard; 0 unsharded). `warps` lines a CTA. All
+// device pointers; launches on `stream` and returns cudaGetLastError().
 extern "C" int fk_line_phase(const int* nbr_idx, const float* nbr_J,
                              const float* h, const int* perm,
                              const int* starts, const float* b_sched,
@@ -263,7 +267,8 @@ extern "C" int fk_line_phase(const int* nbr_idx, const float* nbr_J,
                              const float* p_pair, float teff, float* s,
                              int chains, int P, int n, int maxnb, int t,
                              int step, int color, int ncls, int seed,
-                             int per_slice_seeds, int warps, void* stream) {
+                             int per_slice_seeds, int warps, int chain0,
+                             void* stream) {
   if (chains == 0 || ncls == 0 || P == 0) return cudaSuccess;
   if (P > 64) return cudaErrorInvalidValue;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
@@ -272,7 +277,8 @@ extern "C" int fk_line_phase(const int* nbr_idx, const float* nbr_J,
                                 : fk_line_kernel<false>;
   kernel<<<grid, 32 * warps, 0, static_cast<cudaStream_t>(stream)>>>(
       nbr_idx, nbr_J, h, perm, starts, b_sched, jp, p_t, p_pair, teff, s, P,
-      n, maxnb, t, step, color, ncls, seed_term);
+      n, maxnb, t, step, color, ncls, seed_term,
+      static_cast<uint32_t>(chain0));
   return cudaGetLastError();
 }
 

@@ -66,7 +66,8 @@ struct Step {
   const float* h;
   const int* perm;
   const float* sc;  // the chain's (P, n) spins
-  int P, n, maxnb, chain;
+  int P, n, maxnb;
+  uint32_t chain;  // the chain's global index, chain0 + blockIdx.x
   float b, jp, teff, kval;
   uint32_t c_sp, c_t, c_b;
 };
@@ -90,7 +91,7 @@ __device__ __forceinline__ float site_de(const Step& st, int k, int j) {
 __device__ __forceinline__ float sp_uniform(const Step& st, int k, int id_r,
                                             int m) {
   const uint32_t uid =
-      ((static_cast<uint32_t>(st.chain) * st.P + k) * st.n + id_r) *
+      ((st.chain * st.P + k) * st.n + id_r) *
           static_cast<uint32_t>(st.maxnb) + m;
   return mcs::uniform01(st.c_sp, uid);
 }
@@ -147,7 +148,7 @@ __device__ bool trotter_bond(const Step& st, int kb, int i) {
     de = __fmul_rn(__fmul_rn(__fmul_rn(-2.0f, st.jp), s0), s1);
   }
   const uint32_t uid =
-      (static_cast<uint32_t>(st.chain) * st.P + kb) * st.n +
+      (st.chain * st.P + kb) * st.n +
       __ldg(st.perm + i);
   return mcs::uniform01(st.c_t, uid) < mcs::bond_prob(de, st.teff);
 }
@@ -162,7 +163,7 @@ fk_wolff_kernel(const int* __restrict__ nbr_idx,
                 const float* __restrict__ teff_sched,
                 const float* __restrict__ lut, float* s, unsigned* bits_all,
                 int* queue_all, long long* visited, int P, int n, int maxnb,
-                int steps, uint32_t seed_term) {
+                int steps, uint32_t seed_term, uint32_t chain0) {
   // p_same[P], p_diff[P] (the bath by ring offset), rows[P] (field sums)
   extern __shared__ float dyn[];
   float* p_same = dyn;
@@ -173,14 +174,17 @@ fk_wolff_kernel(const int* __restrict__ nbr_idx,
   __shared__ int accept_s;
   __shared__ unsigned long long count_s;
 
+  // the state and scratch of local chain `chain`; every draw keyed by its
+  // global index gchain (a chain shard's chains count from chain0)
   const int chain = blockIdx.x;
+  const uint32_t gchain = chain0 + static_cast<uint32_t>(chain);
   const int PN = P * n;
   const int words = (PN + 31) / 32;
   float* sc = s + static_cast<size_t>(chain) * PN;
   unsigned* bits = bits_all + static_cast<size_t>(chain) * words;
   int* queue = queue_all + static_cast<size_t>(chain) * 2 * PN;
 
-  Step st{nbr_idx, nbr_J, h, perm, sc, P, n, maxnb, chain,
+  Step st{nbr_idx, nbr_J, h, perm, sc, P, n, maxnb, gchain,
           0.0f, 0.0f, 0.0f, 0.0f, 0u, 0u, 0u};
   // with no field the field term is 0 whatever the cluster: not summed
   bool nonzero = false;
@@ -204,9 +208,9 @@ fk_wolff_kernel(const int* __restrict__ nbr_idx,
       const uint32_t c_seed =
           mcs::cluster_counter(seed_term, t, mcs::kWolffSeed);
       const int spin = mcs::index_draw(
-          mcs::uniform01(c_seed, 2u * static_cast<uint32_t>(chain)), n);
+          mcs::uniform01(c_seed, 2u * gchain), n);
       const int slice = mcs::index_draw(
-          mcs::uniform01(c_seed, 2u * static_cast<uint32_t>(chain) + 1u),
+          mcs::uniform01(c_seed, 2u * gchain + 1u),
           P);
       const int x0 = slice * n + spin;
       bits[x0 >> 5] = 1u << (x0 & 31);
@@ -256,8 +260,7 @@ fk_wolff_kernel(const int* __restrict__ nbr_idx,
         }
         if (kBath) {
           const float sk = sc[x];
-          const uint32_t line =
-              static_cast<uint32_t>(chain) * n + __ldg(perm + i);
+          const uint32_t line = gchain * n + __ldg(perm + i);
           for (int q = 0; q < P; ++q) {
             const int y = q * n + i;
             if (q == k || visited_bit(bits, y)) continue;
@@ -305,8 +308,7 @@ fk_wolff_kernel(const int* __restrict__ nbr_idx,
         }
         const float de = __fmul_rn(__fmul_rn(-2.0f, st.b), tot);
         const float u = mcs::uniform01(
-            mcs::cluster_counter(seed_term, t, mcs::kAccept),
-            static_cast<uint32_t>(chain));
+            mcs::cluster_counter(seed_term, t, mcs::kAccept), gchain);
         accept_s = mcs::metropolis_accept(de, st.teff, u) ? 1 : 0;
       }
       __syncthreads();
@@ -343,10 +345,10 @@ void launch(int chains, int threads, size_t smem, cudaStream_t stream,
             const int* perm, const float* b_sched, const float* jp,
             const float* teff, const float* lut, float* s, unsigned* bits,
             int* queue, long long* visited, int P, int n, int maxnb,
-            int steps, uint32_t seed_term) {
+            int steps, uint32_t seed_term, uint32_t chain0) {
   fk_wolff_kernel<kRuleFull, kBath><<<chains, threads, smem, stream>>>(
       nbr_idx, nbr_J, h, perm, b_sched, jp, teff, lut, s, bits, queue,
-      visited, P, n, maxnb, steps, seed_term);
+      visited, P, n, maxnb, steps, seed_term, chain0);
 }
 
 }  // namespace
@@ -357,8 +359,9 @@ void launch(int chains, int threads, size_t smem, cudaStream_t stream,
 // rule "full". bits (chains,
 // ceil(P n / 32)) and queue (chains, 2, P n) are scratch; visited (chains,)
 // int64, or null, gains each chain's cluster sizes. step0: the hash step of
-// the first step. All device pointers; launches on `stream` and returns
-// cudaGetLastError().
+// the first step; chain0: the global index of the first chain, which keys
+// the draws (a chain shard; 0 unsharded). All device pointers; launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int fk_wolff_anneal(const int* nbr_idx, const float* nbr_J,
                                const float* h, const int* perm,
                                const float* b_sched, const float* jp,
@@ -366,7 +369,8 @@ extern "C" int fk_wolff_anneal(const int* nbr_idx, const float* nbr_J,
                                unsigned* bits, int* queue,
                                long long* visited, int chains, int P, int n,
                                int maxnb, int steps, int seed, int step0,
-                               int rule_full, int threads, void* stream) {
+                               int rule_full, int threads, int chain0,
+                               void* stream) {
   if (chains == 0 || n == 0 || P == 0 || steps == 0) return cudaSuccess;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
                              static_cast<uint32_t>(step0) * mcs::kStepMult;
@@ -375,7 +379,8 @@ extern "C" int fk_wolff_anneal(const int* nbr_idx, const float* nbr_J,
   auto go = rule_full ? (lut ? launch<true, true> : launch<true, false>)
                       : (lut ? launch<false, true> : launch<false, false>);
   go(chains, threads, smem, st, nbr_idx, nbr_J, h, perm, b_sched, jp, teff,
-     lut, s, bits, queue, visited, P, n, maxnb, steps, seed_term);
+     lut, s, bits, queue, visited, P, n, maxnb, steps, seed_term,
+     static_cast<uint32_t>(chain0));
   return cudaGetLastError();
 }
 

@@ -42,6 +42,19 @@
 // memory (any N, any color count, any maxnb with one design), a
 // __syncthreads() between blocks since only this CTA touches the chain.
 //
+// Disorder batches (parallel/disorder.py::vmap_disorder of sa.anneal). A
+// launch of D x C chains with d_chains = C anneals D coupling realizations
+// of one topology at once: chain c reads realization r = c / C, its
+// tables at nbr_J + r N maxnb and h + r N (a (D, N, maxnb) and (D, N)
+// stack in packed row order), its own hash seed seeds[r], and the uid of
+// chain chain0 + c % C, so realization r equals a solo launch of its
+// tables with its seed bitwise. That is the JAX package's vmap of the
+// masked sweep over the stacked couplings (parallel/disorder.py:68). The
+// per-step tables of the noisy anneal and the disorder stride would both
+// move the same pointers: the entry point refuses the two together, as the
+// JAX package has no noisy disorder batch. d_chains = 0 (one seed) is
+// today's launch.
+//
 // A temperature per chain (parallel tempering, solvers/pt.py): the template
 // argument kPerChain reads temps[t * stride_t + chain * stride_c] once a
 // step; the shared instantiation reads temps[t]. A packing that is not
@@ -70,15 +83,26 @@ packed_sa_kernel(const int* __restrict__ nbr_idx,
                  float* __restrict__ energies, int chains, int n, int maxnb,
                  int ncolors, int steps, uint32_t seed_term, int j_stride,
                  int h_stride, int mcsteps, int stride_t, int stride_c,
-                 uint32_t chain0) {
+                 uint32_t chain0, int d_chains, const int* __restrict__ seeds,
+                 uint32_t step_term) {
   __shared__ float red[mcs::kPackedThreads / 32];
   const int chain = blockIdx.x;
   float* sc = s + static_cast<size_t>(chain) * n;
   float* const ss = kImproper ? snap + static_cast<size_t>(chain) * n
                               : nullptr;
+  // a disorder batch: this chain's realization r, its tables and seed, and
+  // its index inside the realization's block of d_chains
+  const int r = d_chains ? chain / d_chains : 0;
+  const int rc = d_chains ? chain - r * d_chains : chain;
+  if (d_chains) {
+    nbr_J += static_cast<size_t>(r) * n * maxnb;
+    h += static_cast<size_t>(r) * n;
+    seed_term = static_cast<uint32_t>(__ldg(seeds + r)) * mcs::kSeedMult +
+                step_term;
+  }
   // uid = chain*n + perm[i], the chain counted from chain0 (the first
   // chain of a chain shard)
-  const uint32_t uid0 = (chain0 + static_cast<uint32_t>(chain)) *
+  const uint32_t uid0 = (chain0 + static_cast<uint32_t>(rc)) *
                         static_cast<uint32_t>(n);
   for (int t = 0; t < steps; ++t) {
     const float temp =
@@ -134,8 +158,11 @@ packed_sa_kernel(const int* __restrict__ nbr_idx,
 // strides and the sweeps a row (above); step0: the step the hash counts
 // the first sweep as (a one-sweep launch inside a longer anneal); chain0:
 // the global index of the first chain, which the uids count from (a chain
-// shard; 0 unsharded). All device pointers; launches on `stream` and
-// returns cudaGetLastError().
+// shard; 0 unsharded); d_chains: 0, or the chains a realization of a
+// disorder batch, whose (D,) int32 hash seeds are `seeds` (above; nbr_J
+// and h then hold D stacked tables, and j_stride and h_stride must be 0).
+// All device pointers; launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int packed_sa_anneal(const int* nbr_idx, const float* nbr_J,
                                 const float* h, const int* perm,
                                 const int* starts, const float* temps,
@@ -144,13 +171,20 @@ extern "C" int packed_sa_anneal(const int* nbr_idx, const float* nbr_J,
                                 int steps, int seed, int step0, int threads,
                                 int j_stride, int h_stride, int mcsteps,
                                 int stride_t, int stride_c, int chain0,
+                                int d_chains, const int* seeds,
                                 void* stream) {
   if (chains == 0 || n == 0) return cudaSuccess;
   if (mcsteps < 1) return cudaErrorInvalidValue;
+  if (d_chains < 0 ||
+      (d_chains && (seeds == nullptr || chains % d_chains || j_stride ||
+                    h_stride))) {
+    return cudaErrorInvalidValue;
+  }
   // step0 folds into the seed term: counter(seed_term, t, i) is then
   // counter(seed, step0 + t, i), and so is every other counter of the step
-  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
-                             static_cast<uint32_t>(step0) * mcs::kStepMult;
+  const uint32_t step_term = static_cast<uint32_t>(step0) * mcs::kStepMult;
+  const uint32_t seed_term =
+      static_cast<uint32_t>(seed) * mcs::kSeedMult + step_term;
   const auto kernel =
       snap ? (stride_c ? packed_sa_kernel<true, true>
                        : packed_sa_kernel<false, true>)
@@ -160,7 +194,7 @@ extern "C" int packed_sa_anneal(const int* nbr_idx, const float* nbr_J,
       nbr_idx, nbr_J, h, perm, starts, temps, s, snap, energies, chains, n,
       maxnb,
       ncolors, steps, seed_term, j_stride, h_stride, mcsteps, stride_t,
-      stride_c, static_cast<uint32_t>(chain0));
+      stride_c, static_cast<uint32_t>(chain0), d_chains, seeds, step_term);
   return cudaGetLastError();
 }
 

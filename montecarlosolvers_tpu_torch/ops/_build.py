@@ -53,9 +53,11 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _PHASED_TAIL = [_P, _P, _NP, _NP]
 # C signatures: function -> (restype, argtypes). Every entry point of the
 # engines a chain-sharded state runs on (kernels A, B, 5, 6, 3, packed SA,
-# generic PIQMC and its bath form) takes `chain0`, the global index of its
-# first chain, which the hash's uids count from (0 unsharded), as its last
-# int, before energies or stream.
+# generic PIQMC and its bath form, and the cluster kernels fk_wolff,
+# fk_label and fk_line) takes `chain0`, the global index of its first
+# chain, which the hash's uids count from (0 unsharded), as its last int,
+# before energies or stream (packed SA: before its disorder batch's
+# d_chains and seeds).
 SIGNATURES = {
     "split_sa": {
         # w, h, sched, a_in, b_in, a_out, b_out (the halves as chain bits),
@@ -206,8 +208,10 @@ SIGNATURES = {
         # counts the first sweep as), threads, j_stride, h_stride, mcsteps
         # (the per-step tables' strides, 0 for the static ones, and the
         # sweeps a table row), stride_t, stride_c (the temperature table's
-        # strides, stride_c 0 for one shared schedule), stream
-        "packed_sa_anneal": (_I, [_P] * 9 + [_I] * 14 + [_P]),
+        # strides, stride_c 0 for one shared schedule), chain0, d_chains
+        # (the chains a realization of a disorder batch, 0 for none), seeds
+        # (the batch's (D,) int32 hash seeds, or null), stream
+        "packed_sa_anneal": (_I, [_P] * 9 + [_I] * 15 + [_P] * 2),
         "packed_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "packed_svmc": {
@@ -271,23 +275,23 @@ SIGNATURES = {
         # nbr_idx, nbr_J, h, perm, b_sched, jp, teff, lut (or null), s (in
         # place), visited bits, queues (scratch), visited counts (or null),
         # chains, P, n, maxnb, steps, seed, step0, rule_full, threads,
-        # stream
-        "fk_wolff_anneal": (_I, [_P] * 12 + [_I] * 9 + [_P]),
+        # chain0, stream
+        "fk_wolff_anneal": (_I, [_P] * 12 + [_I] * 10 + [_P]),
         "fk_wolff_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "fk_label": {
         # nbr_idx, nbr_J, h, perm, b_sched, jp, teff, lut (or null), s (in
         # place), parents and flags (scratch, null with smem), chains, P,
-        # n, maxnb, steps, seed, step0, smem, threads, stream
-        "fk_label_anneal": (_I, [_P] * 11 + [_I] * 9 + [_P]),
+        # n, maxnb, steps, seed, step0, smem, threads, chain0, stream
+        "fk_label_anneal": (_I, [_P] * 11 + [_I] * 10 + [_P]),
         "fk_label_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "fk_line": {
         # nbr_idx, nbr_J, h, perm, starts, b_sched, jp, p_t, p_pair, teff,
         # s (in place), chains, P, n, maxnb, t, step, color, class size,
-        # seed, per_slice_seeds, warps, stream
+        # seed, per_slice_seeds, warps, chain0, stream
         "fk_line_phase": (
-            _I, [_P] * 9 + [ctypes.c_float] + [_P] + [_I] * 11 + [_P]),
+            _I, [_P] * 9 + [ctypes.c_float] + [_P] + [_I] * 12 + [_P]),
         "fk_line_phase_error_string": (ctypes.c_char_p, [_I]),
     },
     "fk_shard": {

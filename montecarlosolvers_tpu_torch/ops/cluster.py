@@ -669,63 +669,69 @@ def _hash(seed, step, stream, uid):
     return cr.uniform01(cr.cluster_counter(seed, step, stream), uid)
 
 
-def _row_uids(chains, slices, ids):
-    """(chains, P, N) int32 (chain * P + k) * N + ids[i]."""
+def _row_uids(chains, slices, ids, chain0=0):
+    """(chains, P, N) int32 (chain * P + k) * N + ids[i], the chains
+    counted from chain0 (a chain shard's first global chain)."""
     n = ids.shape[0]
-    c = torch.arange(chains, dtype=torch.int32, device=ids.device)
+    c = cr._chains(chains, chain0, ids.device)
     k = torch.arange(slices, dtype=torch.int32, device=ids.device)
     return ((c[:, None] * slices + k[None, :])[:, :, None] * n
             + ids.to(torch.int32))
 
 
-def _pair_uids(chains, slices, ids):
-    """(chains, N, P, P) int32 ((chain * N + ids[i]) * P + a) * P + b."""
+def _pair_uids(chains, slices, ids, chain0=0):
+    """(chains, N, P, P) int32 ((chain * N + ids[i]) * P + a) * P + b, the
+    chains counted from chain0."""
     n = ids.shape[0]
-    c = torch.arange(chains, dtype=torch.int32, device=ids.device)
+    c = cr._chains(chains, chain0, ids.device)
     a = torch.arange(slices, dtype=torch.int32, device=ids.device)
     line = c[:, None] * n + ids.to(torch.int32)  # (chains, N)
     return ((line[:, :, None, None] * slices + a[:, None]) * slices
             + a[None, :])
 
 
-def spatial_uniforms(seed, step, chains, slices, ids, maxnb):
+def spatial_uniforms(seed, step, chains, slices, ids, maxnb, chain0=0):
     """(chains, P, N, maxnb) uniforms of stream SP_BOND."""
     m = torch.arange(maxnb, dtype=torch.int32, device=ids.device)
-    uid = _row_uids(chains, slices, ids)[..., None] * maxnb + m
+    uid = _row_uids(chains, slices, ids, chain0)[..., None] * maxnb + m
     return _hash(seed, step, cr.SP_BOND, uid)
 
 
-def trotter_uniforms(seed, step, chains, slices, ids):
+def trotter_uniforms(seed, step, chains, slices, ids, chain0=0):
     return _hash(seed, step, cr.TROTTER_BOND,
-                 _row_uids(chains, slices, ids))
+                 _row_uids(chains, slices, ids, chain0))
 
 
-def bath_uniforms(seed, step, chains, slices, ids):
+def bath_uniforms(seed, step, chains, slices, ids, chain0=0):
     """(chains, N, P, P) uniforms of stream BATH_BOND; entry (a, b), a < b,
     is the pair's draw (`mirror_upper` keeps it)."""
-    return _hash(seed, step, cr.BATH_BOND, _pair_uids(chains, slices, ids))
+    return _hash(seed, step, cr.BATH_BOND,
+                 _pair_uids(chains, slices, ids, chain0))
 
 
-def wolff_draws(seed, step, chains, slices, ids, maxnb, bath):
+def wolff_draws(seed, step, chains, slices, ids, maxnb, bath, chain0=0):
     """The counter-hash draws of one Wolff step, in `wolff_update`'s
-    argument order (seed_slice, seed_spin, u_sp, u_t, u_b, u_acc)."""
+    argument order (seed_slice, seed_spin, u_sp, u_t, u_b, u_acc), the
+    chains counted from chain0."""
     n = ids.shape[0]
-    c = torch.arange(chains, dtype=torch.int32, device=ids.device)
+    c = cr._chains(chains, chain0, ids.device)
     return (cr.index_draw(_hash(seed, step, cr.WOLFF_SEED, 2 * c + 1),
                           slices),
             cr.index_draw(_hash(seed, step, cr.WOLFF_SEED, 2 * c), n),
-            spatial_uniforms(seed, step, chains, slices, ids, maxnb),
-            trotter_uniforms(seed, step, chains, slices, ids),
-            bath_uniforms(seed, step, chains, slices, ids) if bath else None,
+            spatial_uniforms(seed, step, chains, slices, ids, maxnb, chain0),
+            trotter_uniforms(seed, step, chains, slices, ids, chain0),
+            bath_uniforms(seed, step, chains, slices, ids, chain0)
+            if bath else None,
             _hash(seed, step, cr.ACCEPT, c))
 
 
 def wolff_anneal_ref(pg, b_sched, jp, teff, confs, seed, rule="local",
-                     lookuptable=None, step0=0, visited=None):
+                     lookuptable=None, step0=0, visited=None, chain0=0):
     """Plain form of csrc/fk_wolff.cu on packed confs (chains, P, N): step
     t is `wolff_update` on the packed problem with B_t, J_perp_t and
     T_eff_t (float32 (steps,) tensors), on the draws of step0 + t
-    (`wolff_draws`, keyed by the sites' original ids `pg.perm`). With
+    (`wolff_draws`, keyed by the sites' original ids `pg.perm` and the
+    chains' global indices from chain0, a chain shard's first). With
     `visited`, a (chains,) int64 tensor, adds each chain's cluster sizes
     to it (the kernel counts them likewise)."""
     prob = pg.as_problem()
@@ -733,7 +739,8 @@ def wolff_anneal_ref(pg, b_sched, jp, teff, confs, seed, rule="local",
     c = confs
     for t in range(b_sched.shape[0]):
         d = wolff_draws(seed, step0 + t, chains, P, pg.perm,
-                        prob.nbr_idx.shape[1], lookuptable is not None)
+                        prob.nbr_idx.shape[1], lookuptable is not None,
+                        chain0)
         c, comp = _wolff(prob, c, *d, teff[t], jp[t], b_sched[t], rule,
                          lookuptable, pg.perm)
         if visited is not None:
@@ -741,34 +748,36 @@ def wolff_anneal_ref(pg, b_sched, jp, teff, confs, seed, rule="local",
     return c
 
 
-def sw_draws(seed, step, chains, slices, ids, maxnb, bath):
+def sw_draws(seed, step, chains, slices, ids, maxnb, bath, chain0=0):
     """The counter-hash draws of one Swendsen-Wang step: (u_sp, u_t, u_b,
     u_h, coins) in `spacetime_sw_sweep`'s order; coins (chains, P * N) of
-    the labels 0..P*N-1."""
+    the labels 0..P*N-1; the chains counted from chain0."""
     n = ids.shape[0]
-    c = torch.arange(chains, dtype=torch.int32, device=ids.device)
+    c = cr._chains(chains, chain0, ids.device)
     lab = torch.arange(slices * n, dtype=torch.int32, device=ids.device)
-    return (spatial_uniforms(seed, step, chains, slices, ids, maxnb),
-            trotter_uniforms(seed, step, chains, slices, ids),
-            bath_uniforms(seed, step, chains, slices, ids) if bath else None,
-            _hash(seed, step, cr.GHOST, _row_uids(chains, slices, ids)),
+    return (spatial_uniforms(seed, step, chains, slices, ids, maxnb, chain0),
+            trotter_uniforms(seed, step, chains, slices, ids, chain0),
+            bath_uniforms(seed, step, chains, slices, ids, chain0)
+            if bath else None,
+            _hash(seed, step, cr.GHOST,
+                  _row_uids(chains, slices, ids, chain0)),
             _hash(seed, step, cr.COIN, c[:, None] * (slices * n) + lab)
             < 0.5)
 
 
 def sw_anneal_ref(pg, b_sched, jp, teff, confs, seed, lookuptable=None,
-                  step0=0, classical=False):
+                  step0=0, classical=False, chain0=0):
     """Plain form of csrc/fk_label.cu on packed confs (chains, P, N): step
     t is `spacetime_sw_sweep` on the packed problem (with `classical`, P =
     1, `classical_sw_sweep` at T = teff[t]: what sa.anneal_sw runs) on the
-    draws of step0 + t (`sw_draws`)."""
+    draws of step0 + t (`sw_draws`, the chains counted from chain0)."""
     prob = pg.as_problem()
     chains, P, _ = confs.shape
     c = confs
     for t in range(b_sched.shape[0]):
         u_sp, u_t, u_b, u_h, coins = sw_draws(
             seed, step0 + t, chains, P, pg.perm, prob.nbr_idx.shape[1],
-            lookuptable is not None)
+            lookuptable is not None, chain0)
         if classical:
             c = classical_sw_sweep(prob, c[:, 0], u_sp[:, 0], u_h[:, 0],
                                    coins, teff[t], pg.perm)[:, None]
@@ -779,17 +788,19 @@ def sw_anneal_ref(pg, b_sched, jp, teff, confs, seed, lookuptable=None,
     return c
 
 
-def line_draws(seed, step, chains, slices, ids, per_slice_seeds):
+def line_draws(seed, step, chains, slices, ids, per_slice_seeds, chain0=0):
     """The counter-hash draws of the line phases of one step: (u_bath,
     u_t, u_acc) of `sw_full_phase`, or ((u_bond, u_acc), seeds) of
-    `bath_cluster_phase` with the sweep's seed slices."""
+    `bath_cluster_phase` with the sweep's seed slices; the chains counted
+    from chain0."""
     n = ids.shape[0]
-    u_pair = bath_uniforms(seed, step, chains, slices, ids)
+    u_pair = bath_uniforms(seed, step, chains, slices, ids, chain0)
     if per_slice_seeds:
-        return (u_pair, trotter_uniforms(seed, step, chains, slices, ids),
+        return (u_pair,
+                trotter_uniforms(seed, step, chains, slices, ids, chain0),
                 _hash(seed, step, cr.LINE_ACCEPT,
-                      _row_uids(chains, slices, ids)))
-    c = torch.arange(chains, dtype=torch.int32, device=ids.device)
+                      _row_uids(chains, slices, ids, chain0)))
+    c = cr._chains(chains, chain0, ids.device)
     line = c[:, None] * n + ids.to(torch.int32)
     return ((u_pair, _hash(seed, step, cr.LINE_ACCEPT,
                            c[:, None] * (slices * n) + ids.to(torch.int32))),
@@ -797,16 +808,16 @@ def line_draws(seed, step, chains, slices, ids, per_slice_seeds):
 
 
 def line_phase_ref(pg, b, jp, teff, lookuptable, confs, seed, step, color,
-                   per_slice_seeds, p_pair=None):
+                   per_slice_seeds, p_pair=None, chain0=0):
     """Plain form of one launch of csrc/fk_line.cu: the line phase of
     color class `color` of step `step` on packed confs (chains, P, N),
     `sw_full_phase` (per_slice_seeds) or `bath_cluster_phase` on the
     packed problem, at float32 0-d B and J_perp and T_eff, on
-    `line_draws`."""
+    `line_draws` (the chains counted from chain0)."""
     prob = pg.as_problem()
     chains, P, _ = confs.shape
     mask = prob.color_masks[color]
-    d = line_draws(seed, step, chains, P, pg.perm, per_slice_seeds)
+    d = line_draws(seed, step, chains, P, pg.perm, per_slice_seeds, chain0)
     if per_slice_seeds:
         return sw_full_phase(prob, confs, *d, mask, teff, jp, b,
                              lookuptable, p_pair)

@@ -87,16 +87,17 @@ def _check_lut(lookuptable, P, device):
 
 
 def wolff_anneal(pg, b_sched, jp, teff, confs, seed, rule="local",
-                 lookuptable=None, step0=0, visited=None):
+                 lookuptable=None, step0=0, visited=None, chain0=0):
     """csrc/fk_wolff.cu on CUDA tensors, `cluster.wolff_anneal_ref` on CPU
     tensors; arguments as for the plain version (teff a float32 (steps,)
-    tensor; lookuptable None or a contiguous float32 (P-1,) tensor).
-    Returns the new configurations. One launch (LAUNCHES["fk_wolff"])."""
+    tensor; lookuptable None or a contiguous float32 (P-1,) tensor;
+    chain0 the global index of the first chain, a chain shard's). Returns
+    the new configurations. One launch (LAUNCHES["fk_wolff"])."""
     if rule not in ("local", "full"):
         raise ValueError(f"rule must be 'local' or 'full', got {rule!r}")
     if _build.route(confs.device, "cluster") == "cpu":
         return cl.wolff_anneal_ref(pg, b_sched, jp, teff, confs, seed, rule,
-                                   lookuptable, step0, visited)
+                                   lookuptable, step0, visited, chain0)
     chains, P, n = confs.shape
     dev = confs.device
     steps = int(b_sched.shape[0])
@@ -115,7 +116,7 @@ def wolff_anneal(pg, b_sched, jp, teff, confs, seed, rule="local",
         *graph, *sched, lut, _build.ptr(out), _build.ptr(bits),
         _build.ptr(queue), None if visited is None else _build.ptr(visited),
         chains, P, n, pg.nbr_idx.shape[1], steps, cr.wrap_int32(seed),
-        int(step0), int(rule == "full"), WOLFF_THREADS,
+        int(step0), int(rule == "full"), WOLFF_THREADS, int(chain0),
         _build.stream_of(dev))
     _build.raise_on_error(lib, "fk_wolff_anneal", rc)
     _build.LAUNCHES["fk_wolff"] += 1
@@ -129,9 +130,10 @@ def label_smem(P, n):
 
 
 def sw_anneal(pg, b_sched, jp, teff, confs, seed, lookuptable=None, step0=0,
-              classical=False):
+              classical=False, chain0=0):
     """csrc/fk_label.cu on CUDA tensors, `cluster.sw_anneal_ref` on CPU
-    tensors; arguments as for the plain version. Raises ValueError on the
+    tensors; arguments as for the plain version (chain0 the global index of
+    the first chain, a chain shard's). Raises ValueError on the
     card for a bath table that is not symmetric in ring distance: the
     kernel unions undirected bonds, and the JAX relaxation's bath edges
     are directed where lut[d-1] != lut[P-1-d] (schedules.bath_lookuptable
@@ -139,7 +141,7 @@ def sw_anneal(pg, b_sched, jp, teff, confs, seed, lookuptable=None, step0=0,
     (LAUNCHES["fk_label"])."""
     if _build.route(confs.device, "cluster") == "cpu":
         return cl.sw_anneal_ref(pg, b_sched, jp, teff, confs, seed,
-                                lookuptable, step0, classical)
+                                lookuptable, step0, classical, chain0)
     chains, P, n = confs.shape
     dev = confs.device
     if classical and P != 1:
@@ -166,7 +168,7 @@ def sw_anneal(pg, b_sched, jp, teff, confs, seed, lookuptable=None, step0=0,
         None if parent is None else _build.ptr(parent),
         None if flags is None else _build.ptr(flags), chains, P, n,
         pg.nbr_idx.shape[1], steps, cr.wrap_int32(seed), int(step0),
-        int(smem), LABEL_THREADS, _build.stream_of(dev))
+        int(smem), LABEL_THREADS, int(chain0), _build.stream_of(dev))
     _build.raise_on_error(lib, "fk_label_anneal", rc)
     _build.LAUNCHES["fk_label"] += 1
     return out
@@ -217,16 +219,17 @@ def line_tables(lookuptable, jp, teff, P, device):
 
 
 def line_phase(pg, b_sched, jp, p_t, t, teff, lookuptable, p_pair, confs,
-               seed, step, color, per_slice_seeds):
+               seed, step, color, per_slice_seeds, chain0=0):
     """csrc/fk_line.cu on CUDA tensors, `cluster.line_phase_ref` on CPU
     tensors: the line phase of class `color` at schedule index t (B_t,
     J_perp_t and the Trotter probability p_t[t]) on the draws of `step`,
-    T_eff = `teff` (a Python float). Returns the new configurations. One
-    launch (LAUNCHES["fk_line"]); P <= LINE_MAX_SLICES on the card."""
+    T_eff = `teff` (a Python float), the chains counted from chain0 (a
+    chain shard's first). Returns the new configurations. One launch
+    (LAUNCHES["fk_line"]); P <= LINE_MAX_SLICES on the card."""
     if _build.route(confs.device, "cluster") == "cpu":
         return cl.line_phase_ref(pg, b_sched[t], jp[t], teff, lookuptable,
                                  confs, seed, step, color, per_slice_seeds,
-                                 p_pair)
+                                 p_pair, chain0)
     chains, P, n = confs.shape
     dev = confs.device
     if P > LINE_MAX_SLICES:
@@ -243,7 +246,8 @@ def line_phase(pg, b_sched, jp, p_t, t, teff, lookuptable, p_pair, confs,
         ctypes.c_float(teff), _build.ptr(out), chains, P, n,
         pg.nbr_idx.shape[1], int(t), int(step), int(color),
         pg.starts[color + 1] - pg.starts[color], cr.wrap_int32(seed),
-        int(bool(per_slice_seeds)), LINE_WARPS, _build.stream_of(dev))
+        int(bool(per_slice_seeds)), LINE_WARPS, int(chain0),
+        _build.stream_of(dev))
     _build.raise_on_error(lib, "fk_line_phase", rc)
     _build.LAUNCHES["fk_line"] += 1
     return out
@@ -276,13 +280,15 @@ def _unpacked(pg, c, shape):
 
 
 def classical_anneal(problem, sched, spins, seed, mcsteps=1, kind="wolff",
-                     local_sweeps=True):
+                     local_sweeps=True, chain0=0):
     """Classical cluster anneal of an IsingProblem (JAX sa.anneal_wolff /
     anneal_sw): kind "wolff" one Wolff cluster a chain and step (P = 1, J_perp
     = 0: Gamma = inf, B = 1, T_eff = T), "sw" one Swendsen-Wang sweep; with
     `local_sweeps` a colored Metropolis sweep (csrc/packed_sa.cu) before
     each. sched: (steps,) temperatures; spins: (..., N) float32 +/-1 on the
-    problem's device. Returns the annealed spins."""
+    problem's device; chain0: the global index of the first chain (a chain
+    shard), which every launch's draws count from. Returns the annealed
+    spins."""
     pg = gk._graph_of(problem, spins, "spins")
     temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
     ones = torch.ones_like(temps)
@@ -293,29 +299,30 @@ def classical_anneal(problem, sched, spins, seed, mcsteps=1, kind="wolff",
     def cluster(c, sl, step0):
         if kind == "wolff":
             return wolff_anneal(pg, ones[sl], zeros[sl], temps[sl], c, seed,
-                                step0=step0)
+                                step0=step0, chain0=chain0)
         return sw_anneal(pg, ones[sl], zeros[sl], temps[sl], c, seed,
-                         step0=step0, classical=True)
+                         step0=step0, classical=True, chain0=chain0)
 
     if not local_sweeps:
         c = cluster(c, slice(None), 0)
     else:
         for t in range(temps.shape[0]):
             s = gk.packed_sa_anneal(pg, temps[t:t + 1], c.view(chains, -1),
-                                    seed, step0=t)
+                                    seed, step0=t, chain0=chain0)
             c = cluster(s.view(chains, 1, -1), slice(t, t + 1), t)
     return _unpacked(pg, c, spins.shape)
 
 
 def qmc_cluster_anneal(problem, a_sched, b_sched, temp, confs, seed,
                        mcsteps=1, kind="wolff", rule="local",
-                       lookuptable=None, local_sweeps=False):
+                       lookuptable=None, local_sweeps=False, chain0=0):
     """PIQMC cluster anneal of an IsingProblem (JAX qmc.anneal_wolff /
     anneal_sw): kind "wolff" one cluster a chain and step (rule "local" or
     "full"), "sw" one space-time Swendsen-Wang sweep, optional bath bonds
     from `lookuptable`; with `local_sweeps` (kind "sw") a space-time local
     sweep (csrc/generic_qmc.cu, no line moves) before each. confs: (...,
-    P, N) float32 +/-1 on the problem's device. Returns the annealed
+    P, N) float32 +/-1 on the problem's device; chain0: the global index of
+    the first chain (a chain shard). Returns the annealed
     configurations."""
     pg = gk._graph_of(problem, confs, "confs")
     P = confs.shape[-2]
@@ -329,27 +336,30 @@ def qmc_cluster_anneal(problem, a_sched, b_sched, temp, confs, seed,
     def cluster(c, sl, step0):
         if kind == "wolff":
             return wolff_anneal(pg, b[sl], jp[sl], teffs[sl], c, seed, rule,
-                                lut, step0)
-        return sw_anneal(pg, b[sl], jp[sl], teffs[sl], c, seed, lut, step0)
+                                lut, step0, chain0=chain0)
+        return sw_anneal(pg, b[sl], jp[sl], teffs[sl], c, seed, lut, step0,
+                         chain0=chain0)
 
     if not local_sweeps:
         c = cluster(c, slice(None), 0)
     else:
         for t in range(b.shape[0]):
             c = gk.generic_qmc_anneal(pg, b[t:t + 1], jp[t:t + 1], teff, c,
-                                      seed, False, step0=t)
+                                      seed, False, step0=t, chain0=chain0)
             c = cluster(c, slice(t, t + 1), t)
     return _unpacked(pg, c, confs.shape)
 
 
 def sw_bath_anneal(problem, a_sched, b_sched, temp, lookuptable, confs, seed,
-                   mcsteps=1, per_slice_seeds=True, local_sweeps=True):
+                   mcsteps=1, per_slice_seeds=True, local_sweeps=True,
+                   chain0=0):
     """Dissipative anneal with bath-bond line clusters (JAX
     qmc.anneal_sw_bath, WC2 / WC3) of an IsingProblem: each step, with
     `local_sweeps` and not `per_slice_seeds`, a dissipative local sweep
     (csrc/generic_qmc_bath.cu, sequential, no line moves), then one
-    fk_line phase a color class. confs: (..., P, N), P >= 2. Returns the
-    annealed configurations."""
+    fk_line phase a color class. confs: (..., P, N), P >= 2; chain0: the
+    global index of the first chain (a chain shard). Returns the annealed
+    configurations."""
     pg = gk._graph_of(problem, confs, "confs")
     P = confs.shape[-2]
     dev = problem.device
@@ -363,10 +373,11 @@ def sw_bath_anneal(problem, a_sched, b_sched, temp, lookuptable, confs, seed,
     for t in range(b.shape[0]):
         if local_sweeps and not per_slice_seeds:
             c = gk.generic_qmc_bath_anneal(pg, b[t:t + 1], jp[t:t + 1], teff,
-                                           bath, c, seed, False, step0=t)
+                                           bath, c, seed, False, step0=t,
+                                           chain0=chain0)
         for color in range(pg.num_colors):
             c = line_phase(pg, b, jp, p_t, t, teff, lut, p_pair, c, seed, t,
-                           color, per_slice_seeds)
+                           color, per_slice_seeds, chain0)
     return _unpacked(pg, c, confs.shape)
 
 

@@ -47,6 +47,7 @@ best slice's, for PIQMC) after every sweep into it, in a fixed order.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -79,7 +80,7 @@ def _step_tables(tables, t):
 
 
 def packed_sa_anneal_ref(pg, temps, spins, seed, energies=None,
-                         tables=None, step0=0, chain0=0):
+                         tables=None, step0=0, chain0=0, disorder=None):
     """Plain form of csrc/packed_sa.cu: anneal packed spins (chains, N)
     over the float32 temperatures `temps` ((steps,), or (steps, chains): a
     temperature a chain and step), sweep t by
@@ -90,7 +91,26 @@ def packed_sa_anneal_ref(pg, temps, spins, seed, energies=None,
     sweep t reads row t // mcsteps (the noisy anneal; no energies). step0:
     the step the hash counts sweep 0 as (a one-sweep call inside a longer
     anneal, as the cluster solvers make); chain0: the global index of the
-    first chain (a chain shard, whose uids count from it)."""
+    first chain (a chain shard, whose uids count from it). With `disorder`
+    = (nbr_J (D, N, maxnb), h (D, N), seeds (D ints)), the coupling
+    realizations of one topology in packed row order: the chains are D
+    blocks of chains // D, block r annealed on realization r's tables with
+    seed seeds[r] (`seed` unused) and its chains counted from chain0, as
+    a solo call of that realization (the disorder stride; no `tables`)."""
+    if disorder is not None:
+        if tables is not None:
+            raise ValueError("a disorder batch takes no per-step tables")
+        nbr_J, h, seeds = disorder
+        per = _disorder_chains(spins.shape[0], len(seeds))
+        out = []
+        for r, seed_r in enumerate(seeds):
+            rows = slice(r * per, (r + 1) * per)
+            out.append(packed_sa_anneal_ref(
+                dataclasses.replace(pg, nbr_J=nbr_J[r], h=h[r]),
+                temps if temps.dim() == 1 else temps[:, rows], spins[rows],
+                seed_r, None if energies is None else energies[:, rows],
+                step0=step0, chain0=chain0))
+        return torch.cat(out)
     hu = cr.hashed_uid(cr.generic_uids(spins.shape[0], pg.perm, pg.nspins,
                                        chain0=chain0))
     s = spins
@@ -230,6 +250,33 @@ def _check_tables(pg, tables, steps, energies, device):
             n * maxnb, n, int(mcsteps))
 
 
+def _disorder_chains(chains, realizations):
+    """The chains a realization of a disorder batch of `chains` chains
+    (ValueError unless the realizations divide them)."""
+    if realizations < 1 or chains % realizations:
+        raise ValueError(f"{chains} chains do not divide into "
+                         f"{realizations} realizations")
+    return chains // realizations
+
+
+def _check_disorder(disorder, tables, chains, n, maxnb, device):
+    """(nbr_J and h pointers, d_chains, seeds tensor) of a packed SA
+    launch's disorder batch `disorder` (`packed_sa_anneal_ref`), checked;
+    (None, 0, None) without one."""
+    if disorder is None:
+        return None, 0, None
+    if tables is not None:
+        raise ValueError("a disorder batch takes no per-step tables")
+    nbr_J, h, seeds = disorder
+    d = len(seeds)
+    per = _disorder_chains(chains, d)
+    _build.check_arg(nbr_J, "disorder nbr_J", (d, n, maxnb), device)
+    _build.check_arg(h, "disorder h", (d, n), device)
+    seeds_t = torch.tensor([cr.wrap_int32(x) for x in seeds],
+                           dtype=torch.int32, device=device)
+    return (_build.ptr(nbr_J), _build.ptr(h)), per, seeds_t
+
+
 def _snap(pg, state):
     """The scratch a packed kernel reads same-class neighbours from on a
     packing that is not proper (`PackedGraph.proper`, an odd periodic
@@ -240,22 +287,26 @@ def _snap(pg, state):
 
 
 def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
-                     step0=0, chain0=0):
+                     step0=0, chain0=0, disorder=None):
     """csrc/packed_sa.cu on CUDA tensors, `packed_sa_anneal_ref` on CPU
     tensors; arguments as for the plain version. Returns the new spins
     (a copy: the kernel anneals it in place). One launch
-    (LAUNCHES["packed_sa"], energies or not; with `tables`,
-    LAUNCHES["packed_sa_noisy"]; with a (steps, chains) `temps`, the
-    per-chain instantiation, LAUNCHES["packed_sa_chain"], whose table may
-    repeat one row: `_build.schedule_strides`)."""
+    (LAUNCHES["packed_sa"], energies or not, a disorder batch or not; with
+    `tables`, LAUNCHES["packed_sa_noisy"]; with a (steps, chains) `temps`,
+    the per-chain instantiation, LAUNCHES["packed_sa_chain"], whose table
+    may repeat one row: `_build.schedule_strides`)."""
     if _build.route(spins.device, "packed") == "cpu":
         return packed_sa_anneal_ref(pg, temps, spins, seed, energies, tables,
-                                    step0, chain0)
+                                    step0, chain0, disorder)
     chains, n = spins.shape
     dev = spins.device
     steps = int(temps.shape[0])
     graph, j_stride, h_stride, mcsteps = _check_tables(pg, tables, steps,
                                                        energies, dev)
+    tabs, d_chains, seeds = _check_disorder(disorder, tables, chains, n,
+                                            pg.nbr_J.shape[1], dev)
+    if tabs is not None:
+        graph = (graph[0],) + tabs + graph[3:]
     _build.check_arg(spins, "spins", (chains, pg.nspins), dev)
     strides = _build.schedule_strides(temps, "temps", steps, chains, dev)
     if strides[1] and tables is not None:
@@ -269,7 +320,8 @@ def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
         _build.energies_ptr(energies, steps, chains, dev), chains, n,
         pg.nbr_idx.shape[1], pg.num_colors, steps, cr.wrap_int32(seed),
         int(step0), THREADS, j_stride, h_stride, mcsteps, *strides,
-        int(chain0), _build.stream_of(dev))
+        int(chain0), d_chains, None if seeds is None else _build.ptr(seeds),
+        _build.stream_of(dev))
     _build.raise_on_error(lib, "packed_sa_anneal", rc)
     _build.LAUNCHES["packed_sa_noisy" if tables is not None
                     else "packed_sa_chain" if strides[1]
@@ -418,10 +470,15 @@ def anneal_packed(problem, sched, spins, seed, mcsteps=1,
     also return the energy after each sweep, (steps * mcsteps,) + batch;
     chain0: the global index of the first chain (a chain shard). Returns
     the annealed spins, same shape, or (spins, energies)."""
-    pg = _graph_of(problem, spins, "spins")
-    temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
+    return _anneal_on(_graph_of(problem, spins, "spins"), sched, spins, seed,
+                      mcsteps, collect_energy, chain0)
+
+
+def _anneal_on(pg, sched, spins, seed, mcsteps, collect_energy, chain0):
+    """`anneal_packed` on the packed layout `pg`."""
+    temps = schedules.expand_mcsteps(sched, mcsteps, pg.h.device)
     batch = spins.shape[:-1]
-    es = energy_buffer(collect_energy, temps.shape[0], batch, problem.device)
+    es = energy_buffer(collect_energy, temps.shape[0], batch, pg.h.device)
     out = packed_sa_anneal(pg, temps, _packed(pg, spins, pg.nspins), seed, es,
                            chain0=chain0)
     return with_energies(packed_ops.unpack_state(pg, out).reshape(
@@ -430,17 +487,30 @@ def anneal_packed(problem, sched, spins, seed, mcsteps=1,
 
 def anneal_masked(problem, sched, spins, seed, mcsteps=1,
                   collect_energy=False, chain0=0):
-    """SA anneal of an IsingProblem on the masked engine
-    (`ops/metropolis.py::sweep_scan`, the JAX solver's engine="masked"),
-    arguments and result as for `anneal_packed`. The masked and packed
-    engines draw the same uniforms at the same sites and give the same
-    spins bitwise (their energies round alike to float32 sums), so on a
-    CUDA device this runs the packed kernel (`anneal_packed`); the masked
-    plain version runs on the CPU."""
+    """SA anneal on the masked engine (`ops/metropolis.py::sweep_scan`,
+    the JAX solver's engine="masked") of an IsingProblem on its greedy
+    colors or of a LatticeProblem on its checkerboard, arguments and
+    result as for `anneal_packed`. The masked and packed engines draw the
+    same uniforms at the same sites and give the same spins bitwise, so on
+    a CUDA device this runs the packed kernel: `anneal_packed` on an
+    IsingProblem, and on a lattice the packing of its own checkerboard
+    (`packed.packed_from_lattice`, whose slots the masked lattice sweep
+    adds in the same order; not proper on an odd periodic L, where the
+    kernel reads same-class neighbours as the masked phase does,
+    ROADMAP.md queue 3). The masked plain version runs on the CPU (its
+    lattice energies are the lattice's own plane sums)."""
+    lattice = isinstance(problem, LatticeProblem)
+    if lattice:
+        if spins.device != problem.device:
+            raise ValueError(f"spins is on {spins.device}, problem on "
+                             f"{problem.device}")
+    else:
+        _check_problem(problem, spins, "spins")
     if _build.route(spins.device, "packed") == "cuda":
-        return anneal_packed(problem, sched, spins, seed, mcsteps,
-                             collect_energy, chain0)
-    _check_problem(problem, spins, "spins")
+        pg = (packed_ops.packed_from_lattice(problem) if lattice
+              else packed_ops.build_packed(problem))
+        return _anneal_on(pg, sched, spins, seed, mcsteps, collect_energy,
+                          chain0)
     temps = schedules.expand_mcsteps(sched, mcsteps, problem.device)
     batch = spins.shape[:-1]
     s = spins.to(torch.float32).reshape(-1, problem.nspins)

@@ -1,10 +1,11 @@
 """The parallel layer on torch.distributed (counterpart of
-montecarlosolvers_tpu/parallel/): device meshes and chain sharding
-(`mesh.py`; the samplers' rung- and population-sharded runs are
-solvers/_engines.py::ShardedEngine on it), and the Trotter-sharded PIQMC
+montecarlosolvers_tpu/parallel/): device meshes and chain sharding of every
+solver (`mesh.py`; the samplers' rung- and population-sharded runs are
+solvers/_engines.py::ShardedEngine on it), the Trotter-sharded PIQMC
 engines, the bath and the Wolff and Swendsen-Wang cluster engines among
-them (`trotter.py`). The disorder and multihost modules are queued at
-ROADMAP.md queue 1, item 6."""
+them (`trotter.py`), disorder batches of coupling realizations
+(`disorder.py`) and their (disorder, chains) mesh across hosts
+(`multihost.py`)."""
 
 from montecarlosolvers_tpu_torch.parallel.mesh import (
     chain_sharding,
@@ -14,3 +15,9 @@ from montecarlosolvers_tpu_torch.parallel.mesh import (
 from montecarlosolvers_tpu_torch.parallel import trotter
 
 __all__ = ["make_mesh", "shard_chains", "chain_sharding", "trotter"]
+from montecarlosolvers_tpu_torch.parallel import disorder  # noqa: E402
+
+__all__.append("disorder")
+from montecarlosolvers_tpu_torch.parallel import multihost  # noqa: E402
+
+__all__.append("multihost")

@@ -15,6 +15,7 @@ directory. Every rank ends with a barrier before it leaves the group.
 from __future__ import annotations
 
 import datetime
+import os
 import queue
 import socket
 import time
@@ -91,7 +92,9 @@ def legs(n_ranks, device_type):
     +/-1 states (leg 4); rung-sharded PT and quantum PT (leg 5), ICM (5b),
     population-sharded PA (6) and quantum PA (6b) bitwise equal to the
     single-device samplers, their rates, Houdayer fractions and log_z equal
-    too (where JAX holds its sharded log_z to allclose). Returns {leg:
+    too (where JAX holds its sharded log_z to allclose); the disorder batch
+    sharded over a (disorder, chains) mesh of the hosts LOCAL_WORLD_SIZE
+    makes (7, `multihost_leg`). Returns {leg:
     (best, ground)} of the ground-state legs and {leg: count} of the others
     (mismatched or non-spin values, and differing rates or log_z, 0)."""
     dev = torch.device(device_type) if device_type == "cpu" else \
@@ -209,7 +212,43 @@ def legs(n_ranks, device_type):
         ((got != 1) & (got != -1)).sum())
     assert out["trotter_sharded_bath_spins"] == 0, "non-spin values"
     out.update(sampler_legs(n_ranks, lat, chain_mesh, dev))
+    out.update(multihost_leg(n_ranks, dev))
     return out
+
+
+def multihost_leg(n_ranks, dev):
+    """JAX's leg 7 (__graft_entry__.py:476-515, tests/multihost_worker.py)
+    on the ranks of the default group, LOCAL_WORLD_SIZE of them a host
+    (`dryrun_multichip` makes two hosts): `multihost.dcn_mesh` with one
+    disorder row a host, each row's ranks on one host; `run_disorder_
+    sharded(sa.anneal)` on 2 realizations a row of random_2d_lattice(4), 8
+    chains each; every rank's block bitwise the full `vmap_disorder` run
+    it computes alone. Returns {"multihost_disorder": mismatched spins},
+    asserted 0."""
+    from montecarlosolvers_tpu_torch.parallel import disorder, multihost
+
+    hosts = multihost._hosts(n_ranks)[0]
+    mesh = multihost.dcn_mesh(disorder=hosts, chains=n_ranks // hosts,
+                              device_type=dev.type)
+    local = n_ranks // hosts
+    for row in mesh.mesh.tolist():
+        assert len({r // local for r in row}) == 1, (
+            f"disorder row {row} spans hosts of {local} ranks")
+    d, c = 2 * hosts, 8
+    probs = [instances.random_2d_lattice(4, rng=1000 + i, device=dev)[0]
+             for i in range(d)]
+    states = sa.random_state(_gen(7), 16, batch=(d, c), device=dev)
+    sched = schedules.linear(2.0, 0.1, 30, device=dev)
+    out = multihost.run_disorder_sharded(
+        sa.anneal, probs, sched, states, [_gen(70 + i) for i in range(d)],
+        mesh)
+    stacked, axes = disorder.stack_problems(probs)
+    ref = disorder.vmap_disorder(sa.anneal, axes)(
+        stacked, sched, states, [_gen(70 + i) for i in range(d)])
+    block = pmesh.local_of(ref, mesh, {0: "disorder", 1: "chains"})
+    bad = int((out.to_local() != block).sum())
+    assert bad == 0, "the disorder-sharded run diverged from vmap_disorder"
+    return {"multihost_disorder": bad}
 
 
 def sampler_legs(n_ranks, lat, chain_mesh, dev):
@@ -289,8 +328,9 @@ def init_rank(rank, n_ranks, port, device_type, backend=None):
                             timeout=datetime.timedelta(seconds=300))
 
 
-def _rank_main(fn, rank, n_ranks, port, device_type, args, results):
+def _rank_main(fn, rank, n_ranks, port, device_type, args, results, env):
     try:
+        os.environ.update(env)
         init_rank(rank, n_ranks, port, device_type)
         out = fn(n_ranks, device_type, *args)
         results.put((rank, None, out))
@@ -305,9 +345,11 @@ def _rank_main(fn, rank, n_ranks, port, device_type, args, results):
 RANK_TIMEOUT = 900
 
 
-def run_ranks(fn, n_ranks, device_type="cuda", args=()):
+def run_ranks(fn, n_ranks, device_type="cuda", args=(), env=None):
     """Spawn n_ranks ranks, each joined to a process group of its own
-    (`init_rank`) running fn(n_ranks, device_type, *args); returns their
+    (`init_rank`) running fn(n_ranks, device_type, *args), with the
+    variables of `env` set in each (say, LOCAL_WORLD_SIZE, the ranks a
+    host, for `multihost.dcn_mesh`); returns their
     results in rank order (picklable: host tensors or numpy). `fn` must be
     importable from its module, which each rank imports afresh. On the
     card the kernels are built here first. Raises RuntimeError with the
@@ -319,7 +361,8 @@ def run_ranks(fn, n_ranks, device_type="cuda", args=()):
     results = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main, args=(
-        fn, r, n_ranks, port, device_type, tuple(args), results))
+        fn, r, n_ranks, port, device_type, tuple(args), results,
+        dict(env or {})))
         for r in range(n_ranks)]
     for p in procs:
         p.start()
@@ -357,9 +400,12 @@ def run_ranks(fn, n_ranks, device_type="cuda", args=()):
 
 
 def dryrun_multichip(n_ranks, device_type="cuda"):
-    """Run `legs` on n_ranks spawned ranks (`run_ranks`); raises
-    RuntimeError with the first failing rank's traceback. device_type:
-    "cuda" (the default: the ranks share the machine's cards, gloo when
-    there are fewer cards than ranks) or "cpu" (gloo). Returns rank 0's
-    legs (`legs`' values)."""
-    return run_ranks(legs, n_ranks, device_type)[0]
+    """Run `legs` on n_ranks spawned ranks (`run_ranks`), as two "hosts"
+    of n_ranks // 2 ranks (LOCAL_WORLD_SIZE) for leg 7 where n_ranks is
+    even; raises RuntimeError with the first failing rank's traceback.
+    device_type: "cuda" (the default: the ranks share the machine's cards,
+    gloo when there are fewer cards than ranks) or "cpu" (gloo). Returns
+    rank 0's legs (`legs`' values)."""
+    env = {"LOCAL_WORLD_SIZE": str(n_ranks // 2)} if n_ranks % 2 == 0 \
+        else None
+    return run_ranks(legs, n_ranks, device_type, env=env)[0]

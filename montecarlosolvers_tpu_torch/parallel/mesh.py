@@ -2,8 +2,10 @@
 montecarlosolvers_tpu/parallel/mesh.py).
 
 Axes, as in the JAX package:
-  "chains"  — independent annealing trajectories (data parallel);
-  "replica" — Trotter slices (model parallel, a ring: parallel/trotter.py).
+  "chains"   — independent annealing trajectories (data parallel);
+  "replica"  — Trotter slices (model parallel, a ring: parallel/trotter.py);
+  "disorder" — coupling realizations of one topology, no communication
+               (parallel/disorder.py, its mesh parallel/multihost.py).
 
 A `DeviceMesh` stands in for `jax.sharding.Mesh`, and a DTensor whose
 placements put `Shard(0)` on "chains" and `Replicate()` elsewhere for a
@@ -23,7 +25,7 @@ import os
 import torch
 import torch.distributed as dist
 
-AXES = ("chains", "replica")
+AXES = ("chains", "replica", "disorder")
 
 
 def _default_group(device_type):
@@ -55,7 +57,8 @@ def make_mesh(chains=None, replica=None, device_type="cuda"):
     world = dist.get_world_size()
     if chains is None and replica is None:
         chains = world
-    sizes = [(n, s) for n, s in zip(AXES, (chains, replica)) if s is not None]
+    sizes = [(n, s) for n, s in zip(("chains", "replica"), (chains, replica))
+             if s is not None]
     if any(s < 1 for _, s in sizes):
         raise ValueError(f"mesh axis sizes must be >= 1, got {dict(sizes)}")
     if math.prod(s for _, s in sizes) != world:

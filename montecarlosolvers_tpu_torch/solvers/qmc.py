@@ -47,10 +47,9 @@ an IsingProblem (a LatticeProblem taken to_generic()) on the cluster
 kernels of `ops/cluster_kernels.py`.
 
 A chain-sharded state (a DTensor from `parallel.shard_chains`) runs on
-`anneal`, every route above, block by block with the blocks' global uids,
-and equals the unsharded run bitwise; the cluster solvers refuse it
-(ROADMAP.md queue 1, item 6). The Trotter axis is sharded by
-`parallel.trotter`.
+every solver here, `anneal` on every route above and the cluster solvers
+too, block by block with the blocks' global uids, and equals the
+unsharded run bitwise. The Trotter axis is sharded by `parallel.trotter`.
 """
 
 from __future__ import annotations
@@ -149,7 +148,10 @@ def _bath_guard(problem, confs, what):
     """The JAX solvers' memory guard (solvers/qmc.py:200-214): their bath
     bond draw holds about three (chains, N, P, P) float32 tensors, and more
     than 8 GiB of them is refused. The kernels here draw a bath bond only
-    when they reach it, but the contract is the reference's."""
+    when they reach it, but the contract is the reference's. It is taken
+    per call on the chains the call anneals: on a chain-sharded state, on
+    each rank's block (as the JAX guard sees a shard's chains under
+    shard_map)."""
     chains = math.prod(confs.shape[:-2])
     slices = confs.shape[-2]
     est = 3 * 4 * chains * problem.nspins * slices * slices
@@ -170,16 +172,13 @@ def anneal_wolff(problem, a_sched, b_sched, temp, confs, generator,
 
     problem: IsingProblem, or a LatticeProblem (taken to_generic()).
     confs: (..., P, N) float32 +/-1 on the problem's device; the other
-    arguments as for `anneal`. On the card csrc/fk_wolff.cu runs the
-    whole schedule in one launch. Returns the annealed configurations."""
-    _roadmap.require_problem(problem, "qmc.anneal_wolff")
-    _roadmap.refuse_sharded("qmc.anneal_wolff", confs)
-    problem = cluster_kernels.generic_form(problem)
-    if lookuptable is not None:
-        _bath_guard(problem, confs, "dissipative Wolff")
-    return cluster_kernels.qmc_cluster_anneal(
-        problem, a_sched, b_sched, temp, confs, draw_seed(generator),
-        mcsteps, "wolff", rule, lookuptable)
+    arguments as for `anneal` (confs may be chain-sharded). On the card
+    csrc/fk_wolff.cu runs the whole schedule in one launch. Returns the
+    annealed configurations."""
+    return _cluster(problem, a_sched, b_sched, temp, confs, generator,
+                    "qmc.anneal_wolff", "dissipative Wolff",
+                    mcsteps=mcsteps, kind="wolff", rule=rule,
+                    lookuptable=lookuptable)
 
 
 def anneal_sw(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
@@ -192,14 +191,27 @@ def anneal_sw(problem, a_sched, b_sched, temp, confs, generator, mcsteps=1,
     csrc/fk_label.cu, one launch an anneal, or with local sweeps one of it
     and one of csrc/generic_qmc.cu a step. Returns the annealed
     configurations."""
-    _roadmap.require_problem(problem, "qmc.anneal_sw")
-    _roadmap.refuse_sharded("qmc.anneal_sw", confs)
+    return _cluster(problem, a_sched, b_sched, temp, confs, generator,
+                    "qmc.anneal_sw", "space-time SW",
+                    mcsteps=mcsteps, kind="sw", lookuptable=lookuptable,
+                    local_sweeps=local_sweeps)
+
+
+def _cluster(problem, a_sched, b_sched, temp, confs, generator, what, guard,
+             **kw):
+    """`cluster_kernels.qmc_cluster_anneal` with `kw`, chain-sharded as
+    `anneal` is, behind the bath guard (`guard` names it) on each call's
+    chains."""
+    _roadmap.require_problem(problem, what)
     problem = cluster_kernels.generic_form(problem)
-    if lookuptable is not None:
-        _bath_guard(problem, confs, "space-time SW")
-    return cluster_kernels.qmc_cluster_anneal(
-        problem, a_sched, b_sched, temp, confs, draw_seed(generator),
-        mcsteps, "sw", lookuptable=lookuptable, local_sweeps=local_sweeps)
+    seed = draw_seed(generator)
+
+    def run(c, chain0=0):
+        if kw["lookuptable"] is not None:
+            _bath_guard(problem, c, guard)
+        return cluster_kernels.qmc_cluster_anneal(
+            problem, a_sched, b_sched, temp, c, seed, chain0=chain0, **kw)
+    return chain_sharded(confs, run)
 
 
 def anneal_sw_bath(problem, a_sched, b_sched, temp, lookuptable, confs,
@@ -216,13 +228,14 @@ def anneal_sw_bath(problem, a_sched, b_sched, temp, lookuptable, confs,
     non-bath set-flip energy (`bath_cluster_phase`), after a dissipative
     local sweep when `local_sweeps`. lookuptable: the (P-1,) bath
     couplings, P >= 2. problem: IsingProblem, or a LatticeProblem (taken
-    to_generic(), as the other cluster solvers take it). On the card
-    csrc/fk_line.cu once a color phase (P <= 64), and
-    csrc/generic_qmc_bath.cu once a step for WC2's local sweeps. Returns
-    the annealed configurations."""
+    to_generic(), as the other cluster solvers take it); confs may be
+    chain-sharded, as for `anneal`. On the card csrc/fk_line.cu once a
+    color phase (P <= 64), and csrc/generic_qmc_bath.cu once a step for
+    WC2's local sweeps. Returns the annealed configurations."""
     _roadmap.require_problem(problem, "qmc.anneal_sw_bath")
-    _roadmap.refuse_sharded("qmc.anneal_sw_bath", confs)
-    return cluster_kernels.sw_bath_anneal(
-        cluster_kernels.generic_form(problem), a_sched, b_sched, temp,
-        lookuptable, confs, draw_seed(generator), mcsteps, per_slice_seeds,
-        local_sweeps)
+    problem = cluster_kernels.generic_form(problem)
+    seed = draw_seed(generator)
+    return chain_sharded(confs, lambda c, chain0=0: (
+        cluster_kernels.sw_bath_anneal(
+            problem, a_sched, b_sched, temp, lookuptable, c, seed, mcsteps,
+            per_slice_seeds, local_sweeps, chain0)))

@@ -10,7 +10,10 @@ it (solvers/sa.py:94-101). An IsingProblem takes the
 class-major packed engine (`ops/generic_kernels.py`, csrc/packed_sa.cu),
 as the JAX solver sends concrete graphs to `ops/packed.py`; engine="masked"
 there runs the masked engine, which gives the same spins bitwise and so
-runs the same kernel on the card. Each engine runs its CUDA kernel on a
+runs the same kernel on the card. engine="masked" on a LatticeProblem runs
+the masked sweep over the lattice's checkerboard, as the JAX solver does;
+on the card that is the same kernel on the checkerboard's packing
+(`ops/packed.py::packed_from_lattice`). Each engine runs its CUDA kernel on a
 CUDA device and its plain version on the CPU. Unlike the JAX solver, which
 draws from `jax.random`,
 the port draws every uniform from the counter hash of the Pallas kernels;
@@ -34,11 +37,11 @@ cluster kernels of `ops/cluster_kernels.py` (a LatticeProblem taken
 to_generic(), as the JAX solvers take it).
 
 A chain-sharded state (a DTensor from `parallel.shard_chains`) runs on
-`anneal` and `anneal_noisy` block by block, each rank its own chains with
-their global uids, and equals the unsharded run bitwise (on a
-DenseProblem: in distribution, ROADMAP.md queue 3, since a rank's block
-products are library matmuls of another row count); the cluster solvers
-here refuse it (ROADMAP.md queue 1, item 6).
+every solver here block by block, each rank its own chains with their
+global uids, and equals the unsharded run bitwise (on a DenseProblem: in
+distribution, ROADMAP.md queue 3, since a rank's block products are
+library matmuls of another row count). `parallel.disorder.vmap_disorder`
+runs `anneal` over a batch of coupling realizations in one launch.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ import torch
 
 from montecarlosolvers_tpu_torch import _device, _roadmap, schedules
 from montecarlosolvers_tpu_torch.models.dense import DenseProblem
-from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 from montecarlosolvers_tpu_torch.ops import cluster_kernels
 from montecarlosolvers_tpu_torch.ops import dense_kernels
 from montecarlosolvers_tpu_torch.ops import generic_kernels
@@ -100,10 +103,11 @@ def anneal(problem, sched, spins, generator, mcsteps=1,
     per schedule step (sa.pyx:68). collect_energy: also return the
     classical energy after each sweep, float32 of shape (steps * mcsteps,)
     + batch on the problem's device. engine: "auto", or "masked" for the
-    masked colored engine on an IsingProblem (the same spins as "auto";
-    on a LatticeProblem the JAX package's masked engine serves vmapped
-    disorder, which is queued at ROADMAP.md queue 1, item 6). Returns the
-    annealed spins, or (spins, energies).
+    masked colored engine: on an IsingProblem the same spins as "auto"; on
+    a LatticeProblem the masked sweep over its checkerboard (the JAX
+    package's engine for vmapped disorder), on the card the packed kernel
+    on the checkerboard's packing, one launch (LAUNCHES["packed_sa"]).
+    Returns the annealed spins, or (spins, energies).
 
     spins may be a chain-sharded DTensor (`parallel.shard_chains`): each
     rank anneals its block of chains, whose hash uids count from the
@@ -122,12 +126,10 @@ def anneal(problem, sched, spins, generator, mcsteps=1,
         # the JAX solver sends a DenseProblem to the dense engine whatever
         # the engine argument (solvers/sa.py:94-101)
         run = dense_kernels.dense_anneal
-    elif isinstance(problem, IsingProblem):
-        run = (generic_kernels.anneal_masked if engine == "masked"
-               else generic_kernels.anneal_packed)
     elif engine == "masked":
-        raise _roadmap.not_ported("sa.anneal(engine='masked') on a "
-                                  "LatticeProblem", _roadmap.SHARDED)
+        run = generic_kernels.anneal_masked
+    elif not isinstance(problem, LatticeProblem):
+        run = generic_kernels.anneal_packed
     else:
         run = (split_kernels.anneal_lattice_split
                if split_ops.supports_split(problem)
@@ -175,14 +177,12 @@ def anneal_wolff(problem, sched, spins, generator, mcsteps=1,
     problem: IsingProblem, or a LatticeProblem (taken to_generic(), as the
     JAX solver takes it). sched: (steps,) temperatures (a constant one
     samples at fixed T). spins: (..., N) float32 +/-1 on the problem's
-    device. On the card: csrc/fk_wolff.cu, one launch an anneal, or with
-    local sweeps one launch of it and one of csrc/packed_sa.cu a step
+    device, or a chain-sharded DTensor of (chains, N), as for `anneal`.
+    On the card: csrc/fk_wolff.cu, one launch an anneal, or with local
+    sweeps one launch of it and one of csrc/packed_sa.cu a step
     (`ops/cluster_kernels.py`). Returns the annealed spins."""
-    _roadmap.require_problem(problem, "sa.anneal_wolff")
-    _roadmap.refuse_sharded("sa.anneal_wolff", spins)
-    return cluster_kernels.classical_anneal(
-        cluster_kernels.generic_form(problem), sched, spins,
-        draw_seed(generator), mcsteps, "wolff", local_sweeps)
+    return _cluster(problem, sched, spins, generator, mcsteps, "wolff",
+                    local_sweeps, "sa.anneal_wolff")
 
 
 def anneal_sw(problem, sched, spins, generator, mcsteps=1,
@@ -194,8 +194,17 @@ def anneal_sw(problem, sched, spins, generator, mcsteps=1,
     as for `anneal_wolff`. On the card: csrc/fk_label.cu, one launch an
     anneal, or with local sweeps one of it and one of csrc/packed_sa.cu a
     step. Returns the annealed spins."""
-    _roadmap.require_problem(problem, "sa.anneal_sw")
-    _roadmap.refuse_sharded("sa.anneal_sw", spins)
-    return cluster_kernels.classical_anneal(
-        cluster_kernels.generic_form(problem), sched, spins,
-        draw_seed(generator), mcsteps, "sw", local_sweeps)
+    return _cluster(problem, sched, spins, generator, mcsteps, "sw",
+                    local_sweeps, "sa.anneal_sw")
+
+
+def _cluster(problem, sched, spins, generator, mcsteps, kind, local_sweeps,
+             what):
+    """The classical cluster anneal `kind` (`cluster_kernels.
+    classical_anneal`), chain-sharded as `anneal` is."""
+    _roadmap.require_problem(problem, what)
+    generic = cluster_kernels.generic_form(problem)
+    seed = draw_seed(generator)
+    return chain_sharded(spins, lambda s, chain0=0: (
+        cluster_kernels.classical_anneal(generic, sched, s, seed, mcsteps,
+                                         kind, local_sweeps, chain0)))

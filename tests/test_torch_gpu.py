@@ -2132,3 +2132,150 @@ def test_one_rank_mesh_runs_the_samplers(cuda):
                             y[k]).cpu())), (name, k)
             else:
                 assert torch.equal(x, pmesh.full_tensor(y)), name
+
+
+# ---- the rest of the parallel layer: cluster offsets, the disorder
+# stride, the masked lattice engine, a one-rank mesh
+
+
+def _cluster_offset_case(kind, dev):
+    """(run(confs, chain0) on the card, confs) of one cluster kernel at a
+    small width: fk_wolff (rules local and full, a bath), fk_label
+    (classical, space-time, a bath) and fk_line (WC2, WC3)."""
+    P = 1 if kind == "label_classical" else 6
+    ck, pg, confs, b, jp, teff = _cluster_case("torus10", P, dev, chains=12)
+    lut = schedules.bath_lookuptable(P, 0.3, device=dev) if P > 1 else None
+    if P == 1:  # the classical sweep runs at B = 1, J_perp = 0
+        b, jp = torch.ones_like(b), torch.zeros_like(jp)
+    if kind.startswith("wolff"):
+        rule = kind.split("_")[1]
+        return (lambda c, c0: ck.wolff_anneal(pg, b, jp, teff, c, 11, rule,
+                                              lut, 2, chain0=c0), confs)
+    if kind.startswith("label"):
+        classical = kind == "label_classical"
+        return (lambda c, c0: ck.sw_anneal(
+            pg, b, jp, teff, c, 11, None if classical else lut, 2,
+            classical, chain0=c0), confs)
+    p_pair, p_t = ck.line_tables(lut, jp, float(teff[0]), P, dev)
+
+    def line(c, c0):
+        for t in range(3):
+            for color in range(pg.num_colors):
+                c = ck.line_phase(pg, b, jp, p_t, t, float(teff[0]), lut,
+                                  p_pair, c, 11, t, color, kind == "line_wc3",
+                                  chain0=c0)
+        return c
+    return line, confs
+
+
+@pytest.mark.parametrize("kind", ["wolff_local", "wolff_full", "label",
+                                  "label_classical", "line_wc2", "line_wc3"])
+def test_cluster_kernel_offsets_are_the_unsharded_rows(cuda, kind):
+    """fk_wolff, fk_label and fk_line run a block of chains 3..9 with its
+    chain0: equal to those rows of the whole batch's run and to the plain
+    version with that offset."""
+    run, confs = _cluster_offset_case(kind, cuda)
+    c0, w = 3, 7
+    block_state = confs[c0:c0 + w].contiguous()
+    full = run(confs, 0)
+    block = run(block_state, c0)
+    with gibbs.plain_route():
+        plain = run(block_state, c0)
+    torch.cuda.synchronize()
+    assert torch.equal(block, plain)
+    assert torch.equal(full[c0:c0 + w], block)
+
+
+def test_disorder_batch_is_one_packed_launch(cuda):
+    """vmap_disorder(sa.anneal) on three realizations of the 16 x 16 torus
+    is one packed SA launch whose realizations equal the solo masked
+    anneals bitwise and the plain version's disorder stride."""
+    from montecarlosolvers_tpu_torch.parallel import disorder
+
+    probs = [instances.gaussian_torus(16, d, device=cuda).to_generic()
+             for d in range(3)]
+    stacked, axes = disorder.stack_problems(probs)
+    states = sa.random_state(torch.Generator().manual_seed(1), 256,
+                             batch=(3, 10), device=cuda)
+    sched = schedules.linear(2.5, 0.1, 30, device=cuda)
+
+    def gens():
+        return [torch.Generator().manual_seed(40 + d) for d in range(3)]
+    run = disorder.vmap_disorder(sa.anneal, axes)
+    _build.reset_launches()
+    out = run(stacked, sched, states, gens())
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "packed_sa": 1}
+    with gibbs.plain_route():
+        plain = run(stacked, sched, states, gens())
+    assert torch.equal(out, plain)
+    for d, (p, g) in enumerate(zip(probs, gens())):
+        solo = sa.anneal(p, sched, states[d], g, engine="masked")
+        assert torch.equal(out[d], solo), d
+
+
+@pytest.mark.parametrize("L", [16, 17])
+def test_masked_lattice_is_one_packed_launch(cuda, L):
+    """sa.anneal(lattice, engine="masked") on the card is one packed SA
+    launch on the checkerboard's packing (an odd torus: the improper
+    template) and equals the masked plain version bitwise."""
+    lat = instances.gaussian_torus(L, 0, device=cuda)
+    s = sa.random_state(torch.Generator().manual_seed(2), L * L,
+                        batch=(40,), device=cuda)
+    sched = schedules.linear(2.5, 0.1, 20, device=cuda)
+    _build.reset_launches()
+    out = sa.anneal(lat, sched, s, torch.Generator().manual_seed(3),
+                    engine="masked")
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "packed_sa": 1}
+    with gibbs.plain_route():
+        plain = sa.anneal(lat, sched, s, torch.Generator().manual_seed(3),
+                          engine="masked")
+    assert torch.equal(out, plain)
+
+
+def test_one_rank_mesh_runs_the_cluster_solvers_and_disorder(cuda):
+    """On a one-rank NCCL mesh the five cluster entry points take a
+    chain-sharded state and equal the unsharded calls bitwise with the
+    same launches, and run_disorder_sharded on a (1, 1) dcn_mesh equals
+    vmap_disorder."""
+    from montecarlosolvers_tpu_torch.parallel import (disorder, make_mesh,
+                                                      multihost, shard_chains)
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+
+    gen = instances.gaussian_torus(16, 0, device=cuda).to_generic()
+    g = lambda: torch.Generator().manual_seed(6)  # noqa: E731
+    s = sa.random_state(g(), 256, batch=(8,), device=cuda)
+    c = qmc.replicate(s, 8)
+    sched = schedules.linear(2.0, 0.1, 6, device=cuda)
+    a = schedules.transverse_field(2.0, 1e-3, 6, device=cuda)
+    b = torch.ones_like(a)
+    lut = schedules.bath_lookuptable(8, 1e-2, device=cuda)
+    cases = {
+        "sa_wolff": (lambda x: sa.anneal_wolff(gen, sched, x, g()), s),
+        "sa_sw": (lambda x: sa.anneal_sw(gen, sched, x, g(),
+                                         local_sweeps=True), s),
+        "qmc_wolff": (lambda x: qmc.anneal_wolff(gen, a, b, 0.1, x, g(),
+                                                 lookuptable=lut), c),
+        "qmc_sw": (lambda x: qmc.anneal_sw(gen, a, b, 0.1, x, g()), c),
+        "qmc_sw_bath": (lambda x: qmc.anneal_sw_bath(
+            gen, a, b, 0.1, lut, x, g(), per_slice_seeds=False), c),
+    }
+    mesh = make_mesh(chains=1)
+    for name, (run, state) in cases.items():
+        _build.reset_launches()
+        want = run(state)
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        _build.reset_launches()
+        got = pmesh.full_tensor(run(shard_chains(state, mesh)))
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == launched
+        assert torch.equal(want, got), name
+    probs = [instances.gaussian_torus(16, d, device=cuda).to_generic()
+             for d in range(2)]
+    states = sa.random_state(g(), 256, batch=(2, 6), device=cuda)
+    stacked, axes = disorder.stack_problems(probs)
+    want = disorder.vmap_disorder(sa.anneal, axes)(
+        stacked, sched, states, [g(), g()])
+    got = multihost.run_disorder_sharded(
+        sa.anneal, probs, sched, states, [g(), g()], multihost.dcn_mesh())
+    assert torch.equal(want, pmesh.full_tensor(got))

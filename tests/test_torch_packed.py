@@ -363,8 +363,15 @@ def test_generic_refusals():
     with pytest.raises(ValueError, match="engine must be"):
         sa.anneal(prob, sched, s, gen, engine="split")
     lat = tinst.gaussian_torus(4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6 .the rest of the parallel"):
-        sa.anneal(lat, sched, s[:, :16], gen, engine="masked")
+    # engine="masked" on a lattice runs: the masked sweep over its
+    # checkerboard, the packed route's spins on the checkerboard's packing
+    out = sa.anneal(lat, sched, s[:, :16], torch.Generator().manual_seed(1),
+                    engine="masked")
+    lpg = tpk.packed_from_lattice(lat)
+    ref = gk.packed_sa_anneal_ref(
+        lpg, sched, tpk.pack_state(lpg, s[:, :16]),
+        sa.draw_seed(torch.Generator().manual_seed(1)))
+    assert torch.equal(out, tpk.unpack_state(lpg, ref))
     c = qmc.replicate(s, 4)
     # the bath on an IsingProblem runs on the generic bath engine
     # (tests/test_torch_dissipative.py) and gives its plain version's spins

@@ -12,8 +12,11 @@ CPU mesh, fed JAX's own draws: the shard functions of the split and
 generic engines. The physics bars of tests/test_parallel.py run on the
 port: the ground state with line moves, T -> 0 monotonicity, the exact
 equilibrium of N = 2 at P = 8, and the split engine against the
-unsharded one within 4 standard errors. The refusals of ROADMAP.md queue
-1, item 4 and the indivisible axes are checked, and the dry run runs.
+unsharded one within 4 standard errors. The indivisible axes are
+checked, the calls that once refused a sharded state run, and the dry run
+runs. The disorder axis: run_disorder_sharded on (disorder, chains)
+meshes of one and two hosts equals vmap_disorder bitwise, and dcn_mesh
+takes JAX's sizes and errors.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
 from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops import split_kernels as sk
-from montecarlosolvers_tpu_torch.parallel import dryrun, trotter
+from montecarlosolvers_tpu_torch.parallel import disorder, dryrun, trotter
 from montecarlosolvers_tpu_torch.solvers import qmc, sa
 
 CPU = torch.device("cpu")
@@ -184,14 +187,39 @@ def _block_case(kind):
         c = torch.randint(0, 2, (6, 3, 5, 5), generator=g).float() * 2 - 1
         return (lambda c0, s: pk.qmc_plane_anneal_ref(
             pl, b, jp, 1.2, s[0], 5, True, chain0=c0), (c,))
-    pg = packed_ops.build_packed(W.ising4())
     c = torch.randint(0, 2, (6, 4, 16), generator=g).float() * 2 - 1
-    return (lambda c0, s: gk.generic_qmc_anneal_ref(
-        pg, b, jp, 1.2, s[0], 5, True, chain0=c0), (c,))
+    if kind == "generic_qmc":
+        pg = packed_ops.build_packed(W.ising4())
+        return (lambda c0, s: gk.generic_qmc_anneal_ref(
+            pg, b, jp, 1.2, s[0], 5, True, chain0=c0), (c,))
+    # the cluster kernels' plain versions, fields and bath bonds on
+    pg = packed_ops.build_packed(W.ising4f())
+    teff = torch.full((6,), 1.2)
+    lut = schedules.bath_lookuptable(4, 0.2, device=CPU)
+    if kind.startswith("wolff"):
+        rule = kind.split("_")[1]
+        return (lambda c0, s: cl.wolff_anneal_ref(
+            pg, b, jp, teff, s[0], 5, rule, lut, chain0=c0), (c,))
+    if kind == "sw":
+        return (lambda c0, s: cl.sw_anneal_ref(
+            pg, b, jp, teff, s[0], 5, lut, chain0=c0), (c,))
+    per_slice_seeds = kind == "line_wc3"
+    p_pair = cl.pair_prob(lut, 4, CPU)
+
+    def line(c0, s):
+        x = s[0]
+        for t in range(3):
+            for color in range(pg.num_colors):
+                x = cl.line_phase_ref(pg, b[t], jp[t], 1.2, lut, x, 5, t,
+                                      color, per_slice_seeds, p_pair,
+                                      chain0=c0)
+        return x
+    return line, (c,)
 
 
 @pytest.mark.parametrize("kind", ["split_sa", "split_qmc", "plane_qmc",
-                                  "generic_qmc"])
+                                  "generic_qmc", "wolff_local", "wolff_full",
+                                  "sw", "line_wc2", "line_wc3"])
 def test_plain_versions_take_the_chain_offset(kind):
     run, state = _block_case(kind)
     full = run(0, state)
@@ -495,9 +523,9 @@ def test_refusals(pools, ranks):
     """Indivisible axes raise ValueError naming the division, the sharded
     bath, Wolff and SW engines' too; a sampler's sharded state with the
     port's leading ladder axes, or ICM's sharded on its ladder axis, raises
-    ValueError; every engine outside the parallel layer's ported items
-    refuses a sharded state with NotImplementedError naming ROADMAP.md
-    queue 1, item 6."""
+    ValueError; the calls that refused a sharded state until the rest of
+    the parallel layer was ported (the five cluster entry points, the
+    masked lattice engine) run, and no call refuses one."""
     msgs = pools[ranks].run("refusals")
     indivisible = ("shard_indivisible", "split_indivisible",
                    "generic_indivisible", "bath_indivisible",
@@ -513,13 +541,12 @@ def test_refusals(pools, ranks):
         "Shard(1)" in msgs["icm_on_dim0"]
     values = indivisible + ("rng", "trotter_state_to_qmc", "pt_ladders",
                             "pa_piqmc_ladders", "icm_on_dim0")
-    refused = {key for key in msgs if key not in values}
-    assert refused == {"sa_wolff", "sa_sw", "qmc_wolff", "qmc_sw",
-                       "qmc_sw_bath", "masked_lattice"}
-    for key in refused:
-        msg = msgs[key]
-        assert msg.startswith("NotImplementedError"), (key, msg)
-        assert "ROADMAP.md queue 1, item 6" in msg, (key, msg)
+    refused = {key for key in msgs if key not in values
+               and msgs[key] != "no error"}
+    assert refused == set(), {key: msgs[key] for key in refused}
+    assert {key for key in msgs if key not in values} == {
+        "sa_wolff", "sa_sw", "qmc_wolff", "qmc_sw", "qmc_sw_bath",
+        "masked_lattice"}
 
 
 # ------------------------------------------ the rest of the Trotter axis
@@ -943,6 +970,58 @@ def test_sw_shards_match_jax_on_its_draws(eight_devices, replicas,
     assert (want != np.asarray(confs)).any()
 
 
+# ------------------------------------------------ disorder and multihost
+
+
+@pytest.mark.parametrize("ranks,disorder_axis,hosts", [
+    (2, 2, 1), (2, 1, 1), (2, 2, 2), (4, 2, 1), (4, 4, 1), (4, 2, 2),
+    (4, 4, 2)])
+@pytest.mark.parametrize("solver", sorted(W.DISORDER_SOLVERS))
+def test_disorder_sharded_is_vmap_disorder(pools, solver, ranks,
+                                           disorder_axis, hosts):
+    """run_disorder_sharded on a (disorder, chains) dcn_mesh of 2 and 4
+    ranks, on one host and on two, equals the unsharded vmap_disorder run
+    bitwise: sa.anneal as one packed launch a rank's block, another solver
+    realization by realization on its chain-sharded block. The result is
+    sharded (Shard(0), Shard(1)), each rank holding its block."""
+    out, placements, block = pools[ranks].run(
+        "disorder_sharded", solver=solver, disorder_axis=disorder_axis,
+        hosts=hosts)
+    probs, sched, states, gens = W.disorder_case()
+    stacked, axes = disorder.stack_problems(probs)
+    want = disorder.vmap_disorder(W.DISORDER_SOLVERS[solver], axes)(
+        stacked, sched, states, gens)
+    assert np.array_equal(out, want.numpy())
+    assert placements == "[Shard(dim=0), Shard(dim=1)]"
+    assert block == (4 // disorder_axis, 8 * disorder_axis // ranks, 16)
+    assert (out != states.numpy()).any()
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_dcn_mesh_sizes_and_hosts(pools, ranks):
+    """dcn_mesh with JAX's defaults and errors: one host puts every rank on
+    "disorder" by default, chains=2 gives disorder = ranks / 2, sizes that
+    do not multiply to the ranks raise ValueError; on two hosts
+    (LOCAL_WORLD_SIZE = ranks / 2) disorder defaults to the host count and
+    must be a multiple of it, and each disorder row holds one host's ranks.
+    initialize() keeps the group that exists."""
+    out = pools[ranks].run("dcn_mesh")
+    names = ("disorder", "chains")
+    half = ranks // 2
+    assert out["initialize"] == (0, ranks)
+    assert out["default"] == ((ranks, 1), [[r] for r in range(ranks)],
+                              names)
+    assert out["given"][0] == (2, half)
+    assert out["chains_2"][0] == (half, 2)
+    assert out["too_many"].startswith("ValueError")
+    shape, rows, _ = out["two_hosts"]
+    assert shape == (2, half)
+    assert all(len({r // half for r in row}) == 1 for row in rows)
+    assert out["two_hosts_rows_1"][0] == (ranks, 1)
+    assert out["not_a_multiple"].startswith("ValueError") and \
+        "host count" in out["not_a_multiple"]
+
+
 # ------------------------------------------------------------ the dry run
 
 
@@ -951,7 +1030,7 @@ DRYRUN_LEGS = {"chain_sharded_split_gs", "trotter_sharded_gs",
                "trotter_sharded_sw", "trotter_sharded_bath_spins",
                "rung_sharded_pt", "rung_sharded_quantum_pt",
                "rung_sharded_icm", "population_sharded_pa",
-               "population_sharded_quantum_pa"}
+               "population_sharded_quantum_pa", "multihost_disorder"}
 
 
 def _legs_hold(out):
@@ -972,8 +1051,9 @@ def test_dry_run_legs_on_four_ranks(pools):
     """Every leg of the port's dry run (parallel/dryrun.py::legs) on the
     4-rank pool, the chains x replica mesh among them, and JAX's legs 3c,
     3d and 4: the sharded Wolff and SW engines with bath bonds, the
-    sharded bath; and 5, 5b, 6, 6b: rung-sharded PT, quantum PT and ICM,
-    population-sharded PA and quantum PA, bitwise."""
+    sharded bath; 5, 5b, 6, 6b: rung-sharded PT, quantum PT and ICM,
+    population-sharded PA and quantum PA, bitwise; and 7: the disorder
+    batch on a 2-host x 2 dcn_mesh, each row on one host, bitwise."""
     _legs_hold(pools[4].run("dryrun_legs"))
 
 

@@ -15,6 +15,7 @@ hold the ranks' result to it bitwise.
 from __future__ import annotations
 
 import datetime
+import os
 import traceback
 
 import numpy as np
@@ -26,6 +27,7 @@ from montecarlosolvers_tpu_torch.models import instances
 from montecarlosolvers_tpu_torch.models.ising import IsingProblem
 from montecarlosolvers_tpu_torch.parallel import make_mesh, shard_chains
 from montecarlosolvers_tpu_torch.parallel import _collectives, dryrun, trotter
+from montecarlosolvers_tpu_torch.parallel import multihost
 from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
 from montecarlosolvers_tpu_torch.solvers import pa, pt, qmc, sa, svmc
 
@@ -67,6 +69,30 @@ def _lut(slices=4):
     return schedules.bath_lookuptable(slices, 1e-2, device=CPU)
 
 
+def ising4f():
+    """The random 4 x 4 lattice's generic form with fields."""
+    return instances.random_2d_lattice(4, rng=0, with_fields=True,
+                                       device=CPU)[0]
+
+
+def _sa_cluster(solver, problem, **kw):
+    sched = schedules.linear(2.0, 0.1, 6, device=CPU)
+    state = sa.random_state(gen(1), problem.nspins, batch=(CHAINS,),
+                            device=CPU)
+    return state, lambda s: solver(problem, sched, s, gen(2), **kw)
+
+
+def _qmc_cluster(solver, problem, slices=4, bath=False, **kw):
+    a = schedules.transverse_field(2.0, 1e-8, 5, device=CPU)
+    confs = sa.random_state(gen(1), slices * problem.nspins, batch=(CHAINS,),
+                            device=CPU).reshape(CHAINS, slices, -1)
+    args = (_lut(slices),) if solver is qmc.anneal_sw_bath else ()
+    if bath:
+        kw["lookuptable"] = _lut(slices)
+    return confs, lambda c: solver(problem, a, torch.ones_like(a), 0.3,
+                                   *args, c, gen(2), **kw)
+
+
 # engine -> () -> (state, run): run(state) anneals a full or a
 # chain-sharded state; one engine of modules 2 and 4 of the slice each
 ENGINES = {
@@ -90,6 +116,30 @@ ENGINES = {
     "bath_generic_colored": lambda: _qmc(ising4(), lookuptable=_lut(),
                                          bath_update="colored"),
     "bath_odd_lattice": lambda: _qmc(lattice(5), lookuptable=_lut()),
+    # the masked lattice engine (an odd torus: its improper checkerboard)
+    "sa_masked_lattice": lambda: _sa(lattice(4), engine="masked"),
+    "sa_masked_odd_lattice": lambda: _sa(lattice(5), engine="masked",
+                                         collect_energy=True),
+    # the five cluster entry points: fields, both Wolff rules, bath bonds,
+    # local sweeps, WC2 and WC3
+    "sa_wolff": lambda: _sa_cluster(sa.anneal_wolff, ising4f()),
+    "sa_wolff_no_local": lambda: _sa_cluster(sa.anneal_wolff, ising4(),
+                                             local_sweeps=False),
+    "sa_sw": lambda: _sa_cluster(sa.anneal_sw, ising4f()),
+    "sa_sw_local": lambda: _sa_cluster(sa.anneal_sw, lattice(4),
+                                       local_sweeps=True),
+    "qmc_wolff_local": lambda: _qmc_cluster(qmc.anneal_wolff, ising4f()),
+    "qmc_wolff_full_bath": lambda: _qmc_cluster(qmc.anneal_wolff, ising4(),
+                                                bath=True, rule="full"),
+    "qmc_wolff_local_bath": lambda: _qmc_cluster(qmc.anneal_wolff,
+                                                 ising4f(), bath=True),
+    "qmc_sw_bath_bonds": lambda: _qmc_cluster(qmc.anneal_sw, ising4f(),
+                                              bath=True),
+    "qmc_sw_local": lambda: _qmc_cluster(qmc.anneal_sw, ising4(),
+                                         local_sweeps=True),
+    "qmc_sw_bath_wc3": lambda: _qmc_cluster(qmc.anneal_sw_bath, ising4f()),
+    "qmc_sw_bath_wc2": lambda: _qmc_cluster(qmc.anneal_sw_bath, ising4f(),
+                                            per_slice_seeds=False),
 }
 
 
@@ -452,8 +502,79 @@ def case_refusals():
 
 
 def case_dryrun_legs():
-    """The dry run's legs on this pool's ranks."""
-    return dryrun.legs(dist.get_world_size(), "cpu")
+    """The dry run's legs on this pool's ranks, as two hosts of half the
+    ranks each (leg 7's LOCAL_WORLD_SIZE, as dryrun_multichip sets it)."""
+    world = dist.get_world_size()
+    os.environ["LOCAL_WORLD_SIZE"] = str(world // 2)
+    try:
+        return dryrun.legs(world, "cpu")
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
+
+
+# ------------------------------------------------ disorder and multihost
+
+
+def disorder_case(realizations=4, chains=8, steps=30):
+    """(problems, sched, states, generators) of a disorder batch of
+    random_2d_lattice(4) realizations (tests/multihost_worker.py's), from
+    seeds alone: the same on every rank and in the test process."""
+    probs = [instances.random_2d_lattice(4, rng=1000 + i, device=CPU)[0]
+             for i in range(realizations)]
+    states = sa.random_state(gen(7), 16, batch=(realizations, chains),
+                             device=CPU)
+    sched = schedules.linear(2.0, 0.1, steps, device=CPU)
+    return probs, sched, states, [gen(70 + i) for i in range(realizations)]
+
+
+DISORDER_SOLVERS = {
+    "sa": sa.anneal,
+    # a solver other than sa.anneal runs realization by realization, each
+    # on its block of a chain-sharded state
+    "sa_wolff": sa.anneal_wolff,
+}
+
+
+def case_disorder_sharded(solver, disorder_axis, hosts=1):
+    """run_disorder_sharded on a (disorder_axis, world / disorder_axis)
+    dcn_mesh of `hosts` hosts: (the full result, its placements, this
+    rank's block shape)."""
+    world = dist.get_world_size()
+    os.environ["LOCAL_WORLD_SIZE"] = str(world // hosts)
+    try:
+        mesh = multihost.dcn_mesh(disorder=disorder_axis,
+                                  device_type="cpu")
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
+    probs, sched, states, gens = disorder_case()
+    out = multihost.run_disorder_sharded(DISORDER_SOLVERS[solver], probs,
+                                         sched, states, gens, mesh)
+    return (_numpy(out), str(list(out.placements)),
+            tuple(out.to_local().shape))
+
+
+def case_dcn_mesh():
+    """dcn_mesh's shapes and rows on this pool's ranks, on one host and on
+    two (LOCAL_WORLD_SIZE = world / 2), the errors of sizes that do not
+    fit, and initialize() on the group that exists."""
+    world = dist.get_world_size()
+    out = {"initialize": multihost.initialize()}
+
+    def shape(**kw):
+        m = multihost.dcn_mesh(device_type="cpu", **kw)
+        return tuple(m.mesh.shape), m.mesh.tolist(), m.mesh_dim_names
+    out["default"] = shape()
+    out["given"] = shape(disorder=2, chains=world // 2)
+    out["chains_2"] = shape(chains=2)
+    out["too_many"] = _message(lambda: shape(disorder=world, chains=2))
+    os.environ["LOCAL_WORLD_SIZE"] = str(world // 2)
+    try:
+        out["two_hosts"] = shape()
+        out["two_hosts_rows_1"] = shape(disorder=world, chains=1)
+        out["not_a_multiple"] = _message(lambda: shape(disorder=1))
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
+    return out
 
 
 def numpy_of(x):
