@@ -654,6 +654,28 @@ CLUSTER_SLICES, CLUSTER_ALPHA = 40, 1e-2
 CLUSTER_SA_READS, CLUSTER_SA_SWEEPS = 64, 200
 CLUSTER_QMC_READS, CLUSTER_QMC_SWEEPS = 8, 50
 CLUSTER_STEPS = 6
+# The redesigned generic PIQMC and generic bath (their cluster route,
+# csrc/generic_words.cuh) and each file's first kernel, the "_wide" route,
+# which the rule of shape (ops/generic_kernels.py::generic_qmc_geometry)
+# sends a chain no cluster of 16 CTAs holds: WIDE_L is the first L whose
+# torus's generic form at P = 40 it sends there (232,324 sites past the
+# 232,080 that 16 CTAs hold), WIDE_BATH_L the first whose checkerboard the
+# bath's rule sends there (226,576 past 225,680: its CTAs also hold the
+# bath matrix), one chain, WIDE_STEPS steps against the plain versions;
+# fk_line past its one-word
+# rows at LINE_WIDE_SLICES, and solve("piqmc_sw") at P = SW_WIDE_SLICES,
+# SW_WIDE_READS reads and SW_WIDE_SWEEPS sweeps; fk_label and fk_line on
+# ASYM_ALPHA's bath table with the couplings of ring offsets below P / 2
+# scaled by ASYM_SCALE (not symmetric in ring distance)
+WIDE_L, WIDE_BATH_L, WIDE_STEPS = 482, 476, 2
+# The last chains the rules keep on the cluster route at P = 40, one chain
+# of a two-class graph (a ring of EDGE_N sites for PIQMC, EDGE_BATH_N for
+# the bath): R = 16 CTAs each asking for all but a few bytes of the 227 KB
+# a block may take, WIDE_STEPS steps against the plain versions
+EDGE_N, EDGE_BATH_N = 232080, 225680
+LINE_WIDE_SLICES = (65, 128)
+SW_WIDE_SLICES, SW_WIDE_READS, SW_WIDE_SWEEPS = 128, 8, 20
+ASYM_ALPHA, ASYM_SCALE = 1e-2, 1.5
 #   sa_wolff           tools/cluster_anchors.py sa_wolff: -1.26789, sd 0.00286
 #   sa_sw              ... sa_sw: -1.26569, sd 0.00354
 #   piqmc_wolff_p40    ... piqmc_wolff: -1.21749, sd 0.00418
@@ -903,8 +925,10 @@ for _k in ENERGY_LAYOUTS:
 GENERIC_KERNELS = {
     "packed_sa": ("packed_sa", "montecarlosolvers_tpu_torch/csrc/packed_sa.cu",
                   "montecarlosolvers_tpu/ops/packed.py:129"),
+    # the cluster route (csrc/generic_words.cuh, launched from
+    # generic_qmc.cu); the file's first kernel is "generic_qmc_wide"
     "generic_qmc": ("generic_qmc",
-                    "montecarlosolvers_tpu_torch/csrc/generic_qmc.cu",
+                    "montecarlosolvers_tpu_torch/csrc/generic_words.cuh",
                     "montecarlosolvers_tpu/ops/piqmc.py:79"),
     "packed_svmc": ("packed_svmc",
                     "montecarlosolvers_tpu_torch/csrc/packed_svmc.cu",
@@ -917,7 +941,7 @@ KERNELS.update(GENERIC_KERNELS)
 BATH_KERNELS = {
     "generic_qmc_bath": (
         "generic_qmc_bath",
-        "montecarlosolvers_tpu_torch/csrc/generic_qmc_bath.cu",
+        "montecarlosolvers_tpu_torch/csrc/generic_words.cuh",
         "montecarlosolvers_tpu/ops/piqmc.py:110"),
     "split_qmc_bath_colored": (
         "qmc_bath_split_colored",
@@ -969,7 +993,7 @@ SAMPLER_KERNELS = {
                         "montecarlosolvers_tpu/ops/split.py:379"),
     "packed_sa_chain": ("packed_sa_chain", _SRC + "packed_sa.cu",
                         "montecarlosolvers_tpu/ops/metropolis.py:60"),
-    "generic_qmc_chain": ("generic_qmc_chain", _SRC + "generic_qmc.cu",
+    "generic_qmc_chain": ("generic_qmc_chain", _SRC + "generic_words.cuh",
                           "montecarlosolvers_tpu/ops/piqmc.py:79"),
     "dense_sa_chain": ("dense_sa_chain", _SRC + "dense_sa.cu",
                        "montecarlosolvers_tpu/ops/dense_sweep.py:45"),
@@ -1017,6 +1041,22 @@ PARALLEL_KERNELS = {
                     "montecarlosolvers_tpu/parallel/trotter.py:689"),
 }
 KERNELS.update(PARALLEL_KERNELS)
+# The first kernels of csrc/generic_qmc.cu and generic_qmc_bath.cu (one
+# CTA a chain, the state as floats in device memory), kept for the chains
+# no cluster holds: the "_wide" routes of generic PIQMC (shared and
+# per-chain J_perp) and of the generic bath. No main-path solve reaches
+# them; the phase generic_redesign holds and times them at WIDE_L.
+WIDE_KERNELS = {
+    "generic_qmc_wide": ("generic_qmc_wide", _SRC + "generic_qmc.cu",
+                         "montecarlosolvers_tpu/ops/piqmc.py:79"),
+    "generic_qmc_chain_wide": ("generic_qmc_chain_wide",
+                               _SRC + "generic_qmc.cu",
+                               "montecarlosolvers_tpu/ops/piqmc.py:79"),
+    "generic_qmc_bath_wide": ("generic_qmc_bath_wide",
+                              _SRC + "generic_qmc_bath.cu",
+                              "montecarlosolvers_tpu/ops/piqmc.py:110"),
+}
+KERNELS.update(WIDE_KERNELS)
 # what the rest of the parallel layer added to four kernels: the cluster
 # kernels' chain offset, packed SA's disorder stride
 GAINED = {"fk_wolff": "chain0", "fk_label": "chain0", "fk_line": "chain0",
@@ -2165,6 +2205,292 @@ def bath_case(results, kname, pname, case, wrapper, plain, route,
               f"{what}: energies within {rec['energy_bound']}")
     results[kname]["max_abs_err"] = max(
         results[kname].get("max_abs_err", 0.0), err)
+
+
+def ring_problem(n, dev):
+    """An IsingProblem on a ring of n sites (n even: two color classes),
+    Gaussian couplings from a fixed seed."""
+    from montecarlosolvers_tpu_torch.models.ising import IsingProblem
+
+    rows = np.arange(n)
+    vals = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    return IsingProblem.from_edges(n, rows, (rows + 1) % n, vals,
+                                   device=dev)
+
+
+def asymmetric_table(P, dev):
+    """bath_lookuptable(P, ASYM_ALPHA) with the couplings of ring offsets
+    d < P / 2 scaled by ASYM_SCALE: lut[d - 1] != lut[P - 1 - d], so a bath
+    pair's two directions bond with different probabilities."""
+    from montecarlosolvers_tpu_torch import schedules
+
+    lut = schedules.bath_lookuptable(P, ASYM_ALPHA, device=dev)
+    d = torch.arange(1, P, device=dev)
+    return torch.where(2 * d < P, lut * ASYM_SCALE, lut).contiguous()
+
+
+def generic_redesign(dev, results, graphs, odd_torus, power, name):
+    """Phase generic_redesign: generic PIQMC and the generic bath on both
+    routes, and the two repaired cluster kernels, against their plain
+    versions on the card, 0 mismatched spins and exactly the route's
+    launches:
+      - the cluster route (csrc/generic_words.cuh) with the geometry its
+        rule chose, on the shapes generic_kernel_vs_plain and
+        bath_kernel_vs_plain leave out: PIQMC on the 81x81 torus's
+        checkerboard (not a proper coloring) and with a J_perp a chain,
+        and one chain at the last shape each rule keeps there (a ring of
+        EDGE_N, EDGE_BATH_N sites: 16 CTAs each asking for all of the
+        shared memory a block may take);
+      - the "_wide" routes (each file's first kernel) at the first shape
+        each rule sends there at P = 40 (WIDE_L, WIDE_BATH_L), one chain:
+        PIQMC shared and per-chain, the bath sequential and colored;
+      - fk_line past its one-word rows (P in LINE_WIDE_SLICES, WC2 and
+        WC3) and solve("piqmc_sw", slices=SW_WIDE_SLICES);
+      - fk_label (the space-time sweep) and fk_line (WC3, the full-line
+        decomposition) on `asymmetric_table`.
+    Then slope-times the "_wide" routes and their plain versions beside
+    their bounds (the kernels line's rows)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
+    from montecarlosolvers_tpu_torch.solvers.api import solve
+
+    rng = np.random.default_rng(21)
+    P = QMC_SLICES
+    gname80 = f"gaussian_torus({L}, 0).to_generic()"
+    pg80 = packed_ops.build_packed(graphs[gname80])
+    pg81 = packed_ops.packed_from_lattice(odd_torus)
+    pg_wide = packed_ops.build_packed(instances.gaussian_torus(
+        WIDE_L, seed=0, device=dev).to_generic())
+    pg_wide_lat = packed_ops.packed_from_lattice(instances.gaussian_torus(
+        WIDE_BATH_L, seed=0, device=dev))
+    for pg, rule, what in (
+            (pg_wide, gk.generic_qmc_geometry, f"{WIDE_L} torus's generic "
+                                               "form"),
+            (pg_wide_lat, gk.generic_qmc_bath_geometry,
+             f"{WIDE_BATH_L} torus's checkerboard (the bath)")):
+        check(rule(1, pg.nspins, P, pg.num_colors) is None,
+              f"the {what} at P = {P} is past the cluster route")
+    pg_edge, pg_edge_bath = (packed_ops.build_packed(ring_problem(n, dev))
+                             for n in (EDGE_N, EDGE_BATH_N))
+    for pg, rule in ((pg_edge, gk.generic_qmc_geometry),
+                     (pg_edge_bath, gk.generic_qmc_bath_geometry)):
+        n = pg.nspins
+        check(pg.num_colors == 2
+              and rule(1, n, P, 2) == (16, gk.WORD_THREADS)
+              and rule(1, n + 2, P, 2) is None
+              and gk.words_smem_bytes(P, gk.word_layout(pg, 16)[3], True,
+                                      rule is gk.generic_qmc_bath_geometry)
+              > _build.SMEM_LIMIT_BYTES - 256,
+              f"a ring of {n} sites at P = {P} is the last chain the "
+              f"{rule.__name__} keeps on the cluster route")
+    bath40 = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+        P, BATH_ALPHA, device=dev), P).contiguous()
+
+    def schedule(steps, chains=None):
+        gamma = schedules.transverse_field(3.0, 1e-8, steps, device=dev)
+        teff = (1.0 / P) * P
+        jp = schedules.jperp(gamma, teff).contiguous()
+        if chains is not None:  # a J_perp a chain: rung c at 1 + c / chains
+            jp = (jp[:, None] * (1.0 + torch.arange(
+                chains, device=dev) / chains)).contiguous()
+        return torch.ones_like(gamma), jp, teff
+
+    def qmc_case(pg, chains, steps, per_chain=False, bath=False,
+                 colored=False, gm=True):
+        c = random_pm1(rng, (chains, P, pg.nspins), dev)
+        b, jp, teff = schedule(steps, chains if per_chain else None)
+        if bath:
+            return c, lambda fn: fn(pg, b, jp, teff, bath40, c, 31, gm,
+                                    colored=colored)
+        return c, lambda fn: fn(pg, b, jp, teff, c, 31, gm)
+
+    def record(kname, case, out, ref, start, launched, want):
+        torch.cuda.synchronize()
+        n_bad, err = mismatches([out], [ref])
+        rec = {"phase": "generic_redesign", "kernel": kname, **case,
+               "launches": launched, "mismatched_spins": n_bad,
+               "max_abs_err": err,
+               "flipped_fraction": float((out != start).float().mean())}
+        emit(rec)
+        check(n_bad == 0, f"{kname} ({rec}) equals its plain version")
+        check(rec["flipped_fraction"] > 0, f"{kname} ({rec}) moves")
+        check(launched == want, f"{kname} ({rec}) launched {launched}")
+        results[kname]["max_abs_err"] = max(
+            results[kname].get("max_abs_err", 0.0), err)
+
+    # generic PIQMC and the bath, both routes
+    cases = (
+        ("generic_qmc", "gaussian_torus(81, 0), checkerboard", pg81,
+         QMC_READS, GENERIC_QMC_STEPS, {}),
+        ("generic_qmc_chain", gname80, pg80, QMC_READS, GENERIC_QMC_STEPS,
+         {"per_chain": True}),
+        ("generic_qmc", f"ring({EDGE_N})", pg_edge, 1, WIDE_STEPS, {}),
+        ("generic_qmc_bath", f"ring({EDGE_BATH_N})", pg_edge_bath, 1,
+         WIDE_STEPS, {"bath": True}),
+        ("generic_qmc_wide", f"gaussian_torus({WIDE_L}, 0).to_generic()",
+         pg_wide, 1, WIDE_STEPS, {}),
+        ("generic_qmc_chain_wide",
+         f"gaussian_torus({WIDE_L}, 0).to_generic()", pg_wide, 1,
+         WIDE_STEPS, {"per_chain": True}),
+        ("generic_qmc_bath_wide", f"gaussian_torus({WIDE_BATH_L}, 0)",
+         pg_wide_lat, 1, WIDE_STEPS, {"bath": True}),
+        ("generic_qmc_bath_wide", f"gaussian_torus({WIDE_BATH_L}, 0)",
+         pg_wide_lat, 1, WIDE_STEPS, {"bath": True, "colored": True}),
+    )
+    for kname, gname, pg, chains, steps, kw in cases:
+        start, run = qmc_case(pg, chains, steps, **kw)
+        wrapper, plain = ((gk.generic_qmc_bath_anneal,
+                           gk.generic_qmc_bath_anneal_ref) if kw.get("bath")
+                          else (gk.generic_qmc_anneal,
+                                gk.generic_qmc_anneal_ref))
+        geometry = (gk.generic_qmc_bath_geometry if kw.get("bath")
+                    else gk.generic_qmc_geometry)(
+                        chains, pg.nspins, P, pg.num_colors,
+                        sms=gk.card_sms(dev))
+        _build.reset_launches()
+        out = run(wrapper)
+        launched = launched_now()
+        ref = run(plain)
+        record(kname, {"graph": gname, "nspins": pg.nspins,
+                       "proper": pg.proper, "chains": chains, "slices": P,
+                       "steps": steps, "geometry": geometry, **kw},
+               out, ref, start, launched, {KERNELS[kname][0]: 1})
+
+    # fk_line past P = 64, WC2 and WC3, two steps of both colors
+    for slices in LINE_WIDE_SLICES:
+        lut = schedules.bath_lookuptable(slices, CLUSTER_ALPHA, device=dev)
+        for per_slice_seeds in (False, True):
+            c, b, jp, teff = cluster_inputs(pg80, dev, rng, 2, slices, 2)
+            t_eff = float(teff[0])
+            p_pair, p_t = ck.line_tables(lut, jp, t_eff, slices, dev)
+            out = ref = c
+            _build.reset_launches()
+            for t in range(2):
+                for color in range(pg80.num_colors):
+                    out = ck.line_phase(pg80, b, jp, p_t, t, t_eff, lut,
+                                        p_pair, out, 24, t, color,
+                                        per_slice_seeds)
+            launched = launched_now()
+            for t in range(2):
+                for color in range(pg80.num_colors):
+                    ref = cl.line_phase_ref(pg80, b[t], jp[t], t_eff, lut,
+                                            ref, 24, t, color,
+                                            per_slice_seeds, p_pair)
+            record("fk_line", {"graph": gname80, "chains": 2,
+                               "slices": slices, "steps": 2,
+                               "per_slice_seeds": per_slice_seeds,
+                               "warps_a_cta": ck.line_warps(slices)},
+                   out, ref, c, launched, {"fk_line": 2 * pg80.num_colors})
+
+    # a bath table not symmetric in ring distance: fk_label's space-time
+    # sweep (labels in device memory at this size) and fk_line's WC3
+    asym = asymmetric_table(P, dev)
+    check(ck.ring_asymmetric(asym), "the hand-made table is asymmetric")
+    c, b, jp, teff = cluster_inputs(pg80, dev, rng, 4, P, CLUSTER_STEPS)
+    _build.reset_launches()
+    out = ck.sw_anneal(pg80, b, jp, teff, c, 25, asym)
+    launched = launched_now()
+    ref = cl.sw_anneal_ref(pg80, b, jp, teff, c, 25, asym)
+    record("fk_label", {"graph": gname80, "chains": 4, "slices": P,
+                        "steps": CLUSTER_STEPS, "bath": "asymmetric",
+                        "shared_memory": ck.label_smem(P, pg80.nspins,
+                                                       True)},
+           out, ref, c, launched, {"fk_label": 1})
+    c, b, jp, teff = cluster_inputs(pg80, dev, rng, 4, P, 3)
+    t_eff = float(teff[0])
+    p_pair, p_t = ck.line_tables(asym, jp, t_eff, P, dev)
+    out = ref = c
+    _build.reset_launches()
+    for t in range(3):
+        for color in range(pg80.num_colors):
+            out = ck.line_phase(pg80, b, jp, p_t, t, t_eff, asym, p_pair,
+                                out, 26, t, color, True)
+    launched = launched_now()
+    for t in range(3):
+        for color in range(pg80.num_colors):
+            ref = cl.line_phase_ref(pg80, b[t], jp[t], t_eff, asym, ref, 26,
+                                    t, color, True, p_pair)
+    record("fk_line", {"graph": gname80, "chains": 4, "slices": P,
+                       "steps": 3, "per_slice_seeds": True,
+                       "bath": "asymmetric"},
+           out, ref, c, launched, {"fk_line": 3 * pg80.num_colors})
+
+    # solve("piqmc_sw") at P = 128: one SA launch, a fk_line launch a color
+    # and sweep
+    gtorus80 = graphs[gname80]
+    _build.reset_launches()
+    ss = solve(gtorus80, method="piqmc_sw", num_reads=SW_WIDE_READS,
+               sweeps=SW_WIDE_SWEEPS, slices=SW_WIDE_SLICES, seed=0,
+               alpha=CLUSTER_ALPHA)
+    torch.cuda.synchronize()
+    launched = launched_now()
+    energies = np.asarray(ss.energies)
+    samples = np.asarray(ss.samples)
+    rec = {"phase": "generic_redesign", "path": "piqmc_sw",
+           "slices": SW_WIDE_SLICES, "graph": gname80,
+           "reads": SW_WIDE_READS, "sweeps": SW_WIDE_SWEEPS,
+           "launches": launched,
+           "mean_energy_per_spin": float(energies.mean()
+                                         / gtorus80.nspins)}
+    emit(rec)
+    check(launched == {"packed_sa": 1,
+                       "fk_line": SW_WIDE_SWEEPS * gtorus80.num_colors},
+          f"solve('piqmc_sw', slices={SW_WIDE_SLICES}) launched {launched}")
+    check(samples.shape == (SW_WIDE_READS, gtorus80.nspins)
+          and bool(np.all(np.isfinite(energies)))
+          and np.allclose(energies, energy64(gtorus80, samples), rtol=1e-5,
+                          atol=1e-3),
+          f"solve('piqmc_sw', slices={SW_WIDE_SLICES}) gives spins and "
+          "their energies")
+
+    # the "_wide" routes' times, one chain at WIDE_L, beside their bounds
+    for kname, pg, kw, taus, plain_taus in (
+            ("generic_qmc_wide", pg_wide, {}, (2, 6), (1, 3)),
+            ("generic_qmc_chain_wide", pg_wide, {"per_chain": True}, (2, 6),
+             (1, 3)),
+            ("generic_qmc_bath_wide", pg_wide_lat, {"bath": True}, (1, 3),
+             (1, 2))):
+        c = random_pm1(rng, (1, P, pg.nspins), dev)
+        bath = kw.get("bath", False)
+        wrapper, plain = ((gk.generic_qmc_bath_anneal,
+                           gk.generic_qmc_bath_anneal_ref) if bath
+                          else (gk.generic_qmc_anneal,
+                                gk.generic_qmc_anneal_ref))
+
+        def runner(fn, c=c, pg=pg, kw=kw, bath=bath):
+            def run(tau):
+                b, jp, teff = schedule(tau, 1 if kw.get("per_chain")
+                                       else None)
+                if bath:
+                    return fn(pg, b, jp, teff, bath40, c, 7, True)
+                return fn(pg, b, jp, teff, c, 7, True)
+            return run
+        base = "generic_qmc_bath" if bath else "generic_qmc"
+        graph = graph_shape(pg)
+        bound, bound_by, unit = bound_ms(base, 1, P, pg.nspins, max(taus),
+                                         graph)
+        for route, fn, tt, trials in (("cuda", wrapper, taus, 3),
+                                      ("plain", plain, plain_taus, 2)):
+            ms, best = slope_ms(runner(fn), tt, trials)
+            emit({"phase": "generic_redesign", "kernel": kname,
+                  "route": route, "chains": 1, "slices": P,
+                  "sites": pg.nspins, "taus": list(tt),
+                  "best_seconds": {str(k): v for k, v in best.items()},
+                  "ms_per_sweep": ms, "bound_ms": bound,
+                  "bound_by": bound_by, "bound_unit": unit, "gpu": name,
+                  "power_limit": power})
+            check(ms > 0, f"{kname} {route} slope is positive")
+            if route == "cuda":
+                results[kname].update(ms=ms, bound_ms=bound,
+                                      bound_by=bound_by)
+            else:
+                results[kname]["plain_ms"] = ms
 
 
 def dense_problem(n, dev):
@@ -6298,6 +6624,11 @@ def main():
     bath_checks(dev, results, bproblems)
     phase_seconds["bath_kernel_vs_plain"] = time.perf_counter() - t_script
 
+    # ---- the redesigned generic kernels on both routes, fk_line past
+    # P = 64 and fk_label on an asymmetric bath table
+    generic_redesign(dev, results, graphs, odd_torus, power, name)
+    phase_seconds["generic_redesign"] = time.perf_counter() - t_script
+
     # ---- the dense engine and the noisy kernels against their plain
     # versions
     sk_problem = dense_checks(dev, results)
@@ -6524,6 +6855,8 @@ def main():
     studies(dev, main_launches, torus, power, name)
     phase_seconds["studies"] = time.perf_counter() - t_script
     emit({"phase": "main_path", "launches": main_launches})
+    check(not any(main_launches[k] for k, _, _ in WIDE_KERNELS.values()),
+          "no main-path solve takes a generic kernel's _wide route")
     phase_seconds["main_path"] = time.perf_counter() - t_script
 
     # ---- timing: slope ms per sweep, kernel and plain version

@@ -25,17 +25,25 @@
 // + perm[i]). With `energies`, the least slice energy after step t goes
 // into energies[t, chain], reduced in the kernel.
 //
-// What bounds it on an H100. Per local update: maxnb gathered spins, the
+// What bounds it on an H100. Per local update: maxnb neighbour spins, the
 // two Trotter neighbours, the hash and log1pf; per line, P fields again
-// and one hash. At the main path's P = 40, 32 chains of 6400 spins the
-// state is 33 MB in L2. With one CTA a chain, 32 chains fill 32 of the
-// 132 SMs: at this size the kernel is occupancy-bound, not bandwidth- or
-// issue-bound.
+// and one hash. The float32 work of a sweep at the main path's 80x80
+// generic form, P = 40, 32 chains is 148.5 MFLOP, a bound of 0.002216 ms.
+// The file's first kernel (generic_qmc_kernel below: one CTA of 256
+// threads a chain, the state as floats in device memory, a
+// __syncthreads() between phases) filled 32 of the 132 SMs and walked
+// every update through L1/L2: 1.436-1.446 ms a sweep, 643x the bound (H100
+// 80GB HBM3, 700.00 W; PERF.md).
 //
-// What the design does about that, simply (a first kernel): one CTA of 256
-// threads a chain, the state in device memory (any N, P, color count),
-// threads striding over a slice's block, slice after slice, and a
-// __syncthreads() between phases and between line colors.
+// What the design does about that: the cluster route of
+// csrc/generic_words.cuh (generic_qmc_words_anneal below): a chain's
+// slices as bits of each site's words, spread over a cluster of R CTAs
+// (R = 8 at 32 chains: 256 CTAs on 132 SMs), both ping-pong buffers in
+// shared memory, one cluster barrier a phase; 0.1333-0.1458 ms a sweep at
+// that shape (same card, PERF.md), 60-66x the bound. generic_qmc_kernel
+// stays, unchanged, for a chain whose words no cluster of 16 CTAs holds
+// (ops/generic_kernels.py::generic_qmc_geometry;
+// LAUNCHES["generic_qmc_wide"]): there one CTA a chain is what it gets.
 //
 // A J_perp per chain (quantum parallel tempering, solvers/pt.py::
 // sample_piqmc): the template argument kPerChain reads jp[t * stride_t +
@@ -57,6 +65,7 @@
 
 #include "counter_hash.cuh"
 #include "energy.cuh"
+#include "generic_words.cuh"
 #include "packed.cuh"
 
 namespace {
@@ -348,6 +357,47 @@ extern "C" int generic_qmc_anneal(const int* nbr_idx, const float* nbr_J,
       chains, P, n, maxnb, ncolors, m, steps, seed_term, stride_t, stride_c,
       static_cast<uint32_t>(chain0));
   return cudaGetLastError();
+}
+
+// The cluster route (csrc/generic_words.cuh): anneal `chains` chains of P
+// slices of +/-1 floats s_in (chains, P, n), which the kernel packs into
+// W = ceil(P/32) words a site as it loads them (bit k % 32 of word k / 32
+// the sign of slice k), into s_out (the same shape), each chain over
+// a cluster of R CTAs of `threads` threads holding nr slots each;
+// slot_site (R, nr), slot_starts (ncolors + 1) and nbr_loc (n, maxnb) the
+// slot layout (ops/generic_kernels.py::word_layout); the rest as for
+// generic_qmc_anneal. All device pointers; launches on `stream` and
+// returns the launch's error.
+extern "C" int generic_qmc_words_anneal(
+    const int* slot_site, const int* slot_starts, const int* nbr_loc,
+    const float* nbr_J, const float* h, const int* perm,
+    const float* b_sched, const float* jp, float teff, const float* s_in,
+    float* s_out, float* energies, int chains, int P, int n, int maxnb,
+    int ncolors, int m, int R, int nr, int threads, int steps, int seed,
+    int step0, int global_moves, int stride_t, int stride_c, int chain0,
+    void* stream) {
+  if (chains == 0 || n == 0 || P == 0) return cudaSuccess;
+  if (R < 1 || R > 16 || threads > mcs::gw::kWordThreads)
+    return cudaErrorInvalidValue;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
+                             static_cast<uint32_t>(step0) * mcs::kStepMult;
+  using mcs::gw::generic_words_kernel;
+  using mcs::gw::kPiqmc;
+  using Kernel = decltype(&generic_words_kernel<kPiqmc, false, false>);
+  // [global_moves][per chain]
+  const Kernel kernels[2][2] = {
+      {generic_words_kernel<kPiqmc, false, false>,
+       generic_words_kernel<kPiqmc, false, true>},
+      {generic_words_kernel<kPiqmc, true, false>,
+       generic_words_kernel<kPiqmc, true, true>}};
+  const Kernel kernel = kernels[global_moves != 0][stride_c != 0];
+  return mcs::gw::launch_words(
+      kernel, chains, R, threads,
+      mcs::gw::words_smem_bytes(P, nr, energies != nullptr, false),
+      static_cast<cudaStream_t>(stream), slot_site, slot_starts, nbr_loc,
+      nbr_J, h, perm, b_sched, jp, static_cast<const float*>(nullptr), teff,
+      0.0f, s_in, s_out, energies, chains, P, n, maxnb, ncolors, m, R, nr,
+      steps, seed_term, stride_t, stride_c, static_cast<uint32_t>(chain0));
 }
 
 extern "C" const char* generic_qmc_anneal_error_string(int code) {

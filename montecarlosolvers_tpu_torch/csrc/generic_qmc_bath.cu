@@ -32,15 +32,29 @@
 //
 // What bounds it on an H100. At the main path's P = 40, 32 chains of 6400
 // sites a sweep is 8.19 M updates, each with a bath of 39 dependent adds
-// over its line's slices, read from L1/L2 (476 MFLOP, a float32 bound of
-// 7.1 us). One CTA a chain fills 32 of the 132 SMs with 8 warps each, every
-// thread on a serial chain of slices and adds: latency, not bandwidth or
-// issue, sets its time (2.62 ms a sweep sequential, H100 80GB HBM3, 700 W,
-// PERF.md; kernel 5 takes 0.142 on the same torus from bits in shared
-// memory over a cluster).
+// over its line's slices (476 MFLOP, a float32 bound of 0.007107 ms).
 //
-// The design, simply (a first kernel): one CTA of 256 threads a chain, the
-// state in device memory, as csrc/generic_qmc.cu.
+// The cluster route (generic_qmc_bath_words_anneal below, the kernel in
+// csrc/generic_words.cuh, shared with generic PIQMC): a chain's slices as
+// bits of each site's words over a cluster of R CTAs, ping-pong buffers in
+// shared memory, the sequential sweep a line a thread walking its slices
+// in the write buffer, the colored sweep a byte of slices a thread in one
+// pass (the ping-pong gives every update its phase's starting state). What
+// bounds it is the 40-term bath sum of every update, a serial chain of
+// dependent adds; the design stages the (P, P) matrix in each CTA's shared
+// memory (a warp's updates read one row of it, mostly the same entry) and
+// unrolls each word's 32 terms, so each bit's sign is a shift by a
+// constant. At the shape above 0.2603-0.2661 ms a sweep sequential,
+// 0.2511-0.2586 colored (H100 80GB HBM3, 700.00 W; PERF.md), 35-37x the
+// bound; a first design that read the matrix through __ldg and shifted by
+// a variable bit took 0.381-0.429 and 0.379-0.386 (the same card).
+//
+// The file's first kernel (generic_qmc_bath_kernel below) stays, unchanged,
+// for a chain no cluster of 16 CTAs holds
+// (LAUNCHES["generic_qmc_bath_wide"]): one CTA of 256 threads a chain, the
+// state as floats in device memory, every thread on a serial chain of
+// slices and adds from L1/L2 (2.66-2.72 ms a sweep sequential at the shape
+// above, 368x the bound, the same card). Its design:
 // - Sequential, color-major. Each thread owns whole lines: all P slices of
 //   its sites of class c, in slice order. So the Trotter and bath terms
 //   read only the thread's own line. Class c at slice k then reads class
@@ -84,6 +98,7 @@
 
 #include "counter_hash.cuh"
 #include "energy.cuh"
+#include "generic_words.cuh"
 #include "packed.cuh"
 
 namespace {
@@ -356,6 +371,48 @@ extern "C" int generic_qmc_bath_shard_slice(
       full, snap, Ps, n, maxnb, ncolors, kloc, kglob, P, t, seed_term, proper,
       static_cast<uint32_t>(chain0));
   return cudaGetLastError();
+}
+
+// The cluster route (csrc/generic_words.cuh): the anneal of
+// generic_qmc_bath_anneal on chains of P slices of +/-1 floats s_in
+// (chains, P, n), packed into words as the kernel loads them, into s_out
+// (the same shape), each chain over a cluster of R CTAs of
+// `threads` threads holding nr slots each; slot_site (R, nr), slot_starts
+// (ncolors + 1) and nbr_loc (n, maxnb) the slot layout
+// (ops/generic_kernels.py::word_layout). A packing that is not proper
+// needs no flag here. All device pointers; launches on `stream` and
+// returns the launch's error.
+extern "C" int generic_qmc_bath_words_anneal(
+    const int* slot_site, const int* slot_starts, const int* nbr_loc,
+    const float* nbr_J, const float* h, const int* perm,
+    const float* b_sched, const float* jp, const float* bath, float teff,
+    float two_teff, const float* s_in, float* s_out, float* energies,
+    int chains, int P, int n, int maxnb, int ncolors, int m, int R, int nr,
+    int threads, int steps, int seed, int step0, int colored,
+    int global_moves, int chain0, void* stream) {
+  if (chains == 0 || n == 0 || P == 0) return cudaSuccess;
+  if (R < 1 || R > 16 || threads > mcs::gw::kWordThreads)
+    return cudaErrorInvalidValue;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult +
+                             static_cast<uint32_t>(step0) * mcs::kStepMult;
+  using mcs::gw::generic_words_kernel;
+  using mcs::gw::kBathColored;
+  using mcs::gw::kBathSequential;
+  using Kernel = decltype(&generic_words_kernel<kBathColored, false, false>);
+  // [colored][global_moves]
+  const Kernel kernels[2][2] = {
+      {generic_words_kernel<kBathSequential, false, false>,
+       generic_words_kernel<kBathSequential, true, false>},
+      {generic_words_kernel<kBathColored, false, false>,
+       generic_words_kernel<kBathColored, true, false>}};
+  const Kernel kernel = kernels[colored != 0][global_moves != 0];
+  return mcs::gw::launch_words(
+      kernel, chains, R, threads,
+      mcs::gw::words_smem_bytes(P, nr, energies != nullptr, true),
+      static_cast<cudaStream_t>(stream), slot_site, slot_starts, nbr_loc,
+      nbr_J, h, perm, b_sched, jp, bath, teff, two_teff, s_in, s_out,
+      energies, chains, P, n, maxnb, ncolors, m, R, nr, steps, seed_term, 0,
+      0, static_cast<uint32_t>(chain0));
 }
 
 extern "C" const char* generic_qmc_bath_anneal_error_string(int code) {

@@ -243,6 +243,13 @@ SIGNATURES = {
         "generic_qmc_shard_line_part": (_I, [_P] * 6 + [_I] * 7 + [_P]),
         "generic_qmc_shard_line_accept": (
             _I, [_P] + [ctypes.c_float] + [_P] * 2 + [_I] * 9 + [_P]),
+        # the cluster route (csrc/generic_words.cuh): slot_site,
+        # slot_starts, nbr_loc, nbr_J, h, perm, b_sched, jp, teff, s in,
+        # s out (floats, packed into words in the kernel), energies, chains, P, n, maxnb, ncolors, m, R, nr,
+        # threads, steps, seed, step0, global_moves, stride_t, stride_c,
+        # chain0, stream
+        "generic_qmc_words_anneal": (
+            _I, [_P] * 8 + [ctypes.c_float] + [_P] * 3 + [_I] * 16 + [_P]),
         "generic_qmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "generic_qmc_bath": {
@@ -262,6 +269,13 @@ SIGNATURES = {
             _I, [_P] * 8 + [ctypes.c_float] * 2 + [_P] * 3 + [_I] * 12
             + [_P]
         ),
+        # the cluster route: slot_site, slot_starts, nbr_loc, nbr_J, h,
+        # perm, b_sched, jp, bath, teff, 2*teff, s in, s out (floats),
+        # energies, chains, P, n, maxnb, ncolors, m, R, nr, threads, steps,
+        # seed, step0, colored, global_moves, chain0, stream
+        "generic_qmc_bath_words_anneal": (
+            _I, [_P] * 9 + [ctypes.c_float] * 2 + [_P] * 3 + [_I] * 15
+            + [_P]),
         "generic_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "dense_sa": {
@@ -282,14 +296,16 @@ SIGNATURES = {
     "fk_label": {
         # nbr_idx, nbr_J, h, perm, b_sched, jp, teff, lut (or null), s (in
         # place), parents and flags (scratch, null with smem), chains, P,
-        # n, maxnb, steps, seed, step0, smem, threads, chain0, stream
-        "fk_label_anneal": (_I, [_P] * 11 + [_I] * 10 + [_P]),
+        # n, maxnb, steps, seed, step0, smem, asym (lut not symmetric in
+        # ring distance), threads, chain0, stream
+        "fk_label_anneal": (_I, [_P] * 11 + [_I] * 11 + [_P]),
         "fk_label_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "fk_line": {
         # nbr_idx, nbr_J, h, perm, starts, b_sched, jp, p_t, p_pair, teff,
         # s (in place), chains, P, n, maxnb, t, step, color, class size,
-        # seed, per_slice_seeds, warps, chain0, stream
+        # seed, per_slice_seeds, warps a CTA (cluster_kernels.line_warps),
+        # chain0, stream
         "fk_line_phase": (
             _I, [_P] * 9 + [ctypes.c_float] + [_P] + [_I] * 12 + [_P]),
         "fk_line_phase_error_string": (ctypes.c_char_p, [_I]),
@@ -373,6 +389,12 @@ LAUNCHES["energy_bits"] = 0
 # kernel, on an IsingProblem or a lattice's checkerboard packing.
 LAUNCHES.update({"packed_sa": 0, "packed_svmc": 0, "generic_qmc": 0,
                  "generic_qmc_bath": 0})
+# Generic PIQMC and the generic bath run a chain over a thread-block
+# cluster (csrc/generic_words.cuh) under the keys above; a chain no cluster
+# holds takes each file's first kernel, one CTA a chain, under "<key>_wide"
+# (the per-chain PIQMC instantiation's under "generic_qmc_chain_wide").
+LAUNCHES.update({"generic_qmc_wide": 0, "generic_qmc_bath_wide": 0,
+                 "generic_qmc_chain_wide": 0})
 # The noisy anneals (per-step coupling tables) run the packed SA and SVMC
 # kernels, one launch an anneal, counted apart; the dense engine launches
 # its in-block kernel once a block and sweep.

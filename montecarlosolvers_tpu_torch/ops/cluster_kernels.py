@@ -17,7 +17,8 @@ class-major packed layout of `ops/packed.py` (the site's original index
                     chain, union-find labels; LAUNCHES["fk_label"]
   csrc/fk_line.cu   one color phase of the imaginary-time line clusters
                     (`bath_cluster_phase`, `sw_full_phase`): one warp a
-                    line, P <= 64; LAUNCHES["fk_line"]
+                    line, its rows in registers at P <= 64, in shared
+                    memory up to LINE_MAX_SLICES; LAUNCHES["fk_line"]
   csrc/houdayer.cu  the Houdayer move of ICM (`houdayer_sweep`) on replica
                     pairs in the problem's generic order: one CTA a pair,
                     union-find labels; LAUNCHES["houdayer"]
@@ -54,10 +55,13 @@ from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
 # threads of the one CTA a chain of fk_wolff and fk_label, and the warps a
 # CTA of fk_line (one line a warp)
 WOLFF_THREADS, LABEL_THREADS, LINE_WARPS = 512, 1024, 8
-# the most slices fk_line takes: a line's P x P bonds are P rows of one
-# 64-bit word
-LINE_MAX_SLICES = 64
+# the most slices fk_line takes: past P = 64 a line's P x P bonds are P
+# rows of ceil(P/64) 64-bit words, twice, beside its spins, fields and
+# energies in one warp's shared memory (`line_wide_bytes`), and at P = 922
+# one warp's needs pass a CTA's 227 KB
+LINE_MAX_SLICES = 921
 # fk_label keeps its union-find parents (int32) and two flag bytes a site
+# (and, with a bath table not symmetric in ring distance, an int32 label)
 # in shared memory up to this many bytes, else in device memory; so does
 # the Houdayer kernel its parents (1024 threads a pair)
 LABEL_SMEM_BYTES = 200 * 1024
@@ -123,21 +127,48 @@ def wolff_anneal(pg, b_sched, jp, teff, confs, seed, rule="local",
     return out
 
 
-def label_smem(P, n):
-    """True when fk_label holds a chain's P * N union-find sites in shared
-    memory (LABEL_SMEM_BYTES)."""
-    return P * n * 6 <= LABEL_SMEM_BYTES
+def line_wide_bytes(P):
+    """Shared memory of one warp (one line) of fk_line past P = 64
+    (csrc/fk_line.cu::line_wide_bytes): its rows and next rows, P words of
+    ceil(P/64) 64-bit words each, the seed's reach twice, and its spins,
+    fields and cluster energies, P floats each, in whole 64-bit words."""
+    W = -(-P // 64)
+    return (2 * P * W + 2 * W + (3 * P + 1) // 2) * 8
+
+
+def line_warps(P):
+    """Warps (lines) a CTA of fk_line: LINE_WARPS up to P = 64, past it
+    as many as SMEM_LIMIT_BYTES holds at `line_wide_bytes(P)` each, at most
+    LINE_WARPS (0 past LINE_MAX_SLICES)."""
+    if P <= 64:
+        return LINE_WARPS
+    return min(LINE_WARPS, _build.SMEM_LIMIT_BYTES // line_wide_bytes(P))
+
+
+def label_smem(P, n, asym=False):
+    """True when fk_label holds a chain's P * N union-find sites (with
+    `asym`, their labels too) in shared memory (LABEL_SMEM_BYTES)."""
+    return P * n * (10 if asym else 6) <= LABEL_SMEM_BYTES
+
+
+def ring_asymmetric(lookuptable):
+    """True when the bath table `lookuptable` (P - 1,) differs from its
+    reverse, lut[d - 1] != lut[P - 1 - d] somewhere: its bath pairs are
+    then directed edges where one direction's bond holds
+    (csrc/fk_label.cu). Every table of `schedules.bath_lookuptable` is
+    symmetric."""
+    return lookuptable is not None and not bool(
+        (lookuptable == lookuptable.flip(0)).all())
 
 
 def sw_anneal(pg, b_sched, jp, teff, confs, seed, lookuptable=None, step0=0,
               classical=False, chain0=0):
     """csrc/fk_label.cu on CUDA tensors, `cluster.sw_anneal_ref` on CPU
     tensors; arguments as for the plain version (chain0 the global index of
-    the first chain, a chain shard's). Raises ValueError on the
-    card for a bath table that is not symmetric in ring distance: the
-    kernel unions undirected bonds, and the JAX relaxation's bath edges
-    are directed where lut[d-1] != lut[P-1-d] (schedules.bath_lookuptable
-    is symmetric). Returns the new configurations. One launch
+    the first chain, a chain shard's). Any bath table: where lut[d-1] !=
+    lut[P-1-d] a bath pair may bond one way only, and the kernel relaxes
+    the labels along those directed edges as the plain version's
+    relaxation does. Returns the new configurations. One launch
     (LAUNCHES["fk_label"])."""
     if _build.route(confs.device, "cluster") == "cpu":
         return cl.sw_anneal_ref(pg, b_sched, jp, teff, confs, seed,
@@ -150,16 +181,14 @@ def sw_anneal(pg, b_sched, jp, teff, confs, seed, lookuptable=None, step0=0,
     graph = _check_graph(pg, dev)
     sched = _check_schedules(steps, dev, b_sched=b_sched, jp=jp, teff=teff)
     lut = _check_lut(lookuptable, P, dev)
-    if lookuptable is not None and not bool(
-            (lookuptable == lookuptable.flip(0)).all()):
-        raise ValueError("fk_label takes a bath table symmetric in ring "
-                         "distance")
+    asym = ring_asymmetric(lookuptable)
     _build.check_arg(confs, "confs", (chains, P, pg.nspins), dev)
     out = confs.clone()
-    smem = label_smem(P, n)
+    smem = label_smem(P, n, asym)
     parent = flags = None
     if not smem:
-        parent = torch.empty((chains, P * n), dtype=torch.int32, device=dev)
+        parent = torch.empty((chains, (2 if asym else 1) * P * n),
+                             dtype=torch.int32, device=dev)
         flags = torch.empty((chains, 2 * P * n), dtype=torch.uint8,
                             device=dev)
     lib = _build.library("fk_label")
@@ -168,7 +197,8 @@ def sw_anneal(pg, b_sched, jp, teff, confs, seed, lookuptable=None, step0=0,
         None if parent is None else _build.ptr(parent),
         None if flags is None else _build.ptr(flags), chains, P, n,
         pg.nbr_idx.shape[1], steps, cr.wrap_int32(seed), int(step0),
-        int(smem), LABEL_THREADS, int(chain0), _build.stream_of(dev))
+        int(smem), int(asym), LABEL_THREADS, int(chain0),
+        _build.stream_of(dev))
     _build.raise_on_error(lib, "fk_label_anneal", rc)
     _build.LAUNCHES["fk_label"] += 1
     return out
@@ -225,7 +255,8 @@ def line_phase(pg, b_sched, jp, p_t, t, teff, lookuptable, p_pair, confs,
     J_perp_t and the Trotter probability p_t[t]) on the draws of `step`,
     T_eff = `teff` (a Python float), the chains counted from chain0 (a
     chain shard's first). Returns the new configurations. One launch
-    (LAUNCHES["fk_line"]); P <= LINE_MAX_SLICES on the card."""
+    (LAUNCHES["fk_line"]); P <= LINE_MAX_SLICES on the card, whose rows
+    past P = 64 sit in shared memory (ValueError beyond)."""
     if _build.route(confs.device, "cluster") == "cpu":
         return cl.line_phase_ref(pg, b_sched[t], jp[t], teff, lookuptable,
                                  confs, seed, step, color, per_slice_seeds,
@@ -233,7 +264,8 @@ def line_phase(pg, b_sched, jp, p_t, t, teff, lookuptable, p_pair, confs,
     chains, P, n = confs.shape
     dev = confs.device
     if P > LINE_MAX_SLICES:
-        raise ValueError(f"fk_line takes P <= {LINE_MAX_SLICES}, got {P}")
+        raise ValueError(f"fk_line takes P <= {LINE_MAX_SLICES} (one line's "
+                         f"bond rows in a CTA's shared memory), got {P}")
     steps = int(b_sched.shape[0])
     graph = gk._check_graph(pg, dev)  # with the class starts
     sched = _check_schedules(steps, dev, b_sched=b_sched, jp=jp, p_t=p_t)
@@ -246,7 +278,7 @@ def line_phase(pg, b_sched, jp, p_t, t, teff, lookuptable, p_pair, confs,
         ctypes.c_float(teff), _build.ptr(out), chains, P, n,
         pg.nbr_idx.shape[1], int(t), int(step), int(color),
         pg.starts[color + 1] - pg.starts[color], cr.wrap_int32(seed),
-        int(bool(per_slice_seeds)), LINE_WARPS, int(chain0),
+        int(bool(per_slice_seeds)), line_warps(P), int(chain0),
         _build.stream_of(dev))
     _build.raise_on_error(lib, "fk_line_phase", rc)
     _build.LAUNCHES["fk_line"] += 1

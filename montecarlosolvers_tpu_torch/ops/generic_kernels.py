@@ -9,13 +9,18 @@ PyTorch each of those sweeps is about ten launches per color phase, so the
 port gives each a hand-written CUDA kernel that runs the whole schedule in
 one launch: `csrc/packed_sa.cu`, `csrc/packed_svmc.cu` and
 `csrc/generic_qmc.cu`, all on the class-major packed layout
-(`ops/packed.py`, `csrc/packed.cuh`), one CTA of THREADS threads a chain,
-the state in device memory. The dissipative sweeps of the JAX solver's
-masked path (`ops/piqmc.py::dissipative_local_sweep` :110 and
+(`ops/packed.py`, `csrc/packed.cuh`). The dissipative sweeps of the JAX
+solver's masked path (`ops/piqmc.py::dissipative_local_sweep` :110 and
 `dissipative_colored_sweep` :152) are `csrc/generic_qmc_bath.cu`, which
 also runs the bath on every lattice the split bath engines do not take (an
 odd L, or bath_update="colored" at odd P), on the lattice's checkerboard
-packing (`ops/packed.py::packed_from_lattice`).
+packing (`ops/packed.py::packed_from_lattice`). Packed SA and SVMC run one
+CTA of THREADS threads a chain, the state in device memory. Generic PIQMC
+and the generic bath run a chain's slices as bits of each site's words
+over a thread-block cluster (`csrc/generic_words.cuh`; R and the threads
+by `generic_qmc_geometry`, the slots by `word_layout`), or, for a chain
+no cluster holds, each file's first kernel, one CTA a chain, counted
+under "<key>_wide".
 
 Beside each wrapper sits its plain version (`packed_sa_anneal_ref`,
 `packed_svmc_anneal_ref`, `generic_qmc_anneal_ref`,
@@ -35,7 +40,8 @@ the plain sweeps to them on the same `jax.random` draws.
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts one launch an anneal under "packed_sa",
-"packed_svmc", "generic_qmc" and "generic_qmc_bath", and the noisy
+"packed_svmc", "generic_qmc" and "generic_qmc_bath" (and their "_wide"
+routes), and the noisy
 anneals (`packed_noisy_scan`, `packed_noisy_svmc_scan`: per-step coupling
 tables, the same two kernels with table strides) under "packed_sa_noisy"
 and "packed_svmc_noisy". With an `energies`
@@ -48,7 +54,9 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 
+import numpy as np
 import torch
 
 from montecarlosolvers_tpu_torch import schedules
@@ -59,12 +67,22 @@ from montecarlosolvers_tpu_torch.ops import packed as packed_ops
 from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
 from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import sweep_scan
-from montecarlosolvers_tpu_torch.ops.split_kernels import (energy_buffer,
+from montecarlosolvers_tpu_torch.ops.split_kernels import (CLUSTER_SIZES,
+                                                           energy_buffer,
                                                            step_values,
                                                            with_energies)
 
 # threads of the one CTA a chain (csrc/packed.cuh::kPackedThreads)
 THREADS = 256
+# the cluster route of generic PIQMC and the generic bath
+# (csrc/generic_words.cuh): at most this many threads a CTA, and the SMs of
+# an H100 SXM, which the rule of shape covers with chains x R CTAs where the
+# wrapper does not pass the card's own count
+WORD_THREADS, NUM_SMS = 512, 132
+# the head of a cluster-route CTA's shared memory (generic_words.cuh::
+# kHeadBytes): 16 buffer pointers and a float for each of WORD_THREADS / 32
+# warps; the kernel has no static shared memory
+WORD_HEAD_BYTES = 16 * 8 + WORD_THREADS // 32 * 4
 
 
 # ------------------------------------------------------------ plain versions
@@ -212,6 +230,115 @@ def generic_qmc_bath_anneal_ref(pg, b_sched, jp, teff, bath, confs, seed,
     return c
 
 
+# ------------------------------------------- the cluster route's rule of shape
+
+
+def word_slots(n, R, colors=1):
+    """Slots of one CTA of the cluster route, at most: every CTA holds
+    ceil(n_c / R) slots of each of the `colors` classes of n sites, and
+    sum_c ceil(n_c / R) <= ceil(n / R) + colors - 1."""
+    return -(-n // R) + colors - 1
+
+
+def words_smem_bytes(P, slots, energies=True, bath=False):
+    """Shared memory of one CTA of the cluster route, all of it dynamic
+    (csrc/generic_words.cuh::words_smem_bytes): the head
+    (WORD_HEAD_BYTES), both buffers of `slots` slots' ceil(P/32) words,
+    with `energies` a float a slice, and with the `bath` its (P, P)
+    matrix."""
+    return (WORD_HEAD_BYTES + 2 * -(-P // 32) * slots * 4
+            + (4 * P if energies else 0) + (4 * P * P if bath else 0))
+
+
+def _word_cluster(chains, n, P, colors, bath, sms):
+    """(R, threads) of the cluster route by the rule of
+    `generic_qmc_geometry`, the CTA's shared memory counted with or
+    without the bath matrix; None where no R of CLUSTER_SIZES holds it."""
+    if colors > 127:
+        return None
+    fits = [r for r in CLUSTER_SIZES
+            if r <= max(n, 1) and words_smem_bytes(
+                P, word_slots(n, r, colors), True, bath)
+            <= _build.SMEM_LIMIT_BYTES]
+    if not fits:
+        return None
+    R = next((r for r in fits if chains * r >= sms), fits[-1])
+    return R, word_threads(n, R, colors)
+
+
+def generic_qmc_geometry(chains, n, P, colors=1, sms=NUM_SMS):
+    """(R, threads) of generic PIQMC's cluster route for `chains` chains
+    of P slices of an n-site graph of `colors` color classes: each chain
+    over a cluster of R CTAs, R the smallest of CLUSTER_SIZES (R <= n)
+    whose chains x R CTAs cover the card's `sms` SMs (the wrappers pass
+    the card's count) and whose CTA holds both buffers of its slots' words
+    in shared memory (`word_slots`, `words_smem_bytes`, energies and the
+    head counted), else the largest that holds them; `word_threads`
+    threads. None when no cluster of up to CLUSTER_SIZES[-1] CTAs holds
+    the chain (with two classes: at P <= 32 an n above 464,240, at P = 40
+    above 232,080; at n = 6400 a P above 2208), and the wrapper runs the
+    first kernel of csrc/generic_qmc.cu,
+    the state as floats in device memory (LAUNCHES["generic_qmc_wide"]);
+    so does a graph of more than 127 color classes, whose class no slot
+    code holds (`word_layout`)."""
+    return _word_cluster(chains, n, P, colors, False, sms)
+
+
+def generic_qmc_bath_geometry(chains, n, P, colors=1, sms=NUM_SMS):
+    """(R, threads) of the generic bath's cluster route by the rule of
+    `generic_qmc_geometry`, each CTA also holding the (P, P) bath matrix in
+    shared memory: with two classes n <= 225,680 at P = 40, and at
+    n = 6400 P <= 226. None beyond (LAUNCHES["generic_qmc_bath_wide"])."""
+    return _word_cluster(chains, n, P, colors, True, sms)
+
+
+def word_threads(n, R, colors=1):
+    """Threads a CTA of the cluster route: one a slot, in whole warps, at
+    most WORD_THREADS (a thread then takes several)."""
+    return min(WORD_THREADS, -(-word_slots(n, R, colors) // 32) * 32)
+
+
+_LAYOUTS = {}
+
+
+def word_layout(pg, R):
+    """The cluster route's slot layout of PackedGraph `pg` over R CTAs, on
+    its device: CTA r holds the r-th chunk of ceil(n_c / R) sites of every
+    class c, class after class, at the same slots in every CTA. Returns
+    (slot_site (R * nr,) int32, (c << 24) | packed site or -1 for an empty
+    slot; slot_starts (C + 1,) int32, class c's first slot; nbr_loc (n,
+    maxnb) int32, each neighbour's (CTA << 16) | slot; nr, the slots a
+    CTA). Cached per graph and R."""
+    key = (id(pg), R)
+    hit = _LAYOUTS.get(key)
+    if hit is not None and hit[0]() is pg:
+        return hit[1]
+    starts = np.asarray(pg.starts, dtype=np.int64)
+    sizes = np.diff(starts)
+    chunk = -(-sizes // R)
+    slot_starts = np.concatenate([[0], np.cumsum(chunk)])
+    nr = int(slot_starts[-1])
+    n = pg.nspins
+    cls = np.repeat(np.arange(len(sizes)), sizes)
+    off = np.arange(n) - starts[:-1][cls]
+    ch = np.maximum(chunk[cls], 1)
+    rank = off // ch
+    slot = slot_starts[:-1][cls] + off - rank * ch
+    slot_site = np.full(R * max(nr, 1), -1, dtype=np.int64)
+    slot_site[rank * nr + slot] = (cls << 24) | np.arange(n)
+    loc = (rank << 16) | slot
+    dev = pg.h.device
+    layout = (torch.as_tensor(slot_site.astype(np.int32), device=dev),
+              torch.as_tensor(slot_starts.astype(np.int32), device=dev),
+              torch.as_tensor(loc[pg.nbr_idx.cpu().numpy()].astype(np.int32),
+                              device=dev),
+              nr)
+    for k in [k for k, (ref, _) in _LAYOUTS.items() if ref() is None]:
+        del _LAYOUTS[k]
+    _LAYOUTS[key] = (weakref.ref(pg), layout)
+    return layout
+
+
 # ------------------------------------------------------------ kernel wrappers
 
 
@@ -284,6 +411,8 @@ def _snap(pg, state):
     proper one. Freed after the launch, its memory is reused only by work
     queued after it on the stream."""
     return None if pg.proper else torch.empty_like(state)
+
+
 
 
 def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
@@ -362,13 +491,27 @@ def packed_svmc_anneal(pg, a_sched, b_sched, temp, theta, seed, tf,
     return out
 
 
+def card_sms(device):
+    """The SMs of the CUDA card `device`, which the rules of shape cover."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
                        energies=None, step0=0, chain0=0):
     """csrc/generic_qmc.cu on CUDA tensors, `generic_qmc_anneal_ref` on
     CPU tensors; arguments as for the plain version. Returns the new
-    configurations. One launch (LAUNCHES["generic_qmc"]), energies or
-    not; with a (steps, chains) `jp`, the per-chain instantiation
-    (LAUNCHES["generic_qmc_chain"])."""
+    configurations; on the card their spins must hold +/-1.
+
+    Two hand-written kernels share the work, chosen by shape alone: where
+    `generic_qmc_geometry` finds a cluster of up to CLUSTER_SIZES[-1] CTAs
+    that holds a chain's slices as bits, the cluster route
+    (csrc/generic_words.cuh) runs the whole schedule in one launch
+    (LAUNCHES["generic_qmc"]); for a larger chain the file's first kernel
+    keeps the state as floats in device memory, one CTA a chain, also one
+    launch (LAUNCHES["generic_qmc_wide"]). Both equal the plain version
+    bitwise; neither is a fallback from a failure of the other. A (steps,
+    chains) `jp` takes each route's per-chain instantiation
+    (LAUNCHES["generic_qmc_chain"], ["generic_qmc_chain_wide"])."""
     if _build.route(confs.device, "packed") == "cpu":
         return generic_qmc_anneal_ref(pg, b_sched, jp, teff, confs, seed,
                                       global_moves, energies, step0, chain0)
@@ -379,20 +522,38 @@ def generic_qmc_anneal(pg, b_sched, jp, teff, confs, seed, global_moves,
     steps = int(b_sched.shape[0])
     _build.check_arg(b_sched, "b_sched", (steps,), dev)
     strides = _build.schedule_strides(jp, "jp", steps, chains, dev)
+    m = piqmc_ops.spacetime_num_phases(pg.num_colors, P)
+    lib = _build.library("generic_qmc")
+    key = "generic_qmc_chain" if strides[1] else "generic_qmc"
+    geometry = generic_qmc_geometry(chains, n, P, pg.num_colors,
+                                    sms=card_sms(dev))
+    if geometry is not None:
+        slot_site, slot_starts, nbr_loc, nr = word_layout(pg, geometry[0])
+        out = torch.empty_like(confs)
+        rc = lib.generic_qmc_words_anneal(
+            *map(_build.ptr, (slot_site, slot_starts, nbr_loc, pg.nbr_J,
+                              pg.h, pg.perm, b_sched, jp)),
+            ctypes.c_float(teff), _build.ptr(confs), _build.ptr(out),
+            _build.energies_ptr(energies, steps, chains, dev), chains, P, n,
+            pg.nbr_idx.shape[1], pg.num_colors, m, geometry[0], nr,
+            geometry[1], steps, cr.wrap_int32(seed), int(step0),
+            int(bool(global_moves)), *strides, int(chain0),
+            _build.stream_of(dev))
+        _build.raise_on_error(lib, "generic_qmc_words_anneal", rc,
+                              error_fn="generic_qmc_anneal_error_string")
+        _build.LAUNCHES[key] += 1
+        return out
     out = confs.clone()
     snap = _snap(pg, out)
-    lib = _build.library("generic_qmc")
     rc = lib.generic_qmc_anneal(
         *graph, _build.ptr(b_sched), _build.ptr(jp), ctypes.c_float(teff),
         _build.ptr(out), None if snap is None else _build.ptr(snap),
         _build.energies_ptr(energies, steps, chains, dev),
-        chains, P, n, pg.nbr_idx.shape[1], pg.num_colors,
-        piqmc_ops.spacetime_num_phases(pg.num_colors, P), steps,
+        chains, P, n, pg.nbr_idx.shape[1], pg.num_colors, m, steps,
         cr.wrap_int32(seed), int(step0), int(bool(global_moves)), THREADS,
         *strides, int(chain0), _build.stream_of(dev))
     _build.raise_on_error(lib, "generic_qmc_anneal", rc)
-    _build.LAUNCHES["generic_qmc_chain" if strides[1]
-                    else "generic_qmc"] += 1
+    _build.LAUNCHES[key + "_wide"] += 1
     return out
 
 
@@ -401,8 +562,12 @@ def generic_qmc_bath_anneal(pg, b_sched, jp, teff, bath, confs, seed,
                             step0=0, chain0=0):
     """csrc/generic_qmc_bath.cu on CUDA tensors, `generic_qmc_bath_anneal_ref`
     on CPU tensors; arguments as for the plain version. Returns the new
-    configurations. One launch (LAUNCHES["generic_qmc_bath"]), sequential
-    or colored, energies or not."""
+    configurations; on the card their spins must hold +/-1. Sequential or
+    colored, energies or not, one launch of one of two hand-written
+    kernels chosen by shape alone, as for `generic_qmc_anneal`: the
+    cluster route where `generic_qmc_bath_geometry` finds a cluster
+    (LAUNCHES["generic_qmc_bath"]), else the file's first kernel
+    (LAUNCHES["generic_qmc_bath_wide"])."""
     if _build.route(confs.device, "packed") == "cpu":
         return generic_qmc_bath_anneal_ref(pg, b_sched, jp, teff, bath,
                                            confs, seed, global_moves,
@@ -415,21 +580,40 @@ def generic_qmc_bath_anneal(pg, b_sched, jp, teff, bath, confs, seed,
     steps = int(b_sched.shape[0])
     _build.check_arg(b_sched, "b_sched", (steps,), dev)
     _build.check_arg(jp, "jp", (steps,), dev)
+    m = piqmc_ops.spacetime_num_phases(pg.num_colors, P)
+    lib = _build.library("generic_qmc_bath")
+    geometry = generic_qmc_bath_geometry(chains, n, P, pg.num_colors,
+                                         sms=card_sms(dev))
+    if geometry is not None:
+        slot_site, slot_starts, nbr_loc, nr = word_layout(pg, geometry[0])
+        out = torch.empty_like(confs)
+        rc = lib.generic_qmc_bath_words_anneal(
+            *map(_build.ptr, (slot_site, slot_starts, nbr_loc, pg.nbr_J,
+                              pg.h, pg.perm, b_sched, jp, bath)),
+            ctypes.c_float(teff), ctypes.c_float(2.0 * teff),
+            _build.ptr(confs), _build.ptr(out),
+            _build.energies_ptr(energies, steps, chains, dev), chains, P, n,
+            pg.nbr_idx.shape[1], pg.num_colors, m, geometry[0], nr,
+            geometry[1], steps, cr.wrap_int32(seed), int(step0),
+            int(bool(colored)), int(bool(global_moves)), int(chain0),
+            _build.stream_of(dev))
+        _build.raise_on_error(lib, "generic_qmc_bath_words_anneal", rc,
+                              error_fn="generic_qmc_bath_anneal_error_string")
+        _build.LAUNCHES["generic_qmc_bath"] += 1
+        return out
     out = confs.clone()
     snap = (torch.empty_like(confs) if colored or not pg.proper else None)
-    lib = _build.library("generic_qmc_bath")
     rc = lib.generic_qmc_bath_anneal(
         *graph, _build.ptr(b_sched), _build.ptr(jp), _build.ptr(bath),
         ctypes.c_float(teff), ctypes.c_float(2.0 * teff), _build.ptr(out),
         None if snap is None else _build.ptr(snap),
         _build.energies_ptr(energies, steps, chains, dev), chains, P, n,
-        pg.nbr_idx.shape[1], pg.num_colors,
-        piqmc_ops.spacetime_num_phases(pg.num_colors, P), steps,
+        pg.nbr_idx.shape[1], pg.num_colors, m, steps,
         cr.wrap_int32(seed), int(step0), int(bool(colored)),
         int(bool(global_moves)),
         int(pg.proper), THREADS, int(chain0), _build.stream_of(dev))
     _build.raise_on_error(lib, "generic_qmc_bath_anneal", rc)
-    _build.LAUNCHES["generic_qmc_bath"] += 1
+    _build.LAUNCHES["generic_qmc_bath_wide"] += 1
     return out
 
 

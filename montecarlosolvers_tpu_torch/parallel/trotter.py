@@ -65,7 +65,10 @@ sharded on "replica" along the slice axis (and on "chains" along the chain
 axis with chains_sharded=True); the cluster engines take `stats=`, a dict
 that gains the rounds of each step and the host seconds of the
 collectives; `anneal_sw_sharded` refuses a bath table that is not
-symmetric in ring distance, as csrc/fk_label.cu does.
+symmetric in ring distance: S7 (csrc/fk_shard.cu) unites a block's bath
+pairs as undirected bonds and keeps its cross-rank pairs as undirected
+bits, where such a table makes some pairs directed edges (csrc/fk_label.cu
+relaxes those on one device; ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -499,8 +502,8 @@ def anneal_sw_sharded(problem, a_sched, b_sched, temp, confs, generator,
     """PIQMC anneal with one full space-time Swendsen-Wang sweep a step,
     the Trotter axis sharded over mesh axis "replica" (JAX
     trotter.py:794). Arguments as for `anneal_wolff_sharded`; lookuptable
-    must be symmetric in ring distance (csrc/fk_label.cu's bath bonds are
-    undirected; `schedules.bath_lookuptable` is).
+    must be symmetric in ring distance (S7's bath bonds are undirected;
+    `schedules.bath_lookuptable` is; ROADMAP.md queue 3).
 
     A step on a rank: one ring exchange of the boundary rows, with a bath a
     gather of every rank's rows; S7's draw and the block's own labels
@@ -516,7 +519,7 @@ def anneal_sw_sharded(problem, a_sched, b_sched, temp, confs, generator,
     sharded on "replica" along the slice axis."""
     pg, s, dims, lut, group, me, replicas = _cluster_setup(
         problem, confs, mesh, lookuptable, "trotter.anneal_sw_sharded")
-    if lut is not None and not bool((lut == lut.flip(0)).all()):
+    if ck.ring_asymmetric(lut):
         raise ValueError("anneal_sw_sharded takes a bath table symmetric in "
                          "ring distance")
     slices, n = confs.shape

@@ -14,7 +14,10 @@ is traced after an untraced warm-up solve, so the kernels are built and
 the caching allocator is warm. The dissipative paths run through
 `solvers/dissipative.py::dissipative_qa`: kernel 5 on the lattice, its
 colored template, and the generic bath kernel on the odd torus and on the
-80x80 torus's generic form (tau = 200, as chip_smoke.py runs them). The
+80x80 torus's generic form, sequential and colored (tau = 200, as
+chip_smoke.py runs them); generic PIQMC runs solve("piqmc") at P = 40 on
+that generic form and at P = 20 on chimera_graph(16, rng=0), 32 reads,
+1000 sweeps. The
 dense engine runs solve("sa") on sk_model(2048, rng=0) at 1024 reads, 1000
 sweeps; the noisy anneals run sa.anneal_noisy (1280 chains) and
 svmc.anneal_noisy (256 chains, TF) over 1000 steps of per-step tables
@@ -158,6 +161,16 @@ def main(argv=None):
         ("piqmc_bath_generic_p40", f"{lattice}, generic",
          partial(dissipative_qa, problem.to_generic(), 32, 200, 40, 1e-2,
                  seed=1)),
+        ("piqmc_bath_generic_colored_p40", f"{lattice}, generic",
+         partial(dissipative_qa, problem.to_generic(), 32, 200, 40, 1e-2,
+                 seed=1, bath_update="colored")),
+        # generic PIQMC: the same instance's generic form, and the chimera
+        ("piqmc_p40_generic", f"{lattice}, generic",
+         partial(solve, problem.to_generic(), seed=1, slices=40,
+                 **qmc_kw)),
+        ("piqmc_chimera", "chimera_graph(16, rng=0)",
+         partial(solve, instances.chimera_graph(16, rng=0, device=dev)[0],
+                 seed=1, slices=20, **qmc_kw)),
         ("sa_dense", "sk_model(2048, rng=0)",
          partial(solve, instances.sk_model(2048, rng=0, device=dev)[0],
                  method="sa", num_reads=1024, sweeps=1000, seed=1)),

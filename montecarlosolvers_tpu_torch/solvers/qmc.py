@@ -230,8 +230,9 @@ def anneal_sw_bath(problem, a_sched, b_sched, temp, lookuptable, confs,
     couplings, P >= 2. problem: IsingProblem, or a LatticeProblem (taken
     to_generic(), as the other cluster solvers take it); confs may be
     chain-sharded, as for `anneal`. On the card csrc/fk_line.cu once a
-    color phase (P <= 64), and csrc/generic_qmc_bath.cu once a step for
-    WC2's local sweeps. Returns the annealed configurations."""
+    color phase (P <= 921: a line's bond rows in one CTA's shared memory,
+    `cluster_kernels.LINE_MAX_SLICES`), and csrc/generic_qmc_bath.cu once
+    a step for WC2's local sweeps. Returns the annealed configurations."""
     _roadmap.require_problem(problem, "qmc.anneal_sw_bath")
     problem = cluster_kernels.generic_form(problem)
     seed = draw_seed(generator)

@@ -201,10 +201,13 @@ class TestSeedComponent:
 # -------------------------------------------------------------- line phases
 
 
+# P = 65 and 128: past fk_line's one-word rows (P <= 64), where the card
+# now follows line_phase_ref with rows of several words
 SW_BATH_CASES = [("torus6", 2, True), ("torus6", 2, False),
                  ("torus6", 3, True), ("torus6", 8, False),
                  ("torus6", 8, True), ("rg_fields", 3, False),
-                 ("rg_fields", 3, True), ("dup", 2, True)]
+                 ("rg_fields", 3, True), ("dup", 2, True),
+                 ("torus6", 65, True), ("torus6", 128, False)]
 
 
 @pytest.mark.parametrize("graph,P,per_slice_seeds", SW_BATH_CASES)
@@ -320,16 +323,31 @@ def test_classical_sw_sweep_matches_jax(graph):
     assert (got.numpy() != s).any()
 
 
+def asymmetric_table(P, alpha):
+    """bath_lookuptable(P, alpha) with the couplings of ring offsets d <
+    P / 2 scaled by 1.5: lut[d - 1] != lut[P - 1 - d], so a bath pair's
+    two directions bond with different probabilities (a pair a < b reads
+    lut[b - a - 1] from a and lut[P - 1 - (b - a)] from b)."""
+    lut = np.asarray(jsched.bath_lookuptable(P, alpha), dtype=np.float32)
+    d = np.arange(1, P)
+    return np.where(2 * d < P, lut * np.float32(1.5), lut).astype(np.float32)
+
+
 @pytest.mark.parametrize("graph,P,bath", [
     ("torus6", 1, False), ("torus6", 2, True), ("torus6", 3, False),
     ("torus6", 8, True), ("rg_fields", 2, False), ("rg_fields", 3, True),
-    ("chimera", 8, False), ("dup", 3, True)])
+    ("chimera", 8, False), ("dup", 3, True), ("torus6", 8, "asym"),
+    ("rg_fields", 5, "asym")])
 def test_spacetime_sw_sweep_matches_jax(graph, P, bath):
+    """spacetime_sw_sweep on the JAX package's draws; "asym" takes a bath
+    table not symmetric in ring distance, whose one-way bath pairs both
+    relaxations read as directed edges."""
     port, jprob = graphs(graph)
     n, maxnb = port.nspins, port.maxnb
     temp, gamma, b = 0.5, 0.8, 0.9
     teff = temp * P
-    lut = jsched.bath_lookuptable(P, 0.3) if bath else None
+    lut = (asymmetric_table(P, 0.3) if bath == "asym"
+           else jsched.bath_lookuptable(P, 0.3) if bath else None)
     confs = _spins((CHAINS, P, n), 20 + P)
     keys = jax.random.split(jax.random.key(13), CHAINS)
     out = jax.jit(jax.vmap(lambda c, k: jc.spacetime_sw_sweep(

@@ -19,13 +19,25 @@ with a chain's slices as bits on the full plane
 svmc_split_geometry`). Each geometry function returns None for a shape no
 cluster of 16 CTAs holds, and the wrapper runs that kernel's per-phase
 kernels: the card refuses no lattice (README.md states the edges).
+
+Generic PIQMC and the generic bath on an IsingProblem take the same design
+(`ops/generic_kernels.py::generic_qmc_geometry`, `generic_qmc_bath_geometry`:
+a chain's slices as words over a cluster, CTA r holding the r-th chunk of
+every color class, `word_layout`), or for a chain no cluster holds each
+file's first kernel (the "_wide" launch keys). fk_line keeps a line's
+bond rows in registers at P <= 64 and in a warp's shared memory beyond
+(`cluster_kernels.line_wide_bytes`, up to LINE_MAX_SLICES).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from montecarlosolvers_tpu_torch.models import instances
 from montecarlosolvers_tpu_torch.ops import _build
+from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+from montecarlosolvers_tpu_torch.ops import packed as packed_ops
 from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
 from montecarlosolvers_tpu_torch.ops import split_kernels as sk
 
@@ -189,7 +201,7 @@ def test_plane_qmc_geometry_limit():
     assert pk.plane_qmc_smem_bytes(70, 81, 4) == 2 * 3 * 21 * 81 * 4
 
 
-@pytest.mark.parametrize("P", [1, 5, 33, 64])
+@pytest.mark.parametrize("P", [1, 5, 31, 32, 33, 64, 65])
 def test_pack_slice_bits_round_trip(P):
     rng = np.random.default_rng(P)
     chains, n = 3, 50
@@ -269,3 +281,157 @@ def test_sa_per_chain_temperatures_fit_wherever_the_halves_do():
             if r <= L and sk.sa_smem_bytes(L, r) <= _build.SMEM_LIMIT_BYTES:
                 assert sk.sa_smem_bytes(L, r) + 128 <= \
                     _build.SMEM_LIMIT_BYTES, (L, r)
+
+
+# ------------------------------------ generic PIQMC and the generic bath
+
+
+_PACKED = {}
+
+
+def _packed(name):
+    """The PackedGraphs the main path's generic solves take: the 80x80
+    torus's generic form, the 81x81 torus's (its greedy colors) and its
+    checkerboard packing (the bath's lattice route), chimera(16)."""
+    if name not in _PACKED:
+        if name == "torus80":
+            prob = instances.gaussian_torus(80, 0, device="cpu").to_generic()
+        elif name == "torus81":
+            prob = instances.gaussian_torus(81, 0, device="cpu").to_generic()
+        elif name == "lattice81":
+            _PACKED[name] = packed_ops.packed_from_lattice(
+                instances.gaussian_torus(81, 0, device="cpu"))
+            return _PACKED[name]
+        else:
+            prob = instances.chimera_graph(16, rng=0, device="cpu")[0]
+        _PACKED[name] = packed_ops.build_packed(prob)
+    return _PACKED[name]
+
+
+# (graph, chains, P) -> R: the smallest cluster whose chains x R CTAs cover
+# the 132 SMs (32 chains: R = 8, 256 CTAs), or with one chain the largest
+# that holds its slices' words (16)
+@pytest.mark.parametrize("geometry", ["generic_qmc_geometry",
+                                      "generic_qmc_bath_geometry"])
+@pytest.mark.parametrize("graph,chains,P,R", [
+    ("torus80", 32, 40, 8), ("torus80", 32, 20, 8), ("torus81", 32, 40, 8),
+    ("lattice81", 32, 20, 8), ("chimera16", 32, 20, 8),
+    ("chimera16", 32, 40, 8), ("torus80", 1, 40, 16),
+    ("torus80", 132, 40, 1), ("torus80", 66, 5, 2)])
+def test_generic_qmc_geometry(geometry, graph, chains, P, R):
+    pg = _packed(graph)
+    rule = getattr(gk, geometry)
+    bath = geometry == "generic_qmc_bath_geometry"
+    r, threads = rule(chains, pg.nspins, P, pg.num_colors)
+    assert r == R
+    slot_site, slot_starts, nbr_loc, nr = gk.word_layout(pg, r)
+    assert nr <= gk.word_slots(pg.nspins, r, pg.num_colors)
+    # the head (16 buffer pointers, a float a warp), both buffers of a
+    # CTA's slots' words, a float a slice and, for the bath, its (P, P)
+    # matrix: all of the kernel's shared memory, none of it static
+    words = -(-P // 32)
+    smem = (16 * 8 + gk.WORD_THREADS // 32 * 4 + 2 * words * nr * 4 + 4 * P
+            + (4 * P * P if bath else 0))
+    assert smem == gk.words_smem_bytes(P, nr, True, bath)
+    assert smem <= _build.SMEM_LIMIT_BYTES
+    assert threads == min(gk.WORD_THREADS,
+                          -(-gk.word_slots(pg.nspins, r,
+                                           pg.num_colors) // 32) * 32)
+
+
+# (rule, two classes: the most sites at P = 40, at P = 32; the most
+# slices at n = 6400): the bath's CTAs also hold its (P, P) matrix
+@pytest.mark.parametrize("geometry,n40,n32,p6400", [
+    ("generic_qmc_geometry", 232080, 464240, 2208),
+    ("generic_qmc_bath_geometry", 225680, 456048, 226)])
+def test_generic_qmc_geometry_limit(geometry, n40, n32, p6400):
+    """The first chain past 16 CTAs' shared memory, in n and in P, takes
+    each file's first kernel (None); so does a graph of 128 classes."""
+    rule = getattr(gk, geometry)
+    bath = geometry == "generic_qmc_bath_geometry"
+    assert rule(1, n40, 40, 2) == (16, gk.WORD_THREADS)
+    assert rule(1, n40 + 1, 40, 2) is None
+    # the first torus past it: the 482 x 482 generic form (232,324
+    # sites), the bath's 476 x 476 checkerboard (226,576)
+    first = 476 if bath else 482
+    assert rule(1, first * first, 40, 2) is None
+    assert rule(1, (first - 2) ** 2, 40, 2) is not None
+    # at P <= 32 one word a site: about twice as many sites
+    assert rule(1, n32, 32, 2) is not None
+    assert rule(1, n32 + 1, 32, 2) is None
+    # n = 6400 (the 80 x 80 torus)
+    assert rule(1, 6400, p6400, 2) is not None
+    assert rule(1, 6400, p6400 + 1, 2) is None
+    assert rule(32, 6400, 40, 127) is not None
+    assert rule(32, 6400, 40, 128) is None
+    for r in gk.CLUSTER_SIZES:
+        assert gk.words_smem_bytes(40, gk.word_slots(n40 + 1, r, 2), True,
+                                   bath) > _build.SMEM_LIMIT_BYTES
+
+
+# (chains, SMs) -> R: the rule covers the card's own SM count, which the
+# wrappers read from the device (an H100 PCIe has 114, an SXM 132)
+@pytest.mark.parametrize("geometry", ["generic_qmc_geometry",
+                                      "generic_qmc_bath_geometry"])
+@pytest.mark.parametrize("chains,sms,R", [
+    (32, 132, 8), (32, 114, 4), (32, 128, 4), (32, 129, 8), (8, 132, 16),
+    (132, 132, 1), (132, 264, 2)])
+def test_generic_qmc_geometry_covers_the_cards_sms(geometry, chains, sms,
+                                                   R):
+    pg = _packed("torus80")
+    rule = getattr(gk, geometry)
+    r, threads = rule(chains, pg.nspins, 40, pg.num_colors, sms=sms)
+    assert r == R
+    assert threads == gk.word_threads(pg.nspins, r, pg.num_colors)
+    if sms == gk.NUM_SMS:
+        assert rule(chains, pg.nspins, 40, pg.num_colors) == (r, threads)
+
+
+@pytest.mark.parametrize("graph,R", [("torus80", 8), ("torus81", 16),
+                                     ("lattice81", 4), ("chimera16", 8),
+                                     ("chimera16", 1)])
+def test_word_layout_holds_every_site_once(graph, R):
+    """CTA r holds the r-th chunk of every class, at the same slots in
+    every CTA; nbr_loc names each neighbour's CTA and slot."""
+    pg = _packed(graph)
+    slot_site, slot_starts, nbr_loc, nr = gk.word_layout(pg, R)
+    assert slot_site.shape == (R * nr,) and slot_starts[-1] == nr
+    sites = slot_site[slot_site >= 0]
+    assert torch.equal(torch.sort(sites & 0xFFFFFF).values,
+                       torch.arange(pg.nspins, dtype=torch.int32))
+    where = torch.full((pg.nspins,), -1, dtype=torch.int64)
+    full = torch.nonzero(slot_site >= 0)[:, 0]
+    where[(slot_site[full] & 0xFFFFFF).long()] = full
+    rank, slot = where // nr, where % nr
+    cls = (slot_site[full] >> 24).long()
+    starts = torch.tensor(pg.starts)
+    # the class of a slot is the class block its site lies in, and the
+    # slot lies in that class's slots
+    site = (slot_site[full] & 0xFFFFFF).long()
+    assert torch.equal(torch.bucketize(site, starts[1:], right=True), cls)
+    lo, hi = slot_starts.long()[cls], slot_starts.long()[cls + 1]
+    assert bool(((slot % nr)[site] >= lo).all()) and \
+        bool(((slot % nr)[site] < hi).all())
+    # chunks of ceil(n_c / R) sites in class order
+    chunk = -(-(starts[cls + 1] - starts[cls]) // R)
+    assert torch.equal(rank[site], (site - starts[cls]) // chunk)
+    loc = (rank << 16) | slot
+    assert torch.equal(nbr_loc.long(), loc[pg.nbr_idx.long()])
+    assert gk.word_layout(pg, R)[0] is slot_site  # cached per graph
+
+
+@pytest.mark.parametrize("P,words,warps", [
+    (64, 1, 8), (65, 2, 8), (128, 2, 8), (400, 7, 4), (921, 15, 1)])
+def test_line_wide_rows(P, words, warps):
+    """fk_line's rows past P = 64: ceil(P/64) 64-bit words a row, twice,
+    with the reach and three floats a slice in one warp's shared memory;
+    as many warps a CTA as 227 KB hold, up to LINE_WARPS. P = 921 is the
+    last that one warp holds (LINE_MAX_SLICES)."""
+    assert -(-P // 64) == words
+    per_warp = ck.line_wide_bytes(P)
+    assert per_warp == (2 * P * words + 2 * words + (3 * P + 1) // 2) * 8
+    assert min(ck.LINE_WARPS, _build.SMEM_LIMIT_BYTES // per_warp) == warps
+    assert ck.line_warps(P) == (ck.LINE_WARPS if P <= 64 else warps)
+    assert ck.line_wide_bytes(ck.LINE_MAX_SLICES) <= _build.SMEM_LIMIT_BYTES
+    assert ck.line_wide_bytes(ck.LINE_MAX_SLICES + 1) > \
+        _build.SMEM_LIMIT_BYTES

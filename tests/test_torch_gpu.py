@@ -67,6 +67,11 @@ its plain version, and pt.sample, sample_icm and pa.sample equal their
 plain route bitwise with their routes' launches. The compat shims on the
 card equal their plain route bitwise, with their routes' launches, and a
 CheckpointedAnneal resumed on the card equals the unbroken run bitwise.
+Generic PIQMC and the generic bath equal their plain versions on both
+routes, the cluster route and the "_wide" first kernels (forced), on a
+small chimera and the 9 x 9 odd torus's improper checkerboard; fk_line
+past P = 64 (rows of several words in shared memory, P = 65 to 200) and
+fk_label on a bath table not symmetric in ring distance equal theirs.
 """
 
 import contextlib
@@ -78,6 +83,7 @@ import torch
 import gibbs_check as gibbs
 from montecarlosolvers_tpu_torch import convert, schedules
 from montecarlosolvers_tpu_torch.models import instances
+from montecarlosolvers_tpu_torch.models.ising import IsingProblem
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import dense_kernels as dk
 from montecarlosolvers_tpu_torch.ops import energy as energy_ops
@@ -935,6 +941,83 @@ def test_generic_bath_kernel_equals_plain(cuda, graph, slices, colored, gm):
         gibbs.ENERGY_RTOL * case["scale"]
 
 
+@pytest.mark.parametrize("route", ["cluster", "wide"])
+@pytest.mark.parametrize("kernel,graph,slices,opts", [
+    ("generic_qmc", "chimera", 20, {"global_moves": True}),
+    ("generic_qmc", "odd_torus9", 5, {"global_moves": True}),
+    ("generic_qmc", "odd_torus9", 40, {"global_moves": False}),
+    ("generic_qmc_bath", "chimera", 20, {"global_moves": True}),
+    ("generic_qmc_bath", "odd_torus9", 40, {"global_moves": True}),
+    ("generic_qmc_bath", "odd_torus9", 5,
+     {"global_moves": True, "colored": True}),
+    ("generic_qmc_bath", "chimera", 33,
+     {"global_moves": False, "colored": True}),
+])
+def test_generic_kernels_both_routes_equal_plain(cuda, monkeypatch, route,
+                                                 kernel, graph, slices,
+                                                 opts):
+    """Generic PIQMC and the generic bath on both of their routes, the
+    cluster route (csrc/generic_words.cuh, the slices as words over a
+    cluster of CTAs) and the first kernel of each file ("_wide", forced
+    here by a rule of shape that holds nothing), against the plain
+    version: a small chimera and the 9 x 9 odd torus's improper
+    checkerboard, P = 5 to 40 (one and two words a site), sequential and
+    colored. States bitwise, one launch a call under the route's key."""
+    if route == "wide":
+        monkeypatch.setattr(gk, "generic_qmc_geometry",
+                            lambda *a, **k: None)
+        monkeypatch.setattr(gk, "generic_qmc_bath_geometry",
+                            lambda *a, **k: None)
+    steps, chains = 8, 3
+    prob = _bath_problem(graph, cuda)
+    case = gibbs.generic_case(kernel, prob, chains, steps, slices,
+                              bscale=0.8, alpha=0.3, **opts)
+    wrapper, plain, key = gibbs.GENERIC[kernel]
+    _build.reset_launches()
+    out = case["run"](wrapper, None)
+    want = key + ("_wide" if route == "wide" else "")
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {want: 1}
+    ref = case["run"](plain, None)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert float((out != case["start"]).float().mean()) > 0.05
+
+
+# the last chain each rule keeps on the cluster route at P = 40: one chain
+# of a ring of n sites (two classes) over 16 CTAs, each asking, with the
+# energies, for all 232,448 bytes of shared memory a block may take
+@pytest.mark.parametrize("kernel,n", [("generic_qmc", 232080),
+                                      ("generic_qmc_bath", 225680)])
+def test_generic_kernels_at_the_cluster_routes_last_shape(cuda, kernel, n):
+    rows = np.arange(n)
+    vals = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    prob = IsingProblem.from_edges(n, rows, (rows + 1) % n, vals,
+                                   device=cuda)
+    rule = (gk.generic_qmc_bath_geometry if kernel == "generic_qmc_bath"
+            else gk.generic_qmc_geometry)
+    assert rule(1, n, 40, 2) == (16, gk.WORD_THREADS)
+    assert rule(1, n + 2, 40, 2) is None
+    case = gibbs.generic_case(kernel, prob, 1, 2, 40, bscale=0.8,
+                              alpha=0.3)
+    nr = gk.word_layout(case["pg"], 16)[3]
+    assert gk.words_smem_bytes(40, nr, True, kernel == "generic_qmc_bath") \
+        == _build.SMEM_LIMIT_BYTES
+    wrapper, plain, key = gibbs.GENERIC[kernel]
+    es, es_plain = (torch.full((2, 1), float("nan"), device=cuda)
+                    for _ in range(2))
+    _build.reset_launches()
+    out = case["run"](wrapper, None)
+    collected = case["run"](wrapper, es)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {key: 2}
+    ref = case["run"](plain, es_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(collected, out)
+    assert float((out != case["start"]).float().mean()) > 0.05
+    assert float((es - es_plain).abs().max()) <= \
+        gibbs.ENERGY_RTOL * case["scale"]
+
+
 # (L, P, periodic, global moves, B, chains); L = 674 at P = 40 is held by
 # no cluster of 16 CTAs and runs on the per-phase kernels, P = 66 takes
 # the runtime-P kernel
@@ -1236,21 +1319,38 @@ def test_wolff_kernel_equals_plain(cuda, graph, P, rule, bath):
     assert torch.equal(vis, vis_ref)
 
 
+def _asymmetric_table(P, alpha, dev):
+    """bath_lookuptable(P, alpha) with its bath matrix's entries above the
+    diagonal scaled by 1.5: lut[d - 1] for ring offsets d < P / 2 (the
+    pairs (a, b) with b - a = d read lut[d - 1], those with a - b = d read
+    lut[P - 1 - d]), so lut[d - 1] != lut[P - 1 - d]."""
+    lut = schedules.bath_lookuptable(P, alpha, device=dev).clone()
+    d = torch.arange(1, P, device=dev)
+    return torch.where(2 * d < P, lut * 1.5, lut).contiguous()
+
+
 @pytest.mark.parametrize("graph,P,bath", [
     ("torus10", 1, False), ("rg_fields", 1, False), ("dup", 1, False),
     ("torus10", 2, True), ("chimera", 3, False), ("rg_fields", 5, True),
-    ("dup", 4, True), ("torus10", 40, True), ("torus80", 8, False)])
+    ("dup", 4, True), ("torus10", 40, True), ("torus80", 8, False),
+    ("torus10", 40, "asym"), ("chimera", 5, "asym"), ("dup", 4, "asym"),
+    ("torus80", 8, "asym")])
 def test_label_kernel_equals_plain(cuda, graph, P, bath):
     """csrc/fk_label.cu against sw_anneal_ref: the classical sweep at
     P = 1, the space-time one with and without a bath, labels in shared
-    memory and (the 80x80 torus at P = 8) in device memory."""
+    memory and (the 80x80 torus at P = 8) in device memory; a bath table
+    not symmetric in ring distance ("asym"), whose one-way pairs the
+    kernel relaxes as directed edges."""
     ck, pg, confs, b, jp, teff = _cluster_case(graph, P, cuda)
     classical = P == 1
     if classical:
         b, jp = torch.ones_like(b), torch.zeros_like(jp)
-    lut = (schedules.bath_lookuptable(P, 0.3, device=cuda) if bath
+    lut = (_asymmetric_table(P, 0.3, cuda) if bath == "asym"
+           else schedules.bath_lookuptable(P, 0.3, device=cuda) if bath
            else None)
-    assert ck.label_smem(P, pg.nspins) == (graph != "torus80")
+    assert ck.ring_asymmetric(lut) == (bath == "asym")
+    assert ck.label_smem(P, pg.nspins, bath == "asym") == (
+        graph != "torus80")
     _build.reset_launches()
     out = ck.sw_anneal(pg, b, jp, teff, confs, 12, lut, 1, classical)
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
@@ -1264,10 +1364,14 @@ def test_label_kernel_equals_plain(cuda, graph, P, bath):
 @pytest.mark.parametrize("graph,P,per_slice_seeds", [
     ("torus10", 2, True), ("torus10", 2, False), ("torus10", 3, True),
     ("chimera", 5, False), ("rg_fields", 40, True), ("rg_fields", 40, False),
-    ("dup", 33, True), ("torus10", 64, True), ("torus10", 64, False)])
+    ("dup", 33, True), ("torus10", 64, True), ("torus10", 64, False),
+    ("torus10", 65, True), ("torus10", 65, False), ("chimera", 128, True),
+    ("rg_fields", 128, False), ("dup", 200, True)])
 def test_line_kernel_equals_plain(cuda, graph, P, per_slice_seeds):
     """csrc/fk_line.cu against line_phase_ref, one launch a color phase:
-    P = 2 (the ring bond doubled), one and two slices a lane (P <= 64)."""
+    P = 2 (the ring bond doubled), one and two slices a lane (P <= 64),
+    and past P = 64 the rows of several words in shared memory (P = 65,
+    128, 200)."""
     ck, pg, confs, b, jp, teff = _cluster_case(graph, P, cuda, steps=3)
     lut = schedules.bath_lookuptable(P, 0.2, device=cuda)
     p_pair, p_t = ck.line_tables(lut, jp, float(teff[0]), P, cuda)
@@ -1406,18 +1510,29 @@ def test_cluster_kernels_sample_exact_weights(cuda, case):
 
 
 def test_cluster_wrappers_refuse_on_the_card(cuda):
+    """What the cluster wrappers still refuse: a P past fk_line's shared
+    memory (LINE_MAX_SLICES = 921), a float64 schedule. P = 65 and a bath
+    table not symmetric in ring distance now run (against their plain
+    versions in the tests above)."""
     from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
 
-    ck_, pg, confs, b, jp, teff = _cluster_case("torus10", 65, cuda,
-                                                steps=2)
-    lut = schedules.bath_lookuptable(65, 0.1, device=cuda)
-    p_pair, p_t = ck.line_tables(lut, jp, 1.0, 65, cuda)
-    with pytest.raises(ValueError, match="P <= 64"):
+    P = ck.LINE_MAX_SLICES + 1
+    ck_, pg, confs, b, jp, teff = _cluster_case("torus10", P, cuda,
+                                                chains=1, steps=2)
+    lut = schedules.bath_lookuptable(P, 0.1, device=cuda)
+    p_pair, p_t = ck.line_tables(lut, jp, 1.0, P, cuda)
+    with pytest.raises(ValueError, match="P <= 921"):
         ck.line_phase(pg, b, jp, p_t, 0, 1.0, lut, p_pair, confs, 1, 0, 0,
                       True)
-    with pytest.raises(ValueError, match="symmetric"):
-        ck.sw_anneal(pg, b, jp, teff, confs, 1,
-                     torch.arange(64, dtype=torch.float32, device=cuda))
+    small = confs[:, :65].contiguous()
+    lut65 = schedules.bath_lookuptable(65, 0.1, device=cuda)
+    pp65, _ = ck.line_tables(lut65, jp, 1.0, 65, cuda)
+    out = ck.line_phase(pg, b, jp, p_t, 0, 1.0, lut65, pp65, small, 1, 0, 0,
+                        True)
+    assert out.shape == small.shape
+    asym = torch.arange(64, dtype=torch.float32, device=cuda) * 1e-3
+    assert ck.sw_anneal(pg, b, jp, teff, small[:, :65], 1,
+                        asym).shape == small.shape
     with pytest.raises(ValueError):
         ck.wolff_anneal(pg, b, jp, teff.double(), confs, 1)
 

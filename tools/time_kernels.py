@@ -7,7 +7,8 @@ the main path's shapes.
         [--L 80] [--sa-geometry CHAINS:C:R ...]
         [--bath-geometry R ...] [--qmc-geometry R ...]
         [--plane-qmc-geometry R ...] [--plane-svmc-geometry R ...]
-        [--split-svmc-geometry R ...] [--only KERNEL ...] [--qmc-phased]
+        [--split-svmc-geometry R ...] [--generic-geometry R ...]
+        [--only KERNEL ...] [--qmc-phased]
     PYTHONPATH=<checkout> python tools/time_kernels.py --hw-rng [--rounds N]
 
 Rows: kernel A at 1280 and 32 chains on the seeded L x L torus (T: 3 -> 0),
@@ -17,8 +18,10 @@ kernel B at P = 40, 32 chains, global moves on the L x L torus, kernel 3 at
 P = 5, 32 chains, global moves on the L x L and (L+1) x (L+1) tori, and
 kernel 7 at 256 chains, TF proposals (A: 3 -> 1e-8, B = 1, T = 0.05) on
 the (L+1) x (L+1) torus, and kernel 4 likewise on the L x L torus; the
-packed SA kernel at 1280 chains and the generic PIQMC kernel at P = 40, 32
-chains, global moves, on the L x L torus's generic form, and the dense
+packed SA kernel at 1280 chains on the L x L torus's generic form,
+generic PIQMC and the generic bath at their `time_generic_qmc` shapes (32
+chains, P = 40 on the L x L torus, the (L+1) x (L+1) checkerboard, P = 20
+on chimera_graph(16)), and the dense
 in-block kernel (400 block launches queued behind a spin kernel, CUDA
 events, and the sweep with its block products, slope-timed; beside them
 the host path: the host's time to queue a block launch and a sweep, and
@@ -32,7 +35,8 @@ chip_smoke.py's slope_ms), the card's name and power limit. It calls only
 the wrappers `sa_split_anneal`, `qmc_bath_split_anneal`, `sa_plane_anneal`,
 `qmc_split_anneal`, `qmc_plane_anneal`, `svmc_plane_anneal`,
 `svmc_split_anneal`, `packed_sa_anneal`, `generic_qmc_anneal`,
-`dense_sa_block` and `dense_sa_anneal`, with the arguments every version
+`generic_qmc_bath_anneal`, `dense_sa_block` and `dense_sa_anneal`, with
+the arguments every version
 of the port since their slice shares, so
 the same script times an older checkout (unpacked with `git archive`)
 beside the current one in one run. `--sa-geometry` times kernel A at
@@ -41,9 +45,14 @@ CHAINS (1280 or 32) chains at each given (C, R), and `--bath-geometry` /
 `--split-svmc-geometry` kernel 5 / B / 3 / 7 / 4 at each given R, instead
 of the wrapper's own choice (where the checkout has `sa_geometry` /
 `qmc_bath_geometry` / `qmc_geometry` / `plane_qmc_geometry` /
-`plane_svmc_geometry` / `svmc_split_geometry`). `--only` times just the
+`plane_svmc_geometry` / `svmc_split_geometry`); `--generic-geometry`
+times generic PIQMC and the bath on the L x L torus at each given R
+(where the checkout has `generic_qmc_geometry`), and `--one-step` adds
+to their rows the median ms of a whole one-step call (what the cluster
+solvers' interleaved local sweeps pay). `--only` times just the
 named kernels (split_sa, split_qmc_bath, plane_sa, split_qmc, plane_qmc,
-plane_svmc, split_svmc, packed_sa, generic_qmc, dense_sa). `--qmc-phased`
+plane_svmc, split_svmc, packed_sa, generic_qmc, generic_qmc_bath,
+dense_sa). `--qmc-phased`
 adds a row of kernel B's per-phase route at the same shape (its
 `qmc_geometry` answering that no cluster holds it). `--hw-rng` times
 instead kernels A, B, 4 and 5
@@ -88,9 +97,11 @@ def main():
     ap.add_argument("--plane-qmc-geometry", nargs="*", default=[])
     ap.add_argument("--plane-svmc-geometry", nargs="*", default=[])
     ap.add_argument("--split-svmc-geometry", nargs="*", default=[])
+    ap.add_argument("--generic-geometry", nargs="*", default=[])
     ap.add_argument("--only", nargs="*", default=None)
     ap.add_argument("--hw-rng", action="store_true")
     ap.add_argument("--qmc-phased", action="store_true")
+    ap.add_argument("--one-step", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -291,10 +302,10 @@ def main():
         if own_split_svmc:
             sk.svmc_split_geometry = own_split_svmc
 
-    time_generic(dev, spins, taus, emit, wanted, L)
+    time_generic(args, dev, spins, taus, emit, wanted, L)
 
 
-def time_generic(dev, spins, taus, emit, wanted, L):
+def time_generic(args, dev, spins, taus, emit, wanted, L):
     """The packed SA and generic PIQMC kernels on the L x L torus's generic
     form, and the dense in-block kernel and sweep on sk_model(2048)."""
     from montecarlosolvers_tpu_torch import schedules
@@ -312,16 +323,8 @@ def time_generic(dev, spins, taus, emit, wanted, L):
             lambda tau: gk.packed_sa_anneal(
                 pg, schedules.linear(3.0, 0.0, tau, device=dev), s, 7),
             taus(250)))
-    if wanted("generic_qmc"):
-        c = spins(32, 40, L * L)
-
-        def run(tau):
-            g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
-            return gk.generic_qmc_anneal(
-                pg, torch.ones_like(g),
-                schedules.jperp(g, 1.0).contiguous(), 1.0, c, 7, True)
-        emit(kernel="generic_qmc", chains=32, L=L, P=40,
-             ms_per_sweep=slope_ms(run, taus(20)))
+    if wanted("generic_qmc") or wanted("generic_qmc_bath"):
+        time_generic_qmc(args, dev, L, pg, spins, taus, emit, wanted)
     if wanted("dense_sa"):
         dp = instances.sk_model(2048, rng=0, device=dev)[0]
         s = spins(1024, 2048)
@@ -376,6 +379,125 @@ def time_generic(dev, spins, taus, emit, wanted, L):
              host_ms_per_sweep=1e3 * host_sweep / 5,
              queued_device_ms_per_sweep=card_sweep / 5,
              ms_per_sweep=slope_ms(sweeps, taus(5)))
+
+
+def time_generic_qmc(args, dev, L, pg, spins, taus, emit, wanted):
+    """Generic PIQMC and the generic bath at 32 chains, global moves, T =
+    1/P: PIQMC at P = 40 on the L x L torus's generic form (shared and
+    per-chain J_perp), on the (L+1) x (L+1) torus's checkerboard packing
+    (not a proper coloring) and at P = 20 on chimera_graph(16); the bath
+    (alpha = 1e-2) at P = 40 on the L x L torus's neighbor-table form,
+    sequential and colored, on the (L+1) x (L+1) checkerboard and at P =
+    20 on the chimera. With `--generic-geometry R ...` (a checkout that
+    has `generic_qmc_geometry`), the L x L rows at each cluster size R
+    instead of the rule's choice."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.models.ising import (
+        IsingProblem, build_neighbor_table)
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
+
+    # the torus's neighbor-table form (compat.DissipativeQuantumAnneal's,
+    # chip_smoke.py::neighbor_table_form): each site's right, then down bond
+    lat = instances.gaussian_torus(L, seed=0, device=dev)
+    jr, jd = (x.double().cpu().numpy() for x in (lat.j_right, lat.j_down))
+    i = np.arange(L * L)
+    y, x = np.divmod(i, L)
+    cols = np.stack([y * L + (x + 1) % L, ((y + 1) % L) * L + x], 1).ravel()
+    vals = np.stack([jr[y, x], jd[y, x]], 1).ravel()
+    pg_nbt = packed_ops.build_packed(IsingProblem.from_neighbor_table(
+        build_neighbor_table(L * L, np.repeat(i, 2), cols, vals, 4),
+        device=dev))
+    pg_odd = packed_ops.packed_from_lattice(instances.gaussian_torus(
+        L + 1, seed=0, device=dev))
+    pg_chim = packed_ops.build_packed(instances.chimera_graph(
+        16, rng=0, device=dev)[0])
+    chains = 32
+
+    def runner(fn, graph, P, per_chain=False, bath=False, colored=False):
+        c = spins(chains, P, graph.nspins)
+        teff = (1.0 / P) * P
+        m = piqmc_ops.bath_matrix(schedules.bath_lookuptable(
+            P, 1e-2, device=dev), P).contiguous() if bath else None
+
+        def run(tau):
+            g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+            jp = schedules.jperp(g, teff).contiguous()
+            if per_chain:
+                jp = jp[:, None].expand(tau, chains).contiguous()
+            if bath:
+                return fn(graph, torch.ones_like(g), jp, teff, m, c, 7, True,
+                          colored=colored)
+            return fn(graph, torch.ones_like(g), jp, teff, c, 7, True)
+        return run
+
+    cases = []
+    if wanted("generic_qmc"):
+        cases += [("generic_qmc", f"gaussian_torus({L}).to_generic()", pg,
+                   40, {}),
+                  ("generic_qmc_chain", f"gaussian_torus({L}).to_generic()",
+                   pg, 40, {"per_chain": True}),
+                  ("generic_qmc", f"gaussian_torus({L + 1}), checkerboard",
+                   pg_odd, 40, {}),
+                  ("generic_qmc", "chimera_graph(16)", pg_chim, 20, {})]
+    if wanted("generic_qmc_bath"):
+        cases += [("generic_qmc_bath", f"gaussian_torus({L}), neighbor table",
+                   pg_nbt, 40, {"bath": True}),
+                  ("generic_qmc_bath_colored",
+                   f"gaussian_torus({L}), neighbor table", pg_nbt, 40,
+                   {"bath": True, "colored": True}),
+                  ("generic_qmc_bath", f"gaussian_torus({L + 1}), "
+                   "checkerboard", pg_odd, 40, {"bath": True}),
+                  ("generic_qmc_bath", "chimera_graph(16)", pg_chim, 20,
+                   {"bath": True})]
+    own = getattr(gk, "generic_qmc_geometry", None)
+    own_bath = getattr(gk, "generic_qmc_bath_geometry", None)
+    for kernel, gname, graph, P, kw in cases:
+        fn = (gk.generic_qmc_bath_anneal if kw.get("bath")
+              else gk.generic_qmc_anneal)
+        forced = ([int(r) for r in args.generic_geometry]
+                  if own is not None and graph is not pg_chim
+                  and graph is not pg_odd else [])
+        for geom in forced or [None]:
+            used = None
+            if geom is not None:
+                rule = (lambda *a, r=geom, **k: (
+                    r, gk.word_threads(graph.nspins, r, graph.num_colors)))
+                gk.generic_qmc_geometry = gk.generic_qmc_bath_geometry = rule
+            if own is not None:
+                used = gk.generic_qmc_geometry(chains, graph.nspins, P,
+                                               graph.num_colors)
+            try:
+                ms = slope_ms(runner(fn, graph, P, **kw),
+                              taus(10 if kw.get("bath") else 20))
+                one = (call_ms(runner(fn, graph, P, **kw)) if args.one_step
+                       else None)
+            finally:
+                if own is not None:
+                    gk.generic_qmc_geometry = own
+                    gk.generic_qmc_bath_geometry = own_bath
+            emit(kernel=kernel, graph=gname, chains=chains, P=P,
+                 nspins=graph.nspins, geometry=used, ms_per_sweep=ms,
+                 **({} if one is None else {"ms_one_step_call": one}))
+
+
+def call_ms(run, reps=30):
+    """Median ms of a whole one-step call run(1), the wrapper's own
+    launches and its schedule's beside the kernel, by CUDA events around
+    each of `reps` calls after three to warm up."""
+    for _ in range(3):
+        run(1)
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        run(1)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def time_hw_rng(args, dev, sl, spins, taus, emit):
