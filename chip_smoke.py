@@ -2207,15 +2207,28 @@ def bath_case(results, kname, pname, case, wrapper, plain, route,
         results[kname].get("max_abs_err", 0.0), err)
 
 
+def ring_couplings(n):
+    """ring_problem's couplings: J of bond (i, i + 1 mod n), Gaussian
+    from a fixed seed."""
+    return np.random.default_rng(n).standard_normal(n).astype(np.float32)
+
+
 def ring_problem(n, dev):
     """An IsingProblem on a ring of n sites (n even: two color classes),
     Gaussian couplings from a fixed seed."""
     from montecarlosolvers_tpu_torch.models.ising import IsingProblem
 
     rows = np.arange(n)
-    vals = np.random.default_rng(n).standard_normal(n).astype(np.float32)
-    return IsingProblem.from_edges(n, rows, (rows + 1) % n, vals,
-                                   device=dev)
+    return IsingProblem.from_edges(n, rows, (rows + 1) % n,
+                                   ring_couplings(n), device=dev)
+
+
+def ring_ground_state(n):
+    """(n,) float32 +/-1 spins satisfying every bond of ring_problem(n)
+    but the last, (n - 1, 0): J_i s_i s_(i+1) < 0, the bonds the FK draw
+    may activate, so the clusters run along the ring."""
+    steps = -np.sign(ring_couplings(n)[:-1])
+    return np.concatenate([[1.0], np.cumprod(steps)]).astype(np.float32)
 
 
 def asymmetric_table(P, dev):
@@ -2389,7 +2402,8 @@ def generic_redesign(dev, results, graphs, odd_torus, power, name):
                    out, ref, c, launched, {"fk_line": 2 * pg80.num_colors})
 
     # a bath table not symmetric in ring distance: fk_label's space-time
-    # sweep (labels in device memory at this size) and fk_line's WC3
+    # sweep (each chain over 16 CTAs, labels in their shared memory) and
+    # fk_line's WC3
     asym = asymmetric_table(P, dev)
     check(ck.ring_asymmetric(asym), "the hand-made table is asymmetric")
     c, b, jp, teff = cluster_inputs(pg80, dev, rng, 4, P, CLUSTER_STEPS)
@@ -2399,8 +2413,9 @@ def generic_redesign(dev, results, graphs, odd_torus, power, name):
     ref = cl.sw_anneal_ref(pg80, b, jp, teff, c, 25, asym)
     record("fk_label", {"graph": gname80, "chains": 4, "slices": P,
                         "steps": CLUSTER_STEPS, "bath": "asymmetric",
-                        "shared_memory": ck.label_smem(P, pg80.nspins,
-                                                       True)},
+                        "geometry": ck.card_label_geometry(
+                            "fk_label", 4, P, pg80.nspins, dev, True,
+                            True)},
            out, ref, c, launched, {"fk_label": 1})
     c, b, jp, teff = cluster_inputs(pg80, dev, rng, 4, P, 3)
     t_eff = float(teff[0])
@@ -2795,15 +2810,18 @@ def cluster_checks(dev, results, gtorus):
         results[kname]["max_abs_err"] = max(
             results[kname].get("max_abs_err", 0.0), err)
 
-    # Wolff: rule "local" at the bench's 16 chains, with the bath, rule
-    # "full", and the classical cluster (P = 1, Gamma = inf) at 64 chains
+    # Wolff: rule "local" at the bench's 16 chains, with the bath and with
+    # a bath table not symmetric in ring distance, rule "full", and the
+    # classical cluster (P = 1, Gamma = inf) at 64 chains
     for chains, slices, rule, bath in ((16, P, "local", False),
                                        (4, P, "local", True),
+                                       (4, P, "local", "asymmetric"),
                                        (4, P, "full", False),
                                        (CLUSTER_SA_READS, 1, "local", False)):
         c, b, jp, teff = cluster_inputs(pg, dev, rng, chains, slices, steps,
                                         classical=slices == 1)
-        table = lut if bath else None
+        table = (asymmetric_table(P, dev) if bath == "asymmetric"
+                 else lut if bath else None)
         vis, vis_ref = (torch.zeros(chains, dtype=torch.int64, device=dev)
                         for _ in range(2))
         _build.reset_launches()
@@ -2812,13 +2830,17 @@ def cluster_checks(dev, results, gtorus):
         ref = cl.wolff_anneal_ref(pg, b, jp, teff, c, 21, rule, table, 0,
                                   vis_ref)
         record("fk_wolff", {"chains": chains, "slices": slices, "rule": rule,
-                            "bath": bath, "steps": steps}, out, ref, c,
+                            "bath": bath, "steps": steps,
+                            "geometry": ck.card_label_geometry(
+                                "fk_wolff", chains, slices, pg.nspins, dev,
+                                table is not None, rule_full=rule == "full")},
+               out, ref, c,
                launched, {"fk_wolff": 1},
                {"mean_cluster_sites": float(vis.double().mean()) / steps})
         check(torch.equal(vis, vis_ref), "fk_wolff counts its clusters as "
                                          "its plain version")
-    # Swendsen-Wang: classical (labels in shared memory) and space-time at
-    # P = 40 with and without a bath (labels in device memory)
+    # Swendsen-Wang: classical and space-time at P = 40 with and without a
+    # bath, each chain over the cluster of label_geometry
     for chains, slices, bath in ((CLUSTER_SA_READS, 1, False),
                                  (CLUSTER_QMC_READS, P, False),
                                  (4, P, True)):
@@ -2832,8 +2854,9 @@ def cluster_checks(dev, results, gtorus):
         ref = cl.sw_anneal_ref(pg, b, jp, teff, c, 22, table, 0, classical)
         record("fk_label", {"chains": chains, "slices": slices,
                             "bath": bath, "steps": steps,
-                            "shared_memory": ck.label_smem(slices,
-                                                           pg.nspins)},
+                            "geometry": ck.card_label_geometry(
+                                "fk_label", chains, slices, pg.nspins, dev,
+                                bath)},
                out, ref, c, launched, {"fk_label": 1})
     # the line phases, WC2 and WC3, 3 steps of both colors
     for per_slice_seeds in (False, True):
@@ -2857,17 +2880,145 @@ def cluster_checks(dev, results, gtorus):
                c, launched, {"fk_line": 3 * pg.num_colors})
 
 
+def last_on_chip(P, asym, sms, chains=1):
+    """The most sites n of `chains` chains of P x n whose union-find
+    cluster_kernels.label_geometry keeps in the CTAs' shared memory, by
+    bisection on the rule."""
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    lo, hi = 1, 10 ** 7
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = ((mid, hi) if ck.label_geometry(chains, P, mid, asym,
+                                                 sms)[2] else (lo, mid))
+    return lo
+
+
+def cluster_redesign(dev, results, gtorus):
+    """Phase cluster_redesign: fk_wolff and fk_label, each chain over a
+    thread-block cluster, at the boundary shapes of label_geometry, against
+    their plain versions on the card: one chain on a ring of the last
+    length whose union-find stays in the 16 CTAs' shared memory and of the
+    first past it (its regions in device memory), from ring_ground_state,
+    at P = 1 (T: 1 -> 0.5) and at P = CLUSTER_SLICES on asymmetric_table
+    (fk_label's labels beside its parents); and the rule forced to one CTA a chain and
+    to 16 on the 80x80 torus's generic form at P = CLUSTER_SLICES on
+    asymmetric_table. 0 mismatched spins, the same cluster sizes, one
+    launch each."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    sms = gk.card_sms(dev)
+    rng = np.random.default_rng(9)
+    P = CLUSTER_SLICES
+    asym = asymmetric_table(P, dev)
+
+    def run(kname, pg, c, b, jp, teff, lut, case):
+        classical = c.shape[1] == 1
+        vis, vis_ref = (torch.zeros(c.shape[0], dtype=torch.int64,
+                                    device=dev) for _ in range(2))
+        _build.reset_launches()
+        if kname == "fk_wolff":
+            out = ck.wolff_anneal(pg, b, jp, teff, c, 31, "local", lut, 0,
+                                  vis)
+        else:
+            out = ck.sw_anneal(pg, b, jp, teff, c, 32, lut, 0, classical)
+        launched = launched_now()
+        if kname == "fk_wolff":
+            ref = cl.wolff_anneal_ref(pg, b, jp, teff, c, 31, "local", lut,
+                                      0, vis_ref)
+        else:
+            ref = cl.sw_anneal_ref(pg, b, jp, teff, c, 32, lut, 0, classical)
+        torch.cuda.synchronize()
+        n_bad, err = mismatches([out], [ref])
+        rec = {"phase": "cluster_redesign", "kernel": kname, **case,
+               "chains": c.shape[0], "slices": c.shape[1],
+               "sites": pg.nspins, "steps": b.shape[0],
+               "launches": launched, "mismatched_spins": n_bad,
+               "max_abs_err": err,
+               "flipped_fraction": float((out != c).float().mean())}
+        if kname == "fk_wolff":
+            rec["mean_cluster_sites"] = float(vis.double().mean()) / \
+                b.shape[0]
+        emit(rec)
+        check(n_bad == 0, f"{kname} ({rec}) equals its plain version")
+        check(rec["flipped_fraction"] > 0, f"{kname} ({rec}) moves")
+        check(launched == {kname: 1}, f"{kname} ({rec}) launched once")
+        check(torch.equal(vis, vis_ref), f"{kname} ({rec}) counts its "
+                                         "clusters as its plain version")
+        results[kname]["max_abs_err"] = max(
+            results[kname].get("max_abs_err", 0.0), err)
+
+    # the boundary of shared memory, one chain over 16 CTAs, from a state
+    # whose bonds are all satisfied (clusters of many sites)
+    for slices, table in ((1, None), (P, asym)):
+        for kname in ("fk_wolff", "fk_label"):
+            directed = table is not None and kname == "fk_label"
+            last = last_on_chip(slices, directed, sms)
+            for n in (last, last + 1):
+                pg = packed_ops.build_packed(ring_problem(n, dev))
+                c = packed_ops.pack_state(pg, torch.as_tensor(
+                    np.tile(ring_ground_state(n), (1, slices, 1)),
+                    device=dev)).contiguous()
+                if slices == 1:
+                    teff = schedules.linear(1.0, 0.5, 3, device=dev)
+                    b, jp = torch.ones_like(teff), torch.zeros_like(teff)
+                else:
+                    gamma = schedules.transverse_field(3.0, 1.0, 3,
+                                                       device=dev)
+                    b, teff = torch.ones_like(gamma), torch.ones_like(gamma)
+                    jp = schedules.jperp(gamma, 1.0).contiguous()
+                geometry = ck.card_label_geometry(
+                    kname, 1, slices, n, dev, table is not None, directed)
+                check(geometry[2] == (n == last),
+                      f"{kname} at n = {n}, P = {slices}: the union-find "
+                      f"on chip iff n <= {last} ({geometry})")
+                run(kname, pg, c, b, jp, teff, table,
+                    {"graph": f"ring_problem({n})", "geometry": geometry,
+                     "bath": "asymmetric" if table is not None else False,
+                     "on_chip": geometry[2]})
+    # the rule forced to one CTA a chain and to 16
+    pg80 = packed_ops.build_packed(gtorus)
+    rule = ck.label_geometry
+    for R in (1, 16):
+        def forced(chains, P, n, asym=False, sms=ck.NUM_SMS, resident=None,
+                   R=R):
+            return ck.label_shape(R, P, n, asym)
+        ck.label_geometry = forced
+        try:
+            for kname in ("fk_wolff", "fk_label"):
+                c, b, jp, teff = cluster_inputs(pg80, dev, rng, 2, P, 3)
+                run(kname, pg80, c, b, jp, teff, asym,
+                    {"graph": f"gaussian_torus({L}, 0).to_generic()",
+                     "bath": "asymmetric", "forced_R": R,
+                     "geometry": ck.label_geometry(2, P, pg80.nspins,
+                                                   kname == "fk_label",
+                                                   sms)})
+        finally:
+            ck.label_geometry = rule
+
+
 def cluster_bound(kname, chains, slices, sites, degree, visited=None,
                   bath=False):
     """(least ms of one step, "bytes" or "operations", unit) of a cluster
     kernel at this shape, as the work needs it:
       fk_wolff  the bonds drawn from the `visited` (chains x per step)
                 cluster sites, each shared by at most two of them: (degree
-                + 2 + (P - 1 with a bath)) / 2 exponentials a site; bytes:
-                each visited site read and written;
+                + 2) / 2 exponentials a site, and with a bath (P - 1) / 2
+                pairs a site, a comparison each against the step's table
+                of 2 (P - 1) probabilities (exponentials once a chain);
+                bytes: each visited site read and written;
       fk_label  every bond of the graph drawn once: degree / 2 spatial, one
-                Trotter (P > 1) and one ghost a site, an exponential each;
-                bytes: the state read and written;
+                Trotter (P > 1) and one ghost a site, an exponential each,
+                and with a bath (P - 1) / 2 pairs a site, a comparison each
+                against the table of 2 (P - 1) probabilities a chain that
+                the kernel builds once a step (the pair's probability
+                depends only on its ring offset, the spins' agreement and
+                T_eff); bytes: the state read and written;
       fk_line   no exponential (the host's table holds the bath pairs'
                 probabilities): a site's field (degree adds), its pair
                 comparisons (P - 1), the cluster sum (P adds) as float32
@@ -2876,11 +3027,16 @@ def cluster_bound(kname, chains, slices, sites, degree, visited=None,
     The exponentials and logarithms run at the special-function rate."""
     P = slices
     f32 = 0.0
+    pairs = (P - 1) / 2 if bath else 0
+    table = chains * 2 * (P - 1) if bath else 0
     if kname == "fk_wolff":
-        sfu = visited * (degree + 2 + (P - 1 if bath else 0)) / 2
+        sfu = visited * (degree + 2) / 2 + table
+        f32 = visited * pairs
         moved = visited * 8
     elif kname == "fk_label":
-        sfu = chains * P * sites * (degree / 2 + (1 if P > 1 else 0) + 1)
+        sfu = chains * P * sites * (degree / 2 + (1 if P > 1 else 0) + 1) \
+            + table
+        f32 = chains * P * sites * pairs
         moved = chains * P * sites * 8
     else:
         f32 = chains * P * sites * (degree + (P - 1) + P)
@@ -2895,11 +3051,13 @@ def cluster_bound(kname, chains, slices, sites, degree, visited=None,
 
 def cluster_timing(dev, results, gtorus, power, name):
     """Slope ms a step of fk_wolff (one chain and 16, P = 40: the bench's
-    two Wolff shapes), fk_label (the space-time sweep at the PIQMC solves'
-    8 chains, P = 40, and the classical sweep at 64 chains) and fk_line (a
-    WC3 and a WC2 step, both colors, one chain at P = 40: the bench's
-    shape), and of their plain versions, beside each bound
-    (`cluster_bound`); the kernels line takes the first row of each."""
+    two Wolff shapes, and the classical cluster at sa_wolff's 64 chains,
+    P = 1), fk_label (the space-time sweep at the PIQMC solves' 8 chains,
+    P = 40, without and with the bath at CLUSTER_ALPHA, and the classical
+    sweep at 64 chains) and fk_line (a WC3 and a WC2 step, both colors, one
+    chain at P = 40: the bench's shape), and of their plain versions (one
+    a shape), beside each bound (`cluster_bound`); the kernels line takes
+    the first row of each."""
     from montecarlosolvers_tpu_torch import schedules
     from montecarlosolvers_tpu_torch.ops import cluster as cl
     from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
@@ -2912,23 +3070,25 @@ def cluster_timing(dev, results, gtorus, power, name):
     P = CLUSTER_SLICES
     lut = schedules.bath_lookuptable(P, CLUSTER_ALPHA, device=dev)
 
-    def wolff_runner(fn, chains):
-        c = random_pm1(rng, (chains, P, n), dev)
+    def wolff_runner(fn, chains, slices=P):
+        c = random_pm1(rng, (chains, slices, n), dev)
         vis = torch.zeros(chains, dtype=torch.int64, device=dev)
 
         def run(tau):
-            _, b, jp, teff = cluster_inputs(pg, dev, rng, 1, P, tau)
+            _, b, jp, teff = cluster_inputs(pg, dev, rng, 1, slices, tau,
+                                            classical=slices == 1)
             vis.zero_()
             return fn(pg, b, jp, teff, c, 7, "local", None, 0, vis)
         return run, vis
 
-    def label_runner(fn, chains, slices):
+    def label_runner(fn, chains, slices, bath=False):
         c = random_pm1(rng, (chains, slices, n), dev)
 
         def run(tau):
             _, b, jp, teff = cluster_inputs(pg, dev, rng, 1, slices, tau,
                                             classical=slices == 1)
-            return fn(pg, b, jp, teff, c, 7, None, 0, slices == 1)
+            return fn(pg, b, jp, teff, c, 7, lut if bath else None, 0,
+                      slices == 1)
         return run
 
     def line_runner(phase, per_slice_seeds):
@@ -2950,20 +3110,24 @@ def cluster_timing(dev, results, gtorus, power, name):
         return run
 
     rows = []
-    for chains in (1, 16):
-        run, vis = wolff_runner(ck.wolff_anneal, chains)
-        rows.append(("fk_wolff", "cuda", run, (30, 90), 3, chains, P, vis))
-    # the plain versions take 8-60 ms a step: taus far enough apart that
-    # the host's jitter does not swamp the slope
-    run_p, vis_p = wolff_runner(cl.wolff_anneal_ref, 1)
-    rows.append(("fk_wolff", "plain", run_p, (2, 6), 2, 1, P, vis_p))
-    for chains, slices in ((CLUSTER_QMC_READS, P), (CLUSTER_SA_READS, 1)):
+    for chains, slices in ((1, P), (16, P), (CLUSTER_SA_READS, 1)):
+        run, vis = wolff_runner(ck.wolff_anneal, chains, slices)
+        rows.append(("fk_wolff", "cuda", run, (30, 90), 3, chains, slices,
+                     vis))
+        # the plain versions take 8-60 ms a step: taus far enough apart
+        # that the host's jitter does not swamp the slope
+        run_p, vis_p = wolff_runner(cl.wolff_anneal_ref, chains, slices)
+        rows.append(("fk_wolff", "plain", run_p, (2, 6), 2, chains, slices,
+                     vis_p))
+    for chains, slices, bath in ((CLUSTER_QMC_READS, P, False),
+                                 (CLUSTER_SA_READS, 1, False),
+                                 (CLUSTER_QMC_READS, P, True)):
         rows.append(("fk_label", "cuda", label_runner(ck.sw_anneal, chains,
-                                                      slices),
-                     (10, 30), 3, chains, slices, None))
+                                                      slices, bath),
+                     (10, 30), 3, chains, slices, bath))
         rows.append(("fk_label", "plain", label_runner(cl.sw_anneal_ref,
-                                                       chains, slices),
-                     (1, 4), 2, chains, slices, None))
+                                                       chains, slices, bath),
+                     (1, 4), 2, chains, slices, bath))
     for per_slice_seeds in (True, False):
         rows.append(("fk_line", "cuda", line_runner(ck.line_phase,
                                                     per_slice_seeds),
@@ -2978,16 +3142,22 @@ def cluster_timing(dev, results, gtorus, power, name):
                "chains": chains, "slices": slices, "taus": list(taus),
                "best_seconds": {str(k): v for k, v in best.items()},
                "ms_per_step": ms}
-        visited = None
+        visited, bath = None, False
         if kname == "fk_wolff":
             # the cluster sites of the last run, at the largest tau
             visited = float(extra.sum()) / max(taus)
             rec["mean_cluster_sites"] = visited / chains
+        if kname == "fk_label":
+            bath = rec["bath"] = extra
+            rec["alpha"] = CLUSTER_ALPHA if bath else None
+        if kname in ("fk_label", "fk_wolff"):
+            rec["geometry"] = ck.card_label_geometry(kname, chains, slices,
+                                                     n, dev, bool(bath))
         if kname == "fk_line":
             rec["per_slice_seeds"] = extra
             rec["launches_per_step"] = pg.num_colors
         bound, bound_by, unit = cluster_bound(kname, chains, slices, n,
-                                              degree, visited)
+                                              degree, visited, bath)
         rec.update(bound_ms=bound, bound_by=bound_by, bound_unit=unit,
                    gpu=name, power_limit=power)
         emit(rec)
@@ -4288,18 +4458,22 @@ def shard_bound(kname, chains, rows, sites, graph=None, updated=None,
     S5 a slice of every chain as the generic bath kernel's update
     (`ops_per_sweep`'s "qmc_bath" a site), the gathered state read once;
     S6 a round's bonds from its `visited` sites and S7 its draw, every bond
-    of the rows, as `cluster_bound` counts them (the bath pairs with
-    `bath`)."""
+    of the rows, as `cluster_bound` counts them (with `bath` the pairs a
+    comparison each against a table of 2 (P - 1) probabilities a chain)."""
     if kname in ("shard_wolff", "shard_label"):
         degree, P = graph[0], slices
+        pairs = (P - 1) / 2 if bath else 0
+        table = chains * 2 * (P - 1) if bath else 0
         if kname == "shard_wolff":
-            sfu = visited * (degree + 2 + (P - 1 if bath else 0)) / 2
+            sfu = visited * (degree + 2) / 2 + table
+            f32 = visited * pairs
             nbytes = visited * 8
         else:
-            sfu = rows * sites * (degree / 2 + 2 + ((P - 1) / 2 if bath
-                                                    else 0))
+            sfu = rows * sites * (degree / 2 + 2) + table
+            f32 = rows * sites * pairs
             nbytes = rows * sites * 8
-        times = {"operations": sfu / PEAK_SFU, "bytes": nbytes / PEAK_BYTES}
+        times = {"operations": max(sfu / PEAK_SFU, f32 / PEAK_FLOPS),
+                 "bytes": nbytes / PEAK_BYTES}
         unit = max(times, key=times.get)
         return 1e3 * times[unit], unit
     field = SPIN_FIELD if graph is None else graph[0]
@@ -4605,7 +4779,8 @@ def rest_confs(slices, sites, seed, dev):
 def cluster_runs(problem, slices, steps, dev):
     """(name, run(engine kwargs) -> state, single-device run) of the
     sharded Wolff and SW legs: rules "local" without and "full" with bath
-    bonds, SW without and with them, at T = 1/P over Gamma: 3 -> 1e-8."""
+    bonds, SW without them, with them and on asymmetric_table (a bath table
+    not symmetric in ring distance), at T = 1/P over Gamma: 3 -> 1e-8."""
     from montecarlosolvers_tpu_torch import schedules
     from montecarlosolvers_tpu_torch.solvers import qmc
 
@@ -4619,7 +4794,9 @@ def cluster_runs(problem, slices, steps, dev):
             ("wolff_full_bath", "wolff", {"rule": "full",
                                           "lookuptable": lut}),
             ("sw", "sw", {}),
-            ("sw_bath", "sw", {"lookuptable": lut})):
+            ("sw_bath", "sw", {"lookuptable": lut}),
+            ("sw_bath_asymmetric", "sw",
+             {"lookuptable": asymmetric_table(slices, dev)})):
         single = qmc.anneal_wolff if kind == "wolff" else qmc.anneal_sw
         cases.append((label, kind, kw, lambda engine, kw=kw: engine(
             problem, a, b, 1.0 / slices, confs,
@@ -6640,6 +6817,10 @@ def main():
     # ---- the cluster kernels against their plain versions
     cluster_checks(dev, results, gtorus80)
     phase_seconds["cluster_kernel_vs_plain"] = time.perf_counter() - t_script
+
+    # ---- fk_wolff and fk_label at the boundary shapes of their rule
+    cluster_redesign(dev, results, gtorus80)
+    phase_seconds["cluster_redesign"] = time.perf_counter() - t_script
 
     # ---- the samplers' kernels against their plain versions: the per-chain
     # instantiations, the Houdayer kernel, the whole samplers on both

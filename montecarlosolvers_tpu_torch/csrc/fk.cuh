@@ -1,6 +1,7 @@
 // Fortuin-Kasteleyn draws shared by the cluster kernels (fk_wolff.cu,
-// fk_label.cu, fk_line.cu), and the union-find of fk_label.cu and
-// houdayer.cu.
+// fk_label.cu, fk_line.cu, fk_shard.cu), and the one-CTA union-find of
+// houdayer.cu and fk_shard.cu (fk_label.cu and fk_wolff.cu label over a
+// thread-block cluster, csrc/fk_nodes.cuh).
 //
 // Device form of the cluster streams of
 // montecarlosolvers_tpu_torch/ops/counter_rng.py (cluster_counter, the

@@ -50,12 +50,19 @@
 //     of a line), ghost bonds, union-find of the bonds inside the block,
 //     and each component's label, its least global node k * n + id (-1
 //     when a ghost bond holds); the bath pairs with another rank's rows
-//     are kept as bits (a pair of two ranks is drawn by both, from the
-//     same hash, rather than sent).
+//     are kept as directed bits, bit q of node x where x takes row q's
+//     label (a pair of two ranks is drawn by both, from the same hash,
+//     each side keeping its own direction, rather than sent). On a table
+//     not symmetric in ring distance (`asym`) a bath pair of two block
+//     rows bonds both ways only when both directions' draws hold, as in
+//     fk_label.cu: only those are united; a one-way pair is a bit of the
+//     node it points into, and the block's labels relax along those bits
+//     in rounds inside the launch (`relax_block`).
 //   round: each component takes the least label across its bonds to the
 //     other ranks' rows as they stood after their last round (halo_prev
 //     across the previous rank's bond_up, halo_next across bond_dn,
-//     full_labels across the bath bits) and writes `changed`.
+//     full_labels across the bath bits) and, with `asym`, relaxes along
+//     the block's one-way bits again; writes `changed`.
 //   flip: every free component flips on the coin of its label.
 //   The least-label fixed point does not depend on the order of the
 //   rounds, so the state equals fk_label.cu's bitwise.
@@ -397,6 +404,37 @@ fk_shard_wolff_kernel(const int* __restrict__ nbr_idx,
   if (threadIdx.x == 0) *changed = news;
 }
 
+// S7 with a bath table not symmetric in ring distance: the block's labels
+// (lab at each root) relaxed along its one-way bath edges, the bits of ext
+// at the block's own rows (x takes the label of row q's node of its line),
+// in rounds until one changes nothing, as fk_label.cu's asym loop
+__device__ void relax_block(const unsigned* ext, const int* root, int* lab,
+                            int PN, int n, int pw, int k0, int Ps) {
+  volatile int* vlab = lab;
+  for (;;) {
+    int moved = 0;
+    for (int x = threadIdx.x; x < PN; x += blockDim.x) {
+      const int j = x % n;
+      const int to = root[x];
+      const unsigned* ex = ext + static_cast<size_t>(x) * pw;
+      for (int wd = 0; wd < pw; ++wd) {
+        unsigned m = ex[wd];
+        while (m) {
+          const int q = wd * 32 + __ffs(m) - 1;
+          m &= m - 1u;
+          if (q < k0 || q >= k0 + Ps) continue;  // another rank's row
+          const int l = vlab[root[(q - k0) * n + j]];
+          if (l < vlab[to]) {
+            atomicMin(lab + to, l);
+            moved = 1;
+          }
+        }
+      }
+    }
+    if (!__syncthreads_or(moved)) return;
+  }
+}
+
 template <bool kBath>
 __global__ void __launch_bounds__(kLabelThreads)
 fk_shard_label_kernel(const int* __restrict__ nbr_idx,
@@ -412,7 +450,7 @@ fk_shard_label_kernel(const int* __restrict__ nbr_idx,
                       const unsigned char* bond_up, const int* halo_next,
                       const int* full_labels, int* changed, float teff,
                       int Ps, int n, int maxnb, int P, int k0, int t,
-                      uint32_t seed_term, int mode) {
+                      uint32_t seed_term, int mode, int asym) {
   extern __shared__ float dyn[];  // p_same[P], p_diff[P]
   float* p_same = dyn;
   float* p_diff = dyn + P;
@@ -442,8 +480,9 @@ fk_shard_label_kernel(const int* __restrict__ nbr_idx,
             unsigned m = ex[wd];
             while (m) {
               const int q = wd * 32 + __ffs(m) - 1;
-              e = min(e, full_labels[static_cast<size_t>(q) * n + j]);
               m &= m - 1u;
+              if (q >= k0 && q < k0 + Ps) continue;  // the block's own
+              e = min(e, full_labels[static_cast<size_t>(q) * n + j]);
             }
           }
         }
@@ -451,6 +490,7 @@ fk_shard_label_kernel(const int* __restrict__ nbr_idx,
       if (e < labels[x]) atomicMin(lab + root[x], e);
     }
     __syncthreads();
+    if (kBath && asym) relax_block(ext, root, lab, PN, n, pw, k0, Ps);
     int moved = 0;
     for (int x = threadIdx.x; x < PN; x += blockDim.x) {
       const int v = lab[root[x]];
@@ -519,18 +559,29 @@ fk_shard_label_kernel(const int* __restrict__ nbr_idx,
       unsigned word = 0u;
       for (int q = 0; q < P; ++q) {
         const bool own = q >= k0 && q < k0 + Ps;
-        if (q != kg && !(own && q < kg)) {  // a pair of two rows: drawn once
+        // a pair of two block rows is drawn once, from its lower row, but
+        // with asym from both (each keeps its own pull)
+        if (q != kg && (!own || q > kg || asym)) {
           const float sq = own ? s[static_cast<size_t>(q - k0) * n + i]
                                : full[static_cast<size_t>(q) * n + i];
+          const bool same = sq == si;
           const int lo = q < kg ? q : kg, hi = q < kg ? kg : q;
-          const float p = sq == si ? p_same[hi - lo] : p_diff[hi - lo];
+          // row kg takes q's label at ring offset q - kg, q takes kg's at
+          // offset kg - q
+          const int d = q > kg ? q - kg : P - kg + q;
           const float u = mcs::uniform01(
               c_b, (line * P + lo) * static_cast<uint32_t>(P) + hi);
-          if (u < p) {
-            if (own)
-              mcs::unite(parent, x, (q - k0) * n + i);
-            else
-              word |= 1u << (q & 31);
+          const bool pull = u < (same ? p_same[d] : p_diff[d]);
+          if (!own) {
+            if (pull) word |= 1u << (q & 31);
+          } else if (!asym) {
+            if (pull) mcs::unite(parent, x, (q - k0) * n + i);
+          } else if (pull) {
+            if (u < (same ? p_same[P - d] : p_diff[P - d])) {
+              if (q > kg) mcs::unite(parent, x, (q - k0) * n + i);
+            } else {
+              word |= 1u << (q & 31);  // one way: relaxed in the block
+            }
           }
         }
         if ((q & 31) == 31 || q == P - 1) {
@@ -541,14 +592,14 @@ fk_shard_label_kernel(const int* __restrict__ nbr_idx,
     }
   }
   __syncthreads();
-  for (int x = threadIdx.x; x < PN; x += blockDim.x)
-    atomicMin(lab + mcs::find_root(parent, x), labels[x]);
-  __syncthreads();
   for (int x = threadIdx.x; x < PN; x += blockDim.x) {
     const int rt = mcs::find_root(parent, x);
     root[x] = rt;
-    labels[x] = lab[rt];
+    atomicMin(lab + rt, labels[x]);
   }
+  __syncthreads();
+  if (kBath && asym) relax_block(ext, root, lab, PN, n, pw, k0, Ps);
+  for (int x = threadIdx.x; x < PN; x += blockDim.x) labels[x] = lab[root[x]];
 }
 
 template <bool kRuleFull, bool kBath>
@@ -614,9 +665,9 @@ extern "C" int fk_shard_wolff(
 // to the step's last launch; ext (Ps n ceil(P / 32)) the bath bits to
 // other ranks; labels (Ps n) int32; bond_dn (n) bytes (mode 0 writes it);
 // halo_prev, halo_next (n) int32 and bond_up (n) bytes the ring's rows;
-// full_labels (P n) every rank's labels or null; changed (1); lut (P - 1,
-// symmetric in ring distance) or null. All device pointers; launches on
-// `stream` and returns cudaGetLastError().
+// full_labels (P n) every rank's labels or null; changed (1); lut (P - 1)
+// or null; asym != 0 when lut is not symmetric in ring distance. All
+// device pointers; launches on `stream` and returns cudaGetLastError().
 extern "C" int fk_shard_label(
     const int* nbr_idx, const float* nbr_J, const float* h, const int* perm,
     const float* b_sched, const float* jp, const float* lut, float* s,
@@ -624,7 +675,8 @@ extern "C" int fk_shard_label(
     unsigned* ext, int* labels, unsigned char* bond_dn, const int* halo_prev,
     const unsigned char* bond_up, const int* halo_next,
     const int* full_labels, int* changed, float teff, int Ps, int n,
-    int maxnb, int P, int k0, int t, int seed, int mode, void* stream) {
+    int maxnb, int P, int k0, int t, int seed, int mode, int asym,
+    void* stream) {
   if (n == 0 || Ps == 0) return cudaSuccess;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
   const size_t smem = 2 * static_cast<size_t>(P) * sizeof(float);
@@ -633,7 +685,8 @@ extern "C" int fk_shard_label(
   kernel<<<1, kLabelThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       nbr_idx, nbr_J, h, perm, b_sched, jp, lut, s, dn, full, parent, lab,
       root, ext, labels, bond_dn, halo_prev, bond_up, halo_next, full_labels,
-      changed, teff, Ps, n, maxnb, P, k0, t, seed_term, mode);
+      changed, teff, Ps, n, maxnb, P, k0, t, seed_term, mode,
+      lut != nullptr && asym);
   return cudaGetLastError();
 }
 

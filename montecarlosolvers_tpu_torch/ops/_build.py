@@ -286,19 +286,27 @@ SIGNATURES = {
         "dense_sa_block_error_string": (ctypes.c_char_p, [_I]),
     },
     "fk_wolff": {
-        # nbr_idx, nbr_J, h, perm, b_sched, jp, teff, lut (or null), s (in
-        # place), visited bits, queues (scratch), visited counts (or null),
-        # chains, P, n, maxnb, steps, seed, step0, rule_full, threads,
-        # chain0, stream
-        "fk_wolff_anneal": (_I, [_P] * 12 + [_I] * 10 + [_P]),
+        # nbr_idx, nbr_J, h, perm, inv_perm, boundary sites, b_sched, jp,
+        # teff, lut (or null), s (in place), regions (scratch, null on
+        # chip), terms (scratch, null under rule "full"), visited counts
+        # (or null), chains, P, n, maxnb, steps, seed, step0, rule_full, R
+        # (cluster_kernels.label_geometry), asym, threads, chain0, stream
+        "fk_wolff_anneal": (_I, [_P] * 14 + [_I] * 12 + [_P]),
+        # P, n, R, rule_full, bath, on_chip, threads, out: clusters
+        # resident at once
+        "fk_wolff_max_active_clusters": (_I, [_I] * 7 + [_IP]),
         "fk_wolff_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "fk_label": {
-        # nbr_idx, nbr_J, h, perm, b_sched, jp, teff, lut (or null), s (in
-        # place), parents and flags (scratch, null with smem), chains, P,
-        # n, maxnb, steps, seed, step0, smem, asym (lut not symmetric in
-        # ring distance), threads, chain0, stream
-        "fk_label_anneal": (_I, [_P] * 11 + [_I] * 11 + [_P]),
+        # nbr_idx, nbr_J, h, perm, inv_perm, boundary sites, b_sched, jp,
+        # teff, lut (or null), s (in place), regions (scratch, null on
+        # chip), chains, P, n, maxnb, steps, seed, step0, R
+        # (cluster_kernels.label_geometry), asym (lut not symmetric in ring
+        # distance), threads, chain0, stream
+        "fk_label_anneal": (_I, [_P] * 12 + [_I] * 11 + [_P]),
+        # P, n, R, bath, asym, on_chip, threads, out: clusters resident at
+        # once
+        "fk_label_max_active_clusters": (_I, [_I] * 7 + [_IP]),
         "fk_label_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "fk_line": {
@@ -320,9 +328,9 @@ SIGNATURES = {
         # S7: nbr_idx, nbr_J, h, perm, b_sched, jp, lut, s, dn, full,
         # parent, lab, root, ext, labels, bond_dn, halo_prev, bond_up,
         # halo_next, full_labels, changed, teff, Ps, n, maxnb, P, k0, t,
-        # seed, mode, stream
+        # seed, mode, asym (lut not symmetric in ring distance), stream
         "fk_shard_label": (
-            _I, [_P] * 21 + [ctypes.c_float] + [_I] * 8 + [_P]),
+            _I, [_P] * 21 + [ctypes.c_float] + [_I] * 9 + [_P]),
         "fk_shard_error_string": (ctypes.c_char_p, [_I]),
     },
     "houdayer": {

@@ -1056,8 +1056,13 @@ def sw_shard_bonds(problem, s, halo_dn, full, k0, slices, b, jp, teff,
     (Ps, N) the Trotter bond of row r and row r + 1 (the halo row at the
     last row: drawn by the rank that owns its lower slice), active_bath (N,
     Ps, P) or None, labels0 (Ps, N) int64: (k0 + r) * N + id, -1 where the
-    ghost bond of the field holds). draws: (u_sp, u_t (Ps, N) of bond rows
-    k0 .., u_b (N, Ps, P) mirrored or None, u_h), else the counter hash."""
+    ghost bond of the field holds). active_bath is directed, as
+    fk_label.cu reads a bath pair: active_bath[i, a, b] when row k0 + a
+    takes slice b's label, u < p at ring offset b - (k0 + a); on a table
+    symmetric in ring distance both directions of a pair agree, on any
+    other a pair may hold one way only. draws: (u_sp, u_t (Ps, N) of bond
+    rows k0 .., u_b (N, Ps, P) mirrored or None, u_h), else the counter
+    hash."""
     ps, n = s.shape
     nbr = problem.nbr_idx.long()
     idv = _ids(ids, n, s.device)
@@ -1093,8 +1098,12 @@ def _relax(problem, bonds, labels, ext, k0, slices):
     """Min-label relaxation of the block to its fixed point, each site also
     taking the external labels `ext` (Ps, N) (`spacetime_sw_sweep`'s
     relaxation on the rank's rows: spatial, the Trotter bonds inside the
-    block, around the ring on a ring of one rank, and the bath pairs of
-    two rows of the block)."""
+    block, around the ring on a ring of one rank, and the bath pulls of
+    two rows of the block along their direction). Each site ends with the
+    least label it reaches against the edges' direction, -1 absorbing:
+    fk_label.cu's labels, whose union-find takes the two-way pairs and
+    whose rounds relax the one-way ones; with a symmetric table every pull
+    is two-way."""
     active_full, act_dn, active_bath, _ = bonds
     ps = labels.shape[0]
     nbr = problem.nbr_idx.long()

@@ -9,12 +9,21 @@ class-major packed layout of `ops/packed.py` (the site's original index
 `perm` keys every draw, `counter_rng`'s cluster streams):
 
   csrc/fk_wolff.cu  one Wolff cluster a chain and step (`wolff_update`,
-                    rules "local" and "full", with or without a bath): one
-                    CTA a chain, a queue BFS that draws a bond when it
-                    reaches it; LAUNCHES["fk_wolff"]
+                    rules "local" and "full", with or without a bath): the
+                    seed's component of the whole graph's draw, on the
+                    labeling core of fk_label; LAUNCHES["fk_wolff"]
   csrc/fk_label.cu  Swendsen-Wang (`classical_sw_sweep`, P = 1, and
-                    `spacetime_sw_sweep`, any P, optional bath): one CTA a
-                    chain, union-find labels; LAUNCHES["fk_label"]
+                    `spacetime_sw_sweep`, any P, optional bath): union-find
+                    labels; LAUNCHES["fk_label"]
+                    Both spread each chain over a thread-block cluster of R
+                    CTAs (`label_geometry`; csrc/fk_nodes.cuh): CTA r owns
+                    the union-find nodes of the r-th chunk of ceil(N / R)
+                    sites in every slice, in its shared memory while they
+                    fit, else in device memory. On an H100 80GB HBM3 at
+                    700 W (PERF.md §6): fk_label 0.81 ms a step at P = 40,
+                    8 chains (R = 9; the one-CTA kernel before it 9.47-9.51
+                    in the same call), fk_wolff 0.35 at P = 40, one chain
+                    (1.19-1.20), 0.078 at P = 1, 64 chains (0.19-0.20)
   csrc/fk_line.cu   one color phase of the imaginary-time line clusters
                     (`bath_cluster_phase`, `sw_full_phase`): one warp a
                     line, its rows in registers at P <= 64, in shared
@@ -24,8 +33,9 @@ class-major packed layout of `ops/packed.py` (the site's original index
                     union-find labels; LAUNCHES["houdayer"]
 
 Their plain versions are `ops/cluster.py`'s `wolff_anneal_ref`,
-`sw_anneal_ref`, `line_phase_ref` and `houdayer_move_ref`. A wrapper given CPU tensors runs the
-plain version; given CUDA tensors it launches the kernel or raises.
+`sw_anneal_ref`, `line_phase_ref` and `houdayer_move_ref`. A wrapper
+given CPU tensors runs the plain version; given CUDA tensors it launches
+the kernel or raises.
 
 Launch pattern. fk_wolff and fk_label run a whole schedule in one launch
 when no local sweep is interleaved (qmc.anneal_wolff; anneal_sw and
@@ -40,7 +50,9 @@ colors launches, plus one local launch a step for WC2 with local sweeps.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
+import numpy as np
 import torch
 
 from montecarlosolvers_tpu_torch import schedules
@@ -52,19 +64,26 @@ from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
 from montecarlosolvers_tpu_torch.ops import packed as packed_ops
 from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
 
-# threads of the one CTA a chain of fk_wolff and fk_label, and the warps a
-# CTA of fk_line (one line a warp)
-WOLFF_THREADS, LABEL_THREADS, LINE_WARPS = 512, 1024, 8
+# the most threads a CTA of fk_wolff and fk_label, and the warps a CTA of
+# fk_line (one line a warp)
+LABEL_THREADS, LINE_WARPS = 1024, 8
+# the head of a fk_label / fk_wolff CTA's shared memory (csrc/fk_nodes.cuh::
+# kNodesHeadBytes: the cluster's region pointers and a few words); the two
+# kernels have no static shared memory
+LABEL_HEAD_BYTES = 256
+# the card's SMs where no card is asked (an H100 SXM's), and the most CTAs
+# a cluster of fk_label / fk_wolff takes (csrc/fk_nodes.cuh::kMaxRanks)
+NUM_SMS, CLUSTER_MAX = gk.NUM_SMS, 16
+# shared memory of one H100 SM (228 KB), which the CTAs resident on it share
+SM_SMEM_BYTES = 233472
 # the most slices fk_line takes: past P = 64 a line's P x P bonds are P
 # rows of ceil(P/64) 64-bit words, twice, beside its spins, fields and
 # energies in one warp's shared memory (`line_wide_bytes`), and at P = 922
 # one warp's needs pass a CTA's 227 KB
 LINE_MAX_SLICES = 921
-# fk_label keeps its union-find parents (int32) and two flag bytes a site
-# (and, with a bath table not symmetric in ring distance, an int32 label)
-# in shared memory up to this many bytes, else in device memory; so does
-# the Houdayer kernel its parents (1024 threads a pair)
-LABEL_SMEM_BYTES = 200 * 1024
+# the Houdayer kernel keeps a pair's union-find parents (int32) in shared
+# memory up to this many bytes, else in device memory (1024 threads a pair)
+HOUDAYER_SMEM_BYTES = 200 * 1024
 HOUDAYER_THREADS = 1024
 
 
@@ -94,9 +113,12 @@ def wolff_anneal(pg, b_sched, jp, teff, confs, seed, rule="local",
                  lookuptable=None, step0=0, visited=None, chain0=0):
     """csrc/fk_wolff.cu on CUDA tensors, `cluster.wolff_anneal_ref` on CPU
     tensors; arguments as for the plain version (teff a float32 (steps,)
-    tensor; lookuptable None or a contiguous float32 (P-1,) tensor;
-    chain0 the global index of the first chain, a chain shard's). Returns
-    the new configurations. One launch (LAUNCHES["fk_wolff"])."""
+    tensor; lookuptable None or a contiguous float32 (P-1,) tensor, any
+    table: on one not symmetric in ring distance the cluster is the seed's
+    directed reach, as the plain BFS's; chain0 the global index of the
+    first chain, a chain shard's). Returns the new configurations. One
+    launch (LAUNCHES["fk_wolff"]), each chain over the cluster of
+    `card_label_geometry`."""
     if rule not in ("local", "full"):
         raise ValueError(f"rule must be 'local' or 'full', got {rule!r}")
     if _build.route(confs.device, "cluster") == "cpu":
@@ -112,19 +134,192 @@ def wolff_anneal(pg, b_sched, jp, teff, confs, seed, rule="local",
     if visited is not None:
         _build.check_arg(visited, "visited", (chains,), dev, torch.int64)
     out = confs.clone()
-    words = -(-P * n // 32)
-    bits = torch.empty((chains, words), dtype=torch.int32, device=dev)
-    queue = torch.empty((chains, 2, P * n), dtype=torch.int32, device=dev)
+    R, threads, on_chip = card_label_geometry(
+        "fk_wolff", chains, P, n, dev, lookuptable is not None,
+        rule_full=rule == "full")
+    regions = _regions(chains, P, n, R, 1, on_chip, dev)
+    terms = (None if rule == "full" else
+             torch.empty((chains, P * n + P), dtype=torch.float32,
+                         device=dev))
     lib = _build.library("fk_wolff")
     rc = lib.fk_wolff_anneal(
-        *graph, *sched, lut, _build.ptr(out), _build.ptr(bits),
-        _build.ptr(queue), None if visited is None else _build.ptr(visited),
-        chains, P, n, pg.nbr_idx.shape[1], steps, cr.wrap_int32(seed),
-        int(step0), int(rule == "full"), WOLFF_THREADS, int(chain0),
+        *graph, _build.ptr(inv_perm(pg)), _build.ptr(boundary_sites(pg, R)),
+        *sched, lut, _build.ptr(out), _opt(regions), _opt(terms),
+        _opt(visited), chains, P, n, pg.nbr_idx.shape[1], steps,
+        cr.wrap_int32(seed), int(step0), int(rule == "full"), R,
+        int(ring_asymmetric(lookuptable)), threads, int(chain0),
         _build.stream_of(dev))
     _build.raise_on_error(lib, "fk_wolff_anneal", rc)
     _build.LAUNCHES["fk_wolff"] += 1
     return out
+
+
+def region_bytes(P, n, R, ints):
+    """Bytes of one CTA's region of the labeling core (csrc/fk_nodes.cuh::
+    region_bytes): P ceil(n / R) nodes (its sites in every slice) of `ints`
+    int32 and two flag bytes, in whole int32 words."""
+    slots = P * -(-n // R)
+    return -(-slots * (4 * ints + 2) // 4) * 4
+
+
+def inv_perm(pg):
+    """(n,) int32 on pg's device: the packed position of each original
+    site index (the inverse of pg.perm), which fk_label and fk_wolff walk
+    their own sites by. Cached per graph."""
+    hit = _INV_PERM.get(id(pg))
+    if hit is not None and hit[0]() is pg:
+        return hit[1]
+    inv = torch.empty_like(pg.perm, dtype=torch.int32)
+    inv[pg.perm.long()] = torch.arange(pg.nspins, dtype=torch.int32,
+                                       device=pg.perm.device)
+    for k in [k for k, (ref, _) in _INV_PERM.items() if ref() is None]:
+        del _INV_PERM[k]
+    _INV_PERM[id(pg)] = (weakref.ref(pg), inv)
+    return inv
+
+
+def boundary_sites(pg, R):
+    """(R + 1 + m,) int32 on pg's device: R + 1 offsets, then, CTA by CTA,
+    the sites (original indices) of CTA r's chunk [r nc, (r + 1) nc), nc =
+    ceil(n / R), with a neighbour outside it, CTA r's at offsets r .. r +
+    1: the sites whose spatial bonds fk_label and fk_wolff unite across
+    CTAs (none at R = 1). Cached per graph and R."""
+    key = (id(pg), R)
+    hit = _BOUNDARY.get(key)
+    if hit is not None and hit[0]() is pg:
+        return hit[1]
+    n = pg.nspins
+    nc = -(-n // R)
+    perm = pg.perm.cpu().numpy().astype(np.int64)
+    nbr = pg.nbr_idx.cpu().numpy().astype(np.int64)
+    ids = np.broadcast_to(perm[:, None], nbr.shape)
+    pad = nbr == np.arange(n)[:, None]
+    cross = ((perm[nbr] // nc != ids // nc) & ~pad).any(axis=1)
+    sites = np.sort(perm[cross])
+    offsets = np.searchsorted(sites, np.arange(R + 1) * nc)
+    out = torch.as_tensor(np.concatenate([offsets, sites]).astype(np.int32),
+                          device=pg.perm.device)
+    for k in [k for k, (ref, _) in _BOUNDARY.items() if ref() is None]:
+        del _BOUNDARY[k]
+    _BOUNDARY[key] = (weakref.ref(pg), out)
+    return out
+
+
+_INV_PERM, _BOUNDARY = {}, {}
+
+
+def label_smem_bytes(P, n, R, asym=False, on_chip=True):
+    """Shared memory of one CTA of fk_label / fk_wolff (csrc/fk_nodes.cuh::
+    nodes_smem_bytes): the head, the bath's two probability rows (P floats
+    each), and with `on_chip` the CTA's region of the union-find, P ceil(n
+    / R) nodes (fk_label with `asym` two int32 a node, else one)."""
+    return (LABEL_HEAD_BYTES + 8 * P
+            + (region_bytes(P, n, R, 2 if asym else 1) if on_chip else 0))
+
+
+def label_geometry(chains, P, n, asym=False, sms=NUM_SMS, resident=None):
+    """(R, threads, on_chip) of fk_label and fk_wolff for `chains` chains of
+    P slices of an n-site graph: each chain over a cluster of R CTAs. R is
+    first the largest whose chains x R CTAs fit the card's `sms` SMs, one
+    an SM, unless that leaves more than a quarter of them idle, then one
+    more (the smallest that covers them); at most 16 and at most n. (At 64
+    chains on 132 SMs, R = 2 ran fk_label 1.3x and fk_wolff 1.2x faster
+    than R = 3, whose 192 CTAs need two waves or two CTAs an SM: PERF.md
+    §6.) Then, with `resident(R, threads, on_chip)`, the number of such
+    clusters the card holds at once (the wrappers pass `card_resident`;
+    None: any number), R goes down to the largest whose chains all run at
+    once, since a cluster's CTAs share one GPC: an H100 SXM holds 7
+    clusters of 16 CTAs of 1024 threads and 15 of 8, so 8 chains at P = 40
+    take R = 9 (0.81 ms a step against 0.92 at R = 16: PERF.md §6); if no
+    R holds them all, the first R stays. The wrappers call it through
+    `card_label_geometry`. CTA r owns the r-th
+    chunk of ceil(n / R) sites in every slice; each CTA
+    `threads` threads (one a node of its P ceil(n / R), in whole warps, at
+    most LABEL_THREADS); on_chip when each CTA's region of the union-find
+    fits its shared memory beside the head and the tables
+    (`label_smem_bytes`, every byte counted: the kernels have no static
+    shared memory), else the regions live in device memory and the chain
+    is still spread over R CTAs. `asym`: fk_label on a bath table not
+    symmetric in ring distance (its labels beside the parents); fk_wolff
+    passes False."""
+    chains = max(chains, 1)
+    R = max(1, sms // chains)
+    if chains * R * 4 < 3 * sms:
+        R += 1
+    R = min(R, CLUSTER_MAX, max(n, 1))
+    if resident is not None:
+        for r in range(R, 0, -1):
+            shape = label_shape(r, P, n, asym, chains, sms)
+            if resident(*shape) >= chains:
+                return shape
+    return label_shape(R, P, n, asym, chains, sms)
+
+
+def card_resident(kernel, P, n, dev, bath=False, asym=False,
+                  rule_full=False):
+    """The `resident(R, threads, on_chip)` of kernel "fk_label" or
+    "fk_wolff" on the card `dev`, in the instantiation its wrapper launches
+    (a bath table or none; fk_label's `asym`, fk_wolff's rule "full"): how
+    many clusters of that shape the card holds at once
+    (cudaOccupancyMaxActiveClusters; 0 when a CTA does not fit). Cached per
+    shape."""
+    flags = ((int(bath), int(asym)) if kernel == "fk_label"
+             else (int(rule_full), int(bath)))
+
+    def resident(R, threads, on_chip):
+        key = (kernel, str(dev), P, n, R, threads, on_chip, flags)
+        if key not in _RESIDENT:
+            lib = _build.library(kernel)
+            count = ctypes.c_int(0)
+            rc = getattr(lib, f"{kernel}_max_active_clusters")(
+                P, n, R, *flags, int(on_chip), threads, ctypes.byref(count))
+            _build.raise_on_error(lib, f"{kernel}_max_active_clusters", rc,
+                                  error_fn=f"{kernel}_anneal_error_string")
+            _RESIDENT[key] = count.value
+        return _RESIDENT[key]
+    return resident
+
+
+_RESIDENT = {}
+
+
+def card_label_geometry(kernel, chains, P, n, dev, bath=False, asym=False,
+                        rule_full=False):
+    """`label_geometry` of kernel "fk_label" or "fk_wolff" on the card
+    `dev` (its SMs and `card_resident`), with a bath table or none,
+    fk_label's `asym` (`ring_asymmetric` of the table) and fk_wolff's rule
+    "full": the shape its wrapper launches."""
+    asym = kernel == "fk_label" and asym
+    return label_geometry(
+        chains, P, n, asym, gk.card_sms(dev),
+        resident=card_resident(kernel, P, n, dev, bath, asym, rule_full))
+
+
+def label_shape(R, P, n, asym=False, chains=1, sms=NUM_SMS):
+    """(R, threads, on_chip) of `chains` chains of P x n over R CTAs each:
+    the threads and the place of the union-find that `label_geometry`
+    gives with its R (the timing tools force an R through it). Threads: one
+    a node, in whole warps, at most LABEL_THREADS, halved when the chains'
+    CTAs outnumber the SMs and two CTAs' shared memory fit an SM
+    (SM_SMEM_BYTES, a 1 KB reserve a CTA), so that they run at once (each
+    kernel holds 64 registers a thread)."""
+    nodes = max(P * -(-n // R), 1)
+    threads = min(LABEL_THREADS, -(-nodes // 32) * 32)
+    smem = label_smem_bytes(P, n, R, asym)
+    on_chip = smem <= _build.SMEM_LIMIT_BYTES
+    if chains * R > sms and 2 * ((smem if on_chip else
+                                  label_smem_bytes(P, n, R, asym, False))
+                                 + 1024) <= SM_SMEM_BYTES:
+        threads = min(threads, LABEL_THREADS // 2)
+    return R, threads, on_chip
+
+
+def _regions(chains, P, n, R, ints, on_chip, dev):
+    """The device-memory regions of the labeling core, or None on chip."""
+    if on_chip:
+        return None
+    return torch.empty(chains * R * region_bytes(P, n, R, ints),
+                       dtype=torch.uint8, device=dev)
 
 
 def line_wide_bytes(P):
@@ -145,12 +340,6 @@ def line_warps(P):
     return min(LINE_WARPS, _build.SMEM_LIMIT_BYTES // line_wide_bytes(P))
 
 
-def label_smem(P, n, asym=False):
-    """True when fk_label holds a chain's P * N union-find sites (with
-    `asym`, their labels too) in shared memory (LABEL_SMEM_BYTES)."""
-    return P * n * (10 if asym else 6) <= LABEL_SMEM_BYTES
-
-
 def ring_asymmetric(lookuptable):
     """True when the bath table `lookuptable` (P - 1,) differs from its
     reverse, lut[d - 1] != lut[P - 1 - d] somewhere: its bath pairs are
@@ -169,7 +358,8 @@ def sw_anneal(pg, b_sched, jp, teff, confs, seed, lookuptable=None, step0=0,
     lut[P-1-d] a bath pair may bond one way only, and the kernel relaxes
     the labels along those directed edges as the plain version's
     relaxation does. Returns the new configurations. One launch
-    (LAUNCHES["fk_label"])."""
+    (LAUNCHES["fk_label"]), each chain over the cluster of
+    `card_label_geometry`."""
     if _build.route(confs.device, "cluster") == "cpu":
         return cl.sw_anneal_ref(pg, b_sched, jp, teff, confs, seed,
                                 lookuptable, step0, classical, chain0)
@@ -184,21 +374,15 @@ def sw_anneal(pg, b_sched, jp, teff, confs, seed, lookuptable=None, step0=0,
     asym = ring_asymmetric(lookuptable)
     _build.check_arg(confs, "confs", (chains, P, pg.nspins), dev)
     out = confs.clone()
-    smem = label_smem(P, n, asym)
-    parent = flags = None
-    if not smem:
-        parent = torch.empty((chains, (2 if asym else 1) * P * n),
-                             dtype=torch.int32, device=dev)
-        flags = torch.empty((chains, 2 * P * n), dtype=torch.uint8,
-                            device=dev)
+    R, threads, on_chip = card_label_geometry(
+        "fk_label", chains, P, n, dev, lookuptable is not None, asym)
+    regions = _regions(chains, P, n, R, 2 if asym else 1, on_chip, dev)
     lib = _build.library("fk_label")
     rc = lib.fk_label_anneal(
-        *graph, *sched, lut, _build.ptr(out),
-        None if parent is None else _build.ptr(parent),
-        None if flags is None else _build.ptr(flags), chains, P, n,
-        pg.nbr_idx.shape[1], steps, cr.wrap_int32(seed), int(step0),
-        int(smem), int(asym), LABEL_THREADS, int(chain0),
-        _build.stream_of(dev))
+        *graph, _build.ptr(inv_perm(pg)), _build.ptr(boundary_sites(pg, R)),
+        *sched, lut, _build.ptr(out), _opt(regions), chains, P, n,
+        pg.nbr_idx.shape[1], steps, cr.wrap_int32(seed), int(step0), R,
+        int(asym), threads, int(chain0), _build.stream_of(dev))
     _build.raise_on_error(lib, "fk_label_anneal", rc)
     _build.LAUNCHES["fk_label"] += 1
     return out
@@ -224,7 +408,7 @@ def houdayer_move(problem, s1, s2, seed, step, pair0=0):
     _build.check_arg(a, "s1", (pairs, problem.nspins), dev)
     _build.check_arg(b, "s2", (pairs, problem.nspins), dev)
     flipped = torch.empty(pairs, dtype=torch.int32, device=dev)
-    smem = n * 4 <= LABEL_SMEM_BYTES
+    smem = n * 4 <= HOUDAYER_SMEM_BYTES
     parent = None if smem else torch.empty((pairs, n), dtype=torch.int32,
                                            device=dev)
     lib = _build.library("houdayer")
@@ -429,14 +613,18 @@ class ShardStep:
     b_sched, jp: float32 (steps,) schedules, read at step t; teff: P*T, a
     Python float; seed: the hash seed; lookuptable: a contiguous float32
     (P-1,) tensor or None; rule: the Wolff rule; kval: the seed spin, a
-    float32 (1,) tensor (rule "full")."""
+    float32 (1,) tensor (rule "full"); asym: the table is not symmetric in
+    ring distance (`ring_asymmetric`, asked once an anneal), so S7 keeps
+    its one-way bath pairs as directed edges."""
 
     def __init__(self, pg, s, up, dn, full, k0, slices, b_sched, jp, teff, t,
-                 seed, lookuptable=None, rule="local", kval=None):
+                 seed, lookuptable=None, rule="local", kval=None,
+                 asym=False):
         self.pg, self.s, self.up, self.dn, self.full = pg, s, up, dn, full
         self.k0, self.slices, self.b_sched, self.jp = k0, slices, b_sched, jp
         self.teff, self.t, self.seed = teff, t, seed
         self.lut, self.rule, self.kval = lookuptable, rule, kval
+        self.asym = bool(asym) and lookuptable is not None
         self.bonds = None  # the plain version's bonds, drawn once a step
         self.scratch = None  # the kernel's buffers
         self.cpu = _build.route(s.device, "shard") == "cpu"
@@ -640,7 +828,7 @@ def _launch_label(st, graph, lut, mode, labels, bond_dn=None, halo_prev=None,
             bond_dn, halo_prev, bond_up, halo_next, full_labels, changed)),
         ctypes.c_float(st.teff), ps, n, st.pg.nbr_idx.shape[1], st.slices,
         int(st.k0), int(st.t), cr.wrap_int32(st.seed), int(mode),
-        _build.stream_of(st.s.device))
+        int(st.asym), _build.stream_of(st.s.device))
     _fk_shard(lib, "fk_shard_label", rc)
     _build.LAUNCHES["shard_label"] += 1
 

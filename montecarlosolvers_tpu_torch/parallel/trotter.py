@@ -64,11 +64,7 @@ the kernels hold spins as bits or floats of +/-1; the result is a DTensor
 sharded on "replica" along the slice axis (and on "chains" along the chain
 axis with chains_sharded=True); the cluster engines take `stats=`, a dict
 that gains the rounds of each step and the host seconds of the
-collectives; `anneal_sw_sharded` refuses a bath table that is not
-symmetric in ring distance: S7 (csrc/fk_shard.cu) unites a block's bath
-pairs as undirected bonds and keeps its cross-rank pairs as undirected
-bits, where such a table makes some pairs directed edges (csrc/fk_label.cu
-relaxes those on one device; ROADMAP.md queue 3).
+collectives.
 """
 
 from __future__ import annotations
@@ -501,9 +497,11 @@ def anneal_sw_sharded(problem, a_sched, b_sched, temp, confs, generator,
                       mesh, mcsteps=1, lookuptable=None, stats=None):
     """PIQMC anneal with one full space-time Swendsen-Wang sweep a step,
     the Trotter axis sharded over mesh axis "replica" (JAX
-    trotter.py:794). Arguments as for `anneal_wolff_sharded`; lookuptable
-    must be symmetric in ring distance (S7's bath bonds are undirected;
-    `schedules.bath_lookuptable` is; ROADMAP.md queue 3).
+    trotter.py:794). Arguments as for `anneal_wolff_sharded`; any bath
+    table, as JAX's: on one not symmetric in ring distance a bath pair
+    where only one direction's bond holds is a directed edge, which S7
+    relaxes inside a block and keeps as a directed bit across ranks
+    (csrc/fk_shard.cu), as fk_label relaxes it on one device.
 
     A step on a rank: one ring exchange of the boundary rows, with a bath a
     gather of every rank's rows; S7's draw and the block's own labels
@@ -519,9 +517,7 @@ def anneal_sw_sharded(problem, a_sched, b_sched, temp, confs, generator,
     sharded on "replica" along the slice axis."""
     pg, s, dims, lut, group, me, replicas = _cluster_setup(
         problem, confs, mesh, lookuptable, "trotter.anneal_sw_sharded")
-    if ck.ring_asymmetric(lut):
-        raise ValueError("anneal_sw_sharded takes a bath table symmetric in "
-                         "ring distance")
+    asym = ck.ring_asymmetric(lut)
     slices, n = confs.shape
     ps = s.shape[0]
     k0 = me * ps
@@ -537,7 +533,7 @@ def anneal_sw_sharded(problem, a_sched, b_sched, temp, confs, generator,
             if lut is not None:
                 full = s if replicas == 1 else _gathered(s[None], group)[0]
         st = ck.ShardStep(pg, s, up, dn, full, k0, slices, b, jp, teff, t,
-                          seed, lut)
+                          seed, lut, asym=asym)
         labels, bond_dn = ck.shard_label_init(st)
         rounds = 0
         if replicas > 1:

@@ -103,16 +103,22 @@ WOLFF_CASES = [
     ("rg_fields", 3, "local", True), ("rg_fields", 2, "full", False),
     ("chimera", 8, "local", False), ("dup", 1, "local", False),
     ("dup", 2, "local", True), ("dup", 3, "full", False),
+    ("torus6", 8, "local", "asym"), ("rg_fields", 5, "local", "asym"),
+    ("torus6", 8, "full", "asym"), ("dup", 4, "local", "asym"),
 ]
 
 
 @pytest.mark.parametrize("graph,P,rule,bath", WOLFF_CASES)
 def test_wolff_update_matches_jax(graph, P, rule, bath):
+    """wolff_update on the JAX package's draws; "asym" takes a bath table
+    not symmetric in ring distance, where a pair may bond one way only:
+    both BFS's then grow the seed's directed reach."""
     port, jprob = graphs(graph)
     n, maxnb = port.nspins, port.maxnb
     temp, gamma, b = 0.6, 0.9, 0.8
     teff = temp * P
-    lut = jsched.bath_lookuptable(P, 0.4) if bath else None
+    lut = (asymmetric_table(P, 0.4) if bath == "asym"
+           else jsched.bath_lookuptable(P, 0.4) if bath else None)
     confs = _spins((CHAINS, P, n), P)
     keys = jax.random.split(jax.random.key(7 + P), CHAINS)
     out = jax.jit(jax.vmap(lambda c, k: jc.wolff_update(

@@ -435,3 +435,130 @@ def test_line_wide_rows(P, words, warps):
     assert ck.line_wide_bytes(ck.LINE_MAX_SLICES) <= _build.SMEM_LIMIT_BYTES
     assert ck.line_wide_bytes(ck.LINE_MAX_SLICES + 1) > \
         _build.SMEM_LIMIT_BYTES
+
+
+# (chains, sms) -> R of fk_label and fk_wolff: the largest cluster whose
+# chains x R CTAs run at once, one an SM (132 on an H100 SXM, 114 on an
+# H100 PCIe), unless a quarter of the SMs would idle, then the smallest
+# that covers them; at most 16
+@pytest.mark.parametrize("chains,sms,R", [
+    (8, 132, 16), (64, 132, 2), (1, 132, 16), (16, 132, 8), (132, 132, 1),
+    (1280, 132, 1), (66, 132, 2), (44, 132, 3), (100, 132, 1),
+    (90, 132, 2), (8, 114, 14), (64, 114, 2), (16, 114, 7),
+    (114, 114, 1), (57, 114, 2), (80, 114, 2)])
+@pytest.mark.parametrize("asym", [False, True])
+def test_label_geometry_covers_the_sms(chains, sms, R, asym):
+    """label_geometry's R and threads at P = 40 and P = 1 on the 80x80
+    torus's sites, and a graph of fewer sites than the cluster's CTAs: R
+    never exceeds its n sites (CTA r owns the r-th chunk of ceil(n / R)
+    sites in every slice), a CTA's threads are one a node of its P ceil(n
+    / R), in whole warps, at most LABEL_THREADS, and half that where the
+    chains' CTAs outnumber the SMs and two CTAs' shared memory (a 1 KB
+    reserve each) fit an SM's SM_SMEM_BYTES."""
+    for P, n in ((40, 6400), (1, 6400)):
+        r, threads, on_chip = ck.label_geometry(chains, P, n, asym, sms)
+        assert r == R
+        # all at once, or else the smallest that covers the SMs; never a
+        # quarter of them idle where a larger cluster would fill them
+        assert chains * r <= sms or chains * (r - 1) * 4 < 3 * sms
+        assert chains * r * 4 >= 3 * sms or r == ck.CLUSTER_MAX
+        nodes = P * -(-n // r)
+        smem = ck.label_smem_bytes(P, n, r, asym, on_chip)
+        two = chains * r > sms and 2 * (smem + 1024) <= ck.SM_SMEM_BYTES
+        assert threads == min(ck.LABEL_THREADS // (2 if two else 1),
+                              -(-nodes // 32) * 32)
+        assert ck.label_shape(r, P, n, asym, chains, sms) == (r, threads,
+                                                              on_chip)
+    r, threads, on_chip = ck.label_geometry(chains, 5, 3, asym, sms)
+    assert r == min(R, 3) and threads == 32 and on_chip
+
+
+def _clusters_held(per_gpc):
+    """A card's `resident(R, threads, on_chip)`: the clusters of R CTAs it
+    holds at once, one CTA an SM (two at 512 threads or fewer), a cluster
+    within one GPC of the given SM counts."""
+    def resident(R, threads, on_chip):
+        per_sm = 2 if threads <= ck.LABEL_THREADS // 2 else 1
+        return sum(per_sm * sms // R for sms in per_gpc)
+    return resident
+
+
+# GPCs of 16 and 18 SMs (132 SMs), and a card one of whose GPCs holds 14
+@pytest.mark.parametrize("per_gpc", [
+    (18, 18, 16, 16, 16, 16, 16, 16), (18, 18, 18, 16, 16, 16, 16, 14)])
+@pytest.mark.parametrize("chains", [1, 8, 9, 16, 64, 44])
+@pytest.mark.parametrize("asym", [False, True])
+def test_label_geometry_runs_the_chains_at_once(per_gpc, chains, asym):
+    """With the card's `resident`, label_geometry takes the SM count's R
+    down to the largest whose chains' clusters all run at once: never a
+    larger R than the SM count's, and each R between it and the SM count's
+    would leave a chain waiting. Without `resident` the SM count's R
+    stays."""
+    sms = sum(per_gpc)
+    resident = _clusters_held(per_gpc)
+    for P, n in ((40, 6400), (1, 6400)):
+        first = ck.label_geometry(chains, P, n, asym, sms)
+        got = ck.label_geometry(chains, P, n, asym, sms, resident)
+        r = got[0]
+        assert r <= first[0] and resident(*got) >= chains
+        assert got == ck.label_shape(r, P, n, asym, chains, sms)
+        for bigger in range(r + 1, first[0] + 1):
+            assert resident(*ck.label_shape(bigger, P, n, asym, chains,
+                                            sms)) < chains
+    # 8 chains of 16 CTAs fit eight GPCs of 16 or more SMs; with one GPC of
+    # 14 they take 14 CTAs each, one cluster a GPC
+    want = min(16, min(per_gpc))
+    assert ck.label_geometry(8, 40, 6400, asym, sms, resident)[0] == want
+
+
+@pytest.mark.parametrize("chains,R", [(1, 16), (8, 16), (1000, 1)])
+def test_label_geometry_keeps_its_r_where_none_is_held(chains, R):
+    """Where no R lets the chains run at once (a card that holds no
+    cluster), label_geometry keeps the SM count's R."""
+    assert ck.label_geometry(chains, 40, 6400, False, 132,
+                             lambda *shape: 0)[0] == R
+
+
+def _last_on_chip(chains, P, asym, sms):
+    """The most sites n whose P x n chain label_geometry keeps in shared
+    memory (its union-find regions on chip), by bisection on the rule."""
+    lo, hi = 1, 10 ** 7
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if ck.label_geometry(chains, P, mid, asym, sms)[2]:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+# (chains, P, asym) -> the last n on chip: one chain over 16 CTAs at P = 1
+# and 40, 64 chains over 2 CTAs, 132 chains over one
+@pytest.mark.parametrize("chains,P,asym,n_last", [
+    (1, 1, False, 619152), (1, 1, True, 371488), (1, 40, False, 15456),
+    (1, 40, True, 9264), (64, 1, False, 77394), (64, 1, True, 46436),
+    (132, 1, False, 38697), (132, 1, True, 23218)])
+def test_label_geometry_shared_memory_limit(chains, P, asym, n_last):
+    """The union-find stays in the CTAs' shared memory exactly while each
+    CTA's bytes fit SMEM_LIMIT_BYTES: the head (LABEL_HEAD_BYTES, the
+    kernels' only other shared memory: they have none static), the bath's
+    two rows of P floats, and its region of P ceil(n / R) nodes, 4 bytes a
+    parent (8 with `asym`: the labels beside) and two flag bytes, in whole
+    words. At the first n past it (one node past at P = 1) the regions
+    move to device memory and the chain keeps its R CTAs."""
+    sms = 132
+    assert _last_on_chip(chains, P, asym, sms) == n_last
+    R, _, on_chip = ck.label_geometry(chains, P, n_last, asym, sms)
+    assert on_chip
+    nodes = P * -(-n_last // R)
+    per_node = 10 if asym else 6
+    want = ck.LABEL_HEAD_BYTES + 8 * P + -(-nodes * per_node // 4) * 4
+    assert ck.label_smem_bytes(P, n_last, R, asym) == want
+    assert want <= _build.SMEM_LIMIT_BYTES
+    # the first n whose chunk of sites grows
+    R2, _, on_chip2 = ck.label_geometry(chains, P, n_last + 1, asym, sms)
+    assert R2 == R and not on_chip2
+    assert ck.label_smem_bytes(P, n_last + 1, R, asym) > \
+        _build.SMEM_LIMIT_BYTES
+    assert ck.label_smem_bytes(P, n_last + 1, R, asym, on_chip=False) == \
+        ck.LABEL_HEAD_BYTES + 8 * P

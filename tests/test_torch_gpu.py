@@ -1297,14 +1297,21 @@ def _cluster_case(name, P, dev, chains=4, steps=6, seed=3):
     ("chimera", 3, "local", False), ("chimera", 5, "full", True),
     ("rg_fields", 1, "local", False), ("rg_fields", 4, "local", True),
     ("rg9", 2, "full", False), ("dup", 1, "local", False),
-    ("dup", 3, "local", True), ("dup", 2, "full", False)])
+    ("dup", 3, "local", True), ("dup", 2, "full", False),
+    ("torus10", 8, "local", "asym"), ("rg_fields", 5, "local", "asym"),
+    ("chimera", 5, "full", "asym"), ("dup", 4, "local", "asym"),
+    ("torus80", 8, "local", "asym")])
 def test_wolff_kernel_equals_plain(cuda, graph, P, rule, bath):
     """csrc/fk_wolff.cu against wolff_anneal_ref on the card: spins
     bitwise, the cluster sizes it counts equal the plain version's, one
-    launch an anneal; the duplicate-slot table and P = 1 included."""
+    launch an anneal; the duplicate-slot table and P = 1 included, and a
+    bath table not symmetric in ring distance ("asym"), whose cluster is
+    the seed's directed reach."""
     ck, pg, confs, b, jp, teff = _cluster_case(graph, P, cuda)
-    lut = (schedules.bath_lookuptable(P, 0.3, device=cuda) if bath
+    lut = (_asymmetric_table(P, 0.3, cuda) if bath == "asym"
+           else schedules.bath_lookuptable(P, 0.3, device=cuda) if bath
            else None)
+    assert ck.ring_asymmetric(lut) == (bath == "asym")
     vis, vis_ref = (torch.zeros(confs.shape[0], dtype=torch.int64,
                                 device=cuda) for _ in range(2))
     _build.reset_launches()
@@ -1337,10 +1344,12 @@ def _asymmetric_table(P, alpha, dev):
     ("torus80", 8, "asym")])
 def test_label_kernel_equals_plain(cuda, graph, P, bath):
     """csrc/fk_label.cu against sw_anneal_ref: the classical sweep at
-    P = 1, the space-time one with and without a bath, labels in shared
-    memory and (the 80x80 torus at P = 8) in device memory; a bath table
-    not symmetric in ring distance ("asym"), whose one-way pairs the
-    kernel relaxes as directed edges."""
+    P = 1, the space-time one with and without a bath, each chain over the
+    cluster `label_geometry` picks (the 80x80 torus at P = 8: 16 CTAs),
+    labels in shared memory (test_cluster_kernels_at_the_shared_memory_
+    limit takes device memory); a bath table not symmetric in ring
+    distance ("asym"), whose one-way pairs the kernel relaxes as directed
+    edges."""
     ck, pg, confs, b, jp, teff = _cluster_case(graph, P, cuda)
     classical = P == 1
     if classical:
@@ -1349,8 +1358,11 @@ def test_label_kernel_equals_plain(cuda, graph, P, bath):
            else schedules.bath_lookuptable(P, 0.3, device=cuda) if bath
            else None)
     assert ck.ring_asymmetric(lut) == (bath == "asym")
-    assert ck.label_smem(P, pg.nspins, bath == "asym") == (
-        graph != "torus80")
+    R, _, on_chip = ck.card_label_geometry("fk_label", confs.shape[0], P,
+                                           pg.nspins, cuda, bool(bath),
+                                           bath == "asym")
+    assert on_chip and R == min(ck.CLUSTER_MAX, pg.nspins,
+                                -(-gk.card_sms(cuda) // confs.shape[0]))
     _build.reset_launches()
     out = ck.sw_anneal(pg, b, jp, teff, confs, 12, lut, 1, classical)
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
@@ -1359,6 +1371,127 @@ def test_label_kernel_equals_plain(cuda, graph, P, bath):
     ref = cl.sw_anneal_ref(pg, b, jp, teff, confs, 12, lut, 1, classical)
     torch.cuda.synchronize()
     assert torch.equal(out, ref) and not torch.equal(out, confs)
+
+
+def _both_cluster_kernels(ck, pg, confs, b, jp, teff, lut, classical):
+    """(fk_wolff's spins, its cluster sizes, fk_label's spins) and the plain
+    versions' on one input, with the launches each made."""
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+
+    vis, vis_ref = (torch.zeros(confs.shape[0], dtype=torch.int64,
+                                device=confs.device) for _ in range(2))
+    _build.reset_launches()
+    wolff = ck.wolff_anneal(pg, b, jp, teff, confs, 14, "local", lut, 0,
+                            vis)
+    label = ck.sw_anneal(pg, b, jp, teff, confs, 15, lut, 0, classical)
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    ref = (cl.wolff_anneal_ref(pg, b, jp, teff, confs, 14, "local", lut, 0,
+                               vis_ref),
+           cl.sw_anneal_ref(pg, b, jp, teff, confs, 15, lut, 0, classical))
+    torch.cuda.synchronize()
+    return (wolff, vis, label), (ref[0], vis_ref, ref[1]), launched
+
+
+@pytest.mark.parametrize("R", [1, 16])
+@pytest.mark.parametrize("graph,P,bath", [
+    ("torus80", 8, True), ("torus80", 8, "asym"), ("chimera", 5, True),
+    ("rg_fields", 1, False)])
+def test_cluster_kernels_at_forced_cluster_sizes(cuda, monkeypatch, R,
+                                                 graph, P, bath):
+    """fk_wolff and fk_label with `label_geometry` forced to one CTA a
+    chain and to 16 (`label_shape`: the threads and the place of the
+    union-find at that R; at R = 1 the 80x80 torus's P = 8 chain is past a
+    CTA's shared memory): bitwise their plain versions, one launch
+    each."""
+    ck, pg, confs, b, jp, teff = _cluster_case(graph, P, cuda)
+    classical = P == 1
+    if classical:
+        b, jp = torch.ones_like(b), torch.zeros_like(jp)
+    lut = (_asymmetric_table(P, 0.3, cuda) if bath == "asym"
+           else schedules.bath_lookuptable(P, 0.3, device=cuda) if bath
+           else None)
+    used = []
+
+    def forced(chains, P, n, asym=False, sms=ck.NUM_SMS, resident=None):
+        used.append(ck.label_shape(R, P, n, asym))
+        return used[-1]
+    monkeypatch.setattr(ck, "label_geometry", forced)
+    out, ref, launched = _both_cluster_kernels(ck, pg, confs, b, jp, teff,
+                                               lut, classical)
+    assert [u[0] for u in used] == [R, R]
+    assert launched == {"fk_wolff": 1, "fk_label": 1}
+    for x, y in zip(out, ref):
+        assert torch.equal(x, y)
+    assert not torch.equal(out[0], confs) and not torch.equal(out[2], confs)
+
+
+@pytest.mark.parametrize("kernel,chains,P,bath", [
+    ("fk_label", 8, 40, False), ("fk_label", 8, 40, True),
+    ("fk_label", 64, 1, False), ("fk_wolff", 1, 40, False),
+    ("fk_wolff", 16, 40, False), ("fk_wolff", 64, 1, False)])
+def test_label_geometry_runs_the_chains_at_once(cuda, kernel, chains, P,
+                                                bath):
+    """At the timed shapes on the 80x80 torus's generic form, the R that
+    card_label_geometry picks holds every chain's cluster at once (the
+    card's cudaOccupancyMaxActiveClusters) and is the largest such R up to
+    the SM count's rule; a larger R would leave chains waiting."""
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    n = 6400
+    sms = gk.card_sms(cuda)
+    resident = ck.card_resident(kernel, P, n, cuda, bath)
+    R, threads, on_chip = ck.card_label_geometry(kernel, chains, P, n, cuda,
+                                                 bath)
+    first = ck.label_geometry(chains, P, n, False, sms)[0]
+    assert R <= first and resident(R, threads, on_chip) >= chains
+    for r in range(R + 1, first + 1):
+        assert resident(*ck.label_shape(r, P, n, False, chains, sms)) < \
+            chains
+
+
+def _last_on_chip(chains, P, sms):
+    """The most sites n of a P x n chain whose union-find label_geometry
+    keeps in the CTAs' shared memory (fk_wolff's, fk_label's without
+    `asym`), by bisection on the rule."""
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    lo, hi = 1, 10 ** 7
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = ((mid, hi) if ck.label_geometry(chains, P, mid, False,
+                                                 sms)[2] else (lo, mid))
+    return lo
+
+
+@pytest.mark.parametrize("past", [0, 1])
+def test_cluster_kernels_at_the_shared_memory_limit(cuda, past):
+    """One chain on a ring of the last length whose union-find stays in
+    the 16 CTAs' shared memory and on the first past it (its regions in
+    device memory), P = 1, the classical schedule: fk_wolff and fk_label
+    bitwise their plain versions, the Wolff cluster sizes too."""
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    sms = gk.card_sms(cuda)
+    n = _last_on_chip(1, 1, sms) + past
+    for kernel in ("fk_wolff", "fk_label"):
+        R, _, on_chip = ck.card_label_geometry(kernel, 1, 1, n, cuda)
+        assert R == ck.CLUSTER_MAX and on_chip == (past == 0)
+    rows = np.arange(n)
+    vals = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    prob = IsingProblem.from_edges(n, rows, (rows + 1) % n, vals,
+                                   device=cuda)
+    pg = packed_ops.build_packed(prob)
+    rng = np.random.default_rng(4)
+    confs = torch.as_tensor(rng.choice([-1.0, 1.0], size=(1, 1, n)).astype(
+        np.float32), device=cuda)
+    temps = schedules.linear(3.0, 0.5, 3, device=cuda)
+    out, ref, launched = _both_cluster_kernels(
+        ck, pg, confs, torch.ones_like(temps), torch.zeros_like(temps),
+        temps, None, True)
+    assert launched == {"fk_wolff": 1, "fk_label": 1}
+    for x, y in zip(out, ref):
+        assert torch.equal(x, y)
+    assert not torch.equal(out[0], confs) and not torch.equal(out[2], confs)
 
 
 @pytest.mark.parametrize("graph,P,per_slice_seeds", [
@@ -2032,9 +2165,11 @@ def test_shard_rest_kernels_equal_plain(cuda):
         -1).to(cuda)
 
     def step(x, rule, with_bath):
+        table = (_asymmetric_table(P, 0.3, cuda) if with_bath == "asym"
+                 else lut if with_bath else None)
         return ck.ShardStep(pg, x, up, dn, state if with_bath else None, k0,
-                            P, b, jp, 2.4, 2, 11, lut if with_bath else None,
-                            rule, x[1, 4:5].clone())
+                            P, b, jp, 2.4, 2, 11, table, rule,
+                            x[1, 4:5].clone(), asym=with_bath == "asym")
     for rule in ("local", "full"):
         for with_bath in (False, True):
             zero = torch.zeros(words, dtype=torch.int32, device=cuda)
@@ -2053,7 +2188,9 @@ def test_shard_rest_kernels_equal_plain(cuda):
                                     got[0], rows_full),
                 ck.shard_wolff_flip_ref(step(rows, rule, with_bath), got[0],
                                         rows_full))
-    for with_bath in (False, True):
+    # S7 also on a bath table not symmetric in ring distance: its one-way
+    # pairs relaxed in the block, its cross-rank pulls kept directed
+    for with_bath in (False, True, "asym"):
         st, ref = step(rows.clone(), "local", with_bath), step(
             rows, "local", with_bath)
         got, want = ck.shard_label_init(st), ck.shard_label_init_ref(ref)
@@ -2075,8 +2212,8 @@ def test_shard_rest_kernels_equal_plain(cuda):
 def test_one_rank_mesh_runs_the_rest_of_the_trotter_axis(cuda):
     """On a one-rank NCCL mesh the sharded bath equals the sequential
     generic bath kernel, and the sharded Wolff and SW engines equal
-    fk_wolff and fk_label, bath bonds on, each launching its shard
-    kernel."""
+    fk_wolff and fk_label, bath bonds on (SW also on a bath table not
+    symmetric in ring distance), each launching its shard kernel."""
     from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
     from montecarlosolvers_tpu_torch.parallel import make_mesh
     from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
@@ -2100,17 +2237,18 @@ def test_one_rank_mesh_runs_the_rest_of_the_trotter_axis(cuda):
             global_moves=gm))
     for engine, single, kw in (
             (trotter.anneal_wolff_sharded, qmc.anneal_wolff,
-             {"rule": "local"}),
+             {"rule": "local", "lookuptable": lut}),
             (trotter.anneal_wolff_sharded, qmc.anneal_wolff,
-             {"rule": "full"}),
-            (trotter.anneal_sw_sharded, qmc.anneal_sw, {})):
+             {"rule": "full", "lookuptable": lut}),
+            (trotter.anneal_sw_sharded, qmc.anneal_sw, {"lookuptable": lut}),
+            (trotter.anneal_sw_sharded, qmc.anneal_sw,
+             {"lookuptable": _asymmetric_table(8, 0.2, cuda)})):
         _build.reset_launches()
-        out = engine(lat, a, b, 0.3, confs[0], gen(), rmesh,
-                     lookuptable=lut, **kw)
+        out = engine(lat, a, b, 0.3, confs[0], gen(), rmesh, **kw)
         assert (_build.LAUNCHES["shard_wolff"]
                 + _build.LAUNCHES["shard_label"]) >= 2 * 6
         assert torch.equal(pmesh.full_tensor(out), single(
-            lat, a, b, 0.3, confs[0], gen(), lookuptable=lut, **kw))
+            lat, a, b, 0.3, confs[0], gen(), **kw))
 
 
 # ---- the sharded samplers: five kernel offsets, the samplers on one rank

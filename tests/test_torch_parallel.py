@@ -1,7 +1,7 @@
 """The port's parallel layer (montecarlosolvers_tpu_torch/parallel/) on
 gloo ranks on the CPU.
 
-Two pools of ranks are spawned once for the module, one of 4 and one of 2
+Pools of 4, 3, 2 and 1 ranks are spawned once for the module
 (tests/torch_parallel_worker.py, which imports no JAX), and take the cases
 in turn. Held bitwise against the port's unsharded runs in this process:
 chain sharding of every engine of `sa.anneal` and `qmc.anneal` on a
@@ -90,7 +90,7 @@ class RankPool:
 
 @pytest.fixture(scope="module")
 def pools():
-    made = {4: RankPool(4), 2: RankPool(2), 3: RankPool(3)}
+    made = {4: RankPool(4), 2: RankPool(2), 3: RankPool(3), 1: RankPool(1)}
     yield made
     for pool in made.values():
         pool.close()
@@ -642,7 +642,12 @@ CLUSTER_CASES = [
                   "slices": 6}),
     ("sw", 4, {}), ("sw", 2, {"with_fields": True}),
     ("sw", 4, {"bath": True}),
-    ("sw", 3, {"with_fields": True, "bath": True, "slices": 6})]
+    ("sw", 3, {"with_fields": True, "bath": True, "slices": 6}),
+    ("sw", 1, {"bath": "asym"}), ("sw", 2, {"bath": "asym"}),
+    ("sw", 4, {"bath": "asym"}),
+    ("sw", 1, {"with_fields": True, "bath": "asym"}),
+    ("sw", 2, {"with_fields": True, "bath": "asym"}),
+    ("sw", 4, {"with_fields": True, "bath": "asym"})]
 
 
 @pytest.mark.parametrize("kind,ranks,kw", CLUSTER_CASES)
@@ -651,7 +656,10 @@ def test_sharded_cluster_engines_equal_single_device(pools, kind, ranks, kw):
     (rules "local" and "full") and SW engines equal the single-device
     qmc.anneal_wolff / anneal_sw bitwise, with bath bonds and with fields
     (the Wolff field term added in slice order, as fk_wolff.cu adds it),
-    at 2, 3 and 4 ranks; their rounds a step end when no rank has news."""
+    at 2, 3 and 4 ranks; SW also on a bath table not symmetric in ring
+    distance (bath "asym") at 1, 2 and 4 ranks. Their rounds a step end
+    when no rank has news (SW on one rank has none: its block is the
+    ring)."""
     out, placements, rounds = pools[ranks].run("cluster_sharded", kind=kind,
                                                **kw)
     problem, confs, a, kwargs = W.cluster_case(kind, **kw)
@@ -660,7 +668,8 @@ def test_sharded_cluster_engines_equal_single_device(pools, kind, ranks, kw):
                   confs, W.gen(9), **kwargs)
     assert np.array_equal(out, want.numpy())
     assert placements == "[Shard(dim=0)]"
-    assert len(rounds) == a.shape[0] and min(rounds) >= 1
+    assert len(rounds) == a.shape[0]
+    assert min(rounds) >= (1 if ranks > 1 or kind == "wolff" else 0)
     assert (out != confs.numpy()).any()
 
 
@@ -686,6 +695,41 @@ def test_sharded_cluster_lockstep_plain_versions(kind):
         assert torch.equal(got, want), ranks
         totals.append(sum(rounds))
     assert totals[0] <= totals[1] <= totals[2]
+
+
+@pytest.mark.parametrize("with_fields", [False, True])
+def test_sw_shard_block_relaxes_one_way_bath_pulls(with_fields):
+    """S7's plain version on a block that is the whole ring (one rank), on
+    a bath table not symmetric in ring distance: some bath pairs of its
+    bonds (`sw_shard_bonds`) hold one way only, and its relaxation
+    (`sw_shard_init_ref`) then the flip equal the single-device plain
+    fk_label (`sw_anneal_ref`) step by step, bitwise; reading those pairs
+    as undirected bonds would not."""
+    problem, confs, a, kw = W.cluster_case("sw", with_fields=with_fields,
+                                           bath="asym")
+    slices = confs.shape[0]
+    pg, s, b, jp, teff, lut = trotter._cluster_ref_setup(
+        problem, a, torch.ones_like(a), 1.0 / slices, confs, 1,
+        kw["lookuptable"], 1)
+    prob = pg.as_problem()
+    teffs = torch.full_like(b, teff)
+    one_way = undirected_differs = 0
+    for t in range(b.shape[0]):
+        bonds = cl.sw_shard_bonds(prob, s, s[0], s, 0, slices, b[t], jp[t],
+                                  teff, lut, 5, t, pg.perm)
+        bath = bonds[2]  # (N, P, P): row a takes slice b's label
+        one_way += int((bath != bath.transpose(-1, -2)).sum())
+        got = cl.sw_shard_flip_ref(
+            s, cl.sw_shard_init_ref(prob, bonds, 0, slices), 5, t)
+        want = cl.sw_anneal_ref(pg, b[t:t + 1], jp[t:t + 1],
+                                teffs[t:t + 1], s[None], 5, lut, t)[0]
+        assert torch.equal(got, want), t
+        both = bath | bath.transpose(-1, -2)
+        flat = cl.sw_shard_flip_ref(s, cl.sw_shard_init_ref(
+            prob, bonds[:2] + (both,) + bonds[3:], 0, slices), 5, t)
+        undirected_differs += int(not torch.equal(flat, want))
+        s = got
+    assert one_way > 0 and undirected_differs > 0
 
 
 def test_bit_packing_round_trips():
@@ -889,6 +933,8 @@ def _jax_cluster_setup(with_fields, bath):
     confs = jqmc.replicate(jsa.random_state(key, 16), slices)
     a, b_j = _jax_steps(steps)
     lut = jsched.bath_lookuptable(slices, 0.2) if bath else None
+    if bath == "asym":
+        lut = W.asymmetric_table(slices, 0.2).numpy()
     b, jp, teff = schedules.qmc_terms(np.asarray(a), np.ones(steps),
                                       1.0 / slices, slices, 1, CPU)
     return (jprob, port, confs, a, b_j, key, lut, b, jp, teff, slices,
@@ -936,14 +982,16 @@ def test_wolff_shards_match_jax_on_its_draws(eight_devices, replicas, rule,
 
 
 @pytest.mark.parametrize("replicas,with_fields,bath", [
-    (8, True, False), (4, False, True), (4, True, True)])
+    (8, True, False), (4, False, True), (4, True, True), (1, False, "asym"),
+    (2, True, "asym"), (4, False, "asym")])
 def test_sw_shards_match_jax_on_its_draws(eight_devices, replicas,
                                           with_fields, bath):
     """S7's plain versions, the ranks in lockstep (cluster.
     sw_sharded_steps_ref) at replica 4 and 8, on the draws of JAX's
     _spacetime_sw_sharded_sweep (bond, ghost and coin draws of the full
     state): bitwise JAX's anneal_sw_sharded, with fields and with the
-    bath."""
+    bath; and at 1, 2 and 4 on a bath table not symmetric in ring distance
+    (bath "asym"), whose one-way pairs both read as directed pulls."""
     from montecarlosolvers_tpu.parallel import make_mesh as jmesh
     from montecarlosolvers_tpu.parallel import trotter as jtrotter
 

@@ -345,18 +345,29 @@ def case_bath_sharded(kind, slices, global_moves, mesh_kind="replica"):
     return _numpy(out), str(list(out.placements))
 
 
+def asymmetric_table(slices, alpha):
+    """bath_lookuptable(slices, alpha) with the couplings of ring offsets
+    d < P / 2 scaled by 1.5 (tests/test_torch_cluster.py::asymmetric_table):
+    not symmetric in ring distance, so a bath pair may bond one way only."""
+    lut = schedules.bath_lookuptable(slices, alpha, device=CPU)
+    d = torch.arange(1, slices)
+    return torch.where(2 * d < slices, lut * 1.5, lut).contiguous()
+
+
 def cluster_case(kind, slices=8, with_fields=False, bath=False,
                  rule="local", steps=20):
     """(problem, confs, a, kwargs) of a sharded cluster run (JAX
     test_parallel.py:448-532's setups): the random 4 x 4 lattice's
-    generic form, one replicated chain, Gamma: 2.5 -> 1e-8."""
+    generic form, one replicated chain, Gamma: 2.5 -> 1e-8; bath "asym"
+    takes `asymmetric_table`."""
     problem = instances.random_2d_lattice(4, rng=0, with_fields=with_fields,
                                           device=CPU)[0]
     confs = qmc.replicate(sa.random_state(gen(7), problem.nspins,
                                           device=CPU), slices)
     a = schedules.transverse_field(2.5, 1e-8, steps, device=CPU)
-    kw = {"lookuptable": schedules.bath_lookuptable(slices, 0.2, device=CPU)
-          if bath else None}
+    kw = {"lookuptable": (asymmetric_table(slices, 0.2) if bath == "asym"
+                          else schedules.bath_lookuptable(
+                              slices, 0.2, device=CPU) if bath else None)}
     if kind == "wolff":
         kw["rule"] = rule
     return problem, confs, a, kw

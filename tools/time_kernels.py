@@ -8,7 +8,7 @@ the main path's shapes.
         [--bath-geometry R ...] [--qmc-geometry R ...]
         [--plane-qmc-geometry R ...] [--plane-svmc-geometry R ...]
         [--split-svmc-geometry R ...] [--generic-geometry R ...]
-        [--only KERNEL ...] [--qmc-phased]
+        [--label-geometry R ...] [--only KERNEL ...] [--qmc-phased]
     PYTHONPATH=<checkout> python tools/time_kernels.py --hw-rng [--rounds N]
 
 Rows: kernel A at 1280 and 32 chains on the seeded L x L torus (T: 3 -> 0),
@@ -27,7 +27,14 @@ events, and the sweep with its block products, slope-timed; beside them
 the host path: the host's time to queue a block launch and a sweep, and
 the card's time for 5 sweeps queued behind a spin kernel, the least of
 three) at 1024
-chains on sk_model(2048, rng=0); one
+chains on sk_model(2048, rng=0), and the cluster kernels fk_label (the
+space-time sweep at P = 40, 8 chains, without and with the bath at
+alpha = 1e-2, and the classical sweep at 64 chains) and fk_wolff (rule
+"local" at P = 40, one chain and 16, and the classical cluster at 64
+chains) on the L x L torus's generic form, chip_smoke.py::cluster_timing's
+shapes, and fk_wolff at one chain, P = 40, and 64 chains, P = 1, on
+random_2d_lattice(L, rng=0, with_fields=True) (bath "fields": the field
+accept's ordered sums run), in ms a step; one
 JSON line each, with the geometry and the clusters the card holds at once
 where the checkout reports them, with ms per sweep (the median pairwise
 slope of best-of-3 wall times over two schedule lengths, as
@@ -35,7 +42,8 @@ chip_smoke.py's slope_ms), the card's name and power limit. It calls only
 the wrappers `sa_split_anneal`, `qmc_bath_split_anneal`, `sa_plane_anneal`,
 `qmc_split_anneal`, `qmc_plane_anneal`, `svmc_plane_anneal`,
 `svmc_split_anneal`, `packed_sa_anneal`, `generic_qmc_anneal`,
-`generic_qmc_bath_anneal`, `dense_sa_block` and `dense_sa_anneal`, with
+`generic_qmc_bath_anneal`, `dense_sa_block`, `dense_sa_anneal`,
+`cluster_kernels.sw_anneal` and `cluster_kernels.wolff_anneal`, with
 the arguments every version
 of the port since their slice shares, so
 the same script times an older checkout (unpacked with `git archive`)
@@ -49,10 +57,12 @@ of the wrapper's own choice (where the checkout has `sa_geometry` /
 times generic PIQMC and the bath on the L x L torus at each given R
 (where the checkout has `generic_qmc_geometry`), and `--one-step` adds
 to their rows the median ms of a whole one-step call (what the cluster
-solvers' interleaved local sweeps pay). `--only` times just the
+solvers' interleaved local sweeps pay). `--label-geometry` times
+fk_label and fk_wolff at each given cluster size R (where the checkout has
+`cluster_kernels.label_geometry`). `--only` times just the
 named kernels (split_sa, split_qmc_bath, plane_sa, split_qmc, plane_qmc,
 plane_svmc, split_svmc, packed_sa, generic_qmc, generic_qmc_bath,
-dense_sa). `--qmc-phased`
+dense_sa, fk_label, fk_wolff). `--qmc-phased`
 adds a row of kernel B's per-phase route at the same shape (its
 `qmc_geometry` answering that no cluster holds it). `--hw-rng` times
 instead kernels A, B, 4 and 5
@@ -98,6 +108,7 @@ def main():
     ap.add_argument("--plane-svmc-geometry", nargs="*", default=[])
     ap.add_argument("--split-svmc-geometry", nargs="*", default=[])
     ap.add_argument("--generic-geometry", nargs="*", default=[])
+    ap.add_argument("--label-geometry", nargs="*", default=[])
     ap.add_argument("--only", nargs="*", default=None)
     ap.add_argument("--hw-rng", action="store_true")
     ap.add_argument("--qmc-phased", action="store_true")
@@ -325,6 +336,8 @@ def time_generic(args, dev, spins, taus, emit, wanted, L):
             taus(250)))
     if wanted("generic_qmc") or wanted("generic_qmc_bath"):
         time_generic_qmc(args, dev, L, pg, spins, taus, emit, wanted)
+    if wanted("fk_label") or wanted("fk_wolff"):
+        time_cluster(args, dev, pg, spins, taus, emit, wanted)
     if wanted("dense_sa"):
         dp = instances.sk_model(2048, rng=0, device=dev)[0]
         s = spins(1024, 2048)
@@ -481,6 +494,83 @@ def time_generic_qmc(args, dev, L, pg, spins, taus, emit, wanted):
             emit(kernel=kernel, graph=gname, chains=chains, P=P,
                  nspins=graph.nspins, geometry=used, ms_per_sweep=ms,
                  **({} if one is None else {"ms_one_step_call": one}))
+
+
+def time_cluster(args, dev, pg, spins, taus, emit, wanted):
+    """fk_label and fk_wolff at chip_smoke.py::cluster_timing's shapes on
+    the graph `pg` (the L x L torus's generic form): PIQMC steps at T = 1/P
+    over Gamma: 3 -> 1e-8, B = 1, and the classical ones (P = 1, J_perp =
+    0) at T: 3 -> 0.05. With `--label-geometry R ...` (a checkout that has
+    `cluster_kernels.label_geometry`), each row at each cluster size R
+    instead of the rule's choice (`cluster_kernels.label_shape`)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    n = pg.nspins
+    lut = schedules.bath_lookuptable(40, 1e-2, device=dev)
+    # the field-carrying form: the accept's ordered row sums run
+    pg_fields = packed_ops.build_packed(instances.random_2d_lattice(
+        int(round(n ** 0.5)), rng=0, with_fields=True, device=dev)[0])
+
+    def terms(tau, P):
+        if P == 1:
+            temps = schedules.linear(3.0, 0.05, tau, device=dev)
+            return torch.ones_like(temps), torch.zeros_like(temps), temps
+        g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+        teff = (1.0 / P) * P
+        return (torch.ones_like(g), schedules.jperp(g, teff).contiguous(),
+                torch.full_like(g, teff))
+
+    rows = []
+    if wanted("fk_label"):
+        rows += [("fk_label", 8, 40, False), ("fk_label", 8, 40, True),
+                 ("fk_label", 64, 1, False)]
+    if wanted("fk_wolff"):
+        rows += [("fk_wolff", 1, 40, False), ("fk_wolff", 16, 40, False),
+                 ("fk_wolff", 64, 1, False), ("fk_wolff", 1, 40, "fields"),
+                 ("fk_wolff", 64, 1, "fields")]
+    own = getattr(ck, "label_geometry", None)
+    forced = [int(r) for r in args.label_geometry] if own else []
+    for kernel, chains, P, bath in rows:
+        graph = pg_fields if bath == "fields" else pg
+        c = spins(chains, P, n)
+        vis = torch.zeros(chains, dtype=torch.int64, device=dev)
+        steps = taus(10 if P > 1 else 50)
+
+        def run(tau):
+            b, jp, teff = terms(tau, P)
+            if kernel == "fk_label":
+                return ck.sw_anneal(pg, b, jp, teff, c, 7,
+                                    lut if bath else None, 0, P == 1)
+            vis.zero_()
+            return ck.wolff_anneal(graph, b, jp, teff, c, 7, "local", None,
+                                   0, vis)
+        card = getattr(ck, "card_label_geometry", None)
+        for geom in forced or [None]:
+            if geom is not None:
+                ck.label_geometry = (
+                    lambda ch, p, nn, asym=False, sms=0, resident=None,
+                    r=geom: ck.label_shape(r, p, nn, asym))
+            try:
+                used = (card(kernel, chains, P, n, dev, bath is True)
+                        if card else ck.label_geometry(
+                            chains, P, n, False, gk.card_sms(dev))
+                        if own else None)
+                ms = slope_ms(run, steps)
+            finally:
+                if own:
+                    ck.label_geometry = own
+            rec = dict(kernel=kernel, chains=chains, P=P, bath=bath,
+                       alpha=1e-2 if bath is True else None, nspins=n,
+                       geometry=used, ms_per_step=ms)
+            if kernel == "fk_wolff":  # the last run's, at the longer tau
+                rec["mean_cluster_sites"] = float(vis.sum()) / steps[1] / \
+                    chains
+            emit(**rec)
 
 
 def call_ms(run, reps=30):
