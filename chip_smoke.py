@@ -127,6 +127,30 @@ Phases, each printed as one JSON line:
                       for two sweeps), SVMC with TF proposals and uniform:
                       0 mismatched spins, angles by the ANGLE_MISMATCH
                       rule, one launch an anneal
+  sa_dense_redesign   generic SA's cluster route (csrc/generic_words.cuh's
+                      SA mode: up to 32 chains as the bits of a word over
+                      a cluster of CTAs) with the (C, R, threads) its rule
+                      chose and the clusters the card holds, on the 80x80
+                      torus's generic form at 1280, 32 and 8 chains, the
+                      81x81 checkerboard (not proper), per-step tables,
+                      384 temperatures a chain, the 8 x 160 disorder
+                      batch, chain0 = 100003, energies and one-step
+                      launches; the file's first kernel ("_wide", forced)
+                      shared, per-chain and with tables; the dense
+                      in-block kernel (h added inside) at 1024 chains,
+                      systematic and shuffled, 64 chains with a
+                      temperature each, blocks of 100 and chain0: 0
+                      mismatched spins, energies within 1e-5 (sum |J| +
+                      sum |h|), launches exactly the route's; then the
+                      "_wide" routes slope-timed beside their plain
+                      versions and bounds, and the cluster route at 32
+                      and 8 chains beside kernel A on the same torus;
+                      the rule of size (packed_sa_one_cta): the chimera
+                      pre-anneal's 32 chains and ICM's 1536 (a
+                      temperature each) on the first kernel, one CTA a
+                      chain, random_3d_lattice(16) at 1280 on the cluster
+                      route, each against its plain version and timed
+                      beside the other kernel forced
   cluster_kernel_vs_plain  the cluster kernels (ops/cluster_kernels.py)
                       against their plain versions on the card, on the
                       80x80 torus's generic form, CLUSTER_STEPS steps:
@@ -673,6 +697,18 @@ WIDE_L, WIDE_BATH_L, WIDE_STEPS = 482, 476, 2
 # the bath): R = 16 CTAs each asking for all but a few bytes of the 227 KB
 # a block may take, WIDE_STEPS steps against the plain versions
 EDGE_N, EDGE_BATH_N = 232080, 225680
+# The redesigned generic SA (its cluster route, generic_words.cuh's SA
+# mode: a group of chains as the bits of a word over a cluster of CTAs)
+# and the redesigned dense in-block kernel against their plain versions
+# over SA_REDESIGN_STEPS sweeps (dense: DENSE_STEPS) at the main path's
+# widths, the PIQMC pre-anneals' 32 and 8 chains, SA_PER_CHAIN_READS
+# temperatures a chain (pt.sample's 48 rungs of 8 reads), the dense
+# engine at DENSE_CHAIN_READS chains with a temperature each and blocks of
+# DENSE_SMALL_BLOCK; the first kernel of packed_sa.cu, the "_wide" route,
+# slope-timed over WIDE_SA_TAUS sweeps
+SA_REDESIGN_STEPS, SA_PER_CHAIN_READS = 20, 384
+DENSE_CHAIN_READS, DENSE_SMALL_BLOCK = 64, 100
+WIDE_SA_TAUS, FEW_SA_TAUS = (250, 1000), (500, 2000)
 LINE_WIDE_SLICES = (65, 128)
 SW_WIDE_SLICES, SW_WIDE_READS, SW_WIDE_SWEEPS = 128, 8, 20
 ASYM_ALPHA, ASYM_SCALE = 1e-2, 1.5
@@ -923,7 +959,13 @@ for _k in ENERGY_LAYOUTS:
 # the generic kernels on an IsingProblem replace no TPU kernel either, but
 # the XLA scans of the JAX package's generic engines: the body of each scan
 GENERIC_KERNELS = {
-    "packed_sa": ("packed_sa", "montecarlosolvers_tpu_torch/csrc/packed_sa.cu",
+    # generic SA's two kernels, both launched from packed_sa.cu, by shape:
+    # the cluster route (csrc/generic_words.cuh's SA mode) and, on a graph
+    # whose class phase is small (generic_kernels.packed_sa_one_cta), the
+    # file's first kernel, one CTA a chain; the same kernel on a graph no
+    # cluster holds is "packed_sa_wide"
+    "packed_sa": ("packed_sa",
+                  "montecarlosolvers_tpu_torch/csrc/packed_sa.cu",
                   "montecarlosolvers_tpu/ops/packed.py:129"),
     # the cluster route (csrc/generic_words.cuh, launched from
     # generic_qmc.cu); the file's first kernel is "generic_qmc_wide"
@@ -1055,6 +1097,16 @@ WIDE_KERNELS = {
     "generic_qmc_bath_wide": ("generic_qmc_bath_wide",
                               _SRC + "generic_qmc_bath.cu",
                               "montecarlosolvers_tpu/ops/piqmc.py:110"),
+    # ... and of csrc/packed_sa.cu (generic SA, its per-chain and per-step
+    # table instantiations), for a graph whose words no cluster holds or of
+    # more than 127 classes; the phase sa_dense_redesign holds and times
+    # them at the main path's widths, the rule forced
+    "packed_sa_wide": ("packed_sa_wide", _SRC + "packed_sa.cu",
+                       "montecarlosolvers_tpu/ops/packed.py:129"),
+    "packed_sa_chain_wide": ("packed_sa_chain_wide", _SRC + "packed_sa.cu",
+                             "montecarlosolvers_tpu/ops/metropolis.py:60"),
+    "packed_sa_noisy_wide": ("packed_sa_noisy_wide", _SRC + "packed_sa.cu",
+                             "montecarlosolvers_tpu/ops/packed.py:221"),
 }
 KERNELS.update(WIDE_KERNELS)
 # what the rest of the parallel layer added to four kernels: the cluster
@@ -1664,12 +1716,16 @@ def collect_energy_checks(dev, results, torus, odd_torus):
     return path
 
 
-def event_ms(fn, reps):
+def event_ms(fn, reps, spin_cycles=0):
     """ms per call of fn(), CUDA events around `reps` calls after a warm
-    one."""
+    one; with `spin_cycles`, the calls are queued behind a spin kernel of
+    that many clocks, so the events time the card's work back to back and
+    not the host's queueing of a launch shorter than it."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if spin_cycles:
+        torch.cuda._sleep(spin_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -2508,6 +2564,319 @@ def generic_redesign(dev, results, graphs, odd_torus, power, name):
                 results[kname]["plain_ms"] = ms
 
 
+def sa_dense_redesign(dev, results, graphs, torus, odd_torus, sk, tables,
+                      power, name):
+    """Phase sa_dense_redesign: generic SA's two routes and the dense
+    in-block kernel against their plain versions on the card, 0 mismatched
+    spins and exactly the route's launches:
+      - the cluster route (csrc/generic_words.cuh's SA mode: a group of C
+        chains as the bits of each site's word over a cluster of R CTAs)
+        with the (C, R, threads) its rule chose on the card and the
+        clusters the card holds at once: the 80x80 torus's generic form at
+        SA_READS, 32 and 8 chains (the PIQMC pre-anneals), the 81x81
+        torus's checkerboard (not a proper coloring), per-step tables,
+        SA_PER_CHAIN_READS temperatures a chain (48 rungs of 8), the
+        DISORDER_D x SA_READS // DISORDER_D disorder batch, chain0 =
+        OFFSET_CHAIN0, energies on, and one-step launches (step0 = t, as
+        the cluster solvers' local sweeps);
+      - the file's first kernel, the "_wide" route, forced by a rule of
+        shape that holds nothing: shared schedule, per-chain and per-step
+        tables;
+      - the dense in-block kernel (csrc/dense_sa.cu, h added inside) at
+        the main path's DENSE_READS chains (systematic and shuffled, with
+        the (chains a warp, warps a CTA) of its rule), DENSE_CHAIN_READS
+        chains with a temperature a chain, block DENSE_SMALL_BLOCK and
+        chain0 = OFFSET_CHAIN0.
+    Then slope-times the "_wide" routes and their plain versions beside
+    their bounds (the kernels line's rows) and the cluster route at 32 and
+    8 chains beside kernel A on the same torus (`torus`) and chains. Last,
+    the rule of size (`packed_sa_one_cta`): the chimera pre-anneal's and
+    ICM's shapes run the first kernel, random_3d_lattice(16) at SA_READS
+    the cluster route, each under the plain key, against its plain
+    version, and slope-timed beside the other kernel forced."""
+    import ctypes
+
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import dense_kernels as dk
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import split as split_ops
+    from montecarlosolvers_tpu_torch.ops import split_kernels as sk_ops
+    from montecarlosolvers_tpu_torch.parallel import disorder
+    from montecarlosolvers_tpu_torch.solvers import sa
+
+    rng = np.random.default_rng(23)
+    gibbs = gibbs_tool()
+    steps = SA_REDESIGN_STEPS
+    gname80 = f"gaussian_torus({L}, 0).to_generic()"
+    gtorus80 = graphs[gname80]
+    pg80 = packed_ops.build_packed(gtorus80)
+    pg81 = packed_ops.packed_from_lattice(odd_torus)
+    n = pg80.nspins
+    probs, _, states, generators = disorder_case(dev, steps)
+    stacked, _ = disorder.stack_problems(probs)
+    pg_d, nbr_jd, h_d = stacked.packed
+    seeds_d = [sa.draw_seed(g) for g in generators()]
+    tb = gk.packed_tables(pg80, tables[0][:steps], tables[1][:steps], 1,
+                          steps, dev)
+    ladder = torch.linspace(0.5, 2.0, SA_PER_CHAIN_READS, device=dev)
+
+    def sched(tau, chains=None):
+        t = schedules.linear(3.0, 0.0, tau, device=dev)
+        return t if chains is None else (t[:, None] * ladder[None, :chains]
+                                         ).contiguous()
+
+    def record(kname, case, out, ref, start, launched, want, extra=None):
+        torch.cuda.synchronize()
+        n_bad, err = mismatches([out], [ref])
+        rec = {"phase": "sa_dense_redesign", "kernel": kname, **case,
+               "launches": launched, "mismatched_spins": n_bad,
+               "max_abs_err": err,
+               "flipped_fraction": float((out != start).float().mean()),
+               **(extra or {})}
+        emit(rec)
+        check(n_bad == 0, f"{kname} ({rec}) equals its plain version")
+        check(rec["flipped_fraction"] > 0, f"{kname} ({rec}) moves")
+        check(launched == want, f"{kname} ({rec}) launched {launched}")
+        results[kname]["max_abs_err"] = max(
+            results[kname].get("max_abs_err", 0.0), err)
+
+    # (graph name, packing, chains, mode, keyword arguments of the calls)
+    cases = [(gname80, pg80, SA_READS, "shared", {}),
+             (gname80, pg80, 32, "shared", {}),
+             (gname80, pg80, 8, "shared", {}),
+             (f"gaussian_torus({ODD_L}, 0), checkerboard", pg81, SA_READS,
+              "shared", {}),
+             (gname80, pg80, SA_READS, "noisy", {"tables": tb}),
+             (gname80, pg80, SA_PER_CHAIN_READS, "per_chain", {}),
+             (f"{DISORDER_D} x gaussian_torus({L}, d).to_generic()", pg_d,
+              SA_READS, "disorder", {"disorder": (nbr_jd, h_d, seeds_d)}),
+             (gname80, pg80, SA_READS, "chain0", {"chain0": OFFSET_CHAIN0}),
+             (gname80, pg80, SA_READS, "energies", {}),
+             (gname80, pg80, 32, "one_step", {})]
+    wide = [("packed_sa_wide", gname80, pg80, SA_READS, "shared", {}),
+            ("packed_sa_chain_wide", gname80, pg80, SA_PER_CHAIN_READS,
+             "per_chain", {}),
+            ("packed_sa_noisy_wide", gname80, pg80, SA_READS, "noisy",
+             {"tables": tb})]
+    own_rule = gk.packed_sa_geometry
+    for kname, gname, pg, chains, mode, kw in (
+            [("packed_sa", *c) for c in cases] + wide):
+        if kname.endswith("_wide"):
+            gk.packed_sa_geometry = lambda *a, **k: None
+        try:
+            per_chain = mode == "per_chain"
+            key = ("packed_sa_chain" if per_chain else "packed_sa_noisy"
+                   if mode == "noisy" else "packed_sa")
+            if kname.endswith("_wide"):
+                key += "_wide"
+            d_chains = chains // DISORDER_D if mode == "disorder" else 0
+            geometry = gk.card_packed_sa_geometry(pg, chains, d_chains,
+                                                  per_chain, dev)
+            resident = None
+            if geometry is not None:
+                lib = _build.library("packed_sa")
+                count = ctypes.c_int(0)
+                rc = lib.packed_sa_words_max_active_clusters(
+                    geometry[1], geometry[2], gk.sa_words_smem_bytes(
+                        gk.word_layout(pg, geometry[1])[3]),
+                    int(per_chain), ctypes.byref(count))
+                check(rc == 0, "cudaOccupancyMaxActiveClusters answers")
+                resident = count.value
+            start = (states.reshape(SA_READS, n) if mode == "disorder"
+                     else random_pm1(rng, (chains, pg.nspins), dev))
+            if mode == "disorder":
+                start = packed_ops.pack_state(pg, start).contiguous()
+            temps = sched(steps, chains if per_chain else None)
+            es = es_plain = None
+            if mode == "energies":
+                es, es_plain = (torch.full((steps, chains), float("nan"),
+                                           device=dev) for _ in range(2))
+
+            def run(fn, es=None, temps=temps, start=start, kw=kw,
+                    mode=mode):
+                if mode == "one_step":
+                    x = start
+                    for t in range(steps):
+                        x = fn(pg, temps[t:t + 1], x, 41, step0=t)
+                    return x
+                return fn(pg, temps, start, 41, energies=es, **kw)
+            _build.reset_launches()
+            out = run(gk.packed_sa_anneal, es)
+            launched = launched_now()
+            ref = run(gk.packed_sa_anneal_ref, es_plain)
+        finally:
+            gk.packed_sa_geometry = own_rule
+        extra = {"geometry": geometry, "clusters_resident": resident}
+        if es is not None:
+            extra.update(energy_err=float((es - es_plain).abs().max()),
+                         energy_bound=gibbs.ENERGY_RTOL
+                         * gibbs.problem_scale(gtorus80))
+            check(bool(torch.isfinite(es).all())
+                  and extra["energy_err"] <= extra["energy_bound"],
+                  f"packed_sa's energies within {extra['energy_bound']}")
+        record(kname, {"graph": gname, "nspins": pg.nspins,
+                       "colors": pg.num_colors, "proper": pg.proper,
+                       "chains": chains, "steps": steps, "mode": mode},
+               out, ref, start, launched,
+               {key: steps if mode == "one_step" else 1}, extra)
+
+    # the dense in-block kernel: (chains, block, shuffle, per chain,
+    # chain0), SK sweeps of DENSE_STEPS
+    for chains, block, shuffle, per_chain, chain0 in (
+            (DENSE_READS, DENSE_BLOCK, False, False, 0),
+            (DENSE_READS, DENSE_BLOCK, True, False, 0),
+            (DENSE_CHAIN_READS, DENSE_BLOCK, False, True, 0),
+            (DENSE_READS, DENSE_SMALL_BLOCK, False, False, 0),
+            (DENSE_READS, DENSE_BLOCK, False, False, OFFSET_CHAIN0)):
+        s = random_pm1(rng, (chains, DENSE_N), dev)
+        temps = schedules.linear(3.0, 0.1, DENSE_STEPS, device=dev)
+        if per_chain:
+            temps = (temps[:, None] * torch.linspace(
+                0.5, 2.0, chains, device=dev)[None, :]).contiguous()
+        _build.reset_launches()
+        out = dk.dense_sa_anneal(sk, temps, s, 43, block, shuffle,
+                                 chain0=chain0)
+        launched = launched_now()
+        ref = dk.dense_sa_anneal_ref(sk, temps, s, 43, block, shuffle,
+                                     chain0=chain0)
+        kname = "dense_sa_chain" if per_chain else "dense_sa"
+        record(kname, {"problem": f"sk_model({DENSE_N}, rng=0)",
+                       "chains": chains, "steps": DENSE_STEPS,
+                       "block": block, "shuffle": shuffle,
+                       "chain0": chain0},
+               out, ref, s, launched,
+               {kname: DENSE_STEPS * -(-DENSE_N // block)},
+               {"warps": dk.WARPS})
+
+    # the "_wide" routes' times at the main path's widths, beside their
+    # bounds and plain versions, and the cluster route at the pre-anneals'
+    # chains beside kernel A at the same chains
+    graph = graph_shape(gtorus80)
+    tb_long = gk.packed_tables(pg80, tables[0][:WIDE_SA_TAUS[1]],
+                               tables[1][:WIDE_SA_TAUS[1]], 1,
+                               WIDE_SA_TAUS[1], dev)
+    for kname, chains, mode in (("packed_sa_wide", SA_READS, "shared"),
+                                ("packed_sa_chain_wide",
+                                 SA_PER_CHAIN_READS, "per_chain"),
+                                ("packed_sa_noisy_wide", SA_READS, "noisy")):
+        s = random_pm1(rng, (chains, n), dev)
+
+        def runner(fn, s=s, chains=chains, mode=mode):
+            def run(tau):
+                kw = ({"tables": (tb_long[0][:tau], tb_long[1][:tau], 1)}
+                      if mode == "noisy" else {})
+                return fn(pg80, sched(tau, chains if mode == "per_chain"
+                                      else None), s, 7, **kw)
+            return run
+        tau = WIDE_SA_TAUS[1]
+        f32, sfu = ops_per_sweep("packed_sa", chains, 1, n, graph)
+        # the noisy anneal also reads its tables once
+        moved = bytes_per_anneal("packed_sa", chains, 1, n, tau, graph) + (
+            tau * n * (graph[1] + 1) * 4 if mode == "noisy" else 0)
+        times = {"fp32": f32 / PEAK_FLOPS, "sfu": sfu / PEAK_SFU,
+                 "bytes": moved / PEAK_BYTES / tau}
+        unit = max(times, key=times.get)
+        bound = 1e3 * times[unit]
+        bound_by = "bytes" if unit == "bytes" else "operations"
+        for route, fn, tt, trials in (
+                ("cuda", gk.packed_sa_anneal, WIDE_SA_TAUS, 3),
+                ("plain", gk.packed_sa_anneal_ref, (2, 6), 2)):
+            if route == "cuda":
+                gk.packed_sa_geometry = lambda *a, **k: None
+            try:
+                ms, best = slope_ms(runner(fn), tt, trials)
+            finally:
+                gk.packed_sa_geometry = own_rule
+            emit({"phase": "sa_dense_redesign", "kernel": kname,
+                  "route": route, "chains": chains, "sites": n,
+                  "taus": list(tt),
+                  "best_seconds": {str(k): v for k, v in best.items()},
+                  "ms_per_sweep": ms, "bound_ms": bound,
+                  "bound_by": bound_by, "bound_unit": unit, "gpu": name,
+                  "power_limit": power})
+            check(ms > 0, f"{kname} {route} slope is positive")
+            if route == "cuda":
+                results[kname].update(ms=ms, bound_ms=bound,
+                                      bound_by=bound_by)
+            else:
+                results[kname]["plain_ms"] = ms
+    sl = split_ops.build_split(torus)
+    for chains in (32, 8):
+        s = random_pm1(rng, (chains, n), dev)
+        a, b = (x.contiguous() for x in split_ops.pack_classical(sl, s))
+        packed = packed_ops.pack_state(pg80, s).contiguous()
+        ms_packed = slope_ms(lambda tau: gk.packed_sa_anneal(
+            pg80, sched(tau), packed, 7), FEW_SA_TAUS, 3)[0]
+        ms_a = slope_ms(lambda tau: sk_ops.sa_split_anneal(
+            sl, sched(tau), a, b, 7), FEW_SA_TAUS, 3)[0]
+        emit({"phase": "sa_dense_redesign", "kernel": "packed_sa",
+              "chains": chains, "geometry": gk.card_packed_sa_geometry(
+                  pg80, chains, 0, False, dev),
+              "ms_per_sweep": ms_packed, "split_sa_ms_per_sweep": ms_a,
+              "ratio": ms_packed / ms_a,
+              "bound_ms": bound_ms("packed_sa", chains, 1, n,
+                                   FEW_SA_TAUS[1], graph)[0],
+              "gpu": name, "power_limit": power})
+        check(ms_packed > 0 and ms_a > 0,
+              f"packed SA and kernel A at {chains} chains time")
+
+    # the rule of size (gk.packed_sa_one_cta): the chimera pre-anneal's
+    # shape and ICM's (two ladders of ICM_RUNGS x ICM_READS chains, a
+    # temperature each) take the file's first kernel, one CTA a chain,
+    # random_3d_lattice(16) at SA_READS the cluster route, all under the
+    # plain keys; each against its plain version, then the rule's kernel
+    # slope-timed beside the other one forced, and ICM's two-sweep call
+    from montecarlosolvers_tpu_torch.models import instances
+    own_small = gk.packed_sa_one_cta
+    for gname, prob, chains, per_chain, one_cta in (
+            ("chimera_graph(16, rng=0)", graphs["chimera_graph(16, rng=0)"],
+             CHIMERA_READS, False, True),
+            ("random_3d_lattice(12, rng=0)", instances.random_3d_lattice(
+                12, rng=0, device=dev)[0], 2 * ICM_RUNGS * ICM_READS, True,
+             True),
+            ("random_3d_lattice(16, rng=0)",
+             graphs["random_3d_lattice(16, rng=0)"], SA_READS, False,
+             False)):
+        pg = packed_ops.build_packed(prob)
+        check(gk.packed_sa_one_cta(pg.nspins, pg.num_colors) == one_cta,
+              f"the rule of size sends {gname} at {chains} chains to "
+              + ("one CTA a chain" if one_cta else "the cluster route"))
+        rungs = torch.linspace(0.5, 2.0, chains, device=dev)
+
+        def table(tau, per_chain=per_chain, rungs=rungs):
+            t = schedules.linear(3.0, 0.0, tau, device=dev)
+            return (t[:, None] * rungs[None, :]).contiguous() if per_chain \
+                else t
+        s = random_pm1(rng, (chains, pg.nspins), dev)
+        key = "packed_sa_chain" if per_chain else "packed_sa"
+        _build.reset_launches()
+        out = gk.packed_sa_anneal(pg, table(steps), s, 41)
+        launched = launched_now()
+        ref = gk.packed_sa_anneal_ref(pg, table(steps), s, 41)
+        record(key, {"graph": gname, "nspins": pg.nspins,
+                     "colors": pg.num_colors, "chains": chains,
+                     "steps": steps, "mode": "rule_of_size"},
+               out, ref, s, launched, {key: 1}, {"one_cta": one_cta})
+        for forced in (one_cta, not one_cta):
+            gk.packed_sa_one_cta = lambda *a, f=forced, **k: f
+            try:
+                ms = slope_ms(lambda tau: gk.packed_sa_anneal(
+                    pg, table(tau), s, 7), WIDE_SA_TAUS, 3)[0]
+                two = (event_ms(lambda: gk.packed_sa_anneal(
+                    pg, table(2), s, 7), 30) if per_chain else None)
+            finally:
+                gk.packed_sa_one_cta = own_small
+            emit({"phase": "sa_dense_redesign", "kernel": key,
+                  "graph": gname, "chains": chains, "mode": "rule_of_size",
+                  "route": "one_cta" if forced else "cluster",
+                  "rule_choice": forced == one_cta, "ms_per_sweep": ms,
+                  "two_sweep_call_ms": two, "gpu": name,
+                  "power_limit": power})
+            check(ms > 0, f"{key} on {gname} times")
+
+
 def dense_problem(n, dev):
     """An SK DenseProblem of n spins drawn on the card (torch's generator,
     seed 0): J_ij ~ N(0, 1/n) above the diagonal, mirrored, h = 0. For the
@@ -2678,11 +3047,13 @@ def dense_noisy_timing(dev, results, sk, gtorus, tables, power, name):
                 dp, schedules.linear(3.0, 0.1, tau, device=dev), s, 7, B),
             taus, trials)
         Jp, hp, sp = ds.padded(dp.J, dp.h, s.clone(), B)
-        fb = ds.block_fields(sp, Jp, hp, 0, B)
+        fb = ds.block_product(sp, Jp, 0, B)
         temps = schedules.linear(3.0, 0.1, 1, device=dev)
         nblocks = Jp.shape[0] // B
-        block_ms = event_ms(lambda: dk.dense_sa_block(sp, fb, Jp, 0, temps,
-                                                      0, 7), 200)
+        # the launch is shorter than the wrapper's host time: queued
+        block_ms = event_ms(lambda: dk.dense_sa_block(sp, fb, hp, Jp, 0,
+                                                      temps, 0, 7), 200,
+                            spin_cycles=200_000_000)
         matmul_ms = event_ms(lambda: [torch.matmul(sp, Jp[:, st:st + B])
                                       for st in range(0, Jp.shape[0], B)],
                              20)
@@ -5095,7 +5466,7 @@ def sampler_offset_checks(dev, torus, odd_torus, power, name):
     jp_, hp_, dense_s = ds.padded(dp.J, dp.h, spins(DENSE_READS, DENSE_N),
                                   DENSE_BLOCK)
     start = DENSE_BLOCK  # the second block
-    fb = ds.block_fields(dense_s, jp_, hp_, start, DENSE_BLOCK)
+    fb = ds.block_product(dense_s, jp_, start, DENSE_BLOCK)
     dense_t = schedules.linear(3.0, 0.1, 4, device=dev)
     dense_pc = torch.linspace(0.5, 3.0, DENSE_READS, device=dev)[None].expand(
         4, -1)
@@ -5114,11 +5485,11 @@ def sampler_offset_checks(dev, torus, odd_torus, power, name):
             pg, a, b, temp, st[0], 71, True, tables=tables, chain0=c0),),
             (packed_th,)),
         "dense_sa": (lambda st, c0: (dk.dense_sa_block(
-            st[0].clone(), st[1], jp_, start, dense_t, 2, 71,
+            st[0].clone(), st[1], hp_, jp_, start, dense_t, 2, 71,
             chain0=c0),), (dense_s, fb)),
         "dense_sa_chain": (lambda st, c0: (dk.dense_sa_block(
-            st[0].clone(), st[1], jp_, start, st[2], 2, 71, chain0=c0),),
-            (dense_s, fb, dense_pc)),
+            st[0].clone(), st[1], hp_, jp_, start, st[2], 2, 71,
+            chain0=c0),), (dense_s, fb, dense_pc)),
         "houdayer": (lambda st, c0: ck.houdayer_move(
             gtorus, *st, 71, 4, pair0=c0), pairs),
     }
@@ -6813,6 +7184,12 @@ def main():
     tables = noisy_tables(gtorus80, dev)
     noisy_checks(dev, results, gtorus80, tables)
     phase_seconds["dense_noisy_vs_plain"] = time.perf_counter() - t_script
+
+    # ---- generic SA over a cluster on both routes, the dense in-block
+    # kernel at the listed shapes
+    sa_dense_redesign(dev, results, graphs, torus, odd_torus, sk_problem,
+                      tables, power, name)
+    phase_seconds["sa_dense_redesign"] = time.perf_counter() - t_script
 
     # ---- the cluster kernels against their plain versions
     cluster_checks(dev, results, gtorus80)

@@ -10,14 +10,17 @@ dissipative PIQMC and spin-vector Monte Carlo on any `LatticeProblem` (any
 L, open or periodic) — classical SA, PIQMC at any P (local plus whole-line
 global moves; with a bath `lookuptable`, the dissipative sweep,
 sequential or colored, on every problem at any P >= 2), SVMC with uniform
-or TF proposals, and the
-one-call `solvers.api.solve` with method "sa", "piqmc" or "svmc"; the
+or TF proposals, and the one-call `solvers.api.solve` with any of its
+twelve methods: "sa", "sa_wolff", "sa_sw", "piqmc", "piqmc_wolff",
+"piqmc_sw", "piqmc_sw_full", "svmc", "pt", "icm", "pa" and "paq"; the
 same solvers on the generic `IsingProblem` (neighbor tables, COO triplets,
 QUBOs, chimera graphs, 3-D glasses, random graphs: `models/ising.py`,
 `models/instances.py`). Even L (and even P) take the split-checkerboard
 engines (`ops/split_kernels.py`), other lattices the full-plane engines
 (`ops/plane_kernels.py`), an IsingProblem the class-major packed engines
-(`ops/generic_kernels.py`). On a CUDA device the engines run hand-written
+(`ops/generic_kernels.py`; generic SA, PIQMC and the bath as bits of each
+site's words over a thread-block cluster, `csrc/generic_words.cuh`). On a
+CUDA device the engines run hand-written
 CUDA kernels (`csrc/split_sa.cu`, `csrc/split_qmc.cu`,
 `csrc/split_qmc_bath.cu`, `csrc/split_svmc.cu`, `csrc/plane_sa.cu`,
 `csrc/plane_qmc.cu`, `csrc/plane_svmc.cu`, and `csrc/packed_sa.cu`,
@@ -32,11 +35,12 @@ per-phase kernels and the energy kernel, `csrc/energy.cuh`);
 the reference's `santoro_mst` and `dissipative_qa` scripts. The
 fully-connected `DenseProblem` (`models/dense.py`, `instances.sk_model`'s
 default) anneals through `sa.anneal` and `solve(method="sa")` on the dense
-engine (`ops/dense_kernels.py`: block fields by torch.matmul, the
-sequential in-block steps on `csrc/dense_sa.cu`), and `sa.anneal_noisy` /
-`svmc.anneal_noisy` anneal an IsingProblem on per-step coupling tables
-through the packed kernels. The cluster updates (`sa/qmc.anneal_wolff`,
-`anneal_sw`, `qmc.anneal_sw_bath`, `ops/cluster_kernels.py`) and the
+engine (`ops/dense_kernels.py`: block products by torch.matmul, the
+sequential in-block steps, h added, on `csrc/dense_sa.cu`), and
+`sa.anneal_noisy` / `svmc.anneal_noisy` anneal an IsingProblem on
+per-step coupling tables through the packed kernels. The cluster updates
+(`sa/qmc.anneal_wolff`, `anneal_sw`, `qmc.anneal_sw_bath`,
+`ops/cluster_kernels.py`) and the
 samplers (`solvers/pt.py`: parallel tempering, quantum PT, ICM;
 `solvers/pa.py`: population annealing, classical and quantum, fixed and
 adaptive; solve's "pt", "icm", "pa" and "paq") run too.

@@ -1,7 +1,8 @@
 // The cluster route of generic PIQMC (csrc/generic_qmc.cu) and of the
 // generic bath (csrc/generic_qmc_bath.cu): one chain's slices as bits of
 // each site's words, spread over a thread-block cluster, the whole schedule
-// in one launch.
+// in one launch. The SA mode at the end of the file runs generic SA
+// (csrc/packed_sa.cu) on the same layout, a group of chains as the bits.
 //
 // What it computes is the kernels' of the two files, bitwise: the same
 // flip decisions from the same counter-hash uniforms (counter(seed, t, 0)
@@ -491,6 +492,215 @@ cudaError_t launch_words(Kernel kernel, int chains, int R, int threads,
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The SA mode: generic SA (csrc/packed_sa.cu's cluster route) on the same
+// slot layout, with chains, not slices, as the bits of a word.
+//
+// What it computes is packed_sa.cu's first kernel's, bitwise: step t at
+// temperature T visits the classes in order, and every site i of class c
+// flips chain k when dE = (-2 s) f <= 0*T or -T log1p(-u) > dE, f the slot
+// products in slot order, then h, u = uniform01(counter(seed, t, 0),
+// (chain0 + k) * N + perm[i]). It is generic PIQMC's local phase with the
+// group as the chain and its chain bits as the slices: every bit of a word
+// updates in its class's phase, there is no Trotter term, and T is the
+// chain's temperature.
+//
+// What the design does, after kernel A (csrc/split_sa.cu) on this file's
+// layout:
+// - Chains as bits. A group of C <= 32 chains shares each site's word: bit
+//   b is the sign of chain group * C + b (1 for -1). A thread loads a
+//   site's slots (location, J) and h once a phase, reads each neighbour's
+//   word once, then updates the group's chains in turn; every w * s is a
+//   sign flip of w (exact), so the slot order alone fixes the sum. A
+//   ragged last group updates only its own chains.
+// - One group over a cluster of R CTAs, its words in both ping-pong
+//   buffers of the CTAs' shared memory: phase c reads `src`, writes class
+//   c's new words and copies the other slots into `dst`, then one
+//   cluster.sync(); so a packing that is not proper reads a same-class
+//   neighbour as it stood before the phase, as the plain version does.
+// - The group's temperatures sit in shared memory (kPerChain: read from
+//   temps[t * stride_t + chain * stride_c] once a step, or once a launch
+//   when stride_t = 0), as in kernel A.
+// - Per-step tables (the noisy anneal): step t reads nbr_J + (t / mcsteps)
+//   * j_stride and h + (t / mcsteps) * h_stride. A disorder batch
+//   (d_chains > 0): C divides d_chains, so a group lies in one realization
+//   r = chain / d_chains, whose tables (nbr_J + r N maxnb, h + r N), hash
+//   seed seeds[r] and chain index chain - r d_chains the group takes.
+// - With `energies`, warp w of each CTA sums its slots' share of the
+//   energies of the group's chains w, w + warps, ... (lanes in slot order,
+//   then a shuffle tree), and CTA 0 adds the R shares in rank order into
+//   energies[t, chain]: no atomics.
+// - The kernel packs the float (chains, n) state into words as it loads it
+//   and writes floats back, so the round trip costs no launch.
+// At most kSaThreads threads a CTA, registers for kSaMinBlocks CTAs an SM
+// (64 a thread), so 16-CTA clusters share the SMs of a GPC as kernel A's
+// do; ops/generic_kernels.py::packed_sa_geometry picks C, R and the
+// threads.
+constexpr int kSaThreads = 256;
+constexpr int kSaMinBlocks = 4;
+// floats after the buffers: the group's temperatures, then, with energies,
+// the CTA's share of each chain's energy
+constexpr int kSaTail = 32;
+
+template <bool kPerChain>
+__global__ void __launch_bounds__(kSaThreads, kSaMinBlocks)
+packed_sa_words_kernel(const int* __restrict__ slot_site,
+                       const int* __restrict__ slot_starts,
+                       const int* __restrict__ nbr_loc,
+                       const float* __restrict__ nbr_J,
+                       const float* __restrict__ h,
+                       const int* __restrict__ perm,
+                       const float* __restrict__ temps, const float* s_in,
+                       float* s_out, float* __restrict__ energies,
+                       int chains, int C, int n, int maxnb, int ncolors,
+                       int R, int nr, int steps, uint32_t seed_term,
+                       uint32_t step_term, int j_stride, int h_stride,
+                       int mcsteps, int stride_t, int stride_c,
+                       uint32_t chain0, int d_chains,
+                       const int* __restrict__ seeds) {
+  extern __shared__ __align__(16) unsigned char words_smem_raw[];
+  uint32_t** const peers = reinterpret_cast<uint32_t**>(words_smem_raw);
+  uint32_t* const smem =
+      reinterpret_cast<uint32_t*>(words_smem_raw + kHeadBytes);
+  float* const tg = reinterpret_cast<float*>(smem + 2 * nr);
+  float* const part = tg + kSaTail;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int g0 = static_cast<int>(blockIdx.x) / R * C;  // first chain
+  const int cv = min(C, chains - g0);  // chains of this group
+  // a disorder batch: the group's realization, its tables and seed, and
+  // its first chain's index inside the realization
+  int rc0 = g0;
+  if (d_chains) {
+    const int r = g0 / d_chains;
+    rc0 = g0 - r * d_chains;
+    nbr_J += static_cast<size_t>(r) * n * maxnb;
+    h += static_cast<size_t>(r) * n;
+    seed_term =
+        static_cast<uint32_t>(__ldg(seeds + r)) * kSeedMult + step_term;
+  }
+  const int* const slots = slot_site + static_cast<size_t>(rank) * nr;
+  if (static_cast<int>(threadIdx.x) < R)
+    peers[threadIdx.x] = static_cast<int>(threadIdx.x) == rank
+                             ? smem
+                             : cluster.map_shared_rank(smem, threadIdx.x);
+  // the group's (cv, n) floats; bit b of a word is chain g0 + b < 0
+  const size_t in0 = static_cast<size_t>(g0) * n;
+  for (int l = threadIdx.x; l < nr; l += blockDim.x) {
+    const int info = __ldg(slots + l);
+    uint32_t v = 0u;
+    if (info >= 0) {
+      const float* const x = s_in + in0 + (info & 0xffffff);
+      for (int b = 0; b < cv; ++b)
+        v |= static_cast<uint32_t>(x[static_cast<size_t>(b) * n] < 0.0f)
+             << b;
+    }
+    smem[l] = v;
+    smem[nr + l] = v;
+  }
+  const float* const tcol = temps + static_cast<size_t>(g0) * stride_c;
+  if (kPerChain && static_cast<int>(threadIdx.x) < cv)
+    tg[threadIdx.x] = __ldg(tcol + threadIdx.x * stride_c);
+  cluster.sync();  // every CTA's words and `peers` are in place
+
+  const uint32_t N = static_cast<uint32_t>(n);
+  // uid = (chain0 + chain) N + perm[i]: the hash input uid * kGolden + ctr
+  // steps by N * kGolden from chain to chain
+  const uint32_t chain_step = N * kGolden;
+  const uint32_t uid_group = (chain0 + static_cast<uint32_t>(rc0)) * N;
+  int src = 0;
+  for (int t = 0; t < steps; ++t) {
+    if (kPerChain && t > 0 && stride_t != 0) {
+      // the last step ended at a cluster barrier: no thread still reads
+      if (static_cast<int>(threadIdx.x) < cv)
+        tg[threadIdx.x] = __ldg(tcol + static_cast<size_t>(t) * stride_t +
+                                threadIdx.x * stride_c);
+      __syncthreads();
+    }
+    const float temp = kPerChain ? 0.0f : __ldg(temps + t);
+    const uint32_t ctr = counter(seed_term, t, 0);
+    const size_t row = static_cast<size_t>(t / mcsteps);
+    const float* const jt = nbr_J + row * j_stride;
+    const float* const ht = h + row * h_stride;
+    for (int c = 0; c < ncolors; ++c) {
+      const int dst = nr - src;
+      const int lo = __ldg(slot_starts + c), hi = __ldg(slot_starts + c + 1);
+      for (int l = threadIdx.x; l < nr; l += blockDim.x)
+        if (l < lo || l >= hi) smem[dst + l] = smem[src + l];
+      for (int l = lo + threadIdx.x; l < hi; l += blockDim.x) {
+        const int info = __ldg(slots + l);
+        if (info < 0) continue;
+        const int i = info & 0xffffff;
+        Nbrs nb;
+        nb.load(nbr_loc, jt, ht, i, maxnb);
+        load_words(nb, peers, src, nr, 0);
+        const uint32_t word = smem[src + l];
+        uint32_t x =
+            (uid_group + static_cast<uint32_t>(__ldg(perm + i))) * kGolden +
+            ctr;
+        uint32_t flips = 0u;
+        for (int b = 0; b < cv; ++b, x += chain_step) {
+          // the threshold -T log1p(-u) first: it needs no neighbour, so
+          // its hash and logarithm run while the words are in flight
+          // (metropolis_accept_hashed's decision, term by term)
+          const float tb = kPerChain ? tg[b] : temp;
+          const float th = __fmul_rn(-tb, log1pf(-uniform24(mix32(x))));
+          const float f = field_bit(nb, peers, src, nr, 0, b);
+          const float de = __fmul_rn(__fmul_rn(-2.0f, spin_of(word, b)), f);
+          if ((de <= 0.0f * tb) | (th > de)) flips |= 1u << b;
+        }
+        smem[dst + l] = word ^ flips;
+      }
+      cluster.sync();  // the next phase reads this one's writes
+      src = dst;
+    }
+
+    if (energies != nullptr) {
+      const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+      for (int b = threadIdx.x >> 5; b < cv; b += warps) {
+        float acc = 0.0f;
+        for (int l = lane; l < nr; l += 32) {
+          const int info = __ldg(slots + l);
+          if (info < 0) continue;
+          Nbrs nb;
+          nb.load(nbr_loc, jt, ht, info & 0xffffff, maxnb);
+          load_words(nb, peers, src, nr, 0);
+          acc += spin_of(smem[src + l], b) *
+                 (0.5f * slot_sum_bit(nb, peers, src, nr, 0, b) + nb.h);
+        }
+        for (int off = 16; off > 0; off >>= 1)
+          acc += __shfl_down_sync(0xffffffffu, acc, off);
+        if (lane == 0) part[b] = acc;
+      }
+      cluster.sync();  // every CTA's shares are in place
+      if (rank == 0 && static_cast<int>(threadIdx.x) < cv) {
+        float e = 0.0f;
+        for (int r = 0; r < R; ++r)
+          e += reinterpret_cast<const float*>(peers[r] + 2 * nr +
+                                              kSaTail)[threadIdx.x];
+        energies[static_cast<size_t>(t) * chains + g0 + threadIdx.x] = e;
+      }
+    }
+  }
+
+  for (int l = threadIdx.x; l < nr; l += blockDim.x) {
+    const int info = __ldg(slots + l);
+    if (info < 0) continue;
+    const uint32_t w = smem[src + l];
+    float* const x = s_out + in0 + (info & 0xffffff);
+    for (int b = 0; b < cv; ++b) x[static_cast<size_t>(b) * n] = spin_of(w, b);
+  }
+  cluster.sync();  // no CTA leaves while another may read its words
+}
+
+// Shared memory of one SA-mode CTA, all of it dynamic: the head, both
+// buffers of its nr slots' words, the group's temperatures and, with
+// energies, its shares (ops/generic_kernels.py::sa_words_smem_bytes)
+inline size_t sa_words_smem_bytes(int nr, bool energies) {
+  return kHeadBytes + 2 * static_cast<size_t>(nr) * sizeof(uint32_t) +
+         (energies ? 2 : 1) * kSaTail * sizeof(float);
 }
 
 }  // namespace gw

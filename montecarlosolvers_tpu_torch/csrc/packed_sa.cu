@@ -1,5 +1,14 @@
 // Generic SA: class-major Metropolis sweeps of an IsingProblem graph, the
-// whole schedule in one launch.
+// whole schedule in one launch, on one of two hand-written kernels chosen
+// by shape alone (ops/generic_kernels.py::packed_sa_geometry):
+// - the cluster route, packed_sa_words_anneal below: a group of up to 32
+//   chains as the bits of each site's word, over a thread-block cluster,
+//   the SA mode of csrc/generic_words.cuh (LAUNCHES["packed_sa"],
+//   ["packed_sa_noisy"], ["packed_sa_chain"]);
+// - the first kernel of this file, packed_sa_anneal, kept as it was for a
+//   graph whose words no 16-CTA cluster holds or that has more than 127
+//   classes (the "_wide" launch keys).
+// Both give the same spins bitwise; neither is a fallback from the other.
 //
 // Replaces no TPU kernel: the JAX package runs this path as an XLA scan,
 // montecarlosolvers_tpu/ops/packed.py::packed_sweep_scan (:282), whose
@@ -18,8 +27,8 @@
 // energy after step t is reduced inside the kernel into energies[t, chain]
 // (packed.cuh::packed_block_energy): no launch a step.
 //
-// Noisy anneals (per-step couplings, sa.anneal_noisy). The same kernel
-// reads the tables of step t at nbr_J + (t / mcsteps) * j_stride and h +
+// Noisy anneals (per-step couplings, sa.anneal_noisy). The same kernels
+// read the tables of step t at nbr_J + (t / mcsteps) * j_stride and h +
 // (t / mcsteps) * h_stride: strides 0 give the static tables, strides N *
 // maxnb and N a (rows, N, maxnb) and (rows, N) stack in packed row order,
 // each row held for `mcsteps` sweeps. That is the JAX package's
@@ -33,14 +42,14 @@
 // couplings, the hash (about 19 integer operations), log1pf and a few
 // float operations. At the main path's 1280 chains of the 80x80 torus
 // (maxnb 5) the state is 33 MB, which stays in the 50 MB L2; the table,
-// 6400 x 5 x 8 B, is shared by every chain. The gathers make it an
-// L2-latency- and issue-bound kernel, far from the 3.35 TB/s bound of its
-// bytes.
-//
-// What the design does about that, simply (a first kernel): one CTA of 256
-// threads a chain, its threads striding over a block, the state in device
-// memory (any N, any color count, any maxnb with one design), a
-// __syncthreads() between blocks since only this CTA touches the chain.
+// 6400 x 5 x 8 B, is shared by every chain. The first kernel (one CTA of
+// 256 threads a chain, the state in device memory, a __syncthreads()
+// between blocks) gathers a neighbour's float, its index and its coupling
+// from L1/L2 for every update, slot after slot: L2-latency- and
+// issue-bound, 31x its bound at 1280 chains, and at the PIQMC pre-anneal's
+// 8-32 chains only 8-32 SMs work. The cluster route loads a site's slots
+// once for up to 32 chains and keeps the state in shared memory
+// (generic_words.cuh).
 //
 // Disorder batches (parallel/disorder.py::vmap_disorder of sa.anneal). A
 // launch of D x C chains with d_chains = C anneals D coupling realizations
@@ -51,7 +60,7 @@
 // tables with its seed bitwise. That is the JAX package's vmap of the
 // masked sweep over the stacked couplings (parallel/disorder.py:68). The
 // per-step tables of the noisy anneal and the disorder stride would both
-// move the same pointers: the entry point refuses the two together, as the
+// move the same pointers: the entry points refuse the two together, as the
 // JAX package has no noisy disorder batch. d_chains = 0 (one seed) is
 // today's launch.
 //
@@ -60,15 +69,17 @@
 // step; the shared instantiation reads temps[t]. A packing that is not
 // proper (the checkerboard of an odd periodic lattice, whose wrap pairs
 // share a class: ops/packed.py::packed_from_lattice, which the samplers
-// sweep) takes kImproper: each phase copies its block into the scratch
-// `snap` first and reads same-class neighbours there, as they stood before
-// the phase, as the plain version's block fields read them.
+// sweep) takes kImproper in the first kernel: each phase copies its block
+// into the scratch `snap` first and reads same-class neighbours there, as
+// they stood before the phase, as the plain version's block fields read
+// them; the cluster route's ping-pong buffers give the same reads.
 // No fast math; the rounding is the plain version's (packed.cuh).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "counter_hash.cuh"
 #include "energy.cuh"
+#include "generic_words.cuh"
 #include "packed.cuh"
 
 namespace {
@@ -147,10 +158,11 @@ packed_sa_kernel(const int* __restrict__ nbr_idx,
 
 }  // namespace
 
-// Anneal `chains` chains of n packed spins `s` (chains, n) in place over
-// the (steps,) temperatures, one CTA of `threads` (256) threads a chain, in
-// one launch (stride_c != 0: the temperature of chain c at step t is
-// temps[t * stride_t + c * stride_c]). nbr_idx / nbr_J (n, maxnb), h (n),
+// The first kernel (the "_wide" route): anneal `chains` chains of n packed
+// spins `s` (chains, n) in place over the (steps,) temperatures, one CTA of
+// `threads` (256) threads a chain, in one launch (stride_c != 0: the
+// temperature of chain c at step t is temps[t * stride_t + c *
+// stride_c]). nbr_idx / nbr_J (n, maxnb), h (n),
 // perm (n) and starts (ncolors + 1) are the packed layout's; snap: scratch
 // of the state's size for a packing that is not proper, else null;
 // energies: a (steps, chains) float32 buffer or null; j_stride, h_stride
@@ -196,6 +208,63 @@ extern "C" int packed_sa_anneal(const int* nbr_idx, const float* nbr_J,
       ncolors, steps, seed_term, j_stride, h_stride, mcsteps, stride_t,
       stride_c, static_cast<uint32_t>(chain0), d_chains, seeds, step_term);
   return cudaGetLastError();
+}
+
+namespace {
+
+// the cluster route's instantiations: [per chain]
+using SaWordsKernel = decltype(&mcs::gw::packed_sa_words_kernel<false>);
+const SaWordsKernel kSaWordsKernels[2] = {
+    mcs::gw::packed_sa_words_kernel<false>,
+    mcs::gw::packed_sa_words_kernel<true>};
+
+}  // namespace
+
+// The cluster route (csrc/generic_words.cuh, the SA mode): anneal `chains`
+// chains of n packed spins s_in (chains, n) into s_out over the (steps,)
+// temperatures, groups of C chains as the bits of each site's word, each
+// group over a cluster of R CTAs of `threads` threads, nr slots a CTA
+// (slot_site (R * nr,), slot_starts (ncolors + 1,) and nbr_loc (n, maxnb)
+// of ops/generic_kernels.py::word_layout), in one launch; the kernel packs
+// the floats as it loads them and writes floats back (s_in may be s_out).
+// The other arguments are packed_sa_anneal's; C divides d_chains.
+extern "C" int packed_sa_words_anneal(
+    const int* slot_site, const int* slot_starts, const int* nbr_loc,
+    const float* nbr_J, const float* h, const int* perm, const float* temps,
+    const float* s_in, float* s_out, float* energies, int chains, int C,
+    int n, int maxnb, int ncolors, int R, int nr, int threads, int steps,
+    int seed, int step0, int j_stride, int h_stride, int mcsteps,
+    int stride_t, int stride_c, int chain0, int d_chains, const int* seeds,
+    void* stream) {
+  if (chains == 0 || n == 0) return cudaSuccess;
+  if (C < 1 || C > 32 || R < 1 || R > 16 || threads < 32 ||
+      threads > mcs::gw::kSaThreads || threads % 32 || mcsteps < 1 ||
+      d_chains < 0 ||
+      (d_chains && (seeds == nullptr || chains % d_chains || d_chains % C ||
+                    j_stride || h_stride))) {
+    return cudaErrorInvalidValue;
+  }
+  const uint32_t step_term = static_cast<uint32_t>(step0) * mcs::kStepMult;
+  const uint32_t seed_term =
+      static_cast<uint32_t>(seed) * mcs::kSeedMult + step_term;
+  return mcs::gw::launch_words(
+      kSaWordsKernels[stride_c != 0], (chains + C - 1) / C, R, threads,
+      mcs::gw::sa_words_smem_bytes(nr, energies != nullptr),
+      static_cast<cudaStream_t>(stream), slot_site, slot_starts, nbr_loc,
+      nbr_J, h, perm, temps, s_in, s_out, energies, chains, C, n, maxnb,
+      ncolors, R, nr, steps, seed_term, step_term, j_stride, h_stride,
+      mcsteps, stride_t, stride_c, static_cast<uint32_t>(chain0), d_chains,
+      seeds);
+}
+
+// How many clusters of R CTAs of `threads` threads and `smem` bytes of the
+// cluster route (per_chain: its per-chain instantiation) the card holds at
+// once, into *out (cudaOccupancyMaxActiveClusters)
+extern "C" int packed_sa_words_max_active_clusters(int R, int threads,
+                                                   int smem, int per_chain,
+                                                   int* out) {
+  return mcs::max_active_clusters(kSaWordsKernels[per_chain != 0], R,
+                                  threads, static_cast<size_t>(smem), out);
 }
 
 extern "C" const char* packed_sa_anneal_error_string(int code) {

@@ -212,6 +212,15 @@ SIGNATURES = {
         # (the chains a realization of a disorder batch, 0 for none), seeds
         # (the batch's (D,) int32 hash seeds, or null), stream
         "packed_sa_anneal": (_I, [_P] * 9 + [_I] * 15 + [_P] * 2),
+        # the cluster route (csrc/generic_words.cuh, the SA mode):
+        # slot_site, slot_starts, nbr_loc, nbr_J, h, perm, temps, s in, s
+        # out (floats, packed into words in the kernel), energies, chains,
+        # C (chains a word), n, maxnb, ncolors, R, nr, threads, steps,
+        # seed, step0, j_stride, h_stride, mcsteps, stride_t, stride_c,
+        # chain0, d_chains, seeds, stream
+        "packed_sa_words_anneal": (_I, [_P] * 10 + [_I] * 18 + [_P] * 2),
+        # R, threads, smem, per_chain, out: clusters resident at once
+        "packed_sa_words_max_active_clusters": (_I, [_I] * 4 + [_IP]),
         "packed_sa_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "packed_svmc": {
@@ -279,10 +288,11 @@ SIGNATURES = {
         "generic_qmc_bath_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "dense_sa": {
-        # J, fb, temps, s (in place), chains, np, start, B, row (of the
+        # J, pb (the block's products), h (added to them in the kernel),
+        # temps, s (in place), chains, np, start, B, row (of the
         # temperature table), step (of the hash), seed, warps, stride_t,
         # stride_c, chain0, stream
-        "dense_sa_block": (_I, [_P] * 4 + [_I] * 11 + [_P]),
+        "dense_sa_block": (_I, [_P] * 5 + [_I] * 11 + [_P]),
         "dense_sa_block_error_string": (ctypes.c_char_p, [_I]),
     },
     "fk_wolff": {
@@ -403,6 +413,11 @@ LAUNCHES.update({"packed_sa": 0, "packed_svmc": 0, "generic_qmc": 0,
 # (the per-chain PIQMC instantiation's under "generic_qmc_chain_wide").
 LAUNCHES.update({"generic_qmc_wide": 0, "generic_qmc_bath_wide": 0,
                  "generic_qmc_chain_wide": 0})
+# Generic SA likewise: groups of chains as bits over a cluster under
+# "packed_sa", "packed_sa_noisy" and "packed_sa_chain", and the file's first
+# kernel, one CTA a chain, under "<key>_wide".
+LAUNCHES.update({"packed_sa_wide": 0, "packed_sa_noisy_wide": 0,
+                 "packed_sa_chain_wide": 0})
 # The noisy anneals (per-step coupling tables) run the packed SA and SVMC
 # kernels, one launch an anneal, counted apart; the dense engine launches
 # its in-block kernel once a block and sweep.

@@ -5,10 +5,10 @@ plain version, the anneals on the counter hash, and the problem-level
 No Pallas kernel covers this path: the JAX package runs it as XLA,
 `ops/dense_sweep.py::dense_anneal` (:132-161) over `dense_metropolis_sweep`
 (:45), whose sequential part is a `lax.fori_loop` of B micro-steps a
-block. The port keeps the block fields a `torch.matmul` and gives the
-micro-steps a hand-written CUDA kernel, `csrc/dense_sa.cu`: one launch a
-block, one warp a chain, the block's B x B diagonal tile of J in shared
-memory.
+block. The port keeps the block products a `torch.matmul` and gives the
+micro-steps, the add of the block's h included, a hand-written CUDA
+kernel, `csrc/dense_sa.cu`: one launch a block, one warp a chain, the
+block's B x B diagonal tile of J in shared memory.
 
 Uniforms come from the counter hash (`ops/counter_rng.py`): sweep t draws
 u = uniform01(counter(seed, t, 0), chain * Np + p) at padded position p
@@ -38,8 +38,10 @@ from montecarlosolvers_tpu_torch.ops import dense_sweep as ds
 from montecarlosolvers_tpu_torch.ops.split_kernels import (energy_buffer,
                                                            with_energies)
 
-# csrc/dense_sa.cu: warps (chains) a CTA, and the largest block its tile
-# and registers take
+# csrc/dense_sa.cu: warps (chains) a CTA, 1 to 8 (its launch bound), and
+# the largest block its tile and registers take. Eight warps ran fastest at
+# 1024 and 64 chains, ahead of 4 and 16 and of two or four chains a warp
+# (PERF.md)
 WARPS, MAX_BLOCK = 8, 128
 # the counter index of the visit-order stream (the uniforms take index 0)
 PERM_INDEX = 1
@@ -63,30 +65,34 @@ def visit_order(seed, step, n, device):
     return torch.sort(keys, stable=True).indices
 
 
-def dense_sa_block_ref(s, fb, J, start, temps, step, seed, step0=0,
+def dense_sa_block_ref(s, fb, h, J, start, temps, step, seed, step0=0,
                        chain0=0):
     """Plain form of csrc/dense_sa.cu: the micro-steps of the block at
     `start` (`dense_sweep.block_steps`) on the uniforms of
     `block_uniforms` at sweep step0 + step, at temperature temps[step] (a
     (steps, chains) `temps` gives each chain its own), in place on padded
-    (chains, Np) spins `s`; fb (chains, B) the block's fields, J (Np, Np)
-    the padded couplings; chain0 the global index of the first chain (a
-    chain shard, whose uids count from it)."""
+    (chains, Np) spins `s`; fb (chains, B) the block's products
+    (`dense_sweep.block_product`), to which h[start:start+B] of the padded
+    fields `h` (Np,) is added; J (Np, Np) the padded couplings; chain0 the
+    global index of the first chain (a chain shard, whose uids count from
+    it)."""
     chains, np_ = s.shape
     u = block_uniforms(seed, step0 + step, chains, np_, start, fb.shape[1],
                        s.device, chain0)
-    return ds.block_steps(s, fb, J, start, u, temps[step])
+    return ds.block_steps(s, fb, h, J, start, u, temps[step])
 
 
-def dense_sa_block(s, fb, J, start, temps, step, seed, step0=0, chain0=0):
+def dense_sa_block(s, fb, h, J, start, temps, step, seed, step0=0,
+                   chain0=0):
     """csrc/dense_sa.cu on CUDA tensors, `dense_sa_block_ref` on CPU
     tensors; arguments as for the plain version (s updated in place, B =
-    fb.shape[1] <= MAX_BLOCK on the card). One launch
-    (LAUNCHES["dense_sa"]; with a (steps, chains) `temps`, the per-chain
-    instantiation, LAUNCHES["dense_sa_chain"])."""
+    fb.shape[1] <= MAX_BLOCK on the card; the kernel adds h itself), one
+    warp a chain in CTAs of WARPS warps. One launch (LAUNCHES["dense_sa"];
+    with a (steps, chains) `temps`, the per-chain instantiation,
+    LAUNCHES["dense_sa_chain"])."""
     if _build.route(s.device, "dense") == "cpu":
-        return dense_sa_block_ref(s, fb, J, start, temps, step, seed, step0,
-                                  chain0)
+        return dense_sa_block_ref(s, fb, h, J, start, temps, step, seed,
+                                  step0, chain0)
     chains, np_ = s.shape
     B = fb.shape[1]
     if not 0 < B <= MAX_BLOCK:
@@ -94,7 +100,8 @@ def dense_sa_block(s, fb, J, start, temps, step, seed, step0=0, chain0=0):
                          f"got {B}")
     dev = s.device
     _build.check_arg(s, "spins", (chains, np_), dev)
-    _build.check_arg(fb, "fields", (chains, B), dev)
+    _build.check_arg(fb, "products", (chains, B), dev)
+    _build.check_arg(h, "h", (np_,), dev)
     _build.check_arg(J, "J", (np_, np_), dev)
     strides = _build.schedule_strides(temps, "temps", temps.shape[0], chains,
                                       dev)
@@ -103,9 +110,10 @@ def dense_sa_block(s, fb, J, start, temps, step, seed, step0=0, chain0=0):
                          "range")
     lib = _build.library("dense_sa")
     rc = lib.dense_sa_block(
-        _build.ptr(J), _build.ptr(fb), _build.ptr(temps), _build.ptr(s),
-        chains, np_, start, B, step, step0 + step, cr.wrap_int32(seed),
-        WARPS, *strides, int(chain0), _build.stream_of(dev))
+        _build.ptr(J), _build.ptr(fb), _build.ptr(h),
+        _build.ptr(temps), _build.ptr(s), chains, np_, start, B, step,
+        step0 + step, cr.wrap_int32(seed), WARPS, *strides,
+        int(chain0), _build.stream_of(dev))
     _build.raise_on_error(lib, "dense_sa_block", rc)
     _build.LAUNCHES["dense_sa_chain" if strides[1] else "dense_sa"] += 1
     return s
@@ -129,8 +137,8 @@ def _anneal(dp, temps, spins, seed, block, shuffle, matmul_dtype, energies,
             Jp, hp, s = ds.padded(J[perm][:, perm], dp.h[perm],
                                   spins[:, perm], B)
         for start in range(0, Jp.shape[0], B):
-            fb = ds.block_fields(s, Jp, hp, start, B)
-            step_fn(s, fb, Jp, start, temps, t, seed, step0, chain0)
+            step_fn(s, ds.block_product(s, Jp, start, B), hp, Jp, start,
+                    temps, t, seed, step0, chain0)
         if shuffle:
             spins = torch.empty_like(spins)
             spins[:, perm] = s[:, :N]

@@ -7,7 +7,8 @@ problem the sweep keeps the sequential semantics and restructures the
 work:
 
   * the fields of a block of B spins are one (chains, N) x (N, B) matrix
-    product, `torch.matmul`, as the JAX package leaves its `jnp.dot` to XLA;
+    product, `torch.matmul`, as the JAX package leaves its `jnp.dot` to XLA,
+    plus the block's h, which the micro-steps add;
   * within the block the spins update one at a time, and each flip applies
     a rank-1 delayed update to the block's fields (f_k += (s' - s_i) J_ik),
     so the sweep is exactly sequential Metropolis in systematic-scan order;
@@ -17,8 +18,9 @@ work:
 Here are the plain versions: `dense_metropolis_sweep`, the JAX sweep with
 its uniforms and its visit order as arguments (a test feeds it the JAX
 sweep's own `jax.random` draws), and `block_steps`, the B micro-steps of
-one block. The CUDA kernel of the micro-steps (`csrc/dense_sa.cu`), its
-wrapper and the anneals on the counter hash are in `ops/dense_kernels.py`.
+one block from its products and h. The CUDA kernel of the micro-steps
+(`csrc/dense_sa.cu`), its wrapper and the anneals on the counter hash are
+in `ops/dense_kernels.py`.
 
 Two options, as in the JAX package: a visit order `perm` (shuffle=True
 there: J, h and s are permuted once up front, so the blocked products are
@@ -69,20 +71,23 @@ def padded(J, h, s, B):
     return J.contiguous(), h.contiguous(), s.contiguous()
 
 
-def block_fields(s, J, h, start, B):
-    """(C, B) fields s @ J[:, start:start+B] + h[start:start+B] of padded
-    (C, Np) spins: one `torch.matmul`, then the fields, in float32."""
-    return torch.matmul(s, J[:, start:start + B]) + h[start:start + B]
+def block_product(s, J, start, B):
+    """(C, B) products s @ J[:, start:start+B] of padded (C, Np) spins: one
+    `torch.matmul`, in float32."""
+    return torch.matmul(s, J[:, start:start + B])
 
 
-def block_steps(s, fb, J, start, u, temp):
+def block_steps(s, fb, h, J, start, u, temp):
     """The B sequential Metropolis micro-steps of the block at `start`, in
-    place on padded (C, Np) spins `s`: fb (C, B) the block's fields from
-    `block_fields`, u (C, B) one uniform a site, temp a float32 tensor.
-    Step j flips site i = start + j on dE = -2 s_i f_j and adds (s_i' -
-    s_i) J[i, block] to the fields: d in {0, +/-2} makes the product exact,
-    so no contraction can change the sum."""
+    place on padded (C, Np) spins `s`: fb (C, B) the block's products from
+    `block_product`, to which h[start:start+B] of the padded fields `h` is
+    added first (one float32 add: the bits of the JAX sweep's product plus
+    h); u (C, B) one uniform a site, temp a float32 tensor. Step j flips
+    site i = start + j on dE = -2 s_i f_j and adds (s_i' - s_i) J[i,
+    block] to the fields: d in {0, +/-2} makes the product exact, so no
+    contraction can change the sum."""
     B = fb.shape[1]
+    fb = fb + h[start:start + B]
     for j in range(B):
         i = start + j
         si = s[:, i]
@@ -113,8 +118,8 @@ def dense_metropolis_sweep(dp, s, u, temp, block=128, perm=None,
         J, h, s = J[perm][:, perm], h[perm], s[:, perm]
     J, h, s = padded(rounded(J, matmul_dtype), h, s.clone(), B)
     for start in range(0, J.shape[0], B):
-        fb = block_fields(s, J, h, start, B)
-        block_steps(s, fb, J, start, u[:, start:start + B], temp)
+        block_steps(s, block_product(s, J, start, B), h, J, start,
+                    u[:, start:start + B], temp)
     s = s[:, :N]
     if perm is not None:
         out = torch.empty_like(s)

@@ -14,13 +14,17 @@ solver's masked path (`ops/piqmc.py::dissipative_local_sweep` :110 and
 `dissipative_colored_sweep` :152) are `csrc/generic_qmc_bath.cu`, which
 also runs the bath on every lattice the split bath engines do not take (an
 odd L, or bath_update="colored" at odd P), on the lattice's checkerboard
-packing (`ops/packed.py::packed_from_lattice`). Packed SA and SVMC run one
-CTA of THREADS threads a chain, the state in device memory. Generic PIQMC
-and the generic bath run a chain's slices as bits of each site's words
-over a thread-block cluster (`csrc/generic_words.cuh`; R and the threads
-by `generic_qmc_geometry`, the slots by `word_layout`), or, for a chain
-no cluster holds, each file's first kernel, one CTA a chain, counted
-under "<key>_wide".
+packing (`ops/packed.py::packed_from_lattice`). Packed SVMC runs one CTA
+of THREADS threads a chain, the state in device memory. Generic PIQMC and
+the generic bath run a chain's slices as bits of each site's words over a
+thread-block cluster (`csrc/generic_words.cuh`; R and the threads by
+`generic_qmc_geometry`, the slots by `word_layout`), and packed SA a
+group of up to 32 chains as the bits of each site's word on the same
+layout (the header's SA mode; C, R and the threads by
+`packed_sa_geometry`), but on a graph of small class phases
+(`packed_sa_one_cta`) its file's first kernel, one CTA a chain, under the
+same keys; for a chain or group no cluster holds, each file's first
+kernel runs, one CTA a chain, counted under "<key>_wide".
 
 Beside each wrapper sits its plain version (`packed_sa_anneal_ref`,
 `packed_svmc_anneal_ref`, `generic_qmc_anneal_ref`,
@@ -40,8 +44,8 @@ the plain sweeps to them on the same `jax.random` draws.
 The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts one launch an anneal under "packed_sa",
-"packed_svmc", "generic_qmc" and "generic_qmc_bath" (and their "_wide"
-routes), and the noisy
+"packed_svmc", "generic_qmc" and "generic_qmc_bath" (and the "_wide"
+routes of packed SA, generic PIQMC and the bath), and the noisy
 anneals (`packed_noisy_scan`, `packed_noisy_svmc_scan`: per-step coupling
 tables, the same two kernels with table strides) under "packed_sa_noisy"
 and "packed_svmc_noisy". With an `energies`
@@ -68,6 +72,7 @@ from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
 from montecarlosolvers_tpu_torch.ops import svmc_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import sweep_scan
 from montecarlosolvers_tpu_torch.ops.split_kernels import (CLUSTER_SIZES,
+                                                           chain_word_bits,
                                                            energy_buffer,
                                                            step_values,
                                                            with_energies)
@@ -83,6 +88,15 @@ WORD_THREADS, NUM_SMS = 512, 132
 # kHeadBytes): 16 buffer pointers and a float for each of WORD_THREADS / 32
 # warps; the kernel has no static shared memory
 WORD_HEAD_BYTES = 16 * 8 + WORD_THREADS // 32 * 4
+# generic SA's cluster route (generic_words.cuh's SA mode): at most
+# SA_THREADS threads a CTA, compiled for SA_BLOCKS_PER_SM such CTAs an SM,
+# and SA_TAIL floats after its buffers for the group's temperatures (and
+# as many for its energy shares)
+SA_THREADS, SA_BLOCKS_PER_SM, SA_TAIL = 256, 4, 32
+# generic SA's rule of size: a graph of at most SA_CTA_PASSES passes of
+# the THREADS threads a class phase runs the file's first kernel, one CTA a
+# chain (`packed_sa_one_cta`)
+SA_CTA_PASSES = 5
 
 
 # ------------------------------------------------------------ plain versions
@@ -298,7 +312,118 @@ def word_threads(n, R, colors=1):
     return min(WORD_THREADS, -(-word_slots(n, R, colors) // 32) * 32)
 
 
-_LAYOUTS = {}
+def sa_words_smem_bytes(slots, energies=True):
+    """Shared memory of one CTA of generic SA's cluster route
+    (csrc/generic_words.cuh::sa_words_smem_bytes): the head, both buffers
+    of `slots` slots' one word, the group's SA_TAIL temperatures and, with
+    `energies`, as many energy shares."""
+    return (WORD_HEAD_BYTES + 2 * 4 * slots
+            + (2 if energies else 1) * 4 * SA_TAIL)
+
+
+def sa_word_threads(n, R, colors=1):
+    """Threads a CTA of generic SA's cluster route: one a slot, in whole
+    warps, at most SA_THREADS (a thread then takes several)."""
+    return min(SA_THREADS, -(-word_slots(n, R, colors) // 32) * 32)
+
+
+def packed_sa_geometry(chains, n, colors=1, sms=NUM_SMS, d_chains=0,
+                       resident=None):
+    """(C, R, threads) of generic SA's cluster route (csrc/generic_words.cuh,
+    the SA mode) for `chains` chains of an n-site graph of `colors` color
+    classes. C starts at kernel A's choice (`split_kernels.
+    chain_word_bits`: 32 chains a word while that leaves FILL_GROUPS
+    groups, else halved), halved until it divides `d_chains`, the chains a
+    realization of a disorder batch (0: none), so no group straddles two.
+    R is the largest of CLUSTER_SIZES (R <= n) whose CTA holds both
+    buffers of its slots' words (`sa_words_smem_bytes`, energies counted,
+    so the choice is the same with and without them) and whose groups all
+    run at once, C doubling (up to 32, and while it divides d_chains)
+    until they do: groups x R at most SA_BLOCKS_PER_SM x `sms` CTAs and,
+    with `resident(R, threads, smem)` (the wrapper passes the card's
+    cudaOccupancyMaxActiveClusters), at most the clusters the card holds;
+    if none is held whole, the smallest R that fits at kernel A's C. A
+    wider cluster puts fewer slots on each CTA, and a wider word spreads
+    a site's loads over more chains: on an H100 80GB HBM3 at 700 W
+    (PERF.md, 80x80 torus's generic form) 8 chains took (1, 16) 0.0042 ms
+    a sweep against (1, 8) 0.0058, and 32 chains (2, 16) 0.0051 against
+    (1, 8) 0.0068, the card holding fewer than 32 clusters of 16; 1280
+    chains keep (32, 8). `sa_word_threads` threads. None when no cluster
+    of 16 CTAs holds the words (with two classes, n above 463,984) or the
+    graph has more than 127 classes, whose class no slot code holds
+    (`word_layout`): the wrapper then runs the file's first kernel, one
+    CTA a chain (the "_wide" launch keys)."""
+    if colors > 127:
+        return None
+    C0 = chain_word_bits(chains)
+    while d_chains and d_chains % C0:
+        C0 //= 2
+    fits = [r for r in CLUSTER_SIZES
+            if r <= max(n, 1)
+            and sa_words_smem_bytes(word_slots(n, r, colors))
+            <= _build.SMEM_LIMIT_BYTES]
+    if not fits:
+        return None
+    for r in reversed(fits):
+        threads = sa_word_threads(n, r, colors)
+        smem = sa_words_smem_bytes(word_slots(n, r, colors))
+        C = C0
+        while True:
+            groups = -(-chains // C)
+            if groups * r <= SA_BLOCKS_PER_SM * sms and (
+                    resident is None or resident(r, threads, smem) >= groups):
+                return C, r, threads
+            if C >= min(32, chains) or (d_chains and d_chains % (2 * C)):
+                break
+            C *= 2
+    return C0, fits[0], sa_word_threads(n, fits[0], colors)
+
+
+def packed_sa_one_cta(n, colors=1):
+    """Whether generic SA on an n-site graph of `colors` classes runs the
+    file's first kernel, one CTA of THREADS threads a chain, rather than
+    the cluster route: where a class phase, ceil(n / colors) sites, takes
+    at most SA_CTA_PASSES passes of its threads (1280 sites). There a
+    cluster route's phase costs its barrier and one update's latency,
+    about 2 us, for little work, while the CTA's threads finish the class
+    in a few fast passes. On an H100 80GB HBM3 at 700 W (`tools/
+    time_kernels.py --packed-sa-crossover`, PERF.md), one CTA a chain
+    against the cluster route, ms a sweep: random_3d_lattice(12) (864
+    sites a class) at 8, 32, 128, 384, 1280 chains 0.0042, 0.0042, 0.0040,
+    0.0069, 0.0197 against 0.0040, 0.0042, 0.0053, 0.0094, 0.0169, ICM's
+    two-sweep call at 1536 chains 0.168 against 0.247 ms (the cluster
+    route packs and unpacks the state in each launch); chimera_graph(16)
+    (683) 0.0043-0.0229 against 0.0057-0.0239 at every count;
+    gaussian_torus(48) (1152) 0.0044, 0.0044, 0.0045, 0.0076, 0.0222
+    against 0.0040, 0.0043, 0.0055, 0.0101, 0.0204; gaussian_torus(56)
+    (1568) 0.0065 against 0.0040 at 8 chains and 0.0305 against 0.0278 at
+    1280 (0.0065 against 0.0072 at 128); 4096 sites 2.4-2.8x slower at 8
+    and 32 chains, 1.5-1.6x at 1280."""
+    return -(-n // max(colors, 1)) <= SA_CTA_PASSES * THREADS
+
+
+def card_packed_sa_geometry(pg, chains, d_chains, per_chain, device):
+    """`packed_sa_geometry` of `chains` chains of PackedGraph `pg` on the
+    CUDA card `device`: its SMs, and how many clusters of each shape the
+    card holds at once in the instantiation the wrapper launches
+    (`per_chain`: a temperature a chain). Cached per shape."""
+    def resident(R, threads, smem):
+        key = (str(device), R, threads, smem, per_chain)
+        if key not in _SA_RESIDENT:
+            lib = _build.library("packed_sa")
+            count = ctypes.c_int(0)
+            rc = lib.packed_sa_words_max_active_clusters(
+                R, threads, smem, int(per_chain), ctypes.byref(count))
+            _build.raise_on_error(lib, "packed_sa_words_max_active_clusters",
+                                  rc, error_fn="packed_sa_anneal_error_string")
+            _SA_RESIDENT[key] = count.value
+        return _SA_RESIDENT[key]
+    return packed_sa_geometry(chains, pg.nspins, pg.num_colors,
+                              sms=card_sms(device), d_chains=d_chains,
+                              resident=resident)
+
+
+_SA_RESIDENT, _LAYOUTS = {}, {}
 
 
 def word_layout(pg, R):
@@ -418,12 +543,22 @@ def _snap(pg, state):
 def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
                      step0=0, chain0=0, disorder=None):
     """csrc/packed_sa.cu on CUDA tensors, `packed_sa_anneal_ref` on CPU
-    tensors; arguments as for the plain version. Returns the new spins
-    (a copy: the kernel anneals it in place). One launch
-    (LAUNCHES["packed_sa"], energies or not, a disorder batch or not; with
-    `tables`, LAUNCHES["packed_sa_noisy"]; with a (steps, chains) `temps`,
-    the per-chain instantiation, LAUNCHES["packed_sa_chain"], whose table
-    may repeat one row: `_build.schedule_strides`)."""
+    tensors; arguments as for the plain version. Returns the new spins.
+
+    Two hand-written kernels share the work, chosen by shape alone, each
+    running the whole schedule in one launch: the cluster route
+    (csrc/generic_words.cuh, the SA mode: up to 32 chains as the bits of
+    each site's word) and the file's first kernel, one CTA a chain, the
+    state in device memory. A graph whose class phase is small
+    (`packed_sa_one_cta`) takes the first kernel; a larger one the cluster
+    route, where `packed_sa_geometry` finds a cluster that holds a group's
+    words. Both count under LAUNCHES["packed_sa"] (energies or not, a
+    disorder batch or not; with `tables`, LAUNCHES["packed_sa_noisy"];
+    with a (steps, chains) `temps`, the per-chain instantiation,
+    LAUNCHES["packed_sa_chain"], whose table may repeat one row:
+    `_build.schedule_strides`). A graph no cluster holds runs the first
+    kernel under the same keys + "_wide". Both kernels equal the plain
+    version bitwise; neither is a fallback from a failure of the other."""
     if _build.route(spins.device, "packed") == "cpu":
         return packed_sa_anneal_ref(pg, temps, spins, seed, energies, tables,
                                     step0, chain0, disorder)
@@ -440,21 +575,41 @@ def packed_sa_anneal(pg, temps, spins, seed, energies=None, tables=None,
     strides = _build.schedule_strides(temps, "temps", steps, chains, dev)
     if strides[1] and tables is not None:
         raise ValueError("the noisy anneal takes one shared schedule")
+    key = ("packed_sa_noisy" if tables is not None
+           else "packed_sa_chain" if strides[1] else "packed_sa")
+    lib = _build.library("packed_sa")
+    tail = (steps, cr.wrap_int32(seed), int(step0))
+    geometry = card_packed_sa_geometry(pg, chains, d_chains,
+                                       bool(strides[1]), dev)
+    one_cta = packed_sa_one_cta(n, pg.num_colors)
+    if geometry is not None and not one_cta:
+        C, R, threads = geometry
+        slot_site, slot_starts, nbr_loc, nr = word_layout(pg, R)
+        out = torch.empty_like(spins)
+        rc = lib.packed_sa_words_anneal(
+            *map(_build.ptr, (slot_site, slot_starts, nbr_loc)), graph[1],
+            graph[2], graph[3], _build.ptr(temps), _build.ptr(spins),
+            _build.ptr(out),
+            _build.energies_ptr(energies, steps, chains, dev), chains, C, n,
+            pg.nbr_idx.shape[1], pg.num_colors, R, nr, threads, *tail,
+            j_stride, h_stride, mcsteps, *strides, int(chain0), d_chains,
+            None if seeds is None else _build.ptr(seeds),
+            _build.stream_of(dev))
+        _build.raise_on_error(lib, "packed_sa_words_anneal", rc,
+                              error_fn="packed_sa_anneal_error_string")
+        _build.LAUNCHES[key] += 1
+        return out
     out = spins.clone()
     snap = _snap(pg, out)
-    lib = _build.library("packed_sa")
     rc = lib.packed_sa_anneal(
         *graph, _build.ptr(temps), _build.ptr(out),
         None if snap is None else _build.ptr(snap),
         _build.energies_ptr(energies, steps, chains, dev), chains, n,
-        pg.nbr_idx.shape[1], pg.num_colors, steps, cr.wrap_int32(seed),
-        int(step0), THREADS, j_stride, h_stride, mcsteps, *strides,
-        int(chain0), d_chains, None if seeds is None else _build.ptr(seeds),
-        _build.stream_of(dev))
+        pg.nbr_idx.shape[1], pg.num_colors, *tail, THREADS, j_stride,
+        h_stride, mcsteps, *strides, int(chain0), d_chains,
+        None if seeds is None else _build.ptr(seeds), _build.stream_of(dev))
     _build.raise_on_error(lib, "packed_sa_anneal", rc)
-    _build.LAUNCHES["packed_sa_noisy" if tables is not None
-                    else "packed_sa_chain" if strides[1]
-                    else "packed_sa"] += 1
+    _build.LAUNCHES[key if geometry is not None else key + "_wide"] += 1
     return out
 
 

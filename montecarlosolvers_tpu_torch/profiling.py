@@ -15,9 +15,11 @@ the caching allocator is warm. The dissipative paths run through
 `solvers/dissipative.py::dissipative_qa`: kernel 5 on the lattice, its
 colored template, and the generic bath kernel on the odd torus and on the
 80x80 torus's generic form, sequential and colored (tau = 200, as
-chip_smoke.py runs them); generic PIQMC runs solve("piqmc") at P = 40 on
-that generic form and at P = 20 on chimera_graph(16, rng=0), 32 reads,
-1000 sweeps. The
+chip_smoke.py runs them), and sequential on chimera_graph(16, rng=0) at
+P = 20; generic PIQMC runs solve("piqmc") at P = 40 on that generic form
+and at P = 20 on chimera_graph(16, rng=0), 32 reads, 1000 sweeps, and
+generic SA solve("sa") on random_3d_lattice(16, rng=0), 1280 reads, 2000
+sweeps. The
 dense engine runs solve("sa") on sk_model(2048, rng=0) at 1024 reads, 1000
 sweeps; the noisy anneals run sa.anneal_noisy (1280 chains) and
 svmc.anneal_noisy (256 chains, TF) over 1000 steps of per-step tables
@@ -139,6 +141,7 @@ def main(argv=None):
     odd_name = "gaussian_torus(81, seed=0)"
     generic_name = "gaussian_torus(80, seed=0), generic"
     generic = instances.gaussian_torus(80, seed=0, device=dev).to_generic()
+    chimera = instances.chimera_graph(16, rng=0, device=dev)[0]
     runs = (
         ("sa", lattice, partial(solve, problem, seed=1, **sa_kw)),
         ("piqmc_p40", lattice,
@@ -169,8 +172,12 @@ def main(argv=None):
          partial(solve, problem.to_generic(), seed=1, slices=40,
                  **qmc_kw)),
         ("piqmc_chimera", "chimera_graph(16, rng=0)",
-         partial(solve, instances.chimera_graph(16, rng=0, device=dev)[0],
-                 seed=1, slices=20, **qmc_kw)),
+         partial(solve, chimera, seed=1, slices=20, **qmc_kw)),
+        ("piqmc_bath_chimera_p20", "chimera_graph(16, rng=0)",
+         partial(dissipative_qa, chimera, 32, 200, 20, 1e-2, seed=1)),
+        ("sa_3d", "random_3d_lattice(16, rng=0)",
+         partial(solve, instances.random_3d_lattice(16, rng=0, device=dev)[0],
+                 seed=1, **sa_kw)),
         ("sa_dense", "sk_model(2048, rng=0)",
          partial(solve, instances.sk_model(2048, rng=0, device=dev)[0],
                  method="sa", num_reads=1024, sweeps=1000, seed=1)),

@@ -193,6 +193,56 @@ def test_sweep_on_gaussian_couplings_mismatches_no_spin(N, block, shuffle):
     assert (want != s).any()
 
 
+@pytest.mark.parametrize("N,block,shuffle", [(40, 16, False), (37, 8, True),
+                                             (130, 128, False),
+                                             (23, 7, False)])
+def test_sweep_with_fields_equals_jax(N, block, shuffle):
+    """The plain sweep adds each block's h inside its micro-steps (one
+    float32 add to the block's products, as csrc/dense_sa.cu adds it) and
+    still equals the JAX sweep, whose fields are the product plus h, on
+    the JAX sweep's own draws: spins bitwise, with Gaussian couplings and
+    fields."""
+    rng = np.random.default_rng(N + block)
+    J = rng.normal(size=(N, N)) / np.sqrt(N)
+    port, jdp = both(J, rng.normal(size=N))
+    assert bool(port.h.abs().min() > 0)
+    s = spins((5, N), N)
+    key = jax.random.key(N)
+    u, perm = jax_sweep_inputs(key, 5, N, block, shuffle)
+    want = np.asarray(jds.dense_metropolis_sweep(
+        jdp, jnp.asarray(s), key, np.float32(0.8), block=block,
+        shuffle=shuffle))
+    got = ds.dense_metropolis_sweep(
+        port, torch.as_tensor(s), torch.as_tensor(u), t32(0.8), block=block,
+        perm=perm).numpy()
+    assert np.array_equal(got, want)
+    assert (want != s).any()
+
+
+@pytest.mark.parametrize("B,start", [(8, 8), (7, 14), (16, 0)])
+def test_block_steps_add_h_to_the_products(B, start):
+    """dense_sa_block_ref on a block's products and h equals it on the
+    block's whole fields (the products plus h) with a zero h bitwise, and
+    differs from the products alone: the add is the one float32 add of the
+    fields."""
+    rng = np.random.default_rng(B)
+    N = 24 if B != 7 else 21
+    dp = DenseProblem.from_couplings(rng.normal(size=(N, N)),
+                                     rng.normal(size=N), device="cpu")
+    s = torch.as_tensor(spins((6, N), B))
+    temps = tsched.linear(2.0, 0.3, 3, device="cpu")
+    Jp, hp, sp = ds.padded(dp.J, dp.h, s, B)
+    prod = ds.block_product(sp, Jp, start, B)
+    zero = torch.zeros_like(hp)
+    got = dk.dense_sa_block(sp.clone(), prod, hp, Jp, start, temps, 1, 4)
+    whole = dk.dense_sa_block_ref(sp.clone(), prod + hp[start:start + B],
+                                  zero, Jp, start, temps, 1, 4)
+    bare = dk.dense_sa_block_ref(sp.clone(), prod, zero, Jp, start, temps,
+                                 1, 4)
+    assert torch.equal(got, whole)
+    assert not torch.equal(got, bare)
+
+
 def test_bf16_sweep_equals_jax_and_float32_on_pm1_couplings():
     """tests/test_dense.py:180: +/-1 couplings are exact in bfloat16, so
     the bf16 sweep is float32's bitwise, in both packages; and the port's
@@ -368,4 +418,5 @@ def test_dense_refusals():
     with pytest.raises(ValueError, match="problem on cpu"):
         dk.dense_anneal(sk, sched, s.to("meta"), 0)
     with pytest.raises(ValueError, match="no dense engine"):
-        dk.dense_sa_block(s.to("meta"), s.to("meta"), sk.J, 0, sched, 0, 0)
+        dk.dense_sa_block(s.to("meta"), s.to("meta"), sk.h, sk.J, 0, sched,
+                          0, 0)

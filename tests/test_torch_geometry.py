@@ -562,3 +562,96 @@ def test_label_geometry_shared_memory_limit(chains, P, asym, n_last):
         _build.SMEM_LIMIT_BYTES
     assert ck.label_smem_bytes(P, n_last + 1, R, asym, on_chip=False) == \
         ck.LABEL_HEAD_BYTES + 8 * P
+
+
+# Generic SA's cluster route (generic_words.cuh's SA mode): (chains, n,
+# colors, d_chains) -> (C, R, threads, shared bytes a CTA). C from kernel
+# A's rule, halved until it divides d_chains; R the largest of
+# CLUSTER_SIZES whose groups all fit SA_BLOCKS_PER_SM CTAs on each of the
+# 132 SMs (528), C doubling (while it divides d_chains) until they do: 40
+# groups of 32 at 1280 chains take R = 8, 32 or 8 single chains R = 16,
+# 160 chains 8 a word at R = 16; 40 chains a realization leave 8 a word
+# and 160 groups, R = 2
+@pytest.mark.parametrize("chains,n,colors,d_chains,C,R,threads,smem", [
+    (8, 6400, 2, 0, 1, 16, 256, 192 + 8 * 401 + 256),
+    (32, 6400, 2, 0, 1, 16, 256, 192 + 8 * 401 + 256),
+    (33, 6400, 2, 0, 1, 16, 256, 192 + 8 * 401 + 256),
+    (160, 6400, 2, 0, 8, 16, 256, 192 + 8 * 401 + 256),
+    (384, 6400, 2, 0, 16, 16, 256, 192 + 8 * 401 + 256),
+    (1280, 6400, 2, 0, 32, 8, 256, 192 + 8 * 801 + 256),
+    (1280, 6400, 2, 160, 32, 8, 256, 192 + 8 * 801 + 256),
+    (1280, 6400, 2, 40, 8, 2, 256, 192 + 8 * 3201 + 256),
+    (160, 6400, 2, 20, 4, 8, 256, 192 + 8 * 801 + 256),
+    (1280, 6561, 4, 0, 32, 8, 256, 192 + 8 * 824 + 256),
+    (64, 100, 2, 0, 2, 16, 32, 192 + 8 * 8 + 256),
+])
+def test_packed_sa_geometry(chains, n, colors, d_chains, C, R, threads,
+                            smem):
+    assert gk.packed_sa_geometry(chains, n, colors, d_chains=d_chains) == (
+        C, R, threads)
+    assert gk.sa_words_smem_bytes(gk.word_slots(n, R, colors)) == smem
+    assert -(-chains // C) * R <= gk.SA_BLOCKS_PER_SM * gk.NUM_SMS
+    if d_chains:
+        assert d_chains % C == 0
+
+
+def test_packed_sa_geometry_takes_what_the_card_holds():
+    """With the card's count of resident clusters, C doubles and then R
+    goes down until every group runs at once; if none is held whole, the
+    smallest R that fits."""
+    def resident(R, threads, smem):
+        assert threads % 32 == 0 and threads <= gk.SA_THREADS
+        assert smem <= _build.SMEM_LIMIT_BYTES
+        return 7 * (16 * 4 // R) if R > 4 else 528 // R
+
+    assert gk.packed_sa_geometry(8, 6400, 2, resident=resident) == (
+        1, 16, 256)
+    assert gk.packed_sa_geometry(32, 6400, 2, resident=resident) == (
+        2, 16, 256)
+    assert gk.packed_sa_geometry(3000, 6400, 2, resident=resident) == (
+        32, 4, 256)
+    assert gk.packed_sa_geometry(1280, 6400, 2,
+                                 resident=lambda *a: 0) == (32, 1, 256)
+
+
+def test_packed_sa_geometry_limit():
+    """The first shapes the cluster route leaves to the first kernel: with
+    two classes a ring of 463,985 sites (the slots of one of 16 CTAs no
+    longer fit 227 KB beside the head and the tail), and any graph of more
+    than 127 classes."""
+    assert gk.packed_sa_geometry(1, 463984, 2) == (1, 16, 256)
+    assert gk.sa_words_smem_bytes(gk.word_slots(463984, 16, 2)) == \
+        _build.SMEM_LIMIT_BYTES
+    assert gk.packed_sa_geometry(1, 463985, 2) is None
+    assert gk.packed_sa_geometry(1280, 463985, 2) is None
+    assert gk.packed_sa_geometry(8, 130, 127) is not None
+    assert gk.packed_sa_geometry(8, 130, 128) is None
+
+
+def test_sa_words_constants_match_the_header():
+    """SA_THREADS, SA_BLOCKS_PER_SM and SA_TAIL are the header's."""
+    import pathlib
+    import re
+    src = (pathlib.Path(gk.__file__).parent.parent / "csrc"
+           / "generic_words.cuh").read_text()
+    for name, value in (("kSaThreads", gk.SA_THREADS),
+                        ("kSaMinBlocks", gk.SA_BLOCKS_PER_SM),
+                        ("kSaTail", gk.SA_TAIL)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) \
+            == str(value)
+
+
+# Generic SA's rule of size: (n, colors) -> one CTA a chain. A class phase
+# of at most SA_CTA_PASSES passes of THREADS threads (1280 sites) takes the
+# file's first kernel: random_3d_lattice(12) (864 sites a class),
+# chimera_graph(16) (2048 sites, three classes), the 48 x 48 torus (1152),
+# not the 56 x 56 torus (1568), random_3d_lattice(16) or the 80 x 80 torus
+@pytest.mark.parametrize("n,colors,one_cta", [
+    (1728, 2, True), (2048, 3, True), (2304, 2, True), (2560, 2, True),
+    (2561, 2, False), (3136, 2, False), (4096, 2, False), (6400, 2, False),
+    (6561, 2, False), (16, 2, True), (130, 130, True), (1280, 1, True),
+    (1281, 1, False),
+])
+def test_packed_sa_one_cta(n, colors, one_cta):
+    assert gk.packed_sa_one_cta(n, colors) is one_cta
+    assert gk.SA_CTA_PASSES * gk.THREADS == 1280

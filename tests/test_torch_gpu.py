@@ -72,6 +72,14 @@ routes, the cluster route and the "_wide" first kernels (forced), on a
 small chimera and the 9 x 9 odd torus's improper checkerboard; fk_line
 past P = 64 (rows of several words in shared memory, P = 65 to 200) and
 fk_label on a bath table not symmetric in ring distance equal theirs.
+Generic SA equals its plain version on both routes, the cluster route
+(chains as the bits of a word over a cluster of CTAs) and the first
+kernel ("_wide", forced, and by shape on a graph of 130 classes), at 1 to
+1280 chains, on the odd torus's improper checkerboard, with energies,
+temperatures a chain, per-step tables, a disorder batch, chain0 and
+one-step launches, and at the last ring the cluster route holds; the
+dense in-block kernel equals its plain version at 1 to 16 warps a CTA,
+blocks of 7 to 128, h added in the kernel or given in the fields.
 """
 
 import contextlib
@@ -2532,3 +2540,251 @@ def test_one_rank_mesh_runs_the_cluster_solvers_and_disorder(cuda):
     got = multihost.run_disorder_sharded(
         sa.anneal, probs, sched, states, [g(), g()], multihost.dcn_mesh())
     assert torch.equal(want, pmesh.full_tensor(got))
+
+
+# ---- generic SA over a thread-block cluster, the dense kernel redesigned
+
+
+def _sa_problem(name, dev):
+    """Generic SA's problems: the generic graphs, a lattice's checkerboard
+    packing (the odd torus's is not a proper coloring) and a complete graph
+    of 130 sites, whose 130 classes no slot code holds."""
+    if name == "complete130":
+        rows, cols = np.triu_indices(130, k=1)
+        vals = np.random.default_rng(3).standard_normal(rows.size)
+        return IsingProblem.from_edges(130, rows, cols,
+                                       vals.astype(np.float32), device=dev)
+    return _bath_problem(name, dev)
+
+
+def _sa_inputs(pg, dev, chains, steps, mode, seed=0):
+    """(start spins, run(fn, energies) -> spins, launch key) of packed SA
+    in `mode`: "static", "energies", "per_chain" (a temperature a chain
+    and step), "noisy" (per-step tables, two sweeps a row), "disorder" (3
+    realizations of the graph's couplings, each its own hash seed),
+    "chain0" (uids from chain 100003) or "step0" (each sweep its own
+    launch, the hash counting it as step0 = t)."""
+    rng = np.random.default_rng(seed)
+    n = pg.nspins
+    start = torch.as_tensor(rng.choice([-1.0, 1.0], size=(chains, n))
+                            .astype(np.float32), device=dev)
+    temps = schedules.linear(3.0, 0.1, steps, device=dev)
+    key = "packed_sa"
+    kw = {}
+    if mode == "per_chain":
+        temps = (temps[:, None] * torch.linspace(
+            0.5, 2.0, chains, device=dev)[None, :]).contiguous()
+        key = "packed_sa_chain"
+    elif mode == "noisy":
+        xi = rng.standard_normal((steps // 2,) + tuple(pg.nbr_J.shape))
+        jt = (pg.nbr_J[None] * torch.as_tensor(
+            1.0 + 0.1 * xi, dtype=torch.float32, device=dev)).contiguous()
+        ht = (pg.h[None] + torch.as_tensor(
+            0.1 * rng.standard_normal((steps // 2, n)), dtype=torch.float32,
+            device=dev)).contiguous()
+        kw["tables"] = (jt, ht, 2)
+        key = "packed_sa_noisy"
+    elif mode == "disorder":
+        xi = rng.standard_normal((3,) + tuple(pg.nbr_J.shape))
+        jd = (pg.nbr_J[None] * torch.as_tensor(
+            1.0 + 0.3 * xi, dtype=torch.float32, device=dev)).contiguous()
+        hd = pg.h[None].expand(3, n).contiguous()
+        kw["disorder"] = (jd, hd, [5, 6, 7])
+    elif mode == "chain0":
+        kw["chain0"] = 100003
+
+    def run(fn, es=None):
+        if mode == "step0":
+            s = start
+            for t in range(steps):
+                s = fn(pg, temps[t:t + 1], s, 11, step0=t)
+            return s
+        return fn(pg, temps, start, 11, energies=es, **kw)
+    return start, run, key
+
+
+@pytest.mark.parametrize("route", ["cluster", "wide"])
+@pytest.mark.parametrize("graph,chains,mode", [
+    ("torus10", 1, "static"), ("torus10", 33, "static"),
+    ("torus10", 1280, "static"), ("odd_torus9", 40, "static"),
+    ("rg9", 70, "energies"), ("chimera", 5, "energies"),
+    ("odd_torus9", 96, "energies"), ("rg_fields", 64, "per_chain"),
+    ("odd_torus9", 384, "per_chain"), ("rg_fields", 48, "noisy"),
+    ("torus10", 96, "disorder"), ("torus10", 120, "disorder"),
+    ("chimera", 40, "chain0"), ("torus10", 37, "step0"),
+])
+def test_packed_sa_both_routes_equal_plain(cuda, monkeypatch, route, graph,
+                                           chains, mode):
+    """Generic SA on both of its routes, the cluster route (csrc/
+    generic_words.cuh's SA mode: chains as the bits of a word over a
+    cluster of CTAs; its rule of size, which sends these small graphs to
+    the first kernel, answering no) and the file's first kernel ("_wide",
+    forced here by a rule of shape that holds nothing), against the plain
+    version: one
+    chain, a ragged last group, 1280 chains, the odd torus's improper
+    checkerboard, energies, a temperature a chain (384: 8 chains a word),
+    per-step tables, a disorder batch of 32 and of 40 chains a
+    realization, chain0 and one-step launches. Spins bitwise, energies within
+    ENERGY_RTOL * (sum |J| + sum |h|), one launch a call under the
+    route's key."""
+    if route == "wide":
+        monkeypatch.setattr(gk, "packed_sa_geometry", lambda *a, **k: None)
+    else:
+        monkeypatch.setattr(gk, "packed_sa_one_cta", lambda *a, **k: False)
+    steps = 10
+    prob = _sa_problem(graph, cuda)
+    pg = gibbs.packed_of(prob)
+    start, run, key = _sa_inputs(pg, cuda, chains, steps, mode)
+    if route == "cluster":
+        d_chains = chains // 3 if mode == "disorder" else 0
+        geometry = gk.packed_sa_geometry(chains, pg.nspins, pg.num_colors,
+                                         d_chains=d_chains)
+        assert geometry is not None
+        if d_chains:
+            assert d_chains % geometry[0] == 0
+    es, es_plain = ((torch.full((steps, chains), float("nan"), device=cuda)
+                     for _ in range(2)) if mode == "energies"
+                    else (None, None))
+    _build.reset_launches()
+    out = run(gk.packed_sa_anneal, es)
+    want = key + ("_wide" if route == "wide" else "")
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        want: steps if mode == "step0" else 1}
+    ref = run(gk.packed_sa_anneal_ref, es_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert float((out != start).float().mean()) > 0.05
+    if es is not None:
+        assert torch.equal(out, run(gk.packed_sa_anneal))
+        assert torch.isfinite(es).all()
+        assert float((es - es_plain).abs().max()) <= \
+            gibbs.ENERGY_RTOL * gibbs.problem_scale(prob)
+
+
+@pytest.mark.parametrize("graph,chains,mode,one_cta", [
+    ("chimera16", 32, "static", True), ("glass12", 64, "per_chain", True),
+    ("chimera16", 16, "step0", True), ("torus80", 32, "static", False),
+    ("torus80", 24, "per_chain", False),
+])
+def test_packed_sa_rule_of_size_picks_the_kernel(cuda, monkeypatch, graph,
+                                                 chains, mode, one_cta):
+    """Generic SA's rule of size on the card: chimera_graph(16) (three
+    classes of about 683 sites) and random_3d_lattice(12) (864 a class)
+    run the file's first kernel, one CTA a chain, the 80 x 80 torus's
+    generic form (3200 a class) the cluster route; both under the plain
+    launch key, bitwise the plain version. The library's two entry points
+    are watched to see which one the wrapper called."""
+    prob = {"chimera16": lambda: instances.chimera_graph(
+                16, rng=0, device=cuda)[0],
+            "glass12": lambda: instances.random_3d_lattice(
+                12, rng=0, device=cuda)[0],
+            "torus80": lambda: instances.gaussian_torus(
+                80, seed=0, device=cuda).to_generic()}[graph]()
+    pg = gibbs.packed_of(prob)
+    assert gk.packed_sa_one_cta(pg.nspins, pg.num_colors) is one_cta
+    lib = _build.library("packed_sa")
+    called = []
+    for entry in ("packed_sa_anneal", "packed_sa_words_anneal"):
+        def spy(*a, entry=entry, fn=getattr(lib, entry)):
+            called.append(entry)
+            return fn(*a)
+        monkeypatch.setattr(lib, entry, spy)
+    steps = 6
+    start, run, key = _sa_inputs(pg, cuda, chains, steps, mode)
+    _build.reset_launches()
+    out = run(gk.packed_sa_anneal)
+    calls = steps if mode == "step0" else 1
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {key: calls}
+    assert called == calls * ["packed_sa_anneal" if one_cta
+                              else "packed_sa_words_anneal"]
+    assert torch.equal(out, run(gk.packed_sa_anneal_ref))
+    assert float((out != start).float().mean()) > 0.05
+
+
+def test_packed_sa_takes_the_wide_route_by_shape(cuda):
+    """A graph of more than 127 classes is past the cluster route's slot
+    code: packed SA runs the first kernel there, by its rule of shape, and
+    equals the plain version."""
+    prob = _sa_problem("complete130", cuda)
+    pg = gibbs.packed_of(prob)
+    assert pg.num_colors == 130
+    assert gk.packed_sa_geometry(8, pg.nspins, pg.num_colors) is None
+    start, run, _ = _sa_inputs(pg, cuda, 8, 6, "static")
+    _build.reset_launches()
+    out = run(gk.packed_sa_anneal)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "packed_sa_wide": 1}
+    assert torch.equal(out, run(gk.packed_sa_anneal_ref))
+
+
+def test_packed_sa_at_the_cluster_routes_last_shape(cuda):
+    """One chain of a ring of 463,984 sites (two classes) over 16 CTAs,
+    each asking, with the energies, for all 232,448 bytes of shared
+    memory a block may take; two sites more take the first kernel."""
+    n = 463984
+    rows = np.arange(n)
+    vals = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    prob = IsingProblem.from_edges(n, rows, (rows + 1) % n, vals,
+                                   device=cuda)
+    assert gk.packed_sa_geometry(1, n, 2) == (1, 16, gk.SA_THREADS)
+    assert gk.packed_sa_geometry(1, n + 2, 2) is None
+    pg = gibbs.packed_of(prob)
+    assert gk.sa_words_smem_bytes(gk.word_layout(pg, 16)[3]) \
+        == _build.SMEM_LIMIT_BYTES
+    start, run, _ = _sa_inputs(pg, cuda, 1, 3, "energies")
+    es, es_plain = (torch.full((3, 1), float("nan"), device=cuda)
+                    for _ in range(2))
+    _build.reset_launches()
+    out = run(gk.packed_sa_anneal, es)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "packed_sa": 1}
+    ref = run(gk.packed_sa_anneal_ref, es_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert float((es - es_plain).abs().max()) <= \
+        gibbs.ENERGY_RTOL * gibbs.problem_scale(prob)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("N,chains,block,per_chain,start", [
+    (2048, 1024, 128, False, 128), (2048, 64, 128, True, 0),
+    (300, 37, 100, False, 200), (1001, 130, 7, True, 994),
+    (70, 5, 70, False, 0),
+])
+def test_dense_block_kernel_equals_plain(cuda, monkeypatch, warps, N, chains,
+                                         block, per_chain, start):
+    """One in-block launch of csrc/dense_sa.cu at 1 to 8 warps (chains) a
+    CTA, WARPS included, against its plain version: the block's products
+    from torch.matmul and the padded h added inside,
+    B = 128, 100 (the tile's rows not 16-byte aligned: 4-byte copies), 7
+    and 70, ragged warps and CTAs, a temperature a chain; spins bitwise,
+    and the same with the fields given whole and a zero h."""
+    dp = instances.sk_model(N, rng=N, device=cuda)[0]
+    dp = type(dp)(J=dp.J, h=torch.as_tensor(
+        np.random.default_rng(1).standard_normal(N).astype(np.float32),
+        device=cuda))
+    rng = np.random.default_rng(N + chains)
+    s0 = torch.as_tensor(rng.choice([-1.0, 1.0], size=(chains, N))
+                         .astype(np.float32), device=cuda)
+    Jp, hp, sp = dk.ds.padded(dp.J, dp.h, s0, block)
+    temps = schedules.linear(2.0, 0.2, 3, device=cuda)
+    if per_chain:
+        temps = (temps[:, None] * torch.linspace(
+            0.5, 2.0, chains, device=cuda)[None, :]).contiguous()
+    monkeypatch.setattr(dk, "WARPS", warps)
+    prod = dk.ds.block_product(sp, Jp, start, block)
+    fields = prod + hp[start:start + block]
+    _build.reset_launches()
+    got = dk.dense_sa_block(sp.clone(), prod, hp, Jp, start, temps, 1, 9, 2,
+                            5)
+    whole = dk.dense_sa_block(sp.clone(), fields, torch.zeros_like(hp), Jp,
+                              start, temps, 1, 9, 2, 5)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "dense_sa_chain" if per_chain else "dense_sa": 2}
+    ref = dk.dense_sa_block_ref(sp.clone(), prod, hp, Jp, start, temps, 1,
+                                9, 2, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(whole, ref)
+    cols = slice(start, start + block)
+    assert float((ref[:, cols] != sp[:, cols]).float().mean()) > 0.05

@@ -265,12 +265,12 @@ def _offset_case(kind):
         J = dp.J.contiguous()
         s = torch.randint(0, 2, (6, 40), generator=g).float() * 2 - 1
         temps = torch.linspace(2.0, 0.5, 3)
-        fb = torch.matmul(s, J[:, 8:40])  # one set of fields for both runs
+        fb = torch.matmul(s, J[:, 8:40])  # one set of products for both
 
         def run(c0, st):
             rows = slice(c0, c0 + st[0].shape[0])
-            return dense.dense_sa_block_ref(st[0].clone(), fb[rows], J, 8,
-                                            temps, 1, 5, chain0=c0)
+            return dense.dense_sa_block_ref(st[0].clone(), fb[rows], dp.h, J,
+                                            8, temps, 1, 5, chain0=c0)
         return run, (s,)
     problem = W.lattice(4).to_generic()
     s1, s2 = (torch.randint(0, 2, (6, 16), generator=g).float() * 2 - 1

@@ -8,7 +8,10 @@ the main path's shapes.
         [--bath-geometry R ...] [--qmc-geometry R ...]
         [--plane-qmc-geometry R ...] [--plane-svmc-geometry R ...]
         [--split-svmc-geometry R ...] [--generic-geometry R ...]
-        [--label-geometry R ...] [--only KERNEL ...] [--qmc-phased]
+        [--label-geometry R ...] [--packed-sa-geometry GRAPH:CHAINS:C:R
+        ...] [--packed-sa-wide] [--dense-warps W ...]
+        [--only KERNEL ...] [--qmc-phased]
+    PYTHONPATH=<checkout> python tools/time_kernels.py --packed-sa-crossover
     PYTHONPATH=<checkout> python tools/time_kernels.py --hw-rng [--rounds N]
 
 Rows: kernel A at 1280 and 32 chains on the seeded L x L torus (T: 3 -> 0),
@@ -18,7 +21,9 @@ kernel B at P = 40, 32 chains, global moves on the L x L torus, kernel 3 at
 P = 5, 32 chains, global moves on the L x L and (L+1) x (L+1) tori, and
 kernel 7 at 256 chains, TF proposals (A: 3 -> 1e-8, B = 1, T = 0.05) on
 the (L+1) x (L+1) torus, and kernel 4 likewise on the L x L torus; the
-packed SA kernel at 1280 chains on the L x L torus's generic form,
+packed SA kernel (`time_packed_sa`: 1280, 32 and 8 chains, per-step
+tables, 384 temperatures a chain on the L x L torus's generic form, 32
+chains on chimera_graph(16)),
 generic PIQMC and the generic bath at their `time_generic_qmc` shapes (32
 chains, P = 40 on the L x L torus, the (L+1) x (L+1) checkerboard, P = 20
 on chimera_graph(16)), and the dense
@@ -26,8 +31,9 @@ in-block kernel (400 block launches queued behind a spin kernel, CUDA
 events, and the sweep with its block products, slope-timed; beside them
 the host path: the host's time to queue a block launch and a sweep, and
 the card's time for 5 sweeps queued behind a spin kernel, the least of
-three) at 1024
-chains on sk_model(2048, rng=0), and the cluster kernels fk_label (the
+three) at 1024 and 64
+chains on sk_model(2048, rng=0) (a checkout whose kernel adds h takes the
+block's products and h, an older one the fields), and the cluster kernels fk_label (the
 space-time sweep at P = 40, 8 chains, without and with the bath at
 alpha = 1e-2, and the classical sweep at 64 chains) and fk_wolff (rule
 "local" at P = 40, one chain and 16, and the classical cluster at 64
@@ -55,7 +61,12 @@ of the wrapper's own choice (where the checkout has `sa_geometry` /
 `qmc_bath_geometry` / `qmc_geometry` / `plane_qmc_geometry` /
 `plane_svmc_geometry` / `svmc_split_geometry`); `--generic-geometry`
 times generic PIQMC and the bath on the L x L torus at each given R
-(where the checkout has `generic_qmc_geometry`), and `--one-step` adds
+(where the checkout has `generic_qmc_geometry`), `--packed-sa-geometry`
+packed SA's rows at each given (C, R) and `--packed-sa-wide` on the
+file's first kernel (where the checkout has `packed_sa_geometry`),
+`--dense-warps` the in-block kernel at each given count of warps, 1 to 8
+(chains) a CTA (where the checkout's `dense_kernels.WARPS` sets it),
+and `--one-step` adds
 to their rows the median ms of a whole one-step call (what the cluster
 solvers' interleaved local sweeps pay). `--label-geometry` times
 fk_label and fk_wolff at each given cluster size R (where the checkout has
@@ -70,9 +81,14 @@ at the shapes of bench/throughput.py's pallas_* arms (A 256 chains; B
 P = 40, 16 chains, global moves; 4 128 chains, TF; 5 P = 40, 8 chains,
 alpha = 1e-2, global moves) with the counter hash and with hw_rng=True,
 in the order hash, hw_rng, hw_rng, hash, `--rounds` times over.
+`--packed-sa-crossover` times instead generic SA's two kernels against
+each other over graph sizes and chain counts (`time_packed_sa_crossover`),
+the readings its size rule (`generic_kernels.packed_sa_one_cta`) is set
+from.
 """
 
 import argparse
+import inspect
 import json
 import subprocess
 import time
@@ -109,6 +125,10 @@ def main():
     ap.add_argument("--split-svmc-geometry", nargs="*", default=[])
     ap.add_argument("--generic-geometry", nargs="*", default=[])
     ap.add_argument("--label-geometry", nargs="*", default=[])
+    ap.add_argument("--packed-sa-geometry", nargs="*", default=[])
+    ap.add_argument("--packed-sa-wide", action="store_true")
+    ap.add_argument("--packed-sa-crossover", action="store_true")
+    ap.add_argument("--dense-warps", nargs="*", default=[])
     ap.add_argument("--only", nargs="*", default=None)
     ap.add_argument("--hw-rng", action="store_true")
     ap.add_argument("--qmc-phased", action="store_true")
@@ -151,6 +171,9 @@ def main():
 
     if args.hw_rng:
         time_hw_rng(args, dev, sl, spins, taus, emit)
+        return
+    if args.packed_sa_crossover:
+        time_packed_sa_crossover(dev, spins, taus, emit)
         return
 
     sa_geoms = [tuple(map(int, g.split(":"))) for g in args.sa_geometry]
@@ -329,69 +352,252 @@ def time_generic(args, dev, spins, taus, emit, wanted, L):
     pg = packed_ops.build_packed(instances.gaussian_torus(
         L, seed=0, device=dev).to_generic())
     if wanted("packed_sa"):
-        s = spins(1280, L * L)
-        emit(kernel="packed_sa", chains=1280, L=L, ms_per_sweep=slope_ms(
-            lambda tau: gk.packed_sa_anneal(
-                pg, schedules.linear(3.0, 0.0, tau, device=dev), s, 7),
-            taus(250)))
+        time_packed_sa(args, dev, L, pg, spins, taus, emit)
     if wanted("generic_qmc") or wanted("generic_qmc_bath"):
         time_generic_qmc(args, dev, L, pg, spins, taus, emit, wanted)
     if wanted("fk_label") or wanted("fk_wolff"):
         time_cluster(args, dev, pg, spins, taus, emit, wanted)
-    if wanted("dense_sa"):
-        dp = instances.sk_model(2048, rng=0, device=dev)[0]
-        s = spins(1024, 2048)
+    if not wanted("dense_sa"):
+        return
+    dp = instances.sk_model(2048, rng=0, device=dev)[0]
+    # a checkout whose in-block kernel adds h takes the block's products
+    # and h; an older one the fields
+    takes_h = "h" in inspect.signature(dk.dense_sa_block).parameters
+    forced = [int(w) for w in args.dense_warps]
+    own_warps = dk.WARPS
+    for chains in (1024, 64):
+        s = spins(chains, 2048)
         temps = schedules.linear(3.0, 0.1, 1, device=dev)
         Jp, hp, sp = ds.padded(dp.J, dp.h, s.clone(), 128)
-        fb = ds.block_fields(sp, Jp, hp, 0, 128)
-        dk.dense_sa_block(sp, fb, Jp, 0, temps, 0, 7)  # warm
+        prod = torch.matmul(sp, Jp[:, :128])
+        # (products, h) or the fields
+        head = (prod, hp) if takes_h else (prod + hp[:128],)
+        for warps in (forced if takes_h else []) or [None]:
+            dk.WARPS = warps or own_warps
+            used = dk.WARPS if takes_h else None
+            block = (lambda head=head: dk.dense_sa_block(
+                sp, *head, Jp, 0, temps, 0, 7))
+            block()  # warm
+            torch.cuda.synchronize()
+            # a block launch is about as short as the wrapper's host time:
+            # 400 queued behind a spin kernel, so the events time the
+            # launches, not the host, and the host's time is the wrapper's
+            # own
+            host_block, ms_per_block = queued(block, 400, 200_000_000)
+            rec = dict(kernel="dense_sa", chains=chains, nspins=2048,
+                       warps=used, ms_per_block=ms_per_block,
+                       host_us_per_block=1e6 * host_block)
+            if warps is not None:
+                emit(**rec)
+                continue
+
+            def sweeps(tau, sched=None, s=s):
+                if sched is None:
+                    sched = schedules.linear(3.0, 0.1, tau, device=dev)
+                return dk.dense_sa_anneal(dp, sched, s, 7, 128)
+            # the host path of 5 sweeps (the wrapper, the products, the
+            # padding; the schedule made before, as its copy from the host
+            # would wait for the spin kernel) and the card's time for them;
+            # a sweep whose host time exceeds its device time is
+            # host-bound, and its slope follows the host's speed
+            sched5 = schedules.linear(3.0, 0.1, 5, device=dev)
+            sweeps(5, sched5)
+            host_sweep, card_sweep = queued(lambda: sweeps(5, sched5), 1,
+                                            400_000_000)
+            emit(**rec, host_ms_per_sweep=1e3 * host_sweep / 5,
+                 queued_device_ms_per_sweep=card_sweep / 5,
+                 ms_per_sweep=slope_ms(sweeps, taus(5)))
+    dk.WARPS = own_warps
+
+
+def queued(fn, calls, cycles):
+    """fn() `calls` times behind a spin kernel of `cycles` clocks, three
+    times: the least host time a call (the host queues while the card
+    spins) and the least device time a call between the events (the card
+    runs the queued work back to back)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    host, card = [], []
+    for _ in range(3):
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host.append((time.perf_counter() - t0) / calls)
+        end.record()
         torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        card.append(start.elapsed_time(end) / calls)
+    return min(host), min(card)
 
-        def queued(fn, calls, cycles):
-            """fn() `calls` times behind a spin kernel of `cycles` clocks,
-            three times: the least host time a call (the host queues while
-            the card spins) and the least device time a call between the
-            events (the card runs the queued work back to back)."""
-            host, card = [], []
-            for _ in range(3):
-                torch.cuda._sleep(cycles)
-                start.record()
-                t0 = time.perf_counter()
-                for _ in range(calls):
-                    fn()
-                host.append((time.perf_counter() - t0) / calls)
-                end.record()
-                torch.cuda.synchronize()
-                card.append(start.elapsed_time(end) / calls)
-            return min(host), min(card)
 
-        # a block launch is about as short as the wrapper's host time: 400
-        # queued behind a spin kernel, so the events time the launches, not
-        # the host, and the host's time is the wrapper's own
-        host_block, ms_per_block = queued(
-            lambda: dk.dense_sa_block(sp, fb, Jp, 0, temps, 0, 7), 400,
-            200_000_000)
+def time_packed_sa(args, dev, L, pg, spins, taus, emit):
+    """Generic SA (T: 3 -> 0) on the L x L torus's generic form: the shared
+    schedule at 1280, 32 and 8 chains, per-step tables (the noisy anneal,
+    J (1 + 0.1 xi) a step, 1280 chains) and a temperature a chain (384
+    chains, 48 rungs of 8); at 32 chains on chimera_graph(16, rng=0) (the
+    chimera PIQMC solve's pre-anneal); the disorder batch of 8
+    realizations gaussian_torus(L, d).to_generic() x 160 chains, one
+    launch; and 1280 chains on the (L+1) x (L+1) torus's checkerboard (the
+    masked lattice route, not a proper coloring); each row names the
+    geometry its rules chose ("one_cta": the rule of size's first kernel,
+    `packed_sa_one_cta`, in a checkout that has it). With
+    `--packed-sa-geometry GRAPH:CHAINS:C:R ...` (GRAPH torus, chimera,
+    disorder or checkerboard; a checkout that has
+    `packed_sa_geometry`) the rows of that graph and chains at each given
+    (C, R) instead of the rule's choice, and `--packed-sa-wide` adds the
+    shared rows on the file's first kernel (the rule holding nothing)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
 
-        def sweeps(tau, sched=None):
-            if sched is None:
-                sched = schedules.linear(3.0, 0.1, tau, device=dev)
-            return dk.dense_sa_anneal(dp, sched, s, 7, 128)
-        # the host path of 5 sweeps (the wrapper, the products, the
-        # padding; the schedule made before, as its copy from the host
-        # would wait for the spin kernel) and the card's time for them; a
-        # sweep whose host time exceeds its device time is host-bound, and
-        # its slope follows the host's speed
-        sched5 = schedules.linear(3.0, 0.1, 5, device=dev)
-        sweeps(5, sched5)
-        host_sweep, card_sweep = queued(lambda: sweeps(5, sched5), 1,
-                                        400_000_000)
-        emit(kernel="dense_sa", chains=1024, nspins=2048,
-             ms_per_block=ms_per_block,
-             host_us_per_block=1e6 * host_block,
-             host_ms_per_sweep=1e3 * host_sweep / 5,
-             queued_device_ms_per_sweep=card_sweep / 5,
-             ms_per_sweep=slope_ms(sweeps, taus(5)))
+    own = getattr(gk, "packed_sa_geometry", None)
+    own_small = getattr(gk, "packed_sa_one_cta", None)
+    forced = [g.split(":") for g in args.packed_sa_geometry]
+    graphs = {"torus": pg, "chimera": packed_ops.build_packed(
+        instances.chimera_graph(16, rng=0, device=dev)[0])}
+    rng = np.random.default_rng(3)
+    steps_t = 400
+    # per-step tables in packed row order, as the wrappers take them
+    xi = torch.as_tensor(rng.standard_normal(
+        (steps_t,) + tuple(pg.nbr_J.shape)), dtype=torch.float32, device=dev)
+    tables = ((pg.nbr_J[None] * (1.0 + 0.1 * xi)).contiguous(),
+              pg.h[None].expand(steps_t, pg.nspins).contiguous())
+
+    # the disorder batch: 8 realizations gaussian_torus(L, d).to_generic(),
+    # 160 chains each, one launch (parallel/disorder.py's stride)
+    from montecarlosolvers_tpu_torch.parallel import disorder
+    stacked, _ = disorder.stack_problems([
+        instances.gaussian_torus(L, seed=d, device=dev).to_generic()
+        for d in range(8)])
+    graphs["disorder"], nbr_jd, h_d = stacked.packed
+    graphs["checkerboard"] = packed_ops.packed_from_lattice(
+        instances.gaussian_torus(L + 1, seed=0, device=dev))
+
+    def run_of(graph, chains, mode):
+        s = spins(chains, graph.nspins)
+        ladder = torch.linspace(0.5, 2.0, chains, device=dev)
+
+        def run(tau):
+            sched = schedules.linear(3.0, 0.0, tau, device=dev)
+            if mode == "per_chain":
+                sched = (sched[:, None] * ladder[None, :]).contiguous()
+            if mode == "noisy":
+                return gk.packed_sa_anneal(
+                    graph, sched, s, 7, tables=(tables[0][:tau],
+                                                tables[1][:tau], 1))
+            if mode == "disorder":
+                return gk.packed_sa_anneal(
+                    graph, sched, s, 7, disorder=(nbr_jd, h_d,
+                                                  list(range(8))))
+            return gk.packed_sa_anneal(graph, sched, s, 7)
+        return run
+
+    rows = [("torus", 1280, "shared"), ("torus", 32, "shared"),
+            ("torus", 8, "shared"), ("torus", 1280, "noisy"),
+            ("torus", 384, "per_chain"), ("chimera", 32, "shared"),
+            ("disorder", 1280, "disorder"), ("checkerboard", 1280,
+                                             "shared")]
+    for gname, chains, mode in rows:
+        graph = graphs[gname]
+        geoms = [(int(g[2]), int(g[3])) for g in forced
+                 if g[0] == gname and int(g[1]) == chains and own]
+        wide = args.packed_sa_wide and own and mode == "shared"
+        for geom in geoms + (["wide"] if wide else []) or [None]:
+            if geom == "wide":
+                gk.packed_sa_geometry = lambda *a, **k: None
+            elif geom is not None:
+                gk.packed_sa_geometry = (lambda *a, g=geom, gr=graph, **k: (
+                    g[0], g[1], gk.sa_word_threads(gr.nspins, g[1],
+                                                   gr.num_colors)))
+                if own_small is not None:  # a forced (C, R): the cluster
+                    gk.packed_sa_one_cta = lambda *a, **k: False
+            try:
+                used = (gk.card_packed_sa_geometry(
+                    graph, chains, 160 if mode == "disorder" else 0,
+                    mode == "per_chain", dev) if own else None)
+                if (own_small is not None and used is not None
+                        and gk.packed_sa_one_cta(graph.nspins,
+                                                 graph.num_colors)):
+                    used = "one_cta"  # the rule of size
+                tt = (min(50, steps_t // 4), steps_t) if mode == "noisy" \
+                    else taus(250 if chains > 100 else 500)
+                ms = slope_ms(run_of(graph, chains, mode), tt)
+            finally:
+                if own is not None:
+                    gk.packed_sa_geometry = own
+                if own_small is not None:
+                    gk.packed_sa_one_cta = own_small
+            emit(kernel="packed_sa", graph=gname, mode=mode, chains=chains,
+                 nspins=graph.nspins, geometry="wide" if geom == "wide"
+                 else used, ms_per_sweep=ms)
+
+
+CROSSOVER_GRAPHS = (("random_3d_lattice(12)", "random_3d_lattice", 12),
+                    ("chimera_graph(16)", "chimera_graph", 16),
+                    ("gaussian_torus(48)", "gaussian_torus", 48),
+                    ("gaussian_torus(56)", "gaussian_torus", 56),
+                    ("random_3d_lattice(16)", "random_3d_lattice", 16),
+                    ("gaussian_torus(64)", "gaussian_torus", 64),
+                    ("gaussian_torus(80)", "gaussian_torus", 80))
+CROSSOVER_CHAINS = (8, 32, 128, 384, 1280)
+
+
+def time_packed_sa_crossover(dev, spins, taus, emit):
+    """Generic SA's two kernels on one graph and chain count each, T: 3 ->
+    0: the cluster route (the rule's (C, R), whatever its size rule says)
+    and the file's first kernel, one CTA a chain, on CROSSOVER_GRAPHS
+    (generic forms, rng / seed 0) at CROSSOVER_CHAINS chains, ms a sweep
+    (slope); and the samplers' shape, a temperature a chain at 1536 chains
+    (ICM's 2 x 24 rungs x 32 reads), with the ms of a whole two-sweep call
+    (`call_ms`: what an exchange interval pays). A checkout that has
+    `packed_sa_geometry` (and `packed_sa_one_cta`, its size rule)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    own_geometry = gk.packed_sa_geometry
+    own_small = getattr(gk, "packed_sa_one_cta", None)
+    for gname, maker, size in CROSSOVER_GRAPHS:
+        made = getattr(instances, maker)(
+            size, **({"seed": 0} if maker == "gaussian_torus" else
+                     {"rng": 0}), device=dev)
+        prob = made.to_generic() if maker == "gaussian_torus" else made[0]
+        graph = packed_ops.build_packed(prob)
+        shapes = [(c, "shared") for c in CROSSOVER_CHAINS]
+        if gname in ("random_3d_lattice(12)", "chimera_graph(16)"):
+            shapes.append((1536, "per_chain"))
+        for chains, mode in shapes:
+            s = spins(chains, graph.nspins)
+            ladder = torch.linspace(0.5, 2.0, chains, device=dev)
+
+            def run(tau, s=s, ladder=ladder, mode=mode):
+                sched = schedules.linear(3.0, 0.0, tau, device=dev)
+                if mode == "per_chain":
+                    sched = (sched[:, None] * ladder[None, :]).contiguous()
+                return gk.packed_sa_anneal(graph, sched, s, 7)
+            for route in ("cluster", "cta"):
+                if route == "cta":
+                    gk.packed_sa_geometry = lambda *a, **k: None
+                if own_small is not None:
+                    gk.packed_sa_one_cta = (lambda *a, r=route, **k:
+                                            r == "cta")
+                try:
+                    geometry = gk.card_packed_sa_geometry(
+                        graph, chains, 0, mode == "per_chain", dev)
+                    ms = slope_ms(run, taus(250 if chains > 100 else 500))
+                    two = (call_ms(lambda _: run(2))
+                           if mode == "per_chain" else None)
+                finally:
+                    gk.packed_sa_geometry = own_geometry
+                    if own_small is not None:
+                        gk.packed_sa_one_cta = own_small
+                emit(kernel="packed_sa", phase="crossover", graph=gname,
+                     nspins=graph.nspins, colors=graph.num_colors,
+                     chains=chains, mode=mode, route=route,
+                     geometry=geometry if route == "cluster" else None,
+                     ms_per_sweep=ms, two_sweep_call_ms=two)
 
 
 def time_generic_qmc(args, dev, L, pg, spins, taus, emit, wanted):
