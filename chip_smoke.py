@@ -151,6 +151,29 @@ Phases, each printed as one JSON line:
                       chain, random_3d_lattice(16) at 1280 on the cluster
                       route, each against its plain version and timed
                       beside the other kernel forced
+  energy_svmc_redesign  the chain-bit energy kernel (csrc/energy.cuh,
+                      K chains of a group a CTA) at 1, 7, 384, 1024 and
+                      7040 chains on the 80x80 torus at every K that
+                      divides kernel A's C: energies bitwise the halves
+                      kernel's, 0 mismatched, the rule's K timed beside
+                      the halves kernel; generic SVMC's cluster route
+                      (csrc/packed_svmc.cu, a chain's rotors in the shared
+                      memory of R CTAs) with the (R, threads) its rule
+                      chose and the clusters the card holds, on the 80x80
+                      torus's generic form at 256 chains (TF, uniform,
+                      energies, per-step tables at mcsteps 1 and 2, chain0,
+                      R forced to 1 and 4), 32 and 8 chains, the 81x81
+                      checkerboard (not proper), the chimera, the 3-D
+                      lattice and the 9-color graph: angles by the
+                      ANGLE_MISMATCH rule, bitwise the first kernel on a
+                      proper packing; the first kernel ("_wide", forced)
+                      on static and per-step tables, then slope-timed
+                      beside its plain version and bound, and the cluster
+                      route beside kernel 4 on the same torus, in turns;
+                      the rule of size (packed_svmc_one_cta): small class
+                      phases on the first kernel under the plain key,
+                      each shape against its plain version and timed
+                      beside the other kernel forced
   cluster_kernel_vs_plain  the cluster kernels (ops/cluster_kernels.py)
                       against their plain versions on the card, on the
                       80x80 torus's generic form, CLUSTER_STEPS steps:
@@ -709,6 +732,13 @@ EDGE_N, EDGE_BATH_N = 232080, 225680
 SA_REDESIGN_STEPS, SA_PER_CHAIN_READS = 20, 384
 DENSE_CHAIN_READS, DENSE_SMALL_BLOCK = 64, 100
 WIDE_SA_TAUS, FEW_SA_TAUS = (250, 1000), (500, 2000)
+# The redesigned chain-bit energy kernel (K chains of a group a CTA) at
+# ENERGY_BITS_CHAINS chains on the 80x80 torus: one, a few, pt_value's 384,
+# 1024 and solve("pt")'s 7040; generic SVMC's cluster route and the first
+# kernel of packed_svmc.cu, the "_wide" route, slope-timed over
+# WIDE_SVMC_TAUS sweeps
+ENERGY_BITS_CHAINS = (1, 7, 384, 1024, 7040)
+WIDE_SVMC_TAUS = (250, 1000)
 LINE_WIDE_SLICES = (65, 128)
 SW_WIDE_SLICES, SW_WIDE_READS, SW_WIDE_SWEEPS = 128, 8, 20
 ASYM_ALPHA, ASYM_SCALE = 1e-2, 1.5
@@ -1107,6 +1137,15 @@ WIDE_KERNELS = {
                              "montecarlosolvers_tpu/ops/metropolis.py:60"),
     "packed_sa_noisy_wide": ("packed_sa_noisy_wide", _SRC + "packed_sa.cu",
                              "montecarlosolvers_tpu/ops/packed.py:221"),
+    # ... and of csrc/packed_svmc.cu (generic SVMC, static and per-step
+    # tables) for a graph whose rotors no cluster holds or of more than 127
+    # classes; the phase energy_svmc_redesign holds and times them at the
+    # main path's widths, the rule forced
+    "packed_svmc_wide": ("packed_svmc_wide", _SRC + "packed_svmc.cu",
+                         "montecarlosolvers_tpu/ops/packed.py:149"),
+    "packed_svmc_noisy_wide": ("packed_svmc_noisy_wide",
+                               _SRC + "packed_svmc.cu",
+                               "montecarlosolvers_tpu/ops/packed.py:259"),
 }
 KERNELS.update(WIDE_KERNELS)
 # what the rest of the parallel layer added to four kernels: the cluster
@@ -2877,6 +2916,351 @@ def sa_dense_redesign(dev, results, graphs, torus, odd_torus, sk, tables,
             check(ms > 0, f"{key} on {gname} times")
 
 
+def energy_svmc_redesign(dev, results, graphs, torus, odd_torus, tables,
+                         power, name):
+    """Phase energy_svmc_redesign: the two redesigned kernels against
+    their plain versions on the card, at every listed shape, with exactly
+    the route's launches:
+      - the chain-bit energy kernel (csrc/energy.cuh::
+        chain_bits_energy_kernel, K chains of a group a CTA) at
+        ENERGY_BITS_CHAINS chains on the 80x80 torus, kernel A's C a word,
+        at every K that divides C and at the K its rule chose
+        (`words_energy_geometry`): every energy bitwise the energy kernel's
+        on the unpacked halves (0 mismatched energies), within
+        ENERGY_RTOL x sum |J| of the plain version; ms a call at the rule's
+        K beside the halves kernel;
+      - generic SVMC's cluster route (csrc/packed_svmc.cu::
+        packed_svmc_cluster_kernel) with the (R, threads) its rule chose on
+        the card and the clusters the card holds: the 80x80 torus's generic
+        form at SVMC_READS chains (TF and uniform, energies, per-step
+        tables at mcsteps 1 and 2, chain0 = OFFSET_CHAIN0, R forced to 1
+        and 4), at 32 and 8 chains, the 81x81 checkerboard (not proper),
+        random_3d_lattice(16), and chimera_graph(16) and the 9-color
+        random_graph(2000, 12000), which the rule of size sends to the
+        first kernel: angles by the ANGLE_MISMATCH rule, bitwise the file's
+        first kernel on a proper packing; the first kernel ("_wide",
+        forced by a rule that holds nothing) on the static and per-step
+        tables.
+    Then slope-times the "_wide" routes beside their plain versions and
+    bounds (the kernels line's rows), the cluster route beside kernel 4
+    on the same torus at SVMC_READS chains, in turns, and the rule of size
+    (`packed_svmc_one_cta`): the 16 x 16 torus's generic form and the
+    chimera at 128 chains on the first kernel, random_3d_lattice(12) on
+    the cluster route, each against its plain version and timed beside
+    the other kernel forced."""
+    import ctypes
+
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import energy as energy_ops
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import split as split_ops
+    from montecarlosolvers_tpu_torch.ops import split_kernels as sk_ops
+
+    gibbs = gibbs_tool()
+    rng = np.random.default_rng(24)
+    phase = "energy_svmc_redesign"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    # the energy kernel on kernel A's chain-bit words, every K
+    sl = split_ops.build_split(torus)
+    tol = gibbs.ENERGY_RTOL * float(torus.j_right.abs().sum()
+                                    + torus.j_down.abs().sum()
+                                    + torus.h_plane.abs().sum())
+    own_k = sk_ops.words_energy_geometry
+    for chains in ENERGY_BITS_CHAINS:
+        C = sk_ops.chain_word_bits(chains)
+        a, b = (x.contiguous() for x in split_ops.pack_classical(
+            sl, random_pm1(rng, (chains, L * L), dev)))
+        words = (sk_ops.pack_chain_bits(a, C), sk_ops.pack_chain_bits(b, C))
+        want = energy_ops.halves_energy(sl, a, b)
+        ref = sk_ops.words_energy_ref(sl, *words, chains, C)
+        rule = own_k(chains, C, sms)
+        for K in [k for k in sk_ops.ENERGY_CHAINS_A_CTA if C % k == 0]:
+            sk_ops.words_energy_geometry = lambda *_, K=K: K
+            try:
+                _build.reset_launches()
+                e = sk_ops.words_energy(sl, *words, chains, C)
+                launched = launched_now()
+                torch.cuda.synchronize()
+                ms = (event_ms(lambda: sk_ops.words_energy(sl, *words,
+                                                           chains, C), 200,
+                               spin_cycles=100_000_000)
+                      if K == rule else None)
+            finally:
+                sk_ops.words_energy_geometry = own_k
+            n_bad = int((e != want).sum())
+            err = float((e - ref).abs().max())
+            rec = {"phase": phase, "kernel": "energy_chain_bits",
+                   "chains": chains, "chains_a_word": C, "K": K,
+                   "rule_K": rule, "ctas": -(-chains // C) * (C // K),
+                   "launches": launched, "mismatched_energies": n_bad,
+                   "max_abs_err": err, "tolerance": tol, "ms": ms}
+            if ms is not None:
+                rec["halves_kernel_ms"] = event_ms(
+                    lambda: energy_ops.halves_energy(sl, a, b), 200,
+                    spin_cycles=100_000_000)
+                rec.update(gpu=name, power_limit=power)
+            emit(rec)
+            what = f"energy_chain_bits at {chains} chains, K = {K}"
+            check(n_bad == 0, f"{what} equals the halves kernel bitwise")
+            check(err <= tol, f"{what} within {tol} of its plain version")
+            check(launched == {"energy_bits": 1},
+                  f"{what} launched {launched}")
+            results["energy_chain_bits"]["max_abs_err"] = max(
+                results["energy_chain_bits"].get("max_abs_err", 0.0), err)
+
+    # generic SVMC on both routes
+    gname80 = f"gaussian_torus({L}, 0).to_generic()"
+    gtorus80 = graphs[gname80]
+    pg80 = packed_ops.build_packed(gtorus80)
+    pg81 = packed_ops.packed_from_lattice(odd_torus)
+    others = {g: packed_ops.build_packed(graphs[g]) for g in (
+        "chimera_graph(16, rng=0)", "random_3d_lattice(16, rng=0)",
+        "random_graph(2000, 12000, rng=0)")}
+    steps = NOISY_STEPS
+
+    def tables_of(pg, mcsteps):
+        rows = steps // mcsteps
+        return gk.packed_tables(pg, tables[0][:rows], tables[1][:rows],
+                                mcsteps, steps, dev)
+
+    def forced(R, pg):
+        if R == "wide":
+            return lambda *a, **k: None
+        return lambda *a, **k: (R, gk.svmc_threads(pg.nspins, R,
+                                                   pg.num_colors))
+
+    # (kernel row, graph name, packing, chains, TF, mode, forced R)
+    cases = [("packed_svmc", gname80, pg80, SVMC_READS, True, "static",
+              None),
+             ("packed_svmc", gname80, pg80, SVMC_READS, False, "static",
+              None),
+             ("packed_svmc", gname80, pg80, SVMC_READS, True, "energies",
+              None),
+             ("packed_svmc_noisy", gname80, pg80, SVMC_READS, True,
+              "noisy1", None),
+             ("packed_svmc_noisy", gname80, pg80, SVMC_READS, False,
+              "noisy2", None),
+             ("packed_svmc", gname80, pg80, SVMC_READS, True, "chain0",
+              None),
+             ("packed_svmc", gname80, pg80, SVMC_READS, True, "static", 1),
+             ("packed_svmc", gname80, pg80, SVMC_READS, True, "static", 4),
+             ("packed_svmc", gname80, pg80, 32, True, "static", None),
+             ("packed_svmc", gname80, pg80, 8, True, "static", None),
+             ("packed_svmc", f"gaussian_torus({ODD_L}, 0), checkerboard",
+              pg81, 64, True, "energies", None)]
+    cases += [("packed_svmc", g, pg, 64, True, "static", None)
+              for g, pg in others.items()]
+    cases += [("packed_svmc_wide", gname80, pg80, SVMC_READS, True,
+               "static", "wide"),
+              ("packed_svmc_noisy_wide", gname80, pg80, SVMC_READS, True,
+               "noisy1", "wide")]
+    own = gk.packed_svmc_geometry
+    for kname, gname, pg, chains, tf, mode, R in cases:
+        n = pg.nspins
+        th = torch.as_tensor((rng.random((chains, n)) * np.pi).astype(
+            np.float32), device=dev)
+        a = schedules.linear(3.0, 1e-8, steps, device=dev)
+        b = torch.full_like(a, 0.9)
+        kw = ({"tables": tables_of(pg, int(mode[-1]))}
+              if mode.startswith("noisy") else
+              {"chain0": OFFSET_CHAIN0} if mode == "chain0" else {})
+        es = es_plain = None
+        if mode == "energies":
+            es, es_plain = (torch.full((steps, chains), float("nan"),
+                                       device=dev) for _ in range(2))
+        if R is not None:
+            gk.packed_svmc_geometry = forced(R, pg)
+        try:
+            geometry = gk.card_packed_svmc_geometry(pg, chains, dev)
+            route = ("wide" if geometry is None else "one_cta"
+                     if gk.packed_svmc_one_cta(n, pg.num_colors, pg.proper)
+                     else "cluster")
+            resident = None
+            if geometry is not None:
+                lib = _build.library("packed_svmc")
+                count = ctypes.c_int(0)
+                rc = lib.packed_svmc_max_active_clusters(
+                    geometry[0], geometry[1], gk.svmc_smem_bytes(
+                        gk.word_layout(pg, geometry[0])[3], pg.proper),
+                    ctypes.byref(count))
+                check(rc == 0, "cudaOccupancyMaxActiveClusters answers")
+                resident = count.value
+            _build.reset_launches()
+            out = gk.packed_svmc_anneal(pg, a, b, SVMC_TEMP, th, 7, tf, es,
+                                        **kw)
+            launched = launched_now()
+            gk.packed_svmc_geometry = forced("wide", pg)
+            wide = gk.packed_svmc_anneal(pg, a, b, SVMC_TEMP, th, 7, tf, **kw)
+        finally:
+            gk.packed_svmc_geometry = own
+        ref = gk.packed_svmc_anneal_ref(pg, a, b, SVMC_TEMP, th, 7, tf,
+                                        es_plain, **kw)
+        torch.cuda.synchronize()
+        d = angle_diffs([out], [ref])
+        rec = {"phase": phase, "kernel": kname, "graph": gname,
+               "nspins": n, "colors": pg.num_colors, "proper": pg.proper,
+               "chains": chains, "steps": steps, "tf": tf, "mode": mode,
+               "forced_R": R, "route": route, "geometry": geometry,
+               "clusters_resident": resident, "launches": launched, **d,
+               "bitwise_first_kernel": bool(torch.equal(out, wide)),
+               "moved_fraction": float((out - th).abs().gt(1e-3).float()
+                                       .mean())}
+        if es is not None:
+            rec.update(energy_err=float((es - es_plain).abs().max()),
+                       energy_bound=gibbs.ENERGY_RTOL * float(
+                           pg.nbr_J.abs().sum() / 2 + pg.h.abs().sum()))
+        emit(rec)
+        what = f"{kname} on {gname}, {chains} chains ({mode}, R {R})"
+        check(d["mismatched_angles"] == 0 and d["max_abs_err"] <= ANGLE_ATOL,
+              f"{what} equals its plain version")
+        check(rec["moved_fraction"] > 0.3, f"{what} moves")
+        check(launched == {kname: 1}, f"{what} launched {launched}")
+        if pg.proper:
+            check(rec["bitwise_first_kernel"],
+                  f"{what} equals the first kernel bitwise")
+        if es is not None:
+            check(bool(torch.isfinite(es).all())
+                  and rec["energy_err"] <= rec["energy_bound"],
+                  f"{what}: energies within {rec['energy_bound']}")
+        results[kname]["max_abs_err"] = max(
+            results[kname].get("max_abs_err", 0.0), d["max_abs_err"])
+
+    # the "_wide" routes slope-timed beside their plain versions and
+    # bounds, at the main path's widths
+    graph = graph_shape(gtorus80)
+    n = pg80.nspins
+    jt, ht, _ = gk.packed_tables(pg80, *tables, 1, NOISY_SWEEPS, dev)
+    th = torch.as_tensor((rng.random((SVMC_READS, n)) * np.pi).astype(
+        np.float32), device=dev)
+
+    def svmc_run(fn, noisy):
+        def run(tau):
+            a = schedules.linear(3.0, 1e-8, tau, device=dev)
+            kw = {"tables": (jt[:tau], ht[:tau], 1)} if noisy else {}
+            return fn(pg80, a, torch.ones_like(a), SVMC_TEMP, th, 7, True,
+                      **kw)
+        return run
+
+    for kname, noisy in (("packed_svmc_wide", False),
+                         ("packed_svmc_noisy_wide", True)):
+        tau = WIDE_SVMC_TAUS[1]
+        f32, sfu = ops_per_sweep("packed_svmc", SVMC_READS, 1, n, graph)
+        moved = bytes_per_anneal("packed_svmc", SVMC_READS, 1, n, tau,
+                                 graph) + (tau * n * (graph[1] + 1) * 4
+                                           if noisy else 0)
+        times = {"fp32": f32 / PEAK_FLOPS, "sfu": sfu / PEAK_SFU,
+                 "bytes": moved / PEAK_BYTES / tau}
+        unit = max(times, key=times.get)
+        bound = 1e3 * times[unit]
+        bound_by = "bytes" if unit == "bytes" else "operations"
+        for route, fn, tt, trials in (
+                ("cuda", gk.packed_svmc_anneal, WIDE_SVMC_TAUS, 3),
+                ("plain", gk.packed_svmc_anneal_ref, (10, 40), 2)):
+            if route == "cuda":
+                gk.packed_svmc_geometry = forced("wide", pg80)
+            try:
+                ms, best = slope_ms(svmc_run(fn, noisy), tt, trials)
+            finally:
+                gk.packed_svmc_geometry = own
+            emit({"phase": phase, "kernel": kname, "route": route,
+                  "chains": SVMC_READS, "sites": n, "taus": list(tt),
+                  "best_seconds": {str(k): v for k, v in best.items()},
+                  "ms_per_sweep": ms, "bound_ms": bound,
+                  "bound_by": bound_by, "bound_unit": unit, "gpu": name,
+                  "power_limit": power})
+            check(ms > 0, f"{kname} {route} slope is positive")
+            if route == "cuda":
+                results[kname].update(ms=ms, bound_ms=bound,
+                                      bound_by=bound_by)
+            else:
+                results[kname]["plain_ms"] = ms
+
+    # the cluster route beside kernel 4 on the same torus and chains, in
+    # turns (cluster, kernel 4, kernel 4, cluster)
+    ha, hb = (x.contiguous() for x in split_ops.pack_classical(sl, th))
+
+    def split_run(tau):
+        a = schedules.linear(3.0, 1e-8, tau, device=dev)
+        return sk_ops.svmc_split_anneal(sl, a, torch.ones_like(a), SVMC_TEMP,
+                                        ha, hb, 7, True)
+    runs = {"packed_svmc": svmc_run(gk.packed_svmc_anneal, False),
+            "split_svmc": split_run}
+    got = {k: [] for k in runs}
+    for k in ("packed_svmc", "split_svmc", "split_svmc", "packed_svmc"):
+        got[k].append(slope_ms(runs[k], WIDE_SVMC_TAUS, 3)[0])
+    emit({"phase": phase, "kernel": "packed_svmc", "chains": SVMC_READS,
+          "geometry": gk.card_packed_svmc_geometry(pg80, SVMC_READS, dev),
+          "ms_per_sweep": got["packed_svmc"],
+          "split_svmc_ms_per_sweep": got["split_svmc"],
+          "ratio": min(got["packed_svmc"]) / min(got["split_svmc"]),
+          "bound_ms": bound_ms("packed_svmc", SVMC_READS, 1, n,
+                               WIDE_SVMC_TAUS[1], graph)[0],
+          "gpu": name, "power_limit": power})
+    check(min(got["packed_svmc"]) > 0 and min(got["split_svmc"]) > 0,
+          "generic SVMC and kernel 4 time")
+
+    # the rule of size (gk.packed_svmc_one_cta): the 16 x 16 torus's
+    # generic form and the chimera at 128 chains take the file's first
+    # kernel, one CTA a chain, random_3d_lattice(12) at 32 chains the
+    # cluster route, all under the plain key; each against its plain
+    # version, then slope-timed beside the other kernel forced
+    from montecarlosolvers_tpu_torch.models import instances
+    own_small = gk.packed_svmc_one_cta
+    for gname, prob, chains, one_cta in (
+            ("gaussian_torus(16, 0).to_generic()", instances.gaussian_torus(
+                16, seed=0, device=dev).to_generic(), 32, True),
+            ("chimera_graph(16, rng=0)", graphs["chimera_graph(16, rng=0)"],
+             128, True),
+            ("random_3d_lattice(12, rng=0)", instances.random_3d_lattice(
+                12, rng=0, device=dev)[0], 32, False)):
+        pg = packed_ops.build_packed(prob)
+        check(gk.packed_svmc_one_cta(pg.nspins, pg.num_colors) == one_cta,
+              f"the rule of size sends {gname} at {chains} chains to "
+              + ("one CTA a chain" if one_cta else "the cluster route"))
+        th = torch.as_tensor((rng.random((chains, pg.nspins)) * np.pi)
+                             .astype(np.float32), device=dev)
+        a = schedules.linear(3.0, 1e-8, steps, device=dev)
+        _build.reset_launches()
+        out = gk.packed_svmc_anneal(pg, a, torch.ones_like(a), SVMC_TEMP, th,
+                                    7, True)
+        launched = launched_now()
+        ref = gk.packed_svmc_anneal_ref(pg, a, torch.ones_like(a), SVMC_TEMP,
+                                        th, 7, True)
+        torch.cuda.synchronize()
+        d = angle_diffs([out], [ref])
+        emit({"phase": phase, "kernel": "packed_svmc", "graph": gname,
+              "nspins": pg.nspins, "colors": pg.num_colors,
+              "chains": chains, "steps": steps, "mode": "rule_of_size",
+              "one_cta": one_cta, "launches": launched, **d})
+        check(d["mismatched_angles"] == 0 and d["max_abs_err"] <= ANGLE_ATOL,
+              f"packed_svmc on {gname} equals its plain version")
+        check(launched == {"packed_svmc": 1},
+              f"packed_svmc on {gname} launched {launched}")
+        results["packed_svmc"]["max_abs_err"] = max(
+            results["packed_svmc"].get("max_abs_err", 0.0),
+            d["max_abs_err"])
+
+        def run(tau, pg=pg, th=th):
+            a = schedules.linear(3.0, 1e-8, tau, device=dev)
+            return gk.packed_svmc_anneal(pg, a, torch.ones_like(a),
+                                         SVMC_TEMP, th, 7, True)
+        for forced_cta in (one_cta, not one_cta):
+            gk.packed_svmc_one_cta = lambda *a, f=forced_cta, **k: f
+            try:
+                ms = slope_ms(run, WIDE_SVMC_TAUS, 3)[0]
+            finally:
+                gk.packed_svmc_one_cta = own_small
+            emit({"phase": phase, "kernel": "packed_svmc", "graph": gname,
+                  "chains": chains, "mode": "rule_of_size",
+                  "route": "one_cta" if forced_cta else "cluster",
+                  "rule_choice": forced_cta == one_cta, "ms_per_sweep": ms,
+                  "gpu": name, "power_limit": power})
+            check(ms > 0, f"packed_svmc on {gname} times")
+
+
 def dense_problem(n, dev):
     """An SK DenseProblem of n spins drawn on the card (torch's generator,
     seed 0): J_ij ~ N(0, 1/n) above the diagonal, mirrored, h = 0. For the
@@ -3765,9 +4149,12 @@ def sampler_kernel_checks(dev, results, torus, gtorus, odd_torus, power,
         same = torch.equal(e, energy_ops.halves_energy(sl, a, b))
         err = float((e - sk.words_energy_ref(sl, *words, chains, C)).abs()
                     .max())
-        ms = event_ms(lambda: sk.words_energy(sl, *words, chains, C), 200)
+        # a launch can be shorter than the wrapper's host time: queued
+        # behind a spin kernel, so the events time the card's work
+        ms = event_ms(lambda: sk.words_energy(sl, *words, chains, C), 200,
+                      spin_cycles=100_000_000)
         halves_ms = event_ms(lambda: energy_ops.halves_energy(sl, a, b),
-                             200)
+                             200, spin_cycles=100_000_000)
         plain_ms = event_ms(lambda: sk.words_energy_ref(sl, *words, chains,
                                                         C), 5)
         nbytes = (2 * words[0].numel() * 4
@@ -7190,6 +7577,12 @@ def main():
     sa_dense_redesign(dev, results, graphs, torus, odd_torus, sk_problem,
                       tables, power, name)
     phase_seconds["sa_dense_redesign"] = time.perf_counter() - t_script
+
+    # ---- the chain-bit energy kernel at every K and generic SVMC over a
+    # cluster on both routes
+    energy_svmc_redesign(dev, results, graphs, torus, odd_torus, tables,
+                         power, name)
+    phase_seconds["energy_svmc_redesign"] = time.perf_counter() - t_script
 
     # ---- the cluster kernels against their plain versions
     cluster_checks(dev, results, gtorus80)

@@ -22,15 +22,19 @@ extern "C" int energy_halves(const float* w, const float* h, const float* a,
 }
 
 // Halves a, b of an even-L lattice as kernel A's chain bits,
-// (ceil(chains/C), nh) int32 words each, C chains a word; w, h as for
+// (ceil(chains/C), nh) int32 words each, C chains a word, read K chains
+// of a group a CTA (K of 1, 2, 4, 8, 16, 32 dividing C); w, h as for
 // energy_halves. Writes out (chains,).
 extern "C" int energy_chain_bits(const float* w, const float* h, const int* a,
-                                 const int* b, int chains, int C, int L,
-                                 int nslots, float* out, void* stream) {
+                                 const int* b, int chains, int C, int K,
+                                 int L, int nslots, float* out,
+                                 void* stream) {
   if (chains == 0) return cudaSuccess;
-  if (C < 1 || C > 32) return cudaErrorInvalidValue;
-  mcs::launch_chain_bits_energy(w, h, a, b, chains, C, L, nslots, out,
-                                static_cast<cudaStream_t>(stream));
+  if (C < 1 || C > 32 || K < 1 || C % K != 0) return cudaErrorInvalidValue;
+  const cudaError_t e = mcs::launch_chain_bits_energy(
+      w, h, a, b, chains, C, K, L, nslots, out,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 

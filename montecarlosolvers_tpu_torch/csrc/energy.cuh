@@ -2,7 +2,8 @@
 // per-phase host loops of split_sa.cu, split_qmc.cu, split_qmc_bath.cu,
 // split_svmc.cu, plane_sa.cu, plane_qmc.cu and plane_svmc.cu, and from the
 // stand-alone entry points of energy.cu (the samplers' exchanges read the
-// energies of kernel A's chain-bit words through chain_bits_energy_kernel).
+// energies of kernel A's chain-bit words through chain_bits_energy_kernel,
+// K chains of a group a CTA).
 //
 // Replaces no TPU kernel: the JAX package computes the per-step energies in
 // XLA inside its scans (ops/split.py:245, :324-330, :676, :715;
@@ -42,6 +43,9 @@
 
 #include <cuda_runtime.h>
 
+#include <stdint.h>
+
+#include "cluster.cuh"
 #include "counter_hash.cuh"
 
 namespace mcs {
@@ -122,29 +126,93 @@ halves_energy_kernel(const float* __restrict__ w, const float* __restrict__ h,
   if (threadIdx.x == 0) out[blockIdx.x] = best;
 }
 
-// out[chain] = the energy of one chain of halves a, b held as kernel A's
-// chain bits (ops/split_kernels.py::pack_chain_bits): (ceil(chains/C), nh)
-// int32 words each, bit c of word (g, j) the sign of chain g*C + c at site
-// j, 1 for -1. The same sum in the same order as halves_energy_kernel at
-// P = 1, so the two agree bitwise on the same spins.
+// The energies of kernel A's chain bits (ops/split_kernels.py::
+// pack_chain_bits): halves a, b as (ceil(chains/C), nh) int32 words each,
+// bit c of word (g, j) the sign of chain g*C + c at site j, 1 for -1. One
+// CTA takes K chains of one group, bits c0 .. c0 + K - 1 (K divides C,
+// ops/split_kernels.py::words_energy_geometry), and writes out[g*C + c]
+// for those of them below `chains` (a ragged last group's spare bits are
+// 0 and go unwritten).
+//
+// What bounds it on an H100. The words are 2 nh int32 a group: at 7040
+// chains on 80x80, 32 a word, 5.6 MB, and the couplings of half A and h,
+// (nslots + 2) nh floats, are shared by every chain; 1.4 us at 3.35 TB/s.
+// Its work is K sums of nslots + 2 signed terms a site: float adds and
+// the shifts that pick a chain's bit out of a word.
+//
+// What the design does about that. A thread loads each of its sites' own
+// words, the neighbours' words and the couplings once and adds all K
+// chains' terms from them in registers, so the C chains of a group read
+// their words and the couplings C / K times, not C times (the first
+// design took a CTA a chain: about 1.4 GB of L2 reads at 7040 chains for
+// 26 MB of distinct bytes). The words are shifted right by c0 once a
+// site, so chain k's sign is bit k, a constant in the unrolled loop.
+// The sum is the one halves_energy_kernel takes at P = 1: thread j adds
+// sites j, j + T, j + 2T, ... (T = kEnergyThreads) in halves_share_of's
+// slot order, and each chain's thread sums are reduced in block_sum's
+// order (a shuffle tree in each warp, then the warps' sums in warp
+// order, from 0). A spin's product with a float is a sign flip
+// (cluster.cuh::signed_by), exact, so every energy equals the halves
+// kernel's on the unpacked state bitwise.
+template <int K>
 __global__ void __launch_bounds__(kEnergyThreads)
 chain_bits_energy_kernel(const float* __restrict__ w,
                          const float* __restrict__ h,
                          const int* __restrict__ a, const int* __restrict__ b,
-                         int C, int nh, int K, int nslots,
+                         int chains, int C, int nh, int Kl, int nslots,
                          float* __restrict__ out) {
-  __shared__ float red[kEnergyThreads / 32];
-  const int g = blockIdx.x / C;
-  const int c = blockIdx.x - g * C;
-  const int* wa = a + static_cast<size_t>(g) * nh;
-  const int* wb = b + static_cast<size_t>(g) * nh;
-  const float e = block_sum(
-      halves_share_of(
-          [wa, c](int i) { return (__ldg(wa + i) >> c) & 1 ? -1.0f : 1.0f; },
-          [wb, c](int i) { return (__ldg(wb + i) >> c) & 1 ? -1.0f : 1.0f; },
-          w, h, nh, K, nslots),
-      red);
-  if (threadIdx.x == 0) out[blockIdx.x] = e;
+  __shared__ float red[K][kEnergyThreads / 32];
+  const int per_group = C / K;  // CTAs a group
+  const int g = blockIdx.x / per_group;
+  const int c0 = (blockIdx.x - g * per_group) * K;  // the CTA's first bit
+  const uint32_t* wa = reinterpret_cast<const uint32_t*>(a) +
+                       static_cast<size_t>(g) * nh;
+  const uint32_t* wb = reinterpret_cast<const uint32_t*>(b) +
+                       static_cast<size_t>(g) * nh;
+  float acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+  for (int j = threadIdx.x; j < nh; j += blockDim.x) {
+    // half A's couplings of site j in counter_hash.cuh::stencil's slot
+    // order, and half B's words at j, j+1, j-1, j+K, j-K, j-(K-1),
+    // j+(K-1) (mod nh), shifted so that chain c0 + k is bit k
+    float wv[7];
+    load_weights(w, 0, nh, nslots, j, wv);
+    uint32_t o[7];
+    o[0] = __ldg(wb + j) >> c0;
+    o[1] = __ldg(wb + wrap_index(j + 1, nh)) >> c0;
+    o[2] = __ldg(wb + wrap_index(j - 1, nh)) >> c0;
+    o[3] = __ldg(wb + wrap_index(j + Kl, nh)) >> c0;
+    o[4] = __ldg(wb + wrap_index(j - Kl, nh)) >> c0;
+    o[5] = nslots > 5 ? __ldg(wb + wrap_index(j - (Kl - 1), nh)) >> c0 : 0u;
+    o[6] = nslots > 5 ? __ldg(wb + wrap_index(j + (Kl - 1), nh)) >> c0 : 0u;
+    const uint32_t sa = __ldg(wa + j) >> c0;
+    const float ha = __ldg(h + j);
+    const float hb = __ldg(h + nh + j);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      // halves_share_of's sa * (f + h_a) + h_b * sb, each product a sign
+      const float f = field_of_bit(wv, o, nslots, k);
+      acc[k] += signed_by(f + ha, sa, k) + signed_by(hb, o[0], k);
+    }
+  }
+  // block_sum for each chain: a shuffle tree a warp, then the warps' sums
+  // in warp order by one thread a chain
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float x = acc[k];
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(0xffffffffu, x, off);
+    if ((threadIdx.x & 31) == 0) red[k][threadIdx.x >> 5] = x;
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < K) {
+    const int c = g * C + c0 + static_cast<int>(threadIdx.x);
+    float s = 0.0f;
+    for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i)
+      s += red[threadIdx.x][i];
+    if (c < chains) out[c] = s;
+  }
 }
 
 // out[chain] = min over the 2Q slices of the energy of PIQMC quarters
@@ -215,13 +283,44 @@ inline void launch_halves_energy(const float* w, const float* h,
                                             out);
 }
 
-inline void launch_chain_bits_energy(const float* w, const float* h,
-                                     const int* a, const int* b, int chains,
-                                     int C, int L, int nslots, float* out,
-                                     cudaStream_t st) {
-  const int K = L / 2;
-  chain_bits_energy_kernel<<<chains, kEnergyThreads, 0, st>>>(
-      w, h, a, b, C, L * K, K, nslots, out);
+// K chains a CTA, K of 1, 2, 4, 8, 16 or 32 dividing C
+inline cudaError_t launch_chain_bits_energy(const float* w, const float* h,
+                                            const int* a, const int* b,
+                                            int chains, int C, int K, int L,
+                                            int nslots, float* out,
+                                            cudaStream_t st) {
+  const int Kl = L / 2;
+  const int grid = (chains + C - 1) / C * (C / K);
+  const int nh = L * Kl;
+  switch (K) {
+    case 1:
+      chain_bits_energy_kernel<1><<<grid, kEnergyThreads, 0, st>>>(
+          w, h, a, b, chains, C, nh, Kl, nslots, out);
+      break;
+    case 2:
+      chain_bits_energy_kernel<2><<<grid, kEnergyThreads, 0, st>>>(
+          w, h, a, b, chains, C, nh, Kl, nslots, out);
+      break;
+    case 4:
+      chain_bits_energy_kernel<4><<<grid, kEnergyThreads, 0, st>>>(
+          w, h, a, b, chains, C, nh, Kl, nslots, out);
+      break;
+    case 8:
+      chain_bits_energy_kernel<8><<<grid, kEnergyThreads, 0, st>>>(
+          w, h, a, b, chains, C, nh, Kl, nslots, out);
+      break;
+    case 16:
+      chain_bits_energy_kernel<16><<<grid, kEnergyThreads, 0, st>>>(
+          w, h, a, b, chains, C, nh, Kl, nslots, out);
+      break;
+    case 32:
+      chain_bits_energy_kernel<32><<<grid, kEnergyThreads, 0, st>>>(
+          w, h, a, b, chains, C, nh, Kl, nslots, out);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }
 
 inline void launch_quarters_energy(const float* w, const float* h,

@@ -230,6 +230,15 @@ SIGNATURES = {
         "packed_svmc_anneal": (
             _I, [_P] * 7 + [ctypes.c_float] + [_P] * 3 + [_I] * 12 + [_P]
         ),
+        # the cluster route: slot_starts, starts, nbr_loc, nbr_J, h, perm,
+        # a_sched, b_sched, temp, th_in, th_out, energies, chains, n,
+        # maxnb, ncolors, R, nr, threads, steps, seed, tf, j_stride,
+        # h_stride, mcsteps, chain0, improper, stream
+        "packed_svmc_cluster_anneal": (
+            _I, [_P] * 8 + [ctypes.c_float] + [_P] * 3 + [_I] * 15 + [_P]
+        ),
+        # R, threads, smem, out: clusters resident at once
+        "packed_svmc_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         "packed_svmc_anneal_error_string": (ctypes.c_char_p, [_I]),
     },
     "generic_qmc": {
@@ -353,8 +362,9 @@ SIGNATURES = {
     "energy": {
         # w, h, a, b, chains, P, L, nslots, cos_theta, out, stream
         "energy_halves": (_I, [_P] * 4 + [_I] * 5 + [_P, _P]),
-        # w, h, a_words, b_words, chains, C, L, nslots, out, stream
-        "energy_chain_bits": (_I, [_P] * 4 + [_I] * 4 + [_P, _P]),
+        # w, h, a_words, b_words, chains, C, K (chains of a group a CTA),
+        # L, nslots, out, stream
+        "energy_chain_bits": (_I, [_P] * 4 + [_I] * 5 + [_P, _P]),
         # w, h, xe, xo, ye, yo, chains, Q, L, nslots, out, stream
         "energy_quarters": (_I, [_P] * 6 + [_I] * 4 + [_P, _P]),
         # w, s, chains, P, L, cos_theta, out, stream
@@ -418,6 +428,9 @@ LAUNCHES.update({"generic_qmc_wide": 0, "generic_qmc_bath_wide": 0,
 # kernel, one CTA a chain, under "<key>_wide".
 LAUNCHES.update({"packed_sa_wide": 0, "packed_sa_noisy_wide": 0,
                  "packed_sa_chain_wide": 0})
+# Packed SVMC likewise: a chain's rotors over a cluster under "packed_svmc"
+# and "packed_svmc_noisy", the file's first kernel under "<key>_wide".
+LAUNCHES.update({"packed_svmc_wide": 0, "packed_svmc_noisy_wide": 0})
 # The noisy anneals (per-step coupling tables) run the packed SA and SVMC
 # kernels, one launch an anneal, counted apart; the dense engine launches
 # its in-block kernel once a block and sweep.

@@ -14,8 +14,12 @@ solver's masked path (`ops/piqmc.py::dissipative_local_sweep` :110 and
 `dissipative_colored_sweep` :152) are `csrc/generic_qmc_bath.cu`, which
 also runs the bath on every lattice the split bath engines do not take (an
 odd L, or bath_update="colored" at odd P), on the lattice's checkerboard
-packing (`ops/packed.py::packed_from_lattice`). Packed SVMC runs one CTA
-of THREADS threads a chain, the state in device memory. Generic PIQMC and
+packing (`ops/packed.py::packed_from_lattice`). Packed SVMC runs a
+chain's rotors in the shared memory of a thread-block cluster of R CTAs
+on the same slot layout (`packed_svmc_geometry`, `word_layout`; the
+file's cluster route), or on a graph of small class phases
+(`packed_svmc_one_cta`) its first kernel, one CTA a chain. Generic
+PIQMC and
 the generic bath run a chain's slices as bits of each site's words over a
 thread-block cluster (`csrc/generic_words.cuh`; R and the threads by
 `generic_qmc_geometry`, the slots by `word_layout`), and packed SA a
@@ -24,7 +28,8 @@ layout (the header's SA mode; C, R and the threads by
 `packed_sa_geometry`), but on a graph of small class phases
 (`packed_sa_one_cta`) its file's first kernel, one CTA a chain, under the
 same keys; for a chain or group no cluster holds, each file's first
-kernel runs, one CTA a chain, counted under "<key>_wide".
+kernel runs, one CTA a chain, the state in device memory, counted under
+"<key>_wide".
 
 Beside each wrapper sits its plain version (`packed_sa_anneal_ref`,
 `packed_svmc_anneal_ref`, `generic_qmc_anneal_ref`,
@@ -45,7 +50,7 @@ The wrappers dispatch on the device of the state: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises — nothing falls
 back. `_build.LAUNCHES` counts one launch an anneal under "packed_sa",
 "packed_svmc", "generic_qmc" and "generic_qmc_bath" (and the "_wide"
-routes of packed SA, generic PIQMC and the bath), and the noisy
+routes of each), and the noisy
 anneals (`packed_noisy_scan`, `packed_noisy_svmc_scan`: per-step coupling
 tables, the same two kernels with table strides) under "packed_sa_noisy"
 and "packed_svmc_noisy". With an `energies`
@@ -77,7 +82,8 @@ from montecarlosolvers_tpu_torch.ops.split_kernels import (CLUSTER_SIZES,
                                                            step_values,
                                                            with_energies)
 
-# threads of the one CTA a chain (csrc/packed.cuh::kPackedThreads)
+# threads of the one CTA a chain of the files' first kernels
+# (csrc/packed.cuh::kPackedThreads)
 THREADS = 256
 # the cluster route of generic PIQMC and the generic bath
 # (csrc/generic_words.cuh): at most this many threads a CTA, and the SMs of
@@ -93,6 +99,19 @@ WORD_HEAD_BYTES = 16 * 8 + WORD_THREADS // 32 * 4
 # and SA_TAIL floats after its buffers for the group's temperatures (and
 # as many for its energy shares)
 SA_THREADS, SA_BLOCKS_PER_SM, SA_TAIL = 256, 4, 32
+# generic SVMC's cluster route (csrc/packed_svmc.cu::
+# packed_svmc_cluster_kernel): at most SVMC_THREADS threads a CTA,
+# compiled for SVMC_BLOCKS_PER_SM such CTAs an SM, a head of
+# SVMC_HEAD_BYTES before its slots' cos, theta and sin (and, on a packing
+# that is not proper, the snapshot of cos); SM_SMEM_BYTES of shared memory
+# an SM (228 KB on an H100), of which the card reserves SMEM_RESERVED_BYTES
+# a CTA
+SVMC_THREADS, SVMC_BLOCKS_PER_SM, SVMC_HEAD_BYTES = 256, 4, 64
+SM_SMEM_BYTES, SMEM_RESERVED_BYTES = 233472, 1024
+# generic SVMC's rule of size: a proper packing of at most SVMC_CTA_PASSES
+# passes of the THREADS threads a class phase runs the file's first
+# kernel, one CTA a chain (`packed_svmc_one_cta`)
+SVMC_CTA_PASSES = 3
 # generic SA's rule of size: a graph of at most SA_CTA_PASSES passes of
 # the THREADS threads a class phase runs the file's first kernel, one CTA a
 # chain (`packed_sa_one_cta`)
@@ -423,7 +442,100 @@ def card_packed_sa_geometry(pg, chains, d_chains, per_chain, device):
                               resident=resident)
 
 
-_SA_RESIDENT, _LAYOUTS = {}, {}
+def svmc_smem_bytes(slots, proper=True):
+    """Shared memory of one CTA of generic SVMC's cluster route
+    (csrc/packed_svmc.cu::svmc_smem_bytes): the head, then cos, theta and
+    sin of `slots` slots, and on a packing that is not proper the snapshot
+    of cos: 12 (16) bytes a slot."""
+    return SVMC_HEAD_BYTES + (3 if proper else 4) * 4 * slots
+
+
+def svmc_threads(n, R, colors=1):
+    """Threads a CTA of generic SVMC's cluster route: one a slot, in whole
+    warps, at most SVMC_THREADS (a thread then takes several)."""
+    return min(SVMC_THREADS, -(-word_slots(n, R, colors) // 32) * 32)
+
+
+def packed_svmc_geometry(chains, n, colors=1, sms=NUM_SMS, resident=None,
+                         proper=True):
+    """(R, threads) of generic SVMC's cluster route (csrc/packed_svmc.cu)
+    for `chains` chains of an n-site graph of `colors` color classes: each
+    chain over a cluster of R CTAs, R the largest of CLUSTER_SIZES (R <= n)
+    whose CTA holds its slots' cos, theta and sin in shared memory
+    (`svmc_smem_bytes`; with `proper` False, also the snapshot of cos) and
+    whose `chains` clusters all run at once: chains x R at most the CTAs
+    the `sms` SMs hold (SVMC_BLOCKS_PER_SM an SM, fewer where the shared
+    memory runs out) and, with `resident(R, threads, smem)` (the wrapper
+    passes the card's cudaOccupancyMaxActiveClusters), at most the
+    clusters the card holds; if none is held whole, the smallest R that
+    fits. Kernel 4's rule (`split_kernels.svmc_split_geometry`) on the
+    generic slot layout: at 256 chains on the 80x80 torus's generic form
+    R = 2, two CTAs of 256 threads a chain. `svmc_threads` threads. None
+    when no cluster of 16 CTAs holds the slots (with two classes, n above
+    309,824) or the graph has more than 127 classes (`word_layout`): the
+    wrapper then runs the file's first kernel, one CTA a chain (the
+    "_wide" launch keys)."""
+    if colors > 127:
+        return None
+    fits = [r for r in CLUSTER_SIZES
+            if r <= max(n, 1) and svmc_smem_bytes(
+                word_slots(n, r, colors), proper) <= _build.SMEM_LIMIT_BYTES]
+    if not fits:
+        return None
+    for r in reversed(fits):
+        threads = svmc_threads(n, r, colors)
+        smem = svmc_smem_bytes(word_slots(n, r, colors), proper)
+        per_sm = min(SVMC_BLOCKS_PER_SM,
+                     SM_SMEM_BYTES // (smem + SMEM_RESERVED_BYTES))
+        if chains * r <= per_sm * sms and (
+                resident is None or resident(r, threads, smem) >= chains):
+            return r, threads
+    return fits[0], svmc_threads(n, fits[0], colors)
+
+
+def packed_svmc_one_cta(n, colors=1, proper=True):
+    """Whether generic SVMC on an n-site graph of `colors` classes runs the
+    file's first kernel, one CTA of THREADS threads a chain, rather than
+    the cluster route: on a proper packing whose class phase, ceil(n /
+    colors) sites, takes at most SVMC_CTA_PASSES passes of its threads
+    (768 sites). There the cluster route's phase costs its barrier for
+    little work. On an H100 80GB HBM3 at 700 W (`tools/time_kernels.py
+    --packed-svmc-crossover`, PERF.md), ms a sweep of the cluster route
+    at its rule's R against one CTA a chain: gaussian_torus(16) (128
+    sites a class) 0.0036-0.0045 against 0.0016-0.0017 at 8-256 chains;
+    chimera_graph(16) (683) 0.0089 against 0.0068 at 128 chains, 0.0092
+    against 0.0085 at 256, even at 8 and 32, 0.0273 against 0.0303 at
+    1280; random_3d_lattice(12) (864) 0.0043-0.0076 against 0.0056-0.0081
+    at 8-256 chains but 128 (0.0069 against 0.0067), 0.0235 against
+    0.0264 at 1280; from 2048 sites a class the cluster route ahead
+    everywhere but 1280 chains (1.04-1.07x, R = 1). The first kernel reads
+    a class's neighbours in place, so a packing that is not proper keeps
+    the cluster route, which reads them as the phase began."""
+    return proper and -(-n // max(colors, 1)) <= SVMC_CTA_PASSES * THREADS
+
+
+def card_packed_svmc_geometry(pg, chains, device):
+    """`packed_svmc_geometry` of `chains` chains of PackedGraph `pg` on the
+    CUDA card `device`: its SMs, and how many clusters of each shape the
+    card holds at once (`packed_svmc_max_active_clusters`). Cached per
+    shape."""
+    def resident(R, threads, smem):
+        key = (str(device), R, threads, smem)
+        if key not in _SVMC_RESIDENT:
+            lib = _build.library("packed_svmc")
+            count = ctypes.c_int(0)
+            rc = lib.packed_svmc_max_active_clusters(R, threads, smem,
+                                                     ctypes.byref(count))
+            _build.raise_on_error(lib, "packed_svmc_max_active_clusters", rc,
+                                  error_fn="packed_svmc_anneal_error_string")
+            _SVMC_RESIDENT[key] = count.value
+        return _SVMC_RESIDENT[key]
+    return packed_svmc_geometry(chains, pg.nspins, pg.num_colors,
+                                sms=card_sms(device), resident=resident,
+                                proper=pg.proper)
+
+
+_SA_RESIDENT, _SVMC_RESIDENT, _LAYOUTS = {}, {}, {}
 
 
 def word_layout(pg, R):
@@ -617,8 +729,21 @@ def packed_svmc_anneal(pg, a_sched, b_sched, temp, theta, seed, tf,
                        energies=None, tables=None, chain0=0):
     """csrc/packed_svmc.cu on CUDA tensors, `packed_svmc_anneal_ref` on CPU
     tensors; arguments as for the plain version. Returns the new angles.
-    One launch (LAUNCHES["packed_svmc"], energies or not; with `tables`,
-    LAUNCHES["packed_svmc_noisy"])."""
+
+    Two hand-written kernels share the work, chosen by shape alone, each
+    running the whole schedule in one launch: the cluster route
+    (`packed_svmc_cluster_kernel`, R CTAs a chain on `word_layout`'s
+    slots, the rotors in shared memory) and the file's first kernel, one
+    CTA a chain, the state in device memory. A proper packing of small
+    class phases (`packed_svmc_one_cta`) takes the first kernel; a larger
+    graph the cluster route, where `packed_svmc_geometry` finds a cluster
+    that holds a chain's rotors. Both count under LAUNCHES["packed_svmc"]
+    (energies or not; with `tables`, LAUNCHES["packed_svmc_noisy"]). A
+    graph no cluster of 16 CTAs holds, or of more than 127 classes, runs
+    the first kernel under the same keys + "_wide". Both hold the plain
+    version's angles as the SVMC checks do, and agree with each other
+    bitwise on a proper packing; neither is a fallback from a failure of
+    the other."""
     if _build.route(theta.device, "packed") == "cpu":
         return packed_svmc_anneal_ref(pg, a_sched, b_sched, temp, theta,
                                       seed, tf, energies, tables, chain0)
@@ -630,19 +755,37 @@ def packed_svmc_anneal(pg, a_sched, b_sched, temp, theta, seed, tf,
     _build.check_arg(theta, "theta", (chains, pg.nspins), dev)
     _build.check_arg(a_sched, "a_sched", (steps,), dev)
     _build.check_arg(b_sched, "b_sched", (steps,), dev)
+    key = "packed_svmc" if tables is None else "packed_svmc_noisy"
+    lib = _build.library("packed_svmc")
+    sched = (steps, cr.wrap_int32(seed), int(bool(tf)))
+    strides = (j_stride, h_stride, mcsteps, int(chain0))
+    geometry = card_packed_svmc_geometry(pg, chains, dev)
+    one_cta = packed_svmc_one_cta(n, pg.num_colors, pg.proper)
+    if geometry is not None and not one_cta:
+        R, threads = geometry
+        _, slot_starts, nbr_loc, nr = word_layout(pg, R)
+        out = torch.empty_like(theta)
+        rc = lib.packed_svmc_cluster_anneal(
+            _build.ptr(slot_starts), graph[4], _build.ptr(nbr_loc),
+            *graph[1:4], _build.ptr(a_sched), _build.ptr(b_sched),
+            ctypes.c_float(temp), _build.ptr(theta), _build.ptr(out),
+            _build.energies_ptr(energies, steps, chains, dev), chains, n,
+            pg.nbr_idx.shape[1], pg.num_colors, R, nr, threads, *sched,
+            *strides, int(not pg.proper), _build.stream_of(dev))
+        _build.raise_on_error(lib, "packed_svmc_cluster_anneal", rc,
+                              error_fn="packed_svmc_anneal_error_string")
+        _build.LAUNCHES[key] += 1
+        return out
     out = theta.clone()
     scratch = torch.empty((2, chains, n), dtype=torch.float32, device=dev)
-    lib = _build.library("packed_svmc")
     rc = lib.packed_svmc_anneal(
         *graph, _build.ptr(a_sched), _build.ptr(b_sched),
         ctypes.c_float(temp), _build.ptr(out), _build.ptr(scratch),
         _build.energies_ptr(energies, steps, chains, dev), chains, n,
-        pg.nbr_idx.shape[1], pg.num_colors, steps, cr.wrap_int32(seed),
-        int(bool(tf)), THREADS, j_stride, h_stride, mcsteps, int(chain0),
+        pg.nbr_idx.shape[1], pg.num_colors, *sched, THREADS, *strides,
         _build.stream_of(dev))
     _build.raise_on_error(lib, "packed_svmc_anneal", rc)
-    _build.LAUNCHES["packed_svmc" if tables is None
-                    else "packed_svmc_noisy"] += 1
+    _build.LAUNCHES[key if geometry is not None else key + "_wide"] += 1
     return out
 
 

@@ -89,6 +89,9 @@ FILL_GROUPS = 32
 # split_qmc_bath.cu, plane_sa.cu and plane_qmc.cu compile for 5 such CTAs
 # an SM, plane_svmc.cu for 4).
 MAX_THREADS = 256
+# The chain-bit energy kernel (csrc/energy.cuh) takes K of these chains of
+# a group a CTA (`words_energy_geometry`).
+ENERGY_CHAINS_A_CTA = (1, 2, 4, 8, 16, 32)
 
 
 # ------------------------------------------------------------ plain versions
@@ -753,9 +756,29 @@ def words_energy_ref(sl, a, b, chains, C):
                                         unpack_chain_bits(b, chains, C))
 
 
+def words_energy_geometry(chains, C, sms):
+    """K, the chains of one group a CTA of the chain-bit energy kernel
+    reads (csrc/energy.cuh::chain_bits_energy_kernel) at `chains` chains
+    C a word on a card of `sms` SMs: the largest of ENERGY_CHAINS_A_CTA
+    that divides C and whose ceil(chains / C) * C / K CTAs of 512 threads
+    fill at least half the SMs, else 1 (the most CTAs). A CTA reads its
+    group's words and the couplings once for its K chains. On an H100
+    80GB HBM3 at 700 W (PERF.md, 80x80 torus) 384 chains 8 a word took
+    0.0077 ms a call at K = 4 (96 CTAs) against 0.0104 at K = 2 (192) and
+    0.0094 at K = 8 (48), 1024 chains 32 a word 0.0095 at K = 8 (128)
+    against 0.0122 at K = 4 and 0.0127 at K = 16, 7040 chains 0.0371 at
+    K = 32 (220) against 0.0413 at K = 16."""
+    groups = -(-chains // C)
+    for k in reversed(ENERGY_CHAINS_A_CTA):
+        if C % k == 0 and 2 * groups * (C // k) >= sms:
+            return k
+    return 1
+
+
 def words_energy(sl, a, b, chains, C):
     """The energy kernel on kernel A's chain-bit words (csrc/energy.cuh::
-    chain_bits_energy_kernel, LAUNCHES["energy_bits"]) on CUDA tensors,
+    chain_bits_energy_kernel, LAUNCHES["energy_bits"], one launch a call,
+    K chains of a group a CTA by `words_energy_geometry`) on CUDA tensors,
     `words_energy_ref` on CPU ones: the energies without unpacking the
     state, bitwise those of `energy.halves_energy` on the unpacked
     halves."""
@@ -764,9 +787,11 @@ def words_energy(sl, a, b, chains, C):
     groups = -(-chains // C)
     for t, name in ((a, "a"), (b, "b")):
         _build.check_arg(t, name, (groups, sl.nh), a.device, torch.int32)
+    K = words_energy_geometry(chains, C, torch.cuda.get_device_properties(
+        a.device).multi_processor_count)
     return energy_ops.launch(
         "energy_chain_bits", a.device, chains,
-        *map(_build.ptr, (sl.w_ab, sl.h_ab, a, b)), chains, C, sl.L,
+        *map(_build.ptr, (sl.w_ab, sl.h_ab, a, b)), chains, C, K, sl.L,
         sl.nslots, key="energy_bits")
 
 

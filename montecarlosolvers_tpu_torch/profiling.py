@@ -16,7 +16,9 @@ the caching allocator is warm. The dissipative paths run through
 colored template, and the generic bath kernel on the odd torus and on the
 80x80 torus's generic form, sequential and colored (tau = 200, as
 chip_smoke.py runs them), and sequential on chimera_graph(16, rng=0) at
-P = 20; generic PIQMC runs solve("piqmc") at P = 40 on that generic form
+P = 20; solve("svmc") runs on the 80x80 torus's generic form too (256
+reads, 2000 sweeps: generic SVMC); generic PIQMC runs solve("piqmc") at
+P = 40 on that generic form
 and at P = 20 on chimera_graph(16, rng=0), 32 reads, 1000 sweeps, and
 generic SA solve("sa") on random_3d_lattice(16, rng=0), 1280 reads, 2000
 sweeps. The
@@ -153,6 +155,8 @@ def main(argv=None):
          partial(solve, odd, seed=1, slices=5, **qmc_kw)),
         ("svmc", lattice, partial(solve, problem, seed=1, **svmc_kw)),
         ("svmc_l81", odd_name, partial(solve, odd, seed=1, **svmc_kw)),
+        ("svmc_generic", f"{lattice}, generic",
+         partial(solve, problem.to_generic(), seed=1, **svmc_kw)),
         # 32 chains, P = 40, alpha = 1e-2: bench.py::_piqmc_bath_arm
         ("piqmc_bath_p40", lattice,
          partial(dissipative_qa, problem, 32, 1000, 40, 1e-2, seed=1)),

@@ -26,7 +26,10 @@ a chain's slices as words over a cluster, CTA r holding the r-th chunk of
 every color class, `word_layout`), or for a chain no cluster holds each
 file's first kernel (the "_wide" launch keys). fk_line keeps a line's
 bond rows in registers at P <= 64 and in a warp's shared memory beyond
-(`cluster_kernels.line_wide_bytes`, up to LINE_MAX_SLICES).
+(`cluster_kernels.line_wide_bytes`, up to LINE_MAX_SLICES). Generic SVMC
+spreads a chain's rotors over a cluster on the same slot layout
+(`generic_kernels.packed_svmc_geometry`), and the chain-bit energy kernel
+reads K chains of a group a CTA (`split_kernels.words_energy_geometry`).
 """
 
 import numpy as np
@@ -655,3 +658,143 @@ def test_sa_words_constants_match_the_header():
 def test_packed_sa_one_cta(n, colors, one_cta):
     assert gk.packed_sa_one_cta(n, colors) is one_cta
     assert gk.SA_CTA_PASSES * gk.THREADS == 1280
+
+
+# Generic SVMC's cluster route (csrc/packed_svmc.cu::
+# packed_svmc_cluster_kernel): (graph, chains) -> (R, threads). R the
+# largest of CLUSTER_SIZES whose chains x R CTAs fit SVMC_BLOCKS_PER_SM an
+# SM on the 132 SMs (528; fewer where the shared memory runs out), else
+# the smallest that fits: 8 and 32 chains over 16 CTAs, 256 chains over 2
+# (512 CTAs), 1280 chains at R = 1, none held whole
+SVMC_GRAPHS = {
+    "torus": (lambda: instances.gaussian_torus(80, 0, device="cpu")
+              .to_generic(), 6400, 2),
+    "chimera": (lambda: instances.chimera_graph(16, rng=0, device="cpu")[0],
+                2048, 3),
+    "graph100": (lambda: instances.random_graph(100, 200, rng=0,
+                                                device="cpu")[0], 100, 5),
+}
+
+
+@pytest.mark.parametrize("graph,chains,R,threads", [
+    ("torus", 8, 16, 256), ("torus", 32, 16, 256), ("torus", 256, 2, 256),
+    ("torus", 1280, 1, 256),
+    ("chimera", 8, 16, 160), ("chimera", 32, 16, 160),
+    ("chimera", 256, 2, 256), ("chimera", 1280, 1, 256),
+    ("graph100", 8, 16, 32), ("graph100", 32, 16, 32),
+    ("graph100", 256, 2, 64), ("graph100", 1280, 1, 128),
+])
+def test_packed_svmc_geometry(graph, chains, R, threads):
+    make, n, colors = SVMC_GRAPHS[graph]
+    pg = packed_ops.build_packed(make())
+    assert (pg.nspins, pg.num_colors) == (n, colors)
+    assert gk.packed_svmc_geometry(chains, n, colors) == (R, threads)
+    smem = gk.svmc_smem_bytes(gk.word_slots(n, R, colors))
+    assert smem <= _build.SMEM_LIMIT_BYTES
+    per_sm = min(gk.SVMC_BLOCKS_PER_SM,
+                 gk.SM_SMEM_BYTES // (smem + gk.SMEM_RESERVED_BYTES))
+    assert chains * R <= per_sm * gk.NUM_SMS or R == 1
+    # the slots of the layout the wrapper hands the kernel
+    assert gk.word_layout(pg, R)[3] <= gk.word_slots(n, R, colors)
+
+
+def test_packed_svmc_geometry_takes_what_the_card_holds():
+    """With the card's count of resident clusters, R goes down until every
+    chain's cluster runs at once; if none is held whole, the smallest R
+    that fits."""
+    def resident(R, threads, smem):
+        assert threads % 32 == 0 and threads <= gk.SVMC_THREADS
+        assert smem <= _build.SMEM_LIMIT_BYTES
+        return 7 * (16 // R) if R > 4 else 528 // R
+
+    assert gk.packed_svmc_geometry(8, 6400, 2, resident=resident) == (
+        8, 256)
+    assert gk.packed_svmc_geometry(7, 6400, 2, resident=resident) == (
+        16, 256)
+    assert gk.packed_svmc_geometry(32, 6400, 2, resident=resident) == (
+        4, 256)
+    assert gk.packed_svmc_geometry(256, 6400, 2, resident=resident) == (
+        2, 256)
+    assert gk.packed_svmc_geometry(256, 6400, 2,
+                                   resident=lambda *a: 0) == (1, 256)
+
+
+def test_packed_svmc_geometry_limit():
+    """The first shapes the cluster route leaves to the first kernel: with
+    two classes a ring of 309,825 sites (the slots of one of 16 CTAs no
+    longer fit 227 KB at 12 bytes a slot beside the head), 232,369 on a
+    packing that is not proper (16 bytes a slot), and any graph of more
+    than 127 classes."""
+    assert gk.packed_svmc_geometry(1, 309824, 2) == (16, 256)
+    assert gk.svmc_smem_bytes(gk.word_slots(309824, 16, 2)) <= \
+        _build.SMEM_LIMIT_BYTES < gk.svmc_smem_bytes(
+            gk.word_slots(309825, 16, 2))
+    assert gk.packed_svmc_geometry(1, 309825, 2) is None
+    assert gk.packed_svmc_geometry(256, 309825, 2) is None
+    assert gk.packed_svmc_geometry(1, 232368, 2, proper=False) == (16, 256)
+    assert gk.packed_svmc_geometry(1, 232369, 2, proper=False) is None
+    assert gk.packed_svmc_geometry(8, 130, 127) is not None
+    assert gk.packed_svmc_geometry(8, 130, 128) is None
+
+
+def test_svmc_constants_match_the_source():
+    """SVMC_THREADS, SVMC_BLOCKS_PER_SM and SVMC_HEAD_BYTES are the
+    kernel's, and the shared bytes a slot are its three (four) floats."""
+    import pathlib
+    import re
+    src = (pathlib.Path(gk.__file__).parent.parent / "csrc"
+           / "packed_svmc.cu").read_text()
+    for name, value in (("kSvmcThreads", gk.SVMC_THREADS),
+                        ("kSvmcMinBlocks", gk.SVMC_BLOCKS_PER_SM),
+                        ("kSvmcHeadBytes", gk.SVMC_HEAD_BYTES)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) \
+            == str(value)
+    assert "(improper ? 4 : 3) * static_cast<size_t>(nr)" in src
+    assert gk.svmc_smem_bytes(10) == gk.SVMC_HEAD_BYTES + 120
+    assert gk.svmc_smem_bytes(10, proper=False) == gk.SVMC_HEAD_BYTES + 160
+
+
+# The chain-bit energy kernel's K (csrc/energy.cuh): (chains, C) -> K, the
+# largest of 1, 2, 4, 8, 16, 32 dividing C whose CTAs fill at least half of
+# the 132 SMs: 384 chains take 96 CTAs of 4, 1024 and 7040 chains 8 a word
+# 128 and 880 CTAs of 8, 7040 chains 32 a word 220 CTAs of 32
+@pytest.mark.parametrize("chains,C,K", [
+    (384, 8, 4), (384, 32, 4), (1024, 8, 8), (1024, 32, 8), (7040, 8, 8),
+    (7040, 32, 32), (1, 1, 1), (7, 1, 1), (33, 2, 1), (1024, 12, 4),
+])
+def test_words_energy_geometry(chains, C, K):
+    assert sk.words_energy_geometry(chains, C, 132) == K
+    groups = -(-chains // C)
+    assert C % K == 0
+    assert 2 * groups * (C // K) >= 132 or K == 1
+
+
+def test_words_energy_chains_a_cta_match_the_launcher():
+    """Every K of ENERGY_CHAINS_A_CTA has an instantiation in the
+    launcher, and no other."""
+    import pathlib
+    import re
+    src = (pathlib.Path(sk.__file__).parent.parent / "csrc"
+           / "energy.cuh").read_text()
+    launcher = src[src.index("inline cudaError_t launch_chain_bits_energy"):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    assert tuple(int(k) for k in re.findall(r"case (\d+):", launcher)) == \
+        sk.ENERGY_CHAINS_A_CTA
+
+
+# Generic SVMC's rule of size: (n, colors, proper) -> one CTA a chain. A
+# proper packing whose class phase is at most SVMC_CTA_PASSES passes of
+# THREADS threads (768 sites) takes the file's first kernel: the 16 x 16
+# torus (128 sites a class), chimera_graph(16) (2048 sites, three classes),
+# not random_3d_lattice(12) (864), random_3d_lattice(16) or the 80 x 80
+# torus; a packing that is not proper never (the first kernel reads a
+# class's neighbours in place)
+@pytest.mark.parametrize("n,colors,proper,one_cta", [
+    (256, 2, True, True), (2048, 3, True, True), (1536, 2, True, True),
+    (1537, 2, True, False), (1728, 2, True, False), (4096, 2, True, False),
+    (6400, 2, True, False), (81, 2, False, False), (130, 130, True, True),
+    (768, 1, True, True), (769, 1, True, False),
+])
+def test_packed_svmc_one_cta(n, colors, proper, one_cta):
+    assert gk.packed_svmc_one_cta(n, colors, proper) is one_cta
+    assert gk.SVMC_CTA_PASSES * gk.THREADS == 768

@@ -80,6 +80,15 @@ temperatures a chain, per-step tables, a disorder batch, chain0 and
 one-step launches, and at the last ring the cluster route holds; the
 dense in-block kernel equals its plain version at 1 to 16 warps a CTA,
 blocks of 7 to 128, h added in the kernel or given in the fields.
+Generic SVMC equals its plain version on both routes, the cluster route
+(a chain's rotors in the shared memory of a cluster of CTAs, at its
+rule's R and at R = 1, 4 and 16) and the first kernel ("_wide", forced,
+and by shape on a graph of 130 classes), TF and uniform proposals,
+energies, per-step tables, chain0, the odd torus's improper
+checkerboard, and the two routes agree bitwise on proper packings; the
+chain-bit energy kernel equals the halves kernel bitwise at 1 to 7040
+chains and every K (chains of a group a CTA); generic SVMC's rule of
+size sends small class phases to the first kernel under the plain key.
 """
 
 import contextlib
@@ -2788,3 +2797,213 @@ def test_dense_block_kernel_equals_plain(cuda, monkeypatch, warps, N, chains,
     assert torch.equal(whole, ref)
     cols = slice(start, start + block)
     assert float((ref[:, cols] != sp[:, cols]).float().mean()) > 0.05
+
+
+# ------------------------------------------- generic SVMC over a cluster
+
+
+def _svmc_inputs(pg, dev, chains, steps, mode, seed=0):
+    """(start angles, run(fn, energies) -> angles, launch key) of generic
+    SVMC in `mode`: "static", "energies", "noisy" (per-step tables, two
+    sweeps a row) or "chain0" (uids from chain 100003); A 3 -> 1e-8, B =
+    0.9, T = 0.05."""
+    n = pg.nspins
+    start = _angles((chains, n), dev, seed)
+    a = schedules.linear(3.0, 1e-8, steps, device=dev)
+    b = torch.full_like(a, 0.9)
+    key, kw = "packed_svmc", {}
+    if mode == "noisy":
+        r = np.random.default_rng(seed + 1)
+        rows = steps // 2
+        jt = (pg.nbr_J[None] * torch.as_tensor(
+            1 + 0.1 * r.standard_normal((rows,) + tuple(pg.nbr_J.shape)),
+            dtype=torch.float32, device=dev)).contiguous()
+        ht = (pg.h[None] * torch.as_tensor(
+            1 + 0.1 * r.standard_normal((rows, n)), dtype=torch.float32,
+            device=dev)).contiguous()
+        kw["tables"] = (jt, ht, 2)
+        key = "packed_svmc_noisy"
+    elif mode == "chain0":
+        kw["chain0"] = 100003
+
+    def run(fn, es=None, tf=True):
+        return fn(pg, a, b, 0.05, start, 7, tf, energies=es, **kw)
+    return start, run, key
+
+
+@pytest.mark.parametrize("route", ["cluster", "wide"])
+@pytest.mark.parametrize("graph,chains,tf,mode,R", [
+    ("torus10", 1, True, "static", None),
+    ("torus10", 33, False, "static", None),
+    ("torus10", 256, True, "static", None),
+    ("rg9", 7, True, "energies", None),
+    ("rg_fields", 6, False, "energies", None),
+    ("chimera", 40, True, "noisy", None),
+    ("rg_fields", 9, False, "noisy", None),
+    ("torus10", 9, True, "chain0", None),
+    ("chimera", 12, True, "static", 1),
+    ("torus10", 12, False, "energies", 4),
+    ("glass3d", 5, True, "static", 16),
+])
+def test_packed_svmc_both_routes_equal_plain(cuda, monkeypatch, route, graph,
+                                             chains, tf, mode, R):
+    """Generic SVMC on both of its routes, the cluster route
+    (packed_svmc_cluster_kernel: a chain's rotors in the shared memory of
+    a cluster of CTAs, at its rule's R or at a forced one; its rule of
+    size, which sends these small graphs to the first kernel, answering
+    no) and the file's first kernel ("_wide", forced here by a rule of
+    shape that holds nothing), against the plain version: TF and uniform
+    proposals, one
+    chain to 256, energies, per-step tables, chain0. Angles as the SVMC
+    checks hold them, energies within ENERGY_RTOL * (sum |J| + sum |h|),
+    one launch a call under the route's key; on these proper packings
+    the two routes agree bitwise."""
+    prob = _generic(graph, cuda)
+    pg = gibbs.packed_of(prob)
+    if route == "wide":
+        monkeypatch.setattr(gk, "packed_svmc_geometry", lambda *a, **k: None)
+    else:
+        monkeypatch.setattr(gk, "packed_svmc_one_cta", lambda *a, **k: False)
+        if R is not None:
+            monkeypatch.setattr(gk, "packed_svmc_geometry", lambda *a, **k: (
+                R, gk.svmc_threads(pg.nspins, R, pg.num_colors)))
+    steps = 12
+    start, run, key = _svmc_inputs(pg, cuda, chains, steps, mode)
+    es, es_plain = ((torch.full((steps, chains), float("nan"), device=cuda)
+                     for _ in range(2)) if mode == "energies"
+                    else (None, None))
+    _build.reset_launches()
+    out = run(gk.packed_svmc_anneal, es, tf)
+    want = key + ("_wide" if route == "wide" else "")
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {want: 1}
+    ref = run(gk.packed_svmc_anneal_ref, es_plain, tf)
+    torch.cuda.synchronize()
+    _assert_angles_equal(out, ref, start)
+    if route == "cluster":
+        monkeypatch.setattr(gk, "packed_svmc_geometry", lambda *a, **k: None)
+        assert torch.equal(out, run(gk.packed_svmc_anneal, None, tf))
+    if es is not None:
+        assert torch.isfinite(es).all()
+        assert float((es - es_plain).abs().max()) <= \
+            gibbs.ENERGY_RTOL * gibbs.problem_scale(prob)
+
+
+@pytest.mark.parametrize("R", [None, 1, 16])
+def test_packed_svmc_cluster_route_on_an_improper_packing(cuda, monkeypatch,
+                                                          R):
+    """The 9 x 9 odd torus's checkerboard couples sites of one class: the
+    cluster route reads them from its snapshot of the phase's start, as
+    the plain version does, at its rule's R and at R = 1 and 16."""
+    pg = gibbs.packed_of(_bath_problem("odd_torus9", cuda))
+    assert not pg.proper
+    if R is not None:
+        monkeypatch.setattr(gk, "packed_svmc_geometry", lambda *a, **k: (
+            R, gk.svmc_threads(pg.nspins, R, pg.num_colors)))
+    start, run, key = _svmc_inputs(pg, cuda, 16, 10, "energies")
+    es, es_plain = (torch.full((10, 16), float("nan"), device=cuda)
+                    for _ in range(2))
+    _build.reset_launches()
+    out = run(gk.packed_svmc_anneal, es)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {key: 1}
+    ref = run(gk.packed_svmc_anneal_ref, es_plain)
+    torch.cuda.synchronize()
+    _assert_angles_equal(out, ref, start)
+    assert float((es - es_plain).abs().max()) <= \
+        gibbs.ENERGY_RTOL * float(pg.nbr_J.abs().sum() / 2 + pg.h.abs().sum())
+
+
+@pytest.mark.parametrize("graph,chains,one_cta", [
+    ("torus16", 32, True), ("chimera16", 128, True), ("glass12", 32, False),
+    ("torus80", 8, False),
+])
+def test_packed_svmc_rule_of_size_picks_the_kernel(cuda, monkeypatch, graph,
+                                                   chains, one_cta):
+    """Generic SVMC's rule of size on the card: the 16 x 16 torus's generic
+    form (128 sites a class) and chimera_graph(16) (three classes of about
+    683) run the file's first kernel, one CTA a chain,
+    random_3d_lattice(12) (864 a class) and the 80 x 80 torus's generic
+    form the cluster route; both under the plain launch key, equal to the
+    plain version. The library's two entry points are watched to see
+    which one the wrapper called."""
+    prob = {"torus16": lambda: instances.gaussian_torus(
+                16, seed=0, device=cuda).to_generic(),
+            "chimera16": lambda: instances.chimera_graph(
+                16, rng=0, device=cuda)[0],
+            "glass12": lambda: instances.random_3d_lattice(
+                12, rng=0, device=cuda)[0],
+            "torus80": lambda: instances.gaussian_torus(
+                80, seed=0, device=cuda).to_generic()}[graph]()
+    pg = gibbs.packed_of(prob)
+    assert gk.packed_svmc_one_cta(pg.nspins, pg.num_colors) is one_cta
+    lib = _build.library("packed_svmc")
+    called = []
+    for entry in ("packed_svmc_anneal", "packed_svmc_cluster_anneal"):
+        def spy(*a, entry=entry, fn=getattr(lib, entry)):
+            called.append(entry)
+            return fn(*a)
+        monkeypatch.setattr(lib, entry, spy)
+    start, run, key = _svmc_inputs(pg, cuda, chains, 6, "static")
+    _build.reset_launches()
+    out = run(gk.packed_svmc_anneal)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {key: 1}
+    assert called == ["packed_svmc_anneal" if one_cta
+                      else "packed_svmc_cluster_anneal"]
+    _assert_angles_equal(out, run(gk.packed_svmc_anneal_ref), start)
+
+
+def test_packed_svmc_main_path_takes_the_cluster_route(cuda):
+    """The main path's shape, 256 chains on the 80 x 80 torus's generic
+    form, runs the cluster route under "packed_svmc" and equals the plain
+    version."""
+    prob = instances.gaussian_torus(80, 0, device=cuda).to_generic()
+    pg = gibbs.packed_of(prob)
+    assert gk.card_packed_svmc_geometry(pg, 256, cuda) is not None
+    start, run, key = _svmc_inputs(pg, cuda, 256, 6, "static")
+    _build.reset_launches()
+    out = run(gk.packed_svmc_anneal)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {key: 1}
+    _assert_angles_equal(out, run(gk.packed_svmc_anneal_ref), start)
+
+
+def test_packed_svmc_takes_the_wide_route_by_shape(cuda):
+    """A graph of more than 127 classes is past the cluster route's slot
+    code: generic SVMC runs the first kernel there, by its rule of shape,
+    and equals the plain version."""
+    pg = gibbs.packed_of(_sa_problem("complete130", cuda))
+    assert pg.num_colors == 130
+    assert gk.packed_svmc_geometry(8, pg.nspins, pg.num_colors) is None
+    start, run, _ = _svmc_inputs(pg, cuda, 8, 6, "static")
+    _build.reset_launches()
+    out = run(gk.packed_svmc_anneal)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "packed_svmc_wide": 1}
+    _assert_angles_equal(out, run(gk.packed_svmc_anneal_ref), start)
+
+
+@pytest.mark.parametrize("chains", [1, 7, 384, 1024, 7040])
+def test_words_energy_equals_the_halves_kernel_at_every_k(cuda, monkeypatch,
+                                                          chains):
+    """The chain-bit energy kernel at every K (chains of a group a CTA)
+    that divides kernel A's C at this many chains equals the energy
+    kernel on the unpacked halves bitwise, one launch a call; the rule's
+    K is one of them."""
+    lat = instances.gaussian_torus(80, 0, device=cuda)
+    sl = split_ops.build_split(lat)
+    rng = np.random.default_rng(chains)
+    a, b = (x.contiguous() for x in split_ops.pack_classical(
+        sl, torch.as_tensor(rng.choice([-1.0, 1.0], size=(chains, 6400))
+                            .astype(np.float32), device=cuda)))
+    C = sk.chain_word_bits(chains)
+    words = (sk.pack_chain_bits(a, C), sk.pack_chain_bits(b, C))
+    want = energy_ops.halves_energy(sl, a, b)
+    ks = [k for k in sk.ENERGY_CHAINS_A_CTA if C % k == 0]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sk.words_energy_geometry(chains, C, sms) in ks
+    for k in ks:
+        monkeypatch.setattr(sk, "words_energy_geometry", lambda *_, k=k: k)
+        _build.reset_launches()
+        e = sk.words_energy(sl, *words, chains, C)
+        assert {k_: v for k_, v in _build.LAUNCHES.items() if v} == {
+            "energy_bits": 1}
+        torch.cuda.synchronize()
+        assert torch.equal(e, want), k

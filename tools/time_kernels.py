@@ -10,8 +10,10 @@ the main path's shapes.
         [--split-svmc-geometry R ...] [--generic-geometry R ...]
         [--label-geometry R ...] [--packed-sa-geometry GRAPH:CHAINS:C:R
         ...] [--packed-sa-wide] [--dense-warps W ...]
-        [--only KERNEL ...] [--qmc-phased]
+        [--energy-bits-k CHAINS:K ...] [--packed-svmc-geometry CHAINS:R
+        ...] [--only KERNEL ...] [--qmc-phased]
     PYTHONPATH=<checkout> python tools/time_kernels.py --packed-sa-crossover
+    PYTHONPATH=<checkout> python tools/time_kernels.py --packed-svmc-crossover
     PYTHONPATH=<checkout> python tools/time_kernels.py --hw-rng [--rounds N]
 
 Rows: kernel A at 1280 and 32 chains on the seeded L x L torus (T: 3 -> 0),
@@ -70,10 +72,21 @@ and `--one-step` adds
 to their rows the median ms of a whole one-step call (what the cluster
 solvers' interleaved local sweeps pay). `--label-geometry` times
 fk_label and fk_wolff at each given cluster size R (where the checkout has
-`cluster_kernels.label_geometry`). `--only` times just the
+`cluster_kernels.label_geometry`). The energy kernel on kernel A's
+chain-bit words (`time_energy_bits`: `split_kernels.words_energy` at 384,
+1024 and 7040 chains on the L x L torus, 400 calls queued behind a spin
+kernel, beside the energy kernel on the unpacked halves) and generic SVMC
+(`time_packed_svmc`: `generic_kernels.packed_svmc_anneal` on the L x L
+torus's generic form at 256 chains, TF and uniform proposals and per-step
+tables, and at 32 and 8 chains) time as the rest; `--energy-bits-k`
+times the words' energy at CHAINS chains at each given K (chains of a
+group a CTA, where the checkout has `words_energy_geometry`) and
+`--packed-svmc-geometry` generic SVMC at CHAINS chains at each given
+cluster size R, R = 0 for the file's first kernel (where the checkout has
+`packed_svmc_geometry`). `--only` times just the
 named kernels (split_sa, split_qmc_bath, plane_sa, split_qmc, plane_qmc,
 plane_svmc, split_svmc, packed_sa, generic_qmc, generic_qmc_bath,
-dense_sa, fk_label, fk_wolff). `--qmc-phased`
+dense_sa, fk_label, fk_wolff, energy_bits, packed_svmc). `--qmc-phased`
 adds a row of kernel B's per-phase route at the same shape (its
 `qmc_geometry` answering that no cluster holds it). `--hw-rng` times
 instead kernels A, B, 4 and 5
@@ -129,6 +142,9 @@ def main():
     ap.add_argument("--packed-sa-wide", action="store_true")
     ap.add_argument("--packed-sa-crossover", action="store_true")
     ap.add_argument("--dense-warps", nargs="*", default=[])
+    ap.add_argument("--energy-bits-k", nargs="*", default=[])
+    ap.add_argument("--packed-svmc-geometry", nargs="*", default=[])
+    ap.add_argument("--packed-svmc-crossover", action="store_true")
     ap.add_argument("--only", nargs="*", default=None)
     ap.add_argument("--hw-rng", action="store_true")
     ap.add_argument("--qmc-phased", action="store_true")
@@ -175,6 +191,13 @@ def main():
     if args.packed_sa_crossover:
         time_packed_sa_crossover(dev, spins, taus, emit)
         return
+    if args.packed_svmc_crossover:
+        time_packed_svmc_crossover(dev, taus, emit)
+        return
+    if wanted("energy_bits"):
+        time_energy_bits(args, dev, sl, spins, emit)
+    if wanted("packed_svmc"):
+        time_packed_svmc(args, dev, L, taus, emit)
 
     sa_geoms = [tuple(map(int, g.split(":"))) for g in args.sa_geometry]
     own_sa = getattr(sk, "sa_geometry", None)
@@ -777,6 +800,171 @@ def time_cluster(args, dev, pg, spins, taus, emit, wanted):
                 rec["mean_cluster_sites"] = float(vis.sum()) / steps[1] / \
                     chains
             emit(**rec)
+
+
+def time_energy_bits(args, dev, sl, spins, emit):
+    """The energy kernel on kernel A's chain-bit words (the samplers'
+    exchanges) at 384 (pt_value's 48 rungs x 8 reads), 1024 and 7040
+    (solve("pt")'s 110 rungs x 64 reads) chains on the L x L torus, C
+    chains a word by kernel A's rule: ms a call, 400 calls queued behind a
+    spin kernel (CUDA events, the least of three), with the K the rule
+    chose (`words_energy_geometry`, where the checkout has it) or each
+    CHAINS:K of `--energy-bits-k`, beside the energy kernel on the
+    unpacked halves."""
+    from montecarlosolvers_tpu_torch.ops import energy as energy_ops
+    from montecarlosolvers_tpu_torch.ops import split as split_ops
+    from montecarlosolvers_tpu_torch.ops import split_kernels as sk
+
+    own = getattr(sk, "words_energy_geometry", None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    forced = [tuple(map(int, k.split(":"))) for k in args.energy_bits_k]
+    for chains in (384, 1024, 7040):
+        C = sk.chain_word_bits(chains)
+        a, b = (x.contiguous() for x in split_ops.pack_classical(
+            sl, spins(chains, sl.L * sl.L)))
+        words = (sk.pack_chain_bits(a, C), sk.pack_chain_bits(b, C))
+        ks = [k for c, k in forced if c == chains and own is not None]
+        for k in ks or [None]:
+            if k is not None:
+                sk.words_energy_geometry = lambda *_, k=k: k
+            try:
+                call = (lambda: sk.words_energy(sl, *words, chains, C))
+                call()
+                torch.cuda.synchronize()
+                _, ms = queued(call, 400, 100_000_000)
+                used = (sk.words_energy_geometry(chains, C, sms)
+                        if own is not None else None)
+            finally:
+                if own is not None:
+                    sk.words_energy_geometry = own
+            emit(kernel="energy_bits", chains=chains, C=C, K=used,
+                 ms_per_call=ms)
+        halves = (lambda: energy_ops.halves_energy(sl, a, b))
+        halves()
+        torch.cuda.synchronize()
+        emit(kernel="energy_halves", chains=chains,
+             ms_per_call=queued(halves, 400, 100_000_000)[1])
+
+
+def svmc_angles(dev, chains, n, seed=2):
+    """(chains, n) float32 angles in [0, pi) from a seeded numpy draw."""
+    r = np.random.default_rng(seed)
+    return torch.as_tensor((r.random((chains, n)) * np.pi)
+                           .astype(np.float32), device=dev)
+
+
+def svmc_runner(pg, th, dev, tf=True, tables=None):
+    """run(tau): generic SVMC on PackedGraph `pg` from angles `th`, A 3 ->
+    1e-8 over tau sweeps, B = 1, T = 0.05; with `tables`, its first tau
+    rows (the noisy anneal)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+
+    def run(tau):
+        a = schedules.linear(3.0, 1e-8, tau, device=dev)
+        kw = {} if tables is None else {
+            "tables": (tables[0][:tau], tables[1][:tau], 1)}
+        return gk.packed_svmc_anneal(pg, a, torch.ones_like(a), 0.05, th, 7,
+                                     tf, **kw)
+    return run
+
+
+def forced_svmc(gk, R, n, colors):
+    """A stand-in for `packed_svmc_geometry` that answers cluster size R
+    (0: no cluster, the file's first kernel)."""
+    if R == 0:
+        return lambda *a, **k: None
+    return lambda *a, **k: (R, gk.svmc_threads(n, R, colors))
+
+
+def time_packed_svmc(args, dev, L, taus, emit):
+    """Generic SVMC (A 3 -> 1e-8, B = 1, T = 0.05) on the L x L torus's
+    generic form: 256 chains with TF proposals, uniform proposals and
+    per-step tables (J (1 + 0.1 xi) a step, TF; the noisy anneal), and 32
+    and 8 chains, TF; each row with the (R, threads) the checkout's rule
+    chose (`card_packed_svmc_geometry`, where it has it) or each CHAINS:R
+    of `--packed-svmc-geometry` (R = 0: the file's first kernel)."""
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    pg = packed_ops.build_packed(instances.gaussian_torus(
+        L, seed=0, device=dev).to_generic())
+    own = getattr(gk, "packed_svmc_geometry", None)
+    forced = [tuple(map(int, g.split(":")))
+              for g in args.packed_svmc_geometry]
+    rng = np.random.default_rng(4)
+    steps_t = 2000
+    xi = torch.as_tensor(rng.standard_normal(
+        (steps_t,) + tuple(pg.nbr_J.shape)), dtype=torch.float32, device=dev)
+    tables = ((pg.nbr_J[None] * (1.0 + 0.1 * xi)).contiguous(),
+              pg.h[None].expand(steps_t, pg.nspins).contiguous())
+    for chains, mode in ((256, "tf"), (256, "uniform"), (256, "noisy"),
+                         (32, "tf"), (8, "tf")):
+        th = svmc_angles(dev, chains, pg.nspins)
+        run = svmc_runner(pg, th, dev, tf=mode != "uniform",
+                          tables=tables if mode == "noisy" else None)
+        rs = [r for c, r in forced if c == chains and own is not None
+              and mode == "tf"]
+        for R in rs or [None]:
+            if R is not None:
+                gk.packed_svmc_geometry = forced_svmc(gk, R, pg.nspins,
+                                                      pg.num_colors)
+            try:
+                used = (gk.card_packed_svmc_geometry(pg, chains, dev)
+                        if own is not None else None)
+                ms = slope_ms(run, taus(500 if chains > 100 else 1000))
+            finally:
+                if own is not None:
+                    gk.packed_svmc_geometry = own
+            emit(kernel="packed_svmc", graph="torus", mode=mode,
+                 chains=chains, nspins=pg.nspins,
+                 geometry=used if used is not None or own is None
+                 else "wide", ms_per_sweep=ms)
+
+
+SVMC_CROSSOVER_GRAPHS = (("gaussian_torus(16)", "gaussian_torus", 16),
+                         ("random_3d_lattice(12)", "random_3d_lattice", 12),
+                         ("chimera_graph(16)", "chimera_graph", 16),
+                         ("random_3d_lattice(16)", "random_3d_lattice", 16),
+                         ("gaussian_torus(80)", "gaussian_torus", 80))
+SVMC_CROSSOVER_CHAINS = (8, 32, 128, 256, 1280)
+
+
+def time_packed_svmc_crossover(dev, taus, emit):
+    """Generic SVMC's two kernels on one graph and chain count each, TF
+    proposals: the cluster route at the rule's (R, threads) and the
+    file's first kernel, one CTA a chain, on SVMC_CROSSOVER_GRAPHS (generic
+    forms, rng / seed 0) at SVMC_CROSSOVER_CHAINS chains, ms a sweep
+    (slope); the readings a rule of size between them is set from. A
+    checkout that has `packed_svmc_geometry`."""
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    own = gk.packed_svmc_geometry
+    for gname, maker, size in SVMC_CROSSOVER_GRAPHS:
+        made = getattr(instances, maker)(
+            size, **({"seed": 0} if maker == "gaussian_torus" else
+                     {"rng": 0}), device=dev)
+        prob = made.to_generic() if maker == "gaussian_torus" else made[0]
+        graph = packed_ops.build_packed(prob)
+        for chains in SVMC_CROSSOVER_CHAINS:
+            run = svmc_runner(graph, svmc_angles(dev, chains, graph.nspins),
+                              dev)
+            for route in ("cluster", "cta"):
+                if route == "cta":
+                    gk.packed_svmc_geometry = lambda *a, **k: None
+                try:
+                    geometry = gk.card_packed_svmc_geometry(graph, chains,
+                                                            dev)
+                    ms = slope_ms(run, taus(250 if chains > 100 else 500))
+                finally:
+                    gk.packed_svmc_geometry = own
+                emit(kernel="packed_svmc", phase="crossover", graph=gname,
+                     nspins=graph.nspins, colors=graph.num_colors,
+                     chains=chains, route=route, geometry=geometry,
+                     ms_per_sweep=ms)
 
 
 def call_ms(run, reps=30):
