@@ -174,6 +174,25 @@ Phases, each printed as one JSON line:
                       phases on the first kernel under the plain key,
                       each shape against its plain version and timed
                       beside the other kernel forced
+  houdayer_line_redesign  generic SVMC's first kernel ("_wide", forced)
+                      on the 81x81 checkerboard (not proper: its phases'
+                      snapshots of cos), 256 chains, angles by the
+                      ANGLE_MISMATCH rule; the Houdayer move's cluster
+                      kernel (csrc/houdayer.cu, a pair over R CTAs on the
+                      labeling core) in site order and in place on a
+                      packed state through a permuted ror, and its first
+                      kernel ("houdayer_wide", forced), at ICM's 768 and
+                      24 pairs of random_3d_lattice(12, rng=0) and 48 of
+                      the 80x80 torus's generic form, pair0 0 and 100003,
+                      bitwise the plain versions, ms a move queued beside
+                      the plain version and the bound; fk_line's cluster
+                      kernel (one launch an anneal, a chain's lines as
+                      64-bit words over R CTAs) and its first kernel
+                      ("fk_line_wide", forced, one launch a phase) at the
+                      piqmc_sw solve's shape (8 chains, P = 40), WC3 and
+                      WC2, chain0 0 and 100003, bitwise line_phase_ref
+                      phase by phase, ms a step by the slope beside the
+                      plain version, the bound and the pair hashes' floor
   cluster_kernel_vs_plain  the cluster kernels (ops/cluster_kernels.py)
                       against their plain versions on the card, on the
                       80x80 torus's generic form, CLUSTER_STEPS steps:
@@ -184,7 +203,8 @@ Phases, each printed as one JSON line:
                       with the bath; in device memory), fk_line WC2 and
                       WC3 at P = 40, 16 chains, 3 steps of both colors: 0
                       mismatched spins, equal cluster sizes, one launch an
-                      anneal (fk_line one a color phase)
+                      anneal (fk_line's cluster kernel here one a color
+                      phase: line_anneal a phase at a time)
   sampler_kernels_vs_plain  the samplers' kernels (solvers/pt.py,
                       solvers/pa.py): the per-chain-schedule instantiations
                       against their plain versions on the card, a (steps,
@@ -281,8 +301,8 @@ Phases, each printed as one JSON line:
                       solve("piqmc_sw", alpha = 1e-2) and
                       solve("piqmc_sw_full") (8 reads, 50 sweeps, P = 40,
                       after the pre-anneal's one packed SA launch: one
-                      fk_wolff launch; a fk_line launch a color phase; a
-                      generic PIQMC and a fk_label launch a sweep), in
+                      fk_wolff launch; one fk_line launch; a generic
+                      PIQMC and a fk_label launch a sweep), in
                       ranges around their JAX CPU anchors
                       (tools/cluster_anchors.py); then the samplers
                       (sampler_solves): pt.sample on the 80x80 torus with
@@ -368,8 +388,8 @@ Phases, each printed as one JSON line:
                       a step (fk_wolff at 1 and 16 chains, P = 40, with
                       the mean cluster it counted; fk_label at P = 40, 8
                       chains and P = 1, 64 chains; fk_line a WC3 and a
-                      WC2 step at one chain, P = 40) beside
-                      `cluster_bound`
+                      WC2 step at one chain, P = 40, one launch a run)
+                      beside `cluster_bound`
   hw_rng_kernel_checks  the generator instantiations (hw_rng=True,
                       csrc/hw_rng.cuh) of kernels A, B, 4 and 5, on their
                       cluster kernels and on their per-phase kernels (forced
@@ -1050,6 +1070,12 @@ CLUSTER_KERNELS = {
                  "montecarlosolvers_tpu/ops/cluster.py:487"),
     "fk_line": ("fk_line", "montecarlosolvers_tpu_torch/csrc/fk_line.cu",
                 "montecarlosolvers_tpu/ops/cluster.py:316"),
+    # fk_line past P = 64 (fk_line_rows_kernel, one launch a color phase):
+    # no main-path solve runs it; the phase generic_redesign holds and
+    # times it at P in LINE_WIDE_SLICES
+    "fk_line_rows": ("fk_line_rows",
+                     "montecarlosolvers_tpu_torch/csrc/fk_line.cu",
+                     "montecarlosolvers_tpu/ops/cluster.py:316"),
 }
 KERNELS.update(CLUSTER_KERNELS)
 # The samplers: the per-chain-schedule instantiations of kernels A and B
@@ -1146,6 +1172,15 @@ WIDE_KERNELS = {
     "packed_svmc_noisy_wide": ("packed_svmc_noisy_wide",
                                _SRC + "packed_svmc.cu",
                                "montecarlosolvers_tpu/ops/packed.py:259"),
+    # ... and the first kernels of csrc/houdayer.cu (one CTA a pair) and
+    # csrc/fk_line.cu (one warp a line, P <= 64, one launch a phase), kept
+    # for a pair or a chain no cluster of 16 CTAs holds; the phase
+    # houdayer_line_redesign holds and times them at the main path's
+    # widths, the rule forced
+    "houdayer_wide": ("houdayer_wide", _SRC + "houdayer.cu",
+                      "montecarlosolvers_tpu/ops/cluster.py:730"),
+    "fk_line_wide": ("fk_line_wide", _SRC + "fk_line.cu",
+                     "montecarlosolvers_tpu/ops/cluster.py:316"),
 }
 KERNELS.update(WIDE_KERNELS)
 # what the rest of the parallel layer added to four kernels: the cluster
@@ -2356,8 +2391,9 @@ def generic_redesign(dev, results, graphs, odd_torus, power, name):
         WC3) and solve("piqmc_sw", slices=SW_WIDE_SLICES);
       - fk_label (the space-time sweep) and fk_line (WC3, the full-line
         decomposition) on `asymmetric_table`.
-    Then slope-times the "_wide" routes and their plain versions beside
-    their bounds (the kernels line's rows)."""
+    Then slope-times the "_wide" routes and fk_line past P = 64
+    (fk_line_rows) and their plain versions beside their bounds (the
+    kernels line's rows)."""
     from montecarlosolvers_tpu_torch import schedules
     from montecarlosolvers_tpu_torch.models import instances
     from montecarlosolvers_tpu_torch.ops import _build
@@ -2490,11 +2526,12 @@ def generic_redesign(dev, results, graphs, odd_torus, power, name):
                     ref = cl.line_phase_ref(pg80, b[t], jp[t], t_eff, lut,
                                             ref, 24, t, color,
                                             per_slice_seeds, p_pair)
-            record("fk_line", {"graph": gname80, "chains": 2,
-                               "slices": slices, "steps": 2,
-                               "per_slice_seeds": per_slice_seeds,
-                               "warps_a_cta": ck.line_warps(slices)},
-                   out, ref, c, launched, {"fk_line": 2 * pg80.num_colors})
+            record("fk_line_rows", {"graph": gname80, "chains": 2,
+                                    "slices": slices, "steps": 2,
+                                    "per_slice_seeds": per_slice_seeds,
+                                    "warps_a_cta": ck.line_warps(slices)},
+                   out, ref, c, launched,
+                   {"fk_line_rows": 2 * pg80.num_colors})
 
     # a bath table not symmetric in ring distance: fk_label's space-time
     # sweep (each chain over 16 CTAs, labels in their shared memory) and
@@ -2519,8 +2556,9 @@ def generic_redesign(dev, results, graphs, odd_torus, power, name):
     _build.reset_launches()
     for t in range(3):
         for color in range(pg80.num_colors):
-            out = ck.line_phase(pg80, b, jp, p_t, t, t_eff, asym, p_pair,
-                                out, 26, t, color, True)
+            out = ck.line_anneal(pg80, b, jp, p_t, t_eff, asym, p_pair, out,
+                                 26, True, t0=t, steps=1,
+                                 colors=range(color, color + 1))
     launched = launched_now()
     for t in range(3):
         for color in range(pg80.num_colors):
@@ -2531,8 +2569,8 @@ def generic_redesign(dev, results, graphs, odd_torus, power, name):
                        "bath": "asymmetric"},
            out, ref, c, launched, {"fk_line": 3 * pg80.num_colors})
 
-    # solve("piqmc_sw") at P = 128: one SA launch, a fk_line launch a color
-    # and sweep
+    # solve("piqmc_sw") at P = 128: one SA launch, a fk_line_rows launch a
+    # color and sweep
     gtorus80 = graphs[gname80]
     _build.reset_launches()
     ss = solve(gtorus80, method="piqmc_sw", num_reads=SW_WIDE_READS,
@@ -2550,7 +2588,7 @@ def generic_redesign(dev, results, graphs, odd_torus, power, name):
                                          / gtorus80.nspins)}
     emit(rec)
     check(launched == {"packed_sa": 1,
-                       "fk_line": SW_WIDE_SWEEPS * gtorus80.num_colors},
+                       "fk_line_rows": SW_WIDE_SWEEPS * gtorus80.num_colors},
           f"solve('piqmc_sw', slices={SW_WIDE_SLICES}) launched {launched}")
     check(samples.shape == (SW_WIDE_READS, gtorus80.nspins)
           and bool(np.all(np.isfinite(energies)))
@@ -2601,6 +2639,40 @@ def generic_redesign(dev, results, graphs, odd_torus, power, name):
                                       bound_by=bound_by)
             else:
                 results[kname]["plain_ms"] = ms
+
+    # fk_line past P = 64: ms a step by the slope, 2 chains at the largest
+    # of LINE_WIDE_SLICES, WC3, beside its bound
+    slices = max(LINE_WIDE_SLICES)
+    lut = schedules.bath_lookuptable(slices, CLUSTER_ALPHA, device=dev)
+    c = random_pm1(rng, (2, slices, pg80.nspins), dev)
+
+    def line_rows(fn):
+        def run(tau):
+            _, b, jp, teff = cluster_inputs(pg80, dev, rng, 1, slices, tau)
+            t_eff = float(teff[0])
+            p_pair, p_t = ck.line_tables(lut, jp, t_eff, slices, dev)
+            return fn(pg80, b, jp, p_t, t_eff, lut, p_pair, c, 7, True)
+        return run
+    taus = (4, 12)
+    bound, bound_by, unit = cluster_bound(
+        "fk_line", 2, slices, pg80.nspins, graph_shape(graphs[gname80])[0],
+        steps=max(taus))
+    for route, fn, tt, trials in (("cuda", ck.line_anneal, taus, 3),
+                                  ("plain", ck.line_anneal_ref, (1, 3), 2)):
+        ms, best = slope_ms(line_rows(fn), tt, trials)
+        emit({"phase": "generic_redesign", "kernel": "fk_line_rows",
+              "route": route, "chains": 2, "slices": slices,
+              "per_slice_seeds": True, "sites": pg80.nspins,
+              "taus": list(tt),
+              "best_seconds": {str(k): v for k, v in best.items()},
+              "ms_per_step": ms, "bound_ms": bound, "bound_by": bound_by,
+              "bound_unit": unit, "gpu": name, "power_limit": power})
+        check(ms > 0, f"fk_line_rows {route} slope is positive")
+        if route == "cuda":
+            results["fk_line_rows"].update(ms=ms, bound_ms=bound,
+                                           bound_by=bound_by)
+        else:
+            results["fk_line_rows"]["plain_ms"] = ms
 
 
 def sa_dense_redesign(dev, results, graphs, torus, odd_torus, sk, tables,
@@ -3261,6 +3333,248 @@ def energy_svmc_redesign(dev, results, graphs, torus, odd_torus, tables,
             check(ms > 0, f"packed_svmc on {gname} times")
 
 
+def houdayer_line_redesign(dev, results, gtorus, odd_torus, power, name):
+    """Phase houdayer_line_redesign: the three kernels this slice changed,
+    against their plain versions on the card at the main path's widths,
+    with exactly each route's launches:
+      - generic SVMC's first kernel (csrc/packed_svmc.cu::
+        packed_svmc_kernel, "_wide", forced by a rule that holds nothing)
+        on the 81x81 torus's checkerboard, which is not proper: SVMC_READS
+        chains, TF, its phases' snapshots of cos; angles by the
+        ANGLE_MISMATCH rule;
+      - the Houdayer move's cluster kernel (csrc/houdayer.cu::
+        houdayer_cluster_kernel) at its rule's R on replicas in site order
+        and in place on a packed state through a permuted ror, and its
+        first kernel ("houdayer_wide", forced), at ICM's pairs
+        (random_3d_lattice(12, rng=0): ICM_RUNGS and ICM_READS x
+        ICM_RUNGS, the ICM solve's) and PT_RUNGS pairs of the 80x80
+        torus's generic form, pair0 0 and OFFSET_CHAIN0: spins and flipped
+        counts bitwise;
+      - fk_line's cluster kernel (csrc/fk_line.cu::fk_line_cluster_kernel,
+        one launch an anneal) and its first kernel ("fk_line_wide",
+        forced, one launch a phase) at the piqmc_sw solve's shape
+        (CLUSTER_QMC_READS chains, P = CLUSTER_SLICES, the 80x80 torus's
+        generic form, CLUSTER_ALPHA), WC3 and WC2, chain0 0 and
+        OFFSET_CHAIN0: spins bitwise line_phase_ref's, phase by phase.
+    Then times each, queued behind a spin kernel (the Houdayer move a
+    call, fk_line a step by the slope over two anneal lengths), beside its
+    plain version and its bound; fk_line's also beside the floor of its
+    pair hashes (HASH_OPS a uniform over the INT32 rate, one a bath pair:
+    `hash_ms`). The kernels line takes the ICM solve's Houdayer shape and
+    the WC3 fk_line rows."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    phase = "houdayer_line_redesign"
+    rng = np.random.default_rng(25)
+    spin = 100_000_000
+
+    def forced(module, attr, value, run):
+        own = getattr(module, attr)
+        setattr(module, attr, value)
+        try:
+            return run()
+        finally:
+            setattr(module, attr, own)
+
+    # generic SVMC's first kernel on an improper packing
+    pg81 = packed_ops.packed_from_lattice(odd_torus)
+    check(not pg81.proper, "the 81x81 checkerboard is not proper")
+    steps = 200
+    theta = torch.as_tensor(rng.uniform(0, np.pi, (SVMC_READS, pg81.nspins))
+                            .astype(np.float32), device=dev)
+    a = schedules.linear(3.0, 1e-8, steps, device=dev)
+    b = torch.ones_like(a)
+    _build.reset_launches()
+    out = forced(gk, "packed_svmc_geometry", lambda *x, **k: None,
+                 lambda: gk.packed_svmc_anneal(pg81, a, b, SVMC_TEMP, theta,
+                                               7, True))
+    launched = launched_now()
+    ref = gk.packed_svmc_anneal_ref(pg81, a, b, SVMC_TEMP, theta, 7, True)
+    torch.cuda.synchronize()
+    diffs = angle_diffs((out,), (ref,))
+    emit({"phase": phase, "kernel": "packed_svmc_wide",
+          "graph": "gaussian_torus(81, seed=0), checkerboard (not proper)",
+          "chains": SVMC_READS, "steps": steps, "launches": launched,
+          **diffs, "gpu": name, "power_limit": power})
+    check(launched == {"packed_svmc_wide": 1},
+          f"SVMC's first kernel forced launched {launched}")
+    check(diffs["mismatched_angles"] == 0
+          and diffs["max_abs_err"] <= ANGLE_ATOL,
+          "SVMC's first kernel on an improper packing equals its plain "
+          "version")
+    results["packed_svmc_wide"]["max_abs_err"] = max(
+        results["packed_svmc_wide"].get("max_abs_err", 0.0),
+        diffs["max_abs_err"])
+
+    # the Houdayer move: both routes, in site order and in place
+    glass = instances.random_3d_lattice(12, rng=0, device=dev)[0]
+    gname3 = "random_3d_lattice(12, rng=0)"
+    for gname, prob, pairs in ((gname3, glass, ICM_READS * ICM_RUNGS),
+                               (gname3, glass, ICM_RUNGS),
+                               (f"gaussian_torus({L}, 0).to_generic()",
+                                gtorus, PT_RUNGS)):
+        n = prob.nspins
+        pg = packed_ops.build_packed(prob)
+        geometry = ck.card_houdayer_geometry(pairs, n, dev)
+        s1, s2 = (random_pm1(rng, (pairs, n), dev) for _ in range(2))
+        state = random_pm1(rng, (2 * pairs, n), dev)
+        ror = torch.as_tensor(np.stack([rng.permutation(pairs)
+                                        for _ in range(2)])[None],
+                              device=dev)
+        for pair0 in (0, OFFSET_CHAIN0):
+            want = cl.houdayer_move_ref(prob, s1, s2, 41, 7, pair0)
+            _build.reset_launches()
+            got = ck.houdayer_move(prob, s1, s2, 41, 7, pair0=pair0)
+            l_site = launched_now()
+            _build.reset_launches()
+            first = forced(ck, "card_houdayer_geometry",
+                           lambda *x, **k: None,
+                           lambda: ck.houdayer_move(prob, s1, s2, 41, 7,
+                                                    pair0=pair0))
+            l_first = launched_now()
+            want_p, want_f = ck.houdayer_move_packed_ref(
+                prob, pg, state, ror, 43, 9, pair0)
+            moved = state.clone()
+            _build.reset_launches()
+            got_p, got_f = ck.houdayer_move_packed(prob, pg, moved, ror, 43,
+                                                   9, pair0)
+            l_packed = launched_now()
+            torch.cuda.synchronize()
+            n_site, err = mismatches(got[:2], want[:2])
+            n_first, _ = mismatches(first[:2], want[:2])
+            n_packed, _ = mismatches((got_p,), (want_p,))
+            rec = {"phase": phase, "kernel": "houdayer", "graph": gname,
+                   "nspins": n, "pairs": pairs, "pair0": pair0,
+                   "geometry": geometry, "launches": l_site,
+                   "first_kernel_launches": l_first,
+                   "in_place_launches": l_packed,
+                   "mismatched_spins": n_site,
+                   "first_kernel_mismatched_spins": n_first,
+                   "in_place_mismatched_spins": n_packed,
+                   "flips_equal": bool(torch.equal(got[2], want[2])
+                                       and torch.equal(first[2], want[2])
+                                       and torch.equal(got_f, want_f)),
+                   "in_place": got_p.data_ptr() == moved.data_ptr(),
+                   "flipped_fraction": float(want[2].sum()) / (pairs * n)}
+            what = f"houdayer on {gname}, {pairs} pairs, pair0 {pair0}"
+            check(n_site == n_first == n_packed == 0 and rec["flips_equal"],
+                  f"{what}: both routes and the in-place move equal their "
+                  f"plain versions")
+            check(rec["in_place"] and rec["flipped_fraction"] > 0,
+                  f"{what} moves in place and flips")
+            check(l_site == l_packed == {"houdayer": 1}
+                  and l_first == {"houdayer_wide": 1},
+                  f"{what} launched {l_site}, {l_packed}, {l_first}")
+            if pair0 == 0:
+                moved = state.clone()
+                rec["ms"] = event_ms(lambda: ck.houdayer_move_packed(
+                    prob, pg, moved, ror, 43, 9), 200, spin)
+                rec["site_order_ms"] = event_ms(lambda: ck.houdayer_move(
+                    prob, s1, s2, 41, 7), 200, spin)
+                rec["first_kernel_ms"] = forced(
+                    ck, "card_houdayer_geometry", lambda *x, **k: None,
+                    lambda: event_ms(lambda: ck.houdayer_move(
+                        prob, s1, s2, 41, 7), 200, spin))
+                rec["plain_ms"] = event_ms(lambda: ck.houdayer_move_packed_ref(
+                    prob, pg, state, ror, 43, 9), 3)
+                bound, bound_by, _ = houdayer_bound(
+                    pairs, n, int(prob.nbr_idx.shape[1]))
+                rec.update(bound_ms=bound, bound_by=bound_by, gpu=name,
+                           power_limit=power)
+                for key, ms_key in (("houdayer", "ms"),
+                                    ("houdayer_wide", "first_kernel_ms")):
+                    if "ms" not in results[key]:
+                        results[key].update(ms=rec[ms_key],
+                                            plain_ms=rec["plain_ms"],
+                                            bound_ms=bound,
+                                            bound_by=bound_by)
+            emit(rec)
+            for key in ("houdayer", "houdayer_wide"):
+                results[key]["max_abs_err"] = max(
+                    results[key].get("max_abs_err", 0.0), err)
+
+    # fk_line: one launch an anneal against the plain version's phases
+    pg = packed_ops.build_packed(gtorus)
+    n, P, chains = pg.nspins, CLUSTER_SLICES, CLUSTER_QMC_READS
+    degree = graph_shape(gtorus)[0]
+    lut = schedules.bath_lookuptable(P, CLUSTER_ALPHA, device=dev)
+    confs = random_pm1(rng, (chains, P, n), dev)
+
+    def line_inputs(tau):
+        _, b, jp, teff = cluster_inputs(pg, dev, rng, 1, P, tau)
+        t_eff = float(teff[0])
+        p_pair, p_t = ck.line_tables(lut, jp, t_eff, P, dev)
+        return b, jp, p_t, t_eff, p_pair
+
+    def anneal(fn, tau, wc3, chain0=0):
+        b, jp, p_t, t_eff, p_pair = line_inputs(tau)
+        return fn(pg, b, jp, p_t, t_eff, lut, p_pair, confs, 13, wc3,
+                  chain0=chain0)
+
+    for wc3 in (True, False):
+        for chain0 in (0, OFFSET_CHAIN0):
+            want = anneal(ck.line_anneal_ref, 3, wc3, chain0)
+            _build.reset_launches()
+            got = anneal(ck.line_anneal, 3, wc3, chain0)
+            l_cluster = launched_now()
+            _build.reset_launches()
+            first = forced(ck, "card_line_geometry", lambda *x, **k: None,
+                           lambda: anneal(ck.line_anneal, 3, wc3, chain0))
+            l_first = launched_now()
+            torch.cuda.synchronize()
+            n_bad, err = mismatches((got,), (want,))
+            n_first, _ = mismatches((first,), (want,))
+            rec = {"phase": phase, "kernel": "fk_line",
+                   "graph": f"gaussian_torus({L}, 0).to_generic()",
+                   "chains": chains, "slices": P, "steps": 3,
+                   "per_slice_seeds": wc3, "chain0": chain0,
+                   "geometry": ck.card_line_geometry(pg, chains, P, dev, wc3),
+                   "launches": l_cluster, "first_kernel_launches": l_first,
+                   "mismatched_spins": n_bad,
+                   "first_kernel_mismatched_spins": n_first,
+                   "changed_spins": int((got != confs).sum())}
+            what = f"fk_line {'WC3' if wc3 else 'WC2'} chain0 {chain0}"
+            check(n_bad == n_first == 0 and rec["changed_spins"] > 0,
+                  f"{what}: both routes equal line_phase_ref phase by phase")
+            check(l_cluster == {"fk_line": 1}
+                  and l_first == {"fk_line_wide": 3 * pg.num_colors},
+                  f"{what} launched {l_cluster}, {l_first}")
+            if chain0 == 0:
+                taus = (10, 30)
+                rec["ms_per_step"] = slope_ms(
+                    lambda tau: anneal(ck.line_anneal, tau, wc3), taus,
+                    3)[0]
+                rec["first_kernel_ms_per_step"] = forced(
+                    ck, "card_line_geometry", lambda *x, **k: None,
+                    lambda: slope_ms(lambda tau: anneal(ck.line_anneal, tau,
+                                                        wc3), taus, 3)[0])
+                rec["plain_ms_per_step"] = slope_ms(
+                    lambda tau: anneal(ck.line_anneal_ref, tau, wc3), (1, 3),
+                    2)[0]
+                bound, bound_by, unit = cluster_bound("fk_line", chains, P, n,
+                                                      degree, steps=max(taus))
+                rec.update(bound_ms=bound, bound_by=bound_by, bound_unit=unit,
+                           hash_ms=1e3 * HASH_OPS * chains * n * P * (P - 1)
+                           / 2 / PEAK_INT32, gpu=name, power_limit=power)
+                if wc3:
+                    for key, ms_key in (("fk_line", "ms_per_step"),
+                                        ("fk_line_wide",
+                                         "first_kernel_ms_per_step")):
+                        results[key].update(ms=rec[ms_key],
+                                            plain_ms=rec["plain_ms_per_step"],
+                                            bound_ms=bound, bound_by=bound_by)
+            emit(rec)
+            for key in ("fk_line", "fk_line_wide"):
+                results[key]["max_abs_err"] = max(
+                    results[key].get("max_abs_err", 0.0), err)
+
+
 def dense_problem(n, dev):
     """An SK DenseProblem of n spins drawn on the card (torch's generator,
     seed 0): J_ij ~ N(0, 1/n) above the diagonal, mirrored, h = 0. For the
@@ -3622,8 +3936,9 @@ def cluster_checks(dev, results, gtorus):
         _build.reset_launches()
         for t in range(3):
             for color in range(pg.num_colors):
-                out = ck.line_phase(pg, b, jp, p_t, t, t_eff, lut, p_pair,
-                                    out, 23, t, color, per_slice_seeds)
+                out = ck.line_anneal(pg, b, jp, p_t, t_eff, lut, p_pair, out,
+                                     23, per_slice_seeds, t0=t, steps=1,
+                                     colors=range(color, color + 1))
         launched = launched_now()
         for t in range(3):
             for color in range(pg.num_colors):
@@ -3758,7 +4073,7 @@ def cluster_redesign(dev, results, gtorus):
 
 
 def cluster_bound(kname, chains, slices, sites, degree, visited=None,
-                  bath=False):
+                  bath=False, steps=1):
     """(least ms of one step, "bytes" or "operations", unit) of a cluster
     kernel at this shape, as the work needs it:
       fk_wolff  the bonds drawn from the `visited` (chains x per step)
@@ -3777,11 +4092,16 @@ def cluster_bound(kname, chains, slices, sites, degree, visited=None,
       fk_line   no exponential (the host's table holds the bath pairs'
                 probabilities): a site's field (degree adds), its pair
                 comparisons (P - 1), the cluster sum (P adds) as float32
-                operations, one logarithm a slice (its accept); bytes: the
-                state read and written.
+                operations, one logarithm a slice (its accept); a hash
+                (HASH_OPS integer operations) a bath pair, P (P - 1) / 2 a
+                line, at the INT32 rate (the Trotter bonds' and accepts'
+                draws left out); bytes: the state read and written once
+                an anneal of `steps` steps (the cluster kernel's one
+                launch; the per-phase kernels move it every step, which
+                the work does not need).
     The exponentials and logarithms run at the special-function rate."""
     P = slices
-    f32 = 0.0
+    f32 = int32 = 0.0
     pairs = (P - 1) / 2 if bath else 0
     table = chains * 2 * (P - 1) if bath else 0
     if kname == "fk_wolff":
@@ -3796,9 +4116,10 @@ def cluster_bound(kname, chains, slices, sites, degree, visited=None,
     else:
         f32 = chains * P * sites * (degree + (P - 1) + P)
         sfu = chains * P * sites
-        moved = chains * P * sites * 8
+        int32 = HASH_OPS * chains * sites * P * (P - 1) / 2
+        moved = chains * P * sites * 8 / steps
     times = {"fp32": f32 / PEAK_FLOPS, "sfu": sfu / PEAK_SFU,
-             "bytes": moved / PEAK_BYTES}
+             "int32": int32 / PEAK_INT32, "bytes": moved / PEAK_BYTES}
     unit = max(times, key=times.get)
     return 1e3 * times[unit], ("bytes" if unit == "bytes"
                                else "operations"), unit
@@ -3846,22 +4167,15 @@ def cluster_timing(dev, results, gtorus, power, name):
                       slices == 1)
         return run
 
-    def line_runner(phase, per_slice_seeds):
+    def line_runner(anneal, per_slice_seeds):
         c = random_pm1(rng, (1, P, n), dev)
 
         def run(tau):
             _, b, jp, teff = cluster_inputs(pg, dev, rng, 1, P, tau)
             t_eff = float(teff[0])
             p_pair, p_t = ck.line_tables(lut, jp, t_eff, P, dev)
-            x = c
-            for t in range(tau):
-                for color in range(pg.num_colors):
-                    x = (phase(pg, b, jp, p_t, t, t_eff, lut, p_pair, x, 7,
-                               t, color, per_slice_seeds)
-                         if phase is ck.line_phase else
-                         phase(pg, b[t], jp[t], t_eff, lut, x, 7, t, color,
-                               per_slice_seeds, p_pair))
-            return x
+            return anneal(pg, b, jp, p_t, t_eff, lut, p_pair, c, 7,
+                          per_slice_seeds)
         return run
 
     rows = []
@@ -3884,10 +4198,10 @@ def cluster_timing(dev, results, gtorus, power, name):
                                                        chains, slices, bath),
                      (1, 4), 2, chains, slices, bath))
     for per_slice_seeds in (True, False):
-        rows.append(("fk_line", "cuda", line_runner(ck.line_phase,
+        rows.append(("fk_line", "cuda", line_runner(ck.line_anneal,
                                                     per_slice_seeds),
                      (20, 80), 3, 1, P, per_slice_seeds))
-        rows.append(("fk_line", "plain", line_runner(cl.line_phase_ref,
+        rows.append(("fk_line", "plain", line_runner(ck.line_anneal_ref,
                                                      per_slice_seeds),
                      (2, 8), 2, 1, P, per_slice_seeds))
     for kname, route, run, taus, trials, chains, slices, extra in rows:
@@ -3910,9 +4224,10 @@ def cluster_timing(dev, results, gtorus, power, name):
                                                      n, dev, bool(bath))
         if kname == "fk_line":
             rec["per_slice_seeds"] = extra
-            rec["launches_per_step"] = pg.num_colors
+            rec["launches_per_run"] = 1
         bound, bound_by, unit = cluster_bound(kname, chains, slices, n,
-                                              degree, visited, bath)
+                                              degree, visited, bath,
+                                              max(taus))
         rec.update(bound_ms=bound, bound_by=bound_by, bound_unit=unit,
                    gpu=name, power_limit=power)
         emit(rec)
@@ -3928,14 +4243,11 @@ def cluster_bench(dev, problem):
     (bench.py::_cluster_arm) in full, its four timings and exactly the
     launches its runs make: a warm run and two trials at each of two taus,
     fk_wolff once a run (unbatched and 16 chains), WC2 a generic bath
-    launch and a fk_line launch a color a step, WC3 a fk_line launch a
-    color a step."""
+    launch and a fk_line launch a step, WC3 a fk_line launch a run."""
     from montecarlosolvers_tpu_torch.bench import throughput
-    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
 
     t0 = time.perf_counter()
     rec = throughput.cluster_arm(problem)
-    colors = ck.generic_form(problem).num_colors
     emit({"phase": "cluster_bench", **rec,
           "seconds": time.perf_counter() - t0,
           "nvidia_smi": throughput.nvidia_smi()})
@@ -3944,7 +4256,7 @@ def cluster_bench(dev, problem):
         check(np.isfinite(rec[key]) and rec[key] > 0, f"cluster bench {key}")
     steps = 3 * (10 + 30)  # a warm run and two trials at tau 10 and 30
     want = {"fk_wolff": 2 * 3 * 2, "generic_qmc_bath": steps,
-            "fk_line": 2 * steps * colors}
+            "fk_line": steps + 2 * 3}
     check(rec["launches"] == want,
           f"cluster bench launched {rec['launches']}, its route {want}")
 
@@ -4752,7 +5064,6 @@ def api_surface(dev, main_launches, torus, power, name):
     n = torus.nspins
     rows, cols, vals = torus_triplets(torus)
     nbs = build_neighbor_table(n, rows, cols, vals, 4)
-    colors = compat._problem(nbs).num_colors
     xi = np.random.default_rng(0).normal(size=(SHIM_NOISY_STEPS,)
                                          + nbs.shape[:2])
     nbs4d = np.broadcast_to(nbs, (SHIM_NOISY_STEPS,) + nbs.shape).copy()
@@ -4810,7 +5121,7 @@ def api_surface(dev, main_launches, torus, power, name):
                   True), {"generic_qmc_bath": 1}),
         ("DissipativeQuantumAnnealWC3",
          qmc_shim(compat.DissipativeQuantumAnnealWC3, SHIM_WC3_SWEEPS,
-                  True), {"fk_line": SHIM_WC3_SWEEPS * colors}),
+                  True), {"fk_line": 1}),
         ("SpinVectorMonteCarloTFCompact",
          svmc_shim(compat.SpinVectorMonteCarloTFCompact, nbs,
                    SHIM_SVMC_SWEEPS, SHIM_SVMC_READS), {"packed_svmc": 1}),
@@ -6245,10 +6556,8 @@ def cluster_offset_checks(dev, gtorus, power, name):
         p_pair, p_t = ck.line_tables(lut, jp, t_eff, P, dev)
 
         def run(x, c0):
-            for color in range(pg.num_colors):
-                x = ck.line_phase(pg, b, jp, p_t, 0, t_eff, lut, p_pair, x,
-                                  33, 0, color, per_slice_seeds, chain0=c0)
-            return x
+            return ck.line_anneal(pg, b, jp, p_t, t_eff, lut, p_pair, x, 33,
+                                  per_slice_seeds, chain0=c0)
         return run, c, None
 
     for kname, case, (run, state, vis) in (
@@ -7584,6 +7893,11 @@ def main():
                          power, name)
     phase_seconds["energy_svmc_redesign"] = time.perf_counter() - t_script
 
+    # ---- generic SVMC's first kernel on an improper packing, the Houdayer
+    # move over a cluster and in place, fk_line in one launch an anneal
+    houdayer_line_redesign(dev, results, gtorus80, odd_torus, power, name)
+    phase_seconds["houdayer_line_redesign"] = time.perf_counter() - t_script
+
     # ---- the cluster kernels against their plain versions
     cluster_checks(dev, results, gtorus80)
     phase_seconds["cluster_kernel_vs_plain"] = time.perf_counter() - t_script
@@ -7741,7 +8055,7 @@ def main():
          {"packed_svmc_noisy": 1}),
         # the cluster methods: the classical ones a local sweep and a
         # cluster launch a step, the PIQMC ones after the pre-anneal's one
-        # SA launch (piqmc_sw: a fk_line launch a color phase;
+        # SA launch (piqmc_sw: one fk_line launch an anneal;
         # piqmc_sw_full: a local and a labeling launch a step)
         ("sa_wolff", gname80, gtorus80, cluster_solved("sa_wolff"),
          csa_kw, {"packed_sa": CLUSTER_SA_SWEEPS,
@@ -7753,8 +8067,7 @@ def main():
          {"packed_sa": 1, "fk_wolff": 1}),
         ("piqmc_sw_p40", gname80, gtorus80,
          cluster_solved("piqmc_sw", alpha=CLUSTER_ALPHA), cqmc_kw,
-         {"packed_sa": 1,
-          "fk_line": CLUSTER_QMC_SWEEPS * gtorus80.num_colors}),
+         {"packed_sa": 1, "fk_line": 1}),
         ("piqmc_sw_full_p40", gname80, gtorus80,
          cluster_solved("piqmc_sw_full"), cqmc_kw,
          {"packed_sa": 1, "generic_qmc": CLUSTER_QMC_SWEEPS,

@@ -1,7 +1,9 @@
 // Fortuin-Kasteleyn draws shared by the cluster kernels (fk_wolff.cu,
-// fk_label.cu, fk_line.cu, fk_shard.cu), and the one-CTA union-find of
-// houdayer.cu and fk_shard.cu (fk_label.cu and fk_wolff.cu label over a
-// thread-block cluster, csrc/fk_nodes.cuh).
+// fk_label.cu, fk_line.cu, fk_shard.cu), the one-CTA union-find of
+// houdayer.cu's first kernel and fk_shard.cu, and the union-find of nodes
+// one CTA alone reaches (`SharedSets`: fk_line.cu's slices of a line,
+// houdayer.cu's unions inside a CTA); fk_label.cu and fk_wolff.cu label
+// over a thread-block cluster, csrc/fk_nodes.cuh.
 //
 // Device form of the cluster streams of
 // montecarlosolvers_tpu_torch/ops/counter_rng.py (cluster_counter, the
@@ -96,5 +98,57 @@ __device__ __forceinline__ void unite(int* parent, int a, int b) {
     b = old;
   }
 }
+
+// A union-find of int32 parents at the shared::cta address `base` (4
+// bytes a node, node x's parent at base + 4 x, a root its own parent),
+// which one CTA alone reads and writes while it runs: volatile loads and
+// stores and an atomic CAS in the shared state space (the generic
+// `volatile` accesses of find_root / unite above compile to strong
+// system-scope ones where the compiler cannot see the state space). The
+// root of the larger node is hooked under the smaller, so once every bond
+// is united a set's root is its least node, whatever order the threads
+// united in.
+struct SharedSets {
+  uint32_t base;
+
+  __device__ __forceinline__ int parent(int x) const {
+    int v;
+    asm volatile("ld.volatile.shared.s32 %0, [%1];"
+                 : "=r"(v) : "r"(base + 4 * x) : "memory");
+    return v;
+  }
+  __device__ __forceinline__ void set_parent(int x, int p) const {
+    asm volatile("st.volatile.shared.s32 [%0], %1;"
+                 :: "r"(base + 4 * x), "r"(p) : "memory");
+  }
+  // the root of x, halving the path as it goes
+  __device__ __forceinline__ int find(int x) const {
+    for (;;) {
+      const int p = parent(x);
+      if (p == x) return x;
+      const int gp = parent(p);
+      if (gp != p) set_parent(x, gp);  // gp is an ancestor of x
+      x = p;
+    }
+  }
+  __device__ __forceinline__ void unite(int a, int b) const {
+    for (;;) {
+      a = find(a);
+      b = find(b);
+      if (a == b) return;
+      if (a > b) {
+        const int t = a;
+        a = b;
+        b = t;
+      }
+      int old;
+      asm volatile("atom.shared.cas.b32 %0, [%1], %2, %3;"
+                   : "=r"(old) : "r"(base + 4 * b), "r"(b), "r"(a)
+                   : "memory");
+      if (old == b) return;
+      b = old;
+    }
+  }
+};
 
 }  // namespace mcs

@@ -48,9 +48,11 @@
 // serial chain of loads (nbr_idx, then the neighbour's cos through L1/L2,
 // then nbr_J, slot after slot), and 256 CTAs on 132 SMs leave about 16
 // warps an SM to hide them: 25x its bound at the main path's shape, 2x
-// kernel 4 on the same torus (PERF.md). It updates a class in place, so
-// on a packing that is not proper a same-class neighbour is read old or
-// new; the plain version reads it as the phase began.
+// kernel 4 on the same torus (PERF.md). On a packing that is not proper
+// (kImproper) each class phase first copies its block of cos theta into
+// the scratch `snap`, one block a chain, and the fields read same-class
+// neighbours there, as they stood before the phase, as the plain version
+// (vectorised over the class) and packed SA's first kernel read them.
 //
 // The cluster route (packed_svmc_cluster_kernel): kernel 4's idea
 // (csrc/split_svmc.cu: a chain's rotors in shared memory over a cluster
@@ -101,7 +103,7 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-template <bool kTF>
+template <bool kTF, bool kImproper>
 __global__ void __launch_bounds__(mcs::kPackedThreads)
 packed_svmc_kernel(const int* __restrict__ nbr_idx,
                    const float* __restrict__ nbr_J,
@@ -109,16 +111,18 @@ packed_svmc_kernel(const int* __restrict__ nbr_idx,
                    const int* __restrict__ starts,
                    const float* __restrict__ a_sched,
                    const float* __restrict__ b_sched, float temp, float* th,
-                   float* cs, float* sn, float* __restrict__ energies,
-                   int chains, int n, int maxnb, int ncolors, int steps,
-                   uint32_t seed_term, int j_stride, int h_stride,
-                   int mcsteps, uint32_t chain0) {
+                   float* cs, float* sn, float* snap,
+                   float* __restrict__ energies, int chains, int n,
+                   int maxnb, int ncolors, int steps, uint32_t seed_term,
+                   int j_stride, int h_stride, int mcsteps,
+                   uint32_t chain0) {
   __shared__ float red[mcs::kPackedThreads / 32];
   const int chain = blockIdx.x;
   const size_t base = static_cast<size_t>(chain) * n;
   th += base;
   cs += base;
   sn += base;
+  float* const ss = kImproper ? snap + base : nullptr;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     sincosf(th[i], sn + i, cs + i);
   }
@@ -138,15 +142,24 @@ packed_svmc_kernel(const int* __restrict__ nbr_idx,
     const float* jt = nbr_J + row * j_stride;
     const float* ht = h + row * h_stride;
     for (int c = 0; c < ncolors; ++c) {
-      const int hi = __ldg(starts + c + 1);
-      for (int i = __ldg(starts + c) + threadIdx.x; i < hi; i += blockDim.x) {
+      const int lo = __ldg(starts + c), hi = __ldg(starts + c + 1);
+      if (kImproper) {
+        // the last __syncthreads() ended every read of the snapshot
+        for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) ss[i] = cs[i];
+        __syncthreads();
+      }
+      for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
         const uint32_t uid = uid0 + static_cast<uint32_t>(__ldg(perm + i));
         const float theta = th[i];
         const float prop =
             mcs::propose<kTF>(theta, mcs::uniform01(ctr, uid), width);
         float sin_p, cos_p;
         sincosf(prop, &sin_p, &cos_p);
-        const float z = mcs::packed_field(cs, nbr_idx, jt, ht, i, maxnb);
+        const float z =
+            kImproper
+                ? mcs::field_in_phase(cs, ss, nbr_idx, jt, ht, i, maxnb, lo,
+                                      hi)
+                : mcs::packed_field(cs, nbr_idx, jt, ht, i, maxnb);
         const float de = mcs::delta_e(b, a, cos_p, cs[i], z, sn[i], sin_p);
         if (mcs::metropolis_accept_hashed(de, temp,
                                           uid * mcs::kGolden + ctr_acc)) {
@@ -438,13 +451,14 @@ extern "C" int packed_svmc_max_active_clusters(int R, int threads, int smem,
 // Anneal `chains` chains of n packed angles `th` (chains, n) in place over
 // the (steps,) schedules A and B at temperature `temp`, one CTA of
 // `threads` (256) threads a chain, in one launch. scratch: 2 * chains * n
-// floats for the cos and sin caches; the packed layout's nbr_idx / nbr_J
-// (n, maxnb), h (n), perm (n), starts (ncolors + 1); tf != 0 selects the
-// TF proposals; energies: a (steps, chains) float32 buffer or null;
-// j_stride, h_stride, mcsteps: 0, 0, 1 for the static tables (above);
-// chain0: the global index of the first chain, which the uids count from (a
-// chain shard; 0 unsharded). All device pointers; launches on `stream` and
-// returns cudaGetLastError().
+// floats for the cos and sin caches, and with improper != 0 (a packing
+// that is not proper) chains * n more for the phases' snapshots of cos;
+// the packed layout's nbr_idx / nbr_J (n, maxnb), h (n), perm (n), starts
+// (ncolors + 1); tf != 0 selects the TF proposals; energies: a (steps,
+// chains) float32 buffer or null; j_stride, h_stride, mcsteps: 0, 0, 1 for
+// the static tables (above); chain0: the global index of the first chain,
+// which the uids count from (a chain shard; 0 unsharded). All device
+// pointers; launches on `stream` and returns cudaGetLastError().
 extern "C" int packed_svmc_anneal(const int* nbr_idx, const float* nbr_J,
                                   const float* h, const int* perm,
                                   const int* starts, const float* a_sched,
@@ -453,16 +467,20 @@ extern "C" int packed_svmc_anneal(const int* nbr_idx, const float* nbr_J,
                                   int n, int maxnb, int ncolors, int steps,
                                   int seed, int tf, int threads,
                                   int j_stride, int h_stride, int mcsteps,
-                                  int chain0, void* stream) {
+                                  int chain0, int improper, void* stream) {
   if (chains == 0 || n == 0) return cudaSuccess;
   if (mcsteps < 1) return cudaErrorInvalidValue;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
-  auto kernel = tf ? packed_svmc_kernel<true> : packed_svmc_kernel<false>;
+  auto kernel = improper ? (tf ? packed_svmc_kernel<true, true>
+                               : packed_svmc_kernel<false, true>)
+                         : (tf ? packed_svmc_kernel<true, false>
+                               : packed_svmc_kernel<false, false>);
   float* cs = scratch;
   float* sn = scratch + static_cast<size_t>(chains) * n;
+  float* snap = improper ? sn + static_cast<size_t>(chains) * n : nullptr;
   kernel<<<chains, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       nbr_idx, nbr_J, h, perm, starts, a_sched, b_sched, temp, th, cs, sn,
-      energies, chains, n, maxnb, ncolors, steps, seed_term, j_stride,
+      snap, energies, chains, n, maxnb, ncolors, steps, seed_term, j_stride,
       h_stride, mcsteps, static_cast<uint32_t>(chain0));
   return cudaGetLastError();
 }

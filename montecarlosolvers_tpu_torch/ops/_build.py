@@ -226,9 +226,11 @@ SIGNATURES = {
     "packed_svmc": {
         # nbr_idx, nbr_J, h, perm, starts, a_sched, b_sched, temp, th (in
         # place), scratch, energies, chains, n, maxnb, ncolors, steps, seed,
-        # tf, threads, j_stride, h_stride, mcsteps, chain0, stream
+        # tf, threads, j_stride, h_stride, mcsteps, chain0, improper (the
+        # packing is not proper: a third block of scratch for the phases'
+        # snapshots of cos), stream
         "packed_svmc_anneal": (
-            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 3 + [_I] * 12 + [_P]
+            _I, [_P] * 7 + [ctypes.c_float] + [_P] * 3 + [_I] * 13 + [_P]
         ),
         # the cluster route: slot_starts, starts, nbr_loc, nbr_J, h, perm,
         # a_sched, b_sched, temp, th_in, th_out, energies, chains, n,
@@ -335,6 +337,17 @@ SIGNATURES = {
         # chain0, stream
         "fk_line_phase": (
             _I, [_P] * 9 + [ctypes.c_float] + [_P] + [_I] * 12 + [_P]),
+        # the cluster kernel: slot_starts, starts, nbr_loc, nbr_J, h, perm,
+        # b_sched, jp, p_t, p_pair, teff, s in, s out (floats, packed into
+        # words in the kernel), chains, P, n, maxnb, R, nr, threads, t0,
+        # step0, steps, c_lo, c_hi, seed, per_slice_seeds, improper,
+        # chain0, stream
+        "fk_line_anneal": (
+            _I, [_P] * 10 + [ctypes.c_float] + [_P] * 2 + [_I] * 16
+            + [_P]),
+        # P, nr, R, threads, improper, per_slice_seeds, out: clusters
+        # resident at once
+        "fk_line_max_active_clusters": (_I, [_I] * 6 + [_IP]),
         "fk_line_phase_error_string": (ctypes.c_char_p, [_I]),
     },
     "fk_shard": {
@@ -357,6 +370,13 @@ SIGNATURES = {
         # (scratch, null with smem), pairs, n, maxnb, seed, step, smem,
         # threads, pair0, stream
         "houdayer_move": (_I, [_P] * 6 + [_I] * 8 + [_P]),
+        # the cluster kernel: nbr_ids (cluster_kernels.houdayer_table),
+        # inv_perm (null in site order), boundary sites, ror (or null), s1,
+        # s2 (in place), flipped (out), pairs, n, maxnb, M, seed, step, R,
+        # threads, pair0, stream
+        "houdayer_cluster_move": (_I, [_P] * 7 + [_I] * 9 + [_P]),
+        # n, R, threads, out: clusters resident at once
+        "houdayer_max_active_clusters": (_I, [_I] * 3 + [_IP]),
         "houdayer_move_error_string": (ctypes.c_char_p, [_I]),
     },
     "energy": {
@@ -437,9 +457,14 @@ LAUNCHES.update({"packed_svmc_wide": 0, "packed_svmc_noisy_wide": 0})
 LAUNCHES.update({"packed_sa_noisy": 0, "packed_svmc_noisy": 0,
                  "dense_sa": 0})
 # The cluster kernels (ops/cluster_kernels.py): fk_wolff and fk_label once
-# an anneal, or once a step where local sweeps interleave; fk_line once a
-# color phase.
-LAUNCHES.update({"fk_wolff": 0, "fk_label": 0, "fk_line": 0})
+# an anneal, or once a step where local sweeps interleave; fk_line's
+# kernels each under its own key: the cluster kernel (P <= 64) once an
+# anneal (once a step with WC2's local sweeps) under "fk_line", its first
+# kernel fk_line_wide_kernel (one warp a line, for a chain whose words no
+# cluster holds) once a color phase under "fk_line_wide", and
+# fk_line_rows_kernel (P > 64) once a color phase under "fk_line_rows".
+LAUNCHES.update({"fk_wolff": 0, "fk_label": 0, "fk_line": 0,
+                 "fk_line_wide": 0, "fk_line_rows": 0})
 # The samplers (solvers/pt.py, solvers/pa.py): the per-chain-schedule
 # instantiations of kernels A and B, of the packed SA, generic PIQMC and
 # dense kernels count apart, under "<key>_chain" (kernel A's and B's
@@ -450,6 +475,10 @@ LAUNCHES.update({f"{k}_chain": 0 for k in ("sa_split", "qmc_split",
                                           "dense_sa")})
 LAUNCHES.update({"sa_split_chain_phased": 0, "qmc_split_chain_phased": 0,
                  "houdayer": 0})
+# ... the Houdayer move's cluster kernel under "houdayer", its first kernel
+# houdayer_wide_kernel (one CTA a pair, for a pair no cluster holds in
+# shared memory) under "houdayer_wide".
+LAUNCHES.update({"houdayer_wide": 0})
 # The shard kernels of the Trotter-sharded engines (parallel/trotter.py),
 # once a launch: S1 twice a step (a local phase), S2's two halves once a
 # line color and step with global moves, S3 once a local phase, S4's two

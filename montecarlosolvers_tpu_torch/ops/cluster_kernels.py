@@ -24,16 +24,29 @@ class-major packed layout of `ops/packed.py` (the site's original index
                     8 chains (R = 9; the one-CTA kernel before it 9.47-9.51
                     in the same call), fk_wolff 0.35 at P = 40, one chain
                     (1.19-1.20), 0.078 at P = 1, 64 chains (0.19-0.20)
-  csrc/fk_line.cu   one color phase of the imaginary-time line clusters
-                    (`bath_cluster_phase`, `sw_full_phase`): one warp a
-                    line, its rows in registers at P <= 64, in shared
-                    memory up to LINE_MAX_SLICES; LAUNCHES["fk_line"]
-  csrc/houdayer.cu  the Houdayer move of ICM (`houdayer_sweep`) on replica
-                    pairs in the problem's generic order: one CTA a pair,
-                    union-find labels; LAUNCHES["houdayer"]
+  csrc/fk_line.cu   the imaginary-time line clusters (`bath_cluster_phase`,
+                    `sw_full_phase`): at P <= 64 the whole anneal in one
+                    launch, a line's slices as the bits of a 64-bit word,
+                    a chain's words over a thread-block cluster of R CTAs
+                    (`line_geometry`), a warp a line; LAUNCHES["fk_line"].
+                    A chain no cluster holds: the first kernel, one warp
+                    a line, one launch a color phase (LAUNCHES
+                    ["fk_line_wide"]); P > 64: rows of ceil(P/64) words in
+                    a warp's shared memory up to LINE_MAX_SLICES, one
+                    launch a color phase (LAUNCHES["fk_line_rows"])
+  csrc/houdayer.cu  the Houdayer move of ICM (`houdayer_sweep`): each pair
+                    over a thread-block cluster of R CTAs on the labeling
+                    core (`houdayer_geometry`, its union-find in shared
+                    memory), on replicas in site order
+                    (`houdayer_move`) or in place on the packed engine's
+                    state (`houdayer_move_packed`); LAUNCHES["houdayer"].
+                    A pair no cluster holds: the first kernel, one CTA a
+                    pair (LAUNCHES["houdayer_wide"])
 
 Their plain versions are `ops/cluster.py`'s `wolff_anneal_ref`,
-`sw_anneal_ref`, `line_phase_ref` and `houdayer_move_ref`. A wrapper
+`sw_anneal_ref`, `line_phase_ref` (phase after phase: `line_anneal_ref`)
+and `houdayer_move_ref` (on the packed state: `houdayer_move_packed_ref`).
+A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches
 the kernel or raises.
 
@@ -43,8 +56,10 @@ sa.anneal_wolff with local_sweeps=False). With local sweeps, each step is
 one launch of the local kernel (csrc/packed_sa.cu, csrc/generic_qmc.cu
 without line moves, or csrc/generic_qmc_bath.cu) and one of the cluster
 kernel, each told its step (`step0`), so that every step draws its own
-uniforms. qmc.anneal_sw_bath launches fk_line once a color phase: steps x
-colors launches, plus one local launch a step for WC2 with local sweeps.
+uniforms. qmc.anneal_sw_bath launches fk_line once an anneal at P <= 64
+(WC3, and WC2 without local sweeps), or once a step after the step's
+local launch (WC2 with local sweeps); past a cluster or past P = 64, once
+a color phase.
 """
 
 from __future__ import annotations
@@ -81,10 +96,17 @@ SM_SMEM_BYTES = 233472
 # energies in one warp's shared memory (`line_wide_bytes`), and at P = 922
 # one warp's needs pass a CTA's 227 KB
 LINE_MAX_SLICES = 921
-# the Houdayer kernel keeps a pair's union-find parents (int32) in shared
-# memory up to this many bytes, else in device memory (1024 threads a pair)
+# the Houdayer move's first kernel keeps a pair's union-find parents
+# (int32) in shared memory up to this many bytes, else in device memory
+# (1024 threads a pair)
 HOUDAYER_SMEM_BYTES = 200 * 1024
 HOUDAYER_THREADS = 1024
+# fk_line's cluster kernel (csrc/fk_line.cu::fk_line_cluster_kernel): at
+# most LINE_THREADS threads a CTA (a warp a line), a head of
+# LINE_HEAD_BYTES (16 word pointers), LINE_WARP_BYTES of scratch a warp
+# (64 rows, parents, floats and accept bytes); it takes P <= 64
+LINE_THREADS, LINE_HEAD_BYTES, LINE_WARP_BYTES = 1024, 128, 1088
+LINE_WORD_SLICES = 64
 
 
 def _check_graph(pg, device):
@@ -182,15 +204,19 @@ def boundary_sites(pg, R):
     """(R + 1 + m,) int32 on pg's device: R + 1 offsets, then, CTA by CTA,
     the sites (original indices) of CTA r's chunk [r nc, (r + 1) nc), nc =
     ceil(n / R), with a neighbour outside it, CTA r's at offsets r .. r +
-    1: the sites whose spatial bonds fk_label and fk_wolff unite across
-    CTAs (none at R = 1). Cached per graph and R."""
+    1: the sites whose spatial bonds fk_label, fk_wolff and the Houdayer
+    move unite across CTAs (none at R = 1). pg: a PackedGraph, or an
+    IsingProblem whose columns are the site ids. Cached per graph and
+    R."""
     key = (id(pg), R)
     hit = _BOUNDARY.get(key)
     if hit is not None and hit[0]() is pg:
         return hit[1]
     n = pg.nspins
     nc = -(-n // R)
-    perm = pg.perm.cpu().numpy().astype(np.int64)
+    # an IsingProblem in site order: its columns are the ids themselves
+    perm = (pg.perm.cpu().numpy().astype(np.int64)
+            if hasattr(pg, "perm") else np.arange(n))
     nbr = pg.nbr_idx.cpu().numpy().astype(np.int64)
     ids = np.broadcast_to(perm[:, None], nbr.shape)
     pad = nbr == np.arange(n)[:, None]
@@ -198,7 +224,7 @@ def boundary_sites(pg, R):
     sites = np.sort(perm[cross])
     offsets = np.searchsorted(sites, np.arange(R + 1) * nc)
     out = torch.as_tensor(np.concatenate([offsets, sites]).astype(np.int32),
-                          device=pg.perm.device)
+                          device=pg.nbr_idx.device)
     for k in [k for k, (ref, _) in _BOUNDARY.items() if ref() is None]:
         del _BOUNDARY[k]
     _BOUNDARY[key] = (weakref.ref(pg), out)
@@ -388,14 +414,117 @@ def sw_anneal(pg, b_sched, jp, teff, confs, seed, lookuptable=None, step0=0,
     return out
 
 
+def houdayer_geometry(pairs, n, sms=NUM_SMS, resident=None):
+    """(R, threads) of the Houdayer move's cluster kernel (csrc/
+    houdayer.cu::houdayer_cluster_kernel, its union-find in shared memory)
+    for `pairs` pairs of n sites: R the largest of CLUSTER_SIZES whose
+    pairs x R CTAs the card's `sms` SMs hold one an SM (the bonds across
+    CTAs cost more than the SMs they add: fk_label's R, which covers every
+    SM, ran the move slower at 24 and 48 pairs on an H100; PERF.md §6),
+    then down to the largest whose clusters `resident(R, threads)` holds
+    all at once, then up to the smallest whose CTA holds its union-find in
+    shared memory; `label_shape`'s threads at P = 1. None when no cluster
+    of CLUSTER_MAX CTAs holds it (n past 619,152 sites): the wrappers then
+    run the first kernel, one CTA a pair (LAUNCHES["houdayer_wide"])."""
+    def shape(r):
+        return label_shape(r, 1, n, chains=pairs, sms=sms)
+
+    sizes = [r for r in gk.CLUSTER_SIZES if r <= max(n, 1)]
+    held = [r for r in sizes if shape(r)[2]]
+    if not held:
+        return None
+    fit = [r for r in sizes if max(pairs, 1) * r <= sms] or sizes[:1]
+    R = fit[-1]
+    if resident is not None:
+        for r in reversed(fit):
+            if r >= held[0] and resident(*shape(r)[:2]) >= pairs:
+                R = r
+                break
+    return shape(max(R, held[0]))[:2]
+
+
+def card_houdayer_geometry(pairs, n, dev):
+    """`houdayer_geometry` on the card `dev`: its SMs and the clusters of
+    each shape it holds at once (cudaOccupancyMaxActiveClusters, cached
+    per shape)."""
+    def resident(R, threads):
+        key = ("houdayer", str(dev), n, R, threads)
+        if key not in _RESIDENT:
+            lib = _build.library("houdayer")
+            count = ctypes.c_int(0)
+            rc = lib.houdayer_max_active_clusters(n, R, threads,
+                                                  ctypes.byref(count))
+            _build.raise_on_error(lib, "houdayer_max_active_clusters", rc,
+                                  error_fn="houdayer_move_error_string")
+            _RESIDENT[key] = count.value
+        return _RESIDENT[key]
+    return houdayer_geometry(pairs, n, gk.card_sms(dev), resident)
+
+
+def houdayer_table(graph):
+    """(n, k) int32 on the graph's device: row id the ids of site id's
+    neighbours of smaller id by a nonzero coupling in either endpoint's row
+    (each once), -1 in its other slots; k the most a site has. The Houdayer
+    move's cluster kernel unites each bond once, from its larger id, and
+    reads no index, coupling or permutation of a slot. graph: a
+    PackedGraph, or an IsingProblem whose columns are the site ids. Cached
+    per graph."""
+    hit = _TABLES.get(id(graph))
+    if hit is not None and hit[0]() is graph:
+        return hit[1]
+    nbr = graph.nbr_idx.cpu().numpy().astype(np.int64)
+    J = graph.nbr_J.cpu().numpy()
+    n = nbr.shape[0]
+    perm = (graph.perm.cpu().numpy().astype(np.int64)
+            if hasattr(graph, "perm") else np.arange(n))
+    a = np.broadcast_to(perm[:, None], nbr.shape)[J != 0.0]
+    b = perm[nbr][J != 0.0]
+    bonds = np.unique(np.stack([np.maximum(a, b), np.minimum(a, b)], 1)
+                      [a != b], axis=0).reshape(-1, 2)
+    # bonds sorted by their larger id: each site's row in turn
+    count = np.bincount(bonds[:, 0], minlength=n)
+    k = max(int(count.max(initial=0)), 1)
+    col = np.arange(len(bonds)) - np.repeat(np.cumsum(count) - count, count)
+    rows = np.full((n, k), -1, dtype=np.int64)
+    rows[bonds[:, 0], col] = bonds[:, 1]
+    out = torch.as_tensor(rows.astype(np.int32), device=graph.nbr_idx.device)
+    for k in [k for k, (ref, _) in _TABLES.items() if ref() is None]:
+        del _TABLES[k]
+    _TABLES[id(graph)] = (weakref.ref(graph), out)
+    return out
+
+
+_TABLES = {}
+
+
+def _houdayer_cluster(graph, inv, ror, s1, s2, flipped, pairs, n, M, seed,
+                      step, geometry, pair0):
+    """One launch of the Houdayer move's cluster kernel (csrc/houdayer.cu::
+    houdayer_cluster_move) in place, on `graph`'s `houdayer_table` and
+    `boundary_sites`; LAUNCHES["houdayer"]."""
+    R, threads = geometry
+    table = houdayer_table(graph)
+    lib = _build.library("houdayer")
+    rc = lib.houdayer_cluster_move(
+        _build.ptr(table), _opt(inv), _build.ptr(boundary_sites(graph, R)),
+        _opt(ror), _build.ptr(s1), _build.ptr(s2), _build.ptr(flipped),
+        pairs, n, table.shape[1], M, cr.wrap_int32(seed), int(step), R,
+        threads, int(pair0), _build.stream_of(s1.device))
+    _build.raise_on_error(lib, "houdayer_cluster_move", rc,
+                          error_fn="houdayer_move_error_string")
+    _build.LAUNCHES["houdayer"] += 1
+
+
 def houdayer_move(problem, s1, s2, seed, step, pair0=0):
     """csrc/houdayer.cu on CUDA tensors, `cluster.houdayer_move_ref` on CPU
     tensors: one Houdayer move of the (pairs, N) replicas s1, s2 (sites in
     the IsingProblem's own order; a lattice's to_generic()) on the coins of
     the HOUDAYER stream at `step`, the pairs counted from pair0 (a rung
     block of a sharded ladder moves the whole ladder's pairs of its
-    rungs). Returns (s1', s2', flipped (pairs,) int32). One launch
-    (LAUNCHES["houdayer"])."""
+    rungs). Returns (s1', s2', flipped (pairs,) int32), new tensors. One
+    launch: the cluster kernel over `card_houdayer_geometry`'s R CTAs a
+    pair (LAUNCHES["houdayer"]), or where no cluster holds a pair the
+    first kernel, one CTA a pair (LAUNCHES["houdayer_wide"])."""
     if _build.route(s1.device, "cluster") == "cpu":
         return cl.houdayer_move_ref(problem, s1, s2, seed, step, pair0)
     pairs, n = s1.shape
@@ -408,6 +537,11 @@ def houdayer_move(problem, s1, s2, seed, step, pair0=0):
     _build.check_arg(a, "s1", (pairs, problem.nspins), dev)
     _build.check_arg(b, "s2", (pairs, problem.nspins), dev)
     flipped = torch.empty(pairs, dtype=torch.int32, device=dev)
+    geometry = card_houdayer_geometry(pairs, n, dev)
+    if geometry is not None:
+        _houdayer_cluster(problem, None, None, a, b, flipped, pairs, n, 1,
+                          seed, step, geometry, pair0)
+        return a, b, flipped
     smem = n * 4 <= HOUDAYER_SMEM_BYTES
     parent = None if smem else torch.empty((pairs, n), dtype=torch.int32,
                                            device=dev)
@@ -419,8 +553,99 @@ def houdayer_move(problem, s1, s2, seed, step, pair0=0):
         cr.wrap_int32(seed), int(step), int(smem), HOUDAYER_THREADS,
         int(pair0), _build.stream_of(dev))
     _build.raise_on_error(lib, "houdayer_move", rc)
-    _build.LAUNCHES["houdayer"] += 1
+    _build.LAUNCHES["houdayer_wide"] += 1
     return a, b, flipped
+
+
+def rung_labels(ror):
+    """(..., M) replica_of_rung -> rung_of_replica, its inverse."""
+    M = ror.shape[-1]
+    lab = torch.empty_like(ror)
+    lab.scatter_(-1, ror, torch.arange(M, device=ror.device).expand_as(ror))
+    return lab
+
+
+def rung_ordered(x, ror):
+    """x (..., M, ...) by replica -> by rung: out[..., m] = x[..., ror[m]]."""
+    idx = ror.reshape(ror.shape + (1,) * (x.dim() - ror.dim()))
+    return torch.gather(x, ror.dim() - 1, idx.expand(ror.shape + x.shape[
+        ror.dim():]))
+
+
+def houdayer_rungs(move, full, ror):
+    """The Houdayer move's rung layout on replicas in site order: full (B *
+    2 * M, n) by replica, B ladder pairs of two ladders of M replicas, ror
+    (B, 2, M) replica_of_rung; pair b M + m is (ladder 0's replica at rung
+    m, ladder 1's). `move(s1, s2)` moves the (B M, n) pairs and returns
+    (s1', s2', flipped). Returns (the moved replicas (B * 2 * M, n) by
+    replica, flipped)."""
+    batch = tuple(ror.shape[:-2])
+    M = ror.shape[-1]
+    n = full.shape[-1]
+    r = rung_ordered(full.reshape(batch + (2, M, n)), ror)
+    a, b, flipped = move(r[..., 0, :, :].reshape(-1, n).contiguous(),
+                         r[..., 1, :, :].reshape(-1, n).contiguous())
+    new = torch.stack([a.reshape(batch + (M, n)), b.reshape(batch + (M, n))],
+                      dim=-3)
+    return rung_ordered(new, rung_labels(ror)).reshape(-1, n), flipped
+
+
+def _move_unpacked(move, problem, pg, state, ror, seed, step, pair0):
+    """The packed engine's state unpacked to site order, `move`
+    (houdayer_move or its plain version) on `problem` by `houdayer_rungs`,
+    the state repacked."""
+    full, flipped = houdayer_rungs(
+        lambda s1, s2: move(problem, s1, s2, seed, step, pair0),
+        packed_ops.unpack_state(pg, state), ror)
+    return packed_ops.pack_state(pg, full).contiguous(), flipped
+
+
+def houdayer_move_packed_ref(problem, pg, state, ror, seed, step, pair0=0):
+    """`houdayer_move_packed`'s plain version, on any device: the state
+    unpacked to site order, `cluster.houdayer_move_ref` on `problem` (the
+    site-order IsingProblem pg packs), the state repacked, as ICM moved
+    the packed engine's replicas before the move ran in place. Returns
+    (the new state, flipped (pairs,) int32)."""
+    return _move_unpacked(cl.houdayer_move_ref, problem, pg, state, ror,
+                          seed, step, pair0)
+
+
+def houdayer_move_packed(problem, pg, state, ror, seed, step, pair0=0):
+    """One Houdayer move of every rung-aligned pair on the packed engine's
+    state (solvers/_engines.py::ClassicalEngine, kind "packed"): state
+    (B * 2 * M, N) float32 in PackedGraph pg's column order, B ladder
+    pairs of two ladders of M replicas; ror (B, 2, M) replica_of_rung;
+    pair b M + m is ladder 0's replica ror[b, 0, m] and ladder 1's ror[b,
+    1, m]; `problem` the site-order IsingProblem pg packs (the coins and
+    labels count site ids, pg.perm's). On CUDA tensors the cluster kernel
+    moves the state in place through ror and pg.perm, no unpack or repack
+    (LAUNCHES["houdayer"]); where no cluster holds a pair, the first kernel
+    on the unpacked replicas (LAUNCHES["houdayer_wide"]); on CPU tensors
+    `houdayer_move_packed_ref`. Returns (state, flipped (pairs,) int32),
+    bitwise the plain version's."""
+    if _build.route(state.device, "cluster") == "cpu":
+        return houdayer_move_packed_ref(problem, pg, state, ror, seed, step,
+                                        pair0)
+    chains, n = state.shape
+    dev = state.device
+    M = ror.shape[-1]
+    pairs = ror.numel() // 2
+    if ror.shape[-2] != 2 or chains != 2 * pairs:
+        raise ValueError(f"ror {tuple(ror.shape)} does not pair the "
+                         f"{chains} chains of the state")
+    ror = ror.contiguous()
+    _build.check_arg(ror, "ror", tuple(ror.shape), dev, torch.int64)
+    _build.check_arg(state, "state", (chains, pg.nspins), dev)
+    _check_graph(pg, dev)
+    geometry = card_houdayer_geometry(pairs, n, dev)
+    if geometry is None:
+        # the first kernel takes replicas in site order
+        return _move_unpacked(houdayer_move, problem, pg, state, ror, seed,
+                              step, pair0)
+    flipped = torch.empty(pairs, dtype=torch.int32, device=dev)
+    _houdayer_cluster(pg, inv_perm(pg), ror, state, state, flipped, pairs, n,
+                      M, seed, step, geometry, pair0)
+    return state, flipped
 
 
 def line_tables(lookuptable, jp, teff, P, device):
@@ -432,15 +657,180 @@ def line_tables(lookuptable, jp, teff, P, device):
             cl.trotter_prob(jp, teff).contiguous())
 
 
+def line_smem_bytes(P, nr, warps, improper=False):
+    """Shared memory of one CTA of fk_line's cluster kernel (csrc/
+    fk_line.cu::line_smem_bytes): the head, its nr slots' 64-bit words
+    (twice on a packing that is not proper: the phase's snapshot), each
+    warp's scratch, and the bonds' thresholds, P x P uint32."""
+    return (LINE_HEAD_BYTES + 8 * nr * (2 if improper else 1)
+            + warps * LINE_WARP_BYTES + 4 * P * P)
+
+
+def line_slots(sizes, R):
+    """(nr, threads) of fk_line's cluster kernel over R CTAs on classes of
+    `sizes` lines: nr = sum_c ceil(n_c / R) slots a CTA (`gk.word_layout`),
+    a warp a line of the largest class chunk, at most LINE_THREADS."""
+    chunks = [-(-int(c) // R) for c in sizes]
+    return sum(chunks), min(LINE_THREADS, 32 * max(max(chunks, default=1), 1))
+
+
+def line_geometry(chains, P, sizes, sms=NUM_SMS, resident=None,
+                  improper=False):
+    """(R, threads) of fk_line's cluster kernel for `chains` chains of P
+    slices on color classes of `sizes` lines (improper: a packing that is
+    not proper, whose CTAs also hold the phase's snapshot): each chain over
+    a cluster of R CTAs, R first by fk_label's rule of the card's `sms` SMs
+    (`label_geometry`: 8 chains on 132 SMs take 16), raised to the smallest
+    whose CTA holds its words (`line_smem_bytes`), then down to the largest
+    whose clusters `resident(R, threads)` holds all at once (the wrapper
+    passes the card's cudaOccupancyMaxActiveClusters); `line_slots`
+    threads. None for P past LINE_WORD_SLICES (a line is one 64-bit word)
+    and where no cluster of CLUSTER_MAX CTAs holds a chain's words (two
+    classes: n past 382,208 lines at P = 40, 362,240 at P = 64), or a CTA
+    more than 65,535 slots: `line_anneal` then runs `line_phase`, one
+    launch a color phase."""
+    n = int(sum(sizes))
+    if not 2 <= P <= LINE_WORD_SLICES or n == 0:
+        return None
+
+    def fits(r):
+        nr, threads = line_slots(sizes, r)
+        return nr < 65536 and line_smem_bytes(
+            P, nr, threads // 32, improper) <= _build.SMEM_LIMIT_BYTES
+
+    chains = max(chains, 1)
+    top = min(CLUSTER_MAX, n)
+    R = max(1, sms // chains)
+    if chains * R * 4 < 3 * sms:
+        R += 1
+    R = min(R, top)
+    while R <= top and not fits(R):
+        R += 1
+    if R > top:
+        return None
+    if resident is not None:
+        for r in range(R, 0, -1):
+            if fits(r) and resident(r, line_slots(sizes, r)[1]) >= chains:
+                return r, line_slots(sizes, r)[1]
+    return R, line_slots(sizes, R)[1]
+
+
+def card_line_geometry(pg, chains, P, dev, per_slice_seeds):
+    """`line_geometry` of PackedGraph pg on the card `dev`: its SMs and
+    the clusters of the instantiation (WC3 or WC2) it holds at once.
+    Cached per shape."""
+    sizes = np.diff(pg.starts)
+    improper = not pg.proper
+
+    def resident(R, threads):
+        nr = line_slots(sizes, R)[0]
+        key = ("fk_line", str(dev), P, nr, R, threads, improper,
+               bool(per_slice_seeds))
+        if key not in _RESIDENT:
+            lib = _build.library("fk_line")
+            count = ctypes.c_int(0)
+            rc = lib.fk_line_max_active_clusters(
+                P, nr, R, threads, int(improper), int(bool(per_slice_seeds)),
+                ctypes.byref(count))
+            _build.raise_on_error(lib, "fk_line_max_active_clusters", rc,
+                                  error_fn="fk_line_phase_error_string")
+            _RESIDENT[key] = count.value
+        return _RESIDENT[key]
+    return line_geometry(chains, P, sizes, gk.card_sms(dev), resident,
+                         improper)
+
+
+def line_anneal_ref(pg, b_sched, jp, p_t, teff, lookuptable, p_pair, confs,
+                    seed, per_slice_seeds, t0=0, steps=None, colors=None,
+                    step0=None, chain0=0):
+    """`line_anneal`'s plain version: `cluster.line_phase_ref` phase after
+    phase, the classes `colors` (default every class) of each step t = t0
+    .. t0 + steps - 1 at schedule index t (B_t, J_perp_t) on the draws of
+    hash step step0 + t - t0 (step0 default t0)."""
+    steps = int(b_sched.shape[0]) - t0 if steps is None else steps
+    colors = range(pg.num_colors) if colors is None else colors
+    step0 = t0 if step0 is None else step0
+    for t in range(t0, t0 + steps):
+        for color in colors:
+            confs = cl.line_phase_ref(pg, b_sched[t], jp[t], teff,
+                                      lookuptable, confs, seed,
+                                      step0 + t - t0, color, per_slice_seeds,
+                                      p_pair, chain0)
+    return confs
+
+
+def line_anneal(pg, b_sched, jp, p_t, teff, lookuptable, p_pair, confs,
+                seed, per_slice_seeds, t0=0, steps=None, colors=None,
+                step0=None, chain0=0):
+    """The line phases of the classes `colors` (a range; default every
+    class) of the steps t0 .. t0 + steps - 1 (default to the schedules'
+    end), schedule index t, hash step step0 + t - t0 (step0 default t0), of
+    packed confs (chains, P, N): csrc/fk_line.cu on CUDA tensors,
+    `line_anneal_ref` on CPU tensors; the other arguments as for
+    `line_phase`. Returns the new configurations. At P <= 64, where
+    `card_line_geometry` finds a cluster, one launch (LAUNCHES["fk_line"]):
+    the chain's words in the cluster's shared memory from the first phase
+    to the last; elsewhere (P > 64, or a chain no cluster holds) one
+    `line_phase` launch a phase."""
+    if _build.route(confs.device, "cluster") == "cpu":
+        return line_anneal_ref(pg, b_sched, jp, p_t, teff, lookuptable,
+                               p_pair, confs, seed, per_slice_seeds, t0,
+                               steps, colors, step0, chain0)
+    steps = int(b_sched.shape[0]) - t0 if steps is None else steps
+    colors = range(pg.num_colors) if colors is None else colors
+    step0 = t0 if step0 is None else step0
+    chains, P, n = confs.shape
+    dev = confs.device
+    geometry = card_line_geometry(pg, chains, P, dev, per_slice_seeds)
+    if geometry is None:
+        for t in range(t0, t0 + steps):
+            for color in colors:
+                confs = line_phase(pg, b_sched, jp, p_t, t, teff,
+                                   lookuptable, p_pair, confs, seed,
+                                   step0 + t - t0, color, per_slice_seeds,
+                                   chain0)
+        return confs
+    if not 0 <= t0 <= t0 + steps <= int(b_sched.shape[0]) or \
+            not (len(colors) == 0 or
+                 0 <= colors.start <= colors.stop <= pg.num_colors) or \
+            colors.step != 1:
+        raise ValueError(f"steps {t0} .. {t0 + steps} and classes {colors} "
+                         f"must lie in the schedules and the "
+                         f"{pg.num_colors} classes")
+    R, threads = geometry
+    nbr_idx, nbr_J, h, perm, starts = gk._check_graph(pg, dev)
+    sched = _check_schedules(int(b_sched.shape[0]), dev, b_sched=b_sched,
+                             jp=jp, p_t=p_t)
+    _build.check_arg(p_pair, "p_pair", (P, P), dev)
+    _build.check_arg(confs, "confs", (chains, P, pg.nspins), dev)
+    _, slot_starts, nbr_loc, nr = gk.word_layout(pg, R)
+    out = torch.empty_like(confs)
+    lib = _build.library("fk_line")
+    rc = lib.fk_line_anneal(
+        _build.ptr(slot_starts), starts, _build.ptr(nbr_loc), nbr_J, h, perm,
+        *sched, _build.ptr(p_pair), ctypes.c_float(teff), _build.ptr(confs),
+        _build.ptr(out), chains, P, n, pg.nbr_idx.shape[1], R, nr, threads,
+        int(t0), int(step0), int(steps), colors.start, colors.stop,
+        cr.wrap_int32(seed), int(bool(per_slice_seeds)), int(not pg.proper),
+        int(chain0), _build.stream_of(dev))
+    _build.raise_on_error(lib, "fk_line_anneal", rc,
+                          error_fn="fk_line_phase_error_string")
+    _build.LAUNCHES["fk_line"] += 1
+    return out
+
+
 def line_phase(pg, b_sched, jp, p_t, t, teff, lookuptable, p_pair, confs,
                seed, step, color, per_slice_seeds, chain0=0):
-    """csrc/fk_line.cu on CUDA tensors, `cluster.line_phase_ref` on CPU
-    tensors: the line phase of class `color` at schedule index t (B_t,
-    J_perp_t and the Trotter probability p_t[t]) on the draws of `step`,
-    T_eff = `teff` (a Python float), the chains counted from chain0 (a
-    chain shard's first). Returns the new configurations. One launch
-    (LAUNCHES["fk_line"]); P <= LINE_MAX_SLICES on the card, whose rows
-    past P = 64 sit in shared memory (ValueError beyond)."""
+    """csrc/fk_line.cu's per-phase kernels on CUDA tensors,
+    `cluster.line_phase_ref` on CPU tensors: the line phase of class
+    `color` at schedule index t (B_t, J_perp_t and the Trotter probability
+    p_t[t]) on the draws of `step`, T_eff = `teff` (a Python float), the
+    chains counted from chain0 (a chain shard's first). Returns the new
+    configurations. One launch: at P <= 64 the first kernel, one warp a
+    line (LAUNCHES["fk_line_wide"]), past P = 64 the kernel whose rows sit
+    in shared memory (LAUNCHES["fk_line_rows"]); P <= LINE_MAX_SLICES on
+    the card (ValueError beyond). `line_anneal` calls it where its cluster
+    kernel takes no shape."""
     if _build.route(confs.device, "cluster") == "cpu":
         return cl.line_phase_ref(pg, b_sched[t], jp[t], teff, lookuptable,
                                  confs, seed, step, color, per_slice_seeds,
@@ -465,7 +855,8 @@ def line_phase(pg, b_sched, jp, p_t, t, teff, lookuptable, p_pair, confs,
         int(bool(per_slice_seeds)), line_warps(P), int(chain0),
         _build.stream_of(dev))
     _build.raise_on_error(lib, "fk_line_phase", rc)
-    _build.LAUNCHES["fk_line"] += 1
+    _build.LAUNCHES["fk_line_wide" if P <= LINE_WORD_SLICES
+                    else "fk_line_rows"] += 1
     return out
 
 
@@ -572,10 +963,11 @@ def sw_bath_anneal(problem, a_sched, b_sched, temp, lookuptable, confs, seed,
     """Dissipative anneal with bath-bond line clusters (JAX
     qmc.anneal_sw_bath, WC2 / WC3) of an IsingProblem: each step, with
     `local_sweeps` and not `per_slice_seeds`, a dissipative local sweep
-    (csrc/generic_qmc_bath.cu, sequential, no line moves), then one
-    fk_line phase a color class. confs: (..., P, N), P >= 2; chain0: the
-    global index of the first chain (a chain shard). Returns the annealed
-    configurations."""
+    (csrc/generic_qmc_bath.cu, sequential, no line moves), then the line
+    phase of each color class (`line_anneal`: every step's in one launch
+    where no local sweep interleaves, else the step's). confs: (..., P,
+    N), P >= 2; chain0: the global index of the first chain (a chain
+    shard). Returns the annealed configurations."""
     pg = gk._graph_of(problem, confs, "confs")
     P = confs.shape[-2]
     dev = problem.device
@@ -586,14 +978,16 @@ def sw_bath_anneal(problem, a_sched, b_sched, temp, lookuptable, confs, seed,
                                       dev)
     p_pair, p_t = line_tables(lut, jp, teff, P, dev)
     c = _packed_lines(pg, confs, P)
+    if not (local_sweeps and not per_slice_seeds):
+        c = line_anneal(pg, b, jp, p_t, teff, lut, p_pair, c, seed,
+                        per_slice_seeds, chain0=chain0)
+        return _unpacked(pg, c, confs.shape)
     for t in range(b.shape[0]):
-        if local_sweeps and not per_slice_seeds:
-            c = gk.generic_qmc_bath_anneal(pg, b[t:t + 1], jp[t:t + 1], teff,
-                                           bath, c, seed, False, step0=t,
-                                           chain0=chain0)
-        for color in range(pg.num_colors):
-            c = line_phase(pg, b, jp, p_t, t, teff, lut, p_pair, c, seed, t,
-                           color, per_slice_seeds, chain0)
+        c = gk.generic_qmc_bath_anneal(pg, b[t:t + 1], jp[t:t + 1], teff,
+                                       bath, c, seed, False, step0=t,
+                                       chain0=chain0)
+        c = line_anneal(pg, b, jp, p_t, teff, lut, p_pair, c, seed,
+                        per_slice_seeds, t0=t, steps=1, chain0=chain0)
     return _unpacked(pg, c, confs.shape)
 
 

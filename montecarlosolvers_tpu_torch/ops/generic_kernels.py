@@ -508,9 +508,11 @@ def packed_svmc_one_cta(n, colors=1, proper=True):
     1280; random_3d_lattice(12) (864) 0.0043-0.0076 against 0.0056-0.0081
     at 8-256 chains but 128 (0.0069 against 0.0067), 0.0235 against
     0.0264 at 1280; from 2048 sites a class the cluster route ahead
-    everywhere but 1280 chains (1.04-1.07x, R = 1). The first kernel reads
-    a class's neighbours in place, so a packing that is not proper keeps
-    the cluster route, which reads them as the phase began."""
+    everywhere but 1280 chains (1.04-1.07x, R = 1). A packing that is not
+    proper keeps the cluster route: both kernels read a class's neighbours
+    as the phase began (the first from a snapshot in device memory, a copy
+    and a barrier more a phase), and the crossover was measured on proper
+    packings only."""
     return proper and -(-n // max(colors, 1)) <= SVMC_CTA_PASSES * THREADS
 
 
@@ -741,9 +743,10 @@ def packed_svmc_anneal(pg, a_sched, b_sched, temp, theta, seed, tf,
     (energies or not; with `tables`, LAUNCHES["packed_svmc_noisy"]). A
     graph no cluster of 16 CTAs holds, or of more than 127 classes, runs
     the first kernel under the same keys + "_wide". Both hold the plain
-    version's angles as the SVMC checks do, and agree with each other
-    bitwise on a proper packing; neither is a fallback from a failure of
-    the other."""
+    version's angles as the SVMC checks do on any packing (on one that is
+    not proper each reads a class's neighbours as the phase began, as the
+    plain version does), and agree with each other bitwise on a proper
+    packing; neither is a fallback from a failure of the other."""
     if _build.route(theta.device, "packed") == "cpu":
         return packed_svmc_anneal_ref(pg, a_sched, b_sched, temp, theta,
                                       seed, tf, energies, tables, chain0)
@@ -777,13 +780,16 @@ def packed_svmc_anneal(pg, a_sched, b_sched, temp, theta, seed, tf,
         _build.LAUNCHES[key] += 1
         return out
     out = theta.clone()
-    scratch = torch.empty((2, chains, n), dtype=torch.float32, device=dev)
+    # the cos and sin caches, and on a packing that is not proper the
+    # phases' snapshots of cos
+    scratch = torch.empty((2 if pg.proper else 3, chains, n),
+                          dtype=torch.float32, device=dev)
     rc = lib.packed_svmc_anneal(
         *graph, _build.ptr(a_sched), _build.ptr(b_sched),
         ctypes.c_float(temp), _build.ptr(out), _build.ptr(scratch),
         _build.energies_ptr(energies, steps, chains, dev), chains, n,
         pg.nbr_idx.shape[1], pg.num_colors, *sched, THREADS, *strides,
-        _build.stream_of(dev))
+        int(not pg.proper), _build.stream_of(dev))
     _build.raise_on_error(lib, "packed_svmc_anneal", rc)
     _build.LAUNCHES[key if geometry is not None else key + "_wide"] += 1
     return out

@@ -48,6 +48,8 @@ from montecarlosolvers_tpu_torch import _roadmap, schedules
 from montecarlosolvers_tpu_torch.models.dense import DenseProblem
 from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 from montecarlosolvers_tpu_torch.ops import cluster_kernels
+from montecarlosolvers_tpu_torch.ops.cluster_kernels import (rung_labels,
+                                                             rung_ordered)
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops.metropolis import metropolis_accept
@@ -86,21 +88,6 @@ def geometric_ladder(t_min, t_max, num, device=None):
     float32 ulp of jnp.geomspace. Swap acceptance needs the rung ratio - 1
     to scale like 1/sqrt(N)."""
     return schedules.geometric(t_min, t_max, num, device=device)
-
-
-def _labels(ror):
-    """(..., M) replica_of_rung -> rung_of_replica, its inverse."""
-    M = ror.shape[-1]
-    lab = torch.empty_like(ror)
-    lab.scatter_(-1, ror, torch.arange(M, device=ror.device).expand_as(ror))
-    return lab
-
-
-def _rung_ordered(x, ror):
-    """x (..., M, ...) by replica -> by rung: out[..., m] = x[..., ror[m]]."""
-    idx = ror.reshape(ror.shape + (1,) * (x.dim() - ror.dim()))
-    return torch.gather(x, ror.dim() - 1, idx.expand(ror.shape + x.shape[
-        ror.dim():]))
 
 
 def _exchange(values, coef, ror, seed, step, parity, sign, temp):
@@ -200,7 +187,7 @@ def sample(problem, temps, states, generator, nsweeps, swap_every=1,
     es = []
     cadence = 1 if collect_energy else swap_every
     for start, steps in _events(int(nsweeps), (cadence,)):
-        eng.sweep(temps[_labels(lad.ror)].reshape(-1), seed, start, steps)
+        eng.sweep(temps[rung_labels(lad.ror)].reshape(-1), seed, start, steps)
         i = start + steps - 1
         e = None
         if i % swap_every == 0:
@@ -214,7 +201,7 @@ def sample(problem, temps, states, generator, nsweeps, swap_every=1,
             if e is None:
                 e = eng.energy().reshape(batch + (M,))
             es.append(torch.gather(e, -1, lad.ror))
-    out_states = _rung_ordered(eng.full().reshape(batch + (M, n)), lad.ror)
+    out_states = rung_ordered(eng.full().reshape(batch + (M, n)), lad.ror)
     out = (eng.placed(out_states) if sharded else out_states,
            lad.swap_rate())
     if collect_energy:
@@ -255,7 +242,7 @@ def sample_piqmc(problem, gammas, temp, confs, generator, nsweeps, b=1.0,
     seed = draw_seed(generator)
     lad = _Ladders(batch, M, dev)
     for start, steps in _events(int(nsweeps), (swap_every,)):
-        eng.sweep(jps[_labels(lad.ror)].reshape(-1), seed, start, steps)
+        eng.sweep(jps[rung_labels(lad.ror)].reshape(-1), seed, start, steps)
         i = start + steps - 1
         if i % swap_every == 0:
             parity = (i // swap_every) % 2
@@ -264,7 +251,7 @@ def sample_piqmc(problem, gammas, temp, confs, generator, nsweeps, b=1.0,
                                      teff)
             lad.nacc += acc.to(torch.int32)
             lad.attempt(parity)
-    out_confs = _rung_ordered(eng.full().reshape(batch + (M, slices, n)),
+    out_confs = rung_ordered(eng.full().reshape(batch + (M, slices, n)),
                               lad.ror)
     out = (eng.placed(out_confs) if sharded else out_confs, lad.swap_rate())
     if per_pair_rates:
@@ -353,7 +340,7 @@ def sample_icm(problem, temps, states, generator, nsweeps, swap_every=1,
     h_cnt = 0
     cadences = (1 if collect_energy else swap_every, houdayer_every)
     for start, steps in _events(int(nsweeps), cadences):
-        eng.sweep(temps[_labels(lad.ror)].reshape(-1), seed, start, steps)
+        eng.sweep(temps[rung_labels(lad.ror)].reshape(-1), seed, start, steps)
         i = start + steps - 1
         if i % swap_every == 0:
             parity = (i // swap_every) % 2
@@ -369,7 +356,7 @@ def sample_icm(problem, temps, states, generator, nsweeps, swap_every=1,
         if collect_energy:
             es.append(torch.gather(eng.energy().reshape(batch + (2, M)), -1,
                                    lad.ror))
-    full = _rung_ordered(eng.full().reshape(batch + (2, M, n)), lad.ror)
+    full = rung_ordered(eng.full().reshape(batch + (2, M, n)), lad.ror)
     out = (eng.placed(full) if sharded else full, lad.swap_rate(2).sum(-1),
            h_sum / max(h_cnt, 1))
     if collect_energy:
@@ -381,33 +368,38 @@ def sample_icm(problem, temps, states, generator, nsweeps, swap_every=1,
 
 
 def _houdayer_phase(eng, gp, ror, batch, M, n, seed, step):
-    """One Houdayer move of every rung-aligned pair (pt.py:435-444): the
-    state unpacked to site order, pair (read, rung) = (ladder 0's replica
-    at the rung, ladder 1's), the move, the state repacked. Returns the
-    flipped fraction of the phase of each pair of ladders, float32 of the
-    batch shape."""
-    full = eng.full().reshape(batch + (2, M, n))
-    r = _rung_ordered(full, ror)  # (..., 2, M, N) by rung
-    s1 = r[..., 0, :, :].reshape(-1, n)
-    s2 = r[..., 1, :, :].reshape(-1, n)
+    """One Houdayer move of every rung-aligned pair (pt.py:435-444), pair
+    (read, rung) = (ladder 0's replica at the rung, ladder 1's). On the
+    packed engine (every IsingProblem, every odd-L lattice) the move runs
+    in place on the engine's state, through `ror` and the packing's site
+    ids (`cluster_kernels.houdayer_move_packed`); the split engine of an
+    even-L lattice and a rung-sharded state are unpacked to site order,
+    moved and repacked. Returns the flipped fraction of the phase of each
+    pair of ladders, float32 of the batch shape."""
+    if not getattr(eng, "sharded", False) and eng.kind == "packed":
+        eng.state, flipped = cluster_kernels.houdayer_move_packed(
+            gp, eng.pg, eng.state, ror, seed, step)
+        return (flipped.reshape(batch + (M,)).sum(-1).to(torch.float32)
+                / float(M * n))
     if getattr(eng, "sharded", False):
         # the pairs of this rank's rungs, at their global pair uids, then
         # every rank's moved pairs in rung order
         from montecarlosolvers_tpu_torch.parallel import _collectives as coll
 
         m0, k = eng.starts[0], eng.k
-        a, b, flipped = cluster_kernels.houdayer_move(
-            gp, s1[m0:m0 + k].contiguous(), s2[m0:m0 + k].contiguous(), seed,
-            step, pair0=m0)
-        a, b = (coll.gather_spins(x, eng.group, 0) for x in (a, b))
-        flipped = coll.gather(flipped, eng.group, 0)
+
+        def move(s1, s2):
+            a, b, flipped = cluster_kernels.houdayer_move(
+                gp, s1[m0:m0 + k].contiguous(), s2[m0:m0 + k].contiguous(),
+                seed, step, pair0=m0)
+            return (coll.gather_spins(a, eng.group, 0),
+                    coll.gather_spins(b, eng.group, 0),
+                    coll.gather(flipped, eng.group, 0))
     else:
-        a, b, flipped = cluster_kernels.houdayer_move(
-            gp, s1.contiguous(), s2.contiguous(), seed, step)
-    new = torch.stack([a.reshape(batch + (M, n)), b.reshape(batch + (M, n))],
-                      dim=-3)
-    lab = _labels(ror)
-    eng.set_full(_rung_ordered(new, lab).reshape(-1, n))
+        def move(s1, s2):
+            return cluster_kernels.houdayer_move(gp, s1, s2, seed, step)
+    full, flipped = cluster_kernels.houdayer_rungs(move, eng.full(), ror)
+    eng.set_full(full)
     return (flipped.reshape(batch + (M,)).sum(-1).to(torch.float32)
             / float(M * n))
 

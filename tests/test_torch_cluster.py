@@ -569,3 +569,73 @@ def test_wrappers_refuse():
         ck.wolff_anneal(pg, one, one, one, confs.to("meta"), 0)
     assert not any(_build.LAUNCHES[k] for k in ("fk_wolff", "fk_label",
                                                 "fk_line"))
+
+
+# The line phases of a whole anneal in one launch (csrc/fk_line.cu's
+# cluster kernel, `cluster_kernels.line_anneal`): its plain route is
+# `line_phase_ref` phase after phase, the classes of each step in order,
+# and `sw_bath_anneal` is the loop of per-phase launches it replaced
+@pytest.mark.parametrize("P,per_slice_seeds,chain0", [
+    (2, True, 0), (5, False, 3), (40, True, 100003), (40, False, 0),
+    (64, True, 0), (64, False, 100003)])
+def test_line_anneal_is_line_phases_phase_by_phase(P, per_slice_seeds,
+                                                   chain0):
+    port, pg, confs = _packed_case("torus6", P, seed=P)
+    steps = 3
+    b = torch.linspace(0.7, 1.0, steps)
+    jp = tsched.jperp(torch.linspace(2.0, 0.2, steps), 0.6 * P)
+    teff = 0.6 * P
+    lut = tsched.bath_lookuptable(P, 0.3, device="cpu")
+    p_pair, p_t = ck.line_tables(lut, jp, teff, P, "cpu")
+    got = ck.line_anneal(pg, b, jp, p_t, teff, lut, p_pair, confs, 19,
+                         per_slice_seeds, chain0=chain0)
+    c = confs
+    for t in range(steps):
+        for color in range(pg.num_colors):
+            c = tc.line_phase_ref(pg, b[t], jp[t], teff, lut, c, 19, t,
+                                  color, per_slice_seeds, p_pair, chain0)
+    assert torch.equal(got, c) and not torch.equal(got, confs)
+    # a window of steps and classes at a shifted hash step: the same
+    # phases, each on its own draws
+    part = ck.line_anneal(pg, b, jp, p_t, teff, lut, p_pair, confs, 19,
+                          per_slice_seeds, t0=1, steps=2,
+                          colors=range(1, pg.num_colors), step0=7,
+                          chain0=chain0)
+    c = confs
+    for t in (1, 2):
+        for color in range(1, pg.num_colors):
+            c = tc.line_phase_ref(pg, b[t], jp[t], teff, lut, c, 19, t + 6,
+                                  color, per_slice_seeds, p_pair, chain0)
+    assert torch.equal(part, c)
+
+
+@pytest.mark.parametrize("per_slice_seeds,local_sweeps,chain0", [
+    (True, True, 0), (False, True, 0), (False, False, 5), (False, True, 5)])
+def test_sw_bath_anneal_is_the_per_phase_loop(per_slice_seeds, local_sweeps,
+                                              chain0):
+    """WC3, and WC2 with and without local sweeps: the anneal equals the
+    per-step loop it launches phase by phase (a local sweep, then each
+    class's line phase), bitwise."""
+    port = graphs("torus6")[0]
+    P, steps = 5, 4
+    confs = torch.as_tensor(_spins((3, P, port.nspins), 31))
+    sched = torch.linspace(2.0, 0.3, steps)
+    lut = tsched.bath_lookuptable(P, 0.2, device="cpu")
+    got = ck.sw_bath_anneal(port, sched, torch.ones_like(sched), 0.3, lut,
+                            confs, 23, per_slice_seeds=per_slice_seeds,
+                            local_sweeps=local_sweeps, chain0=chain0)
+    pg = tpk.build_packed(port)
+    b, jp, teff = tsched.qmc_terms(sched, torch.ones_like(sched), 0.3, P, 1,
+                                   "cpu")
+    p_pair, p_t = ck.line_tables(lut, jp, teff, P, "cpu")
+    bath = tpq.bath_matrix_of(lut, P, "cpu")
+    c = tpk.pack_state(pg, confs)
+    for t in range(steps):
+        if local_sweeps and not per_slice_seeds:
+            c = gk.generic_qmc_bath_anneal(pg, b[t:t + 1], jp[t:t + 1], teff,
+                                           bath, c, 23, False, step0=t,
+                                           chain0=chain0)
+        for color in range(pg.num_colors):
+            c = tc.line_phase_ref(pg, b[t], jp[t], teff, lut, c, 23, t,
+                                  color, per_slice_seeds, p_pair, chain0)
+    assert torch.equal(got, tpk.unpack_state(pg, c))

@@ -24,9 +24,13 @@ Generic PIQMC and the generic bath on an IsingProblem take the same design
 (`ops/generic_kernels.py::generic_qmc_geometry`, `generic_qmc_bath_geometry`:
 a chain's slices as words over a cluster, CTA r holding the r-th chunk of
 every color class, `word_layout`), or for a chain no cluster holds each
-file's first kernel (the "_wide" launch keys). fk_line keeps a line's
-bond rows in registers at P <= 64 and in a warp's shared memory beyond
-(`cluster_kernels.line_wide_bytes`, up to LINE_MAX_SLICES). Generic SVMC
+file's first kernel (the "_wide" launch keys). fk_line at P <= 64 keeps
+a chain's lines as 64-bit words over a cluster on the same slot layout
+(`cluster_kernels.line_geometry`), its first kernel a line's bond rows in
+registers, and past P = 64 in a warp's shared memory
+(`cluster_kernels.line_wide_bytes`, up to LINE_MAX_SLICES); the Houdayer
+move spreads a pair over a cluster (`cluster_kernels.houdayer_geometry`,
+its bonds in `houdayer_table`). Generic SVMC
 spreads a chain's rotors over a cluster on the same slot layout
 (`generic_kernels.packed_svmc_geometry`), and the chain-bit energy kernel
 reads K chains of a group a CTA (`split_kernels.words_energy_geometry`).
@@ -787,8 +791,9 @@ def test_words_energy_chains_a_cta_match_the_launcher():
 # THREADS threads (768 sites) takes the file's first kernel: the 16 x 16
 # torus (128 sites a class), chimera_graph(16) (2048 sites, three classes),
 # not random_3d_lattice(12) (864), random_3d_lattice(16) or the 80 x 80
-# torus; a packing that is not proper never (the first kernel reads a
-# class's neighbours in place)
+# torus; a packing that is not proper never (the rule was measured on
+# proper packings only; the first kernel reads such a packing's class
+# from its snapshot, as the cluster route does)
 @pytest.mark.parametrize("n,colors,proper,one_cta", [
     (256, 2, True, True), (2048, 3, True, True), (1536, 2, True, True),
     (1537, 2, True, False), (1728, 2, True, False), (4096, 2, True, False),
@@ -798,3 +803,88 @@ def test_words_energy_chains_a_cta_match_the_launcher():
 def test_packed_svmc_one_cta(n, colors, proper, one_cta):
     assert gk.packed_svmc_one_cta(n, colors, proper) is one_cta
     assert gk.SVMC_CTA_PASSES * gk.THREADS == 768
+
+
+# The Houdayer move's cluster kernel (csrc/houdayer.cu): (pairs, n) -> R,
+# the largest power of two whose pairs x R CTAs the 132 SMs hold one an SM
+# (24 pairs of random_3d_lattice(12) take 4, 48 of the 80 x 80 torus 2,
+# 132 or more pairs, ICM's 768 among them, 1), down where the card holds
+# fewer such clusters at once, up to the first whose CTA holds its
+# union-find; fk_label's threads (label_shape) at P = 1
+@pytest.mark.parametrize("pairs,n,R", [
+    (24, 1728, 4), (48, 6400, 2), (132, 6400, 1), (500, 6400, 1),
+    (1, 6400, 16), (8, 6400, 16), (9, 6400, 8), (2, 8, 8), (3, 100000, 16)])
+def test_houdayer_geometry(pairs, n, R):
+    R_, threads = ck.houdayer_geometry(pairs, n, 132)
+    assert R_ == R
+    assert (R, threads, True) == ck.label_shape(R, 1, n, chains=pairs)
+    assert ck.label_smem_bytes(1, n, R) <= _build.SMEM_LIMIT_BYTES
+
+
+def test_houdayer_geometry_takes_what_the_card_holds():
+    """At 24 pairs and a card that holds 20 clusters of 4 CTAs, R falls to
+    2, never below the smallest R whose CTA holds its union-find; where no
+    cluster holds a pair's union-find the first kernel runs."""
+    assert ck.houdayer_geometry(
+        24, 1728, 132, resident=lambda R, t: 20 if R == 4 else 99)[0] == 2
+    assert ck.houdayer_geometry(
+        24, 300_000, 132, resident=lambda R, t: 99)[0] == 8
+    assert ck.houdayer_geometry(1, 619_152, 132) is not None
+    assert ck.houdayer_geometry(1, 619_153, 132) is None
+
+
+# fk_line's cluster kernel (csrc/fk_line.cu): (chains, P, class sizes) ->
+# (R, threads): fk_label's R (8 chains on 132 SMs: 16, 16 chains 8, 64
+# chains 2) up to the first
+# whose CTA holds its words, down to what the card holds for every chain
+# at once (an H100 holds 7 clusters of 16 CTAs of 1024 threads, and two of
+# 9 in a GPC of 18 SMs); a warp a line of the largest class chunk, at most
+# LINE_THREADS; None past P = 64 and where 16 CTAs hold no chain's words
+@pytest.mark.parametrize("chains,P,sizes,R,threads", [
+    (8, 40, (3200, 3200), 16, 1024), (1, 40, (3200, 3200), 16, 1024),
+    (16, 40, (3200, 3200), 8, 1024), (64, 5, (50, 50), 2, 800),
+    (132, 2, (18, 18), 1, 576), (4, 64, (50, 50), 16, 128),
+    (8, 40, (683, 683, 682), 16, 1024)])
+def test_line_geometry(chains, P, sizes, R, threads):
+    assert ck.line_geometry(chains, P, sizes, 132) == (R, threads)
+
+
+def test_line_geometry_takes_what_the_card_holds():
+    def gpcs(R, threads):
+        # 7 GPCs of 18 SMs, one CTA of LINE_THREADS an SM
+        assert threads <= ck.LINE_THREADS
+        return 7 * (18 // R)
+    assert ck.line_geometry(8, 40, (3200, 3200), 132, gpcs) == (9, 1024)
+    assert ck.line_geometry(8, 65, (3200, 3200), 132) is None
+    assert ck.line_geometry(8, 1, (3200, 3200), 132) is None
+    assert ck.line_geometry(1, 64, (181_120, 181_120), 132) is not None
+    assert ck.line_geometry(1, 64, (181_121, 181_121), 132) is None
+    # the snapshot of a packing that is not proper doubles the words
+    assert ck.line_smem_bytes(40, 400, 32, True) - \
+        ck.line_smem_bytes(40, 400, 32) == 8 * 400
+
+
+def test_line_and_houdayer_constants_match_the_sources():
+    """LINE_THREADS, LINE_HEAD_BYTES and LINE_WARP_BYTES are fk_line.cu's,
+    line_smem_bytes counts what its launcher asks, and the Houdayer
+    cluster kernel's shared memory is fk_label's at P = 1 (the head, two
+    floats, the region), as label_smem_bytes counts it."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(ck.__file__).parent.parent / "csrc"
+    src = (csrc / "fk_line.cu").read_text()
+
+    def const(name):
+        expr = re.search(rf"constexpr int {name} =\s*([^;]+);", src).group(1)
+        return eval(expr.replace("sizeof(unsigned long long*)", "8"))
+    assert const("kLineThreads") == ck.LINE_THREADS
+    assert const("kLineHeadBytes") == ck.LINE_HEAD_BYTES
+    assert const("kLineWarpBytes") == ck.LINE_WARP_BYTES
+    body = src[src.index("line_smem_bytes(int P, int nr"):]
+    body = body[:body.index("\n}\n")]
+    assert "static_cast<size_t>(nr) * 8 * (improper ? 2 : 1)" in body
+    assert "static_cast<size_t>(P) * P * 4" in body
+    hsrc = (csrc / "houdayer.cu").read_text()
+    assert "mcs::nodes_smem_bytes(1, n, R, 1, 2, true)" in hsrc
+    assert ck.label_smem_bytes(1, 1728, 4) == 256 + 8 + ck.region_bytes(
+        1, 1728, 4, 1)

@@ -89,6 +89,19 @@ checkerboard, and the two routes agree bitwise on proper packings; the
 chain-bit energy kernel equals the halves kernel bitwise at 1 to 7040
 chains and every K (chains of a group a CTA); generic SVMC's rule of
 size sends small class phases to the first kernel under the plain key.
+Generic SVMC's first kernel, forced onto the 81 x 81 checkerboard (not
+proper), reads each phase's same-class neighbours from its snapshot and
+equals the plain version. The Houdayer move's cluster kernel (at its
+rule's R, at R = 1 and 16, with its union-find in device memory) and the
+first kernel equal houdayer_move_ref bitwise on random_3d_lattice(12) (24
+pairs), the 80 x 80 torus's generic form (48) and a chimera, at pair0 0
+and 100003; the move in place on the packed engine's state equals its
+plain version with a permuted ror; past 619,152 sites the first kernel
+runs by shape; solve("icm") moves in place with no unpack or repack.
+fk_line's cluster kernel (one launch an anneal) and its first kernel
+(forced, one launch a phase) equal line_phase_ref phase by phase, WC2 and
+WC3, chain0 0 and 100003, and solve("piqmc_sw") at the profiled cell's
+shape makes one fk_line launch.
 """
 
 import contextlib
@@ -1519,9 +1532,10 @@ def test_cluster_kernels_at_the_shared_memory_limit(cuda, past):
     ("rg_fields", 128, False), ("dup", 200, True)])
 def test_line_kernel_equals_plain(cuda, graph, P, per_slice_seeds):
     """csrc/fk_line.cu against line_phase_ref, one launch a color phase:
-    P = 2 (the ring bond doubled), one and two slices a lane (P <= 64),
-    and past P = 64 the rows of several words in shared memory (P = 65,
-    128, 200)."""
+    P = 2 (the ring bond doubled), one and two slices a lane (P <= 64:
+    the per-phase kernel, one warp a line, and the cluster kernel one
+    phase a launch), and past P = 64 the rows of several words in shared
+    memory (P = 65, 128, 200)."""
     ck, pg, confs, b, jp, teff = _cluster_case(graph, P, cuda, steps=3)
     lut = schedules.bath_lookuptable(P, 0.2, device=cuda)
     p_pair, p_t = ck.line_tables(lut, jp, float(teff[0]), P, cuda)
@@ -1537,9 +1551,22 @@ def test_line_kernel_equals_plain(cuda, graph, P, per_slice_seeds):
                                     ref, 13, 4 + t, color, per_slice_seeds,
                                     p_pair)
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
-        "fk_line": 3 * pg.num_colors}
+        "fk_line_wide" if P <= 64 else "fk_line_rows": 3 * pg.num_colors}
     torch.cuda.synchronize()
     assert torch.equal(out, ref) and not torch.equal(out, confs)
+    if P > 64:
+        return
+    out = confs
+    _build.reset_launches()
+    for t in range(3):
+        for color in range(pg.num_colors):
+            out = ck.line_anneal(pg, b, jp, p_t, float(teff[0]), lut, p_pair,
+                                 out, 13, per_slice_seeds, t0=t, steps=1,
+                                 colors=range(color, color + 1), step0=4 + t)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "fk_line": 3 * pg.num_colors}
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("kernel", ["packed_sa", "generic_qmc",
@@ -1587,8 +1614,9 @@ def test_local_kernels_take_a_step_offset(cuda, kernel):
     ("qmc_wolff", lambda T, C: {"fk_wolff": 1}),
     ("qmc_sw", lambda T, C: {"generic_qmc": T, "fk_label": T}),
     ("qmc_sw_bath", lambda T, C: {"fk_label": 1}),
-    ("wc2", lambda T, C: {"generic_qmc_bath": T, "fk_line": T * C}),
-    ("wc3", lambda T, C: {"fk_line": T * C})])
+    ("wc2", lambda T, C: {"generic_qmc_bath": T, "fk_line": T}),
+    ("wc2_alone", lambda T, C: {"fk_line": 1}),
+    ("wc3", lambda T, C: {"fk_line": 1})])
 def test_cluster_solvers_launch_their_kernels(cuda, name, launches):
     """Each cluster solver on the card (problem, state and schedules there
     by default): valid spins, the same result twice, and exactly its
@@ -1617,6 +1645,10 @@ def test_cluster_solvers_launch_their_kernels(cuda, name, launches):
         "wc2": lambda g: qmc.anneal_sw_bath(
             prob, sched, torch.ones_like(sched), 0.3, lut,
             qmc.replicate(s0, P), g, per_slice_seeds=False),
+        "wc2_alone": lambda g: qmc.anneal_sw_bath(
+            prob, sched, torch.ones_like(sched), 0.3, lut,
+            qmc.replicate(s0, P), g, per_slice_seeds=False,
+            local_sweeps=False),
         "wc3": lambda g: qmc.anneal_sw_bath(
             prob, sched, torch.ones_like(sched), 0.3, lut,
             qmc.replicate(s0, P), g),
@@ -1899,7 +1931,6 @@ def _compat_cases(rng):
     spins = lambda: rng.choice([-1.0, 1.0], size=(5, 64))  # noqa: E731
     confs = lambda: rng.choice([-1.0, 1.0], size=(64, P))  # noqa: E731
     angles = lambda: rng.uniform(0, np.pi, size=(5, 64))  # noqa: E731
-    colors = compat._problem(nbs, "cpu").num_colors
     return nbs, [
         ("Anneal", lambda s, seed, x: compat.Anneal(
             np.linspace(3, 0.1, steps), 1, x, nbs, seed=seed), spins,
@@ -1918,7 +1949,7 @@ def _compat_cases(rng):
         ("DissipativeQuantumAnnealWC3",
          lambda s, seed, x: compat.DissipativeQuantumAnnealWC3(
              A, B, 1, 0.25, lut, x, nbs, seed=seed), confs,
-         {"fk_line": steps * colors}),
+         {"fk_line": 1}),
         ("SpinVectorMonteCarloTFCompact",
          lambda s, seed, x: compat.SpinVectorMonteCarloTFCompact(
              A, B, 1, 0.1, x, nbs, seed=seed), angles, {"packed_svmc": 1}),
@@ -2429,12 +2460,8 @@ def _cluster_offset_case(kind, dev):
     p_pair, p_t = ck.line_tables(lut, jp, float(teff[0]), P, dev)
 
     def line(c, c0):
-        for t in range(3):
-            for color in range(pg.num_colors):
-                c = ck.line_phase(pg, b, jp, p_t, t, float(teff[0]), lut,
-                                  p_pair, c, 11, t, color, kind == "line_wc3",
-                                  chain0=c0)
-        return c
+        return ck.line_anneal(pg, b, jp, p_t, float(teff[0]), lut, p_pair,
+                              c, 11, kind == "line_wc3", steps=3, chain0=c0)
     return line, confs
 
 
@@ -3007,3 +3034,206 @@ def test_words_energy_equals_the_halves_kernel_at_every_k(cuda, monkeypatch,
             "energy_bits": 1}
         torch.cuda.synchronize()
         assert torch.equal(e, want), k
+
+
+# ---- generic SVMC's first kernel on an improper packing, the Houdayer
+# move over a cluster and in place, the line clusters in one launch
+
+
+def test_packed_svmc_first_kernel_on_an_improper_packing(cuda, monkeypatch):
+    """The 81 x 81 torus's checkerboard (its wrap pairs share a class)
+    forced to the file's first kernel: each phase reads a same-class
+    neighbour from its snapshot of the phase's start, so the angles are
+    the plain version's as the SVMC checks hold them, and the energies."""
+    pg = packed_ops.packed_from_lattice(instances.gaussian_torus(81, 0,
+                                                                 device=cuda))
+    assert not pg.proper
+    monkeypatch.setattr(gk, "packed_svmc_geometry", lambda *a, **k: None)
+    start, run, key = _svmc_inputs(pg, cuda, 64, 20, "energies")
+    es, es_plain = (torch.full((20, 64), float("nan"), device=cuda)
+                    for _ in range(2))
+    _build.reset_launches()
+    out = run(gk.packed_svmc_anneal, es)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        key + "_wide": 1}
+    ref = run(gk.packed_svmc_anneal_ref, es_plain)
+    torch.cuda.synchronize()
+    _assert_angles_equal(out, ref, start)
+    assert float((es - es_plain).abs().max()) <= \
+        gibbs.ENERGY_RTOL * float(pg.nbr_J.abs().sum() / 2 + pg.h.abs().sum())
+
+
+def _houdayer_graph(name, dev):
+    return {"glass12": lambda: instances.random_3d_lattice(12, rng=0,
+                                                           device=dev)[0],
+            "torus80": lambda: instances.gaussian_torus(80, 0, device=dev)
+            .to_generic(),
+            "chimera": lambda: _generic("chimera", dev)}[name]()
+
+
+@pytest.mark.parametrize("graph,pairs", [("glass12", 24), ("torus80", 48),
+                                         ("chimera", 5)])
+@pytest.mark.parametrize("pair0", [0, 100003])
+def test_houdayer_routes_equal_plain(cuda, monkeypatch, graph, pairs, pair0):
+    """The Houdayer move's cluster kernel at its rule's R and at forced
+    R = 1 and 16, and the first kernel (forced), against houdayer_move_ref:
+    spins and flipped counts bitwise, one launch under each route's
+    key."""
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    prob = _houdayer_graph(graph, cuda)
+    n = prob.nspins
+    rng = np.random.default_rng(pairs + pair0)
+    s1, s2 = (torch.as_tensor(rng.choice([-1.0, 1.0], size=(pairs, n))
+                              .astype(np.float32), device=cuda)
+              for _ in range(2))
+    want = cl.houdayer_move_ref(prob, s1, s2, 41, 7, pair0)
+    rule = ck.card_houdayer_geometry(pairs, n, cuda)
+    for geometry, key in ((rule, "houdayer"),
+                          (ck.label_shape(1, 1, n)[:2], "houdayer"),
+                          (ck.label_shape(16, 1, n)[:2], "houdayer"),
+                          (None, "houdayer_wide")):
+        monkeypatch.setattr(ck, "card_houdayer_geometry",
+                            lambda *a, g=geometry, **k: g)
+        _build.reset_launches()
+        got = ck.houdayer_move(prob, s1, s2, 41, 7, pair0=pair0)
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {key: 1}
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), geometry
+    assert int(want[2].sum()) > 0
+
+
+@pytest.mark.parametrize("graph,batch,M,pair0", [
+    ("glass12", 1, 24, 0), ("glass12", 2, 12, 100003), ("torus80", 1, 48, 0),
+    ("chimera", 3, 4, 5)])
+def test_houdayer_in_place_route_equals_plain(cuda, graph, batch, M, pair0):
+    """The move on the packed engine's state, in place through ror and the
+    packing's site ids, equals its plain version (unpack, the move,
+    repack) bitwise, with a permuted ror, and the site-order route on the
+    same pairs."""
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    prob = _houdayer_graph(graph, cuda)
+    pg = packed_ops.build_packed(prob)
+    n = prob.nspins
+    rng = np.random.default_rng(M)
+    full = torch.as_tensor(rng.choice([-1.0, 1.0], size=(batch * 2 * M, n))
+                           .astype(np.float32), device=cuda)
+    state = packed_ops.pack_state(pg, full).contiguous()
+    ror = torch.as_tensor(np.stack([np.stack([rng.permutation(M)
+                                              for _ in range(2)])
+                                    for _ in range(batch)]), device=cuda)
+    want, want_f = ck.houdayer_move_packed_ref(prob, pg, state, ror, 29, 9,
+                                               pair0)
+    moved = state.clone()
+    _build.reset_launches()
+    got, f = ck.houdayer_move_packed(prob, pg, moved, ror, 29, 9, pair0)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"houdayer": 1}
+    torch.cuda.synchronize()
+    assert got.data_ptr() == moved.data_ptr()
+    assert torch.equal(got, want) and torch.equal(f, want_f)
+    assert int(f.sum()) > 0
+
+
+def test_houdayer_takes_the_first_kernel_by_shape(cuda):
+    """Past 619,152 sites no cluster of 16 CTAs holds a pair's union-find:
+    the first kernel runs by shape alone (LAUNCHES["houdayer_wide"]) and
+    equals the plain version, on the site order and on a packed state."""
+    from montecarlosolvers_tpu_torch.ops import cluster as cl
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    prob = instances.gaussian_torus(800, 1, device=cuda).to_generic()
+    n = prob.nspins
+    assert ck.card_houdayer_geometry(2, n, cuda) is None
+    rng = np.random.default_rng(8)
+    s1, s2 = (torch.as_tensor(rng.choice([-1.0, 1.0], size=(2, n))
+                              .astype(np.float32), device=cuda)
+              for _ in range(2))
+    _build.reset_launches()
+    got = ck.houdayer_move(prob, s1, s2, 3, 1)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "houdayer_wide": 1}
+    want = cl.houdayer_move_ref(prob, s1, s2, 3, 1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    pg = packed_ops.build_packed(prob)
+    state = packed_ops.pack_state(pg, torch.cat([s1[:1], s2[:1]]))
+    ror = torch.zeros((1, 2, 1), dtype=torch.int64, device=cuda)
+    moved, f = ck.houdayer_move_packed(prob, pg, state.clone(), ror, 3, 1)
+    ref, ref_f = ck.houdayer_move_packed_ref(prob, pg, state, ror, 3, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(moved, ref) and torch.equal(f, ref_f)
+
+
+def test_icm_on_the_packed_engine_moves_in_place(cuda, monkeypatch):
+    """solve("icm") on random_3d_lattice(12) (the packed engine): one
+    Houdayer launch a move and no unpack or repack of the state around it
+    (the engine's state read in site order once, at the end)."""
+    from montecarlosolvers_tpu_torch.solvers import _engines
+
+    prob = instances.random_3d_lattice(12, rng=0, device=cuda)[0]
+    calls = {"full": 0, "set_full": 0}
+    for name in calls:
+        orig = getattr(_engines.ClassicalEngine, name)
+
+        def counted(self, *a, _orig=orig, _name=name, **k):
+            calls[_name] += 1
+            return _orig(self, *a, **k)
+        monkeypatch.setattr(_engines.ClassicalEngine, name, counted)
+    _build.reset_launches()
+    ss = solve(prob, method="icm", num_reads=2, sweeps=40, seed=0)
+    assert _build.LAUNCHES["houdayer"] == 20
+    assert calls == {"full": 1, "set_full": 0}
+    assert set(np.unique(ss.samples)) <= {-1.0, 1.0}
+
+
+@pytest.mark.parametrize("per_slice_seeds", [True, False])
+@pytest.mark.parametrize("chain0", [0, 100003])
+def test_line_routes_equal_plain(cuda, monkeypatch, per_slice_seeds, chain0):
+    """fk_line's cluster kernel (one launch, the chain's words over a
+    cluster) and the first kernel (forced: one launch a color phase)
+    against line_phase_ref phase by phase, bitwise: the 80 x 80 torus's
+    generic form, P = 40, 8 chains, 3 steps; and a window of steps and
+    classes at a hash step of its own."""
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+
+    ck_, pg, confs, b, jp, teff = _cluster_case("torus80", 40, cuda,
+                                                chains=8, steps=3)
+    P, t_eff = 40, float(teff[0])
+    lut = schedules.bath_lookuptable(P, 0.01, device=cuda)
+    p_pair, p_t = ck.line_tables(lut, jp, t_eff, P, cuda)
+    want = ck.line_anneal_ref(pg, b, jp, p_t, t_eff, lut, p_pair, confs, 13,
+                              per_slice_seeds, chain0=chain0)
+    _build.reset_launches()
+    got = ck.line_anneal(pg, b, jp, p_t, t_eff, lut, p_pair, confs, 13,
+                         per_slice_seeds, chain0=chain0)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"fk_line": 1}
+    part = ck.line_anneal(pg, b, jp, p_t, t_eff, lut, p_pair, confs, 13,
+                          per_slice_seeds, t0=1, steps=2, colors=range(1, 2),
+                          step0=5, chain0=chain0)
+    part_ref = ck.line_anneal_ref(pg, b, jp, p_t, t_eff, lut, p_pair, confs,
+                                  13, per_slice_seeds, t0=1, steps=2,
+                                  colors=range(1, 2), step0=5, chain0=chain0)
+    monkeypatch.setattr(ck, "card_line_geometry", lambda *a, **k: None)
+    _build.reset_launches()
+    first = ck.line_anneal(pg, b, jp, p_t, t_eff, lut, p_pair, confs, 13,
+                           per_slice_seeds, chain0=chain0)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "fk_line_wide": 3 * pg.num_colors}
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(first, want)
+    assert torch.equal(part, part_ref) and not torch.equal(got, confs)
+
+
+def test_solve_piqmc_sw_is_one_line_launch(cuda):
+    """solve("piqmc_sw") at the cell's shape (the 80 x 80 torus's generic
+    form, P = 40, 8 reads, 50 sweeps): the pre-anneal's SA launch and one
+    fk_line launch, where the per-phase kernels made 100."""
+    prob = instances.gaussian_torus(80, 0, device=cuda).to_generic()
+    _build.reset_launches()
+    ss = solve(prob, method="piqmc_sw", num_reads=8, sweeps=50, slices=40,
+               seed=0, alpha=1e-2)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "packed_sa": 1, "fk_line": 1}
+    assert np.isfinite(ss.energies).all()

@@ -1,7 +1,10 @@
 """The port's Houdayer move and lattice labelers (montecarlosolvers_tpu_torch/
 ops/cluster.py) against the JAX package's (montecarlosolvers_tpu/ops/
 cluster.py) on the JAX functions' own draws, and the plain version of
-csrc/houdayer.cu (`houdayer_move_ref`) against its invariants.
+csrc/houdayer.cu (`houdayer_move_ref`) against its invariants; the plain
+version of the move on the packed engine's state (`houdayer_move_packed_ref`)
+against the unpack, move and repack it stands for, and the cluster kernel's
+table of bonds (`houdayer_table`) against the problem's couplings.
 
 Each problem is built by the JAX package and carried across by
 montecarlosolvers_tpu_torch/convert.py from its numpy arrays. Every
@@ -21,11 +24,13 @@ from montecarlosolvers_tpu.models import instances as jinst
 from montecarlosolvers_tpu.models import lattice as jlattice
 from montecarlosolvers_tpu.ops import cluster as jc
 from montecarlosolvers_tpu_torch import convert
+from montecarlosolvers_tpu_torch.models import instances as tinst
 from montecarlosolvers_tpu_torch.models.lattice import LatticeProblem
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import cluster as tc
 from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
+from montecarlosolvers_tpu_torch.ops import packed as tpk
 
 torch.set_num_threads(1)
 
@@ -270,3 +275,72 @@ def test_classical_sw_sweep_lattice_matches_jax(periodic):
     assert isinstance(port, LatticeProblem)
     again = tc.classical_sw_sweep(port, _t(s), u_sp, u_h, coins, temp)
     assert torch.equal(again, got)
+
+
+def _icm_state(prob, batch, M, seed):
+    """A packed engine's ICM state: (batch * 2 * M, N) spins in the
+    packing's column order, and a permuted (batch, 2, M) replica_of_rung."""
+    r = np.random.default_rng(seed)
+    pg = tpk.build_packed(prob)
+    full = torch.as_tensor(r.choice([-1.0, 1.0], size=(
+        batch * 2 * M, prob.nspins)).astype(np.float32))
+    ror = torch.as_tensor(np.stack([np.stack([r.permutation(M)
+                                              for _ in range(2)])
+                                    for _ in range(batch)]))
+    return pg, tpk.pack_state(pg, full).contiguous(), ror
+
+
+@pytest.mark.parametrize("graph,batch,M,pair0", [
+    ("glass", 1, 6, 0), ("glass", 2, 4, 7), ("chimera", 1, 5, 100003),
+    ("chimera", 3, 3, 2)])
+def test_in_place_move_is_the_unpacked_move(graph, batch, M, pair0):
+    """houdayer_move_packed's plain version (the route that moves the
+    packed engine's state in place on the card) is the composition ICM ran
+    before it: the state unpacked to site order, the rung-aligned pairs
+    gathered through ror, houdayer_move_ref, the replicas put back and the
+    state repacked; bitwise, with a permuted ror and pair0 != 0."""
+    prob = (tinst.random_3d_lattice(4, rng=11, device="cpu")[0]
+            if graph == "glass"
+            else tinst.chimera_graph(2, rng=3, dist="gauss", device="cpu")[0])
+    pg, state, ror = _icm_state(prob, batch, M, 17)
+    n = prob.nspins
+    got, flipped = ck.houdayer_move_packed_ref(prob, pg, state, ror, 29, 6,
+                                               pair0)
+    full = tpk.unpack_state(pg, state).reshape(batch, 2, M, n)
+    s1 = torch.stack([full[b, 0, ror[b, 0]] for b in range(batch)])
+    s2 = torch.stack([full[b, 1, ror[b, 1]] for b in range(batch)])
+    a, c, want_f = tc.houdayer_move_ref(prob, s1.reshape(-1, n),
+                                        s2.reshape(-1, n), 29, 6, pair0)
+    a, c = a.reshape(batch, M, n), c.reshape(batch, M, n)
+    for b in range(batch):
+        full[b, 0, ror[b, 0]] = a[b]
+        full[b, 1, ror[b, 1]] = c[b]
+    want = tpk.pack_state(pg, full.reshape(-1, n))
+    assert torch.equal(got, want) and torch.equal(flipped, want_f)
+    assert int(flipped.sum()) > 0 and not torch.equal(got, state)
+    # the wrapper takes the plain version on CPU tensors
+    _build.reset_launches()
+    moved, f2 = ck.houdayer_move_packed(prob, pg, state, ror, 29, 6, pair0)
+    assert torch.equal(moved, got) and torch.equal(f2, flipped)
+    assert not any(_build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("graph", ("glass", "chimera", "torus"))
+def test_houdayer_table_holds_each_bond_once(graph):
+    """houdayer_table: row id the smaller-id neighbours of site id by a
+    nonzero coupling, each undirected bond once, from its larger id, the
+    same from the site-order problem and from its packing."""
+    prob = {"glass": lambda: tinst.random_3d_lattice(4, rng=2,
+                                                     device="cpu")[0],
+            "chimera": lambda: tinst.chimera_graph(2, rng=1, device="cpu")[0],
+            "torus": lambda: tinst.gaussian_torus(5, 1, device="cpu")
+            .to_generic()}[graph]()
+    table = ck.houdayer_table(prob)
+    assert torch.equal(table, ck.houdayer_table(tpk.build_packed(prob)))
+    nbr, J = prob.nbr_idx.numpy(), prob.nbr_J.numpy()
+    want = {(max(i, int(j)), min(i, int(j)))
+            for i in range(prob.nspins) for j, x in zip(nbr[i], J[i])
+            if x != 0.0 and j != i}
+    got = [(i, int(j)) for i, row in enumerate(table.numpy()) for j in row
+           if j >= 0]
+    assert len(got) == len(set(got)) and set(got) == want

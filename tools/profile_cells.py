@@ -8,7 +8,10 @@ PATH is one of svmc_generic (solve("svmc") on the 80x80 torus's generic
 form, 256 reads, 2000 sweeps: generic SVMC), svmc_noisy
 (svmc.anneal_noisy, 256 chains, 1000 steps of tables), pt (solve("pt"),
 64 reads, 500 sweeps: the energy kernel on chain-bit words at 7040
-chains) and pa (solve("pa"), 1024 reads, 500 steps), as
+chains), pa (solve("pa"), 1024 reads, 500 steps), icm (solve("icm"), 32
+reads, 1000 sweeps, on random_3d_lattice(12, rng=0): the Houdayer move
+every second sweep) and piqmc_sw (solve("piqmc_sw"), 8 reads, 50 sweeps,
+P = 40, alpha = 1e-2, on the torus's generic form: the line clusters), as
 `montecarlosolvers_tpu_torch/profiling.py` runs them, on the seeded 80x80
 torus. Each prints one JSON line: `profiling.profile_run`'s record (the
 traced wall after an untraced warm-up, device busy time and share, the
@@ -45,6 +48,11 @@ def main(argv):
         "pt": partial(solve, torus, "pt", num_reads=64, sweeps=500, seed=1),
         "pa": partial(solve, torus, "pa", num_reads=1024, sweeps=500,
                       seed=1),
+        "icm": partial(solve, instances.random_3d_lattice(12, rng=0,
+                                                          device=dev)[0],
+                       "icm", num_reads=32, sweeps=1000, seed=0),
+        "piqmc_sw": partial(solve, generic, "piqmc_sw", num_reads=8,
+                            sweeps=50, slices=40, alpha=1e-2, seed=0),
     }
     for key in paths:
         run = runs[key]

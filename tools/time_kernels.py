@@ -86,7 +86,14 @@ cluster size R, R = 0 for the file's first kernel (where the checkout has
 `packed_svmc_geometry`). `--only` times just the
 named kernels (split_sa, split_qmc_bath, plane_sa, split_qmc, plane_qmc,
 plane_svmc, split_svmc, packed_sa, generic_qmc, generic_qmc_bath,
-dense_sa, fk_label, fk_wolff, energy_bits, packed_svmc). `--qmc-phased`
+dense_sa, fk_label, fk_wolff, energy_bits, packed_svmc, houdayer,
+fk_line). The Houdayer move (`time_houdayer_line`: ms a move queued
+behind a spin kernel, in site order and, where the checkout has it, in
+place on a packed state, at ICM's 768 and 24 pairs of
+random_3d_lattice(12, rng=0) and 48 pairs of the L x L torus's generic
+form) and fk_line (`cluster_kernels.sw_bath_anneal` without local sweeps,
+WC3 and WC2, 8 chains, P = 40, alpha = 1e-2, ms a step) time as the rest,
+through wrappers every checkout since their slice has. `--qmc-phased`
 adds a row of kernel B's per-phase route at the same shape (its
 `qmc_geometry` answering that no cluster holds it). `--hw-rng` times
 instead kernels A, B, 4 and 5
@@ -194,6 +201,8 @@ def main():
     if args.packed_svmc_crossover:
         time_packed_svmc_crossover(dev, taus, emit)
         return
+    if wanted("houdayer") or wanted("fk_line"):
+        time_houdayer_line(dev, spins, taus, emit, wanted)
     if wanted("energy_bits"):
         time_energy_bits(args, dev, sl, spins, emit)
     if wanted("packed_svmc"):
@@ -965,6 +974,81 @@ def time_packed_svmc_crossover(dev, taus, emit):
                      nspins=graph.nspins, colors=graph.num_colors,
                      chains=chains, route=route, geometry=geometry,
                      ms_per_sweep=ms)
+
+
+def queued_ms(fn, reps, spin_cycles=100_000_000):
+    """ms a call of fn(), CUDA events around `reps` calls queued behind a
+    spin kernel, after a warm one: the card's time back to back, not the
+    host's queueing of a launch shorter than it (chip_smoke.py::
+    event_ms)."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(spin_cycles)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def time_houdayer_line(dev, spins, taus, emit, wanted):
+    """The Houdayer move and the line clusters at their cells' shapes.
+    Houdayer (`cluster_kernels.houdayer_move`, replicas in site order, and
+    where the checkout has it `houdayer_move_packed`, in place on a packed
+    state through a permuted ror), ms a move queued behind a spin kernel:
+    ICM's 768 pairs (32 reads x 24 rungs) and 24 pairs of
+    random_3d_lattice(12, rng=0), 48 pairs of the 80 x 80 torus's generic
+    form. fk_line (`cluster_kernels.sw_bath_anneal` without local sweeps:
+    the line phases alone), ms a step by the slope: WC3 and WC2 at the
+    piqmc_sw cell's 8 chains, P = 40, alpha = 1e-2, on the torus's generic
+    form."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+
+    torus = instances.gaussian_torus(80, seed=0, device=dev).to_generic()
+    if wanted("houdayer"):
+        glass = instances.random_3d_lattice(12, rng=0, device=dev)[0]
+        rng = np.random.default_rng(6)
+        for gname, prob, pairs in (("random_3d_lattice(12)", glass, 768),
+                                   ("random_3d_lattice(12)", glass, 24),
+                                   ("gaussian_torus(80)", torus, 48)):
+            n = prob.nspins
+            s1, s2 = spins(pairs, n), spins(pairs, n)
+            rec = {"kernel": "houdayer", "graph": gname, "pairs": pairs,
+                   "ms_site_order": queued_ms(
+                       lambda: ck.houdayer_move(prob, s1, s2, 41, 7), 200)}
+            if hasattr(ck, "houdayer_move_packed"):
+                pg = packed_ops.build_packed(prob)
+                state = spins(2 * pairs, n)
+                ror = torch.as_tensor(np.stack([rng.permutation(pairs)
+                                                for _ in range(2)])[None],
+                                      device=dev)
+                rec["geometry"] = ck.card_houdayer_geometry(pairs, n, dev)
+                rec["ms_in_place"] = queued_ms(
+                    lambda: ck.houdayer_move_packed(prob, pg, state, ror, 41,
+                                                    7), 200)
+            emit(**rec)
+    if wanted("fk_line"):
+        P, chains = 40, 8
+        lut = schedules.bath_lookuptable(P, 1e-2, device=dev)
+        confs = spins(chains, P, torus.nspins)
+        for wc3 in (True, False):
+            def run(tau, wc3=wc3):
+                g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+                return ck.sw_bath_anneal(torus, g, torch.ones_like(g),
+                                         1.0 / P, lut, confs, 7,
+                                         per_slice_seeds=wc3,
+                                         local_sweeps=False)
+            emit(kernel="fk_line", graph="gaussian_torus(80)", chains=chains,
+                 P=P, per_slice_seeds=wc3,
+                 geometry=(ck.card_line_geometry(
+                     packed_ops.build_packed(torus), chains, P, dev, wc3)
+                     if hasattr(ck, "card_line_geometry") else None),
+                 ms_per_step=slope_ms(run, taus(25)))
 
 
 def call_ms(run, reps=30):
