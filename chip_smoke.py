@@ -497,7 +497,18 @@ Phases, each printed as one JSON line:
                       SW labels: the generic form, one chain at P = 40,
                       with and without bath bonds) on rank 1's slab of 4
                       against their plain versions, 0 mismatches, timed
-                      beside shard_bound; (g) the one-rank NCCL mesh: the
+                      beside shard_bound; (f2) S5 and S7 redesigned
+                      (`shard_redesign`): S5 over a cluster (the 80x80 and
+                      81x81 checkerboards, float32 and int8 gathered
+                      states, chain0 0 and 100003) and S7's draw over a
+                      cluster, round over the cluster and flip over the
+                      card (the slab and the one-rank ring, without a
+                      bath, with one and on an asymmetric table), each
+                      against its plain version and its first kernel
+                      ("_wide", forced), bitwise; ms queued behind a spin
+                      kernel beside the first kernel, the plain version,
+                      shard_bound and the counter hash's floor; (g) the
+                      one-rank NCCL mesh: the
                       sharded bath (tau = 200, line moves off and on)
                       equals the sequential generic bath kernel, the
                       sharded Wolff and SW engines (50 steps) equal
@@ -1181,6 +1192,13 @@ WIDE_KERNELS = {
                       "montecarlosolvers_tpu/ops/cluster.py:730"),
     "fk_line_wide": ("fk_line_wide", _SRC + "fk_line.cu",
                      "montecarlosolvers_tpu/ops/cluster.py:316"),
+    # ... and the first kernel of S5 (csrc/generic_qmc_bath.cu, one CTA a
+    # chain), kept for a slice no cluster of 16 CTAs holds; the parallel
+    # phase's shard_redesign holds and times it at the main path's widths,
+    # the rule forced
+    "generic_shard_bath_slice_wide": (
+        "generic_shard_bath_slice_wide", _SRC + "generic_qmc_bath.cu",
+        "montecarlosolvers_tpu/parallel/trotter.py:170"),
 }
 KERNELS.update(WIDE_KERNELS)
 # what the rest of the parallel layer added to four kernels: the cluster
@@ -5528,7 +5546,13 @@ def shard_bound(kname, chains, rows, sites, graph=None, updated=None,
     (`ops_per_sweep`'s "qmc_bath" a site), the gathered state read once;
     S6 a round's bonds from its `visited` sites and S7 its draw, every bond
     of the rows, as `cluster_bound` counts them (with `bath` the pairs a
-    comparison each against a table of 2 (P - 1) probabilities a chain)."""
+    comparison each against a table of 2 (P - 1) probabilities a chain).
+    S5 and S7 also count the counter hash's integer work (HASH_OPS a
+    uniform over the INT32 rate, `shard_hash_ms`), as `cluster_bound`
+    counts fk_line's."""
+    int32 = (shard_hash_ms(kname, chains, rows, sites, graph, slices, bath)
+             / 1e3 * PEAK_INT32
+             if kname in ("shard_label", "generic_shard_bath_slice") else 0)
     if kname in ("shard_wolff", "shard_label"):
         degree, P = graph[0], slices
         pairs = (P - 1) / 2 if bath else 0
@@ -5541,7 +5565,8 @@ def shard_bound(kname, chains, rows, sites, graph=None, updated=None,
             sfu = rows * sites * (degree / 2 + 2) + table
             f32 = rows * sites * pairs
             nbytes = rows * sites * 8
-        times = {"operations": max(sfu / PEAK_SFU, f32 / PEAK_FLOPS),
+        times = {"operations": max(sfu / PEAK_SFU, f32 / PEAK_FLOPS,
+                                   int32 / PEAK_INT32),
                  "bytes": nbytes / PEAK_BYTES}
         unit = max(times, key=times.get)
         return 1e3 * times[unit], unit
@@ -5589,10 +5614,28 @@ def shard_bound(kname, chains, rows, sites, graph=None, updated=None,
             2 * row + chains * (slices or 0) * sites * 4 + tables
             + (slices or 0) * 4),
     }[kname]
-    times = {"operations": max(f32 / PEAK_FLOPS, sfu / PEAK_SFU),
+    times = {"operations": max(f32 / PEAK_FLOPS, sfu / PEAK_SFU,
+                               int32 / PEAK_INT32),
              "bytes": nbytes / PEAK_BYTES}
     unit = max(times, key=times.get)
     return 1e3 * times[unit], unit
+
+
+def shard_hash_ms(kname, chains, rows, sites, graph, slices, bath=False):
+    """The counter hash's floor of one launch of S5 or S7's draw: HASH_OPS
+    integer operations a uniform over the INT32 rate. S5 one uniform a
+    site of a slice of every chain; S7's draw a uniform a bond of the
+    block's rows, degree / 2 spatial, one Trotter and one ghost a site,
+    and with the bath each pair that touches the rows once: the pairs of
+    two block rows, rows (rows - 1) / 2 a line, and each row's pairs with
+    the other ranks' rows, rows (P - rows) a line."""
+    if kname == "generic_shard_bath_slice":
+        uniforms = chains * sites
+    else:
+        pairs = (rows * (rows - 1) / 2 + rows * (slices - rows)
+                 if bath else 0)
+        uniforms = chains * sites * (rows * (graph[0] / 2 + 2) + pairs)
+    return 1e3 * HASH_OPS * uniforms / PEAK_INT32
 
 
 def shard_rest_checks(dev, results, torus, power, name):
@@ -5767,6 +5810,269 @@ def shard_rest_checks(dev, results, torus, power, name):
                 "mismatches": dict(zip(
                     ("labels", "bond_dn", "round_labels", "changed",
                      "flip"), bad))})
+
+
+def shard_redesign(dev, results, torus, odd_torus, power, name):
+    """(f2) of phase parallel: S5 and S7 redesigned, each against its plain
+    version bitwise on each route (S5's first kernel, "_wide", forced by a
+    rule of shape that holds nothing; S7's draw with its union-find in
+    device memory, forced off chip), at the shapes of `shard_rest_checks`
+    (P = QMC_SLICES, rank 1's slab of PARALLEL_RANKS), exactly each
+    route's launches:
+      - S5 over a cluster of its rule's R: the 80x80 and 81x81 tori's
+        checkerboards (the second not proper), QMC_READS chains, alpha =
+        BATH_ALPHA, every local slice step of the slab, the gathered state
+        as float32 and as the int8 the collective sends, chain0 0 and
+        OFFSET_CHAIN0; and the one-rank step on the whole state (full is
+        the slab);
+      - S7's draw over a cluster, its round over the same cluster (random
+        neighbour labels) and its flip over a grid that covers the card,
+        on the 80x80 torus's generic form, one chain: the slab and the
+        one-rank ring (Ps = P), without a bath, with one and on
+        `asymmetric_table`.
+    Then times each queued behind a spin kernel (ms a launch, ms a draw)
+    beside its other route, its plain version, `shard_bound` and the
+    counter hash's floor (`shard_hash_ms`). The kernels line takes S5's
+    slab rows at float32 and S7's slab draw without a bath, each row's
+    max_abs_err the largest |kernel - plain| over the compared tensors."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.ops import _build
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
+    from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
+
+    P, ranks = QMC_SLICES, PARALLEL_RANKS
+    ps = P // ranks
+    k0 = ps  # rank 1
+    temp, t, seed = 1.0 / P, 15, 77
+    spin = 100_000_000
+    gamma = schedules.transverse_field(3.0, 1e-8, 20, device=dev)
+    b20 = torch.ones_like(gamma)
+    jp = schedules.jperp(gamma, temp * P).contiguous()
+    lut = schedules.bath_lookuptable(P, BATH_ALPHA, device=dev)
+    bath = piqmc_ops.bath_matrix_of(lut, P, dev)
+    rng = np.random.default_rng(26)
+
+    def forced(module, attr, run, shape=lambda own, *x, **k: None):
+        own = getattr(module, attr)
+        setattr(module, attr, lambda *x, **k: shape(own, *x, **k))
+        try:
+            return run()
+        finally:
+            setattr(module, attr, own)
+
+    def off_chip(own, *x, **k):
+        R, threads, _ = own(*x, **k)
+        return R, threads, False
+
+    # S5
+    for lat in (torus, odd_torus):
+        lname = f"gaussian_torus({lat.L}, 0) checkerboard"
+        pg = packed_ops.packed_from_lattice(lat)
+        n = pg.nspins
+        full = packed_ops.pack_state(pg, parallel_state(
+            QMC_READS, P, n, 42, dev)).contiguous()
+        full8 = full.to(torch.int8)
+        geometry = shk.card_shard_bath_geometry(pg, QMC_READS, P, dev, False)
+        args = (pg, b20, jp, temp * P, bath)
+        for chain0 in (0, OFFSET_CHAIN0):
+            slab = full[:, k0:k0 + ps].contiguous()
+            bad = {"float32": 0, "int8": 0, "wide": 0}
+            err = {"float32": 0.0, "int8": 0.0, "wide": 0.0}
+            launched = {}
+            for kloc in range(ps):
+                want = shk.generic_shard_bath_slice_ref(
+                    *args, slab, full, kloc, k0 + kloc, t, seed, chain0)
+                _build.reset_launches()
+                got = {"float32": shk.generic_shard_bath_slice(
+                    *args, slab.clone(), full, kloc, k0 + kloc, t, seed,
+                    chain0), "int8": shk.generic_shard_bath_slice(
+                    *args, slab.clone(), full8, kloc, k0 + kloc, t, seed,
+                    chain0)}
+                got["wide"] = forced(
+                    shk, "card_shard_bath_geometry",
+                    lambda: shk.generic_shard_bath_slice(
+                        *args, slab.clone(), full, kloc, k0 + kloc, t, seed,
+                        chain0))
+                for k, v in launched_now().items():
+                    launched[k] = launched.get(k, 0) + v
+                torch.cuda.synchronize()
+                for key in bad:
+                    n_bad, e = mismatches([got[key]], [want])
+                    bad[key] += n_bad
+                    err[key] = max(err[key], e)
+                slab = want
+            changed = int((slab != full[:, k0:k0 + ps]).sum())
+            rec = {"phase": "parallel", "check": "shard_redesign",
+                   "kernel": "generic_shard_bath_slice", "graph": lname,
+                   "proper": pg.proper, "chains": QMC_READS, "slices": P,
+                   "slab_slices": ps, "rank_of": [1, ranks],
+                   "chain0": chain0, "geometry": geometry,
+                   "launches": launched, "mismatched_spins": bad,
+                   "max_abs_err": err, "changed_spins": changed}
+            what = f"S5 on {lname}, chain0 {chain0}"
+            check(sum(bad.values()) == 0 and changed > 0,
+                  f"{what}: the cluster route (float32 and int8) and the "
+                  f"first kernel equal the plain version")
+            check(launched == {"generic_shard_bath_slice": 2 * ps,
+                               "generic_shard_bath_slice_wide": ps},
+                  f"{what} launched {launched}")
+            if chain0 == 0:
+                work, kt = slab.clone(), ps - 1
+
+                def s5(f, work=work, kt=kt):
+                    return lambda: shk.generic_shard_bath_slice(
+                        *args, work, f, kt, k0 + kt, t, seed)
+                rec["ms"] = event_ms(s5(full), 200, spin)
+                rec["int8_ms"] = event_ms(s5(full8), 200, spin)
+                rec["first_kernel_ms"] = forced(
+                    shk, "card_shard_bath_geometry",
+                    lambda: event_ms(s5(full), 50, spin))
+                rec["plain_ms"] = event_ms(
+                    lambda: shk.generic_shard_bath_slice_ref(
+                        *args, slab, full, kt, k0 + kt, t, seed), 5)
+                whole = full.clone()
+                rec["one_rank_ms"] = event_ms(
+                    lambda: shk.generic_shard_bath_slice(
+                        *args, whole, whole, 4, 4, t, seed), 200, spin)
+                gshape = graph_shape(lat.to_generic())
+                bound = shard_bound("generic_shard_bath_slice", QMC_READS,
+                                    1, n, gshape, slices=P)
+                rec.update(bound_ms=bound[0], bound_by=bound[1],
+                           int8_bytes_ms=1e3 * (QMC_READS * P * n
+                                                + 8 * QMC_READS * n)
+                           / PEAK_BYTES,
+                           hash_ms=shard_hash_ms(
+                               "generic_shard_bath_slice", QMC_READS, 1, n,
+                               gshape, P),
+                           card=name, power_limit=power)
+                if lat is torus:
+                    for key, ms_key in (("generic_shard_bath_slice", "ms"),
+                                        ("generic_shard_bath_slice_wide",
+                                         "first_kernel_ms")):
+                        results[key].update(ms=rec[ms_key],
+                                            plain_ms=rec["plain_ms"],
+                                            bound_ms=bound[0],
+                                            bound_by=bound[1])
+            emit(rec)
+            for key, route in (("generic_shard_bath_slice", "float32"),
+                               ("generic_shard_bath_slice_wide", "wide")):
+                results[key]["max_abs_err"] = max(
+                    results[key].get("max_abs_err", 0.0), err[route])
+
+    # S7
+    gtorus = torus.to_generic()
+    graph = graph_shape(gtorus)
+    gp = packed_ops.build_packed(gtorus)
+    n = gp.nspins
+    one = random_pm1(rng, (1, n), dev)
+    state = packed_ops.pack_state(gp, one.expand(P, n)[None])[0]
+    state[:, : n // 8] *= -1.0  # a stripe the Trotter bonds cut
+    state[ps // 2:ps + 3, n // 2:n // 2 + 640] *= -1.0
+    state = state.contiguous()
+    tables = {"none": None, "bath": lut.contiguous(),
+              "asymmetric": asymmetric_table(P, dev)}
+    for block in ("slab", "ring"):
+        first, rows_n = (k0, ps) if block == "slab" else (0, P)
+        rows = state[first:first + rows_n].contiguous()
+        halo = ((state[first - 1].contiguous(),
+                 state[first + rows_n].contiguous()) if block == "slab"
+                else (state[-1].contiguous(), state[0].contiguous()))
+        for tname, table in tables.items():
+            def step(x, table=table, rows=rows, first=first, halo=halo):
+                return ck.ShardStep(gp, x, *halo,
+                                    None if table is None else state, first,
+                                    P, b20, jp, temp * P, t, seed, table,
+                                    asym=ck.ring_asymmetric(table))
+            ref = step(rows)
+            want = ck.shard_label_init_ref(ref)
+            hp, hn = (torch.as_tensor(rng.integers(-1, P * n, n).astype(
+                np.int32), device=dev) for _ in range(2))
+            fl = (torch.as_tensor(rng.integers(-1, P * n, (P, n)).astype(
+                np.int32), device=dev) if table is not None else None)
+            bond_up = torch.as_tensor((rng.random(n) < 0.5).astype(
+                np.uint8), device=dev)
+            if block == "slab":
+                want_r = ck.shard_label_round_ref(ref, want[0].clone(),
+                                                  want[1], hp, bond_up, hn,
+                                                  fl)
+                labels_w = want_r[0]
+            else:
+                labels_w = want[0]
+            flip_w = ck.shard_label_flip_ref(ref, labels_w)
+            bad, err, launched = {}, {}, {}
+            for route in ("rule", "off_chip"):
+                def run(route=route):
+                    st = step(rows.clone())
+                    got = ck.shard_label_init(st)
+                    out = [got[0].clone(), got[1]]
+                    if block == "slab":
+                        rg = ck.shard_label_round(st, got[0], got[1], hp,
+                                                  bond_up, hn, fl)
+                        out += [rg[0].clone(), rg[1]]
+                        labels = rg[0]
+                    else:
+                        labels = got[0]
+                    out.append(ck.shard_label_flip(st, labels))
+                    return out
+                _build.reset_launches()
+                out = (run() if route == "rule" else forced(
+                    ck, "card_shard_label_geometry", run, off_chip))
+                launched[route] = launched_now()
+                torch.cuda.synchronize()
+                ref_out = [want[0], want[1]] + ([want_r[0], want_r[1]]
+                                                if block == "slab" else [])
+                ref_out.append(flip_w)
+                bad[route], err[route] = mismatches(
+                    [x.double() for x in out], [y.double() for y in ref_out])
+            rounds = 1 if block == "slab" else 0
+            rec = {"phase": "parallel", "check": "shard_redesign",
+                   "kernel": "shard_label",
+                   "graph": f"gaussian_torus({L}, 0).to_generic()",
+                   "block": block, "rows": rows_n, "slices": P,
+                   "table": tname, "geometry": ck.card_shard_label_geometry(
+                       P, rows_n, n, dev, table is not None),
+                   "launches": launched, "mismatches": bad,
+                   "max_abs_err": err, "frozen_or_free_labels": int((want[0] >= 0).sum())}
+            what = f"S7 on the {block}, table {tname}"
+            check(sum(bad.values()) == 0,
+                  f"{what}: both routes equal the plain versions")
+            check(all(v == {"shard_label": 2 + rounds}
+                      for v in launched.values()),
+                  f"{what} launched {launched}")
+            if tname != "asymmetric":
+                draw = lambda: ck.shard_label_init(step(rows))  # noqa: E731
+                rec["ms"] = event_ms(draw, 50, spin)
+                rec["off_chip_ms"] = forced(
+                    ck, "card_shard_label_geometry",
+                    lambda: event_ms(draw, 50, spin), off_chip)
+                st = step(rows.clone())
+                labels, bdn = ck.shard_label_init(st)
+                if block == "slab":
+                    rec["round_ms"] = event_ms(lambda: ck.shard_label_round(
+                        st, labels.clone(), bdn, hp, bond_up, hn, fl), 50,
+                        spin)
+                rec["flip_ms"] = event_ms(
+                    lambda: ck.shard_label_flip(st, labels), 200, spin)
+                if block == "slab":
+                    rec["plain_ms"] = event_ms(
+                        lambda: ck.shard_label_init_ref(step(rows)), 2)
+                bath_on = table is not None
+                bound = shard_bound("shard_label", 1, rows_n, n, graph,
+                                    slices=P, bath=bath_on)
+                rec.update(bound_ms=bound[0], bound_by=bound[1],
+                           hash_ms=shard_hash_ms("shard_label", 1, rows_n, n,
+                                                 graph, P, bath_on),
+                           card=name, power_limit=power)
+                if block == "slab" and tname == "none":
+                    results["shard_label"].update(
+                        ms=rec["ms"], plain_ms=rec["plain_ms"],
+                        bound_ms=bound[0], bound_by=bound[1])
+            emit(rec)
+            results["shard_label"]["max_abs_err"] = max(
+                results["shard_label"].get("max_abs_err", 0.0),
+                err["rule"])
 
 
 def parallel_state(chains, slices, sites, seed, dev):
@@ -7197,8 +7503,9 @@ def parallel_checks(dev, results, main_launches, torus, odd_torus, power,
               "rank_of": [1, ranks], **results[kname],
               "card": name, "power_limit": power})
 
-    # (f) S5-S7 against their plain versions
+    # (f) S5-S7 against their plain versions; (f2) S5 and S7's routes
     shard_rest_checks(dev, results, torus, power, name)
+    shard_redesign(dev, results, torus, odd_torus, power, name)
 
     # (c) a one-rank NCCL mesh: chain sharding, and the main path of S1-S4
     cmesh = make_mesh(chains=1, device_type=dev.type)

@@ -16,8 +16,9 @@ limit of the card (null on a host without one). The `sa` and `piqmc` arms
 also give the quality at their largest tau: mean and best energy per spin
 (PIQMC: best slice per chain), and the residual energy per spin on the
 certified santoro instance when `MCS_TPU_INSTANCE_DIR` holds it; else the
-lattice is the seeded 80x80 Gaussian torus `instances.gaussian_torus(80,
-0)`, and nothing is fetched.
+lattice is bench.py's fallback, the seeded open 80x80 lattice
+`instances.random_2d_lattice(80, rng=0, lattice=True)`, and nothing is
+fetched.
 
 The arms keep bench.py's names, chain counts, tau grids (and light grids)
 and work per step; the first four run the solvers, the four `pallas_*`
@@ -115,11 +116,9 @@ def measure_rate(run, taus, work_per_step, trials=3, clock=time.perf_counter):
 def problem_of(device, side=L):
     """(problem, certified ground-state energy or None, its name): the
     santoro instance as a LatticeProblem where MCS_TPU_INSTANCE_DIR holds
-    it (side 80 only), else the seeded periodic Gaussian torus
-    `gaussian_torus(side, 0)`. This fallback departs from
-    bench.py::_problem, which falls back to the OPEN lattice
-    `random_2d_lattice(80, rng=0, lattice=True)`: the two take different
-    split stencils (7 slots against 5) and give different energies."""
+    it (side 80 only), else the seeded open lattice
+    `random_2d_lattice(side, rng=0, lattice=True)`, as bench.py::_problem
+    falls back."""
     if side == L:
         try:
             problem, e_gs = instances.santoro_80x80(lattice=True,
@@ -127,8 +126,9 @@ def problem_of(device, side=L):
             return problem, e_gs, "santoro_80x80"
         except FileNotFoundError:
             pass
-    return (instances.gaussian_torus(side, seed=0, device=device), None,
-            f"gaussian_torus({side}, 0)")
+    problem, _ = instances.random_2d_lattice(side, rng=0, lattice=True,
+                                             device=device)
+    return problem, None, f"random_2d_lattice({side}, rng=0, lattice=True)"
 
 
 def _gen(seed):
@@ -371,7 +371,7 @@ def main(argv=None):
                     help="default: the CUDA card; 'cpu' runs the plain "
                          "versions")
     ap.add_argument("--L", type=int, default=L,
-                    help="side of the seeded torus (80: the santoro "
+                    help="side of the seeded open lattice (80: the santoro "
                          "instance where it is reachable)")
     ap.add_argument("--taus", type=int, nargs="+", default=None,
                     help="every arm's tau points (default: the arm's)")

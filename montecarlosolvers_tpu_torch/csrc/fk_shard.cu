@@ -43,27 +43,28 @@
 //     slice order (0 without fields), fk_wolff.cu's order.
 //   A component is the same set whatever order it grows in, so the
 //   cluster, and so the state, equals fk_wolff.cu's bitwise.
-// - S7 (fk_shard_label_kernel), three modes a launch:
-//   init: the FK draw of the rows' bonds (spatial from the lower id, the
-//     Trotter bond of a row and the next, drawn by the rank of the lower
-//     row: the last row's goes to the next rank as bond_dn, the bath pairs
-//     of a line), ghost bonds, union-find of the bonds inside the block,
-//     and each component's label, its least global node k * n + id (-1
-//     when a ghost bond holds); the bath pairs with another rank's rows
-//     are kept as directed bits, bit q of node x where x takes row q's
-//     label (a pair of two ranks is drawn by both, from the same hash,
-//     each side keeping its own direction, rather than sent). On a table
-//     not symmetric in ring distance (`asym`) a bath pair of two block
-//     rows bonds both ways only when both directions' draws hold, as in
-//     fk_label.cu: only those are united; a one-way pair is a bit of the
-//     node it points into, and the block's labels relax along those bits
-//     in rounds inside the launch (`relax_block`).
-//   round: each component takes the least label across its bonds to the
-//     other ranks' rows as they stood after their last round (halo_prev
-//     across the previous rank's bond_up, halo_next across bond_dn,
-//     full_labels across the bath bits) and, with `asym`, relaxes along
-//     the block's one-way bits again; writes `changed`.
-//   flip: every free component flips on the coin of its label.
+// - S7, three launches a step, each its own kernel:
+//   the draw (fk_shard_draw_kernel): the FK draw of the rows' bonds
+//     (spatial from the lower id, the Trotter bond of a row and the next,
+//     drawn by the rank of the lower row: the last row's goes to the next
+//     rank as bond_dn, the bath pairs of a line), ghost bonds, union-find
+//     of the bonds inside the block, and each component's label, its
+//     least global node k * n + id (-1 when a ghost bond holds); the bath
+//     pairs with another rank's rows are kept as directed bits, bit q of
+//     node x where x takes row q's label (a pair of two ranks is drawn by
+//     both, from the same hash, each side keeping its own direction,
+//     rather than sent). On a table not symmetric in ring distance
+//     (`asym`) a bath pair of two block rows bonds both ways only when
+//     both directions' draws hold, as in fk_label.cu: only those are
+//     united; a one-way pair is a bit of the node it points into, and the
+//     block's labels relax along those bits in rounds inside the launch.
+//   a round (fk_shard_round_kernel): each component takes the least label
+//     across its bonds to the other ranks' rows as they stood after their
+//     last round (halo_prev across the previous rank's bond_up, halo_next
+//     across bond_dn, full_labels across the bath bits) and, with `asym`,
+//     relaxes along the block's one-way bits again; writes `changed`.
+//   the flip (fk_shard_flip_kernel): every free component flips on the
+//     coin of its label.
 //   The least-label fixed point does not depend on the order of the
 //   rounds, so the state equals fk_label.cu's bitwise.
 //
@@ -73,22 +74,51 @@
 // and, between ranks, one flag read on the host, so the round count, not
 // the work, sets the time of a cluster that crosses ranks.
 //
-// The design, simply (a first kernel): one CTA a rank's block (512
-// threads S6, 1024 S7), the state and the union-find in device memory,
-// a queue BFS that draws a bond when it reaches it (S6), barriers between
-// phases; any n, P, Ps and maxnb with one design. No fast math.
+// S6's design, simply (a first kernel): one CTA of 512 threads a rank's
+// block, the state and the queue BFS, which draws a bond when it reaches
+// it, in device memory, barriers between phases; any n, P, Ps and maxnb.
+//
+// S7's design, after fk_label (csrc/fk_label.cu) on the labeling core of
+// csrc/fk_nodes.cuh:
+// - The draw (fk_shard_draw_kernel): the block's Ps x n nodes over a
+//   cluster of R <= 16 CTAs (R from ops/cluster_kernels.py::
+//   shard_label_geometry), CTA r owning the r-th chunk of site ids in every
+//   row, its union-find in its shared memory while its region fits there,
+//   else in device memory (the core's kOnChip = false, as fk_label.cu runs
+//   a chain no cluster holds on chip); so a site's Trotter and bath
+//   bonds join nodes of one CTA. A site's Trotter line is drawn by one
+//   thread as runs of bonded rows (the last row's bond to the row below
+//   goes out as bond_dn, and on a ring of one rank closes the ring); each
+//   bath pair of two block rows is hashed once, from its lower row, both of
+//   its directions decided from the one draw; a pair with another rank's
+//   row is drawn by each side for its own direction, as before. The core
+//   hooks the larger key k n + id under the smaller, so a component's root
+//   is its least node, whose key plus k0 n is S7's label. Each node's
+//   packed root, its component's label (at the root) and the bath bits go
+//   to device memory for the rounds.
+// - The round (fk_shard_round_kernel) and, on a table not symmetric in ring
+//   distance, the block's relaxation along its one-way bits run over a
+//   cluster of R CTAs, its passes separated by cluster.sync() and its
+//   "moved" flag in CTA 0's shared memory; the flip (fk_shard_flip_kernel)
+//   over a grid that covers the card, a thread a node. No fast math.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "counter_hash.cuh"
 #include "fk.cuh"
+#include "fk_nodes.cuh"
 #include "packed.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kWolffThreads = 512;
 constexpr int kLabelThreads = 1024;
+constexpr int kGhostFlag = 0, kFrozenFlag = 1;  // the draw's flag bytes
 
 __device__ __forceinline__ bool claim(unsigned* bits, int x) {
   const unsigned m = 1u << (x & 31);
@@ -404,107 +434,100 @@ fk_shard_wolff_kernel(const int* __restrict__ nbr_idx,
   if (threadIdx.x == 0) *changed = news;
 }
 
-// S7 with a bath table not symmetric in ring distance: the block's labels
-// (lab at each root) relaxed along its one-way bath edges, the bits of ext
-// at the block's own rows (x takes the label of row q's node of its line),
-// in rounds until one changes nothing, as fk_label.cu's asym loop
-__device__ void relax_block(const unsigned* ext, const int* root, int* lab,
-                            int PN, int n, int pw, int k0, int Ps) {
+// One pass of S7's relaxation on a bath table not symmetric in ring
+// distance: nodes x = first, first + stride, ... of the block (lab at each
+// root) take, at their root, the least label of the block rows their bits
+// of ext point at (x takes the label of row q's node of its line), as
+// fk_label.cu's asym loop; returns whether it moved a label. Another
+// rank's rows wait for the round.
+__device__ int relax_pass(const unsigned* ext, const int* root, int* lab,
+                          int PN, int n, int pw, int k0, int Ps, int first,
+                          int stride) {
   volatile int* vlab = lab;
-  for (;;) {
-    int moved = 0;
-    for (int x = threadIdx.x; x < PN; x += blockDim.x) {
-      const int j = x % n;
-      const int to = root[x];
-      const unsigned* ex = ext + static_cast<size_t>(x) * pw;
-      for (int wd = 0; wd < pw; ++wd) {
-        unsigned m = ex[wd];
-        while (m) {
-          const int q = wd * 32 + __ffs(m) - 1;
-          m &= m - 1u;
-          if (q < k0 || q >= k0 + Ps) continue;  // another rank's row
-          const int l = vlab[root[(q - k0) * n + j]];
-          if (l < vlab[to]) {
-            atomicMin(lab + to, l);
-            moved = 1;
-          }
+  int moved = 0;
+  for (int x = first; x < PN; x += stride) {
+    const int j = x % n;
+    const int to = __ldcg(root + x);
+    const unsigned* ex = ext + static_cast<size_t>(x) * pw;
+    for (int wd = 0; wd < pw; ++wd) {
+      unsigned m = __ldcg(ex + wd);
+      while (m) {
+        const int q = wd * 32 + __ffs(m) - 1;
+        m &= m - 1u;
+        if (q < k0 || q >= k0 + Ps) continue;  // another rank's row
+        const int l = vlab[__ldcg(root + (q - k0) * n + j)];
+        if (l < vlab[to]) {
+          atomicMin(lab + to, l);
+          moved = 1;
         }
       }
     }
-    if (!__syncthreads_or(moved)) return;
+  }
+  return moved;
+}
+
+// The relaxation in rounds over a cluster until one changes nothing:
+// `any0` CTA 0's word, which a CTA sets to the round's number (counted in `round` across the launch) when it moved a
+// label (fk_nodes.cuh::Core::any)
+__device__ void relax_cluster(const cg::cluster_group& cluster,
+                              const unsigned* ext, const int* root, int* lab,
+                              int PN, int n, int pw, int k0, int Ps,
+                              int first, int stride, volatile int* any0,
+                              int& round) {
+  for (;;) {
+    const int moved =
+        relax_pass(ext, root, lab, PN, n, pw, k0, Ps, first, stride);
+    ++round;
+    if (__syncthreads_or(moved) && threadIdx.x == 0) *any0 = round;
+    cluster.sync();
+    if (*any0 < round) return;
   }
 }
 
-template <bool kBath>
-__global__ void __launch_bounds__(kLabelThreads)
-fk_shard_label_kernel(const int* __restrict__ nbr_idx,
-                      const float* __restrict__ nbr_J,
-                      const float* __restrict__ h,
-                      const int* __restrict__ perm,
-                      const float* __restrict__ b_sched,
-                      const float* __restrict__ jp_sched,
-                      const float* __restrict__ lut, float* s,
-                      const float* dn, const float* full, int* parent,
-                      int* lab, int* root, unsigned* ext, int* labels,
-                      unsigned char* bond_dn, const int* halo_prev,
-                      const unsigned char* bond_up, const int* halo_next,
-                      const int* full_labels, int* changed, float teff,
-                      int Ps, int n, int maxnb, int P, int k0, int t,
-                      uint32_t seed_term, int mode, int asym) {
-  extern __shared__ float dyn[];  // p_same[P], p_diff[P]
-  float* p_same = dyn;
-  float* p_diff = dyn + P;
-  const int PN = Ps * n;
-  const int pw = (P + 31) / 32;
+// S7's draw over a cluster of R CTAs on the labeling core (see the
+// header), the regions in shared memory (kOnChip) or in `regions`: the
+// block's roots (root, the packed node of each node's
+// component root), its components' labels (lab, at the roots) and each
+// node's label, bond_dn, and with a bath the bits of ext.
+template <bool kBath, bool kOnChip>
+__global__ void __launch_bounds__(kLabelThreads, 1)
+fk_shard_draw_kernel(const int* __restrict__ nbr_idx,
+                     const float* __restrict__ nbr_J,
+                     const float* __restrict__ h,
+                     const int* __restrict__ perm,
+                     const int* __restrict__ inv_perm,
+                     const int* __restrict__ boundary,
+                     const float* __restrict__ b_sched,
+                     const float* __restrict__ jp_sched,
+                     const float* __restrict__ lut, const float* s,
+                     const float* dn, const float* full, int* root, int* lab,
+                     unsigned* ext, int* labels, unsigned char* bond_dn,
+                     char* regions, float teff, int Ps, int n, int maxnb,
+                     int P, int k0, int t, int R, uint32_t seed_term,
+                     int asym) {
+  // the head, p_same[P], p_diff[P], then this CTA's region
+  extern __shared__ __align__(16) unsigned char label_smem[];
+  float* const p_same =
+      reinterpret_cast<float*>(label_smem + mcs::kNodesHeadBytes);
+  float* const p_diff = p_same + P;
+  cg::cluster_group cluster = cg::this_cluster();
   const bool ring = Ps == P;
-
-  if (mode == 2) {  // the flip, on the coin of each free label
-    const uint32_t c_coin = mcs::cluster_counter(seed_term, t, mcs::kCoin);
-    for (int x = threadIdx.x; x < PN; x += blockDim.x) {
-      const int l = labels[x];
-      if (l >= 0 && mcs::uniform01(c_coin, static_cast<uint32_t>(l)) < 0.5f)
-        s[x] = -s[x];
-    }
-    return;
-  }
-  if (mode == 1) {  // a round: the least label across the other ranks
-    for (int x = threadIdx.x; x < PN; x += blockDim.x) {
-      const int r = x / n, j = x - r * n;
-      int e = INT_MAX;
-      if (!ring) {
-        if (r == 0 && bond_up[j]) e = min(e, halo_prev[j]);
-        if (r == Ps - 1 && bond_dn[j]) e = min(e, halo_next[j]);
-        if (kBath && full_labels != nullptr) {
-          const unsigned* ex = ext + static_cast<size_t>(x) * pw;
-          for (int wd = 0; wd < pw; ++wd) {
-            unsigned m = ex[wd];
-            while (m) {
-              const int q = wd * 32 + __ffs(m) - 1;
-              m &= m - 1u;
-              if (q >= k0 && q < k0 + Ps) continue;  // the block's own
-              e = min(e, full_labels[static_cast<size_t>(q) * n + j]);
-            }
-          }
-        }
-      }
-      if (e < labels[x]) atomicMin(lab + root[x], e);
-    }
-    __syncthreads();
-    if (kBath && asym) relax_block(ext, root, lab, PN, n, pw, k0, Ps);
-    int moved = 0;
-    for (int x = threadIdx.x; x < PN; x += blockDim.x) {
-      const int v = lab[root[x]];
-      if (v != labels[x]) {
-        labels[x] = v;
-        moved = 1;
-      }
-    }
-    moved = __syncthreads_or(moved);
-    if (threadIdx.x == 0) *changed = moved;
-    return;
-  }
-
-  // mode 0: the draw, the block's union-find and its labels
+  const bool directed = kBath && asym;
+  // the bits of ext: another rank's rows, or the block's one-way pairs
+  const bool with_ext = kBath && (directed || !ring);
+  const int pw = (P + 31) / 32;
+  const int PN = Ps * n;
+  const size_t off = mcs::kNodesHeadBytes + 2 * P * sizeof(float);
+  const mcs::Core<kOnChip> core = mcs::make_core<kOnChip>(
+      cluster, label_smem, R, Ps, n, 1, off, regions);
+  const int nc = core.nc, slots = core.slots, y0 = core.y0;
+  const int id0 = core.rank * nc;
+  const int ns = min(nc, n - id0);  // own sites (the last CTA's are fewer)
+  // the own sites with a neighbour in another CTA's chunk
+  const int* const bsites = boundary + R + 1 + __ldg(boundary + core.rank);
+  const int nb = __ldg(boundary + core.rank + 1) - __ldg(boundary + core.rank);
+  mcs::FastDiv by_nb;
+  by_nb.init(static_cast<uint32_t>(nb > 0 ? nb : 1));
   const float b = __ldg(b_sched + t);
   const float jp = __ldg(jp_sched + t);
   const uint32_t c_sp = mcs::cluster_counter(seed_term, t, mcs::kSpBond);
@@ -515,91 +538,299 @@ fk_shard_label_kernel(const int* __restrict__ nbr_idx,
     for (int d = 1 + threadIdx.x; d < P; d += blockDim.x)
       mcs::bath_probs(lut, d, teff, p_same + d, p_diff + d);
   }
-  for (int x = threadIdx.x; x < PN; x += blockDim.x) {
-    parent[x] = x;
-    lab[x] = INT_MAX;
-  }
-  __syncthreads();
   const float two_b = __fmul_rn(2.0f, b);
   const float m2jp = __fmul_rn(-2.0f, jp);
-  for (int x = threadIdx.x; x < PN; x += blockDim.x) {
-    const int r = x / n, i = x - r * n;
-    const int kg = k0 + r;
-    const int idi = __ldg(perm + i);
-    const uint32_t uid = static_cast<uint32_t>(kg) * n + idi;
-    const float si = s[x];
-    const float de_h = __fmul_rn(__fmul_rn(two_b, __ldg(h + i)), si);
-    labels[x] = mcs::uniform01(c_h, uid) < mcs::bond_prob(de_h, teff)
-                    ? -1
-                    : static_cast<int>(uid);
-    const int* ri = nbr_idx + static_cast<size_t>(i) * maxnb;
-    const float* ji = nbr_J + static_cast<size_t>(i) * maxnb;
-    for (int m = 0; m < maxnb; ++m) {
-      const int j = __ldg(ri + m);
-      if (idi >= __ldg(perm + j)) continue;  // from the lower id; no pads
-      const float de = __fmul_rn(
-          __fmul_rn(__fmul_rn(two_b, __ldg(ji + m)), si),
-          s[static_cast<size_t>(r) * n + j]);
-      if (mcs::uniform01(c_sp, uid * static_cast<uint32_t>(maxnb) + m) <
-          mcs::bond_prob(de, teff))
-        mcs::unite(parent, x, r * n + j);
+  const uint32_t un = static_cast<uint32_t>(n);
+  __syncthreads();  // the head's region addresses, before the reset
+
+  // the reset: own slot w is node (k, id0 + lid) of key k n + id; past the
+  // last site (the last CTA's short chunk) a slot is empty
+  for (int w = threadIdx.x; w < slots; w += blockDim.x) {
+    const int y = y0 + w;
+    core.set_flag(y, kGhostFlag, 0);
+    core.set_flag(y, kFrozenFlag, 0);
+    const int k = core.by_nc.div(w);
+    const int lid = w - k * nc;
+    if (lid >= ns) {
+      core.set_parent(y, y);
+    } else if (with_ext) {
+      unsigned* ex = ext + (static_cast<size_t>(k) * n +
+                            __ldg(inv_perm + id0 + lid)) * pw;
+      for (int wd = 0; wd < pw; ++wd) ex[wd] = 0u;
     }
-    {  // the Trotter bond of this row and the next, drawn by this row
-      const float sn = r + 1 < Ps ? s[x + n] : dn[i];
-      const float de = __fmul_rn(__fmul_rn(m2jp, si), sn);
-      const bool on = mcs::uniform01(c_t, uid) < mcs::bond_prob(de, teff);
-      if (ring || r + 1 < Ps) {
-        if (on) mcs::unite(parent, x, r + 1 < Ps ? x + n : i);
+  }
+  // each own site's Trotter line, a thread a site: bond (k - 1, k) drawn
+  // as row k - 1 draws it, each node's parent the least row of its run of
+  // bonded rows; the last row's bond to the row below (dn) goes out as
+  // bond_dn and, on a ring of one rank, hooks the last run under row 0's
+  for (int lid = threadIdx.x; lid < ns; lid += blockDim.x) {
+    const int id = id0 + lid;
+    const int i = __ldg(inv_perm + id);
+    const int first = y0 + lid;
+    int run = first;
+    core.set_parent(first, first);
+    float prev = s[i];
+    for (int k = 1; k < Ps; ++k) {
+      const int y = first + k * nc;
+      const float sk = s[static_cast<size_t>(k) * n + i];
+      const float de = __fmul_rn(__fmul_rn(m2jp, prev), sk);
+      if (mcs::uniform01(c_t, static_cast<uint32_t>(k0 + k - 1) * un + id) <
+          mcs::bond_prob(de, teff)) {
+        core.set_parent(y, run);
       } else {
-        bond_dn[i] = on;
+        run = y;
+        core.set_parent(y, y);
       }
+      prev = sk;
     }
-    if (kBath) {
-      const uint32_t line = static_cast<uint32_t>(idi);
-      unsigned word = 0u;
-      for (int q = 0; q < P; ++q) {
-        const bool own = q >= k0 && q < k0 + Ps;
-        // a pair of two block rows is drawn once, from its lower row, but
-        // with asym from both (each keeps its own pull)
-        if (q != kg && (!own || q > kg || asym)) {
-          const float sq = own ? s[static_cast<size_t>(q - k0) * n + i]
-                               : full[static_cast<size_t>(q) * n + i];
-          const bool same = sq == si;
-          const int lo = q < kg ? q : kg, hi = q < kg ? kg : q;
-          // row kg takes q's label at ring offset q - kg, q takes kg's at
-          // offset kg - q
-          const int d = q > kg ? q - kg : P - kg + q;
-          const float u = mcs::uniform01(
-              c_b, (line * P + lo) * static_cast<uint32_t>(P) + hi);
-          const bool pull = u < (same ? p_same[d] : p_diff[d]);
-          if (!own) {
-            if (pull) word |= 1u << (q & 31);
-          } else if (!asym) {
-            if (pull) mcs::unite(parent, x, (q - k0) * n + i);
-          } else if (pull) {
-            if (u < (same ? p_same[P - d] : p_diff[P - d])) {
-              if (q > kg) mcs::unite(parent, x, (q - k0) * n + i);
+    const float de = __fmul_rn(__fmul_rn(m2jp, prev), dn[i]);
+    const bool on =
+        mcs::uniform01(c_t, static_cast<uint32_t>(k0 + Ps - 1) * un + id) <
+        mcs::bond_prob(de, teff);
+    bond_dn[i] = on;
+    if (ring && on && run != first) core.set_parent(run, first);
+  }
+  cluster.sync();  // every region reset (the head, in place)
+
+  // the rest of the draw, united as it is drawn: first the bonds whose
+  // other node is this CTA's too (the bath pairs, the spatial bonds inside
+  // its sites), then the spatial ones to another CTA's sites, from the
+  // boundary sites (none at R = 1)
+  for (int pass = 0; pass < (R > 1 ? 2 : 1); ++pass) {
+    const int work = pass == 0 ? slots : Ps * nb;
+    for (int w = threadIdx.x; w < work; w += blockDim.x) {
+      int k, lid;
+      if (pass == 0) {
+        k = core.by_nc.div(w);
+        lid = w - k * nc;
+      } else {
+        k = by_nb.div(w);
+        lid = __ldg(bsites + w - k * nb) - id0;
+      }
+      const int id = id0 + lid;
+      if (lid >= ns) continue;
+      const int y = y0 + k * nc + lid;
+      const int i = __ldg(inv_perm + id);
+      const int kg = k0 + k;
+      const uint32_t uid = static_cast<uint32_t>(kg) * un + id;
+      const float si = s[static_cast<size_t>(k) * n + i];
+      const int* ri = nbr_idx + static_cast<size_t>(i) * maxnb;
+      const float* ji = nbr_J + static_cast<size_t>(i) * maxnb;
+      for (int m = 0; m < maxnb; ++m) {
+        const int j = __ldg(ri + m);
+        const int idj = __ldg(perm + j);
+        if (id >= idj) continue;  // drawn from the lower id; pads excluded
+        const bool inside = idj - id0 < nc;  // idj > id >= id0
+        if (inside != (pass == 0)) continue;
+        const float de = __fmul_rn(
+            __fmul_rn(__fmul_rn(two_b, __ldg(ji + m)), si),
+            s[static_cast<size_t>(k) * n + j]);
+        if (mcs::uniform01(c_sp, uid * static_cast<uint32_t>(maxnb) + m) <
+            mcs::bond_prob(de, teff))
+          core.unite(y, inside ? y + idj - id : core.node(k, idj));
+      }
+      if (pass) continue;
+      const float de_h = __fmul_rn(__fmul_rn(two_b, __ldg(h + i)), si);
+      if (mcs::uniform01(c_h, uid) < mcs::bond_prob(de_h, teff))
+        core.set_flag(y, kGhostFlag, 1);
+      if (kBath) {
+        // the line's pairs: a pair of two block rows once, from its lower
+        // row, both directions from its one draw; another rank's row for
+        // this row's direction
+        const size_t x = static_cast<size_t>(k) * n + i;
+        const uint32_t line = static_cast<uint32_t>(id);
+        unsigned word = 0u;
+        for (int q = 0; q < P; ++q) {
+          const bool own = q >= k0 && q < k0 + Ps;
+          if (q != kg && (!own || q > kg)) {
+            const float sq = own ? s[static_cast<size_t>(q - k0) * n + i]
+                                 : full[static_cast<size_t>(q) * n + i];
+            const bool same = sq == si;
+            const int lo = q < kg ? q : kg, hi = q < kg ? kg : q;
+            // row kg takes q's label at ring offset q - kg, q takes kg's
+            // at offset kg - q
+            const int d = q > kg ? q - kg : P - kg + q;
+            const float u = mcs::uniform01(
+                c_b, (line * P + lo) * static_cast<uint32_t>(P) + hi);
+            const bool fwd = u < (same ? p_same[d] : p_diff[d]);
+            if (!own) {
+              if (fwd) word |= 1u << (q & 31);
+            } else if (!directed) {
+              if (fwd) core.unite(y, y + (q - kg) * nc);
             } else {
-              word |= 1u << (q & 31);  // one way: relaxed in the block
+              const bool back = u < (same ? p_same[P - d] : p_diff[P - d]);
+              if (fwd && back) {
+                core.unite(y, y + (q - kg) * nc);
+              } else if (fwd) {
+                word |= 1u << (q & 31);  // one way: relaxed below
+              } else if (back) {
+                atomicOr(ext + (static_cast<size_t>(q - k0) * n + i) * pw +
+                             (kg >> 5),
+                         1u << (kg & 31));
+              }
             }
           }
-        }
-        if ((q & 31) == 31 || q == P - 1) {
-          ext[static_cast<size_t>(x) * pw + (q >> 5)] = word;
-          word = 0u;
+          if (with_ext && ((q & 31) == 31 || q == P - 1)) {
+            if (word) atomicOr(ext + x * pw + (q >> 5), word);
+            word = 0u;
+          }
         }
       }
     }
+    cluster.sync();
+  }
+
+  // a ghost bond freezes its component: its local top, then the global
+  // root of each frozen top whose parent is another CTA's
+  for (int w = threadIdx.x; w < slots; w += blockDim.x) {
+    const int y = y0 + w;
+    if (core.flag(y, kGhostFlag))
+      core.set_flag(core.local_top(y), kFrozenFlag, 1);
   }
   __syncthreads();
-  for (int x = threadIdx.x; x < PN; x += blockDim.x) {
-    const int rt = mcs::find_root(parent, x);
-    root[x] = rt;
-    atomicMin(lab + rt, labels[x]);
+  for (int w = threadIdx.x; R > 1 && w < slots; w += blockDim.x) {
+    const int y = y0 + w;
+    const int p = core.parent(y);
+    if (!core.mine(p) && core.flag(y, kFrozenFlag))
+      core.set_flag(core.find_global(p), kFrozenFlag, 1);
   }
-  __syncthreads();
-  if (kBath && asym) relax_block(ext, root, lab, PN, n, pw, k0, Ps);
-  for (int x = threadIdx.x; x < PN; x += blockDim.x) labels[x] = lab[root[x]];
+  cluster.sync();
+  // each local top with another CTA's parent to its global root g, and
+  // g's frozen flag
+  for (int w = threadIdx.x; R > 1 && w < slots; w += blockDim.x) {
+    const int y = y0 + w;
+    const int p = core.parent(y);
+    if (core.mine(p)) continue;
+    const int g = core.find_global(p);
+    core.set_parent(y, g);
+    core.set_flag(y, kFrozenFlag, core.flag(g, kFrozenFlag));
+  }
+  cluster.sync();
+
+  // each own node's root and label (-1 frozen, else the root's key from
+  // row k0), the roots' labels
+  for (int w = threadIdx.x; w < slots; w += blockDim.x) {
+    const int k = core.by_nc.div(w);
+    const int lid = w - k * nc;
+    if (lid >= ns) continue;
+    const int y = y0 + w;
+    const int top = core.local_top(y);
+    const int g = core.parent(top);  // the top itself at a root
+    const int key = core.key(g);
+    const int kr = key / n;
+    const int xr = kr * n + __ldg(inv_perm + key - kr * n);
+    const int label = core.flag(top, kFrozenFlag) ? -1 : key + k0 * n;
+    const int x = k * n + __ldg(inv_perm + id0 + lid);
+    root[x] = xr;
+    labels[x] = label;
+    if (g == y) lab[x] = label;
+  }
+  if (directed) {
+    // with asym the components' labels relax along the block's one-way
+    // bits, in device memory
+    cluster.sync();  // every root and label in place
+    const int first = core.rank * blockDim.x + threadIdx.x;
+    const int stride = R * blockDim.x;
+    int round = 0;
+    relax_cluster(cluster, ext, root, lab, PN, n, pw, k0, Ps, first, stride,
+                  core.any0, round);
+    volatile int* vlab = lab;
+    for (int x = first; x < PN; x += stride) labels[x] = vlab[__ldcg(root + x)];
+  }
+  cluster.sync();  // no CTA leaves while another may read its region
+}
+
+// S7's round over a cluster of R CTAs: each node's least label across the
+// other ranks' rows at its root (atomicMin on lab), with `directed` the
+// block's relaxation along its one-way bits, then each node's label from
+// its root; `changed` says whether one moved.
+__global__ void __launch_bounds__(kLabelThreads, 1)
+fk_shard_round_kernel(const unsigned* ext, const int* root, int* lab,
+                      int* labels, const unsigned char* bond_dn,
+                      const int* halo_prev, const unsigned char* bond_up,
+                      const int* halo_next, const int* full_labels,
+                      int* changed, int Ps, int n, int P, int k0,
+                      int bath, int directed) {
+  __shared__ int flags[2];  // CTA 0's: the relaxation's round, any change
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int R = static_cast<int>(cluster.num_blocks());
+  int* const flags0 = rank == 0 ? flags : cluster.map_shared_rank(flags, 0);
+  if (rank == 0 && threadIdx.x < 2) flags[threadIdx.x] = 0;
+  const int PN = Ps * n;
+  const int pw = (P + 31) / 32;
+  const bool ring = Ps == P;
+  const int first = rank * blockDim.x + threadIdx.x;
+  const int stride = R * blockDim.x;
+  for (int x = first; x < PN; x += stride) {
+    const int r = x / n, j = x - r * n;
+    int e = INT_MAX;
+    if (!ring) {
+      if (r == 0 && bond_up[j]) e = min(e, halo_prev[j]);
+      if (r == Ps - 1 && bond_dn[j]) e = min(e, halo_next[j]);
+      if (bath && full_labels != nullptr) {
+        const unsigned* ex = ext + static_cast<size_t>(x) * pw;
+        for (int wd = 0; wd < pw; ++wd) {
+          unsigned m = ex[wd];
+          while (m) {
+            const int q = wd * 32 + __ffs(m) - 1;
+            m &= m - 1u;
+            if (q >= k0 && q < k0 + Ps) continue;  // the block's own
+            e = min(e, full_labels[static_cast<size_t>(q) * n + j]);
+          }
+        }
+      }
+    }
+    if (e < labels[x]) atomicMin(lab + root[x], e);
+  }
+  cluster.sync();  // every pull in place (and CTA 0's flags reset)
+  if (bath && directed) {
+    int round = 0;
+    relax_cluster(cluster, ext, root, lab, PN, n, pw, k0, Ps, first, stride,
+                  flags0, round);
+  }
+  volatile int* vlab = lab;
+  int moved = 0;
+  for (int x = first; x < PN; x += stride) {
+    const int v = vlab[root[x]];
+    if (v != labels[x]) {
+      labels[x] = v;
+      moved = 1;
+    }
+  }
+  if (__syncthreads_or(moved) && threadIdx.x == 0) atomicOr(flags0 + 1, 1);
+  cluster.sync();  // every CTA's news in CTA 0's word
+  if (rank == 0 && threadIdx.x == 0) *changed = flags[1];
+}
+
+// S7's flip: every free node flips on the coin of its label, a thread a
+// node
+__global__ void fk_shard_flip_kernel(const int* __restrict__ labels,
+                                     float* s, int PN, int t,
+                                     uint32_t seed_term) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= PN) return;
+  const uint32_t c_coin = mcs::cluster_counter(seed_term, t, mcs::kCoin);
+  const int l = __ldg(labels + x);
+  if (l >= 0 && mcs::uniform01(c_coin, static_cast<uint32_t>(l)) < 0.5f)
+    s[x] = -s[x];
+}
+
+// Shared memory of one CTA of S7's draw: the head, the bath's two rows of
+// P floats and, on chip, the CTA's region of Ps ceil(n / R) nodes
+// (ops/cluster_kernels.py::shard_label_smem_bytes)
+inline size_t shard_draw_smem_bytes(int P, int Ps, int n, int R,
+                                    bool on_chip) {
+  return mcs::nodes_smem_bytes(Ps, n, R, 1, 2 * P, on_chip);
+}
+
+// The instantiation of S7's draw with a bath table (bath) or none, its
+// union-find on chip or in device memory
+inline auto shard_draw_kernel(bool bath, bool on_chip) {
+  return on_chip ? (bath ? fk_shard_draw_kernel<true, true>
+                         : fk_shard_draw_kernel<false, true>)
+                 : (bath ? fk_shard_draw_kernel<true, false>
+                         : fk_shard_draw_kernel<false, false>);
 }
 
 template <bool kRuleFull, bool kBath>
@@ -658,35 +889,99 @@ extern "C" int fk_shard_wolff(
   return cudaGetLastError();
 }
 
-// S7, one launch of mode `mode` (0 the draw and the block's labels, 1 a
-// round, 2 the flip) on a rank's rows s (Ps, n) of a (P, n) chain, rows
-// k0 ..; dn (n) the row below the block; full (P, n) every rank's rows or
-// null (no bath); parent, lab, root (Ps n) int32 scratch kept from mode 0
-// to the step's last launch; ext (Ps n ceil(P / 32)) the bath bits to
-// other ranks; labels (Ps n) int32; bond_dn (n) bytes (mode 0 writes it);
-// halo_prev, halo_next (n) int32 and bond_up (n) bytes the ring's rows;
-// full_labels (P n) every rank's labels or null; changed (1); lut (P - 1)
-// or null; asym != 0 when lut is not symmetric in ring distance. All
-// device pointers; launches on `stream` and returns cudaGetLastError().
-extern "C" int fk_shard_label(
+// S7's draw over a cluster of R CTAs of `threads` threads: a rank's rows s
+// (Ps, n) of a (P, n) chain, rows k0 ..; dn (n) the row below the block;
+// full (P, n) every rank's rows or null (no bath); lab, root (Ps n) int32,
+// kept for the step's rounds; ext (Ps n ceil(P / 32)) the bath bits;
+// labels (Ps n) int32; bond_dn (n) bytes; lut (P - 1) or null; asym != 0
+// when lut is not symmetric in ring distance; inv_perm (n) and boundary
+// (ops/cluster_kernels.py::boundary_sites at R) as fk_label takes them.
+// regions: null when each CTA's region of the union-find sits in its
+// shared memory, else device scratch of R regions (fk_nodes.cuh::
+// region_bytes of Ps ceil(n / R) nodes and one int32 array). All device
+// pointers; launches on `stream` and returns the launch's error.
+extern "C" int fk_shard_label_draw(
     const int* nbr_idx, const float* nbr_J, const float* h, const int* perm,
-    const float* b_sched, const float* jp, const float* lut, float* s,
-    const float* dn, const float* full, int* parent, int* lab, int* root,
-    unsigned* ext, int* labels, unsigned char* bond_dn, const int* halo_prev,
-    const unsigned char* bond_up, const int* halo_next,
-    const int* full_labels, int* changed, float teff, int Ps, int n,
-    int maxnb, int P, int k0, int t, int seed, int mode, int asym,
+    const int* inv_perm, const int* boundary, const float* b_sched,
+    const float* jp, const float* lut, const float* s, const float* dn,
+    const float* full, int* lab, int* root, unsigned* ext, int* labels,
+    unsigned char* bond_dn, char* regions, float teff, int Ps, int n,
+    int maxnb, int P, int k0, int t, int seed, int asym, int R, int threads,
     void* stream) {
   if (n == 0 || Ps == 0) return cudaSuccess;
+  if (R < 1 || R > mcs::kMaxRanks || R > n || threads > kLabelThreads)
+    return cudaErrorInvalidValue;
   const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
-  const size_t smem = 2 * static_cast<size_t>(P) * sizeof(float);
-  auto kernel = lut ? fk_shard_label_kernel<true>
-                    : fk_shard_label_kernel<false>;
-  kernel<<<1, kLabelThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      nbr_idx, nbr_J, h, perm, b_sched, jp, lut, s, dn, full, parent, lab,
-      root, ext, labels, bond_dn, halo_prev, bond_up, halo_next, full_labels,
-      changed, teff, Ps, n, maxnb, P, k0, t, seed_term, mode,
-      lut != nullptr && asym);
+  const bool on_chip = regions == nullptr;
+  auto kernel = shard_draw_kernel(lut != nullptr, on_chip);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = mcs::cluster_config(
+      kernel, R, R, threads, shard_draw_smem_bytes(P, Ps, n, R, on_chip),
+      static_cast<cudaStream_t>(stream), &cfg, &attr);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, kernel, nbr_idx, nbr_J, h, perm, inv_perm,
+                         boundary, b_sched, jp, lut, s, dn, full, root, lab,
+                         ext, labels, bond_dn, regions, teff, Ps, n, maxnb,
+                         P, k0, t, R, seed_term,
+                         static_cast<int>(lut != nullptr && asym));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// Clusters of R CTAs of `threads` threads the card holds at once of S7's
+// draw at P slices, Ps rows of n sites, with a bath table (bath) or none,
+// its union-find on chip (on_chip) or in device memory
+extern "C" int fk_shard_label_max_active_clusters(int P, int Ps, int n,
+                                                  int R, int bath,
+                                                  int on_chip, int threads,
+                                                  int* count) {
+  return mcs::max_active_clusters(
+      shard_draw_kernel(bath != 0, on_chip != 0), R, threads,
+      shard_draw_smem_bytes(P, Ps, n, R, on_chip != 0), count);
+}
+
+// S7's round over a cluster of R CTAs of `threads` threads on the draw's
+// root, lab, ext and labels: halo_prev, halo_next (n)
+// int32 and bond_up (n) bytes the ring's rows, bond_dn (n) the draw's;
+// full_labels (P n) every rank's labels or null; bath != 0 with a bath
+// table, asym != 0 when it is not symmetric in ring distance; changed
+// (1) int32 out. Returns the launch's error.
+extern "C" int fk_shard_label_round(
+    const unsigned* ext, const int* root, int* lab, int* labels,
+    const unsigned char* bond_dn, const int* halo_prev,
+    const unsigned char* bond_up, const int* halo_next,
+    const int* full_labels, int* changed, int Ps, int n, int P, int k0,
+    int bath, int asym, int R, int threads, void* stream) {
+  if (n == 0 || Ps == 0) return cudaSuccess;
+  if (R < 1 || R > mcs::kMaxRanks || threads > kLabelThreads)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = mcs::cluster_config(fk_shard_round_kernel, R, R, threads,
+                                      0, static_cast<cudaStream_t>(stream),
+                                      &cfg, &attr);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, fk_shard_round_kernel, ext, root, lab,
+                         labels, bond_dn, halo_prev, bond_up, halo_next,
+                         full_labels, changed, Ps, n, P, k0, bath,
+                         static_cast<int>(bath && asym));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// S7's flip of the rows s (Ps, n) in place on labels (Ps n) at step t, a
+// thread a node. Returns cudaGetLastError().
+extern "C" int fk_shard_label_flip(const int* labels, float* s, int Ps,
+                                   int n, int t, int seed, void* stream) {
+  const int PN = Ps * n;
+  if (PN == 0) return cudaSuccess;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  constexpr int kFlipThreads = 256;
+  fk_shard_flip_kernel<<<(PN + kFlipThreads - 1) / kFlipThreads,
+                         kFlipThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      labels, s, PN, t, seed_term);
   return cudaGetLastError();
 }
 

@@ -77,31 +77,73 @@
 // product and sum with __fmul_rn / __fadd_rn, so nvcc contracts nothing
 // into an FMA that the plain version rounds twice.
 //
-// S5, the sharded bath's slice step (generic_shard_bath_slice_kernel below,
-// parallel/trotter.py::anneal_sharded(lookuptable=)). Replaces no TPU
-// kernel: the JAX package runs `updated_slice` of
-// montecarlosolvers_tpu/parallel/trotter.py::_sharded_dissipative_sweep
-// (:170-192) as XLA inside shard_map. Plain PyTorch version:
-// ops/shard_kernels.py::generic_shard_bath_slice_ref. A rank owns Ps of
-// the P slices; one launch updates its local slice kloc (global kglob) of
-// every chain through the classes in order, on the same dE, sums and
-// uniforms as the sequential sweep above, the Trotter and bath terms read
-// from `full`, every rank's slices gathered at the step's start (at one
-// rank the slab itself: M[k, k] = 0 makes the slice's own entry +/-0).
-// So one rank's sharded anneal equals the sequential kernel bitwise. An
-// improper class reads its same-class neighbours from a copy of its block
-// taken before its phase (`snap`, one slice a chain), as above.
-// The design, simply (a first kernel): one CTA of 256 threads a chain, a
-// barrier between classes, a launch a local slice step.
+// S5, the sharded bath's slice step (parallel/trotter.py::
+// anneal_sharded(lookuptable=)). Replaces no TPU kernel: the JAX package
+// runs `updated_slice` of montecarlosolvers_tpu/parallel/trotter.py::
+// _sharded_dissipative_sweep (:170-192) as XLA inside shard_map. Plain
+// PyTorch version: ops/shard_kernels.py::generic_shard_bath_slice_ref. A
+// rank owns Ps of the P slices; one launch updates its local slice kloc
+// (global kglob) of every chain through the classes in order, on the same
+// dE, sums and uniforms as the sequential sweep above, the Trotter and bath
+// terms read from `full`, every rank's slices gathered at the step's start
+// (at one rank the slab itself: M[k, k] = 0 makes the slice's own entry
+// +/-0). So one rank's sharded anneal equals the sequential kernel
+// bitwise. What bounds it on an H100: the gathered state, read once (at
+// 32 chains of 40 x 6400 float32 spins 32.8 MB, 0.0098 ms at 3.35 TB/s).
+//
+// The cluster route (generic_shard_bath_slice_cluster_kernel below), after
+// the generic bath's (csrc/generic_words.cuh): one chain's slice over a
+// cluster of R <= 16 CTAs, chains along gridDim.x, so 32 chains fill the
+// card (R from ops/shard_kernels.py::shard_bath_geometry). CTA r holds the
+// r-th chunk of every class on the same slot layout
+// (ops/generic_kernels.py::word_layout).
+// - Each of its sites' P slices of `full` is loaded once a launch, as
+//   float32 or as the int8 the gather sends, and packed into W = ceil(P/32)
+//   words in shared memory as it loads; the bath row M[kglob, .] is staged
+//   beside them. The Trotter partners and the whole bath sum are then bits
+//   of the site's own words (generic_words.cuh::bath_of_line), not P float
+//   loads in a chain.
+// - The slice's own spins sit in two ping-pong buffers of a word a slot
+//   (bit 0); a class reads `src` and writes `dst`, same-class neighbours in
+//   other CTAs through distributed shared memory, and ends with one
+//   cluster.sync(): so a packing that is not proper (the 81x81
+//   checkerboard) reads a same-class neighbour as it stood before the
+//   class's phase, as the plain version does, with no snapshot in device
+//   memory.
+// The file's first S5 kernel (generic_shard_bath_slice_kernel below) stays,
+// unchanged, for a chain no cluster of 16 CTAs holds
+// (LAUNCHES["generic_shard_bath_slice_wide"]): one CTA of 256 threads a
+// chain, a barrier between classes, an improper class's snapshot (`snap`,
+// one slice a chain) in device memory, every update a serial chain of P
+// float loads from the gathered state (0.1113-0.1235 ms a launch at the
+// shape above, 11-12x the bound, H100 80GB HBM3, 700.00 W; PERF.md).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "counter_hash.cuh"
 #include "energy.cuh"
 #include "generic_words.cuh"
 #include "packed.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
+
+// the head of an S5 cluster-route CTA's dynamic shared memory: the R <= 16
+// CTAs' spin buffers (ops/shard_kernels.py::SHARD_HEAD_BYTES); the kernel
+// has no static shared memory
+constexpr int kShardHeadBytes = 16 * sizeof(uint32_t*);
+
+// Shared memory of one S5 cluster-route CTA, all of it dynamic: the head,
+// both buffers of its nr slots' spins, the slots' W line words and the bath
+// row (ops/shard_kernels.py::shard_bath_smem_bytes counts the same)
+inline size_t shard_bath_smem_bytes(int P, int nr) {
+  return kShardHeadBytes +
+         (2 + static_cast<size_t>((P + 31) / 32)) * nr * sizeof(uint32_t) +
+         static_cast<size_t>(P) * sizeof(float);
+}
 
 // sum_p M[k, p] s_p of the line at `line` (slice p at line[p * stride]), p
 // in index order from 0; every product with a spin is exact
@@ -308,6 +350,118 @@ generic_shard_bath_slice_kernel(
   }
 }
 
+// S5's cluster route: slice kloc of chain blockIdx.x / R of the slab s
+// (chains, Ps, n), global slice kglob of P, over R CTAs; `full` (chains,
+// P, n) float32 or int8 (a spin is negative where its bit is set).
+template <typename Full>
+__global__ void __launch_bounds__(mcs::gw::kWordThreads, 2)
+generic_shard_bath_slice_cluster_kernel(
+    const int* __restrict__ slot_site, const int* __restrict__ slot_starts,
+    const int* __restrict__ nbr_loc, const float* __restrict__ nbr_J,
+    const float* __restrict__ h, const int* __restrict__ perm,
+    const float* __restrict__ b_sched, const float* __restrict__ jp,
+    const float* __restrict__ bath, float teff, float two_teff, float* s,
+    const Full* full, int Ps, int n, int maxnb, int ncolors, int kloc,
+    int kglob, int P, int t, int R, int nr, uint32_t seed_term,
+    uint32_t chain0) {
+  using mcs::gw::spin_of;
+  extern __shared__ __align__(16) unsigned char s5_smem_raw[];
+  uint32_t** const peers = reinterpret_cast<uint32_t**>(s5_smem_raw);
+  // the two buffers of the slice's spins (bit 0 of a word a slot), the
+  // line words of the slots, the bath row
+  uint32_t* const spins =
+      reinterpret_cast<uint32_t*>(s5_smem_raw + kShardHeadBytes);
+  uint32_t* const line = spins + 2 * nr;
+  const int W = (P + 31) >> 5;
+  float* const mrow = reinterpret_cast<float*>(line + W * nr);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int chain = blockIdx.x / R;
+  const int* const slots = slot_site + static_cast<size_t>(rank) * nr;
+  for (int x = threadIdx.x; x < P; x += blockDim.x)
+    mrow[x] = __ldg(bath + static_cast<size_t>(kglob) * P + x);
+  if (static_cast<int>(threadIdx.x) < R)
+    peers[threadIdx.x] = static_cast<int>(threadIdx.x) == rank
+                             ? spins
+                             : cluster.map_shared_rank(spins, threadIdx.x);
+  float* const sk =
+      s + (static_cast<size_t>(chain) * Ps + kloc) * static_cast<size_t>(n);
+  for (int l = threadIdx.x; l < nr; l += blockDim.x) {
+    const int info = __ldg(slots + l);
+    spins[l] = info >= 0 ? static_cast<uint32_t>(sk[info & 0xffffff] < 0.0f)
+                         : 0u;
+  }
+  // the lines, a word a thread at a time: bit b of word w is slice 32 w + b
+  const Full* const f0 = full + static_cast<size_t>(chain) * P * n;
+  for (int it = threadIdx.x; it < W * nr; it += blockDim.x) {
+    const int w = it / nr;
+    const int l = it - w * nr;
+    const int info = __ldg(slots + l);
+    uint32_t v = 0u;
+    if (info >= 0) {
+      const Full* const x = f0 + (info & 0xffffff);
+      const int nbits = min(32, P - 32 * w);
+      for (int b = 0; b < nbits; ++b)
+        v |= static_cast<uint32_t>(
+                 x[static_cast<size_t>(32 * w + b) * n] < static_cast<Full>(0))
+             << b;
+    }
+    line[w * nr + l] = v;
+  }
+  cluster.sync();  // every CTA's spins and `peers` are in place
+
+  const float bc = __fmul_rn(-2.0f, __ldg(b_sched + t));
+  const float jpt = __ldg(jp + t);
+  const uint32_t ctr = mcs::counter(seed_term, t, 0);
+  const int up = kglob == 0 ? P - 1 : kglob - 1;
+  const int dn = kglob + 1 == P ? 0 : kglob + 1;
+  const uint32_t uid_row =
+      ((chain0 + static_cast<uint32_t>(chain)) * static_cast<uint32_t>(P) +
+       static_cast<uint32_t>(kglob)) *
+      static_cast<uint32_t>(n);
+  int src = 0;
+  for (int c = 0; c < ncolors; ++c) {
+    const int dst = nr - src;
+    const int lo = __ldg(slot_starts + c), hi = __ldg(slot_starts + c + 1);
+    for (int l = threadIdx.x; l < nr; l += blockDim.x)
+      if (l < lo || l >= hi) spins[dst + l] = spins[src + l];
+    for (int l = lo + threadIdx.x; l < hi; l += blockDim.x) {
+      const int info = slots[l];
+      const uint32_t word = spins[src + l];
+      if (info < 0) {
+        spins[dst + l] = word;
+        continue;
+      }
+      const int i = info & 0xffffff;
+      mcs::gw::Nbrs nb;
+      nb.load(nbr_loc, nbr_J, h, i, maxnb);
+      mcs::gw::load_words(nb, peers, src, nr, 0);
+      const float si = spin_of(word, 0);
+      const float f = mcs::gw::field_bit(nb, peers, src, nr, 0, 0);
+      const float tr = __fadd_rn(spin_of(line[(up >> 5) * nr + l], up & 31),
+                                 spin_of(line[(dn >> 5) * nr + l], dn & 31));
+      const float bf = mcs::gw::bath_of_line(mrow, line + l, nr, P);
+      const float de = __fadd_rn(
+          __fadd_rn(__fmul_rn(__fmul_rn(bc, si), f),
+                    __fmul_rn(__fmul_rn(__fmul_rn(2.0f, si), jpt), tr)),
+          __fmul_rn(__fmul_rn(two_teff, si), bf));
+      const uint32_t uid =
+          uid_row + static_cast<uint32_t>(__ldg(perm + i));
+      spins[dst + l] =
+          mcs::metropolis_accept_hashed(de, teff, uid * mcs::kGolden + ctr)
+              ? word ^ 1u
+              : word;
+    }
+    cluster.sync();  // the next class reads this one's writes
+    src = dst;
+  }
+  for (int l = threadIdx.x; l < nr; l += blockDim.x) {
+    const int info = slots[l];
+    if (info >= 0) sk[info & 0xffffff] = spin_of(spins[src + l], 0);
+  }
+  cluster.sync();  // no CTA leaves while another may read its spins
+}
+
 }  // namespace
 
 // Anneal `chains` chains of P packed slices `s` (chains, P, n) in place
@@ -347,14 +501,14 @@ extern "C" int generic_qmc_bath_anneal(
   return cudaGetLastError();
 }
 
-// S5: one local slice step of the sharded bath (see the header): slice
-// kloc of the slab s (chains, Ps, n) in place, global slice kglob of P,
-// at step t of the (steps,) schedules B and J_perp, the (P, P) bath
-// matrix at T_eff = `teff` (two_teff: 2 T_eff rounded to float32); full
-// (chains, P, n), the gathered state (s itself at one rank); snap (chains,
-// n) scratch when proper == 0, else null; chain0 the global index of the
-// first chain. One CTA of 256 threads a chain. All device pointers;
-// launches on `stream` and returns cudaGetLastError().
+// S5's first kernel: one local slice step of the sharded bath (see the
+// header): slice kloc of the slab s (chains, Ps, n) in place, global slice
+// kglob of P, at step t of the (steps,) schedules B and J_perp, the (P, P)
+// bath matrix at T_eff = `teff` (two_teff: 2 T_eff rounded to float32);
+// full (chains, P, n) float32, the gathered state (s itself at one rank);
+// snap (chains, n) scratch when proper == 0, else null; chain0 the global
+// index of the first chain. One CTA of 256 threads a chain. All device
+// pointers; launches on `stream` and returns cudaGetLastError().
 extern "C" int generic_qmc_bath_shard_slice(
     const int* nbr_idx, const float* nbr_J, const float* h, const int* perm,
     const int* starts, const float* b_sched, const float* jp,
@@ -371,6 +525,58 @@ extern "C" int generic_qmc_bath_shard_slice(
       full, snap, Ps, n, maxnb, ncolors, kloc, kglob, P, t, seed_term, proper,
       static_cast<uint32_t>(chain0));
   return cudaGetLastError();
+}
+
+// S5's cluster route (see the header): the step of
+// generic_qmc_bath_shard_slice on slice kloc of the slab s (chains, Ps, n)
+// in place, `full` (chains, P, n) float32 (full_int8 == 0; s itself at one
+// rank) or int8 (the gather's), each chain over a cluster of R CTAs of
+// `threads` threads holding nr slots each; slot_site (R, nr), slot_starts
+// (ncolors + 1) and nbr_loc (n, maxnb) the slot layout
+// (ops/generic_kernels.py::word_layout). A packing that is not proper
+// needs no flag here. All device pointers; launches on `stream` and
+// returns the launch's error.
+extern "C" int generic_qmc_bath_shard_slice_cluster(
+    const int* slot_site, const int* slot_starts, const int* nbr_loc,
+    const float* nbr_J, const float* h, const int* perm,
+    const float* b_sched, const float* jp, const float* bath, float teff,
+    float two_teff, float* s, const void* full, int full_int8, int chains,
+    int Ps, int n, int maxnb, int ncolors, int kloc, int kglob, int P, int t,
+    int seed, int R, int nr, int threads, int chain0, void* stream) {
+  if (chains == 0 || n == 0) return cudaSuccess;
+  if (R < 1 || R > 16 || threads > mcs::gw::kWordThreads)
+    return cudaErrorInvalidValue;
+  const uint32_t seed_term = static_cast<uint32_t>(seed) * mcs::kSeedMult;
+  const size_t smem = shard_bath_smem_bytes(P, nr);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (full_int8)
+    return mcs::gw::launch_words(
+        generic_shard_bath_slice_cluster_kernel<int8_t>, chains, R, threads,
+        smem, st, slot_site, slot_starts, nbr_loc, nbr_J, h, perm, b_sched,
+        jp, bath, teff, two_teff, s, static_cast<const int8_t*>(full), Ps, n,
+        maxnb, ncolors, kloc, kglob, P, t, R, nr, seed_term,
+        static_cast<uint32_t>(chain0));
+  return mcs::gw::launch_words(
+      generic_shard_bath_slice_cluster_kernel<float>, chains, R, threads,
+      smem, st, slot_site, slot_starts, nbr_loc, nbr_J, h, perm, b_sched, jp,
+      bath, teff, two_teff, s, static_cast<const float*>(full), Ps, n, maxnb,
+      ncolors, kloc, kglob, P, t, R, nr, seed_term,
+      static_cast<uint32_t>(chain0));
+}
+
+// Clusters of R CTAs of `threads` threads the card holds at once of S5's
+// cluster route at P slices and nr slots a CTA, with float32 or int8
+// `full` (cudaOccupancyMaxActiveClusters)
+extern "C" int generic_qmc_bath_shard_max_active_clusters(
+    int P, int nr, int R, int threads, int full_int8, int* count) {
+  const size_t smem = shard_bath_smem_bytes(P, nr);
+  if (full_int8)
+    return mcs::max_active_clusters(
+        generic_shard_bath_slice_cluster_kernel<int8_t>, R, threads, smem,
+        count);
+  return mcs::max_active_clusters(
+      generic_shard_bath_slice_cluster_kernel<float>, R, threads, smem,
+      count);
 }
 
 // The cluster route (csrc/generic_words.cuh): the anneal of

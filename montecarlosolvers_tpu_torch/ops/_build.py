@@ -289,6 +289,15 @@ SIGNATURES = {
             _I, [_P] * 8 + [ctypes.c_float] * 2 + [_P] * 3 + [_I] * 12
             + [_P]
         ),
+        # S5's cluster route: slot_site, slot_starts, nbr_loc, nbr_J, h,
+        # perm, b_sched, jp, bath, teff, 2*teff, s (in place), full (float32
+        # or int8), full_int8, chains, Ps, n, maxnb, ncolors, kloc, kglob,
+        # P, t, seed, R, nr, threads, chain0, stream
+        "generic_qmc_bath_shard_slice_cluster": (
+            _I, [_P] * 9 + [ctypes.c_float] * 2 + [_P] * 2 + [_I] * 15
+            + [_P]),
+        # P, nr, R, threads, full_int8, out: clusters resident at once
+        "generic_qmc_bath_shard_max_active_clusters": (_I, [_I] * 5 + [_IP]),
         # the cluster route: slot_site, slot_starts, nbr_loc, nbr_J, h,
         # perm, b_sched, jp, bath, teff, 2*teff, s in, s out (floats),
         # energies, chains, P, n, maxnb, ncolors, m, R, nr, threads, steps,
@@ -357,12 +366,22 @@ SIGNATURES = {
         # seed_x, t, seed, rule_full, mode, stream
         "fk_shard_wolff": (
             _I, [_P] * 23 + [ctypes.c_float] + [_I] * 10 + [_P]),
-        # S7: nbr_idx, nbr_J, h, perm, b_sched, jp, lut, s, dn, full,
-        # parent, lab, root, ext, labels, bond_dn, halo_prev, bond_up,
-        # halo_next, full_labels, changed, teff, Ps, n, maxnb, P, k0, t,
-        # seed, mode, asym (lut not symmetric in ring distance), stream
-        "fk_shard_label": (
-            _I, [_P] * 21 + [ctypes.c_float] + [_I] * 9 + [_P]),
+        # S7's draw over a cluster: nbr_idx, nbr_J, h, perm, inv_perm,
+        # boundary, b_sched, jp, lut, s, dn, full, lab, root, ext, labels,
+        # bond_dn, regions (null on chip), teff, Ps, n, maxnb, P, k0, t,
+        # seed, asym (lut not symmetric in ring distance), R, threads,
+        # stream
+        "fk_shard_label_draw": (
+            _I, [_P] * 18 + [ctypes.c_float] + [_I] * 10 + [_P]),
+        # P, Ps, n, R, bath, on_chip, threads, out: clusters resident at
+        # once
+        "fk_shard_label_max_active_clusters": (_I, [_I] * 7 + [_IP]),
+        # S7's round: ext, root, lab, labels, bond_dn, halo_prev, bond_up,
+        # halo_next, full_labels, changed, Ps, n, P, k0, bath, asym, R,
+        # threads, stream
+        "fk_shard_label_round": (_I, [_P] * 10 + [_I] * 8 + [_P]),
+        # S7's flip: labels, s (in place), Ps, n, t, seed, stream
+        "fk_shard_label_flip": (_I, [_P] * 2 + [_I] * 4 + [_P]),
         "fk_shard_error_string": (ctypes.c_char_p, [_I]),
     },
     "houdayer": {
@@ -490,8 +509,11 @@ LAUNCHES.update({"shard_phase": 0, "shard_line_part": 0,
 # ... and of the sharded bath and cluster engines: S5 once a local slice
 # step (p_local of them a step, one at p_local = 1), S6 and S7 once a round
 # (and S6's field sums and flip, S7's bond draw and flip, once a step).
+# S5 and S7 run over a thread-block cluster under these keys; a slice no
+# cluster holds takes S5's first kernel, under
+# "generic_shard_bath_slice_wide" (a local slice step).
 LAUNCHES.update({"generic_shard_bath_slice": 0, "shard_wolff": 0,
-                 "shard_label": 0})
+                 "shard_label": 0, "generic_shard_bath_slice_wide": 0})
 
 
 def reset_launches():

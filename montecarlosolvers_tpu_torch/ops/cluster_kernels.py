@@ -1025,6 +1025,72 @@ class ShardStep:
         self.words = -(-s.numel() // 32)
 
 
+def shard_label_smem_bytes(P, Ps, n, R, on_chip=True):
+    """Shared memory of one CTA of S7's draw over a cluster (csrc/
+    fk_shard.cu::shard_draw_smem_bytes): the head, the bath's two rows of
+    P floats (P the chain's slices), and with `on_chip` the CTA's region
+    of the union-find, Ps ceil(n / R) nodes of the block's Ps rows, 6
+    bytes a node (a parent and two flag bytes) in whole words."""
+    return (LABEL_HEAD_BYTES + 8 * P
+            + (region_bytes(Ps, n, R, 1) if on_chip else 0))
+
+
+def shard_label_threads(Ps, n, R):
+    """Threads a CTA of S7's draw and rounds: one a node of its Ps ceil(n /
+    R), in whole warps, at most LABEL_THREADS."""
+    return min(LABEL_THREADS, -(-max(Ps * -(-n // R), 1) // 32) * 32)
+
+
+def shard_label_shape(P, Ps, n, R):
+    """(R, threads, on_chip) of S7's draw over R CTAs: on_chip while a
+    CTA's region of the union-find fits SMEM_LIMIT_BYTES beside the head
+    and the bath's rows (`shard_label_smem_bytes`: at P = 40 and R = 16
+    an n up to 15,456 at one rank, 154,576 on a slab of 4 rows), else the
+    regions live in device memory and the block is still spread over R
+    CTAs."""
+    return (R, shard_label_threads(Ps, n, R),
+            shard_label_smem_bytes(P, Ps, n, R) <= _build.SMEM_LIMIT_BYTES)
+
+
+def shard_label_geometry(P, Ps, n, sms=NUM_SMS, resident=None):
+    """(R, threads, on_chip) of S7's draw (csrc/fk_shard.cu::
+    fk_shard_draw_kernel) on a rank's block of Ps rows of n sites of a
+    P-slice chain: the block over a cluster of R CTAs, CTA r owning the
+    r-th chunk of ceil(n / R) sites in every row (`shard_label_shape`).
+    R is `label_geometry`'s for the one chain: the most CTAs, at most 16
+    and at most n; then, with `resident(R, threads, on_chip)` (the wrapper
+    passes the card's cudaOccupancyMaxActiveClusters; None: any number),
+    down to the largest the card holds, or, if none is held, the first.
+    The rounds run over the same R."""
+    top = min(CLUSTER_MAX, max(n, 1), max(sms, 1))
+    if resident is not None:
+        for r in range(top, 0, -1):
+            shape = shard_label_shape(P, Ps, n, r)
+            if resident(*shape) >= 1:
+                return shape
+    return shard_label_shape(P, Ps, n, top)
+
+
+def card_shard_label_geometry(P, Ps, n, dev, bath):
+    """`shard_label_geometry` on the card `dev`: its SMs, and how many
+    clusters of each shape of the draw (with a bath table or none) it
+    holds at once (`fk_shard_label_max_active_clusters`). Cached per
+    shape."""
+    def resident(R, threads, on_chip):
+        key = ("fk_shard", str(dev), P, Ps, n, R, threads, on_chip,
+               bool(bath))
+        if key not in _RESIDENT:
+            lib = _build.library("fk_shard")
+            count = ctypes.c_int(0)
+            rc = lib.fk_shard_label_max_active_clusters(
+                P, Ps, n, R, int(bool(bath)), int(on_chip), threads,
+                ctypes.byref(count))
+            _fk_shard(lib, "fk_shard_label_max_active_clusters", rc)
+            _RESIDENT[key] = count.value
+        return _RESIDENT[key]
+    return shard_label_geometry(P, Ps, n, gk.card_sms(dev), resident)
+
+
 def _fk_shard(lib, fn, rc):
     _build.raise_on_error(lib, fn, rc, error_fn="fk_shard_error_string")
 
@@ -1189,42 +1255,46 @@ def shard_label_init_ref(st):
 
 
 def shard_label_init(st):
-    """S7's first launch of a step on CUDA tensors (csrc/fk_shard.cu::
-    fk_shard_label, mode 0: the draw, the block's union-find and labels),
-    `cluster.sw_shard_bonds` and `sw_shard_init_ref` on CPU tensors.
-    Returns (labels (Ps, N) int32, bond_dn (N,) uint8: the last row's
-    Trotter bonds to the next rank's first row). LAUNCHES["shard_label"]."""
+    """S7's first launch of a step on CUDA tensors (the draw, the block's
+    union-find and labels), `cluster.sw_shard_bonds` and
+    `sw_shard_init_ref` on CPU tensors. Returns (labels (Ps, N) int32,
+    bond_dn (N,) uint8: the last row's Trotter bonds to the next rank's
+    first row). On the card one launch of the draw over R CTAs
+    (csrc/fk_shard.cu::fk_shard_draw_kernel, R, threads and the place of
+    its union-find from `card_shard_label_geometry`,
+    LAUNCHES["shard_label"]), which leaves the roots, labels and bath bits
+    the step's rounds and flip read."""
     ps, n = st.s.shape
     if st.cpu:
         return shard_label_init_ref(st)
     dev = st.s.device
     graph, lut = _shard_args(st)
     pw = -(-st.slices // 32)
-    st.scratch = [torch.empty(ps * n, dtype=torch.int32, device=dev)
-                  for _ in range(3)]
-    st.scratch.append(torch.empty(ps * n * pw if st.lut is not None else 1,
-                                  dtype=torch.int32, device=dev))
+    lab, root = (torch.empty(ps * n, dtype=torch.int32, device=dev)
+                 for _ in range(2))
+    ext = torch.empty(ps * n * pw if st.lut is not None else 1,
+                      dtype=torch.int32, device=dev)
     labels = torch.empty((ps, n), dtype=torch.int32, device=dev)
     bond_dn = torch.zeros(n, dtype=torch.uint8, device=dev)
-    _launch_label(st, graph, lut, 0, labels, bond_dn)
-    return labels, bond_dn
-
-
-def _launch_label(st, graph, lut, mode, labels, bond_dn=None, halo_prev=None,
-                  bond_up=None, halo_next=None, full_labels=None,
-                  changed=None):
-    ps, n = st.s.shape
+    R, threads, on_chip = card_shard_label_geometry(
+        st.slices, ps, n, dev, st.lut is not None)
+    regions = _regions(1, ps, n, R, 1, on_chip, dev)
     lib = _build.library("fk_shard")
-    rc = lib.fk_shard_label(
-        *graph, _build.ptr(st.b_sched), _build.ptr(st.jp), lut,
-        _build.ptr(st.s), _build.ptr(st.dn), _opt(st.full),
-        *map(_build.ptr, st.scratch), _build.ptr(labels), *map(_opt, (
-            bond_dn, halo_prev, bond_up, halo_next, full_labels, changed)),
-        ctypes.c_float(st.teff), ps, n, st.pg.nbr_idx.shape[1], st.slices,
-        int(st.k0), int(st.t), cr.wrap_int32(st.seed), int(mode),
-        int(st.asym), _build.stream_of(st.s.device))
-    _fk_shard(lib, "fk_shard_label", rc)
+    rc = lib.fk_shard_label_draw(
+        *graph, _build.ptr(inv_perm(st.pg)),
+        _build.ptr(boundary_sites(st.pg, R)), _build.ptr(st.b_sched),
+        _build.ptr(st.jp), lut, _build.ptr(st.s), _build.ptr(st.dn),
+        _opt(st.full), *map(_build.ptr, (lab, root, ext, labels, bond_dn)),
+        _opt(regions), ctypes.c_float(st.teff), ps, n,
+        st.pg.nbr_idx.shape[1], st.slices, int(st.k0), int(st.t),
+        cr.wrap_int32(st.seed), int(st.asym), R, threads,
+        _build.stream_of(dev))
+    _fk_shard(lib, "fk_shard_label_draw", rc)
     _build.LAUNCHES["shard_label"] += 1
+    # the rounds' cluster: the draw's R
+    st.scratch = {"lab": lab, "root": root, "ext": ext, "R": R,
+                  "threads": threads}
+    return labels, bond_dn
 
 
 def shard_label_round_ref(st, labels, bond_dn, halo_prev, bond_up,
@@ -1241,18 +1311,19 @@ def shard_label_round_ref(st, labels, bond_dn, halo_prev, bond_up,
 
 def shard_label_round(st, labels, bond_dn, halo_prev, bond_up, halo_next,
                       full_labels):
-    """S7's round on CUDA tensors (fk_shard_label mode 1, one launch,
-    `labels` updated in place), `cluster.sw_shard_round_ref` on CPU
-    tensors: halo_prev, halo_next (N,) int32, the previous rank's last and
-    the next rank's first row of labels; bond_up (N,) uint8, the previous
-    rank's bond_dn; full_labels (P, N) int32 or None. Returns (labels,
-    changed (1,) int32)."""
+    """S7's round on CUDA tensors (csrc/fk_shard.cu::fk_shard_round_kernel
+    over a cluster of the draw's R CTAs, one launch, `labels` updated in
+    place), `cluster.sw_shard_round_ref` on CPU tensors: halo_prev,
+    halo_next (N,) int32, the previous rank's last and the next rank's
+    first row of labels; bond_up (N,) uint8, the previous rank's bond_dn;
+    full_labels (P, N) int32 or None. Returns (labels, changed (1,)
+    int32). LAUNCHES["shard_label"]."""
     ps, n = st.s.shape
     if st.cpu:
         return shard_label_round_ref(st, labels, bond_dn, halo_prev, bond_up,
                                      halo_next, full_labels)
     dev = st.s.device
-    graph, lut = _shard_args(st)
+    _shard_args(st)
     _build.check_arg(labels, "labels", (ps, n), dev, torch.int32)
     for name, x, dt in (("bond_dn", bond_dn, torch.uint8),
                         ("halo_prev", halo_prev, torch.int32),
@@ -1263,8 +1334,16 @@ def shard_label_round(st, labels, bond_dn, halo_prev, bond_up, halo_next,
         _build.check_arg(full_labels, "full_labels", (st.slices, n), dev,
                          torch.int32)
     changed = torch.empty(1, dtype=torch.int32, device=dev)
-    _launch_label(st, graph, lut, 1, labels, bond_dn, halo_prev, bond_up,
-                  halo_next, full_labels, changed)
+    sc = st.scratch
+    lib = _build.library("fk_shard")
+    rc = lib.fk_shard_label_round(
+        *map(_build.ptr, (sc["ext"], sc["root"], sc["lab"], labels, bond_dn,
+                          halo_prev, bond_up, halo_next)),
+        _opt(full_labels), _build.ptr(changed), ps, n, st.slices,
+        int(st.k0), int(st.lut is not None), int(st.asym), sc["R"],
+        sc["threads"], _build.stream_of(dev))
+    _fk_shard(lib, "fk_shard_label_round", rc)
+    _build.LAUNCHES["shard_label"] += 1
     return labels, changed
 
 
@@ -1274,13 +1353,20 @@ def shard_label_flip_ref(st, labels):
 
 
 def shard_label_flip(st, labels):
-    """S7's flip on CUDA tensors (fk_shard_label mode 2, one launch, the
-    rows flipped in place), `cluster.sw_shard_flip_ref` on CPU tensors.
-    Returns the rows."""
+    """S7's flip on CUDA tensors (csrc/fk_shard.cu::fk_shard_flip_kernel, a
+    thread a node over a grid that covers the block, one launch, the rows
+    flipped in place), `cluster.sw_shard_flip_ref` on CPU tensors. Returns
+    the rows. LAUNCHES["shard_label"]."""
     if st.cpu:
         return shard_label_flip_ref(st, labels)
-    graph, lut = _shard_args(st)
+    ps, n = st.s.shape
+    _shard_args(st)
     _build.check_arg(labels, "labels", tuple(st.s.shape), st.s.device,
                      torch.int32)
-    _launch_label(st, graph, lut, 2, labels)
+    lib = _build.library("fk_shard")
+    rc = lib.fk_shard_label_flip(_build.ptr(labels), _build.ptr(st.s), ps,
+                                 n, int(st.t), cr.wrap_int32(st.seed),
+                                 _build.stream_of(st.s.device))
+    _fk_shard(lib, "fk_shard_label_flip", rc)
+    _build.LAUNCHES["shard_label"] += 1
     return st.s

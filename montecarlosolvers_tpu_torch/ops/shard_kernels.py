@@ -38,7 +38,9 @@ Each wrapper takes its plain version on a CPU tensor and launches its
 kernel on a CUDA tensor (LAUNCHES["shard_phase"], ["shard_line_part"],
 ["shard_line_accept"], ["generic_shard_phase"], ["generic_shard_line_part"],
 ["generic_shard_line_accept"], ["generic_shard_bath_slice"], one a
-launch); nothing falls back. A plain
+launch); nothing falls back. S5 runs each chain's slice over a
+thread-block cluster (`shard_bath_geometry`), and a slice no cluster holds
+on the file's first S5 kernel (["generic_shard_bath_slice_wide"]). A plain
 version takes its uniforms from the counter hash, or from `draws=`, which
 the tests fill with the JAX engines' own `jax.random` draws.
 """
@@ -51,6 +53,7 @@ import torch
 
 from montecarlosolvers_tpu_torch.ops import _build
 from montecarlosolvers_tpu_torch.ops import counter_rng as cr
+from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
 from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
 from montecarlosolvers_tpu_torch.ops import split as split_ops
 from montecarlosolvers_tpu_torch.ops.generic_kernels import _check_graph
@@ -67,6 +70,14 @@ PHASES = (((0, 2, 3, -1, 0), (1, 3, 2, +1, 1)),
 # The lines of color A are quarters xe, yo against ye, xo; those of color B
 # quarters ye, xo against xe, yo: (s1, o1, s2, o2) of each color.
 LINE_QUARTERS = ((0, 2, 3, 1), (2, 0, 1, 3))
+
+
+# S5's cluster route (csrc/generic_qmc_bath.cu::
+# generic_shard_bath_slice_cluster_kernel): the head of a CTA's dynamic
+# shared memory (16 spin-buffer pointers; the kernel has no static shared
+# memory), and at most gk.WORD_THREADS threads a CTA, registers for two
+# CTAs an SM
+SHARD_HEAD_BYTES = 16 * 8
 
 
 def _teff32(teff, like):
@@ -262,6 +273,83 @@ def generic_shard_bath_slice_ref(pg, b_sched, jp, teff, bath, s, full, kloc,
     out = s.clone()
     out[:, kloc] = s_k
     return out
+
+
+# ----------------------------------------- S5's cluster route, its geometry
+
+
+def shard_bath_smem_bytes(P, slots):
+    """Shared memory of one CTA of S5's cluster route, all of it dynamic
+    (csrc/generic_qmc_bath.cu::shard_bath_smem_bytes): the head, both
+    buffers of its `slots` slots' spins (a word a slot), the slots' line
+    words (ceil(P/32) a slot, P slices of the gathered state) and the bath
+    row, P floats."""
+    return SHARD_HEAD_BYTES + (2 + -(-P // 32)) * slots * 4 + 4 * P
+
+
+def shard_bath_geometry(chains, n, P, colors=1, sms=gk.NUM_SMS,
+                        resident=None):
+    """(R, threads) of S5's cluster route for `chains` chains' slice of an
+    n-site graph of `colors` classes at P slices: each chain's slice over a
+    cluster of R CTAs on `gk.word_layout`, R first the smallest of
+    CLUSTER_SIZES (R <= n) whose chains x R CTAs cover the card's `sms`
+    SMs and whose CTA holds its slots' spins, line words and the bath row
+    in shared memory (`shard_bath_smem_bytes` of `gk.word_slots`), else the
+    largest that holds them. Then, with `resident(R, threads)` (the wrapper
+    passes the card's cudaOccupancyMaxActiveClusters; None: any number), R
+    goes down to the largest whose chains' clusters all run at once; if
+    none does, the first R stays. `gk.word_threads` threads. 32 chains of
+    the 80x80 torus at P = 40 on an H100 SXM: R = 8, 512 threads. None when
+    no cluster of 16 CTAs holds the slice (with two classes at P = 40 an n
+    above 232,144) or the graph has more than 127 classes (`word_layout`):
+    the wrapper then runs the first kernel
+    (LAUNCHES["generic_shard_bath_slice_wide"])."""
+    if colors > 127:
+        return None
+    fits = [r for r in gk.CLUSTER_SIZES
+            if r <= max(n, 1) and shard_bath_smem_bytes(
+                P, gk.word_slots(n, r, colors)) <= _build.SMEM_LIMIT_BYTES]
+    if not fits:
+        return None
+    first = next((r for r in fits if chains * r >= sms), fits[-1])
+    if resident is not None:
+        for r in reversed([r for r in fits if r <= first]):
+            shape = (r, gk.word_threads(n, r, colors))
+            if resident(*shape) >= max(chains, 1):
+                return shape
+    return first, gk.word_threads(n, first, colors)
+
+
+def card_shard_bath_geometry(pg, chains, P, device, full_int8):
+    """`shard_bath_geometry` of `chains` chains of PackedGraph `pg` at P
+    slices on the CUDA card `device`: its SMs, and how many clusters of
+    each shape the card holds at once (`generic_qmc_bath_shard_max_active_
+    clusters`, for `full` float32 or int8). Cached per shape: the sharded
+    bath asks it every local slice step."""
+    n, colors = pg.nspins, pg.num_colors
+    shape = (str(device), n, colors, chains, P, bool(full_int8))
+    if shape in _S5_GEOMETRY:
+        return _S5_GEOMETRY[shape]
+
+    def resident(R, threads):
+        nr = gk.word_slots(n, R, colors)
+        key = (str(device), P, nr, R, threads, bool(full_int8))
+        if key not in _S5_RESIDENT:
+            lib = _build.library("generic_qmc_bath")
+            count = ctypes.c_int(0)
+            rc = lib.generic_qmc_bath_shard_max_active_clusters(
+                P, nr, R, threads, int(bool(full_int8)), ctypes.byref(count))
+            _build.raise_on_error(
+                lib, "generic_qmc_bath_shard_max_active_clusters", rc,
+                error_fn="generic_qmc_bath_anneal_error_string")
+            _S5_RESIDENT[key] = count.value
+        return _S5_RESIDENT[key]
+    _S5_GEOMETRY[shape] = shard_bath_geometry(
+        chains, n, P, colors, sms=gk.card_sms(device), resident=resident)
+    return _S5_GEOMETRY[shape]
+
+
+_S5_RESIDENT, _S5_GEOMETRY = {}, {}
 
 
 # ------------------------------------------------------------ kernel wrappers
@@ -464,31 +552,59 @@ def generic_shard_line_accept(pg, teff, total, s, c, t, seed, chain0=0,
 
 def generic_shard_bath_slice(pg, b_sched, jp, teff, bath, s, full, kloc,
                              kglob, t, seed, chain0=0):
-    """S5 on CUDA tensors (csrc/generic_qmc_bath.cu::
-    generic_shard_bath_slice_kernel, one launch, slice kloc of the slab
-    updated in place), `generic_shard_bath_slice_ref` on CPU tensors;
-    arguments as for the plain version (no `draws`; `full` contiguous or
-    the slab itself at one rank). Returns the slab."""
+    """S5 on CUDA tensors (csrc/generic_qmc_bath.cu, one launch, slice kloc
+    of the slab updated in place), `generic_shard_bath_slice_ref` on CPU
+    tensors; arguments as for the plain version (no `draws`; `full`
+    contiguous float32, the slab itself at one rank, or the int8 the
+    gather sends). Returns the slab.
+
+    Two hand-written kernels share the work, chosen by shape alone: where
+    `card_shard_bath_geometry` finds a cluster, the cluster route, each
+    chain's slice over R CTAs, `full` read as it comes
+    (LAUNCHES["generic_shard_bath_slice"]); else the file's first S5
+    kernel, one CTA a chain, on `full` as float32
+    (LAUNCHES["generic_shard_bath_slice_wide"]). Both equal the plain
+    version bitwise; neither is a fallback from a failure of the other."""
     if _build.route(s.device, "shard") == "cpu":
-        return generic_shard_bath_slice_ref(pg, b_sched, jp, teff, bath, s,
-                                            full, kloc, kglob, t, seed,
-                                            chain0)
+        return generic_shard_bath_slice_ref(
+            pg, b_sched, jp, teff, bath, s, full.to(torch.float32), kloc,
+            kglob, t, seed, chain0)
     chains, ps, n = s.shape
     P = full.shape[1]
     dev = s.device
     graph = _check_graph(pg, dev)
     _build.check_arg(s, "s", (chains, ps, pg.nspins), dev)
-    _build.check_arg(full, "full", (chains, P, pg.nspins), dev)
+    int8 = full.dtype == torch.int8
+    _build.check_arg(full, "full", (chains, P, pg.nspins), dev,
+                     torch.int8 if int8 else torch.float32)
     _build.check_arg(bath, "bath", (P, P), dev)
     _step_arg(b_sched, "b_sched", t, dev)
     _step_arg(jp, "jp", t, dev)
     if not (0 <= kloc < ps and 0 <= kglob < P):
         raise ValueError(f"slice {kloc} (global {kglob}) is not in a slab "
                          f"of {ps} of {P}")
+    lib = _build.library("generic_qmc_bath")
+    geometry = card_shard_bath_geometry(pg, chains, P, dev, int8)
+    if geometry is not None:
+        R, threads = geometry
+        slot_site, slot_starts, nbr_loc, nr = gk.word_layout(pg, R)
+        rc = lib.generic_qmc_bath_shard_slice_cluster(
+            *map(_build.ptr, (slot_site, slot_starts, nbr_loc, pg.nbr_J,
+                              pg.h, pg.perm, b_sched, jp, bath)),
+            ctypes.c_float(teff), ctypes.c_float(2.0 * teff), _build.ptr(s),
+            _build.ptr(full), int(int8), chains, ps, n, pg.nbr_idx.shape[1],
+            pg.num_colors, int(kloc), int(kglob), P, int(t),
+            cr.wrap_int32(seed), R, nr, threads, int(chain0),
+            _build.stream_of(dev))
+        _build.raise_on_error(lib, "generic_qmc_bath_shard_slice_cluster", rc,
+                              error_fn="generic_qmc_bath_anneal_error_string")
+        _build.LAUNCHES["generic_shard_bath_slice"] += 1
+        return s
+    if int8:
+        full = full.to(torch.float32)
     snap = None if pg.proper else torch.empty((chains, n),
                                               dtype=torch.float32,
                                               device=dev)
-    lib = _build.library("generic_qmc_bath")
     rc = lib.generic_qmc_bath_shard_slice(
         *graph, _build.ptr(b_sched), _build.ptr(jp), _build.ptr(bath),
         ctypes.c_float(teff), ctypes.c_float(2.0 * teff), _build.ptr(s),
@@ -498,5 +614,5 @@ def generic_shard_bath_slice(pg, b_sched, jp, teff, bath, s, full, kloc,
         _build.stream_of(dev))
     _build.raise_on_error(lib, "generic_qmc_bath_shard_slice", rc,
                           error_fn="generic_qmc_bath_anneal_error_string")
-    _build.LAUNCHES["generic_shard_bath_slice"] += 1
+    _build.LAUNCHES["generic_shard_bath_slice_wide"] += 1
     return s

@@ -193,11 +193,13 @@ def _packed_of(problem):
                      "LatticeProblem")
 
 
-def _gathered(s, group):
+def _gathered(s, group, as_float=True):
     """Every rank's slab of `group` gathered along the slice axis (dim 1),
     sent as int8: the +/-1 state rounds to nothing, and a quarter of the
-    bytes crosses (gloo stages them through host memory)."""
-    return coll.gather(s.to(torch.int8), group, 1).to(torch.float32)
+    bytes crosses (gloo stages them through host memory). Returned as
+    float32, or with as_float=False as the int8 itself, which S5 reads."""
+    out = coll.gather(s.to(torch.int8), group, 1)
+    return out.to(torch.float32) if as_float else out
 
 
 def _ring_colour(replicas, me):
@@ -274,14 +276,15 @@ def anneal_sharded(problem, a_sched, b_sched, temp, confs, generator, mesh,
         elif ps == 1 and replicas > 1:
             colours, mine = _ring_colour(replicas, me)
             for colour in range(colours):
-                full = _gathered(s, group)
+                full = _gathered(s, group, as_float=False)
                 if colour == mine:
                     s = shk.generic_shard_bath_slice(
                         pg, b, jp, teff, bath, s, full, 0, k0, t, seed,
                         chain0)
         else:
             for kloc in range(ps):
-                full = s if replicas == 1 else _gathered(s, group)
+                full = (s if replicas == 1
+                        else _gathered(s, group, as_float=False))
                 s = shk.generic_shard_bath_slice(
                     pg, b, jp, teff, bath, s, full, kloc, k0 + kloc, t, seed,
                     chain0)

@@ -84,12 +84,35 @@ def test_every_arm_prints_a_line_on_the_cpu(capsys):
         assert r["points"] == 2 and isinstance(r["degraded"], bool)
         # the CPU runs the plain versions: no kernel is launched
         assert r["launches"] == {} and r["device"] == "cpu"
-        assert r["lattice"] == "gaussian_torus(16, 0)"
+        assert r["lattice"] == "random_2d_lattice(16, rng=0, lattice=True)"
         assert "nvidia_smi" in r
     for r in lines[:2]:  # sa and piqmc read out quality
         assert r["quality_tau"] == 4
         assert -2.0 < r["best_energy_per_spin"] <= r["mean_energy_per_spin"]
         assert r["mean_energy_per_spin"] < 0
+
+
+@pytest.mark.parametrize("side", [16, 80])
+def test_fallback_lattice_is_bench_py_s(side, monkeypatch):
+    """problem_of's fallback is bench.py::_problem's, the seeded open
+    lattice random_2d_lattice(side, rng=0, lattice=True): the same coupling
+    planes as the JAX instance, exactly (tol = 0), and no wrap column, so
+    the split engines take the 5-slot stencil."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from montecarlosolvers_tpu.models import instances as jax_instances
+
+    monkeypatch.setenv("MCS_TPU_INSTANCE_DIR", "/nonexistent")
+    problem, e_gs, name = throughput.problem_of("cpu", side)
+    assert e_gs is None
+    assert name == f"random_2d_lattice({side}, rng=0, lattice=True)"
+    want, _ = jax_instances.random_2d_lattice(side, rng=0, lattice=True)
+    for key in ("j_right", "j_down", "h_plane"):
+        got = getattr(problem, key).numpy()
+        ref = np.asarray(getattr(want, key))
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        np.testing.assert_array_equal(got, ref)
+    assert not problem.col_wrap and not want.col_wrap
 
 
 def test_arms_keep_bench_py_shapes():

@@ -46,6 +46,7 @@ from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
 from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
 from montecarlosolvers_tpu_torch.ops import packed as packed_ops
 from montecarlosolvers_tpu_torch.ops import plane_kernels as pk
+from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
 from montecarlosolvers_tpu_torch.ops import split_kernels as sk
 
 
@@ -305,9 +306,9 @@ def _packed(name):
             prob = instances.gaussian_torus(80, 0, device="cpu").to_generic()
         elif name == "torus81":
             prob = instances.gaussian_torus(81, 0, device="cpu").to_generic()
-        elif name == "lattice81":
+        elif name in ("lattice80", "lattice81"):
             _PACKED[name] = packed_ops.packed_from_lattice(
-                instances.gaussian_torus(81, 0, device="cpu"))
+                instances.gaussian_torus(int(name[-2:]), 0, device="cpu"))
             return _PACKED[name]
         else:
             prob = instances.chimera_graph(16, rng=0, device="cpu")[0]
@@ -396,7 +397,8 @@ def test_generic_qmc_geometry_covers_the_cards_sms(geometry, chains, sms,
 
 @pytest.mark.parametrize("graph,R", [("torus80", 8), ("torus81", 16),
                                      ("lattice81", 4), ("chimera16", 8),
-                                     ("chimera16", 1)])
+                                     ("chimera16", 1), ("lattice80", 8),
+                                     ("lattice81", 8), ("lattice81", 16)])
 def test_word_layout_holds_every_site_once(graph, R):
     """CTA r holds the r-th chunk of every class, at the same slots in
     every CTA; nbr_loc names each neighbour's CTA and slot."""
@@ -888,3 +890,173 @@ def test_line_and_houdayer_constants_match_the_sources():
     assert "mcs::nodes_smem_bytes(1, n, R, 1, 2, true)" in hsrc
     assert ck.label_smem_bytes(1, 1728, 4) == 256 + 8 + ck.region_bytes(
         1, 1728, 4, 1)
+
+
+# S5's cluster route (csrc/generic_qmc_bath.cu::
+# generic_shard_bath_slice_cluster_kernel) on gk.word_layout: (graph,
+# chains, P) -> R, the smallest of CLUSTER_SIZES whose chains x R CTAs
+# cover the 132 SMs (32 chains of the 80x80 torus's checkerboard: 8) and
+# whose CTA holds its slots' spins (two buffers), line words and the bath
+# row; one chain the largest that holds them (16)
+@pytest.mark.parametrize("graph,chains,P,R", [
+    ("lattice80", 32, 40, 8), ("lattice81", 32, 40, 8),
+    ("lattice80", 32, 4, 8), ("torus80", 32, 40, 8), ("chimera16", 32, 20, 8),
+    ("lattice80", 1, 40, 16), ("lattice80", 132, 40, 1),
+    ("lattice80", 66, 5, 2), ("lattice80", 8, 40, 16)])
+def test_shard_bath_geometry(graph, chains, P, R):
+    pg = _packed(graph)
+    r, threads = shk.shard_bath_geometry(chains, pg.nspins, P, pg.num_colors)
+    assert r == R
+    assert chains * r >= 132 or r == 16
+    _, _, _, nr = gk.word_layout(pg, r)
+    assert nr <= gk.word_slots(pg.nspins, r, pg.num_colors)
+    # the head (16 spin-buffer pointers), a CTA's slots' spins twice, their
+    # ceil(P/32) line words and the bath row: all its shared memory
+    words = -(-P // 32)
+    smem = 16 * 8 + 2 * nr * 4 + words * nr * 4 + 4 * P
+    assert smem == shk.shard_bath_smem_bytes(P, nr)
+    assert shk.shard_bath_smem_bytes(
+        P, gk.word_slots(pg.nspins, r, pg.num_colors)) <= \
+        _build.SMEM_LIMIT_BYTES
+    assert threads == gk.word_threads(pg.nspins, r, pg.num_colors)
+    assert threads <= gk.WORD_THREADS
+
+
+@pytest.mark.parametrize("chains,sms,R", [
+    (32, 132, 8), (32, 114, 4), (32, 128, 4), (32, 129, 8), (8, 132, 16),
+    (132, 132, 1), (132, 264, 2)])
+def test_shard_bath_geometry_covers_the_cards_sms(chains, sms, R):
+    """The rule covers the card's own SM count (an H100 PCIe has 114)."""
+    pg = _packed("lattice80")
+    assert shk.shard_bath_geometry(chains, pg.nspins, 40, pg.num_colors,
+                                   sms=sms)[0] == R
+
+
+def test_shard_bath_geometry_takes_what_the_card_holds():
+    """With the card's residency, R goes down to the largest whose chains'
+    clusters all run at once (never below the SM count's first one's
+    fits), and stays where none does."""
+    pg = _packed("lattice80")
+    n, c = pg.nspins, pg.num_colors
+
+    def holds(per):
+        return lambda R, threads: per.get(R, 0)
+    assert shk.shard_bath_geometry(32, n, 40, c,
+                                   resident=holds({8: 33})) == (
+        8, gk.word_threads(n, 8, c))
+    assert shk.shard_bath_geometry(32, n, 40, c,
+                                   resident=holds({8: 31, 4: 66}))[0] == 4
+    assert shk.shard_bath_geometry(32, n, 40, c,
+                                   resident=holds({8: 31, 4: 31, 2: 40,
+                                                   1: 99}))[0] == 2
+    assert shk.shard_bath_geometry(32, n, 40, c, resident=holds({}))[0] == 8
+
+
+def test_shard_bath_geometry_limit():
+    """The first slice past 16 CTAs' shared memory takes S5's first kernel
+    (None), in n and in P; so does a graph of 128 classes."""
+    rule = shk.shard_bath_geometry
+    assert rule(1, 232_144, 40, 2) == (16, gk.WORD_THREADS)
+    assert rule(1, 232_145, 40, 2) is None
+    assert rule(32, 6400, 40, 127) is not None
+    assert rule(32, 6400, 40, 128) is None
+    # n = 6400 at growing P: 6 + ceil(P / 32) words a slot... until the
+    # bath row and the words pass the limit
+    last = max(p for p in range(2, 60000, 97)
+               if rule(1, 6400, p, 2) is not None)
+    assert rule(1, 6400, last + 97, 2) is None
+    for r in gk.CLUSTER_SIZES:
+        assert shk.shard_bath_smem_bytes(
+            40, gk.word_slots(232_145, r, 2)) > _build.SMEM_LIMIT_BYTES
+
+
+def test_shard_bath_constants_match_the_source():
+    """SHARD_HEAD_BYTES is the kernel's head, shard_bath_smem_bytes counts
+    what its launcher asks, and its threads stay within the launch bound
+    (generic_words.cuh::kWordThreads, gk.WORD_THREADS)."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(gk.__file__).parent.parent / "csrc"
+    src = (csrc / "generic_qmc_bath.cu").read_text()
+    head = re.search(r"constexpr int kShardHeadBytes =\s*([^;]+);",
+                     src).group(1)
+    assert eval(head.replace("sizeof(uint32_t*)", "8")) == \
+        shk.SHARD_HEAD_BYTES
+    body = src[src.index("inline size_t shard_bath_smem_bytes(int P, int nr)"):]
+    body = body[:body.index("\n}\n")]
+    assert "(2 + static_cast<size_t>((P + 31) / 32)) * nr * sizeof(uint32_t)" \
+        in body
+    assert "static_cast<size_t>(P) * sizeof(float)" in body
+    assert "__launch_bounds__(mcs::gw::kWordThreads, 2)\n" \
+        "generic_shard_bath_slice_cluster_kernel" in src
+    words = (csrc / "generic_words.cuh").read_text()
+    assert re.search(r"constexpr int kWordThreads = (\d+);",
+                     words).group(1) == str(gk.WORD_THREADS)
+
+
+# S7's draw over a cluster (csrc/fk_shard.cu::fk_shard_draw_kernel): (P,
+# Ps, n) -> (R, threads, on_chip): the one chain's R, at most 16 and at
+# most n, its union-find (Ps ceil(n / R) nodes) in each CTA's shared memory
+# at these shapes; the rounds over the same R
+@pytest.mark.parametrize("P,ps,n,R,threads", [
+    (40, 40, 6400, 16, 1024), (40, 10, 6400, 16, 1024),
+    (40, 4, 6400, 16, 1024), (12, 3, 30, 16, 32), (8, 2, 5, 5, 32),
+    (40, 40, 1024, 16, 1024), (4, 1, 6400, 16, 416)])
+def test_shard_label_geometry(P, ps, n, R, threads):
+    assert ck.shard_label_geometry(P, ps, n) == (R, threads, True)
+    assert ck.shard_label_threads(ps, n, R) == threads
+    nodes = ps * -(-n // R)
+    want = ck.LABEL_HEAD_BYTES + 8 * P + -(-nodes * 6 // 4) * 4
+    assert ck.shard_label_smem_bytes(P, ps, n, R) == want
+    assert want <= _build.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("P,ps,n_last", [
+    (40, 40, 15_456), (40, 10, 61_824), (40, 4, 154_576), (8, 1, 619_008)])
+def test_shard_label_geometry_limit(P, ps, n_last):
+    """The block's union-find stays in 16 CTAs' shared memory exactly while
+    a CTA's region, beside the head and the bath's rows, fits
+    SMEM_LIMIT_BYTES; past it the same 16 CTAs keep their regions in
+    device memory, and their shared memory holds the head and the rows."""
+    assert ck.shard_label_geometry(P, ps, n_last) == (16, 1024, True)
+    assert ck.shard_label_geometry(P, ps, n_last + 1) == (16, 1024, False)
+    assert ck.shard_label_smem_bytes(P, ps, n_last, 16) <= \
+        _build.SMEM_LIMIT_BYTES
+    assert ck.shard_label_smem_bytes(P, ps, n_last + 1, 16) > \
+        _build.SMEM_LIMIT_BYTES
+    assert ck.shard_label_smem_bytes(P, ps, n_last + 1, 16, False) == \
+        ck.LABEL_HEAD_BYTES + 8 * P
+
+
+def test_shard_label_geometry_takes_what_the_card_holds():
+    """With the card's residency R goes down to the largest cluster the
+    card holds; where it holds none, the first R stays."""
+    def holds(largest):
+        return lambda R, threads, on_chip: int(R <= largest)
+    assert ck.shard_label_geometry(40, 40, 6400, resident=holds(16))[0] == 16
+    assert ck.shard_label_geometry(40, 10, 6400, resident=holds(9))[0] == 9
+    assert ck.shard_label_geometry(40, 10, 6400,
+                                   resident=holds(0))[0] == 16
+    # down past the shared memory's limit: the regions go to device memory
+    assert ck.shard_label_geometry(40, 40, 15_000, resident=holds(8)) == (
+        8, 1024, False)
+    assert ck.shard_label_geometry(40, 40, 15_000, resident=holds(16)) == (
+        16, 1024, True)
+
+
+def test_shard_label_constants_match_the_source():
+    """The draw's threads, head and shared memory are the labeling core's
+    (fk_nodes.cuh) and fk_label's: LABEL_THREADS, LABEL_HEAD_BYTES, the
+    bath's 2 P floats and a region of Ps rows, one int32 a node."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(ck.__file__).parent.parent / "csrc"
+    src = (csrc / "fk_shard.cu").read_text()
+    assert re.search(r"constexpr int kLabelThreads = (\d+);",
+                     src).group(1) == str(ck.LABEL_THREADS)
+    assert "mcs::nodes_smem_bytes(Ps, n, R, 1, 2 * P, on_chip)" in src
+    nodes = (csrc / "fk_nodes.cuh").read_text()
+    assert re.search(r"constexpr int kNodesHeadBytes = (\d+);",
+                     nodes).group(1) == str(ck.LABEL_HEAD_BYTES)
+    assert re.search(r"constexpr int kMaxRanks = (\d+);",
+                     nodes).group(1) == str(ck.CLUSTER_MAX)

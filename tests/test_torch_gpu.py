@@ -2153,19 +2153,57 @@ def test_one_rank_mesh_equals_the_single_device_engines(cuda):
             lat, a, b, 0.3, confs, gen(), global_moves=gm))
 
 
-def test_shard_rest_kernels_equal_plain(cuda):
+def _force_shard_routes(monkeypatch, route):
+    """Force S5's and S7's route: "rule" leaves the rules of shape, an int
+    R forces the cluster route over R CTAs (at most the graph's sites),
+    "wide" S5's first kernel and S7's draw with its union-find in device
+    memory at the rule's R."""
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
+
+    if route == "rule":
+        return
+    if route == "wide":
+        monkeypatch.setattr(shk, "card_shard_bath_geometry",
+                            lambda *a, **k: None)
+        rule = ck.card_shard_label_geometry
+        monkeypatch.setattr(ck, "card_shard_label_geometry",
+                            lambda *a, **k: (*rule(*a, **k)[:2], False))
+        return
+
+    def bath_shape(pg, chains, P, dev, int8):
+        r = min(route, pg.nspins)
+        return r, gk.word_threads(pg.nspins, r, pg.num_colors)
+
+    def label_shape(P, ps, n, dev, bath):
+        return ck.shard_label_shape(P, ps, n, min(route, n))
+    monkeypatch.setattr(shk, "card_shard_bath_geometry", bath_shape)
+    monkeypatch.setattr(ck, "card_shard_label_geometry", label_shape)
+
+
+@pytest.mark.parametrize("route", ["rule", 1, 3, 16, "wide"])
+def test_shard_rest_kernels_equal_plain(cuda, monkeypatch, route):
     """S5, S6 and S7 against their plain versions on a slab of 3 of 12
-    rows: S5 every slice step on an IsingProblem and on an odd torus's
-    improper checkerboard, and at one rank on the slab itself; S6 a round
-    from a seed with random messages (and random fresh sites of the other
-    ranks with a bath), rules "local" and "full", its field sums and flip;
-    S7 the draw, a round on random neighbour labels, the flip."""
+    rows, S5 and S7 on each route (the rules of shape, the cluster route at
+    a forced R, S5's first kernel with S7's union-find in device memory):
+    S5 every slice step on an IsingProblem
+    and on an odd torus's improper checkerboard, chain0 = 7, with the
+    gathered state as float32 and as int8, and at one rank on the slab
+    itself; S6 a round from a seed with random messages (and random fresh
+    sites of the other ranks with a bath), rules "local" and "full", its
+    field sums and flip; S7 the draw, a round on random neighbour labels,
+    the flip, without a bath, with one and on a table not symmetric in
+    ring distance, on the slab (Ps < P) and on the whole ring (Ps = P),
+    fields on. Each launch under its route's key."""
     from montecarlosolvers_tpu_torch.ops import cluster as cl
     from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
     from montecarlosolvers_tpu_torch.ops import packed as packed_ops
     from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
     from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
 
+    _force_shard_routes(monkeypatch, route)
+    wide = route == "wide"
     g = torch.Generator().manual_seed(5)
 
     def spins(*shape):
@@ -2176,32 +2214,38 @@ def test_shard_rest_kernels_equal_plain(cuda):
     jp = schedules.jperp(torch.linspace(2.0, 0.5, 4, device=cuda), 2.4)
     lut = schedules.bath_lookuptable(P, 0.3, device=cuda)
     bath = piqmc_ops.bath_matrix_of(lut, P, cuda)
+    _build.reset_launches()
     for pg in (packed_ops.build_packed(instances.random_graph(
             30, 70, rng=2, with_fields=True, device=cuda)[0]),
                packed_ops.packed_from_lattice(
                    instances.gaussian_torus(5, 0, device=cuda))):
         full = spins(5, P, pg.nspins)
-        slab = full[:, k0:k0 + 3].contiguous()
-        for kloc in range(3):
-            want = shk.generic_shard_bath_slice_ref(
-                pg, b, jp, 2.4, bath, slab, full, kloc, k0 + kloc, 2, 11, 7)
-            got = shk.generic_shard_bath_slice(
-                pg, b, jp, 2.4, bath, slab.clone(), full, kloc, k0 + kloc, 2,
-                11, 7)
-            assert torch.equal(got, want)
-            slab = want
+        for gathered in (full, full.to(torch.int8)):
+            slab = full[:, k0:k0 + 3].contiguous()
+            for kloc in range(3):
+                want = shk.generic_shard_bath_slice_ref(
+                    pg, b, jp, 2.4, bath, slab, full, kloc, k0 + kloc, 2, 11,
+                    7)
+                got = shk.generic_shard_bath_slice(
+                    pg, b, jp, 2.4, bath, slab.clone(), gathered, kloc,
+                    k0 + kloc, 2, 11, 7)
+                assert torch.equal(got, want)
+                slab = want
         whole = full.clone()
         want = shk.generic_shard_bath_slice_ref(pg, b, jp, 2.4, bath, whole,
                                                 whole, 4, 4, 2, 11)
         got = shk.generic_shard_bath_slice(pg, b, jp, 2.4, bath, whole,
                                            whole, 4, 4, 2, 11)
         assert torch.equal(got, want)
+    s5 = "generic_shard_bath_slice" + ("_wide" if wide else "")
+    assert _build.LAUNCHES[s5] == 2 * (2 * 3 + 1)
     prob = instances.random_graph(30, 70, rng=2, with_fields=True,
                                   device=cuda)[0]
     pg = packed_ops.build_packed(prob)
     n = pg.nspins
     state = spins(1, n).expand(P, n).contiguous()
     state[:, :5] *= -1.0
+    state[2:7, 7:12] *= -1.0
     rows = state[k0:k0 + 3].contiguous()
     up, dn = state[k0 - 1].contiguous(), state[k0 + 3].contiguous()
     words = -(-3 * n // 32)
@@ -2212,11 +2256,11 @@ def test_shard_rest_kernels_equal_plain(cuda):
     ff = cl.pack_bits((torch.rand(4, 3 * n, generator=g) < 0.1)).reshape(
         -1).to(cuda)
 
-    def step(x, rule, with_bath):
+    def step(x, rule, with_bath, first=k0, halo=(up, dn)):
         table = (_asymmetric_table(P, 0.3, cuda) if with_bath == "asym"
                  else lut if with_bath else None)
-        return ck.ShardStep(pg, x, up, dn, state if with_bath else None, k0,
-                            P, b, jp, 2.4, 2, 11, table, rule,
+        return ck.ShardStep(pg, x, *halo, state if with_bath else None,
+                            first, P, b, jp, 2.4, 2, 11, table, rule,
                             x[1, 4:5].clone(), asym=with_bath == "asym")
     for rule in ("local", "full"):
         for with_bath in (False, True):
@@ -2237,7 +2281,9 @@ def test_shard_rest_kernels_equal_plain(cuda):
                 ck.shard_wolff_flip_ref(step(rows, rule, with_bath), got[0],
                                         rows_full))
     # S7 also on a bath table not symmetric in ring distance: its one-way
-    # pairs relaxed in the block, its cross-rank pulls kept directed
+    # pairs relaxed in the block, its cross-rank pulls kept directed; and
+    # on the whole ring of one rank, where no round runs
+    _build.reset_launches()
     for with_bath in (False, True, "asym"):
         st, ref = step(rows.clone(), "local", with_bath), step(
             rows, "local", with_bath)
@@ -2255,6 +2301,57 @@ def test_shard_rest_kernels_equal_plain(cuda):
         assert all(torch.equal(x, y) for x, y in zip(rg, rw))
         assert torch.equal(ck.shard_label_flip(st, rg[0]),
                            ck.shard_label_flip_ref(ref, rw[0]))
+        ring = (state[-1].contiguous(), state[0].contiguous())
+        st, ref = (step(state.clone(), "local", with_bath, 0, ring),
+                   step(state, "local", with_bath, 0, ring))
+        got, want = ck.shard_label_init(st), ck.shard_label_init_ref(ref)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert torch.equal(ck.shard_label_flip(st, got[0]),
+                           ck.shard_label_flip_ref(ref, want[0]))
+    assert _build.LAUNCHES["shard_label"] == 6 + 9
+
+
+def test_main_path_shapes_take_no_wide_shard_key(cuda):
+    """At the shapes the parallel phase of chip_smoke.py runs (the 80x80
+    torus, P = 40: the bath's 32 chains, one rank and a slab of 4; the
+    cluster engines' one chain at one rank and a slab of 10), S5 and S7
+    take the cluster route: their rules of shape give a cluster (S7's
+    union-find in shared memory), and a
+    step of each engine on the one-rank mesh launches no "_wide" key."""
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
+    from montecarlosolvers_tpu_torch.parallel import make_mesh
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+    from montecarlosolvers_tpu_torch.parallel import trotter
+
+    torus = instances.gaussian_torus(80, 0, device=cuda)
+    pg = packed_ops.packed_from_lattice(torus)
+    for int8 in (False, True):
+        assert shk.card_shard_bath_geometry(pg, 32, 40, cuda, int8) \
+            is not None
+    for ps in (40, 10, 4):
+        for bath in (False, True):
+            assert ck.card_shard_label_geometry(40, ps, 6400, cuda,
+                                                bath)[2]
+    gen = lambda: torch.Generator().manual_seed(4)  # noqa: E731
+    a = schedules.transverse_field(2.0, 1e-8, 2, device=cuda)
+    b = torch.ones_like(a)
+    lut = schedules.bath_lookuptable(40, 0.01, device=cuda)
+    mesh = make_mesh(replica=1, device_type="cuda")
+    confs = qmc.replicate(sa.random_state(gen(), 6400, batch=(32,),
+                                          device=cuda), 40)
+    _build.reset_launches()
+    pmesh.full_tensor(trotter.anneal_sharded(
+        torus, a, b, 1.0 / 40, confs, gen(), mesh, lookuptable=lut))
+    one = confs[0].contiguous()
+    for table in (None, lut):
+        pmesh.full_tensor(trotter.anneal_sw_sharded(
+            torus.to_generic(), a, b, 1.0 / 40, one, gen(), mesh,
+            lookuptable=table))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "generic_shard_bath_slice": 80, "shard_label": 8}
 
 
 def test_one_rank_mesh_runs_the_rest_of_the_trotter_axis(cuda):

@@ -599,6 +599,35 @@ def test_sharded_bath_is_the_lockstep_plain_version(pools, ranks, slices,
     assert placements == "[Shard(dim=1)]"
 
 
+@pytest.mark.parametrize("kind", sorted(W.BATH_PROBLEMS))
+def test_bath_slice_takes_the_int8_gather(kind):
+    """S5 reads the gathered state as the int8 the collective sends
+    (`trotter._gathered(..., as_float=False)`): its wrapper given the int8
+    state equals the plain version on the float32 one, every local slice
+    of rank 1's slab of 4 at chain0 = 3, on an IsingProblem, an odd torus's
+    improper checkerboard and an even lattice."""
+    from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
+
+    problem, confs, a, b, temp, lut = W.bath_case(kind, 8)
+    pg = trotter._packed_of(problem)
+    bath = piqmc_ops.bath_matrix_of(lut, 8, confs.device)
+    bq, jp, teff = schedules.qmc_terms(a, b, temp, 8, 1, confs.device)
+    full = packed_ops.pack_state(pg, confs).contiguous()
+    gathered = full.to(torch.int8)
+    assert gathered.dtype == torch.int8
+    assert torch.equal(gathered.to(torch.float32), full)
+    slab = full[:, 2:4].contiguous()
+    for kloc in range(2):
+        want = shk.generic_shard_bath_slice_ref(
+            pg, bq, jp, teff, bath, slab, full, kloc, 2 + kloc, 1, 19, 3)
+        got = shk.generic_shard_bath_slice(
+            pg, bq, jp, teff, bath, slab.clone(), gathered, kloc, 2 + kloc, 1,
+            19, 3)
+        assert torch.equal(got, want)
+        slab = want
+    assert (slab != full[:, 2:4]).any()
+
+
 def test_sharded_bath_energy_does_not_increase_at_zero_temperature(pools):
     """tests/test_parallel.py:215 on the port (P = 8 on 4 ranks)."""
     before, after = pools[4].run("bath_zero_temperature")

@@ -87,13 +87,16 @@ cluster size R, R = 0 for the file's first kernel (where the checkout has
 named kernels (split_sa, split_qmc_bath, plane_sa, split_qmc, plane_qmc,
 plane_svmc, split_svmc, packed_sa, generic_qmc, generic_qmc_bath,
 dense_sa, fk_label, fk_wolff, energy_bits, packed_svmc, houdayer,
-fk_line). The Houdayer move (`time_houdayer_line`: ms a move queued
+fk_line, shard_bath_slice, shard_label). The Houdayer move (`time_houdayer_line`: ms a move queued
 behind a spin kernel, in site order and, where the checkout has it, in
 place on a packed state, at ICM's 768 and 24 pairs of
 random_3d_lattice(12, rng=0) and 48 pairs of the L x L torus's generic
 form) and fk_line (`cluster_kernels.sw_bath_anneal` without local sweeps,
 WC3 and WC2, 8 chains, P = 40, alpha = 1e-2, ms a step) time as the rest,
-through wrappers every checkout since their slice has. `--qmc-phased`
+through wrappers every checkout since their slice has; so do S5 and S7,
+the sharded bath's slice step and the sharded SW labels (`time_shard`:
+ms a launch or a draw queued, and their one-rank engines' ms a sweep or
+a step beside the single-device kernels'). `--qmc-phased`
 adds a row of kernel B's per-phase route at the same shape (its
 `qmc_geometry` answering that no cluster holds it). `--hw-rng` times
 instead kernels A, B, 4 and 5
@@ -203,6 +206,8 @@ def main():
         return
     if wanted("houdayer") or wanted("fk_line"):
         time_houdayer_line(dev, spins, taus, emit, wanted)
+    if wanted("shard_bath_slice") or wanted("shard_label"):
+        time_shard(dev, spins, emit, wanted)
     if wanted("energy_bits"):
         time_energy_bits(args, dev, sl, spins, emit)
     if wanted("packed_svmc"):
@@ -1049,6 +1054,113 @@ def time_houdayer_line(dev, spins, taus, emit, wanted):
                      packed_ops.build_packed(torus), chains, P, dev, wc3)
                      if hasattr(ck, "card_line_geometry") else None),
                  ms_per_step=slope_ms(run, taus(25)))
+
+
+def time_shard(dev, spins, emit, wanted):
+    """S5 and S7 at the parallel phase's shapes (chip_smoke.py::
+    shard_rest_checks: the 80 x 80 torus, P = 40, rank 1's slab of 10
+    rows of 4 ranks), through wrappers every checkout with S5 and S7 has.
+    shard_bath_slice: S5's ms a launch queued behind a spin kernel, 32
+    chains, alpha = 1e-2, the gathered state float32 (and int8, where the
+    checkout reads it); then the one-rank sharded bath
+    (`trotter.anneal_sharded(lookuptable=)` on a one-rank NCCL mesh), ms
+    a sweep by the slope, beside the generic bath kernel's
+    (`generic_kernels.anneal_generic_qmc_bath`, sequential).
+    shard_label: S7's ms a draw queued, one chain on the torus's generic
+    form, without and with bath bonds; then the one-rank sharded SW
+    (`trotter.anneal_sw_sharded`), ms a step by the slope, beside
+    fk_label's one chain (`qmc.anneal_sw`), without a bath, with one and
+    on a table whose couplings of ring offsets d < P / 2 are scaled by
+    1.5 (not symmetric in ring distance)."""
+    from montecarlosolvers_tpu_torch import schedules
+    from montecarlosolvers_tpu_torch.models import instances
+    from montecarlosolvers_tpu_torch.ops import cluster_kernels as ck
+    from montecarlosolvers_tpu_torch.ops import generic_kernels as gk
+    from montecarlosolvers_tpu_torch.ops import packed as packed_ops
+    from montecarlosolvers_tpu_torch.ops import piqmc as piqmc_ops
+    from montecarlosolvers_tpu_torch.ops import shard_kernels as shk
+    from montecarlosolvers_tpu_torch.parallel import make_mesh
+    from montecarlosolvers_tpu_torch.parallel import mesh as pmesh
+    from montecarlosolvers_tpu_torch.parallel import trotter
+    from montecarlosolvers_tpu_torch.solvers import qmc
+
+    P, chains, ps, t, n = 40, 32, 10, 15, 6400
+    k0 = ps
+    torus = instances.gaussian_torus(80, seed=0, device=dev)
+    gamma = schedules.transverse_field(3.0, 1e-8, 20, device=dev)
+    b20 = torch.ones_like(gamma)
+    jp = schedules.jperp(gamma, 1.0).contiguous()
+    lut = schedules.bath_lookuptable(P, 1e-2, device=dev)
+    mesh = make_mesh(replica=1, device_type="cuda")
+
+    def gen():
+        return torch.Generator().manual_seed(5)
+
+    def field(tau):
+        g = schedules.transverse_field(3.0, 1e-8, tau, device=dev)
+        return g, torch.ones_like(g)
+
+    if wanted("shard_bath_slice"):
+        pg = packed_ops.packed_from_lattice(torus)
+        bath = piqmc_ops.bath_matrix_of(lut, P, dev)
+        full = packed_ops.pack_state(pg, spins(chains, P, n)).contiguous()
+        slab = full[:, k0:k0 + ps].contiguous()
+        args = (pg, b20, jp, 1.0, bath)
+
+        def s5(f):
+            return lambda: shk.generic_shard_bath_slice(
+                *args, slab, f, ps - 1, k0 + ps - 1, t, 77)
+        rec = {"kernel": "shard_bath_slice", "chains": chains, "P": P,
+               "slab": ps, "ms": queued_ms(s5(full), 200)}
+        if hasattr(shk, "shard_bath_geometry"):
+            rec["int8_ms"] = queued_ms(s5(full.to(torch.int8)), 200)
+            rec["geometry"] = shk.card_shard_bath_geometry(pg, chains, P,
+                                                           dev, False)
+        confs = spins(chains, P, n)
+        rec["ms_per_sweep_sharded"] = slope_ms(
+            lambda tau: pmesh.full_tensor(trotter.anneal_sharded(
+                torus, *field(tau), 1.0 / P, confs, gen(), mesh,
+                lookuptable=lut)), (10, 40))
+        rec["ms_per_sweep_generic_bath"] = slope_ms(
+            lambda tau: gk.anneal_generic_qmc_bath(
+                torus, *field(tau), 1.0 / P, lut, confs, 77), (50, 200))
+        emit(**rec)
+    if wanted("shard_label"):
+        gtorus = torus.to_generic()
+        gp = packed_ops.build_packed(gtorus)
+        one = spins(1, n)
+        state = packed_ops.pack_state(gp, one.expand(P, n)[None])[0]
+        state[:, : n // 8] *= -1.0
+        state = state.contiguous()
+        rows = state[k0:k0 + ps].contiguous()
+        up, dn = state[k0 - 1].contiguous(), state[k0 + ps].contiguous()
+        for with_bath in (False, True):
+            def draw(with_bath=with_bath):
+                return ck.shard_label_init(ck.ShardStep(
+                    gp, rows, up, dn, state if with_bath else None, k0, P,
+                    b20, jp, 1.0, t, 77, lut if with_bath else None))
+            rec = {"kernel": "shard_label", "block": "slab", "rows": ps,
+                   "P": P, "bath": with_bath,
+                   "ms_draw": queued_ms(draw, 20)}
+            if hasattr(ck, "shard_label_geometry"):
+                rec["geometry"] = ck.card_shard_label_geometry(
+                    P, ps, n, dev, with_bath)
+            emit(**rec)
+        d = torch.arange(1, P, device=dev)
+        asym = torch.where(2 * d < P, lut * 1.5, lut).contiguous()
+        confs1 = one.expand(P, n).contiguous()
+        for tname, table in (("none", None), ("bath", lut),
+                             ("asymmetric", asym)):
+            emit(kernel="shard_label", block="one_rank_engine", P=P,
+                 table=tname,
+                 ms_per_step_sharded=slope_ms(
+                     lambda tau: pmesh.full_tensor(trotter.anneal_sw_sharded(
+                         gtorus, *field(tau), 1.0 / P, confs1, gen(), mesh,
+                         lookuptable=table)), (5, 20)),
+                 ms_per_step_single_device=slope_ms(
+                     lambda tau: qmc.anneal_sw(
+                         gtorus, *field(tau), 1.0 / P, confs1, gen(),
+                         lookuptable=table), (5, 20)))
 
 
 def call_ms(run, reps=30):
